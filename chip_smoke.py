@@ -7,19 +7,29 @@ order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel of the path, from the sources in this checkout;
 3. kernels: each kernel against its plain PyTorch twin at the shapes each
-   path below gives it (K1 must be bit-equal), then timed with CUDA events
-   beside the twin and the bytes bound;
+   path below gives it (each must be bit-equal), then timed with CUDA
+   events beside the twin and the bytes bound: K1 (msgd commit), K2
+   (elastic force + retract), K3 (Adam), and the server's per-GRAD apply
+   around K3;
 4. the headline path: ``mesh_launch.run`` at the flagship configuration
    (CNN side 32, 544,522 parameters, EASGD, dp=1) for two epochs with the
    steady-state throughput leg; then three EASGD steps at dp=4 on the card
    held against the same steps on the CPU;
-5. ``launch --np 1 --opt msgd`` for one epoch.
+5. ``launch --np 1 --opt msgd`` for one epoch;
+6. the asynchronous parameter-server gang, every role a thread of this
+   process over the in-process router (``launch.run_gang``), every shard
+   and every worker on the card, at the flagship widths: DOWNPOUR np=4,
+   EAMSGD np=12 (BASELINE configs 2 and 3), server-side Adam np=4,
+   adam-single np=2 and comm-only EAMSGD (lr 0) np=4; then a one-worker
+   Adam gang on the card held against the same gang on the CPU.
 
 The kernels' launch counters are set to 0 just before each path and read
-just after it: a path that did not launch K1 once per step fails.  The
-last two lines are one JSON object describing every kernel (``launches``
-is the headline run's count, which grows with the passes the throughput
-leg needs; ``paths`` holds every path's launches and steps), and
+just after it: a path that did not launch each of its kernels exactly as
+often as its steps (or its servers' applies) say fails, and so does one
+that launched a kernel it should not.  The last two lines are one JSON
+object describing every kernel (``launches`` is the count of the kernel's
+main path: the headline for K1, comm-only EAMSGD for K2, server-side Adam
+for K3; ``paths`` holds every path's launches and steps), and
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
@@ -53,6 +63,12 @@ QUEUED_CALLS = 100
 # change to the state.
 DP4_MAX_ABS_GAP = 2e-6
 DP4_GAP_OVER_CHANGE = 1e-3
+# Limits of the one-worker Adam gang's card-vs-CPU comparison (see
+# adam_gang_vs_cpu).
+ADAM_MAX_ABS_GAP = 3e-4
+ADAM_GAP_OVER_CHANGE = 1e-3
+# The flagship widths every gang path runs at (BASELINE configs 2-3).
+GANG_BASE = dict(model="cnn", side=32, batch=128, device="cuda")
 
 
 def nvidia_smi() -> str:
@@ -62,14 +78,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, queued=False) -> float:
+def time_ms(torch, fn, queued=False, kernels_per_call=1) -> float:
     """Mean ms per call of ``fn()`` on the current stream, by CUDA events
     after a warm-up.  ``queued``: the stream is held by a sleep kernel while
     the host queues the calls, so the events see the device time of
     back-to-back launches, without the host's per-call overhead; otherwise
     the time is that of calls issued from a host loop, as a training step
-    issues them."""
-    n = QUEUED_CALLS if queued else TIMED_LAUNCHES
+    issues them.  ``kernels_per_call`` (a plain twin's several PyTorch
+    kernels) shortens the queued run so the launch queue never fills."""
+    n = QUEUED_CALLS // kernels_per_call if queued else TIMED_LAUNCHES
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -98,6 +115,28 @@ def rotating(fn, sets):
     does after the forward and backward passes."""
     it = itertools.cycle(sets)
     return lambda: fn(*next(it))
+
+
+def n_sets(set_bytes):
+    """How many buffer sets of ``set_bytes`` together exceed twice the L2."""
+    return max(2, math.ceil(2 * L2_BYTES / set_bytes))
+
+
+def timed_entry(torch, kernel, plain, sets, n_bytes, n_ops, plain_kernels):
+    """Times of ``kernel`` and ``plain`` (which launches ``plain_kernels``
+    PyTorch kernels a call) over rotating buffer ``sets``, and the bound
+    of the work: ``n_bytes`` moved at the HBM rate or ``n_ops`` f32
+    operations at the peak rate, whichever is longer."""
+    kernel, plain = rotating(kernel, sets), rotating(plain, sets)
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOPS * 1e3
+    return {
+        "ms": time_ms(torch, kernel, queued=True),
+        "call_ms": time_ms(torch, kernel),
+        "plain_ms": time_ms(torch, plain, queued=True, kernels_per_call=plain_kernels),
+        "plain_call_ms": time_ms(torch, plain),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
 
 
 def check_k1(torch, n_mesh, n_msgd):
@@ -140,23 +179,17 @@ def check_k1(torch, n_mesh, n_msgd):
                         f"K1 differs from its twin: rows={rows} {form} "
                         f"sug={retract} l2wd={l2wd} max_abs_err={err}")
             elems = rows * n
-            set_bytes = (4 if retract else 3) * 4 * elems
+            # w, vt and g (and sug) read; w and vt written.  The twin runs
+            # clr*g, w - step, vt - step (and - sug): one kernel each.
+            n_vecs = 4 if retract else 3
             sets = [(w.clone(), vt.clone(), g.clone(), None if s is None else s.clone())
-                    for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes)))]
-            kernel = rotating(lambda a, b, c, d: fused_nesterov_commit(
-                a, b, c, clr, sug=d), sets)
-            plain = rotating(lambda a, b, c, d: fused_nesterov_commit_reference(
-                a, b, c, clr, sug=d), sets)
-            n_bytes = (6 if retract else 5) * 4 * elems
-            bound_ms = max(n_bytes / HBM_BYTES_PER_S,
-                           (4 if retract else 3) * elems / F32_FLOPS) * 1e3
-            rows_out.append({
-                "rows": rows, "form": form, "n": n, "sug": retract,
-                "ms": time_ms(torch, kernel, queued=True),
-                "call_ms": time_ms(torch, kernel),
-                "plain_ms": time_ms(torch, plain, queued=True),
-                "plain_call_ms": time_ms(torch, plain),
-                "bound_ms": bound_ms})
+                    for _ in range(n_sets(n_vecs * 4 * elems))]
+            times = timed_entry(
+                torch, lambda a, b, c, d: fused_nesterov_commit(a, b, c, clr, sug=d),
+                lambda a, b, c, d: fused_nesterov_commit_reference(a, b, c, clr, sug=d),
+                sets, (n_vecs + 2) * 4 * elems, n_vecs * elems, plain_kernels=n_vecs)
+            rows_out.append({"rows": rows, "form": form, "n": n, "sug": retract,
+                             **times})
             del sets
     print("K1 shapes: " + json.dumps(rows_out))
     main_row = rows_out[0]
@@ -171,8 +204,115 @@ def check_k1(torch, n_mesh, n_msgd):
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes K1
+    }
+
+
+def check_k2(torch, n_path):
+    """K2 bit-equal to its twin at the comm-only EAMSGD path's length and
+    at a length that is not a multiple of 4 (the scalar tail); timed at
+    the path's length.  Returns the kernel's entry for the closing line."""
+    from mpit_tpu_torch.ops.fused_update import fused_elastic, fused_elastic_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mva = 0.45  # ps_eamsgd_lr0_np4's
+    max_err = 0.0
+    for n in (n_path, n_path + 1):
+        w, c = (torch.randn(n, device=dev, generator=gen) for _ in range(2))
+        want_w, want_sug = fused_elastic_reference(w, c, mva)
+        kw = w.clone()
+        _, sug = fused_elastic(kw, c, mva)
+        torch.cuda.synchronize()
+        err = max(float((kw - want_w).abs().max()), float((sug - want_sug).abs().max()))
+        max_err = max(max_err, err)
+        if not (torch.equal(kw, want_w) and torch.equal(sug, want_sug)):
+            raise AssertionError(f"K2 differs from its twin at n={n}: "
+                                 f"max_abs_err={err}")
+    sets = [tuple(torch.randn(n_path, device=dev, generator=gen) for _ in range(2))
+            for _ in range(n_sets(8 * n_path))]
+    times = timed_entry(torch, lambda a, b: fused_elastic(a, b, mva),
+                        lambda a, b: fused_elastic_reference(a, b, mva),
+                        sets, 16 * n_path, 3 * n_path, plain_kernels=3)
+    print("K2 shapes: " + json.dumps([{"n": n_path, **times}]))
+    return {
+        "name": "fused_elastic", "route": "cuda",
+        "source": "mpit_tpu_torch/ops/csrc/fused_update.cu",
+        "replaces": "mpit_tpu/ops/fused_update.py:220",
+        "launches": None, "paths": {}, "max_abs_err": max_err,
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+        # torch.lerp(w, c, mva) gives the retracted w but not sug.
+        "library_ms": None,
+    }
+
+
+def check_k3(torch, n_shard, n_full):
+    """K3 bit-equal to its twin at the server's shard (np=4) and at the
+    whole vector (adam-single), and at a length that is not a multiple of
+    4; timed at both path lengths, beside the server's whole per-GRAD
+    apply at the shard's length (the frame's copy to the card, the device
+    step counter and lr_t, K3).  Returns the kernel's entry (times at the
+    server's shard, its main path)."""
+    import numpy as np
+
+    from mpit_tpu_torch.ops.fused_update import fused_adam, fused_adam_reference
+    from mpit_tpu_torch.optim import rules
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lr_t = torch.tensor(1e-3 * math.sqrt(1 - 0.999) / (1 - 0.9), device=dev)
+    max_err = 0.0
+    rows = []
+    for n in (n_shard, n_full, n_shard + 2):
+        p, g, m, v = (torch.randn(n, device=dev, generator=gen) for _ in range(4))
+        v.abs_()
+        want = fused_adam_reference(p, g, m, v, lr_t)
+        kp, km, kv = p.clone(), m.clone(), v.clone()
+        fused_adam(kp, g, km, kv, lr_t)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip((kp, km, kv), want))
+        max_err = max(max_err, err)
+        if not all(torch.equal(a, b) for a, b in zip((kp, km, kv), want)):
+            raise AssertionError(f"K3 differs from its twin at n={n}: "
+                                 f"max_abs_err={err}")
+        if n == n_shard + 2:
+            continue
+        sets = [tuple(x.clone() for x in (p, g, m, v)) for _ in range(n_sets(16 * n))]
+        times = timed_entry(
+            torch, lambda a, b, c, d: fused_adam(a, b, c, d, lr_t),
+            lambda a, b, c, d: fused_adam_reference(a, b, c, d, lr_t),
+            sets, 28 * n, 12 * n, plain_kernels=12)
+        rows.append({"n": n, **times})
+    # The server's per-GRAD apply at the shard's length: the GRAD frame's
+    # copy from host staging to the card, then the adam rule (step
+    # counter, lr_t, K3), as ParamServer._recv_grad runs it.
+    rule = rules.make("adam", lr=1e-3)
+    frame = np.random.default_rng(3).standard_normal(n_shard, dtype=np.float32)
+    shard = torch.randn(n_shard, device=dev, generator=gen)
+    state = rule.init(shard)
+
+    def frame_copy():
+        return torch.from_numpy(frame).to(dev, copy=True)
+
+    def server_apply():
+        rule.apply(shard, frame_copy(), state)
+
+    rows[0]["server_apply_call_ms"] = time_ms(torch, server_apply)
+    rows[0]["frame_copy_call_ms"] = time_ms(torch, frame_copy)
+    print("K3 shapes: " + json.dumps(rows))
+    main_row = rows[0]
+    return {
+        "name": "fused_adam", "route": "cuda",
+        "source": "mpit_tpu_torch/ops/csrc/fused_update.cu",
+        "replaces": "mpit_tpu/ops/fused_update.py:157",
+        "launches": None, "paths": {}, "max_abs_err": max_err,
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        # torch.optim's fused Adam places eps after dividing sqrt(v) by
+        # sqrt(1 - beta2^t) and corrects the bias itself: another function.
+        "library_ms": None,
     }
 
 
@@ -242,10 +382,10 @@ def easgd_dp4(torch, commit):
             state, loss = tr.step(state, xs[s].to(device), ys[s].to(device))
         if device == "cuda":
             torch.cuda.synchronize()
-            launches = commit.launches
-            if launches != tr.steps:
+            launches, steps = commit.launches, tr.steps
+            if launches != steps:
                 raise AssertionError(f"dp=4: {launches} K1 launches in "
-                                     f"{tr.steps} steps")
+                                     f"{steps} steps")
         if not bool(torch.isfinite(loss).all()):
             raise AssertionError(f"dp=4 loss not finite on {device}: {loss}")
         finals[device] = {k: v.cpu() for k, v in state.items()}
@@ -273,7 +413,7 @@ def easgd_dp4(torch, commit):
                 and r["gap_over_change"] <= DP4_GAP_OVER_CHANGE):
             raise AssertionError(f"dp=4: {key} on the card differs from the CPU "
                                  f"beyond the limits: {r}")
-    return {"launches": launches, "steps": 3}
+    return {"launches": launches, "steps": steps}
 
 
 def launch_msgd(torch, commit):
@@ -293,6 +433,176 @@ def launch_msgd(torch, commit):
     return {"launches": launches, "steps": res["steps"]}
 
 
+def run_gang_path(torch, name, size, kernels, data, **kw):
+    """One gang path: the counters set to 0 just before, read just after.
+    Checks every shard and every worker's ``w`` on the path's device (the
+    card unless ``device`` says otherwise), finite losses, and a falling
+    epoch-mean loss on every worker when ``lr > 0`` over two epochs.
+    Returns the results, the launches and the reading printed for the
+    path."""
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, run_gang
+
+    cfg = LAUNCH_DEFAULTS.merged(GANG_BASE, **kw)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = run_gang(size, cfg, data=data, timeout=600)
+    wall = time.perf_counter() - t0
+    launches = {key: k.launches for key, k in kernels.items()}
+    servers = [r for r in results.values() if r["role"] == "server"]
+    workers = [r for r in results.values() if r["role"] == "worker"]
+    for r in servers:
+        if r["param"].device.type != cfg.device:
+            raise AssertionError(f"{name}: a server shard is on {r['param'].device}")
+    for r in workers:
+        if r["w"].device.type != cfg.device:
+            raise AssertionError(f"{name}: a worker's w is on {r['w'].device}")
+        losses = [h["avg_loss"] for h in r["history"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: losses not finite: {losses}")
+        if cfg.lr > 0 and len(losses) == 2 and not losses[1] < losses[0]:
+            raise AssertionError(f"{name}: a worker's loss did not fall: {losses}")
+    steps = [r["steps"] for r in workers]
+    reading = {
+        "wall_s": wall,
+        "samples_per_sec": sum(steps) * cfg.batch / wall,
+        "worker_steps": steps,
+        "grads_applied": [r["grads_applied"] for r in servers],
+        "params_served": [r["params_served"] for r in servers],
+        "losses": [[h["avg_loss"] for h in r["history"]] for r in workers],
+        "test_err": [r["final_test_err"] for r in workers],
+        "launches": launches,
+    }
+    print(f"{name}: " + json.dumps(reading))
+    return results, launches, reading
+
+
+def expect_launches(name, launches, want):
+    """Every kernel launched exactly as ``want`` says (0 where absent)."""
+    for key, got in launches.items():
+        if got != want.get(key, 0):
+            raise AssertionError(f"{name}: {key} launched {got} times, "
+                                 f"expected {want.get(key, 0)}")
+
+
+def gang_paths(torch, kernels, paths):
+    """The five gang paths; fills ``paths[kernel][path]`` with every
+    kernel's launches on every path (0 where the path runs none of it)."""
+    from mpit_tpu_torch.data.mnist import load_mnist
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+
+    data, _ = load_mnist(side=GANG_BASE["side"])
+
+    def worker_steps(results):
+        return sum(r["steps"] for r in results.values() if r["role"] == "worker")
+
+    def record(name, res, launches, **extra):
+        for key in kernels:
+            paths[key][name] = {"launches": launches[key],
+                                "steps": worker_steps(res), **extra}
+
+    name = "ps_downpour_np4"
+    res, launches, _ = run_gang_path(torch, name, 4, kernels, data, opt="downpour",
+                                     lr=1e-2, su=1, epochs=2)
+    expect_launches(name, launches, {})
+    record(name, res, launches)
+
+    name = "ps_eamsgd_np12"
+    res, launches, _ = run_gang_path(torch, name, 12, kernels, data, opt="eamsgd",
+                                     lr=1e-2, mom=0.99, mva=0.15, su=10, epochs=2)
+    expect_launches(name, launches, {"k1": worker_steps(res)})
+    record(name, res, launches)
+
+    name = "ps_adam_np4"
+    res, launches, _ = run_gang_path(torch, name, 4, kernels, data, opt="adam",
+                                     lr=1e-3, su=1, epochs=1)
+    applied = sum(r["grads_applied"] for r in res.values() if r["role"] == "server")
+    if applied != 2 * worker_steps(res):
+        raise AssertionError(f"{name}: {applied} applies for {worker_steps(res)} "
+                             "worker steps on 2 servers")
+    expect_launches(name, launches, {"k3": applied})
+    record(name, res, launches, server_applies=applied)
+
+    name = "ps_adam_single_np2"
+    res, launches, _ = run_gang_path(torch, name, 2, kernels, data,
+                                     opt="adam-single", lr=1e-3, epochs=1)
+    expect_launches(name, launches, {"k3": worker_steps(res)})
+    record(name, res, launches)
+
+    # Comm-only EAMSGD: the workers start from different w0 (seed + rank)
+    # and only the elastic force moves them, so they must end closer
+    # together than they started.
+    name = "ps_eamsgd_lr0_np4"
+    res, launches, _ = run_gang_path(torch, name, 4, kernels, data,
+                                     opt="eamsgd", lr=0.0, mva=0.45, su=1,
+                                     epochs=1)
+    expect_launches(name, launches, {"k2": worker_steps(res)})
+    ranks = sorted(r for r, v in res.items() if v["role"] == "worker")
+    module = make_model(GANG_BASE["model"], GANG_BASE["side"])
+    w0 = {r: flatten_module(module, 1 + r).w0 for r in ranks}
+    start = max(float((w0[a] - w0[b]).norm()) for a in ranks for b in ranks)
+    end = max(float((res[a]["w"] - res[b]["w"]).norm()) for a in ranks for b in ranks)
+    print(f"{name}: largest distance between workers {start} -> {end}")
+    if not end < start:
+        raise AssertionError(f"{name}: the workers did not draw together "
+                             f"({start} -> {end})")
+    record(name, res, launches, distance=[start, end])
+
+
+def adam_gang_vs_cpu(torch, kernels):
+    """A one-worker server-side Adam gang (np=3: 2 servers, 1 worker) for
+    three steps on the card, held against the same gang on the CPU."""
+    import numpy as np
+
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+
+    side, batch = GANG_BASE["side"], GANG_BASE["batch"]
+    # Uniform random pixels: no max-pool ties (see easgd_dp4).
+    rng = np.random.default_rng(4)
+    x = rng.random((3 * batch, side * side), dtype=np.float32)
+    y = rng.integers(0, 10, size=3 * batch)
+    data = (x, y, x[:batch], y[:batch])
+    finals = {}
+    for device in ("cuda", "cpu"):
+        res, launches, _ = run_gang_path(
+            torch, f"adam_gang_{device}", 3, kernels, data, opt="adam",
+            lr=1e-3, su=1, epochs=1, device=device)
+        if device == "cuda":
+            steps = sum(r["steps"] for r in res.values() if r["role"] == "worker")
+            applied = sum(r["grads_applied"] for r in res.values()
+                          if r["role"] == "server")
+            if steps != 3 or applied != 2 * steps:
+                raise AssertionError(f"adam gang: {applied} applies on 2 servers "
+                                     f"for {steps} worker steps, expected 3")
+            expect_launches("adam_gang_cuda", launches, {"k3": applied})
+            cuda_launches = launches["k3"]
+        finals[device] = torch.cat([res[r]["param"].cpu() for r in sorted(res)
+                                    if res[r]["role"] == "server"])
+    w0 = flatten_module(make_model(GANG_BASE["model"], side), 2).w0
+    # A step moves each element by about lr = 1e-3 (Adam's step is lr_t
+    # m/sqrt(v), with |m|/sqrt(v) near 1 at every step's start), so three
+    # steps change it by up to 3e-3.  Grads on the card and the CPU differ
+    # by summation order (cuDNN may pick FFT convolutions); where a grad
+    # is near 0 the normalized step amplifies that: the largest gap was
+    # 4.7e-5 and the norm ratio 8.1e-5 on an H100.  A dropped or doubled
+    # apply on one server moves every element of its shard by ~1e-3
+    # (3x the max-abs limit) and its norm by about a third of the whole
+    # change (300x the ratio limit).
+    gap = finals["cuda"] - finals["cpu"]
+    change = finals["cpu"] - w0
+    reading = {"max_abs_gap": float(gap.abs().max()),
+               "max_abs_change": float(change.abs().max()),
+               "gap_over_change": float(gap.norm() / change.norm())}
+    print("adam gang: 3 steps, cuda vs cpu " + json.dumps(reading))
+    if not (reading["max_abs_gap"] <= ADAM_MAX_ABS_GAP
+            and reading["gap_over_change"] <= ADAM_GAP_OVER_CHANGE):
+        raise AssertionError(f"adam gang: the card differs from the CPU beyond "
+                             f"the limits: {reading}")
+    return {"launches": cuda_launches, "steps": steps, **reading}
+
+
 def main() -> int:
     import torch
 
@@ -304,7 +614,7 @@ def main() -> int:
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.mnist import make_model
     from mpit_tpu_torch.ops import build
-    from mpit_tpu_torch.ops.fused_update import fused_nesterov_commit
+    from mpit_tpu_torch.ops.fused_update import fused_adam, fused_elastic, fused_nesterov_commit
     from mpit_tpu_torch.train.mesh_launch import FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS
     from mpit_tpu_torch.train.trainer import TRAINER_DEFAULTS
     from mpit_tpu_torch.utils.platform import pin_float32
@@ -325,15 +635,26 @@ def main() -> int:
     n_mesh = flatten_module(make_model(mesh_cfg.model, mesh_cfg.side), 1).size
     n_msgd = flatten_module(make_model(TRAINER_DEFAULTS.model, TRAINER_DEFAULTS.side), 1).size
     k1 = check_k1(torch, n_mesh, n_msgd)
+    # The gang paths run the flagship CNN: K2 sweeps the whole vector, K3
+    # a server's shard at np=4 (the first of two; the last takes the
+    # remainder) and the whole vector under adam-single.
+    k2 = check_k2(torch, n_mesh)
+    k3 = check_k3(torch, n_mesh // 2, n_mesh)
     paths = k1["paths"]
     paths["headline"] = headline(torch, fused_nesterov_commit)
     paths["easgd_dp4"] = easgd_dp4(torch, fused_nesterov_commit)
     paths["launch_msgd"] = launch_msgd(torch, fused_nesterov_commit)
     k1["launches"] = paths["headline"]["launches"]
 
+    kernels = {"k1": fused_nesterov_commit, "k2": fused_elastic, "k3": fused_adam}
+    gang_paths(torch, kernels, {"k1": paths, "k2": k2["paths"], "k3": k3["paths"]})
+    k3["paths"]["adam_gang_vs_cpu"] = adam_gang_vs_cpu(torch, kernels)
+    k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
+    k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

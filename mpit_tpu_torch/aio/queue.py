@@ -1,0 +1,53 @@
+"""FIFO task queue (analog of reference queue.lua:3-47).
+
+A copy of :mod:`mpit_tpu.aio.queue`: the port imports nothing of the JAX
+package.
+
+A deliberately tiny, allocation-light FIFO.  The reference implements it as
+a Lua table with ``first``/``last`` indices; here ``collections.deque``
+provides the same O(1) push/pop with less code.  Kept as its own class (not
+a bare deque) so the scheduler's contract — ``push``/``pop``/``len`` — stays
+explicit and swappable (e.g. a priority variant for QoS-tagged transfers).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Deque, Generic, Iterator, Optional, TypeVar
+
+T = TypeVar("T")
+
+
+class Queue(Generic[T]):
+    """First-in first-out queue."""
+
+    __slots__ = ("_items",)
+
+    def __init__(self) -> None:
+        self._items: Deque[T] = deque()
+
+    def push(self, item: T) -> None:
+        self._items.append(item)
+
+    def pop(self) -> Optional[T]:
+        """Pop the oldest item, or None when empty (reference queue.lua:24-35)."""
+        if not self._items:
+            return None
+        return self._items.popleft()
+
+    def peek(self) -> Optional[T]:
+        if not self._items:
+            return None
+        return self._items[0]
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __bool__(self) -> bool:
+        return bool(self._items)
+
+    def __iter__(self) -> Iterator[T]:
+        return iter(self._items)
+
+    def clear(self) -> None:
+        self._items.clear()

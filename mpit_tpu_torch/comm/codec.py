@@ -1,0 +1,305 @@
+"""Wire codecs for the PS hot path — quantized shard transfer.
+
+The port of :mod:`mpit_tpu.comm.codec`.  A codec turns a float32 shard
+slice into a smaller wire frame and back, selected by name via
+``MPIT_PS_CODEC`` and negotiated per client<->server pair through the INIT
+v2 announcement (``[offset, size, codec_id]`` — ps/tags.py).
+
+Codecs
+------
+- ``none``  (wire id 0) — identity.  The client/server hot paths special
+  -case it (``identity=True``) to keep zero-copy sends.
+- ``bf16``  (wire id 1) — fp32 -> bfloat16 by mantissa truncation (the
+  top 16 bits of the IEEE-754 word).  2x smaller, ~2^-8 relative error.
+- ``int8``  (wire id 2) — per-block absmax scaling: each 1024-element
+  block ships one fp32 scale (absmax/127) plus int8 codes, ~3.9x
+  smaller.  Lossy enough to need **error feedback** on the gradient
+  path: the client keeps a per-shard residual, adds it to the next
+  gradient before quantizing, and stores the fresh quantization error
+  back (``encode_into(..., residual=r)``).
+
+Frame layout (``int8``, for an n-element slice with B=1024)::
+
+    [ scales: ceil(n/B) x f32 | codes: n x i8 ]
+
+The layout is a pure function of ``size``, so both sides derive buffer
+sizes from the INIT announcement — frames carry no per-message header.
+A codec mismatch therefore shows up as a wire-size mismatch and fails
+loudly in the transports' exact-size receive contract.
+
+Encode and decode on the host are the JAX package's numpy code, copied so
+that a frame's bytes are the same in both packages (its native C++ fast
+path computes the same bytes and comes with the native library).  On the
+server's gradient path the frame is decoded by torch ops on the shard's
+device instead: :meth:`Codec.split_wire` gives typed views of the staging
+buffer, the server copies them to the device, and :meth:`Codec.decode_parts`
+dequantizes there.  bfloat16 travels as ``int16`` views (numpy has no
+bfloat16) and is reinterpreted by torch.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+_LITTLE = sys.byteorder == "little"
+
+#: int8 per-block absmax granularity.  4 bytes of scale per 1024 codes
+#: keeps the overhead at ~0.4% while bounding each element's error by
+#: its own block's absmax/254 (tighter than one whole-shard scale).
+BLOCK = 1024
+
+#: int8 host-codec tile: elements processed per pass so the working
+#: temporaries (~2 f32 tiles = 2 MB) stay cache-resident.
+_TILE = 256 * BLOCK
+
+ENV = "MPIT_PS_CODEC"
+
+
+def _nblocks(size: int) -> int:
+    return (size + BLOCK - 1) // BLOCK
+
+
+class Codec:
+    """One wire format.  Stateless — error-feedback residuals live with
+    the caller (the client owns one per shard)."""
+
+    name: str = "?"
+    wire_id: int = -1
+    identity: bool = False  # hot paths skip encode/decode entirely
+    uses_residual: bool = False
+
+    def wire_nbytes(self, size: int) -> int:
+        """Exact frame bytes for ``size`` float32 elements."""
+        raise NotImplementedError
+
+    def encode_into(
+        self,
+        x: np.ndarray,
+        wire: np.ndarray,
+        residual: Optional[np.ndarray] = None,
+    ) -> None:
+        """Encode float32 ``x`` into the uint8 ``wire`` buffer.  With
+        ``residual`` (same shape as ``x``), quantize ``x + residual``
+        and store the new quantization error back into ``residual``
+        (error feedback — gradient path only)."""
+        raise NotImplementedError
+
+    def decode_into(self, wire: np.ndarray, out: np.ndarray) -> None:
+        """Decode a frame into the float32 ``out`` buffer (host path)."""
+        raise NotImplementedError
+
+    def split_wire(self, wire: np.ndarray, size: int) -> List[np.ndarray]:
+        """Typed zero-copy views over a staging buffer, in the order
+        ``decode_parts`` consumes them."""
+        raise NotImplementedError
+
+    def decode_parts(self, parts: List[torch.Tensor], size: int) -> torch.Tensor:
+        """The ``split_wire`` parts, as tensors on one device ->
+        float32[size] on that device."""
+        raise NotImplementedError
+
+
+class NoneCodec(Codec):
+    name = "none"
+    wire_id = 0
+    identity = True
+
+    def wire_nbytes(self, size: int) -> int:
+        return 4 * size
+
+    def encode_into(self, x, wire, residual=None):
+        wire.view(np.float32)[: x.size] = x
+
+    def decode_into(self, wire, out):
+        out[:] = wire.view(np.float32)[: out.size]
+
+    def split_wire(self, wire, size):
+        return [wire.view(np.float32)[:size]]
+
+    def decode_parts(self, parts, size):
+        return parts[0]
+
+
+class Bf16Codec(Codec):
+    name = "bf16"
+    wire_id = 1
+
+    def wire_nbytes(self, size: int) -> int:
+        return 2 * size
+
+    def encode_into(self, x, wire, residual=None):
+        # Truncation: keep the top 16 bits of the fp32 word — on a
+        # little-endian host one strided copy of the high half-words.
+        # (Residual is accepted for interface uniformity but bf16's ~2^-8
+        # relative error needs no feedback; it stays zero.)
+        if _LITTLE:
+            wire.view(np.uint16)[: x.size] = x.view(np.uint16)[1::2]
+        else:  # pragma: no cover - big-endian fallback
+            wire.view(np.uint16)[: x.size] = (
+                x.view(np.uint32) >> 16
+            ).astype(np.uint16)
+
+    def decode_into(self, wire, out):
+        if _LITTLE:
+            o16 = out.view(np.uint16)
+            o16[0::2] = 0  # low mantissa halves
+            o16[1::2] = wire.view(np.uint16)[: out.size]
+        else:  # pragma: no cover - big-endian fallback
+            out.view(np.uint32)[:] = (
+                wire.view(np.uint16)[: out.size].astype(np.uint32) << 16
+            )
+
+    def split_wire(self, wire, size):
+        # int16, not bfloat16: numpy has no bfloat16; decode_parts
+        # reinterprets the bits.
+        return [wire.view(np.int16)[:size]]
+
+    def decode_parts(self, parts, size):
+        return parts[0].view(torch.bfloat16).float()
+
+
+class Int8Codec(Codec):
+    name = "int8"
+    wire_id = 2
+    uses_residual = True
+
+    def wire_nbytes(self, size: int) -> int:
+        return 4 * _nblocks(size) + size
+
+    def _views(self, wire: np.ndarray, size: int):
+        nb = _nblocks(size)
+        scales = wire[: 4 * nb].view(np.float32)
+        codes = wire[4 * nb : 4 * nb + size].view(np.int8)
+        return scales, codes
+
+    def encode_into(self, x, wire, residual=None):
+        # Cache-tiled and pass-frugal: the slice is processed in
+        # _TILE-element tiles whose temporaries stay cache-resident.
+        # absmax uses max/min (no |x| temp); codes come from one multiply
+        # by the reciprocal scale + in-place rint; no clip pass —
+        # |work| <= block absmax guarantees |rint(work * (1/scale))| <= 127.
+        size = x.size
+        nb = _nblocks(size)
+        nfull, main = size // BLOCK, (size // BLOCK) * BLOCK
+        scales, codes = self._views(wire, size)
+        if nfull:
+            work = np.empty(min(_TILE, main), np.float32)
+            q = np.empty_like(work)
+            inv = np.empty(min(_TILE, main) // BLOCK, np.float32)
+            for lo in range(0, main, _TILE):
+                hi = min(lo + _TILE, main)
+                tb = (hi - lo) // BLOCK  # tile block count
+                w2 = work[: hi - lo].reshape(tb, BLOCK)
+                q2 = q[: hi - lo].reshape(tb, BLOCK)
+                if residual is None:
+                    np.copyto(work[: hi - lo], x[lo:hi])
+                else:
+                    np.add(x[lo:hi], residual[lo:hi],
+                           out=work[: hi - lo])
+                sc = scales[lo // BLOCK : lo // BLOCK + tb]
+                np.max(w2, axis=1, out=sc)
+                np.min(w2, axis=1, out=inv[:tb])
+                np.maximum(sc, -inv[:tb], out=sc)
+                # scale = absmax/127; zero blocks keep scale 1.0 (codes
+                # are all zero either way; avoids inf reciprocals).
+                np.divide(sc, 127.0, out=sc)
+                sc[sc == 0.0] = 1.0
+                np.divide(1.0, sc, out=inv[:tb])
+                np.multiply(w2, inv[:tb, None], out=q2)
+                np.rint(q2, out=q2)
+                np.copyto(codes[lo:hi].reshape(tb, BLOCK), q2,
+                          casting="unsafe")
+                if residual is not None:
+                    q2 *= sc[:, None]  # q2 is now the dequantized value
+                    np.subtract(w2, q2,
+                                out=residual[lo:hi].reshape(tb, BLOCK))
+        if main < size:
+            # Pure-f32 scalar math, same op order as the full blocks.
+            tail = (x[main:] if residual is None
+                    else x[main:] + residual[main:])
+            absmax = np.float32(max(tail.max(initial=0.0),
+                                    -tail.min(initial=0.0)))
+            scales[nb - 1] = (np.float32(1.0) if absmax == 0.0
+                              else absmax / np.float32(127.0))
+            t = tail * (np.float32(1.0) / scales[nb - 1])
+            np.rint(t, out=t)
+            np.copyto(codes[main:], t, casting="unsafe")
+            if residual is not None:
+                t *= scales[nb - 1]
+                np.subtract(tail, t, out=residual[main:])
+
+    def decode_into(self, wire, out):
+        # Tiled like encode_into: dequantize straight into the caller's
+        # slice, int8->f32 cast riding the same cache-resident pass as
+        # the scale multiply.
+        size = out.size
+        nb = _nblocks(size)
+        main = (size // BLOCK) * BLOCK
+        scales, codes = self._views(wire, size)
+        for lo in range(0, main, _TILE):
+            hi = min(lo + _TILE, main)
+            tb = (hi - lo) // BLOCK
+            o2 = out[lo:hi].reshape(tb, BLOCK)
+            np.copyto(o2, codes[lo:hi].reshape(tb, BLOCK), casting="unsafe")
+            o2 *= scales[lo // BLOCK : lo // BLOCK + tb, None]
+        if main < size:
+            out[main:] = codes[main:].astype(np.float32) * scales[nb - 1]
+
+    def split_wire(self, wire, size):
+        return list(self._views(wire, size))
+
+    def decode_parts(self, parts, size):
+        scales, codes = parts
+        nfull, main = size // BLOCK, (size // BLOCK) * BLOCK
+        pieces = []
+        if nfull:
+            pieces.append(
+                (codes[:main].reshape(nfull, BLOCK).float()
+                 * scales[:nfull, None]).reshape(-1)
+            )
+        if main < size:
+            pieces.append(codes[main:].float() * scales[-1])
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+_REGISTRY: Dict[str, Codec] = {}
+_BY_WIRE_ID: Dict[int, Codec] = {}
+
+for _codec in (NoneCodec(), Bf16Codec(), Int8Codec()):
+    _REGISTRY[_codec.name] = _codec
+    _BY_WIRE_ID[_codec.wire_id] = _codec
+
+
+def get(name: Optional[str] = None) -> Codec:
+    """Codec by name; None/'' falls back to ``$MPIT_PS_CODEC`` (default
+    'none').  Unknown names fail loudly — a typo must not silently train
+    uncompressed."""
+    if not name:
+        name = os.environ.get(ENV, "none") or "none"
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown PS codec {name!r}; available: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def by_wire_id(wire_id: int) -> Codec:
+    """Codec from an INIT v2 announcement id.  Unknown ids fail loudly —
+    decoding with the wrong codec would corrupt parameters."""
+    try:
+        return _BY_WIRE_ID[wire_id]
+    except KeyError:
+        raise ValueError(
+            f"unknown codec wire id {wire_id} in INIT announcement; "
+            f"known: { {c.wire_id: c.name for c in _REGISTRY.values()} }"
+        ) from None
+
+
+def names() -> List[str]:
+    return sorted(_REGISTRY)

@@ -1,0 +1,130 @@
+"""Transport interface: nonblocking (rank, tag)-addressed messaging.
+
+A copy of :mod:`mpit_tpu.comm.transport`: the port imports nothing of the
+JAX package.  Any implementation of this contract carries the port's
+parameter server, the JAX package's own endpoints included, since the two
+speak the same bytes.
+
+This is the contract the async engine's ``aio_send``/``aio_recv`` poll
+(mpit_tpu_torch/aio/scheduler.py) and the parameter-server layer builds on.  It
+deliberately mirrors the slice of MPI the reference actually uses — Isend,
+Irecv, Iprobe, Test, Cancel (reference mpifuncs.c:1532,1499,1488,1936,197
+via init.lua:40-102) — rather than the full MPI-2 surface, because on TPU
+the collective paths go through XLA, not through this host transport.
+
+Buffer discipline (the reference's zero-copy rule, lua-mpi.h:70-78): the
+caller passes numpy arrays / memoryviews; the transport reads from or
+writes into them directly.  A send buffer must stay alive and unmodified
+until ``test`` returns True; handles hold a reference to enforce liveness.
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+
+
+@dataclass
+class Handle:
+    """An in-flight transfer.  ``buf`` keeps the caller buffer alive."""
+
+    kind: str  # "send" | "recv"
+    peer: int
+    tag: int
+    buf: Any = None
+    out: Any = None
+    done: bool = False
+    cancelled: bool = False
+    payload: Optional[Any] = None
+    native_id: int = -1
+    meta: dict = field(default_factory=dict)
+
+
+def as_bytes_view(data: Any) -> memoryview:
+    """A contiguous byte view over array/bytes-like data.
+
+    Fail-loud zero-copy rule: a non-contiguous ndarray would need a
+    silent ``ascontiguousarray`` copy — after which the documented
+    liveness contract ("buffer stays alive and unmodified until test()")
+    binds the caller to the *wrong* buffer: mutations between isend and
+    completion would be invisibly dropped.  Raise like the recv path
+    does instead; callers own making their send buffers contiguous."""
+    if isinstance(data, np.ndarray):
+        if not data.flags["C_CONTIGUOUS"]:
+            raise ValueError(
+                "send buffer must be C-contiguous (zero-copy rule: a "
+                "hidden copy would break buffer-liveness semantics)"
+            )
+        return memoryview(data).cast("B")
+    return memoryview(data).cast("B") if not isinstance(data, memoryview) else data.cast("B")
+
+
+def as_writable_view(out: Any) -> memoryview:
+    if isinstance(out, np.ndarray):
+        if not out.flags["C_CONTIGUOUS"]:
+            raise ValueError("recv target must be C-contiguous (zero-copy rule)")
+        return memoryview(out).cast("B")
+    return memoryview(out).cast("B")
+
+
+class Transport(abc.ABC):
+    """Nonblocking point-to-point transport for one endpoint (rank)."""
+
+    rank: int
+    nranks: int
+
+    @abc.abstractmethod
+    def isend(self, data: Any, dst: int, tag: int) -> Handle:
+        """Post a nonblocking send of the buffer's bytes."""
+
+    @abc.abstractmethod
+    def irecv(self, src: int, tag: int, out: Any | None = None) -> Handle:
+        """Post a nonblocking receive.  With ``out`` the payload is written
+        in place (sizes must match); otherwise ``payload`` returns bytes."""
+
+    @abc.abstractmethod
+    def iprobe(self, src: int, tag: int) -> bool:
+        """True when a fully-assembled matching message is available.
+
+        Fail-loud contract: when the transport *knows* ``src`` can never
+        deliver again (dead peer, torn connection) and no matching message
+        is buffered, implementations should raise ``RuntimeError`` rather
+        than return ``False`` — the schedulers' probe-then-recv loops
+        (aio/scheduler.py) would otherwise poll a drained channel forever.
+        TcpTransport implements this; ShmTransport relies on its
+        EOWNERDEAD remap to resurrect the peer instead, so a probe there
+        keeps returning ``False`` while recovery is in progress.
+        """
+
+    @abc.abstractmethod
+    def test(self, handle: Handle) -> bool:
+        """Advance progress; True when the transfer has completed."""
+
+    @abc.abstractmethod
+    def cancel(self, handle: Handle) -> None:
+        """Abort an in-flight transfer, releasing buffer ownership
+        (the reference's shutdown path, init.lua:50-58)."""
+
+    def payload(self, handle: Handle) -> Any:
+        """The received data (the ``out`` buffer if one was given)."""
+        if not handle.done:
+            raise RuntimeError("payload requested before completion")
+        return handle.out if handle.out is not None else handle.payload
+
+    def close(self) -> None:  # pragma: no cover - backends override
+        pass
+
+    # -- blocking conveniences (cold paths: init, tests) --------------------
+    def send(self, data: Any, dst: int, tag: int) -> None:
+        handle = self.isend(data, dst, tag)
+        while not self.test(handle):
+            pass
+
+    def recv(self, src: int, tag: int, out: Any | None = None) -> Any:
+        handle = self.irecv(src, tag, out=out)
+        while not self.test(handle):
+            pass
+        return self.payload(handle)

@@ -1,17 +1,23 @@
 """Fused parameter-update kernels on flat f32 vectors.
 
-The port of :mod:`mpit_tpu.ops.fused_update`.  This slice carries K1,
-:func:`fused_nesterov_commit`, the msgd commit with the EASGD retract
-riding along; the reference's ``fused_elastic`` and ``fused_adam`` belong
-to later slices.
+The port of :mod:`mpit_tpu.ops.fused_update`, all three of its kernels:
 
-K1 is a CUDA kernel written for Hopper (``csrc/fused_update.cu``, whose
-header says what bounds it and how it is designed), built by
+- K1 :func:`fused_nesterov_commit`, the msgd commit with the EASGD retract
+  riding along;
+- K2 :func:`fused_elastic`, the EASGD exchange's elementwise half (force
+  and retract in one sweep), on EAMSGD's comm-only path;
+- K3 :func:`fused_adam`, the Adam rule's moments and step in one sweep,
+  on the server's ``adam`` shard rule and ``adam-single``'s local step.
+
+Each is a CUDA kernel written for Hopper (``csrc/fused_update.cu``, whose
+comments say what bounds each and how it is designed), built by
 :mod:`mpit_tpu_torch.ops.build` on first use and launched through
 ``ctypes`` on PyTorch's current stream.  The routing is fixed by where the
 tensors lie: CUDA tensors always go through the kernel, CPU tensors always
-through the plain twin :func:`fused_nesterov_commit_reference`.  There is
-no switch and no fallback; a kernel that fails to build or launch raises.
+through the plain twin (``*_reference``).  There is no switch and no
+fallback; a kernel that fails to build or launch raises.  Each wrapper
+adds one to its ``launches`` count per launch of its kernel, and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -80,11 +86,43 @@ def _lib() -> ctypes.CDLL:
     from mpit_tpu_torch.ops import build  # nvcc runs on first use only
 
     lib = build.load("fused_update")
-    fn = lib.mpit_nesterov_commit
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    f32, i64, ptr = ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p
+    for fn, argtypes in (
+        (lib.mpit_nesterov_commit, [ptr] * 5 + [i64, i64, f32, ptr]),
+        (lib.mpit_elastic, [ptr] * 3 + [i64, f32, ptr]),
+        (lib.mpit_adam, [ptr] * 5 + [i64] + [f32] * 5 + [ptr]),
+    ):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _cuda_stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s card, as the kernels take it; raises
+    for any device without a kernel."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{t.device} is not the current CUDA device "
+                         f"{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_flat(n: int, device: torch.device, **tensors) -> None:
+    """Every operand a contiguous f32 ``(n,)`` tensor on ``device``."""
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({n},)")
+    if n == 0:
+        raise ValueError("the vectors are empty")
 
 
 def fused_nesterov_commit(
@@ -113,12 +151,7 @@ def fused_nesterov_commit(
         w.copy_(w_new)
         vt.copy_(vt_new)
         return w, vt
-    if w.device.type != "cuda":
-        raise ValueError(f"no kernel for device {w.device}")
-    if w.device.index != torch.cuda.current_device():
-        raise ValueError(f"w is on {w.device}, the current CUDA device is "
-                         f"{torch.cuda.current_device()}")
-    stream = torch.cuda.current_stream(w.device).cuda_stream
+    stream = _cuda_stream(w)
     err = _lib().mpit_nesterov_commit(
         w.data_ptr(), vt.data_ptr(), g.data_ptr(), clr.data_ptr(),
         None if sug is None else sug.data_ptr(),
@@ -130,3 +163,105 @@ def fused_nesterov_commit(
 
 
 fused_nesterov_commit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: elastic force + retract (EASGD exchange, elementwise half)
+# ---------------------------------------------------------------------------
+
+
+def fused_elastic_reference(w, center, mva):
+    """Plain PyTorch twin: returns new ``(w - sug, sug)`` with
+    ``sug = mva*(w - center)``; ``mva`` rounds to f32 once."""
+    sug = mva * (w - center)
+    return w - sug, sug
+
+
+def fused_elastic(w: torch.Tensor, center: torch.Tensor,
+                  mva: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Elastic exchange, worker side, in one sweep: ``sug = mva*(w -
+    center)`` into a new tensor, ``w -= sug`` in place; returns ``(w,
+    sug)``.  The center's ``+= sum(sug)`` is a cross-worker reduce and
+    stays outside (reference optim-eamsgd.lua:58-66 / pserver.lua:83).
+    Each launch adds one to ``fused_elastic.launches``."""
+    n = w.shape[0] if w.dim() == 1 else -1
+    _check_flat(n, w.device, w=w, center=center)
+    if w.data_ptr() == center.data_ptr():
+        raise ValueError("w and center must be distinct buffers")
+    if w.device.type == "cpu":
+        w_new, sug = fused_elastic_reference(w, center, float(mva))
+        w.copy_(w_new)
+        return w, sug
+    stream = _cuda_stream(w)
+    sug = torch.empty_like(w)
+    err = _lib().mpit_elastic(w.data_ptr(), center.data_ptr(), sug.data_ptr(),
+                              n, float(mva), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_elastic launch failed: CUDA error {err}")
+    fused_elastic.launches += 1
+    return w, sug
+
+
+fused_elastic.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: Adam moments + step
+# ---------------------------------------------------------------------------
+
+
+def fused_adam_reference(p, g, m, v, lr_t, *, beta1=0.9, beta2=0.999,
+                         epsilon=1e-8):
+    """Plain PyTorch twin: returns new ``(p, m, v)``.  Each operation
+    rounds on its own, in the reference's order: ``((1-beta2)*g)*g`` and
+    ``(lr_t*m)/(sqrt(v) + eps)``; ``1 - beta`` is taken in double and
+    rounds to f32 once, as the reference's weak-typed scalars do."""
+    m = beta1 * m + (1.0 - beta1) * g
+    v = beta2 * v + (1.0 - beta2) * g * g
+    p = p - lr_t * m / (torch.sqrt(v) + epsilon)
+    return p, m, v
+
+
+def fused_adam(
+    p: torch.Tensor,
+    g: torch.Tensor,
+    m: torch.Tensor,
+    v: torch.Tensor,
+    lr_t: torch.Tensor,
+    *,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    epsilon: float = 1e-8,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-sweep Adam, in place on ``p``, ``m`` and ``v``, which it
+    returns.  ``lr_t`` is the bias-corrected learning rate, a one-element
+    f32 tensor on the same device: the kernel reads it there, so the
+    step counter and the correction never cross to the host.  The
+    correction's exponent math stays with the caller
+    (:func:`mpit_tpu_torch.optim.rules.adam_apply`).  Each launch adds
+    one to ``fused_adam.launches``."""
+    n = p.shape[0] if p.dim() == 1 else -1
+    _check_flat(n, p.device, p=p, g=g, m=m, v=v)
+    if not (isinstance(lr_t, torch.Tensor) and lr_t.dtype == torch.float32
+            and lr_t.numel() == 1 and lr_t.device == p.device):
+        raise ValueError("lr_t must be a one-element float32 tensor on "
+                         f"{p.device}")
+    if len({p.data_ptr(), m.data_ptr(), v.data_ptr()}) != 3:
+        raise ValueError("p, m and v must be distinct buffers")
+    if p.device.type == "cpu":
+        for dst, src in zip((p, m, v), fused_adam_reference(
+                p, g, m, v, lr_t, beta1=beta1, beta2=beta2, epsilon=epsilon)):
+            dst.copy_(src)
+        return p, m, v
+    stream = _cuda_stream(p)
+    err = _lib().mpit_adam(
+        p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+        lr_t.data_ptr(), n, float(beta1), float(1.0 - beta1), float(beta2),
+        float(1.0 - beta2), float(epsilon), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_adam launch failed: CUDA error {err}")
+    fused_adam.launches += 1
+    return p, m, v
+
+
+fused_adam.launches = 0

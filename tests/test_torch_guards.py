@@ -5,7 +5,8 @@ refuses.
   ``jax``, ``flax`` or ``mpit_tpu`` (an AST scan, and a fresh interpreter
   that imports the entry points);
 - entry points run on CUDA unless asked for the CPU, and raise without it;
-- what belongs to a later slice raises ``NotImplementedError``;
+- what belongs to a later slice raises ``NotImplementedError`` naming it,
+  and a parameter-server optimizer without a client raises ``ValueError``;
 - ``chip_smoke.py`` exits non-zero and prints no result without a card, and
   alone in a directory.
 """
@@ -18,6 +19,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -149,14 +151,46 @@ def test_mesh_launch_refuses_later_slices(flags):
         mesh_launch.run(mesh_launch.MESH_LAUNCH_DEFAULTS.merged(flags, device="cpu"))
 
 
-def test_launch_refuses_gangs_and_ps_optimizers():
-    with pytest.raises(NotImplementedError):
-        launch.main(["--np", "2", "--device", "cpu"])
-    trainer = MnistTrainer(Config(opt="downpour", device="cpu", side=8))
-    with pytest.raises(NotImplementedError):
-        trainer.optimizer
-    with pytest.raises(ValueError):
-        MnistTrainer(Config(opt="nope", device="cpu", side=8)).optimizer
+@pytest.mark.parametrize("refused", [
+    None,  # the gang itself: --np 2 forks processes over shm
+    ("tester", "last", "slice 2b"),
+    ("shardctl", "1", "slice 5"),
+    ("elastic", "1", "slice 5"),
+    ("serve_readers", "1", "slice 5"),
+    ("cells", "1", "slice 5"),
+    ("lm", "1", "slice 7"),
+    ("agg", "tree", "slice 5"),
+    ("dplane", "1", "slice 6"),
+    ("resume", "1", "slice 5"),
+    ("server_ckpt_dir", "/tmp/x", "slice 5"),
+    ("init_v3", None, "slice 5"),
+])
+def test_launch_refuses_gangs_and_ps_optimizers(refused):
+    """The CLI's --np N raises (process gangs are slice 2b), as do the
+    roles and flags of later slices and an INIT v3+ announcement; a PS
+    optimizer without a client raises ValueError, as the reference's
+    trainer does."""
+    if refused is None:
+        with pytest.raises(NotImplementedError, match="slice 2b"):
+            launch.main(["--np", "2", "--device", "cpu"])
+        trainer = MnistTrainer(Config(opt="downpour", device="cpu", side=8))
+        with pytest.raises(ValueError, match="parameter client"):
+            trainer.optimizer
+        with pytest.raises(ValueError):
+            MnistTrainer(Config(opt="nope", device="cpu", side=8)).optimizer
+        return
+    flag, value, owner = refused
+    if flag == "init_v3":
+        from mpit_tpu_torch.comm.local import LocalRouter
+        from mpit_tpu_torch.ps import ParamServer
+
+        server = ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu")
+        with pytest.raises(NotImplementedError, match=owner):
+            server._negotiate(1, np.asarray([0, 8, 0, 1, 1], np.int64).tobytes())
+        return
+    with pytest.raises(NotImplementedError, match=owner):
+        launch.main(["--gang", "2", "--device", "cpu", "--side", "8",
+                     f"--{flag}", value])
 
 
 def _run_smoke(cwd):

@@ -1,10 +1,11 @@
-"""K1 (fused Nesterov commit) of the PyTorch port against the JAX package.
+"""K1 (fused Nesterov commit), K2 (fused elastic) and K3 (fused Adam) of
+the PyTorch port against the JAX package.
 
 The same inputs, made with numpy from a seed, go through the JAX Pallas
 kernel (interpret mode, as tests/test_ops.py runs it), the JAX plain
 reference and the port's plain twin.  The CPU wrapper of the port must
-equal its twin bit for bit (it is the twin, in place).  The kernel itself
-runs only on a CUDA card: tests/test_torch_cuda.py.
+equal its twin bit for bit (it is the twin, in place).  The kernels
+themselves run only on a CUDA card: tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -12,9 +13,20 @@ import numpy as np
 import pytest
 import torch
 
+from mpit_tpu.ops import fused_adam as jax_adam
+from mpit_tpu.ops import fused_adam_reference as jax_adam_reference
+from mpit_tpu.ops import fused_elastic as jax_elastic
+from mpit_tpu.ops import fused_elastic_reference as jax_elastic_reference
 from mpit_tpu.ops import fused_nesterov_commit as jax_commit
 from mpit_tpu.ops import fused_nesterov_commit_reference as jax_reference
-from mpit_tpu_torch.ops import fused_nesterov_commit, fused_nesterov_commit_reference
+from mpit_tpu_torch.ops import (
+    fused_adam,
+    fused_adam_reference,
+    fused_elastic,
+    fused_elastic_reference,
+    fused_nesterov_commit,
+    fused_nesterov_commit_reference,
+)
 
 # One intra-op thread: the suite runs several test processes side by side
 # on the CPU, and these tensors are small.
@@ -101,3 +113,102 @@ def test_wrapper_rejects_bad_operands(case):
         clr = 0.1
     with pytest.raises((TypeError, ValueError)):
         fused_nesterov_commit(w, vt, g, clr)
+
+
+# -- K2: fused elastic --------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 1027, 40000])
+@pytest.mark.parametrize("mva", [0.15, 0.45])
+def test_k2_twin_matches_jax_kernel_and_reference(n, mva):
+    w, c, _, _ = _inputs(n + 11, (n,))
+    jw, jsug = jax_elastic(jnp.asarray(w), jnp.asarray(c), mva, interpret=True)
+    rw, rsug = jax_elastic_reference(jnp.asarray(w), jnp.asarray(c), mva)
+    tw, tsug = fused_elastic_reference(torch.from_numpy(w), torch.from_numpy(c), mva)
+    for want_w, want_sug in ((jw, jsug), (rw, rsug)):
+        np.testing.assert_allclose(tw.numpy(), np.asarray(want_w), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(tsug.numpy(), np.asarray(want_sug), rtol=RTOL, atol=ATOL)
+    # One f32 rounding per operation on both sides: bit-equal to the plain
+    # JAX reference.
+    assert np.array_equal(tw.numpy(), np.asarray(rw))
+    assert np.array_equal(tsug.numpy(), np.asarray(rsug))
+
+
+def test_k2_cpu_wrapper_is_the_twin_in_place():
+    w, c, _, _ = _inputs(5, (1029,))
+    tw = torch.from_numpy(w.copy())
+    out_w, sug = fused_elastic(tw, torch.from_numpy(c), 0.3)
+    assert out_w is tw
+    rw, rsug = fused_elastic_reference(torch.from_numpy(w), torch.from_numpy(c), 0.3)
+    assert torch.equal(tw, rw) and torch.equal(sug, rsug)
+
+
+# -- K3: fused Adam -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 1027, 40000])
+@pytest.mark.parametrize("betas", [(0.9, 0.999), (0.8, 0.99)])
+def test_k3_twin_matches_jax_kernel_and_reference(n, betas):
+    beta1, beta2 = betas
+    p, g, m, v = _inputs(n + 13, (n,))
+    v = np.abs(v)
+    for t in (1, 2, 3):  # three steps, each feeding the next
+        lr_t = np.float32(1e-3 * np.sqrt(1 - beta2**t) / (1 - beta1**t))
+        args = [jnp.asarray(a) for a in (p, g, m, v)]
+        jout = jax_adam(*args, lr_t, beta1=beta1, beta2=beta2, interpret=True)
+        rout = jax_adam_reference(*args, lr_t, beta1=beta1, beta2=beta2)
+        tout = fused_adam_reference(*(torch.from_numpy(a) for a in (p, g, m, v)),
+                                    torch.tensor(lr_t), beta1=beta1, beta2=beta2)
+        for want in (jout, rout):
+            for got, exp in zip(tout, want):
+                np.testing.assert_allclose(got.numpy(), np.asarray(exp),
+                                           rtol=RTOL, atol=ATOL)
+        p, m, v = (x.numpy() for x in tout)
+
+
+def test_k3_cpu_wrapper_is_the_twin_in_place():
+    p, g, m, v = _inputs(9, (1029,))
+    v = np.abs(v)
+    lr_t = torch.tensor(2e-3)
+    tp, tm, tv = (torch.from_numpy(x.copy()) for x in (p, m, v))
+    out = fused_adam(tp, torch.from_numpy(g), tm, tv, lr_t, beta1=0.8)
+    assert out[0] is tp and out[1] is tm and out[2] is tv
+    want = fused_adam_reference(*(torch.from_numpy(x) for x in (p, g, m, v)),
+                                lr_t, beta1=0.8)
+    assert all(torch.equal(a, b) for a, b in zip((tp, tm, tv), want))
+
+
+def test_k3_constants_round_once_from_doubles():
+    """1 - beta taken in double and rounded once, as the reference's
+    weak-typed scalars are; f32 arithmetic gives other numbers."""
+    g = torch.ones(1)
+    _, m, v = fused_adam_reference(torch.zeros(1), g, torch.zeros(1), torch.zeros(1),
+                                   torch.tensor(0.0))
+    assert m.item() == np.float32(1 - 0.9) and v.item() == np.float32(1 - 0.999)
+    assert np.float32(1) - np.float32(0.999) != np.float32(1 - 0.999)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguous", "alias", "ndim",
+                                  "lr_t_not_tensor", "lr_t_shape"])
+def test_k2_k3_wrappers_reject_bad_operands(case):
+    p, g, m, v = (torch.zeros(8) for _ in range(4))
+    lr_t = torch.tensor(1e-3)
+    if case == "dtype":
+        g = g.double()
+    elif case == "shape":
+        g = torch.zeros(9)
+    elif case == "contiguous":
+        p = torch.zeros(16)[::2]
+    elif case == "alias":
+        m = p
+    elif case == "ndim":
+        p, g, m, v = (torch.zeros(2, 4) for _ in range(4))
+    elif case == "lr_t_not_tensor":
+        lr_t = 1e-3
+    elif case == "lr_t_shape":
+        lr_t = torch.zeros(2)
+    with pytest.raises((TypeError, ValueError)):
+        fused_adam(p, g, m, v, lr_t)
+    if not case.startswith("lr_t"):
+        with pytest.raises((TypeError, ValueError)):
+            fused_elastic(p, g if case != "alias" else p, 0.5)
