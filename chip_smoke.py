@@ -21,16 +21,29 @@ order; any failure raises and the script exits non-zero:
    and every worker on the card, at the flagship widths: DOWNPOUR np=4,
    EAMSGD np=12 (BASELINE configs 2 and 3), server-side Adam np=4,
    adam-single np=2 and comm-only EAMSGD (lr 0) np=4; then a one-worker
-   Adam gang on the card held against the same gang on the CPU.
+   Adam gang on the card held against the same gang on the CPU;
+7. flash attention: K4 (forward, both output modes), K5 (fused backward)
+   and K6 (two-kernel backward) against their plain twins at each LM
+   path's shape and on ragged, offset pairs, in float32 and bfloat16, K5
+   against K6, then timed beside the twins and PyTorch's
+   ``scaled_dot_product_attention`` at the two LM shapes;
+8. the long-context LM (``lm_launch.run``): ``lm_default``
+   (``LM_LAUNCH_DEFAULTS``, 20 steps), ``lm_longcontext`` (TinyDecoder at
+   d 1,024, 8 heads, 4 layers, context 8,192, 6 steps), ``lm_default``
+   again for 3 steps under the other backward schedule, and three small
+   steps on the card held against the same steps on the CPU, with float32
+   and with bfloat16 attention.
 
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
-often as its steps (or its servers' applies) say fails, and so does one
-that launched a kernel it should not.  The last two lines are one JSON
-object describing every kernel (``launches`` is the count of the kernel's
-main path: the headline for K1, comm-only EAMSGD for K2, server-side Adam
-for K3; ``paths`` holds every path's launches and steps), and
-``{"ok": true, "device": {...}}``.
+often as its steps (or its servers' applies, or its layers) say fails,
+and so does one that launched a kernel it should not.  The last two lines
+are one JSON object describing every kernel (``launches`` is the count of
+the kernel's main path: the headline for K1, comm-only EAMSGD for K2,
+server-side Adam for K3, and for K4-K6 the first LM path that launched
+them, as each path's gate picked the schedule (see ``fa_entries``);
+``paths`` holds every path's launches and steps), and ``{"ok": true,
+"device": {...}}``.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -49,6 +62,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
 TIMED_LAUNCHES = 200
 L2_BYTES = 50e6  # H100 L2 cache
 # The hold of a queued timing: 2e8 clock cycles last at least 0.1 s at
@@ -69,6 +83,59 @@ ADAM_MAX_ABS_GAP = 3e-4
 ADAM_GAP_OVER_CHANGE = 1e-3
 # The flagship widths every gang path runs at (BASELINE configs 2-3).
 GANG_BASE = dict(model="cnn", side=32, batch=128, device="cuda")
+# Flash attention against its twins (see check_flash).  float32 inputs:
+# the reference's tolerances (tests/test_ops.py), atol 2e-5 forward, 3e-5
+# backward, 3e-4 on a ragged, offset pair.  The partials acc and l are
+# sums of up to Lk terms p*v and p (p <= 1), so their rounding grows with
+# l: acc is held as acc / l (the twin's l) at the forward tolerance, and l
+# to FA_PARTIAL_RTOL of itself.
+# bfloat16 inputs.  m, lse and l are float32 functions of float32 scores
+# that kernel and twin compute from the same bf16 values, and neither
+# rounds them to bf16: they keep the float32 limits.  o, acc and the grads
+# depend on P and dS rounded to bf16, and o and the grads are themselves
+# rounded to bf16.  Two effects part kernel and twin there:
+# - K4 rounds P = exp(s - m) tile by tile with its running max m, the
+#   twin with the row's final max; on a row whose max rises after its
+#   first key tile the two round each P element independently (a gap of up
+#   to 2**-8 of p, about 2**-9 rms), which moves acc / l by about 2**-9 of
+#   its row (the gaps of the terms add as a random walk, as the terms do).
+#   The backward rounds P = exp(s - lse) and dS from the same lse in both,
+#   so only a score a few float32 ulps apart flips a rounding there;
+# - a bf16 output lands one bf16 step away (at most 2**-7 of itself) where
+#   the two float32 values straddle a rounding point.
+# So those outputs are held row by row, over the D elements of one output
+# row of one head: ||gap|| <= FA_BF16_ROW ||twin's row|| + atol sqrt(D),
+# and each element |gap| <= 2**-7 |twin| + FA_BF16_ELEM rms(twin's row) +
+# atol.  A lost key tile of 64 moves a row of o by about sqrt(64 / L) of
+# it (1/11 at L 8,192), a lost q tile all of a dK or dV row's share from
+# it, each far past 2**-6.  The tight check of the tiles is the float32
+# run of the same code at the same shapes: bf16 differs only in the loads
+# and the two casts.
+FA_FWD_ATOL, FA_BWD_ATOL, FA_PAIR_ATOL = 2e-5, 3e-5, 3e-4
+FA_PARTIAL_RTOL = 1e-5
+FA_BF16_ROW, FA_BF16_ELEM = 2.0**-6, 2.0**-5
+# Limits of the LM's card-vs-CPU comparison (see lm_vs_cpu), by attention
+# dtype: the largest elementwise gap of w and vt (absolute, or as a share
+# of the largest change), the gap's norm over the norm of the three
+# steps' change, and the per-step losses' relative gap.
+# float32: the devices differ by summation order only (cuBLAS's f32
+# products with TF32 off, the kernels' online softmax against the twins'
+# one-pass softmax), which leaves each gradient a few f32 ulps apart,
+# about 1e-6 of itself, so the change (at most ~6 x lr x |g| per element,
+# lr 1e-3) differs by some 1e-9 absolute.
+# bfloat16: the kernels round P with their running max and the twins with
+# the final one (about 2**-9 of an attention output row, see FA_BF16_ROW),
+# and q, k, v a few ulps apart now and then round to neighbouring bf16
+# values (2**-8 of an element), so the gradients, and the three steps'
+# change, differ by at most about 2**-8 of themselves: 2**-5 leaves 8x.
+# The first step's loss, from the same w0, moves by the outputs' 2**-9.
+# Either way a dropped or doubled step moves w by a third of the change,
+# and a wrong attention tile the gradient by percents.
+LM_LIMITS = {
+    "float32": {"max_abs_gap": 1e-6, "gap_over_change": 1e-3, "loss_rtol": 1e-5},
+    "bfloat16": {"max_abs_share": 2.0**-5, "gap_over_change": 2.0**-5,
+                 "loss_rtol": 2.0**-8},
+}
 
 
 def nvidia_smi() -> str:
@@ -78,16 +145,18 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, queued=False, kernels_per_call=1) -> float:
+def time_ms(torch, fn, queued=False, kernels_per_call=1, n=None) -> float:
     """Mean ms per call of ``fn()`` on the current stream, by CUDA events
     after a warm-up.  ``queued``: the stream is held by a sleep kernel while
     the host queues the calls, so the events see the device time of
     back-to-back launches, without the host's per-call overhead; otherwise
     the time is that of calls issued from a host loop, as a training step
     issues them.  ``kernels_per_call`` (a plain twin's several PyTorch
-    kernels) shortens the queued run so the launch queue never fills."""
-    n = QUEUED_CALLS // kernels_per_call if queued else TIMED_LAUNCHES
-    for _ in range(5):
+    kernels) shortens the queued run so the launch queue never fills.
+    ``n`` caps the calls timed (long kernels)."""
+    n_max = QUEUED_CALLS // kernels_per_call if queued else TIMED_LAUNCHES
+    n = n_max if n is None else max(1, min(n, n_max))
+    for _ in range(min(5, n)):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -603,6 +672,356 @@ def adam_gang_vs_cpu(torch, kernels):
     return {"launches": cuda_launches, "steps": steps, **reading}
 
 
+# Flash attention's checked shapes: (name, leading axes, Lq, Lk, D,
+# q_offset, kv_offset, causal).  The three LM paths' attention (batch x
+# heads, context, head width), a ragged pair whose first 20 q rows are dead
+# under the causal mask, and full attention over a ragged pair.
+FA_CASES = (
+    ("lm_default", (8, 8), 1024, 1024, 32, 0, 0, True),
+    ("lm_longcontext", (1, 8), 8192, 8192, 128, 0, 0, True),
+    ("lm_vs_cpu", (2, 4), 256, 256, 32, 0, 0, True),
+    ("ragged_pair", (2, 3), 203, 131, 64, 20, 40, True),
+    ("ragged_full", (2, 3), 203, 131, 64, 100, 40, False),
+)
+FA_TIMED = ("lm_default", "lm_longcontext")
+
+
+def fa_work(lead, lq, lk, d, q_off, kv_off, causal, itemsize):
+    """Valid (q, key) pairs, and the bytes the forward and the backward
+    must move (each input read once, each output written once)."""
+    import numpy as np
+
+    n = math.prod(lead)
+    per_row = (np.clip(q_off + np.arange(lq) - kv_off + 1, 0, lk) if causal
+               else np.full(lq, lk))
+    pairs = n * int(per_row.sum())
+    fwd_bytes = n * ((2 * lq + 2 * lk) * d * itemsize + 4 * lq)  # q k v in, o lse out
+    bwd_bytes = n * ((3 * lq + 4 * lk) * d * itemsize + 8 * lq)  # q k v do lse delta, dq dk dv
+    return pairs, fwd_bytes, bwd_bytes
+
+
+def fa_bound_ms(n_bytes, flops, bf16):
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def fa_err(torch, got, want, atol, rtol=0.0, rows=False):
+    """The largest elementwise gap, and the largest share of its limit that
+    any element (or, with ``rows``, any row) uses: inside the limit while
+    the share is at most 1.  ``-inf`` must sit where the twin has it.
+    ``rows``: the bf16 rule, row by row and element by element (see
+    FA_BF16_ROW)."""
+    got, want = got.float(), want.float()
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        return math.inf, math.inf
+    fin = torch.isfinite(want)
+    gap = torch.where(fin, got - want, 0.0)
+    want = torch.where(fin, want, 0.0)
+    if not bool(torch.isfinite(gap).all()):
+        return math.inf, math.inf
+    if gap.numel() == 0:
+        return 0.0, 0.0
+    if rows:
+        d = want.shape[-1]
+        row_norm = want.norm(dim=-1)
+        used_row = gap.norm(dim=-1) / (FA_BF16_ROW * row_norm + atol * math.sqrt(d))
+        rms = (row_norm / math.sqrt(d))[..., None]
+        used_elem = gap.abs() / (2.0**-7 * want.abs() + FA_BF16_ELEM * rms + atol)
+        used = max(float(used_row.max()), float(used_elem.max()))
+    else:
+        limit = atol + rtol * want.abs()
+        used = float(torch.where(gap == 0, 0.0, gap.abs() / limit).max())
+    return float(gap.abs().max()), used
+
+
+def sdpa_backend(torch, q, k, v):
+    """The backend ``scaled_dot_product_attention`` picks for these inputs."""
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, None, 0.0, True)
+        return torch.nn.attention.SDPBackend(choice).name
+    except (AttributeError, TypeError, ValueError, RuntimeError):
+        return "unknown"
+
+
+def check_flash(torch):
+    """K4, K5 and K6 against their twins at every FA_CASES shape, in f32 and
+    bf16 (the twins on the same inputs on the card; K4 in both output
+    modes; K5 and K6 also against each other); then each timed at the two
+    LM shapes in bf16 beside its twin and SDPA.  Returns each kernel's
+    largest gap to its twin and the times at both shapes."""
+    import torch.nn.functional as F
+
+    from mpit_tpu_torch.ops.flash_attention import (
+        _lse_of, attention_bwd_reference, block_attention_partial,
+        finalize_partials, flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = {"k4": 0.0, "k5": 0.0, "k6": 0.0}
+    timed = {}
+    for name, lead, lq, lk, d, q_off, kv_off, causal in FA_CASES:
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+        base = [0.5 * torch.randn(*lead, n, d, device=dev, generator=gen)
+                for n in (lq, lk, lk)]
+        base.append(torch.randn(*lead, lq, d, device=dev, generator=gen))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dtype) for t in base)
+            rows = dtype == torch.bfloat16  # the bf16 rule (FA_BF16_ROW)
+            acc_t, m_t, l_t = block_attention_partial(q, k, v, **kw)
+            o_t, lse_t = finalize_partials(acc_t, l_t, dtype), _lse_of(m_t, l_t)
+            o, lse = flash_fwd(q, k, v, **kw)
+            acc, m, l = flash_fwd(q, k, v, partial=True, **kw)
+            den = torch.where(l_t == 0, 1.0, l_t)[..., None]
+            checks = {
+                "k4_o": fa_err(torch, o, o_t, FA_FWD_ATOL, rows=rows),
+                "k4_lse": fa_err(torch, lse, lse_t, FA_FWD_ATOL),
+                "k4_m": fa_err(torch, m, m_t, FA_FWD_ATOL),
+                "k4_acc/l": fa_err(torch, acc / den, acc_t / den, FA_FWD_ATOL, rows=rows),
+                "k4_l": fa_err(torch, l, l_t, 0.0, FA_PARTIAL_RTOL),
+            }
+            delta = (do.float() * o_t.float()).sum(-1)
+            want = attention_bwd_reference(q, k, v, do, lse_t, delta, **kw)
+            got5 = flash_bwd_fused(q, k, v, do, lse_t, delta, **kw)
+            got6 = flash_bwd_two_kernel(q, k, v, do, lse_t, delta, **kw)
+            torch.cuda.synchronize()
+            bwd_atol = FA_PAIR_ATOL if (q_off or kv_off) else FA_BWD_ATOL
+            for grad, w, a5, a6 in zip(("dq", "dk", "dv"), want, got5, got6):
+                checks[f"k5_{grad}"] = fa_err(torch, a5, w, bwd_atol, rows=rows)
+                checks[f"k6_{grad}"] = fa_err(torch, a6, w, bwd_atol, rows=rows)
+                checks[f"k5_vs_k6_{grad}"] = fa_err(torch, a5, a6, bwd_atol, rows=rows)
+            print(f"flash check {name} {str(dtype)[6:]} (max abs gap, share of the "
+                  "limit used): " + json.dumps(checks))
+            for what, (gap, used) in checks.items():
+                key = what[:2]
+                if not what.startswith("k5_vs"):
+                    errs[key] = max(errs[key], gap)
+                if not used <= 1.0:
+                    raise AssertionError(f"{what} past its limit at {name} {dtype}: "
+                                         f"gap {gap}, {used} of the limit")
+            if dtype == torch.bfloat16 and name in FA_TIMED:
+                timed[name] = time_flash(torch, F, q, k, v, do, lse_t, delta, kw,
+                                         lead, lq, lk, d)
+            del want, got5, got6, acc_t, o_t, den
+    print("flash times: " + json.dumps(timed))
+    return errs, timed
+
+
+def fa_entries(errs, timed, paths):
+    """K4's, K5's and K6's entries for the closing line.  A kernel's main
+    path is the first LM path that launched it, in the order
+    lm_longcontext, lm_default, lm_default_other_schedule (the gate picks
+    the schedule); its launches are that run's and its times those at that
+    path's attention shape."""
+    entries = []
+    for key, fn, src_line in (
+            ("k4", "flash_fwd", "mpit_tpu/ops/flash_attention.py:233"),
+            ("k5", "flash_bwd_fused", "mpit_tpu/ops/flash_attention.py:623"),
+            ("k6", "flash_bwd_two_kernel", "mpit_tpu/ops/flash_attention.py:536")):
+        main_path = next(p for p in ("lm_longcontext", "lm_default",
+                                     "lm_default_other_schedule")
+                         if paths[key][p]["launches"])
+        shape = "lm_longcontext" if main_path == "lm_longcontext" else "lm_default"
+        t = timed[shape][key]
+        entries.append({
+            "name": fn, "route": "cuda",
+            "source": "mpit_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": src_line, "launches": paths[key][main_path]["launches"],
+            "paths": paths[key], "max_abs_err": errs[key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "main_path": main_path, "timed_at": shape,
+            "sdpa_backend": timed[shape]["sdpa_backend"],
+        })
+    return entries
+
+
+def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d):
+    """K4, K5 and K6 at one shape (bf16, as the LM paths give them), each
+    beside its twin and the SDPA call computing the same function.  One
+    buffer set: each kernel reads every K/V tile once per q tile, far more
+    than one pass over device memory, so L2 residency of the first read
+    does not set its time."""
+    from mpit_tpu_torch.ops.flash_attention import (
+        _lse_of, attention_bwd_reference, block_attention_partial,
+        finalize_partials, flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
+
+    def reps(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return max(3, min(TIMED_LAUNCHES, int(0.25 / max(time.perf_counter() - t0, 1e-6))))
+
+    def timing(fn, plain_kernels=1):
+        n = reps(fn)
+        return {"ms": time_ms(torch, fn, queued=True, kernels_per_call=plain_kernels, n=n),
+                "call_ms": time_ms(torch, fn, n=n)}
+
+    def plain_fwd():
+        acc, m, l = block_attention_partial(q, k, v, **kw)
+        return finalize_partials(acc, l, q.dtype), _lse_of(m, l)
+
+    q4, k4, v4 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    pairs, fwd_bytes, bwd_bytes = fa_work(lead, lq, lk, d, kw["q_offset"],
+                                          kw["kv_offset"], kw["causal"], q.element_size())
+    out = {"sdpa_backend": sdpa_backend(torch, q, k, v), "pairs": pairs}
+    for key, kernel, plain, library, n_bytes, flops in (
+            ("k4", lambda: flash_fwd(q, k, v, **kw), plain_fwd,
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+             fwd_bytes, 4 * d * pairs),
+            ("k5", lambda: flash_bwd_fused(q, k, v, do, lse, delta, **kw),
+             lambda: attention_bwd_reference(q, k, v, do, lse, delta, **kw),
+             lambda: torch.autograd.grad(o4, (q4, k4, v4), do, retain_graph=True),
+             bwd_bytes, 10 * d * pairs),
+            ("k6", lambda: flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw),
+             lambda: attention_bwd_reference(q, k, v, do, lse, delta, **kw),
+             lambda: torch.autograd.grad(o4, (q4, k4, v4), do, retain_graph=True),
+             bwd_bytes, 10 * d * pairs)):
+        bound, bound_by = fa_bound_ms(n_bytes, flops, q.dtype == torch.bfloat16)
+        kt, pt, lt = timing(kernel), timing(plain, plain_kernels=20), timing(library)
+        out[key] = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
+                    "plain_call_ms": pt["call_ms"], "library_ms": lt["ms"],
+                    "library_call_ms": lt["call_ms"], "bound_ms": bound,
+                    "bound_by": bound_by, "bytes": n_bytes, "flops": flops}
+    return out
+
+
+def lm_expected(cfg, runs):
+    """Launches of ``runs`` LM steps: K1 once a step, K4 once a layer, and
+    K5 once or K6 twice a layer, as the gate decides at the path's
+    attention shape."""
+    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
+
+    head = cfg.d_model // cfg.n_heads
+    shape = (cfg.batch, cfg.n_heads, cfg.seq_len, head)
+    fused = _use_fused_bwd(shape, shape, head, cfg.device)
+    want = {"k1": runs, "k4": cfg.n_layers * runs}
+    want["k5" if fused else "k6"] = (1 if fused else 2) * cfg.n_layers * runs
+    return want, "fused (K5)" if fused else "two-kernel (K6)"
+
+
+def lm_path(torch, name, kernels, **kw):
+    """One ``lm_launch.run`` on the card, the counters set to 0 just before
+    and read just after: the weights on the card, finite losses, and every
+    kernel's launches exact, the warm-up step's included.  Returns the
+    result and the path's record for ``paths``."""
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, run
+
+    cfg = LM_LAUNCH_DEFAULTS.merged(kw, device="cuda")
+    for k in kernels.values():
+        k.launches = 0
+    res = run(cfg)
+    launches = {key: k.launches for key, k in kernels.items()}
+    losses = [h["avg_loss"] for h in res["history"]]
+    if not res["device"].startswith("cuda"):
+        raise AssertionError(f"{name}: w is on {res['device']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: losses not finite: {losses}")
+    want, schedule = lm_expected(cfg, cfg.steps + 1)
+    reading = {
+        "tokens_per_sec": res["tokens_per_sec"],
+        "step_ms": res["elapsed"] / cfg.steps * 1e3, "compile_s": res["compile_s"],
+        "params": res["params"], "steps": cfg.steps, "losses": losses,
+        "schedule": schedule, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"{name}: " + json.dumps(reading))
+    expect_launches(name, launches, want)
+    return res, {"launches": launches, "steps": cfg.steps, "warmup_steps": 1,
+                 "schedule": schedule}
+
+
+def lm_paths(torch, kernels, paths):
+    """``lm_default``, ``lm_longcontext`` and ``lm_default`` under the other
+    schedule; fills ``paths[kernel][path]``."""
+    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_KWARGS
+
+    def record(name, rec):
+        for key in kernels:
+            paths[key][name] = {**rec, "launches": rec["launches"][key]}
+
+    torch.cuda.reset_peak_memory_stats()
+    res, rec = lm_path(torch, "lm_default", kernels, steps=20, log_every=10)
+    losses = [h["avg_loss"] for h in res["history"]]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_default: the loss did not fall: {losses}")
+    record("lm_default", rec)
+    other = "0" if rec["schedule"].startswith("fused") else "1"
+    old = os.environ.get("MPIT_FA_FUSED_BWD")
+    os.environ["MPIT_FA_FUSED_BWD"] = other
+    try:
+        _, rec = lm_path(torch, "lm_default_other_schedule", kernels, steps=3,
+                         log_every=3)
+    finally:
+        if old is None:
+            del os.environ["MPIT_FA_FUSED_BWD"]
+        else:
+            os.environ["MPIT_FA_FUSED_BWD"] = old
+    record("lm_default_other_schedule", rec)
+    torch.cuda.reset_peak_memory_stats()
+    _, rec = lm_path(torch, "lm_longcontext", kernels, steps=6, log_every=3,
+                     **LONGCONTEXT_KWARGS)
+    record("lm_longcontext", rec)
+    for key in ("k5", "k6"):
+        if not any(p["launches"] for name, p in paths[key].items()
+                   if name.startswith("lm_")):
+            raise AssertionError(f"{key} launched in no LM training step")
+
+
+def lm_vs_cpu(torch, kernels, attn_dtype):
+    """Three LM steps at d 128, 4 heads (head width 32), 2 layers, context
+    256, batch 2, attention in ``attn_dtype``, on the card and on the CPU
+    from one w0 (flatten_module draws it on the CPU from the seed), held
+    to LM_LIMITS[attn_dtype]."""
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.transformer import TinyDecoder
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, run
+
+    name = f"lm_vs_cpu_{attn_dtype}"
+    kw = dict(d_model=128, n_heads=4, n_layers=2, seq_len=256, batch=2,
+              attn_dtype=attn_dtype, steps=3, log_every=1)
+    finals, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        for k in kernels.values():
+            k.launches = 0
+        res = run(LM_LAUNCH_DEFAULTS.merged(kw, device=device))
+        if device == "cuda":
+            cfg = LM_LAUNCH_DEFAULTS.merged(kw)
+            launches = {key: k.launches for key, k in kernels.items()}
+            want, schedule = lm_expected(cfg, cfg.steps + 1)
+            expect_launches(name, launches, want)
+        finals[device] = {key: res["state"][key].cpu() for key in ("w", "vt")}
+        losses[device] = [h["avg_loss"] for h in res["history"]]
+    w0 = flatten_module(TinyDecoder(vocab=256, d_model=128, n_heads=4, n_layers=2,
+                                    max_len=256), LM_LAUNCH_DEFAULTS.seed).w0
+    readings = {}
+    for key in ("w", "vt"):
+        gap = finals["cuda"][key] - finals["cpu"][key]
+        change = finals["cpu"][key] - (w0 if key == "w" else 0.0)
+        readings[key] = {"max_abs_gap": float(gap.abs().max()),
+                         "max_abs_change": float(change.abs().max()),
+                         "gap_over_change": float(gap.norm() / change.norm())}
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    readings["loss_rel_gap"] = loss_gap
+    readings["losses"] = losses
+    print(f"{name}: 3 steps, cuda vs cpu " + json.dumps(readings))
+    lim = LM_LIMITS[attn_dtype]
+    for key in ("w", "vt"):
+        r = readings[key]
+        max_abs = lim.get("max_abs_gap", lim.get("max_abs_share", 0.0) * r["max_abs_change"])
+        if not (r["max_abs_gap"] <= max_abs
+                and r["gap_over_change"] <= lim["gap_over_change"]):
+            raise AssertionError(f"{name}: {key} on the card differs from the CPU "
+                                 f"beyond the limits: {r}")
+    if not loss_gap <= lim["loss_rtol"]:
+        raise AssertionError(f"{name}: losses differ by {loss_gap} relative")
+    return {"launches": launches, "steps": 3, "warmup_steps": 1, "schedule": schedule,
+            **{k: readings[k] for k in ("w", "vt", "loss_rel_gap")}}
+
+
 def main() -> int:
     import torch
 
@@ -614,6 +1033,8 @@ def main() -> int:
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.mnist import make_model
     from mpit_tpu_torch.ops import build
+    from mpit_tpu_torch.ops.flash_attention import (
+        flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
     from mpit_tpu_torch.ops.fused_update import fused_adam, fused_elastic, fused_nesterov_commit
     from mpit_tpu_torch.train.mesh_launch import FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS
     from mpit_tpu_torch.train.trainer import TRAINER_DEFAULTS
@@ -646,15 +1067,29 @@ def main() -> int:
     paths["launch_msgd"] = launch_msgd(torch, fused_nesterov_commit)
     k1["launches"] = paths["headline"]["launches"]
 
-    kernels = {"k1": fused_nesterov_commit, "k2": fused_elastic, "k3": fused_adam}
-    gang_paths(torch, kernels, {"k1": paths, "k2": k2["paths"], "k3": k3["paths"]})
+    kernels = {"k1": fused_nesterov_commit, "k2": fused_elastic, "k3": fused_adam,
+               "k4": flash_fwd, "k5": flash_bwd_fused, "k6": flash_bwd_two_kernel}
+    fa_errs, fa_timed = check_flash(torch)
+    all_paths = {"k1": paths, "k2": k2["paths"], "k3": k3["paths"], "k4": {},
+                 "k5": {}, "k6": {}}
+    gang_paths(torch, kernels, all_paths)
     k3["paths"]["adam_gang_vs_cpu"] = adam_gang_vs_cpu(torch, kernels)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 
+    t_lm = time.perf_counter()
+    lm_paths(torch, kernels, all_paths)
+    for attn_dtype in ("float32", "bfloat16"):
+        rec = lm_vs_cpu(torch, kernels, attn_dtype)
+        for key in kernels:
+            all_paths[key][f"lm_vs_cpu_{attn_dtype}"] = {
+                **rec, "launches": rec["launches"][key]}
+    k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
+    print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
-"""MNIST models and the flat-parameter view."""
+"""The MNIST models, the long-context LM and the flat-parameter view."""
 
 from mpit_tpu_torch.models.flat import FlatModel, flatten_module
 from mpit_tpu_torch.models.mnist import MnistCNN, MnistLinear, MnistMLP
+from mpit_tpu_torch.models.transformer import DecoderBlock, TinyDecoder, default_attn
 
-__all__ = ["FlatModel", "MnistCNN", "MnistLinear", "MnistMLP", "flatten_module"]
+__all__ = ["DecoderBlock", "FlatModel", "MnistCNN", "MnistLinear", "MnistMLP",
+           "TinyDecoder", "default_attn", "flatten_module"]

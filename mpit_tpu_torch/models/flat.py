@@ -6,9 +6,10 @@ module keeps that layout exactly:
 
 - leaves in sorted key order at every level (``Conv_0/bias``,
   ``Conv_0/kernel``, ``Conv_1/...``, ``Dense_0/...``), so each bias comes
-  before its kernel;
+  before its kernel, and ``DecoderBlock_10`` before ``DecoderBlock_2``;
 - each leaf in C order, in flax's own shapes (the modules of
-  :mod:`mpit_tpu_torch.models.mnist` hold them that way).
+  :mod:`mpit_tpu_torch.models.mnist` and
+  :mod:`mpit_tpu_torch.models.transformer` hold them that way).
 
 :meth:`FlatModel.apply_flat` views the vector as the module's parameters
 and runs the module through ``torch.func.functional_call``, so autograd
@@ -101,9 +102,12 @@ def _count_leaves(tree: Any) -> int:
 def flatten_module(module: nn.Module, seed: int,
                    device: torch.device | str = "cpu") -> FlatModel:
     """Seeded init in flax's defaults: kernels lecun-normal (truncated
-    normal, std ``sqrt(1/fan_in)``), biases zero.  The draws come from a
-    CPU ``torch.Generator``, so they differ from flax's for the same seed;
-    tests share one ``w0`` through :meth:`FlatModel.from_jax_params`."""
+    normal, std ``sqrt(1/fan_in)``), embeddings normal with std
+    ``sqrt(1/features)`` (``nn.Embed``'s ``variance_scaling(1, "fan_in",
+    "normal", out_axis=0)``), LayerNorm scales one, biases zero.  The draws
+    come from a CPU ``torch.Generator``, so they differ from flax's for the
+    same seed but not between devices; tests share one ``w0`` through
+    :meth:`FlatModel.from_jax_params`."""
     gen = torch.Generator().manual_seed(int(seed))
     leaves = []
     for name, shape in param_spec(module):
@@ -112,6 +116,10 @@ def flatten_module(module: nn.Module, seed: int,
             std = math.sqrt(1.0 / math.prod(shape[:-1])) / _TRUNC_STD
             nn.init.trunc_normal_(leaf, std=std, a=-2 * std, b=2 * std,
                                   generator=gen)
+        elif name.endswith("embedding"):
+            leaf.normal_(0.0, math.sqrt(1.0 / shape[-1]), generator=gen)
+        elif name.endswith("scale"):
+            leaf.fill_(1.0)
         leaves.append(leaf.reshape(-1))
     module.to(device)
     return FlatModel(module, torch.cat(leaves).to(device))

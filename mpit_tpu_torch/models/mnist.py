@@ -25,13 +25,16 @@ from torch import nn
 
 
 class Dense(nn.Module):
-    def __init__(self, d_in: int, d_out: int):
+    """flax's ``nn.Dense``: ``x @ kernel (+ bias)``, kernel ``(in, out)``."""
+
+    def __init__(self, d_in: int, d_out: int, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
-        self.bias = nn.Parameter(torch.zeros(d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 class Conv3x3(nn.Module):

@@ -28,14 +28,21 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 
-# -fmad=false: no multiply-add contraction, so kernels round each operation
-# as their plain PyTorch twins do and can be held to bit equality.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("fused_update",)
+# Each source and the flags of its own.  fused_update: -fmad=false, no
+# multiply-add contraction, so K1-K3 round each operation as their plain
+# PyTorch twins do and are held to bit equality.  flash_attention: its
+# sums run in another order than its twin's anyway, so it is held to a
+# tolerance and keeps the contraction.
+SOURCE_FLAGS = {
+    "fused_update": ("-fmad=false",),
+    "flash_attention": (),
+}
+SOURCES = tuple(SOURCE_FLAGS)
 
 
 def nvcc() -> str:
@@ -54,9 +61,13 @@ def nvcc() -> str:
     return str(path)
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -69,7 +80,7 @@ def build(name: str) -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

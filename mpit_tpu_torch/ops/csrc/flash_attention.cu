@@ -1,0 +1,722 @@
+// K4, K5, K6: flash attention, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of mpit_tpu/ops/flash_attention.py:
+//   K4  `_fa_kernel` (`_fa_2d`, both output modes)       -> fa_fwd_kernel
+//   K5  `_fa_bwd_fused_kernel` (`_fa_2d_bwd(fused=True)`) -> fa_bwd_fused_kernel
+//   K6  `_fa_bwd_dq_kernel` and `_fa_bwd_dkdv_kernel`     -> fa_bwd_dq_kernel,
+//       (`_fa_2d_bwd(fused=False)`)                           fa_bwd_dkdv_kernel
+//
+// Every operand is a contiguous (N, L, D) array, N the flattened leading
+// axes, in float32 or bfloat16 (T); row statistics (lse, delta, m, l) are
+// float32 (N, L).  With s = scale * q.k over the valid (q row, key) pairs:
+//
+//   forward   online softmax over key tiles: m (running max), l (running
+//             sum of p = exp(s - m)), acc = sum p.v; normalized o = acc/l
+//             (l = 0 -> 1) plus lse = m + log l, or the partials
+//             (acc, m, l) with m = -inf on rows that have no valid key;
+//   backward  P = exp(s - lse), dS = P * (dO.V^T - delta),
+//             dV = P^T.dO, dK = scale * dS^T.Q, dQ = scale * dS.K.
+//
+// What is carried over exactly:
+//   - the validity rule: keys at or past Lk masked, and under `causal`
+//     q_offset + i >= kv_offset + j in global coordinates (`valid`);
+//   - the dead / edge / full triage of a (q tile, key tile) pair
+//     (`_block_bounds`): `triage` below is the one copy of the boundary
+//     rule, shared by all four kernels;
+//   - the finite sentinel -1e30 for the running max inside the kernel, and
+//     -inf in the public m and lse of dead rows;
+//   - the casts: P rounds to T before P.V and P^T.dO, dS rounds to T
+//     before dS.K and dS^T.Q; every product accumulates in float32.  A
+//     product of two bf16 values is exact in float32, so for bf16 inputs
+//     the kernels compute what the Pallas kernels' MXU passes do.
+//   - K5's dQ leaves as one float32 partial per key tile, (n_kv_tiles, N,
+//     Lq, D), summed outside by one deterministic reduction (no atomics);
+//     a dead (q tile, key tile) pair writes zeros into its slot.
+//
+// Bound on this card: operations at the LM's shapes.  A valid pair costs
+// 4*D flops forward and 10*D backward (the fused schedule's five
+// products); at N = 64, L = 1,024, D = 32 in bf16 the forward moves 17 MB
+// and does 4.3 GFLOP (5.1 us at 3.35 TB/s, 4.3 us at 989 TFLOP/s).
+//
+// Design, simple first: no tensor cores.  One block of 256 threads owns a
+// 64-row q tile (K4, K6's dq) or a 64-row key tile (K5, K6's dkdv) of one
+// of the N heads, and loops over the other side's 64-row tiles inside the
+// block (the TPU grid's sequential axis).  Tiles sit in shared memory as
+// float32, rows padded to D_MAX + 1 floats so the 16 threads that read 16
+// different rows of one column hit 16 different banks.  The threads form a
+// 16 x 16 grid: thread (ty, tx) holds rows ty + 16a and columns tx + 16b
+// (a, b < 4) of each 64 x 64 score tile, and the same rows of the (64,
+// D_MAX) accumulators.  A row's 16 threads lie in one half-warp, so the
+// online softmax reduces a row with four shuffles.  Scores and products
+// are scalar float32 FMAs (67 TFLOP/s peak), so the kernels stay far from
+// a bf16 tensor-core bound: wgmma and TMA are later work.  D is a multiple
+// of 8 up to 128; D_MAX is 32, 64 or 128 and the padded columns hold zeros.
+// Blocks are ordered heaviest first under the causal mask (the last q
+// tiles, the first key tiles).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int BQ = 64;         // q rows per tile
+constexpr int BK = 64;         // key rows per tile
+constexpr int NT = 256;        // threads per block, a 16 x 16 grid
+constexpr int LDS = BK + 16;   // row stride of a score tile in shared memory:
+                               // the two rows a warp reads lie 16 banks apart
+constexpr float BIG_NEG = -1e30f;
+
+struct Geo {
+  int n, lq, lk, d;
+  int q_offset, kv_offset;
+  float scale;
+  int causal;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: the cast of P and dS before their products.
+template <typename T>
+__device__ __forceinline__ float round_as(float x) { return to_f32(from_f32<T>(x)); }
+
+// `_block_bounds`: 0 dead (skip), 1 edge (mask each element), 2 full (no
+// element masked) for q tile i and key tile j.
+__device__ __forceinline__ int triage(const Geo& g, int i, int j) {
+  const int q_lo = g.q_offset + i * BQ;
+  const int k_hi = (j + 1) * BK;  // exclusive, local
+  bool live = j * BK < g.lk;
+  bool full = k_hi <= g.lk;
+  if (g.causal) {
+    live = live && (q_lo + BQ - 1 >= g.kv_offset + j * BK);
+    full = full && (q_lo >= g.kv_offset + k_hi - 1);
+  }
+  return live ? (full ? 2 : 1) : 0;
+}
+
+// Local q row qi against local key kj, inside an edge tile.
+__device__ __forceinline__ bool valid(const Geo& g, int qi, int kj) {
+  return kj < g.lk && (!g.causal || g.q_offset + qi >= g.kv_offset + kj);
+}
+
+// Rows row0 .. row0+63 of a (rows, d) matrix into a (64, DM + 1) float
+// tile; rows past `rows` and columns past d read as 0.
+template <typename T, int DM>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+                                          int row0, int rows, int d) {
+  for (int idx = threadIdx.x; idx < 64 * DM; idx += NT) {
+    const int r = idx / DM, c = idx % DM;
+    const int row = row0 + r;
+    dst[r * (DM + 1) + c] =
+        (row < rows && c < d) ? to_f32(src[(size_t)row * d + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load_stats(float* dst, const float* __restrict__ src,
+                                           int row0, int rows) {
+  for (int r = threadIdx.x; r < BQ; r += NT)
+    dst[r] = row0 + r < rows ? src[row0 + r] : 0.f;
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// K4: forward
+// ---------------------------------------------------------------------------
+
+template <typename T, int DM, bool PARTIAL>
+__global__ void __launch_bounds__(NT)
+fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ o, float* __restrict__ lse, float* __restrict__ acc_out,
+              float* __restrict__ m_out, float* __restrict__ l_out, Geo g) {
+  constexpr int LD = DM + 1, NC = DM / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sP = sV + BK * LD;  // (BQ, LDS)
+  const int n_tiles = (g.lq + BQ - 1) / BQ;
+  const int i = n_tiles - 1 - (int)(blockIdx.x / g.n);
+  const int n = (int)(blockIdx.x % g.n);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
+
+  load_tile<T, DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
+  float acc[4][NC], m[4], l[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = BIG_NEG;
+    l[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
+  }
+
+  const int nj = (g.lk + BK - 1) / BK;
+  for (int j = 0; j < nj; ++j) {
+    const int kind = triage(g, i, j);
+    if (kind == 0) continue;  // the same for every thread of the block
+    __syncthreads();          // the previous tile's reads are done
+    load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
+    load_tile<T, DM>(sV, v + kbase, j * BK, g.lk, g.d);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < g.d; ++c) {
+      float qa[4], kb[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qa[a] = sQ[(ty + 16 * a) * LD + c];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) kb[b] = sK[(tx + 16 * b) * LD + c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+    }
+
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int qi = i * BQ + ty + 16 * a;
+      bool ok[4];
+      float mx = BIG_NEG;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        ok[b] = kind == 2 || valid(g, qi, j * BK + tx + 16 * b);
+        s[a][b] = ok[b] ? s[a][b] * g.scale : BIG_NEG;
+        mx = fmaxf(mx, s[a][b]);
+      }
+      // A row with no valid score so far keeps m == BIG_NEG, so exp(s -
+      // m_new) is 1 at its masked elements: `ok` zeroes them.
+      const float m_new = fmaxf(m[a], half_warp_max(mx));
+      float ps = 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float p = ok[b] ? expf(s[a][b] - m_new) : 0.f;
+        ps += p;
+        sP[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(p);
+      }
+      const float alpha = expf(m[a] - m_new);
+      l[a] = alpha * l[a] + half_warp_sum(ps);
+      m[a] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[a][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float pa[4], vb[NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pa[a] = sP[(ty + 16 * a) * LDS + c];
+#pragma unroll
+      for (int b = 0; b < NC; ++b) vb[b] = sV[c * LD + tx + 16 * b];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < NC; ++b) acc[a][b] = fmaf(pa[a], vb[b], acc[a][b]);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = i * BQ + ty + 16 * a;
+    if (row >= g.lq) continue;
+    const size_t ro = qbase + (size_t)row * g.d;
+    const size_t so = (size_t)n * g.lq + row;
+    const float m_pub = m[a] == BIG_NEG ? -INFINITY : m[a];
+    if (PARTIAL) {
+#pragma unroll
+      for (int b = 0; b < NC; ++b) {
+        const int col = tx + 16 * b;
+        if (col < g.d) acc_out[ro + col] = acc[a][b];
+      }
+      if (tx == 0) {
+        m_out[so] = m_pub;
+        l_out[so] = l[a];
+      }
+    } else {
+      const float den = l[a] == 0.f ? 1.f : l[a];
+#pragma unroll
+      for (int b = 0; b < NC; ++b) {
+        const int col = tx + 16 * b;
+        if (col < g.d) o[ro + col] = from_f32<T>(acc[a][b] / den);
+      }
+      if (lse != nullptr && tx == 0) lse[so] = m_pub + logf(den);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward: the shared (P, dS) tile
+// ---------------------------------------------------------------------------
+
+// P and dS of q tile i against key tile j, for the thread's 4 x 4
+// elements (q rows ty + 16a, keys tx + 16b).  sLse and sDelta hold the q
+// tile's rows.  A dead row has lse = -inf and no valid key, so exp(s -
+// lse) is never taken there; a full tile has no dead row.
+template <int DM>
+__device__ __forceinline__ void p_ds(float (&p)[4][4], float (&ds)[4][4],
+                                     const float* sQ, const float* sdO,
+                                     const float* sK, const float* sV,
+                                     const float* sLse, const float* sDelta,
+                                     const Geo& g, int i, int j, int kind,
+                                     int ty, int tx) {
+  constexpr int LD = DM + 1;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < g.d; ++c) {
+    float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qa[a] = sQ[(ty + 16 * a) * LD + c];
+      da[a] = sdO[(ty + 16 * a) * LD + c];
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      kb[b] = sK[(tx + 16 * b) * LD + c];
+      vb[b] = sV[(tx + 16 * b) * LD + c];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+        dp[a][b] = fmaf(da[a], vb[b], dp[a][b]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty + 16 * a;
+    const float lse = sLse[r], delta = sDelta[r];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const bool ok = kind == 2 || valid(g, i * BQ + r, j * BK + tx + 16 * b);
+      p[a][b] = ok ? expf(s[a][b] * g.scale - lse) : 0.f;
+      ds[a][b] = p[a][b] * (dp[a][b] - delta);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6, first kernel: dQ, q tiles outer
+// ---------------------------------------------------------------------------
+
+template <typename T, int DM>
+__global__ void __launch_bounds__(NT)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq, Geo g) {
+  constexpr int LD = DM + 1, NC = DM / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BQ * LD;
+  float* sK = sdO + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sDS = sV + BK * LD;  // (BQ, LDS)
+  float* sLse = sDS + BQ * LDS;
+  float* sDelta = sLse + BQ;
+  const int n_tiles = (g.lq + BQ - 1) / BQ;
+  const int i = n_tiles - 1 - (int)(blockIdx.x / g.n);
+  const int n = (int)(blockIdx.x % g.n);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
+  const size_t sbase = (size_t)n * g.lq;
+
+  load_tile<T, DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
+  load_tile<T, DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
+  load_stats(sLse, lse + sbase, i * BQ, g.lq);
+  load_stats(sDelta, delta + sbase, i * BQ, g.lq);
+  float acc[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
+
+  const int nj = (g.lk + BK - 1) / BK;
+  for (int j = 0; j < nj; ++j) {
+    const int kind = triage(g, i, j);
+    if (kind == 0) continue;
+    __syncthreads();
+    load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
+    load_tile<T, DM>(sV, v + kbase, j * BK, g.lk, g.d);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    p_ds<DM>(p, ds, sQ, sdO, sK, sV, sLse, sDelta, g, i, j, kind, ty, tx);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        sDS[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(ds[a][b]);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float da[4], kb[NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) da[a] = sDS[(ty + 16 * a) * LDS + c];
+#pragma unroll
+      for (int b = 0; b < NC; ++b) kb[b] = sK[c * LD + tx + 16 * b];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < NC; ++b) acc[a][b] = fmaf(da[a], kb[b], acc[a][b]);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = i * BQ + ty + 16 * a;
+    if (row >= g.lq) continue;
+#pragma unroll
+    for (int b = 0; b < NC; ++b) {
+      const int col = tx + 16 * b;
+      if (col < g.d) dq[qbase + (size_t)row * g.d + col] = from_f32<T>(g.scale * acc[a][b]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5 and K6's second kernel: key tiles outer, dK and dV in registers
+// ---------------------------------------------------------------------------
+
+// With FUSED (K5), each (q tile, key tile) pair also writes its dQ
+// contribution scale * dS.K into dqp[j] (dead pairs write zeros), so one
+// sweep yields all three gradients: five products per pair, not seven.
+template <typename T, int DM, bool FUSED>
+__device__ __forceinline__ void bwd_kv_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ dqp, const Geo& g) {
+  constexpr int LD = DM + 1, NC = DM / 16;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BK * LD;
+  float* sQ = sV + BK * LD;
+  float* sdO = sQ + BQ * LD;
+  float* sP = sdO + BQ * LD;   // (BQ, LDS)
+  float* sDS = sP + BQ * LDS;  // (BQ, LDS)
+  float* sLse = sDS + BQ * LDS;
+  float* sDelta = sLse + BQ;
+  const int j = (int)(blockIdx.x / g.n);
+  const int n = (int)(blockIdx.x % g.n);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
+  const size_t sbase = (size_t)n * g.lq;
+  float* dqp_j = FUSED ? dqp + ((size_t)j * g.n + n) * g.lq * g.d : nullptr;
+
+  load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
+  load_tile<T, DM>(sV, v + kbase, j * BK, g.lk, g.d);
+  float dka[4][NC], dva[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dka[a][c] = dva[a][c] = 0.f;
+
+  const int ni = (g.lq + BQ - 1) / BQ;
+  for (int i = 0; i < ni; ++i) {
+    const int kind = triage(g, i, j);
+    if (kind == 0) {
+      if (FUSED) {
+        for (int idx = threadIdx.x; idx < BQ * g.d; idx += NT) {
+          const int row = i * BQ + idx / g.d;
+          if (row < g.lq) dqp_j[(size_t)row * g.d + idx % g.d] = 0.f;
+        }
+      }
+      continue;
+    }
+    __syncthreads();
+    load_tile<T, DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
+    load_tile<T, DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
+    load_stats(sLse, lse + sbase, i * BQ, g.lq);
+    load_stats(sDelta, delta + sbase, i * BQ, g.lq);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    p_ds<DM>(p, ds, sQ, sdO, sK, sV, sLse, sDelta, g, i, j, kind, ty, tx);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        sP[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(p[a][b]);
+        sDS[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(ds[a][b]);
+      }
+    __syncthreads();
+    // dV += P^T.dO and dK += dS^T.Q: this thread's key rows ty + 16a.
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {
+      float pa[4], da[4], ob[NC], qb[NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        pa[a] = sP[r * LDS + ty + 16 * a];
+        da[a] = sDS[r * LDS + ty + 16 * a];
+      }
+#pragma unroll
+      for (int b = 0; b < NC; ++b) {
+        ob[b] = sdO[r * LD + tx + 16 * b];
+        qb[b] = sQ[r * LD + tx + 16 * b];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < NC; ++b) {
+          dva[a][b] = fmaf(pa[a], ob[b], dva[a][b]);
+          dka[a][b] = fmaf(da[a], qb[b], dka[a][b]);
+        }
+    }
+    if (FUSED) {
+      // This pair's dQ: the thread's q rows ty + 16a.
+      float dqa[4][NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < NC; ++b) dqa[a][b] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < BK; ++c) {
+        float da[4], kb[NC];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) da[a] = sDS[(ty + 16 * a) * LDS + c];
+#pragma unroll
+        for (int b = 0; b < NC; ++b) kb[b] = sK[c * LD + tx + 16 * b];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < NC; ++b) dqa[a][b] = fmaf(da[a], kb[b], dqa[a][b]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int row = i * BQ + ty + 16 * a;
+        if (row >= g.lq) continue;
+#pragma unroll
+        for (int b = 0; b < NC; ++b) {
+          const int col = tx + 16 * b;
+          if (col < g.d) dqp_j[(size_t)row * g.d + col] = g.scale * dqa[a][b];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = j * BK + ty + 16 * a;
+    if (row >= g.lk) continue;
+#pragma unroll
+    for (int b = 0; b < NC; ++b) {
+      const int col = tx + 16 * b;
+      if (col >= g.d) continue;
+      const size_t at = kbase + (size_t)row * g.d + col;
+      dk[at] = from_f32<T>(g.scale * dka[a][b]);
+      dv[at] = from_f32<T>(dva[a][b]);
+    }
+  }
+}
+
+template <typename T, int DM>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ dqp, Geo g) {
+  bwd_kv_body<T, DM, true>(q, k, v, dout, lse, delta, dk, dv, dqp, g);
+}
+
+template <typename T, int DM>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                   Geo g) {
+  bwd_kv_body<T, DM, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, g);
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+template <int DM>
+constexpr size_t tile_bytes() { return (size_t)64 * (DM + 1) * sizeof(float); }
+constexpr size_t score_bytes() { return (size_t)BQ * LDS * sizeof(float); }
+constexpr size_t stats_bytes() { return (size_t)2 * BQ * sizeof(float); }
+
+// Above 48 KB a kernel's dynamic shared memory must be allowed first.
+template <typename K>
+int launch(K kernel, size_t smem, int tiles, const Geo& g, cudaStream_t stream,
+           void** args) {
+  const long long blocks = (long long)tiles * g.n;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernel((const void*)kernel, dim3((unsigned)blocks), dim3(NT), args,
+                         smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Calls f(T{}, integral_constant<DM>) for the element type and the padded
+// head width of the call.
+template <typename F>
+int dispatch(int bf16, int d, F&& f) {
+  using D32 = std::integral_constant<int, 32>;
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (bf16) {
+    if (d <= 32) return f(__nv_bfloat16{}, D32{});
+    if (d <= 64) return f(__nv_bfloat16{}, D64{});
+    return f(__nv_bfloat16{}, D128{});
+  }
+  if (d <= 32) return f(float{}, D32{});
+  if (d <= 64) return f(float{}, D64{});
+  return f(float{}, D128{});
+}
+
+bool bad_geometry(const Geo& g) {
+  return g.n <= 0 || g.lq <= 0 || g.lk <= 0 || g.d <= 0 || g.d > 128 || g.d % 8 != 0;
+}
+
+Geo make_geo(int n, int lq, int lk, int d, int q_offset, int kv_offset, float scale,
+             int causal) {
+  Geo g;
+  g.n = n;
+  g.lq = lq;
+  g.lk = lk;
+  g.d = d;
+  g.q_offset = q_offset;
+  g.kv_offset = kv_offset;
+  g.scale = scale;
+  g.causal = causal;
+  return g;
+}
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// after its launch (0 on success); it allocates nothing.  `bf16` selects
+// the element type of q, k, v, do, o, dq, dk, dv (else float32).
+
+// K4.  partial = 0: o and, when lse is not null, lse.  partial = 1:
+// acc (float32, like q), m and l.
+extern "C" int mpit_fa_fwd(const void* q, const void* k, const void* v, void* o,
+                           float* lse, float* acc, float* m, float* l, int bf16,
+                           int n, int lq, int lk, int d, int q_offset, int kv_offset,
+                           float scale, int causal, int partial, void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int tiles = (lq + BQ - 1) / BQ;
+  return dispatch(bf16, d, [&](auto t, auto dm) {
+    using T = decltype(t);
+    constexpr int DM = decltype(dm)::value;
+    const size_t smem = 3 * tile_bytes<DM>() + score_bytes();
+    const T* qp = static_cast<const T*>(q);
+    const T* kp = static_cast<const T*>(k);
+    const T* vp = static_cast<const T*>(v);
+    T* op = static_cast<T*>(o);
+    void* args[] = {&qp, &kp, &vp, &op, &lse, &acc, &m, &l, &g};
+    return partial ? launch(fa_fwd_kernel<T, DM, true>, smem, tiles, g, s, args)
+                   : launch(fa_fwd_kernel<T, DM, false>, smem, tiles, g, s, args);
+  });
+}
+
+// K5: dk, dv, and the dQ partials dqp (float32, (ceil(lk / 64), n, lq, d)).
+extern "C" int mpit_fa_bwd_fused(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse, const float* delta,
+                                 void* dk, void* dv, float* dqp, int bf16, int n, int lq,
+                                 int lk, int d, int q_offset, int kv_offset, float scale,
+                                 int causal, void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int tiles = (lk + BK - 1) / BK;
+  return dispatch(bf16, d, [&](auto t, auto dm) {
+    using T = decltype(t);
+    constexpr int DM = decltype(dm)::value;
+    const size_t smem = 4 * tile_bytes<DM>() + 2 * score_bytes() + stats_bytes();
+    const T* qp = static_cast<const T*>(q);
+    const T* kp = static_cast<const T*>(k);
+    const T* vp = static_cast<const T*>(v);
+    const T* dop = static_cast<const T*>(dout);
+    T* dkp = static_cast<T*>(dk);
+    T* dvp = static_cast<T*>(dv);
+    void* args[] = {&qp, &kp, &vp, &dop, &lse, &delta, &dkp, &dvp, &dqp, &g};
+    return launch(fa_bwd_fused_kernel<T, DM>, smem, tiles, g, s, args);
+  });
+}
+
+// K6, first kernel: dq.
+extern "C" int mpit_fa_bwd_dq(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse, const float* delta,
+                              void* dq, int bf16, int n, int lq, int lk, int d,
+                              int q_offset, int kv_offset, float scale, int causal,
+                              void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int tiles = (lq + BQ - 1) / BQ;
+  return dispatch(bf16, d, [&](auto t, auto dm) {
+    using T = decltype(t);
+    constexpr int DM = decltype(dm)::value;
+    const size_t smem = 4 * tile_bytes<DM>() + score_bytes() + stats_bytes();
+    const T* qp = static_cast<const T*>(q);
+    const T* kp = static_cast<const T*>(k);
+    const T* vp = static_cast<const T*>(v);
+    const T* dop = static_cast<const T*>(dout);
+    T* dqp = static_cast<T*>(dq);
+    void* args[] = {&qp, &kp, &vp, &dop, &lse, &delta, &dqp, &g};
+    return launch(fa_bwd_dq_kernel<T, DM>, smem, tiles, g, s, args);
+  });
+}
+
+// K6, second kernel: dk and dv.
+extern "C" int mpit_fa_bwd_dkdv(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse, const float* delta,
+                                void* dk, void* dv, int bf16, int n, int lq, int lk,
+                                int d, int q_offset, int kv_offset, float scale,
+                                int causal, void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int tiles = (lk + BK - 1) / BK;
+  return dispatch(bf16, d, [&](auto t, auto dm) {
+    using T = decltype(t);
+    constexpr int DM = decltype(dm)::value;
+    const size_t smem = 4 * tile_bytes<DM>() + 2 * score_bytes() + stats_bytes();
+    const T* qp = static_cast<const T*>(q);
+    const T* kp = static_cast<const T*>(k);
+    const T* vp = static_cast<const T*>(v);
+    const T* dop = static_cast<const T*>(dout);
+    T* dkp = static_cast<T*>(dk);
+    T* dvp = static_cast<T*>(dv);
+    void* args[] = {&qp, &kp, &vp, &dop, &lse, &delta, &dkp, &dvp, &g};
+    return launch(fa_bwd_dkdv_kernel<T, DM>, smem, tiles, g, s, args);
+  });
+}

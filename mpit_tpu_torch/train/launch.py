@@ -68,7 +68,7 @@ LATER_FLAGS = {
     "cells": (0, "serving cells (slice 5, cells)"),
     "shardctl": (False, "shard control (slice 5, shardctl)"),
     "elastic": (False, "elastic membership (slice 5, ft)"),
-    "lm": (0, "the LM workload (slice 7, lm)"),
+    "lm": (0, "the LM workload through the PS gang (slice 7b, lm)"),
     "agg": ("off", "hierarchical aggregation (slice 5, agg)"),
     "dplane": (0, "the device data plane (slice 6, dplane)"),
     "server_ckpt_dir": ("", "server checkpoints (slice 5, ft)"),

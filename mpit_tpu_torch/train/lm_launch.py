@@ -1,0 +1,247 @@
+"""Long-context causal-LM training CLI on one card — the port of
+:mod:`mpit_tpu.train.lm_launch` at ``dp = sp = 1``.
+
+TinyDecoder over a byte corpus (``--text_file``, trained as raw bytes,
+vocab 256, or a deterministic synthetic Markov stream), its attention the
+flash kernels (K4 forward, K5 or K6 backward) on ``attn_dtype`` inputs,
+trained by full Nesterov msgd: the lookahead, the loss and gradient at
+the displaced point, and the commit (K1), all in place on the flat
+parameter vector.  The corpus and the batch draws are the reference's, so
+a run from the same ``w0`` sees the same tokens in both packages.
+
+Runs on CUDA unless ``--device cpu``.  What belongs to later slices
+raises ``NotImplementedError``: ``dp > 1`` (multi-card data parallel),
+``sp > 1`` (ring attention), the multi-host flags, and ``ckpt_dir`` /
+``resume`` (checkpointing).  ``layout`` is the ring's and is only
+checked.  The reference's ``compile_cache`` (a persistent XLA cache) has
+no counterpart and is not a flag here; ``profile_dir`` records a
+``torch.profiler`` trace of the training loop, each log window a
+``window N`` range.
+
+Example:
+
+    python -m mpit_tpu_torch.train.lm_launch --seq_len 8192 --d_model 1024 \
+        --n_layers 4 --batch 1 --steps 20
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from mpit_tpu_torch.models.flat import flatten_module
+from mpit_tpu_torch.models.transformer import TinyDecoder, default_attn
+from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
+from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_init, msgd_step
+from mpit_tpu_torch.utils.config import Config
+from mpit_tpu_torch.utils.logging import get_logger
+from mpit_tpu_torch.utils.platform import device_name, resolve_device
+
+LM_LAUNCH_DEFAULTS = Config(
+    seq_len=1024,
+    d_model=256,
+    n_heads=8,
+    n_layers=2,
+    batch=8,
+    steps=200,
+    lr=1e-3,
+    mom=0.9,
+    dp=0,  # 0 -> 1; more is a later slice
+    sp=0,  # 0 -> 1; more is a later slice (ring attention)
+    layout="zigzag",  # zigzag | contiguous: the ring's, a later slice
+    attn_dtype="bfloat16",  # kernel input dtype: bfloat16 | float32
+    text_file="",
+    seed=1,
+    log_every=20,
+    ckpt_dir="",  # a later slice; set raises
+    ckpt_every=100,
+    resume="",  # a later slice; set raises
+    profile_dir="",  # torch.profiler trace of the training loop when set
+    device="cuda",  # cuda | cpu
+    # multi-host bootstrap: a later slice; any set raises
+    hostfile="",
+    coordinator="",
+    num_processes=0,
+    process_id=-1,
+)
+
+# The widths of the JAX package's long-context showcase
+# (benchmarks/longcontext.py, its first length).
+LONGCONTEXT_KWARGS = dict(seq_len=8192, d_model=1024, n_heads=8, n_layers=4,
+                          batch=1)
+
+
+_SYNTH_CACHE: dict = {}
+
+
+def _corpus(cfg: Config, log) -> np.ndarray:
+    if cfg.text_file:
+        data = np.frombuffer(
+            pathlib.Path(cfg.text_file).read_bytes(), np.uint8
+        ).astype(np.int32)
+        log.info("corpus: %s (%d bytes)", cfg.text_file, len(data))
+    else:
+        # Markov-ish synthetic bytes: learnable structure, not uniform
+        # noise.  Deterministic in n — memoized, the scalar chain costs
+        # ~1.5s/MB and every run() call would otherwise regenerate it.
+        n = max(1 << 20, 8 * (cfg.seq_len + 1) * cfg.batch)
+        data = _SYNTH_CACHE.get(n)
+        if data is None:
+            rng = np.random.default_rng(1234)
+            trans = rng.integers(0, 256, (256, 4))
+            data = np.empty(n, np.int32)
+            data[0] = 0
+            choices = rng.integers(0, 4, n)
+            noise = rng.random(n)
+            resets = rng.integers(0, 256, n)
+            for i in range(1, n):
+                data[i] = (trans[data[i - 1], choices[i]]
+                           if noise[i] > 0.1 else resets[i])
+            _SYNTH_CACHE[n] = data
+        log.info("corpus: synthetic markov bytes (%d)", n)
+    if len(data) < cfg.batch * (cfg.seq_len + 1):
+        raise ValueError(
+            f"corpus of {len(data)} tokens < one global batch "
+            f"({cfg.batch} x {cfg.seq_len + 1})"
+        )
+    return data
+
+
+def _refuse_later_slices(cfg: Config) -> None:
+    later = {
+        "dp > 1": (int(cfg.dp) > 1, "multi-card data parallel"),
+        "sp > 1": (int(cfg.sp) > 1, "ring attention (sequence parallel)"),
+        "multi-host flags": (
+            bool(cfg.hostfile or cfg.coordinator or cfg.num_processes > 1
+                 or cfg.process_id >= 0),
+            "multi-host process groups"),
+        "ckpt_dir": (bool(cfg.ckpt_dir), "checkpointing"),
+        "resume": (bool(cfg.resume), "checkpointing"),
+    }
+    for flag, (is_set, slice_name) in later.items():
+        if is_set:
+            raise NotImplementedError(
+                f"{flag}: {slice_name} is a later slice of the port")
+    if cfg.layout not in ("zigzag", "contiguous"):
+        raise ValueError(f"layout must be zigzag or contiguous, got {cfg.layout!r}")
+    if cfg.attn_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"attn_dtype must be bfloat16 or float32, got {cfg.attn_dtype!r}")
+
+
+def run(cfg: Config) -> dict:
+    """Train; returns the reference's result keys plus the device, the
+    step count and ``state``, the final ``w``, ``vt`` and ``k`` (which
+    :func:`main` leaves out of its JSON)."""
+    _refuse_later_slices(cfg)
+    device = resolve_device(cfg.device)
+    log = get_logger("lm", 0)
+    log.info("mesh: dp=1 sp=1 on %s (%s)", device, device_name(device))
+
+    cast = torch.bfloat16 if cfg.attn_dtype == "bfloat16" else None
+    inner = default_attn(causal=True)
+
+    def attn_fn(q, k, v):
+        out_dtype = q.dtype
+        if cast is not None:
+            q, k, v = (t.to(cast) for t in (q, k, v))
+        return inner(q, k, v).to(out_dtype)
+
+    model = TinyDecoder(
+        vocab=256, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_layers=cfg.n_layers, max_len=cfg.seq_len, attn_fn=attn_fn,
+    )
+    flat = flatten_module(model, cfg.seed, device)
+    log.info("flat params: %d", flat.size)
+
+    def loss_fn(w, toks):
+        logp = flat.apply_flat(w, toks[:, :-1])
+        return -torch.take_along_dim(logp, toks[:, 1:, None], dim=-1).mean()
+
+    def value_and_grad(w, toks):
+        w_la = w.detach().requires_grad_(True)
+        loss = loss_fn(w_la, toks)
+        (grad,) = torch.autograd.grad(loss, w_la)
+        return loss.detach(), grad
+
+    mcfg = MSGDConfig(lr=cfg.lr, mom=cfg.mom)
+
+    def train_step(w, state, toks):
+        w, state, loss = msgd_step(value_and_grad, w, state, mcfg, toks)
+        return loss
+
+    w = flat.w0.clone()
+    state = msgd_init(w)
+
+    data = _corpus(cfg, log)
+    rng = np.random.default_rng(cfg.seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    # Warm the step before t0 on copies of the state (the first launches
+    # build the kernels and pick cuBLAS's algorithms): tokens_per_sec
+    # measures training, compile_s the warm-up.
+    t_c = time.perf_counter()
+    warm_toks = torch.zeros((cfg.batch, cfg.seq_len + 1), dtype=torch.int64,
+                            device=device)
+    train_step(w.clone(), {k: v.clone() for k, v in state.items()}, warm_toks)
+    sync()
+    compile_s = time.perf_counter() - t_c
+    log.info("precompile: %.2fs", compile_s)
+
+    every = max(int(cfg.log_every), 1)
+    history: List[dict] = []
+    t0 = time.perf_counter()
+    with profiler_trace(cfg.profile_dir):
+        for first in range(0, cfg.steps, every):
+            last = min(first + every, cfg.steps) - 1
+            with trace_annotation(f"window {first // every}"):
+                losses = []
+                for _ in range(first, last + 1):
+                    starts = rng.integers(0, len(data) - cfg.seq_len - 1, cfg.batch)
+                    toks = np.stack([data[s:s + cfg.seq_len + 1] for s in starts])
+                    toks = torch.from_numpy(toks).to(device, torch.int64)
+                    losses.append(train_step(w, state, toks))
+                avg = float(torch.stack(losses).mean())  # fences the window
+            if last + 1 == (first + every):
+                log.info("step %d loss %.4f (%.1fs)", last, avg,
+                         time.perf_counter() - t0)
+            history.append({"step": last, "avg_loss": avg})
+    sync()
+    elapsed = time.perf_counter() - t0
+    trained = cfg.steps * cfg.batch * cfg.seq_len
+    return {
+        "history": history,
+        "final_loss": history[-1]["avg_loss"] if history else None,
+        "elapsed": round(elapsed, 3),
+        "tokens_trained": trained,
+        "tokens_per_sec": round(trained / max(elapsed, 1e-9), 1),
+        "compile_s": round(compile_s, 3),
+        "mesh": {"dp": 1, "sp": 1},
+        "params": flat.size,
+        "processes": 1,
+        "steps": int(cfg.steps),
+        "device": str(w.device),
+        "device_name": device_name(device),
+        "state": {"w": w, "vt": state["vt"], "k": state["k"]},
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    cfg = LM_LAUNCH_DEFAULTS.parse_args(
+        list(sys.argv[1:] if argv is None else argv)
+    )
+    result = run(cfg)
+    print(json.dumps({k: v for k, v in result.items() if k != "state"}, indent=2))
+    return result
+
+
+if __name__ == "__main__":
+    main()

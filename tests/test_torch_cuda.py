@@ -12,12 +12,38 @@ operation, in the same order, and the kernels are built with
 ``-fmad=false``.  Shapes: the main path's (544,522 for K1 and K2; 272,261
 and 544,522 for K3), odd lengths (the scalar tail), and views one float
 into a buffer (pointers not 16-byte aligned: the scalar loop).
+
+The flash-attention kernels (K4 forward in both output modes, K5 fused
+backward, K6 two-kernel backward) sum in another order than their twins,
+so they are held to tolerances: for float32 inputs the reference's own
+(atol 2e-5 forward, 3e-5 backward, 3e-4 on a ragged, offset pair; the
+partials ``acc`` and ``l``, sums of up to Lk terms, as ``acc / l`` and
+``l`` to 1e-5 of itself).  For bfloat16 inputs ``m``, ``lse`` and ``l``
+(float32 functions of float32 scores, rounded by neither side) keep those
+limits; ``o``, ``acc`` and the grads depend on P and dS rounded to bf16
+(K4 rounds P with its running max, the twin with the row's final max:
+about 2**-9 of a row apart) and ``o`` and the grads are rounded to bf16
+(one step, at most 2**-7 of an element).  Those are held row by row, over
+the D elements of one row of one head: the gap's norm within 2**-6 of
+the twin's row norm plus atol sqrt(D), each element within 2**-7 of
+itself plus 2**-5 of its row's rms plus atol.  A lost tile moves a row
+by far more than 2**-6 of it.
 """
+
+import importlib
+import math
 
 import pytest
 import torch
 
 from mpit_tpu_torch.ops import (
+    attention_bwd_reference,
+    block_attention_partial,
+    finalize_partials,
+    flash_attention,
+    flash_bwd_fused,
+    flash_bwd_two_kernel,
+    flash_fwd,
     fused_adam,
     fused_adam_reference,
     fused_elastic,
@@ -25,6 +51,10 @@ from mpit_tpu_torch.ops import (
     fused_nesterov_commit,
     fused_nesterov_commit_reference,
 )
+
+# The module, not the function of the same name that mpit_tpu_torch.ops
+# exports.
+fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +174,122 @@ def test_k2_k3_refuse_mixed_devices(dev):
     p, g, m, v = _flat(dev, 64, 0, 4, 2)
     with pytest.raises(ValueError):
         fused_adam(p, g, m, v, torch.tensor(1e-3))
+
+
+# (leading axes, Lq, Lk, q_offset, kv_offset, causal): odd lengths, a
+# ragged pair whose first q rows are dead (no key at or before them), a
+# ragged pair with the diagonal inside, full attention over a partial key
+# tile.
+FA_CASES = [
+    ((2, 3), 77, 77, 0, 0, True),
+    ((5,), 131, 67, 20, 40, True),
+    ((5,), 131, 67, 100, 40, True),
+    ((2,), 100, 150, 0, 0, False),
+]
+
+
+def _fa_inputs(dev, lead, lq, lk, d, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = 0.5 * torch.randn(*lead, lq, d, device=dev, generator=gen)
+    k, v = (0.5 * torch.randn(*lead, lk, d, device=dev, generator=gen) for _ in range(2))
+    do = torch.randn(*lead, lq, d, device=dev, generator=gen)
+    return tuple(t.to(dtype) for t in (q, k, v, do))
+
+
+def _assert_close(got, want, atol, rtol=0.0, rows=False):
+    """Elementwise within atol + rtol |want|; with ``rows`` (an output that
+    depends on bf16 rounding) by the bf16 rule of the module docstring."""
+    got, want = got.float(), want.float()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert bool(torch.isfinite(got[fin]).all())
+    if not rows:
+        torch.testing.assert_close(got[fin], want[fin], atol=atol, rtol=rtol)
+        return
+    gap = got - want
+    d = want.shape[-1]
+    row_norm = want.norm(dim=-1)
+    row_limit = 2.0**-6 * row_norm + atol * math.sqrt(d)
+    assert bool((gap.norm(dim=-1) <= row_limit).all()), float(
+        (gap.norm(dim=-1) / row_limit).max())
+    elem_limit = 2.0**-7 * want.abs() + 2.0**-5 * (row_norm / math.sqrt(d))[..., None] + atol
+    assert bool((gap.abs() <= elem_limit).all()), float((gap.abs() / elem_limit).max())
+
+
+@pytest.mark.parametrize("case", range(len(FA_CASES)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 64, 128])
+def test_flash_kernels_match_twins(dev, case, dtype, d):
+    lead, lq, lk, q_off, kv_off, causal = FA_CASES[case]
+    q, k, v, do = _fa_inputs(dev, lead, lq, lk, d, dtype, 100 * case + d)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    bwd_atol = 3e-4 if (q_off or kv_off) else 3e-5
+    acc_t, m_t, l_t = block_attention_partial(q, k, v, **kw)
+    o_t = finalize_partials(acc_t, l_t, dtype)
+    lse_t = m_t + torch.log(torch.where(l_t == 0, 1.0, l_t))
+
+    before = flash_fwd.launches
+    o, lse = flash_fwd(q, k, v, **kw)
+    acc, m, l = flash_fwd(q, k, v, partial=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 2
+    assert o.dtype == dtype and lse.dtype == acc.dtype == torch.float32
+    rows = dtype == torch.bfloat16
+    _assert_close(o, o_t, 2e-5, rows=rows)
+    _assert_close(lse, lse_t, 2e-5)
+    _assert_close(m, m_t, 2e-5)
+    den = torch.where(l_t == 0, 1.0, l_t)[..., None]
+    _assert_close(acc / den, acc_t / den, 2e-5, rows=rows)
+    _assert_close(l, l_t, 0.0, rtol=1e-5)
+    assert bool(torch.isneginf(m).any()) == (causal and q_off < kv_off)
+
+    delta = (do.float() * o.float()).sum(-1)
+    want = attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+    fused_before, two_before = flash_bwd_fused.launches, flash_bwd_two_kernel.launches
+    got5 = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    got6 = flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert flash_bwd_fused.launches == fused_before + 1
+    assert flash_bwd_two_kernel.launches == two_before + 2
+    for a5, a6, w in zip(got5, got6, want):
+        assert a5.dtype == a6.dtype == dtype
+        _assert_close(a5, w, bwd_atol, rows=rows)
+        _assert_close(a6, w, bwd_atol, rows=rows)
+        _assert_close(a5, a6, bwd_atol, rows=rows)
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_flash_autograd_runs_the_gated_schedule(dev, fused, monkeypatch):
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD", fused)
+    q, k, v, do = _fa_inputs(dev, (2, 4), 200, 200, 32, torch.float32, 7)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = [f.launches for f in (flash_fwd, flash_bwd_fused, flash_bwd_two_kernel)]
+    flash_attention(q, k, v, causal=True).backward(do)
+    torch.cuda.synchronize()
+    got = [f.launches - c for f, c in zip((flash_fwd, flash_bwd_fused,
+                                          flash_bwd_two_kernel), counts)]
+    assert got == ([1, 1, 0] if fused == "1" else [1, 0, 2])
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.attention_reference(qr, kr, vr, causal=True).backward(do)
+    for a, b in zip((q.grad, k.grad, v.grad), (qr.grad, kr.grad, vr.grad)):
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+
+
+def test_flash_refused_launch_raises(dev, monkeypatch):
+    """A geometry the C side refuses (D not a multiple of 8, let past the
+    wrapper's own check here) raises and counts no launch."""
+    q, k, v, _ = _fa_inputs(dev, (2,), 16, 16, 12, torch.float32, 3)
+    monkeypatch.setattr(fa, "_check_qkv", lambda q, k, v: ((2,), 16, 16, 12))
+    before = flash_fwd.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_fwd(q, k, v)
+    assert flash_fwd.launches == before
+
+
+def test_flash_refuses_mixed_devices(dev):
+    q, k, v, _ = _fa_inputs(dev, (2,), 16, 16, 16, torch.float32, 4)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, q_offset=2**30)
+    assert math.isfinite(float(flash_attention(q, k, v).sum()))

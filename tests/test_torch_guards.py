@@ -64,7 +64,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_entry_points_load_without_jax():
     code = ("import sys; import mpit_tpu_torch.train.mesh_launch, "
-            "mpit_tpu_torch.train.launch, mpit_tpu_torch.ops.build; "
+            "mpit_tpu_torch.train.launch, mpit_tpu_torch.train.lm_launch, "
+            "mpit_tpu_torch.ops.flash_attention, mpit_tpu_torch.ops.build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -120,6 +121,37 @@ def test_step_profile_reads_only_the_later_epochs():
     assert s["k1_us_per_step"] == pytest.approx(5.0)
     assert s["device_ops_per_step"] == pytest.approx(6 / 4)
     assert s["top"][0] == {"name": "conv", "count": 2, "us": 50}
+
+
+def test_step_profile_groups_the_lm_kernels():
+    """LM mode: ``window N`` ranges, one step each; the flash kernels,
+    cuBLAS's products and the copies each get their group."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_step_profile", ROOT / "tools" / "torch_step_profile.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    ann = lambda name, ts, dur: {"cat": "user_annotation", "name": name,
+                                 "ts": ts, "dur": dur}
+    dev = lambda name, ts, dur: {"cat": "kernel", "name": name, "ts": ts, "dur": dur}
+    trace = {"traceEvents": [
+        ann("window 0", 0, 100), dev("fa_fwd_kernel", 10, 50),  # left out
+        ann("window 1", 200, 100),
+        dev("void (anonymous namespace)::fa_fwd_kernel<__nv_bfloat16, 128, false>", 210, 10),
+        dev("fa_bwd_dq_kernel<float, 32>", 220, 8), dev("fa_bwd_dkdv_kernel<float, 32>", 230, 12),
+        dev("fa_bwd_fused_kernel<float, 32>", 245, 5),
+        dev("sm80_xmma_gemm_f32f32_f32f32", 250, 20),
+        {"cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 275, "dur": 2},
+        dev("direct_copy_kernel_cuda", 280, 3), dev("nesterov_commit_kernel", 290, 1),
+        dev("vectorized_elementwise_kernel", 295, 4),
+    ]}
+    s = tool.summarize(trace, 1, prefix="window ")
+    assert s["epochs"] == 1 and s["steps"] == 1
+    us = {g: v["us_per_step"] for g, v in s["groups"].items()}
+    assert us == {"k4": 10, "k6": 20, "k5": 5, "matmul": 20, "copy": 5, "k1": 1,
+                  "other": 4}
+    assert s["groups"]["k6"]["launches_per_step"] == 2
+    assert s["device_busy_share"] == pytest.approx(65 / 100)
+    assert s["k1_launches_per_step"] == 1.0
 
 
 def test_stop_at_target_stops_at_the_first_hit():

@@ -1,0 +1,200 @@
+"""The port's long-context LM (TinyDecoder, ``train/lm_launch.py``) against
+the JAX package, on the CPU.
+
+- The model: ``TinyDecoder`` from one flax ``w0`` (``from_jax_params``),
+  log-probs and flat grads against flax's, with flash attention (the
+  port's twins; JAX's Pallas kernels in interpret mode) and with the plain
+  reference.  Tolerance 2e-5 for both, the reference's flash forward
+  tolerance: the two sides differ by f32 summation order and by
+  LayerNorm's variance formula (flax: mean(x^2) - mean^2; PyTorch: a
+  centred sum).
+- The flat layout: ``param_spec`` is ``ravel_pytree``'s order and shapes,
+  ``DecoderBlock_10`` before ``DecoderBlock_2``; the parameter counts at
+  the launcher's defaults and at the long-context widths, by
+  ``jax.eval_shape`` and on PyTorch's meta device.
+- The data: ``_corpus`` byte-identical for the synthetic stream and for a
+  ``--text_file``.
+- The slice: ``lm_launch.run`` at dp = sp = 1 against JAX's from the same
+  ``w0``; per-step losses within rtol 2e-4 / atol 2e-5, the JAX package's
+  own tolerance for one trajectory across attention schedules
+  (tests/test_lm_launch.py).  Equal losses step after step also show that
+  both drew the same batches.
+- Guards: what belongs to a later slice raises ``NotImplementedError``
+  naming it; the default device is the card.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+import mpit_tpu_torch.train.lm_launch as tlm
+from mpit_tpu.models.transformer import TinyDecoder as JaxTinyDecoder
+from mpit_tpu.models.transformer import default_attn as jax_default_attn
+from mpit_tpu.train.lm_launch import LM_LAUNCH_DEFAULTS as JAX_LM_DEFAULTS
+from mpit_tpu.train.lm_launch import _corpus as jax_corpus
+from mpit_tpu.train.lm_launch import run as jax_lm_run
+from mpit_tpu.utils.config import Config as JaxConfig
+from mpit_tpu_torch.models.flat import FlatModel, param_spec
+from mpit_tpu_torch.models.transformer import TinyDecoder, default_attn
+from mpit_tpu_torch.utils.logging import get_logger
+
+# One intra-op thread: the suite runs several test processes side by side
+# on the CPU, and these tensors are small.
+torch.set_num_threads(1)
+
+MODEL_ATOL = 2e-5
+LOSS_RTOL, LOSS_ATOL = 2e-4, 2e-5
+TINY = dict(seq_len=256, d_model=32, n_heads=4, n_layers=1, batch=8,
+            attn_dtype="float32", steps=6, log_every=1, lr=1e-3)
+
+
+def _jax_model(use_flash, **kw):
+    return JaxTinyDecoder(attn_fn=jax_default_attn(causal=True, use_flash=use_flash),
+                          **kw)
+
+
+def _jax_params(seed, batch, **kw):
+    model = _jax_model(False, **kw)
+    sample = jnp.zeros((batch, kw["max_len"]), jnp.int32)
+    return jax.tree_util.tree_map(
+        np.asarray, model.init(jax.random.PRNGKey(seed), sample)["params"])
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_tiny_decoder_matches_flax(use_flash):
+    widths = dict(vocab=256, d_model=32, n_heads=4, n_layers=2, max_len=16)
+    params = _jax_params(0, 2, **widths)
+    toks = np.random.default_rng(3).integers(0, 256, (2, 17)).astype(np.int32)
+    jmodel = _jax_model(use_flash, **widths)
+    w0, unravel = ravel_pytree(params)
+
+    def jax_loss(w):
+        logp = jmodel.apply({"params": unravel(w)}, jnp.asarray(toks[:, :-1]))
+        return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(toks[:, 1:, None]), -1))
+
+    jlogp = jmodel.apply({"params": params}, jnp.asarray(toks[:, :-1]))
+    jgrad = jax.grad(jax_loss)(w0)
+
+    module = TinyDecoder(attn_fn=default_attn(causal=True, use_flash=use_flash), **widths)
+    spec = FlatModel(module, torch.zeros(sum(math.prod(s) for _, s in param_spec(module))))
+    flat = FlatModel(module, spec.from_jax_params(params))
+    np.testing.assert_array_equal(flat.w0.numpy(), np.asarray(w0))
+    w = flat.w0.clone().requires_grad_()
+    t = torch.from_numpy(toks).long()
+    logp = flat.apply_flat(w, t[:, :-1])
+    loss = -torch.take_along_dim(logp, t[:, 1:, None], dim=-1).mean()
+    loss.backward()
+    np.testing.assert_allclose(logp.detach().numpy(), np.asarray(jlogp), atol=MODEL_ATOL)
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(jgrad), atol=MODEL_ATOL)
+    back = flat.to_jax_params(flat.w0)
+    assert jax.tree_util.tree_all(jax.tree_util.tree_map(np.array_equal, back, params))
+
+
+def _jax_spec(params):
+    out = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        out.append((".".join(p.key for p in path), tuple(leaf.shape)))
+    return out
+
+
+def test_param_spec_is_ravel_pytree_order():
+    """Eleven layers: sorted keys put DecoderBlock_10 before _2."""
+    widths = dict(vocab=256, d_model=8, n_heads=2, n_layers=11, max_len=4)
+    shapes = jax.eval_shape(_jax_model(False, **widths).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 4), jnp.int32))["params"]
+    spec = param_spec(TinyDecoder(**widths))
+    assert spec == _jax_spec(shapes)
+    assert [n.split(".")[0] for n, _ in spec].index("DecoderBlock_10") < \
+        [n.split(".")[0] for n, _ in spec].index("DecoderBlock_2")
+
+
+@pytest.mark.parametrize("widths, count", [
+    (dict(d_model=256, n_heads=8, n_layers=2, max_len=1024), 1_971_200),
+    (dict(d_model=1024, n_heads=8, n_layers=4, max_len=8192), 59_283_456),
+])
+def test_parameter_counts(widths, count):
+    shapes = jax.eval_shape(_jax_model(False, vocab=256, **widths).init,
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((1, widths["max_len"]), jnp.int32))["params"]
+    assert sum(math.prod(s.shape) for s in jax.tree_util.tree_leaves(shapes)) == count
+    with torch.device("meta"):
+        module = TinyDecoder(vocab=256, **widths)
+    assert param_spec(module) == _jax_spec(shapes)
+    assert sum(math.prod(s) for _, s in param_spec(module)) == count
+
+
+def test_corpus_is_byte_identical(tmp_path):
+    log = get_logger("test", 0)
+    base = dict(seq_len=64, batch=4)
+    synth = tlm._corpus(tlm.LM_LAUNCH_DEFAULTS.merged(base), log)
+    want = jax_corpus(JaxConfig(**JAX_LM_DEFAULTS.merged(base).to_dict()), log)
+    assert synth.dtype == want.dtype and np.array_equal(synth, want)
+    text = tmp_path / "corpus.txt"
+    text.write_bytes(bytes(np.random.default_rng(5).integers(0, 256, 5000, np.uint8)))
+    base["text_file"] = str(text)
+    got = tlm._corpus(tlm.LM_LAUNCH_DEFAULTS.merged(base), log)
+    want = jax_corpus(JAX_LM_DEFAULTS.merged(base), log)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    with pytest.raises(ValueError, match="corpus"):
+        tlm._corpus(tlm.LM_LAUNCH_DEFAULTS.merged(base, batch=100), log)
+
+
+def test_lm_launch_matches_jax(monkeypatch):
+    monkeypatch.setenv("MPIT_MESH_DEVICES", "1")
+    ref = jax_lm_run(JAX_LM_DEFAULTS.merged(TINY, compile_cache=0))
+    assert ref["mesh"] == {"dp": 1, "sp": 1}
+    params = _jax_params(1, 1, vocab=256, d_model=TINY["d_model"],
+                         n_heads=TINY["n_heads"], n_layers=TINY["n_layers"],
+                         max_len=TINY["seq_len"])
+    real = tlm.flatten_module
+
+    def from_jax(module, seed, device="cpu"):
+        spec = real(module, seed, device)
+        return FlatModel(spec.module, spec.from_jax_params(params).to(device))
+
+    monkeypatch.setattr(tlm, "flatten_module", from_jax)
+    port = tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu"))
+    got = [h["avg_loss"] for h in port["history"]]
+    want = [h["avg_loss"] for h in ref["history"]]
+    assert [h["step"] for h in port["history"]] == [h["step"] for h in ref["history"]]
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    assert set(ref) <= set(port)
+    assert port["params"] == ref["params"]
+    assert port["tokens_trained"] == ref["tokens_trained"] == 6 * 8 * 256
+    assert port["device"] == "cpu" and port["state"]["w"].shape == (port["params"],)
+    assert int(port["state"]["k"]) == 6
+
+
+def test_cli_runs_on_the_cpu(capsys):
+    res = tlm.main(["--device", "cpu", "--seq_len", "64", "--d_model", "32",
+                    "--n_heads", "4", "--n_layers", "1", "--steps", "4",
+                    "--attn_dtype", "float32", "--log_every", "3"])
+    assert [h["step"] for h in res["history"]] == [2, 3]
+    assert all(np.isfinite(h["avg_loss"]) for h in res["history"])
+    assert '"tokens_per_sec"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags, owner", [
+    (dict(dp=2), "multi-card"), (dict(sp=2), "ring attention"),
+    (dict(hostfile="h"), "multi-host"), (dict(coordinator="c:1"), "multi-host"),
+    (dict(num_processes=2), "multi-host"), (dict(process_id=0), "multi-host"),
+    (dict(ckpt_dir="x"), "checkpointing"), (dict(resume="auto"), "checkpointing"),
+])
+def test_refuses_later_slices(flags, owner):
+    with pytest.raises(NotImplementedError, match=owner):
+        tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(flags, device="cpu"))
+
+
+def test_default_device_is_the_card():
+    assert tlm.LM_LAUNCH_DEFAULTS.device == "cuda"
+    with pytest.raises(ValueError, match="attn_dtype"):
+        tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(attn_dtype="float16", device="cpu"))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(steps=1))

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time, on one card.
 
-Runs the flagship EASGD configuration through its entry point,
-``mpit_tpu_torch.train.mesh_launch.run`` at ``FLAGSHIP_BENCH_KWARGS`` with
-``--dp`` worker rows, under the entry point's own ``torch.profiler`` trace
-(``profile_dir``), then reads the trace.  Epoch 0 is left out; over the
-later epochs' ``epoch N`` ranges (each ends when its losses reach the
-host, so its device work lies inside it) it reports:
+Two modes, each through its entry point under the entry point's own
+``torch.profiler`` trace (``profile_dir``):
+
+- MNIST EASGD (default): ``mesh_launch.run`` at ``FLAGSHIP_BENCH_KWARGS``
+  with ``--dp`` worker rows; the trace's ``epoch N`` ranges;
+- the LM (``--lm default`` or ``--lm longcontext``): ``lm_launch.run`` at
+  ``LM_LAUNCH_DEFAULTS`` or at the long-context widths, one step per log
+  window; the trace's ``window N`` ranges.
+
+The first range is left out.  Each range ends when its losses reach the
+host, so its device work lies inside it.  Over the later ranges it
+reports:
 
 - the wall time per step (host clock, profiler on);
 - the device's busy share: the summed time of CUDA kernels and memory
   operations inside the ranges over the ranges' wall time (one stream, so
   they do not overlap);
-- device operations per step, and the ten heaviest by device time, with
-  K1 (``nesterov_commit``) among them.
+- device operations per step, and the ten heaviest by device time;
+- each group's launches, device time per step and share of device time:
+  K1 (``nesterov_commit``), K4 (``fa_fwd``), K5 (``fa_bwd_fused``), K6
+  (``fa_bwd_dq`` + ``fa_bwd_dkdv``), the matrix products (cuBLAS), the
+  copies (layout transposes and casts among them) and the rest.
 
-Writes the Chrome trace to ``--out``/dp<dp>/trace.json and the summary to
-``--out``/step_profile_dp<dp>.json.  Needs a CUDA card:
+Writes the Chrome trace to ``--out``/<mode>/trace.json and the summary to
+``--out``/step_profile_<mode>.json.  Needs a CUDA card:
 
     python3 tools/torch_step_profile.py --dp 1 --epochs 6
+    python3 tools/torch_step_profile.py --lm longcontext --steps 8
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from collections import defaultdict
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
+from mpit_tpu_torch.train import lm_launch  # noqa: E402
 from mpit_tpu_torch.train.mesh_launch import (  # noqa: E402
     FLAGSHIP_BENCH_KWARGS,
     MESH_LAUNCH_DEFAULTS,
@@ -38,19 +49,37 @@ from mpit_tpu_torch.train.mesh_launch import (  # noqa: E402
 )
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# Kernel groups by name, first match wins.
+GROUPS = (
+    ("k1", ("nesterov_commit",)),
+    ("k4", ("fa_fwd",)),
+    ("k5", ("fa_bwd_fused",)),
+    ("k6", ("fa_bwd_dq", "fa_bwd_dkdv")),
+    ("matmul", ("gemm", "xmma", "cutlass")),
+    ("copy", ("copy", "memcpy")),
+)
 
 
-def summarize(trace: dict, steps_per_epoch: int) -> dict:
-    """Per-step numbers from a ``profile_dir`` trace of ``mesh_launch``,
-    over every ``epoch N`` range but the first."""
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(key in low for key in keys):
+            return group
+    return "other"
+
+
+def summarize(trace: dict, steps_per_epoch: int, prefix: str = "epoch ") -> dict:
+    """Per-step numbers from a ``profile_dir`` trace, over every range
+    named ``<prefix>N`` but the first; each range holds
+    ``steps_per_epoch`` steps."""
     events = trace["traceEvents"]
-    epochs = sorted(
+    ranges = sorted(
         (ev for ev in events if ev.get("cat") == "user_annotation"
-         and str(ev.get("name", "")).startswith("epoch ")),
+         and str(ev.get("name", "")).startswith(prefix)),
         key=lambda ev: ev["ts"])[1:]
-    if not epochs:
-        raise ValueError("the trace holds no epoch range after epoch 0")
-    windows = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in epochs]
+    if not ranges:
+        raise ValueError(f"the trace holds no {prefix!r} range after the first")
+    windows = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in ranges]
     by_name = defaultdict(lambda: [0, 0.0])
     for ev in events:
         if ev.get("cat") in DEVICE_CATS and any(
@@ -58,19 +87,26 @@ def summarize(trace: dict, steps_per_epoch: int) -> dict:
             entry = by_name[ev["name"]]
             entry[0] += 1
             entry[1] += ev.get("dur", 0.0)
-    steps = steps_per_epoch * len(epochs)
+    steps = steps_per_epoch * len(ranges)
     wall_us = sum(hi - lo for lo, hi in windows)
     device_us = sum(us for _, us in by_name.values())
-    k1 = [(n, us) for name, (n, us) in by_name.items() if "nesterov_commit" in name]
+    groups = defaultdict(lambda: [0, 0.0])
+    for name, (n, us) in by_name.items():
+        g = groups[group_of(name)]
+        g[0] += n
+        g[1] += us
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     return {
-        "epochs": len(epochs), "steps": steps,
+        "epochs": len(ranges), "steps": steps,
         "step_ms": wall_us / steps / 1e3,
         "device_busy_share": device_us / wall_us,
         "device_ms_per_step": device_us / steps / 1e3,
         "device_ops_per_step": sum(n for n, _ in by_name.values()) / steps,
-        "k1_launches_per_step": sum(n for n, _ in k1) / steps,
-        "k1_us_per_step": sum(us for _, us in k1) / steps,
+        "k1_launches_per_step": groups["k1"][0] / steps,
+        "k1_us_per_step": groups["k1"][1] / steps,
+        "groups": {g: {"launches_per_step": n / steps, "us_per_step": us / steps,
+                       "device_share": us / device_us if device_us else 0.0}
+                   for g, (n, us) in sorted(groups.items())},
         "top": [{"name": name[:90], "count": n, "us": us}
                 for name, (n, us) in top],
     }
@@ -80,22 +116,40 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--epochs", type=int, default=6)
+    ap.add_argument("--lm", choices=("", "default", "longcontext"), default="")
+    ap.add_argument("--steps", type=int, default=8, help="LM steps (--lm)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--side", type=int, default=FLAGSHIP_BENCH_KWARGS["side"])
     ap.add_argument("--out", default="chiprun_out/step_profile")
     args = ap.parse_args()
     out = pathlib.Path(args.out)
-    trace_dir = out / f"dp{args.dp}"
-    cfg = MESH_LAUNCH_DEFAULTS.merged(
-        FLAGSHIP_BENCH_KWARGS, dp=args.dp, epochs=args.epochs, side=args.side,
-        device=args.device, profile_dir=str(trace_dir))
-    res = run(cfg)
-    steps_per_epoch = res["samples_trained"] // (len(res["history"]) * args.dp * cfg.batch)
-    trace = json.loads((trace_dir / "trace.json").read_text())
-    summary = {"device": res["device_name"], "dp": args.dp,
-               "steps_per_epoch": steps_per_epoch,
-               **summarize(trace, steps_per_epoch)}
-    (out / f"step_profile_dp{args.dp}.json").write_text(json.dumps(summary, indent=1))
+    if args.lm:
+        mode = f"lm_{args.lm}"
+        widths = lm_launch.LONGCONTEXT_KWARGS if args.lm == "longcontext" else {}
+        if args.device == "cpu":  # a dry run of the tool at toy widths
+            widths = dict(seq_len=64, d_model=32, n_heads=4, n_layers=1, batch=2,
+                          attn_dtype="float32")
+        cfg = lm_launch.LM_LAUNCH_DEFAULTS.merged(
+            widths, steps=args.steps, log_every=1, device=args.device,
+            profile_dir=str(out / mode))
+        res = lm_launch.run(cfg)
+        trace = json.loads((out / mode / "trace.json").read_text())
+        summary = {"device": res["device_name"], "mode": mode,
+                   "tokens_per_sec": res["tokens_per_sec"],
+                   **summarize(trace, 1, prefix="window ")}
+    else:
+        mode = f"dp{args.dp}"
+        cfg = MESH_LAUNCH_DEFAULTS.merged(
+            FLAGSHIP_BENCH_KWARGS, dp=args.dp, epochs=args.epochs, side=args.side,
+            device=args.device, profile_dir=str(out / mode))
+        res = run(cfg)
+        steps_per_epoch = res["samples_trained"] // (len(res["history"]) * args.dp
+                                                     * cfg.batch)
+        trace = json.loads((out / mode / "trace.json").read_text())
+        summary = {"device": res["device_name"], "dp": args.dp,
+                   "steps_per_epoch": steps_per_epoch,
+                   **summarize(trace, steps_per_epoch)}
+    (out / f"step_profile_{mode}.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))
     return 0
 
