@@ -24,8 +24,11 @@ order; any failure raises and the script exits non-zero:
    Adam gang on the card held against the same gang on the CPU;
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
-   path's shape and on ragged, offset pairs, in float32 and bfloat16, K5
-   against K6, then timed beside the twins and PyTorch's
+   path's shape and on ragged, offset pairs, in float32 and bfloat16
+   (bfloat16 K4 and K5 on the tensor cores, whose SASS must carry wgmma's
+   HGMMA), K5 against K6 and against itself (equal
+   bits), bfloat16 K5 element by element and K4 on one key tile within one
+   bf16 step, then timed beside the twins and PyTorch's
    ``scaled_dot_product_attention`` at the two LM shapes;
 8. the long-context LM (``lm_launch.run``): ``lm_default``
    (``LM_LAUNCH_DEFAULTS``, 20 steps), ``lm_longcontext`` (TinyDecoder at
@@ -108,12 +111,27 @@ GANG_BASE = dict(model="cnn", side=32, batch=128, device="cuda")
 # and each element |gap| <= 2**-7 |twin| + FA_BF16_ELEM rms(twin's row) +
 # atol.  A lost key tile of 64 moves a row of o by about sqrt(64 / L) of
 # it (1/11 at L 8,192), a lost q tile all of a dK or dV row's share from
-# it, each far past 2**-6.  The tight check of the tiles is the float32
-# run of the same code at the same shapes: bf16 differs only in the loads
-# and the two casts.
+# it, each far past 2**-6.  bf16 K4 and K5 run on the tensor cores, not on
+# the float32 kernels' code, so two tighter checks hold them elementwise
+# where kernel and twin round the same values.  On random inputs the two
+# sum a score's D products in another order, a score lands an ulp apart
+# now and then, and P or dS rounds to the neighbouring bf16 value (a
+# measured 1.03-1.25 of the one-step limit at lm_default).  So the tight
+# checks run on inputs whose scores and dP are exact in float32 whatever
+# the order (fa_exact: multiples of 1/16 in [-2, 2], so every product is
+# a multiple of 2**-8 below 4 and a sum of up to 128 of them fits 24
+# bits); there kernel and twin round the same P and dS:
+# - K5 at every FA_CASES shape: every element of dq, dk and dv lies within
+#   one bf16 step of the twin, 2**-7 |twin| + atol (FA_BF16_STEP; atol the
+#   backward's, or the pair's on offset pairs);
+# - K4 on FA_ONE_TILE, where every key fits one 128-key tile of the kernel:
+#   there the running max is the final max, so o and acc / l keep the same
+#   one-step rule, in both output modes.
+# And K5 run twice on the same inputs gives the same bits (no atomics).
 FA_FWD_ATOL, FA_BWD_ATOL, FA_PAIR_ATOL = 2e-5, 3e-5, 3e-4
 FA_PARTIAL_RTOL = 1e-5
 FA_BF16_ROW, FA_BF16_ELEM = 2.0**-6, 2.0**-5
+FA_BF16_STEP = 2.0**-7
 # Limits of the LM's card-vs-CPU comparison (see lm_vs_cpu), by attention
 # dtype: the largest elementwise gap of w and vt (absolute, or as a share
 # of the largest change), the gap's norm over the norm of the three
@@ -684,6 +702,15 @@ FA_CASES = (
     ("ragged_full", (2, 3), 203, 131, 64, 100, 40, False),
 )
 FA_TIMED = ("lm_default", "lm_longcontext")
+# K4 in bf16 where Lk fits one key tile of the tensor-core kernel (128):
+# (leading axes, Lq, Lk, D, q_offset, kv_offset, causal), with and without
+# offsets (dead rows under the first offset pair), causal and not.
+FA_ONE_TILE = (
+    ((2, 3), 200, 128, 64, 0, 0, True),
+    ((2, 3), 200, 64, 64, 0, 0, False),
+    ((2, 3), 200, 61, 128, 20, 60, True),
+    ((2, 3), 200, 61, 32, 100, 40, False),
+)
 
 
 def fa_work(lead, lq, lk, d, q_off, kv_off, causal, itemsize):
@@ -735,6 +762,35 @@ def fa_err(torch, got, want, atol, rtol=0.0, rows=False):
     return float(gap.abs().max()), used
 
 
+def fa_exact(torch, t):
+    """``t`` rounded to a multiple of 1/16 in [-2, 2], in bf16: scores and
+    dP over such inputs are exact in float32 in any summation order (see
+    FA_BF16_STEP)."""
+    return (torch.round(t.float() * 16) / 16).clamp(-2, 2).to(torch.bfloat16)
+
+
+def k5_exact_steps(torch, base, kw, atol):
+    """bf16 K5 on ``base`` (q, k, v, do) made exact by ``fa_exact``, held
+    to its twin element by element within one bf16 step, and run twice for
+    equal bits.  Returns each grad's (max abs gap, share of the limit)."""
+    from mpit_tpu_torch.ops.flash_attention import (
+        _lse_of, attention_bwd_reference, block_attention_partial,
+        finalize_partials, flash_bwd_fused)
+
+    q, k, v, do = (fa_exact(torch, t) for t in base)
+    acc, m, l = block_attention_partial(q, k, v, **kw)
+    lse = _lse_of(m, l)
+    delta = (do.float() * finalize_partials(acc, l, q.dtype).float()).sum(-1)
+    want = attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+    got = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    again = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K5 gave other bits on a second run (exact inputs)")
+    return {grad: fa_err(torch, a, w, atol, FA_BF16_STEP)
+            for grad, a, w in zip(("dq", "dk", "dv"), got, want)}
+
+
 def sdpa_backend(torch, q, k, v):
     """The backend ``scaled_dot_product_attention`` picks for these inputs."""
     try:
@@ -747,9 +803,10 @@ def sdpa_backend(torch, q, k, v):
 def check_flash(torch):
     """K4, K5 and K6 against their twins at every FA_CASES shape, in f32 and
     bf16 (the twins on the same inputs on the card; K4 in both output
-    modes; K5 and K6 also against each other); then each timed at the two
-    LM shapes in bf16 beside its twin and SDPA.  Returns each kernel's
-    largest gap to its twin and the times at both shapes."""
+    modes; K5 and K6 also against each other, and K5 against a second run
+    of itself); then each timed at the two LM shapes in bf16 beside its
+    twin and SDPA; then K4 in bf16 at the FA_ONE_TILE shapes.  Returns
+    each kernel's largest gap to its twin and the times at both shapes."""
     import torch.nn.functional as F
 
     from mpit_tpu_torch.ops.flash_attention import (
@@ -783,13 +840,20 @@ def check_flash(torch):
             delta = (do.float() * o_t.float()).sum(-1)
             want = attention_bwd_reference(q, k, v, do, lse_t, delta, **kw)
             got5 = flash_bwd_fused(q, k, v, do, lse_t, delta, **kw)
+            again5 = flash_bwd_fused(q, k, v, do, lse_t, delta, **kw)
             got6 = flash_bwd_two_kernel(q, k, v, do, lse_t, delta, **kw)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got5, again5)):
+                raise AssertionError(f"K5 gave other bits on a second run at {name} "
+                                     f"{dtype}")
             bwd_atol = FA_PAIR_ATOL if (q_off or kv_off) else FA_BWD_ATOL
             for grad, w, a5, a6 in zip(("dq", "dk", "dv"), want, got5, got6):
                 checks[f"k5_{grad}"] = fa_err(torch, a5, w, bwd_atol, rows=rows)
                 checks[f"k6_{grad}"] = fa_err(torch, a6, w, bwd_atol, rows=rows)
                 checks[f"k5_vs_k6_{grad}"] = fa_err(torch, a5, a6, bwd_atol, rows=rows)
+            if rows:
+                for grad, (gap, used) in k5_exact_steps(torch, base, kw, bwd_atol).items():
+                    checks[f"k5_{grad}_step"] = (gap, used)
             print(f"flash check {name} {str(dtype)[6:]} (max abs gap, share of the "
                   "limit used): " + json.dumps(checks))
             for what, (gap, used) in checks.items():
@@ -802,7 +866,31 @@ def check_flash(torch):
             if dtype == torch.bfloat16 and name in FA_TIMED:
                 timed[name] = time_flash(torch, F, q, k, v, do, lse_t, delta, kw,
                                          lead, lq, lk, d)
-            del want, got5, got6, acc_t, o_t, den
+            del want, got5, again5, got6, acc_t, o_t, den
+    for lead, lq, lk, d, q_off, kv_off, causal in FA_ONE_TILE:
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+        q, k, v = (fa_exact(torch, 0.5 * torch.randn(*lead, n, d, device=dev,
+                                                     generator=gen))
+                   for n in (lq, lk, lk))
+        acc_t, m_t, l_t = block_attention_partial(q, k, v, **kw)
+        o_t = finalize_partials(acc_t, l_t, q.dtype)
+        o, _ = flash_fwd(q, k, v, **kw)
+        acc, m, l = flash_fwd(q, k, v, partial=True, **kw)
+        den = torch.where(l_t == 0, 1.0, l_t)[..., None]
+        checks = {
+            "k4_o_step": fa_err(torch, o, o_t, FA_FWD_ATOL, FA_BF16_STEP),
+            "k4_acc/l_step": fa_err(torch, acc / den, acc_t / den, FA_FWD_ATOL,
+                                    FA_BF16_STEP),
+            "k4_m": fa_err(torch, m, m_t, FA_FWD_ATOL),
+            "k4_l": fa_err(torch, l, l_t, 0.0, FA_PARTIAL_RTOL),
+        }
+        print(f"flash check one key tile {lead} Lq {lq} Lk {lk} D {d} offsets "
+              f"({q_off}, {kv_off}) causal {causal}: " + json.dumps(checks))
+        for what, (gap, used) in checks.items():
+            errs["k4"] = max(errs["k4"], gap)
+            if not used <= 1.0:
+                raise AssertionError(f"{what} past its limit on one key tile (Lk {lk}, "
+                                     f"D {d}): gap {gap}, {used} of the limit")
     print("flash times: " + json.dumps(timed))
     return errs, timed
 
@@ -814,19 +902,19 @@ def fa_entries(errs, timed, paths):
     the schedule); its launches are that run's and its times those at that
     path's attention shape."""
     entries = []
-    for key, fn, src_line in (
-            ("k4", "flash_fwd", "mpit_tpu/ops/flash_attention.py:233"),
-            ("k5", "flash_bwd_fused", "mpit_tpu/ops/flash_attention.py:623"),
-            ("k6", "flash_bwd_two_kernel", "mpit_tpu/ops/flash_attention.py:536")):
+    tc, scalar = ("mpit_tpu_torch/ops/csrc/flash_attention_tc.cu",
+                  "mpit_tpu_torch/ops/csrc/flash_attention.cu")
+    for key, fn, src_line, source in (
+            ("k4", "flash_fwd", "mpit_tpu/ops/flash_attention.py:233", tc),
+            ("k5", "flash_bwd_fused", "mpit_tpu/ops/flash_attention.py:623", tc),
+            ("k6", "flash_bwd_two_kernel", "mpit_tpu/ops/flash_attention.py:536", scalar)):
         main_path = next(p for p in ("lm_longcontext", "lm_default",
                                      "lm_default_other_schedule")
                          if paths[key][p]["launches"])
         shape = "lm_longcontext" if main_path == "lm_longcontext" else "lm_default"
         t = timed[shape][key]
         entries.append({
-            "name": fn, "route": "cuda",
-            "source": "mpit_tpu_torch/ops/csrc/flash_attention.cu",
-            "replaces": src_line, "launches": paths[key][main_path]["launches"],
+            "name": fn, "route": "cuda", "source": source, "replaces": src_line, "launches": paths[key][main_path]["launches"],
             "paths": paths[key], "max_abs_err": errs[key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -885,7 +973,9 @@ def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d):
         out[key] = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
                     "plain_call_ms": pt["call_ms"], "library_ms": lt["ms"],
                     "library_call_ms": lt["call_ms"], "bound_ms": bound,
-                    "bound_by": bound_by, "bytes": n_bytes, "flops": flops}
+                    "bound_by": bound_by, "bytes": n_bytes, "flops": flops,
+                    "tflops": flops / kt["ms"] / 1e9, "x_bound": kt["ms"] / bound,
+                    "x_library": kt["ms"] / lt["ms"]}
     return out
 
 
@@ -895,9 +985,11 @@ def lm_expected(cfg, runs):
     attention shape."""
     from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
 
+    import torch
+
     head = cfg.d_model // cfg.n_heads
     shape = (cfg.batch, cfg.n_heads, cfg.seq_len, head)
-    fused = _use_fused_bwd(shape, shape, head, cfg.device)
+    fused = _use_fused_bwd(shape, shape, head, cfg.device, getattr(torch, cfg.attn_dtype))
     want = {"k1": runs, "k4": cfg.n_layers * runs}
     want["k5" if fused else "k6"] = (1 if fused else 2) * cfg.n_layers * runs
     return want, "fused (K5)" if fused else "two-kernel (K6)"
@@ -1051,6 +1143,12 @@ def main() -> int:
     for name, s in secs.items():
         print(f"build {name}: {s:.1f}s")
         print(build.library_path(name).with_suffix(".log").read_text().strip())
+    # bf16 K4 and K5 must run their products as wgmma (SASS HGMMA).
+    tc_ops = build.tensor_ops("flash_attention_tc")
+    print("tensor-core instructions: " + json.dumps(tc_ops))
+    for kernel in ("fa_fwd_tc_kernel", "fa_bwd_tc_kernel"):
+        if not any(kernel in k and ops["HGMMA"] for k, ops in tc_ops.items()):
+            raise AssertionError(f"{kernel} carries no HGMMA instruction")
 
     mesh_cfg = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS)
     n_mesh = flatten_module(make_model(mesh_cfg.model, mesh_cfg.side), 1).size

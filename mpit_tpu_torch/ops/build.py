@@ -8,7 +8,8 @@ is reused.  Nothing here runs at import time: the CPU tests import every
 module on a machine without ``nvcc``.
 
 Run ``python -m mpit_tpu_torch.ops.build`` to build every kernel and print
-``ptxas``'s register and spill report.
+``ptxas``'s register and spill report and the tensor-core instructions of
+each kernel's SASS.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -35,12 +37,14 @@ NVCC_FLAGS = (
 
 # Each source and the flags of its own.  fused_update: -fmad=false, no
 # multiply-add contraction, so K1-K3 round each operation as their plain
-# PyTorch twins do and are held to bit equality.  flash_attention: its
-# sums run in another order than its twin's anyway, so it is held to a
-# tolerance and keeps the contraction.
+# PyTorch twins do and are held to bit equality.  flash_attention (the
+# scalar kernels) and flash_attention_tc (the bfloat16 tensor-core K4 and
+# K5): their sums run in another order than their twins' anyway, so they
+# are held to a tolerance and keep the contraction.
 SOURCE_FLAGS = {
     "fused_update": ("-fmad=false",),
     "flash_attention": (),
+    "flash_attention_tc": (),
 }
 SOURCES = tuple(SOURCE_FLAGS)
 
@@ -66,8 +70,12 @@ def flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
+    """The library's path, named by a hash of the source, the headers it
+    may include (every ``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -107,6 +115,27 @@ def build_all() -> Dict[str, float]:
     return dict(zip(SOURCES, secs))
 
 
+def tensor_ops(name: str) -> Dict[str, Dict[str, int]]:
+    """The tensor-core instructions of each kernel in ``csrc/<name>.cu``'s
+    built library, from its SASS (``cuobjdump -sass``): ``HMMA``
+    (``mma.sync``) and ``HGMMA`` (``wgmma``) counts by mangled kernel
+    name."""
+    tool = pathlib.Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build(name))], capture_output=True,
+                          text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            kernel = line.split("Function : ", 1)[1].strip()
+            counts[kernel] = {"HMMA": 0, "HGMMA": 0}
+            continue
+        found = re.search(r"\b(HGMMA|HMMA)\.", line)
+        if kernel is not None and found:
+            counts[kernel][found.group(1)] += 1
+    return counts
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it first if
@@ -118,3 +147,6 @@ if __name__ == "__main__":
     for name, secs in build_all().items():
         print(f"{name}: {secs:.1f}s")
         sys.stdout.write(library_path(name).with_suffix(".log").read_text())
+        for kernel, ops in tensor_ops(name).items():
+            if any(ops.values()):
+                print(f"  tensor-core instructions {kernel}: {ops}")

@@ -53,10 +53,7 @@
 // of 8 up to 128; D_MAX is 32, 64 or 128 and the padded columns hold zeros.
 // Blocks are ordered heaviest first under the causal mask (the last q
 // tiles, the first key tiles).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 #include <type_traits>
 
@@ -67,14 +64,6 @@ constexpr int BK = 64;         // key rows per tile
 constexpr int NT = 256;        // threads per block, a 16 x 16 grid
 constexpr int LDS = BK + 16;   // row stride of a score tile in shared memory:
                                // the two rows a warp reads lie 16 banks apart
-constexpr float BIG_NEG = -1e30f;
-
-struct Geo {
-  int n, lq, lk, d;
-  int q_offset, kv_offset;
-  float scale;
-  int causal;
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -91,25 +80,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // x rounded to T and back: the cast of P and dS before their products.
 template <typename T>
 __device__ __forceinline__ float round_as(float x) { return to_f32(from_f32<T>(x)); }
-
-// `_block_bounds`: 0 dead (skip), 1 edge (mask each element), 2 full (no
-// element masked) for q tile i and key tile j.
-__device__ __forceinline__ int triage(const Geo& g, int i, int j) {
-  const int q_lo = g.q_offset + i * BQ;
-  const int k_hi = (j + 1) * BK;  // exclusive, local
-  bool live = j * BK < g.lk;
-  bool full = k_hi <= g.lk;
-  if (g.causal) {
-    live = live && (q_lo + BQ - 1 >= g.kv_offset + j * BK);
-    full = full && (q_lo >= g.kv_offset + k_hi - 1);
-  }
-  return live ? (full ? 2 : 1) : 0;
-}
-
-// Local q row qi against local key kj, inside an edge tile.
-__device__ __forceinline__ bool valid(const Geo& g, int qi, int kj) {
-  return kj < g.lk && (!g.causal || g.q_offset + qi >= g.kv_offset + kj);
-}
 
 // Rows row0 .. row0+63 of a (rows, d) matrix into a (64, DM + 1) float
 // tile; rows past `rows` and columns past d read as 0.
@@ -175,7 +145,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   const int nj = (g.lk + BK - 1) / BK;
   for (int j = 0; j < nj; ++j) {
-    const int kind = triage(g, i, j);
+    const int kind = triage<BQ, BK>(g, i, j);
     if (kind == 0) continue;  // the same for every thread of the block
     __syncthreads();          // the previous tile's reads are done
     load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
@@ -364,7 +334,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int nj = (g.lk + BK - 1) / BK;
   for (int j = 0; j < nj; ++j) {
-    const int kind = triage(g, i, j);
+    const int kind = triage<BQ, BK>(g, i, j);
     if (kind == 0) continue;
     __syncthreads();
     load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
@@ -408,9 +378,9 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // K5 and K6's second kernel: key tiles outer, dK and dV in registers
 // ---------------------------------------------------------------------------
 
-// With FUSED (K5), each (q tile, key tile) pair also writes its dQ
-// contribution scale * dS.K into dqp[j] (dead pairs write zeros), so one
-// sweep yields all three gradients: five products per pair, not seven.
+// With FUSED (K5), each live (q tile, key tile) pair also writes its dQ
+// contribution dS.K into dqp[j] (dead pairs write nothing), so one sweep
+// yields all three gradients: five products per pair, not seven.
 template <typename T, int DM, bool FUSED>
 __device__ __forceinline__ void bwd_kv_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -444,16 +414,8 @@ __device__ __forceinline__ void bwd_kv_body(
 
   const int ni = (g.lq + BQ - 1) / BQ;
   for (int i = 0; i < ni; ++i) {
-    const int kind = triage(g, i, j);
-    if (kind == 0) {
-      if (FUSED) {
-        for (int idx = threadIdx.x; idx < BQ * g.d; idx += NT) {
-          const int row = i * BQ + idx / g.d;
-          if (row < g.lq) dqp_j[(size_t)row * g.d + idx % g.d] = 0.f;
-        }
-      }
-      continue;
-    }
+    const int kind = triage<BQ, BK>(g, i, j);
+    if (kind == 0) continue;  // K5: nothing written; the reduction skips it
     __syncthreads();
     load_tile<T, DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
     load_tile<T, DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
@@ -518,7 +480,7 @@ __device__ __forceinline__ void bwd_kv_body(
 #pragma unroll
         for (int b = 0; b < NC; ++b) {
           const int col = tx + 16 * b;
-          if (col < g.d) dqp_j[(size_t)row * g.d + col] = g.scale * dqa[a][b];
+          if (col < g.d) dqp_j[(size_t)row * g.d + col] = dqa[a][b];
         }
       }
     }
@@ -582,94 +544,68 @@ int launch(K kernel, size_t smem, int tiles, const Geo& g, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+// Calls f(integral_constant<DM>) for the padded head width of the call.
+template <typename F>
+int by_width(int d, F&& f) {
+  if (d <= 32) return f(std::integral_constant<int, 32>{});
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
 // Calls f(T{}, integral_constant<DM>) for the element type and the padded
 // head width of the call.
 template <typename F>
 int dispatch(int bf16, int d, F&& f) {
-  using D32 = std::integral_constant<int, 32>;
-  using D64 = std::integral_constant<int, 64>;
-  using D128 = std::integral_constant<int, 128>;
-  if (bf16) {
-    if (d <= 32) return f(__nv_bfloat16{}, D32{});
-    if (d <= 64) return f(__nv_bfloat16{}, D64{});
-    return f(__nv_bfloat16{}, D128{});
-  }
-  if (d <= 32) return f(float{}, D32{});
-  if (d <= 64) return f(float{}, D64{});
-  return f(float{}, D128{});
-}
-
-bool bad_geometry(const Geo& g) {
-  return g.n <= 0 || g.lq <= 0 || g.lk <= 0 || g.d <= 0 || g.d > 128 || g.d % 8 != 0;
-}
-
-Geo make_geo(int n, int lq, int lk, int d, int q_offset, int kv_offset, float scale,
-             int causal) {
-  Geo g;
-  g.n = n;
-  g.lq = lq;
-  g.lk = lk;
-  g.d = d;
-  g.q_offset = q_offset;
-  g.kv_offset = kv_offset;
-  g.scale = scale;
-  g.causal = causal;
-  return g;
+  if (bf16) return by_width(d, [&](auto dm) { return f(__nv_bfloat16{}, dm); });
+  return by_width(d, [&](auto dm) { return f(float{}, dm); });
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// after its launch (0 on success); it allocates nothing.  `bf16` selects
-// the element type of q, k, v, do, o, dq, dk, dv (else float32).
+// after its launch (0 on success); it allocates nothing.  K4 and K5 here
+// take float32 (bfloat16 goes to flash_attention_tc.cu); K6's `bf16`
+// selects the element type of q, k, v, do, dq, dk, dv (else float32).
 
 // K4.  partial = 0: o and, when lse is not null, lse.  partial = 1:
 // acc (float32, like q), m and l.
-extern "C" int mpit_fa_fwd(const void* q, const void* k, const void* v, void* o,
-                           float* lse, float* acc, float* m, float* l, int bf16,
-                           int n, int lq, int lk, int d, int q_offset, int kv_offset,
-                           float scale, int causal, int partial, void* stream) {
+extern "C" int mpit_fa_fwd(const float* q, const float* k, const float* v, float* o,
+                           float* lse, float* acc, float* m, float* l, int n, int lq,
+                           int lk, int d, int q_offset, int kv_offset, float scale,
+                           int causal, int partial, void* stream) {
   Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
   if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int tiles = (lq + BQ - 1) / BQ;
-  return dispatch(bf16, d, [&](auto t, auto dm) {
-    using T = decltype(t);
+  return by_width(d, [&](auto dm) {
     constexpr int DM = decltype(dm)::value;
     const size_t smem = 3 * tile_bytes<DM>() + score_bytes();
-    const T* qp = static_cast<const T*>(q);
-    const T* kp = static_cast<const T*>(k);
-    const T* vp = static_cast<const T*>(v);
-    T* op = static_cast<T*>(o);
-    void* args[] = {&qp, &kp, &vp, &op, &lse, &acc, &m, &l, &g};
-    return partial ? launch(fa_fwd_kernel<T, DM, true>, smem, tiles, g, s, args)
-                   : launch(fa_fwd_kernel<T, DM, false>, smem, tiles, g, s, args);
+    void* args[] = {&q, &k, &v, &o, &lse, &acc, &m, &l, &g};
+    return partial ? launch(fa_fwd_kernel<float, DM, true>, smem, tiles, g, s, args)
+                   : launch(fa_fwd_kernel<float, DM, false>, smem, tiles, g, s, args);
   });
 }
 
-// K5: dk, dv, and the dQ partials dqp (float32, (ceil(lk / 64), n, lq, d)).
-extern "C" int mpit_fa_bwd_fused(const void* q, const void* k, const void* v,
-                                 const void* dout, const float* lse, const float* delta,
-                                 void* dk, void* dv, float* dqp, int bf16, int n, int lq,
+// K5: dk, dv and dq.  dqp is the scratch of the dQ partials (float32,
+// (ceil(lk / 64), n, lq, d)), which the sweep fills for live pairs and a
+// second launch sums into dq.
+extern "C" int mpit_fa_bwd_fused(const float* q, const float* k, const float* v,
+                                 const float* dout, const float* lse, const float* delta,
+                                 float* dq, float* dk, float* dv, float* dqp, int n, int lq,
                                  int lk, int d, int q_offset, int kv_offset, float scale,
                                  int causal, void* stream) {
   Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
   if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int tiles = (lk + BK - 1) / BK;
-  return dispatch(bf16, d, [&](auto t, auto dm) {
-    using T = decltype(t);
+  const int err = by_width(d, [&](auto dm) {
     constexpr int DM = decltype(dm)::value;
     const size_t smem = 4 * tile_bytes<DM>() + 2 * score_bytes() + stats_bytes();
-    const T* qp = static_cast<const T*>(q);
-    const T* kp = static_cast<const T*>(k);
-    const T* vp = static_cast<const T*>(v);
-    const T* dop = static_cast<const T*>(dout);
-    T* dkp = static_cast<T*>(dk);
-    T* dvp = static_cast<T*>(dv);
-    void* args[] = {&qp, &kp, &vp, &dop, &lse, &delta, &dkp, &dvp, &dqp, &g};
-    return launch(fa_bwd_fused_kernel<T, DM>, smem, tiles, g, s, args);
+    void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &dqp, &g};
+    return launch(fa_bwd_fused_kernel<float, DM>, smem, tiles, g, s, args);
   });
+  if (err != 0) return err;
+  return launch_dq_reduce<float, BQ, BK>(dqp, dq, g, s);
 }
 
 // K6, first kernel: dq.

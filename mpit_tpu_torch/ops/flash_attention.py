@@ -14,18 +14,24 @@ sequence, as ring attention needs):
 - :func:`flash_attention_bwd_pair`: the backward of one (Q chunk, KV
   chunk) pair, given the forward's ``lse``.
 
-The kernels are CUDA C++ for Hopper (``csrc/flash_attention.cu``, whose
-comments say what bounds them and how they are tiled), built by
-:mod:`mpit_tpu_torch.ops.build` on first use.  Where the tensors lie fixes
-the route: CUDA tensors always go through a kernel, CPU tensors always
-through the plain twins (:func:`block_attention_partial` for K4,
-:func:`attention_bwd_reference` for K5 and K6).  There is no fallback: a
-kernel that fails to build or launch raises.  :func:`flash_fwd`,
-:func:`flash_bwd_fused` and :func:`flash_bwd_two_kernel` each add one to
-their ``launches`` count per kernel launch, and nowhere else.
+The kernels are CUDA C++ for Hopper, built by
+:mod:`mpit_tpu_torch.ops.build` on first use; each source's comments say
+what bounds its kernels and how they are tiled.  bfloat16 K4 and K5 run on
+the tensor cores (``csrc/flash_attention_tc.cu``); float32 K4 and K5, and
+K6 in both types, on scalar float32 FMAs (``csrc/flash_attention.cu``).
+Where the tensors lie fixes the route: CUDA tensors always go through a
+kernel, CPU tensors always through the plain twins
+(:func:`block_attention_partial` for K4, :func:`attention_bwd_reference`
+for K5 and K6).  There is no fallback: a kernel that fails to build or
+launch raises.  :func:`flash_fwd` and :func:`flash_bwd_fused` add one to
+their ``launches`` count per call that launches their kernels, and
+:func:`flash_bwd_two_kernel` one per each of its two kernels, and nowhere
+else.
 
 The kernels take ``D`` a multiple of 8 up to 128, float32 or bfloat16,
-contiguous; their tiles are 64 x 64 (:data:`BLOCK_Q`, :data:`BLOCK_K`).
+contiguous, and for bfloat16 starting at a 16-byte aligned address.  The
+scalar kernels' tiles are 64 x 64 (:data:`BLOCK_Q`, :data:`BLOCK_K`); the
+tensor-core K5 takes 128 keys a block (:data:`BLOCK_K_TC`).
 The Mosaic levers of the JAX module (``MPIT_FA_VMEM_MB``, ``_DIMSEM``,
 ``_LONG_BQ``, ``_LONG_BK_BWD``) have no counterpart; the schedule choice
 (``MPIT_FA_FUSED_BWD``, ``MPIT_FA_FUSED_BWD_MAX_MB``) is kept, with the
@@ -46,9 +52,13 @@ from mpit_tpu_torch.ops.fused_update import _cuda_stream
 
 NEG_INF = float("-inf")
 
-# The kernels' tiles (csrc/flash_attention.cu: BQ, BK).
+# The scalar kernels' tiles (csrc/flash_attention.cu: BQ, BK), which the
+# float32 route and K6 use, and the key tile of the bfloat16 K5 on the
+# tensor cores (csrc/flash_attention_tc.cu: B_BK; checked when its library
+# loads).
 BLOCK_Q = 64
 BLOCK_K = 64
+BLOCK_K_TC = 128
 D_MAX = 128
 
 
@@ -221,14 +231,22 @@ def _card_mb(device) -> float:
     return torch.cuda.get_device_properties(device).total_memory / 2**20
 
 
-def _use_fused_bwd(q_shape, k_shape, d: int, device=None) -> bool:
+def _dq_block_k(device, dtype) -> int:
+    """The key tile of the K5 that runs for ``device`` and ``dtype``: its dQ
+    partials hold one slot per tile.  On the CPU, the JAX module's count."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    return BLOCK_K_TC if on_card and dtype == torch.bfloat16 else BLOCK_K
+
+
+def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
     """Backward-schedule choice, the one decision point.
 
     ``MPIT_FA_FUSED_BWD``: ``1`` forces the fused single sweep (K5), ``0``
     the two-kernel schedule (K6); the default ``auto`` takes K5 while its
-    dQ-partials transient, ``N * ceil(Lk / BLOCK_K) * Lq * D * 4`` bytes
-    (one f32 partial per key tile of K5's own geometry, every one of the N
-    heads live at once), fits the budget.  Any other value raises.
+    dQ-partials transient, ``N * ceil(Lk / tile) * Lq * D * 4`` bytes (one
+    f32 partial per key tile of the K5 that runs, :func:`_dq_block_k`:
+    128 keys for bfloat16 on the card, else 64; every one of the N heads
+    live at once), fits the budget.  Any other value raises.
 
     The budget is ``MPIT_FA_FUSED_BWD_MAX_MB`` where set.  Otherwise, on a
     CUDA ``device``, it is a quarter of the card's memory, leaving three
@@ -237,8 +255,8 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None) -> bool:
     card's size, not its free memory at the call, so that one
     configuration always runs one schedule (K5 and K6 sum dQ in another
     order).  On the CPU both schedules run the same twin, and the budget
-    is the JAX module's default, 2048 MiB, so the choice matches the JAX
-    package's."""
+    is the JAX module's default, 2048 MiB, over its 64-key tiles, so the
+    choice matches the JAX package's."""
     mode = os.environ.get("MPIT_FA_FUSED_BWD", "auto") or "auto"
     if mode == "0":
         return False
@@ -248,7 +266,8 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None) -> bool:
         raise ValueError(f"MPIT_FA_FUSED_BWD={mode!r}: expected '0', '1', or 'auto'")
     lq, lk = q_shape[-2], k_shape[-2]
     n = math.prod(int(s) for s in q_shape[:-2])
-    transient_mb = n * math.ceil(lk / BLOCK_K) * lq * d * 4 / 2**20
+    tiles = math.ceil(lk / _dq_block_k(device, dtype))
+    transient_mb = n * tiles * lq * d * 4 / 2**20
     budget = os.environ.get("MPIT_FA_FUSED_BWD_MAX_MB")
     if budget is not None:
         return transient_mb <= float(budget)
@@ -264,25 +283,55 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None) -> bool:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
+    """The scalar kernels: K4 and K5 in float32, K6 in both types."""
     from mpit_tpu_torch.ops import build  # nvcc runs on first use only
 
     lib = build.load("flash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    geo = [i32] * 7 + [f32, i32]  # bf16, n, lq, lk, d, offsets; scale; causal
+    geo = [i32] * 6 + [f32, i32]  # n, lq, lk, d, offsets; scale; causal
     for fn, argtypes in (
         (lib.mpit_fa_fwd, [ptr] * 8 + geo + [i32, ptr]),
-        (lib.mpit_fa_bwd_fused, [ptr] * 9 + geo + [ptr]),
-        (lib.mpit_fa_bwd_dq, [ptr] * 7 + geo + [ptr]),
-        (lib.mpit_fa_bwd_dkdv, [ptr] * 8 + geo + [ptr]),
+        (lib.mpit_fa_bwd_fused, [ptr] * 10 + geo + [ptr]),
+        (lib.mpit_fa_bwd_dq, [ptr] * 7 + [i32] + geo + [ptr]),
+        (lib.mpit_fa_bwd_dkdv, [ptr] * 8 + [i32] + geo + [ptr]),
     ):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
+@functools.cache
+def _lib_tc() -> ctypes.CDLL:
+    """The tensor-core kernels: K4 and K5 in bfloat16."""
+    from mpit_tpu_torch.ops import build
+
+    lib = build.load("flash_attention_tc")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    geo = [i32] * 6 + [f32, i32]
+    for fn, argtypes in (
+        (lib.mpit_fa_fwd_tc, [ptr] * 8 + geo + [i32, ptr]),
+        (lib.mpit_fa_bwd_fused_tc, [ptr] * 10 + geo + [ptr]),
+        (lib.mpit_fa_bwd_tc_block_k, []),
+    ):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    if lib.mpit_fa_bwd_tc_block_k() != BLOCK_K_TC:
+        raise RuntimeError("flash_attention_tc.cu's key tile differs from BLOCK_K_TC")
+    return lib
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _check_aligned(**tensors) -> None:
+    """The tensor-core kernels' copies (TMA) need every operand to start at
+    a multiple of 16 bytes (its rows do, D being a multiple of 8)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte aligned address for "
+                             "the bfloat16 kernels (a view into another tensor?)")
 
 
 def flash_fwd(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None,
@@ -301,6 +350,11 @@ def flash_fwd(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None
             return acc, m, l
         return finalize_partials(acc, l, q.dtype), _lse_of(m, l)
     stream = _cuda_stream(q)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v)
+        fwd = _lib_tc().mpit_fa_fwd_tc
+    else:
+        fwd = _lib().mpit_fa_fwd
     rows = dict(dtype=torch.float32, device=q.device)
     if partial:
         acc = torch.empty(*lead, lq, d, **rows)
@@ -309,10 +363,8 @@ def flash_fwd(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None
     else:
         o, lse = torch.empty_like(q), torch.empty(*lead, lq, **rows)
         outs = (o.data_ptr(), lse.data_ptr(), None, None, None)
-    err = _lib().mpit_fa_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *outs,
-        int(q.dtype == torch.bfloat16), math.prod(lead), lq, lk, d, q_offset,
-        kv_offset, scale, int(bool(causal)), int(bool(partial)), stream)
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), *outs, math.prod(lead), lq, lk,
+              d, q_offset, kv_offset, scale, int(bool(causal)), int(bool(partial)), stream)
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
     return (acc, m, l) if partial else (o, lse)
@@ -333,9 +385,13 @@ def _bwd_operands(q, k, v, do, lse, delta, q_offset, kv_offset):
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = False,
                     sm_scale: Optional[float] = None, q_offset: int = 0,
                     kv_offset: int = 0):
-    """K5: ``(dq, dk, dv)`` in one sweep, key tiles outer.  The dQ partials
-    (one f32 ``(..., Lq, D)`` per key tile) are summed here by one
-    reduction.  Each launch adds one to ``flash_bwd_fused.launches``."""
+    """K5: ``(dq, dk, dv)`` in one sweep, key tiles outer, bfloat16 on the
+    tensor cores and float32 on the scalar kernel.  The sweep writes one
+    f32 dQ partial per live (q tile, key tile) pair into a scratch of one
+    ``(..., Lq, D)`` slot per key tile, and a second launch, K5's
+    deterministic reduction, sums each q tile's live slots in ascending
+    order into dq.  Each call (sweep and reduction) adds one to
+    ``flash_bwd_fused.launches``."""
     lead, lq, lk, d, q_offset, kv_offset = _bwd_operands(
         q, k, v, do, lse, delta, q_offset, kv_offset)
     scale = _scale(d, sm_scale)
@@ -344,17 +400,21 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = False,
                                        sm_scale=scale, q_offset=q_offset,
                                        kv_offset=kv_offset)
     stream = _cuda_stream(q)
-    dqp = torch.empty(math.ceil(lk / BLOCK_K), *lead, lq, d, dtype=torch.float32,
-                      device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib().mpit_fa_bwd_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqp.data_ptr(),
-        int(q.dtype == torch.bfloat16), math.prod(lead), lq, lk, d, q_offset,
-        kv_offset, scale, int(bool(causal)), stream)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v, do=do)
+        bwd = _lib_tc().mpit_fa_bwd_fused_tc
+    else:
+        bwd = _lib().mpit_fa_bwd_fused
+    tiles = math.ceil(lk / _dq_block_k(q.device, q.dtype))
+    dqp = torch.empty(tiles, *lead, lq, d, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqp.data_ptr(),
+              math.prod(lead), lq, lk, d, q_offset, kv_offset, scale, int(bool(causal)),
+              stream)
     _raise_on(err, "flash_bwd_fused")
     flash_bwd_fused.launches += 1
-    return dqp.sum(0).to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 flash_bwd_fused.launches = 0
@@ -416,7 +476,7 @@ def flash_attention_bwd_pair(q, k, v, do, lse, *, causal: bool = False,
         if o is None:
             raise ValueError("flash_attention_bwd_pair needs delta or o")
         delta = (do.float() * o.float()).sum(-1)
-    fused = _use_fused_bwd(q.shape, k.shape, q.shape[-1], q.device)
+    fused = _use_fused_bwd(q.shape, k.shape, q.shape[-1], q.device, q.dtype)
     bwd = flash_bwd_fused if fused else flash_bwd_two_kernel
     return bwd(q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
                q_offset=q_offset, kv_offset=kv_offset)

@@ -28,6 +28,18 @@ the D elements of one row of one head: the gap's norm within 2**-6 of
 the twin's row norm plus atol sqrt(D), each element within 2**-7 of
 itself plus 2**-5 of its row's rms plus atol.  A lost tile moves a row
 by far more than 2**-6 of it.
+
+bfloat16 K4 and K5 run on the tensor cores (csrc/flash_attention_tc.cu),
+so their tiles get checks of their own, tighter than the row rule, on
+inputs where kernel and twin round the same values: multiples of 1/16 in
+[-2, 2] (``_exact``), whose scores and dP are exact in float32 in any
+summation order (on random inputs a score an ulp apart rounds P to the
+neighbouring bf16 value now and then).  K5 rounds P and dS from the same
+lse as its twin: every element of dq, dk and dv lies within one bf16 step,
+2**-7 of the twin's value plus atol.  K4 where every key fits one of its
+128-key tiles rounds P with the final row max, as the twin does: o and
+acc / l lie within one step there too.  K5 gives the same bits twice, and
+the bfloat16 kernels refuse an operand that does not start on 16 bytes.
 """
 
 import importlib
@@ -293,3 +305,77 @@ def test_flash_refuses_mixed_devices(dev):
     with pytest.raises(ValueError):
         flash_attention(q, k, v, q_offset=2**30)
     assert math.isfinite(float(flash_attention(q, k, v).sum()))
+
+
+BF16_STEP = 2.0**-7
+
+
+def _exact(*tensors):
+    """Each tensor rounded to a multiple of 1/16 in [-2, 2], in bf16."""
+    return tuple((torch.round(t.float() * 16) / 16).clamp(-2, 2).to(torch.bfloat16)
+                 for t in tensors)
+
+
+@pytest.mark.parametrize("case", range(len(FA_CASES)))
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+def test_k5_bf16_within_one_step_and_deterministic(dev, case, d):
+    lead, lq, lk, q_off, kv_off, causal = FA_CASES[case]
+    q, k, v, do = _exact(*_fa_inputs(dev, lead, lq, lk, d, torch.float32, 300 * case + d))
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    acc_t, m_t, l_t = block_attention_partial(q, k, v, **kw)
+    lse = m_t + torch.log(torch.where(l_t == 0, 1.0, l_t))
+    delta = (do.float() * finalize_partials(acc_t, l_t, q.dtype).float()).sum(-1)
+    want = attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+    got = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    again = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    atol = 3e-4 if (q_off or kv_off) else 3e-5
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _assert_close(a, w, atol, rtol=BF16_STEP)
+
+
+# Lk within one 128-key tile of the bfloat16 forward: (leading axes, Lq, Lk,
+# q_offset, kv_offset, causal).
+FA_ONE_TILE = [
+    ((2, 3), 200, 128, 0, 0, True),
+    ((2, 3), 200, 64, 0, 0, True),
+    ((2, 3), 200, 64, 0, 0, False),
+    ((2, 3), 200, 61, 20, 60, True),
+    ((2, 3), 200, 37, 100, 40, False),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FA_ONE_TILE)))
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_k4_bf16_one_key_tile_within_one_step(dev, case, d):
+    lead, lq, lk, q_off, kv_off, causal = FA_ONE_TILE[case]
+    q, k, v = _exact(*_fa_inputs(dev, lead, lq, lk, d, torch.float32, 400 * case + d)[:3])
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    acc_t, m_t, l_t = block_attention_partial(q, k, v, **kw)
+    o, _ = flash_fwd(q, k, v, **kw)
+    acc, m, l = flash_fwd(q, k, v, partial=True, **kw)
+    torch.cuda.synchronize()
+    _assert_close(o, finalize_partials(acc_t, l_t, q.dtype), 2e-5, rtol=BF16_STEP)
+    den = torch.where(l_t == 0, 1.0, l_t)[..., None]
+    _assert_close(acc / den, acc_t / den, 2e-5, rtol=BF16_STEP)
+    _assert_close(m, m_t, 2e-5)
+    _assert_close(l, l_t, 0.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+def test_bf16_kernels_refuse_unaligned_operands(dev, which):
+    """A contiguous view one element into a buffer starts 2 bytes off a
+    16-byte boundary: the tensor-core kernels' TMA copies refuse it."""
+    ops = dict(zip(("q", "k", "v", "do"),
+                   _fa_inputs(dev, (2,), 64, 64, 32, torch.bfloat16, 9)))
+    ops["lse"] = ops["delta"] = torch.zeros(2, 64, device=dev)
+    buf = torch.empty(ops[which].numel() + 8, dtype=ops[which].dtype, device=dev)
+    ops[which] = buf[1:1 + ops[which].numel()].view_as(ops[which]).copy_(ops[which])
+    before = (flash_fwd.launches, flash_bwd_fused.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_fused(*(ops[x] for x in ("q", "k", "v", "do", "lse", "delta")))
+    if which in ("q", "k", "v"):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_fwd(ops["q"], ops["k"], ops["v"])
+    assert (flash_fwd.launches, flash_bwd_fused.launches) == before

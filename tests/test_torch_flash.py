@@ -243,6 +243,30 @@ def test_gate_budget_on_the_card_is_a_quarter_of_it(monkeypatch):
     assert _use_fused_bwd(long, long, 128, cuda) is True
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gate_on_the_card_counts_the_key_tile_that_runs(monkeypatch, dtype):
+    """On the card a bfloat16 K5 runs on the tensor cores with 128-key
+    tiles, so its transient at the long-context shape is 64 x 8 x 8,192 x
+    128 x 4 B = 2,048 MiB, half the float32 kernel's 4,096 MiB over 64-key
+    tiles; the CPU counts the JAX module's 64-key tiles for either type."""
+    monkeypatch.delenv("MPIT_FA_FUSED_BWD", raising=False)
+    monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB", raising=False)
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    long, cuda = (1, 8, 8192, 128), torch.device("cuda")
+    assert fa._dq_block_k(cuda, dtype) == (128 if dtype == torch.bfloat16 else 64)
+    assert fa._dq_block_k("cpu", dtype) == 64
+    monkeypatch.setattr(fa, "_card_mb", lambda device: 8192.0)  # a quarter: 2,048
+    assert _use_fused_bwd(long, long, 128, cuda, dtype) is (dtype == torch.bfloat16)
+    assert _use_fused_bwd(long, long, 128, "cpu", dtype) is False
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "2048")
+    assert _use_fused_bwd(long, long, 128, cuda, dtype) is (dtype == torch.bfloat16)
+    # A ragged key length counts its partial tile: 129 keys are two.
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", str(100 * 8 * 4 / 2**20))
+    tc = dtype == torch.bfloat16
+    assert _use_fused_bwd((100, 8), ((128 if tc else 64), 8), 8, cuda, dtype) is True
+    assert _use_fused_bwd((100, 8), ((129 if tc else 65), 8), 8, cuda, dtype) is False
+
+
 def test_cpu_tensors_never_count_launches():
     q, k, v = _t(*_qkv(31, (2, 20, 8)))
     kernels = (flash_fwd, flash_bwd_fused, flash_bwd_two_kernel)

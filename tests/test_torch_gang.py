@@ -199,14 +199,28 @@ class TestTopologies:
     def test_eamsgd_comm_only_draws_workers_together(self, small_data):
         """lr = 0: no local update, every step a sync round through the
         elastic force alone (K2's path); the workers start apart (seed +
-        rank) and end together."""
+        rank) and end together.
+
+        How close depends on how the two workers' rounds interleave, which
+        the threads' scheduling decides: interleaved rounds, the usual
+        case, leave them ~120x closer after 8 rounds each (4.43 -> 0.037),
+        but under load one worker may finish its rounds before the other
+        has done many (seen: 0.60 apart, in 4 of 112 loaded runs), and a
+        worker that finishes first stops where the center was, which the
+        other then pulls only halfway back: fully serialized rounds end
+        start / 2 apart.  So the test holds the workers to that bound,
+        which every interleaving meets, and holds the exchange itself
+        exactly: each round moves the elastic difference from a worker to
+        the center, so the sum of both workers and the center stays what it
+        was (the center seeded with rank 1's start)."""
         results = _gang(4, small_data, opt="eamsgd", lr=0.0, mva=0.45, su=1)
         assert all(res["grads_applied"] == 16 for res in results.values()
                    if res["role"] == "server")
         module = make_model("linear", SIDE)
-        start = float((flatten_module(module, 2).w0 - flatten_module(module, 4).w0).norm())
+        w1, w3 = flatten_module(module, 2).w0, flatten_module(module, 4).w0
+        start = float((w1 - w3).norm())
         end = float((results[1]["w"] - results[3]["w"]).norm())
-        # Each round moves a worker (1 - mva) of the way back toward a center
-        # that the other worker's pushes also move: measured 120x closer
-        # after 8 rounds (4.43 -> 0.037).
-        assert end < start / 20
+        assert end < start / 2
+        center = torch.cat([results[0]["param"], results[2]["param"]])
+        torch.testing.assert_close(results[1]["w"] + results[3]["w"] + center,
+                                   2 * w1 + w3, rtol=RTOL, atol=ATOL)

@@ -20,7 +20,8 @@ reports:
   they do not overlap);
 - device operations per step, and the ten heaviest by device time;
 - each group's launches, device time per step and share of device time:
-  K1 (``nesterov_commit``), K4 (``fa_fwd``), K5 (``fa_bwd_fused``), K6
+  K1 (``nesterov_commit``), K4 (``fa_fwd``), K5 (``fa_bwd_fused`` or
+  ``fa_bwd_tc``, with its dQ reduction ``dq_reduce``), K6
   (``fa_bwd_dq`` + ``fa_bwd_dkdv``), the matrix products (cuBLAS), the
   copies (layout transposes and casts among them) and the rest.
 
@@ -53,7 +54,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 GROUPS = (
     ("k1", ("nesterov_commit",)),
     ("k4", ("fa_fwd",)),
-    ("k5", ("fa_bwd_fused",)),
+    ("k5", ("fa_bwd_fused", "fa_bwd_tc", "dq_reduce")),  # the sweep and its dQ sum
     ("k6", ("fa_bwd_dq", "fa_bwd_dkdv")),
     ("matmul", ("gemm", "xmma", "cutlass")),
     ("copy", ("copy", "memcpy")),
