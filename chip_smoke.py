@@ -25,17 +25,24 @@ order; any failure raises and the script exits non-zero:
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
-   (bfloat16 K4 and K5 on the tensor cores, whose SASS must carry wgmma's
-   HGMMA), K5 against K6 and against itself (equal
-   bits), bfloat16 K5 element by element and K4 on one key tile within one
-   bf16 step, then timed beside the twins and PyTorch's
-   ``scaled_dot_product_attention`` at the two LM shapes;
+   (bfloat16 K4, K5 and K6 on the tensor cores, whose SASS must carry
+   wgmma's HGMMA, with no spill and no wgmma serialized by ptxas), K5
+   against K6, K5 and K6 each against itself (equal bits), bfloat16 K5 and
+   K6 element by element and K4 on one key tile within one bf16 step,
+   then timed beside the twins and PyTorch's
+   ``scaled_dot_product_attention`` at the two LM shapes; then bfloat16 K6
+   at the 32k LM's attention (N 8, L 32,768, D 128): K6 against the twin
+   run one head at a time (one float32 (L, L) matrix per head is 4 GiB)
+   and against K5 on one head, twice for equal bits, and timed beside
+   SDPA and the twin;
 8. the long-context LM (``lm_launch.run``): ``lm_default``
-   (``LM_LAUNCH_DEFAULTS``, 20 steps), ``lm_longcontext`` (TinyDecoder at
-   d 1,024, 8 heads, 4 layers, context 8,192, 6 steps), ``lm_default``
-   again for 3 steps under the other backward schedule, and three small
-   steps on the card held against the same steps on the CPU, with float32
-   and with bfloat16 attention.
+   (``LM_LAUNCH_DEFAULTS``, 20 steps), ``lm_default`` again for 3 steps
+   under the other backward schedule, ``lm_longcontext`` (TinyDecoder at
+   d 1,024, 8 heads, 4 layers, context 8,192, 6 steps),
+   ``lm_longcontext_32k`` (the same widths at context 32,768, 3 steps,
+   where the gate itself picks K6), and three small steps on the card
+   held against the same steps on the CPU, with float32 and with bfloat16
+   attention (bfloat16 twice: under the gate's K5 and forced to K6).
 
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
@@ -44,7 +51,8 @@ and so does one that launched a kernel it should not.  The last two lines
 are one JSON object describing every kernel (``launches`` is the count of
 the kernel's main path: the headline for K1, comm-only EAMSGD for K2,
 server-side Adam for K3, and for K4-K6 the first LM path that launched
-them, as each path's gate picked the schedule (see ``fa_entries``);
+them, as each path's gate picked the schedule (see ``fa_entries``: K4 and
+K5 ``lm_longcontext``, K6 ``lm_longcontext_32k``);
 ``paths`` holds every path's launches and steps), and ``{"ok": true,
 "device": {...}}``.
 
@@ -54,6 +62,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -111,8 +120,8 @@ GANG_BASE = dict(model="cnn", side=32, batch=128, device="cuda")
 # and each element |gap| <= 2**-7 |twin| + FA_BF16_ELEM rms(twin's row) +
 # atol.  A lost key tile of 64 moves a row of o by about sqrt(64 / L) of
 # it (1/11 at L 8,192), a lost q tile all of a dK or dV row's share from
-# it, each far past 2**-6.  bf16 K4 and K5 run on the tensor cores, not on
-# the float32 kernels' code, so two tighter checks hold them elementwise
+# it, each far past 2**-6.  bf16 K4, K5 and K6 run on the tensor cores, not
+# on the float32 kernels' code, so tighter checks hold them elementwise
 # where kernel and twin round the same values.  On random inputs the two
 # sum a score's D products in another order, a score lands an ulp apart
 # now and then, and P or dS rounds to the neighbouring bf16 value (a
@@ -121,13 +130,14 @@ GANG_BASE = dict(model="cnn", side=32, batch=128, device="cuda")
 # the order (fa_exact: multiples of 1/16 in [-2, 2], so every product is
 # a multiple of 2**-8 below 4 and a sum of up to 128 of them fits 24
 # bits); there kernel and twin round the same P and dS:
-# - K5 at every FA_CASES shape: every element of dq, dk and dv lies within
-#   one bf16 step of the twin, 2**-7 |twin| + atol (FA_BF16_STEP; atol the
-#   backward's, or the pair's on offset pairs);
+# - K5 and K6 at every FA_CASES shape: every element of dq, dk and dv lies
+#   within one bf16 step of the twin, 2**-7 |twin| + atol (FA_BF16_STEP;
+#   atol the backward's, or the pair's on offset pairs);
 # - K4 on FA_ONE_TILE, where every key fits one 128-key tile of the kernel:
 #   there the running max is the final max, so o and acc / l keep the same
 #   one-step rule, in both output modes.
-# And K5 run twice on the same inputs gives the same bits (no atomics).
+# And K5 and K6 run twice on the same inputs give the same bits (no
+# atomics).
 FA_FWD_ATOL, FA_BWD_ATOL, FA_PAIR_ATOL = 2e-5, 3e-5, 3e-4
 FA_PARTIAL_RTOL = 1e-5
 FA_BF16_ROW, FA_BF16_ELEM = 2.0**-6, 2.0**-5
@@ -702,6 +712,9 @@ FA_CASES = (
     ("ragged_full", (2, 3), 203, 131, 64, 100, 40, False),
 )
 FA_TIMED = ("lm_default", "lm_longcontext")
+# The attention of lm_longcontext_32k (leading axes, L, D; bf16, causal),
+# where the gate refuses K5's dQ partials (32 GiB) and K6 runs.
+FA_32K = ((1, 8), 32768, 128)
 # K4 in bf16 where Lk fits one key tile of the tensor-core kernel (128):
 # (leading axes, Lq, Lk, D, q_offset, kv_offset, causal), with and without
 # offsets (dead rows under the first offset pair), causal and not.
@@ -769,26 +782,30 @@ def fa_exact(torch, t):
     return (torch.round(t.float() * 16) / 16).clamp(-2, 2).to(torch.bfloat16)
 
 
-def k5_exact_steps(torch, base, kw, atol):
-    """bf16 K5 on ``base`` (q, k, v, do) made exact by ``fa_exact``, held
-    to its twin element by element within one bf16 step, and run twice for
-    equal bits.  Returns each grad's (max abs gap, share of the limit)."""
+def bwd_exact_steps(torch, base, kw, atol):
+    """bf16 K5 and K6 on ``base`` (q, k, v, do) made exact by ``fa_exact``,
+    each held to the twin element by element within one bf16 step, and run
+    twice for equal bits.  Returns each kernel's and grad's (max abs gap,
+    share of the limit), keyed ``k5_dq_step`` and so on."""
     from mpit_tpu_torch.ops.flash_attention import (
         _lse_of, attention_bwd_reference, block_attention_partial,
-        finalize_partials, flash_bwd_fused)
+        finalize_partials, flash_bwd_fused, flash_bwd_two_kernel)
 
     q, k, v, do = (fa_exact(torch, t) for t in base)
     acc, m, l = block_attention_partial(q, k, v, **kw)
     lse = _lse_of(m, l)
     delta = (do.float() * finalize_partials(acc, l, q.dtype).float()).sum(-1)
     want = attention_bwd_reference(q, k, v, do, lse, delta, **kw)
-    got = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
-    again = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("K5 gave other bits on a second run (exact inputs)")
-    return {grad: fa_err(torch, a, w, atol, FA_BF16_STEP)
-            for grad, a, w in zip(("dq", "dk", "dv"), got, want)}
+    out = {}
+    for key, fn in (("k5", flash_bwd_fused), ("k6", flash_bwd_two_kernel)):
+        got = fn(q, k, v, do, lse, delta, **kw)
+        again = fn(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{key} gave other bits on a second run (exact inputs)")
+        for grad, a, w in zip(("dq", "dk", "dv"), got, want):
+            out[f"{key}_{grad}_step"] = fa_err(torch, a, w, atol, FA_BF16_STEP)
+    return out
 
 
 def sdpa_backend(torch, q, k, v):
@@ -803,10 +820,11 @@ def sdpa_backend(torch, q, k, v):
 def check_flash(torch):
     """K4, K5 and K6 against their twins at every FA_CASES shape, in f32 and
     bf16 (the twins on the same inputs on the card; K4 in both output
-    modes; K5 and K6 also against each other, and K5 against a second run
-    of itself); then each timed at the two LM shapes in bf16 beside its
-    twin and SDPA; then K4 in bf16 at the FA_ONE_TILE shapes.  Returns
-    each kernel's largest gap to its twin and the times at both shapes."""
+    modes; K5 and K6 also against each other, and each against a second
+    run of itself); then each timed at the two LM shapes in bf16 beside its
+    twin and SDPA; then K4 in bf16 at the FA_ONE_TILE shapes; then K6 at
+    the 32k LM's shape (``check_k6_32k``).  Returns each kernel's largest
+    gap to its twin and the times at the three shapes."""
     import torch.nn.functional as F
 
     from mpit_tpu_torch.ops.flash_attention import (
@@ -842,18 +860,19 @@ def check_flash(torch):
             got5 = flash_bwd_fused(q, k, v, do, lse_t, delta, **kw)
             again5 = flash_bwd_fused(q, k, v, do, lse_t, delta, **kw)
             got6 = flash_bwd_two_kernel(q, k, v, do, lse_t, delta, **kw)
+            again6 = flash_bwd_two_kernel(q, k, v, do, lse_t, delta, **kw)
             torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got5, again5)):
-                raise AssertionError(f"K5 gave other bits on a second run at {name} "
-                                     f"{dtype}")
+            for key, got, again in (("K5", got5, again5), ("K6", got6, again6)):
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{key} gave other bits on a second run at "
+                                         f"{name} {dtype}")
             bwd_atol = FA_PAIR_ATOL if (q_off or kv_off) else FA_BWD_ATOL
             for grad, w, a5, a6 in zip(("dq", "dk", "dv"), want, got5, got6):
                 checks[f"k5_{grad}"] = fa_err(torch, a5, w, bwd_atol, rows=rows)
                 checks[f"k6_{grad}"] = fa_err(torch, a6, w, bwd_atol, rows=rows)
                 checks[f"k5_vs_k6_{grad}"] = fa_err(torch, a5, a6, bwd_atol, rows=rows)
             if rows:
-                for grad, (gap, used) in k5_exact_steps(torch, base, kw, bwd_atol).items():
-                    checks[f"k5_{grad}_step"] = (gap, used)
+                checks.update(bwd_exact_steps(torch, base, kw, bwd_atol))
             print(f"flash check {name} {str(dtype)[6:]} (max abs gap, share of the "
                   "limit used): " + json.dumps(checks))
             for what, (gap, used) in checks.items():
@@ -866,7 +885,7 @@ def check_flash(torch):
             if dtype == torch.bfloat16 and name in FA_TIMED:
                 timed[name] = time_flash(torch, F, q, k, v, do, lse_t, delta, kw,
                                          lead, lq, lk, d)
-            del want, got5, again5, got6, acc_t, o_t, den
+            del want, got5, again5, got6, again6, acc_t, o_t, den
     for lead, lq, lk, d, q_off, kv_off, causal in FA_ONE_TILE:
         kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
         q, k, v = (fa_exact(torch, 0.5 * torch.randn(*lead, n, d, device=dev,
@@ -891,6 +910,8 @@ def check_flash(torch):
             if not used <= 1.0:
                 raise AssertionError(f"{what} past its limit on one key tile (Lk {lk}, "
                                      f"D {d}): gap {gap}, {used} of the limit")
+    timed["lm_longcontext_32k"], gap = check_k6_32k(torch, F, gen)
+    errs["k6"] = max(errs["k6"], gap)
     print("flash times: " + json.dumps(timed))
     return errs, timed
 
@@ -898,23 +919,23 @@ def check_flash(torch):
 def fa_entries(errs, timed, paths):
     """K4's, K5's and K6's entries for the closing line.  A kernel's main
     path is the first LM path that launched it, in the order
-    lm_longcontext, lm_default, lm_default_other_schedule (the gate picks
-    the schedule); its launches are that run's and its times those at that
-    path's attention shape."""
+    lm_longcontext, lm_longcontext_32k, lm_default,
+    lm_default_other_schedule (the gate picks the schedule); its launches
+    are that run's and its times those at that path's attention shape."""
     entries = []
-    tc, scalar = ("mpit_tpu_torch/ops/csrc/flash_attention_tc.cu",
-                  "mpit_tpu_torch/ops/csrc/flash_attention.cu")
-    for key, fn, src_line, source in (
-            ("k4", "flash_fwd", "mpit_tpu/ops/flash_attention.py:233", tc),
-            ("k5", "flash_bwd_fused", "mpit_tpu/ops/flash_attention.py:623", tc),
-            ("k6", "flash_bwd_two_kernel", "mpit_tpu/ops/flash_attention.py:536", scalar)):
-        main_path = next(p for p in ("lm_longcontext", "lm_default",
+    tc = "mpit_tpu_torch/ops/csrc/flash_attention_tc.cu"
+    for key, fn, src_line in (
+            ("k4", "flash_fwd", "mpit_tpu/ops/flash_attention.py:233"),
+            ("k5", "flash_bwd_fused", "mpit_tpu/ops/flash_attention.py:623"),
+            ("k6", "flash_bwd_two_kernel", "mpit_tpu/ops/flash_attention.py:536")):
+        main_path = next(p for p in ("lm_longcontext", "lm_longcontext_32k", "lm_default",
                                      "lm_default_other_schedule")
                          if paths[key][p]["launches"])
-        shape = "lm_longcontext" if main_path == "lm_longcontext" else "lm_default"
+        shape = main_path if main_path.startswith("lm_longcontext") else "lm_default"
         t = timed[shape][key]
         entries.append({
-            "name": fn, "route": "cuda", "source": source, "replaces": src_line, "launches": paths[key][main_path]["launches"],
+            "name": fn, "route": "cuda", "source": tc, "replaces": src_line,
+            "launches": paths[key][main_path]["launches"],
             "paths": paths[key], "max_abs_err": errs[key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -924,12 +945,74 @@ def fa_entries(errs, timed, paths):
     return entries
 
 
-def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d):
-    """K4, K5 and K6 at one shape (bf16, as the LM paths give them), each
-    beside its twin and the SDPA call computing the same function.  One
-    buffer set: each kernel reads every K/V tile once per q tile, far more
-    than one pass over device memory, so L2 residency of the first read
-    does not set its time."""
+def check_k6_32k(torch, F, gen):
+    """bf16 K6 at FA_32K, the attention of ``lm_longcontext_32k``: K6
+    against its twin run one head at a time (each head's float32 (L, L)
+    matrices take 4 GiB apiece) under the bf16 row rule on every head; K6
+    twice on every head for equal bits; K6 against K5 on one head (N 1,
+    beside K5's 4 GiB of dQ partials; K6's dK/dV kernel is K5's sweep, so
+    there only dQ is computed apart); then K6 timed beside SDPA's backward
+    and the twin.  lse and o come from K4, held to its twin above.  Returns
+    the times and K6's largest gap to its twin."""
+    from mpit_tpu_torch.ops.flash_attention import (
+        attention_bwd_reference, flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
+
+    dev = torch.device("cuda")
+    lead, seq, d = FA_32K
+    kw = dict(causal=True, q_offset=0, kv_offset=0)
+    q, k, v = (0.5 * torch.randn(*lead, seq, d, device=dev, generator=gen)
+               for _ in range(3))
+    do = torch.randn(*lead, seq, d, device=dev, generator=gen)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    o, lse = flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+
+    def plain_bwd():
+        outs = [attention_bwd_reference(*(t[:, h:h + 1] for t in (q, k, v, do, lse, delta)),
+                                        **kw)
+                for h in range(lead[-1])]
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+    got = flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw)
+    again = flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K6 gave other bits on a second run at FA_32K")
+    del again
+    want = plain_bwd()
+    torch.cuda.empty_cache()
+    head = [t[:, :1].clone() for t in (q, k, v, do, lse, delta)]
+    got5 = flash_bwd_fused(*head, **kw)
+    torch.cuda.synchronize()
+    checks = {}
+    for grad, a, w, b in zip(("dq", "dk", "dv"), got, want, got5):
+        checks[f"k6_{grad}"] = fa_err(torch, a, w, FA_BWD_ATOL, rows=True)
+        checks[f"k6_vs_k5_{grad}"] = fa_err(torch, a[:, :1], b, FA_BWD_ATOL, rows=True)
+    print(f"flash check 32k {lead} L {seq} D {d} bfloat16, K6 vs twin on every head, "
+          "vs K5 on head 0 (max abs gap, share of the limit): " + json.dumps(checks))
+    for what, (gap, used) in checks.items():
+        if not used <= 1.0:
+            raise AssertionError(f"{what} past its limit at FA_32K: gap {gap}, "
+                                 f"{used} of the limit")
+    del got, want, got5, head
+    torch.cuda.empty_cache()
+    times = time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, seq, seq, d,
+                       keys=("k6",), plain_bwd=plain_bwd, plain_kernels=20 * lead[-1])
+    torch.cuda.empty_cache()
+    gap = max(g for what, (g, _) in checks.items() if not what.startswith("k6_vs"))
+    return times, gap
+
+
+def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d,
+               keys=("k4", "k5", "k6"), plain_bwd=None, plain_kernels=20):
+    """``keys`` of K4, K5 and K6 at one shape (bf16, as the LM paths give
+    them), each beside its twin (for the backward ``plain_bwd`` where
+    given; ``plain_kernels`` PyTorch kernels a call) and the SDPA call
+    computing the same function.  One buffer set:
+    each kernel reads every K/V tile once per q tile, far more than one
+    pass over device memory, so L2 residency of the first read does not
+    set its time."""
     from mpit_tpu_torch.ops.flash_attention import (
         _lse_of, attention_bwd_reference, block_attention_partial,
         finalize_partials, flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
@@ -951,6 +1034,10 @@ def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d):
         acc, m, l = block_attention_partial(q, k, v, **kw)
         return finalize_partials(acc, l, q.dtype), _lse_of(m, l)
 
+    if plain_bwd is None:
+        def plain_bwd():
+            return attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+
     q4, k4, v4 = (t.detach().clone().requires_grad_() for t in (q, k, v))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     pairs, fwd_bytes, bwd_bytes = fa_work(lead, lq, lk, d, kw["q_offset"],
@@ -960,16 +1047,16 @@ def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d):
             ("k4", lambda: flash_fwd(q, k, v, **kw), plain_fwd,
              lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
              fwd_bytes, 4 * d * pairs),
-            ("k5", lambda: flash_bwd_fused(q, k, v, do, lse, delta, **kw),
-             lambda: attention_bwd_reference(q, k, v, do, lse, delta, **kw),
+            ("k5", lambda: flash_bwd_fused(q, k, v, do, lse, delta, **kw), plain_bwd,
              lambda: torch.autograd.grad(o4, (q4, k4, v4), do, retain_graph=True),
              bwd_bytes, 10 * d * pairs),
-            ("k6", lambda: flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw),
-             lambda: attention_bwd_reference(q, k, v, do, lse, delta, **kw),
+            ("k6", lambda: flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw), plain_bwd,
              lambda: torch.autograd.grad(o4, (q4, k4, v4), do, retain_graph=True),
              bwd_bytes, 10 * d * pairs)):
+        if key not in keys:
+            continue
         bound, bound_by = fa_bound_ms(n_bytes, flops, q.dtype == torch.bfloat16)
-        kt, pt, lt = timing(kernel), timing(plain, plain_kernels=20), timing(library)
+        kt, pt, lt = timing(kernel), timing(plain, plain_kernels), timing(library)
         out[key] = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
                     "plain_call_ms": pt["call_ms"], "library_ms": lt["ms"],
                     "library_call_ms": lt["call_ms"], "bound_ms": bound,
@@ -1023,13 +1110,30 @@ def lm_path(torch, name, kernels, **kw):
     print(f"{name}: " + json.dumps(reading))
     expect_launches(name, launches, want)
     return res, {"launches": launches, "steps": cfg.steps, "warmup_steps": 1,
-                 "schedule": schedule}
+                 "schedule": schedule, "tokens_per_sec": reading["tokens_per_sec"],
+                 "peak_mem_gb": reading["peak_mem_gb"]}
+
+
+@contextlib.contextmanager
+def fused_bwd_env(value):
+    """``MPIT_FA_FUSED_BWD`` set to ``value`` (None: unset, the gate's own
+    choice) inside the block, restored after it."""
+    old = os.environ.pop("MPIT_FA_FUSED_BWD", None)
+    if value is not None:
+        os.environ["MPIT_FA_FUSED_BWD"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("MPIT_FA_FUSED_BWD", None)
+        if old is not None:
+            os.environ["MPIT_FA_FUSED_BWD"] = old
 
 
 def lm_paths(torch, kernels, paths):
-    """``lm_default``, ``lm_longcontext`` and ``lm_default`` under the other
-    schedule; fills ``paths[kernel][path]``."""
-    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_KWARGS
+    """``lm_default``, ``lm_default`` under the other schedule,
+    ``lm_longcontext`` and ``lm_longcontext_32k`` (where the gate, left to
+    itself, must pick K6); fills ``paths[kernel][path]``."""
+    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_32K_KWARGS, LONGCONTEXT_KWARGS
 
     def record(name, rec):
         for key in kernels:
@@ -1041,50 +1145,53 @@ def lm_paths(torch, kernels, paths):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"lm_default: the loss did not fall: {losses}")
     record("lm_default", rec)
-    other = "0" if rec["schedule"].startswith("fused") else "1"
-    old = os.environ.get("MPIT_FA_FUSED_BWD")
-    os.environ["MPIT_FA_FUSED_BWD"] = other
-    try:
+    with fused_bwd_env("0" if rec["schedule"].startswith("fused") else "1"):
         _, rec = lm_path(torch, "lm_default_other_schedule", kernels, steps=3,
                          log_every=3)
-    finally:
-        if old is None:
-            del os.environ["MPIT_FA_FUSED_BWD"]
-        else:
-            os.environ["MPIT_FA_FUSED_BWD"] = old
     record("lm_default_other_schedule", rec)
     torch.cuda.reset_peak_memory_stats()
     _, rec = lm_path(torch, "lm_longcontext", kernels, steps=6, log_every=3,
                      **LONGCONTEXT_KWARGS)
     record("lm_longcontext", rec)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_bwd_env(None):
+        _, rec = lm_path(torch, "lm_longcontext_32k", kernels, steps=3, log_every=3,
+                         **LONGCONTEXT_32K_KWARGS)
+    if not rec["schedule"].startswith("two-kernel"):
+        raise AssertionError(f"lm_longcontext_32k: the gate picked {rec['schedule']}, "
+                             "not K6")
+    record("lm_longcontext_32k", rec)
     for key in ("k5", "k6"):
         if not any(p["launches"] for name, p in paths[key].items()
                    if name.startswith("lm_")):
             raise AssertionError(f"{key} launched in no LM training step")
 
 
-def lm_vs_cpu(torch, kernels, attn_dtype):
+def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None):
     """Three LM steps at d 128, 4 heads (head width 32), 2 layers, context
     256, batch 2, attention in ``attn_dtype``, on the card and on the CPU
     from one w0 (flatten_module draws it on the CPU from the seed), held
-    to LM_LIMITS[attn_dtype]."""
+    to LM_LIMITS[attn_dtype].  ``fused_bwd``: ``MPIT_FA_FUSED_BWD`` for
+    the run (None: the gate's choice, K5 at this shape; ``"0"``: K6)."""
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.transformer import TinyDecoder
     from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, run
 
-    name = f"lm_vs_cpu_{attn_dtype}"
+    name = f"lm_vs_cpu_{attn_dtype}" + ("" if fused_bwd is None else "_two_kernel")
     kw = dict(d_model=128, n_heads=4, n_layers=2, seq_len=256, batch=2,
               attn_dtype=attn_dtype, steps=3, log_every=1)
     finals, losses = {}, {}
     for device in ("cuda", "cpu"):
         for k in kernels.values():
             k.launches = 0
-        res = run(LM_LAUNCH_DEFAULTS.merged(kw, device=device))
-        if device == "cuda":
-            cfg = LM_LAUNCH_DEFAULTS.merged(kw)
-            launches = {key: k.launches for key, k in kernels.items()}
-            want, schedule = lm_expected(cfg, cfg.steps + 1)
-            expect_launches(name, launches, want)
+        with fused_bwd_env(fused_bwd):
+            res = run(LM_LAUNCH_DEFAULTS.merged(kw, device=device))
+            if device == "cuda":
+                cfg = LM_LAUNCH_DEFAULTS.merged(kw)
+                launches = {key: k.launches for key, k in kernels.items()}
+                want, schedule = lm_expected(cfg, cfg.steps + 1)
+                expect_launches(name, launches, want)
         finals[device] = {key: res["state"][key].cpu() for key in ("w", "vt")}
         losses[device] = [h["avg_loss"] for h in res["history"]]
     w0 = flatten_module(TinyDecoder(vocab=256, d_model=128, n_heads=4, n_layers=2,
@@ -1110,7 +1217,8 @@ def lm_vs_cpu(torch, kernels, attn_dtype):
                                  f"beyond the limits: {r}")
     if not loss_gap <= lim["loss_rtol"]:
         raise AssertionError(f"{name}: losses differ by {loss_gap} relative")
-    return {"launches": launches, "steps": 3, "warmup_steps": 1, "schedule": schedule,
+    return {"name": name, "launches": launches, "steps": 3, "warmup_steps": 1,
+            "schedule": schedule,
             **{k: readings[k] for k in ("w", "vt", "loss_rel_gap")}}
 
 
@@ -1143,12 +1251,19 @@ def main() -> int:
     for name, s in secs.items():
         print(f"build {name}: {s:.1f}s")
         print(build.library_path(name).with_suffix(".log").read_text().strip())
-    # bf16 K4 and K5 must run their products as wgmma (SASS HGMMA).
+    # bf16 K4, K5 and K6 must run their products as wgmma (SASS HGMMA),
+    # which ptxas neither serializes (note C7512) nor feeds from spills.
     tc_ops = build.tensor_ops("flash_attention_tc")
     print("tensor-core instructions: " + json.dumps(tc_ops))
-    for kernel in ("fa_fwd_tc_kernel", "fa_bwd_tc_kernel"):
+    for kernel in ("fa_fwd_tc_kernel", "fa_bwd_tc_kernel", "fa_bwd_dkdv_tc_kernel",
+                   "fa_bwd_dq_tc_kernel"):
         if not any(kernel in k and ops["HGMMA"] for k, ops in tc_ops.items()):
             raise AssertionError(f"{kernel} carries no HGMMA instruction")
+    ptxas = build.ptxas_report("flash_attention_tc")
+    print("ptxas, tensor-core kernels: " + json.dumps(ptxas))
+    bad = {k: r for k, r in ptxas.items() if r["spill_bytes"] or r["serialized"]}
+    if bad:
+        raise AssertionError(f"ptxas spilled or serialized wgmma in: {bad}")
 
     mesh_cfg = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS)
     n_mesh = flatten_module(make_model(mesh_cfg.model, mesh_cfg.side), 1).size
@@ -1177,11 +1292,12 @@ def main() -> int:
 
     t_lm = time.perf_counter()
     lm_paths(torch, kernels, all_paths)
-    for attn_dtype in ("float32", "bfloat16"):
-        rec = lm_vs_cpu(torch, kernels, attn_dtype)
+    # bf16 twice: under the gate's K5 and under K6, each held to the CPU.
+    for attn_dtype, fused_bwd in (("float32", None), ("bfloat16", None),
+                                  ("bfloat16", "0")):
+        rec = lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd)
         for key in kernels:
-            all_paths[key][f"lm_vs_cpu_{attn_dtype}"] = {
-                **rec, "launches": rec["launches"][key]}
+            all_paths[key][rec["name"]] = {**rec, "launches": rec["launches"][key]}
     k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
 

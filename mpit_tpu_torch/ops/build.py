@@ -136,6 +136,37 @@ def tensor_ops(name: str) -> Dict[str, Dict[str, int]]:
     return counts
 
 
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """What ``ptxas -v`` said of each kernel in ``csrc/<name>.cu``'s build
+    log, by mangled name: its registers, its spilled bytes (stores and
+    loads), and ``serialized`` = 1 where ptxas noted (C7512) that it
+    serialized the kernel's wgmma for want of registers."""
+    log = build(name).with_suffix(".log").read_text()
+    report: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            kernel = entry.group(1)
+            report.setdefault(kernel, {"registers": 0, "spill_bytes": 0, "serialized": 0})
+            continue
+        if "C7512" in line:  # a note that names no kernel still counts
+            note = re.search(r"function '([^']+)'", line)
+            report.setdefault(note.group(1) if note else "(unnamed)",
+                              {"registers": 0, "spill_bytes": 0,
+                               "serialized": 0})["serialized"] = 1
+            continue
+        if kernel is None:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills:
+            report[kernel]["spill_bytes"] = int(spills.group(1)) + int(spills.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report[kernel]["registers"] = int(used.group(1))
+    return report
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it first if
@@ -150,3 +181,5 @@ if __name__ == "__main__":
         for kernel, ops in tensor_ops(name).items():
             if any(ops.values()):
                 print(f"  tensor-core instructions {kernel}: {ops}")
+        for kernel, rep in ptxas_report(name).items():
+            print(f"  ptxas {kernel}: {rep}")

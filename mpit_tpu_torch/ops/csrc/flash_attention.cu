@@ -1,14 +1,18 @@
-// K4, K5, K6: flash attention, forward and backward, for Hopper (sm_90a).
+// K4, K5, K6 for float32: flash attention, forward and backward, for
+// Hopper (sm_90a), on scalar float32 FMAs.
 //
-// Replaces the Pallas kernels of mpit_tpu/ops/flash_attention.py:
+// Replaces, for float32 inputs, the Pallas kernels of
+// mpit_tpu/ops/flash_attention.py:
 //   K4  `_fa_kernel` (`_fa_2d`, both output modes)       -> fa_fwd_kernel
 //   K5  `_fa_bwd_fused_kernel` (`_fa_2d_bwd(fused=True)`) -> fa_bwd_fused_kernel
 //   K6  `_fa_bwd_dq_kernel` and `_fa_bwd_dkdv_kernel`     -> fa_bwd_dq_kernel,
 //       (`_fa_2d_bwd(fused=False)`)                           fa_bwd_dkdv_kernel
+// bfloat16 inputs go to the tensor-core kernels of flash_attention_tc.cu:
+// no tensor-core type holds float32 at the reference's tolerances.
 //
-// Every operand is a contiguous (N, L, D) array, N the flattened leading
-// axes, in float32 or bfloat16 (T); row statistics (lse, delta, m, l) are
-// float32 (N, L).  With s = scale * q.k over the valid (q row, key) pairs:
+// Every operand is a contiguous float32 (N, L, D) array, N the flattened
+// leading axes; row statistics (lse, delta, m, l) are (N, L).  With s =
+// scale * q.k over the valid (q row, key) pairs:
 //
 //   forward   online softmax over key tiles: m (running max), l (running
 //             sum of p = exp(s - m)), acc = sum p.v; normalized o = acc/l
@@ -21,36 +25,30 @@
 //   - the validity rule: keys at or past Lk masked, and under `causal`
 //     q_offset + i >= kv_offset + j in global coordinates (`valid`);
 //   - the dead / edge / full triage of a (q tile, key tile) pair
-//     (`_block_bounds`): `triage` below is the one copy of the boundary
-//     rule, shared by all four kernels;
+//     (`_block_bounds`): `triage` in flash_common.cuh is the one copy of
+//     the boundary rule, shared by every kernel of both files;
 //   - the finite sentinel -1e30 for the running max inside the kernel, and
 //     -inf in the public m and lse of dead rows;
-//   - the casts: P rounds to T before P.V and P^T.dO, dS rounds to T
-//     before dS.K and dS^T.Q; every product accumulates in float32.  A
-//     product of two bf16 values is exact in float32, so for bf16 inputs
-//     the kernels compute what the Pallas kernels' MXU passes do.
+//   - every product accumulates in float32;
 //   - K5's dQ leaves as one float32 partial per key tile, (n_kv_tiles, N,
 //     Lq, D), summed outside by one deterministic reduction (no atomics);
-//     a dead (q tile, key tile) pair writes zeros into its slot.
+//     a dead (q tile, key tile) pair writes nothing into its slot.
 //
-// Bound on this card: operations at the LM's shapes.  A valid pair costs
-// 4*D flops forward and 10*D backward (the fused schedule's five
-// products); at N = 64, L = 1,024, D = 32 in bf16 the forward moves 17 MB
-// and does 4.3 GFLOP (5.1 us at 3.35 TB/s, 4.3 us at 989 TFLOP/s).
+// Bound on this card: operations.  A valid pair costs 4*D flops forward
+// and 10*D backward (the fused schedule's five products), on CUDA cores
+// here (67 TFLOP/s float32 peak).
 //
 // Design, simple first: no tensor cores.  One block of 256 threads owns a
 // 64-row q tile (K4, K6's dq) or a 64-row key tile (K5, K6's dkdv) of one
 // of the N heads, and loops over the other side's 64-row tiles inside the
-// block (the TPU grid's sequential axis).  Tiles sit in shared memory as
-// float32, rows padded to D_MAX + 1 floats so the 16 threads that read 16
+// block (the TPU grid's sequential axis).  Tiles sit in shared memory,
+// rows padded to D_MAX + 1 floats so the 16 threads that read 16
 // different rows of one column hit 16 different banks.  The threads form a
 // 16 x 16 grid: thread (ty, tx) holds rows ty + 16a and columns tx + 16b
 // (a, b < 4) of each 64 x 64 score tile, and the same rows of the (64,
 // D_MAX) accumulators.  A row's 16 threads lie in one half-warp, so the
-// online softmax reduces a row with four shuffles.  Scores and products
-// are scalar float32 FMAs (67 TFLOP/s peak), so the kernels stay far from
-// a bf16 tensor-core bound: wgmma and TMA are later work.  D is a multiple
-// of 8 up to 128; D_MAX is 32, 64 or 128 and the padded columns hold zeros.
+// online softmax reduces a row with four shuffles.  D is a multiple of 8
+// up to 128; D_MAX is 32, 64 or 128 and the padded columns hold zeros.
 // Blocks are ordered heaviest first under the causal mask (the last q
 // tiles, the first key tiles).
 #include "flash_common.cuh"
@@ -65,32 +63,16 @@ constexpr int NT = 256;        // threads per block, a 16 x 16 grid
 constexpr int LDS = BK + 16;   // row stride of a score tile in shared memory:
                                // the two rows a warp reads lie 16 banks apart
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the cast of P and dS before their products.
-template <typename T>
-__device__ __forceinline__ float round_as(float x) { return to_f32(from_f32<T>(x)); }
-
 // Rows row0 .. row0+63 of a (rows, d) matrix into a (64, DM + 1) float
 // tile; rows past `rows` and columns past d read as 0.
-template <typename T, int DM>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int DM>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int row0, int rows, int d) {
   for (int idx = threadIdx.x; idx < 64 * DM; idx += NT) {
     const int r = idx / DM, c = idx % DM;
     const int row = row0 + r;
     dst[r * (DM + 1) + c] =
-        (row < rows && c < d) ? to_f32(src[(size_t)row * d + c]) : 0.f;
+        (row < rows && c < d) ? src[(size_t)row * d + c] : 0.f;
   }
 }
 
@@ -116,10 +98,10 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 // K4: forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int DM, bool PARTIAL>
+template <int DM, bool PARTIAL>
 __global__ void __launch_bounds__(NT)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, float* __restrict__ lse, float* __restrict__ acc_out,
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+              float* __restrict__ o, float* __restrict__ lse, float* __restrict__ acc_out,
               float* __restrict__ m_out, float* __restrict__ l_out, Geo g) {
   constexpr int LD = DM + 1, NC = DM / 16;
   extern __shared__ float smem[];
@@ -133,7 +115,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
 
-  load_tile<T, DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
+  load_tile<DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
   float acc[4][NC], m[4], l[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -148,8 +130,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int kind = triage<BQ, BK>(g, i, j);
     if (kind == 0) continue;  // the same for every thread of the block
     __syncthreads();          // the previous tile's reads are done
-    load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
-    load_tile<T, DM>(sV, v + kbase, j * BK, g.lk, g.d);
+    load_tile<DM>(sK, k + kbase, j * BK, g.lk, g.d);
+    load_tile<DM>(sV, v + kbase, j * BK, g.lk, g.d);
     __syncthreads();
 
     float s[4][4];
@@ -189,7 +171,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       for (int b = 0; b < 4; ++b) {
         const float p = ok[b] ? expf(s[a][b] - m_new) : 0.f;
         ps += p;
-        sP[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(p);
+        sP[(ty + 16 * a) * LDS + tx + 16 * b] = p;
       }
       const float alpha = expf(m[a] - m_new);
       l[a] = alpha * l[a] + half_warp_sum(ps);
@@ -235,7 +217,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
       for (int b = 0; b < NC; ++b) {
         const int col = tx + 16 * b;
-        if (col < g.d) o[ro + col] = from_f32<T>(acc[a][b] / den);
+        if (col < g.d) o[ro + col] = acc[a][b] / den;
       }
       if (lse != nullptr && tx == 0) lse[so] = m_pub + logf(den);
     }
@@ -301,11 +283,11 @@ __device__ __forceinline__ void p_ds(float (&p)[4][4], float (&ds)[4][4],
 // K6, first kernel: dQ, q tiles outer
 // ---------------------------------------------------------------------------
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(NT)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, Geo g) {
+fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq, Geo g) {
   constexpr int LD = DM + 1, NC = DM / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -322,8 +304,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
   const size_t sbase = (size_t)n * g.lq;
 
-  load_tile<T, DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
-  load_tile<T, DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
+  load_tile<DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
+  load_tile<DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
   load_stats(sLse, lse + sbase, i * BQ, g.lq);
   load_stats(sDelta, delta + sbase, i * BQ, g.lq);
   float acc[4][NC];
@@ -337,8 +319,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int kind = triage<BQ, BK>(g, i, j);
     if (kind == 0) continue;
     __syncthreads();
-    load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
-    load_tile<T, DM>(sV, v + kbase, j * BK, g.lk, g.d);
+    load_tile<DM>(sK, k + kbase, j * BK, g.lk, g.d);
+    load_tile<DM>(sV, v + kbase, j * BK, g.lk, g.d);
     __syncthreads();
     float p[4][4], ds[4][4];
     p_ds<DM>(p, ds, sQ, sdO, sK, sV, sLse, sDelta, g, i, j, kind, ty, tx);
@@ -346,7 +328,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b)
-        sDS[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(ds[a][b]);
+        sDS[(ty + 16 * a) * LDS + tx + 16 * b] = ds[a][b];
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
@@ -369,7 +351,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int b = 0; b < NC; ++b) {
       const int col = tx + 16 * b;
-      if (col < g.d) dq[qbase + (size_t)row * g.d + col] = from_f32<T>(g.scale * acc[a][b]);
+      if (col < g.d) dq[qbase + (size_t)row * g.d + col] = g.scale * acc[a][b];
     }
   }
 }
@@ -381,11 +363,11 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // With FUSED (K5), each live (q tile, key tile) pair also writes its dQ
 // contribution dS.K into dqp[j] (dead pairs write nothing), so one sweep
 // yields all three gradients: five products per pair, not seven.
-template <typename T, int DM, bool FUSED>
+template <int DM, bool FUSED>
 __device__ __forceinline__ void bwd_kv_body(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
     float* __restrict__ dqp, const Geo& g) {
   constexpr int LD = DM + 1, NC = DM / 16;
   extern __shared__ float smem[];
@@ -404,8 +386,8 @@ __device__ __forceinline__ void bwd_kv_body(
   const size_t sbase = (size_t)n * g.lq;
   float* dqp_j = FUSED ? dqp + ((size_t)j * g.n + n) * g.lq * g.d : nullptr;
 
-  load_tile<T, DM>(sK, k + kbase, j * BK, g.lk, g.d);
-  load_tile<T, DM>(sV, v + kbase, j * BK, g.lk, g.d);
+  load_tile<DM>(sK, k + kbase, j * BK, g.lk, g.d);
+  load_tile<DM>(sV, v + kbase, j * BK, g.lk, g.d);
   float dka[4][NC], dva[4][NC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -417,8 +399,8 @@ __device__ __forceinline__ void bwd_kv_body(
     const int kind = triage<BQ, BK>(g, i, j);
     if (kind == 0) continue;  // K5: nothing written; the reduction skips it
     __syncthreads();
-    load_tile<T, DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
-    load_tile<T, DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
+    load_tile<DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
+    load_tile<DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
     load_stats(sLse, lse + sbase, i * BQ, g.lq);
     load_stats(sDelta, delta + sbase, i * BQ, g.lq);
     __syncthreads();
@@ -428,8 +410,8 @@ __device__ __forceinline__ void bwd_kv_body(
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        sP[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(p[a][b]);
-        sDS[(ty + 16 * a) * LDS + tx + 16 * b] = round_as<T>(ds[a][b]);
+        sP[(ty + 16 * a) * LDS + tx + 16 * b] = p[a][b];
+        sDS[(ty + 16 * a) * LDS + tx + 16 * b] = ds[a][b];
       }
     __syncthreads();
     // dV += P^T.dO and dK += dS^T.Q: this thread's key rows ty + 16a.
@@ -495,28 +477,28 @@ __device__ __forceinline__ void bwd_kv_body(
       const int col = tx + 16 * b;
       if (col >= g.d) continue;
       const size_t at = kbase + (size_t)row * g.d + col;
-      dk[at] = from_f32<T>(g.scale * dka[a][b]);
-      dv[at] = from_f32<T>(dva[a][b]);
+      dk[at] = g.scale * dka[a][b];
+      dv[at] = dva[a][b];
     }
   }
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(NT, 1)
-fa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+fa_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
                     float* __restrict__ dqp, Geo g) {
-  bwd_kv_body<T, DM, true>(q, k, v, dout, lse, delta, dk, dv, dqp, g);
+  bwd_kv_body<DM, true>(q, k, v, dout, lse, delta, dk, dv, dqp, g);
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(NT, 1)
-fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                   const float* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
                    Geo g) {
-  bwd_kv_body<T, DM, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, g);
+  bwd_kv_body<DM, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -552,20 +534,12 @@ int by_width(int d, F&& f) {
   return f(std::integral_constant<int, 128>{});
 }
 
-// Calls f(T{}, integral_constant<DM>) for the element type and the padded
-// head width of the call.
-template <typename F>
-int dispatch(int bf16, int d, F&& f) {
-  if (bf16) return by_width(d, [&](auto dm) { return f(__nv_bfloat16{}, dm); });
-  return by_width(d, [&](auto dm) { return f(float{}, dm); });
-}
-
 }  // namespace
 
-// Each entry point launches on `stream` and returns cudaGetLastError()
-// after its launch (0 on success); it allocates nothing.  K4 and K5 here
-// take float32 (bfloat16 goes to flash_attention_tc.cu); K6's `bf16`
-// selects the element type of q, k, v, do, dq, dk, dv (else float32).
+// Each entry point takes float32 operands (bfloat16 goes to
+// flash_attention_tc.cu), launches on `stream` and returns
+// cudaGetLastError() after its launch (0 on success); it allocates
+// nothing.
 
 // K4.  partial = 0: o and, when lse is not null, lse.  partial = 1:
 // acc (float32, like q), m and l.
@@ -581,8 +555,8 @@ extern "C" int mpit_fa_fwd(const float* q, const float* k, const float* v, float
     constexpr int DM = decltype(dm)::value;
     const size_t smem = 3 * tile_bytes<DM>() + score_bytes();
     void* args[] = {&q, &k, &v, &o, &lse, &acc, &m, &l, &g};
-    return partial ? launch(fa_fwd_kernel<float, DM, true>, smem, tiles, g, s, args)
-                   : launch(fa_fwd_kernel<float, DM, false>, smem, tiles, g, s, args);
+    return partial ? launch(fa_fwd_kernel<DM, true>, smem, tiles, g, s, args)
+                   : launch(fa_fwd_kernel<DM, false>, smem, tiles, g, s, args);
   });
 }
 
@@ -602,57 +576,43 @@ extern "C" int mpit_fa_bwd_fused(const float* q, const float* k, const float* v,
     constexpr int DM = decltype(dm)::value;
     const size_t smem = 4 * tile_bytes<DM>() + 2 * score_bytes() + stats_bytes();
     void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &dqp, &g};
-    return launch(fa_bwd_fused_kernel<float, DM>, smem, tiles, g, s, args);
+    return launch(fa_bwd_fused_kernel<DM>, smem, tiles, g, s, args);
   });
   if (err != 0) return err;
   return launch_dq_reduce<float, BQ, BK>(dqp, dq, g, s);
 }
 
 // K6, first kernel: dq.
-extern "C" int mpit_fa_bwd_dq(const void* q, const void* k, const void* v,
-                              const void* dout, const float* lse, const float* delta,
-                              void* dq, int bf16, int n, int lq, int lk, int d,
-                              int q_offset, int kv_offset, float scale, int causal,
-                              void* stream) {
+extern "C" int mpit_fa_bwd_dq(const float* q, const float* k, const float* v,
+                              const float* dout, const float* lse, const float* delta,
+                              float* dq, int n, int lq, int lk, int d, int q_offset,
+                              int kv_offset, float scale, int causal, void* stream) {
   Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
   if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int tiles = (lq + BQ - 1) / BQ;
-  return dispatch(bf16, d, [&](auto t, auto dm) {
-    using T = decltype(t);
+  return by_width(d, [&](auto dm) {
     constexpr int DM = decltype(dm)::value;
     const size_t smem = 4 * tile_bytes<DM>() + score_bytes() + stats_bytes();
-    const T* qp = static_cast<const T*>(q);
-    const T* kp = static_cast<const T*>(k);
-    const T* vp = static_cast<const T*>(v);
-    const T* dop = static_cast<const T*>(dout);
-    T* dqp = static_cast<T*>(dq);
-    void* args[] = {&qp, &kp, &vp, &dop, &lse, &delta, &dqp, &g};
-    return launch(fa_bwd_dq_kernel<T, DM>, smem, tiles, g, s, args);
+    void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dq, &g};
+    return launch(fa_bwd_dq_kernel<DM>, smem, tiles, g, s, args);
   });
 }
 
 // K6, second kernel: dk and dv.
-extern "C" int mpit_fa_bwd_dkdv(const void* q, const void* k, const void* v,
-                                const void* dout, const float* lse, const float* delta,
-                                void* dk, void* dv, int bf16, int n, int lq, int lk,
-                                int d, int q_offset, int kv_offset, float scale,
-                                int causal, void* stream) {
+extern "C" int mpit_fa_bwd_dkdv(const float* q, const float* k, const float* v,
+                                const float* dout, const float* lse, const float* delta,
+                                float* dk, float* dv, int n, int lq, int lk, int d,
+                                int q_offset, int kv_offset, float scale, int causal,
+                                void* stream) {
   Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
   if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int tiles = (lk + BK - 1) / BK;
-  return dispatch(bf16, d, [&](auto t, auto dm) {
-    using T = decltype(t);
+  return by_width(d, [&](auto dm) {
     constexpr int DM = decltype(dm)::value;
     const size_t smem = 4 * tile_bytes<DM>() + 2 * score_bytes() + stats_bytes();
-    const T* qp = static_cast<const T*>(q);
-    const T* kp = static_cast<const T*>(k);
-    const T* vp = static_cast<const T*>(v);
-    const T* dop = static_cast<const T*>(dout);
-    T* dkp = static_cast<T*>(dk);
-    T* dvp = static_cast<T*>(dv);
-    void* args[] = {&qp, &kp, &vp, &dop, &lse, &delta, &dkp, &dvp, &g};
-    return launch(fa_bwd_dkdv_kernel<T, DM>, smem, tiles, g, s, args);
+    void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &g};
+    return launch(fa_bwd_dkdv_kernel<DM>, smem, tiles, g, s, args);
   });
 }

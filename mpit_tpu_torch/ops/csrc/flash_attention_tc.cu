@@ -1,4 +1,4 @@
-// K4 and K5 for bfloat16 on Hopper's tensor cores (sm_90a).
+// K4, K5 and K6 for bfloat16 on Hopper's tensor cores (sm_90a).
 //
 // Replaces, for bfloat16 inputs, the Pallas kernels of
 // mpit_tpu/ops/flash_attention.py:
@@ -6,12 +6,17 @@
 //   K5  `_fa_bwd_fused_kernel` (:623; `_fa_2d_bwd(fused=True)`)
 //                                                          -> fa_bwd_tc_kernel
 //                                                             + dq_reduce_kernel
-// float32 inputs, and K6 in both types, stay on the scalar kernels of
-// flash_attention.cu: no tensor-core type holds float32 at the
-// reference's tolerances.  The contract is that file's (the validity rule,
-// `triage` in flash_common.cuh, the -1e30 sentinel and -inf in the public
-// m and lse, P and dS rounded to bfloat16 before their products, every
-// product accumulated in float32, K5 deterministic).
+//   K6  `_fa_bwd_dq_kernel` (:536) and `_fa_bwd_dkdv_kernel` (:576;
+//       `_fa_2d_bwd(fused=False)`, with `_bwd_p_ds` :499)
+//                                                          -> fa_bwd_dq_tc_kernel
+//                                                             + fa_bwd_dkdv_tc_kernel
+// float32 inputs stay on the scalar kernels of flash_attention.cu: no
+// tensor-core type holds float32 at the reference's tolerances.  The
+// contract is the scalar kernels' (the validity rule, `triage` in
+// flash_common.cuh, the -1e30 sentinel and -inf in the public m and lse,
+// P and dS rounded to bfloat16 before their products, every product
+// accumulated in float32), and both backward schedules give the same bits
+// every run, with no atomics; K6 needs no transient beyond dq, dk and dv.
 //
 // Bound on this card, at the LM's shapes (causal, N heads, L, D):
 //   lm_longcontext (N 8, L 8,192, D 128): the forward does 4 D flops per
@@ -22,6 +27,10 @@
 //   1.1 GB each way (0.65 ms at 3.35 TB/s) with 128-key tiles.
 //   lm_default (N 64, L 1,024, D 32): 4.3 and 10.7 GFLOP, 17 and 27 MB;
 //   the bytes bound the forward (5.1 us); the partials move 75 MB.
+//   lm_longcontext_32k (N 8, L 32,768, D 128): the backward 5.5 TFLOP
+//   (5.56 ms), where K5's partials would take 32 GiB: K6's ground.  K6
+//   does 14 D flops a valid pair, not 10: both its kernels recompute S and
+//   dP.
 // So the products must run on the tensor cores, and the partials must be
 // few.
 //
@@ -68,6 +77,22 @@
 //   tile.  Dead pairs write nothing.  dq_reduce_kernel then sums, for each
 //   q tile, only its live key tiles' slots in ascending order: the same
 //   bits every run, no atomics.
+// - K6's dK/dV kernel is K5's sweep (one body, `bwd_kv_tc_body`, on a
+//   WITH_DQ flag) without dS^T in shared memory, the dQ product and the
+//   partials.
+// - K6's dQ kernel takes K4's shape: a block owns 128 q rows of one head,
+//   64 a warpgroup, with its Q and dO loaded once and the rows' lse and
+//   delta in registers; K and V tiles stream through two stages over the
+//   live key range, the heaviest blocks first.  As in K5, no producer
+//   warpgroup: thread 0 issues the copies and the block's barrier on a
+//   tile frees its stage, so each thread may hold 255 registers.  Per
+//   tile, S = Q.K^T and dP = dO.V^T (both K-major from shared memory);
+//   P and dS are formed on the accumulators in registers (no online
+//   softmax: lse is given), dS is rounded and repacked as the A operand of
+//   dQ += dS.K, K the B operand read MN-major.  The tile is 64 keys at D
+//   128 (S and dP 32 floats a thread each, dQ 64), 128 keys below.  Each
+//   dQ row is one thread's sum over the key tiles in order: the same bits
+//   every run.
 #include "flash_common.cuh"
 
 #include <cuda.h>  // CUtensorMap and its enums
@@ -82,14 +107,18 @@ template <int V>
 using int_ = std::integral_constant<int, V>;
 
 // K4: two consumer warpgroups and one producer warpgroup, of which one
-// thread issues the copies.  K5: two warpgroups, whose first warp also
-// issues the copies (a third warpgroup would leave ptxas too few
+// thread issues the copies.  K5 and K6: two warpgroups, whose first warp
+// also issues the copies (a third warpgroup would leave ptxas too few
 // registers to keep K5's products asynchronous at D 128).
 constexpr int CONSUMERS = 256, CONSUMER_WARPS = 8, F_NT = CONSUMERS + 128, B_NT = 256;
 // K4: 128 q rows a block (64 a warpgroup), 128-key tiles in two stages.
 constexpr int F_BQ = 128, F_BK = 128, F_STAGES = 2;
-// K5: 128 keys a block (64 a warpgroup), 64-row q tiles in two stages.
+// K5 and K6's dK/dV kernel: 128 keys a block (64 a warpgroup), 64-row q
+// tiles in two stages.
 constexpr int B_BK = 128, B_BQ = 64, B_STAGES = 2;
+// K6's dQ kernel: 128 q rows a block (64 a warpgroup), key tiles in two
+// stages (DqTiles).
+constexpr int D_BQ = 128, D_STAGES = 2;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -616,10 +645,10 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 // K5: fused backward, key tiles outer
 // ---------------------------------------------------------------------------
 
-// The shared-memory geometry of K5 at head width DM: the block's K and V
-// (B_BK rows, resident), Q and dO (B_BQ rows) and their lse and delta rows
-// in B_STAGES stages, and dS^T (B_BK keys by B_BQ q, one 128 B atom row a
-// key) twice, all 1 KB aligned.
+// The shared-memory geometry of K5 and K6's dK/dV kernel at head width DM:
+// the block's K and V (B_BK rows, resident), Q and dO (B_BQ rows) and their
+// lse and delta rows in B_STAGES stages, and for K5 dS^T (B_BK keys by B_BQ
+// q, one 128 B atom row a key) twice, all 1 KB aligned.
 template <int DM>
 struct BwdTiles {
   static constexpr int CW = DM < 64 ? DM : 64;   // columns of an atom row
@@ -632,16 +661,20 @@ struct BwdTiles {
   static constexpr int TILE_Q = B_BQ * DM * 2;
   static constexpr int STAGE = 2 * TILE_Q + 1024;  // Q, dO, then lse and delta
   static constexpr int DS = B_BK * B_BQ * 2;
-  static constexpr size_t SMEM =
-      1024 + (size_t)2 * TILE_K + (size_t)B_STAGES * STAGE + 2 * DS + 64;
+  static constexpr size_t smem(bool with_dq) {
+    return 1024 + (size_t)2 * TILE_K + (size_t)B_STAGES * STAGE + (with_dq ? 2 * DS : 0) + 64;
+  }
 };
 
-template <int DM>
-__global__ void __launch_bounds__(B_NT, 1)
-fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dqp, Geo g) {
+// The sweep of one key tile over its live q tiles, dK and dV in registers;
+// WITH_DQ (K5) also writes each live pair's dQ partial into dqp.
+template <int DM, bool WITH_DQ>
+__device__ __forceinline__ void bwd_kv_tc_body(const CUtensorMap& tq, const CUtensorMap& tk,
+                                               const CUtensorMap& tv, const CUtensorMap& tdo,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                               float* __restrict__ dqp, const Geo& g) {
   using T = BwdTiles<DM>;
   constexpr int KR = DM / 2;     // dK (and dV) floats a thread: 64 keys x DM
   constexpr int QN = DM / 2;     // dQ columns a warpgroup computes
@@ -650,8 +683,8 @@ fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sV = sK + T::TILE_K;
   const uint32_t stages = sV + T::TILE_K;  // each: Q, dO, lse, delta
-  const uint32_t sDS = stages + B_STAGES * T::STAGE;  // two buffers
-  const uint32_t bars = sDS + 2 * T::DS;
+  const uint32_t sDS = stages + B_STAGES * T::STAGE;  // two buffers (K5)
+  const uint32_t bars = sDS + (WITH_DQ ? 2 * T::DS : 0);
   auto q_of = [&](int st) { return stages + st * T::STAGE; };
   auto do_of = [&](int st) { return stages + st * T::STAGE + T::TILE_Q; };
   auto lse_of = [&](int st) { return stages + st * T::STAGE + 2 * T::TILE_Q; };
@@ -678,8 +711,8 @@ fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;
   const int key_lo = wg * 64 + warp * 16 + gr;  // this thread's local keys: key_lo, key_lo + 8
-  float* dqp_j = dqp + ((size_t)j * g.n + n) * g.lq * g.d;
-  const int q_col0 = wg * QN;  // this warpgroup's dQ columns: q_col0 ..
+  float* dqp_j = WITH_DQ ? dqp + ((size_t)j * g.n + n) * g.lq * g.d : nullptr;
+  const int q_col0 = wg * QN;  // this warpgroup's dQ columns: q_col0 .. (K5)
 
   // Warp 0 also feeds the pipeline: its lane 0 issues the copies by TMA,
   // and its lanes store each q tile's lse and delta rows, two a lane, 0
@@ -793,8 +826,9 @@ fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     wg_wait_all();
     reg_fence(dpT);
     // P^T and dS^T rounded to bf16 in registers, as A operands, pair by
-    // pair as dS^T is formed; dS^T also to shared memory, swizzled as a
-    // 128 B atom (a key's 64 q values are one row), for this pair's dQ.
+    // pair as dS^T is formed; for K5 dS^T also to shared memory, swizzled
+    // as a 128 B atom (a key's 64 q values are one row), for this pair's
+    // dQ.
     uint32_t pa[B_BQ / 16][4], da[B_BQ / 16][4];
 #pragma unroll
     for (int kp = 0; kp < B_BQ / 16; ++kp)
@@ -807,8 +841,9 @@ fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         const float d1 = ld_shared_f32(delta_of(st) + 4 * qc + 4);
         pa[kp][r] = pack_bf16(sT[x], sT[x + 1]);
         da[kp][r] = pack_bf16(sT[x] * (dpT[x] - d0), sT[x + 1] * (dpT[x + 1] - d1));
-        st_shared_u32(ds + key * 128 + (((qc >> 3) ^ (key & 7)) << 4) + (qc & 7) * 2,
-                      da[kp][r]);
+        if (WITH_DQ)
+          st_shared_u32(ds + key * 128 + (((qc >> 3) ^ (key & 7)) << 4) + (qc & 7) * 2,
+                        da[kp][r]);
       }
     // dV += P^T.dO and dK += dS^T.Q: B (dO, Q) MN-major, 16 q rows a
     // step.
@@ -836,9 +871,10 @@ fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     // dS^T buffers alternate: a warpgroup writes one only after both have
     // passed this barrier on the tile before, whose products read the
     // other.)
-    fence_proxy_async();
+    if (WITH_DQ) fence_proxy_async();
     __syncthreads();
     if (refill) feed(i + B_STAGES, st);
+    if (!WITH_DQ) continue;
     // This pair's dQ = dS.K (unscaled), B_BQ rows by this warpgroup's QN
     // columns over all B_BK keys: A (dS, from dS^T) and B (K) MN-major.
     float dqa[QR];
@@ -881,6 +917,214 @@ fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
           g.scale * dka[4 * t + 2 * h], g.scale * dka[4 * t + 2 * h + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + at) =
           __floats2bfloat162_rn(dva[4 * t + 2 * h], dva[4 * t + 2 * h + 1]);
+    }
+  }
+}
+
+template <int DM>
+__global__ void __launch_bounds__(B_NT, 1)
+fa_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dqp, Geo g) {
+  bwd_kv_tc_body<DM, true>(tq, tk, tv, tdo, lse, delta, dk, dv, dqp, g);
+}
+
+// ---------------------------------------------------------------------------
+// K6: two kernels, dK and dV with key tiles outer, dQ with q tiles outer
+// ---------------------------------------------------------------------------
+
+template <int DM>
+__global__ void __launch_bounds__(B_NT, 1)
+fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, Geo g) {
+  bwd_kv_tc_body<DM, false>(tq, tk, tv, tdo, lse, delta, dk, dv, nullptr, g);
+}
+
+// The shared-memory geometry of K6's dQ kernel at head width DM: the
+// block's Q and dO (D_BQ rows, resident), then K and V tiles of BK keys in
+// D_STAGES stages, all 1 KB aligned.  64-key tiles at D 128, so that a
+// consumer thread holds S and dP (32 floats each) beside dQ (64); 128-key
+// tiles below.
+template <int DM>
+struct DqTiles {
+  static constexpr int BK = DM == 128 ? 64 : 128;  // keys a tile
+  static constexpr int CW = DM < 64 ? DM : 64;     // columns of an atom row
+  static constexpr int NC = DM / CW;               // atom columns of a tile
+  static constexpr int ROWB = CW * 2;              // bytes of an atom row
+  static constexpr int SWIZZLE = CW == 64 ? 1 : 2;
+  static constexpr int ATOMS_Q = D_BQ * ROWB;      // bytes of an atom column of Q, dO
+  static constexpr int ATOMS_K = BK * ROWB;        // ... of K, V
+  static constexpr int TILE_Q = D_BQ * DM * 2;
+  static constexpr int TILE_K = BK * DM * 2;
+  static constexpr size_t SMEM =
+      1024 + (size_t)2 * TILE_Q + (size_t)2 * D_STAGES * TILE_K + 64;
+};
+
+template <int DM>
+__global__ void __launch_bounds__(B_NT, 1)
+fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, Geo g) {
+  using T = DqTiles<DM>;
+  constexpr int BK = T::BK;
+  constexpr int SR = BK / 2;  // S (and dP) floats a thread: 64 rows x BK over 128
+  constexpr int QR = DM / 2;  // dQ floats a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sDO = sQ + T::TILE_Q;
+  const uint32_t sK = sDO + T::TILE_Q;  // D_STAGES tiles each
+  const uint32_t sV = sK + D_STAGES * T::TILE_K;
+  const uint32_t bars = sV + D_STAGES * T::TILE_K;
+  // Barriers: Q and dO full; K and V full for each stage.
+  const uint32_t qdo_full = bars;
+  auto kv_full = [&](int st) { return bars + 8 * (1 + st); };
+
+  const int n_tiles = (g.lq + D_BQ - 1) / D_BQ;
+  const int i = n_tiles - 1 - (int)(blockIdx.x / g.n);
+  const int n = (int)(blockIdx.x % g.n);
+  int j_lo, j_hi;
+  live_range<D_BQ, BK, false>(g, i, (g.lk + BK - 1) / BK, j_lo, j_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int st = 0; st < D_STAGES; ++st) mbar_init(kv_full(st), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Two warpgroups, 64 q rows each.
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int row_lo = i * D_BQ + wg * 64 + warp * 16 + gr;  // and row_lo + 8
+  const uint32_t q_rows = sQ + wg * 64 * T::ROWB, do_rows = sDO + wg * 64 * T::ROWB;
+
+  // Thread 0 issues every copy: Q and dO once, then each live key tile's K
+  // and V into the next stage, refilled after the block's barrier on the
+  // tile that used it.
+  const bool feeder = threadIdx.x == 0;
+  auto feed = [&](int j, int st) {
+    mbar_expect_tx(kv_full(st), 2 * T::TILE_K);
+    for (int c = 0; c < T::NC; ++c) {
+      tma_load(sK + st * T::TILE_K + c * T::ATOMS_K, &tk, kv_full(st), c * T::CW, j * BK, n);
+      tma_load(sV + st * T::TILE_K + c * T::ATOMS_K, &tv, kv_full(st), c * T::CW, j * BK, n);
+    }
+  };
+  if (feeder && j_lo < j_hi) {
+    mbar_expect_tx(qdo_full, 2 * T::TILE_Q);
+    for (int c = 0; c < T::NC; ++c) {
+      tma_load(sQ + c * T::ATOMS_Q, &tq, qdo_full, c * T::CW, i * D_BQ, n);
+      tma_load(sDO + c * T::ATOMS_Q, &tdo, qdo_full, c * T::CW, i * D_BQ, n);
+    }
+    for (int f = 0; f < D_STAGES && j_lo + f < j_hi; ++f) feed(j_lo + f, f);
+  }
+
+  // The lse and delta of this thread's two rows; 0 past Lq, where the Q and
+  // dO rows arrive as zeros.
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    lse_r[h] = row < g.lq ? lse[(size_t)n * g.lq + row] : 0.f;
+    delta_r[h] = row < g.lq ? delta[(size_t)n * g.lq + row] : 0.f;
+  }
+
+  float dqa[QR];
+#pragma unroll
+  for (int x = 0; x < QR; ++x) dqa[x] = 0.f;
+  if (j_lo < j_hi) mbar_wait(qdo_full, 0);
+
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int it = j - j_lo, st = it % D_STAGES;
+    const uint32_t kt = sK + st * T::TILE_K, vt = sV + st * T::TILE_K;
+    const int kind = triage<D_BQ, BK>(g, i, j);
+    mbar_wait(kv_full(st), (it / D_STAGES) & 1);
+    // S = Q.K^T, then dP = dO.V^T, this warpgroup's 64 q rows by BK keys,
+    // A (Q, dO) and B (K, V) K-major in shared memory, in two groups, so
+    // that P is taken while dP is still in the tensor cores.
+    float s[SR], dp[SR];
+#pragma unroll
+    for (int x = 0; x < SR; ++x) s[x] = dp[x] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < DM / 16; ++kc) {
+      const uint32_t aq = (kc * 16 / T::CW) * T::ATOMS_Q + (kc * 16 % T::CW) * 2;
+      const uint32_t ak = (kc * 16 / T::CW) * T::ATOMS_K + (kc * 16 % T::CW) * 2;
+      wgmma_ss(s, gmma_desc(q_rows + aq, 16, 8 * T::ROWB, T::SWIZZLE),
+               gmma_desc(kt + ak, 16, 8 * T::ROWB, T::SWIZZLE), 1, int_<0>{}, int_<0>{});
+    }
+    wg_commit();
+#pragma unroll
+    for (int kc = 0; kc < DM / 16; ++kc) {
+      const uint32_t aq = (kc * 16 / T::CW) * T::ATOMS_Q + (kc * 16 % T::CW) * 2;
+      const uint32_t ak = (kc * 16 / T::CW) * T::ATOMS_K + (kc * 16 % T::CW) * 2;
+      wgmma_ss(dp, gmma_desc(do_rows + aq, 16, 8 * T::ROWB, T::SWIZZLE),
+               gmma_desc(vt + ak, 16, 8 * T::ROWB, T::SWIZZLE), 1, int_<0>{}, int_<0>{});
+    }
+    wg_commit();
+
+    // P = exp(scale s - lse), each operation rounded on its own, as the
+    // twin rounds them.  A dead q row has lse = -inf and no valid key, so
+    // its exp is never taken; a full tile has no dead row.
+    wg_wait_all_but_one();
+    reg_fence(s);
+#pragma unroll
+    for (int t = 0; t < BK / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, x = 4 * t + e;
+        const bool ok =
+            kind == 2 || valid(g, row_lo + 8 * h, j * BK + t * 8 + 2 * tc + (e & 1));
+        s[x] = ok ? expf(__fsub_rn(__fmul_rn(s[x], g.scale), lse_r[h])) : 0.f;
+      }
+    wg_wait_all();
+    reg_fence(dp);
+    // dS = P (dP - delta), rounded to bf16 in registers as the A operand
+    // of dQ += dS.K: the accumulator layout of two n8 tiles is the A
+    // layout of one k16 step.
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int x = 8 * kk + 2 * r;  // the pair (x, x + 1): one row, two keys
+        const float dl = delta_r[r & 1];
+        da[kk][r] = pack_bf16(s[x] * (dp[x] - dl), s[x + 1] * (dp[x + 1] - dl));
+      }
+    // dQ += dS.K: K, whose rows are this product's K, is B in MN-major
+    // form.
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(dqa, da[kk],
+               gmma_desc(kt + kk * 16 * T::ROWB, T::ATOMS_K, 8 * T::ROWB, T::SWIZZLE), 1);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(dqa);
+    reg_fence(da);
+    // Every warp is done with this tile's stage, which thread 0 refills.
+    __syncthreads();
+    if (feeder && j + D_STAGES < j_hi) feed(j + D_STAGES, st);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    if (row >= g.lq) continue;
+    const size_t ro = ((size_t)n * g.lq + row) * g.d;
+#pragma unroll
+    for (int t = 0; t < DM / 8; ++t) {
+      const int col = t * 8 + 2 * tc;
+      if (col < g.d)
+        *reinterpret_cast<__nv_bfloat162*>(dq + ro + col) = __floats2bfloat162_rn(
+            g.scale * dqa[4 * t + 2 * h], g.scale * dqa[4 * t + 2 * h + 1]);
     }
   }
 }
@@ -1014,8 +1258,55 @@ extern "C" int mpit_fa_bwd_fused_tc(const bf16* q, const bf16* k, const bf16* v,
     if (err == 0) err = tensor_map(&tdo, dout, n, lq, d, T::CW, B_BQ);
     if (err != 0) return err;
     void* args[] = {&tq, &tk, &tv, &tdo, &lse, &delta, &dk, &dv, &dqp, &g};
-    err = launch(fa_bwd_tc_kernel<DM>, T::SMEM, blocks, B_NT, s, args);
+    err = launch(fa_bwd_tc_kernel<DM>, T::smem(true), blocks, B_NT, s, args);
     if (err != 0) return err;
     return launch_dq_reduce<bf16, B_BQ, B_BK>(dqp, dq, g, s);
+  });
+}
+
+// K6, first kernel: dq, q tiles outer.
+extern "C" int mpit_fa_bwd_dq_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                                 const float* lse, const float* delta, bf16* dq, int n, int lq,
+                                 int lk, int d, int q_offset, int kv_offset, float scale,
+                                 int causal, void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long blocks = (long long)((lq + D_BQ - 1) / D_BQ) * n;
+  return by_width(d, [&](auto dm) {
+    constexpr int DM = decltype(dm)::value;
+    using T = DqTiles<DM>;
+    CUtensorMap tq, tk, tv, tdo;
+    int err = tensor_map(&tq, q, n, lq, d, T::CW, D_BQ);
+    if (err == 0) err = tensor_map(&tk, k, n, lk, d, T::CW, T::BK);
+    if (err == 0) err = tensor_map(&tv, v, n, lk, d, T::CW, T::BK);
+    if (err == 0) err = tensor_map(&tdo, dout, n, lq, d, T::CW, D_BQ);
+    if (err != 0) return err;
+    void* args[] = {&tq, &tk, &tv, &tdo, &lse, &delta, &dq, &g};
+    return launch(fa_bwd_dq_tc_kernel<DM>, T::SMEM, blocks, B_NT, s, args);
+  });
+}
+
+// K6, second kernel: dk and dv, key tiles outer.
+extern "C" int mpit_fa_bwd_dkdv_tc(const bf16* q, const bf16* k, const bf16* v,
+                                   const bf16* dout, const float* lse, const float* delta,
+                                   bf16* dk, bf16* dv, int n, int lq, int lk, int d,
+                                   int q_offset, int kv_offset, float scale, int causal,
+                                   void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long blocks = (long long)((lk + B_BK - 1) / B_BK) * n;
+  return by_width(d, [&](auto dm) {
+    constexpr int DM = decltype(dm)::value;
+    using T = BwdTiles<DM>;
+    CUtensorMap tq, tk, tv, tdo;
+    int err = tensor_map(&tq, q, n, lq, d, T::CW, B_BQ);
+    if (err == 0) err = tensor_map(&tk, k, n, lk, d, T::CW, B_BK);
+    if (err == 0) err = tensor_map(&tv, v, n, lk, d, T::CW, B_BK);
+    if (err == 0) err = tensor_map(&tdo, dout, n, lq, d, T::CW, B_BQ);
+    if (err != 0) return err;
+    void* args[] = {&tq, &tk, &tv, &tdo, &lse, &delta, &dk, &dv, &g};
+    return launch(fa_bwd_dkdv_tc_kernel<DM>, T::smem(false), blocks, B_NT, s, args);
   });
 }

@@ -1,7 +1,7 @@
-// What the flash-attention kernels of flash_attention.cu (float32 and the
-// scalar K6) and flash_attention_tc.cu (bfloat16 K4 and K5 on the tensor
-// cores) share: the call's geometry, the one copy of the masking rule, and
-// K5's deterministic dQ reduction.
+// What the flash-attention kernels of flash_attention.cu (float32, on
+// scalar FMAs) and flash_attention_tc.cu (bfloat16 K4, K5 and K6 on the
+// tensor cores) share: the call's geometry, the one copy of the masking
+// rule, and K5's deterministic dQ reduction.
 #pragma once
 
 #include <cuda_bf16.h>

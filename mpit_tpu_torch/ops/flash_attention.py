@@ -16,9 +16,9 @@ sequence, as ring attention needs):
 
 The kernels are CUDA C++ for Hopper, built by
 :mod:`mpit_tpu_torch.ops.build` on first use; each source's comments say
-what bounds its kernels and how they are tiled.  bfloat16 K4 and K5 run on
-the tensor cores (``csrc/flash_attention_tc.cu``); float32 K4 and K5, and
-K6 in both types, on scalar float32 FMAs (``csrc/flash_attention.cu``).
+what bounds its kernels and how they are tiled.  bfloat16 K4, K5 and K6
+run on the tensor cores (``csrc/flash_attention_tc.cu``); float32 K4, K5
+and K6 on scalar float32 FMAs (``csrc/flash_attention.cu``).
 Where the tensors lie fixes the route: CUDA tensors always go through a
 kernel, CPU tensors always through the plain twins
 (:func:`block_attention_partial` for K4, :func:`attention_bwd_reference`
@@ -31,7 +31,8 @@ else.
 The kernels take ``D`` a multiple of 8 up to 128, float32 or bfloat16,
 contiguous, and for bfloat16 starting at a 16-byte aligned address.  The
 scalar kernels' tiles are 64 x 64 (:data:`BLOCK_Q`, :data:`BLOCK_K`); the
-tensor-core K5 takes 128 keys a block (:data:`BLOCK_K_TC`).
+tensor-core K5 takes 128 keys a block (:data:`BLOCK_K_TC`), which sets the
+size of its dQ partials.
 The Mosaic levers of the JAX module (``MPIT_FA_VMEM_MB``, ``_DIMSEM``,
 ``_LONG_BQ``, ``_LONG_BK_BWD``) have no counterpart; the schedule choice
 (``MPIT_FA_FUSED_BWD``, ``MPIT_FA_FUSED_BWD_MAX_MB``) is kept, with the
@@ -53,8 +54,8 @@ from mpit_tpu_torch.ops.fused_update import _cuda_stream
 NEG_INF = float("-inf")
 
 # The scalar kernels' tiles (csrc/flash_attention.cu: BQ, BK), which the
-# float32 route and K6 use, and the key tile of the bfloat16 K5 on the
-# tensor cores (csrc/flash_attention_tc.cu: B_BK; checked when its library
+# float32 route uses, and the key tile of the bfloat16 K5 on the tensor
+# cores (csrc/flash_attention_tc.cu: B_BK; checked when its library
 # loads).
 BLOCK_Q = 64
 BLOCK_K = 64
@@ -283,7 +284,7 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The scalar kernels: K4 and K5 in float32, K6 in both types."""
+    """The scalar kernels: K4, K5 and K6 in float32."""
     from mpit_tpu_torch.ops import build  # nvcc runs on first use only
 
     lib = build.load("flash_attention")
@@ -292,8 +293,8 @@ def _lib() -> ctypes.CDLL:
     for fn, argtypes in (
         (lib.mpit_fa_fwd, [ptr] * 8 + geo + [i32, ptr]),
         (lib.mpit_fa_bwd_fused, [ptr] * 10 + geo + [ptr]),
-        (lib.mpit_fa_bwd_dq, [ptr] * 7 + [i32] + geo + [ptr]),
-        (lib.mpit_fa_bwd_dkdv, [ptr] * 8 + [i32] + geo + [ptr]),
+        (lib.mpit_fa_bwd_dq, [ptr] * 7 + geo + [ptr]),
+        (lib.mpit_fa_bwd_dkdv, [ptr] * 8 + geo + [ptr]),
     ):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -302,7 +303,7 @@ def _lib() -> ctypes.CDLL:
 
 @functools.cache
 def _lib_tc() -> ctypes.CDLL:
-    """The tensor-core kernels: K4 and K5 in bfloat16."""
+    """The tensor-core kernels: K4, K5 and K6 in bfloat16."""
     from mpit_tpu_torch.ops import build
 
     lib = build.load("flash_attention_tc")
@@ -311,6 +312,8 @@ def _lib_tc() -> ctypes.CDLL:
     for fn, argtypes in (
         (lib.mpit_fa_fwd_tc, [ptr] * 8 + geo + [i32, ptr]),
         (lib.mpit_fa_bwd_fused_tc, [ptr] * 10 + geo + [ptr]),
+        (lib.mpit_fa_bwd_dq_tc, [ptr] * 7 + geo + [ptr]),
+        (lib.mpit_fa_bwd_dkdv_tc, [ptr] * 8 + geo + [ptr]),
         (lib.mpit_fa_bwd_tc_block_k, []),
     ):
         fn.argtypes = argtypes
@@ -423,8 +426,9 @@ flash_bwd_fused.launches = 0
 def flash_bwd_two_kernel(q, k, v, do, lse, delta, *, causal: bool = False,
                          sm_scale: Optional[float] = None, q_offset: int = 0,
                          kv_offset: int = 0):
-    """K6: dQ with q tiles outer, then dK and dV with key tiles outer; no
-    transient beyond the outputs.  Each of its two launches adds one to
+    """K6: dQ with q tiles outer, then dK and dV with key tiles outer, bfloat16
+    on the tensor cores and float32 on the scalar kernels; no transient
+    beyond the outputs.  Each of its two launches adds one to
     ``flash_bwd_two_kernel.launches``."""
     lead, lq, lk, d, q_offset, kv_offset = _bwd_operands(
         q, k, v, do, lse, delta, q_offset, kv_offset)
@@ -434,14 +438,20 @@ def flash_bwd_two_kernel(q, k, v, do, lse, delta, *, causal: bool = False,
                                        sm_scale=scale, q_offset=q_offset,
                                        kv_offset=kv_offset)
     stream = _cuda_stream(q)
-    geo = (int(q.dtype == torch.bfloat16), math.prod(lead), lq, lk, d, q_offset,
-           kv_offset, scale, int(bool(causal)), stream)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v, do=do)
+        lib = _lib_tc()
+        bwd_dq, bwd_dkdv = lib.mpit_fa_bwd_dq_tc, lib.mpit_fa_bwd_dkdv_tc
+    else:
+        bwd_dq, bwd_dkdv = _lib().mpit_fa_bwd_dq, _lib().mpit_fa_bwd_dkdv
+    geo = (math.prod(lead), lq, lk, d, q_offset, kv_offset, scale, int(bool(causal)),
+           stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr())
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _raise_on(_lib().mpit_fa_bwd_dq(*ins, dq.data_ptr(), *geo), "flash_bwd_two_kernel (dq)")
+    _raise_on(bwd_dq(*ins, dq.data_ptr(), *geo), "flash_bwd_two_kernel (dq)")
     flash_bwd_two_kernel.launches += 1
-    _raise_on(_lib().mpit_fa_bwd_dkdv(*ins, dk.data_ptr(), dv.data_ptr(), *geo),
+    _raise_on(bwd_dkdv(*ins, dk.data_ptr(), dv.data_ptr(), *geo),
               "flash_bwd_two_kernel (dkdv)")
     flash_bwd_two_kernel.launches += 1
     return dq, dk, dv

@@ -72,9 +72,12 @@ LM_LAUNCH_DEFAULTS = Config(
 )
 
 # The widths of the JAX package's long-context showcase
-# (benchmarks/longcontext.py, its first length).
+# (benchmarks/longcontext.py, its first length), and at its third length,
+# where bfloat16 attention's backward runs K6 on the card (K5's dQ
+# partials would take 32 GiB).
 LONGCONTEXT_KWARGS = dict(seq_len=8192, d_model=1024, n_heads=8, n_layers=4,
                           batch=1)
+LONGCONTEXT_32K_KWARGS = dict(LONGCONTEXT_KWARGS, seq_len=32768)
 
 
 _SYNTH_CACHE: dict = {}

@@ -29,17 +29,18 @@ the twin's row norm plus atol sqrt(D), each element within 2**-7 of
 itself plus 2**-5 of its row's rms plus atol.  A lost tile moves a row
 by far more than 2**-6 of it.
 
-bfloat16 K4 and K5 run on the tensor cores (csrc/flash_attention_tc.cu),
-so their tiles get checks of their own, tighter than the row rule, on
-inputs where kernel and twin round the same values: multiples of 1/16 in
-[-2, 2] (``_exact``), whose scores and dP are exact in float32 in any
-summation order (on random inputs a score an ulp apart rounds P to the
-neighbouring bf16 value now and then).  K5 rounds P and dS from the same
-lse as its twin: every element of dq, dk and dv lies within one bf16 step,
-2**-7 of the twin's value plus atol.  K4 where every key fits one of its
-128-key tiles rounds P with the final row max, as the twin does: o and
-acc / l lie within one step there too.  K5 gives the same bits twice, and
-the bfloat16 kernels refuse an operand that does not start on 16 bytes.
+bfloat16 K4, K5 and K6 run on the tensor cores
+(csrc/flash_attention_tc.cu), so their tiles get checks of their own,
+tighter than the row rule, on inputs where kernel and twin round the same
+values: multiples of 1/16 in [-2, 2] (``_exact``), whose scores and dP are
+exact in float32 in any summation order (on random inputs a score an ulp
+apart rounds P to the neighbouring bf16 value now and then).  K5 and K6
+round P and dS from the same lse as their twin: every element of dq, dk
+and dv lies within one bf16 step, 2**-7 of the twin's value plus atol.
+K4 where every key fits one of its 128-key tiles rounds P with the final
+row max, as the twin does: o and acc / l lie within one step there too.
+K5 and K6 give the same bits twice, and the bfloat16 kernels refuse an
+operand that does not start on 16 bytes.
 """
 
 import importlib
@@ -316,9 +317,9 @@ def _exact(*tensors):
                  for t in tensors)
 
 
-@pytest.mark.parametrize("case", range(len(FA_CASES)))
-@pytest.mark.parametrize("d", [8, 32, 64, 128])
-def test_k5_bf16_within_one_step_and_deterministic(dev, case, d):
+def _bwd_within_one_step_and_deterministic(bwd, dev, case, d):
+    """bf16 ``bwd`` (K5 or K6) on exact inputs: twice the same bits, and
+    every element of dq, dk and dv within one bf16 step of the twin."""
     lead, lq, lk, q_off, kv_off, causal = FA_CASES[case]
     q, k, v, do = _exact(*_fa_inputs(dev, lead, lq, lk, d, torch.float32, 300 * case + d))
     kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
@@ -326,13 +327,42 @@ def test_k5_bf16_within_one_step_and_deterministic(dev, case, d):
     lse = m_t + torch.log(torch.where(l_t == 0, 1.0, l_t))
     delta = (do.float() * finalize_partials(acc_t, l_t, q.dtype).float()).sum(-1)
     want = attention_bwd_reference(q, k, v, do, lse, delta, **kw)
-    got = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
-    again = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    got = bwd(q, k, v, do, lse, delta, **kw)
+    again = bwd(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     atol = 3e-4 if (q_off or kv_off) else 3e-5
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         _assert_close(a, w, atol, rtol=BF16_STEP)
+
+
+@pytest.mark.parametrize("case", range(len(FA_CASES)))
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+def test_k5_bf16_within_one_step_and_deterministic(dev, case, d):
+    _bwd_within_one_step_and_deterministic(flash_bwd_fused, dev, case, d)
+
+
+@pytest.mark.parametrize("case", range(len(FA_CASES)))
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+def test_k6_bf16_within_one_step_and_deterministic(dev, case, d):
+    _bwd_within_one_step_and_deterministic(flash_bwd_two_kernel, dev, case, d)
+
+
+@pytest.mark.parametrize("lead,seq", [((8, 8), 1024), ((1, 2), 4096)])
+def test_k6_bf16_agrees_with_k5_at_lm_shapes(dev, lead, seq):
+    """bf16 K6 and K5 on the same causal inputs at D 128 and D 32 (the
+    LM's head widths), held to each other by the bf16 row rule: they sum
+    dQ in another order (K5 over per-key-tile partials, K6 in one
+    accumulator)."""
+    for d in (32, 128):
+        q, k, v, do = _fa_inputs(dev, lead, seq, seq, d, torch.bfloat16, seq + d)
+        o, lse = flash_fwd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1)
+        got6 = flash_bwd_two_kernel(q, k, v, do, lse, delta, causal=True)
+        got5 = flash_bwd_fused(q, k, v, do, lse, delta, causal=True)
+        torch.cuda.synchronize()
+        for a6, a5 in zip(got6, got5):
+            _assert_close(a6, a5, 3e-5, rows=True)
 
 
 # Lk within one 128-key tile of the bfloat16 forward: (leading axes, Lq, Lk,
@@ -372,10 +402,12 @@ def test_bf16_kernels_refuse_unaligned_operands(dev, which):
     ops["lse"] = ops["delta"] = torch.zeros(2, 64, device=dev)
     buf = torch.empty(ops[which].numel() + 8, dtype=ops[which].dtype, device=dev)
     ops[which] = buf[1:1 + ops[which].numel()].view_as(ops[which]).copy_(ops[which])
-    before = (flash_fwd.launches, flash_bwd_fused.launches)
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_bwd_fused(*(ops[x] for x in ("q", "k", "v", "do", "lse", "delta")))
+    kernels = (flash_fwd, flash_bwd_fused, flash_bwd_two_kernel)
+    before = [f.launches for f in kernels]
+    for bwd in (flash_bwd_fused, flash_bwd_two_kernel):
+        with pytest.raises(ValueError, match="16-byte"):
+            bwd(*(ops[x] for x in ("q", "k", "v", "do", "lse", "delta")))
     if which in ("q", "k", "v"):
         with pytest.raises(ValueError, match="16-byte"):
             flash_fwd(ops["q"], ops["k"], ops["v"])
-    assert (flash_fwd.launches, flash_bwd_fused.launches) == before
+    assert [f.launches for f in kernels] == before

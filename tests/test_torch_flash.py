@@ -303,3 +303,67 @@ def test_refuses_what_the_kernels_do_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         flash_attention(q, k, v)
 
+
+
+# The card's memory as torch reports it for an NVIDIA H100 80GB HBM3
+# (total_memory 85,520,809,984 bytes), in MiB.
+H100_MB = 81559.0
+
+
+@pytest.mark.parametrize("seq_len,fused", [(8192, True), (16384, True), (32768, False)])
+def test_gate_sends_the_32k_lm_to_k6_on_an_h100(monkeypatch, seq_len, fused):
+    """The long-context LM's attention (batch 1 x 8 heads of 128, bf16) on
+    an 80 GB card: K5's dQ partials, 8 x L/128 x L x 128 x 4 B = 32 L^2
+    bytes, take 2 GiB at 8k and 8 GiB at 16k, within a quarter of the card
+    (19.9 GiB), and 32 GiB at 32k, past it: the gate alone sends the 32k
+    LM (lm_launch.LONGCONTEXT_32K_KWARGS) to K6."""
+    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_32K_KWARGS, LONGCONTEXT_KWARGS
+
+    monkeypatch.delenv("MPIT_FA_FUSED_BWD", raising=False)
+    monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB", raising=False)
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    monkeypatch.setattr(fa, "_card_mb", lambda device: H100_MB)
+    widths = (LONGCONTEXT_32K_KWARGS if seq_len == 32768
+              else dict(LONGCONTEXT_KWARGS, seq_len=seq_len))
+    assert widths["seq_len"] == seq_len
+    head = widths["d_model"] // widths["n_heads"]
+    shape = (widths["batch"], widths["n_heads"], seq_len, head)
+    assert _use_fused_bwd(shape, shape, head, torch.device("cuda"), torch.bfloat16) is fused
+
+
+def _exact_bf16(a):
+    """A float32 array rounded to a multiple of 1/16 in [-2, 2]: bf16 values
+    whose products and their sums are exact in float32 in any order."""
+    return np.clip(np.round(a * 16) / 16, -2, 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("schedule", ["0"], indirect=True, ids=["two-kernel-bwd"])
+@pytest.mark.parametrize("offsets", [(26, 13), (5, 13)])
+def test_backward_pair_bf16_matches_jax_two_kernel(schedule, offsets):
+    """bf16 inputs through K6's plain twin (flash_bwd_two_kernel on CPU
+    tensors) against the JAX package's two-kernel schedule
+    (``_fa_2d_bwd(fused=False)``, its Pallas kernels in interpret mode) on
+    the ring's ragged, offset pair, dead rows under offset (5, 13), from
+    the same lse and delta.  Inputs are multiples of 1/16, so scores and dP
+    are exact in float32 on both sides and both round the same P and dS to
+    bf16 before their products: each grad lies within one bf16 step of the
+    JAX kernel's, 2**-7 of itself, plus the pair's atol for the float32
+    sums' order."""
+    q_off, kv_off = offsets
+    q, k, v = (_exact_bf16(a) for a in _qkv(41, (2, 19, 16), k_len=13))
+    do = _exact_bf16(np.random.default_rng(43).normal(size=q.shape))
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, do))
+    kw = dict(causal=True, q_offset=q_off, kv_offset=kv_off)
+    _, m, l = jax_partial(jq, jk, jv, block_q=8, block_k=128, **kw)
+    lse = np.asarray(jax_lse_of(m, l))
+    o = np.asarray(jax_fa(jq, jk, jv, block_q=8, block_k=128, **kw).astype(jnp.float32))
+    delta = (do * o).sum(-1).astype(np.float32)
+    want = jax_bwd_pair(jq, jk, jv, jdo, jnp.asarray(lse), delta=jnp.asarray(delta),
+                        block_q=8, block_k=128, **kw)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    got = flash_bwd_two_kernel(tq, tk, tv, tdo, *_t(lse, delta), **kw)
+    assert np.isneginf(lse).any() == (q_off < kv_off)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        exp = np.asarray(b.astype(jnp.float32))
+        np.testing.assert_allclose(a.float().numpy(), exp, atol=PAIR_ATOL, rtol=2.0**-7)

@@ -6,9 +6,10 @@ Two modes, each through its entry point under the entry point's own
 
 - MNIST EASGD (default): ``mesh_launch.run`` at ``FLAGSHIP_BENCH_KWARGS``
   with ``--dp`` worker rows; the trace's ``epoch N`` ranges;
-- the LM (``--lm default`` or ``--lm longcontext``): ``lm_launch.run`` at
-  ``LM_LAUNCH_DEFAULTS`` or at the long-context widths, one step per log
-  window; the trace's ``window N`` ranges.
+- the LM (``--lm default``, ``--lm longcontext`` or ``--lm
+  longcontext_32k``): ``lm_launch.run`` at ``LM_LAUNCH_DEFAULTS`` or at the
+  long-context widths at context 8,192 or 32,768, one step per log window;
+  the trace's ``window N`` ranges.
 
 The first range is left out.  Each range ends when its losses reach the
 host, so its device work lies inside it.  Over the later ranges it
@@ -22,14 +23,16 @@ reports:
 - each group's launches, device time per step and share of device time:
   K1 (``nesterov_commit``), K4 (``fa_fwd``), K5 (``fa_bwd_fused`` or
   ``fa_bwd_tc``, with its dQ reduction ``dq_reduce``), K6
-  (``fa_bwd_dq`` + ``fa_bwd_dkdv``), the matrix products (cuBLAS), the
-  copies (layout transposes and casts among them) and the rest.
+  (``fa_bwd_dq`` + ``fa_bwd_dkdv``, and their ``_tc`` kernels), the matrix
+  products (cuBLAS), the copies (layout transposes and casts among them)
+  and the rest; for the LM also the peak of allocated device memory.
 
 Writes the Chrome trace to ``--out``/<mode>/trace.json and the summary to
 ``--out``/step_profile_<mode>.json.  Needs a CUDA card:
 
     python3 tools/torch_step_profile.py --dp 1 --epochs 6
     python3 tools/torch_step_profile.py --lm longcontext --steps 8
+    python3 tools/torch_step_profile.py --lm longcontext_32k --steps 5
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import sys
 from collections import defaultdict
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+import torch  # noqa: E402
 
 from mpit_tpu_torch.train import lm_launch  # noqa: E402
 from mpit_tpu_torch.train.mesh_launch import (  # noqa: E402
@@ -117,7 +122,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--epochs", type=int, default=6)
-    ap.add_argument("--lm", choices=("", "default", "longcontext"), default="")
+    ap.add_argument("--lm", choices=("", "default", "longcontext", "longcontext_32k"),
+                    default="")
     ap.add_argument("--steps", type=int, default=8, help="LM steps (--lm)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--side", type=int, default=FLAGSHIP_BENCH_KWARGS["side"])
@@ -126,17 +132,22 @@ def main() -> int:
     out = pathlib.Path(args.out)
     if args.lm:
         mode = f"lm_{args.lm}"
-        widths = lm_launch.LONGCONTEXT_KWARGS if args.lm == "longcontext" else {}
+        widths = {"default": {}, "longcontext": lm_launch.LONGCONTEXT_KWARGS,
+                  "longcontext_32k": lm_launch.LONGCONTEXT_32K_KWARGS}[args.lm]
         if args.device == "cpu":  # a dry run of the tool at toy widths
             widths = dict(seq_len=64, d_model=32, n_heads=4, n_layers=1, batch=2,
                           attn_dtype="float32")
         cfg = lm_launch.LM_LAUNCH_DEFAULTS.merged(
             widths, steps=args.steps, log_every=1, device=args.device,
             profile_dir=str(out / mode))
+        if args.device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
         res = lm_launch.run(cfg)
         trace = json.loads((out / mode / "trace.json").read_text())
+        peak = (torch.cuda.max_memory_allocated() / 1e9 if args.device != "cpu"
+                else None)
         summary = {"device": res["device_name"], "mode": mode,
-                   "tokens_per_sec": res["tokens_per_sec"],
+                   "tokens_per_sec": res["tokens_per_sec"], "peak_mem_gb": peak,
                    **summarize(trace, 1, prefix="window ")}
     else:
         mode = f"dp{args.dp}"
