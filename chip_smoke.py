@@ -7,10 +7,12 @@ order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel of the path, from the sources in this checkout;
 3. kernels: each kernel against its plain PyTorch twin at the shapes each
-   path below gives it (each must be bit-equal), then timed with CUDA
-   events beside the twin and the bytes bound: K1 (msgd commit), K2
-   (elastic force + retract), K3 (Adam), and the server's per-GRAD apply
-   around K3;
+   path below gives it (each must be bit-equal; K1 and K3 also at the
+   edges of their sweep and replayed from a CUDA graph, and ptxas must
+   report no spill), then timed with CUDA events beside the twin, the
+   per-launch floor and the bytes bound, cold and L2-warm: K1 (msgd
+   commit), K2 (elastic force + retract), K3 (Adam), and the server's
+   per-GRAD apply around K3;
 4. the headline path: ``mesh_launch.run`` at the flagship configuration
    (CNN side 32, 544,522 parameters, EASGD, dp=1) for two epochs with the
    steady-state throughput leg; then three EASGD steps at dp=4 on the card
@@ -63,6 +65,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -219,21 +222,53 @@ def n_sets(set_bytes):
     return max(2, math.ceil(2 * L2_BYTES / set_bytes))
 
 
+def launch_floor_ms(torch) -> float:
+    """The fixed cost of one launch on the device: ``torch.cuda._sleep(1)``
+    queued behind a hold, as the kernels are timed."""
+    return time_ms(torch, lambda: torch.cuda._sleep(1), queued=True)
+
+
 def timed_entry(torch, kernel, plain, sets, n_bytes, n_ops, plain_kernels):
     """Times of ``kernel`` and ``plain`` (which launches ``plain_kernels``
-    PyTorch kernels a call) over rotating buffer ``sets``, and the bound
-    of the work: ``n_bytes`` moved at the HBM rate or ``n_ops`` f32
-    operations at the peak rate, whichever is longer."""
+    PyTorch kernels a call) over rotating buffer ``sets`` (``ms``: device
+    time, every launch finding its operands in device memory), of
+    ``kernel`` on the first set alone (``warm_ms``: operands in the L2, as
+    an MNIST step's 2.18 MB vectors can find theirs), the per-launch
+    floor, and the bound of the work: ``n_bytes`` moved at the HBM rate or
+    ``n_ops`` f32 operations at the peak rate, whichever is longer."""
+    warm = functools.partial(kernel, *sets[0])
     kernel, plain = rotating(kernel, sets), rotating(plain, sets)
     bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOPS * 1e3
     return {
         "ms": time_ms(torch, kernel, queued=True),
+        "warm_ms": time_ms(torch, warm, queued=True),
+        "floor_ms": launch_floor_ms(torch),
         "call_ms": time_ms(torch, kernel),
         "plain_ms": time_ms(torch, plain, queued=True, kernels_per_call=plain_kernels),
         "plain_call_ms": time_ms(torch, plain),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+
+
+def offset_copy(torch, t, offset):
+    """A copy of ``t`` that starts ``offset`` floats into a buffer of its own
+    (``offset % 4 != 0``: not on 16 bytes)."""
+    buf = torch.empty(offset + t.numel(), device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+# The edges of K1's and K3's sweep (csrc/fused_update.cu), each (rows, n,
+# offsets of the operands within their buffers): lengths below, at and
+# past one 16-byte chunk (the scalar path alone, then a scalar tail); an
+# odd length and views 1-3 floats into their buffers at the main path's
+# size (a scalar head and tail around the chunks); operands at different
+# offsets (no common chunk grid: the scalar path alone); rows whose
+# boundaries fall inside a chunk.  rows 0: the 1-D form.
+def sweep_edges(n_mesh):
+    return ((0, 1, 0), (0, 3, 0), (0, 4, 0), (0, 5, 0), (0, 17, 0),
+            (1, n_mesh + 1, 1), (1, n_mesh, 3), (4, n_mesh, 2),
+            (1, n_mesh, (0, 1, 2, 3)), (3, 1025, 0), (0, n_mesh + 3, 0))
 
 
 def check_k1(torch, n_mesh, n_msgd):
@@ -288,6 +323,22 @@ def check_k1(torch, n_mesh, n_msgd):
             rows_out.append({"rows": rows, "form": form, "n": n, "sug": retract,
                              **times})
             del sets
+    # The sweep's edges, in every variant: bit-equal to the twin.
+    for rows, n, offsets in sweep_edges(n_mesh):
+        offsets = offsets if isinstance(offsets, tuple) else (offsets,) * 4
+        shape = (n,) if rows == 0 else (rows, n)
+        w, vt, g, sug = (offset_copy(torch, torch.randn(shape, device=dev, generator=gen), o)
+                         for o in offsets)
+        clr = (torch.tensor(0.02, device=dev) if rows == 0
+               else torch.linspace(0.01, 0.04, rows, device=dev))
+        for l2wd, s in ((0.0, None), (1e-4, None), (0.0, sug), (1e-4, sug)):
+            want_w, want_vt = fused_nesterov_commit_reference(w, vt, g, clr, l2wd=l2wd, sug=s)
+            kw, kvt = offset_copy(torch, w, offsets[0]), offset_copy(torch, vt, offsets[1])
+            fused_nesterov_commit(kw, kvt, g, clr, l2wd=l2wd, sug=s)
+            torch.cuda.synchronize()
+            if not (torch.equal(kw, want_w) and torch.equal(kvt, want_vt)):
+                raise AssertionError(f"K1 differs from its twin: shape={shape} "
+                                     f"offsets={offsets} sug={s is not None} l2wd={l2wd}")
     print("K1 shapes: " + json.dumps(rows_out))
     main_row = rows_out[0]
     return {
@@ -299,6 +350,9 @@ def check_k1(torch, n_mesh, n_msgd):
         "paths": {},  # launches and steps of every driven path
         "max_abs_err": max_err,
         "ms": main_row["ms"],
+        "warm_ms": main_row["warm_ms"],
+        "call_ms": main_row["call_ms"],
+        "floor_ms": main_row["floor_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
@@ -362,19 +416,24 @@ def check_k3(torch, n_shard, n_full):
     lr_t = torch.tensor(1e-3 * math.sqrt(1 - 0.999) / (1 - 0.9), device=dev)
     max_err = 0.0
     rows = []
-    for n in (n_shard, n_full, n_shard + 2):
-        p, g, m, v = (torch.randn(n, device=dev, generator=gen) for _ in range(4))
+    # The two path lengths (timed), then the sweep's edges.
+    edges = [(n, (o,) * 4 if isinstance(o, int) else o)
+             for r, n, o in sweep_edges(n_full) if r <= 1]
+    for n, offsets in [(n_shard, (0,) * 4), (n_full, (0,) * 4),
+                       (n_shard + 2, (0,) * 4), (4 * n_full, (0,) * 4), *edges]:
+        p, g, m, v = (offset_copy(torch, torch.randn(n, device=dev, generator=gen), o)
+                      for o in offsets)
         v.abs_()
         want = fused_adam_reference(p, g, m, v, lr_t)
-        kp, km, kv = p.clone(), m.clone(), v.clone()
+        kp, km, kv = (offset_copy(torch, x, offsets[i]) for i, x in ((0, p), (2, m), (3, v)))
         fused_adam(kp, g, km, kv, lr_t)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip((kp, km, kv), want))
         max_err = max(max_err, err)
         if not all(torch.equal(a, b) for a, b in zip((kp, km, kv), want)):
-            raise AssertionError(f"K3 differs from its twin at n={n}: "
+            raise AssertionError(f"K3 differs from its twin at n={n} offsets={offsets}: "
                                  f"max_abs_err={err}")
-        if n == n_shard + 2:
+        if n not in (n_shard, n_full) or offsets != (0,) * 4:
             continue
         sets = [tuple(x.clone() for x in (p, g, m, v)) for _ in range(n_sets(16 * n))]
         times = timed_entry(
@@ -405,12 +464,59 @@ def check_k3(torch, n_shard, n_full):
         "source": "mpit_tpu_torch/ops/csrc/fused_update.cu",
         "replaces": "mpit_tpu/ops/fused_update.py:157",
         "launches": None, "paths": {}, "max_abs_err": max_err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "ms": main_row["ms"], "warm_ms": main_row["warm_ms"],
+        "call_ms": main_row["call_ms"], "floor_ms": main_row["floor_ms"],
+        "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         # torch.optim's fused Adam places eps after dividing sqrt(v) by
         # sqrt(1 - beta2^t) and corrects the bias itself: another function.
         "library_ms": None,
     }
+
+
+def check_graph_replay(torch, n_mesh, n_shard):
+    """K1 (the headline's commit with the retract and l2wd, and dp=4's four
+    rows) and K3 (a server's shard) captured once in a CUDA graph and
+    replayed three times, lr_t rewritten on the card before each replay:
+    bit-equal to three eager launches.  A host sync or an allocation on
+    the card in the call path would break the capture."""
+    from mpit_tpu_torch.ops.fused_update import fused_adam, fused_nesterov_commit
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w1, vt1, g1, sug1 = (torch.randn(1, n_mesh, device=dev, generator=gen) for _ in range(4))
+    w4, vt4, g4 = (torch.randn(4, n_mesh, device=dev, generator=gen) for _ in range(3))
+    p, g, m, v = (torch.randn(n_shard, device=dev, generator=gen) for _ in range(4))
+    v.abs_()
+    clr1 = torch.tensor([0.01], device=dev)
+    clr4 = torch.tensor([0.01, 0.02, 0.03, 0.04], device=dev)
+    lr_t = torch.empty((), device=dev)
+    lrs = (1e-3, 2e-3, 5e-4)
+
+    def step(st):
+        fused_nesterov_commit(st[0], st[1], g1, clr1, l2wd=1e-4, sug=sug1)
+        fused_nesterov_commit(st[2], st[3], g4, clr4)
+        fused_adam(st[4], g, st[5], st[6], lr_t)
+
+    state = (w1, vt1, w4, vt4, p, m, v)
+    eager = [x.clone() for x in state]
+    for lr in lrs:
+        lr_t.fill_(lr)
+        step(eager)
+    graphed = [x.clone() for x in state]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(graphed)
+    for lr in lrs:
+        lr_t.fill_(lr)
+        graph.replay()
+    torch.cuda.synchronize()
+    names = ("w1", "vt1", "w4", "vt4", "p", "m", "v")
+    bad = [nm for nm, a, b in zip(names, graphed, eager) if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"K1/K3 replayed from a CUDA graph differ from eager: {bad}")
+    print("K1/K3 CUDA graph replay: 3 replays bit-equal to eager")
 
 
 def headline(torch, commit):
@@ -1265,6 +1371,13 @@ def main() -> int:
     if bad:
         raise AssertionError(f"ptxas spilled or serialized wgmma in: {bad}")
 
+    # K1-K3 keep every value in registers: no spill.
+    ptxas_fu = build.ptxas_report("fused_update")
+    print("ptxas, fused updates: " + json.dumps(ptxas_fu))
+    bad = {k: r for k, r in ptxas_fu.items() if r["spill_bytes"]}
+    if bad:
+        raise AssertionError(f"ptxas spilled in: {bad}")
+
     mesh_cfg = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS)
     n_mesh = flatten_module(make_model(mesh_cfg.model, mesh_cfg.side), 1).size
     n_msgd = flatten_module(make_model(TRAINER_DEFAULTS.model, TRAINER_DEFAULTS.side), 1).size
@@ -1274,6 +1387,7 @@ def main() -> int:
     # remainder) and the whole vector under adam-single.
     k2 = check_k2(torch, n_mesh)
     k3 = check_k3(torch, n_mesh // 2, n_mesh)
+    check_graph_replay(torch, n_mesh, n_mesh // 2)
     paths = k1["paths"]
     paths["headline"] = headline(torch, fused_nesterov_commit)
     paths["easgd_dp4"] = easgd_dp4(torch, fused_nesterov_commit)

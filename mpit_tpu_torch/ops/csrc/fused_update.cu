@@ -1,8 +1,53 @@
-// K1: fused Nesterov commit (msgd phase 2), row-batched, in place.
+// The fused parameter updates of mpit_tpu/ops/fused_update.py, on flat f32
+// vectors, in place: K1 (Nesterov commit), K2 (elastic force + retract)
+// and K3 (Adam).  Each is bound by bytes on Hopper: a few operations for
+// every 4-byte element read or written, far below the card's ~20 flops a
+// byte in f32.  Every operation is rounded on its own (__fmul_rn,
+// __fadd_rn, ...; the build also passes -fmad=false), in the reference's
+// order, so each kernel is bit-equal to its plain PyTorch twin.
 //
-// Replaces the Pallas kernel `_nesterov_kernel` of
-// mpit_tpu/ops/fused_update.py (function `fused_nesterov_commit`).  For
-// every element of `n_rows` rows of `n` floats:
+// K1 and K3: one sweep (`sweep_kernel`), shaped by what bounds them at the
+// main path's sizes (0.27-2.2 M elements, 3-15 us at the HBM rate): the
+// fixed cost of a launch and of the first round trip to memory is as large
+// as the stream.  So every byte is requested at once and each warp goes on
+// as soon as its own bytes land:
+//
+// - One 16-byte chunk of each operand a thread, neighbouring threads on
+//   neighbouring chunks, loads issued before any arithmetic; up to 16
+//   blocks of 256 threads an SM (the SM count read once from the device and
+//   cached), a grid-stride loop beyond that.
+// - Loads and stores carry the evict-first hint (ld/st.global.cs): a call
+//   touches each line once, and the L2 it leaves full of its own dirty
+//   lines is what the next call has to evict.
+// - The same per-element functions (commit_one, adam_one) serve the chunks
+//   and the scalar path.  K1 reads clr[0] once when there is one row; with
+//   several it finds a chunk's row, and the next boundary, once a chunk.
+//   K3 reads lr_t once a thread.
+// - Edges: when every operand sits at the same offset within 16 bytes, the
+//   elements before the first 16-byte boundary (a view one float into its
+//   buffer) and the last ones past the final whole chunk go through a
+//   scalar path of the same launch; when the offsets differ, or the
+//   vectors hold less than a chunk, every element does.
+//
+// A design that brought each block's slice into shared memory with
+// Hopper's 1-D bulk async copies (cp.async.bulk onto mbarriers, one block
+// an SM, every stage issued at once) was measured slower at every
+// main-path shape, the more so the more copies an SM issued (PERF.md,
+// Findings): at these sizes a warp that computes as soon as its own loads
+// land beats a block that waits for a stage.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// The per-element rules
+// ---------------------------------------------------------------------------
+
+// K1, the msgd commit (replaces `_nesterov_kernel`, function
+// `fused_nesterov_commit`).  For every element of `n_rows` rows of `n`:
 //
 //     g'  = g + l2wd * w                  (only when l2wd != 0)
 //     s   = clr[row] * g'
@@ -10,28 +55,9 @@
 //     vt <- vt - s
 //
 // `clr` is a device array of one learning rate per row, so the decayed lr
-// never crosses to the host.  `sug` may be null.
-//
-// Bound on Hopper: bytes.  Each element reads w, vt, g (and sug) and
-// writes w and vt: 20 bytes (24 with sug) for 3-4 flops, far below the
-// card's ~20 flops/byte f32 balance.  At the CNN's 544,522 parameters and
-// one row that is 10.9 MB, 3.3 us at 3.35 TB/s, so at this size the launch
-// itself (a few us) is as large as the work.
-//
-// Design: one grid-stride kernel over the rows laid end to end.  When every
-// pointer is 16-byte aligned and a row holds at least 4 floats, threads
-// move float4s (16-byte loads and stores, neighbouring threads on
-// neighbouring addresses); a float4 then touches at most two rows, so each
-// lane picks one of two clr values.  The last total % 4 elements, and
-// everything when a pointer is not aligned, take the scalar loop of the
-// same launch.  Every operation is rounded on its own (__fmul_rn,
-// __fadd_rn, __fsub_rn; the build also passes -fmad=false), so the result
-// is bit-equal to the plain PyTorch twin, which rounds each op.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
+// never crosses to the host.  20 bytes an element (24 with sug) for 3-4
+// flops: at the CNN's 544,522 parameters and one row, 10.9 MB, 3.25 us at
+// 3.35 TB/s.
 template <bool L2, bool RETRACT>
 __device__ __forceinline__ void commit_one(float& w, float& vt, float g,
                                            float clr, float l2wd, float sug) {
@@ -43,46 +69,193 @@ __device__ __forceinline__ void commit_one(float& w, float& vt, float g,
   vt = __fsub_rn(vt, step);
 }
 
-template <bool L2, bool RETRACT>
-__global__ void nesterov_commit_kernel(float* __restrict__ w,
-                                       float* __restrict__ vt,
-                                       const float* __restrict__ g,
-                                       const float* __restrict__ clr,
-                                       const float* __restrict__ sug,
-                                       int64_t n_vec, int64_t total, int64_t n,
-                                       float l2wd) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+// K3, Adam (replaces `_adam_kernel`, function `fused_adam`).  For every
+// element:
+//
+//     m <- beta1 * m + (1 - beta1) * g
+//     v <- beta2 * v + ((1 - beta2) * g) * g
+//     p <- p - (lr_t * m) / (sqrt(v) + eps)
+//
+// `lr_t` (bias-corrected) is a device scalar, computed on the card from
+// the device step counter, so no apply waits on the host.  `1 - beta1` and
+// `1 - beta2` arrive from the wrapper rounded once from doubles, as the
+// reference's weak-typed scalars are: computing them here in f32 gives
+// other numbers (1f - 0.999f is 0.0009999871, not the 0.001f the reference
+// uses).  28 bytes an element for 11 operations, a square root and a
+// division among them: at 272,261 elements (one shard of the CNN at np=4)
+// 7.62 MB, 2.28 us; at 544,522, 15.25 MB, 4.55 us.
+struct AdamConsts {
+  float beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
+};
 
-  float4* w4 = reinterpret_cast<float4*>(w);
-  float4* vt4 = reinterpret_cast<float4*>(vt);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  const float4* s4 = reinterpret_cast<const float4*>(sug);
-  for (int64_t v = tid; v < n_vec; v += stride) {
-    const int64_t base = v * 4;
-    const int64_t row = base / n;
-    const int64_t next = (row + 1) * n;  // first element of the next row
-    const float c0 = clr[row];
-    const float c1 = (base + 3 >= next) ? clr[row + 1] : c0;
-    float4 wv = w4[v];
-    float4 vv = vt4[v];
-    const float4 gv = g4[v];
-    const float4 sv = RETRACT ? s4[v] : make_float4(0.f, 0.f, 0.f, 0.f);
-    commit_one<L2, RETRACT>(wv.x, vv.x, gv.x, c0, l2wd, sv.x);
-    commit_one<L2, RETRACT>(wv.y, vv.y, gv.y, base + 1 >= next ? c1 : c0, l2wd, sv.y);
-    commit_one<L2, RETRACT>(wv.z, vv.z, gv.z, base + 2 >= next ? c1 : c0, l2wd, sv.z);
-    commit_one<L2, RETRACT>(wv.w, vv.w, gv.w, base + 3 >= next ? c1 : c0, l2wd, sv.w);
-    w4[v] = wv;
-    vt4[v] = vv;
+__device__ __forceinline__ void adam_one(float& p, float g, float& m, float& v,
+                                         float lrt, const AdamConsts& k) {
+  m = __fadd_rn(__fmul_rn(k.beta1, m), __fmul_rn(k.one_minus_beta1, g));
+  v = __fadd_rn(__fmul_rn(k.beta2, v),
+                __fmul_rn(__fmul_rn(k.one_minus_beta2, g), g));
+  p = __fsub_rn(p, __fdiv_rn(__fmul_rn(lrt, m),
+                             __fadd_rn(__fsqrt_rn(v), k.eps)));
+}
+
+// ---------------------------------------------------------------------------
+// The sweep
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 16;
+
+// Where the chunks lie; the same for every block of a launch.
+struct Sweep {
+  int64_t total;     // elements
+  int64_t head;      // elements before the first chunk (the scalar path's)
+  int64_t n_chunks;  // 16-byte chunks from element `head`
+};
+
+// K1's operands: w, vt, g, sug (w and vt written) and a learning rate a
+// row.
+template <bool L2, bool RETRACT>
+struct CommitRule {
+  static constexpr int kOps = RETRACT ? 4 : 3;
+  static constexpr unsigned kOutMask = 0b0011;
+  float* ptr[4];
+  const float* clr;
+  int64_t n, n_rows;
+  float l2wd;
+  float clr0;  // clr[0], the only one when there is one row
+
+  __device__ __forceinline__ void prepare() { clr0 = clr[0]; }
+
+  // The four elements of the chunk at element e, in registers.
+  __device__ __forceinline__ void chunk(float4 (&x)[kOps], int64_t e) const {
+    float c[4] = {clr0, clr0, clr0, clr0};
+    if (n_rows != 1) {
+      const int64_t row = e / n;
+      const int64_t next = (row + 1) * n;  // first element of the next row
+      const float c0 = clr[row];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        c[k] = e + k < next ? c0 : e + k < next + n ? clr[row + 1] : clr[(e + k) / n];
+    }
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (RETRACT) s = x[3];
+    commit_one<L2, RETRACT>(x[0].x, x[1].x, x[2].x, c[0], l2wd, s.x);
+    commit_one<L2, RETRACT>(x[0].y, x[1].y, x[2].y, c[1], l2wd, s.y);
+    commit_one<L2, RETRACT>(x[0].z, x[1].z, x[2].z, c[2], l2wd, s.z);
+    commit_one<L2, RETRACT>(x[0].w, x[1].w, x[2].w, c[3], l2wd, s.w);
   }
-  for (int64_t i = n_vec * 4 + tid; i < total; i += stride) {
-    float wi = w[i];
-    float vi = vt[i];
-    commit_one<L2, RETRACT>(wi, vi, g[i], clr[i / n], l2wd,
-                            RETRACT ? sug[i] : 0.f);
-    w[i] = wi;
-    vt[i] = vi;
+
+  __device__ __forceinline__ void element(int64_t e) const {
+    float wi = ptr[0][e];
+    float vi = ptr[1][e];
+    commit_one<L2, RETRACT>(wi, vi, ptr[2][e], n_rows == 1 ? clr0 : clr[e / n], l2wd,
+                            RETRACT ? ptr[3][e] : 0.f);
+    ptr[0][e] = wi;
+    ptr[1][e] = vi;
   }
+};
+
+// K3's operands: p, g, m, v; p, m and v are written.
+struct AdamRule {
+  static constexpr int kOps = 4;
+  static constexpr unsigned kOutMask = 0b1101;
+  float* ptr[4];
+  const float* lr_t;
+  AdamConsts k;
+  float lrt;
+
+  __device__ __forceinline__ void prepare() { lrt = *lr_t; }
+
+  __device__ __forceinline__ void chunk(float4 (&x)[kOps], int64_t) const {
+    adam_one(x[0].x, x[1].x, x[2].x, x[3].x, lrt, k);
+    adam_one(x[0].y, x[1].y, x[2].y, x[3].y, lrt, k);
+    adam_one(x[0].z, x[1].z, x[2].z, x[3].z, lrt, k);
+    adam_one(x[0].w, x[1].w, x[2].w, x[3].w, lrt, k);
+  }
+
+  __device__ __forceinline__ void element(int64_t e) const {
+    float pi = ptr[0][e];
+    float mi = ptr[2][e];
+    float vi = ptr[3][e];
+    adam_one(pi, ptr[1][e], mi, vi, lrt, k);
+    ptr[0][e] = pi;
+    ptr[2][e] = mi;
+    ptr[3][e] = vi;
+  }
+};
+
+template <class Rule>
+__global__ void __launch_bounds__(kThreads) sweep_kernel(Rule rule, const Sweep sw) {
+  constexpr int K = Rule::kOps;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  rule.prepare();
+  for (int64_t c = first; c < sw.n_chunks; c += stride) {
+    float4 x[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      x[k] = __ldcs(reinterpret_cast<const float4*>(rule.ptr[k] + sw.head) + c);
+    rule.chunk(x, sw.head + 4 * c);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (Rule::kOutMask >> k & 1)
+        __stcs(reinterpret_cast<float4*>(rule.ptr[k] + sw.head) + c, x[k]);
+  }
+  // The scalar path: the head, then the tail.
+  const int64_t tail = sw.head + 4 * sw.n_chunks;
+  const int64_t n_scalar = sw.head + (sw.total - tail);
+  for (int64_t i = first; i < n_scalar; i += stride)
+    rule.element(i < sw.head ? i : tail + (i - sw.head));
+}
+
+// The SM count of device `dev`, read once.
+int sm_count(int dev) {
+  static std::atomic<int> cached[64];
+  if (dev < 0 || dev >= 64) return 132;
+  int sms = cached[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms <= 0)
+      sms = 132;
+    cached[dev].store(sms, std::memory_order_relaxed);
+  }
+  return sms;
+}
+
+// Launches `sweep_kernel<Rule>` over `total` elements: in 16-byte chunks
+// where every operand sits at the same offset within 16 bytes.  Returns
+// cudaGetLastError() (0 on success).
+template <class Rule>
+int launch_sweep(const Rule& rule, int64_t total, void* stream) {
+  const uintptr_t a = (uintptr_t)rule.ptr[0] & 15;
+  bool same = a % 4 == 0;
+  for (int k = 1; k < Rule::kOps; ++k) same = same && ((uintptr_t)rule.ptr[k] & 15) == a;
+  Sweep sw{total, same ? (int64_t)((16 - a) & 15) / 4 : total, 0};
+  if (sw.head > total) sw.head = total;
+  sw.n_chunks = (total - sw.head) / 4;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t work = sw.n_chunks > 0 ? sw.n_chunks : total;
+  const int64_t cap = (int64_t)kBlocksPerSm * sm_count(dev);
+  const int64_t want = (work + kThreads - 1) / kThreads;
+  sweep_kernel<Rule><<<(unsigned)(want < cap ? want : cap), kThreads, 0,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(rule, sw);
+  return (int)cudaGetLastError();
+}
+
+template <bool L2, bool RETRACT>
+int launch_commit(float* w, float* vt, const float* g, const float* clr, const float* sug,
+                  int64_t n_rows, int64_t n, float l2wd, void* stream) {
+  CommitRule<L2, RETRACT> rule{};
+  rule.ptr[0] = w;
+  rule.ptr[1] = vt;
+  rule.ptr[2] = const_cast<float*>(g);
+  rule.ptr[3] = const_cast<float*>(sug);
+  rule.clr = clr;
+  rule.n = n;
+  rule.n_rows = n_rows;
+  rule.l2wd = l2wd;
+  return launch_sweep(rule, n_rows * n, stream);
 }
 
 }  // namespace
@@ -92,30 +265,29 @@ extern "C" int mpit_nesterov_commit(float* w, float* vt, const float* g,
                                     const float* clr, const float* sug,
                                     long long n_rows, long long n, float l2wd,
                                     void* stream) {
-  const int64_t total = (int64_t)n_rows * n;
-  if (total <= 0) return (int)cudaErrorInvalidValue;
-  const uintptr_t bits = (uintptr_t)w | (uintptr_t)vt | (uintptr_t)g |
-                         (uintptr_t)sug;
-  const int64_t n_vec = ((bits & 15) == 0 && n >= 4) ? total / 4 : 0;
-  const int64_t work = n_vec > 0 ? n_vec : total;
-  const int threads = 256;
-  // Enough blocks for one float4 per thread up to 16 blocks per SM of an
-  // H100 (132 SMs); beyond that the grid-stride loop takes over.
-  const int64_t max_blocks = 132 * 16;
-  int64_t blocks = (work + threads - 1) / threads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (n_rows <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   const bool l2 = l2wd != 0.0f;
-  const bool retract = sug != nullptr;
-#define MPIT_LAUNCH(L2, RT)                                                   \
-  nesterov_commit_kernel<L2, RT><<<(unsigned)blocks, threads, 0, s>>>(        \
-      w, vt, g, clr, sug, n_vec, total, (int64_t)n, l2wd)
-  if (l2 && retract) MPIT_LAUNCH(true, true);
-  else if (l2) MPIT_LAUNCH(true, false);
-  else if (retract) MPIT_LAUNCH(false, true);
-  else MPIT_LAUNCH(false, false);
-#undef MPIT_LAUNCH
-  return (int)cudaGetLastError();
+  if (sug != nullptr)
+    return l2 ? launch_commit<true, true>(w, vt, g, clr, sug, n_rows, n, l2wd, stream)
+              : launch_commit<false, true>(w, vt, g, clr, sug, n_rows, n, l2wd, stream);
+  return l2 ? launch_commit<true, false>(w, vt, g, clr, sug, n_rows, n, l2wd, stream)
+            : launch_commit<false, false>(w, vt, g, clr, sug, n_rows, n, l2wd, stream);
+}
+
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int mpit_adam(float* p, const float* g, float* m, float* v,
+                         const float* lr_t, long long n, float beta1,
+                         float one_minus_beta1, float beta2,
+                         float one_minus_beta2, float eps, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  AdamRule rule{};
+  rule.ptr[0] = p;
+  rule.ptr[1] = const_cast<float*>(g);
+  rule.ptr[2] = m;
+  rule.ptr[3] = v;
+  rule.lr_t = lr_t;
+  rule.k = AdamConsts{beta1, one_minus_beta1, beta2, one_minus_beta2, eps};
+  return launch_sweep(rule, n, stream);
 }
 
 // K2: fused elastic force + retract (the EASGD exchange, worker side).
@@ -135,32 +307,9 @@ extern "C" int mpit_nesterov_commit(float* w, float* vt, const float* g,
 // flops.  At the CNN's 544,522 parameters that is 8.71 MB, 2.60 us at
 // 3.35 TB/s.
 //
-// K3: fused Adam (the server-side shard rule and adam-single's local step).
-//
-// Replaces the Pallas kernel `_adam_kernel` of mpit_tpu/ops/fused_update.py
-// (function `fused_adam`).  For every element:
-//
-//     m <- beta1 * m + (1 - beta1) * g
-//     v <- beta2 * v + ((1 - beta2) * g) * g
-//     p <- p - (lr_t * m) / (sqrt(v) + eps)
-//
-// `p`, `m`, `v` in place.  `lr_t` (bias-corrected) is a device scalar,
-// computed on the card from the device step counter, so no apply waits on
-// the host.  `1 - beta1` and `1 - beta2` arrive from the wrapper rounded
-// once from doubles, as the reference's weak-typed scalars are: computing
-// them here in f32 gives other numbers (1f - 0.999f is 0.0009999871, not
-// the 0.001f the reference uses).
-//
-// Bound on Hopper: bytes.  16 bytes read and 12 written per element for 11
-// operations, a square root and a division among them, far below the
-// card's f32 balance.  At 272,261 elements (one shard of the CNN at np=4)
-// 7.62 MB, 2.28 us; at 544,522, 15.25 MB, 4.55 us.
-//
-// Design of both: the grid-stride sweep of K1, float4 access when every
-// pointer is 16-byte aligned, and a scalar loop for the last n % 4
-// elements (or everything when a pointer is not aligned).  Every operation
-// is rounded on its own, in the reference's order, so the results are
-// bit-equal to the plain PyTorch twins.
+// Design: a grid-stride sweep, float4 access when every pointer is 16-byte
+// aligned, and a scalar loop for the last n % 4 elements (or everything
+// when a pointer is not aligned).
 
 namespace {
 
@@ -199,54 +348,6 @@ __global__ void elastic_kernel(float* __restrict__ w,
   }
 }
 
-struct AdamConsts {
-  float beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
-};
-
-__device__ __forceinline__ void adam_one(float& p, float g, float& m, float& v,
-                                         float lrt, const AdamConsts& k) {
-  m = __fadd_rn(__fmul_rn(k.beta1, m), __fmul_rn(k.one_minus_beta1, g));
-  v = __fadd_rn(__fmul_rn(k.beta2, v),
-                __fmul_rn(__fmul_rn(k.one_minus_beta2, g), g));
-  p = __fsub_rn(p, __fdiv_rn(__fmul_rn(lrt, m),
-                             __fadd_rn(__fsqrt_rn(v), k.eps)));
-}
-
-__global__ void adam_kernel(float* __restrict__ p, const float* __restrict__ g,
-                            float* __restrict__ m, float* __restrict__ v,
-                            const float* __restrict__ lr_t, int64_t n_vec,
-                            int64_t n, AdamConsts k) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const float lrt = *lr_t;
-  float4* p4 = reinterpret_cast<float4*>(p);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  float4* m4 = reinterpret_cast<float4*>(m);
-  float4* v4 = reinterpret_cast<float4*>(v);
-  for (int64_t i = tid; i < n_vec; i += stride) {
-    float4 pv = p4[i];
-    const float4 gv = g4[i];
-    float4 mv = m4[i];
-    float4 vv = v4[i];
-    adam_one(pv.x, gv.x, mv.x, vv.x, lrt, k);
-    adam_one(pv.y, gv.y, mv.y, vv.y, lrt, k);
-    adam_one(pv.z, gv.z, mv.z, vv.z, lrt, k);
-    adam_one(pv.w, gv.w, mv.w, vv.w, lrt, k);
-    p4[i] = pv;
-    m4[i] = mv;
-    v4[i] = vv;
-  }
-  for (int64_t i = n_vec * 4 + tid; i < n; i += stride) {
-    float pi = p[i];
-    float mi = m[i];
-    float vi = v[i];
-    adam_one(pi, g[i], mi, vi, lrt, k);
-    p[i] = pi;
-    m[i] = mi;
-    v[i] = vi;
-  }
-}
-
 // Blocks for a sweep of `work` items: one per thread up to 16 blocks per
 // SM of an H100 (132 SMs); beyond that the grid-stride loop takes over.
 unsigned sweep_blocks(int64_t work, int threads) {
@@ -267,22 +368,5 @@ extern "C" int mpit_elastic(float* w, const float* c, float* sug, long long n,
   elastic_kernel<<<sweep_blocks(n_vec > 0 ? n_vec : n, threads), threads, 0,
                    reinterpret_cast<cudaStream_t>(stream)>>>(
       w, c, sug, n_vec, (int64_t)n, mva);
-  return (int)cudaGetLastError();
-}
-
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int mpit_adam(float* p, const float* g, float* m, float* v,
-                         const float* lr_t, long long n, float beta1,
-                         float one_minus_beta1, float beta2,
-                         float one_minus_beta2, float eps, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const uintptr_t bits =
-      (uintptr_t)p | (uintptr_t)g | (uintptr_t)m | (uintptr_t)v;
-  const int64_t n_vec = (bits & 15) == 0 ? n / 4 : 0;
-  const int threads = 256;
-  const AdamConsts k{beta1, one_minus_beta1, beta2, one_minus_beta2, eps};
-  adam_kernel<<<sweep_blocks(n_vec > 0 ? n_vec : n, threads), threads, 0,
-                reinterpret_cast<cudaStream_t>(stream)>>>(
-      p, g, m, v, lr_t, n_vec, (int64_t)n, k);
   return (int)cudaGetLastError();
 }

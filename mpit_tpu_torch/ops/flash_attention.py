@@ -234,9 +234,35 @@ def _card_mb(device) -> float:
 
 def _dq_block_k(device, dtype) -> int:
     """The key tile of the K5 that runs for ``device`` and ``dtype``: its dQ
-    partials hold one slot per tile.  On the CPU, the JAX module's count."""
+    partials hold one slot per tile."""
     on_card = device is not None and torch.device(device).type == "cuda"
     return BLOCK_K_TC if on_card and dtype == torch.bfloat16 else BLOCK_K
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _jax_transient_mb(n: int, lq: int, lk: int, d: int, dtype) -> float:
+    """The dQ-partials transient that the JAX package's gate counts for its
+    fused backward, in MiB: ``N * (Lk_p / bk) * Lq_p * D_p * 4`` bytes over
+    its Pallas tiles (``mpit_tpu.ops.flash_attention._tile_dims`` with
+    ``bwd_long_bk``), under its default settings.
+
+    ``bk`` is 1,024 keys for 2-byte types and 512 otherwise, 2,048 for a
+    2-byte type at ``Lk >= 32,768``, clamped to ``Lk`` rounded up to 128;
+    ``bq`` is 1,024 or 512, clamped to ``Lq`` rounded up to 8; ``Lq`` pads
+    to ``bq``, ``Lk`` to ``bk`` and ``D`` to 128.  The JAX module's Mosaic
+    levers (``MPIT_FA_VMEM_MB``, ``MPIT_FA_LONG_BK_BWD``) have no
+    counterpart here: this count assumes their defaults, under which the
+    2,048-key tile is taken.  ``dtype`` None counts as float32."""
+    short = dtype is not None and dtype.itemsize <= 2
+    block = 1024 if short else 512
+    block_k = 2048 if short and lk >= 32768 else block
+    bq = min(block, _round_up(lq, 8))
+    bk = min(block_k, _round_up(lk, 128))
+    tiles = _round_up(lk, bk) // bk
+    return n * tiles * _round_up(lq, bq) * _round_up(d, 128) * 4 / 2**20
 
 
 def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
@@ -244,20 +270,22 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
 
     ``MPIT_FA_FUSED_BWD``: ``1`` forces the fused single sweep (K5), ``0``
     the two-kernel schedule (K6); the default ``auto`` takes K5 while its
-    dQ-partials transient, ``N * ceil(Lk / tile) * Lq * D * 4`` bytes (one
-    f32 partial per key tile of the K5 that runs, :func:`_dq_block_k`:
-    128 keys for bfloat16 on the card, else 64; every one of the N heads
-    live at once), fits the budget.  Any other value raises.
+    dQ-partials transient (every one of the N heads live at once) fits the
+    budget.  Any other value raises.
 
-    The budget is ``MPIT_FA_FUSED_BWD_MAX_MB`` where set.  Otherwise, on a
-    CUDA ``device``, it is a quarter of the card's memory, leaving three
-    quarters to the weights, activations and grads beside the transient:
-    K5 is the faster schedule on the H100 wherever its partials fit.  The
-    card's size, not its free memory at the call, so that one
-    configuration always runs one schedule (K5 and K6 sum dQ in another
-    order).  On the CPU both schedules run the same twin, and the budget
-    is the JAX module's default, 2048 MiB, over its 64-key tiles, so the
-    choice matches the JAX package's."""
+    On a CUDA ``device`` the transient is that of the K5 that runs,
+    ``N * ceil(Lk / tile) * Lq * D * 4`` bytes with one f32 partial per key
+    tile (:func:`_dq_block_k`: 128 keys for bfloat16, else 64), and the
+    budget is ``MPIT_FA_FUSED_BWD_MAX_MB`` where set, else a quarter of the
+    card's memory, leaving three quarters to the weights, activations and
+    grads beside the transient: K5 is the faster schedule on the H100
+    wherever its partials fit.  The card's size, not its free memory at
+    the call, so that one configuration always runs one schedule (K5 and
+    K6 sum dQ in another order).
+
+    On the CPU both schedules run the same twin, and the choice is the JAX
+    package's: its count over its own tiles (:func:`_jax_transient_mb`)
+    against ``MPIT_FA_FUSED_BWD_MAX_MB``, or its default 2,048 MiB."""
     mode = os.environ.get("MPIT_FA_FUSED_BWD", "auto") or "auto"
     if mode == "0":
         return False
@@ -267,14 +295,13 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
         raise ValueError(f"MPIT_FA_FUSED_BWD={mode!r}: expected '0', '1', or 'auto'")
     lq, lk = q_shape[-2], k_shape[-2]
     n = math.prod(int(s) for s in q_shape[:-2])
-    tiles = math.ceil(lk / _dq_block_k(device, dtype))
-    transient_mb = n * tiles * lq * d * 4 / 2**20
     budget = os.environ.get("MPIT_FA_FUSED_BWD_MAX_MB")
-    if budget is not None:
-        return transient_mb <= float(budget)
     if device is not None and torch.device(device).type == "cuda":
-        return transient_mb <= _card_mb(device) / 4
-    return transient_mb <= 2048
+        tiles = math.ceil(lk / _dq_block_k(device, dtype))
+        transient_mb = n * tiles * lq * d * 4 / 2**20
+        return transient_mb <= (_card_mb(device) / 4 if budget is None else float(budget))
+    transient_mb = _jax_transient_mb(n, lq, lk, d, dtype)
+    return transient_mb <= (2048 if budget is None else float(budget))
 
 
 # ---------------------------------------------------------------------------

@@ -45,39 +45,76 @@ def fused_nesterov_commit_reference(w, vt, g, clr, *, l2wd: float = 0.0,
     return w_new, vt - step
 
 
+_F32 = torch.float32
+
+
+def _check_operands(names, tensors, n_same: int) -> None:
+    """Each operand a contiguous float32 tensor on the first one's device,
+    and the first ``n_same`` all of one shape.  One pass with no isinstance
+    and no message built while every operand passes; where one does not,
+    :func:`_explain` finds it and raises."""
+    first = tensors[0]
+    try:
+        device, shape = first.device, first.shape
+        for t in tensors:
+            if t.dtype is not _F32 or t.device != device or not t.is_contiguous():
+                break
+        else:
+            for t in tensors[1:n_same]:
+                if t.shape != shape:
+                    break
+            else:
+                return
+    except AttributeError:  # not a tensor
+        pass
+    _explain(names, tensors, n_same)
+
+
+def _explain(names, tensors, n_same: int) -> None:
+    """Raises for the first operand that :func:`_check_operands` refuses."""
+    first = tensors[0]
+    if not isinstance(first, torch.Tensor):
+        raise TypeError(f"{names[0]} must be a tensor, got {type(first).__name__}")
+    device, shape = first.device, first.shape
+    for i, t in enumerate(tensors):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{names[i]} must be a tensor, got {type(t).__name__}")
+        if t.dtype is not _F32:
+            raise TypeError(f"{names[i]} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{names[i]} is on {t.device}, {names[0]} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{names[i]} must be contiguous")
+        if 0 < i < n_same and t.shape != shape:
+            raise ValueError(f"{names[i]} has shape {tuple(t.shape)}, "
+                             f"{names[0]} {tuple(shape)}")
+    raise AssertionError("_explain found no fault")
+
+
+_K1_NAMES = ("w", "vt", "g", "clr")
+_K1_NAMES_SUG = ("w", "vt", "g", "sug", "clr")
+
+
 def _check(w, vt, g, clr, sug) -> int:
     """Validate the operands; returns the number of rows."""
-    tensors = {"w": w, "vt": vt, "g": g, "clr": clr}
-    if sug is not None:
-        tensors["sug"] = sug
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != w.device:
-            raise ValueError(f"{name} is on {t.device}, w on {w.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name in ("vt", "g", "sug"):
-        if name in tensors and tensors[name].shape != w.shape:
-            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, "
-                             f"w {tuple(w.shape)}")
-    if w.dim() == 1:
+    if sug is None:
+        _check_operands(_K1_NAMES, (w, vt, g, clr), 3)
+    else:
+        _check_operands(_K1_NAMES_SUG, (w, vt, g, sug, clr), 4)
+    shape = w.shape
+    if len(shape) == 1:
         n_rows = 1
         if clr.numel() != 1:
             raise ValueError(f"1-D w takes one clr, got shape {tuple(clr.shape)}")
-    elif w.dim() == 2:
-        n_rows = w.shape[0]
-        if tuple(clr.shape) != (n_rows,):
+    elif len(shape) == 2:
+        n_rows = shape[0]
+        if clr.shape != (n_rows,):
             raise ValueError(f"clr must have shape ({n_rows},), got "
                              f"{tuple(clr.shape)}")
     else:
-        raise ValueError(f"w must be (n,) or (rows, n), got {tuple(w.shape)}")
-    if w.numel() == 0:
+        raise ValueError(f"w must be (n,) or (rows, n), got {tuple(shape)}")
+    if 0 in shape:
         raise ValueError("w is empty")
-    if w.data_ptr() == vt.data_ptr():
-        raise ValueError("w and vt must be distinct buffers")
     return n_rows
 
 
@@ -98,14 +135,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def _cuda_stream(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s card, as the kernels take it; raises
-    for any device without a kernel."""
-    if t.device.type != "cuda":
+    """The raw handle of the current stream of ``t``'s card, as the kernels
+    take it, without building a ``torch.cuda.Stream``; raises for any
+    device without a kernel and for a card that is not the current one."""
+    if not t.is_cuda:
         raise ValueError(f"no kernel for device {t.device}")
-    if t.device.index != torch.cuda.current_device():
-        raise ValueError(f"{t.device} is not the current CUDA device "
-                         f"{torch.cuda.current_device()}")
-    return torch.cuda.current_stream(t.device).cuda_stream
+    index, current = t.get_device(), torch._C._cuda_getDevice()
+    if index != current:
+        raise ValueError(f"{t.device} is not the current CUDA device {current}")
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check_flat(n: int, device: torch.device, **tensors) -> None:
@@ -145,17 +183,18 @@ def fused_nesterov_commit(
     allocates nothing on the card.  Each launch adds one to
     ``fused_nesterov_commit.launches``."""
     n_rows = _check(w, vt, g, clr, sug)
-    if w.device.type == "cpu":
+    w_ptr, vt_ptr = w.data_ptr(), vt.data_ptr()
+    if w_ptr == vt_ptr:
+        raise ValueError("w and vt must be distinct buffers")
+    if w.is_cpu:
         w_new, vt_new = fused_nesterov_commit_reference(
             w, vt, g, clr, l2wd=l2wd, sug=sug)
         w.copy_(w_new)
         vt.copy_(vt_new)
         return w, vt
-    stream = _cuda_stream(w)
     err = _lib().mpit_nesterov_commit(
-        w.data_ptr(), vt.data_ptr(), g.data_ptr(), clr.data_ptr(),
-        None if sug is None else sug.data_ptr(),
-        n_rows, w.shape[-1], float(l2wd), stream)
+        w_ptr, vt_ptr, g.data_ptr(), clr.data_ptr(), None if sug is None else sug.data_ptr(),
+        n_rows, w.shape[-1], float(l2wd), _cuda_stream(w))
     if err != 0:
         raise RuntimeError(f"fused_nesterov_commit launch failed: CUDA error {err}")
     fused_nesterov_commit.launches += 1
@@ -222,6 +261,18 @@ def fused_adam_reference(p, g, m, v, lr_t, *, beta1=0.9, beta2=0.999,
     return p, m, v
 
 
+_K3_NAMES = ("p", "g", "m", "v", "lr_t")
+
+
+def _check_adam(p, g, m, v, lr_t) -> None:
+    _check_operands(_K3_NAMES, (p, g, m, v, lr_t), 4)
+    shape = p.shape
+    if len(shape) != 1 or shape[0] == 0:
+        raise ValueError(f"p must be a non-empty (n,) vector, got {tuple(shape)}")
+    if lr_t.numel() != 1:
+        raise ValueError(f"lr_t must hold one element, got shape {tuple(lr_t.shape)}")
+
+
 def fused_adam(
     p: torch.Tensor,
     g: torch.Tensor,
@@ -240,24 +291,18 @@ def fused_adam(
     correction's exponent math stays with the caller
     (:func:`mpit_tpu_torch.optim.rules.adam_apply`).  Each launch adds
     one to ``fused_adam.launches``."""
-    n = p.shape[0] if p.dim() == 1 else -1
-    _check_flat(n, p.device, p=p, g=g, m=m, v=v)
-    if not (isinstance(lr_t, torch.Tensor) and lr_t.dtype == torch.float32
-            and lr_t.numel() == 1 and lr_t.device == p.device):
-        raise ValueError("lr_t must be a one-element float32 tensor on "
-                         f"{p.device}")
-    if len({p.data_ptr(), m.data_ptr(), v.data_ptr()}) != 3:
+    _check_adam(p, g, m, v, lr_t)
+    p_ptr, m_ptr, v_ptr = p.data_ptr(), m.data_ptr(), v.data_ptr()
+    if p_ptr == m_ptr or p_ptr == v_ptr or m_ptr == v_ptr:
         raise ValueError("p, m and v must be distinct buffers")
-    if p.device.type == "cpu":
+    if p.is_cpu:
         for dst, src in zip((p, m, v), fused_adam_reference(
                 p, g, m, v, lr_t, beta1=beta1, beta2=beta2, epsilon=epsilon)):
             dst.copy_(src)
         return p, m, v
-    stream = _cuda_stream(p)
     err = _lib().mpit_adam(
-        p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-        lr_t.data_ptr(), n, float(beta1), float(1.0 - beta1), float(beta2),
-        float(1.0 - beta2), float(epsilon), stream)
+        p_ptr, g.data_ptr(), m_ptr, v_ptr, lr_t.data_ptr(), p.shape[0], float(beta1),
+        float(1.0 - beta1), float(beta2), float(1.0 - beta2), float(epsilon), _cuda_stream(p))
     if err != 0:
         raise RuntimeError(f"fused_adam launch failed: CUDA error {err}")
     fused_adam.launches += 1

@@ -11,7 +11,10 @@ not have.)  Each kernel must be bit-equal to its twin: both round every
 operation, in the same order, and the kernels are built with
 ``-fmad=false``.  Shapes: the main path's (544,522 for K1 and K2; 272,261
 and 544,522 for K3), odd lengths (the scalar tail), and views one float
-into a buffer (pointers not 16-byte aligned: the scalar loop).
+into a buffer (pointers not 16-byte aligned).  K1 and K3 also at lengths
+and offsets that reach every path of their sweep (16-byte chunks in one
+or more turns of the grid, the scalar head and tail, the scalar path
+alone) and replayed from a CUDA graph.
 
 The flash-attention kernels (K4 forward in both output modes, K5 fused
 backward, K6 two-kernel backward) sum in another order than their twins,
@@ -187,6 +190,129 @@ def test_k2_k3_refuse_mixed_devices(dev):
     p, g, m, v = _flat(dev, 64, 0, 4, 2)
     with pytest.raises(ValueError):
         fused_adam(p, g, m, v, torch.tensor(1e-3))
+
+
+# Lengths that reach every path of K1's and K3's sweep
+# (csrc/fused_update.cu): less than one 16-byte chunk (the scalar path
+# alone), one chunk and its neighbours (a scalar head and tail beside the
+# chunks), the grid's cap of a chunk a thread ("grid": 16 blocks of 256
+# threads an SM, 16,384 floats an SM, resolved at run time from the card's
+# SM count) and its neighbours (one chunk more takes a second turn of the
+# grid-stride loop), and the main path's lengths.
+SWEEP_LENGTHS = [*range(1, 18), "grid-1", "grid", "grid+1", "grid+4", 10250,
+                 272261, 544522]
+# K1's (rows, n): one row at every length above; four rows of the
+# headline's vector (dp=4: past the grid's cap on a 132-SM card; each row
+# boundary inside a chunk); rows whose boundary falls inside a chunk
+# (1,025 floats), rows shorter than a chunk (a chunk spans several rows).
+K1_SWEEP = [(1, n) for n in SWEEP_LENGTHS] + [(4, 544522), (3, 1025), (5, 3), (6, 1),
+                                              (2, "grid+1"), (7, 40001)]
+# K3's lengths: the above, and 4 x 544,522.
+K3_SWEEP = SWEEP_LENGTHS + [4 * 544522]
+
+
+def _sweep_n(dev, n):
+    if isinstance(n, int):
+        return n
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * 16384 + int(n[len("grid"):] or 0)
+
+
+def _offset_copy(t, offset):
+    """A copy of ``t`` that starts ``offset`` floats into a buffer of its own."""
+    buf = torch.empty(offset + t.numel(), device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+def _k1_bit_equal(w, vt, g, sug, clr, out_offsets):
+    """K1 in every variant (l2wd, retract) on copies of ``w`` and ``vt`` that
+    start ``out_offsets`` floats into their buffers, bit-equal to the twin."""
+    for l2wd in (0.0, 1e-4):
+        for s in (None, sug):
+            want_w, want_vt = fused_nesterov_commit_reference(w, vt, g, clr, l2wd=l2wd, sug=s)
+            kw, kvt = _offset_copy(w, out_offsets[0]), _offset_copy(vt, out_offsets[1])
+            before = fused_nesterov_commit.launches
+            fused_nesterov_commit(kw, kvt, g, clr, l2wd=l2wd, sug=s)
+            torch.cuda.synchronize()
+            assert fused_nesterov_commit.launches == before + 1
+            assert torch.equal(kw, want_w) and torch.equal(kvt, want_vt), (l2wd, s is None)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("rows,n", K1_SWEEP, ids=[f"{r}x{n}" for r, n in K1_SWEEP])
+def test_k1_sweep_bit_equal_on_every_path(dev, rows, n, offset):
+    """Every operand ``offset`` floats into its buffer: the elements before
+    the first 16-byte boundary take the scalar head."""
+    w, vt, g, sug = _operands(dev, rows, _sweep_n(dev, n), offset)
+    clr = torch.linspace(0.01, 0.04, rows, device=dev)
+    _k1_bit_equal(w, vt, g, sug, clr, (offset, offset))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 17), (1, 544522), (4, 544522)])
+def test_k1_mixed_offsets_take_the_scalar_path(dev, rows, n):
+    """Operands at different offsets within 16 bytes share no chunk grid:
+    every element takes the scalar path."""
+    w, vt, g, sug = _operands(dev, rows, n, 1)
+    clr = torch.linspace(0.01, 0.04, rows, device=dev)
+    _k1_bit_equal(w, vt, g, sug, clr, (0, 2))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", K3_SWEEP, ids=str)
+def test_k3_sweep_bit_equal_on_every_path(dev, n, offset):
+    n = _sweep_n(dev, n)
+    p, g, m, v = _flat(dev, n, offset, 4, 5 * n + offset)
+    v.abs_()
+    lr_t = torch.tensor(1e-3 * (1 - 0.999) ** 0.5 / (1 - 0.9), device=dev)
+    want = fused_adam_reference(p, g, m, v, lr_t)
+    for outs in ((offset,) * 3, (0, 1, 2)):  # one grid, then none (scalar)
+        kp, km, kv = (_offset_copy(x, o) for x, o in zip((p, m, v), outs))
+        before = fused_adam.launches
+        fused_adam(kp, g, km, kv, lr_t)
+        torch.cuda.synchronize()
+        assert fused_adam.launches == before + 1
+        for got, exp in zip((kp, km, kv), want):
+            assert torch.equal(got, exp), outs
+
+
+def test_k1_k3_replay_in_a_cuda_graph_bit_equal_to_eager(dev):
+    """K1 (four rows with the retract and l2wd) and K3 (the server's shard)
+    captured once in a CUDA graph and replayed three times, with lr_t
+    rewritten on the card before each replay, give the bits of three
+    eager launches.  The capture counts one launch of each, the replays
+    none.  A host sync or an allocation on the card in the call path would
+    break the capture."""
+    w, vt, g, sug = _operands(dev, 4, 544522)
+    clr = torch.tensor([0.01, 0.02, 0.03, 0.04], device=dev)
+    p, g3, m, v = _flat(dev, 272261, 0, 4, 11)
+    v.abs_()
+    lr_t = torch.empty((), device=dev)
+    lrs = (1e-3, 2e-3, 5e-4)
+
+    def step(state):
+        fused_nesterov_commit(state[0], state[1], g, clr, l2wd=1e-4, sug=sug)
+        fused_adam(state[2], g3, state[3], state[4], lr_t)
+
+    eager = [x.clone() for x in (w, vt, p, m, v)]
+    for lr in lrs:
+        lr_t.fill_(lr)
+        step(eager)
+    graphed = [x.clone() for x in (w, vt, p, m, v)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = (fused_nesterov_commit.launches, fused_adam.launches)
+    with torch.cuda.graph(graph):
+        step(graphed)
+    assert (fused_nesterov_commit.launches, fused_adam.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    for lr in lrs:
+        lr_t.fill_(lr)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert (fused_nesterov_commit.launches, fused_adam.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    for got, want in zip(graphed, eager):
+        assert torch.equal(got, want)
 
 
 # (leading axes, Lq, Lk, q_offset, kv_offset, causal): odd lengths, a

@@ -207,23 +207,66 @@ def test_gate_forces_each_schedule_and_refuses_bad_values(monkeypatch):
 
 
 def test_gate_flips_where_the_transient_says(monkeypatch):
-    """auto: fused while N * ceil(Lk/64) * Lq * D * 4 bytes fits the budget.
-    The LM's default attention (N = 8 x 8 heads, L 1,024, D 32) holds
-    16 x 64 x 1,024 x 32 x 4 B = 128 MiB; the long-context shape (N 8,
-    L 8,192, D 128) 128 x 8 x 8,192 x 128 x 4 B = 4,096 MiB."""
+    """auto on the CPU: fused while the JAX package's count, N x (Lk_p /
+    bk) x Lq_p x D_p x 4 bytes over its own tiles, fits the budget.  float32
+    takes 512 x 512 tiles, 2-byte types 1,024 x 1,024 (2,048 keys at Lk >=
+    32,768), and D pads to 128.  The LM's default attention (N = 8 x 8
+    heads, L 1,024, D 32) holds 64 x 2 x 1,024 x 128 x 4 B = 64 MiB; the
+    long-context shape (N 8, L 8,192, D 128) 8 x 16 x 8,192 x 128 x 4 B =
+    512 MiB in float32 and 256 MiB in bfloat16."""
     monkeypatch.delenv("MPIT_FA_FUSED_BWD", raising=False)
     monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB", raising=False)
     assert _use_fused_bwd((8, 8, 1024, 32), (8, 8, 1024, 32), 32) is True
     long = (1, 8, 8192, 128)
-    assert _use_fused_bwd(long, long, 128) is False
-    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "4096")
     assert _use_fused_bwd(long, long, 128) is True
-    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "4095.9")
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "512")
+    assert _use_fused_bwd(long, long, 128) is True
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "511.9")
     assert _use_fused_bwd(long, long, 128) is False
-    # A ragged key length counts its partial key tile: 65 keys are two.
-    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", str(100 * 8 * 4 / 2**20))
-    assert _use_fused_bwd((100, 8), (64, 8), 8) is True
-    assert _use_fused_bwd((100, 8), (65, 8), 8) is False
+    assert _use_fused_bwd(long, long, 128, "cpu", torch.bfloat16) is True
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "255.9")
+    assert _use_fused_bwd(long, long, 128, "cpu", torch.bfloat16) is False
+    # At 32,768 keys a 2-byte type takes 2,048-key tiles: 2,048 MiB, the
+    # default budget exactly; float32 keeps 512 keys, 8,192 MiB.
+    monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB")
+    long = (1, 8, 32768, 128)
+    assert _use_fused_bwd(long, long, 128, "cpu", torch.bfloat16) is True
+    assert _use_fused_bwd(long, long, 128, "cpu", torch.float32) is False
+    # A ragged key length counts its partial key tile (513 keys are two
+    # tiles of 512), Lq pads to 8 (100 rows count 104) and D to 128.
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", str(104 * 128 * 4 / 2**20))
+    assert _use_fused_bwd((100, 8), (512, 8), 8) is True
+    assert _use_fused_bwd((100, 8), (513, 8), 8) is False
+
+
+# (q shape, k shape, D): the LM's default attention, the long-context
+# shapes at 8k, 16k and 32k, and a ragged pair.
+JAX_GATE_SHAPES = [
+    ((8, 8, 1024, 32), (8, 8, 1024, 32), 32),
+    ((1, 8, 8192, 128), (1, 8, 8192, 128), 128),
+    ((1, 8, 16384, 128), (1, 8, 16384, 128), 128),
+    ((1, 8, 32768, 128), (1, 8, 32768, 128), 128),
+    ((3, 100, 8), (3, 65, 8), 8),
+]
+
+
+@pytest.mark.parametrize("budget", [None, "4096", "256"], ids=["unset", "4096", "256"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shapes", JAX_GATE_SHAPES,
+                         ids=["lm_default", "8k", "16k", "32k", "ragged"])
+def test_cpu_gate_gives_the_jax_gates_answer(monkeypatch, shapes, dtype, budget):
+    """The port's CPU gate and the JAX package's ``_use_fused_bwd``, under
+    its default settings, choose the same backward schedule."""
+    from mpit_tpu.ops.flash_attention import _use_fused_bwd as jax_use_fused_bwd
+
+    for name in ("MPIT_FA_FUSED_BWD", "MPIT_FA_FUSED_BWD_MAX_MB", "MPIT_FA_VMEM_MB",
+                 "MPIT_FA_LONG_BK_BWD"):
+        monkeypatch.delenv(name, raising=False)
+    if budget is not None:
+        monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", budget)
+    q_shape, k_shape, d = shapes
+    want = jax_use_fused_bwd(q_shape, k_shape, d, getattr(jnp, dtype), None, None, None)
+    assert _use_fused_bwd(q_shape, k_shape, d, "cpu", getattr(torch, dtype)) is want
 
 
 def test_gate_budget_on_the_card_is_a_quarter_of_it(monkeypatch):
@@ -236,7 +279,9 @@ def test_gate_budget_on_the_card_is_a_quarter_of_it(monkeypatch):
     long, cuda = (1, 8, 8192, 128), torch.device("cuda")
     monkeypatch.setattr(fa, "_card_mb", lambda device: 16384.0)
     assert _use_fused_bwd(long, long, 128, cuda) is True  # 4,096 MiB fits
-    assert _use_fused_bwd(long, long, 128, "cpu") is False  # 2,048 MiB default
+    # The CPU counts the JAX package's 512-key tiles: 512 MiB, within its
+    # 2,048 MiB default.
+    assert _use_fused_bwd(long, long, 128, "cpu") is True
     monkeypatch.setattr(fa, "_card_mb", lambda device: 16383.0)
     assert _use_fused_bwd(long, long, 128, cuda) is False
     monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "4096")
@@ -248,7 +293,8 @@ def test_gate_on_the_card_counts_the_key_tile_that_runs(monkeypatch, dtype):
     """On the card a bfloat16 K5 runs on the tensor cores with 128-key
     tiles, so its transient at the long-context shape is 64 x 8 x 8,192 x
     128 x 4 B = 2,048 MiB, half the float32 kernel's 4,096 MiB over 64-key
-    tiles; the CPU counts the JAX module's 64-key tiles for either type."""
+    tiles; the CPU counts the JAX package's 1,024-key (bfloat16) or
+    512-key (float32) tiles, 256 or 512 MiB."""
     monkeypatch.delenv("MPIT_FA_FUSED_BWD", raising=False)
     monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB", raising=False)
     fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
@@ -257,7 +303,7 @@ def test_gate_on_the_card_counts_the_key_tile_that_runs(monkeypatch, dtype):
     assert fa._dq_block_k("cpu", dtype) == 64
     monkeypatch.setattr(fa, "_card_mb", lambda device: 8192.0)  # a quarter: 2,048
     assert _use_fused_bwd(long, long, 128, cuda, dtype) is (dtype == torch.bfloat16)
-    assert _use_fused_bwd(long, long, 128, "cpu", dtype) is False
+    assert _use_fused_bwd(long, long, 128, "cpu", dtype) is True
     monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "2048")
     assert _use_fused_bwd(long, long, 128, cuda, dtype) is (dtype == torch.bfloat16)
     # A ragged key length counts its partial tile: 129 keys are two.
