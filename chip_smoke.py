@@ -7,17 +7,23 @@ order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel of the path, from the sources in this checkout;
 3. kernels: each kernel against its plain PyTorch twin at the shapes each
-   path below gives it (each must be bit-equal; K1 and K3 also at the
+   path below gives it (each must be bit-equal; K1, K2 and K3 also at the
    edges of their sweep and replayed from a CUDA graph, and ptxas must
    report no spill), then timed with CUDA events beside the twin, the
-   per-launch floor and the bytes bound, cold and L2-warm: K1 (msgd
+   per-launch floor and the bytes bound, cold, L2-warm and queued behind
+   an elementwise PyTorch kernel as in a step: K1 (msgd
    commit), K2 (elastic force + retract), K3 (Adam), and the server's
    per-GRAD apply around K3;
 4. the headline path: ``mesh_launch.run`` at the flagship configuration
    (CNN side 32, 544,522 parameters, EASGD, dp=1) for two epochs with the
    steady-state throughput leg; then three EASGD steps at dp=4 on the card
    held against the same steps on the CPU;
-5. ``launch --np 1 --opt msgd`` for one epoch;
+5. ``launch --np 1 --opt msgd`` for one epoch; then the flagship trained
+   to 2% test error (10 epochs at most, stopping at the target) by the
+   host loop and by the device loop (``--device_loop 1``: one CUDA-graph
+   replay an epoch), both timings and ``time_to_target`` printed: bit for
+   bit under deterministic cuDNN, within twice the host loop's own spread
+   in the same call under its defaults (``device_loop_vs_host``);
 6. the asynchronous parameter-server gang, every role a thread of this
    process over the in-process router (``launch.run_gang``), every shard
    and every worker on the card, at the flagship widths: DOWNPOUR np=4,
@@ -49,7 +55,14 @@ order; any failure raises and the script exits non-zero:
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
 often as its steps (or its servers' applies, or its layers) say fails,
-and so does one that launched a kernel it should not.  The last two lines
+and so does one that launched a kernel it should not.  A counter moves
+where the wrapper launches its kernel, and a CUDA graph replays launches
+without calling the wrapper: on the device loop the counter must be the
+warm-up's steps plus each graph's steps (captured once) plus the
+throughput leg's, from the steps and graphs the run reports; and on one
+device-loop run ``torch.profiler`` reads K1's kernels that ran on the
+card, graph replays included, which must be the run's steps plus the
+warm-up's.  The last two lines
 are one JSON object describing every kernel (``launches`` is the count of
 the kernel's main path: the headline for K1, comm-only EAMSGD for K2,
 server-side Adam for K3, and for K4-K6 the first LM path that launched
@@ -228,20 +241,32 @@ def launch_floor_ms(torch) -> float:
     return time_ms(torch, lambda: torch.cuda._sleep(1), queued=True)
 
 
+def behind_ms(torch, fn, pre):
+    """Device ms that ``fn()`` adds when each call is queued behind
+    ``pre()``, a PyTorch kernel, as a training step queues a sweep: the
+    pairs' time less ``pre`` alone, both queued behind a hold."""
+    pair = time_ms(torch, lambda: (pre(), fn()), queued=True, kernels_per_call=2)
+    return pair - time_ms(torch, pre, queued=True)
+
+
 def timed_entry(torch, kernel, plain, sets, n_bytes, n_ops, plain_kernels):
     """Times of ``kernel`` and ``plain`` (which launches ``plain_kernels``
     PyTorch kernels a call) over rotating buffer ``sets`` (``ms``: device
     time, every launch finding its operands in device memory), of
     ``kernel`` on the first set alone (``warm_ms``: operands in the L2, as
-    an MNIST step's 2.18 MB vectors can find theirs), the per-launch
-    floor, and the bound of the work: ``n_bytes`` moved at the HBM rate or
-    ``n_ops`` f32 operations at the peak rate, whichever is longer."""
+    an MNIST step's 2.18 MB vectors can find theirs), of ``kernel`` queued
+    behind an elementwise PyTorch kernel on a vector of the first
+    operand's size (``behind_ms``), the per-launch floor, and the bound of
+    the work: ``n_bytes`` moved at the HBM rate or ``n_ops`` f32
+    operations at the peak rate, whichever is longer."""
     warm = functools.partial(kernel, *sets[0])
     kernel, plain = rotating(kernel, sets), rotating(plain, sets)
+    scratch = torch.zeros_like(sets[0][0])
     bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOPS * 1e3
     return {
         "ms": time_ms(torch, kernel, queued=True),
         "warm_ms": time_ms(torch, warm, queued=True),
+        "behind_ms": behind_ms(torch, kernel, lambda: scratch.add_(1.0)),
         "floor_ms": launch_floor_ms(torch),
         "call_ms": time_ms(torch, kernel),
         "plain_ms": time_ms(torch, plain, queued=True, kernels_per_call=plain_kernels),
@@ -351,6 +376,7 @@ def check_k1(torch, n_mesh, n_msgd):
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "warm_ms": main_row["warm_ms"],
+        "behind_ms": main_row["behind_ms"],
         "call_ms": main_row["call_ms"],
         "floor_ms": main_row["floor_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -361,28 +387,37 @@ def check_k1(torch, n_mesh, n_msgd):
 
 
 def check_k2(torch, n_path):
-    """K2 bit-equal to its twin at the comm-only EAMSGD path's length and
-    at a length that is not a multiple of 4 (the scalar tail); timed at
-    the path's length.  Returns the kernel's entry for the closing line."""
+    """K2 bit-equal to its twin at the comm-only EAMSGD path's length, one
+    float longer (the scalar tail) and at the sweep's edges (K3's; ``w``
+    at each edge's offset, whose ``sug`` the wrapper allocates at the same
+    offset, and the center at that offset and at another); timed at the
+    path's length as the path calls it.  Returns the kernel's entry for
+    the closing line."""
     from mpit_tpu_torch.ops.fused_update import fused_elastic, fused_elastic_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     mva = 0.45  # ps_eamsgd_lr0_np4's
     max_err = 0.0
-    for n in (n_path, n_path + 1):
-        w, c = (torch.randn(n, device=dev, generator=gen) for _ in range(2))
+    edges = [(n, o if isinstance(o, int) else o[:2])
+             for r, n, o in sweep_edges(n_path) if r <= 1]
+    for n, offsets in [(n_path, 0), (n_path + 1, 0), *edges]:
+        offsets = (offsets,) * 2 if isinstance(offsets, int) else offsets
+        w, c = (offset_copy(torch, torch.randn(n, device=dev, generator=gen), o)
+                for o in offsets)
         want_w, want_sug = fused_elastic_reference(w, c, mva)
-        kw = w.clone()
-        _, sug = fused_elastic(kw, c, mva)
-        torch.cuda.synchronize()
-        err = max(float((kw - want_w).abs().max()), float((sug - want_sug).abs().max()))
-        max_err = max(max_err, err)
-        if not (torch.equal(kw, want_w) and torch.equal(sug, want_sug)):
-            raise AssertionError(f"K2 differs from its twin at n={n}: "
-                                 f"max_abs_err={err}")
+        for c_offset in (offsets[1], (offsets[1] + 1) % 4):
+            kw, kc = offset_copy(torch, w, offsets[0]), offset_copy(torch, c, c_offset)
+            _, sug = fused_elastic(kw, kc, mva)
+            torch.cuda.synchronize()
+            err = max(float((kw - want_w).abs().max()), float((sug - want_sug).abs().max()))
+            max_err = max(max_err, err)
+            if not (torch.equal(kw, want_w) and torch.equal(sug, want_sug)):
+                raise AssertionError(f"K2 differs from its twin at n={n} offsets={offsets} "
+                                     f"center at {c_offset}: max_abs_err={err}")
     sets = [tuple(torch.randn(n_path, device=dev, generator=gen) for _ in range(2))
             for _ in range(n_sets(8 * n_path))]
+    # w and c read, w and sug written; the twin runs w - c, mva * d, w - sug.
     times = timed_entry(torch, lambda a, b: fused_elastic(a, b, mva),
                         lambda a, b: fused_elastic_reference(a, b, mva),
                         sets, 16 * n_path, 3 * n_path, plain_kernels=3)
@@ -392,7 +427,9 @@ def check_k2(torch, n_path):
         "source": "mpit_tpu_torch/ops/csrc/fused_update.cu",
         "replaces": "mpit_tpu/ops/fused_update.py:220",
         "launches": None, "paths": {}, "max_abs_err": max_err,
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "ms": times["ms"], "warm_ms": times["warm_ms"], "behind_ms": times["behind_ms"],
+        "call_ms": times["call_ms"], "floor_ms": times["floor_ms"],
+        "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         # torch.lerp(w, c, mva) gives the retracted w but not sug.
         "library_ms": None,
@@ -465,6 +502,7 @@ def check_k3(torch, n_shard, n_full):
         "replaces": "mpit_tpu/ops/fused_update.py:157",
         "launches": None, "paths": {}, "max_abs_err": max_err,
         "ms": main_row["ms"], "warm_ms": main_row["warm_ms"],
+        "behind_ms": main_row["behind_ms"],
         "call_ms": main_row["call_ms"], "floor_ms": main_row["floor_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -476,11 +514,13 @@ def check_k3(torch, n_shard, n_full):
 
 def check_graph_replay(torch, n_mesh, n_shard):
     """K1 (the headline's commit with the retract and l2wd, and dp=4's four
-    rows) and K3 (a server's shard) captured once in a CUDA graph and
-    replayed three times, lr_t rewritten on the card before each replay:
-    bit-equal to three eager launches.  A host sync or an allocation on
-    the card in the call path would break the capture."""
-    from mpit_tpu_torch.ops.fused_update import fused_adam, fused_nesterov_commit
+    rows), K2 (comm-only EAMSGD's vector, ``sug`` the graph's own output)
+    and K3 (a server's shard) captured once in a CUDA graph and replayed
+    three times, lr_t and the center rewritten on the card before each
+    replay: bit-equal to three eager launches.  A host sync or an
+    allocation on the card in the call path would break the capture."""
+    from mpit_tpu_torch.ops.fused_update import (
+        fused_adam, fused_elastic, fused_nesterov_commit)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -490,33 +530,39 @@ def check_graph_replay(torch, n_mesh, n_shard):
     v.abs_()
     clr1 = torch.tensor([0.01], device=dev)
     clr4 = torch.tensor([0.01, 0.02, 0.03, 0.04], device=dev)
+    we, center = (torch.randn(n_mesh, device=dev, generator=gen) for _ in range(2))
     lr_t = torch.empty((), device=dev)
     lrs = (1e-3, 2e-3, 5e-4)
+    centers = [torch.randn(n_mesh, device=dev, generator=gen) for _ in lrs]
 
     def step(st):
         fused_nesterov_commit(st[0], st[1], g1, clr1, l2wd=1e-4, sug=sug1)
         fused_nesterov_commit(st[2], st[3], g4, clr4)
         fused_adam(st[4], g, st[5], st[6], lr_t)
+        return fused_elastic(st[7], center, 0.45)[1]
 
-    state = (w1, vt1, w4, vt4, p, m, v)
+    state = (w1, vt1, w4, vt4, p, m, v, we)
     eager = [x.clone() for x in state]
-    for lr in lrs:
+    for lr, c in zip(lrs, centers):
         lr_t.fill_(lr)
-        step(eager)
+        center.copy_(c)
+        eager_sug = step(eager)
     graphed = [x.clone() for x in state]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        step(graphed)
-    for lr in lrs:
+        graph_sug = step(graphed)
+    for lr, c in zip(lrs, centers):
         lr_t.fill_(lr)
+        center.copy_(c)
         graph.replay()
     torch.cuda.synchronize()
-    names = ("w1", "vt1", "w4", "vt4", "p", "m", "v")
-    bad = [nm for nm, a, b in zip(names, graphed, eager) if not torch.equal(a, b)]
+    names = ("w1", "vt1", "w4", "vt4", "p", "m", "v", "w", "sug")
+    bad = [nm for nm, a, b in zip(names, [*graphed, graph_sug], [*eager, eager_sug])
+           if not torch.equal(a, b)]
     if bad:
-        raise AssertionError(f"K1/K3 replayed from a CUDA graph differ from eager: {bad}")
-    print("K1/K3 CUDA graph replay: 3 replays bit-equal to eager")
+        raise AssertionError(f"K1/K2/K3 replayed from a CUDA graph differ from eager: {bad}")
+    print("K1/K2/K3 CUDA graph replay: 3 replays bit-equal to eager")
 
 
 def headline(torch, commit):
@@ -548,6 +594,196 @@ def headline(torch, commit):
         raise AssertionError(f"the headline path launched K1 {launches} times "
                              f"in {res['steps']} steps + {warm} warm-up steps")
     return {"launches": launches, "steps": res["steps"], "warmup_steps": warm}
+
+
+def grad_repeatability(torch, repeats=5):
+    """The flagship CNN's gradient (side 32, one worker row under ``vmap``,
+    a fixture batch of 128, as a dp=1 step takes it) computed ``repeats``
+    times from the same inputs on the card: for each parameter, the
+    largest gap to the first run.  A convolution whose gradient cuDNN sums
+    with atomics, in no fixed order, shows here."""
+    from mpit_tpu_torch.data.mnist import load_mnist
+    from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll
+    from mpit_tpu_torch.models.mnist import make_model
+
+    dev = torch.device("cuda")
+    flat = flatten_module(make_model("cnn", 32), 1, dev)
+    (x, y, _, _), _ = load_mnist(side=32)
+    xb = torch.as_tensor(x[:128].reshape(1, 128, -1), dtype=torch.float32, device=dev)
+    yb = torch.as_tensor(y[:128].reshape(1, 128), dtype=torch.int64, device=dev)
+    grads = torch.func.vmap(value_and_grad_nll(flat))
+    w = flat.w0[None]
+    runs = [flat.unravel(grads(w, xb, yb)[1][0]) for _ in range(repeats)]
+    return {name: max(float((r[name] - runs[0][name]).abs().max()) for r in runs[1:])
+            for name, _ in flat.spec}
+
+
+# The device loop against the host loop under cuDNN's default algorithms,
+# which do not repeat their bits (see grad_repeatability): the largest
+# relative gap of an epoch's mean loss, and of its test error in samples
+# of the 270, may be twice the host loop's own spread in the same call
+# (the largest gap between its three runs there: two under the defaults,
+# one under deterministic cuDNN), and never less than these floors, which
+# hold where the host runs happen to land close together: twice the
+# largest host-loop gap of earlier calls (1.02e-2 in loss at the
+# flagship's eighth epoch, 0 samples, on an H100), and three samples.
+# Runs fall about 1e-4 or about 1e-2 apart in loss, as cuDNN's algorithm
+# choice lands.  The bit-for-bit check is the one under deterministic cuDNN.
+LOOP_LOSS_FLOOR = 2.04e-2
+LOOP_ERR_SAMPLES_FLOOR = 3
+N_TEST = 270
+
+
+def k1_on_card(torch, prof):
+    """K1's launches that the card ran while ``prof`` (``torch.profiler``)
+    recorded: its sweep's kernel events, those replayed from a CUDA graph
+    included."""
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    return sum("sweep_kernel" in k and "CommitRule" in k for k in kernels)
+
+
+def device_loop_run(torch, commit, cfg, on_card=False):
+    """One ``mesh_launch.run`` of ``cfg`` with K1's count set to 0 just
+    before and read just after; checks the count.  The host loop launches
+    K1 once a step and once for each of precompile's two warm-up steps.
+    The device loop's wrapper runs while a graph is captured, not while it
+    replays: its count must be the warm-up's steps (precompile's two and
+    one epoch, on copies), each graph's steps (one capture each) and the
+    throughput leg's eager steps.  ``on_card``: the run is recorded by
+    ``torch.profiler`` and K1's kernels that ran on the card, replays
+    included, must be the run's steps plus the warm-up's.  Returns the
+    result and its path entry."""
+    from mpit_tpu_torch.train.mesh_launch import run
+
+    commit.launches = 0
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = run(cfg)
+            torch.cuda.synchronize()
+    else:
+        res = run(cfg)
+    wrapper = commit.launches
+    if not cfg.device_loop:
+        warm = 2  # precompile's two steps, on copies
+        if wrapper != res["steps"] + warm:
+            raise AssertionError(f"host loop: K1 launched {wrapper} times in "
+                                 f"{res['steps']} steps + {warm} warm-up steps")
+        return res, {"launches": wrapper, "steps": res["steps"], "warmup_steps": warm}
+    info = res["device_loop"]
+    graphs, warm = info["graphs"], info["warmup_steps"]
+    spe = graphs[0]["steps"]
+    replayed = sum(g["steps"] * g["replays"] for g in graphs)
+    leg = res["steps"] - replayed
+    if (not info["captured"] or any(g["steps"] != spe for g in graphs)
+            or replayed != spe * len(res["history"]) or warm != 2 + spe):
+        raise AssertionError(f"device loop: {replayed} steps replayed in "
+                             f"{len(res['history'])} epochs; {info}")
+    if wrapper != warm + spe * len(graphs) + leg:
+        raise AssertionError(f"device loop: K1's wrapper ran {wrapper} times; {info}, "
+                             f"{leg} leg steps")
+    entry = {"wrapper_launches": wrapper, "steps": res["steps"], "warmup_steps": warm,
+             "graphs": graphs}
+    if on_card:
+        card = k1_on_card(torch, prof)
+        if card != res["steps"] + warm:
+            raise AssertionError(f"device loop: the card ran K1 {card} times for "
+                                 f"{res['steps']} steps + {warm} warm-up steps")
+        entry["launches"] = entry["card_launches"] = card
+    return res, entry
+
+
+def device_loop_vs_host(torch, commit):
+    """The flagship at dp=1 trained to 2% test error as the reference's
+    bench runs it (10 epochs at most, stopping at the target), by the host
+    loop (``device_stream=1``) and by the device loop (one CUDA-graph
+    replay an epoch):
+
+    - with cuDNN held to deterministic algorithms, the host loop twice and
+      the device loop once: the host loop repeats its own bits there, and
+      the device loop must give them too, every epoch's loss and test
+      error; this device loop runs under ``torch.profiler``, which reads
+      K1's launches on the card;
+    - with cuDNN's default algorithms, as the port trains: the host loop
+      twice (the first with the steady-state leg) and the device loop with
+      the leg; they are timed, and the device loop is held to the host
+      loop within twice the host loop's spread in this call (the largest
+      gap between its three runs here; LOOP_LOSS_FLOOR and
+      LOOP_ERR_SAMPLES_FLOOR at least).
+
+    Every run's K1 launches are checked exactly (``device_loop_run``).
+    Returns the path entry: the profiled device loop's, the default
+    device loop's under ``default_cudnn``, and both times to target."""
+    from mpit_tpu_torch.train.mesh_launch import FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS
+
+    base = MESH_LAUNCH_DEFAULTS.merged(
+        FLAGSHIP_BENCH_KWARGS, dp=1, epochs=10, target_test_err=0.02, stop_at_target=1,
+        device="cuda")
+    runs, entries = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True
+        for name, kw in (("det_host_loop", {}), ("det_host_loop_again", {}),
+                         ("det_device_loop", {"device_loop": 1})):
+            runs[name], entries[name] = device_loop_run(
+                torch, commit, base.merged(kw), on_card=name == "det_device_loop")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for name, kw in (("host_loop", {"measure_throughput": 1}), ("host_loop_again", {}),
+                     ("device_loop", {"device_loop": 1, "measure_throughput": 1})):
+        runs[name], entries[name] = device_loop_run(torch, commit, base.merged(kw))
+
+    def curve(name):
+        return [(h["avg_loss"], h["test_err"]) for h in runs[name]["history"]]
+
+    def gaps(a, b):
+        pairs = list(zip(curve(a), curve(b)))
+        return {"loss_rel": max(abs(x[0] - y[0]) / abs(y[0]) for x, y in pairs),
+                "err_samples": max(round(abs(x[1] - y[1]) * N_TEST) for x, y in pairs),
+                "epochs": [len(curve(a)), len(curve(b))]}
+
+    summary = {name: {
+        "time_to_target": res["time_to_target"], "epochs": len(res["history"]),
+        "wall_s": res["history"][-1]["at"],
+        "epoch_ms": 1e3 * res["history"][-1]["at"] / len(res["history"]),
+        "compile_s": res["compile_s"], "samples_per_sec": res["samples_per_sec"],
+        "samples_per_sec_steady": res["samples_per_sec_steady"], "steps": res["steps"],
+        "test_err": [h["test_err"] for h in res["history"]],
+        "avg_loss": [h["avg_loss"] for h in res["history"]]} for name, res in runs.items()}
+    summary["gaps"] = {"det_host_runs": gaps("det_host_loop_again", "det_host_loop"),
+                       "det_device_vs_host": gaps("det_device_loop", "det_host_loop"),
+                       "host_runs": gaps("host_loop_again", "host_loop"),
+                       "host_vs_det_host": gaps("host_loop", "det_host_loop"),
+                       "host_again_vs_det_host": gaps("host_loop_again", "det_host_loop"),
+                       "device_vs_host": gaps("device_loop", "host_loop")}
+    summary["graphs"] = entries["device_loop"]["graphs"]
+    summary["gradient_gaps"] = grad_repeatability(torch)
+    print("device loop vs host loop: " + json.dumps(summary))
+    if curve("det_host_loop") != curve("det_host_loop_again"):
+        raise AssertionError("the host loop does not repeat its bits under deterministic "
+                             "cuDNN")
+    if curve("det_device_loop") != curve("det_host_loop"):
+        raise AssertionError("the device loop did not train bit for bit as the host loop "
+                             "under deterministic cuDNN")
+    g = summary["gaps"]["device_vs_host"]
+    host_pairs = [summary["gaps"][k]
+                  for k in ("host_runs", "host_vs_det_host", "host_again_vs_det_host")]
+    h = {k: max(p[k] for p in host_pairs) for k in ("loss_rel", "err_samples")}
+    limits = {"loss_rel": max(2 * h["loss_rel"], LOOP_LOSS_FLOOR),
+              "err_samples": max(2 * h["err_samples"], LOOP_ERR_SAMPLES_FLOOR)}
+    if not (g["epochs"][0] == g["epochs"][1] and g["loss_rel"] <= limits["loss_rel"]
+            and g["err_samples"] <= limits["err_samples"]):
+        raise AssertionError(f"the device loop strays from the host loop: {g}, "
+                             f"limits {limits} (host spread {h})")
+    print("device loop: bit-equal to the host loop under deterministic cuDNN; "
+          f"under its defaults {g} (host spread {h}, limits {limits})")
+    return {**entries["det_device_loop"], "default_cudnn": entries["device_loop"],
+            "time_to_target": {k: summary[k]["time_to_target"]
+                               for k in ("host_loop", "device_loop")}}
 
 
 def easgd_dp4(torch, commit):
@@ -1392,6 +1628,7 @@ def main() -> int:
     paths["headline"] = headline(torch, fused_nesterov_commit)
     paths["easgd_dp4"] = easgd_dp4(torch, fused_nesterov_commit)
     paths["launch_msgd"] = launch_msgd(torch, fused_nesterov_commit)
+    paths["device_loop_flagship"] = device_loop_vs_host(torch, fused_nesterov_commit)
     k1["launches"] = paths["headline"]["launches"]
 
     kernels = {"k1": fused_nesterov_commit, "k2": fused_elastic, "k3": fused_adam,

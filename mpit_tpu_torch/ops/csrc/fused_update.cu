@@ -6,23 +6,35 @@
 // __fadd_rn, ...; the build also passes -fmad=false), in the reference's
 // order, so each kernel is bit-equal to its plain PyTorch twin.
 //
-// K1 and K3: one sweep (`sweep_kernel`), shaped by what bounds them at the
-// main path's sizes (0.27-2.2 M elements, 3-15 us at the HBM rate): the
+// All three: one sweep (`sweep_kernel`), shaped by what bounds them at the
+// main path's sizes (0.27-2.2 M elements, 2.6-15 us at the HBM rate): the
 // fixed cost of a launch and of the first round trip to memory is as large
 // as the stream.  So every byte is requested at once and each warp goes on
 // as soon as its own bytes land:
 //
 // - One 16-byte chunk of each operand a thread, neighbouring threads on
-//   neighbouring chunks, loads issued before any arithmetic; up to 16
+//   neighbouring chunks, loads issued before any arithmetic (only of the
+//   operands the rule reads: K2's `sug` is written, never loaded); up to 16
 //   blocks of 256 threads an SM (the SM count read once from the device and
 //   cached), a grid-stride loop beyond that.
 // - Loads and stores carry the evict-first hint (ld/st.global.cs): a call
 //   touches each line once, and the L2 it leaves full of its own dirty
 //   lines is what the next call has to evict.
-// - The same per-element functions (commit_one, adam_one) serve the chunks
-//   and the scalar path.  K1 reads clr[0] once when there is one row; with
-//   several it finds a chunk's row, and the next boundary, once a chunk.
-//   K3 reads lr_t once a thread.
+// - Programmatic dependent launch: the sweep is launched with
+//   programmatic stream serialization allowed, waits for the grid before
+//   it (griddepcontrol.wait: that grid has completed and its writes are
+//   visible) before it reads anything, and at once lets the grid after it
+//   launch (griddepcontrol.launch_dependents).  A launch's fixed cost then
+//   overlaps the tail of the kernel before it, a PyTorch kernel that never
+//   signals included: queued behind an elementwise PyTorch kernel, as in
+//   a training step, each sweep takes 1.1-1.4 us less than launched
+//   plainly (PERF.md).  A kernel that follows without the attribute waits
+//   for this one to complete, as always.
+// - The same per-element functions (commit_one, elastic_one, adam_one)
+//   serve the chunks and the scalar path, so no path can round otherwise.
+//   K1 reads clr[0] once when there is one row; with several it finds a
+//   chunk's row, and the next boundary, once a chunk.  K3 reads lr_t once
+//   a thread.
 // - Edges: when every operand sits at the same offset within 16 bytes, the
 //   elements before the first 16-byte boundary (a view one float into its
 //   buffer) and the last ones past the final whole chunk go through a
@@ -69,6 +81,23 @@ __device__ __forceinline__ void commit_one(float& w, float& vt, float g,
   vt = __fsub_rn(vt, step);
 }
 
+// K2, the elastic force and retract of the EASGD exchange, worker side
+// (replaces `_elastic_kernel`, function `fused_elastic`).  For every
+// element of a flat vector:
+//
+//     sug <- mva * (w - c)
+//     w   <- w - sug
+//
+// `w` is updated in place, `sug` written to a buffer of its own, `c` (the
+// center) only read.  The center's `+= sum(sug)` is a reduction across
+// workers and stays outside.  16 bytes an element (w and c read, w and sug
+// written) for 3 flops: at the CNN's 544,522 parameters 8.71 MB, 2.60 us at
+// 3.35 TB/s.  Loading `sug` too would make it 20 bytes and 3.25 us.
+__device__ __forceinline__ void elastic_one(float& w, float c, float mva, float& sug) {
+  sug = __fmul_rn(mva, __fsub_rn(w, c));
+  w = __fsub_rn(w, sug);
+}
+
 // K3, Adam (replaces `_adam_kernel`, function `fused_adam`).  For every
 // element:
 //
@@ -111,11 +140,17 @@ struct Sweep {
   int64_t n_chunks;  // 16-byte chunks from element `head`
 };
 
+// A rule names its operands (`ptr`, `kOps` of them), which of them the
+// sweep loads (`kInMask`) and which it stores (`kOutMask`), and computes a
+// chunk of four elements in registers (`chunk`) or one element in memory
+// (`element`).
+
 // K1's operands: w, vt, g, sug (w and vt written) and a learning rate a
 // row.
 template <bool L2, bool RETRACT>
 struct CommitRule {
   static constexpr int kOps = RETRACT ? 4 : 3;
+  static constexpr unsigned kInMask = RETRACT ? 0b1111 : 0b0111;
   static constexpr unsigned kOutMask = 0b0011;
   float* ptr[4];
   const float* clr;
@@ -154,9 +189,37 @@ struct CommitRule {
   }
 };
 
+// K2's operands: w, c, sug; w is read and written, c only read, sug only
+// written.
+struct ElasticRule {
+  static constexpr int kOps = 3;
+  static constexpr unsigned kInMask = 0b011;
+  static constexpr unsigned kOutMask = 0b101;
+  float* ptr[3];
+  float mva;
+
+  __device__ __forceinline__ void prepare() {}
+
+  __device__ __forceinline__ void chunk(float4 (&x)[kOps], int64_t) const {
+    elastic_one(x[0].x, x[1].x, mva, x[2].x);
+    elastic_one(x[0].y, x[1].y, mva, x[2].y);
+    elastic_one(x[0].z, x[1].z, mva, x[2].z);
+    elastic_one(x[0].w, x[1].w, mva, x[2].w);
+  }
+
+  __device__ __forceinline__ void element(int64_t e) const {
+    float wi = ptr[0][e];
+    float si;
+    elastic_one(wi, ptr[1][e], mva, si);
+    ptr[0][e] = wi;
+    ptr[2][e] = si;
+  }
+};
+
 // K3's operands: p, g, m, v; p, m and v are written.
 struct AdamRule {
   static constexpr int kOps = 4;
+  static constexpr unsigned kInMask = 0b1111;
   static constexpr unsigned kOutMask = 0b1101;
   float* ptr[4];
   const float* lr_t;
@@ -188,12 +251,15 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(Rule rule, const Sweep 
   constexpr int K = Rule::kOps;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;");
   rule.prepare();
   for (int64_t c = first; c < sw.n_chunks; c += stride) {
     float4 x[K];
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      x[k] = __ldcs(reinterpret_cast<const float4*>(rule.ptr[k] + sw.head) + c);
+      if (Rule::kInMask >> k & 1)
+        x[k] = __ldcs(reinterpret_cast<const float4*>(rule.ptr[k] + sw.head) + c);
     rule.chunk(x, sw.head + 4 * c);
 #pragma unroll
     for (int k = 0; k < K; ++k)
@@ -207,18 +273,18 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(Rule rule, const Sweep 
     rule.element(i < sw.head ? i : tail + (i - sw.head));
 }
 
-// The SM count of device `dev`, read once.
-int sm_count(int dev) {
+// The SM count of device `dev` into `*sms`, read from the device once
+// (for the first 64 devices; past them on every call).
+cudaError_t sm_count(int dev, int* sms) {
   static std::atomic<int> cached[64];
-  if (dev < 0 || dev >= 64) return 132;
-  int sms = cached[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        sms <= 0)
-      sms = 132;
-    cached[dev].store(sms, std::memory_order_relaxed);
-  }
-  return sms;
+  const bool cacheable = dev >= 0 && dev < 64;
+  *sms = cacheable ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (*sms > 0) return cudaSuccess;
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (*sms <= 0) return cudaErrorInvalidDevice;
+  if (cacheable) cached[dev].store(*sms, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 // Launches `sweep_kernel<Rule>` over `total` elements: in 16-byte chunks
@@ -232,15 +298,24 @@ int launch_sweep(const Rule& rule, int64_t total, void* stream) {
   Sweep sw{total, same ? (int64_t)((16 - a) & 15) / 4 : total, 0};
   if (sw.head > total) sw.head = total;
   sw.n_chunks = (total - sw.head) / 4;
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
   if (err != cudaSuccess) return (int)err;
   const int64_t work = sw.n_chunks > 0 ? sw.n_chunks : total;
-  const int64_t cap = (int64_t)kBlocksPerSm * sm_count(dev);
+  const int64_t cap = (int64_t)kBlocksPerSm * sms;
   const int64_t want = (work + kThreads - 1) / kThreads;
-  sweep_kernel<Rule><<<(unsigned)(want < cap ? want : cap), kThreads, 0,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(rule, sw);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(want < cap ? want : cap));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sweep_kernel<Rule>, rule, sw);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <bool L2, bool RETRACT>
@@ -290,83 +365,14 @@ extern "C" int mpit_adam(float* p, const float* g, float* m, float* v,
   return launch_sweep(rule, n, stream);
 }
 
-// K2: fused elastic force + retract (the EASGD exchange, worker side).
-//
-// Replaces the Pallas kernel `_elastic_kernel` of
-// mpit_tpu/ops/fused_update.py (function `fused_elastic`).  For every
-// element of a flat vector of n floats:
-//
-//     sug <- mva * (w - c)
-//     w   <- w - sug
-//
-// `w` is updated in place, `sug` is written to a buffer of its own; `c` (the
-// center) is read only.  The center's `+= sum(sug)` is a reduction across
-// workers and stays outside.
-//
-// Bound on Hopper: bytes.  12 bytes read and 8 written per element for 3
-// flops.  At the CNN's 544,522 parameters that is 8.71 MB, 2.60 us at
-// 3.35 TB/s.
-//
-// Design: a grid-stride sweep, float4 access when every pointer is 16-byte
-// aligned, and a scalar loop for the last n % 4 elements (or everything
-// when a pointer is not aligned).
-
-namespace {
-
-__device__ __forceinline__ void elastic_one(float& w, float c, float mva,
-                                            float& sug) {
-  sug = __fmul_rn(mva, __fsub_rn(w, c));
-  w = __fsub_rn(w, sug);
-}
-
-__global__ void elastic_kernel(float* __restrict__ w,
-                               const float* __restrict__ c,
-                               float* __restrict__ sug, int64_t n_vec,
-                               int64_t n, float mva) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float4* w4 = reinterpret_cast<float4*>(w);
-  const float4* c4 = reinterpret_cast<const float4*>(c);
-  float4* s4 = reinterpret_cast<float4*>(sug);
-  for (int64_t v = tid; v < n_vec; v += stride) {
-    float4 wv = w4[v];
-    const float4 cv = c4[v];
-    float4 sv;
-    elastic_one(wv.x, cv.x, mva, sv.x);
-    elastic_one(wv.y, cv.y, mva, sv.y);
-    elastic_one(wv.z, cv.z, mva, sv.z);
-    elastic_one(wv.w, cv.w, mva, sv.w);
-    w4[v] = wv;
-    s4[v] = sv;
-  }
-  for (int64_t i = n_vec * 4 + tid; i < n; i += stride) {
-    float wi = w[i];
-    float si;
-    elastic_one(wi, c[i], mva, si);
-    w[i] = wi;
-    sug[i] = si;
-  }
-}
-
-// Blocks for a sweep of `work` items: one per thread up to 16 blocks per
-// SM of an H100 (132 SMs); beyond that the grid-stride loop takes over.
-unsigned sweep_blocks(int64_t work, int threads) {
-  const int64_t max_blocks = 132 * 16;
-  int64_t blocks = (work + threads - 1) / threads;
-  return (unsigned)(blocks > max_blocks ? max_blocks : blocks);
-}
-
-}  // namespace
-
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mpit_elastic(float* w, const float* c, float* sug, long long n,
                             float mva, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const uintptr_t bits = (uintptr_t)w | (uintptr_t)c | (uintptr_t)sug;
-  const int64_t n_vec = (bits & 15) == 0 ? n / 4 : 0;
-  const int threads = 256;
-  elastic_kernel<<<sweep_blocks(n_vec > 0 ? n_vec : n, threads), threads, 0,
-                   reinterpret_cast<cudaStream_t>(stream)>>>(
-      w, c, sug, n_vec, (int64_t)n, mva);
-  return (int)cudaGetLastError();
+  ElasticRule rule{};
+  rule.ptr[0] = w;
+  rule.ptr[1] = const_cast<float*>(c);
+  rule.ptr[2] = sug;
+  rule.mva = mva;
+  return launch_sweep(rule, n, stream);
 }

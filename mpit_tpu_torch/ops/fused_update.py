@@ -146,23 +146,6 @@ def _cuda_stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def _check_flat(n: int, device: torch.device, **tensors) -> None:
-    """Every operand a contiguous f32 ``(n,)`` tensor on ``device``."""
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != (n,):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({n},)")
-    if n == 0:
-        raise ValueError("the vectors are empty")
-
-
 def fused_nesterov_commit(
     w: torch.Tensor,
     vt: torch.Tensor,
@@ -216,6 +199,9 @@ def fused_elastic_reference(w, center, mva):
     return w - sug, sug
 
 
+_K2_NAMES = ("w", "center")
+
+
 def fused_elastic(w: torch.Tensor, center: torch.Tensor,
                   mva: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Elastic exchange, worker side, in one sweep: ``sug = mva*(w -
@@ -223,18 +209,23 @@ def fused_elastic(w: torch.Tensor, center: torch.Tensor,
     sug)``.  The center's ``+= sum(sug)`` is a cross-worker reduce and
     stays outside (reference optim-eamsgd.lua:58-66 / pserver.lua:83).
     Each launch adds one to ``fused_elastic.launches``."""
-    n = w.shape[0] if w.dim() == 1 else -1
-    _check_flat(n, w.device, w=w, center=center)
+    _check_operands(_K2_NAMES, (w, center), 2)
+    shape = w.shape
+    if len(shape) != 1 or shape[0] == 0:
+        raise ValueError(f"w must be a non-empty (n,) vector, got {tuple(shape)}")
     if w.data_ptr() == center.data_ptr():
         raise ValueError("w and center must be distinct buffers")
-    if w.device.type == "cpu":
+    if w.is_cpu:
         w_new, sug = fused_elastic_reference(w, center, float(mva))
         w.copy_(w_new)
         return w, sug
     stream = _cuda_stream(w)
-    sug = torch.empty_like(w)
-    err = _lib().mpit_elastic(w.data_ptr(), center.data_ptr(), sug.data_ptr(),
-                              n, float(mva), stream)
+    # sug at w's offset within 16 bytes: the sweep streams chunks only where
+    # every operand shares it, so a view off the grid keeps its chunks.
+    off = w.data_ptr() % 16 // 4
+    sug = torch.empty(off + shape[0], device=w.device)[off:] if off else torch.empty_like(w)
+    err = _lib().mpit_elastic(w.data_ptr(), center.data_ptr(), sug.data_ptr(), shape[0],
+                              float(mva), stream)
     if err != 0:
         raise RuntimeError(f"fused_elastic launch failed: CUDA error {err}")
     fused_elastic.launches += 1

@@ -8,14 +8,19 @@ reference's result keys.  The data order is the reference's
 (``np.random.default_rng(seed)`` permutations), so a run with the same
 ``w0`` follows the same batches in both packages.
 
+``--device_loop 1`` trains every epoch from captured CUDA graphs, with no
+host round trip inside an epoch (:func:`_device_loop_train`).
+
 Runs on CUDA unless ``--device cpu``.  What the reference has and this
-slice does not (``--opt syncdp``, ``--device_loop``, checkpoints and
-resume, multi-host groups) raises ``NotImplementedError``.
+slice does not (``--opt syncdp``, checkpoints and resume, multi-host
+groups) raises ``NotImplementedError``.
 
 Example:
 
     python -m mpit_tpu_torch.train.mesh_launch --opt easgd --su 10 \
         --epochs 10 --device_stream 1 --precompile 1
+    python -m mpit_tpu_torch.train.mesh_launch --device_loop 1 \
+        --stop_at_target 1 --target_test_err 0.02
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ MESH_LAUNCH_DEFAULTS = Config(
     target_test_err=0.01,
     stop_at_target=0,  # 1 -> stop training once target_test_err is reached
     device_stream=0,  # 1 -> stage each epoch's batches on device up front
-    device_loop=0,  # a later slice (CUDA-graph candidate); 1 raises
+    device_loop=0,  # 1 -> every epoch one CUDA-graph replay (_device_loop_train)
     measure_throughput=0,  # 1 -> post-training steady-state samples/s leg
     ckpt_dir="",  # a later slice; set raises
     resume="",  # a later slice; set raises
@@ -84,8 +89,6 @@ FLAGSHIP_BENCH_KWARGS = dict(
 def _refuse_later_slices(cfg: Config) -> None:
     later = {
         "opt=syncdp": (cfg.opt == "syncdp", "the sync data-parallel trainer"),
-        "device_loop": (bool(cfg.device_loop),
-                        "the whole-run device program (CUDA-graph candidate)"),
         "ckpt_dir": (bool(cfg.ckpt_dir), "checkpoint/resume"),
         "resume": (bool(cfg.resume), "checkpoint/resume"),
         "multi-host flags": (
@@ -101,7 +104,139 @@ def _refuse_later_slices(cfg: Config) -> None:
         raise ValueError(f"opt must be easgd, got {cfg.opt!r}")
 
 
+def _device_loop_train(*, cfg, trainer, state, flat, rng, x_train, y_train,
+                       x_test_d, y_test_d, steps_per_epoch, per_step, n_dp,
+                       device, log):
+    """Train-to-target with no host round trip inside an epoch: the port of
+    the reference's ``_device_loop_train``, whose one ``lax.while_loop``
+    program becomes one CUDA graph an epoch.
+
+    The training set goes to the device once, and every epoch's order
+    (the host loop's own ``rng.permutation``, all epochs drawn up front)
+    in one ``(epochs, steps * dp * batch)`` index tensor.  An epoch's body
+    gathers its batches by index, runs ``steps_per_epoch``
+    :meth:`MeshEASGD.step` calls (K1 launched on the capturing stream),
+    and writes the center's test error and the epoch's mean loss into
+    ``errs[ep]`` and ``losses[ep]`` on the device; a device counter ``ep``
+    picks the epoch, so one graph serves every epoch that starts at the
+    same phase of the sync schedule.  The schedule is host-side
+    (``steps % su``), so there is one graph per starting phase (at most
+    ``su``), all captured before the clock starts, after a warm-up on
+    copies (cuDNN's and cuBLAS's first calls), into one memory pool: only
+    temporaries live there, and the graphs replay one at a time.
+    ``stop_at_target`` reads ``errs[ep]`` (4 bytes) after each replay, the
+    counterpart of the ``while_loop``'s condition; otherwise every replay
+    is queued and the buffers are read once at the end.  On the CPU the
+    same body runs eagerly; on a card it always runs from the graphs, and
+    a capture or replay that fails raises.
+
+    Trade-offs, against the reference's: the reference shuffles with
+    ``jax.random`` and is not bit-comparable with its host loop; this one
+    takes the host loop's order, so it trains bit for bit as
+    ``device_stream=1``'s host loop does.  As there, only the last epoch's
+    wall time is real, and mid-run checkpoint and profiling hooks cannot
+    fire.
+
+    Returns the history, ``time_to_target``, the warm-up and capture
+    seconds, the wall, the samples trained, ``t0`` and what ran: the
+    graphs, each with its starting phase, its steps and its replays, and
+    the steps the warm-up ran on copies.
+    """
+    n = len(x_train)
+    spe, epochs = steps_per_epoch, int(cfg.epochs)
+    take = spe * per_step
+    orders = np.stack([rng.permutation(n)[:take] for _ in range(epochs)])
+    x_all = torch.as_tensor(np.asarray(x_train, np.float32).reshape(n, -1), device=device)
+    y_all = torch.as_tensor(np.asarray(y_train).astype(np.int64), device=device)
+    orders_d = torch.as_tensor(orders.astype(np.int64), device=device)
+    ep_d = torch.zeros(1, dtype=torch.int64, device=device)
+    errs = torch.full((epochs,), float("inf"), device=device)
+    losses = torch.zeros(epochs, device=device)
+    bufs = (ep_d, errs, losses)
+
+    def epoch_body(st, ep, errs, losses):
+        idx = orders_d.index_select(0, ep).view(-1)
+        x_ep = x_all.index_select(0, idx).view(spe, n_dp, cfg.batch, -1)
+        y_ep = y_all.index_select(0, idx).view(spe, n_dp, cfg.batch)
+        _, ep_losses = trainer.run_epoch(st, x_ep, y_ep)
+        losses.index_copy_(0, ep, ep_losses.mean().view(1))
+        err = error_rate(flat, trainer.center_params(st), x_test_d, y_test_d)
+        errs.index_copy_(0, ep, err.view(1))
+        ep.add_(1)
+
+    graphs = {}
+    warmup_steps = 0
+    t_c = time.perf_counter()
+    if device.type == "cuda":
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            trainer.precompile(state, x_all[:per_step].view(n_dp, cfg.batch, -1),
+                               y_all[:per_step].view(n_dp, cfg.batch))
+            epoch_body({k: v.clone() for k, v in state.items()},
+                       *(b.clone() for b in bufs))
+        torch.cuda.current_stream(device).wait_stream(stream)
+        torch.cuda.synchronize(device)
+        warmup_steps = 2 + spe  # precompile's sync and local step, one epoch
+        pool = torch.cuda.graph_pool_handle()
+        for phase in sorted({ep * spe % trainer.su for ep in range(epochs)}):
+            trainer.set_steps(phase)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                epoch_body(state, *bufs)
+            graphs[phase] = {"graph": graph, "phase": phase, "steps": spe, "replays": 0}
+        trainer.set_steps(0)
+    compile_s = time.perf_counter() - t_c
+    log.info("device-loop: %d graph(s) captured in %.2fs", len(graphs), compile_s)
+
+    t0 = time.perf_counter()
+    ran = 0
+    while ran < epochs:
+        if graphs:
+            g = graphs[ran * spe % trainer.su]
+            g["graph"].replay()
+            g["replays"] += 1
+        else:
+            epoch_body(state, *bufs)
+        ran += 1
+        if cfg.stop_at_target and float(errs[ran - 1]) <= cfg.target_test_err:
+            break
+    errs_h, losses_h = errs.cpu().numpy(), losses.cpu().numpy()  # fences the run
+    wall = time.perf_counter() - t0
+    # The schedule's host counter did not move during the replays.
+    trainer.set_steps(ran * spe)
+
+    history = [{"epoch": i, "avg_loss": float(losses_h[i]), "test_err": float(errs_h[i]),
+                # Only the last epoch's wall time is real.
+                "at": round(wall, 3) if i == ran - 1 else None}
+               for i in range(ran)]
+    for h in history:
+        log.info("epoch %d avg_loss %.5f test_err %.4f",
+                 h["epoch"], h["avg_loss"], h["test_err"])
+    hits = [h["test_err"] <= cfg.target_test_err for h in history]
+    # No per-epoch wall time exists, so a target met mid-run has none to
+    # report: time_to_target is the wall only where the run stopped at it.
+    time_to_target = wall if cfg.stop_at_target and hits and hits[-1] else None
+    if not cfg.stop_at_target and any(hits):
+        log.warning(
+            "device_loop: target %.4f was reached mid-run but stop_at_target=0; "
+            "no per-epoch wall times exist, so time_to_target stays None (use "
+            "stop_at_target=1 or the host loop to measure it)", cfg.target_test_err)
+    log.info("device-loop: %d epoch(s) in %.3fs wall", ran, wall)
+    ran_info = {
+        "captured": bool(graphs),
+        "warmup_steps": warmup_steps,
+        "graphs": [{k: v for k, v in g.items() if k != "graph"} for g in graphs.values()],
+    }
+    return history, time_to_target, compile_s, wall, ran * take, t0, ran_info
+
+
 def run(cfg: Config) -> dict:
+    if cfg.device_loop and (cfg.ckpt_dir or cfg.resume or cfg.profile_dir):
+        raise ValueError(
+            "device_loop=1 runs every epoch from a captured CUDA graph: there are "
+            "no host epoch boundaries for checkpointing, resume, or per-epoch "
+            "profiling; use the host loop for ckpt_dir/resume/profile_dir")
     _refuse_later_slices(cfg)
     device = resolve_device(cfg.device)
     if cfg.measure_throughput and device.type != "cuda":
@@ -158,7 +293,16 @@ def run(cfg: Config) -> dict:
     samples_trained = 0
 
     compile_s = None
-    if cfg.precompile:
+    loop_info = None
+    if cfg.device_loop:
+        (history, time_to_target, compile_s, wall, samples_trained, t0,
+         loop_info) = _device_loop_train(
+            cfg=cfg, trainer=trainer, state=state, flat=flat, rng=rng,
+            x_train=x_train, y_train=y_train, x_test_d=x_test_d, y_test_d=y_test_d,
+            steps_per_epoch=steps_per_epoch, per_step=per_step, n_dp=n_dp,
+            device=device, log=log)
+        epoch_train_s = [wall]
+    elif cfg.precompile:
         # Warm both step kinds and the eval on the real shapes, so t0
         # measures training; reported separately as compile_s.
         t_c = time.perf_counter()
@@ -182,9 +326,10 @@ def run(cfg: Config) -> dict:
             losses.append(trainer.step(state, *to_device(idx, (n_dp,)))[1])
         return torch.stack(losses)
 
-    t0 = time.perf_counter()
+    if not cfg.device_loop:
+        t0 = time.perf_counter()  # the device loop sets its own
     with profiler_trace(cfg.profile_dir):
-        for epoch in range(cfg.epochs):
+        for epoch in range(0 if cfg.device_loop else cfg.epochs):
             order = rng.permutation(n)
             t_ep = time.perf_counter()
             with trace_annotation(f"epoch {epoch}"):
@@ -204,11 +349,16 @@ def run(cfg: Config) -> dict:
             if cfg.stop_at_target and time_to_target is not None:
                 break
     train_time = sum(epoch_train_s)
-    # Wall-clock throughput: drop epoch 0 (first launches, cuDNN's
-    # algorithm search) when there is anything else to measure.
-    ss = epoch_train_s[1:] if len(epoch_train_s) > 1 else epoch_train_s
     per_epoch = steps_per_epoch * per_step
-    sps = len(ss) * per_epoch / sum(ss) if ss and sum(ss) > 0 else None
+    if cfg.device_loop:
+        # One wall over every epoch, the on-device eval included: not the
+        # host loop's definition (train_wall_mode says which).
+        sps = samples_trained / train_time if train_time > 0 else None
+    else:
+        # Wall-clock throughput: drop epoch 0 (first launches, cuDNN's
+        # algorithm search) when there is anything else to measure.
+        ss = epoch_train_s[1:] if len(epoch_train_s) > 1 else epoch_train_s
+        sps = len(ss) * per_epoch / sum(ss) if ss and sum(ss) > 0 else None
 
     sps_steady = None
     if cfg.measure_throughput:
@@ -235,7 +385,9 @@ def run(cfg: Config) -> dict:
         "samples_trained": samples_trained,
         "samples_per_sec": round(sps, 1) if sps else None,
         "samples_per_sec_steady": round(sps_steady, 1) if sps_steady else None,
-        "train_wall_mode": "host_loop",
+        # Which wall fed samples_per_sec: "device_loop" includes the
+        # on-device eval; "host_loop" times training only.
+        "train_wall_mode": "device_loop" if cfg.device_loop else "host_loop",
         "compile_s": round(compile_s, 3) if compile_s is not None else None,
         "data_source": source,
         "mesh": {"dp": n_dp, "shard": 1},
@@ -245,6 +397,9 @@ def run(cfg: Config) -> dict:
         # Training steps, the throughput leg's passes included (precompile's
         # warm-up steps run on copies and are not counted).
         "steps": trainer.steps,
+        # device_loop: the captured graphs (phase, steps, replays) and the
+        # warm-up's steps on copies; None for the host loop.
+        "device_loop": loop_info,
     }
 
 

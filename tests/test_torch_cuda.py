@@ -11,10 +11,12 @@ not have.)  Each kernel must be bit-equal to its twin: both round every
 operation, in the same order, and the kernels are built with
 ``-fmad=false``.  Shapes: the main path's (544,522 for K1 and K2; 272,261
 and 544,522 for K3), odd lengths (the scalar tail), and views one float
-into a buffer (pointers not 16-byte aligned).  K1 and K3 also at lengths
-and offsets that reach every path of their sweep (16-byte chunks in one
-or more turns of the grid, the scalar head and tail, the scalar path
-alone) and replayed from a CUDA graph.
+into a buffer (pointers not 16-byte aligned).  K1, K2 and K3 also at
+lengths and offsets that reach every path of their sweep (16-byte chunks
+in one or more turns of the grid, the scalar head and tail, the scalar
+path alone) and replayed from a CUDA graph.  ``mesh_launch``'s device
+loop, which replays K1 from captured graphs, trains bit for bit as its
+host loop on the card.
 
 The flash-attention kernels (K4 forward in both output modes, K5 fused
 backward, K6 two-kernel backward) sum in another order than their twins,
@@ -313,6 +315,103 @@ def test_k1_k3_replay_in_a_cuda_graph_bit_equal_to_eager(dev):
                                                                      before[1] + 1)
     for got, want in zip(graphed, eager):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", SWEEP_LENGTHS, ids=str)
+def test_k2_sweep_bit_equal_on_every_path(dev, n, offset):
+    """K2's ``w`` ``offset`` floats into its buffer; ``sug`` comes back at
+    the same offset.  The center at that offset too (one chunk grid: a
+    scalar head unless ``offset`` is 0, and the tail) and at another (the
+    scalar path alone)."""
+    n = _sweep_n(dev, n)
+    w, c = _flat(dev, n, offset, 2, 7 * n + offset)
+    want_w, want_sug = fused_elastic_reference(w, c, 0.45)
+    for c_offset in (offset, (offset + 1) % 4):
+        kw, kc = _offset_copy(w, offset), _offset_copy(c, c_offset)
+        before = fused_elastic.launches
+        got_w, sug = fused_elastic(kw, kc, 0.45)
+        torch.cuda.synchronize()
+        assert fused_elastic.launches == before + 1
+        assert got_w is kw and sug.data_ptr() % 16 == kw.data_ptr() % 16
+        assert torch.equal(kw, want_w) and torch.equal(sug, want_sug), c_offset
+
+
+def test_k2_replays_in_a_cuda_graph_bit_equal_to_eager(dev):
+    """K2 at the comm-only path's length captured once and replayed three
+    times with the center rewritten on the card before each replay: the
+    bits of three eager launches, ``sug`` in the graph's own output.  The
+    capture counts one launch, the replays none."""
+    w, c = _flat(dev, 544522, 0, 2, 13)
+    centers = _flat(dev, 544522, 0, 3, 17)
+    eager_w, eager_sugs = w.clone(), []
+    for center in centers:
+        _, s = fused_elastic(eager_w, center, 0.45)
+        eager_sugs.append(s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = fused_elastic.launches
+    with torch.cuda.graph(graph):
+        _, sug = fused_elastic(w, c, 0.45)
+    assert fused_elastic.launches == before + 1
+    for center, want_sug in zip(centers, eager_sugs):
+        c.copy_(center)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(sug, want_sug)
+    assert fused_elastic.launches == before + 1
+    assert torch.equal(w, eager_w)
+
+
+def _mesh_run(**kw):
+    from mpit_tpu_torch.train import mesh_launch
+
+    base = dict(model="cnn", side=8, dp=2, su=2, batch=128, lr=1e-2, mom=0.99,
+                device="cuda")
+    return mesh_launch.run(mesh_launch.MESH_LAUNCH_DEFAULTS.merged(base, **kw))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN held to deterministic algorithms: its default weight gradient
+    of the first convolution sums with atomics and does not repeat its
+    bits from run to run."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+def test_device_loop_on_the_card_trains_as_the_host_loop(dev, deterministic_cudnn):
+    """Three epochs (five steps each, su 2: the epochs start at both phases
+    of the schedule) from two captured CUDA graphs, bit for bit as the
+    host loop with device_stream=1, which repeats its own bits under
+    deterministic cuDNN.  K1's wrapper runs once a step while a graph is
+    captured and not at all while it replays: the count is the warm-up's
+    steps (precompile's two and one epoch on copies) and each graph's
+    steps, and the graphs' steps times their replays are the steps
+    trained."""
+    hosts = [_mesh_run(epochs=3, device_stream=1, precompile=1) for _ in range(2)]
+    before = fused_nesterov_commit.launches
+    loop = _mesh_run(epochs=3, device_loop=1)
+    launches = fused_nesterov_commit.launches - before
+    curves = [[(h["avg_loss"], h["test_err"]) for h in r["history"]] for r in (*hosts, loop)]
+    assert curves[0] == curves[1], "the host loop does not repeat its own bits"
+    assert curves[2] == curves[0]
+    info, spe = loop["device_loop"], 5
+    assert info["captured"] and sorted(g["phase"] for g in info["graphs"]) == [0, 1]
+    assert all(g["steps"] == spe for g in info["graphs"])
+    assert info["warmup_steps"] == 2 + spe
+    assert launches == info["warmup_steps"] + sum(g["steps"] for g in info["graphs"])
+    assert sum(g["steps"] * g["replays"] for g in info["graphs"]) == loop["steps"] == 3 * spe
+
+
+def test_device_loop_then_the_throughput_leg_on_the_card(dev):
+    """The bench flow: the device loop, the schedule resynced, then the
+    steady-state leg's eager passes."""
+    res = _mesh_run(epochs=2, device_loop=1, measure_throughput=1)
+    assert res["samples_per_sec_steady"] > 0
+    assert res["steps"] > 2 * 5 and (res["steps"] - 2 * 5) % 5 == 0
 
 
 # (leading axes, Lq, Lk, q_offset, kv_offset, causal): odd lengths, a

@@ -174,7 +174,7 @@ def test_timing_refuses_cpu_state():
 
 
 @pytest.mark.parametrize("flags", [
-    dict(opt="syncdp"), dict(device_loop=1), dict(ckpt_dir="x"),
+    dict(opt="syncdp"), dict(ckpt_dir="x"),
     dict(resume="auto"), dict(hostfile="h"), dict(coordinator="c:1"),
     dict(num_processes=2), dict(process_id=0),
 ])

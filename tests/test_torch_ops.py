@@ -143,6 +143,22 @@ def test_k2_cpu_wrapper_is_the_twin_in_place():
     assert torch.equal(tw, rw) and torch.equal(sug, rsug)
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [5, 1029])
+def test_k2_cpu_wrapper_on_views_is_the_jax_reference(n, offset):
+    """``w`` and the center as views ``offset`` floats into their buffers,
+    as a card run gives the sweep a scalar head: ``w`` updated in place
+    through the view, bit-equal to the JAX reference."""
+    w, c, _, _ = _inputs(n + offset, (n,))
+    tw = torch.zeros(offset + n)[offset:].copy_(torch.from_numpy(w))
+    tc = torch.zeros(offset + n)[offset:].copy_(torch.from_numpy(c))
+    got_w, sug = fused_elastic(tw, tc, 0.45)
+    rw, rsug = jax_elastic_reference(jnp.asarray(w), jnp.asarray(c), 0.45)
+    assert got_w is tw
+    assert np.array_equal(tw.numpy(), np.asarray(rw))
+    assert np.array_equal(sug.numpy(), np.asarray(rsug))
+
+
 # -- K3: fused Adam -------------------------------------------------------------
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Same-card A/B of K1 (fused Nesterov commit) and K3 (fused Adam): other
-versions of ``mpit_tpu_torch/ops/csrc/fused_update.cu`` (and of its
+"""Same-card A/B of K1 (fused Nesterov commit), K2 (fused elastic) and K3
+(fused Adam): other versions of ``mpit_tpu_torch/ops/csrc/fused_update.cu`` (and of its
 wrapper module) against the ones in this checkout.
 
 Each other version is a directory of its own under ``.ab/`` (listed in
@@ -24,8 +24,21 @@ A) on one card in one process, at the shapes the main path gives them:
   its operands in device memory;
 - device us, warm: queued, one buffer set (an MNIST step's 2.18 MB
   vectors can find theirs in the L2);
+- device us, behind: what the call adds queued behind an elementwise
+  PyTorch kernel (``add_`` on a vector of the operands' length), as a
+  training step queues it (``chip_smoke.behind_ms``): no sweep before it
+  to overlap with;
 - call us: each wrapper (the old module bound to the old library) called
   from a host loop, as a training step calls it.
+
+K2 runs at the comm-only EAMSGD path's length (544,522), one float longer
+(a scalar tail) and as views one float into their buffers (a scalar
+head); a version whose wrapper takes ``out`` writes ``sug`` into a buffer
+of the set, at the same offset, and one without allocates it per call.
+Each version also runs comm-only EAMSGD's card work of one round as
+``optim/easgd.py`` does (the center copied from host memory, K2, ``sug``
+copied back), timed on the host clock in blocks of rounds
+(``round_us``: each block's mean).
 
 Each number is the mean of the version's two turns; both turns are kept.
 The per-launch floor, ``torch.cuda._sleep(1)`` queued the same way, is
@@ -39,6 +52,7 @@ import argparse
 import ctypes
 import hashlib
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -48,18 +62,25 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-# (kernel, label, rows, n, retract): K1 at the headline's commit (one row,
-# with and without the sync round's retract), at dp=4 and in the 1-D form
-# of `launch --np 1 --opt msgd`; K3 at a server's shard (np=4) and at the
-# whole vector (adam-single).
+# (kernel, label, rows, n, retract, offset): K1 at the headline's commit
+# (one row, with and without the sync round's retract), at dp=4 and in the
+# 1-D form of `launch --np 1 --opt msgd`; K2 at comm-only EAMSGD's vector,
+# one float longer, and one float into its buffers; K3 at a server's shard
+# (np=4) and at the whole vector (adam-single).  `offset`: floats into
+# each operand's buffer.
 SHAPES = (
-    ("k1", "1 x 544,522", 1, 544522, False),
-    ("k1", "1 x 544,522 + retract", 1, 544522, True),
-    ("k1", "4 x 544,522", 4, 544522, False),
-    ("k1", "1-D 10,250", 0, 10250, False),
-    ("k3", "272,261", 0, 272261, False),
-    ("k3", "544,522", 0, 544522, False),
+    ("k1", "1 x 544,522", 1, 544522, False, 0),
+    ("k1", "1 x 544,522 + retract", 1, 544522, True, 0),
+    ("k1", "4 x 544,522", 4, 544522, False, 0),
+    ("k1", "1-D 10,250", 0, 10250, False, 0),
+    ("k2", "544,522", 0, 544522, False, 0),
+    ("k2", "544,523", 0, 544523, False, 0),
+    ("k2", "544,522 one float in", 0, 544522, False, 1),
+    ("k3", "272,261", 0, 272261, False, 0),
+    ("k3", "544,522", 0, 544522, False, 0),
 )
+K2_MVA = 0.45  # ps_eamsgd_lr0_np4's
+EAMSGD_N = 544522  # comm-only EAMSGD's vector, the CNN at side 32
 
 
 def build_old(src: pathlib.Path) -> ctypes.CDLL:
@@ -86,19 +107,24 @@ def load_old_module(path: pathlib.Path, lib: ctypes.CDLL, name: str):
     spec.loader.exec_module(mod)
     f32, i64, ptr = ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p
     lib.mpit_nesterov_commit.argtypes = [ptr] * 5 + [i64, i64, f32, ptr]
+    lib.mpit_elastic.argtypes = [ptr] * 3 + [i64, f32, ptr]
     lib.mpit_adam.argtypes = [ptr] * 5 + [i64] + [f32] * 5 + [ptr]
-    for fn in (lib.mpit_nesterov_commit, lib.mpit_adam):
+    for fn in (lib.mpit_nesterov_commit, lib.mpit_elastic, lib.mpit_adam):
         fn.restype = ctypes.c_int
     mod._lib = lambda: lib
     return mod
 
 
-def operands(torch, kernel, rows, n, gen):
-    """One buffer set: K1's (w, vt, g, sug, clr) or K3's (p, g, m, v,
-    lr_t); 1-D where ``rows`` is 0."""
+def operands(torch, kernel, rows, n, gen, offset=0):
+    """One buffer set: K1's (w, vt, g, sug, clr), K2's (w, center, out) or
+    K3's (p, g, m, v, lr_t); 1-D where ``rows`` is 0, each vector
+    ``offset`` floats into a buffer of its own."""
     dev = torch.device("cuda")
     shape = (n,) if rows == 0 else (rows, n)
-    vecs = [torch.randn(shape, device=dev, generator=gen) for _ in range(4)]
+    vecs = [torch.randn(offset + math.prod(shape), device=dev, generator=gen)[offset:]
+            .view(shape) for _ in range(4)]
+    if kernel == "k2":
+        return tuple(vecs[:3])
     if kernel == "k1":
         vecs[3].mul_(1e-2)
         clr = (torch.tensor(0.01, device=dev) if rows == 0
@@ -108,11 +134,20 @@ def operands(torch, kernel, rows, n, gen):
     return (*vecs, torch.tensor(1e-3 * math.sqrt(1 - 0.999) / (1 - 0.9), device=dev))
 
 
+def takes_out(mod) -> bool:
+    """Whether ``mod``'s K2 wrapper takes a caller-owned ``out``."""
+    return "out" in inspect.signature(mod.fused_elastic).parameters
+
+
 def caller(kernel, retract, mod):
     """``mod``'s wrapper over one buffer set."""
     if kernel == "k1":
         return lambda w, vt, g, sug, clr: mod.fused_nesterov_commit(
             w, vt, g, clr, sug=sug if retract else None)
+    if kernel == "k2":
+        if takes_out(mod):
+            return lambda w, c, out: mod.fused_elastic(w, c, K2_MVA, out=out)
+        return lambda w, c, out: mod.fused_elastic(w, c, K2_MVA)
     return lambda p, g, m, v, lr_t: mod.fused_adam(p, g, m, v, lr_t)
 
 
@@ -123,17 +158,29 @@ def check(torch, kernel, retract, fns, base):
     if kernel == "k1":
         w, vt, g, sug, clr = base
         want = fu.fused_nesterov_commit_reference(w, vt, g, clr, sug=sug if retract else None)
-        outs = lambda s: (s[0], s[1])  # noqa: E731
+        outs = lambda s, r: (s[0], s[1])  # noqa: E731
+    elif kernel == "k2":
+        want = fu.fused_elastic_reference(base[0], base[1], K2_MVA)
+        outs = lambda s, r: r  # noqa: E731 (w, sug)
     else:
         p, g, m, v, lr_t = base
         want = fu.fused_adam_reference(p, g, m, v, lr_t)
-        outs = lambda s: (s[0], s[2], s[3])  # noqa: E731
+        outs = lambda s, r: (s[0], s[2], s[3])  # noqa: E731
     for name, fn in fns.items():
-        s = tuple(x.clone() for x in base)
-        fn(*s)
+        s = tuple(offset_clone(x) for x in base)
+        r = fn(*s)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(outs(s), want)):
+        if not all(torch.equal(a, b) for a, b in zip(outs(s, r), want)):
             raise AssertionError(f"{name} {kernel} differs from its twin")
+
+
+def offset_clone(t):
+    """A copy of ``t`` at the same offset within 16 bytes as ``t``."""
+    import torch
+
+    offset = (t.data_ptr() % 16) // t.element_size()
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
 
 
 def host_breakdown(torch, mod, reps=5000):
@@ -153,12 +200,19 @@ def host_breakdown(torch, mod, reps=5000):
     k1, k3, stream = lib.mpit_nesterov_commit, lib.mpit_adam, mod._cuda_stream(w)
     pw, pvt, pg, pc = w.data_ptr(), vt.data_ptr(), g.data_ptr(), clr.data_ptr()
     pp, pg3, pm, pv, pl = (t.data_ptr() for t in (p, g3, m, v, lr_t))
+    w2, c2, out2 = operands(torch, "k2", 0, n, gen)
+    k2, pw2, pc2, po2 = lib.mpit_elastic, w2.data_ptr(), c2.data_ptr(), out2.data_ptr()
     parts = {
         "k1_checks": lambda: mod._check(w, vt, g, clr, None),
         "k1_stream": lambda: mod._cuda_stream(w),
         "k1_ctypes_no_launch": lambda: k1(pw, pvt, pg, pc, None, 0, n, 0.0, stream),
         "k1_c_launch": lambda: k1(pw, pvt, pg, pc, None, 1, n, 0.0, stream),
         "k1_call": lambda: mod.fused_nesterov_commit(w, vt, g, clr),
+        "k2_checks": lambda: mod._check_operands(mod._K2_NAMES, (w2, c2), 2),
+        "k2_empty_like": lambda: torch.empty_like(w2),
+        "k2_ctypes_no_launch": lambda: k2(pw2, pc2, po2, 0, K2_MVA, stream),
+        "k2_c_launch": lambda: k2(pw2, pc2, po2, n, K2_MVA, stream),
+        "k2_call": lambda: mod.fused_elastic(w2, c2, K2_MVA),
         "k3_checks": lambda: mod._check_adam(p, g3, m, v, lr_t),
         "k3_ctypes_no_launch": lambda: k3(pp, pg3, pm, pv, pl, 0, 0.9, 0.1, 0.999, 0.001,
                                           1e-8, stream),
@@ -177,6 +231,36 @@ def host_breakdown(torch, mod, reps=5000):
         out[name] = (time.perf_counter() - t0) / reps * 1e6
         torch.cuda.synchronize()
     return out
+
+
+def eamsgd_round_us(torch, mod, n, blocks=5, rounds=200):
+    """Host us of comm-only EAMSGD's card work in one exchange round
+    (``optim/easgd.py``): the center's copy from host memory to the card,
+    K2 through ``mod``'s wrapper, ``sug``'s copy back to host memory.  The
+    mean of each of ``blocks`` blocks of ``rounds`` rounds."""
+    import time
+
+    import numpy as np
+
+    center_host = np.random.default_rng(5).standard_normal(n, dtype=np.float32)
+    sug_host = np.zeros_like(center_host)
+    w = torch.randn(n, device="cuda", generator=torch.Generator("cuda").manual_seed(6))
+    out = {"out": torch.empty_like(w)} if takes_out(mod) else {}
+
+    def one_round():
+        center = torch.from_numpy(center_host).to(w.device, copy=True)
+        _, sug = mod.fused_elastic(w, center, K2_MVA, **out)
+        np.copyto(sug_host, sug.cpu().numpy())
+
+    for _ in range(20):
+        one_round()
+    means = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            one_round()
+        means.append((time.perf_counter() - t0) / rounds * 1e6)
+    return means
 
 
 def main() -> int:
@@ -209,34 +293,46 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"device": cs.nvidia_smi(), "torch": torch.__version__,
               "floor_us": [], "shapes": []}
-    for kernel, label, rows, n, retract in SHAPES:
-        base = operands(torch, kernel, rows, n, gen)
+    for kernel, label, rows, n, retract, offset in SHAPES:
+        base = operands(torch, kernel, rows, n, gen, offset)
         fns = {name: caller(kernel, retract, mod) for name, mod in mods.items()}
         check(torch, kernel, retract, fns, base)
-        n_vecs = (4 if retract else 3) if kernel == "k1" else 4
+        # The vectors every version reads (K2: w and the center).
+        n_vecs = {"k1": 4 if retract else 3, "k2": 2, "k3": 4}[kernel]
         set_bytes = n_vecs * 4 * base[0].numel()
-        sets = [tuple(x.clone() for x in base) for _ in range(cs.n_sets(set_bytes))]
+        sets = [tuple(offset_clone(x) for x in base) for _ in range(cs.n_sets(set_bytes))]
+        scratch = torch.zeros_like(base[0])
         row = {"kernel": kernel, "shape": label,
                **{f"{name}_{metric}": [] for name in fns
-                  for metric in ("cold_us", "warm_us", "call_us")}}
+                  for metric in ("cold_us", "warm_us", "behind_us", "call_us")}}
         for name in turns:
             fn = fns[name]
             row[f"{name}_cold_us"].append(
                 1e3 * cs.time_ms(torch, cs.rotating(fn, sets), queued=True))
             row[f"{name}_warm_us"].append(
                 1e3 * cs.time_ms(torch, lambda fn=fn: fn(*sets[0]), queued=True))
+            row[f"{name}_behind_us"].append(
+                1e3 * cs.behind_ms(torch, cs.rotating(fn, sets), lambda: scratch.add_(1.0)))
             row[f"{name}_call_us"].append(1e3 * cs.time_ms(torch, cs.rotating(fn, sets)))
         result["floor_us"].append(
             1e3 * cs.time_ms(torch, lambda: torch.cuda._sleep(1), queued=True))
         for key in [k for k in row if k.endswith("_us")]:
             row[key.replace("_us", "_mean_us")] = sum(row[key]) / len(row[key])
-        # Bytes: K1 reads w, vt, g (sug) and writes w, vt; K3 reads p, g,
-        # m, v and writes p, m, v.
-        moved = (n_vecs + 2 if kernel == "k1" else 7) * 4 * base[0].numel()
+        # Bytes: K1 reads w, vt, g (sug) and writes w, vt; K2 reads w, c
+        # and writes w, sug; K3 reads p, g, m, v and writes p, m, v.
+        moved = {"k1": n_vecs + 2, "k2": 4, "k3": 7}[kernel] * 4 * base[0].numel()
         row["bound_us"] = 1e6 * moved / cs.HBM_BYTES_PER_S
         result["shapes"].append(row)
         print(json.dumps({k: row[k] for k in row if not isinstance(row[k], list)}))
         del sets
+    rounds = {name: [] for name in mods}
+    for name in turns:
+        rounds[name] += eamsgd_round_us(torch, mods[name], EAMSGD_N)
+    result["eamsgd_round_us"] = {
+        name: {"blocks": r, "mean": sum(r) / len(r), "min": min(r), "max": max(r)}
+        for name, r in rounds.items()}
+    print(json.dumps({"eamsgd_round_us": {name: {k: v for k, v in r.items() if k != "blocks"}
+                                          for name, r in result["eamsgd_round_us"].items()}}))
     result["host_us"] = host_breakdown(torch, new)
     print(json.dumps({"host_us": result["host_us"]}))
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
