@@ -29,7 +29,19 @@ order; any failure raises and the script exits non-zero:
    and every worker on the card, at the flagship widths: DOWNPOUR np=4,
    EAMSGD np=12 (BASELINE configs 2 and 3), server-side Adam np=4,
    adam-single np=2 and comm-only EAMSGD (lr 0) np=4; then a one-worker
-   Adam gang on the card held against the same gang on the CPU;
+   Adam gang on the card held against the same gang on the CPU; then
+   process gangs (``launch.launch_processes``, the ``--np N`` path: every
+   rank a fresh interpreter over the port's shm transport, all on the
+   card, the codec on the port's native library, ``/dev/shm`` printed):
+   DOWNPOUR np=4 and EAMSGD np=12 (two epochs, samples/s printed beside
+   the in-process gangs'), then side by side server-side Adam np=4, a
+   DOWNPOUR np=5 gang with a tester rank (3 rounds, its checkpoint loaded
+   back) and DOWNPOUR np=4 over TCP on 127.0.0.1; each child returns its
+   own K1-K3 launch counts, held exact (K1 = the workers' steps at
+   EAMSGD, K3 in the servers = 2 x the workers' steps under Adam, none at
+   DOWNPOUR); then ``tools/torch_ptest.py``'s push/pull bandwidth over shm
+   (64 MB, 2 servers + 2 clients, codecs none and int8: MB/s and the
+   servers' per-GRAD apply);
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
@@ -111,6 +123,13 @@ ADAM_MAX_ABS_GAP = 3e-4
 ADAM_GAP_OVER_CHANGE = 1e-3
 # The flagship widths every gang path runs at (BASELINE configs 2-3).
 GANG_BASE = dict(model="cnn", side=32, batch=128, device="cuda")
+# BASELINE configs 2 and 3 (su 10, not 100, which would sync once in 22
+# steps), in threads of this process and as process gangs alike.
+PS_CONFIGS = {
+    "ps_downpour_np4": dict(opt="downpour", lr=1e-2, su=1, epochs=2),
+    "ps_eamsgd_np12": dict(opt="eamsgd", lr=1e-2, mom=0.99, mva=0.15, su=10,
+                           epochs=2),
+}
 # Flash attention against its twins (see check_flash).  float32 inputs:
 # the reference's tolerances (tests/test_ops.py), atol 2e-5 forward, 3e-5
 # backward, 3e-4 on a ragged, offset pair.  The partials acc and l are
@@ -905,6 +924,8 @@ def run_gang_path(torch, name, size, kernels, data, **kw):
     reading = {
         "wall_s": wall,
         "samples_per_sec": sum(steps) * cfg.batch / wall,
+        "samples_per_sec_train": train_rate(workers, cfg.batch),
+        "samples_per_sec_last_epoch": last_epoch_rate(workers, cfg.batch),
         "worker_steps": steps,
         "grads_applied": [r["grads_applied"] for r in servers],
         "params_served": [r["params_served"] for r in servers],
@@ -914,6 +935,27 @@ def run_gang_path(torch, name, size, kernels, data, **kw):
     }
     print(f"{name}: " + json.dumps(reading))
     return results, launches, reading
+
+
+def train_rate(workers, batch):
+    """Samples over the slowest worker's own clock (its trainer's
+    ``elapsed``: data and model set up, the epochs, the stop): what a gang
+    trains a second once its processes exist."""
+    return sum(r["steps"] for r in workers) * batch / max(r["elapsed"] for r in workers)
+
+
+def last_epoch_rate(workers, batch):
+    """The workers' last-epoch samples/s, summed (each over its own clock,
+    from its history's ``at``): the steady state, with every set-up and
+    first call behind it.  None for a one-epoch run."""
+    rates = []
+    for r in workers:
+        hist = r["history"]
+        if len(hist) < 2:
+            return None
+        steps = r["steps"] // len(hist)
+        rates.append(steps * batch / (hist[-1]["at"] - hist[-2]["at"]))
+    return sum(rates)
 
 
 def expect_launches(name, launches, want):
@@ -926,7 +968,8 @@ def expect_launches(name, launches, want):
 
 def gang_paths(torch, kernels, paths):
     """The five gang paths; fills ``paths[kernel][path]`` with every
-    kernel's launches on every path (0 where the path runs none of it)."""
+    kernel's launches on every path (0 where the path runs none of it).
+    Returns each path's reading."""
     from mpit_tpu_torch.data.mnist import load_mnist
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.mnist import make_model
@@ -941,15 +984,16 @@ def gang_paths(torch, kernels, paths):
             paths[key][name] = {"launches": launches[key],
                                 "steps": worker_steps(res), **extra}
 
+    readings = {}
     name = "ps_downpour_np4"
-    res, launches, _ = run_gang_path(torch, name, 4, kernels, data, opt="downpour",
-                                     lr=1e-2, su=1, epochs=2)
+    res, launches, readings[name] = run_gang_path(torch, name, 4, kernels, data,
+                                                  **PS_CONFIGS[name])
     expect_launches(name, launches, {})
     record(name, res, launches)
 
     name = "ps_eamsgd_np12"
-    res, launches, _ = run_gang_path(torch, name, 12, kernels, data, opt="eamsgd",
-                                     lr=1e-2, mom=0.99, mva=0.15, su=10, epochs=2)
+    res, launches, readings[name] = run_gang_path(torch, name, 12, kernels, data,
+                                                  **PS_CONFIGS[name])
     expect_launches(name, launches, {"k1": worker_steps(res)})
     record(name, res, launches)
 
@@ -987,6 +1031,7 @@ def gang_paths(torch, kernels, paths):
         raise AssertionError(f"{name}: the workers did not draw together "
                              f"({start} -> {end})")
     record(name, res, launches, distance=[start, end])
+    return readings
 
 
 def adam_gang_vs_cpu(torch, kernels):
@@ -1046,6 +1091,169 @@ def adam_gang_vs_cpu(torch, kernels):
 # q_offset, kv_offset, causal).  The three LM paths' attention (batch x
 # heads, context, head width), a ragged pair whose first 20 q rows are dead
 # under the causal mask, and full attention over a ragged pair.
+def run_procs_path(name, size, **kw):
+    """One process gang through ``launch.launch_processes`` (every rank a
+    fresh interpreter over the port's shm transport, or TCP): every child
+    on the card, finite losses on every worker, falling over two epochs
+    when ``lr > 0``.  The children count their own K1-K3 launches (the
+    counters are set to 0 in each new process) and return them; the sums
+    over the gang are the path's launches.  Returns the results, the
+    launches and the reading printed for the path."""
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
+
+    cfg = LAUNCH_DEFAULTS.merged(GANG_BASE, np=size, **kw)
+    t0 = time.perf_counter()
+    results = launch_processes(cfg, timeout=600)
+    wall = time.perf_counter() - t0
+    off = {r: res["platform"] for r, res in results.items()
+           if res["platform"] != cfg.device}
+    if off:
+        raise AssertionError(f"{name}: ranks off {cfg.device}: {off}")
+    servers = [r for r in results.values() if r["role"] == "server"]
+    workers = [r for r in results.values() if r["role"] == "worker"]
+    for r in workers:
+        losses = [h["avg_loss"] for h in r["history"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: losses not finite: {losses}")
+        if cfg.lr > 0 and len(losses) == 2 and not losses[1] < losses[0]:
+            raise AssertionError(f"{name}: a worker's loss did not fall: {losses}")
+    launches = {k: sum(res["launches"][k] for res in results.values())
+                for k in ("k1", "k2", "k3")}
+    steps = [r["steps"] for r in workers]
+    reading = {
+        "wall_s": wall,
+        "samples_per_sec": sum(steps) * cfg.batch / wall,
+        "samples_per_sec_train": train_rate(workers, cfg.batch),
+        "samples_per_sec_last_epoch": last_epoch_rate(workers, cfg.batch),
+        "worker_steps": steps,
+        "grads_applied": [r["grads_applied"] for r in servers],
+        "params_served": [r["params_served"] for r in servers],
+        "losses": [[h["avg_loss"] for h in r["history"]] for r in workers],
+        "test_err": [r["final_test_err"] for r in workers],
+        "launches": launches,
+        "launches_by_rank": {r: res["launches"] for r, res in sorted(results.items())},
+    }
+    print(f"{name}: " + json.dumps(reading))
+    return results, launches, reading
+
+
+def process_gang_paths(torch, paths, inproc, smi):
+    """The process gangs (``launch --np N``) at the flagship widths, every
+    rank on the card: BASELINE configs 2 and 3 over shm (beside the
+    in-process gangs' samples/s from this call), server-side Adam, a
+    tester, DOWNPOUR over TCP on 127.0.0.1, then the ptest twin's push/pull
+    bandwidth (codecs none and int8).  The codec must run the port's native
+    library, never its numpy fallback."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mpit_tpu_torch.comm import codec
+    from mpit_tpu_torch.comm.native import build as native_build
+    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.utils.checkpoint import load_flat
+
+    t0 = time.perf_counter()
+    print(f"native library: {native_build.ensure_built()}")
+    print(f"codec host path: {codec.native_path()}")
+    if codec.native_path() != "native":
+        raise AssertionError("the codec runs its numpy fallback: the port's "
+                             "native library did not load")
+    print(subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                         text=True).stdout.strip())
+
+    def worker_steps(results):
+        return sum(r["steps"] for r in results.values() if r["role"] == "worker")
+
+    def record(name, res, launches, **extra):
+        for key in ("k1", "k2", "k3"):
+            paths[key][name] = {"launches": launches[key],
+                                "steps": worker_steps(res), **extra}
+
+    for name, size in (("ps_downpour_np4", 4), ("ps_eamsgd_np12", 12)):
+        pname = f"{name}_procs"
+        res, launches, reading = run_procs_path(pname, size, **PS_CONFIGS[name])
+        expect_launches(pname, launches,
+                        {"k1": worker_steps(res)} if "eamsgd" in name else {})
+        record(pname, res, launches)
+        print(f"{name} on {smi}: samples/s, processes / threads: over the gang's wall "
+              f"{reading['samples_per_sec']:.1f} / {inproc[name]['samples_per_sec']:.1f}, "
+              f"the workers' clocks {reading['samples_per_sec_train']:.1f} / "
+              f"{inproc[name]['samples_per_sec_train']:.1f}, the last epoch "
+              f"{reading['samples_per_sec_last_epoch']:.1f} / "
+              f"{inproc[name]['samples_per_sec_last_epoch']:.1f}")
+
+    # Three gangs side by side (13 processes on one card): their checks
+    # are exact, and their samples/s are not read.
+    n_params = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1).size
+    addrs, socks = allocate_local_addresses(4)
+    for sock in socks:
+        sock.close()  # the TCP gang's ranks bind these ports
+    with tempfile.TemporaryDirectory() as ckpt_dir, ThreadPoolExecutor(3) as pool:
+        adam = pool.submit(run_procs_path, "ps_adam_np4_procs", 4, opt="adam",
+                           lr=1e-3, su=1, epochs=1)
+        tester = pool.submit(run_procs_path, "ps_downpour_np5_tester_procs", 5,
+                             opt="downpour", lr=1e-2, su=1, epochs=1, tester="last",
+                             tester_rounds=3, tester_interval=0.5, ckpt_dir=ckpt_dir)
+        tcp = pool.submit(run_procs_path, "ps_downpour_np4_tcp", 4, opt="downpour",
+                          lr=1e-2, su=1, epochs=1, transport="tcp",
+                          tcp_addrs=",".join(addrs))
+        adam, tester, tcp = adam.result(), tester.result(), tcp.result()
+        w, meta = load_flat(os.path.join(ckpt_dir, "ckpt_latest.npz"))
+
+    name = "ps_adam_np4_procs"
+    res, launches, _ = adam
+    applied = sum(r["grads_applied"] for r in res.values() if r["role"] == "server")
+    in_servers = sum(r["launches"]["k3"] for r in res.values() if r["role"] == "server")
+    if not applied == in_servers == launches["k3"] == 2 * worker_steps(res):
+        raise AssertionError(f"{name}: K3 {in_servers} in the servers ({launches['k3']} "
+                             f"in all), {applied} applies, {worker_steps(res)} worker "
+                             "steps on 2 servers")
+    expect_launches(name, launches, {"k3": applied})
+    record(name, res, launches, server_applies=applied)
+
+    name = "ps_downpour_np5_tester_procs"
+    res, launches, _ = tester
+    hist = res[4].get("history", [])
+    if res[4]["role"] != "tester" or len(hist) != 3:
+        raise AssertionError(f"{name}: rank 4 {res[4]['role']}, history {hist}")
+    if w.size != n_params or not np.isfinite(w).all() \
+            or meta["test_err"] != res[4]["best_test_err"]:
+        raise AssertionError(f"{name}: checkpoint of {w.size} values, meta {meta}, "
+                             f"best {res[4]['best_test_err']}")
+    print(f"{name}: tester history {hist}, checkpoint of {w.size} values at "
+          f"test_err {meta['test_err']}")
+    expect_launches(name, launches, {})
+    record(name, res, launches)
+
+    name = "ps_downpour_np4_tcp"
+    res, launches, _ = tcp
+    expect_launches(name, launches, {})
+    record(name, res, launches)
+
+    t_ptest = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
+                          env=dict(os.environ, MPIT_BENCH_CODECS="none,int8"),
+                          capture_output=True, text=True, timeout=600)
+    sys.stdout.write(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"ptest_shm failed ({proc.returncode}):\n{proc.stdout}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    for row in rows:
+        print(f"ptest_shm on {smi}: " + json.dumps(row))
+        if row["codec_path"] != "native" \
+                or row.get("server_platforms") != [GANG_BASE["device"]] \
+                or not row["value"] > 0:
+            raise AssertionError(f"ptest_shm: {row}")
+    if [row["codec"] for row in rows] != ["none", "int8"]:
+        raise AssertionError(f"ptest_shm: rows {rows}")
+    print(f"ptest_shm: {time.perf_counter() - t_ptest:.1f}s; process gang phases: "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
 FA_CASES = (
     ("lm_default", (8, 8), 1024, 1024, 32, 0, 0, True),
     ("lm_longcontext", (1, 8), 8192, 8192, 128, 0, 0, True),
@@ -1636,8 +1844,9 @@ def main() -> int:
     fa_errs, fa_timed = check_flash(torch)
     all_paths = {"k1": paths, "k2": k2["paths"], "k3": k3["paths"], "k4": {},
                  "k5": {}, "k6": {}}
-    gang_paths(torch, kernels, all_paths)
+    inproc = gang_paths(torch, kernels, all_paths)
     k3["paths"]["adam_gang_vs_cpu"] = adam_gang_vs_cpu(torch, kernels)
+    process_gang_paths(torch, all_paths, inproc, smi)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 

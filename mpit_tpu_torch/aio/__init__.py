@@ -1,4 +1,4 @@
-"""L1 — cooperative async engine (the port of :mod:`mpit_tpu.aio`).
+"""L1 — cooperative async engine (the port of ``mpit_tpu/aio/``).
 
 The reference implements asynchronous I/O with Lua coroutines scheduled from
 a FIFO queue (reference: queue.lua:3-47, init.lua:128-185) and turns MPI's

@@ -1,6 +1,6 @@
 """FIFO task queue (analog of reference queue.lua:3-47).
 
-A copy of :mod:`mpit_tpu.aio.queue`: the port imports nothing of the JAX
+A copy of ``mpit_tpu/aio/queue.py``: the port imports nothing of the JAX
 package.
 
 A deliberately tiny, allocation-light FIFO.  The reference implements it as

@@ -1,6 +1,6 @@
 """Cooperative task scheduler (analog of reference init.lua:21-25,128-185).
 
-A copy of :mod:`mpit_tpu.aio.scheduler` without its observability hooks
+A copy of ``mpit_tpu/aio/scheduler.py`` without its observability hooks
 (flight recorder, CPU profile, spans; they come with the port's obs layer),
 without the fault-tolerance deadlines and abort predicates (the ft layer),
 and without the completion callbacks and wait variants no caller of the

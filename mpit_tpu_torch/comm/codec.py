@@ -1,6 +1,6 @@
 """Wire codecs for the PS hot path — quantized shard transfer.
 
-The port of :mod:`mpit_tpu.comm.codec`.  A codec turns a float32 shard
+The port of ``mpit_tpu/comm/codec.py``.  A codec turns a float32 shard
 slice into a smaller wire frame and back, selected by name via
 ``MPIT_PS_CODEC`` and negotiated per client<->server pair through the INIT
 v2 announcement (``[offset, size, codec_id]`` — ps/tags.py).
@@ -28,8 +28,13 @@ A codec mismatch therefore shows up as a wire-size mismatch and fails
 loudly in the transports' exact-size receive contract.
 
 Encode and decode on the host are the JAX package's numpy code, copied so
-that a frame's bytes are the same in both packages (its native C++ fast
-path computes the same bytes and comes with the native library).  On the
+that a frame's bytes are the same in both packages.  The bf16 and int8
+codecs run the native library's kernels instead when it builds
+(``mt_codec_*`` in ``comm/native/transport.cpp``, the port's copy): the
+same math in two cache-resident passes a block, bit-identical to the numpy
+paths (the library is built with ``-ffp-contract=off``).  The numpy code
+stays as the oracle, and as the fallback where there is no ``g++`` or
+``MPIT_PS_CODEC_NATIVE=0``: a host codec of the same bytes.  On the
 server's gradient path the frame is decoded by torch ops on the shard's
 device instead: :meth:`Codec.split_wire` gives typed views of the staging
 buffer, the server copies them to the device, and :meth:`Codec.decode_parts`
@@ -46,7 +51,34 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from mpit_tpu_torch.obs import metrics as _obs
+
 _LITTLE = sys.byteorder == "little"
+
+_NATIVE_ENV = "MPIT_PS_CODEC_NATIVE"
+_native_lib: Optional[object] = None  # None: untried; False: unavailable
+
+
+def _native():
+    """The native library's bindings, or None (disabled, big-endian host,
+    or no build): the numpy paths then compute the same bytes."""
+    global _native_lib
+    if _native_lib is None:
+        if os.environ.get(_NATIVE_ENV, "1") == "0" or not _LITTLE:
+            _native_lib = False
+        else:
+            try:
+                from mpit_tpu_torch.comm.native import build
+
+                _native_lib = build.load()
+            except Exception:  # no g++ / unwritable tree: numpy fallback
+                _native_lib = False
+    return _native_lib or None
+
+
+def native_path() -> str:
+    """Which host path encodes and decodes: ``native`` or ``numpy``."""
+    return "native" if _native() is not None else "numpy"
 
 #: int8 per-block absmax granularity.  4 bytes of scale per 1024 codes
 #: keeps the overhead at ~0.4% while bounding each element's error by
@@ -86,11 +118,36 @@ class Codec:
         """Encode float32 ``x`` into the uint8 ``wire`` buffer.  With
         ``residual`` (same shape as ``x``), quantize ``x + residual``
         and store the new quantization error back into ``residual``
-        (error feedback — gradient path only)."""
-        raise NotImplementedError
+        (error feedback — gradient path only).
+
+        Encode time and wire bytes feed the obs registry
+        (``mpit_codec_*``) when obs is enabled; disabled, the wrap is one
+        ``enabled`` attribute read per call."""
+        reg = _obs.get_registry()
+        if not reg.enabled:
+            self._encode_into(x, wire, residual)
+            return
+        with reg.timer("mpit_codec_encode_seconds", codec=self.name):
+            self._encode_into(x, wire, residual)
+        reg.counter("mpit_codec_encode_bytes_total",
+                    codec=self.name).inc(int(wire.nbytes))
 
     def decode_into(self, wire: np.ndarray, out: np.ndarray) -> None:
-        """Decode a frame into the float32 ``out`` buffer (host path)."""
+        """Decode a frame into the float32 ``out`` buffer (host path),
+        timed into the obs registry like :meth:`encode_into`."""
+        reg = _obs.get_registry()
+        if not reg.enabled:
+            self._decode_into(wire, out)
+            return
+        with reg.timer("mpit_codec_decode_seconds", codec=self.name):
+            self._decode_into(wire, out)
+        reg.counter("mpit_codec_decode_bytes_total",
+                    codec=self.name).inc(int(wire.nbytes))
+
+    def _encode_into(self, x, wire, residual=None) -> None:
+        raise NotImplementedError
+
+    def _decode_into(self, wire, out) -> None:
         raise NotImplementedError
 
     def split_wire(self, wire: np.ndarray, size: int) -> List[np.ndarray]:
@@ -112,10 +169,10 @@ class NoneCodec(Codec):
     def wire_nbytes(self, size: int) -> int:
         return 4 * size
 
-    def encode_into(self, x, wire, residual=None):
+    def _encode_into(self, x, wire, residual=None):
         wire.view(np.float32)[: x.size] = x
 
-    def decode_into(self, wire, out):
+    def _decode_into(self, wire, out):
         out[:] = wire.view(np.float32)[: out.size]
 
     def split_wire(self, wire, size):
@@ -132,20 +189,26 @@ class Bf16Codec(Codec):
     def wire_nbytes(self, size: int) -> int:
         return 2 * size
 
-    def encode_into(self, x, wire, residual=None):
+    def _encode_into(self, x, wire, residual=None):
         # Truncation: keep the top 16 bits of the fp32 word — on a
         # little-endian host one strided copy of the high half-words.
         # (Residual is accepted for interface uniformity but bf16's ~2^-8
         # relative error needs no feedback; it stays zero.)
-        if _LITTLE:
+        lib = _native()
+        if lib is not None:
+            lib.mt_codec_bf16_encode(x, x.size, wire)
+        elif _LITTLE:
             wire.view(np.uint16)[: x.size] = x.view(np.uint16)[1::2]
         else:  # pragma: no cover - big-endian fallback
             wire.view(np.uint16)[: x.size] = (
                 x.view(np.uint32) >> 16
             ).astype(np.uint16)
 
-    def decode_into(self, wire, out):
-        if _LITTLE:
+    def _decode_into(self, wire, out):
+        lib = _native()
+        if lib is not None:
+            lib.mt_codec_bf16_decode(wire, out.size, out)
+        elif _LITTLE:
             o16 = out.view(np.uint16)
             o16[0::2] = 0  # low mantissa halves
             o16[1::2] = wire.view(np.uint16)[: out.size]
@@ -177,7 +240,7 @@ class Int8Codec(Codec):
         codes = wire[4 * nb : 4 * nb + size].view(np.int8)
         return scales, codes
 
-    def encode_into(self, x, wire, residual=None):
+    def _encode_into(self, x, wire, residual=None):
         # Cache-tiled and pass-frugal: the slice is processed in
         # _TILE-element tiles whose temporaries stay cache-resident.
         # absmax uses max/min (no |x| temp); codes come from one multiply
@@ -187,6 +250,10 @@ class Int8Codec(Codec):
         nb = _nblocks(size)
         nfull, main = size // BLOCK, (size // BLOCK) * BLOCK
         scales, codes = self._views(wire, size)
+        lib = _native()
+        if lib is not None:
+            lib.mt_codec_int8_encode(x, residual, size, scales, codes)
+            return
         if nfull:
             work = np.empty(min(_TILE, main), np.float32)
             q = np.empty_like(work)
@@ -219,7 +286,8 @@ class Int8Codec(Codec):
                     np.subtract(w2, q2,
                                 out=residual[lo:hi].reshape(tb, BLOCK))
         if main < size:
-            # Pure-f32 scalar math, same op order as the full blocks.
+            # Pure-f32 scalar math, same op order as the full blocks and
+            # the native kernel.
             tail = (x[main:] if residual is None
                     else x[main:] + residual[main:])
             absmax = np.float32(max(tail.max(initial=0.0),
@@ -233,7 +301,7 @@ class Int8Codec(Codec):
                 t *= scales[nb - 1]
                 np.subtract(tail, t, out=residual[main:])
 
-    def decode_into(self, wire, out):
+    def _decode_into(self, wire, out):
         # Tiled like encode_into: dequantize straight into the caller's
         # slice, int8->f32 cast riding the same cache-resident pass as
         # the scale multiply.
@@ -241,6 +309,10 @@ class Int8Codec(Codec):
         nb = _nblocks(size)
         main = (size // BLOCK) * BLOCK
         scales, codes = self._views(wire, size)
+        lib = _native()
+        if lib is not None:
+            lib.mt_codec_int8_decode(scales, codes, size, out)
+            return
         for lo in range(0, main, _TILE):
             hi = min(lo + _TILE, main)
             tb = (hi - lo) // BLOCK

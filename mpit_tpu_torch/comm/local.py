@@ -1,6 +1,6 @@
 """In-process transport: instant mailboxes between role endpoints.
 
-A copy of :mod:`mpit_tpu.comm.local`: the port imports nothing of the JAX
+A copy of ``mpit_tpu/comm/local.py``: the port imports nothing of the JAX
 package.
 
 The test/fake backend (SURVEY.md section 4: the reference uses MPI's

@@ -1,0 +1,274 @@
+"""GENERATED by gen_bindings.py from specs/*.json — do not edit.
+
+ctypes bindings over the port's libmt_transport
+(mpit_tpu_torch/comm/native/transport.cpp).
+Mirrors the reference's generated-binding approach (readspec.py ->
+mpifuncs.c), emitting Python instead of C.
+"""
+
+import ctypes
+
+import numpy as np
+
+
+def _as_pointer(obj):
+    """Raw pointer + length for bytes-like / ndarray arguments.
+
+    The returned address points into ``obj``'s own storage — never into a
+    temporary — so it stays valid exactly as long as the caller keeps
+    ``obj`` alive (the zero-copy rule, reference lua-mpi.h:70-78; Handle
+    objects hold that reference until the transfer completes)."""
+    if obj is None:
+        return None, 0
+    if isinstance(obj, np.ndarray):
+        if not obj.flags["C_CONTIGUOUS"]:
+            raise ValueError("buffers must be C-contiguous")
+        return ctypes.c_void_p(obj.ctypes.data), obj.nbytes
+    if isinstance(obj, bytes):
+        if len(obj) == 0:
+            return None, 0
+        # c_char_p points at the bytes object's internal storage (no copy).
+        return ctypes.cast(ctypes.c_char_p(obj), ctypes.c_void_p), len(obj)
+    if isinstance(obj, bytearray):
+        if len(obj) == 0:
+            return None, 0
+        view = (ctypes.c_char * len(obj)).from_buffer(obj)
+        return ctypes.c_void_p(ctypes.addressof(view)), len(obj)
+    if isinstance(obj, memoryview):
+        if obj.nbytes == 0:
+            return None, 0
+        if obj.readonly:
+            raise ValueError(
+                "read-only memoryview cannot back a transfer buffer; pass "
+                "bytes (send) or a writable buffer (recv)"
+            )
+        view = (ctypes.c_char * obj.nbytes).from_buffer(obj)
+        return ctypes.c_void_p(ctypes.addressof(view)), obj.nbytes
+    raise TypeError(f"unsupported buffer type {type(obj)!r}")
+
+
+#: Build stamp of the spec set these bindings were generated from; the
+#: compiled library reports its own via mt_api_version().  Bumped in
+#: lockstep with transport.cpp (see kApiVersion comment there) whenever
+#: the exported C surface changes, so a stale .so fails loudly with a
+#: rebuild message instead of a confusing missing-symbol AttributeError.
+MT_API_VERSION = 17001
+
+
+class NativeTransportLib:
+    """Typed entry points resolved from the shared library."""
+
+    def __init__(self, lib_path):
+        self._lib = ctypes.CDLL(str(lib_path))
+        try:
+            self._lib.mt_api_version.restype = ctypes.c_int64
+            stamp = int(self._lib.mt_api_version())
+        except AttributeError:
+            stamp = -1
+        if stamp != MT_API_VERSION:
+            raise RuntimeError(
+                f"{lib_path} is stale (built api stamp {stamp}, "
+                f"specs stamp {MT_API_VERSION}); rebuild it with "
+                f"`python -m mpit_tpu_torch.comm.native.build`"
+            )
+        self._configure()
+
+    def _configure(self):
+        self._lib.mt_api_version.restype = ctypes.c_int64
+        self._lib.mt_api_version.argtypes = []
+        self._lib.mt_cancel.restype = None
+        self._lib.mt_cancel.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        self._lib.mt_codec_bf16_decode.restype = None
+        self._lib.mt_codec_bf16_decode.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p]
+        self._lib.mt_codec_bf16_encode.restype = None
+        self._lib.mt_codec_bf16_encode.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p]
+        self._lib.mt_codec_int8_decode.restype = None
+        self._lib.mt_codec_int8_decode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p]
+        self._lib.mt_codec_int8_encode.restype = None
+        self._lib.mt_codec_int8_encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p]
+        self._lib.mt_finalize.restype = None
+        self._lib.mt_finalize.argtypes = [ctypes.c_void_p]
+        self._lib.mt_fold_f32.restype = None
+        self._lib.mt_fold_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64]
+        self._lib.mt_init.restype = ctypes.c_void_p
+        self._lib.mt_init.argtypes = [ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64]
+        self._lib.mt_iprobe.restype = ctypes.c_int32
+        self._lib.mt_iprobe.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32]
+        self._lib.mt_irecv.restype = ctypes.c_int64
+        self._lib.mt_irecv.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_uint64]
+        self._lib.mt_isend.restype = ctypes.c_int64
+        self._lib.mt_isend.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_uint64]
+        self._lib.mt_nranks.restype = ctypes.c_int32
+        self._lib.mt_nranks.argtypes = [ctypes.c_void_p]
+        self._lib.mt_pool_busy_seconds.restype = ctypes.c_double
+        self._lib.mt_pool_busy_seconds.argtypes = [ctypes.c_void_p]
+        self._lib.mt_pool_close.restype = None
+        self._lib.mt_pool_close.argtypes = [ctypes.c_void_p]
+        self._lib.mt_pool_depth.restype = ctypes.c_int64
+        self._lib.mt_pool_depth.argtypes = [ctypes.c_void_p]
+        self._lib.mt_pool_jobs.restype = ctypes.c_uint64
+        self._lib.mt_pool_jobs.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        self._lib.mt_pool_poll.restype = ctypes.c_int32
+        self._lib.mt_pool_poll.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        self._lib.mt_pool_start.restype = ctypes.c_void_p
+        self._lib.mt_pool_start.argtypes = [ctypes.c_int32]
+        self._lib.mt_pool_submit.restype = ctypes.c_uint64
+        self._lib.mt_pool_submit.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
+        self._lib.mt_pool_threads.restype = ctypes.c_int32
+        self._lib.mt_pool_threads.argtypes = [ctypes.c_void_p]
+        self._lib.mt_pool_wait.restype = ctypes.c_int32
+        self._lib.mt_pool_wait.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        self._lib.mt_probe_size.restype = ctypes.c_int64
+        self._lib.mt_probe_size.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32]
+        self._lib.mt_rank.restype = ctypes.c_int32
+        self._lib.mt_rank.argtypes = [ctypes.c_void_p]
+        self._lib.mt_recv_size.restype = ctypes.c_int64
+        self._lib.mt_recv_size.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        self._lib.mt_release.restype = None
+        self._lib.mt_release.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        self._lib.mt_test.restype = ctypes.c_int32
+        self._lib.mt_test.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        self._lib.mt_time.restype = ctypes.c_double
+        self._lib.mt_time.argtypes = []
+        self._lib.mt_xor_bytes.restype = None
+        self._lib.mt_xor_bytes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+
+    def mt_api_version(self):
+        """Build stamp of the compiled library; must equal MT_API_VERSION in the generated bindings or the loader refuses the .so with a rebuild message."""
+        return self._lib.mt_api_version()
+
+    def mt_cancel(self, ctx, handle):
+        """Abort an in-flight transfer, releasing buffer ownership."""
+        return self._lib.mt_cancel(ctx, handle)
+
+    def mt_codec_bf16_decode(self, wire, n, out):
+        """bf16 -> fp32: each of n u16 bf16 words becomes the high half of a float32 in out (low mantissa zeroed)."""
+        wire, _wire_len = _as_pointer(wire)
+        out, _out_len = _as_pointer(out)
+        return self._lib.mt_codec_bf16_decode(wire, n, out)
+
+    def mt_codec_bf16_encode(self, x, n, wire):
+        """fp32 -> bf16 by truncation: the high half-word of each of n little-endian float32s into wire (u16[n])."""
+        x, _x_len = _as_pointer(x)
+        wire, _wire_len = _as_pointer(wire)
+        return self._lib.mt_codec_bf16_encode(x, n, wire)
+
+    def mt_codec_int8_decode(self, scales, codes, n, out):
+        """Dequantize a block-absmax int8 frame into out (f32[n])."""
+        scales, _scales_len = _as_pointer(scales)
+        codes, _codes_len = _as_pointer(codes)
+        out, _out_len = _as_pointer(out)
+        return self._lib.mt_codec_int8_decode(scales, codes, n, out)
+
+    def mt_codec_int8_encode(self, x, residual, n, scales, codes):
+        """Block-absmax int8 encode of n float32s (block 1024): scales[ceil(n/1024)] f32 + codes[n] i8. residual (nullable, f32[n]) is folded in and refreshed in place (error feedback). Bit-identical to codec.py's numpy path."""
+        x, _x_len = _as_pointer(x)
+        residual, _residual_len = _as_pointer(residual)
+        scales, _scales_len = _as_pointer(scales)
+        codes, _codes_len = _as_pointer(codes)
+        return self._lib.mt_codec_int8_encode(x, residual, n, scales, codes)
+
+    def mt_finalize(self, ctx):
+        """Unmap rings, unlink the own segment, free the context."""
+        return self._lib.mt_finalize(ctx)
+
+    def mt_fold_f32(self, own, ptrs, nchildren, out, n):
+        """Fused f32 add-fold: out[i] = ((own[i] + c0[i]) + c1[i]) + ... over the nchildren f32[n] buffers addressed by ptrs (u64[nchildren]). Single pass, same association order as the serial copyto-then-+= loop, no fp contraction, so bitwise-equal to the numpy fold."""
+        own, _own_len = _as_pointer(own)
+        ptrs, _ptrs_len = _as_pointer(ptrs)
+        out, _out_len = _as_pointer(out)
+        return self._lib.mt_fold_f32(own, ptrs, nchildren, out, n)
+
+    def mt_init(self, ns, rank, nranks, ring_bytes):
+        """Create this rank's shm inbox ring and a transport context."""
+        ns = ns.encode() if isinstance(ns, str) else ns
+        return self._lib.mt_init(ns, rank, nranks, ring_bytes)
+
+    def mt_iprobe(self, ctx, src, tag):
+        """1 when a fully-assembled (src, tag) message is available."""
+        return self._lib.mt_iprobe(ctx, src, tag)
+
+    def mt_irecv(self, ctx, src, tag, out, cap):
+        """Post a nonblocking receive into a caller buffer of exactly cap bytes."""
+        out, _out_len = _as_pointer(out)
+        return self._lib.mt_irecv(ctx, src, tag, out, cap)
+
+    def mt_isend(self, ctx, dst, tag, data, len):
+        """Post a nonblocking send; returns a handle. Buffer must stay alive until test()==1."""
+        data, _data_len = _as_pointer(data)
+        return self._lib.mt_isend(ctx, dst, tag, data, len)
+
+    def mt_nranks(self, ctx):
+        """World size."""
+        return self._lib.mt_nranks(ctx)
+
+    def mt_pool_busy_seconds(self, pool):
+        """Cumulative worker seconds spent inside kernels (feeds mpit_pool_busy_seconds)."""
+        return self._lib.mt_pool_busy_seconds(pool)
+
+    def mt_pool_close(self, pool):
+        """Drain every queued job, join all workers, free the pool. The handle is dead afterwards; callers must not reuse it."""
+        return self._lib.mt_pool_close(pool)
+
+    def mt_pool_depth(self, pool):
+        """Jobs submitted but not yet finished (queued + running)."""
+        return self._lib.mt_pool_depth(pool)
+
+    def mt_pool_jobs(self, pool, kind):
+        """Completed-job count for one kind (1..7), or the total when kind == 0."""
+        return self._lib.mt_pool_jobs(pool, kind)
+
+    def mt_pool_poll(self, pool, handle):
+        """Nonblocking completion probe: 1 done (handle retired), 0 pending, -1 unknown."""
+        return self._lib.mt_pool_poll(pool, handle)
+
+    def mt_pool_start(self, nthreads):
+        """Spawn a worker pool with nthreads native threads; NULL (None) when nthreads <= 0. Instance-scoped like mt_init contexts."""
+        return self._lib.mt_pool_start(nthreads)
+
+    def mt_pool_submit(self, pool, kind, a, b, c, d, n, aux):
+        """Enqueue one pure job (kinds: 1 int8-enc, 2 int8-dec, 3 bf16-enc, 4 bf16-dec, 5 xor, 6 fold-f32, 7 copy); returns a handle > 0, or 0 when the pool is closing or the job is malformed. Buffers must stay alive until completion (zero-copy rule; the Job object holds the references)."""
+        a, _a_len = _as_pointer(a)
+        b, _b_len = _as_pointer(b)
+        c, _c_len = _as_pointer(c)
+        d, _d_len = _as_pointer(d)
+        return self._lib.mt_pool_submit(pool, kind, a, b, c, d, n, aux)
+
+    def mt_pool_threads(self, pool):
+        """Worker-thread count of the pool (0 for NULL)."""
+        return self._lib.mt_pool_threads(pool)
+
+    def mt_pool_wait(self, pool, handle):
+        """Block on the pool condvar until the job completes (ctypes drops the GIL for the duration): 0 ok (handle retired), -1 unknown."""
+        return self._lib.mt_pool_wait(pool, handle)
+
+    def mt_probe_size(self, ctx, src, tag):
+        """Byte size of the next (src, tag) message, or -1."""
+        return self._lib.mt_probe_size(ctx, src, tag)
+
+    def mt_rank(self, ctx):
+        """This endpoint's rank."""
+        return self._lib.mt_rank(ctx)
+
+    def mt_recv_size(self, ctx, handle):
+        """Actual byte size of a completed receive."""
+        return self._lib.mt_recv_size(ctx, handle)
+
+    def mt_release(self, ctx, handle):
+        """Drop a completed handle's bookkeeping."""
+        return self._lib.mt_release(ctx, handle)
+
+    def mt_test(self, ctx, handle):
+        """Advance progress; 1 complete, 0 pending, -1 unknown/cancelled, -2 size mismatch."""
+        return self._lib.mt_test(ctx, handle)
+
+    def mt_time(self):
+        """Monotonic seconds (MPI_Wtime analog, reference mpifuncs.c:2500)."""
+        return self._lib.mt_time()
+
+    def mt_xor_bytes(self, a, b, out, n):
+        """out[i] = a[i] ^ b[i] over n bytes (cells DELTA frame XOR), word-at-a-time. Bit-identical to np.bitwise_xor."""
+        a, _a_len = _as_pointer(a)
+        b, _b_len = _as_pointer(b)
+        out, _out_len = _as_pointer(out)
+        return self._lib.mt_xor_bytes(a, b, out, n)

@@ -1,0 +1,160 @@
+"""Generate ctypes bindings for the native transport from JSON specs.
+
+The analog of the reference's readspec.py (which turns specs/*.json into
+mpifuncs.c, one Lua wrapper per MPI function) — except the target here is
+Python: each spec becomes a typed ctypes prototype plus a thin wrapper that
+converts str -> bytes and buffer objects -> raw pointers.  The generated
+module is checked in (as the reference checks in mpifuncs.c) and
+regenerated with:
+
+    python -m mpit_tpu_torch.comm.native.gen_bindings
+
+The port's copy of the JAX package's generator: the specs and the bindings
+it emits are the same, but for the library's path and its rebuild command.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+
+HERE = pathlib.Path(__file__).resolve().parent
+SPEC_DIR = HERE / "specs"
+OUT = HERE / "_bindings.py"
+
+CTYPES = {
+    "void": "None",
+    "ptr": "ctypes.c_void_p",
+    "str": "ctypes.c_char_p",
+    "i32": "ctypes.c_int32",
+    "i64": "ctypes.c_int64",
+    "u64": "ctypes.c_uint64",
+    "f64": "ctypes.c_double",
+    "buf": "ctypes.c_void_p",
+}
+
+HEADER = '''"""GENERATED by gen_bindings.py from specs/*.json — do not edit.
+
+ctypes bindings over the port's libmt_transport
+(mpit_tpu_torch/comm/native/transport.cpp).
+Mirrors the reference's generated-binding approach (readspec.py ->
+mpifuncs.c), emitting Python instead of C.
+"""
+
+import ctypes
+
+import numpy as np
+
+
+def _as_pointer(obj):
+    """Raw pointer + length for bytes-like / ndarray arguments.
+
+    The returned address points into ``obj``'s own storage — never into a
+    temporary — so it stays valid exactly as long as the caller keeps
+    ``obj`` alive (the zero-copy rule, reference lua-mpi.h:70-78; Handle
+    objects hold that reference until the transfer completes)."""
+    if obj is None:
+        return None, 0
+    if isinstance(obj, np.ndarray):
+        if not obj.flags["C_CONTIGUOUS"]:
+            raise ValueError("buffers must be C-contiguous")
+        return ctypes.c_void_p(obj.ctypes.data), obj.nbytes
+    if isinstance(obj, bytes):
+        if len(obj) == 0:
+            return None, 0
+        # c_char_p points at the bytes object's internal storage (no copy).
+        return ctypes.cast(ctypes.c_char_p(obj), ctypes.c_void_p), len(obj)
+    if isinstance(obj, bytearray):
+        if len(obj) == 0:
+            return None, 0
+        view = (ctypes.c_char * len(obj)).from_buffer(obj)
+        return ctypes.c_void_p(ctypes.addressof(view)), len(obj)
+    if isinstance(obj, memoryview):
+        if obj.nbytes == 0:
+            return None, 0
+        if obj.readonly:
+            raise ValueError(
+                "read-only memoryview cannot back a transfer buffer; pass "
+                "bytes (send) or a writable buffer (recv)"
+            )
+        view = (ctypes.c_char * obj.nbytes).from_buffer(obj)
+        return ctypes.c_void_p(ctypes.addressof(view)), obj.nbytes
+    raise TypeError(f"unsupported buffer type {type(obj)!r}")
+
+
+#: Build stamp of the spec set these bindings were generated from; the
+#: compiled library reports its own via mt_api_version().  Bumped in
+#: lockstep with transport.cpp (see kApiVersion comment there) whenever
+#: the exported C surface changes, so a stale .so fails loudly with a
+#: rebuild message instead of a confusing missing-symbol AttributeError.
+MT_API_VERSION = 17001
+
+
+class NativeTransportLib:
+    """Typed entry points resolved from the shared library."""
+
+    def __init__(self, lib_path):
+        self._lib = ctypes.CDLL(str(lib_path))
+        try:
+            self._lib.mt_api_version.restype = ctypes.c_int64
+            stamp = int(self._lib.mt_api_version())
+        except AttributeError:
+            stamp = -1
+        if stamp != MT_API_VERSION:
+            raise RuntimeError(
+                f"{lib_path} is stale (built api stamp {stamp}, "
+                f"specs stamp {MT_API_VERSION}); rebuild it with "
+                f"`python -m mpit_tpu_torch.comm.native.build`"
+            )
+        self._configure()
+'''
+
+
+def generate() -> str:
+    specs = []
+    for path in sorted(SPEC_DIR.glob("*.json")):
+        with open(path) as fh:
+            specs.append(json.load(fh))
+
+    lines = [HEADER]
+    # prototype configuration
+    lines.append("    def _configure(self):")
+    for spec in specs:
+        name = spec["name"]
+        ret = CTYPES[spec["ret"]]
+        args = ", ".join(CTYPES[t] for _, t in spec["args"])
+        lines.append(f"        self._lib.{name}.restype = {ret}")
+        lines.append(f"        self._lib.{name}.argtypes = [{args}]")
+    lines.append("")
+
+    # wrappers
+    for spec in specs:
+        name = spec["name"]
+        params = [arg_name for arg_name, _ in spec["args"]]
+        signature = ", ".join(["self"] + params)
+        lines.append(f"    def {name}({signature}):")
+        lines.append(f'        """{spec["doc"]}"""')
+        converted = []
+        for arg_name, arg_type in spec["args"]:
+            if arg_type == "str":
+                lines.append(f"        {arg_name} = {arg_name}.encode() "
+                             f"if isinstance({arg_name}, str) else {arg_name}")
+                converted.append(arg_name)
+            elif arg_type == "buf":
+                lines.append(f"        {arg_name}, _{arg_name}_len = _as_pointer({arg_name})")
+                converted.append(arg_name)
+            else:
+                converted.append(arg_name)
+        call = ", ".join(converted)
+        lines.append(f"        return self._lib.{name}({call})")
+        lines.append("")
+    return "\n".join(lines)
+
+
+def main() -> None:
+    OUT.write_text(generate())
+    print(f"wrote {OUT}")
+
+
+if __name__ == "__main__":
+    main()

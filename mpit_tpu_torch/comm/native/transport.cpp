@@ -1,0 +1,944 @@
+// mt_transport — native shared-memory message transport for mpit_tpu.
+//
+// The role the reference fills with its Lua<->MPI C binding (reference
+// mpiT.c, lua-mpi.h, mpifuncs.c): a nonblocking, (rank, tag)-addressed,
+// zero-copy-into-caller-buffers transport driven by poll-style Test calls,
+// here for same-host role processes (the `mpirun -np N` single-host shape
+// the reference is exercised in, reference README.md:28-31).  Cross-host
+// paths ride XLA collectives over ICI/DCN and are not this file's job.
+//
+// Design (deliberately not an MPI clone):
+//  * One POSIX shm ring buffer per rank (its inbox).  Senders append
+//    variable-size chunks under a process-shared mutex; only the owner
+//    drains.  Chunking bounds ring residency so messages larger than the
+//    ring (the reference ships 640 MB parameter vectors, ptest.lua:3)
+//    stream through a small ring without deadlock.
+//  * Message assembly, (rank, tag) matching, and handle state live in
+//    process-local memory — the ring is purely a mailbox, so a receiver
+//    polling one tag never head-of-line-blocks other tags.
+//  * Per-destination FIFO send queues give MPI-style non-overtaking order
+//    between any (src, dst) pair.
+//  * All progress happens inside mt_iprobe/mt_test calls from the caller's
+//    cooperative scheduler — single-threaded per process, like the
+//    reference's coroutine polling (reference init.lua:147-185).
+//
+// Exported C API (ctypes bindings are generated from specs/*.json by
+// gen_bindings.py, mirroring the reference's readspec.py codegen).
+
+#include <atomic>
+#include <cerrno>
+#include <cmath>
+#include <condition_variable>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <deque>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <string>
+#include <thread>
+#include <utility>
+#include <vector>
+
+#include <fcntl.h>
+#include <pthread.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <time.h>
+#include <unistd.h>
+
+namespace {
+
+constexpr uint64_t kReadyMagic = 0x4d50495454505531ull;  // "MPITTPU1"
+constexpr uint64_t kMaxChunk = 1ull << 22;               // 4 MB
+
+struct RingHeader {
+  std::atomic<uint64_t> ready;  // kReadyMagic once initialized
+  pthread_mutex_t mutex;        // process-shared
+  uint64_t capacity;            // data-area bytes
+  uint64_t head;                // absolute bytes written (mod capacity)
+  uint64_t tail;                // absolute bytes consumed
+};
+
+struct ChunkHeader {
+  int32_t src;
+  int32_t tag;
+  uint64_t msg_id;      // per-sender sequence, for reassembly
+  uint32_t chunk_idx;
+  uint32_t nchunks;
+  uint64_t chunk_bytes;
+  uint64_t total_bytes;
+};
+
+struct Ring {
+  RingHeader* hdr = nullptr;
+  uint8_t* data = nullptr;
+  size_t map_bytes = 0;
+};
+
+// Message payload storage: a plain heap buffer, deliberately NOT a
+// std::vector — vector's value-initialization would memset every byte
+// before the ring copy overwrites it, a whole extra DRAM sweep at the
+// 640 MB ptest scale.  Big buffers are recycled through Ctx::buf_cache
+// so the steady-state hot path stops paying mmap+page-fault churn for
+// every multi-hundred-MB message.
+struct Buffer {
+  std::unique_ptr<uint8_t[]> data;
+  uint64_t len = 0;  // message bytes (<= cap)
+  uint64_t cap = 0;  // allocation size
+};
+
+struct Message {
+  Buffer buf;
+};
+
+struct Partial {
+  uint64_t total = 0;
+  uint64_t filled = 0;  // bytes assembled so far (chunks arrive in order)
+  uint32_t seen = 0;
+  int32_t tag = 0;
+  Buffer buf;
+};
+
+struct SendOp {
+  int dst = -1;
+  int tag = 0;
+  const uint8_t* data = nullptr;
+  uint64_t len = 0;
+  uint64_t written = 0;  // payload bytes already placed in the ring
+  uint64_t msg_id = 0;
+  uint32_t nchunks = 0;
+  uint32_t next_chunk = 0;
+  bool done = false;
+  bool cancelled = false;
+  uint32_t stalls = 0;  // consecutive zero-progress pump attempts
+};
+
+// After this many consecutive zero-progress attempts on a full peer ring,
+// suspect a stale mapping (peer crashed and recreated its segment) and
+// remap.  Normal backpressure resets the counter on any progress.
+constexpr uint32_t kStallRemapThreshold = 4096;
+
+struct RecvOp {
+  int src = -1;
+  int tag = 0;
+  uint8_t* out = nullptr;
+  uint64_t cap = 0;
+  uint64_t size = 0;
+  bool done = false;
+  bool cancelled = false;
+  bool size_mismatch = false;
+};
+
+struct Ctx {
+  std::string ns;
+  int rank = -1;
+  int nranks = 0;
+  uint64_t ring_bytes = 0;
+  Ring own;
+  std::vector<Ring> peers;  // lazily opened inboxes of other ranks
+  std::map<std::pair<int, int>, std::deque<Message>> ready;      // (src,tag)
+  std::map<std::pair<int, uint64_t>, Partial> partial;           // (src,msg_id)
+  std::map<int64_t, SendOp> sends;
+  std::map<int64_t, RecvOp> recvs;
+  std::map<int, std::deque<int64_t>> send_q;  // per-destination FIFO
+  std::vector<Buffer> buf_cache;  // recycled big message buffers
+  int64_t next_handle = 1;
+  uint64_t next_msg_id = 1;
+  std::string last_error;
+};
+
+// Only buffers this big are worth recycling (below it, allocator churn is
+// cheap and caching would let one huge cached buffer serve tiny acks).
+constexpr uint64_t kBufCacheMin = 1ull << 20;
+constexpr size_t kBufCacheSlots = 8;
+
+Buffer alloc_buffer(Ctx* ctx, uint64_t n) {
+  Buffer buf;
+  if (n >= kBufCacheMin) {
+    size_t best = SIZE_MAX;
+    for (size_t i = 0; i < ctx->buf_cache.size(); ++i) {
+      uint64_t cap = ctx->buf_cache[i].cap;
+      if (cap >= n && (best == SIZE_MAX || cap < ctx->buf_cache[best].cap)) {
+        best = i;
+      }
+    }
+    if (best != SIZE_MAX) {
+      buf = std::move(ctx->buf_cache[best]);
+      ctx->buf_cache.erase(ctx->buf_cache.begin() + (ptrdiff_t)best);
+      buf.len = n;
+      return buf;
+    }
+  }
+  buf.data.reset(n > 0 ? new uint8_t[n] : nullptr);  // uninitialized
+  buf.cap = n;
+  buf.len = n;
+  return buf;
+}
+
+void recycle_buffer(Ctx* ctx, Buffer&& buf) {
+  if (buf.cap >= kBufCacheMin && ctx->buf_cache.size() < kBufCacheSlots) {
+    ctx->buf_cache.push_back(std::move(buf));
+  }
+}
+
+std::string shm_name(const std::string& ns, int rank) {
+  return "/mt_" + ns + "_r" + std::to_string(rank);
+}
+
+bool map_ring(const std::string& name, uint64_t ring_bytes, bool create,
+              Ring* out, std::string* err) {
+  int flags = create ? (O_CREAT | O_RDWR) : O_RDWR;
+  int fd = shm_open(name.c_str(), flags, 0600);
+  if (fd < 0) {
+    if (err) *err = "shm_open " + name + ": " + std::strerror(errno);
+    return false;
+  }
+  size_t total = sizeof(RingHeader) + ring_bytes;
+  if (create && ftruncate(fd, (off_t)total) != 0) {
+    if (err) *err = "ftruncate " + name + ": " + std::strerror(errno);
+    close(fd);
+    return false;
+  }
+  if (!create) {
+    // The creator sizes the segment; wait for a nonzero size.
+    struct stat st;
+    if (fstat(fd, &st) != 0 || (size_t)st.st_size < sizeof(RingHeader)) {
+      close(fd);
+      if (err) *err = "peer segment not sized yet";
+      return false;
+    }
+    total = (size_t)st.st_size;
+  }
+  void* mem = mmap(nullptr, total, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  close(fd);
+  if (mem == MAP_FAILED) {
+    if (err) *err = "mmap " + name + ": " + std::strerror(errno);
+    return false;
+  }
+  out->hdr = reinterpret_cast<RingHeader*>(mem);
+  out->data = reinterpret_cast<uint8_t*>(mem) + sizeof(RingHeader);
+  out->map_bytes = total;
+  return true;
+}
+
+void circ_write(Ring& ring, uint64_t pos, const void* src, uint64_t n) {
+  uint64_t cap = ring.hdr->capacity;
+  uint64_t off = pos % cap;
+  uint64_t first = (off + n <= cap) ? n : cap - off;
+  std::memcpy(ring.data + off, src, first);
+  if (first < n) {
+    std::memcpy(ring.data, reinterpret_cast<const uint8_t*>(src) + first,
+                n - first);
+  }
+}
+
+void circ_read(Ring& ring, uint64_t pos, void* dst, uint64_t n) {
+  uint64_t cap = ring.hdr->capacity;
+  uint64_t off = pos % cap;
+  uint64_t first = (off + n <= cap) ? n : cap - off;
+  std::memcpy(dst, ring.data + off, first);
+  if (first < n) {
+    std::memcpy(reinterpret_cast<uint8_t*>(dst) + first, ring.data, n - first);
+  }
+}
+
+Ring* peer_ring(Ctx* ctx, int dst) {
+  if (dst < 0 || dst >= ctx->nranks) return nullptr;
+  Ring& ring = ctx->peers[dst];
+  if (ring.hdr == nullptr) {
+    std::string err;
+    if (!map_ring(shm_name(ctx->ns, dst), ctx->ring_bytes, /*create=*/false,
+                  &ring, &err)) {
+      return nullptr;  // peer not up yet; caller retries on next progress
+    }
+  }
+  if (ring.hdr->ready.load(std::memory_order_acquire) != kReadyMagic) {
+    return nullptr;
+  }
+  return &ring;
+}
+
+void unmap_peer(Ctx* ctx, int dst) {
+  Ring& ring = ctx->peers[dst];
+  if (ring.hdr != nullptr) {
+    munmap(ring.hdr, ring.map_bytes);
+    ring = Ring{};
+  }
+}
+
+// Robust lock: if the previous holder died mid-critical-section, take
+// ownership, mark the mutex consistent, and reset the ring indices (the
+// in-flight bytes are garbage after a crash; post-crash message loss is the
+// accepted semantic — the PS protocol's acks surface it to the caller).
+void lock_ring(RingHeader* hdr) {
+  int rc = pthread_mutex_lock(&hdr->mutex);
+  if (rc == EOWNERDEAD) {
+    hdr->head = 0;
+    hdr->tail = 0;
+    pthread_mutex_consistent(&hdr->mutex);
+  }
+}
+
+// Drain the own inbox: move complete chunks into partial/ready maps.
+// Payload bytes go straight from the ring into their final message
+// buffer — one copy, into uninitialized storage (the old vector path
+// value-initialized every byte and copied multi-chunk payloads twice).
+void drain_inbox(Ctx* ctx) {
+  Ring& ring = ctx->own;
+  lock_ring(ring.hdr);
+  uint64_t head = ring.hdr->head;
+  uint64_t tail = ring.hdr->tail;
+  while (tail < head) {
+    ChunkHeader ch;
+    circ_read(ring, tail, &ch, sizeof(ch));
+    tail += sizeof(ch);
+    if (ch.chunk_bytes == ch.total_bytes) {  // complete in one chunk
+      Buffer buf = alloc_buffer(ctx, ch.total_bytes);
+      if (ch.chunk_bytes > 0) circ_read(ring, tail, buf.data.get(), ch.chunk_bytes);
+      ctx->ready[{ch.src, ch.tag}].push_back(Message{std::move(buf)});
+    } else {
+      auto key = std::make_pair(ch.src, ch.msg_id);
+      Partial& part = ctx->partial[key];
+      if (part.seen == 0) {
+        part.total = ch.total_bytes;
+        part.tag = ch.tag;
+        part.buf = alloc_buffer(ctx, ch.total_bytes);
+      }
+      uint64_t n = ch.chunk_bytes;  // clamp defensively; completion is byte-based
+      if (part.filled + n > part.total) n = part.total - part.filled;
+      if (n > 0) circ_read(ring, tail, part.buf.data.get() + part.filled, n);
+      part.filled += ch.chunk_bytes;
+      part.seen++;
+      if (part.filled >= part.total) {
+        ctx->ready[{ch.src, part.tag}].push_back(Message{std::move(part.buf)});
+        ctx->partial.erase(key);
+      }
+    }
+    tail += ch.chunk_bytes;
+  }
+  ring.hdr->tail = tail;
+  pthread_mutex_unlock(&ring.hdr->mutex);
+}
+
+// Try to place more chunks of the front send op for each destination.
+void pump_sends(Ctx* ctx) {
+  for (auto& [dst, queue] : ctx->send_q) {
+    while (!queue.empty()) {
+      int64_t handle = queue.front();
+      auto it = ctx->sends.find(handle);
+      if (it == ctx->sends.end() || it->second.cancelled || it->second.done) {
+        queue.pop_front();
+        continue;
+      }
+      SendOp& op = it->second;
+      Ring* ring = peer_ring(ctx, dst);
+      if (ring == nullptr) break;  // destination not up yet
+      // A chunk must fit in the destination ring with its header; cap at
+      // half the ring so two senders can interleave without livelock.
+      uint64_t ring_cap = ring->hdr->capacity;
+      uint64_t fit_max = ring_cap > 2 * sizeof(ChunkHeader)
+                             ? (ring_cap - 2 * sizeof(ChunkHeader)) / 2
+                             : 1;
+      uint64_t max_chunk = kMaxChunk < fit_max ? kMaxChunk : fit_max;
+      bool progressed = true;
+      while (!op.done && progressed) {
+        progressed = false;
+        uint64_t remaining = op.len - op.written;
+        uint64_t chunk = remaining < max_chunk ? remaining : max_chunk;
+        uint64_t need = sizeof(ChunkHeader) + chunk;
+        lock_ring(ring->hdr);
+        uint64_t used = ring->hdr->head - ring->hdr->tail;
+        uint64_t free_bytes = ring->hdr->capacity - used;
+        if (free_bytes >= need) {
+          ChunkHeader ch;
+          ch.src = ctx->rank;
+          ch.tag = op.tag;
+          ch.msg_id = op.msg_id;
+          ch.chunk_idx = op.next_chunk;
+          ch.nchunks = 0;  // informational; completion is byte-based
+          ch.chunk_bytes = chunk;
+          ch.total_bytes = op.len;
+          circ_write(*ring, ring->hdr->head, &ch, sizeof(ch));
+          if (chunk > 0) {
+            circ_write(*ring, ring->hdr->head + sizeof(ch), op.data + op.written,
+                       chunk);
+          }
+          ring->hdr->head += need;
+          op.written += chunk;
+          op.next_chunk++;
+          op.stalls = 0;
+          progressed = true;
+          if (op.written >= op.len) op.done = true;
+        }
+        pthread_mutex_unlock(&ring->hdr->mutex);
+      }
+      if (!op.done) {
+        // Zero progress with a full ring: count stalls; past the threshold
+        // assume a stale mapping (peer recreated its segment) and remap.
+        if (++op.stalls >= kStallRemapThreshold) {
+          op.stalls = 0;
+          unmap_peer(ctx, dst);
+        }
+        break;  // keep FIFO order, stop for this dst
+      }
+      queue.pop_front();
+    }
+  }
+}
+
+void progress(Ctx* ctx) {
+  drain_inbox(ctx);
+  pump_sends(ctx);
+}
+
+}  // namespace
+
+extern "C" {
+
+void* mt_init(const char* ns, int rank, int nranks, uint64_t ring_bytes) {
+  auto* ctx = new Ctx();
+  ctx->ns = ns;
+  ctx->rank = rank;
+  ctx->nranks = nranks;
+  ctx->ring_bytes = ring_bytes;
+  ctx->peers.resize(nranks);
+  std::string name = shm_name(ctx->ns, rank);
+  shm_unlink(name.c_str());  // clear any stale segment from a crashed run
+  std::string err;
+  if (!map_ring(name, ring_bytes, /*create=*/true, &ctx->own, &err)) {
+    std::fprintf(stderr, "mt_init: %s\n", err.c_str());
+    delete ctx;
+    return nullptr;
+  }
+  pthread_mutexattr_t attr;
+  pthread_mutexattr_init(&attr);
+  pthread_mutexattr_setpshared(&attr, PTHREAD_PROCESS_SHARED);
+  pthread_mutexattr_setrobust(&attr, PTHREAD_MUTEX_ROBUST);
+  pthread_mutex_init(&ctx->own.hdr->mutex, &attr);
+  pthread_mutexattr_destroy(&attr);
+  ctx->own.hdr->capacity = ring_bytes;
+  ctx->own.hdr->head = 0;
+  ctx->own.hdr->tail = 0;
+  ctx->own.hdr->ready.store(kReadyMagic, std::memory_order_release);
+  return ctx;
+}
+
+void mt_finalize(void* vctx) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  if (ctx == nullptr) return;
+  if (ctx->own.hdr != nullptr) {
+    munmap(ctx->own.hdr, ctx->own.map_bytes);
+    shm_unlink(shm_name(ctx->ns, ctx->rank).c_str());
+  }
+  for (Ring& ring : ctx->peers) {
+    if (ring.hdr != nullptr) munmap(ring.hdr, ring.map_bytes);
+  }
+  delete ctx;
+}
+
+int mt_rank(void* vctx) { return static_cast<Ctx*>(vctx)->rank; }
+int mt_nranks(void* vctx) { return static_cast<Ctx*>(vctx)->nranks; }
+
+int64_t mt_isend(void* vctx, int dst, int tag, const void* data, uint64_t len) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  if (dst < 0 || dst >= ctx->nranks) return -1;
+  SendOp op;
+  op.dst = dst;
+  op.tag = tag;
+  op.data = static_cast<const uint8_t*>(data);
+  op.len = len;
+  op.msg_id = ctx->next_msg_id++;
+  int64_t handle = ctx->next_handle++;
+  ctx->sends[handle] = op;
+  ctx->send_q[dst].push_back(handle);
+  progress(ctx);
+  return handle;
+}
+
+int64_t mt_irecv(void* vctx, int src, int tag, void* out, uint64_t cap) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  if (src < 0 || src >= ctx->nranks) return -1;
+  RecvOp op;
+  op.src = src;
+  op.tag = tag;
+  op.out = static_cast<uint8_t*>(out);
+  op.cap = cap;
+  int64_t handle = ctx->next_handle++;
+  ctx->recvs[handle] = op;
+  return handle;
+}
+
+int mt_iprobe(void* vctx, int src, int tag) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  progress(ctx);
+  auto it = ctx->ready.find({src, tag});
+  return (it != ctx->ready.end() && !it->second.empty()) ? 1 : 0;
+}
+
+int64_t mt_probe_size(void* vctx, int src, int tag) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  progress(ctx);
+  auto it = ctx->ready.find({src, tag});
+  if (it == ctx->ready.end() || it->second.empty()) return -1;
+  return (int64_t)it->second.front().buf.len;
+}
+
+// Returns 1 complete, 0 pending, -1 unknown handle, -2 size mismatch.
+int mt_test(void* vctx, int64_t handle) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  progress(ctx);
+  auto sit = ctx->sends.find(handle);
+  if (sit != ctx->sends.end()) {
+    if (sit->second.cancelled) return -1;
+    if (sit->second.done) {
+      ctx->sends.erase(sit);
+      return 1;
+    }
+    return 0;
+  }
+  auto rit = ctx->recvs.find(handle);
+  if (rit != ctx->recvs.end()) {
+    RecvOp& op = rit->second;
+    if (op.cancelled) return -1;
+    if (op.done) return 1;
+    auto box = ctx->ready.find({op.src, op.tag});
+    if (box == ctx->ready.end() || box->second.empty()) return 0;
+    Message& msg = box->second.front();
+    if (msg.buf.len != op.cap) {
+      op.size_mismatch = true;
+      op.size = msg.buf.len;
+      return -2;
+    }
+    if (op.cap > 0) std::memcpy(op.out, msg.buf.data.get(), op.cap);
+    op.size = msg.buf.len;
+    op.done = true;
+    Buffer freed = std::move(msg.buf);
+    box->second.pop_front();
+    recycle_buffer(ctx, std::move(freed));
+    return 1;
+  }
+  return -1;
+}
+
+int64_t mt_recv_size(void* vctx, int64_t handle) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  auto rit = ctx->recvs.find(handle);
+  if (rit == ctx->recvs.end()) return -1;
+  return (int64_t)rit->second.size;
+}
+
+void mt_cancel(void* vctx, int64_t handle) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  auto sit = ctx->sends.find(handle);
+  if (sit != ctx->sends.end()) {
+    // Chunks already in the peer ring stay (the receiver discards partial
+    // messages at finalize); the op stops producing more.
+    sit->second.cancelled = true;
+    ctx->sends.erase(sit);
+    return;
+  }
+  auto rit = ctx->recvs.find(handle);
+  if (rit != ctx->recvs.end()) ctx->recvs.erase(rit);
+}
+
+void mt_release(void* vctx, int64_t handle) {
+  auto* ctx = static_cast<Ctx*>(vctx);
+  ctx->recvs.erase(handle);
+  ctx->sends.erase(handle);
+}
+
+// Monotonic wall clock in seconds (the MPI_Wtime analog,
+// reference mpifuncs.c:2500-2513).
+double mt_time(void) {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (double)ts.tv_sec + 1e-9 * (double)ts.tv_nsec;
+}
+
+// -- wire-codec kernels (mpit_tpu/comm/codec.py hot paths) -------------------
+//
+// Single-translation-unit home for the codec inner loops: the numpy
+// reference implementations in codec.py make ~8 full passes per tile
+// (measured 0.66 s to int8-encode 640 MB with residual on the 1-core
+// bench host), and on a host where the encoder competes with the wire
+// for the same core that cost lands 1:1 on PS throughput.  These loops
+// do the same math in 2 passes per 1024-element block (absmax, then
+// quantize+residual) with block-cache-resident reads, ctypes releases
+// the GIL for the duration, and codec.py keeps the numpy path as the
+// fallback (and as the parity oracle in tests/test_codec.py).
+//
+// Float semantics match numpy exactly: scale = absmax/127 (1.0 for
+// all-zero blocks), code = rintf(w * (1/scale)) (round-half-to-even,
+// same as np.rint), residual = w - code*scale evaluated without fp
+// contraction (build.py passes -ffp-contract=off) so native and numpy
+// frames are bit-identical.
+
+constexpr uint64_t kCodecBlock = 1024;  // == codec.BLOCK
+
+void mt_codec_int8_encode(const void* vx, void* vresidual, uint64_t n,
+                          void* vscales, void* vcodes) {
+  const float* x = static_cast<const float*>(vx);
+  float* r = static_cast<float*>(vresidual);  // nullable (param path)
+  float* scales = static_cast<float*>(vscales);
+  int8_t* codes = static_cast<int8_t*>(vcodes);
+  uint64_t nb = (n + kCodecBlock - 1) / kCodecBlock;
+  for (uint64_t b = 0; b < nb; ++b) {
+    uint64_t lo = b * kCodecBlock;
+    uint64_t hi = lo + kCodecBlock < n ? lo + kCodecBlock : n;
+    float absmax = 0.0f;
+    if (r != nullptr) {
+      for (uint64_t i = lo; i < hi; ++i) {
+        float w = x[i] + r[i];
+        float a = fabsf(w);
+        if (a > absmax) absmax = a;
+      }
+    } else {
+      for (uint64_t i = lo; i < hi; ++i) {
+        float a = fabsf(x[i]);
+        if (a > absmax) absmax = a;
+      }
+    }
+    float scale = absmax == 0.0f ? 1.0f : absmax / 127.0f;
+    float inv = 1.0f / scale;
+    scales[b] = scale;
+    if (r != nullptr) {
+      for (uint64_t i = lo; i < hi; ++i) {
+        float w = x[i] + r[i];
+        float q = rintf(w * inv);
+        codes[i] = (int8_t)q;
+        r[i] = w - q * scale;
+      }
+    } else {
+      for (uint64_t i = lo; i < hi; ++i) {
+        codes[i] = (int8_t)rintf(x[i] * inv);
+      }
+    }
+  }
+}
+
+void mt_codec_int8_decode(const void* vscales, const void* vcodes, uint64_t n,
+                          void* vout) {
+  const float* scales = static_cast<const float*>(vscales);
+  const int8_t* codes = static_cast<const int8_t*>(vcodes);
+  float* out = static_cast<float*>(vout);
+  uint64_t nb = (n + kCodecBlock - 1) / kCodecBlock;
+  for (uint64_t b = 0; b < nb; ++b) {
+    uint64_t lo = b * kCodecBlock;
+    uint64_t hi = lo + kCodecBlock < n ? lo + kCodecBlock : n;
+    float scale = scales[b];
+    for (uint64_t i = lo; i < hi; ++i) {
+      out[i] = (float)codes[i] * scale;
+    }
+  }
+}
+
+void mt_codec_bf16_encode(const void* vx, uint64_t n, void* vwire) {
+  // Truncation: the high half-word of each little-endian fp32.
+  const uint16_t* src = static_cast<const uint16_t*>(vx);
+  uint16_t* dst = static_cast<uint16_t*>(vwire);
+  for (uint64_t i = 0; i < n; ++i) {
+    dst[i] = src[2 * i + 1];
+  }
+}
+
+void mt_codec_bf16_decode(const void* vwire, uint64_t n, void* vout) {
+  const uint16_t* src = static_cast<const uint16_t*>(vwire);
+  uint32_t* dst = static_cast<uint32_t*>(vout);
+  for (uint64_t i = 0; i < n; ++i) {
+    dst[i] = (uint32_t)src[i] << 16;
+  }
+}
+
+// -- data-plane kernels for the worker pool ----------------------------------
+//
+// Byte-wise XOR delta (cells FrameHistory DELTA production and apply) and
+// the fused f32 add-fold (agg interior-node per-chunk fold).  Both are
+// single-pass replacements for multi-pass numpy pipelines; both must stay
+// bit-identical to the numpy reference (tests/test_pool.py parity suite):
+// XOR trivially is, and the fold keeps numpy's association order
+// ((own[i] + c0[i]) + c1[i]) + ... element-wise with -ffp-contract=off,
+// so no FMA ever merges an add pair the serial path keeps separate.
+
+void mt_xor_bytes(const void* va, const void* vb, void* vout, int64_t n) {
+  const uint8_t* a = static_cast<const uint8_t*>(va);
+  const uint8_t* b = static_cast<const uint8_t*>(vb);
+  uint8_t* out = static_cast<uint8_t*>(vout);
+  int64_t i = 0;
+  for (; i + 8 <= n; i += 8) {
+    uint64_t x, y;
+    memcpy(&x, a + i, 8);
+    memcpy(&y, b + i, 8);
+    x ^= y;
+    memcpy(out + i, &x, 8);
+  }
+  for (; i < n; ++i) out[i] = (uint8_t)(a[i] ^ b[i]);
+}
+
+// vptrs: uint64_t[nchildren] raw child-buffer addresses, each f32[n].
+// The serial agg fold does copyto(acc, own) then one `acc += child` pass
+// per child — nchildren+1 DRAM round trips over the chunk.  This fuses
+// them into one read pass over every operand and one write pass, keeping
+// the exact per-element association order of the serial loop.
+void mt_fold_f32(const void* vown, const void* vptrs, int32_t nchildren,
+                 void* vout, int64_t n) {
+  const float* own = static_cast<const float*>(vown);
+  const uint64_t* ptrs = static_cast<const uint64_t*>(vptrs);
+  float* out = static_cast<float*>(vout);
+  for (int64_t i = 0; i < n; ++i) {
+    float acc = own[i];
+    for (int32_t c = 0; c < nchildren; ++c) {
+      acc += reinterpret_cast<const float*>((uintptr_t)ptrs[c])[i];
+    }
+    out[i] = acc;
+  }
+}
+
+// Bumped whenever specs/*.json and this file change together; the
+// generated _bindings.py refuses a stale .so (loud rebuild message)
+// instead of failing with a confusing missing-symbol AttributeError.
+// Keep in sync with MT_API_VERSION in gen_bindings.py.
+int64_t mt_api_version(void) { return 17001; }
+
+}  // extern "C"
+
+// -- worker-pool data plane --------------------------------------------------
+//
+// A persistent native thread pool so chunk encode/decode/XOR/fold runs off
+// the Python critical thread (the GIL cap recorded by BENCH_r15/r16).  Jobs
+// are pure: owned input pointers -> owned output pointers, all regions
+// disjoint per job, per-block int8 EF state (the residual slice) carried in
+// the job.  Completion order therefore never influences byte content; the
+// Python seam (mpit_tpu/comm/pool.py) collects results in submission order.
+
+namespace {
+
+enum PoolJobKind {
+  kJobInt8Enc = 1,
+  kJobInt8Dec = 2,
+  kJobBf16Enc = 3,
+  kJobBf16Dec = 4,
+  kJobXor = 5,
+  kJobFoldF32 = 6,
+  kJobCopy = 7,
+};
+constexpr int32_t kJobKinds = 8;  // valid kinds are 1..kJobKinds-1
+
+struct PoolJob {
+  uint64_t handle = 0;
+  int32_t kind = 0;
+  const void* a = nullptr;  // primary input
+  const void* b = nullptr;  // secondary input (residual / xor rhs / ptrs)
+  void* c = nullptr;        // primary output
+  void* d = nullptr;        // secondary output (int8 codes)
+  int64_t n = 0;
+  int64_t aux = 0;                // fold: nchildren
+  std::vector<uint64_t> ptrs;     // fold: owned copy of child addresses
+};
+
+struct Pool {
+  std::mutex mu;
+  std::condition_variable cv_work;  // workers: queue non-empty or closing
+  std::condition_variable cv_done;  // waiters: a job completed
+  std::deque<PoolJob> queue;
+  std::map<uint64_t, int> state;  // handle -> 0 pending, 1 done
+  std::vector<std::thread> threads;
+  uint64_t next_handle = 1;
+  bool closing = false;
+  int64_t running = 0;
+  uint64_t jobs_by_kind[kJobKinds] = {0};
+  std::atomic<uint64_t> busy_ns{0};
+};
+
+void pool_run(const PoolJob& job) {
+  switch (job.kind) {
+    case kJobInt8Enc:
+      mt_codec_int8_encode(job.a, const_cast<void*>(job.b), (uint64_t)job.n,
+                           job.c, job.d);
+      break;
+    case kJobInt8Dec:
+      mt_codec_int8_decode(job.a, job.b, (uint64_t)job.n, job.c);
+      break;
+    case kJobBf16Enc:
+      mt_codec_bf16_encode(job.a, (uint64_t)job.n, job.c);
+      break;
+    case kJobBf16Dec:
+      mt_codec_bf16_decode(job.a, (uint64_t)job.n, job.c);
+      break;
+    case kJobXor:
+      mt_xor_bytes(job.a, job.b, job.c, job.n);
+      break;
+    case kJobFoldF32:
+      mt_fold_f32(job.a, job.ptrs.data(), (int32_t)job.aux, job.c, job.n);
+      break;
+    case kJobCopy:
+      memcpy(job.c, job.a, (size_t)job.n);
+      break;
+    default:
+      break;
+  }
+}
+
+void pool_worker(Pool* pool) {
+  for (;;) {
+    PoolJob job;
+    {
+      std::unique_lock<std::mutex> lk(pool->mu);
+      pool->cv_work.wait(
+          lk, [pool] { return pool->closing || !pool->queue.empty(); });
+      if (pool->queue.empty()) return;  // closing and fully drained
+      job = std::move(pool->queue.front());
+      pool->queue.pop_front();
+      pool->running++;
+    }
+    struct timespec t0, t1;
+    clock_gettime(CLOCK_MONOTONIC, &t0);
+    pool_run(job);
+    clock_gettime(CLOCK_MONOTONIC, &t1);
+    uint64_t ns = (uint64_t)(t1.tv_sec - t0.tv_sec) * 1000000000ull +
+                  (uint64_t)(t1.tv_nsec - t0.tv_nsec);
+    {
+      std::lock_guard<std::mutex> lk(pool->mu);
+      pool->running--;
+      pool->state[job.handle] = 1;
+      pool->jobs_by_kind[job.kind]++;
+      pool->busy_ns.fetch_add(ns, std::memory_order_relaxed);
+    }
+    pool->cv_done.notify_all();
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Spawn a pool with nthreads workers; NULL when nthreads <= 0 (callers
+// treat that as "stay serial").  Pools are instance-scoped like mt_init
+// contexts so tests can run several geometries side by side.
+void* mt_pool_start(int32_t nthreads) {
+  if (nthreads <= 0) return nullptr;
+  Pool* pool = new Pool();
+  pool->threads.reserve((size_t)nthreads);
+  for (int32_t i = 0; i < nthreads; ++i) {
+    pool->threads.emplace_back(pool_worker, pool);
+  }
+  return pool;
+}
+
+// Drain every queued job, join all workers, free the pool.  Submitting to
+// a closed pool is the caller's error (the Python seam raises before it
+// can reach a freed pointer).
+void mt_pool_close(void* vpool) {
+  auto* pool = static_cast<Pool*>(vpool);
+  if (pool == nullptr) return;
+  {
+    std::lock_guard<std::mutex> lk(pool->mu);
+    pool->closing = true;
+  }
+  pool->cv_work.notify_all();
+  for (auto& t : pool->threads) t.join();
+  delete pool;
+}
+
+int32_t mt_pool_threads(void* vpool) {
+  auto* pool = static_cast<Pool*>(vpool);
+  return pool == nullptr ? 0 : (int32_t)pool->threads.size();
+}
+
+// Enqueue one pure job; returns a handle (> 0), or 0 when the pool is
+// closing or the job is malformed.  Operand meaning by kind:
+//   INT8_ENC  a=x f32[n], b=residual f32[n]|NULL, c=scales, d=codes
+//   INT8_DEC  a=scales, b=codes, c=out f32[n]
+//   BF16_ENC  a=x f32[n], c=wire u16[n]      BF16_DEC a=wire, c=out
+//   XOR       a, b, c = out, n bytes
+//   FOLD_F32  a=own f32[n], b=u64[aux] child addresses (copied), c=out
+//   COPY      a=src, c=dst, n bytes
+// Buffers must stay alive until the job completes (zero-copy rule; the
+// Python Job object holds the references).
+uint64_t mt_pool_submit(void* vpool, int32_t kind, const void* a,
+                        const void* b, void* c, void* d, int64_t n,
+                        int64_t aux) {
+  auto* pool = static_cast<Pool*>(vpool);
+  if (pool == nullptr || kind <= 0 || kind >= kJobKinds || n < 0) return 0;
+  PoolJob job;
+  job.kind = kind;
+  job.a = a;
+  job.b = b;
+  job.c = c;
+  job.d = d;
+  job.n = n;
+  job.aux = aux;
+  if (kind == kJobFoldF32) {
+    if (b == nullptr || aux < 0) return 0;
+    const uint64_t* ptrs = static_cast<const uint64_t*>(b);
+    job.ptrs.assign(ptrs, ptrs + aux);  // owned copy: caller may free b
+  }
+  uint64_t handle;
+  {
+    std::lock_guard<std::mutex> lk(pool->mu);
+    if (pool->closing) return 0;
+    handle = pool->next_handle++;
+    job.handle = handle;
+    pool->state[handle] = 0;
+    pool->queue.push_back(std::move(job));
+  }
+  pool->cv_work.notify_one();
+  return handle;
+}
+
+// 1 done (handle retired), 0 pending, -1 unknown.
+int32_t mt_pool_poll(void* vpool, uint64_t handle) {
+  auto* pool = static_cast<Pool*>(vpool);
+  if (pool == nullptr) return -1;
+  std::lock_guard<std::mutex> lk(pool->mu);
+  auto it = pool->state.find(handle);
+  if (it == pool->state.end()) return -1;
+  if (it->second == 0) return 0;
+  pool->state.erase(it);
+  return 1;
+}
+
+// Block until the job completes (ctypes drops the GIL for the duration);
+// 0 ok (handle retired), -1 unknown.
+int32_t mt_pool_wait(void* vpool, uint64_t handle) {
+  auto* pool = static_cast<Pool*>(vpool);
+  if (pool == nullptr) return -1;
+  std::unique_lock<std::mutex> lk(pool->mu);
+  auto it = pool->state.find(handle);
+  if (it == pool->state.end()) return -1;
+  pool->cv_done.wait(lk, [pool, handle] {
+    auto jt = pool->state.find(handle);
+    return jt == pool->state.end() || jt->second == 1;
+  });
+  pool->state.erase(handle);
+  return 0;
+}
+
+// Jobs submitted but not yet finished (queued + running).
+int64_t mt_pool_depth(void* vpool) {
+  auto* pool = static_cast<Pool*>(vpool);
+  if (pool == nullptr) return 0;
+  std::lock_guard<std::mutex> lk(pool->mu);
+  return (int64_t)pool->queue.size() + pool->running;
+}
+
+// Completed-job count for one kind, or the total when kind == 0.
+uint64_t mt_pool_jobs(void* vpool, int32_t kind) {
+  auto* pool = static_cast<Pool*>(vpool);
+  if (pool == nullptr || kind < 0 || kind >= kJobKinds) return 0;
+  std::lock_guard<std::mutex> lk(pool->mu);
+  if (kind != 0) return pool->jobs_by_kind[kind];
+  uint64_t total = 0;
+  for (int32_t k = 1; k < kJobKinds; ++k) total += pool->jobs_by_kind[k];
+  return total;
+}
+
+// Cumulative worker seconds spent inside kernels.
+double mt_pool_busy_seconds(void* vpool) {
+  auto* pool = static_cast<Pool*>(vpool);
+  if (pool == nullptr) return 0.0;
+  return 1e-9 * (double)pool->busy_ns.load(std::memory_order_relaxed);
+}
+
+}  // extern "C"

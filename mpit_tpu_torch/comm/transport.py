@@ -1,6 +1,6 @@
 """Transport interface: nonblocking (rank, tag)-addressed messaging.
 
-A copy of :mod:`mpit_tpu.comm.transport`: the port imports nothing of the
+A copy of ``mpit_tpu/comm/transport.py``: the port imports nothing of the
 JAX package.  Any implementation of this contract carries the port's
 parameter server, the JAX package's own endpoints included, since the two
 speak the same bytes.

@@ -1,7 +1,7 @@
 """Committed-data fixture root — the single place that knows where the
 repo's ``data/fixtures`` directory lives relative to the package.
 
-A copy of :mod:`mpit_tpu.data.fixtures`: the port imports nothing of the JAX package.
+A copy of ``mpit_tpu/data/fixtures.py``: the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """MNIST-shaped data for the port, in numpy.
 
-A copy of :func:`mpit_tpu.data.mnist.load_mnist` with the same search and
+A copy of ``load_mnist`` of ``mpit_tpu/data/mnist.py`` with the same search and
 the same split: real MNIST when it is on disk (``mnist.npz`` or idx-ubyte
 files under ``$MPIT_DATA``, ``./data`` or ``~/.mpit/data``), else the
 committed UCI optdigits fixture (``data/fixtures/optdigits_8x8.npz``)

@@ -1,6 +1,6 @@
 """Flat-parameter view over a ``torch.nn`` module (the getParameters() analog).
 
-The port of :mod:`mpit_tpu.models.flat`.  The reference trains on one flat
+The port of ``mpit_tpu/models/flat.py``.  The reference trains on one flat
 f32 vector laid out by ``ravel_pytree`` over flax's parameter tree; this
 module keeps that layout exactly:
 
@@ -139,6 +139,24 @@ def value_and_grad_nll(flat: FlatModel) -> Callable[..., Tuple[torch.Tensor, tor
     def vgf(w, xb, yb):
         grad, loss = grad_and_value(w, xb, yb)
         return loss, grad
+
+    return vgf
+
+
+def value_and_grad_nll_eager(flat: FlatModel) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """The same ``vgf`` as :func:`value_and_grad_nll`, by ``torch.autograd``
+    (the same kernels, the same bits), for callers that never ``vmap`` it:
+    one worker's trainer.  ``torch.func``'s first call imports
+    ``torch._dynamo`` and ``sympy`` (some 840 modules), a cost every new
+    worker process of a gang would pay before its first step."""
+
+    def vgf(w, xb, yb):
+        with torch.enable_grad():
+            leaf = w.detach().requires_grad_(True)
+            logp = flat.apply_flat(leaf, xb)
+            loss = -torch.take_along_dim(logp, yb[:, None].long(), dim=1).mean()
+            (grad,) = torch.autograd.grad(loss, leaf)
+        return loss.detach(), grad
 
     return vgf
 

@@ -1,6 +1,6 @@
 """The MNIST model family as ``torch.nn`` modules, in the reference's layout.
 
-The port of :mod:`mpit_tpu.models.mnist`.  The layers keep flax's names
+The port of ``mpit_tpu/models/mnist.py``.  The layers keep flax's names
 and parameter layouts, so a flat parameter vector means the same thing in
 both packages (:mod:`mpit_tpu_torch.models.flat`):
 

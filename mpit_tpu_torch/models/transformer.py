@@ -1,6 +1,6 @@
 """Decoder-only transformer with pluggable attention: the long-context LM.
 
-The port of :mod:`mpit_tpu.models.transformer`.  The modules keep flax's
+The port of ``mpit_tpu/models/transformer.py``.  The modules keep flax's
 names, parameter layouts and defaults, so a flat parameter vector means
 the same thing in both packages (:mod:`mpit_tpu_torch.models.flat`):
 

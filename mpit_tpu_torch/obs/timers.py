@@ -1,7 +1,7 @@
 """Per-phase wall-clock timers and ``torch.profiler`` hooks.
 
 :class:`PhaseTimers` is the trainer-loop timer of
-:mod:`mpit_tpu.obs.timers`, copied.  :func:`trace_annotation` and
+``mpit_tpu/obs/timers.py``, copied.  :func:`trace_annotation` and
 :func:`profiler_trace` are its profiler bridge on ``torch.profiler``:
 wrap host work in :func:`trace_annotation` while :func:`profiler_trace`
 records, and the phase shows on the timeline beside the CUDA kernels.

@@ -1,6 +1,6 @@
 """Blockwise (flash) attention: the forward K4 and the backward K5 / K6.
 
-The port of :mod:`mpit_tpu.ops.flash_attention`.  Over ``(..., L, D)``
+The port of ``mpit_tpu/ops/flash_attention.py``.  Over ``(..., L, D)``
 tensors (leading axes batched), with global-offset causal masking
 (``q_offset``, ``kv_offset``: a Q chunk attends to a KV chunk of a longer
 sequence, as ring attention needs):
@@ -246,7 +246,7 @@ def _round_up(x: int, m: int) -> int:
 def _jax_transient_mb(n: int, lq: int, lk: int, d: int, dtype) -> float:
     """The dQ-partials transient that the JAX package's gate counts for its
     fused backward, in MiB: ``N * (Lk_p / bk) * Lq_p * D_p * 4`` bytes over
-    its Pallas tiles (``mpit_tpu.ops.flash_attention._tile_dims`` with
+    its Pallas tiles (``_tile_dims`` of ``mpit_tpu/ops/flash_attention.py`` with
     ``bwd_long_bk``), under its default settings.
 
     ``bk`` is 1,024 keys for 2-byte types and 512 otherwise, 2,048 for a

@@ -1,6 +1,6 @@
 """Fused parameter-update kernels on flat f32 vectors.
 
-The port of :mod:`mpit_tpu.ops.fused_update`, all three of its kernels:
+The port of ``mpit_tpu/ops/fused_update.py``, all three of its kernels:
 
 - K1 :func:`fused_nesterov_commit`, the msgd commit with the EASGD retract
   riding along;

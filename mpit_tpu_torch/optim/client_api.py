@@ -1,6 +1,6 @@
 """The parameter-client protocol the comm-aware optimizers drive.
 
-A copy of ``ParamClientAPI`` from :mod:`mpit_tpu.optim.client_api` (its
+A copy of ``ParamClientAPI`` from ``mpit_tpu/optim/client_api.py`` (its
 ``DeviceSyncAPI`` extension is the device data plane's).  The port imports
 nothing of the JAX package.
 

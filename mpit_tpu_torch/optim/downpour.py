@@ -1,6 +1,6 @@
 """DOWNPOUR distributed SGD (reference asyncsgd/optim-downpour.lua).
 
-The port of :mod:`mpit_tpu.optim.downpour`, same semantics:
+The port of ``mpit_tpu/optim/downpour.py``, same semantics:
 
 - Every step computes ``dfdx = -(clr) * (grad + l2wd*w)`` with
   ``clr = lr/(1 + k*lrd)`` (reference :22-28,48 — linear decay, no power).

@@ -1,7 +1,7 @@
 """EASGD / EAMSGD — elastic-averaging distributed SGD
 (reference asyncsgd/optim-eamsgd.lua; mom == 0 gives EASGD, reference :3).
 
-The port of :mod:`mpit_tpu.optim.easgd`.  Per sync round (every su-th
+The port of ``mpit_tpu/optim/easgd.py``.  Per sync round (every su-th
 step, first step included):
 
 1. fetch the center variable w* from the servers (reference :54-57);

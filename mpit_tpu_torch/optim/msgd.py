@@ -1,6 +1,6 @@
 """Nesterov momentum SGD ("msgd") — the reference's local update rule.
 
-The port of :mod:`mpit_tpu.optim.msgd`, same semantics
+The port of ``mpit_tpu/optim/msgd.py``, same semantics
 (reference asyncsgd/optim-msgd.lua):
 
 1. optional momentum ramp ``mom_k = min(mommax, 1 - 0.5/(1 + k/momdecay))``;

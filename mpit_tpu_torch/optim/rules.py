@@ -1,6 +1,6 @@
 """Shard-update rules (server-side optimizer math).
 
-The port of :mod:`mpit_tpu.optim.rules`, same math and the same quirks
+The port of ``mpit_tpu/optim/rules.py``, same math and the same quirks
 (Adam's ``floor(t/step_div)+1`` bias-correction exponent, Adamax's
 ``|g|+eps`` inside the max, centered RMSProp with momentum).  In the
 reference, the parameter server applies an optimizer rule to its shard

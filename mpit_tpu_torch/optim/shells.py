@@ -1,6 +1,6 @@
 """Client-side shells for server-stateful rules, and single-worker mode.
 
-The port of :mod:`mpit_tpu.optim.shells`.
+The port of ``mpit_tpu/optim/shells.py``.
 
 **RuleShell** (reference BiCNN/optim-{rmsprop,adam,adamax,adagrad,
 adadelta}.lua): in 'global' mode the client ships *raw* gradients — every

@@ -1,6 +1,6 @@
 """Synchronous EASGD/EAMSGD with every worker on one device.
 
-The port of :class:`mpit_tpu.parallel.easgd.MeshEASGD`.  Every worker's
+The port of ``MeshEASGD`` of ``mpit_tpu/parallel/easgd.py``.  Every worker's
 parameters are one row of a ``(n_dp, plong)`` tensor, the center w* is a
 ``(plong,)`` tensor, and both live on the mesh's one device.  A step is:
 

@@ -1,6 +1,6 @@
 """The row-batched fused commit for mesh trainer state.
 
-The port of :mod:`mpit_tpu.parallel.fused`.  The reference wraps its 1-D
+The port of ``mpit_tpu/parallel/fused.py``.  The reference wraps its 1-D
 Pallas sweep in ``shard_map`` so each device commits the worker-row tile
 it holds.  On the one-device stand-in mesh every worker row lives on the
 same card, and K1 itself takes the whole ``(n_dp, plong)`` state with a

@@ -1,6 +1,6 @@
 """A one-device stand-in for the reference's ``(dp, shard)`` device mesh.
 
-The port of :mod:`mpit_tpu.parallel.mesh` for this slice.  The JAX package
+The port of ``mpit_tpu/parallel/mesh.py`` for this slice.  The JAX package
 lays ``dp`` worker rows (and ``shard`` column cuts) over a device mesh; on
 one H100 all ``dp`` worker rows live on the single card as one
 ``(dp, plong)`` tensor, which is how the reference itself runs them on one

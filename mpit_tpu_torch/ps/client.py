@@ -1,7 +1,7 @@
 """ParamClient — shards the flat parameter vector across servers and
 drives asynchronous shard transfers.
 
-The port of the core of :class:`mpit_tpu.ps.client.ParamClient` (a rebuild
+The port of the core of ``ParamClient`` of ``mpit_tpu/ps/client.py`` (a rebuild
 of reference asyncsgd/pclient.lua).  The client registers two host
 buffers (``param``, ``grad``: numpy arrays) whose per-server contiguous
 slices are the transfer units (numpy views = the reference's zero-copy

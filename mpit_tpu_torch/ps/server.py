@@ -1,6 +1,6 @@
 """ParamServer — one role per shard, service loops per client.
 
-The port of the core of :class:`mpit_tpu.ps.server.ParamServer` (itself a
+The port of the core of ``ParamServer`` of ``mpit_tpu/ps/server.py`` (itself a
 rebuild of reference asyncsgd/pserver.lua plus the BiCNN variant's
 server-side optimizer state, BiCNN/pserver.lua:50-83):
 

@@ -1,6 +1,6 @@
 """Flat-parameter shard layout across server ranks.
 
-A copy of :func:`mpit_tpu.ps.sharding.shard_layout` (the weighted cut is
+A copy of ``shard_layout`` of ``mpit_tpu/ps/sharding.py`` (the weighted cut is
 the LM slice's).  The port imports nothing of the JAX package.
 
 Mirrors the reference's split exactly (reference asyncsgd/pclient.lua:

@@ -1,6 +1,6 @@
 """Wire-protocol tags (analog of reference asyncsgd/init.lua:3-10).
 
-A copy of the first eight tags of :mod:`mpit_tpu.ps.tags`, the ones the
+A copy of the first eight tags of ``mpit_tpu/ps/tags.py``, the ones the
 unframed wire uses; the tags of fault tolerance, shard control, cells and
 aggregation come with their slices.  The port imports nothing of the JAX
 package.

@@ -1,55 +1,82 @@
-"""Launcher — the port of :mod:`mpit_tpu.train.launch` (the claunch/mlaunch
+"""Launcher — the port of ``mpit_tpu/train/launch.py`` (the claunch/mlaunch
 analogs).
 
 Role assignment follows the reference's conventions: with
 ``master_freq=2``, even ranks become parameter servers and odd ranks become
 workers (reference mlaunch.lua:25-31).
 
-Two entry modes of the reference's three:
+Three entry modes, as in the JAX package's launcher:
 
 - ``--np 1``: single-process local training, no comm (claunch.lua analog);
+- ``--np N``: this process starts N role processes (fresh interpreters,
+  ``python -m mpit_tpu_torch.train.launch --child``) wired over the native
+  shm transport, or TCP with ``--transport tcp`` — the built-in ``mpirun
+  -np N`` analog (:func:`launch_processes`, :mod:`mpit_tpu_torch.train.gang`).
+  Each role runs on the card unless ``--device cpu`` or ``--device_policy``
+  says otherwise; with ``--tester first|last`` one rank pulls, evaluates
+  and checkpoints the servers' params (:mod:`mpit_tpu_torch.train.tester`);
 - library use: :func:`run_rank` with injected transports, so a whole gang
   runs as threads of one process over the in-process router
-  (:class:`mpit_tpu_torch.comm.local.LocalRouter`), each role on the card
-  unless ``device="cpu"``.
+  (:func:`run_gang`, :class:`mpit_tpu_torch.comm.local.LocalRouter`).
 
-The third, ``--np N`` forking N role processes over the native shm
-transport, comes with slice 2b of the port and raises here, as do the
-tester role and the layers of later slices (readers, cells, shard control,
-elastic membership, checkpoints, the LM, aggregation, the device data
-plane).
+The layers of later slices (readers, cells, shard control, elastic
+membership, server checkpoints, the LM, aggregation, the device data
+plane) raise ``NotImplementedError`` naming their slice.
 
 Usage:
     python -m mpit_tpu_torch.train.launch --np 1 --opt msgd
-    # an in-process gang of 2 servers + 2 workers, on the CPU:
-    python -m mpit_tpu_torch.train.launch --gang 4 --opt downpour \\
-        --device cpu --side 8 --epochs 1
+    # 2 servers + 2 workers, four processes over shm, on the CPU:
+    python -m mpit_tpu_torch.train.launch --np 4 --opt downpour \\
+        --device cpu --side 8 --epochs 1 --lr 0.2
+    # the reference's config 3 on the card:
+    python -m mpit_tpu_torch.train.launch --np 12 --opt eamsgd --su 10 \\
+        --mom 0.99 --mva 0.15 --epochs 2 --model cnn
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
 from mpit_tpu_torch.comm.local import LocalRouter
 from mpit_tpu_torch.optim import rules as rules_mod
 from mpit_tpu_torch.ps import ParamClient, ParamServer
-from mpit_tpu_torch.train.trainer import SERVER_RULE_OPTS, TRAINER_DEFAULTS, MnistTrainer
+from mpit_tpu_torch.train.gang import DEVICE_ENV
+from mpit_tpu_torch.train.trainer import (
+    KNOWN_OPTS, SERVER_RULE_OPTS, TRAINER_DEFAULTS, MnistTrainer)
 from mpit_tpu_torch.utils.config import Config
 from mpit_tpu_torch.utils.logging import get_logger
+from mpit_tpu_torch.utils.platform import resolve_device
 
 LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     np=1,
-    gang=0,  # > 1: run that many ranks as threads over the in-process router
+    master_freq=2,  # every master_freq-th rank is a server (mlaunch parity)
+    tester="none",  # none | first | last  (plaunch testerfirst/testerlast)
+    tester_rounds=10,
+    tester_interval=1.0,
+    ckpt_dir="",  # the tester's best checkpoint (utils/checkpoint.save_flat)
+    ring_mb=64,  # shm inbox ring per rank
+    namespace="",  # shm segment namespace; "" = pid + sequence
+    # Per-rank device (the reference's AGPU map, mlaunch.lua:56-62):
+    # inherit (every rank on --device) | cpu | workers_accel (the tester,
+    # else the first client, on --device; every other rank on the CPU).
+    device_policy="inherit",
+    # Gang wire: shm (one host) | tcp (tcp_addrs = one host:port per
+    # rank, comma-separated — the hostfile analog).
+    transport="shm",
+    tcp_addrs="",
+    gang_barrier=True,  # startup rendezvous before any role traffic
     # Wire codec for every client<->server shard transfer (comm/codec.py:
     # none | bf16 | int8).  "" defers to $MPIT_PS_CODEC (default none).
     # When set explicitly the servers are PINNED to it.
     codec="",
     # The reference's flags of later slices; each raises when set.
-    tester="none",
     serve_readers=0,
     cells=0,
     shardctl=False,
@@ -63,7 +90,6 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
 
 # flag -> (value meaning "off", the slice of the port it belongs to)
 LATER_FLAGS = {
-    "tester": ("none", "the tester role (slice 2b)"),
     "serve_readers": (0, "the serving tier (slice 5, ps/serve)"),
     "cells": (0, "serving cells (slice 5, cells)"),
     "shardctl": (False, "shard control (slice 5, shardctl)"),
@@ -83,10 +109,20 @@ def refuse_later_flags(cfg: Config) -> None:
                 f"--{flag} {cfg.get(flag)!r} belongs to {owner} of the port")
 
 
-def assign_roles(size: int, master_freq: int = 2) -> Tuple[List[int], List[int]]:
-    """Returns (server_ranks, client_ranks): every ``master_freq``-th rank
-    serves.  (The reference's tester split comes with the tester role.)"""
+def assign_roles(
+    size: int, master_freq: int = 2, tester: str = "none"
+) -> Tuple[List[int], List[int], Optional[int]]:
+    """Returns (server_ranks, client_ranks, tester_rank): the tester takes
+    the first or the last rank, then every ``master_freq``-th rank of the
+    rest serves."""
     ranks = list(range(size))
+    tester_rank: Optional[int] = None
+    if tester == "first":
+        tester_rank = 0
+        ranks = ranks[1:]
+    elif tester == "last":
+        tester_rank = size - 1
+        ranks = ranks[:-1]
     sranks = [r for r in ranks if r % master_freq == 0]
     cranks = [r for r in ranks if r % master_freq != 0]
     if not sranks or not cranks:
@@ -94,7 +130,7 @@ def assign_roles(size: int, master_freq: int = 2) -> Tuple[List[int], List[int]]
             f"role split produced {len(sranks)} servers / {len(cranks)} "
             f"clients from size={size}, master_freq={master_freq}"
         )
-    return sranks, cranks
+    return sranks, cranks, tester_rank
 
 
 def server_rule_for(cfg: Config) -> rules_mod.ShardRule:
@@ -108,26 +144,33 @@ def server_rule_for(cfg: Config) -> rules_mod.ShardRule:
 def run_rank(rank: int, size: int, cfg: Config, transport: Any,
              data: Any = None) -> Dict[str, Any]:
     """Run one rank's role to completion; returns its result dict.  With
-    ``size > 1`` the roles reach each other through ``transport``, this
-    rank's endpoint of one router (a thread each); a server's result holds
-    its final shard (``param``) and a worker's its final ``w``, as tensors
-    on the role's device."""
+    ``size > 1`` the roles reach each other through ``transport``: this
+    rank's endpoint of one router (a thread each), or of the shm or TCP
+    wire (a process each).  A server's result holds its final shard
+    (``param``) and a worker's its final ``w``, as tensors on the role's
+    device."""
     cfg = LAUNCH_DEFAULTS.merged(cfg.to_dict())
     refuse_later_flags(cfg)
     if size == 1:
         trainer = MnistTrainer(cfg, data=data, rank=rank)
         return {"role": "local", **trainer.run()}
     if transport is None:
-        raise NotImplementedError(
-            f"--np {size}: process gangs over the shm transport are slice 2b "
-            "of the port; run a gang in one process with run_rank and a "
-            "LocalRouter endpoint per rank (--gang N)")
+        raise ValueError(f"run_rank at size {size} needs this rank's transport "
+                         "(launch_processes, or run_gang in one process)")
     log = get_logger("launch", rank)
-    sranks, cranks = assign_roles(size)
+    sranks, cranks, tester_rank = assign_roles(
+        size, int(cfg.master_freq), str(cfg.tester))
     codec = str(cfg.codec or "") or None
+    if rank == tester_rank:
+        from mpit_tpu_torch.train.tester import run_tester
+
+        return {"role": "tester", **run_tester(rank, sranks, cfg, transport, data)}
     if rank in sranks:
+        # The tester counts as a (pull-only) client: it announces shards
+        # and takes part in the stop protocol like any worker.
+        all_clients = cranks + ([tester_rank] if tester_rank is not None else [])
         server = ParamServer(
-            rank, cranks, transport, rule=server_rule_for(cfg),
+            rank, all_clients, transport, rule=server_rule_for(cfg),
             single_mode=str(cfg.opt).endswith("-single"),
             device=cfg.device, codec=codec)
         log.info("server for clients %s", cranks)
@@ -183,24 +226,133 @@ def run_gang(size: int, cfg: Config, data: Any = None,
     return results
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    cfg = LAUNCH_DEFAULTS.parse_args(list(sys.argv[1:] if argv is None else argv))
+# -- process-mode launcher (the mpirun analog) -------------------------------
+
+
+def expected_role(rank: int, size: int, cfg: Config) -> str:
+    """The role this rank will run, derived as run_rank does; '' when the
+    split is invalid (run_rank raises the real error)."""
+    if size == 1:
+        return "local"
+    try:
+        sranks, _cranks, tester_rank = assign_roles(
+            size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
+    except ValueError:
+        return ""
+    if rank == tester_rank:
+        return "tester"
+    return "server" if rank in sranks else "worker"
+
+
+def device_env_overrides(cfg: Config, size: int) -> Dict[int, Dict[str, str]]:
+    """Per-rank device assignment from ``cfg.device_policy``, as the env
+    the launcher hands each child (``MPIT_DEVICE``), the counterpart of the
+    JAX launcher's per-rank ``JAX_PLATFORMS``.  ``inherit``: every rank on
+    ``cfg.device`` (the card admits several processes, unlike libtpu);
+    ``cpu``: every rank on the CPU; ``workers_accel``: the tester, else the
+    first client, on ``cfg.device`` and every other rank on the CPU."""
+    policy = cfg.get("device_policy", "inherit")
+    if policy == "inherit":
+        return {}
+    if policy == "cpu":
+        return {r: {DEVICE_ENV: "cpu"} for r in range(size)}
+    if policy == "workers_accel":
+        _sranks, cranks, tester = assign_roles(
+            size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
+        accel_rank = tester if tester is not None else cranks[0]
+        return {r: {DEVICE_ENV: "cpu"} for r in range(size) if r != accel_rank}
+    raise ValueError(
+        f"device_policy must be inherit|cpu|workers_accel, got {policy!r}")
+
+
+def launch_processes(cfg: Config, timeout: float = 3600.0) -> Dict[int, Dict[str, Any]]:
+    """Run the gang as ``cfg.np`` processes; returns each rank's result
+    (JSON: tensors are replaced by the sha256 of their float32 bytes, and
+    each result names its ``platform`` and its K1-K3 ``launches``).
+
+    Fails fast in the parent, before any process starts: a bad optimizer
+    name or role split found only inside a child would strand the servers
+    in their stop protocol, and a flag of a later slice or a missing card
+    must not cost a gang's start-up."""
+    cfg = LAUNCH_DEFAULTS.merged(cfg.to_dict())
+    if cfg.opt not in KNOWN_OPTS:
+        raise ValueError(f"unknown optimizer {cfg.opt!r}; have {KNOWN_OPTS}")
+    refuse_later_flags(cfg)
+    size = int(cfg.np)
+    assign_roles(size, int(cfg.master_freq), str(cfg.tester))
+    overrides = device_env_overrides(cfg, size)
+    if len(overrides) < size:  # some rank runs on cfg.device
+        resolve_device(cfg.device)
+    if cfg.transport == "tcp":
+        addrs = [a for a in str(cfg.tcp_addrs).split(",") if a]
+        if len(addrs) != size:
+            raise ValueError(f"transport=tcp needs {size} comma-separated "
+                             f"tcp_addrs, got {len(addrs)}")
+    elif cfg.transport != "shm":
+        raise ValueError(f"transport must be shm or tcp, got {cfg.transport!r}")
+    from mpit_tpu_torch.train.gang import launch_gang
+
+    return launch_gang("mpit_tpu_torch.train.launch", cfg, timeout,
+                       env_overrides=overrides)
+
+
+def _sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def child_result(result: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """A rank's result as JSON: each tensor becomes ``<key>_sha256`` (its
+    bytes' digest, enough to hold two runs bit for bit), and the result
+    gains ``platform`` (the device its role ran on) and the rank's
+    ``launches`` of K1-K3, which the parent cannot read in the child."""
+    from mpit_tpu_torch.ops import fused_update as fu
+
+    out = {k: v for k, v in result.items() if not isinstance(v, torch.Tensor)}
+    for k, v in result.items():
+        if isinstance(v, torch.Tensor):
+            out[f"{k}_sha256"] = _sha256(v)
+    out["platform"] = device.type
+    out["launches"] = {"k1": fu.fused_nesterov_commit.launches,
+                       "k2": fu.fused_elastic.launches,
+                       "k3": fu.fused_adam.launches}
+    return out
+
+
+def _child_main() -> None:
+    from mpit_tpu_torch.train.gang import child_env, child_transport, write_result
+
+    rank, size, cfg = child_env()
+    device = resolve_device(cfg.device)
+    transport = child_transport(cfg, rank, size)
+    result = run_rank(rank, size, cfg, transport)
+    transport.close()
+    write_result(child_result(result, device))
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[Any, Any]:
+    """The CLI: ``--np 1`` returns the local result, ``--np N`` each rank's
+    result by rank."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--child" in argv:
+        _child_main()
+        return {}
+    cfg = LAUNCH_DEFAULTS.parse_args(argv)
     t0 = time.monotonic()
-    if int(cfg.gang) > 1:
-        results = run_gang(int(cfg.gang), cfg)
+    if int(cfg.np) == 1:
+        result = run_rank(0, 1, cfg, None)
+        print(json.dumps({"rank0": _summarize(result)}, indent=2))
+    else:
+        result = launch_processes(cfg)
         print(json.dumps({f"rank{r}": _summarize(res)
-                          for r, res in sorted(results.items())}, indent=2))
-        print(f"total wall time: {time.monotonic() - t0:.1f}s")
-        return results
-    result = run_rank(0, int(cfg.np), cfg, None)
-    print(json.dumps({"rank0": _summarize(result)}, indent=2))
+                          for r, res in sorted(result.items())}, indent=2))
     print(f"total wall time: {time.monotonic() - t0:.1f}s")
     return result
 
 
 def _summarize(result: Dict[str, Any]) -> Dict[str, Any]:
     keep = {"role", "final_test_err", "time_to_target", "elapsed",
-            "grads_applied", "params_served"}
+            "grads_applied", "params_served", "best_test_err", "platform",
+            "launches"}
     return {k: v for k, v in result.items() if k in keep}
 
 

@@ -1,5 +1,5 @@
 """Long-context causal-LM training CLI on one card — the port of
-:mod:`mpit_tpu.train.lm_launch` at ``dp = sp = 1``.
+``mpit_tpu/train/lm_launch.py`` at ``dp = sp = 1``.
 
 TinyDecoder over a byte corpus (``--text_file``, trained as raw bytes,
 vocab 256, or a deterministic synthetic Markov stream), its attention the

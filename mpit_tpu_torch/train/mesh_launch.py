@@ -1,5 +1,5 @@
 """On-device EASGD MNIST training CLI — the port of
-:mod:`mpit_tpu.train.mesh_launch`.
+``mpit_tpu/train/mesh_launch.py``.
 
 All worker rows and the center live on one CUDA card
 (:class:`mpit_tpu_torch.parallel.MeshEASGD`), trained to a target test

@@ -1,4 +1,4 @@
-"""MNIST trainer — the port of :class:`mpit_tpu.train.trainer.MnistTrainer`
+"""MNIST trainer — the port of ``MnistTrainer`` of ``mpit_tpu/train/trainer.py``
 (the goot.lua analog).
 
 Model + flat parameters, the data on the device, the optimizer dispatch
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from mpit_tpu_torch.data.mnist import load_mnist
-from mpit_tpu_torch.models.flat import error_rate, flatten_module, value_and_grad_nll
+from mpit_tpu_torch.models.flat import error_rate, flatten_module, value_and_grad_nll_eager
 from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.obs.timers import PhaseTimers, profiler_trace
 from mpit_tpu_torch.optim import EAMSGD, MSGD, Downpour, MSGDConfig, RuleShell, SingleWorker
@@ -86,7 +86,7 @@ class MnistTrainer:
         module = make_model(self.cfg.model, self.cfg.side)
         self.flat = flatten_module(module, self.cfg.seed + rank, self.device)
         self.w = self.flat.w0.clone()
-        self._vgf = value_and_grad_nll(self.flat)
+        self._vgf = value_and_grad_nll_eager(self.flat)
         self._optimizer = None
 
     @property

@@ -9,7 +9,7 @@ there is one system from day one: a dataclass-like ``Config`` that is
 - convertible to/from flat CLI args (``--lr 1e-2 --opt easgd``),
 - mergeable (launcher defaults < experiment overrides < CLI).
 
-A copy of :mod:`mpit_tpu.utils.config`: the port imports nothing of the JAX package.
+A copy of ``mpit_tpu/utils/config.py``: the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ logger factory gives every role-process a ``[role rank]``-prefixed logger
 with levels, so launcher, server, client and tester output interleave
 legibly in a multi-process run.
 
-A copy of :mod:`mpit_tpu.utils.logging`: the port imports nothing of the JAX package.
+A copy of ``mpit_tpu/utils/logging.py``: the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations

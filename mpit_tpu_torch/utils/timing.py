@@ -1,6 +1,6 @@
 """Device timing of state-threading calls, fenced by CUDA events.
 
-The port of :func:`mpit_tpu.utils.timing.timed_chained`.  PyTorch returns
+The port of ``timed_chained`` of ``mpit_tpu/utils/timing.py``.  PyTorch returns
 from a CUDA call before the card has run it, so a host clock around a
 loop measures the enqueue; here a CUDA event is recorded before and after
 each leg of chained calls on the current stream, and the leg's time is

@@ -16,7 +16,8 @@ lengths and offsets that reach every path of their sweep (16-byte chunks
 in one or more turns of the grid, the scalar head and tail, the scalar
 path alone) and replayed from a CUDA graph.  ``mesh_launch``'s device
 loop, which replays K1 from captured graphs, trains bit for bit as its
-host loop on the card.
+host loop on the card.  Process gangs on the card count each kernel in the
+process that launches it.
 
 The flash-attention kernels (K4 forward in both output modes, K5 fused
 backward, K6 two-kernel backward) sum in another order than their twins,
@@ -412,6 +413,28 @@ def test_device_loop_then_the_throughput_leg_on_the_card(dev):
     res = _mesh_run(epochs=2, device_loop=1, measure_throughput=1)
     assert res["samples_per_sec_steady"] > 0
     assert res["steps"] > 2 * 5 and (res["steps"] - 2 * 5) % 5 == 0
+
+
+def test_process_gangs_on_the_card_count_their_kernels(dev):
+    """Process gangs (``launch --np N``), every rank on the card: each
+    child reports ``cuda`` and counts its own launches.  EAMSGD np=3 (one
+    worker): K1 once a worker step, in the worker's process only; Adam
+    np=2: K3 once an apply, in the server's process only."""
+    from mpit_tpu_torch.train import launch
+
+    base = launch.LAUNCH_DEFAULTS.merged(model="cnn", side=8, epochs=1, batch=64)
+    res = launch.launch_processes(base.merged(np=3, opt="eamsgd", lr=1e-2, mom=0.9,
+                                              mva=0.45, su=2), timeout=600)
+    assert all(r["platform"] == "cuda" for r in res.values())
+    assert res[1]["role"] == "worker" and res[1]["steps"] > 0
+    assert res[1]["launches"] == {"k1": res[1]["steps"], "k2": 0, "k3": 0}
+    assert res[0]["launches"] == res[2]["launches"] == {"k1": 0, "k2": 0, "k3": 0}
+    res = launch.launch_processes(base.merged(np=2, opt="adam", lr=1e-3, su=1),
+                                  timeout=600)
+    assert all(r["platform"] == "cuda" for r in res.values())
+    assert res[0]["grads_applied"] == res[1]["steps"] > 0
+    assert res[0]["launches"] == {"k1": 0, "k2": 0, "k3": res[0]["grads_applied"]}
+    assert res[1]["launches"] == {"k1": 0, "k2": 0, "k3": 0}
 
 
 # (leading axes, Lq, Lk, q_offset, kv_offset, causal): odd lengths, a

@@ -138,8 +138,11 @@ def test_one_worker_gang_matches_jax(monkeypatch, data, opt, kw):
 
 @pytest.mark.parametrize("size,master_freq", [(2, 2), (4, 2), (12, 2), (6, 3)])
 def test_roles_and_server_rules_match_jax(size, master_freq):
-    assert launch.assign_roles(size, master_freq) == tuple(
-        jax_launch.assign_roles(size, master_freq)[:2])
+    for tester in ("none", "first", "last"):
+        if size - (tester != "none") < 2:
+            continue
+        assert launch.assign_roles(size, master_freq, tester) == tuple(
+            jax_launch.assign_roles(size, master_freq, tester))
     with pytest.raises(ValueError):
         launch.assign_roles(1)
     for opt in ("downpour", "eamsgd", "adam", "rmsprop", "adam-single"):

@@ -184,8 +184,8 @@ def test_mesh_launch_refuses_later_slices(flags):
 
 
 @pytest.mark.parametrize("refused", [
-    None,  # the gang itself: --np 2 forks processes over shm
-    ("tester", "last", "slice 2b"),
+    None,  # an unknown optimizer: ValueError in the parent
+    ("tester", "last", "role split"),  # --np 2 leaves the tester no client
     ("shardctl", "1", "slice 5"),
     ("elastic", "1", "slice 5"),
     ("serve_readers", "1", "slice 5"),
@@ -197,14 +197,22 @@ def test_mesh_launch_refuses_later_slices(flags):
     ("server_ckpt_dir", "/tmp/x", "slice 5"),
     ("init_v3", None, "slice 5"),
 ])
-def test_launch_refuses_gangs_and_ps_optimizers(refused):
-    """The CLI's --np N raises (process gangs are slice 2b), as do the
-    roles and flags of later slices and an INIT v3+ announcement; a PS
-    optimizer without a client raises ValueError, as the reference's
-    trainer does."""
+def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
+    """The CLI's --np N refuses in the parent, before any process starts:
+    an unknown optimizer and a role split with no client raise
+    ValueError, as the reference's launcher does, and the flags of later
+    slices and an INIT v3+ announcement raise NotImplementedError naming
+    the slice; a PS optimizer without a client raises ValueError, as the
+    reference's trainer does."""
+    from mpit_tpu_torch.train import gang
+
+    def no_spawn(*args, **kw):
+        raise AssertionError("a rank process was started")
+
+    monkeypatch.setattr(gang, "spawn_rank", no_spawn)
     if refused is None:
-        with pytest.raises(NotImplementedError, match="slice 2b"):
-            launch.main(["--np", "2", "--device", "cpu"])
+        with pytest.raises(ValueError, match="unknown optimizer"):
+            launch.main(["--np", "2", "--device", "cpu", "--opt", "nope"])
         trainer = MnistTrainer(Config(opt="downpour", device="cpu", side=8))
         with pytest.raises(ValueError, match="parameter client"):
             trainer.optimizer
@@ -220,9 +228,13 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused):
         with pytest.raises(NotImplementedError, match=owner):
             server._negotiate(1, np.asarray([0, 8, 0, 1, 1], np.int64).tobytes())
         return
+    argv = ["--np", "2", "--device", "cpu", "--side", "8", f"--{flag}", value]
+    if flag == "tester":
+        with pytest.raises(ValueError, match=owner):
+            launch.main(argv)
+        return
     with pytest.raises(NotImplementedError, match=owner):
-        launch.main(["--gang", "2", "--device", "cpu", "--side", "8",
-                     f"--{flag}", value])
+        launch.main(argv)
 
 
 def _run_smoke(cwd):
