@@ -23,7 +23,12 @@ order; any failure raises and the script exits non-zero:
    host loop and by the device loop (``--device_loop 1``: one CUDA-graph
    replay an epoch), both timings and ``time_to_target`` printed: bit for
    bit under deterministic cuDNN, within twice the host loop's own spread
-   in the same call under its defaults (``device_loop_vs_host``);
+   in the same call under its defaults (``device_loop_vs_host``); then
+   ``mesh_syncdp`` (``--opt syncdp`` at the flagship CNN, lr 0.2,
+   momentum 0.9, batch 128, two epochs by the host loop and by the device
+   loop, one graph for every epoch: bit for bit under deterministic cuDNN)
+   and ``mesh_resume`` (the flagship two epochs with ``--ckpt_dir``, then
+   ``--resume auto`` to four, bit for bit as a straight four-epoch run);
 6. the asynchronous parameter-server gang, every role a thread of this
    process over the in-process router (``launch.run_gang``), every shard
    and every worker on the card, at the flagship widths: DOWNPOUR np=4,
@@ -42,6 +47,16 @@ order; any failure raises and the script exits non-zero:
    DOWNPOUR); then ``tools/torch_ptest.py``'s push/pull bandwidth over shm
    (64 MB, 2 servers + 2 clients, codecs none and int8: MB/s and the
    servers' per-GRAD apply);
+6b. BiCNN (slice 4): ``bicnn_scale`` (``tools/torch_bicnn_scale.py`` at its
+   defaults: 3,000 filters, 3,416,600 floats, two epochs of 63 steps,
+   examples/s, each epoch's seconds, the warm test3, then ten steps under
+   ``torch.profiler``), ``bicnn_vs_cpu`` (five ``sgd`` steps of the docqa
+   model at full width, 1,365,250 floats, card against CPU) and three
+   docqa process gangs over shm, every rank on the card, one epoch at
+   batch 2: EAMSGD np=6 with the tester first (its checkpoint read back),
+   server-side Adam np=4 (K3 in the servers = 2 x the workers' steps; the
+   servers' per-GRAD apply timed at their 682,625-float shard, K3 held
+   bit-equal there) and adamsingle np=4 (K3 = the workers' steps);
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
@@ -62,7 +77,10 @@ order; any failure raises and the script exits non-zero:
    ``lm_longcontext_32k`` (the same widths at context 32,768, 3 steps,
    where the gate itself picks K6), and three small steps on the card
    held against the same steps on the CPU, with float32 and with bfloat16
-   attention (bfloat16 twice: under the gate's K5 and forced to K6).
+   attention (bfloat16 twice: under the gate's K5 and forced to K6);
+   then ``lm_resume``: ``LM_LAUNCH_DEFAULTS`` 6 steps straight against 3
+   steps with ``--ckpt_dir`` and ``--resume auto`` to 6, equal losses and
+   state.
 
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
@@ -315,10 +333,11 @@ def sweep_edges(n_mesh):
             (1, n_mesh, (0, 1, 2, 3)), (3, 1025, 0), (0, n_mesh + 3, 0))
 
 
-def check_k1(torch, n_mesh, n_msgd):
+def check_k1(torch, n_mesh, n_msgd, n_bicnn=()):
     """K1 against its twin at the shapes each driven path gives it; returns
     the kernel's entry for the closing JSON line (times at 1 x n_mesh, no
-    retract: the commit of nine steps in ten on the headline path)."""
+    retract: the commit of nine steps in ten on the headline path).
+    ``n_bicnn``: the BiCNN trainers' 1-D lengths, held bit-equal untimed."""
     from mpit_tpu_torch.ops.fused_update import (
         fused_nesterov_commit, fused_nesterov_commit_reference)
 
@@ -367,6 +386,25 @@ def check_k1(torch, n_mesh, n_msgd):
             rows_out.append({"rows": rows, "form": form, "n": n, "sug": retract,
                              **times})
             del sets
+    # BiCNN's MSGD (sgd, and eamsgd with its retract) commits the whole
+    # 1-D vector with a 0-d clr and the trainer's weight decay (1e-6,
+    # about 5e-9 of w a step: held bit-equal, so a dropped l2wd shows).
+    for n in n_bicnn:
+        w, vt, g, sug = (torch.randn(n, device=dev, generator=gen) for _ in range(4))
+        sug.mul_(1e-2)
+        clr = torch.tensor(0.05, device=dev)
+        for l2wd, s in ((0.0, None), (1e-6, None), (0.0, sug), (1e-6, sug)):
+            want_w, want_vt = fused_nesterov_commit_reference(w, vt, g, clr, l2wd=l2wd, sug=s)
+            kw, kvt = w.clone(), vt.clone()
+            fused_nesterov_commit(kw, kvt, g, clr, l2wd=l2wd, sug=s)
+            torch.cuda.synchronize()
+            err = max(float((kw - want_w).abs().max()),
+                      float((kvt - want_vt).abs().max()))
+            max_err = max(max_err, err)
+            if not (torch.equal(kw, want_w) and torch.equal(kvt, want_vt)):
+                raise AssertionError(f"K1 differs from its twin: BiCNN 1-D n={n} "
+                                     f"sug={s is not None} l2wd={l2wd} max_abs_err={err}")
+        del w, vt, g, sug
     # The sweep's edges, in every variant: bit-equal to the twin.
     for rows, n, offsets in sweep_edges(n_mesh):
         offsets = offsets if isinstance(offsets, tuple) else (offsets,) * 4
@@ -455,10 +493,11 @@ def check_k2(torch, n_path):
     }
 
 
-def check_k3(torch, n_shard, n_full):
+def check_k3(torch, n_shard, n_full, n_bicnn=()):
     """K3 bit-equal to its twin at the server's shard (np=4) and at the
-    whole vector (adam-single), and at a length that is not a multiple of
-    4; timed at both path lengths, beside the server's whole per-GRAD
+    whole vector (adam-single), at a length that is not a multiple of 4
+    and at ``n_bicnn``, BiCNN's lengths (a server's shard at np=4 and the
+    whole docqa vector under adamsingle); timed at both path lengths, beside the server's whole per-GRAD
     apply at the shard's length (the frame's copy to the card, the device
     step counter and lr_t, K3).  Returns the kernel's entry (times at the
     server's shard, its main path)."""
@@ -476,7 +515,8 @@ def check_k3(torch, n_shard, n_full):
     edges = [(n, (o,) * 4 if isinstance(o, int) else o)
              for r, n, o in sweep_edges(n_full) if r <= 1]
     for n, offsets in [(n_shard, (0,) * 4), (n_full, (0,) * 4),
-                       (n_shard + 2, (0,) * 4), (4 * n_full, (0,) * 4), *edges]:
+                       (n_shard + 2, (0,) * 4), (4 * n_full, (0,) * 4),
+                       *((n, (0,) * 4) for n in n_bicnn), *edges]:
         p, g, m, v = (offset_copy(torch, torch.randn(n, device=dev, generator=gen), o)
                       for o in offsets)
         v.abs_()
@@ -667,16 +707,20 @@ def k1_on_card(torch, prof):
 def device_loop_run(torch, commit, cfg, on_card=False):
     """One ``mesh_launch.run`` of ``cfg`` with K1's count set to 0 just
     before and read just after; checks the count.  The host loop launches
-    K1 once a step and once for each of precompile's two warm-up steps.
-    The device loop's wrapper runs while a graph is captured, not while it
-    replays: its count must be the warm-up's steps (precompile's two and
-    one epoch, on copies), each graph's steps (one capture each) and the
+    K1 once a step and once for each of precompile's warm-up steps (EASGD
+    two, sync-DP one).  The device loop's wrapper runs while a graph is
+    captured, not while it replays: its count must be the warm-up's steps
+    (precompile's and one epoch, on copies), each graph's steps (one
+    capture each) and the
     throughput leg's eager steps.  ``on_card``: the run is recorded by
     ``torch.profiler`` and K1's kernels that ran on the card, replays
     included, must be the run's steps plus the warm-up's.  Returns the
     result and its path entry."""
     from mpit_tpu_torch.train.mesh_launch import run
 
+    # precompile's warm-up steps, on copies: EASGD's sync and local step,
+    # sync-DP's one step.
+    pre = 1 if cfg.opt == "syncdp" else 2
     commit.launches = 0
     if on_card:
         from torch.profiler import ProfilerActivity, profile
@@ -688,7 +732,7 @@ def device_loop_run(torch, commit, cfg, on_card=False):
         res = run(cfg)
     wrapper = commit.launches
     if not cfg.device_loop:
-        warm = 2  # precompile's two steps, on copies
+        warm = pre if cfg.precompile else 0
         if wrapper != res["steps"] + warm:
             raise AssertionError(f"host loop: K1 launched {wrapper} times in "
                                  f"{res['steps']} steps + {warm} warm-up steps")
@@ -699,7 +743,7 @@ def device_loop_run(torch, commit, cfg, on_card=False):
     replayed = sum(g["steps"] * g["replays"] for g in graphs)
     leg = res["steps"] - replayed
     if (not info["captured"] or any(g["steps"] != spe for g in graphs)
-            or replayed != spe * len(res["history"]) or warm != 2 + spe):
+            or replayed != spe * len(res["history"]) or warm != pre + spe):
         raise AssertionError(f"device loop: {replayed} steps replayed in "
                              f"{len(res['history'])} epochs; {info}")
     if wrapper != warm + spe * len(graphs) + leg:
@@ -1772,6 +1816,400 @@ def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None):
             **{k: readings[k] for k in ("w", "vt", "loss_rel_gap")}}
 
 
+# -- slice 4: sync-DP, checkpoint/resume and BiCNN ----------------------------
+
+# Limits of bicnn_vs_cpu (five sgd steps of the docqa model at full width,
+# card against CPU): the largest elementwise gap, and the gap's norm over
+# the norm of the five steps' change.  The two differ by summation order
+# (the 3,000-filter convolution, the 3,000-wide GESD and normalization
+# sums, the embedding gradient's scatter), which float32 keeps near 1e-7
+# relative in a gradient; five steps of momentum 0.9 at lr 0.05 carry a
+# gradient into w about 13 times.  A dropped K1 launch moves the state by
+# a whole step's update (about 0.025 where the clipped gradient is 0.5),
+# and a wrong pick of the violating negative moves every weight of the
+# towers: far past both limits.
+BICNN_MAX_ABS_GAP = 1e-4
+BICNN_GAP_OVER_CHANGE = 1e-3
+# The docqa fixture at full width: BICNN_DEFAULTS (3,000 filters, hidden
+# 200, conv width 2) over the data's 50-dim vocabulary: 1,365,250 floats.
+BICNN_DOCQA = dict(docqa=True, num_filters=3000, word_hidden_dim=200, cont_conv_width=2)
+BICNN_DOCQA_PARAMS = 1_365_250
+# tools/torch_bicnn_scale.py's 3,000-filter configuration (embedding 300,
+# conv width 3, over its 5,178-word vocabulary).
+BICNN_SCALE_PARAMS = 3_416_600
+# The docqa gangs' batch: the reference's 1 took 130 s for the three gangs
+# on an H100 (1,021 round trips a worker), over the ~120 s they may take.
+BICNN_GANG_BATCH = 2
+
+
+def record_path(all_paths, name, launches, steps):
+    """``all_paths[kernel][name]``: each kernel's launches on the path (0
+    where the path runs none of it) and the path's steps (the readings are
+    printed on the path's own line, which keeps the kernels line short)."""
+    for key in all_paths:
+        all_paths[key][name] = {"launches": launches.get(key, 0), "steps": steps}
+
+
+def read_counts(kernels):
+    return {key: k.launches for key, k in kernels.items()}
+
+
+def zero_counts(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def mesh_syncdp(torch, commit):
+    """``mesh_launch --opt syncdp`` at the flagship CNN (side 32, 544,522
+    floats) with the JAX tests' sync-DP settings (lr 0.2, momentum 0.9,
+    global batch 128), two epochs by the host loop and by the device loop
+    (one CUDA graph for every epoch: no centre, no sync phases), under
+    deterministic cuDNN: equal bits, every epoch and the final state.
+    K1 counted as ``device_loop_run`` counts it (sync-DP's precompile runs
+    one warm-up step); on the device loop ``torch.profiler`` reads K1's
+    kernels on the card.  Returns the path entry."""
+    from mpit_tpu_torch.train.mesh_launch import MESH_LAUNCH_DEFAULTS
+
+    base = MESH_LAUNCH_DEFAULTS.merged(
+        opt="syncdp", model="cnn", side=32, batch=128, lr=0.2, mom=0.9, epochs=2,
+        device_stream=1, precompile=1, dp=1, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True
+        host, host_entry = device_loop_run(torch, commit, base)
+        loop, loop_entry = device_loop_run(torch, commit, base.merged(device_loop=1),
+                                           on_card=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    curve = lambda r: [(h["avg_loss"], h["test_err"]) for h in r["history"]]
+    reading = {"host_loop": curve(host), "device_loop": curve(loop),
+               "graphs": loop_entry["graphs"], "steps": host["steps"],
+               "host_samples_per_sec": host["samples_per_sec"],
+               "host_epoch_s": host["train_time"] / len(host["history"]),
+               "device_loop_wall_s": loop["history"][-1]["at"],
+               "k1": {"host_loop": host_entry["launches"],
+                      "device_loop_wrapper": loop_entry["wrapper_launches"],
+                      "device_loop_card": loop_entry["card_launches"]}}
+    print("mesh_syncdp: " + json.dumps(reading))
+    if len(loop_entry["graphs"]) != 1:
+        raise AssertionError(f"mesh_syncdp: {len(loop_entry['graphs'])} graphs, not one")
+    if curve(host) != curve(loop) or any(
+            not torch.equal(host["state"][k], loop["state"][k]) for k in ("w", "vt", "k")):
+        raise AssertionError("mesh_syncdp: the device loop did not train bit for bit as "
+                             "the host loop under deterministic cuDNN")
+    if not curve(host)[1][0] < curve(host)[0][0]:
+        raise AssertionError(f"mesh_syncdp: the loss did not fall: {curve(host)}")
+    return {**loop_entry, "host_loop": host_entry}
+
+
+def mesh_resume(torch, commit):
+    """The flagship (EASGD, dp=1, ``FLAGSHIP_BENCH_KWARGS``) for two epochs
+    with ``--ckpt_dir``, then ``--resume auto`` to four, against a straight
+    four-epoch run, under deterministic cuDNN: every epoch and the final
+    state bit for bit (the resume falls at step 22, two steps into su 10's
+    schedule, which the port continues).  K1 once a step and twice for
+    each run's precompile."""
+    import tempfile
+
+    from mpit_tpu_torch.train.mesh_launch import (
+        FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS, run)
+
+    base = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS, dp=1, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    counts = []
+    try:
+        torch.backends.cudnn.deterministic = True
+        with tempfile.TemporaryDirectory() as ckpt:
+            runs = []
+            for kw in (dict(epochs=4), dict(epochs=2, ckpt_dir=ckpt),
+                       dict(epochs=4, ckpt_dir=ckpt, resume="auto")):
+                commit.launches = 0
+                runs.append(run(base.merged(kw)))
+                counts.append(commit.launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    straight, first, resumed = runs
+    curve = lambda r: [(h["epoch"], h["avg_loss"], h["test_err"]) for h in r["history"]]
+    spe = straight["steps"] // 4
+    reading = {"straight": curve(straight), "resumed": curve(first) + curve(resumed),
+               "k1": counts, "steps": [straight["steps"], first["steps"], resumed["steps"]],
+               "time_to_target": [r["time_to_target"] for r in runs],
+               "resumed_at": [h["at"] for h in resumed["history"]]}
+    print("mesh_resume: " + json.dumps(reading))
+    if curve(first) + curve(resumed) != curve(straight) or any(
+            not torch.equal(straight["state"][k], resumed["state"][k])
+            for k in straight["state"]):
+        raise AssertionError("mesh_resume: 2 + 2 epochs differ from the straight 4")
+    want = [4 * spe + 2, 2 * spe + 2, 2 * spe + 2]
+    if counts != want:
+        raise AssertionError(f"mesh_resume: K1 launched {counts}, expected {want}")
+    return {"launches": sum(counts), "steps": 8 * spe, "warmup_steps": 6}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """``torch.use_deterministic_algorithms(True)`` inside the block (its
+    cuBLAS check wants ``CUBLAS_WORKSPACE_CONFIG`` set), restored after."""
+    was, env = torch.are_deterministic_algorithms_enabled(), os.environ.get(
+        "CUBLAS_WORKSPACE_CONFIG")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def lm_resume(torch, kernels):
+    """``lm_launch`` at ``LM_LAUNCH_DEFAULTS`` (d 256, 8 heads, 2 layers,
+    context 1,024, batch 8): 6 steps straight against 3 steps with
+    ``--ckpt_dir`` and ``--resume auto`` to 6: every step's loss and the
+    final ``w``, ``vt`` and ``k`` equal.  Under PyTorch's deterministic
+    algorithms: under its defaults the LM does not repeat its own bits on
+    the card from the third step on (two straight runs' losses ~1e-6
+    apart on an H100).  Each run's kernels counted as ``lm_path``
+    counts them (its warm-up step included)."""
+    import tempfile
+
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, run
+
+    base = LM_LAUNCH_DEFAULTS.merged(log_every=1, ckpt_every=3, device="cuda")
+    runs, total = [], {k: 0 for k in kernels}
+    with tempfile.TemporaryDirectory() as ckpt, deterministic_algorithms(torch):
+        for kw, steps in ((dict(steps=6), 6), (dict(steps=3, ckpt_dir=ckpt), 3),
+                          (dict(steps=6, ckpt_dir=ckpt, resume="auto"), 3)):
+            cfg = base.merged(kw)
+            zero_counts(kernels)
+            runs.append(run(cfg))
+            launches = read_counts(kernels)
+            want, schedule = lm_expected(cfg, steps + 1)
+            expect_launches("lm_resume", launches, want)
+            total = {k: total[k] + launches[k] for k in kernels}
+    straight, first, resumed = runs
+    losses = lambda r: [h["avg_loss"] for h in r["history"]]
+    reading = {"straight": losses(straight), "resumed": losses(first) + losses(resumed),
+               "schedule": schedule, "launches": total,
+               "tokens_per_sec": [r["tokens_per_sec"] for r in runs]}
+    print("lm_resume: " + json.dumps(reading))
+    if losses(first) + losses(resumed) != losses(straight) or any(
+            not torch.equal(straight["state"][k], resumed["state"][k])
+            for k in ("w", "vt", "k")):
+        raise AssertionError("lm_resume: 3 + 3 steps differ from the straight 6")
+    return {"launches": total, "steps": 12, "warmup_steps": 3, "schedule": schedule}
+
+
+def load_tool(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bicnn_scale(torch, kernels, smi):
+    """``tools/torch_bicnn_scale.py`` at its defaults (3,000 filters,
+    embedding 300, conv width 3: 3,416,600 floats; ``sgd`` lr 0.05 momentum
+    0.9, batch 32, two epochs of 63 steps): K1 once a step and nothing
+    else; the loss falls.  Then ten more steps under ``torch.profiler``
+    (counted apart): where a step's time goes."""
+    tool = load_tool("torch_bicnn_scale")
+    tr, data = tool.build()
+    zero_counts(kernels)
+    row = tool.run(tr, data)
+    launches = read_counts(kernels)
+    steps = row["steps"]
+    print(f"bicnn_scale on {smi}: " + json.dumps(row))
+    if row["flat_params"] != BICNN_SCALE_PARAMS or row["vocab"] != 5178 or steps != 2 * 63:
+        raise AssertionError(f"bicnn_scale: {row['flat_params']} floats, vocab "
+                             f"{row['vocab']}, {steps} steps")
+    expect_launches("bicnn_scale", launches, {"k1": steps})
+    losses = row["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[1] < losses[0]):
+        raise AssertionError(f"bicnn_scale: losses {losses}")
+    prof = tool.profile(tr, data, 10)
+    print("bicnn_scale step profile: " + json.dumps(prof))
+    return {"launches": launches, "steps": steps, "examples_per_sec": row["value"],
+            "epoch_seconds": row["epoch_seconds"], "eval3_warm_s": row["eval3_warm_s"],
+            "step_ms_profiled": prof["step_ms"],
+            "device_busy_share": prof["device_busy_share"]}
+
+
+def bicnn_vs_cpu(torch, kernels):
+    """Five ``sgd`` steps (lr 0.05, momentum 0.9, batch 4, 100 negatives)
+    of the docqa model at full width on the card and on the CPU, from one
+    ``w0`` (drawn on the CPU from the seed) and the same negatives (the
+    host's draws from the seed), held to BICNN_MAX_ABS_GAP and
+    BICNN_GAP_OVER_CHANGE; K1 once a step on the card."""
+    import numpy as np
+
+    from mpit_tpu_torch.train.bicnn import BICNN_DEFAULTS, BiCNNTrainer
+
+    cfg = BICNN_DEFAULTS.merged(BICNN_DOCQA, optimization="sgd", learning_rate=0.05,
+                                momentum=0.9, batch_size=4)
+    finals, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = BiCNNTrainer(cfg.merged(device=device))
+        w0 = tr.w.cpu().clone()
+        order = np.arange(len(tr.data.train))
+        zero_counts(kernels)
+        losses[device] = [float(tr.step(order[4 * s:4 * s + 4])) for s in range(5)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts(kernels)
+            expect_launches("bicnn_vs_cpu", launches, {"k1": 5})
+        finals[device] = {"w": tr.w.cpu(), "vt": tr.optimizer.state["vt"].cpu()}
+    if w0.numel() != BICNN_DOCQA_PARAMS:
+        raise AssertionError(f"bicnn_vs_cpu: {w0.numel()} floats")
+    readings = {"losses": losses}
+    for key in ("w", "vt"):
+        gap = finals["cuda"][key] - finals["cpu"][key]
+        change = finals["cpu"][key] - (w0 if key == "w" else 0.0)
+        readings[key] = {"max_abs_gap": float(gap.abs().max()),
+                         "max_abs_change": float(change.abs().max()),
+                         "gap_over_change": float(gap.norm() / change.norm())}
+    print("bicnn_vs_cpu: 5 steps, cuda vs cpu " + json.dumps(readings))
+    for key in ("w", "vt"):
+        r = readings[key]
+        if not (r["max_abs_gap"] <= BICNN_MAX_ABS_GAP
+                and r["gap_over_change"] <= BICNN_GAP_OVER_CHANGE):
+            raise AssertionError(f"bicnn_vs_cpu: {key} on the card differs from the "
+                                 f"CPU beyond the limits: {r}")
+    return {"launches": launches, "steps": 5, **{k: readings[k] for k in ("w", "vt")}}
+
+
+def bicnn_shard_apply(torch, n_shard):
+    """K3 bit-equal to its twin at a BiCNN Adam server's shard, and the
+    server's per-GRAD apply there timed: the frame's copy to the card, then
+    the adam rule with ``step_div`` 72 (step counter, lr_t, K3), as
+    ``ParamServer._recv_grad`` runs it.  Launches here are checks, not a
+    path's."""
+    import numpy as np
+
+    from mpit_tpu_torch.ops.fused_update import fused_adam, fused_adam_reference
+    from mpit_tpu_torch.optim import rules
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p, g, m, v = (torch.randn(n_shard, device=dev, generator=gen) for _ in range(4))
+    v.abs_()
+    lr_t = torch.tensor(1e-3 * math.sqrt(1 - 0.999) / (1 - 0.9), device=dev)
+    want = fused_adam_reference(p, g, m, v, lr_t)
+    fused_adam(p, g, m, v, lr_t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((p, m, v), want)):
+        raise AssertionError(f"K3 differs from its twin at the BiCNN shard ({n_shard})")
+    rule = rules.make("adam", lr=1e-3, step_div=72)
+    frame = np.random.default_rng(3).standard_normal(n_shard, dtype=np.float32)
+    state = rule.init(p)
+    apply_ms = time_ms(torch, lambda: rule.apply(
+        p, torch.from_numpy(frame).to(dev, copy=True), state))
+    copy_ms = time_ms(torch, lambda: torch.from_numpy(frame).to(dev, copy=True))
+    return {"n": n_shard, "server_apply_call_ms": apply_ms, "frame_copy_call_ms": copy_ms}
+
+
+def run_bicnn_gang(name, size, **kw):
+    """One docqa process gang through ``bicnn_launch.launch_processes``,
+    every rank on the card, one epoch: finite losses, and each child's
+    K1-K3 launches summed over the gang.  Returns the results, the
+    launches and the reading printed."""
+    from mpit_tpu_torch.train.bicnn_launch import BICNN_LAUNCH_DEFAULTS, launch_processes
+
+    cfg = BICNN_LAUNCH_DEFAULTS.merged(BICNN_DOCQA, np=size, epoch=1, device="cuda",
+                                       batch_size=BICNN_GANG_BATCH, **kw)
+    t0 = time.perf_counter()
+    results = launch_processes(cfg, timeout=600)
+    wall = time.perf_counter() - t0
+    off = {r: v["platform"] for r, v in results.items() if v["platform"] != "cuda"}
+    if off:
+        raise AssertionError(f"{name}: ranks off cuda: {off}")
+    workers = [v for v in results.values() if v["role"] == "worker"]
+    servers = [v for v in results.values() if v["role"] == "server"]
+    for v in workers:
+        if not all(math.isfinite(h["avg_loss"]) for h in v["history"]):
+            raise AssertionError(f"{name}: losses {v['history']}")
+    launches = {k: sum(v["launches"][k] for v in results.values()) for k in ("k1", "k2", "k3")}
+    steps = sum(v["steps"] for v in workers)
+    batch = int(cfg.batch_size)
+    reading = {
+        "wall_s": wall, "worker_steps": [v["steps"] for v in workers],
+        "samples_per_sec": steps * batch / wall,
+        "samples_per_sec_train": steps * batch / max(v["elapsed"] for v in workers),
+        "epoch_s": [v["history"][-1]["seconds"] for v in workers],
+        "sync_s": [v["timers"].get("sync", 0.0) for v in workers],
+        "feval_s": [v["timers"].get("feval", 0.0) for v in workers],
+        "accuracy": [v["accuracy"] for v in workers],
+        "grads_applied": [v["grads_applied"] for v in servers],
+        "params_served": [v["params_served"] for v in servers],
+        "launches": launches,
+        "launches_by_rank": {r: v["launches"] for r, v in sorted(results.items())},
+        "roles": {r: v["role"] for r, v in sorted(results.items())},
+    }
+    print(f"{name}: " + json.dumps(reading))
+    return results, launches, reading
+
+
+def bicnn_gangs(torch, all_paths, smi):
+    """The docqa process gangs over shm, every rank on the card, one epoch
+    at batch BICNN_GANG_BATCH: EAMSGD np=6 with the tester first (the JAX
+    README's command; its last checkpoint read back with ``load_flat``),
+    server-side Adam np=4 (K3 in the servers = 2 x the workers' steps; the
+    servers' per-GRAD apply timed at their shard), adamsingle np=4 (K3 on
+    the workers = their steps)."""
+    import tempfile
+
+    from mpit_tpu_torch.utils.checkpoint import load_flat
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        name = "bicnn_eamsgd_np6_tester"
+        res, launches, reading = run_bicnn_gang(
+            name, 6, optimization="eamsgd", testerfirst=True,
+            valid_mode="additionalTester", tester_rounds=3,
+            outputprefix=os.path.join(ckpt, "bicnn"))
+        w, meta = load_flat(os.path.join(ckpt, "bicnn_latest.npz"))
+    if reading["roles"] != {0: "tester", 1: "worker", 2: "server", 3: "worker",
+                            4: "server", 5: "worker"} or len(res[0]["history"]) != 3:
+        raise AssertionError(f"{name}: roles {reading['roles']}, tester {res[0]}")
+    if w.shape != (BICNN_DOCQA_PARAMS,) or not np_isfinite(w) or meta["epoch"] != 2:
+        raise AssertionError(f"{name}: checkpoint {w.shape}, meta {meta}")
+    print(f"{name}: tester history {res[0]['history']}, checkpoint of {w.size} floats")
+    expect_launches(name, launches, {})
+    record_path(all_paths, name, launches, sum(reading["worker_steps"]))
+
+    name = "bicnn_adam_np4"
+    res, launches, reading = run_bicnn_gang(name, 4, optimization="adam", valid_mode="none")
+    steps = sum(reading["worker_steps"])
+    applied = sum(reading["grads_applied"])
+    in_servers = sum(v["launches"]["k3"] for v in res.values() if v["role"] == "server")
+    if not applied == in_servers == launches["k3"] == 2 * steps:
+        raise AssertionError(f"{name}: K3 {in_servers} in the servers, {applied} applies, "
+                             f"{steps} worker steps on 2 servers")
+    expect_launches(name, launches, {"k3": applied})
+    shard = bicnn_shard_apply(torch, BICNN_DOCQA_PARAMS // 2)
+    print(f"{name} on {smi}: the servers' per-GRAD apply " + json.dumps(shard))
+    record_path(all_paths, name, launches, steps)
+
+    name = "bicnn_adamsingle_np4"
+    res, launches, reading = run_bicnn_gang(name, 4, optimization="adamsingle",
+                                            valid_mode="none")
+    steps = sum(reading["worker_steps"])
+    on_workers = sum(v["launches"]["k3"] for v in res.values() if v["role"] == "worker")
+    if not on_workers == launches["k3"] == steps:
+        raise AssertionError(f"{name}: K3 {on_workers} on the workers for {steps} steps")
+    expect_launches(name, launches, {"k3": steps})
+    record_path(all_paths, name, launches, steps)
+    print(f"BiCNN process gangs: {time.perf_counter() - t0:.1f}s")
+
+
+def np_isfinite(w):
+    import numpy as np
+
+    return bool(np.isfinite(w).all())
+
+
 def main() -> int:
     import torch
 
@@ -1825,18 +2263,23 @@ def main() -> int:
     mesh_cfg = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS)
     n_mesh = flatten_module(make_model(mesh_cfg.model, mesh_cfg.side), 1).size
     n_msgd = flatten_module(make_model(TRAINER_DEFAULTS.model, TRAINER_DEFAULTS.side), 1).size
-    k1 = check_k1(torch, n_mesh, n_msgd)
+    k1 = check_k1(torch, n_mesh, n_msgd, (BICNN_SCALE_PARAMS, BICNN_DOCQA_PARAMS))
     # The gang paths run the flagship CNN: K2 sweeps the whole vector, K3
     # a server's shard at np=4 (the first of two; the last takes the
     # remainder) and the whole vector under adam-single.
     k2 = check_k2(torch, n_mesh)
-    k3 = check_k3(torch, n_mesh // 2, n_mesh)
+    k3 = check_k3(torch, n_mesh // 2, n_mesh,
+                  (BICNN_DOCQA_PARAMS // 2, BICNN_DOCQA_PARAMS))
     check_graph_replay(torch, n_mesh, n_mesh // 2)
     paths = k1["paths"]
     paths["headline"] = headline(torch, fused_nesterov_commit)
     paths["easgd_dp4"] = easgd_dp4(torch, fused_nesterov_commit)
     paths["launch_msgd"] = launch_msgd(torch, fused_nesterov_commit)
     paths["device_loop_flagship"] = device_loop_vs_host(torch, fused_nesterov_commit)
+    t_slice4 = time.perf_counter()
+    paths["mesh_syncdp"] = mesh_syncdp(torch, fused_nesterov_commit)
+    paths["mesh_resume"] = mesh_resume(torch, fused_nesterov_commit)
+    slice4_s = time.perf_counter() - t_slice4
     k1["launches"] = paths["headline"]["launches"]
 
     kernels = {"k1": fused_nesterov_commit, "k2": fused_elastic, "k3": fused_adam,
@@ -1850,20 +2293,36 @@ def main() -> int:
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 
+    t_bicnn = time.perf_counter()
+    rec = bicnn_scale(torch, kernels, smi)
+    record_path(all_paths, "bicnn_scale", rec["launches"], rec["steps"])
+    rec = bicnn_vs_cpu(torch, kernels)
+    record_path(all_paths, "bicnn_vs_cpu", rec["launches"], rec["steps"])
+    bicnn_gangs(torch, all_paths, smi)
+    slice4_s += time.perf_counter() - t_bicnn
+
     t_lm = time.perf_counter()
     lm_paths(torch, kernels, all_paths)
     # bf16 twice: under the gate's K5 and under K6, each held to the CPU.
     for attn_dtype, fused_bwd in (("float32", None), ("bfloat16", None),
                                   ("bfloat16", "0")):
         rec = lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd)
-        for key in kernels:
-            all_paths[key][rec["name"]] = {**rec, "launches": rec["launches"][key]}
+        for key in kernels:  # the readings are on the path's own line
+            all_paths[key][rec["name"]] = {"launches": rec["launches"][key],
+                                           "steps": rec["steps"], "schedule": rec["schedule"]}
+    t_resume = time.perf_counter()
+    rec = lm_resume(torch, kernels)
+    record_path(all_paths, "lm_resume", rec["launches"], rec["steps"])
+    slice4_s += time.perf_counter() - t_resume
     k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
+    print(f"sync-DP, resume and BiCNN phases: {slice4_s:.1f}s")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
+    line = json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]})
+    print(f"kernels line: {len(line)} bytes", file=sys.stderr)
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
+    print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,9 +12,12 @@ module keeps that layout exactly:
   :mod:`mpit_tpu_torch.models.transformer` hold them that way).
 
 :meth:`FlatModel.apply_flat` views the vector as the module's parameters
-and runs the module through ``torch.func.functional_call``, so autograd
-(and ``torch.func.grad``/``vmap``) differentiate straight into the flat
-vector.  :meth:`FlatModel.from_jax_params` and
+and runs the module (or one of its methods, ``method=BiCNN.embed``)
+through ``torch.func.functional_call``, so autograd (and
+``torch.func.grad``/``vmap``) differentiate straight into the flat
+vector.  :meth:`FlatModel.set_leaf` writes one leaf of a vector, as a
+pretrained embedding matrix is put into ``w0``.
+:meth:`FlatModel.from_jax_params` and
 :meth:`FlatModel.to_jax_params` carry a flax parameter tree (as numpy
 arrays) into the vector and back.
 """
@@ -22,7 +25,7 @@ arrays) into the vector and back.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +54,7 @@ class FlatModel:
             raise ValueError(f"w0 has shape {tuple(w0.shape)}, the module "
                              f"needs ({self.size},)")
         self.w0 = w0
+        self._bound: Dict[Callable, nn.Module] = {}
 
     def unravel(self, w: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Views of ``w`` named and shaped as the module's parameters."""
@@ -61,8 +65,31 @@ class FlatModel:
             off += n
         return out
 
-    def apply_flat(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return torch.func.functional_call(self.module, self.unravel(w), (x,))
+    def apply_flat(self, w: torch.Tensor, *inputs: Any,
+                   method: Optional[Callable] = None) -> Any:
+        """The module's ``forward`` (or ``method``, a function of the module
+        and the inputs, such as ``BiCNN.embed``) on ``inputs`` with ``w``'s
+        views as its parameters."""
+        if method is None:
+            return torch.func.functional_call(self.module, self.unravel(w), inputs)
+        bound = self._bound.get(method)
+        if bound is None:
+            bound = self._bound[method] = _Bound(self.module, method)
+        params = {f"module.{k}": v for k, v in self.unravel(w).items()}
+        return torch.func.functional_call(bound, params, inputs)
+
+    def set_leaf(self, w: torch.Tensor, name: str, value: Any) -> torch.Tensor:
+        """Write ``value`` into the leaf ``name`` of ``w`` in place (e.g. the
+        pretrained vocabulary into ``tower.lookup.embedding``, reference
+        bicnn.lua:34); returns ``w``."""
+        view = self.unravel(w)[name]
+        value = torch.as_tensor(value, dtype=w.dtype)
+        if tuple(value.shape) != tuple(view.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)}, the leaf "
+                             f"{tuple(view.shape)}")
+        with torch.no_grad():
+            view.copy_(value)
+        return w
 
     def from_jax_params(self, params: Mapping[str, Any]) -> torch.Tensor:
         """A flax parameter tree (numpy leaves) -> the flat f32 vector."""
@@ -91,6 +118,18 @@ class FlatModel:
                 node = node.setdefault(key, {})
             node[leaf] = view.numpy().copy()
         return tree
+
+
+class _Bound(nn.Module):
+    """``method`` of ``module`` as a forward, for ``functional_call``."""
+
+    def __init__(self, module: nn.Module, method: Callable):
+        super().__init__()
+        self.module = module
+        self.method = method
+
+    def forward(self, *inputs: Any) -> Any:
+        return self.method(self.module, *inputs)
 
 
 def _count_leaves(tree: Any) -> int:

@@ -112,6 +112,8 @@ class MeshEASGD:
     def center_params(self, state: State) -> torch.Tensor:
         return state["center"]
 
+    eval_params = center_params  # what mesh_launch evaluates
+
     @property
     def steps(self) -> int:
         """Steps taken since :meth:`init` (the sync-schedule counter)."""
@@ -131,12 +133,14 @@ class MeshEASGD:
             losses.append(loss)
         return state, torch.stack(losses)
 
-    def precompile(self, state: State, xb: torch.Tensor, yb: torch.Tensor) -> None:
+    def precompile(self, state: State, xb: torch.Tensor, yb: torch.Tensor) -> int:
         """Warm both step kinds (sync and local) on copies of ``state``:
         the kernels' first launches, cuDNN's algorithm choice and the
         allocator's pools happen here, not in the timed region.  Neither the
-        caller's tensors nor the sync schedule (``_steps``) are touched."""
+        caller's tensors nor the sync schedule (``_steps``) are touched.
+        Returns the steps run (two)."""
         for run in (self._sync, self._local):
             run({k: v.clone() for k, v in state.items()}, xb, yb)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        return 2

@@ -62,8 +62,10 @@ LATER_SERVER_ARGS = {
     "cell_ranks": "serving cells (slice 5, cells)",
     "cell_history": "serving cells (slice 5, cells)",
     "dplane": "the device data plane (slice 6, dplane)",
-    "dtype": "shards of other dtypes (the port's shards are float32)",
 }
+
+#: What a shard dtype other than float32 belongs to.
+DTYPE_SLICE = "shards of other dtypes (a later slice of the port; its shards are float32)"
 
 
 def refuse_later(cls: str, later: Dict[str, Any], table: Dict[str, str]) -> None:
@@ -87,9 +89,16 @@ class ParamServer:
         device: str = "cuda",  # cuda | cpu: where shard and rule state live
         codec: Optional[str] = None,  # None: adopt each client's announcement;
         #                               a name pins it — mismatches fail loudly
+        dtype: Any = "float32",  # the shard's dtype: float32 only
         **later: Any,
     ):
         refuse_later("ParamServer", later, LATER_SERVER_ARGS)
+        try:
+            float32 = np.dtype(dtype) == np.float32
+        except TypeError:  # a name numpy does not know (bfloat16 without ml_dtypes)
+            float32 = False
+        if not float32:
+            raise NotImplementedError(f"ParamServer(dtype={dtype!r}): {DTYPE_SLICE}")
         self.rank = rank
         self.cranks = list(client_ranks)
         self.transport = transport

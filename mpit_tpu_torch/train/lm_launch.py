@@ -9,11 +9,17 @@ the displaced point, and the commit (K1), all in place on the flat
 parameter vector.  The corpus and the batch draws are the reference's, so
 a run from the same ``w0`` sees the same tokens in both packages.
 
+``--ckpt_dir`` saves ``w``, ``vt`` and ``k`` every ``ckpt_every`` steps
+in the JAX package's npz layout (``lm_latest.npz``), and ``--resume auto``
+(or a path) continues from it, in either package, with the reference's
+guards: the model's widths, the seed, the batch and the corpus must be
+the checkpoint's.  A resumed run burns the skipped steps' draws, so the
+data stream continues.
+
 Runs on CUDA unless ``--device cpu``.  What belongs to later slices
 raises ``NotImplementedError``: ``dp > 1`` (multi-card data parallel),
-``sp > 1`` (ring attention), the multi-host flags, and ``ckpt_dir`` /
-``resume`` (checkpointing).  ``layout`` is the ring's and is only
-checked.  The reference's ``compile_cache`` (a persistent XLA cache) has
+``sp > 1`` (ring attention) and the multi-host flags.  ``layout`` is the
+ring's and is only checked.  The reference's ``compile_cache`` (a persistent XLA cache) has
 no counterpart and is not a flag here; ``profile_dir`` records a
 ``torch.profiler`` trace of the training loop, each log window a
 ``window N`` range.
@@ -39,6 +45,7 @@ from mpit_tpu_torch.models.flat import flatten_module
 from mpit_tpu_torch.models.transformer import TinyDecoder, default_attn
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_init, msgd_step
+from mpit_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict
 from mpit_tpu_torch.utils.config import Config
 from mpit_tpu_torch.utils.logging import get_logger
 from mpit_tpu_torch.utils.platform import device_name, resolve_device
@@ -59,9 +66,9 @@ LM_LAUNCH_DEFAULTS = Config(
     text_file="",
     seed=1,
     log_every=20,
-    ckpt_dir="",  # a later slice; set raises
-    ckpt_every=100,
-    resume="",  # a later slice; set raises
+    ckpt_dir="",
+    ckpt_every=100,  # steps
+    resume="",  # "auto" -> <ckpt_dir>/lm_latest.npz
     profile_dir="",  # torch.profiler trace of the training loop when set
     device="cuda",  # cuda | cpu
     # multi-host bootstrap: a later slice; any set raises
@@ -81,6 +88,13 @@ LONGCONTEXT_32K_KWARGS = dict(LONGCONTEXT_KWARGS, seq_len=32768)
 
 
 _SYNTH_CACHE: dict = {}
+
+
+def _corpus_key(text_file: str) -> str:
+    """Identity of the training corpus for resume guards: the resolved
+    path ("" for the synthetic stream), stored resolved at save time so
+    the comparison does not depend on the working directory."""
+    return str(pathlib.Path(text_file).resolve()) if text_file else ""
 
 
 def _corpus(cfg: Config, log) -> np.ndarray:
@@ -124,8 +138,6 @@ def _refuse_later_slices(cfg: Config) -> None:
             bool(cfg.hostfile or cfg.coordinator or cfg.num_processes > 1
                  or cfg.process_id >= 0),
             "multi-host process groups"),
-        "ckpt_dir": (bool(cfg.ckpt_dir), "checkpointing"),
-        "resume": (bool(cfg.resume), "checkpointing"),
     }
     for flag, (is_set, slice_name) in later.items():
         if is_set:
@@ -180,9 +192,18 @@ def run(cfg: Config) -> dict:
 
     w = flat.w0.clone()
     state = msgd_init(w)
+    model_key = {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                 "n_layers": cfg.n_layers, "seq_len": cfg.seq_len}
+    start_step, prev_elapsed = 0, 0.0
+    if cfg.resume:
+        start_step, prev_elapsed = _resume(cfg, model_key, w, state, log)
 
     data = _corpus(cfg, log)
     rng = np.random.default_rng(cfg.seed)
+    # Burn the skipped steps' draws so a resumed run continues the stream
+    # (one draw of cfg.batch starts per step).
+    for _ in range(start_step):
+        rng.integers(0, len(data) - cfg.seq_len - 1, cfg.batch)
 
     def sync():
         if device.type == "cuda":
@@ -199,42 +220,92 @@ def run(cfg: Config) -> dict:
     compile_s = time.perf_counter() - t_c
     log.info("precompile: %.2fs", compile_s)
 
+    def save(step):
+        save_state_dict(
+            cfg.ckpt_dir, {"w": w, "vt": state["vt"], "k": state["k"]},
+            meta={"step": step, "seed": cfg.seed, "batch": cfg.batch,
+                  "text_file": _corpus_key(cfg.text_file), "model": model_key,
+                  "elapsed": round(time.perf_counter() - t0 + prev_elapsed, 3)},
+            prefix="lm")
+
+    # Log windows end where (step + 1) % log_every == 0, and at the last
+    # step; a resumed run's first window is the rest of its window.
     every = max(int(cfg.log_every), 1)
     history: List[dict] = []
     t0 = time.perf_counter()
     with profiler_trace(cfg.profile_dir):
-        for first in range(0, cfg.steps, every):
-            last = min(first + every, cfg.steps) - 1
+        first = start_step
+        while first < cfg.steps:
+            last = min((first // every + 1) * every, cfg.steps) - 1
             with trace_annotation(f"window {first // every}"):
                 losses = []
-                for _ in range(first, last + 1):
+                for step in range(first, last + 1):
                     starts = rng.integers(0, len(data) - cfg.seq_len - 1, cfg.batch)
                     toks = np.stack([data[s:s + cfg.seq_len + 1] for s in starts])
                     toks = torch.from_numpy(toks).to(device, torch.int64)
                     losses.append(train_step(w, state, toks))
+                    if cfg.ckpt_dir and (step + 1) % max(int(cfg.ckpt_every), 1) == 0:
+                        save(step)
                 avg = float(torch.stack(losses).mean())  # fences the window
-            if last + 1 == (first + every):
+            if (last + 1) % every == 0:
                 log.info("step %d loss %.4f (%.1fs)", last, avg,
-                         time.perf_counter() - t0)
+                         time.perf_counter() - t0 + prev_elapsed)
             history.append({"step": last, "avg_loss": avg})
+            first = last + 1
     sync()
-    elapsed = time.perf_counter() - t0
-    trained = cfg.steps * cfg.batch * cfg.seq_len
+    elapsed = time.perf_counter() - t0 + prev_elapsed
+    trained = (cfg.steps - start_step) * cfg.batch * cfg.seq_len
     return {
         "history": history,
         "final_loss": history[-1]["avg_loss"] if history else None,
         "elapsed": round(elapsed, 3),
         "tokens_trained": trained,
-        "tokens_per_sec": round(trained / max(elapsed, 1e-9), 1),
+        "tokens_per_sec": round(trained / max(elapsed - prev_elapsed, 1e-9), 1),
         "compile_s": round(compile_s, 3),
         "mesh": {"dp": 1, "sp": 1},
         "params": flat.size,
         "processes": 1,
-        "steps": int(cfg.steps),
+        "steps": int(cfg.steps) - start_step,
         "device": str(w.device),
         "device_name": device_name(device),
         "state": {"w": w, "vt": state["vt"], "k": state["k"]},
     }
+
+
+def _resume(cfg: Config, model_key: dict, w: torch.Tensor, state: dict, log):
+    """Load ``cfg.resume`` into ``w`` and ``state`` in place, with the
+    reference's guards; returns the step to start at and the earlier
+    runs' seconds."""
+    path = cfg.resume
+    if path == "auto":
+        if not cfg.ckpt_dir:
+            raise ValueError("--resume auto requires --ckpt_dir")
+        path = str(pathlib.Path(cfg.ckpt_dir) / "lm_latest.npz")
+    saved, meta = load_state_dict(path)
+    if tuple(saved["w"].shape) != tuple(w.shape):
+        raise ValueError(
+            f"checkpoint params {tuple(saved['w'].shape)} != model {tuple(w.shape)} "
+            "— different --d_model/--n_layers/--seq_len?")
+    if "model" in meta and meta["model"] != model_key:
+        raise ValueError(
+            f"checkpoint model config {meta['model']} != {model_key} — the same "
+            "flat size does not make the same model (n_heads changes the "
+            "attention head split silently)")
+    for key, what in (("seed", "data stream"), ("batch", "data stream")):
+        if key in meta and int(meta[key]) != int(cfg[key]):
+            raise ValueError(
+                f"checkpoint was trained with --{key} {meta[key]}, resuming with "
+                f"--{key} {cfg[key]} would silently diverge the {what} — pass "
+                f"the original {key}")
+    if "text_file" in meta and meta["text_file"] != _corpus_key(cfg.text_file):
+        raise ValueError(f"checkpoint was trained on {meta['text_file']!r}, "
+                         f"resuming on {cfg.text_file!r} is a different corpus")
+    w.copy_(torch.as_tensor(saved["w"]))
+    state["vt"].copy_(torch.as_tensor(saved["vt"]))
+    state["k"].copy_(torch.as_tensor(saved["k"]))
+    start_step = int(meta.get("step", -1)) + 1
+    log.info("resumed from %s at step %d", path, start_step)
+    return start_step, float(meta.get("elapsed", 0.0))
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

@@ -1,24 +1,39 @@
-"""On-device EASGD MNIST training CLI — the port of
+"""On-device MNIST training CLI — the port of
 ``mpit_tpu/train/mesh_launch.py``.
 
-All worker rows and the center live on one CUDA card
-(:class:`mpit_tpu_torch.parallel.MeshEASGD`), trained to a target test
-error with wall-clock-to-target and samples/s reported under the
-reference's result keys.  The data order is the reference's
-(``np.random.default_rng(seed)`` permutations), so a run with the same
-``w0`` follows the same batches in both packages.
+Two trainers on one CUDA card: EASGD, every worker row and the center on
+the card (:class:`mpit_tpu_torch.parallel.MeshEASGD`), and synchronous
+data parallel, one gradient of the global batch a step
+(``--opt syncdp``, :class:`mpit_tpu_torch.parallel.SyncDataParallel`).
+Each is trained to a target test error with wall-clock-to-target and
+samples/s reported under the reference's result keys.  The data order is
+the reference's (``np.random.default_rng(seed)`` permutations), so a run
+with the same ``w0`` follows the same batches in both packages.
 
 ``--device_loop 1`` trains every epoch from captured CUDA graphs, with no
 host round trip inside an epoch (:func:`_device_loop_train`).
 
-Runs on CUDA unless ``--device cpu``.  What the reference has and this
-slice does not (``--opt syncdp``, checkpoints and resume, multi-host
-groups) raises ``NotImplementedError``.
+``--ckpt_dir`` saves the trainer's whole state every ``ckpt_every``
+epochs, and ``--resume auto`` (or a path) continues from it: the JAX
+package's npz layout and state keys (``w``, ``vt``, ``k``, ``center``), so
+a checkpoint of either package resumes in the other.  Resuming burns the
+skipped epochs' permutations, so the data order continues, and carries
+the earlier runs' seconds into ``time_to_target``.  EASGD's sync schedule
+continues under ``--device_stream 1`` and restarts under the per-batch
+host loop, as the reference's staged scan and its ``step`` do.  The reference's orbax
+``step_*`` checkpoints (multi-process meshes) and the multi-host flags
+raise ``NotImplementedError``.
+
+Runs on CUDA unless ``--device cpu``.
 
 Example:
 
     python -m mpit_tpu_torch.train.mesh_launch --opt easgd --su 10 \
         --epochs 10 --device_stream 1 --precompile 1
+    python -m mpit_tpu_torch.train.mesh_launch --opt syncdp --lr 0.2 \
+        --mom 0.9 --epochs 2 --ckpt_dir ck
+    python -m mpit_tpu_torch.train.mesh_launch --opt syncdp --lr 0.2 \
+        --mom 0.9 --epochs 4 --ckpt_dir ck --resume auto
     python -m mpit_tpu_torch.train.mesh_launch --device_loop 1 \
         --stop_at_target 1 --target_test_err 0.02
 """
@@ -26,6 +41,7 @@ Example:
 from __future__ import annotations
 
 import json
+import pathlib
 import sys
 import time
 from typing import List, Optional
@@ -34,12 +50,16 @@ import numpy as np
 import torch
 
 from mpit_tpu_torch.data.mnist import load_mnist
-from mpit_tpu_torch.models.flat import error_rate, flatten_module, value_and_grad_nll
+from mpit_tpu_torch.models.flat import (
+    error_rate, flatten_module, value_and_grad_nll, value_and_grad_nll_eager)
 from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig
 from mpit_tpu_torch.parallel.easgd import MeshEASGD
 from mpit_tpu_torch.parallel.mesh import make_mesh
+from mpit_tpu_torch.parallel.sync_dp import SyncDataParallel
+from mpit_tpu_torch.utils.checkpoint import (
+    latest_pytree_step, load_state_dict, save_state_dict)
 from mpit_tpu_torch.utils.config import Config
 from mpit_tpu_torch.utils.logging import get_logger
 from mpit_tpu_torch.utils.platform import device_name, resolve_device
@@ -47,7 +67,7 @@ from mpit_tpu_torch.utils.timing import timed_chained
 
 MESH_LAUNCH_DEFAULTS = Config(
     model="cnn",  # linear | mlp | cnn
-    opt="easgd",  # easgd (syncdp: a later slice)
+    opt="easgd",  # easgd | syncdp
     lr=1e-2,
     mom=0.99,
     mommax=1.0,
@@ -56,7 +76,7 @@ MESH_LAUNCH_DEFAULTS = Config(
     mva=0.0,  # 0 -> beta/p with beta=0.9 (mlaunch.lua:42)
     su=10,
     epochs=10,
-    batch=128,  # per-worker batch
+    batch=128,  # per-worker batch (easgd) / global batch (syncdp)
     seed=1,
     side=32,
     dp=0,  # 0 -> 1: one worker row per device, and the mesh has one device
@@ -66,8 +86,9 @@ MESH_LAUNCH_DEFAULTS = Config(
     device_stream=0,  # 1 -> stage each epoch's batches on device up front
     device_loop=0,  # 1 -> every epoch one CUDA-graph replay (_device_loop_train)
     measure_throughput=0,  # 1 -> post-training steady-state samples/s leg
-    ckpt_dir="",  # a later slice; set raises
-    resume="",  # a later slice; set raises
+    ckpt_dir="",  # save the trainer's whole state every ckpt_every epochs
+    ckpt_every=1,
+    resume="",  # path to a mesh_*.npz, or "auto": <ckpt_dir>/mesh_latest.npz
     profile_dir="",  # torch.profiler trace of the epoch loop when set
     precompile=0,  # 1 -> warm the step and eval paths before t0
     device="cuda",  # cuda | cpu
@@ -88,9 +109,6 @@ FLAGSHIP_BENCH_KWARGS = dict(
 
 def _refuse_later_slices(cfg: Config) -> None:
     later = {
-        "opt=syncdp": (cfg.opt == "syncdp", "the sync data-parallel trainer"),
-        "ckpt_dir": (bool(cfg.ckpt_dir), "checkpoint/resume"),
-        "resume": (bool(cfg.resume), "checkpoint/resume"),
         "multi-host flags": (
             bool(cfg.hostfile or cfg.coordinator or cfg.num_processes > 1
                  or cfg.process_id >= 0),
@@ -100,12 +118,12 @@ def _refuse_later_slices(cfg: Config) -> None:
         if is_set:
             raise NotImplementedError(
                 f"{flag}: {slice_name} is a later slice of the port")
-    if cfg.opt != "easgd":
-        raise ValueError(f"opt must be easgd, got {cfg.opt!r}")
+    if cfg.opt not in ("easgd", "syncdp"):
+        raise ValueError(f"opt must be easgd|syncdp, got {cfg.opt!r}")
 
 
 def _device_loop_train(*, cfg, trainer, state, flat, rng, x_train, y_train,
-                       x_test_d, y_test_d, steps_per_epoch, per_step, n_dp,
+                       x_test_d, y_test_d, steps_per_epoch, per_step, lead,
                        device, log):
     """Train-to-target with no host round trip inside an epoch: the port of
     the reference's ``_device_loop_train``, whose one ``lax.while_loop``
@@ -114,14 +132,17 @@ def _device_loop_train(*, cfg, trainer, state, flat, rng, x_train, y_train,
     The training set goes to the device once, and every epoch's order
     (the host loop's own ``rng.permutation``, all epochs drawn up front)
     in one ``(epochs, steps * dp * batch)`` index tensor.  An epoch's body
-    gathers its batches by index, runs ``steps_per_epoch``
-    :meth:`MeshEASGD.step` calls (K1 launched on the capturing stream),
-    and writes the center's test error and the epoch's mean loss into
+    gathers its batches by index (``lead`` is a step's batch shape:
+    ``(dp, batch)`` for EASGD, ``(batch,)`` for sync-DP), runs
+    ``steps_per_epoch`` trainer steps (K1 launched on the capturing
+    stream), and writes the evaluated parameters' test error (EASGD's
+    center, sync-DP's ``w``) and the epoch's mean loss into
     ``errs[ep]`` and ``losses[ep]`` on the device; a device counter ``ep``
     picks the epoch, so one graph serves every epoch that starts at the
     same phase of the sync schedule.  The schedule is host-side
     (``steps % su``), so there is one graph per starting phase (at most
-    ``su``), all captured before the clock starts, after a warm-up on
+    ``su``; sync-DP has one phase, so one graph), all captured before the
+    clock starts, after a warm-up on
     copies (cuDNN's and cuBLAS's first calls), into one memory pool: only
     temporaries live there, and the graphs replay one at a time.
     ``stop_at_target`` reads ``errs[ep]`` (4 bytes) after each replay, the
@@ -156,11 +177,11 @@ def _device_loop_train(*, cfg, trainer, state, flat, rng, x_train, y_train,
 
     def epoch_body(st, ep, errs, losses):
         idx = orders_d.index_select(0, ep).view(-1)
-        x_ep = x_all.index_select(0, idx).view(spe, n_dp, cfg.batch, -1)
-        y_ep = y_all.index_select(0, idx).view(spe, n_dp, cfg.batch)
+        x_ep = x_all.index_select(0, idx).view(spe, *lead, -1)
+        y_ep = y_all.index_select(0, idx).view(spe, *lead)
         _, ep_losses = trainer.run_epoch(st, x_ep, y_ep)
         losses.index_copy_(0, ep, ep_losses.mean().view(1))
-        err = error_rate(flat, trainer.center_params(st), x_test_d, y_test_d)
+        err = error_rate(flat, trainer.eval_params(st), x_test_d, y_test_d)
         errs.index_copy_(0, ep, err.view(1))
         ep.add_(1)
 
@@ -171,13 +192,13 @@ def _device_loop_train(*, cfg, trainer, state, flat, rng, x_train, y_train,
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            trainer.precompile(state, x_all[:per_step].view(n_dp, cfg.batch, -1),
-                               y_all[:per_step].view(n_dp, cfg.batch))
+            warmup_steps = trainer.precompile(state, x_all[:per_step].view(*lead, -1),
+                                              y_all[:per_step].view(*lead))
             epoch_body({k: v.clone() for k, v in state.items()},
                        *(b.clone() for b in bufs))
         torch.cuda.current_stream(device).wait_stream(stream)
         torch.cuda.synchronize(device)
-        warmup_steps = 2 + spe  # precompile's sync and local step, one epoch
+        warmup_steps += spe  # precompile's steps (EASGD: a sync and a local), one epoch
         pool = torch.cuda.graph_pool_handle()
         for phase in sorted({ep * spe % trainer.su for ep in range(epochs)}):
             trainer.set_steps(phase)
@@ -231,6 +252,51 @@ def _device_loop_train(*, cfg, trainer, state, flat, rng, x_train, y_train,
     return history, time_to_target, compile_s, wall, ran * take, t0, ran_info
 
 
+def _resume(cfg: Config, trainer, state, log):
+    """Load ``cfg.resume`` into ``state`` in place, with the reference's
+    guards (the state's keys and shapes, ``opt``, ``seed``); returns the
+    epoch to start at and the earlier runs' training seconds."""
+    resume_path = cfg.resume
+    if resume_path == "auto":
+        ckpt_dir = pathlib.Path(cfg.ckpt_dir)
+        npz_latest = ckpt_dir / "mesh_latest.npz"
+        step = latest_pytree_step(ckpt_dir)
+        # The reference resumes the newest artifact of a mixed directory:
+        # an orbax step newer than the npz is a multi-process mesh's.
+        if step is not None and not (
+                npz_latest.exists()
+                and npz_latest.stat().st_mtime > (ckpt_dir / f"step_{step}").stat().st_mtime):
+            raise NotImplementedError(
+                f"{ckpt_dir}/step_{step} is an orbax checkpoint of a multi-process "
+                "mesh: restoring it belongs to the multi-process mesh, a later slice "
+                "of the port (it resumes the npz checkpoints, mesh_latest.npz)")
+        resume_path = str(npz_latest)
+    saved, meta = load_state_dict(resume_path)
+    if set(saved) != set(state):
+        raise ValueError(
+            f"checkpoint keys {sorted(saved)} do not match trainer state "
+            f"{sorted(state)} — wrong --opt or model?")
+    for key, arr in saved.items():
+        if tuple(arr.shape) != tuple(state[key].shape):
+            raise ValueError(
+                f"checkpoint {key} shape {tuple(arr.shape)} != trainer "
+                f"{tuple(state[key].shape)} (different mesh/model?)")
+    if meta.get("opt", cfg.opt) != cfg.opt:
+        raise ValueError(f"checkpoint was trained with --opt {meta['opt']}, not {cfg.opt}")
+    if "seed" in meta and int(meta["seed"]) != int(cfg.seed):
+        raise ValueError(
+            f"checkpoint was trained with --seed {meta['seed']}, resuming with "
+            f"--seed {cfg.seed} would silently diverge the data order — pass the "
+            "original seed")
+    for key, arr in saved.items():
+        state[key].copy_(torch.as_tensor(arr))
+    start_epoch = int(meta.get("epoch", -1)) + 1
+    prev_elapsed = float(meta.get("elapsed", 0.0))
+    log.info("resumed from %s at epoch %d (%.1fs of prior training)",
+             resume_path, start_epoch, prev_elapsed)
+    return start_epoch, prev_elapsed
+
+
 def run(cfg: Config) -> dict:
     if cfg.device_loop and (cfg.ckpt_dir or cfg.resume or cfg.profile_dir):
         raise ValueError(
@@ -238,6 +304,8 @@ def run(cfg: Config) -> dict:
             "no host epoch boundaries for checkpointing, resume, or per-epoch "
             "profiling; use the host loop for ckpt_dir/resume/profile_dir")
     _refuse_later_slices(cfg)
+    if cfg.resume == "auto" and not cfg.ckpt_dir:
+        raise ValueError("--resume auto requires --ckpt_dir")
     device = resolve_device(cfg.device)
     if cfg.measure_throughput and device.type != "cuda":
         raise ValueError("measure_throughput times the card (CUDA events); "
@@ -258,33 +326,49 @@ def run(cfg: Config) -> dict:
         lr=cfg.lr, mom=cfg.mom, mommax=cfg.mommax, momdecay=cfg.momdecay,
         l2wd=cfg.l2wd,
     )
-    mva = cfg.mva or 0.9 / max(n_dp, 1)
-    trainer = MeshEASGD(mesh, value_and_grad_nll(flat), msgd, mva=mva, su=cfg.su)
+    n = len(x_train)
+    if cfg.opt == "easgd":
+        mva = cfg.mva or 0.9 / max(n_dp, 1)
+        trainer = MeshEASGD(mesh, value_and_grad_nll(flat), msgd, mva=mva, su=cfg.su)
+        # Per-worker disjoint streams (goot.lua:129-146).
+        lead, per_step = (n_dp, cfg.batch), n_dp * cfg.batch
+    else:
+        trainer = SyncDataParallel(mesh, value_and_grad_nll_eager(flat), msgd)
+        trainer.check_batch(cfg.batch)
+        lead, per_step = (cfg.batch,), cfg.batch
     state = trainer.init(flat.w0)
 
-    def test_err() -> float:
-        return float(error_rate(flat, trainer.center_params(state), x_test_d, y_test_d))
+    start_epoch, prev_elapsed = 0, 0.0
+    if cfg.resume:
+        start_epoch, prev_elapsed = _resume(cfg, trainer, state, log)
 
-    n = len(x_train)
-    per_step = n_dp * cfg.batch  # per-worker disjoint streams (goot.lua:129-146)
+    def test_err() -> float:
+        return float(error_rate(flat, trainer.eval_params(state), x_test_d, y_test_d))
+
     if n < per_step:
         raise ValueError(
             f"dataset has {n} samples but one global step needs {per_step} "
-            "(dp x batch); lower --batch or --dp"
+            f"({'dp x batch' if cfg.opt == 'easgd' else 'batch'}); lower --batch "
+            "or --dp"
         )
     steps_per_epoch = n // per_step
+    # The EASGD sync schedule on a resume, as the reference's: its staged
+    # epochs (device_stream, a scan) read the schedule from the restored
+    # step counter and continue it; its per-batch host loop counts from
+    # this process's first step and restarts it.
+    if cfg.device_stream:
+        trainer.set_steps(start_epoch * steps_per_epoch)
 
-    def to_device(idx, lead):
+    def to_device(idx, steps=()):
         x = torch.from_numpy(np.ascontiguousarray(
-            x_train[idx].reshape(*lead, cfg.batch, -1), np.float32))
-        y = torch.from_numpy(y_train[idx].reshape(*lead, cfg.batch).astype(np.int64))
+            x_train[idx].reshape(*steps, *lead, -1), np.float32))
+        y = torch.from_numpy(y_train[idx].reshape(*steps, *lead).astype(np.int64))
         return x.to(device), y.to(device)
 
     def stage_epoch(idx, nsteps=None):
-        """One device placement of a shuffled epoch, ``(nsteps, n_dp,
-        batch, ...)``."""
-        nsteps = steps_per_epoch if nsteps is None else nsteps
-        return to_device(idx, (nsteps, n_dp))
+        """One device placement of a shuffled epoch, ``(nsteps, *lead,
+        ...)``."""
+        return to_device(idx, (steps_per_epoch if nsteps is None else nsteps,))
 
     rng = np.random.default_rng(cfg.seed)
     history: List[dict] = []
@@ -299,7 +383,7 @@ def run(cfg: Config) -> dict:
          loop_info) = _device_loop_train(
             cfg=cfg, trainer=trainer, state=state, flat=flat, rng=rng,
             x_train=x_train, y_train=y_train, x_test_d=x_test_d, y_test_d=y_test_d,
-            steps_per_epoch=steps_per_epoch, per_step=per_step, n_dp=n_dp,
+            steps_per_epoch=steps_per_epoch, per_step=per_step, lead=lead,
             device=device, log=log)
         epoch_train_s = [wall]
     elif cfg.precompile:
@@ -310,7 +394,7 @@ def run(cfg: Config) -> dict:
             x_w, y_w = stage_epoch(np.arange(per_step), nsteps=1)
             warm = (x_w[0], y_w[0])
         else:
-            warm = to_device(np.arange(per_step), (n_dp,))
+            warm = to_device(np.arange(per_step))
         trainer.precompile(state, *warm)
         test_err()
         compile_s = time.perf_counter() - t_c
@@ -323,13 +407,17 @@ def run(cfg: Config) -> dict:
         losses = []
         for step in range(steps_per_epoch):
             idx = order[step * per_step:(step + 1) * per_step]
-            losses.append(trainer.step(state, *to_device(idx, (n_dp,)))[1])
+            losses.append(trainer.step(state, *to_device(idx))[1])
         return torch.stack(losses)
 
     if not cfg.device_loop:
         t0 = time.perf_counter()  # the device loop sets its own
+    # Resume: burn the skipped epochs' permutations, so the data order
+    # continues where the checkpointed run left it.
+    for _ in range(start_epoch):
+        rng.permutation(n)
     with profiler_trace(cfg.profile_dir):
-        for epoch in range(0 if cfg.device_loop else cfg.epochs):
+        for epoch in range(start_epoch, 0 if cfg.device_loop else cfg.epochs):
             order = rng.permutation(n)
             t_ep = time.perf_counter()
             with trace_annotation(f"epoch {epoch}"):
@@ -337,7 +425,9 @@ def run(cfg: Config) -> dict:
             epoch_train_s.append(time.perf_counter() - t_ep)
             samples_trained += steps_per_epoch * per_step
             err = test_err()
-            at = time.perf_counter() - t0
+            # Cumulative across resumes (the reference's prevtime
+            # convention), so time_to_target counts from the first start.
+            at = time.perf_counter() - t0 + prev_elapsed
             if time_to_target is None and err <= cfg.target_test_err:
                 time_to_target = at
             history.append({
@@ -346,6 +436,12 @@ def run(cfg: Config) -> dict:
             })
             log.info("epoch %d avg_loss %.5f test_err %.4f (%.1fs)",
                      epoch, avg_loss, err, at)
+            if cfg.ckpt_dir and (epoch + 1) % max(int(cfg.ckpt_every), 1) == 0:
+                path = save_state_dict(
+                    cfg.ckpt_dir, state,
+                    meta={"epoch": epoch, "opt": cfg.opt, "test_err": err,
+                          "seed": cfg.seed, "elapsed": round(at, 3)})
+                log.info("checkpoint: %s", path)
             if cfg.stop_at_target and time_to_target is not None:
                 break
     train_time = sum(epoch_train_s)
@@ -380,7 +476,7 @@ def run(cfg: Config) -> dict:
         "history": history,
         "final_test_err": history[-1]["test_err"] if history else None,
         "time_to_target": time_to_target,
-        "elapsed": time.perf_counter() - t0,
+        "elapsed": time.perf_counter() - t0 + prev_elapsed,
         "train_time": round(train_time, 3),
         "samples_trained": samples_trained,
         "samples_per_sec": round(sps, 1) if sps else None,
@@ -392,14 +488,17 @@ def run(cfg: Config) -> dict:
         "data_source": source,
         "mesh": {"dp": n_dp, "shard": 1},
         "processes": 1,
-        "device": str(state["center"].device),
+        "device": str(state["w"].device),
         "device_name": device_name(device),
-        # Training steps, the throughput leg's passes included (precompile's
-        # warm-up steps run on copies and are not counted).
+        # Training steps, counted from the first start across resumes, the
+        # throughput leg's passes included (precompile's warm-up steps run
+        # on copies and are not counted).
         "steps": trainer.steps,
         # device_loop: the captured graphs (phase, steps, replays) and the
         # warm-up's steps on copies; None for the host loop.
         "device_loop": loop_info,
+        # The final trainer state (main leaves it out of its JSON).
+        "state": state,
     }
 
 
@@ -408,7 +507,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         list(sys.argv[1:] if argv is None else argv)
     )
     result = run(cfg)
-    print(json.dumps(result, indent=2))
+    print(json.dumps({k: v for k, v in result.items() if k != "state"}, indent=2))
     return result
 
 

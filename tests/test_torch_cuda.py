@@ -659,3 +659,63 @@ def test_bf16_kernels_refuse_unaligned_operands(dev, which):
         with pytest.raises(ValueError, match="16-byte"):
             flash_fwd(ops["q"], ops["k"], ops["v"])
     assert [f.launches for f in kernels] == before
+
+
+# -- slice 4: BiCNN on the card ----------------------------------------------
+
+BICNN_SHARD = 1_365_250 // 2  # a server's shard of the docqa model at np=4
+
+
+@pytest.mark.parametrize("n", [BICNN_SHARD, BICNN_SHARD + 1])
+def test_k3_bit_equal_at_a_bicnn_server_shard(dev, n):
+    """K3 as BiCNN's server-side Adam runs it (step_div 72), against its
+    twin: the rule's lr_t, then the kernel on the shard, bit for bit."""
+    from mpit_tpu_torch.optim import rules
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p, g, m, v = (torch.randn(n, device=dev, generator=gen) for _ in range(4))
+    v.abs_()
+    rule = rules.make("adam", lr=1e-3, step_div=72)
+    state = {"t": torch.full((), 100, dtype=torch.int32, device=dev), "m": m.clone(),
+             "v": v.clone()}
+    exponent = (torch.tensor(101, device=dev) // 72 + 1).float()
+    lr_t = 1e-3 * torch.sqrt(1.0 - torch.pow(0.999, exponent)) / (1.0 - torch.pow(0.9, exponent))
+    want = fused_adam_reference(p, g, m, v, lr_t)
+    before = fused_adam.launches
+    got, state = rule.apply(p.clone(), g, state)
+    torch.cuda.synchronize()
+    assert fused_adam.launches == before + 1
+    for a, b in zip((got, state["m"], state["v"]), want):
+        assert torch.equal(a, b)
+
+
+def test_bicnn_sgd_steps_on_the_card_match_the_cpu(dev, tmp_path):
+    """Three ``sgd`` steps (momentum 0.9: K1 once a step) of a small BiCNN
+    on the card against the CPU from one w0 and the same negatives: the
+    gradients differ by summation order only, far below a step's change."""
+    import numpy as np
+
+    from mpit_tpu_torch.data import qa
+    from mpit_tpu_torch.train.bicnn import BICNN_DEFAULTS, BiCNNTrainer
+
+    paths = qa.synthetic_qa(tmp_path, n_labels=10, n_train=96, n_eval=16,
+                            embedding_dim=16, vocab_words=60, seed=11)
+    data = qa.load_qa_files(embedding_dim=16, conv_width=3, **paths)
+    cfg = BICNN_DEFAULTS.merged(optimization="sgd", momentum=0.9, learning_rate=0.05,
+                                num_filters=300, word_hidden_dim=64, cont_conv_width=3,
+                                maxnegsample=20, batch_size=8, eval_chunk=16)
+    finals = {}
+    for device in ("cuda", "cpu"):
+        tr = BiCNNTrainer(cfg.merged(device=device), data=data)
+        w0 = tr.w.cpu().clone()
+        before = fused_nesterov_commit.launches
+        for s in range(3):
+            tr.step(np.arange(8 * s, 8 * s + 8))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert fused_nesterov_commit.launches == before + 3
+            assert tr.w.device.type == "cuda"
+        finals[device] = tr.w.cpu()
+    gap = (finals["cuda"] - finals["cpu"]).abs().max()
+    change = (finals["cpu"] - w0).abs().max()
+    assert float(change) > 1e-3 and float(gap) <= 1e-5

@@ -38,7 +38,8 @@ FORBIDDEN = {"jax", "flax", "mpit_tpu"}
 
 
 def _port_sources():
-    return sorted((ROOT / "mpit_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "mpit_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("torch_*.py")))
 
 
 def _imported_roots(path):
@@ -65,6 +66,9 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_entry_points_load_without_jax():
     code = ("import sys; import mpit_tpu_torch.train.mesh_launch, "
             "mpit_tpu_torch.train.launch, mpit_tpu_torch.train.lm_launch, "
+            "mpit_tpu_torch.train.bicnn_launch, mpit_tpu_torch.train.bicnn, "
+            "mpit_tpu_torch.parallel.sync_dp, mpit_tpu_torch.data.qa, "
+            "mpit_tpu_torch.models.bicnn, mpit_tpu_torch.utils.serialize, "
             "mpit_tpu_torch.ops.flash_attention, mpit_tpu_torch.ops.build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
@@ -174,13 +178,25 @@ def test_timing_refuses_cpu_state():
 
 
 @pytest.mark.parametrize("flags", [
-    dict(opt="syncdp"), dict(ckpt_dir="x"),
-    dict(resume="auto"), dict(hostfile="h"), dict(coordinator="c:1"),
-    dict(num_processes=2), dict(process_id=0),
+    (dict(opt="adamw"), ValueError, "easgd|syncdp"),
+    (dict(ckpt_dir="{tmp}", resume="auto"), NotImplementedError, "multi-process"),
+    (dict(resume="auto"), ValueError, "requires --ckpt_dir"),
+    (dict(hostfile="h"), NotImplementedError, "multi-host"),
+    (dict(coordinator="c:1"), NotImplementedError, "multi-host"),
+    (dict(num_processes=2), NotImplementedError, "multi-host"),
+    (dict(process_id=0), NotImplementedError, "multi-host"),
 ])
-def test_mesh_launch_refuses_later_slices(flags):
-    with pytest.raises(NotImplementedError):
-        mesh_launch.run(mesh_launch.MESH_LAUNCH_DEFAULTS.merged(flags, device="cpu"))
+def test_mesh_launch_refuses_later_slices(flags, tmp_path):
+    """What still refuses: an unknown optimizer, an orbax ``step_*``
+    checkpoint (the multi-process mesh's), ``--resume auto`` without
+    ``--ckpt_dir``, and the multi-host flags."""
+    flags, exc, match = flags
+    (tmp_path / "step_2").mkdir()
+    flags = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
+             for k, v in flags.items()}
+    with pytest.raises(exc, match=match):
+        mesh_launch.run(mesh_launch.MESH_LAUNCH_DEFAULTS.merged(
+            flags, device="cpu", model="linear", side=8, epochs=1))
 
 
 @pytest.mark.parametrize("refused", [

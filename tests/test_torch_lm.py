@@ -183,11 +183,19 @@ def test_cli_runs_on_the_cpu(capsys):
     (dict(dp=2), "multi-card"), (dict(sp=2), "ring attention"),
     (dict(hostfile="h"), "multi-host"), (dict(coordinator="c:1"), "multi-host"),
     (dict(num_processes=2), "multi-host"), (dict(process_id=0), "multi-host"),
-    (dict(ckpt_dir="x"), "checkpointing"), (dict(resume="auto"), "checkpointing"),
+    (dict(ckpt_dir="{tmp}", resume="auto"), (FileNotFoundError, "lm_latest")),
+    (dict(resume="auto"), (ValueError, "requires --ckpt_dir")),
 ])
-def test_refuses_later_slices(flags, owner):
-    with pytest.raises(NotImplementedError, match=owner):
-        tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(flags, device="cpu"))
+def test_refuses_later_slices(flags, owner, tmp_path):
+    """The later slices raise NotImplementedError naming themselves; a
+    resume with nothing to resume raises (an empty ``--ckpt_dir``, or no
+    ``--ckpt_dir`` for ``auto``)."""
+    exc, owner = owner if isinstance(owner, tuple) else (NotImplementedError, owner)
+    flags = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
+             for k, v in flags.items()}
+    with pytest.raises(exc, match=owner):
+        tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(flags, device="cpu", seq_len=64,
+                                              d_model=16, n_heads=2, n_layers=1))
 
 
 def test_default_device_is_the_card():
