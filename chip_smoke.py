@@ -57,6 +57,31 @@ order; any failure raises and the script exits non-zero:
    server-side Adam np=4 (K3 in the servers = 2 x the workers' steps; the
    servers' per-GRAD apply timed at their 682,625-float shard, K3 held
    bit-equal there) and adamsingle np=4 (K3 = the workers' steps);
+6c. fault tolerance (slice 5a), right after the process gangs: two
+   supervised process gangs (``launch --np 4 --opt adam --transport tcp
+   --ft_heartbeat_s 0.25 --ft_lease_ttl_s 20 --ft_op_deadline_s 5
+   --supervise 2 --server_ckpt_dir d --server_ckpt_interval 2`` at the
+   flagship widths, every child on the card) run side by side in the
+   background, the supervisor SIGKILLing worker rank 3 in one and server
+   rank 2 in the other once they have taken steps (the kill lands 2 s
+   after the victim's server wrote its first checkpoint, and the epochs
+   are sized from the process gangs' epoch); each must restart its victim once
+   (the worker as epoch 1, the server from its checkpoint with Adam's m
+   and v), keep both workers inside the fault-free Adam gang's test
+   error, have every server process's K3 equal its own applies, and pass
+   the exactly-once accounting (``ft.supervisor.grad_accounting``); the
+   kill-to-rejoin time is printed.  Meanwhile this process runs
+   ``ft_retry_dedup`` (two workers computing the flagship gradient on the
+   card in lockstep against two Adam servers at 272,261 a shard, 8 rounds
+   fault-free and under the reference's drop/dup matrix: bit for bit,
+   with resends and dups, K3 = the applies and the same in both runs;
+   then int8 EAMSGD workers (K1) under dropped replies, bit for bit),
+   ``ft_server_restart`` (an Adam server at 272,261 applies a GRAD,
+   checkpoints; a GRAD sent into the void is resent to a server restored
+   onto the card: 2 applies, the resent one a DUP, the restored p, m, v
+   bit-equal in storage of their own; save and restore times printed) and
+   ``ft_lease_eviction`` (a silent worker evicted within 1.5x a 1 s lease,
+   rejoining as epoch 1);
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
@@ -1217,9 +1242,14 @@ def process_gang_paths(torch, paths, inproc, smi):
             paths[key][name] = {"launches": launches[key],
                                 "steps": worker_steps(res), **extra}
 
+    timing = {}
     for name, size in (("ps_downpour_np4", 4), ("ps_eamsgd_np12", 12)):
         pname = f"{name}_procs"
         res, launches, reading = run_procs_path(pname, size, **PS_CONFIGS[name])
+        if name == "ps_downpour_np4":
+            # A worker process's steady epoch (its last, from its history).
+            timing["epoch_s"] = max(r["history"][-1]["at"] - r["history"][-2]["at"]
+                                    for r in res.values() if r["role"] == "worker")
         expect_launches(pname, launches,
                         {"k1": worker_steps(res)} if "eamsgd" in name else {})
         record(pname, res, launches)
@@ -1258,6 +1288,12 @@ def process_gang_paths(torch, paths, inproc, smi):
                              "steps on 2 servers")
     expect_launches(name, launches, {"k3": applied})
     record(name, res, launches, server_applies=applied)
+    # The children's start-up beside two other gangs (the gang's wall less
+    # its workers' own clocks), and the fault-free test errors: what the
+    # supervised gangs of ``ft_chaos_procs`` are sized and held by.
+    timing["startup_s"] = adam[2]["wall_s"] - max(
+        r["elapsed"] for r in res.values() if r["role"] == "worker")
+    timing["adam_test_err"] = adam[2]["test_err"]
 
     name = "ps_downpour_np5_tester_procs"
     res, launches, _ = tester
@@ -1296,6 +1332,565 @@ def process_gang_paths(torch, paths, inproc, smi):
         raise AssertionError(f"ptest_shm: rows {rows}")
     print(f"ptest_shm: {time.perf_counter() - t_ptest:.1f}s; process gang phases: "
           f"{time.perf_counter() - t0:.1f}s")
+    print("process gang timing: " + json.dumps(timing))
+    return timing
+
+
+# -- fault tolerance (slice 5a) ----------------------------------------------------
+
+FT_ROUNDS = 8
+#: short deadlines and a fast backoff, so a dropped message costs ~0.2 s
+FT_FAST = dict(op_deadline_s=0.2, max_retries=12, backoff_base_s=0.005,
+               backoff_cap_s=0.02)
+FT_DATA_TAGS = frozenset({2, 4, 6})  # GRAD, PARAM_REQ, PARAM_PUSH
+FT_REPLY_TAGS = frozenset({3, 5, 7})  # their acks and the PARAM replies
+#: the reference's matrix (tests/test_ft.py): every 3rd client data
+#: message dropped and every 4th duplicated, every 3rd server reply dropped
+FT_CLIENT_PLAN = dict(drop_every=3, dup_every=4, tags=FT_DATA_TAGS)
+FT_SERVER_PLAN = dict(seed=9, drop_every=3, tags=FT_REPLY_TAGS)
+FT_LEASE_TTL_S = 1.0
+
+
+def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2):
+    """2 servers (ranks 0, 1) on the card and ``nclients`` clients over one
+    in-process router, each endpoint behind its side's fault plan where
+    one is given (client ``i`` seeded ``i``); the servers run on threads.
+    Returns (servers, clients, threads)."""
+    import threading
+
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FaultPlan, FaultyTransport, FTConfig
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+
+    router = LocalRouter(2 + nclients)
+    cranks = list(range(2, 2 + nclients))
+    servers = []
+    for r in (0, 1):
+        ep = router.endpoint(r)
+        if server_plan:
+            ep = FaultyTransport(ep, FaultPlan(**server_plan))
+        servers.append(ParamServer(r, cranks, ep, rule=rule, device=GANG_BASE["device"],
+                                   ft=FTConfig(rejoin=True)))
+    threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    clients = []
+    for i, r in enumerate(cranks):
+        ep = router.endpoint(r)
+        if client_plan:
+            ep = FaultyTransport(ep, FaultPlan(seed=i, **client_plan))
+        clients.append(ParamClient(r, [0, 1], ep, seed_servers=(i == 0), codec=codec,
+                                   ft=FTConfig(**FT_FAST)))
+    return servers, clients, threads
+
+
+def ft_start(clients, starts):
+    """Each client's ``start`` (or the callable in ``starts``) on a thread:
+    the seeding client's push waits for every INIT."""
+    import threading
+
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(fn,), daemon=True) for fn in starts]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"ft: client start failed or hung: {errors}")
+
+
+def ft_close(name, servers, clients, threads, kernels):
+    """Stop the clients, join the servers; returns the gang's counts.  The
+    servers' K3 launches must equal their applies, and every admitted seq
+    must have been applied exactly once."""
+    for c in clients:
+        c.stop()
+    for t in threads:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError(f"{name}: a server did not stop")
+    stats = {"grads_applied": sum(s.grads_applied for s in servers),
+             "dup_ops": sum(s.dup_ops for s in servers),
+             "stale_drops": sum(s.stale_drops for s in servers),
+             "retries": sum(c.retries for c in clients),
+             "launches": read_counts(kernels)}
+    for s in servers:
+        if s.param.device.type != GANG_BASE["device"]:
+            raise AssertionError(f"{name}: a shard is on {s.param.device}")
+        for (crank, epoch), (lo, hi, n) in s.admitted.items():
+            if n != hi - lo + 1:
+                raise AssertionError(f"{name}: server {s.rank} applied {n} GRADs "
+                                     f"of seqs {lo}..{hi} from {crank}:{epoch}")
+    return stats
+
+
+def ft_lockstep_adam(torch, kernels, data, faulty):
+    """Two workers compute the flagship CNN's gradient on the card at the
+    params they pull, in lockstep turns (each pulls, computes, pushes and
+    has its GRAD acked before the other moves: the order
+    ``tests/test_ft.py``'s ``run_lockstep`` pins), against two servers
+    applying Adam by K3 to their 272,261-float shards.  Returns the final
+    params, the counts and the seconds a round took."""
+    import numpy as np
+
+    from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll_eager
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.optim import rules
+
+    name = f"ft_adam_{'faulty' if faulty else 'clean'}"
+    flat = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1,
+                          GANG_BASE["device"])
+    vgf = value_and_grad_nll_eager(flat)
+    x, y = data
+    batch = GANG_BASE["batch"]
+    servers, clients, threads = ft_gang(
+        rules.make("adam", lr=1e-3), None, server_plan=faulty and FT_SERVER_PLAN,
+        client_plan=faulty and FT_CLIENT_PLAN)
+    params = [flat.w0.cpu().numpy().copy(), np.zeros(flat.size, np.float32)]
+    grads = [np.zeros(flat.size, np.float32) for _ in clients]
+    vgf(flat.w0, x[:batch], y[:batch])  # first-call costs out of the rounds
+    ft_start(clients, [lambda c=c, i=i: c.start(params[i], grads[i])
+                       for i, c in enumerate(clients)])
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    for rnd in range(FT_ROUNDS):
+        for i, c in enumerate(clients):
+            c.async_recv_param()
+            c.wait()
+            lo = ((rnd * len(clients) + i) * batch) % (len(x) - batch)
+            _loss, g = vgf(torch.from_numpy(params[i]).to(GANG_BASE["device"]), x[lo:lo + batch],
+                           y[lo:lo + batch])
+            grads[i][:] = g.cpu().numpy()
+            c.async_send_grad()
+            c.wait()
+    round_s = (time.perf_counter() - t0) / FT_ROUNDS
+    clients[0].async_recv_param()
+    clients[0].wait()
+    final = params[0].copy()
+    stats = ft_close(name, servers, clients, threads, kernels)
+    expect_launches(name, stats["launches"], {"k3": stats["grads_applied"]})
+    if stats["grads_applied"] != 2 * len(clients) * FT_ROUNDS:
+        raise AssertionError(f"{name}: {stats['grads_applied']} applies")
+    return final, stats, round_s
+
+
+def ft_lockstep_eamsgd_int8(torch, kernels, data, faulty):
+    """The int8 codec under resends: two EAMSGD workers (each step pulls
+    the center, pushes its elastic difference and commits by K1) in
+    lockstep, against two plain-add servers whose replies drop every
+    2nd time.  The error-feedback residual telescopes exactly only if
+    every resent frame is the one encoded, and applied once."""
+    import numpy as np
+
+    from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll_eager
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.optim.easgd import EAMSGD
+
+    name = f"ft_eamsgd_int8_{'faulty' if faulty else 'clean'}"
+    module = make_model(GANG_BASE["model"], GANG_BASE["side"])
+    flats = [flatten_module(module, 1 + i, GANG_BASE["device"]) for i in range(2)]
+    x, y = data
+    batch = GANG_BASE["batch"]
+    # Only the server's replies are faulty here, as in the reference's test.
+    servers, clients, threads = ft_gang(
+        "add", "int8", server_plan=faulty and dict(seed=5, drop_every=2,
+                                                   tags=FT_REPLY_TAGS))
+    opts = [EAMSGD(value_and_grad_nll_eager(flats[i]), c, lr=0.01, mom=0.9, mva=0.15,
+                   su=1) for i, c in enumerate(clients)]
+    ws = [f.w0.clone() for f in flats]
+    ft_start(clients, [lambda o=o, i=i: ws.__setitem__(i, o.start(ws[i]))
+                       for i, o in enumerate(opts)])
+    zero_counts(kernels)
+    for rnd in range(FT_ROUNDS):
+        for i, opt in enumerate(opts):
+            lo = ((rnd * 2 + i) * batch) % (len(x) - batch)
+            ws[i], _loss = opt.step(ws[i], x[lo:lo + batch], y[lo:lo + batch])
+            opt.pc.wait()  # the elastic push acked before the other moves
+    clients[0].async_recv_param()
+    clients[0].wait()
+    final = opts[0].center_host.copy()
+    for opt in opts:
+        opt.pc.wait()
+    stats = ft_close(name, servers, clients, threads, kernels)
+    expect_launches(name, stats["launches"], {"k1": 2 * FT_ROUNDS})
+    return final, stats, torch.cat(ws).cpu().numpy()
+
+
+def ft_retry_dedup(torch, kernels, all_paths, smi):
+    """The retry/dedup matrix on the card: fault-free, then under the
+    reference's drop/dup plans, bit for bit, with K3's launches equal to
+    the applies and the same in both runs; then the int8 codec with
+    EAMSGD workers (K1) under dropped replies, bit for bit."""
+    import numpy as np
+
+    from mpit_tpu_torch.data.mnist import load_mnist
+
+    raw, _ = load_mnist(side=GANG_BASE["side"])
+    data = (torch.as_tensor(raw[0], device=GANG_BASE["device"]),
+            torch.as_tensor(np.asarray(raw[1]), dtype=torch.int64, device=GANG_BASE["device"]))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        clean, clean_stats, clean_s = ft_lockstep_adam(torch, kernels, data, False)
+        faulty, stats, faulty_s = ft_lockstep_adam(torch, kernels, data, True)
+        i8_clean, i8_clean_stats, i8_w = ft_lockstep_eamsgd_int8(torch, kernels, data,
+                                                                 False)
+        i8_faulty, i8_stats, i8_w_faulty = ft_lockstep_eamsgd_int8(torch, kernels,
+                                                                   data, True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    reading = {"round_s_clean": clean_s, "round_s_faulty": faulty_s,
+               "clean": clean_stats, "faulty": stats,
+               "int8_clean": i8_clean_stats, "int8_faulty": i8_stats}
+    print("ft_retry_dedup: " + json.dumps(reading))
+    print(f"ft_retry_dedup on {smi}: a lockstep round (2 workers, 2 Adam servers at "
+          f"272,261) {clean_s * 1e3:.1f} ms fault-free, {faulty_s * 1e3:.1f} ms under "
+          f"the drop/dup matrix; retries {stats['retries']}, dups {stats['dup_ops']}")
+    if clean.tobytes() != faulty.tobytes():
+        raise AssertionError("ft_retry_dedup: faulty params differ from the fault-free "
+                             f"run's (max gap {np.abs(clean - faulty).max()})")
+    if not (stats["retries"] > 0 and stats["dup_ops"] > 0):
+        raise AssertionError(f"ft_retry_dedup: the plans never bit: {stats}")
+    if clean_stats["launches"] != stats["launches"]:
+        raise AssertionError(f"ft_retry_dedup: K launches {clean_stats['launches']} "
+                             f"fault-free, {stats['launches']} under faults")
+    if i8_clean.tobytes() != i8_faulty.tobytes() or i8_w.tobytes() != i8_w_faulty.tobytes():
+        raise AssertionError("ft_retry_dedup: int8 EAMSGD under resends differs from "
+                             "its fault-free run")
+    if not (i8_stats["retries"] > 0 and i8_stats["dup_ops"] > 0):
+        raise AssertionError(f"ft_retry_dedup: int8 replies never dropped: {i8_stats}")
+    steps = 2 * FT_ROUNDS
+    record_path(all_paths, "ft_adam_clean", clean_stats["launches"], steps)
+    record_path(all_paths, "ft_adam_faulty", stats["launches"], steps)
+    record_path(all_paths, "ft_eamsgd_int8_faulty", i8_stats["launches"], steps)
+
+
+def ft_server_restart(torch, kernels, all_paths, smi, tmp):
+    """An Adam server at 272,261 floats applies one GRAD on the card, stops
+    and checkpoints; the client sends a GRAD and a PARAM_REQ into the
+    void; a new server restores onto the card and serves them: 2 applies,
+    the restored p, m and v bit-equal to the saved ones in device storage
+    of their own, and the read equal to Adam applied once more to them."""
+    import threading
+
+    import numpy as np
+
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+    from mpit_tpu_torch.utils import checkpoint as ckpt
+
+    n = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1).size // 2
+    rule = rules.make("adam", lr=1e-3)
+    rng = np.random.default_rng(8)
+    w0 = rng.normal(size=n).astype(np.float32)
+    g1, g2 = (rng.normal(size=n).astype(np.float32) for _ in range(2))
+    router = LocalRouter(2)
+    s1 = ParamServer(0, [1], router.endpoint(0), rule=rule, device=GANG_BASE["device"])
+    t1 = threading.Thread(target=s1.start, daemon=True)
+    t1.start()
+    client = ParamClient(1, [0], router.endpoint(1), seed_servers=True,
+                         ft=FTConfig(op_deadline_s=0.2, max_retries=40,
+                                     backoff_base_s=0.01, backoff_cap_s=0.05))
+    param, grad = w0.copy(), g1.copy()
+    client.start(param, grad)
+    zero_counts(kernels)
+    client.async_send_grad()
+    client.wait()
+    s1.live.stop()
+    t1.join(30)
+    saved = {"param": s1.param.clone(), **{k: v.clone() for k, v in s1.rule_state.items()}}
+    t_kill = time.perf_counter()
+    t0 = time.perf_counter()
+    s1.save_state(tmp)
+    save_s = time.perf_counter() - t0
+    grad[:] = g2
+    client.async_send_grad()  # into the void, retried until served
+    client.async_recv_param()
+    t0 = time.monotonic()
+    while client.retries == 0 and time.monotonic() < t0 + 10:
+        client.ping()  # the GRAD goes out, times out and is sent again
+        time.sleep(0.01)
+    loaded = {}
+
+    def load(path):
+        out = real_load(path)
+        loaded["arrays"] = [out[2], *out[3].values()]
+        return out
+
+    real_load = ckpt.load_server_state
+    ckpt.load_server_state = load
+    try:
+        s2 = ParamServer(0, [1], router.endpoint(0), rule=rule, device=GANG_BASE["device"],
+                         ft=FTConfig(rejoin=True))
+        t0 = time.perf_counter()
+        s2.restore_state(os.path.join(tmp, "server0_latest.npz"))
+        if s2.param.is_cuda:
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        ckpt.load_server_state = real_load
+    restored = {"param": s2.param, **s2.rule_state}
+    for key, t in restored.items():
+        if t.device.type != GANG_BASE["device"] or not torch.equal(t, saved[key]):
+            raise AssertionError(f"ft_server_restart: restored {key} differs from the "
+                                 "saved one or is off the card")
+    spans = [(a.ctypes.data, a.ctypes.data + a.nbytes) for a in loaded["arrays"]]
+    ptrs = [t.untyped_storage().data_ptr() for t in restored.values()]
+    if len(set(ptrs)) != len(ptrs) or any(lo <= p < hi for p in ptrs for lo, hi in spans):
+        raise AssertionError("ft_server_restart: restored tensors share storage")
+    t2 = threading.Thread(target=s2.start, daemon=True)
+    t2.start()
+    client.wait()
+    back_s = time.perf_counter() - t_kill
+    client.stop()
+    t2.join(30)
+    launches = read_counts(kernels)
+    # What the read must see: Adam applied once more to the saved state
+    # (this K3 launch compares; the path's launches were read before it).
+    want_p = saved["param"].clone()
+    rule.apply(want_p, torch.from_numpy(g2).to(want_p.device),
+               {k: v.clone() for k, v in saved.items() if k != "param"})
+    if s2.grads_applied != 2 or s2.restored_applied != 1 or s2.dup_ops < 1:
+        raise AssertionError(f"ft_server_restart: {s2.grads_applied} applies "
+                             f"({s2.restored_applied} restored, {s2.dup_ops} dups), "
+                             "expected 2 (1, the resent GRAD a DUP)")
+    if param.tobytes() != want_p.cpu().numpy().tobytes():
+        raise AssertionError("ft_server_restart: the read is not the restored state "
+                             "plus one Adam step")
+    expect_launches("ft_server_restart", launches, {"k3": 2})
+    reading = {"save_s": save_s, "restore_s": restore_s, "stop_to_served_s": back_s,
+               "retries": client.retries, "dups": s2.dup_ops, "floats": n}
+    print("ft_server_restart: " + json.dumps(reading))
+    print(f"ft_server_restart on {smi}: save_state at {n:,} floats (p, m, v) "
+          f"{save_s * 1e3:.1f} ms, restore_state onto the card {restore_s * 1e3:.1f} ms")
+    record_path(all_paths, "ft_server_restart", launches, 1)
+
+
+def ft_lease_eviction(torch, kernels, all_paths, smi):
+    """Two workers heartbeat to an Adam server on the card holding the whole
+    flagship vector; one goes silent.  It is evicted within 1.5x the lease
+    TTL, the survivor finishes its rounds, and the silent one rejoins as
+    epoch 1 and has its GRADs admitted."""
+    import threading
+
+    import numpy as np
+
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import EVICTED, FaultPlan, FaultyTransport, FTConfig
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+
+    n = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1).size
+    rng = np.random.default_rng(9)
+    router = LocalRouter(3)
+    server = ParamServer(0, [1, 2], router.endpoint(0), rule=rules.make("adam", lr=1e-3),
+                         device=GANG_BASE["device"], ft=FTConfig(lease_ttl_s=FT_LEASE_TTL_S,
+                                                    rejoin=True))
+    st = threading.Thread(target=server.start, daemon=True)
+    st.start()
+    beat = dict(heartbeat_s=0.05, op_deadline_s=1.0, max_retries=8,
+                backoff_base_s=0.005, backoff_cap_s=0.05)
+    silent_ep = FaultyTransport(router.endpoint(2), FaultPlan())
+    c1 = ParamClient(1, [0], router.endpoint(1), seed_servers=True, ft=FTConfig(**beat))
+    c2 = ParamClient(2, [0], silent_ep, ft=FTConfig(**beat))
+    bufs = [(rng.normal(size=n).astype(np.float32), np.zeros(n, np.float32)),
+            (np.zeros(n, np.float32), np.zeros(n, np.float32))]
+    ft_start([c1, c2], [lambda: c1.start(*bufs[0]), lambda: c2.start(*bufs[1])])
+    zero_counts(kernels)
+
+    def step(c, bufs):
+        bufs[1][:] = rng.normal(size=n).astype(np.float32)
+        c.async_send_grad()
+        c.async_recv_param()
+        c.wait()
+
+    for _ in range(3):
+        step(c1, bufs[0])
+        step(c2, bufs[1])
+    deadline = time.monotonic() + 10
+    while server.heartbeats_seen < 4 and time.monotonic() < deadline:
+        c2.ping()
+        time.sleep(0.01)
+    silent_ep.sever(0)
+    t0 = time.monotonic()
+    while server.leases.state(2) != EVICTED and time.monotonic() < t0 + 10:
+        c1.ping()
+        time.sleep(0.005)
+    evict_s = time.monotonic() - t0
+    if server.leases.state(2) != EVICTED or evict_s > 1.5 * FT_LEASE_TTL_S:
+        raise AssertionError(f"ft_lease_eviction: evicted {server.leases.state(2)} "
+                             f"after {evict_s:.3f}s (TTL {FT_LEASE_TTL_S}s)")
+    for _ in range(5):  # the survivor finishes its rounds
+        step(c1, bufs[0])
+    c2b = ParamClient(2, [0], silent_ep.inner, ft=FTConfig(**beat, epoch=1))
+    buf2b = (np.zeros(n, np.float32), np.zeros(n, np.float32))
+    c2b.start(*buf2b)
+    for _ in range(2):
+        step(c2b, buf2b)
+    c1.stop()
+    c2b.stop()
+    st.join(30)
+    launches = read_counts(kernels)
+    admitted = {f"{c}:{e}": v for (c, e), v in server.admitted.items()}
+    if admitted.get("2:1") != [1, 2, 2] or server.rejoins != 1 \
+            or server.evictions != 1:
+        raise AssertionError(f"ft_lease_eviction: admitted {admitted}, rejoins "
+                             f"{server.rejoins}, evictions {server.evictions}")
+    expect_launches("ft_lease_eviction", launches, {"k3": server.grads_applied})
+    reading = {"silence_to_eviction_s": evict_s, "ttl_s": FT_LEASE_TTL_S,
+               "admitted": admitted, "grads_applied": server.grads_applied,
+               "heartbeats_seen": server.heartbeats_seen}
+    print("ft_lease_eviction: " + json.dumps(reading))
+    print(f"ft_lease_eviction on {smi}: silence to eviction {evict_s:.3f} s at a "
+          f"{FT_LEASE_TTL_S} s lease")
+    record_path(all_paths, "ft_lease_eviction", launches, 10)
+
+
+def ft_chaos_gang(name, kill_rank, after_s, epochs, addrs, ckpt_dir):
+    """``launch --np 4 --opt adam --transport tcp --ft_heartbeat_s 0.25
+    --ft_lease_ttl_s 20 --ft_op_deadline_s 5 --supervise 2
+    --server_ckpt_dir d --server_ckpt_interval 2`` at the flagship widths,
+    every child on the card, with the supervisor SIGKILLing
+    ``kill_rank`` ``after_s`` seconds after the first checkpoint of its
+    server (the victim itself, or server 0 for a worker) is on disk: the
+    gang is training by then, however long its start-up took."""
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
+
+    cfg = LAUNCH_DEFAULTS.parse_args([
+        "--np", "4", "--opt", "adam", "--transport", "tcp", "--ft_heartbeat_s", "0.25",
+        "--ft_lease_ttl_s", "20", "--ft_op_deadline_s", "5", "--supervise", "2",
+        "--server_ckpt_dir", ckpt_dir, "--server_ckpt_interval", "2"]).merged(
+        GANG_BASE, lr=1e-3, su=1, epochs=epochs, tcp_addrs=",".join(addrs))
+    marker = os.path.join(ckpt_dir, f"server{kill_rank if kill_rank == 2 else 0}"
+                          "_latest.npz")
+    t0 = time.perf_counter()
+    results = launch_processes(cfg, timeout=900, chaos=dict(
+        chaos_kill_rank=kill_rank, chaos_kill_after_s=after_s,
+        chaos_when=functools.partial(os.path.exists, marker)))
+    return name, results, time.perf_counter() - t0
+
+
+def ft_chaos_check(name, results, kill_rank, fault_free_err):
+    """The supervised gang's checks: roles, one restart of the victim, a
+    replacement worker at epoch 1, both workers inside the fault-free
+    envelope, each server process's K3 equal to its own applies, and the
+    exactly-once accounting.  Returns the reading."""
+    from mpit_tpu_torch.ft.supervisor import grad_accounting
+
+    roles = {r: v["role"] for r, v in results.items()}
+    if roles != {0: "server", 1: "worker", 2: "server", 3: "worker"}:
+        raise AssertionError(f"{name}: roles {roles}")
+    restarts = [results[r]["restarts"] for r in range(4)]
+    if restarts != [int(r == kill_rank) for r in range(4)]:
+        raise AssertionError(f"{name}: restarts {restarts}")
+    off = {r: v["platform"] for r, v in results.items()
+           if v["platform"] != GANG_BASE["device"]}
+    if off:
+        raise AssertionError(f"{name}: ranks off the card: {off}")
+    epochs = {r: results[r]["epoch"] for r in (1, 3)}
+    if epochs != {1: 0, 3: int(kill_rank == 3)}:
+        raise AssertionError(f"{name}: worker epochs {epochs}")
+    errs = [results[r]["final_test_err"] for r in (1, 3)]
+    if max(errs) > max(fault_free_err):
+        raise AssertionError(f"{name}: test errors {errs} outside the fault-free "
+                             f"envelope {fault_free_err}")
+    for r in (0, 2):
+        srv = results[r]
+        here = srv["grads_applied"] - srv["restored_applied"]
+        if srv["launches"]["k3"] != here:
+            raise AssertionError(f"{name}: server {r} launched K3 "
+                                 f"{srv['launches']['k3']} times for {here} applies")
+    books = grad_accounting(results)
+    victim = results[kill_rank]
+    if kill_rank == 3:
+        back_at = min(results[s]["rejoined_at"][0] for s in (0, 2))
+        if set(books[0]["landed"]) != {"3:0"} or books[0]["lost"] or books[2]["lost"]:
+            raise AssertionError(f"{name}: accounting {books}")
+    else:
+        back_at = victim["serving_since"]
+        if not victim["restored"] or books[0]["lost"]:
+            raise AssertionError(f"{name}: accounting {books}")
+    return {"kill_to_rejoin_s": back_at - victim["chaos_killed_at"],
+            "books": books, "test_err": errs,
+            "worker_steps": [results[r]["steps"] for r in (1, 3)],
+            "launches": {k: sum(v["launches"][k] for v in results.values())
+                         for k in ("k1", "k2", "k3")}}
+
+
+def ft_chaos_procs(torch, all_paths, smi, timing, tmp):
+    """Two supervised process gangs side by side: one whose worker rank 3
+    is SIGKILLed once it has taken steps, one whose server rank 2 is.
+    The kill lands 2 s after the first checkpoint of the victim's server
+    (written 2 s into training), whatever the children's start-up (this
+    call measured it above); the epochs are sized from this call's
+    process-gang epoch for ~20 s of training, so the victim is still
+    training when the kill lands."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
+
+    startup, epoch_s = timing["startup_s"], timing["epoch_s"]
+    after_s = 2.0
+    epochs = max(int(math.ceil(20.0 / epoch_s)), 4)
+    print(f"ft_chaos_procs: start-up {startup:.1f}s, epoch {epoch_s:.3f}s: kill "
+          f"{after_s:.1f}s after the first checkpoint, {epochs} epochs")
+    gangs = []
+    for kill_rank in (3, 2):
+        addrs, socks = allocate_local_addresses(4)
+        for sock in socks:
+            sock.close()  # the gang's ranks bind these ports
+        ckpt_dir = os.path.join(tmp, f"chaos{kill_rank}")
+        gangs.append((f"ft_chaos_kill_{'worker' if kill_rank == 3 else 'server'}",
+                      kill_rank, after_s, epochs, addrs, ckpt_dir))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        done = [pool.submit(ft_chaos_gang, *g) for g in gangs]
+        done = [f.result() for f in done]
+    wall = time.perf_counter() - t0
+    for (name, results, gang_wall), g in zip(done, gangs):
+        reading = ft_chaos_check(name, results, g[1], timing["adam_test_err"])
+        reading["wall_s"] = gang_wall
+        print(f"{name}: " + json.dumps(reading))
+        landed = reading["books"][0]["landed"]
+        print(f"{name} on {smi}: kill to rejoin {reading['kill_to_rejoin_s']:.1f} s"
+              + (f", the kill landed at GRAD {landed['3:0']} of worker 3"
+                 if landed else f", {reading['books'][2]['lost']} GRADs the dead server "
+                 "acked after its last checkpoint (one every 2 s) lost"))
+        record_path(all_paths, name, reading["launches"], sum(reading["worker_steps"]))
+    return wall
+
+
+def ft_phases(torch, kernels, all_paths, smi, timing):
+    """Fault tolerance on the card (slice 5a): the supervised process gangs
+    run in the background while this process drives the retry/dedup
+    matrix, the server restart and the lease eviction."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        chaos = pool.submit(ft_chaos_procs, torch, all_paths, smi, timing, tmp)
+        t1 = time.perf_counter()
+        ft_retry_dedup(torch, kernels, all_paths, smi)
+        ft_server_restart(torch, kernels, all_paths, smi, tmp)
+        ft_lease_eviction(torch, kernels, all_paths, smi)
+        inproc_s = time.perf_counter() - t1
+        chaos_s = chaos.result()
+    print(f"ft phases: {time.perf_counter() - t0:.1f}s (in-process {inproc_s:.1f}s, "
+          f"supervised gangs {chaos_s:.1f}s, side by side)")
 
 
 FA_CASES = (
@@ -2289,7 +2884,8 @@ def main() -> int:
                  "k5": {}, "k6": {}}
     inproc = gang_paths(torch, kernels, all_paths)
     k3["paths"]["adam_gang_vs_cpu"] = adam_gang_vs_cpu(torch, kernels)
-    process_gang_paths(torch, all_paths, inproc, smi)
+    gang_timing = process_gang_paths(torch, all_paths, inproc, smi)
+    ft_phases(torch, kernels, all_paths, smi, gang_timing)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 

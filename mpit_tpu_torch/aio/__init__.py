@@ -19,12 +19,15 @@ from mpit_tpu_torch.aio.scheduler import (
     EXEC,
     INIT,
     OK,
+    DeadlineExceeded,
     LiveFlag,
     Scheduler,
     Task,
     TaskError,
     aio_recv,
     aio_send,
+    aio_sleep,
+    deadline_at,
 )
 
 __all__ = [
@@ -35,6 +38,9 @@ __all__ = [
     "LiveFlag",
     "aio_send",
     "aio_recv",
+    "aio_sleep",
+    "deadline_at",
+    "DeadlineExceeded",
     "INIT",
     "EXEC",
     "OK",

@@ -1,10 +1,13 @@
 """Cooperative task scheduler (analog of reference init.lua:21-25,128-185).
 
 A copy of ``mpit_tpu/aio/scheduler.py`` without its observability hooks
-(flight recorder, CPU profile, spans; they come with the port's obs layer),
-without the fault-tolerance deadlines and abort predicates (the ft layer),
+(flight recorder, CPU profile, spans; they come with the port's obs layer)
 and without the completion callbacks and wait variants no caller of the
-port uses.  The port imports nothing of the JAX package.
+port uses.  The fault-tolerance timers are here: op deadlines
+(:class:`DeadlineExceeded`, :func:`deadline_at`), ``abort`` predicates on
+the transfer generators (lease eviction, a superseded service
+generation), :func:`aio_sleep` and ``Scheduler.wait(deadline=)``.  The
+port imports nothing of the JAX package.
 
 The reference schedules Lua coroutines that yield one of five signals; the
 scheduler pops one coroutine from a FIFO, resumes it one step, and re-pushes
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Generator, Optional
+from typing import Any, Callable, Generator, Optional
 
 from mpit_tpu_torch.aio.queue import Queue
 
@@ -51,6 +54,31 @@ class TaskError(RuntimeError):
         super().__init__(f"task {task.name!r} failed: {cause!r}")
         self.task = task
         self.cause = cause
+
+
+class DeadlineExceeded(RuntimeError):
+    """An aio transfer missed its deadline (the ft op-deadline path).
+
+    Carries enough context for the retry layer to identify the op: the
+    peer rank, the wire tag, and which side (send/recv) timed out."""
+
+    def __init__(self, kind: str, peer: int, tag: int, late_by: float):
+        super().__init__(
+            f"aio_{kind} (peer={peer}, tag={tag}) missed its deadline "
+            f"by {late_by:.3f}s"
+        )
+        self.kind = kind
+        self.peer = peer
+        self.tag = tag
+        self.late_by = late_by
+
+
+def deadline_at(seconds: Optional[float]) -> Optional[float]:
+    """Absolute monotonic deadline ``seconds`` from now (None passes
+    through: no deadline).  Deadlines are absolute by the time they reach
+    the poll loops: relative timeouts restarted per retry attempt would
+    never fire under a steady trickle of progress."""
+    return None if seconds is None else time.monotonic() + seconds
 
 
 class Task:
@@ -139,11 +167,19 @@ class Scheduler:
         return progressed
 
     # -- co_wait ------------------------------------------------------------
-    def wait(self) -> None:
+    def wait(self, deadline: Optional[float] = None) -> None:
         """Drain the queue (the reference's co_wait, init.lua:178-185).
-        Raises the first :class:`TaskError` encountered after draining."""
+        Raises the first :class:`TaskError` encountered after draining;
+        with ``deadline`` (seconds), raises TimeoutError if tasks remain
+        after it."""
+        t_end = None if deadline is None else time.monotonic() + deadline
         while self.queue:
             self.ping_pass()
+            if t_end is not None and time.monotonic() > t_end and self.queue:
+                raise TimeoutError(
+                    f"scheduler.wait: {len(self.queue)} task(s) still pending "
+                    f"after {deadline}s: {[t.name for t in self.queue]}"
+                )
         if self.errors:
             raise self.errors.pop(0)
 
@@ -194,18 +230,33 @@ def aio_send(
     dst: int,
     tag: int,
     live: Optional[LiveFlag] = None,
+    deadline: Optional[float] = None,
+    abort: Optional[Callable[[], bool]] = None,
 ) -> Generator[str, None, None]:
     """Nonblocking send: post, then poll-test until complete.
 
     Mirrors reference init.lua:40-65 — including the shutdown path: when the
     live flag drops, the in-flight send is cancelled so buffer ownership
     returns to the caller before exit.
+
+    ``deadline`` (absolute monotonic seconds, see :func:`deadline_at`)
+    raises :class:`DeadlineExceeded` if the transfer has not completed by
+    then — the op-deadline primitive of the ft retry layer.  ``abort`` is
+    polled between steps; returning True cancels the send and returns
+    None (the lease-eviction path: a server must stop waiting on a peer
+    its lease registry has declared dead).
     """
     handle = transport.isend(data, dst, tag)
     while not transport.test(handle):
         if live is not None and not live.io:
             transport.cancel(handle)
             return
+        if abort is not None and abort():
+            transport.cancel(handle)
+            return
+        if deadline is not None and time.monotonic() > deadline:
+            transport.cancel(handle)
+            raise DeadlineExceeded("send", dst, tag, time.monotonic() - deadline)
         yield EXEC
 
 
@@ -215,6 +266,8 @@ def aio_recv(
     tag: int,
     live: Optional[LiveFlag] = None,
     out: Optional[Any] = None,
+    deadline: Optional[float] = None,
+    abort: Optional[Callable[[], bool]] = None,
 ) -> Generator[str, None, Any]:
     """Nonblocking receive: probe until a matching message exists, then post
     the receive and poll it to completion.  Returns the payload, or None
@@ -223,10 +276,22 @@ def aio_recv(
     Mirrors reference init.lua:67-102 (Iprobe poll -> Irecv -> Test poll,
     cancel-on-shutdown).  ``out``, when given, is a preallocated buffer the
     transport fills (the zero-copy analog of receiving into a tensor shard).
+
+    ``deadline`` (absolute monotonic seconds) raises
+    :class:`DeadlineExceeded` from the probe loop if no matching message
+    arrives in time.  ``abort`` returning True gives up and returns None
+    (lease eviction / generation change).  Both are checked only while
+    *probing*: once a matching message exists the recv is posted and
+    drained to completion — cancelling a posted receive could strand or
+    destroy a message another service generation still needs.
     """
     while not transport.iprobe(src, tag):
         if live is not None and not live.io:
             return None
+        if abort is not None and abort():
+            return None
+        if deadline is not None and time.monotonic() > deadline:
+            raise DeadlineExceeded("recv", src, tag, time.monotonic() - deadline)
         yield EXEC
     handle = transport.irecv(src, tag, out=out)
     while not transport.test(handle):
@@ -235,3 +300,20 @@ def aio_recv(
             return None
         yield EXEC
     return transport.payload(handle)
+
+
+def aio_sleep(
+    seconds: float, live: Optional[LiveFlag] = None
+) -> Generator[str, None, bool]:
+    """Cooperative sleep: yield EXEC until ``seconds`` have elapsed (the
+    scheduler-timer primitive behind retry backoff and lease reaping).
+    Returns False if the live flag dropped before the timer fired, True
+    otherwise.  Never blocks the scheduler — other tasks run between
+    polls, and the ping_pass idle backoff keeps an otherwise-idle queue
+    from busy-spinning the core while a timer counts down."""
+    wake = time.monotonic() + seconds
+    while time.monotonic() < wake:
+        if live is not None and not live.on:
+            return False
+        yield EXEC
+    return True

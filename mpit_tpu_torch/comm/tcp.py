@@ -9,8 +9,10 @@ The port of the JAX package's ``mpit_tpu/comm/tcp.py``, host code copied
 as it is: the 24-byte frame header, the 32-byte handshake and the mesh
 digest are the same bytes, so port ranks and JAX ranks form one TCP mesh.
 Elastic dialing (``dial_peers``) and reconnect mode are kept as the JAX
-package has them; the port's launcher does not arm them yet (``--elastic``
-is refused until the fault-tolerance slice).
+package has them; the port's launcher arms them for a supervised gang
+(``--supervise``: every rank in reconnect mode, a restarted worker
+dialing only its servers), while ``--elastic`` stays refused until shard
+control.
 
 Same contract and semantics as
 :class:`mpit_tpu_torch.comm.shm.ShmTransport`:

@@ -24,25 +24,71 @@ server-side optimizer state, BiCNN/pserver.lua:50-83):
   (``snapshot_copies`` / ``snapshot_hits``).  A frame handed to the
   transport is never rewritten; the next version gets a new one.
 
-The wire is the unframed INIT v1 (16 B, codec 'none') / v2 (24 B, with a
-codec id) posture, byte for byte the JAX package's: a JAX client can drive
-this server and a port client a JAX server.  Fault tolerance (INIT v3,
-heartbeats, framing, checkpoints), shard control (v4), chunked streaming
-(v5), serving readers, cells and the device data plane come with later
-slices: their INIT announcements and constructor arguments raise
+Fault tolerance (:mod:`mpit_tpu_torch.ft`), the JAX server's own paths:
+
+- INIT v3 carries each client's incarnation ``epoch`` and flags.  Framed
+  clients' GRAD / PARAM_PUSH frames are admitted at most once on
+  ``(client, epoch, seq)`` by a :class:`~mpit_tpu_torch.ft.DedupTable`: a
+  duplicate is re-acked without a second apply (so K3 runs once per
+  admitted GRAD), a dead incarnation's frame is dropped.  Replies echo
+  the request's ``[epoch, seq]``.
+- Heartbeats renew per-client leases; the reaper evicts a silent client
+  (its services abort, its staging is released) and the stop protocol
+  completes without it.  A restarted incarnation re-announces on INIT and
+  gets a new generation of services.
+- ``save_state`` / ``restore_state`` checkpoint the shard, the rule state,
+  the dedup table and each client's negotiation in the JAX package's npz
+  layout (either package restores the other's); ``ckpt_dir`` writes one
+  every ``ckpt_interval`` seconds and at stop.  A restored shard and its
+  rule state live in fresh device storage of their own.
+
+The wire is byte for byte the JAX package's, so a JAX client can drive
+this server and a port client a JAX server.  Causal timing, chunked
+streaming (INIT v5), shard control (v4), serving readers and cells,
+elastic membership and the device data plane come with later slices:
+their announcements and constructor arguments raise
 ``NotImplementedError`` naming the slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from mpit_tpu_torch.aio import LiveFlag, Scheduler, aio_recv, aio_send
+from mpit_tpu_torch.aio import (
+    EXEC,
+    LiveFlag,
+    Scheduler,
+    aio_recv,
+    aio_send,
+    aio_sleep,
+)
 from mpit_tpu_torch.comm import codec as codec_mod
 from mpit_tpu_torch.comm.transport import Transport
+from mpit_tpu_torch.ft import (
+    DUP,
+    FLAG_CHUNKED,
+    FLAG_FRAMED,
+    FLAG_HEARTBEAT,
+    FLAG_READONLY,
+    FLAG_STALENESS,
+    FLAG_SUBSCRIBE,
+    FLAG_TIMING,
+    HDR_BYTES,
+    STALE,
+    DedupTable,
+    FTConfig,
+    LeaseRegistry,
+    hdr_bytes,
+    pack_version,
+    reply_hdr_bytes,
+    unpack_header,
+    unpack_version,
+)
+from mpit_tpu_torch.obs.metrics import registry_or_local
 from mpit_tpu_torch.optim.rules import ShardRule, make as make_rule
 from mpit_tpu_torch.ps import tags
 from mpit_tpu_torch.utils.logging import get_logger
@@ -50,11 +96,8 @@ from mpit_tpu_torch.utils.platform import resolve_device
 
 #: What each refused constructor argument of the JAX server belongs to.
 LATER_SERVER_ARGS = {
-    "ckpt_dir": "checkpoints and resume (slice 5, ft)",
-    "ckpt_interval": "checkpoints and resume (slice 5, ft)",
-    "ft": "fault tolerance (slice 5, ft)",
-    "preempt": "elastic membership (slice 5, ft)",
-    "admit_ranks": "elastic membership (slice 5, ft)",
+    "preempt": "elastic membership (slice 5, shardctl with elastic)",
+    "admit_ranks": "elastic membership (slice 5, shardctl with elastic)",
     "controller_rank": "shard control (slice 5, shardctl)",
     "shardctl": "shard control (slice 5, shardctl)",
     "reader_ranks": "the serving tier (slice 5, ps/serve)",
@@ -62,6 +105,15 @@ LATER_SERVER_ARGS = {
     "cell_ranks": "serving cells (slice 5, cells)",
     "cell_history": "serving cells (slice 5, cells)",
     "dplane": "the device data plane (slice 6, dplane)",
+}
+
+#: What each refused INIT flag belongs to.
+LATER_FLAGS = {
+    FLAG_TIMING: "causal timing (FLAG_TIMING; slice 5, obs)",
+    FLAG_CHUNKED: "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
+                  "streaming with comm/pool)",
+    FLAG_READONLY: "the serving tier (FLAG_READONLY; slice 5, ps/serve)",
+    FLAG_SUBSCRIBE: "serving cells (FLAG_SUBSCRIBE; slice 5, cells)",
 }
 
 #: What a shard dtype other than float32 belongs to.
@@ -90,6 +142,9 @@ class ParamServer:
         codec: Optional[str] = None,  # None: adopt each client's announcement;
         #                               a name pins it — mismatches fail loudly
         dtype: Any = "float32",  # the shard's dtype: float32 only
+        ft: Optional[FTConfig] = None,
+        ckpt_dir: Optional[str] = None,  # periodic shard checkpoints here
+        ckpt_interval: float = 30.0,
         **later: Any,
     ):
         refuse_later("ParamServer", later, LATER_SERVER_ARGS)
@@ -113,7 +168,8 @@ class ParamServer:
         self.size = -1
         self.param: Optional[torch.Tensor] = None  # the shard, on self.device
         self.rule_state: Dict[str, torch.Tensor] = {}
-        # Per-client host receive staging, sized to the negotiated codec.
+        # Per-client host receive staging, sized to the negotiated codec
+        # (plus the FT header when framed).
         self.grad_bufs: Dict[int, np.ndarray] = {}
         self._grad_views: Dict[int, List[np.ndarray]] = {}
         self._push_bufs: Dict[int, np.ndarray] = {}
@@ -125,46 +181,94 @@ class ParamServer:
             codec_mod.get(codec)
         self._codec_pin = codec or None
         self._codecs: Dict[int, codec_mod.Codec] = {}
-        self._stopped: set = set()
+        # FT state: a lease per client, dedup on (client, epoch, seq), a
+        # per-client service generation (bumped on rejoin/eviction so
+        # stale loops abort), the INIT v3 postures, and the reply staging
+        # the framed paths need.
+        self.ft = ft if ft is not None else FTConfig.from_env()
+        self.leases = LeaseRegistry(self.cranks, ttl_s=self.ft.lease_ttl_s)
+        self.dedup = DedupTable()
+        self._framed: Dict[int, bool] = {}
+        self._hb: Dict[int, bool] = {}
+        self._stale_track: Dict[int, bool] = {}
+        self._stale_hists: Dict[int, Any] = {}
+        self._gen: Dict[int, int] = {c: 0 for c in self.cranks}
+        self._svc_live: Dict[int, int] = {c: 0 for c in self.cranks}
+        self._param_send: Dict[int, np.ndarray] = {}
+        self._ack_send: Dict[int, np.ndarray] = {}
+        self._req_buf: Dict[int, np.ndarray] = {}
+        self._hb_buf: Dict[int, np.ndarray] = {}
+        self._restored_clients: set = set()
+        self._restored = False
+        self._ckpt_dir = str(ckpt_dir) if ckpt_dir else None
+        self._ckpt_interval = float(ckpt_interval)
+        self.metrics = registry_or_local()  # the staleness histograms
         self.grads_applied = 0
         self.params_served = 0
+        self.dup_ops = 0  # framed duplicates re-acked without an apply
+        self.stale_drops = 0  # a dead incarnation's frames dropped
+        self.heartbeats_seen = 0
+        self.rejoins = 0
+        self.evictions = 0
+        self.ckpts_written = 0
+        #: (client, epoch) -> [first seq, last seq, count] of the GRADs this
+        #: process admitted FRESH and applied: with FIFO channels, each
+        #: seq of [first, last] applied exactly once <=> count = last-first+1
+        self.admitted: Dict[tuple, List[int]] = {}
+        #: what a restore took over: the checkpoint's grads_applied and
+        #: dedup table (a restarted server's exactly-once accounting)
+        self.restored_applied = 0
+        self.restored_dedup: Dict[str, list] = {}
+        #: wall-clock times: the perpetual services started (a restarted
+        #: server is back in the gang), and each rejoin was accepted
+        self.serving_since: Optional[float] = None
+        self.rejoined_at: List[float] = []
         # Version-counted snapshot cache: _snap_version bumps on every
-        # committed write (grad apply / seed); _snap_host is the one
-        # device->host copy of that version and _snap_wire the per-codec
-        # encoded frame.
+        # committed write (grad apply / seed / restore); _snap_host is the
+        # one device->host copy of that version and _snap_wire the
+        # per-codec encoded frame.
         self.snapshot_copies = 0
         self.snapshot_hits = 0
         self._snap_version = 0
         self._snap_host: Optional[tuple] = None
         self._snap_wire: Dict[str, tuple] = {}
 
-    # -- codec negotiation ---------------------------------------------------
+    # -- codec + FT negotiation ---------------------------------------------
 
     def _negotiate(self, crank: int, payload: bytes) -> codec_mod.Codec:
-        """Parse the INIT announcement (v1/v2) into (offset, size) on self
-        and the negotiated codec.  Every failure here is loud — a codec
-        disagreement must never reach the frame decoders, where it would
-        corrupt parameters silently."""
+        """Parse the INIT announcement (v1/v2/v3) into (offset, size) on
+        self, the negotiated codec, and the client's FT posture (epoch +
+        framed/heartbeat/staleness flags).  Every failure here is loud — a
+        codec disagreement must never reach the frame decoders, where it
+        would corrupt parameters silently, and a flag of a later slice is
+        refused, never masked off."""
         raw = np.frombuffer(payload, dtype=np.int64)
         if raw.size >= 8 and int(raw[0]) == -1:
             raise NotImplementedError(
                 f"client {crank} announced INIT v4 (shard control): slice 5 "
                 "(shardctl) of the port")
-        if raw.size in (5, 6):
-            raise NotImplementedError(
-                f"client {crank} announced INIT v{3 if raw.size == 5 else 5} "
-                "(fault-tolerant framing, heartbeats or chunked streaming): "
-                "slice 5 (ft, chunked streaming) of the port")
+        epoch, flags = 0, 0
         if raw.size == 2:  # legacy 16-byte v1 announcement
             offset, size, wire_id = int(raw[0]), int(raw[1]), 0
         elif raw.size == 3:
             offset, size, wire_id = (int(x) for x in raw)
+        elif raw.size == 5:  # INIT v3: [offset, size, codec_id, epoch, flags]
+            offset, size, wire_id, epoch, flags = (int(x) for x in raw)
+        elif raw.size == 6:
+            raise NotImplementedError(
+                f"client {crank} announced INIT v5: "
+                f"{LATER_FLAGS[FLAG_CHUNKED]} of the port")
         else:
             raise ValueError(
                 f"client {crank} INIT announcement is {len(payload)} bytes; "
-                "expected 16 (legacy [offset, size]) or 24 "
-                "([offset, size, codec_id])"
+                "expected 16 (legacy [offset, size]), 24 "
+                "([offset, size, codec_id]) or 40 (v3 + [epoch, flags])"
             )
+        for flag, owner in LATER_FLAGS.items():
+            if flags & flag:
+                raise NotImplementedError(
+                    f"client {crank} announced INIT v3 flag {flag}: {owner} "
+                    "of the port")
         codec = codec_mod.by_wire_id(wire_id)
         if self._codec_pin is not None and codec.name != self._codec_pin:
             raise ValueError(
@@ -183,31 +287,81 @@ class ParamServer:
                 f"client {crank} announced shard ({offset},{size}) but server "
                 f"{self.rank} already holds ({self.offset},{self.size})"
             )
+        self._framed[crank] = bool(flags & FLAG_FRAMED)
+        self._hb[crank] = bool(flags & FLAG_HEARTBEAT)
+        # Staleness only rides the framed wire: the version word extends
+        # the [epoch, seq] header, so without framing it negotiates off.
+        self._stale_track[crank] = (self._framed[crank]
+                                    and bool(flags & FLAG_STALENESS))
+        self.leases.arm(crank, epoch, heartbeats=self._hb[crank])
         return codec
 
+    def _hdr_for(self, crank: int) -> int:
+        """Header size of this client's data frames (GRAD/PARAM_PUSH)."""
+        if not self._framed.get(crank):
+            return 0
+        return hdr_bytes(self._stale_track.get(crank, False), False)
+
+    def _reply_hdr_for(self, crank: int) -> int:
+        """Header size of PARAM replies to this client."""
+        if not self._framed.get(crank):
+            return 0
+        return reply_hdr_bytes(self._stale_track.get(crank, False), False)
+
+    def _stale_hist(self, crank: int):
+        """The per-client staleness histogram, cached."""
+        hist = self._stale_hists.get(crank)
+        if hist is None:
+            hist = self.metrics.histogram(
+                "mpit_ps_grad_staleness", rank=self.rank, client=crank)
+            self._stale_hists[crank] = hist
+        return hist
+
     def _alloc_client(self, crank: int, codec: codec_mod.Codec) -> None:
-        """Receive staging for the client's negotiated codec."""
+        """(Re)allocate every per-client staging buffer for the client's
+        negotiated codec + framing — initial INIT and rejoin both land
+        here, so a rejoining incarnation may change codec freely."""
+        hdr = self._hdr_for(crank)
         self._codecs[crank] = codec
-        buf = np.zeros(codec.wire_nbytes(self.size), np.uint8)
+        self._push_bufs.pop(crank, None)
+        self._push_host.pop(crank, None)
+        self._param_send.pop(crank, None)
+        buf = np.zeros(hdr + codec.wire_nbytes(self.size), np.uint8)
         self.grad_bufs[crank] = buf
-        self._grad_views[crank] = codec.split_wire(buf, self.size)
+        self._grad_views[crank] = codec.split_wire(buf[hdr:], self.size)
+        if hdr:
+            self._ack_send[crank] = np.zeros(2, np.int64)
+            self._req_buf[crank] = np.zeros(2, np.int64)
+        if self._hb.get(crank):
+            self._hb_buf[crank] = np.zeros(2, np.int64)
+
+    def _release_client(self, crank: int) -> None:
+        """Drop an evicted client's staging (its shard registration's
+        per-client footprint); the shard itself is shared state."""
+        for store in (self.grad_bufs, self._grad_views, self._push_bufs,
+                      self._push_host, self._param_send, self._codecs,
+                      self._ack_send, self._req_buf, self._hb_buf):
+            store.pop(crank, None)
 
     def _push_staging(self, crank: int) -> np.ndarray:
         """Lazily-allocated PARAM_PUSH receive staging for one client, sized
-        to its codec's wire format (cold path: seeding / single mode)."""
+        to its codec's wire format plus the FT header when framed (cold
+        path: seeding / single mode)."""
         buf = self._push_bufs.get(crank)
         if buf is None:
             codec = self._codecs[crank]
-            if codec.identity:
+            hdr = self._hdr_for(crank)
+            if codec.identity and not hdr:
                 buf = np.zeros(self.size, np.float32)
             else:
-                buf = np.zeros(codec.wire_nbytes(self.size), np.uint8)
-                self._push_host[crank] = np.zeros(self.size, np.float32)
+                buf = np.zeros(hdr + codec.wire_nbytes(self.size), np.uint8)
+                if not codec.identity:
+                    self._push_host[crank] = np.zeros(self.size, np.float32)
             self._push_bufs[crank] = buf
         return buf
 
     def _on_device(self, arr: np.ndarray) -> torch.Tensor:
-        """An owned copy of host staging on the shard's device.  The copy
+        """An owned copy of host memory on the shard's device.  The copy
         is complete when this returns, so the next frame may land in the
         staging buffer: never apply from a live view of it."""
         return torch.from_numpy(arr).to(self.device, copy=True)
@@ -215,6 +369,18 @@ class ParamServer:
     def _committed(self) -> None:
         """A new shard version exists (grad applied / params seeded)."""
         self._snap_version += 1
+
+    def _host_snapshot(self) -> np.ndarray:
+        """The current version's shard on the host: one owned
+        device->host copy per version, shared by every reader and by
+        ``save_state``.  The shard is updated in place, so a view of it
+        (what .numpy() gives on the CPU) would change under a frame still
+        in flight."""
+        version = self._snap_version
+        if self._snap_host is None or self._snap_host[0] != version:
+            self._snap_host = (version, self.param.to("cpu", copy=True).numpy())
+            self.snapshot_copies += 1
+        return self._snap_host[1]
 
     def _snapshot_wire(self, codec: codec_mod.Codec) -> np.ndarray:
         """The current version's PARAM frame for ``codec``, cached: N
@@ -226,14 +392,7 @@ class ParamServer:
         if cached is not None and cached[0] == version:
             self.snapshot_hits += 1
             return cached[1]
-        if self._snap_host is None or self._snap_host[0] != version:
-            # An owned host copy: the shard is updated in place, so a view
-            # of it (what .numpy() gives on the CPU) would change under
-            # a frame still in flight.
-            host = self.param.to("cpu", copy=True).numpy()
-            self._snap_host = (version, host)
-            self.snapshot_copies += 1
-        host = self._snap_host[1]
+        host = self._host_snapshot()
         if codec.identity:
             wire = host
         else:
@@ -242,117 +401,472 @@ class ParamServer:
         self._snap_wire[codec.name] = (version, wire)
         return wire
 
+    # -- FT service plumbing -------------------------------------------------
+
+    def _svc_abort(self, crank: int, gen: int) -> Callable[[], bool]:
+        """Abort predicate for one service generation: fire when the
+        client left (evicted/stopped) or a newer incarnation's services
+        superseded this generation."""
+        return lambda: self.leases.gone(crank) or self._gen[crank] != gen
+
+    def _svc(self, crank: int, gen: int, fn: Callable, *args, **kw):
+        """Run one service generator while tracking per-client service
+        liveness, so a rejoin can wait for the old generation to clear
+        before respawning (two generations recv'ing one channel would
+        scramble the seq stream)."""
+        self._svc_live[crank] += 1
+        try:
+            yield from fn(crank, *args, gen=gen, **kw)
+        finally:
+            self._svc_live[crank] -= 1
+
+    def _send_ack(self, crank: int, tag: int, epoch: int, seq: int, gen: int):
+        """The framed ack: int64 [epoch, seq] echo."""
+        buf = self._ack_send[crank]
+        buf[0], buf[1] = epoch, seq
+        yield from aio_send(self.transport, buf, crank, tag, live=self.live,
+                            abort=self._svc_abort(crank, gen))
+
+    def _admit(self, crank: int, tag: int, ack_tag: int, frame: np.ndarray,
+               gen: int):
+        """Dedup admission of one framed write; returns (epoch, seq) when
+        the frame is FRESH, else None after dropping a STALE frame or
+        re-acking a DUP (the client may have lost the first ack)."""
+        epoch, seq = unpack_header(frame)
+        self.leases.renew(crank, epoch)
+        verdict = self.dedup.admit(crank, tag, epoch, seq)
+        if verdict == STALE:
+            self.stale_drops += 1
+            return None
+        if verdict == DUP:
+            self.dup_ops += 1
+            yield from self._send_ack(crank, ack_tag, epoch, seq, gen)
+            return None
+        return epoch, seq
+
     # -- service loops (reference pserver.lua:59-129) ------------------------
 
-    def _recv_init(self, crank: int):
-        """Receive [offset, size(, codec_id)]; negotiate the codec and
-        allocate shard + staging state (reference :33-57)."""
+    def _recv_init(self, crank: int, gen: int = 0):
+        """Receive [offset, size(, codec_id(, epoch, flags))]; negotiate
+        codec + FT posture and allocate shard + staging state
+        (reference :33-57)."""
         payload = yield from aio_recv(self.transport, crank, tags.INIT,
                                       live=self.live)
         if payload is None:
             return
         self._alloc_client(crank, self._negotiate(crank, payload))
 
-    def _recv_param(self, crank: int, once: bool = True):
+    def _init_listener(self, crank: int):
+        """Perpetual rejoin listener (phase 3, FT only): a restarted
+        incarnation re-announces on INIT; accept it, supersede the old
+        generation's services, and respawn against the new epoch.  The
+        INIT v3 handshake is the whole rejoin protocol — the client then
+        simply pulls current params and resumes."""
+        while self.live.on:
+            payload = yield from aio_recv(self.transport, crank, tags.INIT,
+                                          live=self.live)
+            if payload is None:
+                return
+            codec = self._negotiate(crank, payload)
+            self._gen[crank] += 1
+            gen = self._gen[crank]
+            self.leases.rejoin(crank, self.leases.epoch(crank))
+            self.leases.arm(crank, self.leases.epoch(crank),
+                            heartbeats=self._hb.get(crank, False))
+            self._alloc_client(crank, codec)
+            self.rejoins += 1
+            self.rejoined_at.append(time.time())
+            # Two generations must never recv one channel concurrently —
+            # wait for the superseded loops to abort out.
+            while self._svc_live[crank] > 0:
+                yield EXEC
+            self._spawn_services(crank)
+            self.log.info("client %d rejoined (epoch %d, gen %d)",
+                          crank, self.leases.epoch(crank), gen)
+
+    def _recv_param(self, crank: int, once: bool = True,
+                    warn_unexpected: bool = False, gen: int = 0):
         """Whole-shard write from a client: one-shot seeding from the first
         client (reference :92-102) or perpetual in single mode (the BiCNN
-        recvparam_always service, BiCNN/pserver.lua:220-232)."""
+        recvparam_always service, BiCNN/pserver.lua:220-232).  Framed
+        pushes are dedup-admitted: a retried seed is applied once and
+        re-acked."""
         codec = self._codecs.get(crank)
         if codec is None:  # init never completed (stopped before announce)
             return
+        framed = self._framed.get(crank, False)
+        hdr = self._hdr_for(crank)
         staging = self._push_staging(crank)
         while self.live.on:
             got = yield from aio_recv(self.transport, crank, tags.PARAM_PUSH,
-                                      live=self.live, out=staging)
+                                      live=self.live, out=staging,
+                                      abort=self._svc_abort(crank, gen))
             if got is None:
                 return
-            if codec.identity:
+            ident = None
+            if framed:
+                ident = yield from self._admit(crank, tags.PARAM_PUSH,
+                                               tags.PARAM_PUSH_ACK, staging, gen)
+                if ident is None:
+                    continue
+            if warn_unexpected:
+                self.log.warning(
+                    "client %d seeded a RESTORED server: checkpointed "
+                    "params overwritten (optimizer state kept) — start "
+                    "resume clients with seed_servers=False", crank)
+            if codec.identity and not hdr:
                 host = staging
+            elif codec.identity:
+                host = staging[hdr:].view(np.float32)
             else:  # cold path: host decode, then one copy to the device
                 host = self._push_host[crank]
-                codec.decode_into(staging, host)
+                codec.decode_into(staging[hdr:], host)
             self.param.copy_(torch.from_numpy(host))
             self._committed()
-            yield from aio_send(self.transport, tags.EMPTY, crank,
-                                tags.PARAM_PUSH_ACK, live=self.live)
+            if framed:
+                yield from self._send_ack(crank, tags.PARAM_PUSH_ACK, *ident, gen)
+            else:
+                yield from aio_send(self.transport, tags.EMPTY, crank,
+                                    tags.PARAM_PUSH_ACK, live=self.live,
+                                    abort=self._svc_abort(crank, gen))
             if once:
                 return
 
-    def _send_param(self, crank: int):
+    def _send_param(self, crank: int, gen: int = 0):
         """Loop: await the read request, send the current version's
-        encoded snapshot (reference :59-72)."""
+        encoded snapshot (reference :59-72).  Framed requests carry
+        [epoch, seq]; the reply echoes it so the client can discard
+        snapshots answering an earlier (retried) request.  Reads are
+        idempotent — duplicates are served, never dedup'd."""
         codec = self._codecs.get(crank)
         if codec is None:
             return
+        framed = self._framed.get(crank, False)
         while self.live.on:
+            req = self._req_buf.get(crank) if framed else None
             got = yield from aio_recv(self.transport, crank, tags.PARAM_REQ,
-                                      live=self.live)
+                                      live=self.live, out=req,
+                                      abort=self._svc_abort(crank, gen))
             if got is None:
                 return
             if not self.live.io:
                 continue
-            yield from aio_send(self.transport, self._snapshot_wire(codec),
-                                crank, tags.PARAM, live=self.live)
+            if not framed:
+                yield from aio_send(self.transport, self._snapshot_wire(codec),
+                                    crank, tags.PARAM, live=self.live,
+                                    abort=self._svc_abort(crank, gen))
+                self.params_served += 1
+                continue
+            epoch, seq = int(req[0]), int(req[1])
+            if epoch < self.leases.epoch(crank):
+                self.stale_drops += 1  # a dead incarnation's request
+                continue
+            self.leases.renew(crank, epoch)
+            hdr = self._reply_hdr_for(crank)
+            wire = self._snapshot_wire(codec)
+            wire_u8 = wire.view(np.uint8)
+            reply = self._param_send.get(crank)
+            if reply is None or len(reply) != hdr + len(wire_u8):
+                reply = np.zeros(hdr + len(wire_u8), np.uint8)
+                self._param_send[crank] = reply
+            reply[:HDR_BYTES].view(np.int64)[:] = (epoch, seq)
+            if self._stale_track.get(crank):
+                # The served snapshot's version: the basis the client's
+                # next gradient will echo (staleness telemetry).
+                pack_version(reply, self._snap_version)
+            reply[hdr:] = wire_u8
+            yield from aio_send(self.transport, reply, crank, tags.PARAM,
+                                live=self.live, abort=self._svc_abort(crank, gen))
             self.params_served += 1
 
-    def _recv_grad(self, crank: int):
+    def _recv_grad(self, crank: int, gen: int = 0):
         """Loop: receive a gradient frame, decode it on the device and
         apply the shard rule in place, ack (reference :75-90 — the server
         hot loop).  The frame is copied to the device before the ack goes
-        out: the client's next GRAD lands in the same staging buffer."""
+        out: the client's next GRAD lands in the same staging buffer.
+        Framed frames are dedup-admitted on (epoch, seq): duplicates are
+        re-acked without a second apply — with the client's encode-once
+        staging this is what keeps error feedback exact under retries."""
         codec = self._codecs.get(crank)
         if codec is None:
             return
+        framed = self._framed.get(crank, False)
         gbuf = self.grad_bufs[crank]
         parts = self._grad_views[crank]
         while self.live.on:
             got = yield from aio_recv(self.transport, crank, tags.GRAD,
-                                      live=self.live, out=gbuf)
+                                      live=self.live, out=gbuf,
+                                      abort=self._svc_abort(crank, gen))
             if got is None:
                 return
+            ident = None
+            if framed:
+                ident = yield from self._admit(crank, tags.GRAD, tags.GRAD_ACK,
+                                               gbuf, gen)
+                if ident is None:
+                    continue
+                if self._stale_track.get(crank):
+                    # The gap between the version the client computed
+                    # against and the version this gradient lands on,
+                    # observed once per applied op.
+                    self._stale_hist(crank).observe(
+                        self._snap_version - unpack_version(gbuf))
             grad = codec.decode_parts([self._on_device(v) for v in parts],
                                       self.size)
             self.param, self.rule_state = self.rule.apply(
                 self.param, grad, self.rule_state)
             self.grads_applied += 1
+            if ident is not None:
+                epoch, seq = ident
+                seen = self.admitted.setdefault((crank, epoch), [seq, seq, 0])
+                seen[0], seen[1] = min(seen[0], seq), max(seen[1], seq)
+                seen[2] += 1
             self._committed()
             if not self.live.on:
                 continue
-            yield from aio_send(self.transport, tags.EMPTY, crank,
-                                tags.GRAD_ACK, live=self.live)
+            if framed:
+                yield from self._send_ack(crank, tags.GRAD_ACK, *ident, gen)
+            else:
+                yield from aio_send(self.transport, tags.EMPTY, crank,
+                                    tags.GRAD_ACK, live=self.live,
+                                    abort=self._svc_abort(crank, gen))
 
-    def _recv_stop(self, crank: int):
-        """Await the stop signal; every client stopped => shut down I/O
-        (reference :115-129)."""
+    def _recv_heartbeat(self, crank: int, gen: int = 0):
+        """Loop: consume HEARTBEAT beacons, renew the client's lease
+        (current-epoch beats only — a dead incarnation's leftovers must
+        not keep its successor's lease alive)."""
+        buf = self._hb_buf.get(crank)
+        if buf is None:
+            return
+        while self.live.on:
+            got = yield from aio_recv(self.transport, crank, tags.HEARTBEAT,
+                                      live=self.live, out=buf,
+                                      abort=self._svc_abort(crank, gen))
+            if got is None:
+                return
+            self.heartbeats_seen += 1
+            self.leases.renew(crank, int(buf[0]))
+
+    def _recv_stop(self, crank: int, gen: int = 0):
+        """Await the stop signal; all clients terminal (stopped or
+        evicted) => shut down I/O (reference :115-129)."""
         got = yield from aio_recv(self.transport, crank, tags.STOP,
-                                  live=self.live)
+                                  live=self.live,
+                                  abort=self._svc_abort(crank, gen))
         if got is None:
             return
-        self._stopped.add(crank)
-        if self._stopped >= set(self.cranks):
+        self.leases.stop(crank)
+        if self.leases.all_done():
             self.live.stop()
+
+    def _lease_reaper(self):
+        """Periodic scan: evict ACTIVE clients whose lease lapsed.  The
+        evicted client's services abort, its staging is released, and the
+        stop condition re-checks — one dead worker no longer wedges the
+        gang."""
+        interval = max(min(self.ft.lease_ttl_s / 4.0, 1.0), 0.005)
+        while self.live.on:
+            if not (yield from aio_sleep(interval, live=self.live)):
+                return
+            for crank in self.leases.expired():
+                self.log.warning(
+                    "evicting client %d: lease expired after %.3fs without "
+                    "a heartbeat (pending ops dropped, staging released; "
+                    "it may rejoin with a bumped epoch)",
+                    crank, self.ft.lease_ttl_s)
+                self.leases.evict(crank)
+                self.evictions += 1
+                self._gen[crank] += 1  # stale loops abort at next poll
+                self._release_client(crank)
+            if self.leases.all_done():
+                self.live.stop()
+                return
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def _client_meta(self) -> Dict[str, Dict[str, Any]]:
+        """Per-client negotiated state for the checkpoint: enough for a
+        restarted server to serve retried ops without fresh INITs (the
+        JAX package's keys; timing and chunking are always off here)."""
+        return {
+            str(c): {
+                "codec": self._codecs[c].name,
+                "framed": self._framed.get(c, False),
+                "hb": self._hb.get(c, False),
+                "stale": self._stale_track.get(c, False),
+                "timing": False,
+                "chunk": 0,
+                "epoch": self.leases.epoch(c),
+            }
+            for c in self._codecs
+        }
+
+    def save_state(self, directory) -> str:
+        """Checkpoint this server's shard param + rule state (+ the FT
+        dedup table and client negotiation map).  Call from the owning
+        thread while no grad is mid-apply (after start() returns, or
+        between scheduler steps).  The shard's host copy is the snapshot
+        cache's: one device->host copy per version, whoever asks."""
+        from mpit_tpu_torch.utils.checkpoint import save_server_state
+
+        if self.param is None:
+            raise RuntimeError("server holds no shard yet (init not run)")
+        return str(save_server_state(
+            directory, self.rank, self.offset, self.size,
+            self._host_snapshot(),
+            self.rule_state,  # copied to the host by the packer
+            meta={
+                "grads_applied": self.grads_applied,
+                "snap_version": self._snap_version,
+                "dedup": self.dedup.state(),
+                "dedup_chunks": {},  # chunked streaming: a later slice
+                "clients": self._client_meta(),
+            },
+        ))
+
+    def _owned(self, arr: np.ndarray) -> torch.Tensor:
+        """Fresh device storage holding a copy of ``arr``: a restored shard
+        never aliases the arrays it was loaded into (on the CPU,
+        ``torch.from_numpy`` alone would)."""
+        src = torch.from_numpy(np.asarray(arr, order="C"))  # keeps 0-d as 0-d
+        return torch.empty(src.shape, dtype=src.dtype, device=self.device).copy_(src)
+
+    def restore_state(self, path) -> None:
+        """Load a shard checkpoint (of either package) before start().  A
+        restored server skips the client-seeding phase — start the
+        clients with ``seed_servers=False``.  FT checkpoints also restore
+        the dedup table and each client's negotiated codec/framing, so a
+        *restarted server* rejoins a live gang: clients keep retrying into
+        the new process and their already-applied ops dedup instead of
+        double-counting."""
+        from mpit_tpu_torch.utils.checkpoint import load_server_state
+
+        if self.param is not None or self.offset != -1:
+            raise RuntimeError("restore_state must run before start()")
+        offset, size, param, state, meta = load_server_state(path)
+        if meta.get("dedup_chunks") or any(
+                info.get("timing") or info.get("chunk")
+                for info in (meta.get("clients") or {}).values()):
+            raise NotImplementedError(
+                f"{path} holds chunked-streaming or causal-timing client "
+                "state: a later slice of the port (slice 5, streaming and obs)")
+        self.offset, self.size = offset, size
+        self.grads_applied = int(meta.get("grads_applied", 0))
+        self._snap_version = int(meta.get("snap_version", 0))
+        self.dedup.restore(meta.get("dedup", {}))
+        self.restored_applied = self.grads_applied
+        self.restored_dedup = self.dedup.state()
+        self.param = self._owned(param)
+        if state:
+            self.rule_state = {k: self._owned(v) for k, v in state.items()}
+        else:  # stateless rule (plain add) or a legacy checkpoint
+            self.rule_state = self.rule.init(self.param)
+        for crank_s, info in (meta.get("clients") or {}).items():
+            crank = int(crank_s)
+            if crank not in self.cranks:
+                continue
+            self._framed[crank] = bool(info.get("framed", False))
+            self._hb[crank] = bool(info.get("hb", False))
+            self._stale_track[crank] = bool(info.get("stale", False))
+            self.leases.arm(crank, int(info.get("epoch", 0)),
+                            heartbeats=self._hb[crank])
+            self._alloc_client(crank, codec_mod.get(info.get("codec", "none")))
+            self._restored_clients.add(crank)
+        self._committed()
+        self._restored = True
+
+    def _checkpoint(self) -> None:
+        self.save_state(self._ckpt_dir)
+        self.ckpts_written += 1
+
+    def _serve_with_checkpoints(self) -> None:
+        """Drive the service queue like ``Scheduler.wait`` while writing
+        the shard checkpoint every ``ckpt_interval`` seconds and once more
+        at stop.  Safe point: a ping runs one generator step, and a grad
+        apply commits within one step — between pings the shard is never
+        torn."""
+        next_save = time.monotonic() + self._ckpt_interval
+        while self.sched.queue:
+            self.sched.ping_pass()
+            if time.monotonic() >= next_save:
+                if self.param is not None:
+                    self._checkpoint()
+                next_save = time.monotonic() + self._ckpt_interval
+        if self.param is not None:
+            self._checkpoint()  # final state at stop
+        if self.sched.errors:
+            raise self.sched.errors.pop(0)
 
     # -- orchestration (reference pserver.lua:131-157) ----------------------
 
+    def _spawn_services(self, crank: int) -> None:
+        """Phase-3 perpetual services for one client (also the rejoin
+        respawn path — hence per-generation naming)."""
+        gen = self._gen[crank]
+        self.sched.spawn(self._svc(crank, gen, self._recv_stop),
+                         name=f"recv_stop:{crank}.g{gen}")
+        self.sched.spawn(self._svc(crank, gen, self._recv_grad),
+                         name=f"recv_grad:{crank}.g{gen}")
+        self.sched.spawn(self._svc(crank, gen, self._send_param),
+                         name=f"send_param:{crank}.g{gen}")
+        if self._hb.get(crank):
+            self.sched.spawn(self._svc(crank, gen, self._recv_heartbeat),
+                             name=f"recv_heartbeat:{crank}.g{gen}")
+        if self.single_mode:
+            self.sched.spawn(self._svc(crank, gen, self._recv_param, once=False),
+                             name=f"recv_param:{crank}.g{gen}")
+        elif self._framed.get(crank):
+            # Framed clients may retry a push whose first ack was lost;
+            # someone must keep absorbing the duplicates and re-acking
+            # after the one-shot seed service exits.  (FRESH post-seed
+            # pushes only occur in the restored-server resume flow.)
+            self.sched.spawn(
+                self._svc(crank, gen, self._recv_param, once=False,
+                          warn_unexpected=self._restored),
+                name=f"recv_param:{crank}.g{gen}")
+
     def start(self) -> None:
         """Run the server to completion (returns after the stop protocol)."""
-        # Phase 1: shard announcements from every client.
+        # Phase 1: shard announcements from every client (skipped for
+        # clients restored from an FT checkpoint — their negotiation is
+        # already in hand and no fresh INIT is coming).
         for crank in self.cranks:
-            self.sched.spawn(self._recv_init(crank), name=f"recv_init:{crank}")
+            if crank not in self._restored_clients:
+                self.sched.spawn(self._svc(crank, 0, self._recv_init),
+                                 name=f"recv_init:{crank}")
         self.sched.wait()
         # Phase 2: parameter seeding from the first client only (init once
-        # & only once, reference README:64-67).
-        self.sched.spawn(self._recv_param(self.cranks[0], once=True),
-                         name="seed_param")
-        self.sched.wait()
+        # & only once, reference README:64-67) — skipped on resume, where
+        # the checkpoint already seeded the shard.
+        seeder = self.cranks[0]
+        if not self._restored:
+            self.sched.spawn(self._svc(seeder, 0, self._recv_param, once=True),
+                             name="seed_param")
+            self.sched.wait()
+        elif not self.single_mode and not self._framed.get(seeder):
+            # A resume client wired with seed_servers=True would otherwise
+            # block forever on its unconsumed push — accept it (the client
+            # is authoritative for params, as in the reference's
+            # -loadmodel reseed, plaunch.lua:62) and warn loudly.  Framed
+            # clients get the perpetual absorb service instead.
+            self.sched.spawn(
+                self._svc(seeder, 0, self._recv_param, once=True,
+                          warn_unexpected=True),
+                name="unexpected_seed")
         # Phase 3: perpetual services per client + stop counters.
+        self.serving_since = time.time()
         for crank in self.cranks:
-            self.sched.spawn(self._recv_stop(crank), name=f"recv_stop:{crank}")
-            self.sched.spawn(self._recv_grad(crank), name=f"recv_grad:{crank}")
-            self.sched.spawn(self._send_param(crank), name=f"send_param:{crank}")
-            if self.single_mode:
-                self.sched.spawn(self._recv_param(crank, once=False),
-                                 name=f"recv_param:{crank}")
-        self.sched.wait()
-        self.log.debug("stopped: %d grads applied, %d params served",
-                       self.grads_applied, self.params_served)
+            self._spawn_services(crank)
+        if self.ft.server_rejoin:
+            for crank in self.cranks:
+                self.sched.spawn(self._init_listener(crank),
+                                 name=f"init_listener:{crank}")
+        if self.ft.lease_ttl_s > 0:
+            self.sched.spawn(self._lease_reaper(), name="lease_reaper")
+        if self._ckpt_dir:
+            self._serve_with_checkpoints()
+        else:
+            self.sched.wait()
+        self.log.debug("stopped: %d grads applied, %d params served, %d dups, "
+                       "%d stale drops", self.grads_applied, self.params_served,
+                       self.dup_ops, self.stale_drops)

@@ -60,10 +60,23 @@ def check_shm_room(nranks: int, ring_bytes: int, path: str = "/dev/shm") -> None
             f"{ring_bytes} bytes need {need} (lower --ring_mb)")
 
 
+def unlink_rings(namespace: str, size: int) -> None:
+    """Remove the gang's shm rings that are still there."""
+    for rank in range(size):
+        try:
+            os.unlink(f"/dev/shm/mt_{namespace}_r{rank}")
+        except OSError:
+            pass
+
+
 def child_transport(cfg: Config, rank: int, size: int):
     """The gang's wire: shm rings on one host (default), TCP across hosts
     (``transport=tcp`` + ``tcp_addrs=host:port,...`` — one address per
     rank, the hostfile-deployment analog).
+
+    A worker the supervisor restarted (``MPIT_FT_REJOIN``) dials only its
+    servers over TCP; its other peers reach it through the transport's
+    reconnect service.
 
     Every gang synchronizes on a startup barrier
     (:class:`mpit_tpu_torch.comm.collectives.HostCollectives`) before any
@@ -77,7 +90,19 @@ def child_transport(cfg: Config, rank: int, size: int):
             raise ValueError(
                 f"transport=tcp needs {size} comma-separated tcp_addrs, "
                 f"got {len(addrs)}")
-        transport = TcpTransport(rank, size, addrs)
+        from mpit_tpu_torch.train.launch import assign_roles, rejoining
+
+        dial_peers = None
+        if rejoining():
+            # A supervisor-restarted worker joins a mid-run gang: only its
+            # servers must be reachable — a sibling worker that already
+            # finished and exited is not a failure (PS traffic is
+            # client<->server only, and the barrier is off on rejoin).
+            sranks, _cranks, _tester = assign_roles(
+                size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
+            if rank not in sranks:
+                dial_peers = [r for r in sranks if r < rank]
+        transport = TcpTransport(rank, size, addrs, dial_peers=dial_peers)
     else:
         from mpit_tpu_torch.comm.shm import ShmTransport
 
@@ -172,12 +197,7 @@ def launch_gang(
             proc.kill()
             proc.wait()
     if cfg.get("transport", "shm") != "tcp":
-        # A rank torn down mid-run never unlinks its ring.
-        for rank in range(size):
-            try:
-                os.unlink(f"/dev/shm/mt_{namespace}_r{rank}")
-            except OSError:
-                pass
+        unlink_rings(namespace, size)  # a rank torn down mid-run never does
     results: Dict[int, Dict[str, Any]] = {}
     for rank, (logpath, resultpath) in enumerate(zip(logfiles, resultfiles)):
         with open(logpath) as fh:

@@ -19,15 +19,30 @@ Three entry modes, as in the JAX package's launcher:
   runs as threads of one process over the in-process router
   (:func:`run_gang`, :class:`mpit_tpu_torch.comm.local.LocalRouter`).
 
+Fault tolerance (:mod:`mpit_tpu_torch.ft`): ``--ft_heartbeat_s``,
+``--ft_lease_ttl_s``, ``--ft_op_deadline_s`` (INIT v3, framing, retry and
+dedup), ``--ft_max_retries`` and ``--ft_staleness`` set each rank's
+:class:`~mpit_tpu_torch.ft.FTConfig` (:func:`ft_from_cfg`);
+``--server_ckpt_dir`` makes every server checkpoint its shard every
+``--server_ckpt_interval`` seconds, and ``--resume`` restores them;
+``--supervise N`` runs the gang under :func:`mpit_tpu_torch.ft.supervisor.
+supervise_gang`, which restarts a dead rank up to N times (a worker as the
+next epoch, rejoining the live servers; a server from its checkpoint).
+
 The layers of later slices (readers, cells, shard control, elastic
-membership, server checkpoints, the LM, aggregation, the device data
-plane) raise ``NotImplementedError`` naming their slice.
+membership, causal timing, chunked streaming, the LM, aggregation, the
+device data plane) raise ``NotImplementedError`` naming their slice.
 
 Usage:
     python -m mpit_tpu_torch.train.launch --np 1 --opt msgd
     # 2 servers + 2 workers, four processes over shm, on the CPU:
     python -m mpit_tpu_torch.train.launch --np 4 --opt downpour \\
         --device cpu --side 8 --epochs 1 --lr 0.2
+    # the same under the supervisor, with heartbeats, retry and checkpoints:
+    python -m mpit_tpu_torch.train.launch --np 4 --opt adam --device cpu \\
+        --side 8 --epochs 2 --transport tcp --ft_heartbeat_s 0.25 \\
+        --ft_lease_ttl_s 20 --ft_op_deadline_s 5 --supervise 2 \\
+        --server_ckpt_dir /tmp/ckpt --server_ckpt_interval 2
     # the reference's config 3 on the card:
     python -m mpit_tpu_torch.train.launch --np 12 --opt eamsgd --su 10 \\
         --mom 0.99 --mva 0.15 --epochs 2 --model cnn
@@ -37,6 +52,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import pathlib
 import sys
 import threading
 import time
@@ -45,6 +62,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from mpit_tpu_torch.comm.local import LocalRouter
+from mpit_tpu_torch.ft import FTConfig
 from mpit_tpu_torch.optim import rules as rules_mod
 from mpit_tpu_torch.ps import ParamClient, ParamServer
 from mpit_tpu_torch.train.gang import DEVICE_ENV
@@ -76,7 +94,30 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     # none | bf16 | int8).  "" defers to $MPIT_PS_CODEC (default none).
     # When set explicitly the servers are PINNED to it.
     codec="",
+    # Server shard checkpointing + resume: server_ckpt_dir activates
+    # periodic per-server shard + rule-state snapshots (with the FT dedup
+    # table); --resume restores them and skips client seeding, so Adam's
+    # moments survive a restart.
+    server_ckpt_dir="",
+    server_ckpt_interval=30.0,
+    resume=False,
+    # Fault tolerance (mpit_tpu_torch.ft; 0 = off, the legacy wire):
+    # heartbeat interval for workers, lease TTL for servers (expired =>
+    # eviction), per-op deadline for workers (enables retry + FT frame
+    # headers), and supervise = restarts allowed per rank (the supervisor
+    # respawns dead ranks with a bumped epoch; workers rejoin via INIT v3,
+    # servers resume from their stamped shard snapshot — needs
+    # server_ckpt_dir).  ft_staleness: frames carry the 24-byte
+    # [epoch, seq, version] header (needs ft_op_deadline_s > 0).
+    ft_heartbeat_s=0.0,
+    ft_lease_ttl_s=0.0,
+    ft_op_deadline_s=0.0,
+    ft_max_retries=8,
+    ft_staleness=False,
+    supervise=0,
     # The reference's flags of later slices; each raises when set.
+    ft_timing=False,
+    ft_chunk_bytes=0,
     serve_readers=0,
     cells=0,
     shardctl=False,
@@ -84,21 +125,20 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     lm=0,
     agg="off",
     dplane=0,
-    server_ckpt_dir="",
-    resume=False,
 )
 
 # flag -> (value meaning "off", the slice of the port it belongs to)
 LATER_FLAGS = {
+    "ft_timing": (False, "causal timing (FLAG_TIMING; slice 5, obs)"),
+    "ft_chunk_bytes": (0, "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
+                          "streaming with comm/pool)"),
     "serve_readers": (0, "the serving tier (slice 5, ps/serve)"),
     "cells": (0, "serving cells (slice 5, cells)"),
     "shardctl": (False, "shard control (slice 5, shardctl)"),
-    "elastic": (False, "elastic membership (slice 5, ft)"),
+    "elastic": (False, "elastic membership (slice 5, shardctl with elastic)"),
     "lm": (0, "the LM workload through the PS gang (slice 7b, lm)"),
     "agg": ("off", "hierarchical aggregation (slice 5, agg)"),
     "dplane": (0, "the device data plane (slice 6, dplane)"),
-    "server_ckpt_dir": ("", "server checkpoints (slice 5, ft)"),
-    "resume": (False, "server resume (slice 5, ft)"),
 }
 
 
@@ -107,6 +147,31 @@ def refuse_later_flags(cfg: Config) -> None:
         if cfg.get(flag, off) != off:
             raise NotImplementedError(
                 f"--{flag} {cfg.get(flag)!r} belongs to {owner} of the port")
+
+
+def ft_from_cfg(cfg: Config) -> FTConfig:
+    """FTConfig for one rank: env base (the supervisor's restart env —
+    MPIT_FT_EPOCH/MPIT_FT_REJOIN — rides there) with the launch config's
+    non-zero knobs layered on top."""
+    overrides: Dict[str, Any] = {}
+    for ck, fk in (("ft_heartbeat_s", "heartbeat_s"),
+                   ("ft_lease_ttl_s", "lease_ttl_s"),
+                   ("ft_op_deadline_s", "op_deadline_s")):
+        value = float(cfg.get(ck, 0) or 0)
+        if value:
+            overrides[fk] = value
+    if overrides.get("op_deadline_s"):
+        overrides["max_retries"] = int(cfg.get("ft_max_retries", 8))
+    if overrides.get("lease_ttl_s") or int(cfg.get("supervise", 0)):
+        overrides["rejoin"] = True
+    if bool(cfg.get("ft_staleness", False)):
+        overrides["staleness"] = True
+    return FTConfig.from_env(**overrides)
+
+
+def rejoining() -> bool:
+    """This process is a supervisor's replacement of a dead rank."""
+    return os.environ.get("MPIT_FT_REJOIN", "0") not in ("0", "")
 
 
 def assign_roles(
@@ -152,6 +217,12 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
     cfg = LAUNCH_DEFAULTS.merged(cfg.to_dict())
     refuse_later_flags(cfg)
     if size == 1:
+        if bool(cfg.resume):
+            # Server-shard resume needs servers; silently restarting from
+            # scratch would look like a successful resume.
+            raise ValueError("--resume restores parameter-server shards and "
+                             "needs --np > 1 (single-process runs have no "
+                             "servers)")
         trainer = MnistTrainer(cfg, data=data, rank=rank)
         return {"role": "local", **trainer.run()}
     if transport is None:
@@ -161,6 +232,7 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
     sranks, cranks, tester_rank = assign_roles(
         size, int(cfg.master_freq), str(cfg.tester))
     codec = str(cfg.codec or "") or None
+    ft = ft_from_cfg(cfg)
     if rank == tester_rank:
         from mpit_tpu_torch.train.tester import run_tester
 
@@ -169,10 +241,20 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
         # The tester counts as a (pull-only) client: it announces shards
         # and takes part in the stop protocol like any worker.
         all_clients = cranks + ([tester_rank] if tester_rank is not None else [])
+        ckpt_dir = str(cfg.server_ckpt_dir or "")
         server = ParamServer(
             rank, all_clients, transport, rule=server_rule_for(cfg),
             single_mode=str(cfg.opt).endswith("-single"),
-            device=cfg.device, codec=codec)
+            device=cfg.device, codec=codec, ft=ft, ckpt_dir=ckpt_dir or None,
+            ckpt_interval=float(cfg.server_ckpt_interval))
+        if bool(cfg.resume):
+            path = pathlib.Path(ckpt_dir) / f"server{rank}_latest.npz"
+            if not ckpt_dir or not path.exists():
+                raise FileNotFoundError(
+                    f"--resume needs --server_ckpt_dir with a "
+                    f"server{rank}_latest.npz (looked at {path})")
+            server.restore_state(path)
+            log.info("restored shard from %s", path)
         log.info("server for clients %s", cranks)
         server.start()
         return {
@@ -181,13 +263,34 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
             "params_served": server.params_served,
             "snapshot_copies": server.snapshot_copies,
             "snapshot_hits": server.snapshot_hits,
+            "dup_ops": server.dup_ops,
+            "stale_drops": server.stale_drops,
+            "heartbeats_seen": server.heartbeats_seen,
+            "rejoins": server.rejoins,
+            "evictions": server.evictions,
+            "ckpts_written": server.ckpts_written,
+            "restored": bool(cfg.resume),
+            "restored_applied": server.restored_applied,
+            "restored_dedup": server.restored_dedup,
+            "admitted": {f"{c}:{e}": v for (c, e), v in server.admitted.items()},
+            "serving_since": server.serving_since,
+            "rejoined_at": server.rejoined_at,
             "param": server.param,
         }
-    pclient = ParamClient(rank, sranks, transport,
-                          seed_servers=(rank == cranks[0]), codec=codec)
+    # On resume the restored servers are authoritative for params — no
+    # client re-seeds.  Same for a supervisor-restarted worker rejoining
+    # mid-run: the live servers hold the current center, and a re-seed
+    # would rewind it.
+    pclient = ParamClient(
+        rank, sranks, transport, codec=codec, ft=ft,
+        seed_servers=(rank == cranks[0]) and not bool(cfg.resume)
+        and not rejoining())
     trainer = MnistTrainer(cfg, pclient=pclient, data=data, rank=rank)
-    log.info("worker with servers %s", sranks)
-    return {"role": "worker", **trainer.run(), "w": trainer.w}
+    log.info("worker with servers %s (epoch %d)", sranks, ft.epoch)
+    return {"role": "worker", **trainer.run(), "w": trainer.w,
+            "epoch": ft.epoch, "retries": pclient.retries,
+            "heartbeats_sent": pclient.heartbeats_sent,
+            "grads_acked": pclient.grads_acked()}
 
 
 def run_gang(size: int, cfg: Config, data: Any = None,
@@ -265,10 +368,15 @@ def device_env_overrides(cfg: Config, size: int) -> Dict[int, Dict[str, str]]:
         f"device_policy must be inherit|cpu|workers_accel, got {policy!r}")
 
 
-def launch_processes(cfg: Config, timeout: float = 3600.0) -> Dict[int, Dict[str, Any]]:
+def launch_processes(cfg: Config, timeout: float = 3600.0,
+                     chaos: Optional[Dict[str, Any]] = None
+                     ) -> Dict[int, Dict[str, Any]]:
     """Run the gang as ``cfg.np`` processes; returns each rank's result
     (JSON: tensors are replaced by the sha256 of their float32 bytes, and
     each result names its ``platform`` and its K1-K3 ``launches``).
+    With ``cfg.supervise`` the gang runs under the supervisor, and
+    ``chaos`` (``chaos_kill_rank``, ``chaos_kill_after_s``, ...) has it
+    kill one rank mid-run, as the reference's chaos soak does.
 
     Fails fast in the parent, before any process starts: a bad optimizer
     name or role split found only inside a child would strand the servers
@@ -290,10 +398,38 @@ def launch_processes(cfg: Config, timeout: float = 3600.0) -> Dict[int, Dict[str
                              f"tcp_addrs, got {len(addrs)}")
     elif cfg.transport != "shm":
         raise ValueError(f"transport must be shm or tcp, got {cfg.transport!r}")
+    restarts = int(cfg.supervise)
+    if restarts > 0:
+        from mpit_tpu_torch.ft.supervisor import RestartPolicy, supervise_gang
+
+        sranks, _cranks, _tester = assign_roles(
+            size, int(cfg.master_freq), str(cfg.tester))
+        return supervise_gang(
+            "mpit_tpu_torch.train.launch", cfg, timeout,
+            policy=RestartPolicy(max_restarts=restarts),
+            env_overrides=supervised_env(cfg, overrides), server_ranks=sranks,
+            **(chaos or {}))
+    if chaos:
+        raise ValueError("a chaos kill needs --supervise >= 1")
     from mpit_tpu_torch.train.gang import launch_gang
 
     return launch_gang("mpit_tpu_torch.train.launch", cfg, timeout,
                        env_overrides=overrides)
+
+
+def supervised_env(cfg: Config, overrides: Dict[int, Dict[str, str]]
+                   ) -> Dict[int, Dict[str, str]]:
+    """Each child's env under the supervisor.  Over TCP every rank runs
+    with ``MPIT_TCP_RECONNECT_S`` (the caller's, else 60 s): a restarted
+    rank re-binds its address and redials, and its peers re-handshake
+    instead of failing loudly.  All ranks must agree on it (it is part of
+    the mesh handshake's digest)."""
+    env = {r: dict(overrides.get(r, {})) for r in range(int(cfg.np))}
+    if cfg.transport == "tcp":
+        window = os.environ.get("MPIT_TCP_RECONNECT_S", "60")
+        for rank_env in env.values():
+            rank_env.setdefault("MPIT_TCP_RECONNECT_S", window)
+    return env
 
 
 def _sha256(t: torch.Tensor) -> str:
@@ -352,7 +488,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[Any, Any]:
 def _summarize(result: Dict[str, Any]) -> Dict[str, Any]:
     keep = {"role", "final_test_err", "time_to_target", "elapsed",
             "grads_applied", "params_served", "best_test_err", "platform",
-            "launches"}
+            "launches", "epoch", "retries", "dup_ops", "rejoins",
+            "evictions", "ckpts_written", "restored", "restarts"}
     return {k: v for k, v in result.items() if k in keep}
 
 

@@ -15,7 +15,13 @@ state (``mesh_launch``'s ``w``, ``vt``, ``k`` and ``center``, the LM's
 either package resumes in the other.  The JAX package's orbax ``step_*``
 directories belong to the multi-process mesh, a later slice of the port:
 :func:`latest_pytree_step` finds them, and ``mesh_launch`` refuses them.
-Server-state checkpoints come with the fault-tolerance slice.
+
+:func:`save_server_state` and :func:`load_server_state` carry one
+parameter server's shard, its rule state and a JSON ``meta`` (the FT
+dedup table, each client's negotiation) in the JAX package's layout
+(``param__raw`` / ``state_<key>__raw`` triplets), as a stamped history of
+the newest ``keep`` files plus ``server<rank>_latest.npz``, so a server of
+either package restores the other's.
 """
 
 from __future__ import annotations
@@ -103,6 +109,58 @@ def _pack_array(prefix: str, arr: Any, out: Dict[str, Any]) -> None:
 def _unpack_array(prefix: str, z) -> np.ndarray:
     shape = tuple(int(s) for s in z[f"{prefix}__shape"])
     return frombuffer(z[f"{prefix}__raw"].tobytes(), str(z[f"{prefix}__dtype"]), shape)
+
+
+def save_server_state(
+    directory: str | pathlib.Path,
+    rank: int,
+    offset: int,
+    size: int,
+    param: Any,
+    rule_state: Optional[Dict[str, Any]],
+    meta: Optional[Dict[str, Any]] = None,
+    keep: int = 3,
+) -> pathlib.Path:
+    """Checkpoint one server's shard: param slice + rule (optimizer) state
+    (arrays or tensors, copied to the host).  Published via
+    :func:`_stamped_atomic_publish`: a millisecond-stamped version plus the
+    ``server<rank>_latest.npz`` alias a loader (resume, a supervisor
+    restarting the rank) can always open.  The stamped history is pruned
+    to the newest ``keep``: a fault-tolerant server snapshots every
+    ``ckpt_interval`` seconds for as long as it runs."""
+    payload: Dict[str, Any] = {}
+    _pack_array("param", param, payload)
+    state = dict(rule_state or {})
+    for key, value in state.items():
+        _pack_array(f"state_{key}", value, payload)
+    payload["meta"] = json.dumps({
+        "rank": rank, "offset": offset, "size": size,
+        "state_keys": sorted(state), "runtime": time.time(),
+        **(meta or {}),
+    })
+    prefix = f"server{rank}"
+    path = _stamped_atomic_publish(directory, prefix, payload)
+    if keep > 0:
+        stamped = sorted(
+            p for p in pathlib.Path(directory).glob(f"{prefix}_*.npz")
+            if p.name[len(prefix) + 1:-len(".npz")].isdigit()
+        )
+        for old in stamped[:-keep]:
+            old.unlink(missing_ok=True)
+    return path
+
+
+def load_server_state(
+    path: str | pathlib.Path,
+) -> Tuple[int, int, np.ndarray, Dict[str, np.ndarray], Dict[str, Any]]:
+    """Inverse of :func:`save_server_state`:
+    ``(offset, size, param, rule_state, meta)``, host arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        param = _unpack_array("param", z)
+        state = {key: _unpack_array(f"state_{key}", z)
+                 for key in meta["state_keys"]}
+        return int(meta["offset"]), int(meta["size"]), param, state, meta
 
 
 def save_state_dict(

@@ -209,17 +209,17 @@ def test_mesh_launch_refuses_later_slices(flags, tmp_path):
     ("lm", "1", "slice 7"),
     ("agg", "tree", "slice 5"),
     ("dplane", "1", "slice 6"),
-    ("resume", "1", "slice 5"),
-    ("server_ckpt_dir", "/tmp/x", "slice 5"),
+    ("ft_timing", "1", "slice 5"),
+    ("ft_chunk_bytes", "65536", "slice 5"),
     ("init_v3", None, "slice 5"),
 ])
 def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
     """The CLI's --np N refuses in the parent, before any process starts:
     an unknown optimizer and a role split with no client raise
     ValueError, as the reference's launcher does, and the flags of later
-    slices and an INIT v3+ announcement raise NotImplementedError naming
-    the slice; a PS optimizer without a client raises ValueError, as the
-    reference's trainer does."""
+    slices and an INIT v3 flag of a later slice raise NotImplementedError
+    naming the slice; a PS optimizer without a client raises ValueError,
+    as the reference's trainer does."""
     from mpit_tpu_torch.train import gang
 
     def no_spawn(*args, **kw):
@@ -242,7 +242,7 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
 
         server = ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu")
         with pytest.raises(NotImplementedError, match=owner):
-            server._negotiate(1, np.asarray([0, 8, 0, 1, 1], np.int64).tobytes())
+            server._negotiate(1, np.asarray([0, 8, 0, 1, 1 | 8], np.int64).tobytes())
         return
     argv = ["--np", "2", "--device", "cpu", "--side", "8", f"--{flag}", value]
     if flag == "tester":

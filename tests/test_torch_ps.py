@@ -365,7 +365,7 @@ class TestWireCodecs:
         assert isinstance(cause, ValueError) and message in str(cause)
 
     @pytest.mark.parametrize("version,words", [
-        (3, [0, 8, 0, 1, 1]),  # [offset, size, codec, epoch, flags]
+        (3, [0, 8, 0, 1, 1 | 8]),  # v3 with FLAG_TIMING (obs)
         (4, [-1, 1, 0, 0, 0, 0, 0, 0]),  # shardctl: a whole map
         (5, [0, 8, 0, 1, 1 | 32, 1024]),  # v3 + [chunk_elems]
     ])
@@ -377,13 +377,13 @@ class TestWireCodecs:
 
 
 @pytest.mark.parametrize("cls,kw", [
-    (ParamServer, {"ft": object()}),
-    (ParamServer, {"ckpt_dir": "/tmp/x"}),
+    (ParamServer, {"preempt": object()}),
+    (ParamServer, {"admit_ranks": [3]}),
     (ParamServer, {"reader_ranks": [3]}),
     (ParamServer, {"cell_ranks": [3]}),
     (ParamServer, {"dplane": object()}),
     (ParamServer, {"shardctl": True}),
-    (ParamClient, {"ft": object()}),
+    (ParamClient, {"controller_rank": 0}),
     (ParamClient, {"shardctl": True}),
     (ParamClient, {"layout": []}),
 ])
