@@ -46,7 +46,10 @@ order; any failure raises and the script exits non-zero:
    EAMSGD, K3 in the servers = 2 x the workers' steps under Adam, none at
    DOWNPOUR); then ``tools/torch_ptest.py``'s push/pull bandwidth over shm
    (64 MB, 2 servers + 2 clients, codecs none and int8: MB/s and the
-   servers' per-GRAD apply);
+   servers' per-GRAD apply), and its observability legs at codec none in
+   one more call: obs off, obs on (MB/s of each and their ratio, written
+   down, never gated), and the framed ``FLAG_TIMING`` wire with traces,
+   decomposed by ``obs analyze`` (every op joined);
 6b. BiCNN (slice 4): ``bicnn_scale`` (``tools/torch_bicnn_scale.py`` at its
    defaults: 3,000 filters, 3,416,600 floats, two epochs of 63 steps,
    examples/s, each epoch's seconds, the warm test3, then ten steps under
@@ -82,6 +85,21 @@ order; any failure raises and the script exits non-zero:
    bit-equal in storage of their own; save and restore times printed) and
    ``ft_lease_eviction`` (a silent worker evicted within 1.5x a 1 s lease,
    rejoining as epoch 1);
+6d. observability (slice 5b): ``obs_lockstep_adam`` (the ``ft_retry_dedup``
+   gang, fault-free, run four times in turns: obs off, then obs, the
+   profile plane and ``FLAG_TIMING`` on, twice, then off: all bit for bit,
+   K3 32 = 2 x 16 in each run, each on-run's applied server GRAD spans 32
+   and its trace joined; each round's ms printed), then
+   ``obs_timed_procs`` (``launch --np 4 --opt adam`` over shm at the
+   flagship widths, 20 epochs, with ``--ft_op_deadline_s``, ``--ft_timing
+   1``, ``MPIT_OBS_TRACE``, ``MPIT_OBS_PROFILE=1`` and ``MPIT_OBS_HTTP`` on
+   a free base port: while it trains this process scrapes every rank's
+   ``/metrics`` and ``/status`` and takes one ``top`` table; then the
+   merged trace validates, ``python -m mpit_tpu_torch.obs analyze`` joins
+   every op with no violation and the wire's offsets for all four
+   client-server pairs, each server's applied GRAD spans equal its K3
+   launches and its applies, and ``obs profile`` reads the counter tracks;
+   samples/s and the decomposition's per-phase p50/p99 printed);
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
@@ -1330,6 +1348,29 @@ def process_gang_paths(torch, paths, inproc, smi):
             raise AssertionError(f"ptest_shm: {row}")
     if [row["codec"] for row in rows] != ["none", "int8"]:
         raise AssertionError(f"ptest_shm: rows {rows}")
+    # The observability legs at codec none, in one call: obs off, then on
+    # (registry counters and op spans in every child), then the framed
+    # FLAG_TIMING wire with traces, merged and decomposed by `obs analyze`.
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
+                          env=dict(os.environ, MPIT_BENCH_CODECS="none", MPIT_BENCH_OBS="1",
+                                   MPIT_BENCH_DECOMP="1"),
+                          capture_output=True, text=True, timeout=600)
+    sys.stdout.write(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"ptest_shm obs legs failed ({proc.returncode}):\n{proc.stdout}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    for row in rows:
+        print(f"ptest_shm_obs on {smi}: " + json.dumps(row))
+    legs = [(row["obs"], row.get("decomp", 0)) for row in rows]
+    if legs != [(0, 0), (1, 0), (0, 1)] or not all(row["value"] > 0 for row in rows):
+        raise AssertionError(f"ptest_shm obs legs: {legs}")
+    if rows[2]["join_rate"] != 1.0:
+        raise AssertionError(f"ptest_shm decomposition: join rate {rows[2]['join_rate']}")
+    # The JAX twin gates obs-on at 97% of the captured record; the ratio is
+    # written down here, whatever it is, and does not fail the run.
+    print(f"ptest_shm obs on {smi}: codec none {rows[0]['value']} MB/s with obs off, "
+          f"{rows[1]['value']} MB/s on (ratio {rows[1]['value'] / rows[0]['value']:.4f}), "
+          f"{rows[2]['value']} MB/s on the timed, traced wire")
     print(f"ptest_shm: {time.perf_counter() - t_ptest:.1f}s; process gang phases: "
           f"{time.perf_counter() - t0:.1f}s")
     print("process gang timing: " + json.dumps(timing))
@@ -1351,10 +1392,11 @@ FT_SERVER_PLAN = dict(seed=9, drop_every=3, tags=FT_REPLY_TAGS)
 FT_LEASE_TTL_S = 1.0
 
 
-def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2):
+def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=False):
     """2 servers (ranks 0, 1) on the card and ``nclients`` clients over one
     in-process router, each endpoint behind its side's fault plan where
-    one is given (client ``i`` seeded ``i``); the servers run on threads.
+    one is given (client ``i`` seeded ``i``), the clients on the
+    ``FLAG_TIMING`` wire with ``timing``; the servers run on threads.
     Returns (servers, clients, threads)."""
     import threading
 
@@ -1380,7 +1422,7 @@ def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2):
         if client_plan:
             ep = FaultyTransport(ep, FaultPlan(seed=i, **client_plan))
         clients.append(ParamClient(r, [0, 1], ep, seed_servers=(i == 0), codec=codec,
-                                   ft=FTConfig(**FT_FAST)))
+                                   ft=FTConfig(**FT_FAST, timing=timing)))
     return servers, clients, threads
 
 
@@ -1431,20 +1473,21 @@ def ft_close(name, servers, clients, threads, kernels):
     return stats
 
 
-def ft_lockstep_adam(torch, kernels, data, faulty):
+def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None):
     """Two workers compute the flagship CNN's gradient on the card at the
     params they pull, in lockstep turns (each pulls, computes, pushes and
     has its GRAD acked before the other moves: the order
     ``tests/test_ft.py``'s ``run_lockstep`` pins), against two servers
-    applying Adam by K3 to their 272,261-float shards.  Returns the final
-    params, the counts and the seconds a round took."""
+    applying Adam by K3 to their 272,261-float shards, on the
+    ``FLAG_TIMING`` wire with ``timing``.  Returns the final params, the
+    counts and the seconds a round took."""
     import numpy as np
 
     from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll_eager
     from mpit_tpu_torch.models.mnist import make_model
     from mpit_tpu_torch.optim import rules
 
-    name = f"ft_adam_{'faulty' if faulty else 'clean'}"
+    name = name or f"ft_adam_{'faulty' if faulty else 'clean'}"
     flat = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1,
                           GANG_BASE["device"])
     vgf = value_and_grad_nll_eager(flat)
@@ -1452,7 +1495,7 @@ def ft_lockstep_adam(torch, kernels, data, faulty):
     batch = GANG_BASE["batch"]
     servers, clients, threads = ft_gang(
         rules.make("adam", lr=1e-3), None, server_plan=faulty and FT_SERVER_PLAN,
-        client_plan=faulty and FT_CLIENT_PLAN)
+        client_plan=faulty and FT_CLIENT_PLAN, timing=timing)
     params = [flat.w0.cpu().numpy().copy(), np.zeros(flat.size, np.float32)]
     grads = [np.zeros(flat.size, np.float32) for _ in clients]
     vgf(flat.w0, x[:batch], y[:batch])  # first-call costs out of the rounds
@@ -1891,6 +1934,248 @@ def ft_phases(torch, kernels, all_paths, smi, timing):
         chaos_s = chaos.result()
     print(f"ft phases: {time.perf_counter() - t0:.1f}s (in-process {inproc_s:.1f}s, "
           f"supervised gangs {chaos_s:.1f}s, side by side)")
+
+
+# -- observability (slice 5b) -----------------------------------------------------
+
+#: the timed process gang's epochs: long enough that the parent scrapes every
+#: rank's endpoint and takes a ``top`` table while the workers train
+OBS_PROCS_EPOCHS = 20
+
+
+def obs_lockstep_adam(torch, kernels, all_paths, smi, tmp):
+    """``ft_lockstep_adam`` (2 workers, 2 Adam servers at 272,261 a shard,
+    8 lockstep rounds) with obs off and with obs on, the profile plane on
+    and the clients on the ``FLAG_TIMING`` wire, in turns (off, on, on,
+    off: the first gang of a process pays first-call costs): all four bit
+    for bit, K3 32 = 2 x 16 in each run, each on-run's applied server GRAD
+    spans 32, and its trace joins (rate 1.0, no violations).  Prints the
+    round of each run."""
+    import numpy as np
+
+    from mpit_tpu_torch import obs
+    from mpit_tpu_torch.data.mnist import load_mnist
+    from mpit_tpu_torch.obs import causal, profile, spans, trace
+
+    raw, _ = load_mnist(side=GANG_BASE["side"])
+    data = (torch.as_tensor(raw[0], device=GANG_BASE["device"]),
+            torch.as_tensor(np.asarray(raw[1]), dtype=torch.int64, device=GANG_BASE["device"]))
+    want = 2 * 2 * FT_ROUNDS
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, on in enumerate((False, True, True, False)):
+            obs.configure(enabled=on, reset=True)
+            if on:
+                profile.configure(enabled=True, reset=True)
+            final, stats, round_s = ft_lockstep_adam(
+                torch, kernels, data, False, timing=on,
+                name=f"obs_adam_{'on' if on else 'off'}")
+            run = {"obs": on, "round_ms": round_s * 1e3, "stats": stats, "final": final}
+            if on:
+                run["grad_spans"] = sum(1 for sp in spans.get_recorder().spans
+                                        if sp.name == "GRAD" and sp.outcome == "applied"
+                                        and sp.args.get("side") == "server")
+                report = causal.analyze(trace.write_rank_trace(
+                    os.path.join(tmp, f"obs_adam{i}.json"), 0, role="gang"))
+                run["join"] = report["ops"]
+                run["violations"] = report["violations"]
+            runs.append(run)
+    finally:
+        obs.configure(enabled=None, reset=True)
+        torch.backends.cudnn.deterministic = deterministic
+    print("obs_lockstep_adam: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "final"} for r in runs]))
+    off_ms = [r["round_ms"] for r in runs if not r["obs"]]
+    on_ms = [r["round_ms"] for r in runs if r["obs"]]
+    print(f"obs_lockstep_adam on {smi}: a lockstep round (2 workers, 2 Adam servers at "
+          f"272,261), in turns off/on/on/off: {' / '.join('%.2f' % r['round_ms'] for r in runs)}"
+          f" ms; obs off {sum(off_ms) / 2:.2f} ms, obs, the profile plane and FLAG_TIMING "
+          f"on {sum(on_ms) / 2:.2f} ms (means of each pair)")
+    for r in runs:
+        if r["final"].tobytes() != runs[0]["final"].tobytes():
+            raise AssertionError("obs_lockstep_adam: obs on and off end at different bits "
+                                 f"(max gap {np.abs(r['final'] - runs[0]['final']).max()})")
+        if r["stats"]["launches"]["k3"] != want or r["stats"]["grads_applied"] != want:
+            raise AssertionError(f"obs_lockstep_adam: {r['stats']}, want K3 = applies = {want}")
+        if r["obs"] and (r["grad_spans"] != want or r["join"]["join_rate"] != 1.0
+                         or r["violations"]):
+            raise AssertionError(f"obs_lockstep_adam: {r['grad_spans']} applied server GRAD "
+                                 f"spans (want {want}), join {r['join']}, violations "
+                                 f"{r['violations'][:3]}")
+    record_path(all_paths, "obs_adam_off", runs[0]["stats"]["launches"], 2 * FT_ROUNDS)
+    record_path(all_paths, "obs_adam_on", runs[1]["stats"]["launches"], 2 * FT_ROUNDS)
+
+
+def http_get(port, route, timeout=2.0):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=timeout) as resp:
+        return resp.read()
+
+
+def obs_cli(args, timeout=300):
+    """``python -m mpit_tpu_torch.obs <args>``; returns (rc, stdout)."""
+    proc = subprocess.run([sys.executable, "-m", "mpit_tpu_torch.obs", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.stderr.strip():
+        sys.stdout.write(proc.stderr)
+    return proc.returncode, proc.stdout
+
+
+def obs_timed_procs(torch, all_paths, smi, tmp):
+    """``launch --np 4 --opt adam`` over shm at the flagship widths, every
+    rank on the card, on the framed ``FLAG_TIMING`` wire with traces, the
+    profile plane and the live endpoints on (``MPIT_OBS_TRACE``,
+    ``MPIT_OBS_PROFILE=1``, ``MPIT_OBS_HTTP`` on a free base port).  While
+    it trains, this process scrapes every rank's ``/metrics`` and
+    ``/status`` and takes one ``top`` table; an endpoint that never answers
+    is an error.  Then the merged trace must validate, ``obs analyze`` join
+    every op (rate 1.0, no violations, the wire's offsets for all four
+    client-server pairs), each server's applied GRAD spans equal its K3
+    launches and its applies, and ``obs profile`` read the counter tracks."""
+    import threading
+
+    from mpit_tpu_torch.obs import causal, trace
+    from mpit_tpu_torch.obs.statusd import free_base_port
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
+
+    name = "obs_timed_procs"
+    size = 4
+    base = free_base_port(size)
+    trace_path = os.path.join(tmp, "obs_timed.json")
+    env = {"MPIT_OBS_TRACE": trace_path, "MPIT_OBS_PROFILE": "1",
+           "MPIT_OBS_HTTP": str(base)}
+    saved = {k: os.environ.get(k) for k in env}
+    cfg = LAUNCH_DEFAULTS.merged(GANG_BASE, np=size, opt="adam", lr=1e-3, su=1,
+                                 epochs=OBS_PROCS_EPOCHS, ft_op_deadline_s=30.0,
+                                 ft_timing=True)
+    box = {}
+
+    def run():
+        try:
+            box["results"] = launch_processes(cfg, timeout=600)
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            box["error"] = exc
+
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        gang = threading.Thread(target=run, daemon=True)
+        gang.start()
+        # Each child serves its endpoint once torch is imported and its
+        # CUDA context made (8-10 s on this host): poll until every rank
+        # answered, while the gang lives.
+        scraped = {}
+        deadline = time.monotonic() + 300
+        while len(scraped) < size and gang.is_alive() and time.monotonic() < deadline:
+            for rank in range(size):
+                if rank in scraped:
+                    continue
+                try:
+                    metrics = http_get(base + rank, "/metrics").decode()
+                    status = json.loads(http_get(base + rank, "/status"))
+                except OSError:
+                    continue
+                if "mpit_" not in metrics:
+                    continue  # up, but its role has not registered yet
+                scraped[rank] = {"role": status.get("role"), "pid": status.get("pid"),
+                                 "metrics_lines": len(metrics.splitlines()),
+                                 "up_s": time.perf_counter() - t0}
+            time.sleep(0.1)
+        top_rc, top_out = (None, "")
+        if len(scraped) == size and gang.is_alive():
+            top_rc, top_out = obs_cli(["top", "--np", str(size), "--base-port", str(base),
+                                       "--iters", "1", "--json", "--min-up", str(size),
+                                       "--retry-s", "60"], timeout=120)
+        gang.join(600)
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if "error" in box or gang.is_alive():
+        raise AssertionError(f"{name}: the gang failed: {box.get('error')}")
+    print(f"{name}: endpoints scraped: " + json.dumps(scraped))
+    if len(scraped) != size:
+        raise AssertionError(f"{name}: endpoints of ranks "
+                             f"{sorted(set(range(size)) - set(scraped))} never answered")
+    if top_rc != 0:
+        raise AssertionError(f"{name}: top failed ({top_rc}) while the gang ran: {top_out}")
+    top_rows = json.loads(top_out.strip().splitlines()[-1])["ranks"]
+    print(f"{name}: top: " + json.dumps(top_rows))
+    results = box["results"]
+    off = {r: res["platform"] for r, res in results.items()
+           if res["platform"] != GANG_BASE["device"]}
+    if off:
+        raise AssertionError(f"{name}: ranks off the card: {off}")
+    stats = trace.validate_trace(trace_path)
+    print(f"{name}: trace {os.path.getsize(trace_path)} bytes: " + json.dumps(stats))
+    rc, out = obs_cli(["analyze", trace_path, "--json", "--min-join", "1.0"])
+    if rc != 0:
+        raise AssertionError(f"{name}: obs analyze failed ({rc})")
+    report = json.loads(out)
+    sources = {(e["client"], e["server"]): e["source"] for e in report["offsets"]}
+    want_pairs = {(c, s) for c in (1, 3) for s in (0, 2)}
+    if report["ops"]["join_rate"] != 1.0 or report["violations"] \
+            or {p: sources.get(p) for p in want_pairs} != {p: "wire" for p in want_pairs}:
+        raise AssertionError(f"{name}: join {report['ops']}, violations "
+                             f"{report['violations'][:3]}, offsets {sources}")
+    events, _ = causal.load_trace(trace_path)
+    spans = causal.extract_spans(events)
+    per_server = {}
+    for r, res in sorted(results.items()):
+        if res["role"] != "server":
+            continue
+        grads = sum(1 for sp in spans if sp.name == "GRAD" and sp.side == "server"
+                    and sp.pid == r and sp.outcome == "applied")
+        per_server[r] = {"grad_spans": grads, "k3": res["launches"]["k3"],
+                         "grads_applied": res["grads_applied"]}
+        if not grads == res["launches"]["k3"] == res["grads_applied"] > 0:
+            raise AssertionError(f"{name}: server {r}: {per_server[r]}")
+    rc, out = obs_cli(["profile", trace_path, "--json", "--require-counters"])
+    if rc != 0:
+        raise AssertionError(f"{name}: obs profile failed ({rc})")
+    prof = json.loads(out)
+    workers = [res for res in results.values() if res["role"] == "worker"]
+    steps = [w["steps"] for w in workers]
+    phases = {op: {ph: [round(p["p50_us"], 1), round(p["p99_us"], 1)]
+                   for ph, p in st["phases"].items() if p["count"]}
+              for op, st in report["phase_stats"].items()}
+    reading = {
+        "wall_s": wall, "samples_per_sec": sum(steps) * cfg.batch / wall,
+        "samples_per_sec_train": train_rate(workers, cfg.batch),
+        "worker_steps": steps, "servers": per_server, "ops": report["ops"],
+        "phase_p50_p99_us": phases,
+        "cpu_util": {r: round(row["cpu_util"], 3) for r, row in prof["ranks"].items()},
+        "counter_events": prof["counter_events"],
+    }
+    print(f"{name}: " + json.dumps(reading))
+    print(f"{name} on {smi}: {reading['samples_per_sec']:.1f} samples/s over the wall, "
+          f"{reading['samples_per_sec_train']:.1f} on the workers' clocks; "
+          f"{report['ops']['joined']} ops joined")
+    launches = {k: sum(res["launches"][k] for res in results.values())
+                for k in ("k1", "k2", "k3")}
+    if launches["k3"] != 2 * sum(steps):
+        raise AssertionError(f"{name}: K3 {launches['k3']}, want 2 x {sum(steps)} steps")
+    record_path(all_paths, name, launches, sum(steps))
+
+
+def obs_phases(torch, kernels, all_paths, smi):
+    """Observability on the card (slice 5b): the in-process lockstep Adam
+    gang with obs off and on, then the timed, traced process gang."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        obs_lockstep_adam(torch, kernels, all_paths, smi, tmp)
+        t1 = time.perf_counter()
+        obs_timed_procs(torch, all_paths, smi, tmp)
+    print(f"obs phases: {time.perf_counter() - t0:.1f}s (in-process {t1 - t0:.1f}s, "
+          f"process gang {time.perf_counter() - t1:.1f}s)")
 
 
 FA_CASES = (
@@ -2886,6 +3171,7 @@ def main() -> int:
     k3["paths"]["adam_gang_vs_cpu"] = adam_gang_vs_cpu(torch, kernels)
     gang_timing = process_gang_paths(torch, all_paths, inproc, smi)
     ft_phases(torch, kernels, all_paths, smi, gang_timing)
+    obs_phases(torch, kernels, all_paths, smi)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 

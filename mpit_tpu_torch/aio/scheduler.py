@@ -1,9 +1,11 @@
 """Cooperative task scheduler (analog of reference init.lua:21-25,128-185).
 
-A copy of ``mpit_tpu/aio/scheduler.py`` without its observability hooks
-(flight recorder, CPU profile, spans; they come with the port's obs layer)
-and without the completion callbacks and wait variants no caller of the
-port uses.  The fault-tolerance timers are here: op deadlines
+A copy of ``mpit_tpu/aio/scheduler.py`` without the completion callbacks
+and wait variants no caller of the port uses.  Its observability hooks
+are the JAX scheduler's: task spans, the per-step ``thread_time`` stamps of
+the CPU profile, the run-queue sample and the stall dump of the flight
+recorder (:mod:`mpit_tpu_torch.obs`).  The fault-tolerance timers are
+here: op deadlines
 (:class:`DeadlineExceeded`, :func:`deadline_at`), ``abort`` predicates on
 the transfer generators (lease eviction, a superseded service
 generation), :func:`aio_sleep` and ``Scheduler.wait(deadline=)``.  The
@@ -29,6 +31,10 @@ import time
 from typing import Any, Callable, Generator, Optional
 
 from mpit_tpu_torch.aio.queue import Queue
+from mpit_tpu_torch.obs import flight as _obs_flight
+from mpit_tpu_torch.obs import metrics as _obs_metrics
+from mpit_tpu_torch.obs import profile as _obs_profile
+from mpit_tpu_torch.obs import spans as _obs_spans
 
 # Idle backoff (microseconds) for the wait loops: after a full pass over
 # the queue completes NO task, the waiter sleeps this long before polling
@@ -37,6 +43,14 @@ from mpit_tpu_torch.aio.queue import Queue
 # to launch the next kernel, or to deliver the awaited message, needs.
 # 0 disables.
 IDLE_USEC = float(os.environ.get("MPIT_AIO_IDLE_USEC", "200"))
+
+# Stuck-gang watchdog (obs/flight.py): when a non-empty queue has
+# accumulated this many seconds of idle backoff without completing a
+# single task, the scheduler dumps its live task table plus the flight
+# recorder's recent events.  Counted in idle-backoff seconds (no extra
+# clock reads on the hot path); active only when obs is enabled; 0
+# disables.
+STALL_S = float(os.environ.get("MPIT_OBS_STALL_S", "60"))
 
 # Task signals (reference init.lua:21-25).  INIT/OK are retained for state
 # reporting; the scheduler itself only reacts to EXEC (keep going) vs DONE.
@@ -88,7 +102,7 @@ class Task:
     ``result`` holds the generator's return value once state is DONE.
     """
 
-    __slots__ = ("gen", "name", "state", "result", "error")
+    __slots__ = ("gen", "name", "state", "result", "error", "t_obs", "cpu_s")
 
     def __init__(self, gen: Generator[Any, None, Any], name: str = "task") -> None:
         self.gen = gen
@@ -96,6 +110,8 @@ class Task:
         self.state = INIT
         self.result: Any = None
         self.error: Optional[BaseException] = None
+        self.t_obs: Any = None  # span-recorder token (None when disabled)
+        self.cpu_s = 0.0  # on-CPU seconds (profiler-stamped; 0 when off)
 
     def step(self) -> str:
         """Advance the generator one yield.  Returns the new state."""
@@ -125,15 +141,33 @@ class Scheduler:
     (init.lua:147-174), ``wait`` = co_wait (init.lua:178-185).
     """
 
-    def __init__(self) -> None:
+    def __init__(self, idle_usec: Optional[float] = None,
+                 stall_s: Optional[float] = None) -> None:
         self.queue: Queue[Task] = Queue()
         self.errors: list[TaskError] = []
+        self.idle_usec = IDLE_USEC if idle_usec is None else float(idle_usec)
         self._completions = 0
+        # Observability: instruments are captured once — disabled they are
+        # the shared null objects, so the per-step and idle accounting
+        # below costs one no-op method call and reads no clock.
+        self._rec = _obs_spans.get_recorder()
+        self._flight = _obs_flight.get_flight()
+        self._prof = _obs_profile.get_profiler()
+        self.stall_s = STALL_S if stall_s is None else float(stall_s)
+        self._idle_accum = 0.0
+        self._stall_dumped = False
+        _reg = _obs_metrics.get_registry()
+        self._m_steps = _reg.counter("mpit_aio_steps_total")
+        self._m_idle = _reg.counter("mpit_aio_idle_seconds_total")
+        self._m_tasks = _reg.counter("mpit_aio_tasks_total")
+        self._m_stalls = _reg.counter("mpit_aio_stall_dumps_total")
 
     # -- co_execute ---------------------------------------------------------
     def spawn(self, gen: Generator[Any, None, Any], name: str = "task") -> Task:
         """Create a task, prime it with one step, queue it if still running."""
         task = Task(gen, name=name)
+        self._m_tasks.inc()
+        task.t_obs = self._rec.task_begin(name)
         self._step_and_requeue(task)
         return task
 
@@ -159,11 +193,34 @@ class Scheduler:
         done0 = self._completions
         for _ in range(len(self.queue)):
             self.ping()
+        if self._prof.enabled:
+            # Counter-track sample (throttled inside the profiler):
+            # run-queue depth + cumulative task CPU.
+            self._prof.sample(len(self.queue))
         progressed = self._completions != done0
-        if not progressed and IDLE_USEC > 0 and self.queue:
+        if progressed:
+            self._idle_accum = 0.0
+            self._stall_dumped = False
+        elif self.idle_usec > 0 and self.queue:
             # Full pass, nothing finished: yield the core (see IDLE_USEC)
             # instead of burning it on iprobe spins.
-            time.sleep(IDLE_USEC * 1e-6)
+            time.sleep(self.idle_usec * 1e-6)
+            self._m_idle.inc(self.idle_usec * 1e-6)
+            self._idle_accum += self.idle_usec * 1e-6
+            if (self._flight.enabled and self.stall_s > 0
+                    and not self._stall_dumped
+                    and self._idle_accum >= self.stall_s):
+                # Stuck gang: nothing completed across stall_s of idle
+                # backoff.  Dump once per stall episode.
+                self._stall_dumped = True
+                self._m_stalls.inc()
+                self._flight.record(
+                    "scheduler_stall", idle_s=self._idle_accum,
+                    pending=[t.name for t in self.queue])
+                self._flight.dump(
+                    "scheduler_stall",
+                    tasks=[(t.name, t.state) for t in self.queue],
+                    idle_s=self._idle_accum)
         return progressed
 
     # -- co_wait ------------------------------------------------------------
@@ -184,14 +241,31 @@ class Scheduler:
             raise self.errors.pop(0)
 
     def _step_and_requeue(self, task: Task) -> None:
-        state = task.step()
+        prof = self._prof
+        if prof.enabled:
+            # Per-task CPU attribution (obs/profile.py): the delta of the
+            # stepping thread's CPU clock across this step belongs to this
+            # task — the task-switch boundary is the yield.
+            c0 = prof.cpu_now()
+            state = task.step()
+            d = prof.cpu_now() - c0
+            if d > 0:
+                task.cpu_s += d
+            prof.step(task.name, d)
+        else:
+            state = task.step()
+        self._m_steps.inc()
         if state == EXEC:
             self.queue.push(task)
         elif state == ERR:
             self._completions += 1
+            self._rec.task_end(task.t_obs, task.name, ERR,
+                               cpu_us=task.cpu_s * 1e6)
             self.errors.append(TaskError(task, task.error))  # type: ignore[arg-type]
         elif state == DONE:
             self._completions += 1
+            self._rec.task_end(task.t_obs, task.name, DONE,
+                               cpu_us=task.cpu_s * 1e6)
 
     def __len__(self) -> int:
         return len(self.queue)

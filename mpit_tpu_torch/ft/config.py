@@ -22,9 +22,8 @@ Env mirrors (``FTConfig.from_env``) let process-gang children inherit
 the gang's FT posture without threading it through every entry point.
 
 The port keeps every field and env name of the JAX package's config, and
-refuses the two whose layers come with later slices: ``timing`` (the
-causal-timing extension rides ``obs/clock`` and ``obs/causal``) and
-``chunk_bytes`` (chunked streaming rides ``comm/pool``).
+refuses the one whose layer comes with a later slice: ``chunk_bytes``
+(chunked streaming rides ``comm/pool``).
 """
 
 from __future__ import annotations
@@ -34,7 +33,6 @@ from dataclasses import dataclass
 
 #: What each refused field belongs to.
 LATER_FIELDS = {
-    "timing": "causal timing (FLAG_TIMING; slice 5, obs)",
     "chunk_bytes": "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
                    "streaming with comm/pool)",
 }
@@ -82,9 +80,6 @@ class FTConfig:
     chunk_bytes: int = 0
 
     def __post_init__(self) -> None:
-        if self.timing:
-            raise NotImplementedError(
-                f"FTConfig(timing=True): {LATER_FIELDS['timing']} of the port")
         if self.chunk_bytes:
             raise NotImplementedError(
                 f"FTConfig(chunk_bytes={self.chunk_bytes}): "

@@ -1,5 +1,132 @@
-"""Trainer-loop timers and ``torch.profiler`` hooks."""
+"""mpit_tpu_torch.obs — unified observability: metrics, op spans, tracing.
 
+The reference framework's only instrumentation is ad-hoc wall-clock
+tables (``tm.feval``/``tm.sync`` in the MNIST trainer, an 11-bucket
+table in BiCNN), and the async-PS literature is unambiguous that the
+pathologies that matter at scale — stragglers, skewed arrival, retry
+storms (MXNET-MPI arxiv 1801.03855, the imbalanced-arrival study arxiv
+1804.05349) — are diagnosable only with per-op timing and per-peer
+counters.  This package is the one place the stack reports through:
+
+- :mod:`mpit_tpu_torch.obs.metrics` — a process-local **registry** of
+  counters, gauges and fixed-log2-bucket histograms.  Zero-dep,
+  lock-cheap, snapshot-to-dict plus Prometheus-style text exposition.
+  Disabled (the default) it is a **no-op object**: every instrument is
+  one shared null singleton whose methods do nothing — hot paths pay a
+  method call, never a branch tree or a clock read.
+- :mod:`mpit_tpu_torch.obs.spans` — **op spans**: every PS op records
+  start/end, per-phase marks (encode → send → ack on the client,
+  apply → ack on the server), its ``[epoch, seq]`` identity and an
+  outcome, so a straggling or retried op is attributable to a phase
+  and a peer.  Scheduler task lifecycles record alongside.
+- :mod:`mpit_tpu_torch.obs.trace` — a **Chrome trace-event exporter**: spans
+  plus task lifecycles dump as trace JSON (one pid per rank, one tid
+  per op channel / task), merged across ranks by the gang launcher at
+  exit (``MPIT_OBS_TRACE=path``) and viewable in Perfetto /
+  chrome://tracing next to a ``torch.profiler`` device timeline.
+- :mod:`mpit_tpu_torch.obs.timers` — the old ``utils/timers.py``
+  (``PhaseTimers``, ``trace_annotation``, ``profiler_trace``), folded
+  in; ``mpit_tpu_torch.utils.timers`` re-exports it.
+- :mod:`mpit_tpu_torch.obs.statusd` — the **live half**: a per-rank HTTP
+  introspection endpoint (``MPIT_OBS_HTTP=<base_port>``; base+rank per
+  process) serving ``/metrics`` (Prometheus exposition), ``/status``
+  (role/lease/map state + the in-flight op table) and ``/trace``
+  (dump-on-demand) while the gang runs.
+- :mod:`mpit_tpu_torch.obs.flight` — a bounded **flight recorder** of recent
+  span/task/FT events, dumped to disk on ``RetryExhausted``, eviction,
+  and scheduler stall — a hang produces a postmortem instead of
+  nothing.
+- :mod:`mpit_tpu_torch.obs.top` — ``python -m mpit_tpu_torch.obs top``: a gang-wide
+  aggregator polling every rank's endpoint into one table (throughput,
+  staleness, retries, shard load, p99 op latency, send-queue depth).
+- :mod:`mpit_tpu_torch.obs.clock` — the process time base plus the per-peer
+  **clock-offset estimator** fed by the FLAG_TIMING wire extension
+  (NTP-style minimum-RTT exchanges over op acks and heartbeat echoes).
+- :mod:`mpit_tpu_torch.obs.causal` — ``python -m mpit_tpu_torch.obs analyze``: the
+  offline **causal joiner**: merges per-rank trace halves into op
+  chains keyed by wire identity, aligns rank clocks, decomposes each
+  op's latency onto the encode → send-queue → wire → server-queue →
+  apply → ack-wire → client-wait taxonomy, reports per-phase
+  percentiles and the critical path, and emits Perfetto flow arrows.
+- :mod:`mpit_tpu_torch.obs.profile` — the **CPU/utilization attribution
+  plane** (``MPIT_OBS_PROFILE=1``): per-task ``time.thread_time()``
+  accounting stamped by the cooperative scheduler, ``cpu_us`` riders
+  on op spans and their phases, Chrome counter tracks (pool_util /
+  pool_depth / sched_runq / task_cpu) sampled into the trace, and
+  ``python -m mpit_tpu_torch.obs profile`` — per-rank core utilization,
+  on/off-CPU phase split, pool overlap efficiency, top tasks by CPU.
+
+Enablement: ``MPIT_OBS=1`` (or ``MPIT_OBS_TRACE=<path>``, which implies
+it) turns the global registry + recorder on; :func:`configure` does the
+same programmatically for tests.  Components capture the registry at
+construction, so enable *before* building transports/roles.  See
+docs/OBSERVABILITY.md for the metric catalog and trace schema.
+
+The port of ``mpit_tpu/obs/``: every module but :mod:`timers` (whose
+profiler bridge is ``torch.profiler``) and :mod:`profile` (no native
+worker pool yet) is a copy, and the port imports nothing of the JAX
+package.  Traces, flight dumps and expositions are the JAX package's
+formats, so either package's tools read the other's files.
+"""
+
+from mpit_tpu_torch.obs.clock import ClockEstimator, PeerClock, wall_us
+from mpit_tpu_torch.obs.flight import (
+    NULL_FLIGHT,
+    FlightRecorder,
+    get_flight,
+    validate_dump,
+)
+from mpit_tpu_torch.obs.metrics import (
+    NULL_REGISTRY,
+    Counter,
+    Gauge,
+    Histogram,
+    NullRegistry,
+    Registry,
+    configure,
+    get_registry,
+    obs_enabled,
+    registry_or_local,
+)
+from mpit_tpu_torch.obs.profile import (
+    NULL_PROFILER,
+    Profiler,
+    get_profiler,
+    profile_enabled,
+    resource_snapshot,
+)
+from mpit_tpu_torch.obs.spans import (
+    NULL_RECORDER,
+    NULL_SPAN,
+    OpSpan,
+    SpanRecorder,
+    get_recorder,
+)
+from mpit_tpu_torch.obs.statusd import StatusServer
+from mpit_tpu_torch.obs.statusd import maybe_start as maybe_start_statusd
+from mpit_tpu_torch.obs.statusd import register_action as register_status_action
+from mpit_tpu_torch.obs.statusd import register_provider as register_status_provider
 from mpit_tpu_torch.obs.timers import PhaseTimers, profiler_trace, trace_annotation
+from mpit_tpu_torch.obs.trace import (
+    maybe_merge_rank_traces,
+    maybe_write_rank_trace,
+    merge_traces,
+    validate_trace,
+    write_rank_trace,
+)
 
-__all__ = ["PhaseTimers", "profiler_trace", "trace_annotation"]
+__all__ = [
+    "Registry", "NullRegistry", "NULL_REGISTRY",
+    "Counter", "Gauge", "Histogram",
+    "get_registry", "registry_or_local", "obs_enabled", "configure",
+    "SpanRecorder", "OpSpan", "NULL_RECORDER", "NULL_SPAN", "get_recorder",
+    "FlightRecorder", "NULL_FLIGHT", "get_flight", "validate_dump",
+    "StatusServer", "maybe_start_statusd", "register_status_provider",
+    "register_status_action",
+    "write_rank_trace", "merge_traces", "validate_trace",
+    "maybe_write_rank_trace", "maybe_merge_rank_traces",
+    "PhaseTimers", "trace_annotation", "profiler_trace",
+    "ClockEstimator", "PeerClock", "wall_us",
+    "Profiler", "NULL_PROFILER", "get_profiler", "profile_enabled",
+    "resource_snapshot",
+]

@@ -1,0 +1,117 @@
+"""``python -m mpit_tpu_torch.obs <subcommand>`` — the obs toolbox CLI.
+
+Subcommands:
+
+- ``validate <trace.json>...`` — structural Chrome-trace validation
+  (balanced B/E pairs, well-formed events); also the default when the
+  first argument is not a subcommand name, so the historical spelling
+  ``python -m mpit_tpu_torch.obs trace.json`` keeps working (CI relies on it).
+- ``merge <base>`` — assemble leftover ``<base>.rank<N>.json`` part
+  files from a *crashed* gang into ``<base>`` (the launcher only merges
+  after a clean exit; this is the hand-assembly it replaces).  Parts are
+  kept by default for further postmortem; ``--cleanup`` removes them
+  after a successful merge.
+- ``top --np N [--base-port P]`` — live gang telemetry table polled
+  from every rank's statusd endpoint (obs/top.py).
+- ``flight <dump.json>...`` — validate flight-recorder dumps
+  (obs/flight.py schema).
+- ``analyze <trace.json> [--json] [--min-join F] [--emit-flow PATH]``
+  — join the client and server halves of every framed op into causal
+  chains, align rank clocks, decompose per-op latency onto the phase
+  taxonomy and report the critical path (obs/causal.py).  Exit 1 on
+  negative phase durations beyond clock uncertainty or a join rate
+  below ``--min-join`` — the CI obs-trace job gates on both.
+- ``profile <trace.json> [--json] [--top N] [--require-counters]`` —
+  CPU/utilization attribution (obs/profile.py): per-rank core use,
+  the on/off-CPU split of every marked phase, pool overlap efficiency
+  (busy-seconds ÷ wall × threads), encode-while-wire fraction, and the
+  top tasks by CPU.  ``--require-counters`` exits 1 unless the trace
+  carries ``ph:"C"`` counter-track samples (the CI profile-smoke gate).
+
+A copy of ``mpit_tpu/obs/__main__.py``: the port imports nothing of the JAX
+package.
+"""
+
+import glob as _glob
+import sys
+
+
+def _merge_main(argv) -> int:
+    from mpit_tpu_torch.obs import trace as obs_trace
+
+    cleanup = "--cleanup" in argv
+    argv = [a for a in argv if a != "--cleanup"]
+    if len(argv) != 1:
+        print("usage: python -m mpit_tpu_torch.obs merge [--cleanup] <base-path>",
+              file=sys.stderr)
+        return 2
+    base = argv[0]
+    parts = sorted(_glob.glob(f"{base}.rank*.json"))
+    if not parts:
+        print(f"{base}: no {base}.rank*.json part files found",
+              file=sys.stderr)
+        return 1
+    n = obs_trace.merge_traces(base, parts)
+    stats = obs_trace.validate_trace(base)
+    print(f"{base}: merged {len(parts)} part(s), {n} events, "
+          f"{stats['pids']} rank(s), {stats['ops']} op span(s)")
+    if cleanup:
+        import os
+
+        for p in parts:
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+    return 0
+
+
+def _flight_main(argv) -> int:
+    from mpit_tpu_torch.obs import flight as obs_flight
+
+    if not argv:
+        print("usage: python -m mpit_tpu_torch.obs flight <dump.json>...",
+              file=sys.stderr)
+        return 2
+    rc = 0
+    for path in argv:
+        try:
+            stats = obs_flight.validate_dump(path)
+        except (OSError, ValueError) as exc:
+            print(f"{path}: INVALID: {exc}", file=sys.stderr)
+            rc = 1
+            continue
+        print(f"{path}: ok — reason={stats['reason']!r} "
+              f"rank={stats['rank']} {stats['events']} event(s), "
+              f"{stats['tasks']} task(s), {stats['inflight_ops']} "
+              f"in-flight op(s), {stats['metrics']} metric(s)")
+    return rc
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "merge":
+        return _merge_main(argv[1:])
+    if argv and argv[0] == "top":
+        from mpit_tpu_torch.obs.top import main as top_main
+
+        return top_main(argv[1:])
+    if argv and argv[0] == "flight":
+        return _flight_main(argv[1:])
+    if argv and argv[0] == "analyze":
+        from mpit_tpu_torch.obs.causal import main as analyze_main
+
+        return analyze_main(argv[1:])
+    if argv and argv[0] == "profile":
+        from mpit_tpu_torch.obs.profile import main as profile_main
+
+        return profile_main(argv[1:])
+    if argv and argv[0] == "validate":
+        argv = argv[1:]
+    from mpit_tpu_torch.obs.trace import main as validate_main
+
+    return validate_main(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

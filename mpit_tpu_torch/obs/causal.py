@@ -1,0 +1,900 @@
+"""Causal op tracing — join both halves of every PS op, decompose its
+latency, find the critical path.
+
+The merged Chrome trace (obs/trace.py) holds every rank's op spans, but
+each span only knows its own side: "this GRAD took 40 ms on the client"
+and "a GRAD from client 3 took 2 ms to apply" are separate rows nobody
+connects.  This module is the offline joiner that connects them:
+
+1. **Parse** a trace (merged file, part file, or in-memory object) back
+   into op spans: B/E pairs with their args, plus the nested ``X``
+   phase events.
+2. **Join** the client half and the server half of the same framed op
+   on its wire identity — ``(op, client rank, server|shard, epoch,
+   seq)`` — into a *causal chain*.  A retried op contributes one client
+   span (its attempts segmented by the ``backoff`` marks) and every
+   server span its frames produced (the apply plus any dup re-acks).
+3. **Align clocks.**  Cross-rank subtractions use the per-pair offset:
+   primarily the FLAG_TIMING estimator state embedded in
+   ``otherData.clock`` (obs/clock.py), falling back to the same
+   minimum-RTT estimate derived from the joined span pairs themselves
+   (client send-complete / server receive / server ack-send / client
+   ack-receive are the four NTP marks), so traces captured without the
+   wire extension still align.
+4. **Decompose** each joined op's client wall time onto the fixed phase
+   taxonomy — ``encode`` → ``send-queue`` → ``wire`` → ``server-queue``
+   → ``apply`` → ``ack-wire`` → ``client-wait``, plus ``retry`` for the
+   attempts that died (docs/OBSERVABILITY.md, *Causal phase taxonomy*).
+   Durations are non-negative and sum to the op's client wall time by
+   construction; a raw segment more negative than the pair's clock
+   uncertainty is reported as a **violation** (it means the join or the
+   clock model is wrong — CI fails on it).
+5. **Analyze**: per-(op, phase) percentiles, each op's dominant phase,
+   the slowest chains, and the per-client phase attribution whose
+   worst row is the gang's critical path.  Rendered as a text report or
+   ``--json``; ``--emit-flow`` writes the trace back out with Chrome
+   flow events (``ph:"s"``/``ph:"f"``) so Perfetto draws the
+   client→server and server→client arrows along every chain.
+
+CLI: ``python -m mpit_tpu_torch.obs analyze <trace.json> [--json]
+[--min-join F] [--top N] [--emit-flow PATH]``.  Exit 1 on negative
+phases beyond clock uncertainty, or a join rate below ``--min-join``.
+
+Stdlib-only on purpose: runs on CI boxes and laptops with nothing but
+the trace file.
+
+A copy of ``mpit_tpu/obs/causal.py``: the port imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional, Tuple
+
+from mpit_tpu_torch.obs.clock import PeerClock
+
+#: the phase taxonomy, in causal order.  ``retry`` holds the time spent
+#: in dead attempts + backoff (zero for ops that succeeded first try);
+#: ``client_wait`` is the residual that makes the decomposition sum to
+#: the op's client wall time (decode, scheduler resumption latency, and
+#: whatever clock error the uncertainty bound absorbs).
+PHASES = ("encode", "send_queue", "wire", "stream", "server_queue",
+          "apply", "ack_wire", "retry", "client_wait")
+
+#: ops the joiner considers (framed PS data ops; MIGRATE spans carry no
+#: [epoch, seq] and are not point-to-point client ops).
+JOINABLE_OPS = ("GRAD", "PARAM", "PARAM_PUSH")
+
+
+class Span:
+    """One reconstructed op span from the trace."""
+
+    __slots__ = ("pid", "tid", "name", "t0", "t1", "args", "outcome",
+                 "phases", "phase_cpu", "cpu_us")
+
+    def __init__(self, pid, tid, name, t0, args):
+        self.pid = pid
+        self.tid = tid
+        self.name = name
+        self.t0 = float(t0)  # wall µs
+        self.t1: float = float(t0)
+        self.args = dict(args or {})
+        self.outcome = ""
+        #: [(phase, ts_us, dur_us)] in trace order
+        self.phases: List[Tuple[str, float, float]] = []
+        #: per-phase on-CPU µs, aligned with ``phases`` (None for
+        #: entries whose X event carried no cpu rider — profiling off)
+        self.phase_cpu: List[Optional[float]] = []
+        #: span-level on-CPU µs from the E event rider (None when the
+        #: trace predates profiling or it was off)
+        self.cpu_us: Optional[float] = None
+
+    @property
+    def side(self) -> str:
+        return str(self.args.get("side", ""))
+
+    def mark_ts(self, phase: str, last: bool = True) -> Optional[float]:
+        """Timestamp of the last (or first) mark named ``phase``."""
+        hits = [ts for name, ts, _ in self.phases if name == phase]
+        if not hits:
+            return None
+        return hits[-1] if last else hits[0]
+
+
+def load_trace(path_or_obj):
+    """The trace's (events, otherData) from a path or in-memory object."""
+    if isinstance(path_or_obj, (str, os.PathLike)):
+        with open(path_or_obj) as fh:
+            obj = json.load(fh)
+    else:
+        obj = path_or_obj
+    if isinstance(obj, list):
+        return obj, {}
+    return obj.get("traceEvents", []), obj.get("otherData", {}) or {}
+
+
+def extract_spans(events) -> List[Span]:
+    """Rebuild op spans from B/E pairs, attaching the ``ps_phase`` X
+    events that fall inside them.  Channels are protocol-sequential per
+    (pid, tid), so one open-span slot per channel suffices."""
+    spans: List[Span] = []
+    open_span: Dict[Tuple, Span] = {}
+    for ev in events:
+        ph = ev.get("ph")
+        key = (ev.get("pid"), ev.get("tid"))
+        if ph == "B" and ev.get("cat") == "ps_op":
+            open_span[key] = Span(ev.get("pid"), ev.get("tid"),
+                                  ev.get("name"), ev.get("ts", 0.0),
+                                  ev.get("args"))
+        elif ph == "X" and ev.get("cat") == "ps_phase":
+            span = open_span.get(key)
+            if span is not None:
+                name = str(ev.get("name", ""))
+                phase = name.rsplit(".", 1)[-1]
+                span.phases.append((phase, float(ev.get("ts", 0.0)),
+                                    float(ev.get("dur", 0.0))))
+                cpu = (ev.get("args") or {}).get("cpu_us")
+                span.phase_cpu.append(
+                    float(cpu) if isinstance(cpu, (int, float)) else None)
+        elif ph == "E" and ev.get("cat") == "ps_op":
+            span = open_span.pop(key, None)
+            if span is not None:
+                span.t1 = float(ev.get("ts", span.t0))
+                end_args = ev.get("args") or {}
+                span.outcome = str(end_args.get("outcome", ""))
+                cpu = end_args.get("cpu_us")
+                if isinstance(cpu, (int, float)):
+                    span.cpu_us = float(cpu)
+                spans.append(span)
+    return spans
+
+
+def _chain_key(span: Span):
+    """The wire identity both halves share: (op, client rank,
+    server|shard, epoch, seq).  Client spans name the server (or shard)
+    in ``peer`` and themselves in ``rank``; server spans the reverse."""
+    a = span.args
+    epoch, seq = a.get("epoch"), a.get("seq")
+    if epoch is None or seq is None:
+        return None
+    if span.side == "client":
+        client = a.get("rank", span.pid)
+        server = (("shard", a["shard"]) if "shard" in a
+                  else ("srv", a.get("peer")))
+    elif span.side == "server":
+        client = a.get("peer")
+        server = (("shard", a["shard"]) if "shard" in a
+                  else ("srv", a.get("rank", span.pid)))
+    else:
+        return None
+    return (span.name, client, server, epoch, seq)
+
+
+class Chain:
+    """One causal op chain: the client span plus every server span its
+    frames produced, with the attempt segmentation."""
+
+    __slots__ = ("key", "client", "servers")
+
+    def __init__(self, key):
+        self.key = key
+        self.client: Optional[Span] = None
+        self.servers: List[Span] = []
+
+    @property
+    def op(self) -> str:
+        return self.key[0]
+
+    @property
+    def joined(self) -> bool:
+        return self.client is not None and bool(self.servers)
+
+    @property
+    def server(self) -> Optional[Span]:
+        """The server span that did the work (applied/served), else the
+        first echo (a dup re-ack still timestamps the server side)."""
+        for sp in self.servers:
+            if sp.outcome in ("applied", "served"):
+                return sp
+        return self.servers[0] if self.servers else None
+
+    def attempts(self) -> List[List[Tuple[str, float, float]]]:
+        """The client span's marks segmented into attempts: a new
+        attempt starts at each ``backoff`` mark (the retry loop marks
+        backoff before re-sending), so a drop-every-k plan yields
+        1 + retries separate attempt chains."""
+        if self.client is None:
+            return []
+        segs: List[List[Tuple[str, float, float]]] = [[]]
+        for mark in self.client.phases:
+            if mark[0] == "backoff" and segs[-1]:
+                segs.append([])
+            segs[-1].append(mark)
+        return segs
+
+
+def join_spans(spans: List[Span]) -> Tuple[List[Chain], List[Span]]:
+    """(chains keyed by wire identity, spans that carry no identity —
+    unframed legacy ops, MIGRATE handshakes)."""
+    chains: Dict[Tuple, Chain] = {}
+    unkeyed: List[Span] = []
+    for span in spans:
+        if span.name not in JOINABLE_OPS:
+            unkeyed.append(span)
+            continue
+        key = _chain_key(span)
+        if key is None:
+            unkeyed.append(span)
+            continue
+        chain = chains.get(key)
+        if chain is None:
+            chain = chains[key] = Chain(key)
+        if span.side == "client":
+            chain.client = span  # seqs are unique per channel
+        else:
+            chain.servers.append(span)
+    return list(chains.values()), unkeyed
+
+
+# -- clock alignment ---------------------------------------------------------
+
+
+def _send_complete_ts(client: Span, last: bool = True) -> Optional[float]:
+    """When an attempt's frame left the client: the end of the last
+    (or first) ``send`` phase (aio_send completed; the following mark
+    is the ack/recv wait — or the first ``chunk`` post for streamed
+    ops)."""
+    marks = reversed(client.phases) if last else client.phases
+    for name, ts, dur in marks:
+        if name == "send":
+            return ts + dur
+    return None
+
+
+def _ack_done_ts(client: Span) -> float:
+    """When the server's reply reached the client: the ``decode`` mark
+    for reads (the reply is in hand before decoding), the span end for
+    writes (the ack receive is the last thing the op does)."""
+    ts = client.mark_ts("decode")
+    return client.t1 if ts is None else ts
+
+
+def derive_offsets(chains: List[Chain]) -> Dict[Tuple[int, int], PeerClock]:
+    """Per (client, server-rank) offset estimated from the joined spans
+    themselves: each chain contributes one NTP-style exchange (client
+    send-complete, server span start, server last mark, client ack
+    receive) and the minimum-RTT filter picks the cleanest.  Offsets
+    follow the obs/clock.py convention: server clock minus client
+    clock."""
+    clocks: Dict[Tuple[int, int], PeerClock] = {}
+    for chain in chains:
+        server = chain.server
+        if chain.client is None or server is None:
+            continue
+        t1 = _send_complete_ts(chain.client)
+        if t1 is None:
+            continue
+        t2 = server.t0
+        t3 = server.phases[-1][1] if server.phases else server.t1
+        t4 = _ack_done_ts(chain.client)
+        pair = (_client_rank(chain), _server_rank(chain))
+        clock = clocks.get(pair)
+        if clock is None:
+            clock = clocks[pair] = PeerClock()
+        clock.add(t1, t2, t3, t4)
+    return clocks
+
+
+def _client_rank(chain: Chain):
+    return chain.key[1]
+
+
+def _server_rank(chain: Chain):
+    server = chain.server
+    if server is not None:
+        return server.args.get("rank", server.pid)
+    kind, val = chain.key[2]
+    return val if kind == "srv" else None
+
+
+def recorded_offsets(other_data: dict) -> Dict[Tuple[int, int], dict]:
+    """(client, server) -> estimate from the trace's embedded
+    FLAG_TIMING estimator state (otherData.clock, obs/clock.py)."""
+    out: Dict[Tuple[int, int], dict] = {}
+    for name, peers in (other_data.get("clock") or {}).items():
+        if not str(name).startswith("client"):
+            continue
+        try:
+            crank = int(str(name)[len("client"):])
+        except ValueError:
+            continue
+        for peer, est in (peers or {}).items():
+            try:
+                srank = int(peer)
+            except (TypeError, ValueError):
+                continue
+            if est.get("accepted"):
+                out[(crank, srank)] = est
+    return out
+
+
+class OffsetTable:
+    """The per-pair offsets the decomposition subtracts with: recorded
+    (wire-level) estimates where the trace carries them, span-derived
+    ones otherwise."""
+
+    def __init__(self, chains: List[Chain], other_data: dict):
+        self.recorded = recorded_offsets(other_data)
+        self.derived = derive_offsets(chains)
+
+    def lookup(self, client, server) -> Tuple[float, float, str]:
+        """(offset_us, uncertainty_us, source) — offset is server minus
+        client; unknown pairs fall back to (0, inf) so their phases are
+        reported but never counted as violations."""
+        est = self.recorded.get((client, server))
+        if est is not None:
+            return (float(est["offset_us"]), float(est["uncertainty_us"]),
+                    "wire")
+        clock = self.derived.get((client, server))
+        if clock is not None and clock.accepted:
+            return clock.offset_us, clock.uncertainty_us, "derived"
+        return 0.0, float("inf"), "none"
+
+    def snapshot(self) -> List[dict]:
+        pairs = sorted(set(self.recorded) | set(self.derived))
+        out = []
+        for client, server in pairs:
+            offset, unc, source = self.lookup(client, server)
+            out.append({"client": client, "server": server,
+                        "offset_us": offset, "uncertainty_us": unc,
+                        "source": source})
+        return out
+
+
+# -- the latency decomposition ----------------------------------------------
+
+
+def decompose(chain: Chain, offsets: OffsetTable) -> Optional[dict]:
+    """One joined chain onto the phase taxonomy.  Returns None when the
+    chain has no client half (an orphan server span cannot anchor a
+    client wall time).  All values µs, non-negative; ``neg_us`` records
+    how far below zero any raw segment fell (violations are judged
+    against the pair's clock uncertainty by the caller)."""
+    client, server = chain.client, chain.server
+    if client is None:
+        return None
+    wall = client.t1 - client.t0
+    offset, unc, source = (0.0, float("inf"), "none")
+    raw: Dict[str, float] = dict.fromkeys(PHASES, 0.0)
+    neg = 0.0
+    first_send = client.mark_ts("send", last=False)
+    last_send = client.mark_ts("send", last=True)
+    encode_ts = client.mark_ts("encode", last=False)
+    if encode_ts is not None and first_send is not None:
+        raw["encode"] = first_send - encode_ts
+    # Dead attempts + backoff: everything between the first and the
+    # last send mark belongs to retries (zero when they coincide).
+    if first_send is not None and last_send is not None:
+        raw["retry"] = last_send - first_send
+    send_done = _send_complete_ts(client)
+    ack_done = _ack_done_ts(client)
+    if last_send is not None and send_done is not None:
+        raw["send_queue"] = send_done - last_send
+    chunked = int(client.args.get("chunks", 0) or 0) >= 2
+    if server is not None:
+        offset, unc, source = offsets.lookup(
+            _client_rank(chain), _server_rank(chain))
+        # Server timestamps mapped onto the client timeline.
+        srv_t0 = server.t0 - offset
+        srv_first = (server.phases[0][1] - offset if server.phases
+                     else srv_t0)
+        srv_last = (server.phases[-1][1] - offset if server.phases
+                    else server.t1 - offset)
+        if chunked:
+            # Streamed op (§12): after chunk 0 reaches the server, the
+            # transfer, the per-chunk applies, the client's remaining
+            # encodes — and any chunk resends — all run CONCURRENTLY,
+            # so they cannot be summed as disjoint serial phases.  The
+            # serial skeleton is: chunk-0 encode → chunk-0 handoff →
+            # chunk-0 flight (``wire``) → the pipelined window
+            # (``stream``: first server receipt to its last mark) →
+            # the final ack's flight.  Per-chunk apply cost and the
+            # measured wire/apply concurrency live in the report's
+            # ``streaming`` section instead; ``retry`` stays 0 —
+            # chunk resends are interleaved *inside* the stream
+            # window by design (the span args still carry retries).
+            send_first = _send_complete_ts(client, last=False)
+            if send_first is not None:
+                handoff = min(send_first, srv_t0)
+                raw["wire"] = srv_t0 - handoff
+                if first_send is not None:
+                    raw["send_queue"] = handoff - first_send
+            raw["retry"] = 0.0
+            raw["stream"] = srv_last - srv_t0
+            raw["ack_wire"] = ack_done - srv_last
+        else:
+            if send_done is not None:
+                # The send-queue/wire boundary is the causal handoff:
+                # the server can legitimately *receive* the frame
+                # before the client's cooperative scheduler observes
+                # its own send completion (shm ring handoff + poll
+                # latency), so the boundary is min(send-complete,
+                # server-receive).  Only server-receive preceding the
+                # send *start* breaks causality — that is what the
+                # violation check catches.
+                handoff = min(send_done, srv_t0)
+                raw["wire"] = srv_t0 - handoff
+                if last_send is not None:
+                    raw["send_queue"] = handoff - last_send
+            raw["server_queue"] = srv_first - srv_t0
+            raw["apply"] = srv_last - srv_first
+            raw["ack_wire"] = ack_done - srv_last
+    clamped = {}
+    for phase in PHASES:
+        value = raw[phase]
+        if value < 0:
+            neg = max(neg, -value)
+            value = 0.0
+        clamped[phase] = value
+    spent = sum(clamped.values())
+    clamped["client_wait"] = max(wall - spent, 0.0)
+    if spent > wall:
+        neg = max(neg, spent - wall)
+    return {
+        "op": chain.op,
+        "client": _client_rank(chain),
+        "server": _server_rank(chain),
+        "epoch": chain.key[3],
+        "seq": chain.key[4],
+        "wall_us": wall,
+        "phases": clamped,
+        "retries": int(client.args.get("retries", 0) or 0),
+        "attempts": len(chain.attempts()),
+        "outcome": client.outcome,
+        "joined": server is not None,
+        "offset_source": source,
+        "uncertainty_us": unc,
+        "neg_us": neg,
+    }
+
+
+def _percentile(sorted_values: List[float], q: float) -> float:
+    if not sorted_values:
+        return 0.0
+    idx = min(int(q * len(sorted_values)), len(sorted_values) - 1)
+    return sorted_values[idx]
+
+
+# -- CPU attribution (obs/profile.py riders) ---------------------------------
+
+
+def cpu_attribution(spans: List[Span]) -> Optional[dict]:
+    """The on-CPU vs off-CPU split of every marked phase, aggregated
+    per ``op/side`` — the CPU sibling of the wall decomposition.  Uses
+    the ``cpu_us`` riders the trace exporter attaches when profiling
+    ran; same-thread stamps, so no clock alignment enters.  Each row is
+    non-negative and sums to its phase wall by construction: on-CPU is
+    the rider clamped to ``[0, wall]``, off-CPU the remainder (the
+    same clamping discipline as :func:`decompose`).  None when no span
+    carried a rider (profiling was off)."""
+    per: Dict[Tuple[str, str], Dict[str, List[float]]] = {}
+    found = False
+    for span in spans:
+        rows = per.setdefault((span.name, span.side or "?"), {})
+        for (phase, _ts, dur), cpu in zip(span.phases, span.phase_cpu):
+            if cpu is None:
+                continue
+            found = True
+            wall = max(dur, 0.0)
+            on = min(max(cpu, 0.0), wall)
+            acc = rows.setdefault(phase, [0.0, 0.0, 0.0])
+            acc[0] += 1
+            acc[1] += wall
+            acc[2] += on
+        if span.cpu_us is not None:
+            found = True
+            wall = max(span.t1 - span.t0, 0.0)
+            on = min(max(span.cpu_us, 0.0), wall)
+            acc = rows.setdefault("(span)", [0.0, 0.0, 0.0])
+            acc[0] += 1
+            acc[1] += wall
+            acc[2] += on
+    if not found:
+        return None
+    out: Dict[str, dict] = {}
+    for (op, side), rows in sorted(per.items()):
+        if not rows:
+            continue
+        out[f"{op}/{side}"] = {
+            phase: {
+                "count": int(n),
+                "wall_us": wall,
+                "cpu_us": on,
+                "off_cpu_us": wall - on,
+            }
+            for phase, (n, wall, on) in sorted(rows.items())
+        }
+    return out or None
+
+
+# -- streaming overlap (FLAG_CHUNKED, docs/PROTOCOL.md §12) ------------------
+
+
+def streaming_overlap(chain: Chain,
+                      offsets: "OffsetTable") -> Optional[dict]:
+    """Phase-overlap evidence for one chunked write chain: how long the
+    server had *already been applying* chunks while this client was
+    still moving bytes.  The client marks ``flush`` when its last chunk
+    send completed (ps/client.py); the server's first ``apply`` mark is
+    when chunk 0 started folding in.  ``overlap_us = flush − aligned
+    first-apply`` — positive means wire and apply ran concurrently,
+    which is exactly the pipelining the chunked transfer exists to buy
+    (an unchunked op has the whole apply strictly after the whole
+    transfer, so this quantity is necessarily ≤ 0 there)."""
+    client, server = chain.client, chain.server
+    if client is None or server is None:
+        return None
+    chunks = int(client.args.get("chunks", 0) or 0)
+    if chunks < 2:
+        return None
+    flush = client.mark_ts("flush")
+    first_apply = server.mark_ts("apply", last=False)
+    if flush is None or first_apply is None:
+        return None
+    offset, unc, source = offsets.lookup(
+        _client_rank(chain), _server_rank(chain))
+    return {
+        "op": chain.op,
+        "client": _client_rank(chain),
+        "server": _server_rank(chain),
+        "epoch": chain.key[3],
+        "seq": chain.key[4],
+        "chunks": chunks,
+        "overlap_us": flush - (first_apply - offset),
+        "uncertainty_us": unc,
+        "offset_source": source,
+    }
+
+
+def aggregation_section(rows: List[Span]) -> Optional[dict]:
+    """The §13 REDUCE summary: reduction rounds per rank, fan-in, the
+    fold→forward window, stragglers excluded and fallbacks taken.
+    REDUCE spans are client↔client — they never join a server half, so
+    they get this section instead of entering the join-rate accounting
+    (which would read every reduction as a failed join)."""
+    if not rows:
+        return None
+    walls = sorted(s.t1 - s.t0 for s in rows)
+    folds = []
+    for s in rows:
+        start = s.mark_ts("fold", last=False)
+        end = s.mark_ts("forward") or s.mark_ts("send") or s.t1
+        if start is not None and end is not None and end >= start:
+            folds.append(end - start)
+    fanins = sorted(float(s.args.get("nfold", 0)) for s in rows
+                    if s.args.get("nfold"))
+    return {
+        "rounds": len(rows),
+        "ranks": len({s.args.get("rank") for s in rows}),
+        "ok": sum(1 for s in rows if s.outcome == "ok"),
+        "late_folds": int(sum(float(s.args.get("late", 0))
+                              + float(s.args.get("group_late", 0))
+                              for s in rows)),
+        "fallbacks": sum(1 for s in rows if s.args.get("fallback")),
+        "fanin_p50": _percentile(fanins, 0.50) if fanins else 0.0,
+        "wall_p50_us": _percentile(walls, 0.50),
+        "fold_p50_us": _percentile(sorted(folds), 0.50) if folds else 0.0,
+    }
+
+
+def analyze(path_or_obj, min_join: float = 0.0) -> dict:
+    """The full analysis of one trace.  Returns the report dict (the
+    ``--json`` payload); rendering and exit-code policy live in
+    :func:`main`."""
+    events, other = load_trace(path_or_obj)
+    spans = extract_spans(events)
+    # CPU attribution covers every span kind (REDUCE hops burn CPU in
+    # their folds too), so it is computed before the REDUCE filter.
+    cpu_section = cpu_attribution(spans)
+    # REDUCE spans (§13) are summarized separately — a reduction hop has
+    # no server half to join.
+    agg_rows = [s for s in spans if s.name == "REDUCE"]
+    spans = [s for s in spans if s.name != "REDUCE"]
+    chains, _unkeyed = join_spans(spans)
+    offsets = OffsetTable(chains, other)
+    decomposed = [d for d in (decompose(c, offsets) for c in chains)
+                  if d is not None]
+    # Join accounting: a framed client op that *completed* must have a
+    # server half somewhere in the trace.  Ops that died client-side
+    # (aborted shutdown races, exhausted retries) legitimately may not —
+    # they are reported, not counted against the join rate.
+    completed = [d for d in decomposed
+                 if d["outcome"] not in ("aborted", "exhausted")]
+    joined = [d for d in completed if d["joined"]]
+    join_rate = (len(joined) / len(completed)) if completed else 1.0
+    # Violations: a raw segment below zero by more than the pair's
+    # clock uncertainty (plus 1 µs of timestamp quantization).
+    violations = [
+        {"op": d["op"], "client": d["client"], "server": d["server"],
+         "epoch": d["epoch"], "seq": d["seq"], "neg_us": d["neg_us"],
+         "uncertainty_us": d["uncertainty_us"]}
+        for d in decomposed
+        if d["neg_us"] > d["uncertainty_us"] + 1.0
+    ]
+    # Per-(op, phase) stats over the joined chains.
+    stats: Dict[str, Dict[str, dict]] = {}
+    for op in sorted({d["op"] for d in joined}):
+        rows = [d for d in joined if d["op"] == op]
+        per_phase = {}
+        for phase in PHASES:
+            values = sorted(d["phases"][phase] for d in rows)
+            per_phase[phase] = {
+                "count": len(values),
+                "total_us": sum(values),
+                "p50_us": _percentile(values, 0.50),
+                "p90_us": _percentile(values, 0.90),
+                "p99_us": _percentile(values, 0.99),
+            }
+        walls = sorted(d["wall_us"] for d in rows)
+        stats[op] = {"phases": per_phase, "count": len(rows),
+                     "wall_p50_us": _percentile(walls, 0.50),
+                     "wall_p99_us": _percentile(walls, 0.99)}
+    # Dominant phase per op + the gang critical path: the client rank
+    # whose ops spent the most total time, with its phase attribution.
+    dominant: Dict[str, int] = {}
+    per_client: Dict[object, Dict[str, float]] = {}
+    for d in joined:
+        top = max(PHASES, key=lambda p: d["phases"][p])
+        dominant[top] = dominant.get(top, 0) + 1
+        acc = per_client.setdefault(d["client"], dict.fromkeys(PHASES, 0.0))
+        for phase in PHASES:
+            acc[phase] += d["phases"][phase]
+    critical = None
+    if per_client:
+        worst = max(per_client, key=lambda c: sum(per_client[c].values()))
+        phases = per_client[worst]
+        critical = {
+            "client": worst,
+            "total_us": sum(phases.values()),
+            "phases": phases,
+            "dominant": max(PHASES, key=lambda p: phases[p]),
+        }
+    # Streaming overlap (§12): chunked write chains report how much of
+    # the server's apply ran while the client was still sending — the
+    # causal decomposition's direct view of the pipeline.
+    stream_rows = [r for r in (streaming_overlap(c, offsets)
+                               for c in chains) if r is not None]
+    streaming = None
+    if stream_rows:
+        overlaps = sorted(r["overlap_us"] for r in stream_rows)
+        streaming = {
+            "ops": len(stream_rows),
+            "overlapped": sum(1 for r in stream_rows
+                              if r["overlap_us"] > 0),
+            "overlap_p50_us": _percentile(overlaps, 0.50),
+            "overlap_p90_us": _percentile(overlaps, 0.90),
+            "chunks_p50": _percentile(
+                sorted(float(r["chunks"]) for r in stream_rows), 0.50),
+        }
+    slowest = sorted(joined, key=lambda d: -d["wall_us"])[:16]
+    return {
+        "spans": len(spans),
+        "ops": {
+            "framed": len(decomposed),
+            "completed": len(completed),
+            "joined": len(joined),
+            "join_rate": join_rate,
+            "min_join": min_join,
+        },
+        "offsets": offsets.snapshot(),
+        "phase_stats": stats,
+        "dominant_phases": dominant,
+        "critical_path": critical,
+        "streaming": streaming,
+        "aggregation": aggregation_section(agg_rows),
+        "cpu_attribution": cpu_section,
+        "slowest": slowest,
+        "violations": violations,
+        "chains": decomposed,
+    }
+
+
+# -- flow events (Perfetto arrows) ------------------------------------------
+
+
+def flow_events(chains: List[Chain]) -> List[dict]:
+    """Chrome flow-event pairs for every joined chain: a request arrow
+    from the client's send-complete to the server span start, and a
+    reply arrow from the server's last mark back to the client's ack
+    receipt.  ``ph:"s"`` starts a flow, ``ph:"f"`` with ``bp:"e"``
+    finishes it *enclosed* in the span under the cursor."""
+    events: List[dict] = []
+    flow_id = 0
+    for chain in chains:
+        client, server = chain.client, chain.server
+        if client is None or server is None:
+            continue
+        send_done = _send_complete_ts(client)
+        if send_done is None:
+            continue
+        flow_id += 1
+        name = f"{chain.op} [{chain.key[3]},{chain.key[4]}]"
+        common = {"cat": "causal", "name": name}
+        events.append({**common, "ph": "s", "id": flow_id,
+                       "pid": client.pid, "tid": client.tid,
+                       "ts": send_done})
+        events.append({**common, "ph": "f", "bp": "e", "id": flow_id,
+                       "pid": server.pid, "tid": server.tid,
+                       "ts": server.t0})
+        flow_id += 1
+        srv_last = (server.phases[-1][1] if server.phases else server.t1)
+        events.append({**common, "ph": "s", "id": flow_id,
+                       "pid": server.pid, "tid": server.tid,
+                       "ts": srv_last})
+        events.append({**common, "ph": "f", "bp": "e", "id": flow_id,
+                       "pid": client.pid, "tid": client.tid,
+                       "ts": _ack_done_ts(client)})
+    return events
+
+
+def emit_flow(path_or_obj, out_path: str) -> int:
+    """Write the trace back out with flow events appended; returns the
+    number of flow events added."""
+    events, other = load_trace(path_or_obj)
+    chains, _ = join_spans(extract_spans(events))
+    flows = flow_events(chains)
+    merged = sorted(events + flows, key=lambda e: e.get("ts", -1.0))
+    with open(out_path, "w") as fh:
+        json.dump({"traceEvents": merged, "displayTimeUnit": "ms",
+                   "otherData": other}, fh)
+    return len(flows)
+
+
+# -- rendering ---------------------------------------------------------------
+
+
+def _ms(us: float) -> str:
+    return f"{us / 1000.0:8.3f}"
+
+
+def render_report(report: dict, top: int = 5) -> str:
+    lines: List[str] = []
+    ops = report["ops"]
+    lines.append(
+        f"framed ops: {ops['framed']}  completed: {ops['completed']}  "
+        f"joined: {ops['joined']}  join rate: {ops['join_rate']:.1%}")
+    for entry in report["offsets"]:
+        unc = entry["uncertainty_us"]
+        lines.append(
+            f"clock: client {entry['client']} <-> server {entry['server']}"
+            f": offset {entry['offset_us']:+.1f}us"
+            + (f" +-{unc:.1f}us" if unc != float("inf") else " (unbounded)")
+            + f" [{entry['source']}]")
+    for op, st in report["phase_stats"].items():
+        lines.append(
+            f"{op}: n={st['count']}  wall p50 {_ms(st['wall_p50_us'])}ms"
+            f"  p99 {_ms(st['wall_p99_us'])}ms")
+        lines.append(f"  {'phase':<13}{'p50 ms':>10}{'p99 ms':>10}"
+                     f"{'total ms':>11}{'share':>8}")
+        wall_total = sum(p["total_us"] for p in st["phases"].values()) or 1.0
+        for phase in PHASES:
+            p = st["phases"][phase]
+            if not p["count"] and not p["total_us"]:
+                continue
+            lines.append(
+                f"  {phase:<13}{_ms(p['p50_us']):>10}{_ms(p['p99_us']):>10}"
+                f"{_ms(p['total_us']):>11}"
+                f"{p['total_us'] / wall_total:>8.1%}")
+    if report["dominant_phases"]:
+        ranked = sorted(report["dominant_phases"].items(),
+                        key=lambda kv: -kv[1])
+        lines.append("dominant phases: " + ", ".join(
+            f"{phase}={count}" for phase, count in ranked))
+    crit = report["critical_path"]
+    if crit:
+        lines.append(
+            f"critical path: client {crit['client']} "
+            f"({crit['total_us'] / 1000.0:.3f}ms attributed, "
+            f"dominant phase {crit['dominant']})")
+    stream = report.get("streaming")
+    if stream:
+        lines.append(
+            f"streaming: {stream['ops']} chunked op(s), "
+            f"{stream['overlapped']} with wire/apply overlap "
+            f"(overlap p50 {stream['overlap_p50_us'] / 1000.0:.3f}ms, "
+            f"p90 {stream['overlap_p90_us'] / 1000.0:.3f}ms, "
+            f"~{stream['chunks_p50']:.0f} chunks/op)")
+    agg = report.get("aggregation")
+    if agg:
+        lines.append(
+            f"aggregation: {agg['rounds']} reduce round(s) across "
+            f"{agg['ranks']} rank(s), fan-in p50 {agg['fanin_p50']:.0f}, "
+            f"fold p50 {agg['fold_p50_us'] / 1000.0:.3f}ms, "
+            f"late folds {agg['late_folds']}, "
+            f"fallbacks {agg['fallbacks']}")
+    cpu = report.get("cpu_attribution")
+    if cpu:
+        lines.append("cpu attribution (on-cpu / wall per marked phase):")
+        for key, rows in cpu.items():
+            parts = []
+            for phase, e in rows.items():
+                if not e["wall_us"]:
+                    continue
+                parts.append(
+                    f"{phase}={e['cpu_us'] / 1000.0:.3f}/"
+                    f"{e['wall_us'] / 1000.0:.3f}ms")
+            if parts:
+                lines.append(f"  {key}: " + "  ".join(parts))
+    for d in report["slowest"][:top]:
+        decomp = "  ".join(f"{phase}={d['phases'][phase] / 1000.0:.3f}"
+                           for phase in PHASES if d["phases"][phase] > 0)
+        lines.append(
+            f"slow: {d['op']} c{d['client']}->s{d['server']} "
+            f"[{d['epoch']},{d['seq']}] wall {d['wall_us'] / 1000.0:.3f}ms"
+            f" ({decomp})")
+    if report["violations"]:
+        for v in report["violations"][:top]:
+            lines.append(
+                f"VIOLATION: {v['op']} c{v['client']}->s{v['server']} "
+                f"[{v['epoch']},{v['seq']}] segment {v['neg_us']:.1f}us "
+                f"below zero (uncertainty {v['uncertainty_us']:.1f}us)")
+        lines.append(f"{len(report['violations'])} violation(s)")
+    else:
+        lines.append("violations: none")
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m mpit_tpu_torch.obs analyze`` entry point."""
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(
+        prog="python -m mpit_tpu_torch.obs analyze",
+        description="join per-rank trace halves into causal op chains "
+                    "and decompose their latency")
+    parser.add_argument("trace", help="merged Chrome trace (obs/trace.py)")
+    parser.add_argument("--json", action="store_true", dest="as_json",
+                        help="emit the machine-readable report")
+    parser.add_argument("--min-join", type=float, default=0.0,
+                        help="exit 1 unless at least this fraction of "
+                             "completed framed ops joined (CI gate)")
+    parser.add_argument("--top", type=int, default=5,
+                        help="slowest chains to print")
+    parser.add_argument("--emit-flow", default="",
+                        help="write the trace + Perfetto flow arrows here")
+    args = parser.parse_args(argv)
+    try:
+        report = analyze(args.trace, min_join=args.min_join)
+    except (OSError, ValueError) as exc:
+        print(f"{args.trace}: cannot analyze: {exc}", file=sys.stderr)
+        return 2
+    if args.emit_flow:
+        n = emit_flow(args.trace, args.emit_flow)
+        print(f"{args.emit_flow}: wrote trace + {n} flow event(s)",
+              file=sys.stderr)
+    if args.as_json:
+        # chains can be large; the JSON consumer gets everything else
+        # plus bounded samples.
+        payload = dict(report)
+        payload["chains"] = payload["chains"][:256]
+        print(json.dumps(payload))
+    else:
+        print(render_report(report, top=args.top))
+    rc = 0
+    if report["violations"]:
+        rc = 1
+    ops = report["ops"]
+    if ops["completed"] and ops["join_rate"] < args.min_join:
+        print(f"join rate {ops['join_rate']:.1%} below --min-join "
+              f"{args.min_join:.1%}", file=sys.stderr)
+        rc = 1
+    return rc
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

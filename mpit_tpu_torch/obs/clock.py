@@ -1,0 +1,189 @@
+"""Cross-rank clock alignment — the causal-tracing time base.
+
+Per-rank traces are wall-anchored (monotonic span times shifted by a
+captured wall offset), which is good enough to *display* two ranks side
+by side but not to *subtract* their timestamps: host NTP skew of a few
+milliseconds swamps the sub-millisecond wire/queue phases the latency
+decomposition (obs/causal.py) wants to attribute.  This module owns the
+fix, in two halves:
+
+- **One time base per process.**  :func:`epoch_offset` captures the
+  monotonic→wall offset exactly once at import; :func:`wall_us` stamps
+  wall-clock microseconds derived from it.  The span recorder, the
+  flight recorder and the FLAG_TIMING wire stamps all use *this* offset,
+  so every timestamp a process emits — trace events, flight dumps, ack
+  tails — lives on a single self-consistent timeline (two independent
+  ``time.time() - time.monotonic()`` captures can disagree by the NTP
+  slew between them).
+
+- **A per-peer offset estimator** (:class:`ClockEstimator`), NTP-style:
+  every FLAG_TIMING exchange yields the classic four marks
+  ``(t1, t2, t3, t4)`` — client send, server receive, server ack-send,
+  client ack-receive — from which ``offset = ((t2-t1)+(t3-t4))/2`` and
+  ``rtt = (t4-t1)-(t3-t2)``.  The true offset provably lies within
+  ``offset ± rtt/2``, so the estimator keeps the **minimum-RTT**
+  exchange (Cristian's algorithm), aging the stored sample by a drift
+  allowance so a stale best eventually yields to fresher ones.  Samples
+  arrive from every op ack and from the heartbeat echo stream, so the
+  estimate refreshes even while a client is compute-bound.
+
+Estimators register themselves here by name; the trace exporter embeds
+:func:`snapshot_all` into ``otherData.clock`` and flight dumps carry it
+too, so the offline joiner can align ranks without re-deriving offsets
+(it still can, from joined span pairs, when a trace predates the wire
+extension — see obs/causal.py).
+
+Everything is stdlib, allocation-light, and independent of obs
+enablement: FLAG_TIMING is a *wire* feature, negotiated per pair, and
+the estimator must run (cheaply) even when the registry is off.
+
+A copy of ``mpit_tpu/obs/clock.py``: the port imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+#: monotonic → wall offset, captured exactly once per process (see
+#: module docstring: one time base for traces, dumps and wire stamps).
+_EPOCH_OFFSET = time.time() - time.monotonic()
+
+#: drift allowance for aging the stored minimum-RTT sample: a retained
+#: best exchange's effective RTT grows by this many microseconds per
+#: second of age (100 ppm — generous for quartz, conservative for NTP-
+#: disciplined hosts), so a fresher, slightly-slower exchange eventually
+#: replaces a stale fast one and the estimate tracks clock drift.
+DRIFT_US_PER_S = 100.0
+
+
+def epoch_offset() -> float:
+    """The process's one monotonic→wall offset (seconds)."""
+    return _EPOCH_OFFSET
+
+
+def wall_us() -> int:
+    """Wall-clock microseconds on the process time base — the stamp the
+    FLAG_TIMING wire carries (int64-friendly)."""
+    return int((time.monotonic() + _EPOCH_OFFSET) * 1e6)
+
+
+class PeerClock:
+    """Offset estimate against one peer, from minimum-RTT exchanges.
+
+    ``offset_us`` is **peer clock minus local clock**: a peer timestamp
+    maps onto the local timeline as ``t_local = t_peer - offset_us``.
+    ``uncertainty_us`` is the rtt/2 bound of the exchange the estimate
+    came from."""
+
+    __slots__ = ("offset_us", "uncertainty_us", "rtt_us", "samples",
+                 "accepted", "_best_t4_us")
+
+    def __init__(self) -> None:
+        self.offset_us = 0.0
+        self.uncertainty_us = float("inf")
+        self.rtt_us = float("inf")
+        self.samples = 0
+        self.accepted = 0
+        self._best_t4_us = 0.0
+
+    def add(self, t1_us: float, t2_us: float, t3_us: float,
+            t4_us: float) -> bool:
+        """One exchange: local send, peer recv, peer reply-send, local
+        reply-recv.  Returns True when it became the new best estimate.
+        Garbage (non-positive RTT: a stamp from a different attempt, a
+        stepped clock) is counted and dropped — the min-RTT filter's
+        whole job is that bad samples only ever look *slow*."""
+        self.samples += 1
+        rtt = (t4_us - t1_us) - (t3_us - t2_us)
+        if rtt <= 0 or t4_us < t1_us:
+            return False
+        aged = self.rtt_us + DRIFT_US_PER_S * max(
+            (t4_us - self._best_t4_us) / 1e6, 0.0)
+        if rtt >= aged:
+            return False
+        self.offset_us = ((t2_us - t1_us) + (t3_us - t4_us)) / 2.0
+        self.rtt_us = rtt
+        self.uncertainty_us = rtt / 2.0
+        self._best_t4_us = t4_us
+        self.accepted += 1
+        return True
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "offset_us": self.offset_us,
+            "uncertainty_us": self.uncertainty_us,
+            "rtt_us": self.rtt_us,
+            "samples": self.samples,
+            "accepted": self.accepted,
+        }
+
+
+class ClockEstimator:
+    """Per-peer :class:`PeerClock` map for one role endpoint (a client
+    holds one, keyed by server rank).  Thread-compatible the same way
+    the metrics instruments are: updates are plain attribute writes
+    from one role thread; snapshots from the introspection thread read
+    a consistent-enough view."""
+
+    def __init__(self) -> None:
+        self.peers: Dict[int, PeerClock] = {}
+
+    def peer(self, peer: int) -> PeerClock:
+        clock = self.peers.get(peer)
+        if clock is None:
+            clock = self.peers[peer] = PeerClock()
+        return clock
+
+    def add_exchange(self, peer: int, t1_us: float, t2_us: float,
+                     t3_us: float, t4_us: float) -> bool:
+        return self.peer(peer).add(t1_us, t2_us, t3_us, t4_us)
+
+    def offset_us(self, peer: int) -> Optional[Tuple[float, float]]:
+        """(offset, uncertainty) in µs for ``peer``, or None before the
+        first accepted exchange."""
+        clock = self.peers.get(peer)
+        if clock is None or not clock.accepted:
+            return None
+        return clock.offset_us, clock.uncertainty_us
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        return {str(p): c.snapshot() for p, c in sorted(self.peers.items())
+                if c.samples}
+
+
+#: process-level estimator directory: name (e.g. "client3") -> estimator.
+#: The trace exporter and flight dumps embed snapshot_all(); registration
+#: is unconditional (a dict put) because FLAG_TIMING is a wire feature,
+#: not an obs feature.
+_ESTIMATORS: Dict[str, ClockEstimator] = {}
+_LOCK = threading.Lock()
+
+
+def register(name: str, estimator: ClockEstimator) -> None:
+    """Publish an endpoint's estimator under ``name`` (re-registering
+    replaces — a rejoined incarnation supersedes its old clocks)."""
+    with _LOCK:
+        _ESTIMATORS[name] = estimator
+
+
+def snapshot_all() -> Dict[str, Dict[str, Dict[str, float]]]:
+    """name -> peer -> estimate, for every registered estimator that
+    has seen at least one sample (empty estimators are dropped so an
+    untimed gang adds nothing to its trace)."""
+    with _LOCK:
+        items = list(_ESTIMATORS.items())
+    out = {}
+    for name, est in items:
+        snap = est.snapshot()
+        if snap:
+            out[name] = snap
+    return out
+
+
+def reset() -> None:
+    """Drop registered estimators (tests; via obs.configure)."""
+    with _LOCK:
+        _ESTIMATORS.clear()

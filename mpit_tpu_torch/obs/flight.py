@@ -1,0 +1,320 @@
+"""Flight recorder — a bounded ring of recent events, dumped on failure.
+
+The merged Chrome trace answers "what happened" only after a *clean*
+gang exit; the runs that most need a timeline are exactly the ones that
+don't produce one (a hung gang, an evicted client, a RetryExhausted op).
+The flight recorder is the postmortem half: whenever obs is enabled,
+every finished op span, task lifecycle and FT event also lands in a
+bounded per-process ring (:class:`FlightRecorder`), and the failure
+paths dump the ring to disk:
+
+- the client retry loops dump on :class:`RetryExhausted` (an op failed
+  every allowed attempt — the never-hang guarantee firing);
+- the server lease reaper dumps on every eviction (the gang just lost a
+  member; the ring shows what its channels were doing);
+- the scheduler watchdog dumps when a non-empty task queue accumulates
+  ``MPIT_OBS_STALL_S`` seconds of idle backoff without completing a
+  single task — a stuck gang produces a task table + recent-event dump
+  instead of nothing;
+- the autoscaler (shardctl/autoscale.py) dumps on every **executed
+  scale action** (``autoscale_up`` / ``autoscale_down``) and once per
+  **SLO-breach episode that outlives the settle window**
+  (``slo_breach``) — the dump's ``extra`` carries the full decision
+  record and the triggering telemetry window, so a mis-scaled gang
+  produces a postmortem naming the signal that drove it
+  (:func:`validate_dump` checks that shape; docs/OPERATIONS.md walks a
+  dump).
+
+Dumps are JSON (:func:`FlightRecorder.dump` schema in
+docs/OBSERVABILITY.md): rank/role/pid, the dump reason, the ring's
+recent events (wall-anchored like the trace exporter), the live task
+table when the dumper has one, the span recorder's in-flight op table,
+and a full metrics snapshot.  ``MPIT_OBS_FLIGHT`` names the dump
+directory (default: the system temp dir); files are
+``mpit_flight_rank<N>_<reason>.json`` and never overwrite an earlier
+dump from the same process (a counter suffix disambiguates).
+
+Disabled (obs off) the recorder is the shared :data:`NULL_FLIGHT` null
+object: ``record``/``dump`` do nothing, read no clock, allocate nothing
+— the same contract as the null registry/recorder.
+
+A copy of ``mpit_tpu/obs/flight.py``: the port imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+from mpit_tpu_torch.obs import clock as _clock
+from mpit_tpu_torch.obs import metrics as _metrics
+
+ENV_DIR = "MPIT_OBS_FLIGHT"
+#: ring capacity (events); enough for a few hundred ops of context
+#: without letting a dump grow past postmortem-readable size.
+CAPACITY = int(os.environ.get("MPIT_OBS_FLIGHT_EVENTS", "512"))
+
+
+class NullFlight:
+    """Shared do-nothing flight recorder — the disabled path."""
+
+    __slots__ = ()
+    enabled = False
+    events: tuple = ()
+    last_dump_path: Optional[str] = None
+
+    def record(self, kind: str, **fields) -> None:
+        pass
+
+    def dump(self, reason: str, tasks: Optional[List[Tuple[str, str]]] = None,
+             **extra) -> Optional[str]:
+        return None
+
+    def set_identity(self, rank=None, role=None) -> None:
+        pass
+
+
+NULL_FLIGHT = NullFlight()
+
+
+class FlightRecorder:
+    """Bounded ring of recent events plus the dump-to-disk machinery.
+
+    Appends are GIL-atomic deque operations; the ring is shared by the
+    role threads of one process exactly like the span recorder.  Events
+    are recorded on the monotonic clock and wall-anchored at dump time
+    with the same epoch offset the trace exporter uses, so a flight dump
+    and a sibling rank's trace line up on one timeline."""
+
+    enabled = True
+
+    def __init__(self, capacity: int = CAPACITY):
+        self.events: deque = deque(maxlen=capacity)
+        self.epoch_offset = _clock.epoch_offset()  # the shared time base
+        self.rank: Optional[int] = None
+        self.role: str = ""
+        self.last_dump_path: Optional[str] = None
+        self._dump_seq = 0
+        self._dump_lock = threading.Lock()
+
+    def set_identity(self, rank=None, role=None) -> None:
+        """Stamp the dump filenames/payloads with this process's gang
+        identity (launch children call this before building roles)."""
+        if rank is not None:
+            self.rank = int(rank)
+        if role is not None:
+            self.role = str(role)
+
+    def record(self, kind: str, **fields) -> None:
+        """Append one event.  ``kind`` is a short slug (``op``, ``task``,
+        ``eviction``, ``retry_exhausted``, ``scheduler_stall``, ...)."""
+        self.events.append((time.monotonic(), kind, fields))
+
+    # -- dump ----------------------------------------------------------------
+
+    def _dir(self) -> str:
+        return os.environ.get(ENV_DIR, "") or tempfile.gettempdir()
+
+    def dump(self, reason: str, tasks: Optional[List[Tuple[str, str]]] = None,
+             **extra) -> Optional[str]:
+        """Write the ring (+ live task table + in-flight ops + metrics
+        snapshot) to disk; returns the path.  Never raises: a failing
+        postmortem writer must not mask the failure being reported."""
+        with self._dump_lock:
+            self._dump_seq += 1
+            seq = self._dump_seq
+        who = f"rank{self.rank}" if self.rank is not None else f"pid{os.getpid()}"
+        suffix = "" if seq == 1 else f"_{seq}"
+        path = os.path.join(self._dir(),
+                            f"mpit_flight_{who}_{reason}{suffix}.json")
+        off = self.epoch_offset
+        from mpit_tpu_torch.obs import spans as _spans
+
+        rec = _spans.get_recorder()
+        obj = {
+            "schema": "mpit_flight/1",
+            "reason": reason,
+            "rank": self.rank,
+            "role": self.role,
+            "pid": os.getpid(),
+            "wall_time": time.time(),
+            "events": [
+                {"t": t + off, "kind": kind, **fields}
+                for t, kind, fields in list(self.events)
+            ],
+            "tasks": [list(t) for t in tasks] if tasks is not None else None,
+            # The open causal chains: each in-flight op's wall-anchored
+            # phase-mark history plus any echoed server stamps in its
+            # args — a hang postmortem names the phase the op died in.
+            "inflight_ops": rec.open_ops(),
+            # Per-peer clock-offset estimates (obs/clock.py), so the
+            # chain above maps onto a sibling rank's dump/trace.
+            "clock": _clock.snapshot_all(),
+            "metrics": _metrics.get_registry().snapshot(),
+            # Where the cores were at death (obs/profile.py): native
+            # pool threads/depth/busy, scheduler runq/CPU totals, and
+            # the top tasks by CPU — a stall postmortem names the hog
+            # (pool-only when profiling was off; {} with no pool).
+            "resources": _resource_snapshot(),
+        }
+        if extra:
+            obj["extra"] = extra
+        try:
+            with open(path, "w") as fh:
+                json.dump(obj, fh)
+        except OSError:
+            return None
+        self.last_dump_path = path
+        return path
+
+
+def _resource_snapshot() -> Dict[str, object]:
+    """The obs/profile.py resource section; a failing snapshot must
+    never mask the failure the dump reports."""
+    try:
+        from mpit_tpu_torch.obs import profile as _profile
+
+        return _profile.resource_snapshot()
+    except Exception:  # pragma: no cover - defensive postmortem path
+        return {}
+
+
+_GLOBAL: Optional[FlightRecorder] = None
+_LOCK = threading.Lock()
+
+
+def get_flight():
+    """The process-global flight recorder when obs is enabled, else the
+    null recorder — same capture-at-construction contract as the
+    registry and the span recorder."""
+    if not _metrics.obs_enabled():
+        return NULL_FLIGHT
+    global _GLOBAL
+    if _GLOBAL is None:
+        with _LOCK:
+            if _GLOBAL is None:
+                _GLOBAL = FlightRecorder()
+    return _GLOBAL
+
+
+def reset() -> None:
+    """Drop the global flight recorder (tests; via obs.configure)."""
+    global _GLOBAL
+    _GLOBAL = None
+
+
+def validate_dump(path_or_obj) -> Dict[str, object]:
+    """Structural validation of a flight dump: schema tag, identity
+    fields, well-formed event list (numeric wall ``t`` + ``kind`` per
+    event), task table shape, and a dict metrics snapshot.  Returns
+    summary stats; raises ``ValueError`` on any violation."""
+    if isinstance(path_or_obj, (str, os.PathLike)):
+        with open(path_or_obj) as fh:
+            obj = json.load(fh)
+    else:
+        obj = path_or_obj
+    if not isinstance(obj, dict) or obj.get("schema") != "mpit_flight/1":
+        raise ValueError("not a flight dump (missing schema mpit_flight/1)")
+    for key in ("reason", "pid", "wall_time", "events", "metrics"):
+        if key not in obj:
+            raise ValueError(f"flight dump missing {key!r}")
+    if not isinstance(obj["events"], list):
+        raise ValueError("events is not a list")
+    for i, ev in enumerate(obj["events"]):
+        if not isinstance(ev, dict) or "kind" not in ev \
+                or not isinstance(ev.get("t"), (int, float)):
+            raise ValueError(f"event {i} malformed (needs numeric t + kind)")
+    tasks = obj.get("tasks")
+    if tasks is not None:
+        if not isinstance(tasks, list) or any(
+                not isinstance(t, list) or len(t) != 2 for t in tasks):
+            raise ValueError("tasks is not a list of [name, state] pairs")
+    if not isinstance(obj["metrics"], dict):
+        raise ValueError("metrics snapshot is not a dict")
+    reason = str(obj.get("reason", ""))
+    if reason.startswith("autoscale_") or reason == "slo_breach":
+        # Autoscale postmortems must carry the decision that drove them
+        # and the telemetry window that justified it — a dump without
+        # them names no signal and explains nothing.
+        extra = obj.get("extra")
+        if not isinstance(extra, dict):
+            raise ValueError(f"{reason} dump has no extra payload")
+        decision = extra.get("decision")
+        if not isinstance(decision, dict) or "action" not in decision \
+                or "reason" not in decision:
+            raise ValueError(
+                f"{reason} dump extra.decision must be a dict with "
+                "action + reason")
+        if "window" not in extra:
+            raise ValueError(
+                f"{reason} dump extra must carry the telemetry window "
+                "(window key; null allowed for a no-data decision)")
+        if reason == "slo_breach" and "breach_for_s" not in extra:
+            raise ValueError(
+                "slo_breach dump extra must carry breach_for_s")
+    if reason == "scheduler_stall":
+        # A stall postmortem must say where the cores were: the
+        # resources section (obs/profile.py) with well-formed pool /
+        # scheduler / top-task subsections when present.  Pool-only
+        # (or empty) is legal — profiling may have been off — but a
+        # malformed section would poison every stall triage tool.
+        resources = obj.get("resources")
+        if not isinstance(resources, dict):
+            raise ValueError(
+                "scheduler_stall dump has no resources section (dict "
+                "required; may be empty)")
+        pool = resources.get("pool")
+        if pool is not None and (
+                not isinstance(pool, dict)
+                or not {"threads", "depth", "busy_seconds"} <= set(pool)):
+            raise ValueError(
+                "scheduler_stall dump resources.pool must carry "
+                "threads + depth + busy_seconds")
+        sched = resources.get("sched")
+        if sched is not None and (
+                not isinstance(sched, dict)
+                or not {"runq", "cpu_seconds"} <= set(sched)):
+            raise ValueError(
+                "scheduler_stall dump resources.sched must carry "
+                "runq + cpu_seconds")
+        top = resources.get("top_tasks")
+        if top is not None and (
+                not isinstance(top, list) or any(
+                    not isinstance(row, list) or len(row) != 2
+                    or not isinstance(row[1], (int, float))
+                    for row in top)):
+            raise ValueError(
+                "scheduler_stall dump resources.top_tasks must be "
+                "[name, cpu_us] pairs")
+    if reason in ("cell_failover", "cell_lag_shed"):
+        # Cell-fabric postmortems (PROTOCOL.md §11): a dead or lagging
+        # cell must leave its version window behind — which version was
+        # being served, against which head, under which bound — or the
+        # dump explains nothing about the staleness envelope crossed.
+        extra = obj.get("extra")
+        if not isinstance(extra, dict):
+            raise ValueError(f"{reason} dump has no extra payload")
+        window = extra.get("window")
+        if not isinstance(window, dict) or "version" not in window:
+            raise ValueError(
+                f"{reason} dump extra.window must be a dict carrying "
+                "the cell's version window (version key required)")
+        if reason == "cell_lag_shed" and not {"head",
+                                              "max_lag"} <= set(window):
+            raise ValueError(
+                "cell_lag_shed dump extra.window must carry head + "
+                "max_lag alongside version")
+    return {
+        "reason": obj["reason"],
+        "rank": obj.get("rank"),
+        "events": len(obj["events"]),
+        "tasks": len(tasks) if tasks is not None else 0,
+        "inflight_ops": len(obj.get("inflight_ops") or []),
+        "metrics": len(obj["metrics"]),
+    }

@@ -23,10 +23,7 @@ byte sizes (top bucket ≥ 2^31).  Snapshots render only non-empty
 buckets, keyed by their upper-bound exponent.
 
 A copy of the JAX package's ``mpit_tpu/obs/metrics.py``: the port imports
-nothing of that package.  The shm and tcp transports and the codec count
-their traffic through it.  The rest of the observability layer (spans,
-flight recorder, statusd, clock, profile) comes with a later slice of the
-port, so :func:`configure` resets this registry alone.
+nothing of that package.
 """
 
 from __future__ import annotations
@@ -378,8 +375,16 @@ def registry_or_local(registry: Optional[Registry] = None) -> Registry:
 def configure(enabled: Optional[bool] = None, reset: bool = False) -> None:
     """Programmatic enablement (tests, notebooks).  ``enabled=None``
     returns control to the environment; ``reset=True`` discards the
-    global registry's instruments."""
+    global registry's instruments (and the span recorder — see
+    :func:`mpit_tpu_torch.obs.spans.reset`, which this calls)."""
     global _FORCED, _GLOBAL
     _FORCED = enabled
     if reset:
         _GLOBAL = Registry()
+        from mpit_tpu_torch.obs import clock, flight, profile, spans, statusd
+
+        spans.reset()
+        flight.reset()
+        statusd.clear_providers()
+        clock.reset()
+        profile.reset()

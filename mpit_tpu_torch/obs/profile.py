@@ -1,0 +1,492 @@
+"""CPU / utilization attribution — where do the cores actually go?
+
+The causal decomposition (obs/causal.py) splits an op's *wall* time
+onto the phase taxonomy, and the native pool (comm/pool.py) exports
+busy-seconds — but neither answers these questions: which
+task burned the CPU, was the pool actually saturated, and did encode
+*overlap* the wire or merely time-slice against it?  This module is
+the attribution plane that makes those answerable:
+
+- **Per-task CPU accounting** (:class:`Profiler`): the cooperative
+  scheduler stamps ``time.thread_time()`` deltas around every task
+  step (aio/scheduler.py), so each task — and, via the span recorder,
+  each op span and its phases — carries ``cpu_us`` next to its wall
+  time.  The clocks live *here*, never in role files (the MT-O4xx
+  contract), and the disabled path is the shared
+  :data:`NULL_PROFILER`: zero clock reads, zero branches beyond one
+  attribute test.
+- **Counter-track sampling**: a throttled sampler turns the pool's
+  busy-clock/depth bindings plus the scheduler's run-queue depth into
+  wall-anchorable samples; the trace exporter renders them as Chrome
+  ``ph:"C"`` counter tracks (``pool_util``, ``pool_depth``,
+  ``sched_runq``, ``task_cpu``) — one set per rank (counters are
+  keyed per pid), merging and rendering under the existing B/E spans
+  in Perfetto.
+- **Overlap-efficiency reporting**: ``python -m mpit_tpu_torch.obs profile
+  <trace>`` computes per-rank core utilization (pool busy-seconds ÷
+  wall × threads), the per-phase on-CPU vs off-CPU split (non-negative
+  and sums-to-wall by the same clamped construction as the causal
+  decomposition), the encode-while-wire fraction of chunked streams,
+  and a top-tasks-by-CPU table.  ptest attaches the same figures to
+  recorded boundaries under ``MPIT_BENCH_PROFILE=1``.
+
+Enablement: ``MPIT_OBS_PROFILE`` truthy (which implies obs, like a
+trace request does), or :func:`configure` for tests.  Profiling stays
+**off even when obs is on** — the thread-time stamps are a real (if
+small) per-step cost the plain metrics path must not pay.
+
+CPU times are per-thread (``time.thread_time``): a task or span is
+stamped on the thread that steps it, which the cooperative scheduler
+guarantees is one thread per scheduler.  A mark taken on a foreign
+thread yields a negative delta, which the exporters clamp to zero —
+attribution degrades, it never goes negative.
+
+A copy of ``mpit_tpu/obs/profile.py``: the port imports nothing of the JAX
+package.
+The port has no native worker pool yet (``comm/pool.py`` comes with chunked
+streaming), so :func:`_current_pool` is None and the ``pool_util`` /
+``pool_depth`` tracks and the ``pool`` resource section are absent, as the
+JAX package emits them in a process without a pool.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+from mpit_tpu_torch.obs import metrics as _metrics
+
+PROFILE_ENV = "MPIT_OBS_PROFILE"
+
+#: counter-track sampling rate cap (Hz).  200 Hz ~ 5 ms: fine enough to
+#: see a 64 MB transfer's pipeline, coarse enough that a 2 s bench leg
+#: stays at a few hundred samples per track.
+SAMPLE_HZ = float(os.environ.get("MPIT_OBS_PROFILE_HZ", "200"))
+
+#: sample ring capacity — (ts, track, value) tuples across all tracks;
+#: bounds a long-lived process's trace rider the same way the flight
+#: ring bounds a dump.
+MAX_SAMPLES = int(os.environ.get("MPIT_OBS_PROFILE_SAMPLES", "32768"))
+
+#: the counter tracks the sampler emits (one instance per rank/pid).
+TRACKS = ("pool_util", "pool_depth", "sched_runq", "task_cpu")
+
+
+def _current_pool():
+    """The process's native worker pool if one was ever created — the
+    sampler observes, it must never *instantiate* a pool.  The port has
+    none yet (it comes with chunked streaming), so this is None."""
+    return None
+
+
+class NullProfiler:
+    """Shared do-nothing profiler — the disabled path.  Reads no clock,
+    accumulates nothing; hot paths test ``enabled`` once and skip the
+    thread-time stamps entirely."""
+
+    __slots__ = ()
+    enabled = False
+    samples: tuple = ()
+    cpu_seconds = 0.0
+    last_runq = 0
+
+    def cpu_now(self) -> float:
+        return 0.0
+
+    def step(self, name: str, cpu_s: float) -> None:
+        pass
+
+    def sample(self, runq: int = 0) -> None:
+        pass
+
+    def top_tasks(self, n: int = 5) -> list:
+        return []
+
+
+NULL_PROFILER = NullProfiler()
+
+
+class Profiler:
+    """Process-local CPU/utilization accumulator (one per process; the
+    role threads' schedulers share it the way they share the span
+    recorder — per-task adds are GIL-atomic dict updates)."""
+
+    enabled = True
+
+    def __init__(self, registry=None):
+        self.registry = registry if registry is not None \
+            else _metrics.get_registry()
+        #: task name -> accumulated on-CPU seconds (scheduler-stamped)
+        self.task_cpu: Dict[str, float] = {}
+        self.cpu_seconds = 0.0
+        self.last_runq = 0
+        #: (monotonic ts, track, value) — rendered as ph:"C" events by
+        #: the trace exporter, wall-anchored with the recorder's offset.
+        self.samples: deque = deque(maxlen=MAX_SAMPLES)
+        self._interval = 1.0 / SAMPLE_HZ if SAMPLE_HZ > 0 else 0.0
+        self._last_sample = 0.0
+        self._busy_prev = 0.0
+        self._busy_prev_t = 0.0
+        self._m_cpu = self.registry.counter("mpit_sched_cpu_seconds_total")
+        self._m_runq = self.registry.gauge("mpit_sched_runq")
+
+    def cpu_now(self) -> float:
+        """The calling thread's CPU clock (seconds).  The only
+        thread-time read site in the tree — schedulers and spans stamp
+        through here so the clock stays in obs."""
+        return time.thread_time()
+
+    def step(self, name: str, cpu_s: float) -> None:
+        """Attribute one task step's CPU delta to ``name``."""
+        if cpu_s <= 0.0:
+            return  # clock noise / foreign-thread stamp: never negative
+        self.task_cpu[name] = self.task_cpu.get(name, 0.0) + cpu_s
+        self.cpu_seconds += cpu_s
+        self._m_cpu.inc(cpu_s)
+
+    def sample(self, runq: int = 0) -> None:
+        """One throttled counter-track sample: scheduler run-queue
+        depth, cumulative task CPU, and — when a native pool exists —
+        its queue depth and windowed utilization (Δbusy / Δt·threads).
+        Callers may invoke per ping-pass; the interval cap keeps the
+        cost one clock read on the fast exit."""
+        now = time.monotonic()
+        if now - self._last_sample < self._interval:
+            return
+        self._last_sample = now
+        self.last_runq = int(runq)
+        self._m_runq.set(self.last_runq)
+        append = self.samples.append
+        append((now, "sched_runq", float(runq)))
+        append((now, "task_cpu", self.cpu_seconds))
+        pool = _current_pool()
+        if pool is not None and not pool.serial:
+            pool.sample_obs()  # folds the native busy clock + gauges
+            busy = pool.busy_seconds()
+            append((now, "pool_depth", float(pool.depth())))
+            dt = now - self._busy_prev_t
+            if self._busy_prev_t > 0.0 and dt > 0.0:
+                util = (busy - self._busy_prev) / (dt * max(pool.threads, 1))
+                append((now, "pool_util", min(max(util, 0.0), 1.0)))
+            self._busy_prev, self._busy_prev_t = busy, now
+
+    def top_tasks(self, n: int = 5) -> List[List[object]]:
+        """``[[name, cpu_us], ...]`` — the n hottest tasks by on-CPU
+        time (the flight/statusd ``resources`` table)."""
+        rows = sorted(self.task_cpu.items(), key=lambda kv: -kv[1])[:n]
+        return [[name, cpu * 1e6] for name, cpu in rows]
+
+
+_GLOBAL: Optional[Profiler] = None
+_LOCK = threading.Lock()
+#: tri-state programmatic override: None = follow the environment.
+_FORCED: Optional[bool] = None
+
+
+def profile_enabled() -> bool:
+    """True when the profiler should be live: forced via
+    :func:`configure`, or ``MPIT_OBS_PROFILE`` truthy.  Profiling
+    always implies obs (metrics.obs_enabled honours the same env), but
+    obs alone never implies profiling."""
+    if _FORCED is not None:
+        return bool(_FORCED) and _metrics.obs_enabled()
+    return (os.environ.get(PROFILE_ENV, "") not in ("", "0")
+            and _metrics.obs_enabled())
+
+
+def get_profiler():
+    """The process-global profiler when profiling is enabled, else the
+    null profiler — the capture-at-construction contract of the
+    registry/recorder applies."""
+    if not profile_enabled():
+        return NULL_PROFILER
+    global _GLOBAL
+    if _GLOBAL is None:
+        with _LOCK:
+            if _GLOBAL is None:
+                _GLOBAL = Profiler()
+    return _GLOBAL
+
+
+def configure(enabled: Optional[bool] = None, reset: bool = False) -> None:
+    """Programmatic profiling enablement (tests, ptest's in-process agg
+    legs).  ``enabled=None`` returns control to the environment."""
+    global _FORCED, _GLOBAL
+    _FORCED = enabled
+    if reset:
+        _GLOBAL = None
+
+
+def reset() -> None:
+    """Drop the global profiler and the override (via obs.configure)."""
+    global _GLOBAL, _FORCED
+    _GLOBAL = None
+    _FORCED = None
+
+
+def resource_snapshot() -> Dict[str, object]:
+    """The resource section flight dumps and statusd serve: the native
+    pool's live status (threads/depth/busy — sampled, never created),
+    the scheduler's run-queue/CPU totals, and the top-5 tasks by CPU.
+    Pool-only when profiling is off; empty when there is no pool either
+    — the shape is additive so consumers probe keys, not versions."""
+    out: Dict[str, object] = {}
+    pool = _current_pool()
+    if pool is not None:
+        pool.sample_obs()
+        out["pool"] = pool.status()
+    prof = get_profiler()
+    if prof.enabled:
+        out["sched"] = {"runq": prof.last_runq,
+                        "cpu_seconds": prof.cpu_seconds}
+        out["top_tasks"] = prof.top_tasks(5)
+    return out
+
+
+# -- the offline report: python -m mpit_tpu_torch.obs profile <trace> --------------
+
+
+def _rank_windows(events) -> Dict[object, Tuple[float, float]]:
+    """pid -> (first ts, last ts) over non-metadata events (µs)."""
+    win: Dict[object, Tuple[float, float]] = {}
+    for ev in events:
+        if ev.get("ph") == "M":
+            continue
+        ts = ev.get("ts")
+        if not isinstance(ts, (int, float)):
+            continue
+        te = ts + float(ev.get("dur", 0.0) or 0.0)
+        pid = ev.get("pid")
+        lo, hi = win.get(pid, (ts, te))
+        win[pid] = (min(lo, ts), max(hi, te))
+    return win
+
+
+def _metric_value(snap: dict, name: str) -> float:
+    """Sum of a metric across label sets in a trace metrics snapshot."""
+    total = 0.0
+    for full, v in (snap or {}).items():
+        base = full.split("{", 1)[0]
+        if base == name and isinstance(v, (int, float)):
+            total += v
+    return total
+
+
+def _encode_while_wire(spans) -> Optional[dict]:
+    """How much of the chunked clients' encode CPU-work ran *after* the
+    first chunk was already on the wire — the direct client-side
+    measure of the §12 pipeline (1.0 = every later chunk encoded while
+    bytes moved; 0.0 = encode strictly preceded the transfer, i.e. no
+    overlap was won).  Same-rank timestamps only: no clock alignment
+    enters, so the fraction is exact up to mark granularity."""
+    total = overlapped = 0.0
+    ops = 0
+    for s in spans:
+        if s.side != "client" or int(s.args.get("chunks", 0) or 0) < 2:
+            continue
+        first_send_end = None
+        for phase, ts, dur in s.phases:
+            if phase == "send":
+                first_send_end = ts + dur
+                break
+        if first_send_end is None:
+            continue
+        ops += 1
+        for phase, ts, dur in s.phases:
+            if phase != "encode" or dur <= 0:
+                continue
+            total += dur
+            lo = max(ts, first_send_end)
+            hi = ts + dur
+            if hi > lo:
+                overlapped += hi - lo
+    if not ops or total <= 0:
+        return None
+    return {"ops": ops, "encode_us": total, "overlapped_us": overlapped,
+            "fraction": overlapped / total}
+
+
+def analyze_trace(path_or_obj, top: int = 10) -> dict:
+    """The utilization report for one (merged or per-rank) trace."""
+    from mpit_tpu_torch.obs import causal as _causal
+
+    events, other = _causal.load_trace(path_or_obj)
+    spans = _causal.extract_spans(events)
+    windows = _rank_windows(events)
+    # counter-track census: pid -> track -> sample count
+    tracks: Dict[object, Dict[str, int]] = {}
+    for ev in events:
+        if ev.get("ph") == "C":
+            per = tracks.setdefault(ev.get("pid"), {})
+            name = str(ev.get("name", ""))
+            per[name] = per.get(name, 0) + 1
+    ranks: Dict[str, dict] = {}
+    busy_total = capacity_total = 0.0
+    for rank, info in sorted((other.get("ranks") or {}).items()):
+        snap = (info or {}).get("metrics") or {}
+        lo, hi = windows.get(_as_pid(rank), (0.0, 0.0))
+        wall_s = max(hi - lo, 0.0) / 1e6
+        threads = _metric_value(snap, "mpit_pool_threads")
+        busy = _metric_value(snap, "mpit_pool_busy_seconds")
+        cpu = _metric_value(snap, "mpit_sched_cpu_seconds_total")
+        row: Dict[str, object] = {
+            "role": (info or {}).get("role", ""),
+            "wall_s": wall_s,
+            "cpu_s": cpu,
+            "cpu_util": (cpu / wall_s) if wall_s > 0 else 0.0,
+            "counter_samples": tracks.get(_as_pid(rank), {}),
+        }
+        if threads > 0:
+            row["pool"] = {
+                "threads": threads,
+                "busy_s": busy,
+                "util": (busy / (wall_s * threads)) if wall_s > 0 else 0.0,
+            }
+            busy_total += busy
+            capacity_total += wall_s * threads
+        ranks[str(rank)] = row
+    # per-op cpu vs wall (side-split) from the span-level cpu_us rider
+    ops: Dict[str, dict] = {}
+    for s in spans:
+        if s.cpu_us is None:
+            continue
+        key = f"{s.name}/{s.side or '?'}"
+        wall = max(s.t1 - s.t0, 0.0)
+        on = min(max(s.cpu_us, 0.0), wall)
+        e = ops.setdefault(key, {"count": 0, "wall_us": 0.0,
+                                 "cpu_us": 0.0, "off_cpu_us": 0.0})
+        e["count"] += 1
+        e["wall_us"] += wall
+        e["cpu_us"] += on
+        e["off_cpu_us"] += wall - on
+    # top tasks by CPU across ranks (task X events carry cpu_us)
+    per_task: Dict[Tuple[object, str], List[float]] = {}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") != "task":
+            continue
+        cpu = (ev.get("args") or {}).get("cpu_us")
+        if not isinstance(cpu, (int, float)):
+            continue
+        e = per_task.setdefault((ev.get("pid"), str(ev.get("name"))),
+                                [0.0, 0.0, 0.0])
+        e[0] += 1
+        e[1] += float(cpu)
+        e[2] += float(ev.get("dur", 0.0) or 0.0)
+    tasks = [{"rank": pid, "task": name, "count": int(n),
+              "cpu_us": cpu, "wall_us": wall}
+             for (pid, name), (n, cpu, wall) in per_task.items()]
+    tasks.sort(key=lambda r: -r["cpu_us"])
+    return {
+        "ranks": ranks,
+        "pool_overlap_efficiency": (
+            busy_total / capacity_total if capacity_total > 0 else None),
+        "cpu_phases": _causal.cpu_attribution(spans),
+        "ops": dict(sorted(ops.items())),
+        "tasks": tasks[:top],
+        "streaming": _encode_while_wire(spans),
+        "counter_events": sum(sum(per.values()) for per in tracks.values()),
+    }
+
+
+def _as_pid(rank):
+    """otherData.ranks keys are strings; event pids are ints."""
+    try:
+        return int(rank)
+    except (TypeError, ValueError):
+        return rank
+
+
+def render_profile(report: dict, top: int = 10) -> str:
+    lines: List[str] = []
+    for rank, row in report["ranks"].items():
+        pool = row.get("pool")
+        pool_txt = (
+            f"  pool {pool['util']:.1%} of {pool['threads']:.0f} thread(s)"
+            f" ({pool['busy_s']:.3f}s busy)" if pool else "  pool -")
+        samples = sum(row.get("counter_samples", {}).values())
+        lines.append(
+            f"rank {rank} ({row.get('role') or '?'}): wall {row['wall_s']:.3f}s"
+            f"  sched-cpu {row['cpu_s']:.3f}s ({row['cpu_util']:.1%} of a core)"
+            f"{pool_txt}  [{samples} counter sample(s)]")
+    eff = report.get("pool_overlap_efficiency")
+    if eff is not None:
+        lines.append(f"pool overlap efficiency: {eff:.1%} "
+                     "(busy-seconds / wall x threads, all pooled ranks)")
+    stream = report.get("streaming")
+    if stream:
+        lines.append(
+            f"encode-while-wire: {stream['fraction']:.1%} of "
+            f"{stream['encode_us'] / 1e3:.3f}ms encode across "
+            f"{stream['ops']} chunked op(s) ran after chunk 0 shipped")
+    for key, e in report.get("ops", {}).items():
+        if not e["wall_us"]:
+            continue
+        lines.append(
+            f"op {key}: n={e['count']}  wall {e['wall_us'] / 1e3:.3f}ms  "
+            f"cpu {e['cpu_us'] / 1e3:.3f}ms "
+            f"({e['cpu_us'] / e['wall_us']:.1%} on-cpu)")
+    phases = report.get("cpu_phases")
+    if phases:
+        lines.append(f"  {'op/side.phase':<32}{'wall ms':>10}{'cpu ms':>10}"
+                     f"{'off ms':>10}{'on-cpu':>8}")
+        for key, per in phases.items():
+            for phase, e in per.items():
+                share = e["cpu_us"] / e["wall_us"] if e["wall_us"] else 0.0
+                lines.append(
+                    f"  {key + '.' + phase:<32}"
+                    f"{e['wall_us'] / 1e3:>10.3f}{e['cpu_us'] / 1e3:>10.3f}"
+                    f"{e['off_cpu_us'] / 1e3:>10.3f}{share:>8.1%}")
+    for row in report.get("tasks", [])[:top]:
+        lines.append(
+            f"task r{row['rank']}:{row['task']}: cpu "
+            f"{row['cpu_us'] / 1e3:.3f}ms over {row['count']} run(s) "
+            f"({row['wall_us'] / 1e3:.3f}ms wall)")
+    if not report.get("counter_events"):
+        lines.append("counter tracks: none (profiling was off, or the "
+                     "trace predates them)")
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m mpit_tpu_torch.obs profile`` entry point."""
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(
+        prog="python -m mpit_tpu_torch.obs profile",
+        description="CPU/utilization attribution for a merged trace: "
+                    "per-rank core use, on/off-CPU phase split, pool "
+                    "overlap efficiency, top tasks by CPU")
+    parser.add_argument("trace", help="merged Chrome trace (obs/trace.py)")
+    parser.add_argument("--json", action="store_true", dest="as_json",
+                        help="emit the machine-readable report")
+    parser.add_argument("--top", type=int, default=10,
+                        help="task rows to print")
+    parser.add_argument("--require-counters", action="store_true",
+                        help="exit 1 unless the trace carries ph:'C' "
+                             "counter samples (CI gate)")
+    args = parser.parse_args(argv)
+    try:
+        report = analyze_trace(args.trace, top=args.top)
+    except (OSError, ValueError) as exc:
+        print(f"{args.trace}: cannot profile: {exc}", file=sys.stderr)
+        return 2
+    if args.as_json:
+        print(json.dumps(report))
+    else:
+        print(render_profile(report, top=args.top))
+    if args.require_counters and not report.get("counter_events"):
+        print("no counter-track samples in trace (MPIT_OBS_PROFILE off?)",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

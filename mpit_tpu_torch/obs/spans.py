@@ -1,0 +1,261 @@
+"""Op spans and task lifecycles — who spent how long in which phase.
+
+A counter says *how many* retries happened; a span says *which op*
+retried, against *which peer*, and where its time went.  Two record
+kinds:
+
+- **Op spans** (:class:`OpSpan`): one per PS op.  Created when the op
+  starts processing, phase-marked at each transition (client:
+  ``encode`` → ``send`` → ``ack``, with ``backoff``/``send``/``ack``
+  repeating per retry attempt; server: ``apply`` → ``ack``), annotated
+  with the op's wire identity (peer, ``[epoch, seq]``) and closed with
+  an outcome (``ok`` / ``applied`` / ``dup`` / ``stale`` / ``aborted``
+  / ``exhausted``).  Closing also feeds the ``mpit_ps_op_seconds``
+  histogram, so the metrics and the trace always agree.
+- **Task lifecycles**: the cooperative scheduler records each task's
+  spawn→completion window and terminal state — service loops, pumps,
+  and reapers show up as rows in the exported trace.
+
+The recorder owns every clock read.  Role files (``ps/``, ``ft/``,
+``comm/``) never call ``time.monotonic()`` to measure — the MT-O4xx
+lint family enforces it — so a disabled recorder (the default) means
+zero clock reads on the hot path: :data:`NULL_SPAN` and
+:data:`NULL_RECORDER` are shared do-nothing objects.
+
+Cross-process alignment: spans are recorded on the monotonic clock, and
+the recorder captures a wall-clock offset at construction; the trace
+exporter adds it so per-rank files merge onto one timeline (host NTP
+skew applies, which is fine at the phase granularity traced here).
+
+A copy of ``mpit_tpu/obs/spans.py``: the port imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from mpit_tpu_torch.obs import clock as _clock
+from mpit_tpu_torch.obs import flight as _flight
+from mpit_tpu_torch.obs import metrics as _metrics
+from mpit_tpu_torch.obs import profile as _profile
+
+
+class NullSpan:
+    """Shared no-op span — the disabled path's op object."""
+
+    __slots__ = ()
+
+    def mark(self, phase: str) -> None:
+        pass
+
+    def note(self, **kw) -> None:
+        pass
+
+    def end(self, outcome: str = "ok", **kw) -> None:
+        pass
+
+
+NULL_SPAN = NullSpan()
+
+
+class OpSpan:
+    __slots__ = ("_rec", "name", "tid", "t0", "t1", "marks", "args",
+                 "outcome", "cpu0", "cpu1", "cpu_marks", "cpu_us")
+
+    def __init__(self, rec: "SpanRecorder", name: str, tid: str,
+                 args: Dict[str, object]):
+        self._rec = rec
+        self.name = name
+        self.tid = tid
+        self.t0 = time.monotonic()
+        self.t1: Optional[float] = None
+        self.marks: List[Tuple[str, float]] = []
+        self.args = args
+        self.outcome = ""
+        # CPU attribution (obs/profile.py): when profiling is enabled
+        # the span stamps the stepping thread's CPU clock alongside
+        # every wall stamp, so the exporter can split each phase into
+        # on-cpu vs off-cpu.  Off (cpu0 None): zero extra clock reads.
+        self.cpu0: Optional[float] = (
+            rec._prof.cpu_now() if rec._prof.enabled else None)
+        self.cpu1: float = 0.0
+        self.cpu_marks: List[float] = []
+        self.cpu_us: Optional[float] = None
+
+    def mark(self, phase: str) -> None:
+        """Phase ``phase`` begins now (it runs until the next mark or
+        the end of the span)."""
+        self.marks.append((phase, time.monotonic()))
+        if self.cpu0 is not None:
+            self.cpu_marks.append(self._rec._prof.cpu_now())
+
+    def note(self, **kw) -> None:
+        """Attach args discovered mid-op (e.g. seq assigned after the
+        encode, retry counts)."""
+        self.args.update(kw)
+
+    def end(self, outcome: str = "ok", **kw) -> None:
+        if self.t1 is not None:
+            return  # idempotent: error paths may end defensively
+        self.t1 = time.monotonic()
+        if self.cpu0 is not None:
+            self.cpu1 = self._rec._prof.cpu_now()
+            self.cpu_us = max((self.cpu1 - self.cpu0) * 1e6, 0.0)
+        self.outcome = outcome
+        if kw:
+            self.args.update(kw)
+        self._rec._finish(self)
+
+
+class SpanRecorder:
+    """Process-local span sink (one per process; role threads share it —
+    appends are GIL-atomic and records are immutable once finished)."""
+
+    enabled = True
+
+    def __init__(self, registry=None):
+        self.registry = registry if registry is not None \
+            else _metrics.get_registry()
+        self.spans: List[OpSpan] = []
+        #: (name, t0, t1, state, cpu_us) — cpu_us is 0.0 unless the
+        #: profiler was live (obs/profile.py) and the scheduler fed
+        #: the task's accumulated thread-time through task_end.
+        self.tasks: List[Tuple[str, float, float, str, float]] = []
+        #: the CPU clock source for op spans — the null profiler when
+        #: profiling is off, so spans stamp no thread-time by default.
+        self._prof = _profile.get_profiler()
+        #: monotonic -> wall offset for cross-rank trace merging — the
+        #: process-wide time base (obs/clock.py), shared with the flight
+        #: recorder and the FLAG_TIMING wire stamps so every timestamp
+        #: this process emits subtracts cleanly against the others.
+        self.epoch_offset = _clock.epoch_offset()
+        self.flight = _flight.get_flight()
+        self._hist_lock = threading.Lock()
+        self._hists: Dict[Tuple[str, str], object] = {}
+        #: spans begun but not yet ended — the live in-flight op table
+        #: served by the /status introspection endpoint (obs/statusd.py)
+        #: and attached to flight-recorder dumps.
+        self._open: Dict[int, OpSpan] = {}
+
+    def op(self, name: str, peer: object = "?", side: str = "client",
+           **args) -> OpSpan:
+        """Begin an op span.  ``tid`` groups ops into trace rows — one
+        per (role rank, side, peer, tag) channel, which the protocol
+        already keeps strictly sequential (client pump FIFO, per-channel
+        server loops), so begin/end events nest cleanly.  The role's own
+        rank (``rank=`` arg) is part of the channel id: in a
+        single-process multi-role gang (thread tests, np=1) two servers
+        otherwise share e.g. ``server:2:GRAD`` and their interleaved
+        B/E events scramble the channel."""
+        args["peer"] = peer
+        args["side"] = side
+        rank = args.get("rank")
+        prefix = f"r{rank}:" if rank is not None else ""
+        span = OpSpan(self, name, f"{prefix}{side}:{peer}:{name}", args)
+        self._open[id(span)] = span
+        return span
+
+    def open_ops(self) -> List[Dict[str, object]]:
+        """Snapshot of the in-flight ops: identity args, current phase,
+        the full wall-anchored phase-mark chain (the open half of the
+        op's causal chain — a flight dump can say which phase an op died
+        in and line it up against a sibling rank's timeline), and
+        seconds in flight so far (one clock read per request — this runs
+        on the introspection path, never the hot path)."""
+        now = time.monotonic()
+        off = self.epoch_offset
+        out = []
+        for span in list(self._open.values()):
+            out.append({
+                "op": span.name,
+                "elapsed_s": now - span.t0,
+                "phase": span.marks[-1][0] if span.marks else "",
+                "t0": span.t0 + off,
+                "marks": [[phase, t + off] for phase, t in list(span.marks)],
+                **{k: v for k, v in span.args.items()},
+            })
+        return out
+
+    def _finish(self, span: OpSpan) -> None:
+        self._open.pop(id(span), None)
+        self.spans.append(span)
+        self.flight.record(
+            "op", name=span.name, outcome=span.outcome,
+            dur_s=span.t1 - span.t0, t0=span.t0,
+            **{k: v for k, v in span.args.items()})
+        key = (span.name, str(span.args.get("side", "")))
+        hist = self._hists.get(key)
+        if hist is None:
+            with self._hist_lock:
+                hist = self._hists.get(key)
+                if hist is None:
+                    hist = self.registry.histogram(
+                        "mpit_ps_op_seconds", op=key[0], side=key[1])
+                    self._hists[key] = hist
+        hist.observe(span.t1 - span.t0)
+
+    # -- task lifecycles (driven by aio.Scheduler) ---------------------------
+
+    def task_begin(self, name: str) -> float:
+        return time.monotonic()
+
+    def task_end(self, token: Optional[float], name: str, state: str,
+                 cpu_us: float = 0.0) -> None:
+        if token is None:
+            return  # task spawned while recording was disabled
+        now = time.monotonic()
+        self.tasks.append((name, token, now, state, cpu_us))
+        self.flight.record("task", name=name, state=state,
+                           dur_s=now - token, t0=token)
+
+
+class NullRecorder:
+    """The disabled recorder: hands out :data:`NULL_SPAN`, records
+    nothing, reads no clock."""
+
+    enabled = False
+    spans: tuple = ()
+    tasks: tuple = ()
+    epoch_offset = 0.0
+
+    def op(self, name: str, peer: object = "?", side: str = "client",
+           **args) -> NullSpan:
+        return NULL_SPAN
+
+    def open_ops(self) -> list:
+        return []
+
+    def task_begin(self, name: str) -> None:
+        return None
+
+    def task_end(self, token, name: str, state: str,
+                 cpu_us: float = 0.0) -> None:
+        pass
+
+
+NULL_RECORDER = NullRecorder()
+
+_GLOBAL: Optional[SpanRecorder] = None
+_LOCK = threading.Lock()
+
+
+def get_recorder():
+    """The process-global recorder when obs is enabled, else the null
+    recorder.  Same capture-at-construction contract as the registry."""
+    if not _metrics.obs_enabled():
+        return NULL_RECORDER
+    global _GLOBAL
+    if _GLOBAL is None:
+        with _LOCK:
+            if _GLOBAL is None:
+                _GLOBAL = SpanRecorder()
+    return _GLOBAL
+
+
+def reset() -> None:
+    """Drop the global recorder (tests; called by obs.configure)."""
+    global _GLOBAL
+    _GLOBAL = None

@@ -5,6 +5,9 @@
 :func:`profiler_trace` are its profiler bridge on ``torch.profiler``:
 wrap host work in :func:`trace_annotation` while :func:`profiler_trace`
 records, and the phase shows on the timeline beside the CUDA kernels.
+``torch`` is imported where a profiler call needs it, so importing
+:mod:`mpit_tpu_torch.obs` (the trace, analyze and top tools) costs no
+``import torch``.
 """
 
 from __future__ import annotations
@@ -14,8 +17,6 @@ import pathlib
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
-
-import torch
 
 
 class PhaseTimers:
@@ -55,6 +56,8 @@ class PhaseTimers:
 @contextlib.contextmanager
 def trace_annotation(name: str) -> Iterator[None]:
     """A named range on the profiler timeline (``record_function``)."""
+    import torch
+
     with torch.profiler.record_function(name):
         yield
 
@@ -68,6 +71,8 @@ def profiler_trace(log_dir: str | None) -> Iterator[None]:
     if not log_dir:
         yield
         return
+    import torch
+
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

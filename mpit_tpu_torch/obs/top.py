@@ -1,0 +1,464 @@
+"""``python -m mpit_tpu_torch.obs top`` — one table for a whole running gang.
+
+Polls every rank's statusd endpoint (``/metrics`` + ``/status``,
+obs/statusd.py) and renders per-rank throughput, gradient staleness,
+retries/evictions and shard load side by side — the live view of the
+failure modes the PS literature says matter at scale (stragglers show
+up as one rank's ops/s collapsing; skewed arrival as a staleness tail;
+retry storms in the retries column; shard imbalance in the load column).
+
+The collection half (:func:`parse_exposition`, :func:`poll_rank`,
+:func:`collect`) is a library surface on purpose: the shardctl
+controller and the planned admission-control tier read the same
+endpoints, so "what the operator sees" and "what the control plane
+acts on" cannot drift apart.
+
+Usage::
+
+    MPIT_OBS_HTTP=8780 python -m mpit_tpu_torch.train.launch --np 4 ... &
+    python -m mpit_tpu_torch.obs top --np 4 --base-port 8780
+
+``--iters N`` bounds the refresh loop (0 = until interrupted);
+``--json`` emits one machine-readable snapshot per refresh instead of
+the table (CI and scripts); ``--retry-s`` keeps polling an endpoint
+that is not up yet (a gang still importing torch and making its CUDA
+context, 8-10 s a process on an H100 host) before giving up; it waits
+for ``--min-up`` ranks (at least one).
+
+A copy of ``mpit_tpu/obs/top.py``: the port imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+import time
+import urllib.error
+import urllib.request
+from typing import Dict, List, Optional, Tuple
+
+DEFAULT_BASE_PORT = 8780
+
+_LINE = re.compile(
+    r'^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(?:\{(?P<labels>[^}]*)\})?\s+(?P<value>[^\s]+)$')
+_LABEL = re.compile(r'(\w+)="([^"]*)"')
+
+
+def parse_exposition(text: str) -> List[Tuple[str, Dict[str, str], float]]:
+    """Prometheus text exposition -> [(name, labels, value)].  Ignores
+    comments and anything that does not parse as a sample line."""
+    out: List[Tuple[str, Dict[str, str], float]] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _LINE.match(line)
+        if not m:
+            continue
+        try:
+            value = float(m.group("value"))
+        except ValueError:
+            continue
+        labels = dict(_LABEL.findall(m.group("labels") or ""))
+        out.append((m.group("name"), labels, value))
+    return out
+
+
+def metric_sum(samples, name: str, **match) -> float:
+    """Sum of every series of ``name`` whose labels include ``match``."""
+    total = 0.0
+    for n, labels, value in samples:
+        if n == name and all(labels.get(k) == str(v)
+                             for k, v in match.items()):
+            total += value
+    return total
+
+
+def hist_mean(samples, name: str) -> Optional[float]:
+    """Mean of a histogram from its ``_sum``/``_count`` series (all
+    label sets pooled); None when it never observed."""
+    count = metric_sum(samples, name + "_count")
+    if count <= 0:
+        return None
+    return metric_sum(samples, name + "_sum") / count
+
+
+def hist_quantile(samples, name: str, q: float) -> Optional[float]:
+    """Quantile estimate from a histogram's cumulative ``_bucket{le=}``
+    series (all label sets pooled): the smallest bucket upper bound
+    whose pooled cumulative count covers rank ``q``.  Exact up to the
+    log2 bucket width; None when the histogram never observed."""
+    per_le: Dict[float, float] = {}
+    for n, labels, value in samples:
+        if n != name + "_bucket":
+            continue
+        le = labels.get("le", "")
+        bound = float("inf") if le == "+Inf" else float(le)
+        # Cumulative series pool by summing per bound across label sets.
+        per_le[bound] = per_le.get(bound, 0.0) + value
+    if not per_le:
+        return None
+    total = metric_sum(samples, name + "_count")
+    if total <= 0:
+        return None
+    target = q * total
+    best = None
+    for bound in sorted(per_le):
+        if per_le[bound] >= target:
+            best = bound
+            break
+    if best is None or best == float("inf"):
+        # Everything above the largest finite bucket: report the max
+        # finite bound (the histogram clamps there too).
+        finite = [b for b in per_le if b != float("inf")]
+        best = max(finite) if finite else None
+    return best
+
+
+def hist_quantile_between(prev, cur, name: str, q: float) -> Optional[float]:
+    """Quantile of a histogram over the *window* between two sample
+    snapshots: cumulative ``_bucket{le=}`` counts are differenced per
+    bound (pooled across label sets) before the rank walk, so the
+    estimate describes what happened since ``prev`` — the sliding-window
+    read the autoscaler acts on — rather than the run's whole history.
+    None when nothing was observed in the window."""
+    per_le: Dict[float, float] = {}
+    for samples, sign in ((cur, 1.0), (prev, -1.0)):
+        for n, labels, value in samples:
+            if n != name + "_bucket":
+                continue
+            le = labels.get("le", "")
+            bound = float("inf") if le == "+Inf" else float(le)
+            per_le[bound] = per_le.get(bound, 0.0) + sign * value
+    total = (metric_sum(cur, name + "_count")
+             - metric_sum(prev, name + "_count"))
+    if not per_le or total <= 0:
+        return None
+    target = q * total
+    best = None
+    for bound in sorted(per_le):
+        if per_le[bound] >= target:
+            best = bound
+            break
+    if best is None or best == float("inf"):
+        finite = [b for b in per_le if b != float("inf")]
+        best = max(finite) if finite else None
+    return best
+
+
+def _get(url: str, timeout: float) -> bytes:
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read()
+
+
+def poll_rank(host: str, port: int, timeout: float = 2.0) -> dict:
+    """One rank's full readout: parsed /metrics samples + /status JSON.
+    Raises OSError/URLError when the endpoint is unreachable."""
+    metrics = parse_exposition(
+        _get(f"http://{host}:{port}/metrics", timeout).decode())
+    status = json.loads(_get(f"http://{host}:{port}/status", timeout))
+    return {"metrics": metrics, "status": status, "port": port}
+
+
+def collect(host: str, base: int, nranks: int,
+            timeout: float = 2.0) -> Dict[int, Optional[dict]]:
+    """Poll ranks 0..nranks-1; unreachable ranks map to None (a rank
+    that exited or has not bound yet is a row, not a crash)."""
+    out: Dict[int, Optional[dict]] = {}
+    for rank in range(nranks):
+        try:
+            out[rank] = poll_rank(host, base + rank, timeout)
+        except (OSError, ValueError, urllib.error.URLError):
+            out[rank] = None
+    return out
+
+
+def _rank_row(rank: int, sample: Optional[dict],
+              prev: Optional[dict], dt: Optional[float],
+              p99_target_ms: Optional[float] = None) -> Dict[str, object]:
+    """One rank's table row (also the --json record).
+    ``p99_target_ms`` (from the controller's autoscale SLO, when one is
+    running) turns the p99 column into a vs-target verdict."""
+    if sample is None:
+        return {"rank": rank, "up": False}
+    m = sample["metrics"]
+    status = sample["status"]
+    ops = (metric_sum(m, "mpit_ps_grads_applied_total")
+           + metric_sum(m, "mpit_ps_params_served_total"))
+    row: Dict[str, object] = {
+        "rank": rank,
+        "up": True,
+        "role": status.get("role") or "",
+        "ops_total": int(ops),
+        "ops_per_s": None,
+        "staleness_mean": hist_mean(m, "mpit_ps_grad_staleness"),
+        # Queueing-pressure columns: p99 op latency from the
+        # mpit_ps_op_seconds log2 buckets, and the frames still queued
+        # to writer threads (tcp gangs; shm sends complete into the
+        # ring, so the column reads 0 there).
+        "p99_s": hist_quantile(m, "mpit_ps_op_seconds", 0.99),
+        "send_queue": int(metric_sum(m, "mpit_tcp_send_queue_depth")),
+        # Serving-tier pair (PROTOCOL.md §8): live connection fan-out on
+        # the event-loop transport, and admission-control rejections.
+        "conns": int(metric_sum(m, "mpit_tcp_connections")),
+        "busy": int(metric_sum(m, "mpit_ps_busy_replies_total")),
+        "retries": int(metric_sum(m, "mpit_ft_retries_total")),
+        "evictions": int(metric_sum(m, "mpit_ft_evictions_total")),
+        "shards": int(metric_sum(m, "mpit_shardctl_owned_shards")),
+        "shard_busy_s": metric_sum(m, "mpit_shardctl_shard_busy_seconds_sum"),
+        "map_version": int(metric_sum(m, "mpit_shardctl_map_version")),
+        # Elastic membership (PROTOCOL.md §9): the controller rank
+        # publishes the live server count; everyone else reads 0.
+        "gang_size": int(metric_sum(m, "mpit_gang_size", role="server")),
+        # Multi-cell fabric (PROTOCOL.md §11): a cell rank publishes
+        # its serving version and lag vs the upstream head; readers
+        # attached ride the shared mpit_ps_readers gauge, and reader
+        # ranks publish their fail-over/GOODBYE reroutes.
+        "cell_version": int(metric_sum(m, "mpit_cell_version")),
+        "cell_lag": int(metric_sum(m, "mpit_cell_lag")),
+        "readers": int(metric_sum(m, "mpit_ps_readers")),
+        "reroutes": int(metric_sum(m, "mpit_ps_reader_reroutes_total")),
+        # Aggregation columns (PROTOCOL.md §13): a reducing client rank
+        # publishes its last round's fan-in, the contributions it
+        # excluded at its straggler deadline, and the direct-push
+        # fallbacks it took after being excluded itself.
+        "agg_fanin": int(metric_sum(m, "mpit_agg_fanin")),
+        "agg_late": int(metric_sum(m, "mpit_agg_late_folds_total")),
+        "agg_fallbacks": int(
+            metric_sum(m, "mpit_agg_direct_fallbacks_total")),
+        "inflight": len(status.get("inflight_ops") or []),
+        # Pooled data plane (comm/pool.py): chunk kernels dispatched to
+        # the native worker pool — 0 on serial-fallback ranks.
+        "pool_jobs": int(metric_sum(m, "mpit_pool_jobs_total")),
+        # CPU attribution plane (obs/profile.py): scheduler run-queue
+        # depth; cpu%/pool-util% are windowed below (None first poll).
+        "sched_runq": int(metric_sum(m, "mpit_sched_runq")),
+        "cpu_pct": None,
+        "pool_util": None,
+    }
+    # SLO columns: BUSY-reply ratio (admission rejections
+    # over ops — windowed against the previous refresh when one exists)
+    # and the per-rank p99-vs-target verdict read off the autoscaler's
+    # published SLO.
+    busy_all = (metric_sum(m, "mpit_ps_busy_replies_total")
+                + metric_sum(m, "mpit_shardctl_busy_replies_total"))
+    if prev is not None:
+        pm = prev["metrics"]
+        d_busy = busy_all - (metric_sum(pm, "mpit_ps_busy_replies_total")
+                             + metric_sum(pm,
+                                          "mpit_shardctl_busy_replies_total"))
+        d_ops = ops - (metric_sum(pm, "mpit_ps_grads_applied_total")
+                       + metric_sum(pm, "mpit_ps_params_served_total"))
+        denom = d_busy + max(d_ops, 0.0)
+        row["busy_ratio"] = (d_busy / denom) if denom > 0 else 0.0
+        row["p99_s"] = hist_quantile_between(pm, m, "mpit_ps_op_seconds",
+                                             0.99) or row["p99_s"]
+    else:
+        denom = busy_all + ops
+        row["busy_ratio"] = (busy_all / denom) if denom > 0 else 0.0
+    row["p99_target_ms"] = p99_target_ms
+    p99 = row.get("p99_s")
+    if p99_target_ms and p99 is not None:
+        row["slo"] = "hot" if p99 * 1000.0 > p99_target_ms else "ok"
+    else:
+        row["slo"] = None
+    if prev is not None and dt and dt > 0:
+        prev_ops = (metric_sum(prev["metrics"], "mpit_ps_grads_applied_total")
+                    + metric_sum(prev["metrics"],
+                                 "mpit_ps_params_served_total"))
+        row["ops_per_s"] = (ops - prev_ops) / dt
+        # Windowed core use (obs/profile.py): Δ scheduler-attributed
+        # CPU seconds per wall second (fraction of one core), and Δ
+        # pool busy-seconds over the window's thread-capacity.
+        pm = prev["metrics"]
+        d_cpu = (metric_sum(m, "mpit_sched_cpu_seconds_total")
+                 - metric_sum(pm, "mpit_sched_cpu_seconds_total"))
+        if d_cpu > 0 or metric_sum(m, "mpit_sched_cpu_seconds_total") > 0:
+            row["cpu_pct"] = max(d_cpu, 0.0) / dt * 100.0
+        threads = metric_sum(m, "mpit_pool_threads")
+        if threads > 0:
+            d_busy = (metric_sum(m, "mpit_pool_busy_seconds")
+                      - metric_sum(pm, "mpit_pool_busy_seconds"))
+            row["pool_util"] = max(d_busy, 0.0) / (dt * threads) * 100.0
+    return row
+
+
+def autoscale_status(samples: Dict[int, Optional[dict]]) -> Optional[dict]:
+    """The gang's autoscale section, from whichever rank runs the
+    controller (None when no autoscaler is attached) — the source of
+    the status line and the --json ``autoscale`` field."""
+    for sample in samples.values():
+        if sample is None:
+            continue
+        section = (sample["status"].get("controller") or {}).get("autoscale")
+        if section:
+            return section
+    return None
+
+
+def render_autoscale_line(section: Optional[dict]) -> str:
+    """One status line: last decision, cooldown remaining, SLO targets
+    (the gang-level half of the SLO columns)."""
+    if not section:
+        return "autoscale: (not running)"
+    last = section.get("last") or {}
+    slo = section.get("slo") or {}
+    counts = section.get("decisions") or {}
+    targets = " ".join(f"{k}<={v:g}" for k, v in sorted(slo.items()))
+    action = last.get("action", "-")
+    reason = last.get("reason", "-")
+    return (f"autoscale: last={action}({reason}) "
+            f"cooldown={section.get('cooldown_s', 0):.1f}s "
+            f"up/down/hold={counts.get('up', 0)}/{counts.get('down', 0)}"
+            f"/{counts.get('hold', 0)} "
+            f"operator_calls={section.get('operator_calls', 0)}"
+            + (f" slo[{targets}]" if targets else ""))
+
+
+_COLUMNS = ("rank", "role", "ops", "ops/s", "p99ms", "slo", "busy%",
+            "sendq", "conns",
+            "busy", "stale", "retry", "evict", "shards", "busy_s", "mapv",
+            "gang", "cellv", "lag", "rdrs", "rrt", "fanin", "late", "fb",
+            "pool", "cpu%", "putl%", "runq", "infl")
+
+
+def render_table(rows: List[Dict[str, object]]) -> str:
+    def fmt(row: Dict[str, object]) -> List[str]:
+        if not row.get("up"):
+            return [str(row["rank"]), "(down)"] + ["-"] * (len(_COLUMNS) - 2)
+        stale = row["staleness_mean"]
+        ops_s = row["ops_per_s"]
+        p99 = row.get("p99_s")
+        busy_ratio = row.get("busy_ratio")
+        return [
+            str(row["rank"]), str(row["role"]) or "?",
+            str(row["ops_total"]),
+            f"{ops_s:.1f}" if ops_s is not None else "-",
+            f"{p99 * 1000.0:.2f}" if p99 is not None else "-",
+            # p99 vs the autoscaler's published target: HOT above it,
+            # ok within, '-' when no SLO is running on this gang.
+            ("HOT" if row["slo"] == "hot" else "ok")
+            if row.get("slo") else "-",
+            f"{busy_ratio * 100.0:.0f}" if busy_ratio else "-",
+            str(row["send_queue"]) if row.get("send_queue") else "-",
+            str(row["conns"]) if row.get("conns") else "-",
+            str(row["busy"]) if row.get("busy") else "-",
+            f"{stale:.2f}" if stale is not None else "-",
+            str(row["retries"]), str(row["evictions"]),
+            str(row["shards"]) if row["shards"] else "-",
+            f"{row['shard_busy_s']:.2f}" if row["shard_busy_s"] else "-",
+            str(row["map_version"]) if row["map_version"] else "-",
+            str(row["gang_size"]) if row.get("gang_size") else "-",
+            # Cell-fabric columns (§11): only meaningful on cell /
+            # reader rows — everyone else shows '-'.
+            (str(row["cell_version"]) if row.get("role") == "cell"
+             else "-"),
+            (str(row["cell_lag"]) if row.get("role") == "cell" else "-"),
+            str(row["readers"]) if row.get("readers") else "-",
+            str(row["reroutes"]) if row.get("reroutes") else "-",
+            # Aggregation columns (§13): only meaningful on reducing
+            # client ranks — everyone else shows '-'.
+            str(row["agg_fanin"]) if row.get("agg_fanin") else "-",
+            str(row["agg_late"]) if row.get("agg_late") else "-",
+            str(row["agg_fallbacks"]) if row.get("agg_fallbacks") else "-",
+            # Worker-pool column: pooled kernel jobs dispatched —
+            # serial-fallback ranks show '-'.
+            str(row["pool_jobs"]) if row.get("pool_jobs") else "-",
+            # CPU attribution columns (obs/profile.py): windowed
+            # scheduler CPU (% of one core), windowed pool utilization
+            # (% of thread capacity), current run-queue depth — all
+            # '-' unless profiling is on and a window exists.
+            (f"{row['cpu_pct']:.0f}" if row.get("cpu_pct") is not None
+             else "-"),
+            (f"{row['pool_util']:.0f}" if row.get("pool_util") is not None
+             else "-"),
+            str(row["sched_runq"]) if row.get("sched_runq") else "-",
+            str(row["inflight"]),
+        ]
+
+    cells = [list(_COLUMNS)] + [fmt(r) for r in rows]
+    widths = [max(len(row[i]) for row in cells)
+              for i in range(len(_COLUMNS))]
+    return "\n".join(
+        "  ".join(cell.ljust(w) for cell, w in zip(row, widths)).rstrip()
+        for row in cells)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m mpit_tpu_torch.obs top",
+        description="live per-rank telemetry for a running gang")
+    parser.add_argument("--np", type=int, required=True,
+                        help="gang size (ranks 0..np-1 are polled)")
+    parser.add_argument("--base-port", type=int, default=None,
+                        help=f"statusd base port (default: $MPIT_OBS_HTTP "
+                             f"or {DEFAULT_BASE_PORT})")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--interval", type=float, default=2.0,
+                        help="seconds between refreshes")
+    parser.add_argument("--iters", type=int, default=0,
+                        help="number of refreshes (0 = until interrupted)")
+    parser.add_argument("--retry-s", type=float, default=0.0,
+                        help="keep polling this long for --min-up ranks (at "
+                             "least one) to come up before the first render")
+    parser.add_argument("--min-up", type=int, default=0,
+                        help="exit 1 unless at least this many ranks "
+                             "responded on the final refresh")
+    parser.add_argument("--json", action="store_true",
+                        help="emit one JSON snapshot per refresh")
+    args = parser.parse_args(argv)
+    import os
+
+    base = args.base_port
+    if base is None:
+        env = os.environ.get("MPIT_OBS_HTTP", "")
+        base = int(env) if env else DEFAULT_BASE_PORT
+
+    if args.retry_s > 0:
+        deadline = time.monotonic() + args.retry_s
+        while time.monotonic() < deadline:
+            alive = sum(1 for s in collect(args.host, base, args.np).values()
+                        if s is not None)
+            if alive >= max(args.min_up, 1):
+                break
+            time.sleep(0.5)
+
+    prev: Dict[int, Optional[dict]] = {}
+    prev_t: Optional[float] = None
+    i = 0
+    up = 0
+    try:
+        while True:
+            i += 1
+            now = time.monotonic()
+            samples = collect(args.host, base, args.np)
+            dt = (now - prev_t) if prev_t is not None else None
+            autoscale = autoscale_status(samples)
+            target = (autoscale or {}).get("slo", {}).get("p99_ms")
+            rows = [_rank_row(r, samples[r], prev.get(r), dt,
+                              p99_target_ms=target)
+                    for r in range(args.np)]
+            up = sum(1 for r in rows if r.get("up"))
+            if args.json:
+                print(json.dumps({"ranks": rows, "autoscale": autoscale}))
+            else:
+                print(render_table(rows))
+                print(render_autoscale_line(autoscale))
+                print(f"-- {up}/{args.np} rank(s) up; refresh {i}"
+                      + (f"/{args.iters}" if args.iters else "") + " --")
+            sys.stdout.flush()
+            prev, prev_t = samples, now
+            if args.iters and i >= args.iters:
+                break
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 0 if up >= args.min_up else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,293 @@
+"""Chrome trace-event export — spans + task lifecycles on one timeline.
+
+Output is the Chrome trace-event *JSON Object Format*
+(``{"traceEvents": [...], "displayTimeUnit": "ms", "otherData": {...}}``),
+readable by Perfetto (https://ui.perfetto.dev) and chrome://tracing:
+
+- one **pid per rank** (process metadata names it ``rank N <role>``);
+- one **tid per op channel / task** (thread metadata carries the
+  channel name, e.g. ``client:0:GRAD`` or ``task:recv_grad:2.g0``);
+- op spans emit a ``B``/``E`` pair (begin args carry the op identity —
+  peer, epoch, seq; end args carry the outcome and retry count) with
+  their phases as nested ``X`` complete events (``GRAD.encode``,
+  ``GRAD.send``, ...); task lifecycles emit one ``X`` each;
+- timestamps are wall-clock microseconds (monotonic span times shifted
+  by the recorder's captured epoch offset), so per-rank part files
+  merge onto a single timeline, and a concurrently captured
+  ``torch.profiler`` trace lines up beside it.
+
+Flow: each rank writes ``$MPIT_OBS_TRACE.rank<N>.json`` at exit
+(:func:`maybe_write_rank_trace`, called from the launch child mains);
+the gang parent merges the parts into ``$MPIT_OBS_TRACE``
+(:func:`maybe_merge_rank_traces`).  ``python -m mpit_tpu_torch.obs.trace
+<file>`` validates a trace (well-formed events, balanced begin/end
+pairs) — the CI smoke job gates on it.
+
+A copy of ``mpit_tpu/obs/trace.py``: the port imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import glob as _glob
+import json
+import os
+import sys
+from typing import Dict, List, Optional
+
+from mpit_tpu_torch.obs import clock as _clock
+from mpit_tpu_torch.obs import metrics as _metrics
+from mpit_tpu_torch.obs import profile as _profile
+from mpit_tpu_torch.obs import spans as _spans
+
+ENV = _metrics.TRACE_ENV  # MPIT_OBS_TRACE
+
+
+def chrome_events(recorder, pid: int, label: str = "",
+                  profiler=None) -> List[dict]:
+    """Flatten one recorder (plus the profiler's counter-track samples,
+    when profiling ran — obs/profile.py) into trace events for process
+    ``pid``."""
+    events: List[dict] = [{
+        "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+        "args": {"name": label or f"rank {pid}"},
+    }]
+    tids: Dict[str, int] = {}
+
+    def tid_of(name: str) -> int:
+        t = tids.get(name)
+        if t is None:
+            t = tids[name] = len(tids) + 1
+            events.append({
+                "ph": "M", "name": "thread_name", "pid": pid, "tid": t,
+                "args": {"name": name},
+            })
+        return t
+
+    off = recorder.epoch_offset
+
+    def us(t: float) -> float:
+        return (t + off) * 1e6
+
+    for sp in list(recorder.spans):
+        t = tid_of(sp.tid)
+        events.append({
+            "ph": "B", "name": sp.name, "cat": "ps_op", "pid": pid,
+            "tid": t, "ts": us(sp.t0),
+            "args": {k: v for k, v in sp.args.items()},
+        })
+        marks = sp.marks
+        # CPU attribution rider: when the span stamped the CPU clock
+        # alongside its wall marks (profiling on), each phase X event
+        # carries its on-CPU share and the E carries the span total.
+        cpu_stamps = None
+        if sp.cpu0 is not None and len(sp.cpu_marks) == len(marks):
+            cpu_stamps = list(sp.cpu_marks) + [sp.cpu1]
+        for i, (phase, mt) in enumerate(marks):
+            end = marks[i + 1][1] if i + 1 < len(marks) else sp.t1
+            ev = {
+                "ph": "X", "name": f"{sp.name}.{phase}", "cat": "ps_phase",
+                "pid": pid, "tid": t, "ts": us(mt),
+                "dur": max((end - mt) * 1e6, 0.0),
+            }
+            if cpu_stamps is not None:
+                ev["args"] = {"cpu_us": max(
+                    (cpu_stamps[i + 1] - cpu_stamps[i]) * 1e6, 0.0)}
+            events.append(ev)
+        end_args: Dict[str, object] = {"outcome": sp.outcome}
+        if sp.cpu_us is not None:
+            end_args["cpu_us"] = sp.cpu_us
+        events.append({
+            "ph": "E", "name": sp.name, "cat": "ps_op", "pid": pid,
+            "tid": t, "ts": us(sp.t1), "args": end_args,
+        })
+    for name, t0, t1, state, cpu_us in list(recorder.tasks):
+        args: Dict[str, object] = {"state": state}
+        if cpu_us:
+            args["cpu_us"] = cpu_us
+        events.append({
+            "ph": "X", "name": name, "cat": "task", "pid": pid,
+            "tid": tid_of(f"task:{name}"), "ts": us(t0),
+            "dur": max((t1 - t0) * 1e6, 0.0), "args": args,
+        })
+    # Counter tracks (ph:"C"): the profiler's sampled pool/scheduler
+    # utilization series.  Chrome keys counters by (pid, name), so the
+    # same four track names stay distinct per rank after a merge.
+    prof = profiler if profiler is not None else _profile.get_profiler()
+    for ts_mono, track, value in list(prof.samples):
+        events.append({
+            "ph": "C", "name": track, "cat": "resource", "pid": pid,
+            "tid": 0, "ts": us(ts_mono), "args": {"value": value},
+        })
+    # Stable sort on ts only: a span's B was appended before its E, so
+    # equal timestamps (zero-length spans) keep begin-before-end order.
+    events.sort(key=lambda e: e.get("ts", -1.0))
+    return events
+
+
+def write_rank_trace(path: str, rank: int, role: str = "",
+                     recorder=None, registry=None) -> str:
+    """Dump this process's spans + tasks (+ a metrics snapshot rider in
+    ``otherData``) as one rank's trace file."""
+    rec = recorder if recorder is not None else _spans.get_recorder()
+    reg = registry if registry is not None else _metrics.get_registry()
+    label = f"rank {rank}" + (f" ({role})" if role else "")
+    obj = {
+        "traceEvents": chrome_events(rec, pid=rank, label=label),
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "ranks": {str(rank): {"role": role, "metrics": reg.snapshot()}},
+            # Per-peer clock-offset estimates (obs/clock.py): the causal
+            # joiner aligns ranks from these instead of re-deriving
+            # offsets from span pairs (obs/causal.py).
+            "clock": _clock.snapshot_all(),
+        },
+    }
+    with open(path, "w") as fh:
+        json.dump(obj, fh)
+    return path
+
+
+def part_path(base: str, rank: int) -> str:
+    return f"{base}.rank{rank}.json"
+
+
+def maybe_write_rank_trace(rank: int, role: str = "") -> Optional[str]:
+    """When ``MPIT_OBS_TRACE`` is set, write this rank's part file next
+    to the requested path; the gang parent merges at exit."""
+    base = os.environ.get(ENV, "")
+    if not base:
+        return None
+    return write_rank_trace(part_path(base, rank), rank, role)
+
+
+def merge_traces(out_path: str, parts: List[str]) -> int:
+    """Concatenate per-rank part files (each already stamped with its
+    own pid) into one merged trace; returns the merged event count."""
+    events: List[dict] = []
+    ranks: Dict[str, dict] = {}
+    clock: Dict[str, dict] = {}
+    for p in parts:
+        with open(p) as fh:
+            obj = json.load(fh)
+        events.extend(obj.get("traceEvents", []))
+        other = obj.get("otherData") or {}
+        ranks.update(other.get("ranks", {}))
+        clock.update(other.get("clock", {}))
+    events.sort(key=lambda e: e.get("ts", -1.0))
+    with open(out_path, "w") as fh:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                   "otherData": {"ranks": ranks, "clock": clock}}, fh)
+    return len(events)
+
+
+def maybe_merge_rank_traces(cleanup: bool = True) -> Optional[str]:
+    """Gang-parent exit hook: merge every ``$MPIT_OBS_TRACE.rank*.json``
+    part into ``$MPIT_OBS_TRACE`` (no-op when unset or no parts — e.g.
+    a child crashed before its dump; parts are kept on failure paths
+    because the launcher only merges after a clean gang)."""
+    base = os.environ.get(ENV, "")
+    if not base:
+        return None
+    parts = sorted(_glob.glob(f"{base}.rank*.json"))
+    if not parts:
+        return None
+    merge_traces(base, parts)
+    if cleanup:
+        for p in parts:
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+    return base
+
+
+def validate_trace(path_or_obj) -> Dict[str, object]:
+    """Structural validation: the file parses, events are well-formed
+    Chrome trace format (ph/name/pid/tid, numeric ts on non-metadata
+    events, non-negative dur on X), and B/E pairs balance per
+    (pid, tid) with matching names.  Returns summary stats; raises
+    ``ValueError`` on any violation."""
+    if isinstance(path_or_obj, (str, os.PathLike)):
+        with open(path_or_obj) as fh:
+            obj = json.load(fh)
+    else:
+        obj = path_or_obj
+    if isinstance(obj, list):
+        events = obj
+    elif isinstance(obj, dict) and isinstance(obj.get("traceEvents"), list):
+        events = obj["traceEvents"]
+    else:
+        raise ValueError("trace is neither an event array nor an object "
+                         "with a traceEvents list")
+    stacks: Dict[tuple, List[str]] = {}
+    pids, ops, tasks, counters = set(), 0, 0, 0
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object")
+        missing = {"ph", "name", "pid", "tid"} - set(ev)
+        if missing:
+            raise ValueError(f"event {i} missing {sorted(missing)}")
+        ph = ev["ph"]
+        pids.add(ev["pid"])
+        if ph != "M" and not isinstance(ev.get("ts"), (int, float)):
+            raise ValueError(f"event {i} ({ev['name']!r}) has no numeric ts")
+        if ph == "C":
+            args = ev.get("args")
+            if not isinstance(args, dict) or not isinstance(
+                    args.get("value"), (int, float)):
+                raise ValueError(
+                    f"event {i} ({ev['name']!r}) C without numeric "
+                    "args.value")
+            counters += 1
+        elif ph == "X":
+            if not isinstance(ev.get("dur"), (int, float)) or ev["dur"] < 0:
+                raise ValueError(
+                    f"event {i} ({ev['name']!r}) X without dur >= 0")
+            if ev.get("cat") == "task":
+                tasks += 1
+        elif ph == "B":
+            stacks.setdefault((ev["pid"], ev["tid"]), []).append(ev["name"])
+            ops += 1
+        elif ph == "E":
+            stack = stacks.setdefault((ev["pid"], ev["tid"]), [])
+            if not stack:
+                raise ValueError(
+                    f"event {i}: E {ev['name']!r} with no open B on "
+                    f"(pid={ev['pid']}, tid={ev['tid']})")
+            top = stack.pop()
+            if top != ev["name"]:
+                raise ValueError(
+                    f"event {i}: E {ev['name']!r} closes B {top!r} on "
+                    f"(pid={ev['pid']}, tid={ev['tid']})")
+    unbalanced = {k: v for k, v in stacks.items() if v}
+    if unbalanced:
+        raise ValueError(f"unclosed B spans at EOF: {unbalanced}")
+    return {"events": len(events), "pids": len(pids), "ops": ops,
+            "tasks": tasks, "counters": counters}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m mpit_tpu_torch.obs.trace <file...>`` — validate traces."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print("usage: python -m mpit_tpu_torch.obs.trace <trace.json>...",
+              file=sys.stderr)
+        return 2
+    rc = 0
+    for path in argv:
+        try:
+            stats = validate_trace(path)
+        except (OSError, ValueError) as exc:
+            print(f"{path}: INVALID: {exc}", file=sys.stderr)
+            rc = 1
+            continue
+        print(f"{path}: ok — {stats['events']} events, "
+              f"{stats['pids']} rank(s), {stats['ops']} op span(s), "
+              f"{stats['tasks']} task(s), "
+              f"{stats['counters']} counter sample(s)")
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

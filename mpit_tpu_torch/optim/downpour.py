@@ -26,8 +26,17 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from mpit_tpu_torch.obs.metrics import get_registry
 from mpit_tpu_torch.optim.client_api import ParamClientAPI
 
+
+def host_copy_behind(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` enqueued on the current stream without waiting
+    (pinned memory on the card, ``t`` itself on the CPU).  It is complete
+    once a later blocking copy on the stream returns: the optimizers take
+    the loss this way behind the payload's copy of a sync round, so the
+    loss gauge costs no device synchronize of its own."""
+    return t.detach().to("cpu", non_blocking=True)
 
 class Downpour:
     """A local step around a parameter client, synced every su steps."""
@@ -52,6 +61,15 @@ class Downpour:
         self.dusync = 0.0  # blocking-sync seconds (reference state.dusync)
         self._started = False
 
+        # Training telemetry (mpit_tpu_torch.obs): the loss and the shipped
+        # update's norm, written on sync rounds only and only when obs is
+        # enabled.  The loss reaches the host behind the payload's copy,
+        # which waits for the step anyway: no device synchronize of its own.
+        _reg = get_registry()
+        self._obs = _reg.enabled
+        self._m_loss = _reg.gauge("mpit_train_loss", opt="downpour")
+        self._m_unorm = _reg.gauge("mpit_train_update_norm", opt="downpour")
+
     def start(self, w: torch.Tensor) -> torch.Tensor:
         """Register buffers with the client; first client seeds servers."""
         self.w_host = w.detach().to("cpu", copy=True).numpy()
@@ -65,6 +83,8 @@ class Downpour:
         """Ship ``payload`` as the grad, fetch fresh params into ``w``,
         time the wait."""
         np.copyto(self.grad_host, payload.detach().cpu().numpy())
+        if self._obs:
+            self._m_unorm.set(float(np.linalg.norm(self.grad_host)))
         self.pc.async_send_grad()
         self.pc.async_recv_param()
         t0 = time.monotonic()
@@ -82,6 +102,8 @@ class Downpour:
             dfdx = -(self.lr / (1.0 + k * self.lrd)) * g
         else:
             dfdx = -self.lr * g
+        synced = self.su == 1 or self.k % self.su == 0
+        loss_host = host_copy_behind(loss) if self._obs and synced else None
         if self.su == 1:
             w = self._sync(w, dfdx)
         else:
@@ -91,6 +113,8 @@ class Downpour:
                 self.accum.zero_()
             else:
                 w.add_(dfdx)  # move locally between syncs (reference :44)
+        if loss_host is not None:  # complete: the payload's copy waited
+            self._m_loss.set(float(loss_host))
         self.k += 1
         return w, loss
 

@@ -41,6 +41,7 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from mpit_tpu_torch.obs.metrics import get_registry
 from mpit_tpu_torch.ops.fused_update import fused_elastic
 from mpit_tpu_torch.optim.client_api import ParamClientAPI
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_commit, msgd_init, msgd_lookahead
@@ -72,6 +73,14 @@ class EAMSGD:
         self.cfg = MSGDConfig(lr=lr, lrd=lrd, lrp=lrp, mom=mom, momdecay=0.0,
                               l2wd=l2wd)
         self._skip_local = lr == 0.0  # reference :25 guards localupdate on lr~=0
+        # Training telemetry (mpit_tpu_torch.obs): the elastic distance
+        # ||w - w*||, EASGD's own convergence signal, and the shipped
+        # update's norm, from the sug host mirror on sync rounds only and
+        # only when obs is enabled (host reductions: no device sync).
+        _reg = get_registry()
+        self._obs = _reg.enabled
+        self._m_dist = _reg.gauge("mpit_train_elastic_distance", opt="eamsgd")
+        self._m_unorm = _reg.gauge("mpit_train_update_norm", opt="eamsgd")
 
     def start(self, w: torch.Tensor) -> torch.Tensor:
         self.state = msgd_init(w)
@@ -100,6 +109,11 @@ class EAMSGD:
             else:
                 sug = self.mva * (w - center)
             np.copyto(self.sug_host, sug.cpu().numpy())
+            if self._obs:
+                # sug = mva * (w - w*): one norm serves both gauges.
+                unorm = float(np.linalg.norm(self.sug_host))
+                self._m_unorm.set(unorm)
+                self._m_dist.set(unorm / self.mva)
             self.pc.async_send_grad()  # server: w* += sug
             t0 = time.monotonic()
             self.pc.ping()  # overlap I/O with local compute (reference :63)

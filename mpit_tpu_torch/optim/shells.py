@@ -31,8 +31,10 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from mpit_tpu_torch.obs.metrics import get_registry
 from mpit_tpu_torch.optim import rules as rules_mod
 from mpit_tpu_torch.optim.client_api import ParamClientAPI
+from mpit_tpu_torch.optim.downpour import host_copy_behind
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_init, msgd_step
 
 
@@ -63,6 +65,13 @@ class RuleShell:
         self.k = 0
         self.dusync = 0.0
         self._started = False
+        # Training telemetry: the loss and the shipped update's norm, on
+        # sync rounds only and only when obs is enabled; the loss rides
+        # the payload's copy (see :func:`host_copy_behind`).
+        _reg = get_registry()
+        self._obs = _reg.enabled
+        self._m_loss = _reg.gauge("mpit_train_loss", opt=f"rule-{mode}")
+        self._m_unorm = _reg.gauge("mpit_train_update_norm", opt=f"rule-{mode}")
         if mode == "local":
             # Client-side centered RMSProp producing an additive update.
             self._rule = rules_mod.make(
@@ -81,6 +90,8 @@ class RuleShell:
 
     def _sync(self, w: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
         np.copyto(self.grad_host, payload.detach().cpu().numpy())
+        if self._obs:
+            self._m_unorm.set(float(np.linalg.norm(self.grad_host)))
         self.pc.async_send_grad()
         self.pc.async_recv_param()
         t0 = time.monotonic()
@@ -94,6 +105,8 @@ class RuleShell:
         if self.mode == "local":
             # The shipped quantity is the rule's update (reference :59-60).
             g = self._rule.apply(w.clone(), g, self.rstate)[0] - w
+        synced = self.su == 1 or self.k % self.su == 0
+        loss_host = host_copy_behind(loss) if self._obs and synced else None
         if self.su == 1:
             w = self._sync(w, g)
         else:
@@ -104,6 +117,8 @@ class RuleShell:
             elif self.mode == "local":
                 w.add_(g)  # move locally (reference optim-rmsprop.lua:63)
             # global mode: params do not move between syncs (reference :41)
+        if loss_host is not None:  # complete: the payload's copy waited
+            self._m_loss.set(float(loss_host))
         self.k += 1
         return w, loss
 

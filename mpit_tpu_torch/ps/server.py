@@ -42,12 +42,26 @@ Fault tolerance (:mod:`mpit_tpu_torch.ft`), the JAX server's own paths:
   every ``ckpt_interval`` seconds and at stop.  A restored shard and its
   rule state live in fresh device storage of their own.
 
+Observability (:mod:`mpit_tpu_torch.obs`), as the JAX server places it:
+
+- Every GRAD, PARAM and PARAM_PUSH records a server span with its marks
+  (``apply``, ``ack``; ``snapshot``, ``send``) and outcome (``applied``,
+  ``dup``, ``stale``, ``aborted``; ``served``).  The ``apply`` phase of a
+  GRAD covers the copy of the frame to the card, which is synchronous,
+  and the launch of the rule's kernel (K3 under Adam), not the kernel's
+  completion: no span adds a device synchronize.  With obs off the
+  recorder is the null object and no clock is read.
+- ``FLAG_TIMING`` pairs get ``[t_tx, t_recv, t_ack]`` tails on every ack
+  and PARAM reply, and each timed heartbeat is echoed (``HEARTBEAT_ECHO``).
+- Protocol counters live in a metrics registry (the JAX server's names);
+  evictions dump the flight recorder; with obs on the server registers a
+  ``/status`` section.
+
 The wire is byte for byte the JAX package's, so a JAX client can drive
-this server and a port client a JAX server.  Causal timing, chunked
-streaming (INIT v5), shard control (v4), serving readers and cells,
-elastic membership and the device data plane come with later slices:
-their announcements and constructor arguments raise
-``NotImplementedError`` naming the slice.
+this server and a port client a JAX server.  Chunked streaming (INIT v5),
+shard control (v4), serving readers and cells, elastic membership and the
+device data plane come with later slices: their announcements and
+constructor arguments raise ``NotImplementedError`` naming the slice.
 """
 
 from __future__ import annotations
@@ -69,6 +83,7 @@ from mpit_tpu_torch.aio import (
 from mpit_tpu_torch.comm import codec as codec_mod
 from mpit_tpu_torch.comm.transport import Transport
 from mpit_tpu_torch.ft import (
+    ACK_TIMING_WORDS,
     DUP,
     FLAG_CHUNKED,
     FLAG_FRAMED,
@@ -79,16 +94,23 @@ from mpit_tpu_torch.ft import (
     FLAG_TIMING,
     HDR_BYTES,
     STALE,
+    TIMING_TAIL_BYTES,
     DedupTable,
     FTConfig,
     LeaseRegistry,
     hdr_bytes,
+    pack_reply_stamps,
     pack_version,
     reply_hdr_bytes,
     unpack_header,
+    unpack_tx_stamp,
     unpack_version,
 )
-from mpit_tpu_torch.obs.metrics import registry_or_local
+from mpit_tpu_torch.obs import clock as obs_clock
+from mpit_tpu_torch.obs.flight import get_flight
+from mpit_tpu_torch.obs.metrics import obs_enabled, registry_or_local
+from mpit_tpu_torch.obs.spans import get_recorder
+from mpit_tpu_torch.obs.statusd import register_provider as register_status_provider
 from mpit_tpu_torch.optim.rules import ShardRule, make as make_rule
 from mpit_tpu_torch.ps import tags
 from mpit_tpu_torch.utils.logging import get_logger
@@ -109,7 +131,6 @@ LATER_SERVER_ARGS = {
 
 #: What each refused INIT flag belongs to.
 LATER_FLAGS = {
-    FLAG_TIMING: "causal timing (FLAG_TIMING; slice 5, obs)",
     FLAG_CHUNKED: "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
                   "streaming with comm/pool)",
     FLAG_READONLY: "the serving tier (FLAG_READONLY; slice 5, ps/serve)",
@@ -192,6 +213,10 @@ class ParamServer:
         self._hb: Dict[int, bool] = {}
         self._stale_track: Dict[int, bool] = {}
         self._stale_hists: Dict[int, Any] = {}
+        # Causal-timing posture (FLAG_TIMING): frames from these clients
+        # carry a trailing send stamp; their acks and replies grow the
+        # [t_tx_echo, t_recv, t_ack] tail.
+        self._timing: Dict[int, bool] = {}
         self._gen: Dict[int, int] = {c: 0 for c in self.cranks}
         self._svc_live: Dict[int, int] = {c: 0 for c in self.cranks}
         self._param_send: Dict[int, np.ndarray] = {}
@@ -202,15 +227,30 @@ class ParamServer:
         self._restored = False
         self._ckpt_dir = str(ckpt_dir) if ckpt_dir else None
         self._ckpt_interval = float(ckpt_interval)
-        self.metrics = registry_or_local()  # the staleness histograms
-        self.grads_applied = 0
-        self.params_served = 0
-        self.dup_ops = 0  # framed duplicates re-acked without an apply
-        self.stale_drops = 0  # a dead incarnation's frames dropped
-        self.heartbeats_seen = 0
-        self.rejoins = 0
-        self.evictions = 0
-        self.ckpts_written = 0
+        # Every protocol counter lives in a real registry (the global one
+        # when obs is enabled, a private one otherwise: they are results
+        # either way), read through the properties below; op processing
+        # records spans through the recorder (the null recorder when obs
+        # is off: no clock reads).
+        self.metrics = registry_or_local()
+        self._spans = get_recorder()
+        _m, _r = self.metrics, rank
+        self._m_grads = _m.counter("mpit_ps_grads_applied_total", rank=_r)
+        self._m_served = _m.counter("mpit_ps_params_served_total", rank=_r)
+        self._m_dups = _m.counter("mpit_ps_dup_ops_total", rank=_r)
+        self._m_stale = _m.counter("mpit_ps_stale_drops_total", rank=_r)
+        self._m_hb_seen = _m.counter("mpit_ps_heartbeats_seen_total", rank=_r)
+        self._m_rejoins = _m.counter("mpit_ps_rejoins_total", rank=_r)
+        self._m_snap_copies = _m.counter("mpit_ps_snapshot_copies_total", rank=_r)
+        self._m_snap_hits = _m.counter("mpit_ps_snapshot_hits_total", rank=_r)
+        self._m_ckpts = _m.counter("mpit_ps_ckpts_written_total", rank=_r)
+        self._m_evictions = _m.counter("mpit_ft_evictions_total", rank=_r)
+        # Flight recorder + live introspection: evictions dump the
+        # recent-event ring; the status provider feeds /status.  Null or
+        # absent when obs is disabled.
+        self._flight = get_flight()
+        if obs_enabled():
+            register_status_provider(f"server{rank}", self._status_section)
         #: (client, epoch) -> [first seq, last seq, count] of the GRADs this
         #: process admitted FRESH and applied: with FIFO channels, each
         #: seq of [first, last] applied exactly once <=> count = last-first+1
@@ -227,11 +267,89 @@ class ParamServer:
         # committed write (grad apply / seed / restore); _snap_host is the
         # one device->host copy of that version and _snap_wire the
         # per-codec encoded frame.
-        self.snapshot_copies = 0
-        self.snapshot_hits = 0
         self._snap_version = 0
         self._snap_host: Optional[tuple] = None
         self._snap_wire: Dict[str, tuple] = {}
+
+    # -- live introspection (obs/statusd) ------------------------------------
+
+    def _status_section(self) -> Dict[str, Any]:
+        """This server's /status section: shard and snapshot state, the
+        per-client lease and negotiation table, and the live task table
+        (the JAX server's keys that this slice has).  Runs on the statusd
+        thread — plain-attribute reads only, never the scheduler."""
+        try:
+            tasks = [t.name for t in list(self.sched.queue)]
+        except RuntimeError:  # deque mutated mid-snapshot; next poll wins
+            tasks = ["<scheduler busy>"]
+        return {
+            "role": "server",
+            "rank": self.rank,
+            "shard": {"offset": self.offset, "size": self.size},
+            "snap_version": self._snap_version,
+            "device": str(self.device),
+            "clients": {
+                str(c): {
+                    "state": self.leases.state(c),
+                    "epoch": self.leases.epoch(c),
+                    "framed": self._framed.get(c, False),
+                    "stale": self._stale_track.get(c, False),
+                    "timing": self._timing.get(c, False),
+                    "chunk": 0,
+                    "codec": getattr(self._codecs.get(c), "name", None),
+                }
+                for c in self.cranks
+            },
+            "tasks": tasks,
+        }
+
+    # -- registry-backed counter reads --------------------------------------
+
+    @property
+    def grads_applied(self) -> int:
+        return int(self._m_grads.value)
+
+    @grads_applied.setter
+    def grads_applied(self, v: int) -> None:
+        self._m_grads.value = int(v)  # checkpoint restore continuity
+
+    @property
+    def params_served(self) -> int:
+        return int(self._m_served.value)
+
+    @property
+    def dup_ops(self) -> int:
+        """Framed duplicates re-acked without an apply."""
+        return int(self._m_dups.value)
+
+    @property
+    def stale_drops(self) -> int:
+        """A dead incarnation's frames dropped."""
+        return int(self._m_stale.value)
+
+    @property
+    def heartbeats_seen(self) -> int:
+        return int(self._m_hb_seen.value)
+
+    @property
+    def rejoins(self) -> int:
+        return int(self._m_rejoins.value)
+
+    @property
+    def evictions(self) -> int:
+        return int(self._m_evictions.value)
+
+    @property
+    def snapshot_copies(self) -> int:
+        return int(self._m_snap_copies.value)
+
+    @property
+    def snapshot_hits(self) -> int:
+        return int(self._m_snap_hits.value)
+
+    @property
+    def ckpts_written(self) -> int:
+        return int(self._m_ckpts.value)
 
     # -- codec + FT negotiation ---------------------------------------------
 
@@ -293,6 +411,8 @@ class ParamServer:
         # the [epoch, seq] header, so without framing it negotiates off.
         self._stale_track[crank] = (self._framed[crank]
                                     and bool(flags & FLAG_STALENESS))
+        # Same rule for the timing extension: no frame, no stamp slot.
+        self._timing[crank] = self._framed[crank] and bool(flags & FLAG_TIMING)
         self.leases.arm(crank, epoch, heartbeats=self._hb[crank])
         return codec
 
@@ -300,13 +420,16 @@ class ParamServer:
         """Header size of this client's data frames (GRAD/PARAM_PUSH)."""
         if not self._framed.get(crank):
             return 0
-        return hdr_bytes(self._stale_track.get(crank, False), False)
+        return hdr_bytes(self._stale_track.get(crank, False),
+                         self._timing.get(crank, False))
 
     def _reply_hdr_for(self, crank: int) -> int:
-        """Header size of PARAM replies to this client."""
+        """Header size of PARAM replies to this client (the timing tail
+        makes replies wider than data frames)."""
         if not self._framed.get(crank):
             return 0
-        return reply_hdr_bytes(self._stale_track.get(crank, False), False)
+        return reply_hdr_bytes(self._stale_track.get(crank, False),
+                               self._timing.get(crank, False))
 
     def _stale_hist(self, crank: int):
         """The per-client staleness histogram, cached."""
@@ -329,11 +452,13 @@ class ParamServer:
         buf = np.zeros(hdr + codec.wire_nbytes(self.size), np.uint8)
         self.grad_bufs[crank] = buf
         self._grad_views[crank] = codec.split_wire(buf[hdr:], self.size)
+        timing = self._timing.get(crank, False)
         if hdr:
-            self._ack_send[crank] = np.zeros(2, np.int64)
-            self._req_buf[crank] = np.zeros(2, np.int64)
+            self._ack_send[crank] = np.zeros(
+                ACK_TIMING_WORDS if timing else 2, np.int64)
+            self._req_buf[crank] = np.zeros(3 if timing else 2, np.int64)
         if self._hb.get(crank):
-            self._hb_buf[crank] = np.zeros(2, np.int64)
+            self._hb_buf[crank] = np.zeros(3 if timing else 2, np.int64)
 
     def _release_client(self, crank: int) -> None:
         """Drop an evicted client's staging (its shard registration's
@@ -379,7 +504,7 @@ class ParamServer:
         version = self._snap_version
         if self._snap_host is None or self._snap_host[0] != version:
             self._snap_host = (version, self.param.to("cpu", copy=True).numpy())
-            self.snapshot_copies += 1
+            self._m_snap_copies.inc()
         return self._snap_host[1]
 
     def _snapshot_wire(self, codec: codec_mod.Codec) -> np.ndarray:
@@ -390,7 +515,7 @@ class ParamServer:
         version = self._snap_version
         cached = self._snap_wire.get(codec.name)
         if cached is not None and cached[0] == version:
-            self.snapshot_hits += 1
+            self._m_snap_hits.inc()
             return cached[1]
         host = self._host_snapshot()
         if codec.identity:
@@ -420,29 +545,48 @@ class ParamServer:
         finally:
             self._svc_live[crank] -= 1
 
-    def _send_ack(self, crank: int, tag: int, epoch: int, seq: int, gen: int):
-        """The framed ack: int64 [epoch, seq] echo."""
+    def _send_ack(self, crank: int, tag: int, epoch: int, seq: int, gen: int,
+                  t_tx: int = 0, t_recv: int = 0):
+        """The framed ack: int64 [epoch, seq] echo (+ the timing tail)."""
         buf = self._ack_send[crank]
         buf[0], buf[1] = epoch, seq
+        if self._timing.get(crank):
+            # FLAG_TIMING tail: the echoed client send stamp, this frame's
+            # receive stamp, and the ack-send stamp taken now — one
+            # complete NTP exchange per ack.
+            buf[2], buf[3], buf[4] = t_tx, t_recv, obs_clock.wall_us()
         yield from aio_send(self.transport, buf, crank, tag, live=self.live,
                             abort=self._svc_abort(crank, gen))
 
     def _admit(self, crank: int, tag: int, ack_tag: int, frame: np.ndarray,
-               gen: int):
+               gen: int, span, t_tx: int, t_recv: int):
         """Dedup admission of one framed write; returns (epoch, seq) when
         the frame is FRESH, else None after dropping a STALE frame or
-        re-acking a DUP (the client may have lost the first ack)."""
+        re-acking a DUP (the client may have lost the first ack), with the
+        span ended on that outcome."""
         epoch, seq = unpack_header(frame)
+        span.note(epoch=epoch, seq=seq)
         self.leases.renew(crank, epoch)
         verdict = self.dedup.admit(crank, tag, epoch, seq)
         if verdict == STALE:
-            self.stale_drops += 1
+            self._m_stale.inc()
+            span.end("stale")
             return None
         if verdict == DUP:
-            self.dup_ops += 1
-            yield from self._send_ack(crank, ack_tag, epoch, seq, gen)
+            self._m_dups.inc()
+            span.mark("ack")
+            yield from self._send_ack(crank, ack_tag, epoch, seq, gen,
+                                      t_tx=t_tx, t_recv=t_recv)
+            span.end("dup")
             return None
         return epoch, seq
+
+    def _stamps(self, crank: int, frame: np.ndarray, hdr: int):
+        """(t_tx, t_recv) of a received data frame: the client's send stamp
+        and this receive, read only for a timing pair."""
+        if not self._timing.get(crank):
+            return 0, 0
+        return unpack_tx_stamp(frame, hdr), obs_clock.wall_us()
 
     # -- service loops (reference pserver.lua:59-129) ------------------------
 
@@ -474,7 +618,7 @@ class ParamServer:
             self.leases.arm(crank, self.leases.epoch(crank),
                             heartbeats=self._hb.get(crank, False))
             self._alloc_client(crank, codec)
-            self.rejoins += 1
+            self._m_rejoins.inc()
             self.rejoined_at.append(time.time())
             # Two generations must never recv one channel concurrently —
             # wait for the superseded loops to abort out.
@@ -503,10 +647,14 @@ class ParamServer:
                                       abort=self._svc_abort(crank, gen))
             if got is None:
                 return
+            t_tx, t_recv = self._stamps(crank, staging, hdr)
+            span = self._spans.op("PARAM_PUSH", peer=crank, side="server",
+                                  rank=self.rank)
             ident = None
             if framed:
                 ident = yield from self._admit(crank, tags.PARAM_PUSH,
-                                               tags.PARAM_PUSH_ACK, staging, gen)
+                                               tags.PARAM_PUSH_ACK, staging, gen,
+                                               span, t_tx, t_recv)
                 if ident is None:
                     continue
             if warn_unexpected:
@@ -514,6 +662,7 @@ class ParamServer:
                     "client %d seeded a RESTORED server: checkpointed "
                     "params overwritten (optimizer state kept) — start "
                     "resume clients with seed_servers=False", crank)
+            span.mark("apply")
             if codec.identity and not hdr:
                 host = staging
             elif codec.identity:
@@ -523,12 +672,15 @@ class ParamServer:
                 codec.decode_into(staging[hdr:], host)
             self.param.copy_(torch.from_numpy(host))
             self._committed()
+            span.mark("ack")
             if framed:
-                yield from self._send_ack(crank, tags.PARAM_PUSH_ACK, *ident, gen)
+                yield from self._send_ack(crank, tags.PARAM_PUSH_ACK, *ident, gen,
+                                          t_tx=t_tx, t_recv=t_recv)
             else:
                 yield from aio_send(self.transport, tags.EMPTY, crank,
                                     tags.PARAM_PUSH_ACK, live=self.live,
                                     abort=self._svc_abort(crank, gen))
+            span.end("applied")
             if once:
                 return
 
@@ -542,6 +694,7 @@ class ParamServer:
         if codec is None:
             return
         framed = self._framed.get(crank, False)
+        timing = self._timing.get(crank, False)
         while self.live.on:
             req = self._req_buf.get(crank) if framed else None
             got = yield from aio_recv(self.transport, crank, tags.PARAM_REQ,
@@ -551,17 +704,27 @@ class ParamServer:
                 return
             if not self.live.io:
                 continue
+            t_recv = obs_clock.wall_us() if timing else 0
+            span = self._spans.op("PARAM", peer=crank, side="server",
+                                  rank=self.rank)
             if not framed:
-                yield from aio_send(self.transport, self._snapshot_wire(codec),
+                span.mark("snapshot")
+                snapshot = self._snapshot_wire(codec)
+                span.mark("send")
+                yield from aio_send(self.transport, snapshot,
                                     crank, tags.PARAM, live=self.live,
                                     abort=self._svc_abort(crank, gen))
-                self.params_served += 1
+                self._m_served.inc()
+                span.end("served")
                 continue
             epoch, seq = int(req[0]), int(req[1])
+            span.note(epoch=epoch, seq=seq)
             if epoch < self.leases.epoch(crank):
-                self.stale_drops += 1  # a dead incarnation's request
+                self._m_stale.inc()  # a dead incarnation's request
+                span.end("stale")
                 continue
             self.leases.renew(crank, epoch)
+            span.mark("snapshot")
             hdr = self._reply_hdr_for(crank)
             wire = self._snapshot_wire(codec)
             wire_u8 = wire.view(np.uint8)
@@ -575,9 +738,16 @@ class ParamServer:
                 # next gradient will echo (staleness telemetry).
                 pack_version(reply, self._snap_version)
             reply[hdr:] = wire_u8
+            span.mark("send")
+            if timing:
+                # The reply's timing tail: echoed request stamp, the
+                # request's receive stamp, and the send stamp now.
+                pack_reply_stamps(reply, hdr - TIMING_TAIL_BYTES,
+                                  int(req[2]), t_recv, obs_clock.wall_us())
             yield from aio_send(self.transport, reply, crank, tags.PARAM,
                                 live=self.live, abort=self._svc_abort(crank, gen))
-            self.params_served += 1
+            self._m_served.inc()
+            span.end("served")
 
     def _recv_grad(self, crank: int, gen: int = 0):
         """Loop: receive a gradient frame, decode it on the device and
@@ -586,11 +756,14 @@ class ParamServer:
         out: the client's next GRAD lands in the same staging buffer.
         Framed frames are dedup-admitted on (epoch, seq): duplicates are
         re-acked without a second apply — with the client's encode-once
-        staging this is what keeps error feedback exact under retries."""
+        staging this is what keeps error feedback exact under retries.
+        The span's ``apply`` phase ends when the rule's kernel has been
+        launched, not when it has finished on the card."""
         codec = self._codecs.get(crank)
         if codec is None:
             return
         framed = self._framed.get(crank, False)
+        hdr = self._hdr_for(crank)
         gbuf = self.grad_bufs[crank]
         parts = self._grad_views[crank]
         while self.live.on:
@@ -599,23 +772,28 @@ class ParamServer:
                                       abort=self._svc_abort(crank, gen))
             if got is None:
                 return
+            t_tx, t_recv = self._stamps(crank, gbuf, hdr)
+            span = self._spans.op("GRAD", peer=crank, side="server",
+                                  rank=self.rank)
             ident = None
             if framed:
                 ident = yield from self._admit(crank, tags.GRAD, tags.GRAD_ACK,
-                                               gbuf, gen)
+                                               gbuf, gen, span, t_tx, t_recv)
                 if ident is None:
                     continue
                 if self._stale_track.get(crank):
                     # The gap between the version the client computed
                     # against and the version this gradient lands on,
                     # observed once per applied op.
-                    self._stale_hist(crank).observe(
-                        self._snap_version - unpack_version(gbuf))
+                    staleness = self._snap_version - unpack_version(gbuf)
+                    span.note(staleness=staleness)
+                    self._stale_hist(crank).observe(staleness)
+            span.mark("apply")
             grad = codec.decode_parts([self._on_device(v) for v in parts],
                                       self.size)
             self.param, self.rule_state = self.rule.apply(
                 self.param, grad, self.rule_state)
-            self.grads_applied += 1
+            self._m_grads.inc()
             if ident is not None:
                 epoch, seq = ident
                 seen = self.admitted.setdefault((crank, epoch), [seq, seq, 0])
@@ -623,29 +801,45 @@ class ParamServer:
                 seen[2] += 1
             self._committed()
             if not self.live.on:
+                span.end("aborted")
                 continue
+            span.mark("ack")
             if framed:
-                yield from self._send_ack(crank, tags.GRAD_ACK, *ident, gen)
+                yield from self._send_ack(crank, tags.GRAD_ACK, *ident, gen,
+                                          t_tx=t_tx, t_recv=t_recv)
             else:
                 yield from aio_send(self.transport, tags.EMPTY, crank,
                                     tags.GRAD_ACK, live=self.live,
                                     abort=self._svc_abort(crank, gen))
+            span.end("applied")
 
     def _recv_heartbeat(self, crank: int, gen: int = 0):
         """Loop: consume HEARTBEAT beacons, renew the client's lease
         (current-epoch beats only — a dead incarnation's leftovers must
-        not keep its successor's lease alive)."""
+        not keep its successor's lease alive).  Timing pairs get each beat
+        echoed back (HEARTBEAT_ECHO with the timing tail), so the client's
+        clock-offset estimator refreshes while no op is in flight."""
         buf = self._hb_buf.get(crank)
         if buf is None:
             return
+        timing = self._timing.get(crank, False)
+        echo = np.zeros(ACK_TIMING_WORDS, np.int64) if timing else None
         while self.live.on:
             got = yield from aio_recv(self.transport, crank, tags.HEARTBEAT,
                                       live=self.live, out=buf,
                                       abort=self._svc_abort(crank, gen))
             if got is None:
                 return
-            self.heartbeats_seen += 1
+            t_recv = obs_clock.wall_us() if timing else 0
+            self._m_hb_seen.inc()
             self.leases.renew(crank, int(buf[0]))
+            if timing:
+                echo[0], echo[1] = buf[0], buf[1]
+                echo[2], echo[3] = buf[2], t_recv
+                echo[4] = obs_clock.wall_us()
+                yield from aio_send(self.transport, echo, crank,
+                                    tags.HEARTBEAT_ECHO, live=self.live,
+                                    abort=self._svc_abort(crank, gen))
 
     def _recv_stop(self, crank: int, gen: int = 0):
         """Await the stop signal; all clients terminal (stopped or
@@ -675,9 +869,15 @@ class ParamServer:
                     "it may rejoin with a bumped epoch)",
                     crank, self.ft.lease_ttl_s)
                 self.leases.evict(crank)
-                self.evictions += 1
+                self._m_evictions.inc()
                 self._gen[crank] += 1  # stale loops abort at next poll
                 self._release_client(crank)
+                # Postmortem: the gang just lost a member — dump the
+                # recent-event ring + live task table (no-op with obs off).
+                self._flight.record("eviction", client=crank, rank=self.rank)
+                self._flight.dump(
+                    "eviction", client=crank,
+                    tasks=[(t.name, t.state) for t in list(self.sched.queue)])
             if self.leases.all_done():
                 self.live.stop()
                 return
@@ -687,14 +887,14 @@ class ParamServer:
     def _client_meta(self) -> Dict[str, Dict[str, Any]]:
         """Per-client negotiated state for the checkpoint: enough for a
         restarted server to serve retried ops without fresh INITs (the
-        JAX package's keys; timing and chunking are always off here)."""
+        JAX package's keys; chunking is always off here)."""
         return {
             str(c): {
                 "codec": self._codecs[c].name,
                 "framed": self._framed.get(c, False),
                 "hb": self._hb.get(c, False),
                 "stale": self._stale_track.get(c, False),
-                "timing": False,
+                "timing": self._timing.get(c, False),
                 "chunk": 0,
                 "epoch": self.leases.epoch(c),
             }
@@ -745,11 +945,11 @@ class ParamServer:
             raise RuntimeError("restore_state must run before start()")
         offset, size, param, state, meta = load_server_state(path)
         if meta.get("dedup_chunks") or any(
-                info.get("timing") or info.get("chunk")
+                info.get("chunk")
                 for info in (meta.get("clients") or {}).values()):
             raise NotImplementedError(
-                f"{path} holds chunked-streaming or causal-timing client "
-                "state: a later slice of the port (slice 5, streaming and obs)")
+                f"{path} holds chunked-streaming client state: "
+                f"{LATER_FLAGS[FLAG_CHUNKED]} of the port")
         self.offset, self.size = offset, size
         self.grads_applied = int(meta.get("grads_applied", 0))
         self._snap_version = int(meta.get("snap_version", 0))
@@ -768,6 +968,7 @@ class ParamServer:
             self._framed[crank] = bool(info.get("framed", False))
             self._hb[crank] = bool(info.get("hb", False))
             self._stale_track[crank] = bool(info.get("stale", False))
+            self._timing[crank] = bool(info.get("timing", False))
             self.leases.arm(crank, int(info.get("epoch", 0)),
                             heartbeats=self._hb[crank])
             self._alloc_client(crank, codec_mod.get(info.get("codec", "none")))
@@ -777,7 +978,7 @@ class ParamServer:
 
     def _checkpoint(self) -> None:
         self.save_state(self._ckpt_dir)
-        self.ckpts_written += 1
+        self._m_ckpts.inc()
 
     def _serve_with_checkpoints(self) -> None:
         """Drive the service queue like ``Scheduler.wait`` while writing

@@ -1,9 +1,9 @@
 """Wire-protocol tags (analog of reference asyncsgd/init.lua:3-10).
 
-A copy of the first nine tags of ``mpit_tpu/ps/tags.py``: the eight of
-the unframed wire and the fault-tolerance beacon.  The tags of shard
-control (10-12), causal timing (13), cells (14-15) and aggregation
-(16-17) come with their slices.  The port imports nothing of the JAX
+A copy of the tags of ``mpit_tpu/ps/tags.py`` that the port speaks: the
+eight of the unframed wire, the fault-tolerance beacon (9) and the causal
+timing echo (13).  The tags of shard control (10-12), cells (14-15) and
+aggregation (16-17) come with their slices.  The port imports nothing of the JAX
 package.
 
 Eight channels, renamed by direction and purpose rather than the
@@ -40,5 +40,12 @@ HEARTBEAT = 9  # client -> server: int64 [epoch, seq] liveness beacon; the
 #                server's lease registry (mpit_tpu_torch/ft/leases.py)
 #                renews the client's lease on every beat and evicts on
 #                expiry.
+HEARTBEAT_ECHO = 13  # server -> client: int64 [epoch, seq, t_tx_echo,
+#                      t_recv, t_ack] — the FLAG_TIMING reply to a timed
+#                      HEARTBEAT beacon.  Not an ack: heartbeats stay
+#                      fire-and-forget, and the client drains echoes
+#                      opportunistically (iprobe in ping/wait) to refresh
+#                      its clock-offset estimator; a lost echo costs
+#                      nothing.
 
 EMPTY = b""  # the canonical 0-byte payload

@@ -18,9 +18,9 @@ this process (``sgd`` only); ``--np N`` starts N role processes, fresh
 interpreters over the port's shm transport (:mod:`mpit_tpu_torch.train.gang`),
 each on ``--device`` (the card unless ``cpu``).  Every child returns its
 result as JSON with its ``platform`` and its own K1-K3 ``launches``
-(:func:`mpit_tpu_torch.train.launch.child_result`).  The reference's live
-introspection endpoint (``obs/statusd``) is a later slice: a child started
-with ``MPIT_OBS_HTTP`` set raises.
+(:func:`mpit_tpu_torch.train.launch.child_result`).  With ``MPIT_OBS_HTTP``
+set, every child serves its live introspection endpoint (``obs/statusd``:
+``/metrics``, ``/status``, ``/trace``) on base port + rank.
 
 Usage:
     python -m mpit_tpu_torch.train.bicnn_launch --np 4 --device cpu --docqa 1 \\
@@ -32,7 +32,6 @@ Usage:
 from __future__ import annotations
 
 import json
-import os
 import sys
 import time
 from typing import Any, Dict, List, Optional, Set, Tuple
@@ -55,7 +54,8 @@ BICNN_LAUNCH_DEFAULTS = BICNN_DEFAULTS.merged(
     gang_barrier=True,  # startup rendezvous before any role traffic
 )
 
-#: The environment variable of the reference's live introspection endpoint.
+#: The environment variable that starts each child's live introspection
+#: endpoint (its base port).
 STATUSD_ENV = "MPIT_OBS_HTTP"
 
 
@@ -176,19 +176,16 @@ def run_rank(
     return {"role": "worker", **trainer.run(is_last_client=rank in tranks)}
 
 
-def _refuse_statusd() -> None:
-    if os.environ.get(STATUSD_ENV):
-        raise NotImplementedError(
-            f"{STATUSD_ENV}: the live introspection endpoint (obs/statusd) is a "
-            "later slice of the port")
-
-
 def _child_main() -> None:
     from mpit_tpu_torch.train.gang import child_env, child_transport, write_result
     from mpit_tpu_torch.train.launch import child_result
 
     rank, size, cfg = child_env()
-    _refuse_statusd()
+    # Live introspection endpoint (no-op unless MPIT_OBS_HTTP is set): the
+    # same hook as the train/launch.py children.
+    from mpit_tpu_torch.obs import maybe_start_statusd
+
+    maybe_start_statusd(rank)
     device = resolve_device(cfg.device)
     transport = child_transport(cfg, rank, size)
     result = run_rank(rank, size, cfg, transport)
@@ -214,7 +211,6 @@ def validate(cfg: Config) -> None:
             raise FileNotFoundError(
                 "--docqa 1 but data/fixtures/docqa is absent — pass explicit "
                 "--*_file flags")
-    _refuse_statusd()
     resolve_device(cfg.device)
     effective = min(int(cfg.np), int(cfg.maxrank) + 1)
     tester_flags = resolve_tester_flags(cfg)  # validated even at np=1

@@ -222,6 +222,12 @@ def launch_gang(
     if missing:
         raise RuntimeError(
             f"ranks {missing} exited 0 but reported no result (logs: {logdir})")
+    # Merge the children's Chrome-trace parts (MPIT_OBS_TRACE) into one
+    # timeline — only after a clean gang, so a failure leaves the parts on
+    # disk next to the logs for postmortem.
+    from mpit_tpu_torch.obs import maybe_merge_rank_traces
+
+    maybe_merge_rank_traces()
     shutil.rmtree(logdir, ignore_errors=True)  # only useful on failure
     return results
 

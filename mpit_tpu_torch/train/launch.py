@@ -29,15 +29,27 @@ dedup), ``--ft_max_retries`` and ``--ft_staleness`` set each rank's
 supervise_gang`, which restarts a dead rank up to N times (a worker as the
 next epoch, rejoining the live servers; a server from its checkpoint).
 
+Observability (:mod:`mpit_tpu_torch.obs`): ``--ft_timing 1`` (with
+``--ft_op_deadline_s``) puts the gang on the ``FLAG_TIMING`` wire;
+``MPIT_OBS_TRACE=path`` has every rank write its Chrome-trace part and the
+parent merge them after a clean gang (``python -m mpit_tpu_torch.obs
+analyze|profile|validate path``); ``MPIT_OBS_PROFILE=1`` adds the CPU
+profile; ``MPIT_OBS_HTTP=<base port>`` serves each rank's ``/metrics``,
+``/status`` and ``/trace`` on base + rank.
+
 The layers of later slices (readers, cells, shard control, elastic
-membership, causal timing, chunked streaming, the LM, aggregation, the
-device data plane) raise ``NotImplementedError`` naming their slice.
+membership, chunked streaming, the LM, aggregation, the device data plane)
+raise ``NotImplementedError`` naming their slice.
 
 Usage:
     python -m mpit_tpu_torch.train.launch --np 1 --opt msgd
     # 2 servers + 2 workers, four processes over shm, on the CPU:
     python -m mpit_tpu_torch.train.launch --np 4 --opt downpour \\
         --device cpu --side 8 --epochs 1 --lr 0.2
+    # a traced gang on the timing wire, then its causal decomposition:
+    MPIT_OBS_TRACE=/tmp/t.json python -m mpit_tpu_torch.train.launch --np 4 \
+        --opt adam --device cpu --side 8 --ft_op_deadline_s 5 --ft_timing 1
+    python -m mpit_tpu_torch.obs analyze /tmp/t.json
     # the same under the supervisor, with heartbeats, retry and checkpoints:
     python -m mpit_tpu_torch.train.launch --np 4 --opt adam --device cpu \\
         --side 8 --epochs 2 --transport tcp --ft_heartbeat_s 0.25 \\
@@ -114,9 +126,12 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     ft_op_deadline_s=0.0,
     ft_max_retries=8,
     ft_staleness=False,
+    # Causal timing (FLAG_TIMING): data frames carry a send stamp and acks
+    # a [t_tx, t_recv, t_ack] tail, feeding each client's clock-offset
+    # estimator (needs ft_op_deadline_s > 0).
+    ft_timing=False,
     supervise=0,
     # The reference's flags of later slices; each raises when set.
-    ft_timing=False,
     ft_chunk_bytes=0,
     serve_readers=0,
     cells=0,
@@ -129,7 +144,6 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
 
 # flag -> (value meaning "off", the slice of the port it belongs to)
 LATER_FLAGS = {
-    "ft_timing": (False, "causal timing (FLAG_TIMING; slice 5, obs)"),
     "ft_chunk_bytes": (0, "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
                           "streaming with comm/pool)"),
     "serve_readers": (0, "the serving tier (slice 5, ps/serve)"),
@@ -166,6 +180,8 @@ def ft_from_cfg(cfg: Config) -> FTConfig:
         overrides["rejoin"] = True
     if bool(cfg.get("ft_staleness", False)):
         overrides["staleness"] = True
+    if bool(cfg.get("ft_timing", False)):
+        overrides["timing"] = True
     return FTConfig.from_env(**overrides)
 
 
@@ -455,13 +471,23 @@ def child_result(result: Dict[str, Any], device: torch.device) -> Dict[str, Any]
 
 
 def _child_main() -> None:
+    from mpit_tpu_torch.obs import get_flight, maybe_start_statusd, maybe_write_rank_trace
     from mpit_tpu_torch.train.gang import child_env, child_transport, write_result
 
     rank, size, cfg = child_env()
+    # Live introspection (no-op unless MPIT_OBS_HTTP is set): /metrics,
+    # /status and /trace on base_port + rank for the whole life of this
+    # rank.  Flight dumps inherit the identity.
+    role = expected_role(rank, size, cfg)
+    maybe_start_statusd(rank, role=role)
+    get_flight().set_identity(rank=rank, role=role)
     device = resolve_device(cfg.device)
     transport = child_transport(cfg, rank, size)
     result = run_rank(rank, size, cfg, transport)
     transport.close()
+    # This rank's Chrome-trace part (MPIT_OBS_TRACE; no-op when unset): the
+    # gang parent merges the parts into one timeline at exit.
+    maybe_write_rank_trace(rank, role=str(result.get("role", "")))
     write_result(child_result(result, device))
 
 
@@ -475,7 +501,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[Any, Any]:
     cfg = LAUNCH_DEFAULTS.parse_args(argv)
     t0 = time.monotonic()
     if int(cfg.np) == 1:
+        from mpit_tpu_torch.obs import (
+            maybe_merge_rank_traces, maybe_start_statusd, maybe_write_rank_trace)
+
+        maybe_start_statusd(0, role="local")
         result = run_rank(0, 1, cfg, None)
+        maybe_write_rank_trace(0, role=str(result.get("role", "")))
+        maybe_merge_rank_traces()
         print(json.dumps({"rank0": _summarize(result)}, indent=2))
     else:
         result = launch_processes(cfg)

@@ -293,9 +293,11 @@ def test_default_device_is_the_card(tdata, monkeypatch):
         BiCNNTrainer(BICNN_DEFAULTS.merged(TINY), data=tdata)
     with pytest.raises(RuntimeError, match="CUDA"):
         bicnn_launch.main(["--np", "4", "--valid_mode", "none"])
+    # The live endpoint no longer refuses: with MPIT_OBS_HTTP set the
+    # launcher still asks for the card before any child starts.
     monkeypatch.setenv(bicnn_launch.STATUSD_ENV, "8931")
-    with pytest.raises(NotImplementedError, match="statusd"):
-        bicnn_launch.main(["--np", "4", "--device", "cpu", "--valid_mode", "none"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bicnn_launch.main(["--np", "4", "--valid_mode", "none"])
 
 
 # -- the launcher -------------------------------------------------------------

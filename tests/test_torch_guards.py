@@ -58,6 +58,10 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_no_reference_package():
     sources = _port_sources()
     assert len(sources) > 20
+    obs = {p.name for p in sources if p.parent.name == "obs"}
+    assert obs >= {"clock.py", "metrics.py", "profile.py", "flight.py", "spans.py",
+                   "trace.py", "statusd.py", "causal.py", "top.py", "timers.py",
+                   "__init__.py", "__main__.py"}
     for path in sources:
         bad = FORBIDDEN & set(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -69,7 +73,10 @@ def test_entry_points_load_without_jax():
             "mpit_tpu_torch.train.bicnn_launch, mpit_tpu_torch.train.bicnn, "
             "mpit_tpu_torch.parallel.sync_dp, mpit_tpu_torch.data.qa, "
             "mpit_tpu_torch.models.bicnn, mpit_tpu_torch.utils.serialize, "
-            "mpit_tpu_torch.ops.flash_attention, mpit_tpu_torch.ops.build; "
+            "mpit_tpu_torch.ops.flash_attention, mpit_tpu_torch.ops.build, "
+            "mpit_tpu_torch.obs, mpit_tpu_torch.obs.__main__, mpit_tpu_torch.obs.causal, "
+            "mpit_tpu_torch.obs.top, mpit_tpu_torch.obs.profile, mpit_tpu_torch.obs.flight, "
+            "mpit_tpu_torch.obs.statusd, mpit_tpu_torch.utils.timers; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -209,9 +216,9 @@ def test_mesh_launch_refuses_later_slices(flags, tmp_path):
     ("lm", "1", "slice 7"),
     ("agg", "tree", "slice 5"),
     ("dplane", "1", "slice 6"),
-    ("ft_timing", "1", "slice 5"),
+    ("init_v3", 1 | 16, "slice 5"),  # FLAG_READONLY: the serving tier
     ("ft_chunk_bytes", "65536", "slice 5"),
-    ("init_v3", None, "slice 5"),
+    ("init_v3", 1 | 8 | 64, "slice 5"),  # FLAG_TIMING with FLAG_CHUNKED
 ])
 def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
     """The CLI's --np N refuses in the parent, before any process starts:
@@ -242,7 +249,7 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
 
         server = ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu")
         with pytest.raises(NotImplementedError, match=owner):
-            server._negotiate(1, np.asarray([0, 8, 0, 1, 1 | 8], np.int64).tobytes())
+            server._negotiate(1, np.asarray([0, 8, 0, 1, value], np.int64).tobytes())
         return
     argv = ["--np", "2", "--device", "cpu", "--side", "8", f"--{flag}", value]
     if flag == "tester":

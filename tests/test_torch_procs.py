@@ -226,7 +226,7 @@ def test_ptest_twin_prints_the_shm_row():
         assert r["codec_path"] == "native" and r["server_platforms"] == ["cpu"]
         assert r["server_apply_us"] > 0
     proc = subprocess.run([sys.executable, tool], capture_output=True, text=True,
-                          timeout=60, env=dict(env, MPIT_BENCH_HEARTBEAT="1"))
+                          timeout=60, env=dict(env, MPIT_BENCH_SKEW="1"))
     assert proc.returncode != 0 and "slice 5" in proc.stderr
 
 

@@ -365,7 +365,7 @@ class TestWireCodecs:
         assert isinstance(cause, ValueError) and message in str(cause)
 
     @pytest.mark.parametrize("version,words", [
-        (3, [0, 8, 0, 1, 1 | 8]),  # v3 with FLAG_TIMING (obs)
+        (3, [0, 8, 0, 1, 1 | 8 | 64]),  # v3 with FLAG_CHUNKED (streaming)
         (4, [-1, 1, 0, 0, 0, 0, 0, 0]),  # shardctl: a whole map
         (5, [0, 8, 0, 1, 1 | 32, 1024]),  # v3 + [chunk_elems]
     ])
