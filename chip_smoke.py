@@ -100,6 +100,27 @@ order; any failure raises and the script exits non-zero:
    client-server pairs, each server's applied GRAD spans equal its K3
    launches and its applies, and ``obs profile`` reads the counter tracks;
    samples/s and the decomposition's per-phase p50/p99 printed);
+6e. shard control (slice 5c): ``sc_migrate_adam`` (the ``ft_retry_dedup``
+   gang's two workers and two Adam servers, now shard-addressed with the
+   controller as a fifth role, 8 lockstep rounds: the static map, then
+   shard 1 moved live from server 1 to server 0 at round 3, then at two
+   shards a server shard 3 moved at round 3 with the SHARD_STATE param
+   leg cut at 256 KiB; each bit for bit its static run, K3 = the applies
+   over both owners, the drain through NACK_MAP; the freeze window, the
+   SHARD_STATE bytes and the RELEASE-to-DONE time printed) and
+   ``sc_failover_adam`` (server 1 checkpoints its shard after round 3 and
+   dies; its lease expires and server 0 ADOPTs the shard: bit for bit,
+   K3 = the applies of both owners).  Beside them in the background,
+   ``elastic_adam_procs`` (``launch --np 5 --elastic 1 --elastic_spares 1
+   --opt adam --transport tcp --supervise 2`` at the flagship widths,
+   every rank on the card: a scale-up onto the spare through the
+   controller's ``/scale`` route, then a SIGTERM preemption of server rank
+   2 with a 25 s grace, drained and retired; the final map tiles the
+   vector, every server process's K3 equals its applies, the workers'
+   test error under 0.8; the /scale-to-first-apply and SIGTERM-to-retired
+   times printed), and ``tools/torch_ptest.py``'s straggler legs
+   (rebalance off, then on: the map must move) and its 1 -> 2 -> 1
+   elastic sweep at 16 MB;
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
@@ -724,8 +745,8 @@ def grad_repeatability(torch, repeats=5):
 # which do not repeat their bits (see grad_repeatability): the largest
 # relative gap of an epoch's mean loss, and of its test error in samples
 # of the 270, may be twice the host loop's own spread in the same call
-# (the largest gap between its three runs there: two under the defaults,
-# one under deterministic cuDNN), and never less than these floors, which
+# (the largest gap between any two of its four runs there: three under the
+# defaults, one under deterministic cuDNN), and never less than these floors, which
 # hold where the host runs happen to land close together: twice the
 # largest host-loop gap of earlier calls (1.02e-2 in loss at the
 # flagship's eighth epoch, 0 samples, on an H100), and three samples.
@@ -815,10 +836,11 @@ def device_loop_vs_host(torch, commit):
       error; this device loop runs under ``torch.profiler``, which reads
       K1's launches on the card;
     - with cuDNN's default algorithms, as the port trains: the host loop
-      twice (the first with the steady-state leg) and the device loop with
-      the leg; they are timed, and the device loop is held to the host
-      loop within twice the host loop's spread in this call (the largest
-      gap between its three runs here; LOOP_LOSS_FLOOR and
+      three times (the first with the steady-state leg) and the device
+      loop with the leg; they are timed, and the device loop is held to
+      the host loop within twice the host loop's spread in this call (the
+      largest gap between any two of its four runs here, the three
+      default ones and the deterministic one; LOOP_LOSS_FLOOR and
       LOOP_ERR_SAMPLES_FLOOR at least).
 
     Every run's K1 launches are checked exactly (``device_loop_run``).
@@ -840,6 +862,7 @@ def device_loop_vs_host(torch, commit):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     for name, kw in (("host_loop", {"measure_throughput": 1}), ("host_loop_again", {}),
+                     ("host_loop_third", {}),
                      ("device_loop", {"device_loop": 1, "measure_throughput": 1})):
         runs[name], entries[name] = device_loop_run(torch, commit, base.merged(kw))
 
@@ -860,11 +883,12 @@ def device_loop_vs_host(torch, commit):
         "samples_per_sec_steady": res["samples_per_sec_steady"], "steps": res["steps"],
         "test_err": [h["test_err"] for h in res["history"]],
         "avg_loss": [h["avg_loss"] for h in res["history"]]} for name, res in runs.items()}
+    host_runs = ("host_loop", "host_loop_again", "host_loop_third", "det_host_loop")
+    spread = {f"{a}_vs_{b}": gaps(a, b)
+              for i, a in enumerate(host_runs) for b in host_runs[i + 1:]}
     summary["gaps"] = {"det_host_runs": gaps("det_host_loop_again", "det_host_loop"),
                        "det_device_vs_host": gaps("det_device_loop", "det_host_loop"),
-                       "host_runs": gaps("host_loop_again", "host_loop"),
-                       "host_vs_det_host": gaps("host_loop", "det_host_loop"),
-                       "host_again_vs_det_host": gaps("host_loop_again", "det_host_loop"),
+                       "host_spread": spread,
                        "device_vs_host": gaps("device_loop", "host_loop")}
     summary["graphs"] = entries["device_loop"]["graphs"]
     summary["gradient_gaps"] = grad_repeatability(torch)
@@ -876,9 +900,10 @@ def device_loop_vs_host(torch, commit):
         raise AssertionError("the device loop did not train bit for bit as the host loop "
                              "under deterministic cuDNN")
     g = summary["gaps"]["device_vs_host"]
-    host_pairs = [summary["gaps"][k]
-                  for k in ("host_runs", "host_vs_det_host", "host_again_vs_det_host")]
-    h = {k: max(p[k] for p in host_pairs) for k in ("loss_rel", "err_samples")}
+    # The host loop's own spread: the largest gap between any two of its
+    # four runs in this call (three under cuDNN's defaults, one under
+    # deterministic cuDNN), six pairs.
+    h = {k: max(p[k] for p in spread.values()) for k in ("loss_rel", "err_samples")}
     limits = {"loss_rel": max(2 * h["loss_rel"], LOOP_LOSS_FLOOR),
               "err_samples": max(2 * h["err_samples"], LOOP_ERR_SAMPLES_FLOOR)}
     if not (g["epochs"][0] == g["epochs"][1] and g["loss_rel"] <= limits["loss_rel"]
@@ -1934,6 +1959,509 @@ def ft_phases(torch, kernels, all_paths, smi, timing):
         chaos_s = chaos.result()
     print(f"ft phases: {time.perf_counter() - t0:.1f}s (in-process {inproc_s:.1f}s, "
           f"supervised gangs {chaos_s:.1f}s, side by side)")
+
+
+
+# -- shard control (slice 5c) ------------------------------------------------------
+
+#: lockstep rounds of the shard-control gangs (the FT gangs' count)
+SC_ROUNDS = 8
+#: their clients' FT: a deadline no lockstep op on the card comes near
+SC_FT = dict(op_deadline_s=5.0, max_retries=8, backoff_base_s=0.005, backoff_cap_s=0.02)
+#: the chunked SHARD_STATE leg's cut: below a shard's bytes at 2 shards a
+#: server (544,522 / 4 floats = 544 KB), so the param leg is 3 messages
+SC_CHUNK_BYTES = 262144
+
+
+def sc_gang(shards_per_server, ckpt_dir=None, ctl_kwargs=None):
+    """2 Adam servers (ranks 0, 1) on the card, 2 shard-control clients (2,
+    3) and the controller (4) over one in-process router; the servers run
+    on threads.  Returns (servers, clients, threads, ctl)."""
+    import threading
+
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+    from mpit_tpu_torch.shardctl import RebalancePolicy, ShardController
+
+    router = LocalRouter(5)
+    servers = [ParamServer(r, [2, 3], router.endpoint(r), rule=rules.make("adam", lr=1e-3),
+                           device=GANG_BASE["device"], ft=FTConfig(**SC_FT),
+                           controller_rank=4, ckpt_dir=ckpt_dir, ckpt_interval=1e9)
+               for r in (0, 1)]
+    threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    # The rebalance policy is off: only the phase's own moves happen.
+    ctl = ShardController(4, router.endpoint(4), [0, 1], [2, 3],
+                          policy=RebalancePolicy(enabled=False), **(ctl_kwargs or {}))
+    clients = [ParamClient(r, [0, 1], router.endpoint(r), seed_servers=(r == 2),
+                           ft=FTConfig(**SC_FT), shardctl=True, controller_rank=4,
+                           sc_shards_per_server=shards_per_server)
+               for r in (2, 3)]
+    return servers, clients, threads, ctl
+
+
+def sc_lockstep_adam(torch, kernels, data, name, shards_per_server=1, hook=None,
+                     ckpt_dir=None, ctl_kwargs=None):
+    """Two workers compute the flagship CNN's gradient on the card at the
+    params they pull, in lockstep turns, against the shard-control gang of
+    ``sc_gang``; ``hook(rnd, servers, threads, ctl)`` runs before each
+    round.  K3's count is set to 0 after the seeding and must equal the
+    applies summed over every owner, 2 workers x rounds x shards.  Returns
+    the final params and the gang's readings."""
+    import numpy as np
+
+    from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll_eager
+    from mpit_tpu_torch.models.mnist import make_model
+
+    flat = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1,
+                          GANG_BASE["device"])
+    vgf = value_and_grad_nll_eager(flat)
+    x, y = data
+    batch = GANG_BASE["batch"]
+    servers, clients, threads, ctl = sc_gang(shards_per_server, ckpt_dir, ctl_kwargs)
+    params = [flat.w0.cpu().numpy().copy(), np.zeros(flat.size, np.float32)]
+    grads = [np.zeros(flat.size, np.float32) for _ in clients]
+    vgf(flat.w0, x[:batch], y[:batch])  # first-call costs out of the rounds
+    ft_start(clients, [lambda c=c, i=i: c.start(params[i], grads[i])
+                       for i, c in enumerate(clients)])
+    ctl.pump()  # the seeder's map
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    for rnd in range(SC_ROUNDS):
+        if hook is not None:
+            hook(rnd, servers, threads, ctl)
+        for i, c in enumerate(clients):
+            c.async_recv_param()
+            c.wait()
+            lo = ((rnd * len(clients) + i) * batch) % (len(x) - batch)
+            _loss, g = vgf(torch.from_numpy(params[i]).to(GANG_BASE["device"]),
+                           x[lo:lo + batch], y[lo:lo + batch])
+            grads[i][:] = g.cpu().numpy()
+            c.async_send_grad()
+            c.wait()
+    round_s = (time.perf_counter() - t0) / SC_ROUNDS
+    clients[0].async_recv_param()
+    clients[0].wait()
+    final = params[0].copy()
+    for c in clients:
+        c.stop()
+    for t in threads:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError(f"{name}: a server did not stop")
+    ctl.pump()
+    if not ctl.done:
+        raise AssertionError(f"{name}: the controller missed the clients' STOPs")
+    nshards = 2 * shards_per_server
+    applied = sum(s.grads_applied for s in servers)
+    launches = read_counts(kernels)
+    if applied != 2 * SC_ROUNDS * nshards:
+        raise AssertionError(f"{name}: {applied} applies for {SC_ROUNDS} rounds of 2 "
+                             f"workers on {nshards} shards")
+    expect_launches(name, launches, {"k3": applied})
+    for s in servers:
+        for sid in s.owned_shards:
+            slot = s._slots[sid]
+            tensors = [slot.param, *slot.rule_state.values()]
+            if any(t.device.type != GANG_BASE["device"] for t in tensors) \
+                    or not slot.param.is_contiguous():
+                raise AssertionError(f"{name}: shard {sid} of server {s.rank} is off "
+                                     "the card or not contiguous")
+    return final, {"launches": launches, "applied": applied, "round_s": round_s,
+                   "map": [[e.shard_id, e.owner] for e in ctl.smap.entries],
+                   "nacks": sum(int(c._m_nacks.value) for c in clients),
+                   "reroutes": sum(int(c._m_reroutes.value) for c in clients),
+                   "per_server": [s.grads_applied for s in servers]}
+
+
+def sc_handoff_probe(dst, sid, box):
+    """Time a live migration of shard ``sid`` to ``dst``: the SHARD_STATE
+    messages (count and bytes, where the source packs them) and the first
+    OK the new owner gives for the shard (the end of the freeze window,
+    which starts with the controller's RELEASE)."""
+    from mpit_tpu_torch.shardctl import migrate as scmigrate
+    from mpit_tpu_torch.shardctl import wire as scwire
+
+    pack = scmigrate.pack_shard_state
+
+    def counted_pack(slot, chunk_bytes=None):
+        t0 = time.perf_counter()
+        msgs = pack(slot, chunk_bytes)
+        box["pack_ms"] = (time.perf_counter() - t0) * 1e3
+        box["state_msgs"] = len(msgs)
+        box["state_bytes"] = int(sum(m.nbytes for m in msgs))
+        return msgs
+
+    verdict = dst._sc_verdict
+
+    def first_ok(s):
+        v = verdict(s)
+        if s == sid and v == scwire.OK and "first_ok" not in box:
+            box["first_ok"] = time.perf_counter()
+        return v
+
+    scmigrate.pack_shard_state = counted_pack
+    dst._sc_verdict = first_ok
+    return lambda: setattr(scmigrate, "pack_shard_state", pack)
+
+
+def sc_migrate_adam(torch, kernels, data, all_paths, smi):
+    """Live migration of server-side Adam shards on the card: the static
+    map, then shard 1 moved from server 1 to server 0 at round 3, then at
+    2 shards a server (4 shards) shard 3 moved to server 0 at round 3 with
+    the SHARD_STATE param leg cut at ``SC_CHUNK_BYTES``.  Each is bit for
+    bit the static run, K3 = the applies over both owners (the static
+    run's count at the same cut), and the drain went through NACK_MAP."""
+    from mpit_tpu_torch.shardctl import migrate as scmigrate
+
+    static, st = sc_lockstep_adam(torch, kernels, data, "sc_static_adam")
+    static4, st4 = sc_lockstep_adam(torch, kernels, data, "sc_static_adam_4shards",
+                                    shards_per_server=2)
+    readings = {}
+    for name, k, sid, cut in (("sc_migrate_adam", 1, 1, None),
+                              ("sc_migrate_adam_4shards_chunked", 2, 3, SC_CHUNK_BYTES)):
+        box = {}
+        restore = []
+
+        def hook(rnd, servers, threads, ctl, box=box, sid=sid, restore=restore):
+            if rnd != 3:
+                return
+            restore.append(sc_handoff_probe(servers[0], sid, box))
+            box["release"] = time.perf_counter()
+            if not ctl.migrate(sid, 0):
+                raise AssertionError(f"migrate({sid}, 0) refused")
+            box["handoff_ms"] = (time.perf_counter() - box["release"]) * 1e3
+
+        saved = scmigrate.SC_CHUNK_BYTES
+        if cut is not None:
+            scmigrate.SC_CHUNK_BYTES = cut
+        try:
+            got, r = sc_lockstep_adam(torch, kernels, data, name, shards_per_server=k,
+                                      hook=hook)
+        finally:
+            scmigrate.SC_CHUNK_BYTES = saved
+            for fn in restore:
+                fn()
+        want, want_stats = (static, st) if k == 1 else (static4, st4)
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"{name}: params differ from the static map's "
+                                 f"(max gap {abs(got - want).max()})")
+        if r["launches"]["k3"] != want_stats["launches"]["k3"]:
+            raise AssertionError(f"{name}: K3 {r['launches']['k3']}, the static run's "
+                                 f"{want_stats['launches']['k3']}")
+        if not r["nacks"] > 0 or dict(r["map"])[sid] != 0:
+            raise AssertionError(f"{name}: no NACK_MAP drain, or map {r['map']}")
+        shard_bytes = 4 * (-(-len(got) // (2 * k)))
+        if cut is not None and box["state_msgs"] < 2 + 3 + -(-shard_bytes // cut) - 1:
+            raise AssertionError(f"{name}: the param leg was not chunked: {box}")
+        r.update(freeze_ms=(box["first_ok"] - box["release"]) * 1e3,
+                 handoff_ms=box["handoff_ms"], pack_ms=box["pack_ms"],
+                 state_msgs=box["state_msgs"], state_bytes=box["state_bytes"])
+        readings[name] = r
+        print(f"{name}: " + json.dumps(r))
+        print(f"{name} on {smi}: freeze window (RELEASE to the first OK on the new "
+              f"owner) {r['freeze_ms']:.2f} ms, SHARD_STATE {r['state_bytes']} bytes in "
+              f"{r['state_msgs']} messages, RELEASE to DONE {r['handoff_ms']:.2f} ms "
+              f"(pack {r['pack_ms']:.2f} ms); a round {r['round_s'] * 1e3:.1f} ms "
+              f"(static {st['round_s'] * 1e3:.1f} ms); K3 {r['launches']['k3']}")
+        record_path(all_paths, name, r["launches"], 2 * SC_ROUNDS)
+    record_path(all_paths, "sc_static_adam", st["launches"], 2 * SC_ROUNDS)
+    return static, st
+
+
+def sc_failover_adam(torch, kernels, data, all_paths, smi, static, st):
+    """Lease-expiry failover on the card: after round 3 server 1 checkpoints
+    its shard (``shard1_latest.npz``) and dies; the controller's clock jumps
+    past the lease while server 0 keeps beating, and server 0 ADOPTs the
+    shard from the checkpoint.  Bit for bit the static run, with K3 = the
+    applies of the dead and the adopting owner."""
+    import tempfile
+
+    now = [0.0]
+    box = {}
+
+    def hook(rnd, servers, threads, ctl):
+        now[0] += 1.0
+        if rnd != 3:
+            return
+        t0 = time.perf_counter()
+        while ctl.leases._expiry.get(1) is None:  # a beat armed the lease
+            ctl.pump()
+            if time.perf_counter() - t0 > 20:
+                raise AssertionError("sc_failover_adam: no beat from server 1")
+            time.sleep(0.01)
+        t1 = time.perf_counter()
+        servers[1].save_state(ckpt)
+        box["ckpt_ms"] = (time.perf_counter() - t1) * 1e3
+        servers[1].live.stop()
+        threads[1].join(30)
+        ctl._drain_beats()
+        now[0] += 100.0
+        t0 = time.perf_counter()
+        while ctl.leases._expiry.get(0) is not None and ctl.leases._expiry[0] < now[0]:
+            ctl._drain_beats()
+            if time.perf_counter() - t0 > 20:
+                raise AssertionError("sc_failover_adam: no fresh beat from server 0")
+            time.sleep(0.01)
+        t1 = time.perf_counter()
+        ctl.check_leases()
+        box["adopt_ms"] = (time.perf_counter() - t1) * 1e3
+        if ctl.smap.owner(1) != 0:
+            raise AssertionError("sc_failover_adam: failover did not move shard 1")
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        got, r = sc_lockstep_adam(torch, kernels, data, "sc_failover_adam", hook=hook,
+                                  ckpt_dir=ckpt,
+                                  ctl_kwargs=dict(lease_ttl_s=5.0, clock=lambda: now[0]))
+    if got.tobytes() != static.tobytes():
+        raise AssertionError("sc_failover_adam: params differ from the static map's "
+                             f"(max gap {abs(got - static).max()})")
+    if r["launches"]["k3"] != st["launches"]["k3"] or min(r["per_server"]) == 0:
+        raise AssertionError(f"sc_failover_adam: K3 {r['launches']['k3']} over applies "
+                             f"{r['per_server']}")
+    r.update(box)
+    print("sc_failover_adam: " + json.dumps(r))
+    print(f"sc_failover_adam on {smi}: checkpoint {box['ckpt_ms']:.2f} ms, lease expiry "
+          f"to the adopted shard's DONE {box['adopt_ms']:.2f} ms; K3 "
+          f"{r['launches']['k3']} = applies {r['per_server']} of the dead and the "
+          "adopting owner")
+    record_path(all_paths, "sc_failover_adam", r["launches"], 2 * SC_ROUNDS)
+
+
+def http_metric(port, name, rank):
+    """One counter of one rank's ``/metrics`` (None while it is not up)."""
+    import re
+
+    try:
+        with urllib_request().urlopen(f"http://127.0.0.1:{port}/metrics", timeout=1) as r:
+            text = r.read().decode()
+    except OSError:
+        return None
+    m = re.search(rf'^{name}\{{rank="{rank}"\}} ([0-9.e+]+)$', text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def urllib_request():
+    import urllib.request
+
+    return urllib.request
+
+
+def elastic_adam_procs(all_paths, smi, timing):
+    """``launch --np 5 --elastic 1 --elastic_spares 1 --opt adam --transport
+    tcp --supervise 2`` at the flagship widths, every rank on the card:
+    once the gang trains, this process asks the controller's ``/scale``
+    route (statusd, ``MPIT_OBS_HTTP``) for a server; the supervisor spawns
+    the spare rank 5 and the controller moves a shard onto it; then the
+    supervisor SIGTERMs server rank 2 with a 25 s grace, which checkpoints,
+    reports PREEMPT and is drained and retired.  Held: both events
+    counted, the final map tiles the vector with each shard owned once by
+    a live server, every server process's K3 equal to its applies, the
+    workers under the reference soak's test-error bound (0.8).  The
+    epochs are sized from this call's process-gang epoch for ~45 s of
+    training, which holds the joiner's start-up."""
+    import signal
+    import tempfile
+    import threading
+
+    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
+    from mpit_tpu_torch.obs.statusd import free_base_port
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
+
+    epochs = max(int(math.ceil(45.0 / timing["epoch_s"])), 6)
+    addrs, socks = allocate_local_addresses(6)
+    for sock in socks:
+        sock.close()
+    base = free_base_port(6)
+    box = {}
+    up_done = threading.Event()
+
+    def operator():
+        http = urllib_request()
+        t0 = time.time()
+        while time.time() - t0 < 300:  # the controller holds the seeder's map
+            try:
+                with http.urlopen(f"http://127.0.0.1:{base + 4}/status", timeout=1) as r:
+                    if (json.loads(r.read()).get("controller") or {}).get(
+                            "map_version") is not None:
+                        break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        time.sleep(2.0)
+        box["scale_at"] = time.time()
+        with http.urlopen(f"http://127.0.0.1:{base + 4}/scale?op=up", timeout=5) as r:
+            box["scale"] = json.loads(r.read())
+        while not (http_metric(base + 5, "mpit_ps_grads_applied_total", 5) or 0) > 0:
+            if time.time() - box["scale_at"] > 300:
+                return
+            time.sleep(0.05)
+        box["first_apply_at"] = time.time()
+        up_done.set()
+        while True:
+            try:
+                with http.urlopen(f"http://127.0.0.1:{base + 4}/status", timeout=1) as r:
+                    st = json.loads(r.read()).get("controller") or {}
+                if 2 in st.get("retired", []):
+                    box["retired_at"] = time.time()
+                    return
+            except OSError:
+                return
+            time.sleep(0.02)
+
+    saved = os.environ.get("MPIT_OBS_HTTP")
+    os.environ["MPIT_OBS_HTTP"] = str(base)
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            cfg = LAUNCH_DEFAULTS.parse_args([
+                "--np", "5", "--opt", "adam", "--transport", "tcp", "--elastic", "1",
+                "--elastic_spares", "1", "--elastic_grace_s", "25", "--supervise", "2",
+                "--ft_heartbeat_s", "0.25", "--ft_lease_ttl_s", "30",
+                "--ft_op_deadline_s", "5", "--shardctl_lease_ttl_s", "30",
+                # the rebalance policy stays quiet: the moves under test are
+                # the scale-up's and the drain's (ptest's skew legs hold the
+                # policy)
+                "--shardctl_ratio", "1000",
+                "--server_ckpt_dir", ckpt, "--server_ckpt_interval", "2"]).merged(
+                GANG_BASE, lr=1e-3, su=1, epochs=epochs, tcp_addrs=",".join(addrs))
+            th = threading.Thread(target=operator, daemon=True)
+            th.start()
+            t0 = time.perf_counter()
+            results = launch_processes(cfg, timeout=900, chaos=dict(
+                chaos_kill_rank=2, chaos_kill_after_s=1.0, chaos_signal=signal.SIGTERM,
+                chaos_grace_s=25.0, chaos_when=up_done.is_set))
+            wall = time.perf_counter() - t0
+            th.join(10)
+    finally:
+        if saved is None:
+            os.environ.pop("MPIT_OBS_HTTP", None)
+        else:
+            os.environ["MPIT_OBS_HTTP"] = saved
+    name = "elastic_adam_procs"
+    roles = {r: v["role"] for r, v in results.items()}
+    if roles != {0: "server", 1: "worker", 2: "server", 3: "worker", 4: "controller",
+                 5: "server"}:
+        raise AssertionError(f"{name}: roles {roles}")
+    ctl = results[4]
+    ev = ctl["elastic_events"]
+    if not (ev["up"] >= 1 and ev["preempt"] >= 1 and ev["down"] >= 1):
+        raise AssertionError(f"{name}: elastic events {ev}")
+    cut = sorted(ctl["map"])
+    n_params = sum(size for _sid, _off, size, _owner in cut)
+    at = 0
+    for sid, off, size, owner in cut:
+        if off != at or owner not in (0, 5) or size <= 0:
+            raise AssertionError(f"{name}: the final map {cut} does not tile the vector "
+                                 "over live servers")
+        at += size
+    owned = sorted(s for r in (0, 2, 5) for s in results[r]["owned_shards"])
+    if owned != [c[0] for c in cut] or not results[2]["retired"]:
+        raise AssertionError(f"{name}: shards owned {owned}, map {cut}, rank 2 retired "
+                             f"{results[2]['retired']}")
+    off = {r: v["platform"] for r, v in results.items() if v["platform"] != "cuda"}
+    if off:
+        raise AssertionError(f"{name}: ranks off the card: {off}")
+    for r in (0, 2, 5):
+        srv = results[r]
+        if srv["launches"]["k3"] != srv["grads_applied"] or not srv["grads_applied"]:
+            raise AssertionError(f"{name}: server {r} launched K3 "
+                                 f"{srv['launches']['k3']} times for "
+                                 f"{srv['grads_applied']} applies")
+    errs = [results[r]["final_test_err"] for r in (1, 3)]
+    if max(errs) >= 0.8:
+        raise AssertionError(f"{name}: worker test errors {errs}")
+    reading = {
+        "wall_s": wall, "epochs": epochs, "n_params": n_params, "events": ev,
+        "map": cut, "membership_epoch": ctl["membership_epoch"],
+        "applies": {r: results[r]["grads_applied"] for r in (0, 2, 5)},
+        "spawn_to_first_apply_s": box["first_apply_at"] - box["scale_at"],
+        "drain_ms": ((box["retired_at"] - results[2]["chaos_killed_at"]) * 1e3
+                     if "retired_at" in box else None),
+        "test_err": errs,
+        "launches": {k: sum(v["launches"][k] for v in results.values())
+                     for k in ("k1", "k2", "k3")}}
+    print(f"{name}: " + json.dumps(reading))
+    print(f"{name} on {smi}: /scale to the joiner's first apply "
+          f"{reading['spawn_to_first_apply_s']:.1f} s, SIGTERM to retired "
+          f"{reading['drain_ms']} ms, {epochs} epochs in {wall:.1f} s")
+    record_path(all_paths, name, reading["launches"],
+                sum(results[r]["steps"] for r in (1, 3)))
+    return wall
+
+
+def ptest_sc_legs(smi):
+    """``tools/torch_ptest.py``'s shard-control legs at 16 MB: the codec-none
+    leg, the straggler A/B (rebalance off, then on: the on-leg's map must
+    have moved) and the 1 -> 2 -> 1 elastic sweep, MB/s printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
+                          env=dict(os.environ, MPIT_BENCH_CODECS="none", MPIT_BENCH_MB="16",
+                                   MPIT_BENCH_ROUNDS="20", MPIT_BENCH_SKEW="1",
+                                   MPIT_BENCH_ELASTIC="1"),
+                          capture_output=True, text=True, timeout=900)
+    sys.stdout.write(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        raise AssertionError(f"ptest shard-control legs failed ({proc.returncode}):\n"
+                             f"{proc.stdout}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    for row in rows:
+        print(f"ptest_sc on {smi}: " + json.dumps(row))
+    skew = [r for r in rows if r.get("skew")]
+    el = [r for r in rows if r.get("elastic")]
+    if [r["rebalance"] for r in skew] != [0, 1] or not skew[1]["map_version"] > 0 \
+            or skew[0]["map_version"] != 0:
+        raise AssertionError(f"ptest skew legs: {skew}")
+    if [r["phase"] for r in el] != ["start", "grown", "shrunk"] \
+            or [r["servers"] for r in el] != [1, 2, 1] \
+            or not all(r["value"] > 0 for r in rows):
+        raise AssertionError(f"ptest elastic legs: {el}")
+    print(f"ptest_sc on {smi}: straggler {skew[0]['value']} MB/s static, "
+          f"{skew[1]['value']} MB/s rebalanced (map v{skew[1]['map_version']}); elastic "
+          f"1 -> 2 -> 1 servers {[r['value'] for r in el]} MB/s; "
+          f"{time.perf_counter() - t0:.1f}s")
+    return time.perf_counter() - t0
+
+
+def sc_phases(torch, kernels, all_paths, smi, timing):
+    """Shard control (slice 5c) on the card: the elastic process gang and
+    the ptest legs run in the background, side by side, while this process
+    drives the live migrations and the failover of Adam shards."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mpit_tpu_torch.data.mnist import load_mnist
+
+    from mpit_tpu_torch import obs
+
+    raw, _ = load_mnist(side=GANG_BASE["side"])
+    data = (torch.as_tensor(raw[0], device=GANG_BASE["device"]),
+            torch.as_tensor(np.asarray(raw[1]), dtype=torch.int64, device=GANG_BASE["device"]))
+    # The elastic gang sets MPIT_OBS_HTTP for its children while this
+    # process builds its own gangs: obs stays off here, so each in-process
+    # server counts into a registry of its own.
+    obs.configure(enabled=False)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        procs = pool.submit(elastic_adam_procs, all_paths, smi, timing)
+        ptest = pool.submit(ptest_sc_legs, smi)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            t1 = time.perf_counter()
+            static, st = sc_migrate_adam(torch, kernels, data, all_paths, smi)
+            sc_failover_adam(torch, kernels, data, all_paths, smi, static, st)
+            inproc_s = time.perf_counter() - t1
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        procs_s, ptest_s = procs.result(), ptest.result()
+    obs.configure(enabled=None)
+    print(f"shard-control phases: {time.perf_counter() - t0:.1f}s (in-process "
+          f"{inproc_s:.1f}s; beside it the elastic gang {procs_s:.1f}s and the ptest "
+          f"legs {ptest_s:.1f}s)")
 
 
 # -- observability (slice 5b) -----------------------------------------------------
@@ -3172,6 +3700,7 @@ def main() -> int:
     gang_timing = process_gang_paths(torch, all_paths, inproc, smi)
     ft_phases(torch, kernels, all_paths, smi, gang_timing)
     obs_phases(torch, kernels, all_paths, smi)
+    sc_phases(torch, kernels, all_paths, smi, gang_timing)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 

@@ -240,6 +240,20 @@ class Scheduler:
         if self.errors:
             raise self.errors.pop(0)
 
+    def wait_for(self, task: Task) -> Any:
+        """Drive the queue until ``task`` completes; return its result (the
+        shard controller's synchronous directives run through this)."""
+        while task.state not in (DONE, ERR):
+            if not self.queue:
+                raise RuntimeError(f"task {task.name!r} pending but queue empty")
+            self.ping_pass()
+        if task.state == ERR:
+            # Drop the queued duplicate so a later wait() does not re-raise
+            # an error the caller already handled here.
+            self.errors = [e for e in self.errors if e.task is not task]
+            raise TaskError(task, task.error)
+        return task.result
+
     def _step_and_requeue(self, task: Task) -> None:
         prof = self._prof
         if prof.enabled:

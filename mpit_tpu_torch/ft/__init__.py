@@ -1,8 +1,7 @@
 """mpit_tpu_torch.ft — fault tolerance for the parameter-server gang.
 
 The port of ``mpit_tpu/ft/``: its modules are host code, copied, and the
-port imports nothing of the JAX package.  ``traffic.py`` (the ptest
-scenarios and autoscale's traffic model) comes with shard control.
+port imports nothing of the JAX package.
 
 The EASGD/DOWNPOUR family's premise is loose coupling, but the pre-FT
 protocol was tightly coupled to every member's health: a hung client
@@ -45,6 +44,7 @@ from mpit_tpu_torch.ft.leases import (
     LeaseRegistry,
 )
 from mpit_tpu_torch.ft.retry import RetryExhausted, RetryPolicy
+from mpit_tpu_torch.ft.traffic import Scenario, TrafficEvent, TrafficPhase
 from mpit_tpu_torch.ft.wire import (
     ACK_TIMING_WORDS,
     CHUNK_ACK_TIMING_WORDS,
@@ -94,6 +94,7 @@ __all__ = [
     "PreemptionNotice", "ElasticDirectory",
     "LeaseRegistry", "ACTIVE", "EVICTED", "STOPPED", "RETIRED",
     "RetryPolicy", "RetryExhausted",
+    "Scenario", "TrafficPhase", "TrafficEvent",
     "HDR_BYTES", "HDR_STALE_BYTES",
     "FLAG_FRAMED", "FLAG_HEARTBEAT", "FLAG_READONLY", "FLAG_STALENESS",
     "FLAG_SUBSCRIBE", "FLAG_TIMING", "FLAG_CHUNKED",
@@ -110,15 +111,3 @@ __all__ = [
     "pack_tx_stamp", "unpack_tx_stamp",
     "pack_reply_stamps", "unpack_reply_stamps",
 ]
-
-#: The JAX package's ft exports of ``ft/traffic.py`` (the ptest scenarios'
-#: and autoscale's traffic model), which comes with shard control.
-LATER_EXPORTS = ("Scenario", "TrafficPhase", "TrafficEvent")
-
-
-def __getattr__(name: str):
-    if name in LATER_EXPORTS:
-        raise NotImplementedError(
-            f"mpit_tpu_torch.ft.{name} (ft/traffic.py) belongs to shard control "
-            "with elastic membership (slice 5, shardctl) of the port")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

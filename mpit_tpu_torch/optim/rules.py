@@ -37,6 +37,30 @@ from mpit_tpu_torch.ops.fused_update import fused_adam
 State = Dict[str, torch.Tensor]
 
 
+def _settle_cpu_kernels() -> None:
+    """Run the CPU's elementwise math kernels once, in the importing thread.
+
+    PyTorch's CPU kernels race on their first concurrent use: when several
+    threads call ``torch.sqrt`` for the first time in a process at once, one
+    of them can get a result 1,400 ulps off (``sqrt(1 - 0.999)`` read
+    ``0x1.031194p-5`` for ``0x1.030d58p-5`` in 2 of 64 fresh processes of
+    four threads; in 0 of 96 once the main thread had called it first).  A
+    gang's servers are threads, so their first Adam applies met exactly
+    that race: Adam's ``lr_t`` at ``t = 1`` came out wrong in one run of a
+    pair that should agree bit for bit.  Settling every kernel the rules
+    use here, at import, takes the first use out of the threads."""
+    x = torch.full((64,), 0.5, dtype=torch.float32)
+    e = torch.ones((), dtype=torch.float32)
+    for v in (x, x[0]):
+        torch.sqrt(v), torch.rsqrt(v), torch.exp(v), torch.log(v), torch.abs(v)
+        torch.pow(0.9, v), torch.pow(v, 2.0), torch.maximum(v, v)
+        1.0 - v, 0.5 * v / (v + 1e-8)
+    torch.pow(0.999, e)
+
+
+_settle_cpu_kernels()
+
+
 class ShardRule(NamedTuple):
     """An (init, apply) pair with hyperparameters already bound."""
 

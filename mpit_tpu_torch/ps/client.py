@@ -33,10 +33,19 @@ Heartbeats ride ``ping``/``wait``.  ``FLAG_STALENESS`` adds the version
 word.  ``FLAG_TIMING`` (``FTConfig(timing=True)`` on a framed client) adds
 a wall-µs send stamp to every data frame, re-stamped per attempt, and
 feeds the ``[t_tx, t_recv, t_ack]`` tails of the server's acks, replies
-and heartbeat echoes into a per-server clock-offset estimator.  Chunked
-streaming, shard control and the weighted layout come with later slices:
-their knobs and constructor arguments raise ``NotImplementedError``
-naming the slice.
+and heartbeat echoes into a per-server clock-offset estimator.
+
+Shard control (``shardctl=True`` or a ``shard_map``; INIT v4): ops address
+*shards* of a versioned :class:`~mpit_tpu_torch.shardctl.shardmap.ShardMap`
+(``sc_shards_per_server`` shards per launch server), each framed behind the
+32-byte ``[epoch, seq, map_version, shard_id]`` header and encoded once into
+per-shard staging (with a per-shard int8 residual); a ``NACK_MAP`` reply
+installs the server's newer map and re-routes, ``BUSY`` backs off through a
+migration, and the controller's MAP_UPDATE broadcasts are polled in
+``ping``/``wait``.  One global FIFO pump serializes shard ops.  Staleness and
+timing negotiate off there (the header has no slot for them).  Chunked
+streaming and the weighted layout come with later slices: their knobs and
+constructor arguments raise ``NotImplementedError`` naming the slice.
 
 Observability (:mod:`mpit_tpu_torch.obs`): every op records a span with
 the JAX client's phase marks (encode, send, ack or recv, decode, backoff)
@@ -44,8 +53,8 @@ and outcome; retry exhaustion dumps the flight recorder; with obs on the
 client registers a ``/status`` section.  Disabled, the recorder and the
 flight recorder are the shared null objects and read no clock.
 
-The shard cut is :func:`mpit_tpu_torch.ps.sharding.shard_layout`'s equal
-split, the cut the JAX client's version-0 shard map makes.
+The static shard cut is :func:`mpit_tpu_torch.ps.sharding.shard_layout`'s
+equal split, the cut the JAX client's version-0 shard map makes.
 """
 
 from __future__ import annotations
@@ -97,14 +106,12 @@ from mpit_tpu_torch.obs.statusd import register_provider as register_status_prov
 from mpit_tpu_torch.ps import tags
 from mpit_tpu_torch.ps.server import refuse_later
 from mpit_tpu_torch.ps.sharding import Shard, shard_layout
+from mpit_tpu_torch.shardctl import shardmap as _shardmap
+from mpit_tpu_torch.shardctl import wire as _scwire
 from mpit_tpu_torch.utils.logging import get_logger
 
 #: What each refused constructor argument of the JAX client belongs to.
 LATER_CLIENT_ARGS = {
-    "shard_map": "shard control (slice 5, shardctl)",
-    "shardctl": "shard control (slice 5, shardctl)",
-    "controller_rank": "shard control (slice 5, shardctl)",
-    "sc_shards_per_server": "shard control (slice 5, shardctl)",
     "layout": "the weighted shard layout (slice 7, lm)",
 }
 
@@ -118,6 +125,10 @@ class ParamClient:
         seed_servers: bool = False,
         codec: Optional[str] = None,
         ft: Optional[FTConfig] = None,
+        shard_map: Optional[_shardmap.ShardMap] = None,
+        shardctl: bool = False,
+        controller_rank: Optional[int] = None,
+        sc_shards_per_server: int = 1,
         **later: Any,
     ):
         refuse_later("ParamClient", later, LATER_CLIENT_ARGS)
@@ -128,6 +139,29 @@ class ParamClient:
         self.seed_servers = seed_servers  # this is the first client
         self.codec = codec_mod.get(codec)  # None/'' -> $MPIT_PS_CODEC
         self.ft = ft if ft is not None else FTConfig.from_env()
+        # Shard control: ops address *shards*, not servers — the versioned
+        # map routes them, a NACK_MAP reply re-routes them, and the
+        # controller's MAP_UPDATE broadcasts are polled opportunistically.
+        # Needs the framed retry machinery: re-routing is retry, and
+        # at-most-once across owners is the transferred dedup state.
+        self._sc = bool(shardctl or shard_map is not None)
+        self.smap = shard_map
+        self.controller_rank = controller_rank
+        # Over-partitioning: k shards per launch-time server, so elastic
+        # membership has units to move.
+        self._sc_cut = max(int(sc_shards_per_server), 1)
+        #: servers this incarnation announced itself to; a map may route
+        #: shards to ranks that joined after launch — first contact greets
+        #: them (the lazy INIT v4).
+        self._sc_greeted: set = set()
+        self._sc_flags = 0
+        #: ranks that left on purpose (RETIRED broadcasts): dropped from
+        #: heartbeat and STOP fan-out.
+        self._sc_retired: set = set()
+        if self._sc and self.ft.op_deadline_s <= 0:
+            raise ValueError(
+                "shardctl needs op deadlines + retry (FTConfig."
+                "op_deadline_s > 0): map re-routing rides the retry path")
         self._retry = RetryPolicy(self.ft, key=rank)
         self.live = LiveFlag()
         self.log = get_logger("pclient", rank)
@@ -138,12 +172,15 @@ class ParamClient:
         # Staleness telemetry: with FLAG_STALENESS, PARAM replies carry the
         # served snapshot version and the next GRAD echoes the version this
         # client computed against (the 24-byte header).
-        self._stale = self.ft.stale_track
+        # Off under shard control: the 32-byte shard header has no
+        # version word.
+        self._stale = self.ft.stale_track and not self._sc
         # Causal timing (FLAG_TIMING): data frames carry a wall-µs send
         # stamp and every ack/reply a [t_tx_echo, t_recv, t_ack] tail — the
         # four NTP marks that feed the per-server clock-offset estimator.
         # Rides the framed wire like staleness.
-        self._timing = self.ft.timing_track
+        # Off under shard control, like staleness (no stamp slot).
+        self._timing = self.ft.timing_track and not self._sc
         #: per-server param version this client last read (the basis the
         #: next gradient is computed against); 0 until the first read.
         self._basis: Dict[int, int] = {}
@@ -176,6 +213,10 @@ class ParamClient:
         self._m_backoff = self.metrics.counter(
             "mpit_ft_backoff_seconds_total", rank=rank)
         self._m_hb = self.metrics.counter("mpit_ft_heartbeats_sent_total", rank=rank)
+        self._m_nacks = self.metrics.counter("mpit_shardctl_nacks_seen_total", rank=rank)
+        self._m_reroutes = self.metrics.counter("mpit_shardctl_reroutes_total",
+                                                rank=rank)
+        self._m_mapver = self.metrics.gauge("mpit_shardctl_map_version", rank=rank)
         # Flight recorder + live introspection: retry exhaustion dumps the
         # recent-event ring; the status provider feeds /status.  Both are
         # null or absent when obs is disabled.
@@ -187,6 +228,16 @@ class ParamClient:
         # request is sent), while different servers stay fully concurrent.
         # Strictly stronger than the reference (which relies on coroutine
         # spawn order for freshness, pclient.lua:84-109).
+        # Shard-control state: encode staging and residual keyed by shard id
+        # (placement moves, the cut never does), per-(shard, tag) seq
+        # streams, and one global FIFO op pump (ops to different owners
+        # serialize, so the reply channels never interleave two ops).
+        self._sc_wire: Dict[int, np.ndarray] = {}
+        self._sc_residual: Dict[int, np.ndarray] = {}
+        self._sc_seq: Dict[Tuple[int, int], int] = {}
+        self._scq: Deque[Tuple[Generator, str]] = deque()
+        self._sc_pump_live = False
+        self._sc_pump_task: Optional[Task] = None
         self._opq: Dict[int, Deque[Tuple[Generator, str]]] = {}
         self._pump_live: Dict[int, bool] = {}
         self._pump_task: Dict[int, Optional[Task]] = {}
@@ -197,8 +248,12 @@ class ParamClient:
         """Announce shard layout + codec to every server; the first client
         seeds the servers' shards from ``param`` (reference
         pclient.lua:111-129).  INIT v2: int64 [offset, size, codec_id];
-        with any FT feature active, INIT v3 adds [epoch, flags]."""
+        with any FT feature active, INIT v3 adds [epoch, flags]; under
+        shard control, INIT v4 announces the whole versioned map."""
         self._register(param, grad)
+        if self._sc:
+            self._sc_start(param)
+            return
         self.shards = shard_layout(len(param), len(self.sranks))
         flags = (FLAG_FRAMED if self.ft.framed else 0) | (
             FLAG_HEARTBEAT if self.ft.heartbeat_s > 0 else 0) | (
@@ -276,7 +331,8 @@ class ParamClient:
             "staleness": self._stale,
             "chunked": False,
             "basis_versions": {str(s): v for s, v in self._basis.items()},
-            "map_version": 0,  # the static layout: the JAX client's version-0 map
+            # the static layout is the JAX client's version-0 map
+            "map_version": self.smap.version if self.smap is not None else 0,
             "retries": self.retries,
             "tasks": tasks,
         }
@@ -426,7 +482,8 @@ class ParamClient:
                    if self._timing
                    else header_frame(self.ft.epoch, self._hb_seq))
         self._m_hb.inc()
-        for srank in self.sranks:
+        targets = self._sc_beat_targets() if self._sc else self.sranks
+        for srank in targets:
             self.sched.spawn(self._hb_send(payload, srank),
                              name=f"heartbeat:{srank}")
 
@@ -456,6 +513,294 @@ class ParamClient:
                 if len(tail) >= ACK_TIMING_WORDS and int(tail[0]) == self.ft.epoch:
                     self._feed_clock(srank, int(tail[2]), int(tail[3]),
                                      int(tail[4]))
+
+    # -- shard control: shard-addressed ops over the versioned map -----------
+
+    def _sc_start(self, param: np.ndarray) -> None:
+        """INIT v4 to every server: codec + FT posture + the whole map.
+        Per-shard staging is keyed by shard_id — placement moves, the
+        cut never does, so buffers survive any number of migrations."""
+        if self.smap is None:
+            owners = [s for s in self.sranks for _ in range(self._sc_cut)]
+            self.smap = _shardmap.ShardMap.initial(len(param), owners)
+        if self.smap.plong != len(param):
+            raise ValueError(
+                f"shard map covers {self.smap.plong} elements but the "
+                f"registered vector has {len(param)}")
+        self.shards = [e.shard for e in self.smap.entries]
+        self._m_mapver.set(self.smap.version)
+        flags = FLAG_FRAMED | _scwire.FLAG_SHARDCTL | (
+            FLAG_HEARTBEAT if self.ft.heartbeat_s > 0 else 0
+        )
+        self._sc_flags = flags
+        self._sc_greeted = set(self.sranks)
+        for e in self.smap.entries:
+            if self.codec.identity:
+                nbytes = e.shard.size * param.dtype.itemsize
+            else:
+                nbytes = self.codec.wire_nbytes(e.shard.size)
+                if self.codec.uses_residual:
+                    self._sc_residual[e.shard_id] = np.zeros(
+                        e.shard.size, np.float32)
+            self._sc_wire[e.shard_id] = np.zeros(
+                _scwire.SC_HDR_BYTES + nbytes, np.uint8)
+        cinfo = _scwire.init_v4(self.codec.wire_id, self.ft.epoch,
+                                flags, self.smap)
+        for srank in self.sranks:
+            self.sched.spawn(
+                aio_send(self.transport, cinfo, srank, tags.INIT,
+                         live=self.live, deadline=self._op_deadline()),
+                name=f"send_init:{srank}",
+            )
+        self.wait()
+        self._started = True
+        self._hb_last = 0.0
+        if self.controller_rank is not None and self.seed_servers:
+            # Hand the controller its first map (it starts blank so it
+            # never has to know plong before the clients do).
+            self.sched.spawn(
+                aio_send(self.transport,
+                         _scwire.map_update(_scwire.INSTALL, -1, self.rank,
+                                            self.smap),
+                         self.controller_rank, tags.MAP_UPDATE,
+                         live=self.live, deadline=self._op_deadline()),
+                name="send_map:controller",
+            )
+            self.wait()
+        if self.seed_servers:
+            self.async_send_param()
+            self.wait()
+
+    def _sc_next_seq(self, sid: int, tag: int) -> int:
+        seq = self._sc_seq.get((sid, tag), 0) + 1
+        self._sc_seq[(sid, tag)] = seq
+        return seq
+
+    def _sc_install_wire(self, body) -> bool:
+        """Adopt a serialized map if it is newer than ours."""
+        m = _shardmap.ShardMap.from_wire(np.frombuffer(bytes(body), np.int64))
+        if self.smap is None or m.version > self.smap.version:
+            self.smap = m
+            self._m_mapver.set(m.version)
+            return True
+        return False
+
+    def _sc_poll_map(self) -> None:
+        """Drain any MAP_UPDATE broadcasts from the controller (probed,
+        never blocking): proactive re-routing, and the only way to learn
+        a failover map while the old owner is dead air."""
+        if not self._sc or self.controller_rank is None:
+            return
+        while self.transport.iprobe(self.controller_rank, tags.MAP_UPDATE):
+            handle = self.transport.irecv(self.controller_rank,
+                                          tags.MAP_UPDATE)
+            while not self.transport.test(handle):
+                pass  # iprobe saw a fully-assembled message
+            kind, _sid, peer, m = _scwire.parse_map_update(
+                bytes(self.transport.payload(handle)))
+            if kind == _scwire.RETIRED:
+                # A goodbye, not a crash: drop the rank from beat/STOP
+                # fan-out.  Its shards already drained (the map carried
+                # here no longer routes anything to it).
+                self._sc_retired.add(peer)
+            if self.smap is None or m.version > self.smap.version:
+                self.smap = m
+                self._m_mapver.set(m.version)
+
+    def _sc_write_op(self, sid: int, tag: int, ack_tag: int, what: str):
+        """One shard write (GRAD / PARAM_PUSH): encode once into the
+        shard's staging frame, then run the attempt loop.  The residual
+        folds at this single encode; re-routes resend the same bytes."""
+        shard = self.smap.entry(sid).shard
+        span = self._spans.op(what, peer=sid, side="client",
+                              rank=self.rank)
+        view = (self.grad if tag == tags.GRAD else
+                self.param)[shard.offset: shard.end]
+        wire = self._sc_wire[sid]
+        span.mark("encode")
+        body = wire[_scwire.SC_HDR_BYTES:]
+        if self.codec.identity:
+            body[:] = view.view(np.uint8)
+        else:
+            residual = (self._sc_residual.get(sid)
+                        if tag == tags.GRAD else None)
+            self.codec.encode_into(view, body, residual=residual)
+        seq = self._sc_next_seq(sid, tag)
+        span.note(epoch=self.ft.epoch, seq=seq, shard=sid)
+        yield from self._sc_attempts(sid, seq, wire, tag, ack_tag,
+                                     out=None, span=span,
+                                     what=f"{what} for shard {sid}")
+
+    def _sc_read_op(self, sid: int):
+        """One shard read: request-by-header, decode the OK reply's
+        snapshot frame into the param slice."""
+        shard = self.smap.entry(sid).shard
+        span = self._spans.op("PARAM", peer=sid, side="client",
+                              rank=self.rank)
+        out = self.param[shard.offset: shard.end]
+        seq = self._sc_next_seq(sid, tags.PARAM_REQ)
+        span.note(epoch=self.ft.epoch, seq=seq, shard=sid)
+        yield from self._sc_attempts(sid, seq, None, tags.PARAM_REQ,
+                                     tags.PARAM, out=out, span=span,
+                                     what=f"PARAM read for shard {sid}")
+
+    def _sc_attempts(self, sid: int, seq: int, wire: Optional[np.ndarray],
+                     tag: int, ack_tag: int, out: Optional[np.ndarray],
+                     span, what: str):
+        """The shardctl attempt loop: send to the shard's current owner,
+        await the status reply; DeadlineExceeded retries under backoff
+        (polling controller broadcasts), NACK_MAP installs the carried
+        map and re-routes, BUSY backs off through a migration window.
+        A re-route to a *different* owner resets the attempt budget —
+        monotone map versions bound the total work.  Exhaustion raises
+        :class:`RetryExhausted`; the never-hang guarantee holds."""
+        attempt = 0
+        nacks = 0
+        max_nacks = 16 * (self._retry.attempts + 1)
+        last: Optional[BaseException] = None
+        while self.live.io:
+            owner = self.smap.owner(sid)
+            if owner not in self._sc_greeted:
+                # First contact with a scaled-up server (§9.1): announce
+                # this incarnation before the op — the lazy INIT v4 that
+                # makes late membership transparent to the op stream.
+                yield from self._sc_greet(owner)
+            if wire is not None:
+                _scwire.pack_sc_header(wire, self.ft.epoch, seq,
+                                       self.smap.version, sid)
+                payload: np.ndarray = wire
+            else:
+                payload = _scwire.sc_header(self.ft.epoch, seq,
+                                            self.smap.version, sid)
+            deadline = self._op_deadline()
+            try:
+                span.mark("send")
+                yield from aio_send(self.transport, payload, owner, tag,
+                                    live=self.live, deadline=deadline)
+                span.mark("recv" if out is not None else "ack")
+                while True:
+                    raw = yield from aio_recv(self.transport, owner, ack_tag,
+                                              live=self.live,
+                                              deadline=deadline)
+                    if raw is None:
+                        span.end("aborted")
+                        return None
+                    epoch, aseq, status, rsid, body = _scwire.parse_reply(
+                        bytes(raw))
+                    if epoch == self.ft.epoch and rsid == sid and aseq == seq:
+                        break
+                    if epoch > self.ft.epoch or (
+                            epoch == self.ft.epoch and rsid == sid
+                            and aseq > seq):
+                        raise RuntimeError(
+                            f"reply from server {owner} is ahead of the op "
+                            f"stream: got (epoch={epoch}, seq={aseq}, "
+                            f"shard={rsid}), awaiting (epoch="
+                            f"{self.ft.epoch}, seq={seq}, shard={sid})")
+                    # stale echo (earlier attempt / other shard): drop on
+                    # the unchanged attempt deadline
+            except DeadlineExceeded as exc:
+                last = exc
+                attempt += 1
+                if attempt >= self._retry.attempts:
+                    span.end("exhausted")
+                    self._flight_dump("retry_exhausted", what=what,
+                                      attempts=self._retry.attempts,
+                                      shard=sid)
+                    raise RetryExhausted(what, self._retry.attempts, last)
+                backoff = self._retry.backoff_s(attempt)
+                self._m_retries.inc()
+                self._m_backoff.inc(backoff)
+                span.mark("backoff")
+                span.note(retries=attempt)
+                if not (yield from aio_sleep(backoff, live=self.live)):
+                    span.end("aborted")
+                    return None
+                self._sc_poll_map()
+                if self.smap.owner(sid) != owner:
+                    # A broadcast re-routed us (failover away from a dead
+                    # owner): the new destination gets a fresh budget.
+                    self._m_reroutes.inc()
+                    span.mark("reroute")
+                    attempt = 0
+                continue
+            if status == _scwire.OK:
+                if out is not None:
+                    span.mark("decode")
+                    self._sc_decode(body, out)
+                span.end("ok")
+                return True
+            # NACK_MAP / BUSY — both may carry the server's newer map.
+            nacks += 1
+            self._m_nacks.inc()
+            span.mark("nack")
+            if nacks > max_nacks:
+                span.end("exhausted")
+                self._flight_dump("retry_exhausted",
+                                  what=f"{what} (map churn)", nacks=nacks,
+                                  shard=sid)
+                raise RetryExhausted(f"{what} (map churn)", nacks, last)
+            if len(body) and self._sc_install_wire(body) \
+                    and self.smap.owner(sid) != owner:
+                self._m_reroutes.inc()
+                span.mark("reroute")
+                attempt = 0
+            if status == _scwire.BUSY:
+                # Mid-migration freeze window: give the handoff a beat.
+                if not (yield from aio_sleep(self._retry.backoff_s(1),
+                                             live=self.live)):
+                    span.end("aborted")
+                    return None
+                self._sc_poll_map()
+        span.end("aborted")
+        return None
+
+    def _sc_greet(self, owner: int):
+        """Announce this client (INIT v4 with the current map) to a
+        server that joined after launch.  The server's listener
+        negotiates and spawns services before it sees our first op —
+        both tags are FIFO per channel, so ordering is the transport's."""
+        cinfo = _scwire.init_v4(self.codec.wire_id, self.ft.epoch,
+                                self._sc_flags, self.smap)
+        yield from aio_send(self.transport, cinfo, owner, tags.INIT,
+                            live=self.live, deadline=self._op_deadline())
+        self._sc_greeted.add(owner)
+
+    def _sc_beat_targets(self) -> "List[int]":
+        """Liveness fan-out under shardctl: everyone this incarnation
+        announced itself to, minus clean departures."""
+        return sorted(self._sc_greeted - self._sc_retired)
+
+    def _sc_decode(self, body, out: np.ndarray) -> None:
+        frame = np.frombuffer(bytes(body), np.uint8)
+        if self.codec.identity:
+            out.view(np.uint8)[:] = frame
+        else:
+            self.codec.decode_into(frame, out)
+
+    def _sc_enqueue(self, gen: Generator, name: str) -> None:
+        self._scq.append((gen, name))
+        if not self._sc_pump_live:
+            self._sc_pump_live = True
+            self._sc_pump_task = None
+            self._sc_pump_task = self.sched.spawn(self._sc_pump(),
+                                                  name=f"scpump:{name}")
+
+    def _sc_pump(self):
+        """One global FIFO for shard-control ops: strictly serialized, so
+        the per-(owner, tag) reply channels never interleave two in-flight
+        ops' echoes even when one server owns several shards.  (The static
+        path keeps its per-server pumps and full cross-server overlap.)"""
+        queue = self._scq
+        try:
+            while queue:
+                op, opname = queue.popleft()
+                task = self._sc_pump_task
+                if task is not None:
+                    task.name = f"scpump:{opname}"
+                yield from op
+        finally:
+            self._sc_pump_live = False
 
     # -- per-server ops ------------------------------------------------------
 
@@ -617,6 +962,14 @@ class ParamClient:
         server's exactly-once accounting."""
         return {str(s): self._seq.get((s, tags.GRAD), 0) for s in self.sranks}
 
+    def residual_norm(self) -> float:
+        """L2 norm of the error-feedback residuals across shards (0.0 for
+        residual-free codecs)."""
+        residuals = list(self._residual.values()) + list(self._sc_residual.values())
+        if not residuals:
+            return 0.0
+        return float(np.sqrt(sum(float(np.dot(r, r)) for r in residuals)))
+
     # -- public async API (reference pclient.lua:84-109) --------------------
 
     def _enqueue(self, srank: int, gen: Generator, name: str) -> None:
@@ -643,14 +996,30 @@ class ParamClient:
             self._pump_live[srank] = False
 
     def async_send_grad(self) -> None:
+        if self._sc:
+            for e in self.smap.entries:
+                self._sc_enqueue(self._sc_write_op(e.shard_id, tags.GRAD,
+                                                   tags.GRAD_ACK, "GRAD"),
+                                 "send_grad")
+            return
         for srank, shard in zip(self.sranks, self.shards):
             self._enqueue(srank, self._send_grad(srank, shard), "send_grad")
 
     def async_recv_param(self) -> None:
+        if self._sc:
+            for e in self.smap.entries:
+                self._sc_enqueue(self._sc_read_op(e.shard_id), "recv_param")
+            return
         for srank, shard in zip(self.sranks, self.shards):
             self._enqueue(srank, self._recv_param(srank, shard), "recv_param")
 
     def async_send_param(self) -> None:
+        if self._sc:
+            for e in self.smap.entries:
+                self._sc_enqueue(self._sc_write_op(e.shard_id, tags.PARAM_PUSH,
+                                                   tags.PARAM_PUSH_ACK, "PARAM_PUSH"),
+                                 "send_param")
+            return
         for srank, shard in zip(self.sranks, self.shards):
             self._enqueue(srank, self._send_param(srank, shard), "send_param")
 
@@ -658,6 +1027,7 @@ class ParamClient:
         """Single-step I/O progress to overlap with compute
         (reference pclient.lua:131-136)."""
         self._maybe_heartbeat()
+        self._sc_poll_map()
         self._drain_clock_echoes()
         for _ in range(n):
             self.sched.ping()
@@ -669,6 +1039,7 @@ class ParamClient:
             # get this client evicted.
             while self.sched.queue:
                 self._maybe_heartbeat()
+                self._sc_poll_map()
                 self._drain_clock_echoes()
                 self.sched.ping_pass()
             if self.sched.errors:
@@ -681,6 +1052,25 @@ class ParamClient:
     def stop(self) -> None:
         # Chained per server, so the stop cannot overtake in-flight ops
         # (the reference's drain-then-stop care, init.lua:50-58, README:71).
+        if self._sc:
+            # The global pump gives the same drain-then-stop order; the
+            # controller counts client STOPs too.  Membership may have
+            # changed since launch: STOP every server this incarnation
+            # greeted plus every current owner (a joiner waits for our STOP
+            # like a launch member), never a retired rank.
+            self._sc_poll_map()
+            owners = set(self.smap.owners()) if self.smap is not None else set()
+            stop_to = sorted((set(self._sc_greeted or self.sranks) | owners)
+                             - self._sc_retired) + (
+                [self.controller_rank] if self.controller_rank is not None else [])
+            for dst in stop_to:
+                self._sc_enqueue(aio_send(self.transport, tags.EMPTY, dst,
+                                          tags.STOP, live=self.live,
+                                          deadline=self._op_deadline()),
+                                 "send_stop")
+            self.wait()
+            self.live.stop()
+            return
         for srank in self.sranks:
             self._enqueue(srank, aio_send(self.transport, tags.EMPTY, srank,
                                           tags.STOP, live=self.live,

@@ -57,28 +57,55 @@ Observability (:mod:`mpit_tpu_torch.obs`), as the JAX server places it:
   evictions dump the flight recorder; with obs on the server registers a
   ``/status`` section.
 
+Shard control (:mod:`mpit_tpu_torch.shardctl`, INIT v4), the JAX
+server's own paths:
+
+- A versioned :class:`~mpit_tpu_torch.shardctl.shardmap.ShardMap` replaces
+  the single ``(offset, size)`` registration.  Each owned shard is a
+  :class:`~mpit_tpu_torch.shardctl.migrate.ShardSlot`: its own param and
+  rule-state tensors on the device (contiguous, aliased by no other slot),
+  its own dedup table and snapshot cache.  Ops carry the 32-byte
+  ``[epoch, seq, map_version, shard_id]`` header; a shard owned elsewhere
+  is answered ``NACK_MAP`` with this server's map, a frozen one ``BUSY``.
+  Under Adam each admitted GRAD is one K3 apply on the slot's tensors;
+  a DUP, BUSY or NACK_MAP reply launches nothing.
+- The controller's MAP_UPDATE directives run the live migration
+  (RELEASE: flip the map, freeze, serve one SHARD_PULL, ship the state;
+  ACQUIRE: pull and place it on this device), the failover (ADOPT from
+  ``shard<id>_latest.npz``) and the retirement (RETIRE: echo DONE, stop).
+  The server beats each slot's load (op and busy-second deltas) to the
+  controller.
+- Elastic membership: a joiner (``shardctl=True``) enters a live gang
+  with no INIT phase and gets its shards by ACQUIRE; ``admit_ranks`` may
+  announce themselves mid-run; a ``preempt`` notice checkpoints every slot
+  at once and reports PREEMPT to the controller.
+
 The wire is byte for byte the JAX package's, so a JAX client can drive
-this server and a port client a JAX server.  Chunked streaming (INIT v5),
-shard control (v4), serving readers and cells, elastic membership and the
-device data plane come with later slices: their announcements and
-constructor arguments raise ``NotImplementedError`` naming the slice.
+this server and a port client a JAX server, and a shard migrates between
+a JAX server and a port server either way.  Chunked streaming (INIT v5),
+serving readers and cells, and the device data plane come with later
+slices: their announcements and constructor arguments raise
+``NotImplementedError`` naming the slice.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Optional
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mpit_tpu_torch.aio import (
     EXEC,
+    DeadlineExceeded,
     LiveFlag,
     Scheduler,
     aio_recv,
     aio_send,
     aio_sleep,
+    deadline_at,
 )
 from mpit_tpu_torch.comm import codec as codec_mod
 from mpit_tpu_torch.comm.transport import Transport
@@ -113,15 +140,15 @@ from mpit_tpu_torch.obs.spans import get_recorder
 from mpit_tpu_torch.obs.statusd import register_provider as register_status_provider
 from mpit_tpu_torch.optim.rules import ShardRule, make as make_rule
 from mpit_tpu_torch.ps import tags
+from mpit_tpu_torch.shardctl import migrate as _scmigrate
+from mpit_tpu_torch.shardctl import wire as _scwire
+from mpit_tpu_torch.shardctl.migrate import ShardSlot
+from mpit_tpu_torch.shardctl.shardmap import ShardMap
 from mpit_tpu_torch.utils.logging import get_logger
 from mpit_tpu_torch.utils.platform import resolve_device
 
 #: What each refused constructor argument of the JAX server belongs to.
 LATER_SERVER_ARGS = {
-    "preempt": "elastic membership (slice 5, shardctl with elastic)",
-    "admit_ranks": "elastic membership (slice 5, shardctl with elastic)",
-    "controller_rank": "shard control (slice 5, shardctl)",
-    "shardctl": "shard control (slice 5, shardctl)",
     "reader_ranks": "the serving tier (slice 5, ps/serve)",
     "serve": "the serving tier (slice 5, ps/serve)",
     "cell_ranks": "serving cells (slice 5, cells)",
@@ -166,6 +193,15 @@ class ParamServer:
         ft: Optional[FTConfig] = None,
         ckpt_dir: Optional[str] = None,  # periodic shard checkpoints here
         ckpt_interval: float = 30.0,
+        controller_rank: Optional[int] = None,  # shard control's control plane
+        shardctl: bool = False,  # joiner mode: a controller-spawned server
+        #                          enters a shardctl gang mid-run — no INIT
+        #                          phase; clients greet lazily and shards
+        #                          arrive by ACQUIRE
+        admit_ranks: Optional[List[int]] = None,  # late-join candidates:
+        #                          client ranks that may INIT mid-run
+        preempt: Optional[Any] = None,  # ft.PreemptionNotice: checkpoint on
+        #                          notice + a PREEMPT report when it fires
         **later: Any,
     ):
         refuse_later("ParamServer", later, LATER_SERVER_ARGS)
@@ -227,6 +263,28 @@ class ParamServer:
         self._restored = False
         self._ckpt_dir = str(ckpt_dir) if ckpt_dir else None
         self._ckpt_interval = float(ckpt_interval)
+        # Shard control: a versioned map replaces the single (offset, size)
+        # registration; owned shards live in per-shard slots (param + rule
+        # state + shard-scoped dedup + snapshot cache) that migrate as a
+        # unit.  Activated by the first INIT v4 (or joiner mode); mixing v4
+        # and pre-v4 clients on one server is refused loudly.
+        self.controller_rank = controller_rank
+        self.smap: Optional[ShardMap] = None
+        self._slots: Dict[int, ShardSlot] = {}
+        self._sc = bool(shardctl)
+        self._sc_join = bool(shardctl)
+        self._sc_last_report: Dict[int, Tuple[int, float]] = {}
+        self._sc_beat_seq = 0
+        # Elastic membership: late-join candidates, the preemption notice
+        # to poll, and the retirement posture (``retired`` after start()).
+        self.admit_ranks = list(admit_ranks or [])
+        if set(self.admit_ranks) & set(self.cranks):
+            raise ValueError(
+                f"admit_ranks {sorted(set(self.admit_ranks) & set(self.cranks))}"
+                " overlap client_ranks — launch-time members need no admission")
+        self._preempt = preempt
+        self._preempt_handled = False
+        self.retired = False
         # Every protocol counter lives in a real registry (the global one
         # when obs is enabled, a private one otherwise: they are results
         # either way), read through the properties below; op processing
@@ -245,6 +303,17 @@ class ParamServer:
         self._m_snap_hits = _m.counter("mpit_ps_snapshot_hits_total", rank=_r)
         self._m_ckpts = _m.counter("mpit_ps_ckpts_written_total", rank=_r)
         self._m_evictions = _m.counter("mpit_ft_evictions_total", rank=_r)
+        self._m_sc_nacks = _m.counter("mpit_shardctl_nacks_sent_total", rank=_r)
+        self._m_sc_busy = _m.counter("mpit_shardctl_busy_replies_total", rank=_r)
+        self._m_sc_out = _m.counter("mpit_shardctl_migrations_total",
+                                    rank=_r, direction="out")
+        self._m_sc_in = _m.counter("mpit_shardctl_migrations_total",
+                                   rank=_r, direction="in")
+        self._m_sc_adopt = _m.counter("mpit_shardctl_adoptions_total", rank=_r)
+        self._m_admits = _m.counter("mpit_ps_admits_total", rank=_r)
+        self._m_preempt = _m.counter("mpit_ft_preempt_notices_total", rank=_r)
+        self._m_sc_ver = _m.gauge("mpit_shardctl_map_version", rank=_r)
+        self._m_sc_owned = _m.gauge("mpit_shardctl_owned_shards", rank=_r)
         # Flight recorder + live introspection: evictions dump the
         # recent-event ring; the status provider feeds /status.  Null or
         # absent when obs is disabled.
@@ -287,6 +356,9 @@ class ParamServer:
             "rank": self.rank,
             "shard": {"offset": self.offset, "size": self.size},
             "snap_version": self._snap_version,
+            "map_version": getattr(self.smap, "version", None),
+            "owned_shards": sorted(self._slots),
+            "retired": self.retired,
             "device": str(self.device),
             "clients": {
                 str(c): {
@@ -351,6 +423,16 @@ class ParamServer:
     def ckpts_written(self) -> int:
         return int(self._m_ckpts.value)
 
+    # -- shard control reads (tests / observability) --------------------------
+
+    @property
+    def owned_shards(self) -> List[int]:
+        """Shard ids this server currently holds (shard control)."""
+        return sorted(self._slots)
+
+    def shard_param(self, sid: int) -> torch.Tensor:
+        return self._slots[sid].param
+
     # -- codec + FT negotiation ---------------------------------------------
 
     def _negotiate(self, crank: int, payload: bytes) -> codec_mod.Codec:
@@ -361,10 +443,12 @@ class ParamServer:
         would corrupt parameters silently, and a flag of a later slice is
         refused, never masked off."""
         raw = np.frombuffer(payload, dtype=np.int64)
-        if raw.size >= 8 and int(raw[0]) == -1:
-            raise NotImplementedError(
-                f"client {crank} announced INIT v4 (shard control): slice 5 "
-                "(shardctl) of the port")
+        if raw.size >= 8 and int(raw[0]) == -1:  # INIT v4 (shard control)
+            return self._negotiate_v4(crank, raw)
+        if self._sc:
+            raise ValueError(
+                f"client {crank} announced a legacy INIT on a shardctl "
+                "server — a gang is shardctl everywhere or nowhere")
         epoch, flags = 0, 0
         if raw.size == 2:  # legacy 16-byte v1 announcement
             offset, size, wire_id = int(raw[0]), int(raw[1]), 0
@@ -416,6 +500,74 @@ class ParamServer:
         self.leases.arm(crank, epoch, heartbeats=self._hb[crank])
         return codec
 
+    def _negotiate_v4(self, crank: int, raw: np.ndarray) -> codec_mod.Codec:
+        """INIT v4: codec + FT posture + the versioned shard map.  The map
+        replaces the per-pair (offset, size); owned shards become slots.
+        Shard control implies framing — re-routable ops need the
+        retry/dedup identity under them."""
+        codec_id, epoch, flags, smap = _scwire.parse_init_v4(raw)
+        if not (flags & FLAG_FRAMED):
+            raise ValueError(
+                f"client {crank} announced shardctl without FLAG_FRAMED — "
+                "shardctl ops ride the framed retry machinery")
+        if self.offset != -1:
+            raise ValueError(
+                f"client {crank} announced shardctl but server {self.rank} "
+                "already holds a legacy (offset, size) registration")
+        codec = codec_mod.by_wire_id(codec_id)
+        if self._codec_pin is not None and codec.name != self._codec_pin:
+            raise ValueError(
+                f"codec negotiation mismatch: client {crank} announced "
+                f"{codec.name!r} but server {self.rank} is pinned to "
+                f"{self._codec_pin!r} — align MPIT_PS_CODEC (or the codec "
+                "config) across the gang")
+        self._sc = True
+        self._sc_install_map(smap)
+        # Slots are made only from the version-0 cut at boot (the seeder's
+        # pushes fill them).  A later map — a late client's stale announce,
+        # anything a joiner sees — never conjures a zeroed slot: mid-run
+        # slots arrive only through ACQUIRE/ADOPT with their real state.
+        if not self._sc_join and self.smap is not None and self.smap.version == 0:
+            for e in smap.shards_of(self.rank):
+                if e.shard_id not in self._slots:
+                    self._sc_make_slot(e.shard_id, e.shard)
+        self._framed[crank] = True
+        self._hb[crank] = bool(flags & FLAG_HEARTBEAT)
+        # The 32-byte shard-addressed header has no version or stamp slot:
+        # staleness and timing negotiate off under shard control.
+        self._stale_track[crank] = False
+        self._timing[crank] = False
+        self.leases.arm(crank, epoch, heartbeats=self._hb[crank])
+        return codec
+
+    def _sc_install_map(self, smap: ShardMap) -> None:
+        if self.smap is None or smap.version > self.smap.version:
+            self.smap = smap
+            self._m_sc_ver.set(smap.version)
+
+    def _sc_make_slot(self, sid: int, shard) -> ShardSlot:
+        """A boot-time slot: zeros of the shard's size on this device, with
+        fresh rule state (each slot owns contiguous storage of its own, so
+        K3 sweeps it whole)."""
+        slot = ShardSlot(sid, shard.offset, shard.size)
+        slot.param = torch.zeros(shard.size, dtype=torch.float32, device=self.device)
+        slot.rule_state = self.rule.init(slot.param)
+        self._slots[sid] = slot
+        self._m_sc_owned.set(len(self._slots))
+        return slot
+
+    def _sc_place(self, slot: ShardSlot) -> ShardSlot:
+        """Move a migrated or restored slot's host arrays onto this device,
+        in fresh storage (never a view of a receive or load buffer).  An
+        empty rule state (a stateless rule's shard) gets this rule's
+        init."""
+        slot.param = self._owned(slot.param)
+        if slot.rule_state:
+            slot.rule_state = {k: self._owned(v) for k, v in slot.rule_state.items()}
+        else:
+            slot.rule_state = self.rule.init(slot.param)
+        return slot
+
     def _hdr_for(self, crank: int) -> int:
         """Header size of this client's data frames (GRAD/PARAM_PUSH)."""
         if not self._framed.get(crank):
@@ -444,6 +596,15 @@ class ParamServer:
         """(Re)allocate every per-client staging buffer for the client's
         negotiated codec + framing — initial INIT and rejoin both land
         here, so a rejoining incarnation may change codec freely."""
+        if self._sc:
+            # Shard-control frames are shard-addressed and sized per shard,
+            # so the data paths receive by allocation; the only fixed-size
+            # staging is the 32-byte PARAM_REQ header.
+            self._codecs[crank] = codec
+            self._req_buf[crank] = np.zeros(4, np.int64)
+            if self._hb.get(crank):
+                self._hb_buf[crank] = np.zeros(2, np.int64)
+            return
         hdr = self._hdr_for(crank)
         self._codecs[crank] = codec
         self._push_bufs.pop(crank, None)
@@ -488,7 +649,13 @@ class ParamServer:
     def _on_device(self, arr: np.ndarray) -> torch.Tensor:
         """An owned copy of host memory on the shard's device.  The copy
         is complete when this returns, so the next frame may land in the
-        staging buffer: never apply from a live view of it."""
+        staging buffer: never apply from a live view of it.  ``arr`` may
+        be a read-only view of a received frame (shard control receives by
+        allocation); it is only read, never written through."""
+        if not arr.flags.writeable:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                return torch.from_numpy(arr).to(self.device, copy=True)
         return torch.from_numpy(arr).to(self.device, copy=True)
 
     def _committed(self) -> None:
@@ -813,6 +980,437 @@ class ParamServer:
                                     abort=self._svc_abort(crank, gen))
             span.end("applied")
 
+    # -- shard-control services: shard-addressed ops over the versioned map --
+
+    def _sc_verdict(self, sid: int) -> int:
+        """Route an op addressing shard ``sid``: OK to serve, NACK_MAP when
+        the map says someone else owns it (the reply carries our newer
+        map), BUSY while its state is frozen or in flight to us."""
+        try:
+            owner = self.smap.owner(sid) if self.smap is not None else -1
+        except KeyError:
+            owner = -1
+        if owner != self.rank:
+            return _scwire.NACK_MAP
+        slot = self._slots.get(sid)
+        if slot is None or slot.frozen:
+            return _scwire.BUSY
+        return _scwire.OK
+
+    def _sc_ops_counter(self, sid: int):
+        return self.metrics.counter("mpit_shardctl_shard_ops_total",
+                                    rank=self.rank, shard=sid)
+
+    def _sc_busy_timer(self, sid: int):
+        """Busy-seconds timer for one slot: dedup, apply and the ack, with
+        cooperative suspensions — the time the shard's service occupied,
+        which is what the rebalance policy weighs."""
+        return self.metrics.timer("mpit_shardctl_shard_busy_seconds",
+                                  rank=self.rank, shard=sid)
+
+    def _sc_refuse(self, crank: int, gen: int, reply_tag: int, verdict: int,
+                   epoch: int, seq: int, sid: int, span, mark: str):
+        """Answer NACK_MAP or BUSY with this server's map (no apply)."""
+        (self._m_sc_nacks if verdict == _scwire.NACK_MAP else self._m_sc_busy).inc()
+        span.mark(mark)
+        yield from aio_send(
+            self.transport,
+            _scwire.reply_frame(epoch, seq, verdict, sid, body=self.smap.to_wire()),
+            crank, reply_tag, live=self.live, abort=self._svc_abort(crank, gen))
+        span.end("nack" if verdict == _scwire.NACK_MAP else "busy")
+
+    def _sc_ok(self, crank: int, gen: int, reply_tag: int, epoch: int,
+               seq: int, sid: int):
+        yield from aio_send(
+            self.transport, _scwire.reply_frame(epoch, seq, _scwire.OK, sid),
+            crank, reply_tag, live=self.live, abort=self._svc_abort(crank, gen))
+
+    def _sc_recv_grad(self, crank: int, gen: int = 0):
+        """Shard-control GRAD loop: receive the shard-addressed frame by
+        allocation, route by map, dedup on the *slot's* table (it migrates
+        with the shard, so at-most-once holds across owners), copy the
+        body to the device, decode there and apply the rule to the slot's
+        tensors in place (K3 under Adam), status-ack."""
+        codec = self._codecs.get(crank)
+        if codec is None:
+            return
+        while self.live.on:
+            raw = yield from aio_recv(self.transport, crank, tags.GRAD,
+                                      live=self.live,
+                                      abort=self._svc_abort(crank, gen))
+            if raw is None:
+                return
+            buf = np.frombuffer(raw, np.uint8)
+            epoch, seq, _mapver, sid = _scwire.unpack_sc_header(buf)
+            span = self._spans.op("GRAD", peer=crank, side="server", rank=self.rank)
+            span.note(epoch=epoch, seq=seq, shard=sid)
+            self.leases.renew(crank, epoch)
+            verdict = self._sc_verdict(sid)
+            if verdict != _scwire.OK:
+                yield from self._sc_refuse(crank, gen, tags.GRAD_ACK, verdict,
+                                           epoch, seq, sid, span, "ack")
+                continue
+            slot = self._slots[sid]
+            with self._sc_busy_timer(sid):
+                admitted = slot.dedup.admit(crank, tags.GRAD, epoch, seq)
+                if admitted == STALE:
+                    self._m_stale.inc()
+                    span.end("stale")
+                    continue
+                if admitted == DUP:
+                    self._m_dups.inc()
+                    span.mark("ack")
+                    yield from self._sc_ok(crank, gen, tags.GRAD_ACK, epoch, seq, sid)
+                    span.end("dup")
+                    continue
+                span.mark("apply")
+                body = buf[_scwire.SC_HDR_BYTES:]
+                grad = codec.decode_parts(
+                    [self._on_device(v) for v in codec.split_wire(body, slot.size)],
+                    slot.size)
+                slot.param, slot.rule_state = self.rule.apply(
+                    slot.param, grad, slot.rule_state)
+                slot.committed()
+                slot.grads_applied += 1
+                self._m_grads.inc()
+                self._sc_ops_counter(sid).inc()
+                seen = self.admitted.setdefault((crank, epoch), [seq, seq, 0])
+                seen[0], seen[1] = min(seen[0], seq), max(seen[1], seq)
+                seen[2] += 1
+                if not self.live.on:
+                    span.end("aborted")
+                    continue
+                span.mark("ack")
+                yield from self._sc_ok(crank, gen, tags.GRAD_ACK, epoch, seq, sid)
+            span.end("applied")
+
+    def _sc_send_param(self, crank: int, gen: int = 0):
+        """Shard-control read loop: the fixed 32-byte PARAM_REQ header in,
+        the slot's cached snapshot frame (or a NACK/BUSY status) out."""
+        codec = self._codecs.get(crank)
+        if codec is None:
+            return
+        req = self._req_buf[crank]
+        while self.live.on:
+            got = yield from aio_recv(self.transport, crank, tags.PARAM_REQ,
+                                      live=self.live, out=req,
+                                      abort=self._svc_abort(crank, gen))
+            if got is None:
+                return
+            if not self.live.io:
+                continue
+            epoch, seq, _mapver, sid = (int(x) for x in req)
+            span = self._spans.op("PARAM", peer=crank, side="server", rank=self.rank)
+            span.note(epoch=epoch, seq=seq, shard=sid)
+            if epoch < self.leases.epoch(crank):
+                self._m_stale.inc()  # a dead incarnation's request
+                span.end("stale")
+                continue
+            self.leases.renew(crank, epoch)
+            verdict = self._sc_verdict(sid)
+            if verdict != _scwire.OK:
+                yield from self._sc_refuse(crank, gen, tags.PARAM, verdict,
+                                           epoch, seq, sid, span, "send")
+                continue
+            slot = self._slots[sid]
+            with self._sc_busy_timer(sid):
+                span.mark("snapshot")
+                frame, hit = slot.snapshot_wire(codec)
+                (self._m_snap_hits if hit else self._m_snap_copies).inc()
+                reply = _scwire.reply_frame(epoch, seq, _scwire.OK, sid, body=frame)
+                span.mark("send")
+                yield from aio_send(self.transport, reply, crank, tags.PARAM,
+                                    live=self.live, abort=self._svc_abort(crank, gen))
+                self._m_served.inc()
+                self._sc_ops_counter(sid).inc()
+            span.end("served")
+
+    def _sc_recv_push(self, crank: int, gen: int = 0):
+        """Shard-control PARAM_PUSH loop (seeding and whole-shard writes):
+        dedup-admitted per slot, decoded on the host, one copy to the
+        device per write."""
+        codec = self._codecs.get(crank)
+        if codec is None:
+            return
+        while self.live.on:
+            raw = yield from aio_recv(self.transport, crank, tags.PARAM_PUSH,
+                                      live=self.live,
+                                      abort=self._svc_abort(crank, gen))
+            if raw is None:
+                return
+            buf = np.frombuffer(raw, np.uint8)
+            epoch, seq, _mapver, sid = _scwire.unpack_sc_header(buf)
+            span = self._spans.op("PARAM_PUSH", peer=crank, side="server",
+                                  rank=self.rank)
+            span.note(epoch=epoch, seq=seq, shard=sid)
+            self.leases.renew(crank, epoch)
+            verdict = self._sc_verdict(sid)
+            if verdict != _scwire.OK:
+                yield from self._sc_refuse(crank, gen, tags.PARAM_PUSH_ACK,
+                                           verdict, epoch, seq, sid, span, "ack")
+                continue
+            slot = self._slots[sid]
+            with self._sc_busy_timer(sid):
+                admitted = slot.dedup.admit(crank, tags.PARAM_PUSH, epoch, seq)
+                if admitted == STALE:
+                    self._m_stale.inc()
+                    span.end("stale")
+                    continue
+                if admitted != DUP:
+                    span.mark("apply")
+                    body = buf[_scwire.SC_HDR_BYTES:]
+                    if codec.identity:
+                        host = body.view(np.float32)
+                    else:
+                        host = np.empty(slot.size, np.float32)
+                        codec.decode_into(body, host)
+                    slot.param.copy_(self._on_device(host))
+                    slot.committed()
+                    self._sc_ops_counter(sid).inc()
+                else:
+                    self._m_dups.inc()
+                span.mark("ack")
+                yield from self._sc_ok(crank, gen, tags.PARAM_PUSH_ACK, epoch, seq, sid)
+            span.end("dup" if admitted == DUP else "applied")
+
+    # -- shard-control plane: directives, migration, beats --------------------
+
+    def _sc_live_abort(self) -> Callable[[], bool]:
+        return lambda: not self.live.on
+
+    def _sc_map_listener(self):
+        """Perpetual MAP_UPDATE service (the controller's channel): INSTALL
+        adopts a map; RELEASE/ACQUIRE run the live migration; ADOPT restores
+        a dead peer's shard from its checkpoint; RETIRE ends this server."""
+        while self.live.on:
+            raw = yield from aio_recv(self.transport, self.controller_rank,
+                                      tags.MAP_UPDATE, live=self.live,
+                                      abort=self._sc_live_abort())
+            if raw is None:
+                return
+            kind, sid, peer, smap = _scwire.parse_map_update(bytes(raw))
+            if kind == _scwire.RELEASE:
+                yield from self._sc_release(sid, peer, smap)
+            elif kind == _scwire.ACQUIRE:
+                yield from self._sc_acquire(sid, peer, smap)
+            elif kind == _scwire.ADOPT:
+                yield from self._sc_adopt(sid, peer, smap)
+            elif kind == _scwire.RETIRE:
+                yield from self._sc_retire(smap)
+                return
+            else:  # INSTALL / RETIRED broadcasts: adopt the newer map
+                self._sc_install_map(smap)
+
+    def _sc_release(self, sid: int, dst: int, new_map: ShardMap):
+        """Source side of a live migration: flip to the new map first
+        (every later op for the shard drains via NACK_MAP), freeze the
+        slot, serve exactly one SHARD_PULL, ship the state, drop it.  The
+        state's device->host copy runs on this thread's stream, after the
+        slot's last apply (see :mod:`mpit_tpu_torch.shardctl.migrate`)."""
+        span = self._spans.op("MIGRATE", peer=dst, side="server", rank=self.rank)
+        span.note(shard=sid, direction="out")
+        slot = self._slots.get(sid)
+        if slot is None:
+            self.log.warning("RELEASE for shard %d but this server does not "
+                             "hold it (raced directive?) — ignoring", sid)
+            span.end("aborted")
+            return
+        self._sc_install_map(new_map)
+        slot.frozen = True
+        span.mark("freeze")
+        deadline = deadline_at(_scmigrate.SC_DEADLINE_S)
+        buf = np.zeros(1, np.int64)
+        got = yield from aio_recv(self.transport, dst, tags.SHARD_PULL,
+                                  live=self.live, out=buf, deadline=deadline)
+        if got is None:
+            span.end("aborted")
+            return
+        span.mark("snapshot")
+        msgs = _scmigrate.pack_shard_state(slot)
+        span.mark("send")
+        for msg in msgs:
+            yield from aio_send(self.transport, msg, dst, tags.SHARD_STATE,
+                                live=self.live, deadline=deadline)
+        del self._slots[sid]
+        self._m_sc_owned.set(len(self._slots))
+        self._m_sc_out.inc()
+        self.log.info("released shard %d to server %d (map v%d)",
+                      sid, dst, new_map.version)
+        span.end("released")
+
+    def _sc_acquire(self, sid: int, src: int, new_map: ShardMap):
+        """Destination side: adopt the map, pull the frozen state, place it
+        on this device, echo DONE to the controller."""
+        span = self._spans.op("MIGRATE", peer=src, side="server", rank=self.rank)
+        span.note(shard=sid, direction="in")
+        self._sc_install_map(new_map)
+        deadline = deadline_at(_scmigrate.SC_DEADLINE_S)
+        span.mark("pull")
+        yield from aio_send(self.transport, np.asarray([sid], np.int64), src,
+                            tags.SHARD_PULL, live=self.live, deadline=deadline)
+        slot = yield from _scmigrate.recv_shard_state(
+            self.transport, src, self.live, deadline=deadline)
+        if slot is None:
+            span.end("aborted")
+            return
+        span.mark("install")
+        self._slots[sid] = self._sc_place(slot)
+        self._m_sc_owned.set(len(self._slots))
+        self._m_sc_in.inc()
+        span.mark("ack")
+        yield from aio_send(
+            self.transport, _scwire.map_update(_scwire.DONE, sid, self.rank, self.smap),
+            self.controller_rank, tags.MAP_UPDATE, live=self.live, deadline=deadline)
+        self.log.info("acquired shard %d from server %d (map v%d)",
+                      sid, src, new_map.version)
+        span.end("acquired")
+
+    def _sc_adopt(self, sid: int, dead: int, new_map: ShardMap):
+        """Failover: the previous owner is gone — restore the shard from
+        its latest checkpoint (``shard<id>_latest.npz``, of either package)
+        and serve it.  Ops the dead server applied and checkpointed dedup
+        as DUP; ops after its last checkpoint are still unacked by the
+        clients and apply exactly once here."""
+        span = self._spans.op("MIGRATE", peer=dead, side="server", rank=self.rank)
+        span.note(shard=sid, direction="adopt")
+        self._sc_install_map(new_map)
+        if not self._ckpt_dir:
+            span.end("exhausted")
+            raise RuntimeError(
+                f"ADOPT shard {sid}: server {self.rank} has no ckpt_dir — "
+                "failover needs shard checkpoints")
+        span.mark("restore")
+        slot = _scmigrate.load_shard_state(self._ckpt_dir, sid)
+        self._slots[sid] = self._sc_place(slot)
+        self._m_sc_owned.set(len(self._slots))
+        self._m_sc_adopt.inc()
+        span.mark("ack")
+        yield from aio_send(
+            self.transport, _scwire.map_update(_scwire.DONE, sid, self.rank, self.smap),
+            self.controller_rank, tags.MAP_UPDATE, live=self.live,
+            deadline=deadline_at(_scmigrate.SC_DEADLINE_S))
+        self.log.warning("adopted shard %d from dead server %d (map v%d)",
+                         sid, dead, new_map.version)
+        span.end("adopted")
+
+    def _sc_retire(self, new_map: ShardMap):
+        """RETIRE: the controller drained every shard off this rank first,
+        so holding a slot here is a protocol violation — fail loudly rather
+        than drop state.  Echo DONE (shard -1) as the goodbye receipt, then
+        stop: start() returns normally."""
+        span = self._spans.op("RETIRE", peer=self.controller_rank,
+                              side="server", rank=self.rank)
+        self._sc_install_map(new_map)
+        if self._slots:
+            span.end("exhausted")
+            raise RuntimeError(
+                f"RETIRE directive while still owning shards "
+                f"{sorted(self._slots)} — the controller must drain "
+                "before retiring")
+        span.mark("ack")
+        yield from aio_send(
+            self.transport, _scwire.map_update(_scwire.DONE, -1, self.rank, self.smap),
+            self.controller_rank, tags.MAP_UPDATE, live=self.live,
+            deadline=deadline_at(_scmigrate.SC_DEADLINE_S))
+        self.retired = True
+        self.log.info("retired: drained, goodbye sent (map v%d)", self.smap.version)
+        span.end("retired")
+        self.live.stop()
+
+    def _admit_listener(self, crank: int):
+        """Perpetual late-join listener: ``crank`` was not a launch-time
+        client but may announce itself mid-run.  INIT v3/v4 is the whole
+        admission handshake, like a rejoin except that the first arrival
+        also registers the rank with the lease and stop machinery."""
+        first = True
+        while self.live.on:
+            payload = yield from aio_recv(self.transport, crank, tags.INIT,
+                                          live=self.live,
+                                          abort=self._sc_live_abort())
+            if payload is None:
+                return
+            if first:
+                # Register before negotiating: a failure names a known
+                # member, and the stop protocol counts it from now on.
+                self.cranks.append(crank)
+                self.leases.admit(crank)
+                self._gen.setdefault(crank, 0)
+                self._svc_live.setdefault(crank, 0)
+            codec = self._negotiate(crank, payload)
+            if first:
+                first = False
+                self._m_admits.inc()
+                self.log.info("admitted late client %d (epoch %d)",
+                              crank, self.leases.epoch(crank))
+            else:
+                self._m_rejoins.inc()
+            self._gen[crank] += 1
+            self.leases.rejoin(crank, self.leases.epoch(crank))
+            self.leases.arm(crank, self.leases.epoch(crank),
+                            heartbeats=self._hb.get(crank, False))
+            self._alloc_client(crank, codec)
+            while self._svc_live[crank] > 0:
+                yield EXEC
+            self._spawn_services(crank)
+
+    def _check_preemption(self) -> None:
+        """Checkpoint on notice, from the serving loop's safe point (between
+        scheduler passes: no grad is mid-apply).  One shot: a stamped
+        atomic publish of every owned shard, then a PREEMPT report so the
+        controller can decide whether the grace window is worth a drain.
+        The signal handler only set a flag."""
+        notice = self._preempt
+        if notice is None or not notice.poll() or self._preempt_handled:
+            return
+        self._preempt_handled = True
+        self._m_preempt.inc()
+        self.log.warning(
+            "preemption notice: %.1fs grace — checkpointing %s now",
+            notice.grace_s,
+            f"shards {sorted(self._slots)}" if self._sc else "shard")
+        if self._ckpt_dir and (self.param is not None or self._slots):
+            self._checkpoint()
+        self._flight.record("preemption", rank=self.rank, grace_s=notice.grace_s)
+        self._flight.dump("preemption", rank=self.rank)
+        if self._sc and self.controller_rank is not None and self.smap is not None:
+            self.sched.spawn(self._send_preempt_notice(notice.grace_ms),
+                             name="preempt_notice")
+
+    def _send_preempt_notice(self, grace_ms: int):
+        try:
+            yield from aio_send(
+                self.transport,
+                _scwire.map_update(_scwire.PREEMPT, grace_ms, self.rank, self.smap),
+                self.controller_rank, tags.MAP_UPDATE, live=self.live,
+                deadline=deadline_at(_scmigrate.SC_DEADLINE_S))
+        except DeadlineExceeded:
+            pass  # the controller is gone too; the checkpoint already landed
+
+    def _sc_beat(self):
+        """Beat to the controller: liveness plus the per-shard load report
+        (op and busy-second deltas from this server's obs instruments)
+        that the rebalance policy consumes."""
+        interval = self.ft.heartbeat_s if self.ft.heartbeat_s > 0 else 0.1
+        while self.live.on:
+            if not (yield from aio_sleep(interval, live=self.live)):
+                return
+            self._sc_beat_seq += 1
+            words = [self.ft.epoch, self._sc_beat_seq, len(self._slots)]
+            for sid in sorted(self._slots):
+                ops = int(self._sc_ops_counter(sid).value)
+                busy = float(self.metrics.histogram(
+                    "mpit_shardctl_shard_busy_seconds",
+                    rank=self.rank, shard=sid).total)
+                last_ops, last_busy = self._sc_last_report.get(sid, (0, 0.0))
+                words += [sid, ops - last_ops, int((busy - last_busy) * 1e6)]
+                self._sc_last_report[sid] = (ops, busy)
+            try:
+                yield from aio_send(self.transport, np.asarray(words, np.int64),
+                                    self.controller_rank, tags.HEARTBEAT,
+                                    live=self.live, deadline=deadline_at(4 * interval))
+            except DeadlineExceeded:
+                pass  # best-effort; the next beat tries again
+
     def _recv_heartbeat(self, crank: int, gen: int = 0):
         """Loop: consume HEARTBEAT beacons, renew the client's lease
         (current-epoch beats only — a dead incarnation's leftovers must
@@ -909,6 +1507,17 @@ class ParamServer:
         cache's: one device->host copy per version, whoever asks."""
         from mpit_tpu_torch.utils.checkpoint import save_server_state
 
+        if self._sc:
+            # Shard-oriented checkpoints: one shard<id>_latest.npz per owned
+            # slot, so a failover ADOPTs by shard id whoever wrote it.
+            if not self._slots:
+                raise RuntimeError(
+                    "server owns no shards to checkpoint (init not run, or "
+                    "every slot migrated away)")
+            path = ""
+            for _sid, slot in sorted(self._slots.items()):
+                path = str(_scmigrate.save_shard_state(directory, slot, self.rank))
+            return path
         if self.param is None:
             raise RuntimeError("server holds no shard yet (init not run)")
         return str(save_server_state(
@@ -989,11 +1598,14 @@ class ParamServer:
         next_save = time.monotonic() + self._ckpt_interval
         while self.sched.queue:
             self.sched.ping_pass()
+            self._check_preemption()
             if time.monotonic() >= next_save:
-                if self.param is not None:
+                # A joiner that holds no shard yet (or a drained rank
+                # awaiting RETIRE) has nothing to cut.
+                if self.param is not None or self._slots:
                     self._checkpoint()
                 next_save = time.monotonic() + self._ckpt_interval
-        if self.param is not None:
+        if self.param is not None or self._slots:
             self._checkpoint()  # final state at stop
         if self.sched.errors:
             raise self.sched.errors.pop(0)
@@ -1006,6 +1618,17 @@ class ParamServer:
         gen = self._gen[crank]
         self.sched.spawn(self._svc(crank, gen, self._recv_stop),
                          name=f"recv_stop:{crank}.g{gen}")
+        if self._sc:
+            self.sched.spawn(self._svc(crank, gen, self._sc_recv_grad),
+                             name=f"recv_grad:{crank}.g{gen}")
+            self.sched.spawn(self._svc(crank, gen, self._sc_send_param),
+                             name=f"send_param:{crank}.g{gen}")
+            self.sched.spawn(self._svc(crank, gen, self._sc_recv_push),
+                             name=f"recv_param:{crank}.g{gen}")
+            if self._hb.get(crank):
+                self.sched.spawn(self._svc(crank, gen, self._recv_heartbeat),
+                                 name=f"recv_heartbeat:{crank}.g{gen}")
+            return
         self.sched.spawn(self._svc(crank, gen, self._recv_grad),
                          name=f"recv_grad:{crank}.g{gen}")
         self.sched.spawn(self._svc(crank, gen, self._send_param),
@@ -1026,8 +1649,51 @@ class ParamServer:
                           warn_unexpected=self._restored),
                 name=f"recv_param:{crank}.g{gen}")
 
+    def _drive(self) -> None:
+        """Run the service queue to completion through the loop this
+        server's posture needs (checkpoints and/or preemption polling)."""
+        if self._ckpt_dir:
+            self._serve_with_checkpoints()
+        elif self._preempt is not None:
+            while self.sched.queue:
+                self.sched.ping_pass()
+                self._check_preemption()
+            if self.sched.errors:
+                raise self.sched.errors.pop(0)
+        else:
+            self.sched.wait()
+
+    def _start_joiner(self) -> None:
+        """A joiner, spawned into a live shard-control gang by the
+        controller: no INIT rendezvous (nobody owes it one).  Every client
+        gets a stop listener (STOPs fan out to every owner at the end) and
+        an INIT listener (clients greet lazily before their first op to
+        it); shards arrive by ACQUIRE; beats start at once so the
+        controller's scale-up sees the lease arm."""
+        if self.controller_rank is None:
+            raise ValueError("a joiner server needs controller_rank — it "
+                             "exists only under a control plane")
+        for crank in self.cranks:
+            self.sched.spawn(self._svc(crank, 0, self._recv_stop),
+                             name=f"recv_stop:{crank}.g0")
+            self.sched.spawn(self._init_listener(crank),
+                             name=f"init_listener:{crank}")
+        for crank in self.admit_ranks:
+            self.sched.spawn(self._admit_listener(crank),
+                             name=f"admit_listener:{crank}")
+        if self.ft.lease_ttl_s > 0:
+            self.sched.spawn(self._lease_reaper(), name="lease_reaper")
+        self.sched.spawn(self._sc_map_listener(), name="sc_map_listener")
+        self.sched.spawn(self._sc_beat(), name="sc_beat")
+        self.serving_since = time.time()
+        self._drive()
+
     def start(self) -> None:
-        """Run the server to completion (returns after the stop protocol)."""
+        """Run the server to completion (returns after the stop protocol,
+        or after a RETIRE)."""
+        if self._sc_join:
+            self._start_joiner()
+            return
         # Phase 1: shard announcements from every client (skipped for
         # clients restored from an FT checkpoint — their negotiation is
         # already in hand and no fresh INIT is coming).
@@ -1040,7 +1706,9 @@ class ParamServer:
         # & only once, reference README:64-67) — skipped on resume, where
         # the checkpoint already seeded the shard.
         seeder = self.cranks[0]
-        if not self._restored:
+        if self._sc:
+            pass  # shard control: seeding arrives as ordinary dedup'd pushes
+        elif not self._restored:
             self.sched.spawn(self._svc(seeder, 0, self._recv_param, once=True),
                              name="seed_param")
             self.sched.wait()
@@ -1062,12 +1730,15 @@ class ParamServer:
             for crank in self.cranks:
                 self.sched.spawn(self._init_listener(crank),
                                  name=f"init_listener:{crank}")
+        for crank in self.admit_ranks:
+            self.sched.spawn(self._admit_listener(crank),
+                             name=f"admit_listener:{crank}")
         if self.ft.lease_ttl_s > 0:
             self.sched.spawn(self._lease_reaper(), name="lease_reaper")
-        if self._ckpt_dir:
-            self._serve_with_checkpoints()
-        else:
-            self.sched.wait()
+        if self._sc and self.controller_rank is not None:
+            self.sched.spawn(self._sc_map_listener(), name="sc_map_listener")
+            self.sched.spawn(self._sc_beat(), name="sc_beat")
+        self._drive()
         self.log.debug("stopped: %d grads applied, %d params served, %d dups, "
                        "%d stale drops", self.grads_applied, self.params_served,
                        self.dup_ops, self.stale_drops)

@@ -1,10 +1,10 @@
 """Wire-protocol tags (analog of reference asyncsgd/init.lua:3-10).
 
 A copy of the tags of ``mpit_tpu/ps/tags.py`` that the port speaks: the
-eight of the unframed wire, the fault-tolerance beacon (9) and the causal
-timing echo (13).  The tags of shard control (10-12), cells (14-15) and
-aggregation (16-17) come with their slices.  The port imports nothing of the JAX
-package.
+eight of the unframed wire, the fault-tolerance beacon (9), shard control's
+directives and handoff (10-12) and the causal timing echo (13).  The tags of
+cells (14-15) and aggregation (16-17) come with their slices.  The port
+imports nothing of the JAX package.
 
 Eight channels, renamed by direction and purpose rather than the
 reference's server-perspective naming.  0-byte messages serve as the
@@ -20,8 +20,9 @@ INIT = 1  # client -> server: int64 shard announcement.  Three wire
 #           v3 (40 B) [offset, size, codec_id, epoch, flags] — epoch is
 #           the client incarnation number (bumped on restart/rejoin) and
 #           flags bit0 enables FT frame headers (mpit_tpu_torch/ft/wire.py).
-#           v4 (shard control) and v5 (chunked streaming) are refused by
-#           this port's server until their slices land.
+#           v4 (shard control) is [-1, codec_id, epoch, flags, <map>]
+#           (mpit_tpu_torch/shardctl/wire.py); v5 (chunked streaming) is
+#           refused by this port's server until its slice lands.
 GRAD = 2  # client -> server: gradient/delta frame for the shard, in the
 #           negotiated codec's wire format (raw dtype bytes for 'none');
 #           FT-framed clients prepend an int64 [epoch, seq] header
@@ -39,7 +40,17 @@ STOP = 8  # client -> server: 0-byte graceful-shutdown signal
 HEARTBEAT = 9  # client -> server: int64 [epoch, seq] liveness beacon; the
 #                server's lease registry (mpit_tpu_torch/ft/leases.py)
 #                renews the client's lease on every beat and evicts on
-#                expiry.
+#                expiry.  Under shard control, servers also beat to the
+#                controller with a per-shard load report appended.
+MAP_UPDATE = 10  # controller -> server/client (and server -> controller
+#                  as the DONE echo): a shard-map directive
+#                  [kind, shard_id, peer] + serialized ShardMap
+#                  (mpit_tpu_torch/shardctl/wire.py)
+SHARD_PULL = 11  # server(dst) -> server(src): int64 [shard_id] — "I was
+#                  directed to acquire this shard; send its state"
+SHARD_STATE = 12  # server(src) -> server(dst): the frozen shard's full
+#                   state (meta json + param bytes + rule-state arrays),
+#                   a multi-message sequence on this one FIFO channel
 HEARTBEAT_ECHO = 13  # server -> client: int64 [epoch, seq, t_tx_echo,
 #                      t_recv, t_ack] — the FLAG_TIMING reply to a timed
 #                      HEARTBEAT beacon.  Not an ack: heartbeats stay
@@ -49,3 +60,21 @@ HEARTBEAT_ECHO = 13  # server -> client: int64 [epoch, seq, t_tx_echo,
 #                      nothing.
 
 EMPTY = b""  # the canonical 0-byte payload
+
+# Protocol pairing table: every tag above names its sender and receiver
+# roles (the JAX package's rows for the tags the port speaks).
+TAG_PAIRS = {
+    "INIT": ("client", "server"),
+    "GRAD": ("client", "server"),
+    "GRAD_ACK": ("server", "client"),
+    "PARAM_REQ": ("client", "server"),
+    "PARAM": ("server", "client"),
+    "PARAM_PUSH": ("client", "server"),
+    "PARAM_PUSH_ACK": ("server", "client"),
+    "STOP": ("client", "server|controller"),
+    "HEARTBEAT": ("client|server", "server|controller"),
+    "MAP_UPDATE": ("controller|server", "server|client|controller"),
+    "SHARD_PULL": ("server", "server"),
+    "SHARD_STATE": ("server", "server"),
+    "HEARTBEAT_ECHO": ("server", "client"),
+}

@@ -75,8 +75,9 @@ def child_transport(cfg: Config, rank: int, size: int):
     rank, the hostfile-deployment analog).
 
     A worker the supervisor restarted (``MPIT_FT_REJOIN``) dials only its
-    servers over TCP; its other peers reach it through the transport's
-    reconnect service.
+    servers over TCP, and an elastic gang's ranks dial only the peers that
+    are up (a spare slot the stamped live set); the others reach them
+    through the transport's reconnect service.
 
     Every gang synchronizes on a startup barrier
     (:class:`mpit_tpu_torch.comm.collectives.HostCollectives`) before any
@@ -93,7 +94,22 @@ def child_transport(cfg: Config, rank: int, size: int):
         from mpit_tpu_torch.train.launch import assign_roles, rejoining
 
         dial_peers = None
-        if rejoining():
+        reconnect = None
+        if bool(cfg.get("elastic", False)):
+            # Elastic gangs: the rendezvous never waits on a spare slot that
+            # has not spawned.  Initial members dial only lower initial
+            # ranks; a controller-spawned joiner dials exactly the live set
+            # the controller stamped into its spawn request
+            # (MPIT_ELASTIC_DIAL).  Later arrivals come in through the
+            # transport's accept service, so reconnect mode is on.
+            np0 = int(cfg.get("elastic_np0", 0) or 0) or size
+            dial_env = os.environ.get("MPIT_ELASTIC_DIAL", "")
+            if dial_env:
+                dial_peers = [int(x) for x in dial_env.split(",") if x]
+            else:
+                dial_peers = list(range(min(rank, np0)))
+            reconnect = float(os.environ.get("MPIT_TCP_RECONNECT_S", "60"))
+        elif rejoining():
             # A supervisor-restarted worker joins a mid-run gang: only its
             # servers must be reachable — a sibling worker that already
             # finished and exited is not a failure (PS traffic is
@@ -102,7 +118,8 @@ def child_transport(cfg: Config, rank: int, size: int):
                 size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
             if rank not in sranks:
                 dial_peers = [r for r in sranks if r < rank]
-        transport = TcpTransport(rank, size, addrs, dial_peers=dial_peers)
+        transport = TcpTransport(rank, size, addrs, dial_peers=dial_peers,
+                                 reconnect=reconnect)
     else:
         from mpit_tpu_torch.comm.shm import ShmTransport
 

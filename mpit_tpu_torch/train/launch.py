@@ -37,9 +37,22 @@ analyze|profile|validate path``); ``MPIT_OBS_PROFILE=1`` adds the CPU
 profile; ``MPIT_OBS_HTTP=<base port>`` serves each rank's ``/metrics``,
 ``/status`` and ``/trace`` on base + rank.
 
-The layers of later slices (readers, cells, shard control, elastic
-membership, chunked streaming, the LM, aggregation, the device data plane)
-raise ``NotImplementedError`` naming their slice.
+Shard control (:mod:`mpit_tpu_torch.shardctl`): ``--shardctl 1`` makes the
+last rank the shard-map controller (the rest split into servers and
+workers as usual); clients address shards of a versioned map, and the
+controller rebalances hot shards (``--shardctl_ratio``) and fails a dead
+server's shards over from their checkpoints (``--shardctl_lease_ttl_s``).
+``--elastic 1`` composes shard control with the supervisor: the rank space
+is ``--np`` plus ``--elastic_spares`` joiner-server slots that spawn only
+when the controller asks (a scale-up through its ``/scale`` route or the
+autoscaler), servers checkpoint on a SIGTERM notice and report it, and the
+first cut makes ``--elastic_shards_per_server`` shards per server.
+``--autoscale 1`` adds the SLO-driven loop on the controller
+(``--autoscale_p99_ms`` and the other targets; needs ``MPIT_OBS_HTTP``).
+
+The layers of later slices (readers, cells, chunked streaming, the LM,
+aggregation, the device data plane) raise ``NotImplementedError`` naming
+their slice.
 
 Usage:
     python -m mpit_tpu_torch.train.launch --np 1 --opt msgd
@@ -55,6 +68,13 @@ Usage:
         --side 8 --epochs 2 --transport tcp --ft_heartbeat_s 0.25 \\
         --ft_lease_ttl_s 20 --ft_op_deadline_s 5 --supervise 2 \\
         --server_ckpt_dir /tmp/ckpt --server_ckpt_interval 2
+    # shard control, then an elastic gang with a spare server slot (TCP):
+    python -m mpit_tpu_torch.train.launch --np 5 --opt adam --device cpu \
+        --side 8 --epochs 1 --shardctl 1 --ft_op_deadline_s 5
+    python -m mpit_tpu_torch.train.launch --np 5 --opt adam --device cpu \
+        --side 8 --epochs 50 --elastic 1 --elastic_spares 1 --supervise 1 \
+        --transport tcp --tcp_addrs h:p,h:p,h:p,h:p,h:p,h:p \
+        --ft_op_deadline_s 5 --ft_heartbeat_s 0.25 --server_ckpt_dir /tmp/e
     # the reference's config 3 on the card:
     python -m mpit_tpu_torch.train.launch --np 12 --opt eamsgd --su 10 \\
         --mom 0.99 --mva 0.15 --epochs 2 --model cnn
@@ -131,12 +151,43 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     # estimator (needs ft_op_deadline_s > 0).
     ft_timing=False,
     supervise=0,
+    # Shard control: the LAST rank becomes the shard-map controller,
+    # clients address shards through a versioned map, and the controller
+    # rebalances hot shards and fails a dead server's shards over from
+    # their checkpoints.  Needs ft_op_deadline_s > 0 (re-routing rides the
+    # retry machinery).  shardctl_ratio tunes the rebalance trigger;
+    # shardctl_lease_ttl_s > 0 arms server leases at the controller
+    # (expiry => failover; pair with server_ckpt_dir).
+    shardctl=False,
+    shardctl_ratio=3.0,
+    shardctl_lease_ttl_s=0.0,
+    # Elastic gangs: shard control + the supervisor + the scale mailbox.
+    # elastic_spares joiner-server slots beyond --np spawn only on the
+    # controller's request; servers checkpoint on a SIGTERM notice
+    # (elastic_grace_s is the window they announce); the first cut makes
+    # elastic_shards_per_server shards per launch server.  Needs
+    # supervise >= 1, ft_op_deadline_s > 0 and server_ckpt_dir.
+    elastic=False,
+    elastic_spares=1,
+    elastic_grace_s=5.0,
+    elastic_shards_per_server=2,
+    # Closed-loop autoscaling: implies --elastic; the controller samples
+    # the gang through every rank's statusd endpoint (MPIT_OBS_HTTP) and
+    # drives the scale verbs against these SLO targets (0 = off).
+    autoscale=False,
+    autoscale_p99_ms=0.0,
+    autoscale_busy_ratio=0.0,
+    autoscale_staleness=0.0,
+    autoscale_sendq=0.0,
+    autoscale_window_s=2.0,
+    autoscale_cooldown_s=20.0,
+    autoscale_flap_budget=3,
+    autoscale_min_servers=1,
+    autoscale_max_servers=0,  # 0 = every provisioned server slot
     # The reference's flags of later slices; each raises when set.
     ft_chunk_bytes=0,
     serve_readers=0,
     cells=0,
-    shardctl=False,
-    elastic=False,
     lm=0,
     agg="off",
     dplane=0,
@@ -148,8 +199,6 @@ LATER_FLAGS = {
                           "streaming with comm/pool)"),
     "serve_readers": (0, "the serving tier (slice 5, ps/serve)"),
     "cells": (0, "serving cells (slice 5, cells)"),
-    "shardctl": (False, "shard control (slice 5, shardctl)"),
-    "elastic": (False, "elastic membership (slice 5, shardctl with elastic)"),
     "lm": (0, "the LM workload through the PS gang (slice 7b, lm)"),
     "agg": ("off", "hierarchical aggregation (slice 5, agg)"),
     "dplane": (0, "the device data plane (slice 6, dplane)"),
@@ -222,6 +271,146 @@ def server_rule_for(cfg: Config) -> rules_mod.ShardRule:
     return rules_mod.make("add")  # downpour/easgd/eamsgd ship pre-scaled deltas
 
 
+def _autoscaler_for(cfg: Config, ctl: Any, size: int) -> Any:
+    """The controller rank's Autoscaler under --autoscale: SLO targets from
+    the launch knobs, telemetry pooled over every rank's statusd endpoint
+    (launch_processes checked MPIT_OBS_HTTP)."""
+    from mpit_tpu_torch.obs.statusd import base_port
+    from mpit_tpu_torch.shardctl.autoscale import (
+        AutoscaleConfig, Autoscaler, HttpSampler, SLOConfig)
+
+    slo = SLOConfig(
+        p99_ms=float(cfg.get("autoscale_p99_ms", 0) or 0),
+        busy_ratio=float(cfg.get("autoscale_busy_ratio", 0) or 0),
+        staleness=float(cfg.get("autoscale_staleness", 0) or 0),
+        send_queue=float(cfg.get("autoscale_sendq", 0) or 0))
+    max_servers = int(cfg.get("autoscale_max_servers", 0) or 0)
+    if max_servers <= 0:
+        max_servers = len(ctl.sranks) + len(ctl.spares)
+    acfg = AutoscaleConfig(
+        slo=slo, window_s=float(cfg.get("autoscale_window_s", 2.0)),
+        cooldown_s=float(cfg.get("autoscale_cooldown_s", 20.0)),
+        flap_budget=int(cfg.get("autoscale_flap_budget", 3)),
+        min_servers=int(cfg.get("autoscale_min_servers", 1)),
+        max_servers=max_servers)
+    return Autoscaler(ctl, acfg, sampler=HttpSampler(base_port(), nranks=size))
+
+
+def _maybe_preemption(cfg: Config) -> Any:
+    """A server's SIGTERM preemption notice under --elastic (installed in
+    the child's main thread, where run_rank runs); None otherwise.  The handler only sets a flag; the checkpoint and the
+    PREEMPT report run from the serving loop."""
+    if not bool(cfg.get("elastic", False)):
+        return None
+    from mpit_tpu_torch.ft.elastic import PreemptionNotice
+
+    return PreemptionNotice.from_env(
+        default_grace_s=float(cfg.get("elastic_grace_s", 5.0))).install()
+
+
+def _server_result(server: ParamServer, **extra: Any) -> Dict[str, Any]:
+    return {
+        "role": "server",
+        "grads_applied": server.grads_applied,
+        "params_served": server.params_served,
+        "snapshot_copies": server.snapshot_copies,
+        "snapshot_hits": server.snapshot_hits,
+        "dup_ops": server.dup_ops,
+        "stale_drops": server.stale_drops,
+        "heartbeats_seen": server.heartbeats_seen,
+        "rejoins": server.rejoins,
+        "evictions": server.evictions,
+        "ckpts_written": server.ckpts_written,
+        "restored_applied": server.restored_applied,
+        "restored_dedup": server.restored_dedup,
+        "admitted": {f"{c}:{e}": v for (c, e), v in server.admitted.items()},
+        "serving_since": server.serving_since,
+        "rejoined_at": server.rejoined_at,
+        "retired": server.retired,
+        "owned_shards": server.owned_shards,
+        **extra,
+    }
+
+
+def run_joiner_server(rank: int, cranks: List[int], cfg: Config,
+                      transport: Any, ctl_rank: Optional[int]) -> Dict[str, Any]:
+    """One controller-spawned joiner server (an --elastic spare slot, or a
+    restarted elastic server): no INIT rendezvous, shards by ACQUIRE."""
+    log = get_logger("launch", rank)
+    ckpt_dir = str(cfg.get("server_ckpt_dir", "") or "")
+    server = ParamServer(
+        rank, cranks, transport, rule=server_rule_for(cfg), device=cfg.device,
+        codec=str(cfg.codec or "") or None, ft=ft_from_cfg(cfg),
+        ckpt_dir=ckpt_dir or None,
+        ckpt_interval=float(cfg.get("server_ckpt_interval", 30.0)),
+        controller_rank=ctl_rank, shardctl=True, preempt=_maybe_preemption(cfg))
+    log.info("joiner server for clients %s (controller %s)", cranks, ctl_rank)
+    server.start()
+    return _server_result(server, joiner=True)
+
+
+def run_controller(rank: int, size: int, np0: int, sranks: List[int],
+                   cranks: List[int], cfg: Config, transport: Any) -> Dict[str, Any]:
+    """The shard-map controller (the last rank of the initial membership):
+    under --elastic it spawns spare slots through the supervisor's mailbox
+    and marks retirements there before they exit."""
+    from mpit_tpu_torch.shardctl import RebalancePolicy, ShardController
+
+    elastic_on = bool(cfg.get("elastic", False))
+    spawner = None
+    retire_mark = None
+    spares: List[int] = list(range(np0, size)) if elastic_on else []
+    if elastic_on:
+        from mpit_tpu_torch.ft.elastic import ElasticDirectory
+
+        mailbox = ElasticDirectory.from_env()
+        if mailbox is not None:
+            def spawner(r: int) -> None:
+                # Stamp the request with the live set, so the joiner's TCP
+                # rendezvous dials only reachable peers.
+                live = sorted(set(ctl._live_servers())
+                              | {c for c in ctl.cranks if c not in ctl._stopped}
+                              | {ctl.rank})
+                mailbox.request_spawn(r, {
+                    "MPIT_ELASTIC_DIAL": ",".join(str(x) for x in live if x < r)})
+
+            retire_mark = mailbox.mark_retired
+    ctl = ShardController(
+        rank, transport, sranks, cranks,
+        policy=RebalancePolicy(ratio=float(cfg.get("shardctl_ratio", 3.0))),
+        lease_ttl_s=float(cfg.get("shardctl_lease_ttl_s", 0) or 0),
+        spawner=spawner, spare_ranks=spares)
+    if retire_mark is not None:
+        # The supervisor must learn of a retirement before the rank's exit
+        # reaches its restart budget: mark the mailbox first.
+        scale_down = ctl.scale_down
+
+        def scale_down_marked(r: int) -> bool:
+            retire_mark(r)
+            return scale_down(r)
+
+        ctl.scale_down = scale_down_marked
+    if bool(cfg.get("autoscale", False)):
+        ctl.attach_autoscaler(_autoscaler_for(cfg, ctl, size))
+    ctl.serve()
+    out: Dict[str, Any] = {
+        "role": "controller",
+        "map_version": getattr(ctl.smap, "version", None),
+        # the final map: (shard_id, offset, size, owner) per shard
+        "map": ([[e.shard_id, e.shard.offset, e.shard.size, e.owner]
+                 for e in ctl.smap.entries] if ctl.smap is not None else None),
+        "rebalances": int(ctl._m_rebal.value),
+        "failovers": int(ctl._m_fail.value),
+        "membership_epoch": ctl.membership_epoch,
+        "elastic_events": {"up": int(ctl._m_up.value),
+                           "down": int(ctl._m_down.value),
+                           "preempt": int(ctl._m_pre.value)},
+    }
+    if ctl.autoscaler is not None:
+        out["autoscale"] = ctl.autoscaler.status_section()
+    return out
+
+
 def run_rank(rank: int, size: int, cfg: Config, transport: Any,
              data: Any = None) -> Dict[str, Any]:
     """Run one rank's role to completion; returns its result dict.  With
@@ -245,10 +434,40 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
         raise ValueError(f"run_rank at size {size} needs this rank's transport "
                          "(launch_processes, or run_gang in one process)")
     log = get_logger("launch", rank)
+    elastic_on = bool(cfg.get("elastic", False))
+    sc_on = bool(cfg.get("shardctl", False)) or elastic_on
+    # Under --elastic the transport spans the provisioned ceiling
+    # (np0 + spares); roles split over the initial membership np0, and the
+    # ranks past it are joiner-server slots the controller may spawn.
+    np0 = (int(cfg.get("elastic_np0", 0) or 0) or size) if elastic_on else size
+    ctl_rank: Optional[int] = None
+    role_size = size
+    if sc_on:
+        if str(cfg.tester) != "none":
+            raise ValueError("shardctl and a tester rank are mutually exclusive "
+                             "for now (both claim an edge rank)")
+        if np0 < 3:
+            raise ValueError("shardctl needs np >= 3 (>= 1 server + >= 1 worker "
+                             "+ the controller)")
+        if float(cfg.get("ft_op_deadline_s", 0) or 0) <= 0:
+            raise ValueError("shardctl needs --ft_op_deadline_s > 0: map "
+                             "re-routing rides the FT retry machinery")
+        ctl_rank = np0 - 1
+        role_size = np0 - 1
     sranks, cranks, tester_rank = assign_roles(
-        size, int(cfg.master_freq), str(cfg.tester))
+        role_size, int(cfg.master_freq), str(cfg.tester))
     codec = str(cfg.codec or "") or None
     ft = ft_from_cfg(cfg)
+    if elastic_on and rank >= np0:
+        return run_joiner_server(rank, cranks, cfg, transport, ctl_rank)
+    if sc_on and rank == ctl_rank:
+        return run_controller(rank, size, np0, sranks, cranks, cfg, transport)
+    if elastic_on and rank in sranks and rejoining():
+        # A restarted server of an elastic gang rejoins as a joiner: its
+        # shards failed over to survivors (shard checkpoints have no
+        # server<rank> alias to resume from); the controller rebalances
+        # onto it once its beats arm.
+        return run_joiner_server(rank, cranks, cfg, transport, ctl_rank)
     if rank == tester_rank:
         from mpit_tpu_torch.train.tester import run_tester
 
@@ -262,7 +481,8 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
             rank, all_clients, transport, rule=server_rule_for(cfg),
             single_mode=str(cfg.opt).endswith("-single"),
             device=cfg.device, codec=codec, ft=ft, ckpt_dir=ckpt_dir or None,
-            ckpt_interval=float(cfg.server_ckpt_interval))
+            ckpt_interval=float(cfg.server_ckpt_interval),
+            controller_rank=ctl_rank, preempt=_maybe_preemption(cfg))
         if bool(cfg.resume):
             path = pathlib.Path(ckpt_dir) / f"server{rank}_latest.npz"
             if not ckpt_dir or not path.exists():
@@ -273,26 +493,8 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
             log.info("restored shard from %s", path)
         log.info("server for clients %s", cranks)
         server.start()
-        return {
-            "role": "server",
-            "grads_applied": server.grads_applied,
-            "params_served": server.params_served,
-            "snapshot_copies": server.snapshot_copies,
-            "snapshot_hits": server.snapshot_hits,
-            "dup_ops": server.dup_ops,
-            "stale_drops": server.stale_drops,
-            "heartbeats_seen": server.heartbeats_seen,
-            "rejoins": server.rejoins,
-            "evictions": server.evictions,
-            "ckpts_written": server.ckpts_written,
-            "restored": bool(cfg.resume),
-            "restored_applied": server.restored_applied,
-            "restored_dedup": server.restored_dedup,
-            "admitted": {f"{c}:{e}": v for (c, e), v in server.admitted.items()},
-            "serving_since": server.serving_since,
-            "rejoined_at": server.rejoined_at,
-            "param": server.param,
-        }
+        return _server_result(server, restored=bool(cfg.resume),
+                              param=server.param)
     # On resume the restored servers are authoritative for params — no
     # client re-seeds.  Same for a supervisor-restarted worker rejoining
     # mid-run: the live servers hold the current center, and a re-seed
@@ -300,7 +502,10 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
     pclient = ParamClient(
         rank, sranks, transport, codec=codec, ft=ft,
         seed_servers=(rank == cranks[0]) and not bool(cfg.resume)
-        and not rejoining())
+        and not rejoining(),
+        shardctl=sc_on, controller_rank=ctl_rank,
+        sc_shards_per_server=(int(cfg.get("elastic_shards_per_server", 2) or 1)
+                              if elastic_on else 1))
     trainer = MnistTrainer(cfg, pclient=pclient, data=data, rank=rank)
     log.info("worker with servers %s (epoch %d)", sranks, ft.epoch)
     return {"role": "worker", **trainer.run(), "w": trainer.w,
@@ -353,9 +558,17 @@ def expected_role(rank: int, size: int, cfg: Config) -> str:
     split is invalid (run_rank raises the real error)."""
     if size == 1:
         return "local"
+    elastic_on = bool(cfg.get("elastic", False))
+    sc_on = bool(cfg.get("shardctl", False)) or elastic_on
+    np0 = (int(cfg.get("elastic_np0", 0) or 0) or size) if elastic_on else size
+    if elastic_on and rank >= np0:
+        return "server"  # a spare joiner slot
+    if sc_on and rank == np0 - 1:
+        return "controller"
     try:
         sranks, _cranks, tester_rank = assign_roles(
-            size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
+            np0 - 1 if sc_on else size, int(cfg.get("master_freq", 2)),
+            str(cfg.get("tester", "none")))
     except ValueError:
         return ""
     if rank == tester_rank:
@@ -376,8 +589,13 @@ def device_env_overrides(cfg: Config, size: int) -> Dict[int, Dict[str, str]]:
     if policy == "cpu":
         return {r: {DEVICE_ENV: "cpu"} for r in range(size)}
     if policy == "workers_accel":
+        # Under shard control the last rank of the initial membership is
+        # the controller (a host role); spare joiner slots are servers.
+        role_size = int(cfg.get("elastic_np0", 0) or 0) or size
+        if bool(cfg.get("shardctl", False)) or bool(cfg.get("elastic", False)):
+            role_size -= 1
         _sranks, cranks, tester = assign_roles(
-            size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
+            role_size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
         accel_rank = tester if tester is not None else cranks[0]
         return {r: {DEVICE_ENV: "cpu"} for r in range(size) if r != accel_rank}
     raise ValueError(
@@ -402,8 +620,28 @@ def launch_processes(cfg: Config, timeout: float = 3600.0,
     if cfg.opt not in KNOWN_OPTS:
         raise ValueError(f"unknown optimizer {cfg.opt!r}; have {KNOWN_OPTS}")
     refuse_later_flags(cfg)
+    if bool(cfg.autoscale):
+        # --autoscale = --elastic + the closed loop on the controller, whose
+        # telemetry rides the statusd endpoints: a controller sampling
+        # nothing would never scale.
+        from mpit_tpu_torch.obs.statusd import base_port
+
+        if base_port() is None:
+            raise ValueError(
+                "--autoscale needs MPIT_OBS_HTTP=<base_port>: the autoscaler "
+                "samples the gang through the statusd endpoints")
+        if not any(float(cfg.get(k, 0) or 0) > 0 for k in (
+                "autoscale_p99_ms", "autoscale_busy_ratio",
+                "autoscale_staleness", "autoscale_sendq")):
+            raise ValueError("--autoscale needs at least one SLO target "
+                             "(--autoscale_p99_ms / _busy_ratio / _staleness "
+                             "/ _sendq)")
+        cfg = cfg.merged(elastic=True)
+    if bool(cfg.elastic):
+        return _launch_elastic(cfg, timeout, chaos)
     size = int(cfg.np)
-    assign_roles(size, int(cfg.master_freq), str(cfg.tester))
+    assign_roles(size - 1 if bool(cfg.shardctl) else size, int(cfg.master_freq),
+                 str(cfg.tester))
     overrides = device_env_overrides(cfg, size)
     if len(overrides) < size:  # some rank runs on cfg.device
         resolve_device(cfg.device)
@@ -419,7 +657,8 @@ def launch_processes(cfg: Config, timeout: float = 3600.0,
         from mpit_tpu_torch.ft.supervisor import RestartPolicy, supervise_gang
 
         sranks, _cranks, _tester = assign_roles(
-            size, int(cfg.master_freq), str(cfg.tester))
+            size - 1 if bool(cfg.shardctl) else size, int(cfg.master_freq),
+            str(cfg.tester))
         return supervise_gang(
             "mpit_tpu_torch.train.launch", cfg, timeout,
             policy=RestartPolicy(max_restarts=restarts),
@@ -431,6 +670,59 @@ def launch_processes(cfg: Config, timeout: float = 3600.0,
 
     return launch_gang("mpit_tpu_torch.train.launch", cfg, timeout,
                        env_overrides=overrides)
+
+
+def _launch_elastic(cfg: Config, timeout: float,
+                    chaos: Optional[Dict[str, Any]]) -> Dict[int, Dict[str, Any]]:
+    """--elastic: shard control + the supervisor + the scale mailbox, over
+    a provisioned rank space of np + elastic_spares.  Spare slots spawn
+    only on the controller's request; membership changes never restart
+    the gang."""
+    import tempfile
+
+    from mpit_tpu_torch.ft.elastic import ENV_DIR, ENV_GRACE_S, ElasticDirectory
+    from mpit_tpu_torch.ft.supervisor import RestartPolicy, supervise_gang
+
+    restarts = int(cfg.supervise)
+    if restarts <= 0:
+        raise ValueError("--elastic needs --supervise >= 1: the supervisor is "
+                         "what spawns and retires ranks")
+    if not str(cfg.server_ckpt_dir or ""):
+        raise ValueError("--elastic needs --server_ckpt_dir: checkpoint-on-"
+                         "notice and shard failover write there")
+    if float(cfg.ft_op_deadline_s or 0) <= 0:
+        raise ValueError("--elastic needs --ft_op_deadline_s > 0: membership "
+                         "changes ride the retry machinery")
+    np0 = int(cfg.np)
+    spares = max(int(cfg.elastic_spares or 0), 0)
+    total = np0 + spares
+    cfg = cfg.merged(np=total, elastic_np0=np0, shardctl=True)
+    if spares > 0:
+        cfg = cfg.merged(gang_barrier=False)  # spare slots are not running yet
+    if cfg.transport == "tcp":
+        addrs = [a for a in str(cfg.tcp_addrs).split(",") if a]
+        if len(addrs) != total:
+            raise ValueError(f"--elastic over tcp needs {total} tcp_addrs "
+                             f"(np + elastic_spares), got {len(addrs)}")
+    sranks, _cranks, _tester = assign_roles(np0 - 1, int(cfg.master_freq), "none")
+    overrides = device_env_overrides(cfg, total)
+    if len(overrides) < total:
+        resolve_device(cfg.device)
+    mailbox = ElasticDirectory(tempfile.mkdtemp(prefix="mpit_elastic_"))
+    env = supervised_env(cfg, overrides)
+    for r in range(total):
+        env[r][ENV_DIR] = str(mailbox.root)
+        env[r][ENV_GRACE_S] = str(float(cfg.elastic_grace_s))
+        if cfg.transport == "tcp":
+            # Spares and rejoiners come in through the transport's accept
+            # service: every rank agrees on reconnect mode.
+            env[r].setdefault("MPIT_TCP_RECONNECT_S",
+                              os.environ.get("MPIT_TCP_RECONNECT_S", "60"))
+    return supervise_gang(
+        "mpit_tpu_torch.train.launch", cfg, timeout,
+        policy=RestartPolicy(max_restarts=restarts), env_overrides=env,
+        server_ranks=sranks + list(range(np0, total)), initial_ranks=range(np0),
+        elastic_dir=mailbox, **(chaos or {}))
 
 
 def supervised_env(cfg: Config, overrides: Dict[int, Dict[str, str]]
@@ -521,7 +813,9 @@ def _summarize(result: Dict[str, Any]) -> Dict[str, Any]:
     keep = {"role", "final_test_err", "time_to_target", "elapsed",
             "grads_applied", "params_served", "best_test_err", "platform",
             "launches", "epoch", "retries", "dup_ops", "rejoins",
-            "evictions", "ckpts_written", "restored", "restarts"}
+            "evictions", "ckpts_written", "restored", "restarts",
+            "map_version", "membership_epoch", "elastic_events", "retired",
+            "owned_shards", "joiner"}
     return {k: v for k, v in result.items() if k in keep}
 
 

@@ -976,37 +976,67 @@ def test_property_fault_plans_never_hang(seed):
 # the guards of later slices
 
 
-@pytest.mark.parametrize("make,match", [
-    (lambda: ParamClient(1, [0], LocalRouter(2).endpoint(1), shardctl=True),
-     "slice 5, shardctl"),
-    (lambda: FTConfig(chunk_bytes=65536), "comm/pool"),
-    (lambda: ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu",
-                         preempt=object()), "elastic"),
-    (lambda: ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu",
-                         admit_ranks=[3]), "elastic"),
+@pytest.mark.parametrize("make,exc,match", [
+    # Shard control landed: a shardctl client still needs op deadlines.
+    pytest.param(lambda: ParamClient(1, [0], LocalRouter(2).endpoint(1),
+                                     shardctl=True, ft=FTConfig()),
+                 ValueError, "op_deadline_s", id="<lambda>-slice 5, shardctl"),
+    pytest.param(lambda: FTConfig(chunk_bytes=65536), NotImplementedError,
+                 "comm/pool", id="<lambda>-comm/pool"),
+    # Elastic membership landed: a joiner (with its preemption notice)
+    # needs a controller, and late-join candidates are not launch members.
+    pytest.param(lambda: ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu",
+                                     preempt=object(), shardctl=True).start(),
+                 ValueError, "controller_rank", id="<lambda>-elastic0"),
+    pytest.param(lambda: ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu",
+                                     admit_ranks=[1]),
+                 ValueError, "overlap", id="<lambda>-elastic1"),
 ])
-def test_later_slices_refuse_loudly(make, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_later_slices_refuse_loudly(make, exc, match):
+    """Chunked streaming still refuses naming its slice; shard control and
+    elastic membership have landed, and their own guards fail loudly."""
+    with pytest.raises(exc, match=match):
         make()
 
 
 def test_traffic_exports_refuse_naming_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 5, shardctl"):
-        from mpit_tpu_torch.ft import Scenario  # noqa: F401
-    assert set(ft.__all__) | set(ft.LATER_EXPORTS) == set(jft.__all__)
+    """``ft/traffic.py`` came with shard control: the port's ft exports are
+    the JAX package's, and a name neither package has is an
+    AttributeError."""
+    from mpit_tpu_torch.ft import Scenario, traffic
+
+    assert Scenario is traffic.Scenario
+    assert set(ft.__all__) == set(jft.__all__)
+    with pytest.raises(AttributeError):
+        ft.NoSuchExport  # noqa: B018
 
 
-@pytest.mark.parametrize("words,match", [
-    ([-1, 1, 0, 0, 0, 0, 0, 0], "INIT v4.*shardctl"),
-    ([0, 8, 0, 1, 1 | 64, 1024], "INIT v5.*comm/pool"),
-    ([0, 8, 0, 1, 1 | 8 | 64], "FLAG_CHUNKED.*slice 5"),
-    ([0, 8, 0, 1, 1 | 64], "FLAG_CHUNKED.*slice 5"),
-    ([0, 8, 0, 1, 1 | 16], "FLAG_READONLY.*slice 5"),
-    ([0, 8, 0, 1, 1 | 16 | 32], "slice 5"),
+def _v4_unframed():
+    """An INIT v4 announcement without FLAG_FRAMED (shard control only)."""
+    from mpit_tpu_torch.shardctl import FLAG_SHARDCTL, ShardMap
+    from mpit_tpu_torch.shardctl.wire import init_v4
+
+    return list(init_v4(0, 0, FLAG_SHARDCTL, ShardMap.initial(8, [0])))
+
+
+@pytest.mark.parametrize("words,exc,match", [
+    # INIT v4 is shard control's, landed: unframed, it is refused loudly.
+    pytest.param(_v4_unframed(), ValueError, "FLAG_FRAMED",
+                 id="words0-INIT v4.*shardctl"),
+    pytest.param([0, 8, 0, 1, 1 | 64, 1024], NotImplementedError,
+                 "INIT v5.*comm/pool", id="words1-INIT v5.*comm/pool"),
+    pytest.param([0, 8, 0, 1, 1 | 8 | 64], NotImplementedError,
+                 "FLAG_CHUNKED.*slice 5", id="words2-FLAG_CHUNKED.*slice 5"),
+    pytest.param([0, 8, 0, 1, 1 | 64], NotImplementedError,
+                 "FLAG_CHUNKED.*slice 5", id="words3-FLAG_CHUNKED.*slice 5"),
+    pytest.param([0, 8, 0, 1, 1 | 16], NotImplementedError,
+                 "FLAG_READONLY.*slice 5", id="words4-FLAG_READONLY.*slice 5"),
+    pytest.param([0, 8, 0, 1, 1 | 16 | 32], NotImplementedError, "slice 5",
+                 id="words5-slice 5"),
 ])
-def test_server_refuses_announcements_of_later_slices(words, match):
+def test_server_refuses_announcements_of_later_slices(words, exc, match):
     server = ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         server._negotiate(1, np.asarray(words, np.int64).tobytes())
 
 
@@ -1040,14 +1070,20 @@ def test_jax_client_with_timing_is_refused_by_a_port_server():
     assert "INIT v5" in str(box["cause"])
 
 
-@pytest.mark.parametrize("flag,value", [("shardctl", True), ("ft_chunk_bytes", 4096),
-                                        ("elastic", True)])
-def test_launch_refuses_ft_flags_of_later_slices(flag, value):
+@pytest.mark.parametrize("flag,value,exc,match", [
+    # Shard control and elastic membership landed: without op deadlines
+    # (their re-routing rides the retry machinery) they refuse loudly.
+    pytest.param("shardctl", True, ValueError, "ft_op_deadline_s", id="shardctl-True"),
+    pytest.param("ft_chunk_bytes", 4096, NotImplementedError, "slice 5",
+                 id="ft_chunk_bytes-4096"),
+    pytest.param("elastic", True, ValueError, "ft_op_deadline_s", id="elastic-True"),
+])
+def test_launch_refuses_ft_flags_of_later_slices(flag, value, exc, match):
     from mpit_tpu_torch.train import launch
 
     cfg = launch.LAUNCH_DEFAULTS.merged({"np": 3, "device": "cpu", "side": 8,
                                          flag: value})
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(exc, match=match):
         launch.run_gang(3, cfg)
 
 

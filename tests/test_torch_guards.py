@@ -209,8 +209,8 @@ def test_mesh_launch_refuses_later_slices(flags, tmp_path):
 @pytest.mark.parametrize("refused", [
     None,  # an unknown optimizer: ValueError in the parent
     ("tester", "last", "role split"),  # --np 2 leaves the tester no client
-    ("shardctl", "1", "slice 5"),
-    ("elastic", "1", "slice 5"),
+    ("shardctl", "1", "role split"),  # landed: --np 2 leaves no worker
+    ("elastic", "1", "supervise"),  # landed: needs the supervisor
     ("serve_readers", "1", "slice 5"),
     ("cells", "1", "slice 5"),
     ("lm", "1", "slice 7"),
@@ -223,8 +223,9 @@ def test_mesh_launch_refuses_later_slices(flags, tmp_path):
 def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
     """The CLI's --np N refuses in the parent, before any process starts:
     an unknown optimizer and a role split with no client raise
-    ValueError, as the reference's launcher does, and the flags of later
-    slices and an INIT v3 flag of a later slice raise NotImplementedError
+    ValueError, as the reference's launcher does (so do shard control with
+    no worker left and --elastic without the supervisor), and the flags of
+    later slices and an INIT v3 flag of a later slice raise NotImplementedError
     naming the slice; a PS optimizer without a client raises ValueError,
     as the reference's trainer does."""
     from mpit_tpu_torch.train import gang
@@ -252,7 +253,7 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
             server._negotiate(1, np.asarray([0, 8, 0, 1, value], np.int64).tobytes())
         return
     argv = ["--np", "2", "--device", "cpu", "--side", "8", f"--{flag}", value]
-    if flag == "tester":
+    if flag in ("tester", "shardctl", "elastic"):
         with pytest.raises(ValueError, match=owner):
             launch.main(argv)
         return

@@ -364,33 +364,54 @@ class TestWireCodecs:
             np.asarray(words, dtype=np.int64), 0, tags.INIT))
         assert isinstance(cause, ValueError) and message in str(cause)
 
-    @pytest.mark.parametrize("version,words", [
-        (3, [0, 8, 0, 1, 1 | 8 | 64]),  # v3 with FLAG_CHUNKED (streaming)
-        (4, [-1, 1, 0, 0, 0, 0, 0, 0]),  # shardctl: a whole map
-        (5, [0, 8, 0, 1, 1 | 32, 1024]),  # v3 + [chunk_elems]
+    @pytest.mark.parametrize("version,words,exc,message", [
+        # v3 with FLAG_CHUNKED (streaming)
+        pytest.param(3, [0, 8, 0, 1, 1 | 8 | 64], NotImplementedError, "INIT v3",
+                     id="3-words0"),
+        # shard control landed: a whole map, but unframed, is refused
+        pytest.param(4, [-1, 0, 0, 4, 0x534D4150, 0, 8, 1, 0, 0, 8, 0],
+                     ValueError, "FLAG_FRAMED", id="4-words1"),
+        # v3 + [chunk_elems]
+        pytest.param(5, [0, 8, 0, 1, 1 | 32, 1024], NotImplementedError, "INIT v5",
+                     id="5-words2"),
     ])
-    def test_later_init_versions_are_refused(self, version, words):
+    def test_later_init_versions_are_refused(self, version, words, exc, message):
         cause = self._failing_server(lambda ep: ep.send(
             np.asarray(words, dtype=np.int64), 0, tags.INIT))
-        assert isinstance(cause, NotImplementedError)
-        assert f"INIT v{version}" in str(cause) and "slice 5" in str(cause)
+        assert isinstance(cause, exc) and message in str(cause)
+        if exc is NotImplementedError:
+            assert "slice 5" in str(cause)
 
 
-@pytest.mark.parametrize("cls,kw", [
-    (ParamServer, {"preempt": object()}),
-    (ParamServer, {"admit_ranks": [3]}),
-    (ParamServer, {"reader_ranks": [3]}),
-    (ParamServer, {"cell_ranks": [3]}),
-    (ParamServer, {"dplane": object()}),
-    (ParamServer, {"shardctl": True}),
-    (ParamClient, {"controller_rank": 0}),
-    (ParamClient, {"shardctl": True}),
-    (ParamClient, {"layout": []}),
+@pytest.mark.parametrize("cls,kw,refused", [
+    # shard control and elastic membership landed: accepted now
+    pytest.param(ParamServer, {"preempt": object()}, False, id="ParamServer-kw0"),
+    pytest.param(ParamServer, {"admit_ranks": [3]}, False, id="ParamServer-kw1"),
+    pytest.param(ParamServer, {"reader_ranks": [3]}, True, id="ParamServer-kw2"),
+    pytest.param(ParamServer, {"cell_ranks": [3]}, True, id="ParamServer-kw3"),
+    pytest.param(ParamServer, {"dplane": object()}, True, id="ParamServer-kw4"),
+    pytest.param(ParamServer, {"shardctl": True}, False, id="ParamServer-kw5"),
+    pytest.param(ParamClient, {"controller_rank": 0}, False, id="ParamClient-kw6"),
+    pytest.param(ParamClient, {"shardctl": True, "ft_deadline": 1.0}, False,
+                 id="ParamClient-kw7"),
+    pytest.param(ParamClient, {"layout": []}, True, id="ParamClient-kw8"),
 ])
-def test_later_slice_arguments_are_refused(cls, kw):
+def test_later_slice_arguments_are_refused(cls, kw, refused):
+    """Arguments of slices still to come raise NotImplementedError naming
+    the slice; shard control's and elastic membership's are accepted (a
+    shardctl client with op deadlines); an argument neither package has is
+    a TypeError."""
+    from mpit_tpu_torch.ft import FTConfig
+
     router = LocalRouter(2)
     args = (0, [1], router.endpoint(0)) if cls is ParamServer else (1, [0], router.endpoint(1))
-    with pytest.raises(NotImplementedError, match="slice"):
+    kw = dict(kw, device="cpu") if cls is ParamServer else dict(kw)
+    if "ft_deadline" in kw:
+        kw["ft"] = FTConfig(op_deadline_s=kw.pop("ft_deadline"))
+    if refused:
+        with pytest.raises(NotImplementedError, match="slice"):
+            cls(*args, **kw)
+    else:
         cls(*args, **kw)
     with pytest.raises(TypeError):
         cls(*args, no_such_argument=1)

@@ -1,28 +1,37 @@
 """The port server's INIT negotiation against the wire-schema oracle: the
 twin of ``tests/test_wire_matrix.py``'s ``TestNegotiationMatrix`` at the
-plain posture (no readers, no cells), for INIT v1-v3 and all 128 v3 flag
-sets.
+plain posture (no readers, no cells), for INIT v1-v4 and all 128 flag sets
+of v3 and of v4, plus every legacy cell (v1-v3) announced to a server that
+already speaks shard control.
 
 For every cell the port's ``ParamServer._negotiate`` must agree with
 ``mpit_tpu.analysis.schema.negotiate``:
 
 - a cell the oracle accepts is accepted, with the oracle's effective
-  per-pair posture (framed, heartbeat, staleness, timing; the readonly,
-  subscribe, chunked and shardctl postures of later slices are off);
+  per-pair posture (framed, heartbeat, staleness, timing, shardctl; the
+  readonly, subscribe and chunked postures of later slices are off);
 - a cell the oracle refuses is refused — loudly, with a ValueError as the
   JAX server refuses it, or with a NotImplementedError that names the
   slice of the port its flag belongs to.
 
-INIT v4 (shard control) and v5 (chunked streaming) widen the twin with
-their slices.
+The cells (counted by ``test_cell_counts``): v1 and v2 one cell each,
+accepted; v3 128 cells, 16 accepted and 112 refused as later slices; v4 128
+cells, the 64 with FLAG_FRAMED accepted as shard control (staleness and
+timing off, whatever the bits) and the 64 without it refused; a legacy
+announcement to a shard-control server, 130 cells, all refused.  INIT v5
+(chunked streaming) widens the twin with its slice.
 """
 
 import numpy as np
 import pytest
 
 import mpit_tpu.ft.wire as jftw
+import mpit_tpu.shardctl.wire as jscw
 from mpit_tpu.analysis import schema
+from mpit_tpu.shardctl.shardmap import ShardMap as JaxShardMap
 from mpit_tpu_torch.ps import ParamServer
+from mpit_tpu_torch.shardctl import ShardMap
+from mpit_tpu_torch.shardctl import wire as scwire
 
 SIZE = 1024
 
@@ -34,17 +43,26 @@ def _announce_bytes(version: int, flags: int) -> bytes:
         return np.asarray([0, SIZE, 0], np.int64).tobytes()
     if version == 3:
         return jftw.init_v3(0, SIZE, 0, 0, flags).tobytes()
+    if version == 4:
+        got = scwire.init_v4(0, 0, flags, ShardMap.initial(SIZE, [0]))
+        assert got.tobytes() == jscw.init_v4(
+            0, 0, flags, JaxShardMap.initial(SIZE, [0])).tobytes()
+        return got.tobytes()
     raise AssertionError(version)
 
 
-def _verdicts(version):
-    """(flags, oracle outcome, port verdict, port posture or refusal)."""
+def _verdicts(version, sc_server=False):
+    """(flags, oracle outcome, port verdict, port posture or refusal);
+    ``sc_server``: the server already negotiated shard control (a framed
+    v4 client came first)."""
     out = []
-    for flags in (range(128) if version == 3 else [0]):
-        want = schema.negotiate(version, flags)
+    for flags in (range(128) if version in (3, 4) else [0]):
+        want = schema.negotiate(version, flags, sc_server=sc_server)
         # client_ranks=[2] keeps the announcing rank 1 out of the gang's
         # clients, as the reference matrix does.
         server = ParamServer(0, [2], None, rule="add", device="cpu")
+        if sc_server:
+            server._negotiate(3, _announce_bytes(4, 1))
         try:
             server._negotiate(1, _announce_bytes(version, flags))
         except NotImplementedError as exc:
@@ -59,16 +77,30 @@ def _verdicts(version):
             "staleness": server._stale_track.get(1, False),
             "timing": server._timing.get(1, False),
             "readonly": False, "subscribe": False, "chunked": False,
-            "shardctl": False,
+            "shardctl": server._sc,
         }
         out.append((flags, want, "accepted", posture))
     return out
 
 
-@pytest.mark.parametrize("version", [1, 2, 3])
+@pytest.mark.parametrize("version", [1, 2, 3, 4])
 def test_matrix_matches_oracle(version):
+    mismatches = _mismatches(version)
+    assert not mismatches, "\n".join(mismatches)
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_legacy_on_a_shardctl_server_matches_oracle(version):
+    """A legacy announcement to a server that already speaks shard control
+    is refused, as the oracle's ``sc_server`` posture says."""
+    mismatches = _mismatches(version, sc_server=True)
+    assert not mismatches, "\n".join(mismatches)
+    assert all(v == "refused" for _f, _w, v, _d in _verdicts(version, sc_server=True))
+
+
+def _mismatches(version, sc_server=False):
     mismatches = []
-    for flags, want, verdict, detail in _verdicts(version):
+    for flags, want, verdict, detail in _verdicts(version, sc_server):
         ctx = f"v{version} flags={flags:#04x}"
         if verdict == "later":
             if want.accepted:
@@ -87,7 +119,23 @@ def test_matrix_matches_oracle(version):
             if detail != exp:
                 mismatches.append(f"{ctx}: posture drift (oracle, port) = "
                                   f"{ {k: (exp[k], detail[k]) for k in exp if exp[k] != detail[k]} }")
-    assert not mismatches, "\n".join(mismatches)
+    return mismatches
+
+
+def test_cell_counts():
+    """The matrix's cells by version: accepted, refused, refused as a later
+    slice (the module docstring's table)."""
+    def counts(version, sc_server=False):
+        rows = _verdicts(version, sc_server)
+        return tuple(sum(1 for r in rows if r[2] == v)
+                     for v in ("accepted", "refused", "later"))
+
+    assert [counts(v) for v in (1, 2, 3, 4)] == [(1, 0, 0), (1, 0, 0), (16, 0, 112),
+                                                 (64, 64, 0)]
+    assert [counts(v, True) for v in (1, 2, 3)] == [(0, 1, 0), (0, 1, 0), (0, 128, 0)]
+    v4 = [d for f, w, v, d in _verdicts(4) if v == "accepted"]
+    assert all(d["shardctl"] and d["framed"] and not d["staleness"]
+               and not d["timing"] for d in v4)
 
 
 @pytest.mark.parametrize("version", [1, 2, 3])

@@ -44,8 +44,22 @@ gangs only:
 - ``MPIT_BENCH_PROFILE=1``: one more codec-none leg with the CPU profile
   and traces on, run through ``obs profile``: per-rank ``cpu_util``.
 
-The skew, readers, cells, stream, agg, elastic and LM legs ride layers of
-later slices of the port; setting one raises, naming the slice.
+The shard-control legs of the JAX twin, in process gangs only:
+
+- ``MPIT_BENCH_SKEW=1``: two more codec-none legs under an injected
+  straggler — the last server's replies crawl out ``MPIT_BENCH_SKEW_POLLS``
+  (600) test()-polls late — first with the shard-control rebalance policy
+  off (a static map), then on; an extra rank runs the controller, which
+  migrates the slow server's shard away once its busy report dominates
+  (``skew``, ``rebalance``, ``skew_polls``, and the controller's
+  ``map_version`` and ``rebalances`` in the row);
+- ``MPIT_BENCH_ELASTIC=1``: the 1 -> 2 -> 1 server sweep, three codec-none
+  legs (metric ``ps_pushpull_bandwidth_elastic``, ``phase`` start / grown /
+  shrunk), each server a fixed-capacity member applying at
+  ``MPIT_BENCH_ELASTIC_MBS`` (300; 0 = unthrottled).
+
+The readers, cells, stream, agg and LM legs ride layers of later slices of
+the port; setting one raises, naming the slice.
 
 Prints one JSON line per codec:
 ``{"metric": "ps_pushpull_bandwidth_shm", "value": MB/s, "unit": "MB/s",
@@ -92,11 +106,14 @@ STATUS_PORT = int(os.environ.get("MPIT_BENCH_STATUS_PORT", "0"))  # 0: a free on
 DECOMP_SWEEP = _on("MPIT_BENCH_DECOMP")
 DECOMP_DEADLINE = float(os.environ.get("MPIT_BENCH_DECOMP_DEADLINE", "120"))
 PROFILE_SWEEP = _on("MPIT_BENCH_PROFILE")
+SKEW_SWEEP = _on("MPIT_BENCH_SKEW")
+SKEW_POLLS = int(os.environ.get("MPIT_BENCH_SKEW_POLLS", "600"))
+SKEW_DEADLINE = float(os.environ.get("MPIT_BENCH_SKEW_DEADLINE", "30"))
+ELASTIC_SWEEP = _on("MPIT_BENCH_ELASTIC")
+ELASTIC_MBS = float(os.environ.get("MPIT_BENCH_ELASTIC_MBS", "300"))
 
 #: legs of the JAX twin that ride layers of later slices of the port
 LATER_LEGS = {
-    "MPIT_BENCH_SKEW": "shard control (slice 5c, shardctl)",
-    "MPIT_BENCH_ELASTIC": "elastic membership (slice 5c, shardctl with elastic)",
     "MPIT_BENCH_READERS": "the serving tier (slice 5d, ps/serve)",
     "MPIT_BENCH_CELLS": "serving cells (slice 5e, cells)",
     "MPIT_BENCH_STREAM": "chunked streaming (slice 5f, streaming with comm/pool)",
@@ -119,10 +136,11 @@ def refuse_later_legs() -> None:
         if _on(name):
             raise NotImplementedError(f"{name} belongs to {owner} of the port")
     if (HEARTBEAT_SWEEP or OBS_SWEEP or STATUS_SWEEP or DECOMP_SWEEP
-            or PROFILE_SWEEP) and GANG != "procs":
+            or PROFILE_SWEEP or SKEW_SWEEP or ELASTIC_SWEEP) and GANG != "procs":
         raise ValueError(
             "MPIT_BENCH_HEARTBEAT/MPIT_BENCH_OBS/MPIT_BENCH_STATUS/"
-            "MPIT_BENCH_DECOMP/MPIT_BENCH_PROFILE need MPIT_BENCH_GANG=procs")
+            "MPIT_BENCH_DECOMP/MPIT_BENCH_PROFILE/MPIT_BENCH_SKEW/"
+            "MPIT_BENCH_ELASTIC need MPIT_BENCH_GANG=procs")
     mode = os.environ.get("MPIT_BENCH_MODE", "shm")
     if mode != "shm":
         raise NotImplementedError(
@@ -174,6 +192,20 @@ def _timed_applies(server, device):
     return times
 
 
+def _throttle_applies(server, mbs: float) -> None:
+    """The elastic sweep's member-capacity model: every GRAD apply blocks
+    this server for shard_bytes/rate wall-seconds, so each member is a
+    fixed-capacity resource and the aggregate rate follows membership,
+    not how the host time-slices N processes."""
+    rule = server.rule
+
+    def throttled(p, g, state):
+        time.sleep(p.numel() * 4 / (mbs * 2**20))
+        return rule.apply(p, g, state)
+
+    server.rule = rule._replace(apply=throttled)
+
+
 def _client_barrier(client, transport, cranks, rank) -> None:
     """Align the client windows: the first client collects a 'ready' from
     every other client, then answers each with 'go'."""
@@ -194,24 +226,29 @@ def _client_barrier(client, transport, cranks, rank) -> None:
 def _gang_child() -> None:
     """One rank of the process gang (``--gang-child``): a server runs the
     serve loop to completion; a client times its round loop; each writes
-    its result to ``PTEST_RESULT``."""
+    its result to ``PTEST_RESULT``.  In the skew legs an extra last rank
+    runs the shard controller and the last server's replies are
+    delay-injected (the straggler under test)."""
     import numpy as np
     import statistics
 
     from mpit_tpu_torch.comm.collectives import HostCollectives
     from mpit_tpu_torch.comm.shm import ShmTransport
-    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.ft import FaultPlan, FaultyTransport, FTConfig
     from mpit_tpu_torch.obs import maybe_start_statusd, maybe_write_rank_trace
-    from mpit_tpu_torch.ps import ParamClient, ParamServer
+    from mpit_tpu_torch.ps import ParamClient, ParamServer, tags
 
     spec = json.loads(os.environ["PTEST_GANG"])
     rank = int(os.environ["PTEST_RANK"])
-    nranks = spec["nservers"] + spec["nclients"]
+    skew = spec.get("skew")
+    nranks = spec["nservers"] + spec["nclients"] + (1 if skew else 0)
     sranks = list(range(spec["nservers"]))
-    cranks = list(range(spec["nservers"], nranks))
+    cranks = list(range(spec["nservers"], spec["nservers"] + spec["nclients"]))
+    ctl_rank = nranks - 1 if skew else None
     size = spec["size"]
     # Live introspection (no-op unless MPIT_OBS_HTTP rode in: the status leg).
-    maybe_start_statusd(rank, role="server" if rank in sranks else "client")
+    maybe_start_statusd(rank, role=("controller" if rank == ctl_rank else
+                                    "server" if rank in sranks else "client"))
     # Explicit FTConfig either way: the A/B must measure the heartbeat
     # machinery, not whatever MPIT_FT_* is in the caller's env.  A very
     # generous TTL: the leg measures liveness cost, not eviction.
@@ -224,12 +261,34 @@ def _gang_child() -> None:
         # goes, not the retry machinery).
         client_ft = FTConfig(op_deadline_s=float(spec["decomp"]["deadline_s"]),
                              timing=True)
+    if skew:
+        # Shard control: framed ops with a deadline sized for the
+        # straggler's delayed replies, server beats for the controller.
+        client_ft = FTConfig(op_deadline_s=float(skew["deadline_s"]), max_retries=8)
+        server_ft = FTConfig(heartbeat_s=0.05)
     transport = ShmTransport(spec["ns"], rank, nranks, ring_bytes=spec["ring"])
     # No PS traffic until every ring is mapped.
     HostCollectives(transport).barrier()
-    if rank in sranks:
-        server = ParamServer(rank, cranks, transport, rule="add",
-                             device=spec["device"], ft=server_ft)
+    if skew and rank == ctl_rank:
+        from mpit_tpu_torch.shardctl import RebalancePolicy, ShardController
+
+        ctl = ShardController(rank, transport, sranks, cranks, policy=RebalancePolicy(
+            ratio=2.0, min_busy_s=0.01, cooldown_s=0.5, enabled=bool(skew["rebalance"])))
+        ctl.serve()
+        result = {"role": "controller", "rebalances": int(ctl._m_rebal.value),
+                  "map_version": getattr(ctl.smap, "version", None)}
+    elif rank in sranks:
+        ep = transport
+        if skew and rank == skew["slow_server"]:
+            # The straggler: every reply crawls out delay_polls test()-polls
+            # late (send-side injection, message-atomic).
+            ep = FaultyTransport(ep, FaultPlan(
+                delay_every=1, delay_polls=int(skew["delay_polls"]),
+                tags=frozenset({tags.GRAD_ACK, tags.PARAM, tags.PARAM_PUSH_ACK})))
+        server = ParamServer(rank, cranks, ep, rule="add", device=spec["device"],
+                             ft=server_ft, controller_rank=ctl_rank)
+        if spec.get("throttle_mbs"):
+            _throttle_applies(server, float(spec["throttle_mbs"]))
         times = _timed_applies(server, server.device)
         server.start()
         result = {"role": "server", "grads_applied": server.grads_applied,
@@ -239,7 +298,8 @@ def _gang_child() -> None:
                   "apply_us": statistics.median(times) * 1e6 if times else None}
     else:
         client = ParamClient(rank, sranks, transport,
-                             seed_servers=(rank == cranks[0]), ft=client_ft)
+                             seed_servers=(rank == cranks[0]), ft=client_ft,
+                             shardctl=bool(skew), controller_rank=ctl_rank)
         param = np.zeros(size, np.float32)
         grad = np.full(size, 1e-6, np.float32)
         client.start(param, grad)
@@ -283,19 +343,27 @@ def _status_poller(port: int, stop, polls) -> None:
 def _shm_run_procs(size: int, seq: int, servers_out: list, *,
                    heartbeat: bool = False, obs: bool = False,
                    status: bool = False, decomp: bool = False,
-                   profile: bool = False, extra: dict | None = None) -> float:
+                   profile: bool = False, extra: dict | None = None,
+                   skew_rebalance=None, throttle_mbs: float = 0.0) -> float:
     """One timed gang, one OS process per rank; returns MB/s and appends
     the servers' results to ``servers_out``.  The leg's columns (status
-    scrapes, the decomposition, the profile) land in ``extra``."""
+    scrapes, the decomposition, the profile, the skew controller's map)
+    land in ``extra``."""
     from mpit_tpu_torch.train.gang import check_shm_room
 
-    nranks = NSERVERS + NCLIENTS
+    nranks = NSERVERS + NCLIENTS + (1 if skew_rebalance is not None else 0)
     ns = f"tptest_{os.getpid()}_{seq}"
     spec = {"ns": ns, "nservers": NSERVERS, "nclients": NCLIENTS,
             "size": size, "ring": _ring_bytes(size), "rounds": ROUNDS,
             "device": DEVICE, "heartbeat": int(heartbeat)}
     if decomp:
         spec["decomp"] = {"deadline_s": DECOMP_DEADLINE}
+    if skew_rebalance is not None:
+        spec["skew"] = {"slow_server": NSERVERS - 1, "delay_polls": SKEW_POLLS,
+                        "rebalance": int(bool(skew_rebalance)),
+                        "deadline_s": SKEW_DEADLINE}
+    if throttle_mbs:
+        spec["throttle_mbs"] = throttle_mbs
     check_shm_room(nranks, spec["ring"])
     tmpdir = tempfile.mkdtemp(prefix=f"{ns}_")
     trace = os.path.join(tmpdir, "trace.json")
@@ -363,6 +431,10 @@ def _shm_run_procs(size: int, seq: int, servers_out: list, *,
         with open(path) as fh:
             recs.append(json.load(fh))
     servers_out.extend(r for r in recs if r["role"] == "server")
+    ctl = [r for r in recs if r["role"] == "controller"]
+    if ctl and extra is not None:
+        extra["map_version"] = ctl[0]["map_version"]
+        extra["rebalances"] = ctl[0]["rebalances"]
     windows = [(r["t0"], r["t1"]) for r in recs if r["role"] == "client"]
     dt = max(w[1] for w in windows) - min(w[0] for w in windows)
     if extra is not None:
@@ -505,7 +577,8 @@ def _shm_run_threads(size: int, seq: int) -> float:
 
 def bench_shm(codec: str = "", heartbeat: bool = False, obs: bool = False,
               status: bool = False, decomp: bool = False,
-              profile: bool = False) -> dict:
+              profile: bool = False, skew_rebalance=None,
+              throttle_mbs: float = 0.0) -> dict:
     """One shm push/pull measurement (``REPS`` runs); ``codec`` overrides
     ``MPIT_PS_CODEC`` for the gang; the flags select the leg (see the
     module docstring)."""
@@ -529,7 +602,9 @@ def bench_shm(codec: str = "", heartbeat: bool = False, obs: bool = False,
         seq = next(_GANG_SEQ)
         runs.append(_shm_run_procs(size, seq, servers, heartbeat=heartbeat,
                                    obs=obs, status=status, decomp=decomp,
-                                   profile=profile, extra=extra)
+                                   profile=profile, extra=extra,
+                                   skew_rebalance=skew_rebalance,
+                                   throttle_mbs=throttle_mbs)
                     if GANG == "procs" else _shm_run_threads(size, seq))
     mbs = statistics.median(runs)
     row = {
@@ -553,11 +628,38 @@ def bench_shm(codec: str = "", heartbeat: bool = False, obs: bool = False,
         if on:
             row[flag] = 1
     row.update(extra)
+    if skew_rebalance is not None:
+        row["skew"] = 1
+        row["rebalance"] = int(bool(skew_rebalance))
+        row["skew_polls"] = SKEW_POLLS
     applies = [s["apply_us"] for s in servers if s.get("apply_us") is not None]
     if applies:
         row["server_apply_us"] = statistics.median(applies)
         row["server_platforms"] = sorted({s["platform"] for s in servers})
     return row
+
+
+def bench_elastic() -> list:
+    """The 1 -> 2 -> 1 server sweep: one codec-none leg per membership
+    phase, the same clients, payload and rounds throughout, so the three
+    rows read as throughput tracking gang size (what a member is worth);
+    the transitions themselves are the elastic tests' and
+    ``chip_smoke.py``'s."""
+    global NSERVERS
+    saved = NSERVERS
+    rows = []
+    try:
+        for phase, n in (("start", 1), ("grown", 2), ("shrunk", 1)):
+            NSERVERS = n
+            row = bench_shm("none", throttle_mbs=ELASTIC_MBS)
+            row.update(metric="ps_pushpull_bandwidth_elastic", elastic=1, phase=phase)
+            if ELASTIC_MBS > 0:
+                row["member_capacity_mbs"] = ELASTIC_MBS
+            rows.append(row)
+    finally:
+        NSERVERS = saved
+    log(f"[elastic] 1->2->1 sweep: { {r['phase']: r['value'] for r in rows} } MB/s")
+    return rows
 
 
 def main() -> None:
@@ -572,6 +674,13 @@ def main() -> None:
         print(json.dumps(bench_shm("none", obs=True, profile=True)), flush=True)
     if DECOMP_SWEEP:
         print(json.dumps(bench_shm("none", decomp=True)), flush=True)
+    if SKEW_SWEEP:
+        # The straggler A/B at codec none (the skew is in the replies).
+        for rebalance in (False, True):
+            print(json.dumps(bench_shm("none", skew_rebalance=rebalance)), flush=True)
+    if ELASTIC_SWEEP:
+        for row in bench_elastic():
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

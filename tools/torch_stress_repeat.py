@@ -12,6 +12,14 @@ Cases:
   ``lr_t``, GRAD digest) triples equal the local rollout's — another
   ``t``, a foreign GRAD or a doubled one would show.  Failures print
   their log.
+- ``adam_ft``: the two framed Adam gangs of ``tests/test_torch_ft.py::
+  TestRetryDedupEndToEnd::test_drop_and_dup_run_matches_fault_free_bitwise
+  [adam]`` (fault-free, then under the drop/dup matrix), with every K3 call
+  logged where ``rules.adam_apply`` makes it: the server thread, ``t`` and
+  its shape and dtype, the exponent's shape, the bits of ``lr_t``, and
+  digests of the GRAD and of ``p``, ``m`` and ``v`` before and after, plus
+  each server's ``dup_ops`` and ``admitted``.  A run whose two gangs end
+  apart prints the first call at which their logs part.
 - ``rejoin_read``: the port's twin of the reference's
   ``test_evicted_client_rejoins_with_bumped_epoch``, counting the runs in
   which ``rejoins`` still reads 0 right after the restarted client's
@@ -89,6 +97,74 @@ def adam_server(runs: int) -> dict:
     return {"fails": fails, "bad_logs": bad_logs}
 
 
+def _k3_log(sink: dict) -> None:
+    """Wrap the K3 entry point that ``rules.adam_apply`` calls, logging each
+    call's operands into ``sink["log"]`` (see the module docstring)."""
+    from mpit_tpu_torch.optim import rules
+
+    real = rules.fused_adam
+    mine = threading.local()  # each server thread's entry in flight
+
+    def logged(p, g, m, v, lr_t, **kw):
+        before = (_digest(p), _digest(m), _digest(v))
+        out = real(p, g, m, v, lr_t, **kw)
+        mine.entry.update(n=p.numel(), lr_t=float(lr_t).hex(),
+                          lr_t_shape=tuple(lr_t.shape), g=_digest(g), before=before,
+                          after=(_digest(p), _digest(m), _digest(v)))
+        return out
+
+    rules.fused_adam = logged
+    real_apply = rules.adam_apply
+
+    def apply(p, g, state, **kw):
+        mine.entry = {"thread": threading.current_thread().name}
+        out = real_apply(p, g, state, **kw)
+        t = state["t"]
+        mine.entry.update(t=int(t), t_shape=tuple(t.shape), t_dtype=str(t.dtype))
+        sink["log"].append(mine.entry)
+        return out
+
+    rules._RULES["adam"] = (rules._RULES["adam"][0], apply)
+
+
+def adam_ft(runs: int) -> dict:
+    import numpy as np
+
+    import test_torch_ft as T
+
+    fails = 0
+    first_parts = []
+    sink: dict = {"log": []}
+    _k3_log(sink)
+    for i in range(runs):
+        clean_log, faulty_log = [], []
+        sink["log"] = clean_log
+        case = T.TestRetryDedupEndToEnd()
+        clean, cstats = case._final_params(None, None, rule="adam")
+        sink["log"] = faulty_log
+        plans = {j: T.FaultPlan(seed=j, drop_every=3, dup_every=4, tags=T.DATA_TAGS)
+                 for j in range(2)}
+        faulty, fstats = case._final_params(
+            plans, T.FaultPlan(seed=9, drop_every=3, tags=T.REPLY_TAGS), rule="adam")
+        if clean.tobytes() != faulty.tobytes():
+            fails += 1
+            print(f"FAIL run {i}: stats {cstats} vs {fstats}", file=sys.stderr)
+            key = lambda r: (r["n"], r["t"])  # noqa: E731 — per-shard, per-t
+            a = sorted(clean_log, key=key)
+            b = sorted(faulty_log, key=key)
+            for x, y in zip(a, b):
+                if {k: x[k] for k in x if k != "thread"} != \
+                        {k: y[k] for k in y if k != "thread"}:
+                    first_parts.append((x, y))
+                    print(f"  first parting call:\n  clean  {x}\n  faulty {y}",
+                          file=sys.stderr)
+                    break
+            else:
+                print(f"  every K3 call equal ({len(a)} vs {len(b)} calls)",
+                      file=sys.stderr)
+    return {"fails": fails, "parted_at_a_call": len(first_parts)}
+
+
 def rejoin_read(runs: int) -> dict:
     import numpy as np
 
@@ -130,7 +206,7 @@ def rejoin_read(runs: int) -> dict:
     return {"rejoins_read_0": read_zero, "errors": errors}
 
 
-CASES = {"adam_server": adam_server, "rejoin_read": rejoin_read}
+CASES = {"adam_server": adam_server, "adam_ft": adam_ft, "rejoin_read": rejoin_read}
 
 
 def main() -> int:
