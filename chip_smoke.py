@@ -121,6 +121,24 @@ order; any failure raises and the script exits non-zero:
    times printed), and ``tools/torch_ptest.py``'s straggler legs
    (rebalance off, then on: the map must move) and its 1 -> 2 -> 1
    elastic sweep at 16 MB;
+6f. the read path (slices 5d and 5e), the open-file limit printed (and
+   its soft limit lifted to the hard one): ``serve_readers_adam`` (2 Adam
+   servers on the card at 272,261 a shard, one writer running 8 lockstep
+   rounds of seeded GRADs, 64 READ-ONLY readers in this process over the
+   port's TCP event loop, 5 whole-vector reads each, 4 MB admission
+   budgets: every read bit for bit the shard at its stamped version, from
+   a readerless record of the same GRADs; versions monotone; BUSY issued
+   and honoured; no RetryExhausted; one device->host copy per version a
+   server served, each timed among the readers and alone in the record;
+   K3 = the applies) and ``cells_fabric_adam`` (one Adam server at
+   544,522, 2 cells on int8 subscriptions, 32 fabric-routed readers x 6
+   reads, the first cell retired by GOODBYE a third of the way in: every
+   read the int8 round trip of the shard at its version, lag within 4,
+   reroutes, one encode per version shipped, DELTA and FULL frames and
+   DIFF bytes printed); beside them ``serve_cells_procs`` (``launch --np
+   8 --opt adam --serve_readers 4 --cells 2`` over TCP, the first cell
+   SIGKILLed after it served 20 reads: evicted by its upstream's lease,
+   the readers failing over, the server process's K3 = its applies);
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
@@ -2464,6 +2482,597 @@ def sc_phases(torch, kernels, all_paths, smi, timing):
           f"legs {ptest_s:.1f}s)")
 
 
+# -- the read path (slices 5d and 5e) -----------------------------------------------
+
+#: serve_readers_adam: READ-ONLY readers in this process, reads each, the
+#: writer's lockstep rounds and each server's admission budget (a shard's
+#: frame is 1.09 MB, so about three replies fit in flight: the first wave,
+#: every reader at once, draws BUSY)
+SERVE_READERS = 64
+SERVE_READS = 5
+SERVE_ROUNDS = 8
+SERVE_BUDGET_MB = 4.0
+#: cells_fabric_adam: fabric-routed readers, reads each, the bound
+CELL_READERS = 32
+CELL_READS = 6
+CELL_MAX_LAG = 4
+#: serve_cells_procs: role ranks (1 server + 1 worker), cells, readers
+PROCS_CELLS = 2
+PROCS_READERS = 4
+
+
+def nofile():
+    """This process's open-file limit, its soft limit lifted to the hard one
+    (64 readers in one process hold ~5 descriptors each: two sockets, the
+    selector and the wakeup pipe; the servers' side another two).
+    Returns (soft before, soft now, hard)."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    return soft, resource.getrlimit(resource.RLIMIT_NOFILE)[0], hard
+
+
+def serve_mesh(core, nranks):
+    """The port's TCP transports of the ranks below ``core`` (full mesh
+    among them, the event loop accepting the rest lazily), and every
+    rank's address (ranks past ``core`` never listen)."""
+    import threading
+
+    from mpit_tpu_torch.comm.tcp import TcpTransport, allocate_local_addresses
+
+    addrs, socks = allocate_local_addresses(core)
+    addrs = addrs + ["127.0.0.1:0"] * (nranks - core)
+    tr = {}
+
+    def build(r):
+        tr[r] = TcpTransport(r, nranks, addrs, listener=socks[r], reconnect=60.0,
+                             dial_peers=list(range(r)))
+
+    threads = [threading.Thread(target=build, args=(r,)) for r in range(core)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    if len(tr) != core:
+        raise AssertionError("serve: the TCP mesh did not form")
+    return addrs, tr
+
+
+def serve_grads(n, rounds, seed):
+    """The writer's GRADs: seeded, the same in a readerless record and in
+    the run it holds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w0 = rng.standard_normal(n).astype(np.float32) * 0.05
+    return w0, rng.standard_normal((rounds, n)).astype(np.float32) * 0.01
+
+
+def serve_record(torch, nservers, w0, gtab):
+    """The shards at every version, from a readerless run of the same
+    lockstep GRADs: Adam servers on the card over the in-process router and
+    one writer; after the seed (version 1) and after each acked GRAD
+    (versions 2, 3, ...) each shard is copied to the host.  K3 is
+    elementwise and deterministic, so these are the bytes a reader at that
+    version must get.  Returns ({server rank: {version: shard}}, the
+    copies' ms: each shard's device->host copy timed alone, after a
+    synchronize, with nothing else running in this process)."""
+    import threading
+
+    import numpy as np
+
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+
+    router = LocalRouter(nservers + 1)
+    wrank = nservers
+    servers = [ParamServer(r, [wrank], router.endpoint(r), rule=rules.make("adam", lr=1e-3),
+                           device=GANG_BASE["device"]) for r in range(nservers)]
+    threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    grad = np.zeros_like(w0)
+    client = ParamClient(wrank, list(range(nservers)), router.endpoint(wrank),
+                         seed_servers=True, ft=FTConfig(op_deadline_s=30.0))
+    client.start(w0.copy(), grad)
+    out = {s.rank: {} for s in servers}
+    copy_ms = []
+
+    def snap():
+        for s in servers:
+            if s.param.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[s.rank][s._snap_version] = s.param.to("cpu", copy=True).numpy()
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+
+    snap()
+    for g in gtab:
+        grad[:] = g
+        client.async_send_grad()
+        client.wait()
+        snap()
+    client.stop()
+    for t in threads:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError("serve record: a server did not stop")
+    return out, copy_ms
+
+
+def timed_copies(server, log):
+    """Wrap the server's snapshot cache: each new version's device->host
+    copy is timed into ``log`` as (version, seconds)."""
+    inner = server._host_snapshot
+
+    def wrapped():
+        fresh = server._snap_host is None or server._snap_host[0] != server._snap_version
+        t0 = time.perf_counter()
+        out = inner()
+        if fresh:
+            log.append((server._snap_version, time.perf_counter() - t0))
+        return out
+
+    server._host_snapshot = wrapped
+
+
+def paced_reads(clients, reads, gap_s, on_read):
+    """Drive readers from this thread: every reader's first read at once
+    (the first wave), then each reader's next read ``gap_s`` after its last
+    completed; ``on_read(rank, client, seconds)`` after each.  Raises the
+    first reader error (a RetryExhausted is a failure here).  Returns the
+    read window's seconds."""
+    import heapq
+
+    due = [(0.0, r) for r in clients]
+    heapq.heapify(due)
+    left = {r: reads for r in clients}
+    started, inflight = {}, set()
+    t0 = time.perf_counter()
+    while due or inflight:
+        now = time.perf_counter() - t0
+        while due and due[0][0] <= now:
+            _t, r = heapq.heappop(due)
+            clients[r].async_read_params()
+            started[r] = time.perf_counter()
+            inflight.add(r)
+        for r in list(inflight):
+            if clients[r].poll():
+                continue
+            inflight.discard(r)
+            clients[r].reads_done += 1
+            on_read(r, clients[r], time.perf_counter() - started[r])
+            left[r] -= 1
+            if left[r]:
+                heapq.heappush(due, (time.perf_counter() - t0 + gap_s, r))
+        # Each pass steps every reader in flight while holding the
+        # interpreter lock the servers' threads need: pace the passes.
+        time.sleep(0.001 if inflight else 0.002)
+    return time.perf_counter() - t0
+
+
+def serve_writer(client, grad, gtab, gap_s, errors):
+    """The writer's lockstep rounds on a thread: one GRAD, acked, then a
+    pause, so the readers' reads spread over the versions."""
+    import threading
+
+    def run():
+        try:
+            for g in gtab:
+                grad[:] = g
+                client.async_send_grad()
+                client.wait()
+                time.sleep(gap_s)
+        except BaseException as exc:  # noqa: BLE001 — raised by the caller
+            errors.append(exc)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def read_stats(lat, nbytes, window):
+    import numpy as np
+
+    ms = np.asarray(lat) * 1e3
+    return {"reads": len(lat), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mbs": len(lat) * nbytes / window / 2**20, "window_s": window}
+
+
+def serve_readers_adam(torch, kernels, all_paths, smi):
+    """2 Adam servers on the card at the flagship CNN's widths (544,522
+    floats, 272,261 a shard), 1 writer running 8 lockstep rounds and 64
+    READ-ONLY readers in this process, all over the port's TCP event loop;
+    each server admits against a 4 MB budget.  Every read is bit for bit
+    the shard at its stamped version (from a readerless record of the same
+    GRADs), versions are monotone per reader, the first wave draws BUSY,
+    which the readers honour, none exhausts its retries, each server makes
+    one device->host copy per version it served, and K3 runs once per
+    apply."""
+    import numpy as np
+
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer, ReaderClient, ServeConfig
+    from mpit_tpu_torch.ps.sharding import shard_layout
+    from mpit_tpu_torch.comm.tcp import TcpTransport
+
+    name = "serve_readers_adam"
+    n = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1).size
+    w0, gtab = serve_grads(n, SERVE_ROUNDS, seed=21)
+    expected, quiet_ms = serve_record(torch, 2, w0, gtab)
+    shards = shard_layout(n, 2)
+    sranks, wrank = [0, 1], 2
+    readers = list(range(3, 3 + SERVE_READERS))
+    addrs, tr = serve_mesh(3, 3 + SERVE_READERS)
+    servers = [ParamServer(r, [wrank], tr[r], rule=rules.make("adam", lr=1e-3),
+                           device=GANG_BASE["device"], reader_ranks=readers,
+                           serve=ServeConfig(budget_bytes=int(SERVE_BUDGET_MB * (1 << 20))))
+               for r in sranks]
+    copies = {s.rank: [] for s in servers}
+    for s in servers:
+        timed_copies(s, copies[s.rank])
+    import threading
+
+    threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    grad = np.zeros(n, np.float32)
+    client = ParamClient(wrank, sranks, tr[wrank], seed_servers=True,
+                         ft=FTConfig(op_deadline_s=30.0))
+    client.start(w0.copy(), grad)
+    rtr, clients, mirrors = {}, {}, {}
+    for r in readers:
+        rtr[r] = TcpTransport(r, len(addrs), addrs, reconnect=60.0, dial_peers=sranks,
+                              listen=False)
+        # The default backoff: BUSYs escalate to its 2 s cap (with a 50 ms
+        # cap the 64 readers drew 8,846 BUSYs and took longer).
+        clients[r] = ReaderClient(r, sranks, rtr[r], ft=FTConfig(op_deadline_s=30.0))
+        mirrors[r] = np.zeros(n, np.float32)
+        clients[r].start(mirrors[r])
+    zero_counts(kernels)
+    lat, served, bad = [], {0: set(), 1: set()}, []
+
+    def on_read(r, rc, dt):
+        lat.append(dt)
+        for s, shard in zip(sranks, shards):
+            v = rc.read_versions[s]
+            served[s].add(v)
+            want = expected[s].get(v)
+            got = mirrors[r][shard.offset:shard.offset + shard.size]
+            if want is None or got.tobytes() != want.tobytes():
+                bad.append((r, s, v))
+
+    errors = []
+    writer = serve_writer(client, grad, gtab, 0.03, errors)
+    window = paced_reads(clients, SERVE_READS, 0.02, on_read)
+    writer.join(120)
+    if errors or writer.is_alive():
+        raise AssertionError(f"{name}: the writer failed or hung: {errors}")
+    monotone = all(rc.monotone for rc in clients.values())
+    busy_honored = sum(rc.busy_honored for rc in clients.values())
+    retries = sum(rc.retries for rc in clients.values())
+    for rc in clients.values():
+        rc.stop()
+    client.stop()
+    for t in threads:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError(f"{name}: a server did not stop")
+    for t in list(rtr.values()) + list(tr.values()):
+        t.close()
+    launches = read_counts(kernels)
+    applied = sum(s.grads_applied for s in servers)
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} reads differ from the shard at their "
+                             f"stamped version, e.g. (reader, server, version) {bad[:3]}")
+    if not monotone:
+        raise AssertionError(f"{name}: a reader saw a version go back")
+    if len(lat) != SERVE_READERS * SERVE_READS:
+        raise AssertionError(f"{name}: {len(lat)} reads")
+    busy = [s.busy_replies for s in servers]
+    if not (sum(busy) >= 1 and busy_honored >= 1):
+        raise AssertionError(f"{name}: BUSY issued {busy}, honoured {busy_honored}")
+    for s in servers:
+        if s.snapshot_copies != len(served[s.rank]) or len(copies[s.rank]) != len(served[s.rank]):
+            raise AssertionError(f"{name}: server {s.rank} made {s.snapshot_copies} copies "
+                                 f"for {len(served[s.rank])} versions served")
+        if s.grads_applied != SERVE_ROUNDS:
+            raise AssertionError(f"{name}: server {s.rank} applied {s.grads_applied}")
+    expect_launches(name, launches, {"k3": applied})
+    copy_ms = [dt * 1e3 for log in copies.values() for _v, dt in log]
+    reading = {**read_stats(lat, 4 * n, window), "readers": SERVE_READERS,
+               "busy_issued": busy, "busy_honored": busy_honored, "retries": retries,
+               "versions_served": {s: sorted(v) for s, v in served.items()},
+               "snapshot_copies": [s.snapshot_copies for s in servers],
+               "snapshot_hits": [s.snapshot_hits for s in servers],
+               "d2h_copy_ms": {"median": float(np.median(copy_ms)), "max": max(copy_ms),
+                               "n": len(copy_ms)},
+               "d2h_copy_ms_alone": {"median": float(np.median(quiet_ms)),
+                                     "max": max(quiet_ms), "n": len(quiet_ms)},
+               "applied": applied, "launches": launches}
+    print(f"{name}: " + json.dumps(reading))
+    print(f"{name} on {smi}: {SERVE_READERS} readers x {SERVE_READS} whole-vector reads "
+          f"of {n:,} floats: p50 {reading['p50_ms']:.3f} ms, p99 {reading['p99_ms']:.3f} ms, "
+          f"{reading['mbs']:.1f} MB/s; BUSY {sum(busy)} issued, {busy_honored} honoured; "
+          f"one device->host copy per version served, median "
+          f"{reading['d2h_copy_ms']['median']:.3f} ms among the readers, "
+          f"{reading['d2h_copy_ms_alone']['median']:.3f} ms alone")
+    record_path(all_paths, name, launches, SERVE_ROUNDS)
+    return reading
+
+
+def cells_fabric_adam(torch, kernels, all_paths, smi):
+    """One Adam server on the card holding the flagship CNN's 544,522
+    floats, 1 writer (8 lockstep rounds), 2 cells on the default int8
+    subscription and 32 fabric-routed readers, over the port's TCP event
+    loop in this process; a third of the way into the reads the first cell
+    retires with GOODBYE toward the second.  Every read is bit for bit the
+    int8 round trip of the shard at its stamped version, every stamped lag
+    is within max_lag, no reader exhausts its retries and some reroute, and
+    the server encodes once per version it ships, not once per cell and
+    version."""
+    import threading
+
+    import numpy as np
+
+    from mpit_tpu_torch.cells.cell import ServingCell
+    from mpit_tpu_torch.comm import codec as codec_mod
+    from mpit_tpu_torch.comm.tcp import TcpTransport
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer, ReaderClient
+
+    name = "cells_fabric_adam"
+    n = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1).size
+    w0, gtab = serve_grads(n, SERVE_ROUNDS, seed=22)
+    int8 = codec_mod.get("int8")
+
+    def roundtrip(x):
+        wire = np.empty(int8.wire_nbytes(n), np.uint8)
+        int8.encode_into(x, wire)
+        out = np.empty(n, np.float32)
+        int8.decode_into(wire, out)
+        return out
+
+    expected = {v: roundtrip(x) for v, x in serve_record(torch, 1, w0, gtab)[0][0].items()}
+    cell_ranks = [2, 3]
+    readers = list(range(4, 4 + CELL_READERS))
+    addrs, tr = serve_mesh(4, 4 + CELL_READERS)
+    server = ParamServer(0, [1], tr[0], rule=rules.make("adam", lr=1e-3),
+                         device=GANG_BASE["device"], cell_ranks=cell_ranks,
+                         ft=FTConfig(lease_ttl_s=30.0))
+    pushed = []  # (cell, head, kind, bytes) per DIFF frame
+    inner = server._cell_frame
+
+    def frame(crank):
+        msgs = inner(crank)
+        kind = int(msgs[0][:8].view(np.int64)[0])
+        pushed.append((crank, server._snap_version, kind, sum(m.nbytes for m in msgs)))
+        return msgs
+
+    server._cell_frame = frame
+    sth = threading.Thread(target=server.start, daemon=True)
+    sth.start()
+    cells, cth = {}, []
+    for c in cell_ranks:
+        cells[c] = ServingCell(c, 0, tr[c], readers, size=n, codec="int8",
+                               max_lag=CELL_MAX_LAG,
+                               ft=FTConfig(heartbeat_s=0.05, op_deadline_s=30.0))
+        cth.append(threading.Thread(target=cells[c].start, daemon=True))
+        cth[-1].start()
+    grad = np.zeros(n, np.float32)
+    client = ParamClient(1, [0], tr[1], seed_servers=True, ft=FTConfig(op_deadline_s=30.0))
+    client.start(w0.copy(), grad)
+    rtr, clients, mirrors = {}, {}, {}
+    for r in readers:
+        rtr[r] = TcpTransport(r, len(addrs), addrs, reconnect=60.0, dial_peers=cell_ranks,
+                              listen=False)
+        clients[r] = ReaderClient(r, [0], rtr[r], codec="int8", cells={0: cell_ranks},
+                                  ft=FTConfig(op_deadline_s=30.0, heartbeat_s=0.25))
+        mirrors[r] = np.zeros(n, np.float32)
+        clients[r].start(mirrors[r])
+    zero_counts(kernels)
+    lat, lags, bad = [], [], []
+    retire_after = CELL_READERS * CELL_READS // 3
+
+    def on_read(r, rc, dt):
+        lat.append(dt)
+        v = rc.read_versions[0]
+        lags.append(rc.lags[0])
+        want = expected.get(v)
+        if want is None or mirrors[r].tobytes() != want.tobytes():
+            bad.append((r, v))
+        if len(lat) == retire_after:
+            cells[cell_ranks[0]].retire_serving(cell_ranks[1])
+
+    errors = []
+    writer = serve_writer(client, grad, gtab, 0.04, errors)
+    window = paced_reads(clients, CELL_READS, 0.03, on_read)
+    writer.join(120)
+    if errors or writer.is_alive():
+        raise AssertionError(f"{name}: the writer failed or hung: {errors}")
+    reroutes = sum(int(rc._m_reroutes.value) for rc in clients.values())
+    monotone = all(rc.monotone for rc in clients.values())
+    busy_honored = sum(rc.busy_honored for rc in clients.values())
+    for rc in clients.values():
+        rc.stop()
+    client.stop()
+    for t in cth + [sth]:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError(f"{name}: a cell or the server did not stop")
+    for t in list(rtr.values()) + list(tr.values()):
+        t.close()
+    launches = read_counts(kernels)
+    final = server._snap_version
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} reads differ from the int8 round trip of "
+                             f"the shard at their version, e.g. {bad[:3]}")
+    if not monotone or max(lags) > CELL_MAX_LAG or reroutes < 1:
+        raise AssertionError(f"{name}: monotone {monotone}, largest lag {max(lags)}, "
+                             f"reroutes {reroutes}")
+    heads = {h for _c, h, _k, _b in pushed}
+    if server.snapshot_copies != len(heads) or len(pushed) <= len(heads):
+        raise AssertionError(f"{name}: {server.snapshot_copies} encodes for {len(heads)} "
+                             f"versions shipped in {len(pushed)} DIFF frames")
+    survivor = cells[cell_ranks[1]]
+    if survivor.version != final or bytes(survivor._frame) != bytes(
+            server._snap_wire["int8"][1]):
+        raise AssertionError(f"{name}: the surviving cell holds version {survivor.version} "
+                             f"of {final}, or not the server's frame")
+    expect_launches(name, launches, {"k3": server.grads_applied})
+    kinds = {"full": sum(1 for p in pushed if p[2] == 0),
+             "delta": sum(1 for p in pushed if p[2] == 1)}
+    reading = {**read_stats(lat, 4 * n, window), "readers": CELL_READERS,
+               "max_lag": max(lags), "max_lag_bound": CELL_MAX_LAG, "reroutes": reroutes,
+               "busy_honored": busy_honored, "diffs": kinds,
+               "diff_bytes": sum(p[3] for p in pushed),
+               "full_frame_bytes": int8.wire_nbytes(n) + 40,
+               "snapshot_copies": server.snapshot_copies, "versions_shipped": len(heads),
+               "final_version": final,
+               "cells": {c: {"params_served": cl.params_served, "busy": cl.busy_replies,
+                             "diffs_installed": cl.diffs_installed,
+                             "resyncs": cl.resyncs, "lag_sheds": cl.lag_sheds}
+                         for c, cl in cells.items()},
+               "applied": server.grads_applied, "launches": launches}
+    print(f"{name}: " + json.dumps(reading))
+    print(f"{name} on {smi}: {CELL_READERS} fabric readers x {CELL_READS} int8 reads of "
+          f"{n:,} floats through 2 cells, one retired mid-run: p50 "
+          f"{reading['p50_ms']:.3f} ms, p99 {reading['p99_ms']:.3f} ms; {kinds['delta']} "
+          f"DELTA + {kinds['full']} FULL frames, {reading['diff_bytes']:,} DIFF bytes; "
+          f"{server.snapshot_copies} encodes for {len(heads)} versions; {reroutes} reroutes")
+    record_path(all_paths, name, launches, SERVE_ROUNDS)
+    return reading
+
+
+def serve_cells_procs(all_paths, smi):
+    """``launch --np 8 --opt adam --serve_readers 4 --cells 2
+    --ft_op_deadline_s 2 --ft_heartbeat_s 0.25 --ft_lease_ttl_s 3
+    --transport tcp --supervise 1`` at the flagship widths: the server and
+    the worker on the card, the cells and readers host roles.  Once the
+    first cell has served 20 reads (its ``/metrics``), it is SIGKILLed
+    (expendable: never restarted); its upstream's lease evicts it, the
+    readers fail over to the sibling and finish.  Held: every reader's
+    reads monotone and within the lag bound, at least one failover, the
+    eviction, and the server process's K3 equal to its applies."""
+    import signal
+    import threading
+
+    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
+    from mpit_tpu_torch.obs.statusd import free_base_port
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
+
+    name = "serve_cells_procs"
+    size = 2 + PROCS_CELLS + PROCS_READERS
+    victim = 2
+    addrs, socks = allocate_local_addresses(size)
+    for sock in socks:
+        sock.close()
+    base = free_base_port(size)
+    saved = os.environ.get("MPIT_OBS_HTTP")
+    os.environ["MPIT_OBS_HTTP"] = str(base)
+    try:
+        cfg = LAUNCH_DEFAULTS.parse_args([
+            "--np", str(size), "--opt", "adam", "--transport", "tcp",
+            "--serve_readers", str(PROCS_READERS), "--cells", str(PROCS_CELLS),
+            "--serve_rounds", "40", "--serve_interval_s", "0.1", "--ft_op_deadline_s", "2",
+            "--ft_heartbeat_s", "0.25", "--ft_lease_ttl_s", "3", "--supervise", "1"]).merged(
+            GANG_BASE, lr=1e-3, epochs=1, tcp_addrs=",".join(addrs))
+        t0 = time.perf_counter()
+        results = launch_processes(cfg, timeout=600, chaos=dict(
+            chaos_kill_rank=victim, chaos_kill_after_s=0.0, chaos_signal=signal.SIGKILL,
+            expendable=[victim],
+            # Late enough that the victim's beats armed its lease at the
+            # server (a cell that never beat is never evicted: its death
+            # is the supervisor's to notice).
+            chaos_when=lambda: (http_metric(base + victim, "mpit_ps_params_served_total",
+                                            victim) or 0) >= 20))
+        wall = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("MPIT_OBS_HTTP", None)
+        else:
+            os.environ["MPIT_OBS_HTTP"] = saved
+    srv, worker = results[0], results[1]
+    survivor = results[3]
+    rdr = [results[r] for r in range(4, size)]
+    if not results[victim].get("killed") or srv["role"] != "server" \
+            or worker["role"] != "worker" or survivor["role"] != "cell":
+        raise AssertionError(f"{name}: roles {[v.get('role') for v in results.values()]}")
+    if srv["evictions"] < 1:
+        raise AssertionError(f"{name}: the killed cell was never evicted by its lease")
+    restarted = {r: v["restarts"] for r, v in results.items() if v.get("restarts")}
+    if restarted:
+        raise AssertionError(f"{name}: ranks restarted {restarted}")
+    if srv["launches"]["k3"] != srv["grads_applied"] or not srv["grads_applied"]:
+        raise AssertionError(f"{name}: K3 {srv['launches']['k3']} for "
+                             f"{srv['grads_applied']} applies")
+    if (srv["platform"], worker["platform"]) != ("cuda", "cuda") \
+            or {v["platform"] for v in rdr + [survivor]} != {"cpu"}:
+        raise AssertionError(f"{name}: platforms "
+                             f"{[v.get('platform') for v in results.values()]}")
+    failovers = sum(v["failovers"] for v in rdr)
+    lags = [lag for v in rdr for lag in v["lags"].values()]
+    if failovers < 1 or any(not v["monotone"] or v["reads"] != 40 for v in rdr) \
+            or max(lags) > int(cfg.cell_max_lag):
+        raise AssertionError(f"{name}: readers {rdr}")
+    reading = {"wall_s": wall, "failovers": failovers, "evictions": srv["evictions"],
+               "reads": sum(v["reads"] for v in rdr), "busy_honored":
+               sum(v["busy_honored"] for v in rdr), "max_lag": max(lags),
+               "survivor": {k: survivor[k] for k in ("params_served", "diffs_installed",
+                                                     "resyncs", "busy_replies")},
+               "server": {"applies": srv["grads_applied"], "k3": srv["launches"]["k3"],
+                          "diffs_sent": srv["diffs_sent"],
+                          "snapshot_copies": srv["snapshot_copies"],
+                          "snap_version": srv["snap_version"]},
+               "launches": {k: sum(v.get("launches", {}).get(k, 0) for v in results.values())
+                            for k in ("k1", "k2", "k3")}}
+    print(f"{name}: " + json.dumps(reading))
+    print(f"{name} on {smi}: cell {victim} SIGKILLed mid-read, evicted by its upstream's "
+          f"lease; {failovers} failovers, {reading['reads']} reads, largest lag "
+          f"{reading['max_lag']}; {wall:.1f} s")
+    record_path(all_paths, name, reading["launches"], worker["steps"])
+    return wall
+
+
+def serve_phases(torch, kernels, all_paths, smi):
+    """The read path (slices 5d and 5e) on the card: the process gang with a
+    cell killed runs in the background while this process drives the reader
+    tier and the cell fabric over Adam shards that K3 applies.  (ptest's
+    read legs, ``MPIT_BENCH_READERS`` and ``MPIT_BENCH_CELLS``, took 182-197
+    s on the card, past this block's time: they run as a command of their
+    own, ``README.md``.)"""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpit_tpu_torch import obs
+
+    limits = nofile()
+    print(f"serve: open-file limit {limits[0]} (soft, lifted to {limits[1]}; hard "
+          f"{limits[2]})")
+    obs.configure(enabled=False)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        procs = pool.submit(serve_cells_procs, all_paths, smi)
+        t1 = time.perf_counter()
+        serve_readers_adam(torch, kernels, all_paths, smi)
+        cells_fabric_adam(torch, kernels, all_paths, smi)
+        inproc_s = time.perf_counter() - t1
+        procs_s = procs.result()
+    obs.configure(enabled=None)
+    print(f"read-path phases: {time.perf_counter() - t0:.1f}s (in-process {inproc_s:.1f}s; "
+          f"beside it the process gang {procs_s:.1f}s)")
+
+
 # -- observability (slice 5b) -----------------------------------------------------
 
 #: the timed process gang's epochs: long enough that the parent scrapes every
@@ -3701,6 +4310,7 @@ def main() -> int:
     ft_phases(torch, kernels, all_paths, smi, gang_timing)
     obs_phases(torch, kernels, all_paths, smi)
     sc_phases(torch, kernels, all_paths, smi, gang_timing)
+    serve_phases(torch, kernels, all_paths, smi)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 

@@ -33,7 +33,7 @@ from dataclasses import dataclass
 
 #: What each refused field belongs to.
 LATER_FIELDS = {
-    "chunk_bytes": "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
+    "chunk_bytes": "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5f, "
                    "streaming with comm/pool)",
 }
 

@@ -84,6 +84,7 @@ def supervise_gang(
     chaos_when: Optional[Callable[[], bool]] = None,
     initial_ranks: Optional[Iterable[int]] = None,
     elastic_dir: Optional[Any] = None,
+    expendable: Optional[Iterable[int]] = None,
 ) -> Dict[int, Dict[str, Any]]:
     """Run a gang to completion, restarting dead ranks under ``policy``.
 
@@ -91,7 +92,11 @@ def supervise_gang(
     with the rank's ``restarts`` (and the chaos victim's with the kill's
     wall-clock time, ``chaos_killed_at``).  A rank's *final* incarnation must exit
     0 and write its result file — except retired ranks, whose goodbye
-    needs no report.
+    needs no report, and ``expendable`` ranks, whose death ends them: never
+    restarted, reported as ``{"killed": True, "exit": code}`` (a SIGKILLed
+    serving cell is evicted by its upstream's lease and its readers fail
+    over to a sibling; a fresh incarnation would wait for readers that
+    already left it).
     """
     from mpit_tpu_torch.train.gang import (
         check_shm_room, fresh_namespace, spawn_rank, unlink_rings)
@@ -117,6 +122,8 @@ def supervise_gang(
     members = set(initial_ranks if initial_ranks is not None
                   else range(size))
     retired: set = set()
+    expendable = set(expendable or ())
+    killed: Dict[int, int] = {}  # expendable rank -> its exit code
     restarts = {r: 0 for r in members}
     done: Dict[int, int] = {}  # rank -> exit code 0
     for rank in sorted(members):
@@ -227,6 +234,12 @@ def supervise_gang(
             code = proc.poll()
             if code is None:
                 continue
+            if code != 0 and rank in expendable:
+                log.warning("rank %d died (exit %s); expendable: not restarted",
+                            rank, code)
+                killed[rank] = code
+                done[rank] = code
+                continue
             if code == 0 or rank in retired:
                 # A retired rank's exit is a goodbye whatever its code
                 # (a preemption may SIGKILL it right after the drain):
@@ -283,6 +296,8 @@ def supervise_gang(
             # A rank escalated to SIGKILL mid-exit wrote no report; its
             # drain already completed, so a synthetic one is honest.
             results[rank] = {"role": "server", "retired": True}
+        elif rank in killed:
+            results[rank] = {"killed": True, "exit": killed[rank]}
     missing = [r for r in sorted(members) if r not in results]
     if missing:
         raise RuntimeError(

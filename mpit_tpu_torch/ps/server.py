@@ -80,11 +80,35 @@ server's own paths:
   announce themselves mid-run; a ``preempt`` notice checkpoints every slot
   at once and reports PREEMPT to the controller.
 
+The read path (:mod:`mpit_tpu_torch.ps.serve`, :mod:`mpit_tpu_torch.cells`),
+the JAX server's own paths:
+
+- ``reader_ranks=`` are READ-ONLY attachers (``FLAG_READONLY``), served by
+  ONE dispatcher task behind the admission budget (``serve=``, a
+  :class:`~mpit_tpu_torch.ps.serve.ServeConfig`): a granted read is a
+  32-byte status header then the snapshot frame as its own message, a
+  zero-copy view of the version-counted cache — N readers of one version
+  cost one device->host copy and one encode; past the budget the reply is
+  BUSY with a retry hint; ``retire_serving`` answers GOODBYE with a
+  successor.
+- ``cell_ranks=`` are replica cells (``FLAG_SUBSCRIBE``), served by ONE
+  dispatcher task that pushes each cell the committed version stream as
+  DIFF frames (FULL, then XOR deltas out of a per-codec
+  :class:`~mpit_tpu_torch.cells.wire.FrameHistory` of ``cell_history``
+  versions), answers DIFF_REQ resyncs, and echoes ``[epoch, seq, head]``
+  on each subscriber heartbeat.
+- Each frame a reader or a cell gets is encoded from the host copy of the
+  shard taken after the applies that made its version: the copy runs on
+  the thread's current stream, behind K3 (whose programmatic launch lets
+  only a following *kernel* start early, never a copy), and is a fresh
+  host buffer each version — a reply still in flight keeps its own.
+- Serving and shard control are mutually exclusive, as in the reference.
+
 The wire is byte for byte the JAX package's, so a JAX client can drive
 this server and a port client a JAX server, and a shard migrates between
-a JAX server and a port server either way.  Chunked streaming (INIT v5),
-serving readers and cells, and the device data plane come with later
-slices: their announcements and constructor arguments raise
+a JAX server and a port server either way.  Chunked streaming (INIT v5,
+also as a chunk-framed cell subscription) and the device data plane come
+with later slices: their announcements and constructor arguments raise
 ``NotImplementedError`` naming the slice.
 """
 
@@ -107,6 +131,7 @@ from mpit_tpu_torch.aio import (
     aio_sleep,
     deadline_at,
 )
+from mpit_tpu_torch.cells import wire as _cellwire
 from mpit_tpu_torch.comm import codec as codec_mod
 from mpit_tpu_torch.comm.transport import Transport
 from mpit_tpu_torch.ft import (
@@ -139,6 +164,7 @@ from mpit_tpu_torch.obs.metrics import obs_enabled, registry_or_local
 from mpit_tpu_torch.obs.spans import get_recorder
 from mpit_tpu_torch.obs.statusd import register_provider as register_status_provider
 from mpit_tpu_torch.optim.rules import ShardRule, make as make_rule
+from mpit_tpu_torch.ps import serve as _psserve
 from mpit_tpu_torch.ps import tags
 from mpit_tpu_torch.shardctl import migrate as _scmigrate
 from mpit_tpu_torch.shardctl import wire as _scwire
@@ -149,19 +175,14 @@ from mpit_tpu_torch.utils.platform import resolve_device
 
 #: What each refused constructor argument of the JAX server belongs to.
 LATER_SERVER_ARGS = {
-    "reader_ranks": "the serving tier (slice 5, ps/serve)",
-    "serve": "the serving tier (slice 5, ps/serve)",
-    "cell_ranks": "serving cells (slice 5, cells)",
-    "cell_history": "serving cells (slice 5, cells)",
     "dplane": "the device data plane (slice 6, dplane)",
 }
 
-#: What each refused INIT flag belongs to.
+#: What each refused INIT flag belongs to (a chunk-framed cell subscription
+#: too: FLAG_SUBSCRIBE | FLAG_CHUNKED in INIT v5).
 LATER_FLAGS = {
-    FLAG_CHUNKED: "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
+    FLAG_CHUNKED: "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5f, "
                   "streaming with comm/pool)",
-    FLAG_READONLY: "the serving tier (FLAG_READONLY; slice 5, ps/serve)",
-    FLAG_SUBSCRIBE: "serving cells (FLAG_SUBSCRIBE; slice 5, cells)",
 }
 
 #: What a shard dtype other than float32 belongs to.
@@ -202,6 +223,16 @@ class ParamServer:
         #                          client ranks that may INIT mid-run
         preempt: Optional[Any] = None,  # ft.PreemptionNotice: checkpoint on
         #                          notice + a PREEMPT report when it fires
+        reader_ranks: Optional[List[int]] = None,  # the serving tier: READ-ONLY
+        #                          attachers, not protocol clients
+        serve: Optional["_psserve.ServeConfig"] = None,  # their admission budget
+        cell_ranks: Optional[List[int]] = None,  # replica cells that SUBSCRIBE
+        #                          to this server's committed version stream
+        #                          and serve READ-ONLY traffic from their own
+        #                          installed copy: one diff stream each
+        cell_history: int = 16,  # encoded frame versions kept per codec for
+        #                          delta production; a cell further behind
+        #                          resyncs with a FULL frame
         **later: Any,
     ):
         refuse_later("ParamServer", later, LATER_SERVER_ARGS)
@@ -213,6 +244,31 @@ class ParamServer:
             raise NotImplementedError(f"ParamServer(dtype={dtype!r}): {DTYPE_SLICE}")
         self.rank = rank
         self.cranks = list(client_ranks)
+        # The serving tier: expected reader ranks.  Readers are outside the
+        # client phases (no seeding, no grad services) — each gets a lazy
+        # attach, a read behind the admission budget, and a stop/lease
+        # slot, so the gang ends when every writer AND every expected
+        # reader is terminal.
+        self.readers = list(reader_ranks or [])
+        self._reader_set = set(self.readers)
+        if self._reader_set & set(self.cranks):
+            raise ValueError(
+                f"reader_ranks {sorted(self._reader_set & set(self.cranks))}"
+                " overlap client_ranks — a rank is a writer or a reader,"
+                " not both")
+        # Serving cells: a third role — like readers outside the client
+        # phases (lease slot, lazy attach, stop accounting), but they
+        # receive the pushed diff stream instead of requesting reads.
+        self.cells = list(cell_ranks or [])
+        self._cell_set = set(self.cells)
+        overlap = self._cell_set & (set(self.cranks) | self._reader_set)
+        if overlap:
+            raise ValueError(
+                f"cell_ranks {sorted(overlap)} overlap client/reader "
+                "ranks — a rank is a writer, a reader, or a cell, never "
+                "two of them")
+        self._cell_keep = int(cell_history)
+        self.serve_cfg = serve if serve is not None else _psserve.ServeConfig.from_env()
         self.transport = transport
         self.rule = make_rule(rule) if isinstance(rule, str) else rule
         self.sched = Scheduler()
@@ -243,7 +299,8 @@ class ParamServer:
         # stale loops abort), the INIT v3 postures, and the reply staging
         # the framed paths need.
         self.ft = ft if ft is not None else FTConfig.from_env()
-        self.leases = LeaseRegistry(self.cranks, ttl_s=self.ft.lease_ttl_s)
+        self.leases = LeaseRegistry(self.cranks + self.readers + self.cells,
+                                    ttl_s=self.ft.lease_ttl_s)
         self.dedup = DedupTable()
         self._framed: Dict[int, bool] = {}
         self._hb: Dict[int, bool] = {}
@@ -253,8 +310,23 @@ class ParamServer:
         # carry a trailing send stamp; their acks and replies grow the
         # [t_tx_echo, t_recv, t_ack] tail.
         self._timing: Dict[int, bool] = {}
-        self._gen: Dict[int, int] = {c: 0 for c in self.cranks}
-        self._svc_live: Dict[int, int] = {c: 0 for c in self.cranks}
+        # READ-ONLY postures (FLAG_READONLY) + the admission budget's live
+        # in-flight accounting: reply bytes/count queued to the transport
+        # but not yet accepted, across all readers.
+        self._readonly: Dict[int, bool] = {}
+        self._serve_inflight_bytes = 0
+        self._serve_inflight_reads = 0
+        # The diff-stream producer's state: SUBSCRIBE postures, the last
+        # version shipped per cell (-1 = owes a FULL frame), one in-flight
+        # push flag per cell (FIFO per channel), and the per-codec encoded
+        # frame history deltas are drawn from.
+        self._subscribe: Dict[int, bool] = {}
+        self._cell_sent: Dict[int, int] = {}
+        self._cell_push_live: Dict[int, bool] = {}
+        self._cell_hist: Dict[str, _cellwire.FrameHistory] = {}
+        _members = self.cranks + self.readers + self.cells
+        self._gen: Dict[int, int] = {c: 0 for c in _members}
+        self._svc_live: Dict[int, int] = {c: 0 for c in _members}
         self._param_send: Dict[int, np.ndarray] = {}
         self._ack_send: Dict[int, np.ndarray] = {}
         self._req_buf: Dict[int, np.ndarray] = {}
@@ -285,6 +357,8 @@ class ParamServer:
         self._preempt = preempt
         self._preempt_handled = False
         self.retired = False
+        # The serving tier's successor, announced to readers once retiring.
+        self._serve_successor: Optional[int] = None
         # Every protocol counter lives in a real registry (the global one
         # when obs is enabled, a private one otherwise: they are results
         # either way), read through the properties below; op processing
@@ -302,6 +376,12 @@ class ParamServer:
         self._m_snap_copies = _m.counter("mpit_ps_snapshot_copies_total", rank=_r)
         self._m_snap_hits = _m.counter("mpit_ps_snapshot_hits_total", rank=_r)
         self._m_ckpts = _m.counter("mpit_ps_ckpts_written_total", rank=_r)
+        self._m_busy = _m.counter("mpit_ps_busy_replies_total", rank=_r)
+        self._m_readers = _m.gauge("mpit_ps_readers", rank=_r)
+        self._m_cells = _m.gauge("mpit_ps_cells", rank=_r)
+        self._m_diff_full = _m.counter("mpit_ps_diffs_sent_total", rank=_r, kind="full")
+        self._m_diff_delta = _m.counter("mpit_ps_diffs_sent_total", rank=_r,
+                                        kind="delta")
         self._m_evictions = _m.counter("mpit_ft_evictions_total", rank=_r)
         self._m_sc_nacks = _m.counter("mpit_shardctl_nacks_sent_total", rank=_r)
         self._m_sc_busy = _m.counter("mpit_shardctl_busy_replies_total", rank=_r)
@@ -358,7 +438,18 @@ class ParamServer:
             "snap_version": self._snap_version,
             "map_version": getattr(self.smap, "version", None),
             "owned_shards": sorted(self._slots),
+            "readers": int(self._m_readers.value),
+            "cells": {
+                str(c): {
+                    "state": self.leases.state(c),
+                    "sent_version": self._cell_sent.get(c, -1),
+                }
+                for c in self.cells
+            },
+            "busy_replies": int(self._m_busy.value),
             "retired": self.retired,
+            "retiring_to": self._serve_successor,
+            "serve_inflight_bytes": self._serve_inflight_bytes,
             "device": str(self.device),
             "clients": {
                 str(c): {
@@ -423,6 +514,17 @@ class ParamServer:
     def ckpts_written(self) -> int:
         return int(self._m_ckpts.value)
 
+    @property
+    def busy_replies(self) -> int:
+        """Admission-control rejections issued (the serving tier)."""
+        return int(self._m_busy.value)
+
+    @property
+    def diffs_sent(self) -> Dict[str, int]:
+        """DIFF frames pushed to cells, by kind."""
+        return {"full": int(self._m_diff_full.value),
+                "delta": int(self._m_diff_delta.value)}
+
     # -- shard control reads (tests / observability) --------------------------
 
     @property
@@ -471,6 +573,39 @@ class ParamServer:
                 raise NotImplementedError(
                     f"client {crank} announced INIT v3 flag {flag}: {owner} "
                     "of the port")
+        # READ-ONLY attach (the serving tier): the posture is a property of
+        # the *rank role*, so a reader announcing as a writer (or the other
+        # way round) is a misconfiguration, caught here loudly.  The
+        # SUBSCRIBE posture extends it: a replica cell announces
+        # FLAG_READONLY | FLAG_SUBSCRIBE and receives the pushed diff
+        # stream instead of requesting reads.
+        ro = bool(flags & FLAG_READONLY)
+        sub = bool(flags & FLAG_SUBSCRIBE)
+        if sub and not ro:
+            raise ValueError(
+                f"rank {crank} announced FLAG_SUBSCRIBE without "
+                "FLAG_READONLY — a cell is a read-only role")
+        if sub and crank not in self._cell_set:
+            raise ValueError(
+                f"rank {crank} announced FLAG_SUBSCRIBE but is not in "
+                f"this server's cell_ranks {sorted(self._cell_set)}")
+        if crank in self._cell_set and not sub:
+            raise ValueError(
+                f"rank {crank} is a cell rank but announced without "
+                "FLAG_SUBSCRIBE — cells attach with the subscribe posture")
+        if ro and not sub and crank not in self._reader_set:
+            raise ValueError(
+                f"rank {crank} announced FLAG_READONLY but is not in this "
+                f"server's reader_ranks {sorted(self._reader_set)}")
+        if crank in self._reader_set and not ro:
+            raise ValueError(
+                f"rank {crank} is a reader rank but announced without "
+                "FLAG_READONLY — readers attach with the read-only posture")
+        if ro and not (flags & FLAG_FRAMED):
+            raise ValueError(
+                f"reader {crank} announced FLAG_READONLY without "
+                "FLAG_FRAMED — status-framed replies echo the request "
+                "identity")
         codec = codec_mod.by_wire_id(wire_id)
         if self._codec_pin is not None and codec.name != self._codec_pin:
             raise ValueError(
@@ -489,14 +624,19 @@ class ParamServer:
                 f"client {crank} announced shard ({offset},{size}) but server "
                 f"{self.rank} already holds ({self.offset},{self.size})"
             )
+        self._readonly[crank] = ro
+        self._subscribe[crank] = sub
         self._framed[crank] = bool(flags & FLAG_FRAMED)
         self._hb[crank] = bool(flags & FLAG_HEARTBEAT)
         # Staleness only rides the framed wire: the version word extends
         # the [epoch, seq] header, so without framing it negotiates off.
-        self._stale_track[crank] = (self._framed[crank]
+        # Readers and cells negotiate both extensions off: their replies
+        # carry the version in a word of their own.
+        self._stale_track[crank] = (self._framed[crank] and not ro
                                     and bool(flags & FLAG_STALENESS))
         # Same rule for the timing extension: no frame, no stamp slot.
-        self._timing[crank] = self._framed[crank] and bool(flags & FLAG_TIMING)
+        self._timing[crank] = (self._framed[crank] and not ro
+                               and bool(flags & FLAG_TIMING))
         self.leases.arm(crank, epoch, heartbeats=self._hb[crank])
         return codec
 
@@ -505,6 +645,11 @@ class ParamServer:
         replaces the per-pair (offset, size); owned shards become slots.
         Shard control implies framing — re-routable ops need the
         retry/dedup identity under them."""
+        if self.readers or self.cells:
+            raise ValueError(
+                "the serving tier (reader_ranks / cell_ranks) and "
+                "shardctl are mutually exclusive for now — readers and "
+                "cells address a static shard cut")
         codec_id, epoch, flags, smap = _scwire.parse_init_v4(raw)
         if not (flags & FLAG_FRAMED):
             raise ValueError(
@@ -596,6 +741,15 @@ class ParamServer:
         """(Re)allocate every per-client staging buffer for the client's
         negotiated codec + framing — initial INIT and rejoin both land
         here, so a rejoining incarnation may change codec freely."""
+        if self._readonly.get(crank):
+            # Readers and cells cost a request header, not a shard: no
+            # gradient or push staging, no ack buffers — the replies are
+            # fresh headers plus zero-copy views of the snapshot cache.
+            self._codecs[crank] = codec
+            self._req_buf[crank] = np.zeros(2, np.int64)
+            if self._hb.get(crank):
+                self._hb_buf[crank] = np.zeros(2, np.int64)
+            return
         if self._sc:
             # Shard-control frames are shard-addressed and sized per shard,
             # so the data paths receive by allocation; the only fixed-size
@@ -979,6 +1133,438 @@ class ParamServer:
                                     tags.GRAD_ACK, live=self.live,
                                     abort=self._svc_abort(crank, gen))
             span.end("applied")
+
+    # -- the serving tier: READ-ONLY readers + admission control -------------
+
+    def _update_reader_gauge(self) -> None:
+        live = sum(1 for r in self.readers
+                   if r in self._codecs and not self.leases.gone(r))
+        self._m_readers.set(live)
+
+    def retire_serving(self, successor: int) -> None:
+        """Serving-tier retirement: from now on every reader
+        request is answered ``GOODBYE`` carrying ``successor`` — the
+        reader re-attaches there instead of burning its retry budget
+        against a disappearing rank.  The redirected reader is marked
+        STOPPED here (it will never send this rank another frame), so
+        the stop protocol completes without it."""
+        if successor == self.rank:
+            raise ValueError("a retiring server cannot be its own successor")
+        self._serve_successor = int(successor)
+        self.log.info("serving tier retiring: readers redirected to %d",
+                      successor)
+
+    def _read_gate(self) -> "Optional[Tuple[int, int]]":
+        """Admission gate hook for the reader dispatcher: None grants;
+        a ``(status, word)`` pair answers the request with that status
+        instead (a lagging cell returns ``(BUSY, hint_us)``).
+        The base server serves the head itself — never gated."""
+        return None
+
+    def _serve_ok_header(self, epoch: int, seq: int) -> np.ndarray:
+        """The OK reply header for a granted read.  A cell overrides
+        this to the 5-word form that also stamps its known head version
+        (readers derive their observed lag from it)."""
+        return _psserve.serve_reply(epoch, seq, _scwire.OK,
+                                    self._snap_version)
+
+    # -- serving cells: the diff-stream producer -----------------------------
+
+    def _update_cell_gauge(self) -> None:
+        live = sum(1 for c in self.cells
+                   if c in self._codecs and not self.leases.gone(c))
+        self._m_cells.set(live)
+
+    def _cell_frame(self, crank: int) -> "List[np.ndarray]":
+        """The next DIFF message sequence for one subscriber: a DELTA
+        against the last version shipped to it when the history still
+        holds that frame, else a FULL frame at the head, as ONE message
+        (a chunk-framed subscription is refused at negotiation: slice 5f).
+        The head frame comes out of (and is recorded into) the same
+        snapshot cache wire reads share — N same-codec cells cost one
+        device->host copy, one encode and one XOR per committed version,
+        not N."""
+        codec = self._codecs[crank]
+        head = self._snap_version
+        wire = self._snapshot_wire(codec)
+        hist = self._cell_hist.get(codec.name)
+        if hist is None:
+            hist = _cellwire.FrameHistory(keep=self._cell_keep)
+            self._cell_hist[codec.name] = hist
+        hist.record(head, wire)
+        sent = self._cell_sent.get(crank, -1)
+        if 0 <= sent < head and hist.has(sent):
+            self._m_diff_delta.inc()
+            kind, from_v = _cellwire.DIFF_DELTA, sent
+            body = hist.delta(sent, head)
+        else:
+            self._m_diff_full.inc()
+            kind, from_v = _cellwire.DIFF_FULL, -1
+            body = wire
+        return [_cellwire.pack_diff(kind, from_v, head, head, body)]
+
+    def _cell_push(self, crank: int, gen: int, frames: "List[np.ndarray]",
+                   push_live: Dict[int, bool]):
+        """One in-flight diff push to one cell (FIFO per cell: the next
+        frame waits until this one is accepted, so the stream coalesces
+        to head under backpressure instead of queueing every version).
+        A cell that dies mid-push costs this task, never the server."""
+        span = self._spans.op("DIFF", peer=crank, side="server",
+                              rank=self.rank)
+        try:
+            span.mark("send")
+            for i, frame in enumerate(frames):
+                if i:
+                    span.mark("chunk")
+                yield from aio_send(self.transport, frame, crank,
+                                    tags.DIFF, live=self.live,
+                                    abort=self._svc_abort(crank, gen))
+        except (RuntimeError, DeadlineExceeded) as exc:
+            self.log.debug("diff to cell %d dropped: %r", crank, exc)
+            span.end("aborted")
+            return
+        finally:
+            push_live[crank] = False
+        span.end("served")
+
+    def _cell_dispatcher(self):
+        """ONE task serves every subscriber cell (the counterpart of the
+        reader dispatcher): probes attach/re-attach INITs, STOPs,
+        HEARTBEATs (renewing the lease and answering the 3-word head
+        echo — head knowledge must never ride the possibly-delayed DIFF
+        channel), DIFF_REQ resync requests, and pushes one diff per
+        cell whenever the committed version moved past what that cell
+        was last shipped."""
+        push_live: Dict[int, bool] = {c: False for c in self.cells}
+        self._cell_push_live = push_live
+        scan = 0
+        while self.live.on:
+            progressed = False
+            slot = scan & 7
+            for crank in self.cells:
+                attached = crank in self._codecs
+                slow_turn = (crank & 7) == slot
+                try:
+                    if ((not attached or slow_turn)
+                            and self.transport.iprobe(crank, tags.INIT)):
+                        payload = yield from self._dispatch_recv(
+                            crank, tags.INIT)
+                        codec = self._negotiate(crank, payload)
+                        self._gen[crank] += 1
+                        self.leases.rejoin(crank, self.leases.epoch(crank))
+                        self.leases.arm(crank, self.leases.epoch(crank),
+                                        heartbeats=self._hb.get(crank, False))
+                        self._alloc_client(crank, codec)
+                        self._cell_sent[crank] = -1  # owes a FULL frame
+                        self._update_cell_gauge()
+                        attached = True
+                        progressed = True
+                        self.log.info(
+                            "cell %d subscribed (epoch %d, gen %d, "
+                            "codec %s)", crank, self.leases.epoch(crank),
+                            self._gen[crank], codec.name)
+                    if not attached or self.leases.gone(crank):
+                        continue
+                    gen = self._gen[crank]
+                    if slow_turn and self.transport.iprobe(crank, tags.STOP):
+                        yield from self._dispatch_recv(crank, tags.STOP)
+                        self.leases.stop(crank)
+                        self._update_cell_gauge()
+                        progressed = True
+                        if self.leases.all_done():
+                            self.live.stop()
+                        continue
+                    # Every yield below lets the lease reaper run, and an
+                    # eviction releases the cell's buffers: re-check it.
+                    while (not self.leases.gone(crank)
+                           and self.transport.iprobe(crank, tags.HEARTBEAT)):
+                        beat = yield from self._dispatch_recv(
+                            crank, tags.HEARTBEAT, out=self._hb_buf[crank])
+                        if beat is None:
+                            break
+                        self._m_hb_seen.inc()
+                        self.leases.renew(crank, int(beat[0]))
+                        # Head echo: the staleness bound's ground truth
+                        # rides the heartbeat channel.  A task of its own:
+                        # sent inline, an echo to a cell that just died
+                        # holds this dispatcher (every other cell's beats
+                        # and diffs with it) until the dead cell's lease
+                        # expires — and the survivors' leases with it.
+                        self.sched.spawn(
+                            self._head_echo(crank, gen, _cellwire.head_echo(
+                                int(beat[0]), int(beat[1]), self._snap_version)),
+                            name=f"head_echo:{crank}")
+                        progressed = True
+                    if self.leases.gone(crank):
+                        continue  # evicted while its beats were answered
+                    if self.transport.iprobe(crank, tags.DIFF_REQ):
+                        req = yield from self._dispatch_recv(
+                            crank, tags.DIFF_REQ)
+                        if req is not None:
+                            epoch, _seq, have = _cellwire.parse_diff_req(req)
+                            if epoch >= self.leases.epoch(crank):
+                                self.leases.renew(crank, epoch)
+                                # Chain broke at the cell: next push is
+                                # a FULL frame at head.
+                                self._cell_sent[crank] = -1
+                                self.log.info(
+                                    "cell %d requested resync (has "
+                                    "version %d, head %d)", crank, have,
+                                    self._snap_version)
+                        progressed = True
+                    if push_live[crank] or self.leases.gone(crank):
+                        continue  # FIFO per cell: one diff in flight
+                    sent = self._cell_sent.get(crank, -1)
+                    if self.param is None or self._snap_version <= sent:
+                        continue
+                    frame = self._cell_frame(crank)
+                    push_live[crank] = True
+                    self._cell_sent[crank] = self._snap_version
+                    self.sched.spawn(
+                        self._cell_push(crank, gen, frame, push_live),
+                        name=f"cell_diff:{crank}")
+                    progressed = True
+                except RuntimeError:
+                    # Torn connection (fail-loud probe): the cell is
+                    # gone without a STOP — its lease evicts it, and a
+                    # restarted cell re-attaches via a fresh INIT.
+                    continue
+            scan += 1
+            if progressed:
+                yield EXEC
+            else:
+                if not (yield from aio_sleep(0.002, live=self.live)):
+                    return
+
+    def _head_echo(self, crank: int, gen: int, echo: np.ndarray):
+        """One best-effort head echo: a lost one costs the cell a stale
+        head estimate for one beat, never the server a task."""
+        try:
+            yield from aio_send(self.transport, echo, crank, tags.HEARTBEAT_ECHO,
+                                live=self.live, abort=self._svc_abort(crank, gen),
+                                deadline=deadline_at(1.0))
+        except (RuntimeError, DeadlineExceeded) as exc:
+            self.log.debug("head echo to cell %d dropped: %r", crank, exc)
+
+    def _dispatch_recv(self, crank: int, tag: int, out=None):
+        """Receive a message the dispatcher's probe already saw (fully
+        assembled, so this completes without waiting on the peer)."""
+        handle = self.transport.irecv(crank, tag, out=out)
+        while not self.transport.test(handle):
+            yield EXEC
+        return self.transport.payload(handle)
+
+    def _reader_dispatcher(self):
+        """ONE task serves every reader (the serving tier).  A
+        per-reader service trio would put O(attached readers) perpetual
+        tasks on the cooperative scheduler — at 512 readers every
+        scheduler pass walks ~1500 parked generators, and per-op
+        latency scales with attachment, not load.  Instead this single
+        task probes each reader's channels nonblockingly per scan
+        (attach/re-attach INIT, STOP, HEARTBEAT, read requests) and
+        spawns one bounded *reply task* per granted read: the scheduler
+        holds O(in-flight replies) tasks — and in-flight is exactly
+        what the admission budget bounds, so admission control is also
+        what keeps the scheduler flat under fan-out."""
+        reply_live: Dict[int, bool] = {r: False for r in self.readers}
+        self._reader_reply_live = reply_live  # introspection/tests
+        scan = 0
+        while self.live.on:
+            progressed = False
+            # Rare-event probes (re-attach, STOP, beats) are staggered
+            # over 8 scans so a steady-state scan costs ~one probe per
+            # reader — the hot path is PARAM_REQ, everything else can
+            # tolerate a few scans of latency.
+            slot = scan & 7
+            for crank in self.readers:
+                if reply_live[crank]:
+                    # FIFO per reader: one reply (or re-attach gate) at
+                    # a time — two in-flight replies to one reader
+                    # could interleave their header/body pairs.
+                    continue
+                attached = crank in self._codecs
+                slow_turn = (crank & 7) == slot
+                try:
+                    if ((not attached or slow_turn)
+                            and self.transport.iprobe(crank, tags.INIT)):
+                        payload = yield from self._dispatch_recv(
+                            crank, tags.INIT)
+                        codec = self._negotiate(crank, payload)
+                        self._gen[crank] += 1
+                        self.leases.rejoin(crank, self.leases.epoch(crank))
+                        self.leases.arm(crank, self.leases.epoch(crank),
+                                        heartbeats=self._hb.get(crank, False))
+                        self._alloc_client(crank, codec)
+                        self._update_reader_gauge()
+                        attached = True
+                        progressed = True
+                        self.log.info(
+                            "reader %d attached (epoch %d, gen %d)",
+                            crank, self.leases.epoch(crank),
+                            self._gen[crank])
+                    if not attached or self.leases.gone(crank):
+                        continue
+                    if slow_turn and self.transport.iprobe(crank, tags.STOP):
+                        yield from self._dispatch_recv(crank, tags.STOP)
+                        self.leases.stop(crank)
+                        self._update_reader_gauge()
+                        progressed = True
+                        if self.leases.all_done():
+                            self.live.stop()
+                        continue
+                    if slow_turn and self._hb.get(crank):
+                        while (not self.leases.gone(crank)
+                               and self.transport.iprobe(crank, tags.HEARTBEAT)):
+                            beat = yield from self._dispatch_recv(
+                                crank, tags.HEARTBEAT, out=self._hb_buf[crank])
+                            if beat is None:
+                                break
+                            self._m_hb_seen.inc()
+                            self.leases.renew(crank, int(beat[0]))
+                    # (the reaper may have evicted the reader meanwhile)
+                    if (not self.leases.gone(crank)
+                            and self.transport.iprobe(crank, tags.PARAM_REQ)):
+                        yield from self._dispatch_read(crank, reply_live)
+                        progressed = True
+                except RuntimeError:
+                    # Torn connection (the transport's fail-loud probe):
+                    # the reader is gone without a STOP — its lease (when
+                    # armed) evicts it; a replacement attaches through a
+                    # fresh INIT on a revived channel.
+                    continue
+            scan += 1
+            if progressed:
+                yield EXEC  # hot: scan again next step
+            else:
+                # Idle scan: pace the next one — two servers
+                # busy-scanning N channels would eat the very core the
+                # gang's replies are produced on (the IDLE_USEC lesson).
+                if not (yield from aio_sleep(0.002, live=self.live)):
+                    return
+
+    def _dispatch_read(self, crank: int, reply_live: Dict[int, bool]):
+        """Admit one read request: grant it a reply task, or answer
+        BUSY-with-retry-hint when the in-flight budget is spent."""
+        codec = self._codecs[crank]
+        cfg = self.serve_cfg
+        req = yield from self._dispatch_recv(crank, tags.PARAM_REQ,
+                                             out=self._req_buf[crank])
+        if req is None:
+            return
+        epoch, seq = int(req[0]), int(req[1])
+        span = self._spans.op("PARAM", peer=crank, side="server",
+                              rank=self.rank)
+        span.note(epoch=epoch, seq=seq, reader=1)
+        if epoch < self.leases.epoch(crank):
+            self._m_stale.inc()  # dead incarnation's request
+            span.end("stale")
+            return
+        self.leases.renew(crank, epoch)
+        gen = self._gen[crank]
+        if self._serve_successor is not None:
+            # Retiring: a goodbye-with-successor, not a grant —
+            # and not a silent vanish that costs the reader its budget.
+            succ = self._serve_successor
+            span.note(successor=succ)
+            span.mark("send")
+            header = _psserve.serve_reply(epoch, seq, _scwire.GOODBYE, succ)
+            reply_live[crank] = True
+            self.sched.spawn(
+                self._serve_reply(crank, gen, span, header, None, 0,
+                                  reply_live),
+                name=f"serve_goodbye:{crank}")
+            self.leases.stop(crank)
+            self._update_reader_gauge()
+            return
+        # Role-specific admission gate: the base server never gates — a
+        # cell overrides this hook to shed reads while its installed
+        # version trails the head beyond max_lag (BUSY with a catch-up
+        # hint), which is what makes the staleness bound *enforced* rather
+        # than advisory.  No scheduler yield between this gate and the
+        # stamped reply header: the (version, head) bound in the OK header
+        # is only exact because nothing can park the task inside this
+        # window.
+        gate = self._read_gate()
+        if gate is not None:
+            status, word = gate
+            self._m_busy.inc()
+            span.note(hint_us=word)
+            span.mark("send")
+            header = _psserve.serve_reply(epoch, seq, status, word)
+            reply_live[crank] = True
+            self.sched.spawn(
+                self._serve_reply(crank, gen, span, header, None, 0,
+                                  reply_live),
+                name=f"serve_gate:{crank}")
+            return
+        nbytes = codec.wire_nbytes(self.size)  # float32 shards: 4 x size
+        # An idle rank always grants (a frame larger than the whole
+        # budget must not be rejectable forever); past that, the budget
+        # bounds what may queue behind in-flight replies.
+        if self._serve_inflight_reads > 0 and (
+                self._serve_inflight_bytes + nbytes > cfg.budget_bytes
+                or (cfg.budget_reads > 0
+                    and self._serve_inflight_reads >= cfg.budget_reads)):
+            self._m_busy.inc()
+            hint = cfg.hint_us(self._serve_inflight_bytes)
+            span.note(hint_us=hint)
+            span.mark("send")
+            header = _psserve.serve_reply(epoch, seq, _scwire.BUSY, hint)
+            reply_live[crank] = True
+            self.sched.spawn(
+                self._serve_reply(crank, gen, span, header, None, 0,
+                                  reply_live),
+                name=f"serve_busy:{crank}")
+            return
+        span.mark("snapshot")
+        wire = self._snapshot_wire(codec)
+        header = self._serve_ok_header(epoch, seq)
+        self._serve_inflight_bytes += nbytes
+        self._serve_inflight_reads += 1
+        reply_live[crank] = True
+        self.sched.spawn(
+            self._serve_reply(crank, gen, span, header, wire, nbytes,
+                              reply_live),
+            name=f"serve_reply:{crank}")
+
+    def _serve_reply(self, crank: int, gen: int, span, header,
+                     body, nbytes: int, reply_live: Dict[int, bool]):
+        """One granted (or BUSY) reply: the 32-byte status header, then
+        — on a grant — the snapshot frame as its own message.  The body
+        is a zero-copy view of this version's cached frame, so N
+        readers of one version share one device->host copy and one
+        encode however many connections are attached.  A reader that
+        dies mid-reply costs this task, never the server."""
+        span.mark("send")
+        try:
+            yield from aio_send(self.transport, header, crank, tags.PARAM,
+                                live=self.live,
+                                abort=self._svc_abort(crank, gen))
+            if body is not None:
+                yield from aio_send(self.transport, body, crank, tags.PARAM,
+                                    live=self.live,
+                                    abort=self._svc_abort(crank, gen))
+        except (RuntimeError, DeadlineExceeded) as exc:
+            # Dead reader mid-reply (transport fail-loud): drop the
+            # reply; the lease reaper / re-attach path owns the rank.
+            self.log.debug("reply to reader %d dropped: %r", crank, exc)
+            span.end("aborted")
+            return
+        finally:
+            if body is not None:
+                self._serve_inflight_bytes -= nbytes
+                self._serve_inflight_reads -= 1
+            reply_live[crank] = False
+        if body is not None:
+            self._m_served.inc()
+            span.end("served")
+        else:
+            span.end("busy")
+        # A goodbye may have marked the last non-terminal rank STOPPED;
+        # re-check the stop condition now that the reply is on the wire.
+        if self.leases.all_done():
+            self.live.stop()
+
 
     # -- shard-control services: shard-addressed ops over the versioned map --
 
@@ -1448,6 +2034,8 @@ class ParamServer:
         if got is None:
             return
         self.leases.stop(crank)
+        if crank in self._reader_set:
+            self._update_reader_gauge()
         if self.leases.all_done():
             self.live.stop()
 
@@ -1470,6 +2058,10 @@ class ParamServer:
                 self._m_evictions.inc()
                 self._gen[crank] += 1  # stale loops abort at next poll
                 self._release_client(crank)
+                if crank in self._reader_set:
+                    self._update_reader_gauge()
+                if crank in self._cell_set:
+                    self._update_cell_gauge()
                 # Postmortem: the gang just lost a member — dump the
                 # recent-event ring + live task table (no-op with obs off).
                 self._flight.record("eviction", client=crank, rank=self.rank)
@@ -1497,6 +2089,9 @@ class ParamServer:
                 "epoch": self.leases.epoch(c),
             }
             for c in self._codecs
+            # Readers and cells re-attach through the dispatchers, so a
+            # restarted server need not carry their negotiation.
+            if c not in self._reader_set and c not in self._cell_set
         }
 
     def save_state(self, directory) -> str:
@@ -1735,6 +2330,14 @@ class ParamServer:
                              name=f"admit_listener:{crank}")
         if self.ft.lease_ttl_s > 0:
             self.sched.spawn(self._lease_reaper(), name="lease_reaper")
+        if self.readers:
+            # The serving tier: ONE dispatcher task for every reader —
+            # readers attach lazily, any time mid-run, and the scheduler's
+            # task count stays O(in-flight replies).
+            self.sched.spawn(self._reader_dispatcher(), name="reader_dispatcher")
+        if self.cells:
+            # ONE dispatcher pushes the diff stream to every subscriber cell.
+            self.sched.spawn(self._cell_dispatcher(), name="cell_dispatcher")
         if self._sc and self.controller_rank is not None:
             self.sched.spawn(self._sc_map_listener(), name="sc_map_listener")
             self.sched.spawn(self._sc_beat(), name="sc_beat")

@@ -2,9 +2,9 @@
 
 A copy of the tags of ``mpit_tpu/ps/tags.py`` that the port speaks: the
 eight of the unframed wire, the fault-tolerance beacon (9), shard control's
-directives and handoff (10-12) and the causal timing echo (13).  The tags of
-cells (14-15) and aggregation (16-17) come with their slices.  The port
-imports nothing of the JAX package.
+directives and handoff (10-12), the causal timing echo (13) and the
+serving cells' diff stream (14-15).  The tags of aggregation (16-17) come
+with their slice.  The port imports nothing of the JAX package.
 
 Eight channels, renamed by direction and purpose rather than the
 reference's server-perspective naming.  0-byte messages serve as the
@@ -57,7 +57,23 @@ HEARTBEAT_ECHO = 13  # server -> client: int64 [epoch, seq, t_tx_echo,
 #                      fire-and-forget, and the client drains echoes
 #                      opportunistically (iprobe in ping/wait) to refresh
 #                      its clock-offset estimator; a lost echo costs
-#                      nothing.
+#                      nothing.  Subscriber (FLAG_SUBSCRIBE) beats get the
+#                      3-word [epoch, seq, head_version] form instead — the
+#                      head announcement a replica cell's staleness
+#                      admission keys on.
+DIFF = 14  # server -> cell: one snapshot-diff frame of the committed
+#            version stream: int64 [kind, from_version, to_version,
+#            head_version, body_nbytes] then the body bytes in the SAME
+#            message (message-atomic under fault injection).  kind FULL
+#            carries the whole encoded snapshot frame at to_version
+#            (attach/resync); kind DELTA carries the XOR of the to/from
+#            encoded frames — the cell reconstructs to_version's frame
+#            bit-exactly from its installed from_version copy.
+DIFF_REQ = 15  # cell -> server: int64 [epoch, seq, have_version] — the
+#                resync request, sent when the diff chain broke (a dropped
+#                DELTA: from_version != the installed version) or the cell
+#                fell beyond its resync horizon; the server answers with a
+#                FULL frame at the current head.
 
 EMPTY = b""  # the canonical 0-byte payload
 
@@ -77,4 +93,9 @@ TAG_PAIRS = {
     "SHARD_PULL": ("server", "server"),
     "SHARD_STATE": ("server", "server"),
     "HEARTBEAT_ECHO": ("server", "client"),
+    # The serving cells' diff stream: a replica cell attaches to its
+    # upstream server like a client (SUBSCRIBE posture on INIT) but is its
+    # own role.
+    "DIFF": ("server", "cell"),
+    "DIFF_REQ": ("cell", "server"),
 }

@@ -91,7 +91,7 @@ def child_transport(cfg: Config, rank: int, size: int):
             raise ValueError(
                 f"transport=tcp needs {size} comma-separated tcp_addrs, "
                 f"got {len(addrs)}")
-        from mpit_tpu_torch.train.launch import assign_roles, rejoining
+        from mpit_tpu_torch.train.launch import assign_roles, read_path_ranks, rejoining
 
         dial_peers = None
         reconnect = None
@@ -115,7 +115,8 @@ def child_transport(cfg: Config, rank: int, size: int):
             # finished and exited is not a failure (PS traffic is
             # client<->server only, and the barrier is off on rejoin).
             sranks, _cranks, _tester = assign_roles(
-                size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
+                read_path_ranks(size, cfg)[0], int(cfg.get("master_freq", 2)),
+                str(cfg.get("tester", "none")))
             if rank not in sranks:
                 dial_peers = [r for r in sranks if r < rank]
         transport = TcpTransport(rank, size, addrs, dial_peers=dial_peers,

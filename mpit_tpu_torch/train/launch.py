@@ -50,9 +50,20 @@ first cut makes ``--elastic_shards_per_server`` shards per server.
 ``--autoscale 1`` adds the SLO-driven loop on the controller
 (``--autoscale_p99_ms`` and the other targets; needs ``MPIT_OBS_HTTP``).
 
-The layers of later slices (readers, cells, chunked streaming, the LM,
-aggregation, the device data plane) raise ``NotImplementedError`` naming
-their slice.
+The read path (:mod:`mpit_tpu_torch.ps.serve`, :mod:`mpit_tpu_torch.cells`):
+``--serve_readers R`` makes the last R ranks READ-ONLY readers that pull the
+current params ``--serve_rounds`` times, ``--serve_interval_s`` apart,
+against the servers' admission budget (``--serve_budget_mb``,
+``--serve_budget_reads``); ``--cells C`` puts C replica cells between the
+training roles and the readers: each subscribes to one server's committed
+version stream (``--cell_codec``, int8 unless told otherwise), serves the
+readers under the ``--cell_max_lag`` staleness bound, and readers route
+across a shard's cells by consistent hashing, failing over on a dead cell.
+Both need ``--ft_op_deadline_s``; cells also ``--ft_heartbeat_s``.
+Reader and cell ranks are host roles: they hold nothing on a device.
+
+The layers of later slices (chunked streaming, the LM, aggregation, the
+device data plane) raise ``NotImplementedError`` naming their slice.
 
 Usage:
     python -m mpit_tpu_torch.train.launch --np 1 --opt msgd
@@ -68,6 +79,10 @@ Usage:
         --side 8 --epochs 2 --transport tcp --ft_heartbeat_s 0.25 \\
         --ft_lease_ttl_s 20 --ft_op_deadline_s 5 --supervise 2 \\
         --server_ckpt_dir /tmp/ckpt --server_ckpt_interval 2
+    # 2 servers, 1 writer, 2 cells and 4 fabric-routed readers over TCP:
+    python -m mpit_tpu_torch.train.launch --np 9 --opt adam --device cpu \
+        --side 8 --epochs 1 --serve_readers 4 --cells 2 --transport tcp \
+        --tcp_addrs h:p,... --ft_op_deadline_s 30 --ft_heartbeat_s 0.2
     # shard control, then an elastic gang with a spare server slot (TCP):
     python -m mpit_tpu_torch.train.launch --np 5 --opt adam --device cpu \
         --side 8 --epochs 1 --shardctl 1 --ft_op_deadline_s 5
@@ -184,10 +199,33 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     autoscale_flap_budget=3,
     autoscale_min_servers=1,
     autoscale_max_servers=0,  # 0 = every provisioned server slot
+    # The serving tier: the LAST serve_readers ranks become READ-ONLY
+    # readers that attach to the servers, pull the current params
+    # serve_rounds times (serve_interval_s apart), check the snapshot
+    # versions are monotone, and stop.  Servers answer over-budget reads
+    # BUSY with a retry hint (serve_budget_mb in-flight reply bytes;
+    # serve_budget_reads optionally bounds the reply count).  Needs
+    # ft_op_deadline_s > 0 (BUSY recovery rides the retry machinery).
+    serve_readers=0,
+    serve_rounds=10,
+    serve_interval_s=0.05,
+    serve_budget_mb=64.0,
+    serve_budget_reads=0,
+    # Serving cells: cells N inserts N replica cells between the training
+    # roles and the readers.  Each subscribes to one server's committed
+    # version stream (one diff stream each), serves the readers under the
+    # cell_max_lag staleness bound, and readers route across a shard's
+    # cells by consistent hashing, failing over to ring siblings on cell
+    # death.  Needs serve_readers > 0, ft_op_deadline_s > 0,
+    # ft_heartbeat_s > 0 (cell leases and head echoes ride the beat
+    # channel) and N >= the server count.  cell_codec: the subscription
+    # codec, "" = int8 (the XOR deltas ride the encoded domain, bit-exact
+    # by construction); fabric readers negotiate the same codec.
+    cells=0,
+    cell_max_lag=4,
+    cell_codec="",
     # The reference's flags of later slices; each raises when set.
     ft_chunk_bytes=0,
-    serve_readers=0,
-    cells=0,
     lm=0,
     agg="off",
     dplane=0,
@@ -195,12 +233,10 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
 
 # flag -> (value meaning "off", the slice of the port it belongs to)
 LATER_FLAGS = {
-    "ft_chunk_bytes": (0, "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5, "
+    "ft_chunk_bytes": (0, "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5f, "
                           "streaming with comm/pool)"),
-    "serve_readers": (0, "the serving tier (slice 5, ps/serve)"),
-    "cells": (0, "serving cells (slice 5, cells)"),
     "lm": (0, "the LM workload through the PS gang (slice 7b, lm)"),
-    "agg": ("off", "hierarchical aggregation (slice 5, agg)"),
+    "agg": ("off", "hierarchical aggregation (slice 5g, agg)"),
     "dplane": (0, "the device data plane (slice 6, dplane)"),
 }
 
@@ -269,6 +305,148 @@ def server_rule_for(cfg: Config) -> rules_mod.ShardRule:
     if cfg.opt in SERVER_RULE_OPTS:
         return rules_mod.make(cfg.opt, lr=cfg.lr)
     return rules_mod.make("add")  # downpour/easgd/eamsgd ship pre-scaled deltas
+
+
+def read_path_ranks(size: int, cfg: Config) -> Tuple[int, List[int], List[int]]:
+    """(role_size, cell_ranks, reader_ranks): the last ``serve_readers``
+    ranks read, the ``cells`` ranks before them serve as replica cells,
+    and the roles split over the rest.  Raises on a split the reference
+    refuses."""
+    n_readers = int(cfg.get("serve_readers", 0) or 0)
+    n_cells = int(cfg.get("cells", 0) or 0)
+    if n_cells and not n_readers:
+        raise ValueError("--cells without --serve_readers: a cell fabric "
+                         "exists to serve readers")
+    if not n_readers:
+        return size, [], []
+    if bool(cfg.get("shardctl", False)) or bool(cfg.get("elastic", False)):
+        raise ValueError("serve_readers and shardctl are mutually exclusive "
+                         "for now")
+    if str(cfg.get("tester", "none")) != "none":
+        raise ValueError("serve_readers and a tester rank are mutually "
+                         "exclusive for now (both claim edge ranks)")
+    if float(cfg.get("ft_op_deadline_s", 0) or 0) <= 0:
+        raise ValueError("serve_readers needs --ft_op_deadline_s > 0: BUSY "
+                         "recovery rides the FT retry machinery")
+    if n_cells and float(cfg.get("ft_heartbeat_s", 0) or 0) <= 0:
+        raise ValueError("--cells needs --ft_heartbeat_s > 0: cell leases "
+                         "and the head echoes ride the beat channel")
+    if size - n_readers - n_cells < 2:
+        raise ValueError(
+            f"serve_readers={n_readers} + cells={n_cells} leave "
+            f"{size - n_readers - n_cells} role ranks; need >= 1 server + "
+            ">= 1 worker")
+    role_size = size - n_readers - n_cells
+    return (role_size, list(range(role_size, role_size + n_cells)),
+            list(range(role_size + n_cells, size)))
+
+
+def serve_cfg_for(cfg: Config) -> Any:
+    """The serving tier's admission budget from the launch config."""
+    from mpit_tpu_torch.ps.serve import ServeConfig
+
+    return ServeConfig.from_env(
+        budget_bytes=int(float(cfg.get("serve_budget_mb", 64.0)) * (1 << 20)),
+        budget_reads=int(cfg.get("serve_budget_reads", 0) or 0))
+
+
+def serve_vec_len(cfg: Config) -> int:
+    """The flat parameter-vector length a reader or cell mirrors: the
+    trainer's model at its side, counted from its parameter shapes (no
+    initialization, nothing on a device)."""
+    import math
+
+    from mpit_tpu_torch.models.flat import param_spec
+    from mpit_tpu_torch.models.mnist import make_model
+
+    return sum(math.prod(shape) for _name, shape in
+               param_spec(make_model(str(cfg.model), int(cfg.side))))
+
+
+def cell_codec_for(cfg: Config) -> str:
+    """The cell fleet's subscription codec: ``--cell_codec`` when set, else
+    int8 — the XOR diff stream is ~4x cheaper in the int8 domain and
+    bit-exact by construction, so compressed subscriptions are the
+    default and ``--cell_codec none`` opts out."""
+    from mpit_tpu_torch.comm import codec as codec_mod
+
+    name = str(cfg.get("cell_codec", "") or "") or "int8"
+    codec_mod.get(name)  # unknown names fail at launch, not mid-gang
+    return name
+
+
+def cell_map_for(sranks: List[int], cell_ranks: List[int]) -> Dict[int, List[int]]:
+    """Round-robin assignment of replica cells to server slots: cell i
+    mirrors sranks[i % S], so every shard gets ceil(N/S) replicas and
+    siblings exist whenever N >= 2S."""
+    out: Dict[int, List[int]] = {s: [] for s in sranks}
+    for i, c in enumerate(cell_ranks):
+        out[sranks[i % len(sranks)]].append(c)
+    return out
+
+
+def run_cell(rank: int, sranks: List[int], cell_ranks: List[int],
+             reader_ranks: List[int], cfg: Config, transport: Any) -> Dict[str, Any]:
+    """One replica serving cell: subscribe to the assigned upstream server's
+    version stream, serve the fabric's readers under the staleness bound,
+    stop when every reader is terminal."""
+    from mpit_tpu_torch.cells.cell import ServingCell
+    from mpit_tpu_torch.shardctl import shardmap as _shardmap
+
+    log = get_logger("cell", rank)
+    upstream = next(s for s, cs in cell_map_for(sranks, cell_ranks).items()
+                    if rank in cs)
+    smap = _shardmap.ShardMap.initial(serve_vec_len(cfg), sranks)
+    shard = dict(zip(sranks, (e.shard for e in smap.entries)))[upstream]
+    cell = ServingCell(
+        rank, upstream, transport, reader_ranks, offset=shard.offset,
+        size=shard.size, codec=cell_codec_for(cfg),
+        max_lag=int(cfg.get("cell_max_lag", 4)), ft=ft_from_cfg(cfg),
+        serve=serve_cfg_for(cfg))
+    log.info("cell for upstream %d, shard (%d,%d), readers %s",
+             upstream, shard.offset, shard.size, reader_ranks)
+    cell.start()
+    return {"role": "cell", "upstream": upstream, "version": cell.version,
+            "head": cell.head, "params_served": cell.params_served,
+            "busy_replies": cell.busy_replies,
+            "diffs_installed": cell.diffs_installed, "resyncs": cell.resyncs,
+            "lag_sheds": cell.lag_sheds}
+
+
+def run_reader(rank: int, sranks: List[int], cfg: Config, transport: Any,
+               cell_ranks: Optional[List[int]] = None) -> Dict[str, Any]:
+    """One READ-ONLY reader rank: attach, pull the current params
+    ``serve_rounds`` times at ``serve_interval_s`` pacing, check version
+    monotonicity, stop.  With a cell fabric the reads route across the
+    replica cells instead of the training servers."""
+    import numpy as np
+
+    from mpit_tpu_torch.ps.serve import ReaderClient
+
+    log = get_logger("serve", rank)
+    rc = ReaderClient(
+        rank, sranks, transport,
+        # Fabric readers negotiate the cells' subscription codec (a cell
+        # serves its subscription codec only); direct readers the gang's.
+        codec=(cell_codec_for(cfg) if cell_ranks else str(cfg.codec or "") or None),
+        ft=ft_from_cfg(cfg),
+        cells=(cell_map_for(sranks, cell_ranks) if cell_ranks else None))
+    mirror = np.zeros(serve_vec_len(cfg), np.float32)
+    rc.start(mirror)
+    interval = float(cfg.get("serve_interval_s", 0.05))
+    for _ in range(int(cfg.get("serve_rounds", 10))):
+        rc.read_params()
+        if interval > 0:
+            time.sleep(interval)
+    rc.stop()
+    log.info("reader done: %d reads, monotone=%s, busy honored %d",
+             rc.reads_done, rc.monotone, rc.busy_honored)
+    return {"role": "reader", "reads": rc.reads_done, "monotone": bool(rc.monotone),
+            "busy_honored": rc.busy_honored, "retries": rc.retries,
+            "versions": {str(k): v for k, v in rc.versions.items()},
+            "read_versions": {str(k): v for k, v in rc.read_versions.items()},
+            "lags": {str(k): v for k, v in rc.lags.items()},
+            "failovers": rc.failovers}
 
 
 def _autoscaler_for(cfg: Config, ctl: Any, size: int) -> Any:
@@ -441,7 +619,7 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
     # ranks past it are joiner-server slots the controller may spawn.
     np0 = (int(cfg.get("elastic_np0", 0) or 0) or size) if elastic_on else size
     ctl_rank: Optional[int] = None
-    role_size = size
+    role_size, cell_ranks, reader_ranks = read_path_ranks(size, cfg)
     if sc_on:
         if str(cfg.tester) != "none":
             raise ValueError("shardctl and a tester rank are mutually exclusive "
@@ -456,8 +634,15 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
         role_size = np0 - 1
     sranks, cranks, tester_rank = assign_roles(
         role_size, int(cfg.master_freq), str(cfg.tester))
+    if cell_ranks and len(cell_ranks) < len(sranks):
+        raise ValueError(f"cells={len(cell_ranks)} < {len(sranks)} servers: every "
+                         "shard needs at least one replica cell")
     codec = str(cfg.codec or "") or None
     ft = ft_from_cfg(cfg)
+    if rank in reader_ranks:
+        return run_reader(rank, sranks, cfg, transport, cell_ranks=cell_ranks or None)
+    if rank in cell_ranks:
+        return run_cell(rank, sranks, cell_ranks, reader_ranks, cfg, transport)
     if elastic_on and rank >= np0:
         return run_joiner_server(rank, cranks, cfg, transport, ctl_rank)
     if sc_on and rank == ctl_rank:
@@ -482,7 +667,12 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
             single_mode=str(cfg.opt).endswith("-single"),
             device=cfg.device, codec=codec, ft=ft, ckpt_dir=ckpt_dir or None,
             ckpt_interval=float(cfg.server_ckpt_interval),
-            controller_rank=ctl_rank, preempt=_maybe_preemption(cfg))
+            controller_rank=ctl_rank, preempt=_maybe_preemption(cfg),
+            # With a cell fabric the readers attach to the cells, not here:
+            # the server's serving surface is one diff stream per cell.
+            reader_ranks=None if cell_ranks else (reader_ranks or None),
+            cell_ranks=cell_map_for(sranks, cell_ranks)[rank] if cell_ranks else None,
+            serve=serve_cfg_for(cfg) if (reader_ranks and not cell_ranks) else None)
         if bool(cfg.resume):
             path = pathlib.Path(ckpt_dir) / f"server{rank}_latest.npz"
             if not ckpt_dir or not path.exists():
@@ -494,7 +684,9 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
         log.info("server for clients %s", cranks)
         server.start()
         return _server_result(server, restored=bool(cfg.resume),
-                              param=server.param)
+                              param=server.param, busy_replies=server.busy_replies,
+                              diffs_sent=server.diffs_sent,
+                              snap_version=server._snap_version)
     # On resume the restored servers are authoritative for params — no
     # client re-seeds.  Same for a supervisor-restarted worker rejoining
     # mid-run: the live servers hold the current center, and a re-seed
@@ -565,10 +757,16 @@ def expected_role(rank: int, size: int, cfg: Config) -> str:
         return "server"  # a spare joiner slot
     if sc_on and rank == np0 - 1:
         return "controller"
+    n_readers = int(cfg.get("serve_readers", 0) or 0)
+    n_cells = int(cfg.get("cells", 0) or 0)
+    if n_readers and rank >= size - n_readers:
+        return "reader"
+    if n_cells and rank >= size - n_readers - n_cells:
+        return "cell"
     try:
         sranks, _cranks, tester_rank = assign_roles(
-            np0 - 1 if sc_on else size, int(cfg.get("master_freq", 2)),
-            str(cfg.get("tester", "none")))
+            np0 - 1 if sc_on else size - n_readers - n_cells,
+            int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
     except ValueError:
         return ""
     if rank == tester_rank:
@@ -594,6 +792,8 @@ def device_env_overrides(cfg: Config, size: int) -> Dict[int, Dict[str, str]]:
         role_size = int(cfg.get("elastic_np0", 0) or 0) or size
         if bool(cfg.get("shardctl", False)) or bool(cfg.get("elastic", False)):
             role_size -= 1
+        role_size -= (int(cfg.get("serve_readers", 0) or 0)
+                      + int(cfg.get("cells", 0) or 0))
         _sranks, cranks, tester = assign_roles(
             role_size, int(cfg.get("master_freq", 2)), str(cfg.get("tester", "none")))
         accel_rank = tester if tester is not None else cranks[0]
@@ -637,11 +837,18 @@ def launch_processes(cfg: Config, timeout: float = 3600.0,
                              "(--autoscale_p99_ms / _busy_ratio / _staleness "
                              "/ _sendq)")
         cfg = cfg.merged(elastic=True)
+    size = int(cfg.np)
+    role_size, cell_ranks, _reader_ranks = read_path_ranks(size, cfg)
     if bool(cfg.elastic):
         return _launch_elastic(cfg, timeout, chaos)
-    size = int(cfg.np)
-    assign_roles(size - 1 if bool(cfg.shardctl) else size, int(cfg.master_freq),
-                 str(cfg.tester))
+    sranks, _cranks, _tester = assign_roles(
+        role_size - 1 if bool(cfg.shardctl) else role_size, int(cfg.master_freq),
+        str(cfg.tester))
+    if cell_ranks and len(cell_ranks) < len(sranks):
+        raise ValueError(f"cells={len(cell_ranks)} < {len(sranks)} servers: every "
+                         "shard needs at least one replica cell")
+    if cell_ranks:
+        cell_codec_for(cfg)
     overrides = device_env_overrides(cfg, size)
     if len(overrides) < size:  # some rank runs on cfg.device
         resolve_device(cfg.device)
@@ -656,9 +863,6 @@ def launch_processes(cfg: Config, timeout: float = 3600.0,
     if restarts > 0:
         from mpit_tpu_torch.ft.supervisor import RestartPolicy, supervise_gang
 
-        sranks, _cranks, _tester = assign_roles(
-            size - 1 if bool(cfg.shardctl) else size, int(cfg.master_freq),
-            str(cfg.tester))
         return supervise_gang(
             "mpit_tpu_torch.train.launch", cfg, timeout,
             policy=RestartPolicy(max_restarts=restarts),
@@ -773,7 +977,10 @@ def _child_main() -> None:
     role = expected_role(rank, size, cfg)
     maybe_start_statusd(rank, role=role)
     get_flight().set_identity(rank=rank, role=role)
-    device = resolve_device(cfg.device)
+    # Readers and cells are host roles: they hold nothing on a device and
+    # never make a CUDA context.
+    device = (torch.device("cpu") if role in ("reader", "cell")
+              else resolve_device(cfg.device))
     transport = child_transport(cfg, rank, size)
     result = run_rank(rank, size, cfg, transport)
     transport.close()
@@ -815,7 +1022,8 @@ def _summarize(result: Dict[str, Any]) -> Dict[str, Any]:
             "launches", "epoch", "retries", "dup_ops", "rejoins",
             "evictions", "ckpts_written", "restored", "restarts",
             "map_version", "membership_epoch", "elastic_events", "retired",
-            "owned_shards", "joiner"}
+            "owned_shards", "joiner", "reads", "monotone", "busy_honored",
+            "lags", "failovers", "diffs_installed", "busy_replies"}
     return {k: v for k, v in result.items() if k in keep}
 
 

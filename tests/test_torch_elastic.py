@@ -9,9 +9,10 @@ rounds (codec ``none`` and ``int8`` under ``add``); the chaos soak (grow,
 drain-shrink, preempt) also runs with ``rule="adam"``, bit for bit equal to
 the port's static Adam run and within the reference's fused-update
 tolerance of the JAX package's (its CPU Adam rounds through XLA), with K3's
-plain twin called once per admitted GRAD across every owner.  Left out:
-``TestReaderRetirement`` (the serving tier's GOODBYE, which comes with
-``ps/serve.py``).  The slow launch soak has a slow-marked twin.
+plain twin called once per admitted GRAD across every owner.
+``TestReaderRetirement``: a retiring server's GOODBYE re-routes a port
+reader to the successor, and a JAX reader off a port server, with the retry
+budget untouched.  The slow launch soak has a slow-marked twin.
 """
 
 import os
@@ -494,6 +495,56 @@ class TestLateAdmission:
                      for s in gang["servers"].values())
         assert admits == len(gang["servers"]), \
             "every server should admit the late client exactly once"
+
+
+class TestReaderRetirement:
+    @pytest.mark.parametrize("reader_pkg", ["torch", "jax"])
+    def test_goodbye_reroutes_reader_to_successor(self, reader_pkg):
+        """Read-replica pair: both port servers hold the full vector; the
+        reader attaches to server 0.  Retirement answers reads with
+        GOODBYE(successor=1); the reader (of either package) re-attaches
+        and keeps reading — no RetryExhausted, retry budget untouched."""
+        from mpit_tpu.comm.local import LocalRouter as JaxRouter
+        from mpit_tpu_torch.ps import ReaderClient
+
+        n = 16
+        router = JaxRouter(5)  # 0,1 servers; 2,3 writers; 4 reader
+        servers = [ParamServer(r, [w], router.endpoint(r), rule="add", ft=FAST_FT,
+                               device="cpu", reader_ranks=[4])
+                   for r, w in ((0, 2), (1, 3))]
+        threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
+        for t in threads:
+            t.start()
+        w = np.arange(n, dtype=np.float32)
+        writers = [ParamClient(r, [s], router.endpoint(r), seed_servers=True, ft=FAST_FT)
+                   for r, s in ((2, 0), (3, 1))]
+        starters = [threading.Thread(target=wr.start, args=(w.copy(), np.zeros_like(w)),
+                                     daemon=True) for wr in writers]
+        for t in starters:
+            t.start()
+        join_all(starters)
+        reader_cls, ft = ((ReaderClient, FAST_FT) if reader_pkg == "torch"
+                          else (jps.ReaderClient, JAX_FT))
+        reader = reader_cls(4, [0], router.endpoint(4), ft=ft)
+        mirror = np.zeros(n, np.float32)
+        reader.start(mirror)
+        reader.read_params()
+        np.testing.assert_array_equal(mirror, w)
+        servers[0].retire_serving(successor=1)
+        mirror[:] = 0
+        reader.read_params()  # GOODBYE -> re-attach at 1 -> served
+        np.testing.assert_array_equal(mirror, w)
+        assert int(reader._m_reroutes.value) == 1
+        assert reader._route == {0: 1} and reader.retries == 0
+        mirror[:] = 0
+        reader.read_params()  # later reads go straight to 1
+        np.testing.assert_array_equal(mirror, w)
+        assert int(reader._m_reroutes.value) == 1
+        reader.stop()
+        for wr in writers:
+            wr.stop()
+        join_all(threads)
+        assert servers[0].params_served == 1 and servers[1].params_served == 2
 
 
 # ---------------------------------------------------------------------------

@@ -1029,9 +1029,11 @@ def _v4_unframed():
                  "FLAG_CHUNKED.*slice 5", id="words2-FLAG_CHUNKED.*slice 5"),
     pytest.param([0, 8, 0, 1, 1 | 64], NotImplementedError,
                  "FLAG_CHUNKED.*slice 5", id="words3-FLAG_CHUNKED.*slice 5"),
-    pytest.param([0, 8, 0, 1, 1 | 16], NotImplementedError,
-                 "FLAG_READONLY.*slice 5", id="words4-FLAG_READONLY.*slice 5"),
-    pytest.param([0, 8, 0, 1, 1 | 16 | 32], NotImplementedError, "slice 5",
+    # The serving tier and cells landed: a READ-ONLY or SUBSCRIBE announcement
+    # from a rank that is neither a reader nor a cell is refused loudly.
+    pytest.param([0, 8, 0, 1, 1 | 16], ValueError,
+                 "FLAG_READONLY.*reader_ranks", id="words4-FLAG_READONLY.*slice 5"),
+    pytest.param([0, 8, 0, 1, 1 | 16 | 32], ValueError, "cell_ranks",
                  id="words5-slice 5"),
 ])
 def test_server_refuses_announcements_of_later_slices(words, exc, match):

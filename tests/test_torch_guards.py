@@ -6,7 +6,9 @@ refuses.
   that imports the entry points);
 - entry points run on CUDA unless asked for the CPU, and raise without it;
 - what belongs to a later slice raises ``NotImplementedError`` naming it,
-  and a parameter-server optimizer without a client raises ``ValueError``;
+  what has landed refuses a bad posture with the reference's
+  ``ValueError``, and a parameter-server optimizer without a client raises
+  ``ValueError``;
 - ``chip_smoke.py`` exits non-zero and prints no result without a card, and
   alone in a directory.
 """
@@ -76,7 +78,9 @@ def test_entry_points_load_without_jax():
             "mpit_tpu_torch.ops.flash_attention, mpit_tpu_torch.ops.build, "
             "mpit_tpu_torch.obs, mpit_tpu_torch.obs.__main__, mpit_tpu_torch.obs.causal, "
             "mpit_tpu_torch.obs.top, mpit_tpu_torch.obs.profile, mpit_tpu_torch.obs.flight, "
-            "mpit_tpu_torch.obs.statusd, mpit_tpu_torch.utils.timers; "
+            "mpit_tpu_torch.obs.statusd, mpit_tpu_torch.utils.timers, "
+            "mpit_tpu_torch.ps.serve, mpit_tpu_torch.cells.cell, "
+            "mpit_tpu_torch.cells.autoscale; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -211,23 +215,28 @@ def test_mesh_launch_refuses_later_slices(flags, tmp_path):
     ("tester", "last", "role split"),  # --np 2 leaves the tester no client
     ("shardctl", "1", "role split"),  # landed: --np 2 leaves no worker
     ("elastic", "1", "supervise"),  # landed: needs the supervisor
-    ("serve_readers", "1", "slice 5"),
-    ("cells", "1", "slice 5"),
+    ("serve_readers", "1", "ft_op_deadline_s"),  # landed: needs op deadlines
+    ("cells", "1", "without --serve_readers"),  # landed: cells serve readers
     ("lm", "1", "slice 7"),
     ("agg", "tree", "slice 5"),
     ("dplane", "1", "slice 6"),
-    ("init_v3", 1 | 16, "slice 5"),  # FLAG_READONLY: the serving tier
+    ("init_v3", 1 | 16, "reader_ranks"),  # landed: FLAG_READONLY from a non-reader
     ("ft_chunk_bytes", "65536", "slice 5"),
     ("init_v3", 1 | 8 | 64, "slice 5"),  # FLAG_TIMING with FLAG_CHUNKED
+    ("init_v5", 1 | 2 | 16 | 32 | 64, "slice 5f"),  # a chunk-framed subscription
 ])
 def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
     """The CLI's --np N refuses in the parent, before any process starts:
     an unknown optimizer and a role split with no client raise
     ValueError, as the reference's launcher does (so do shard control with
-    no worker left and --elastic without the supervisor), and the flags of
-    later slices and an INIT v3 flag of a later slice raise NotImplementedError
-    naming the slice; a PS optimizer without a client raises ValueError,
-    as the reference's trainer does."""
+    no worker left, --elastic without the supervisor, --serve_readers
+    without op deadlines and --cells without readers), and the flags of
+    later slices and an INIT flag of a later slice raise
+    NotImplementedError naming the slice (a cell's chunk-framed
+    subscription, INIT v5, names slice 5f); a READ-ONLY announcement from a
+    rank outside ``reader_ranks`` is a ValueError, as in the reference; a
+    PS optimizer without a client raises ValueError, as the reference's
+    trainer does."""
     from mpit_tpu_torch.train import gang
 
     def no_spawn(*args, **kw):
@@ -244,16 +253,22 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
             MnistTrainer(Config(opt="nope", device="cpu", side=8)).optimizer
         return
     flag, value, owner = refused
-    if flag == "init_v3":
+    if flag in ("init_v3", "init_v5"):
         from mpit_tpu_torch.comm.local import LocalRouter
         from mpit_tpu_torch.ps import ParamServer
 
-        server = ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu")
-        with pytest.raises(NotImplementedError, match=owner):
-            server._negotiate(1, np.asarray([0, 8, 0, 1, value], np.int64).tobytes())
+        # rank 1 a client of the first, a cell of the second
+        server = (ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu")
+                  if flag == "init_v3" else
+                  ParamServer(0, [2], LocalRouter(3).endpoint(0), device="cpu",
+                              cell_ranks=[1]))
+        words = [0, 8, 0, 1, value] + ([1024] if flag == "init_v5" else [])
+        exc = ValueError if value & 64 == 0 else NotImplementedError
+        with pytest.raises(exc, match=owner):
+            server._negotiate(1, np.asarray(words, np.int64).tobytes())
         return
     argv = ["--np", "2", "--device", "cpu", "--side", "8", f"--{flag}", value]
-    if flag in ("tester", "shardctl", "elastic"):
+    if flag in ("tester", "shardctl", "elastic", "serve_readers", "cells"):
         with pytest.raises(ValueError, match=owner):
             launch.main(argv)
         return

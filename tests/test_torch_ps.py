@@ -387,8 +387,9 @@ class TestWireCodecs:
     # shard control and elastic membership landed: accepted now
     pytest.param(ParamServer, {"preempt": object()}, False, id="ParamServer-kw0"),
     pytest.param(ParamServer, {"admit_ranks": [3]}, False, id="ParamServer-kw1"),
-    pytest.param(ParamServer, {"reader_ranks": [3]}, True, id="ParamServer-kw2"),
-    pytest.param(ParamServer, {"cell_ranks": [3]}, True, id="ParamServer-kw3"),
+    # the serving tier and cells landed: accepted now
+    pytest.param(ParamServer, {"reader_ranks": [3]}, False, id="ParamServer-kw2"),
+    pytest.param(ParamServer, {"cell_ranks": [3]}, False, id="ParamServer-kw3"),
     pytest.param(ParamServer, {"dplane": object()}, True, id="ParamServer-kw4"),
     pytest.param(ParamServer, {"shardctl": True}, False, id="ParamServer-kw5"),
     pytest.param(ParamClient, {"controller_rank": 0}, False, id="ParamClient-kw6"),
@@ -398,9 +399,9 @@ class TestWireCodecs:
 ])
 def test_later_slice_arguments_are_refused(cls, kw, refused):
     """Arguments of slices still to come raise NotImplementedError naming
-    the slice; shard control's and elastic membership's are accepted (a
-    shardctl client with op deadlines); an argument neither package has is
-    a TypeError."""
+    the slice; shard control's, elastic membership's, the serving tier's and
+    the cells' are accepted (a shardctl client with op deadlines); an
+    argument neither package has is a TypeError."""
     from mpit_tpu_torch.ft import FTConfig
 
     router = LocalRouter(2)

@@ -315,11 +315,11 @@ class TestWireBytes:
     def test_tags_match_the_jax_table(self):
         from mpit_tpu.ps import tags as jtags
 
-        for name in ("MAP_UPDATE", "SHARD_PULL", "SHARD_STATE"):
+        for name in ("MAP_UPDATE", "SHARD_PULL", "SHARD_STATE", "DIFF", "DIFF_REQ"):
             assert getattr(tags, name) == getattr(jtags, name)
             assert tags.TAG_PAIRS[name] == jtags.TAG_PAIRS[name]
-        for name in ("DIFF", "DIFF_REQ", "REDUCE", "REDUCE_ACK"):
-            assert not hasattr(tags, name)  # later slices
+        for name in ("REDUCE", "REDUCE_ACK"):
+            assert not hasattr(tags, name)  # aggregation: a later slice
 
 
 def _slot_pair(size, rule, seed=3, applies=3):

@@ -1,25 +1,39 @@
 """The port server's INIT negotiation against the wire-schema oracle: the
-twin of ``tests/test_wire_matrix.py``'s ``TestNegotiationMatrix`` at the
-plain posture (no readers, no cells), for INIT v1-v4 and all 128 flag sets
-of v3 and of v4, plus every legacy cell (v1-v3) announced to a server that
-already speaks shard control.
+twin of ``tests/test_wire_matrix.py``'s ``TestNegotiationMatrix`` at its
+three server postures — plain (no readers, no cells), ``reader`` (the
+announcing rank is in ``reader_ranks``) and ``cell`` (it is in
+``cell_ranks``) — for INIT v1-v4 and all 128 flag sets of v3 and of v4,
+plus every legacy cell (v1-v3) announced to a plain server that already
+speaks shard control.
 
 For every cell the port's ``ParamServer._negotiate`` must agree with
-``mpit_tpu.analysis.schema.negotiate``:
+``mpit_tpu.analysis.schema.negotiate`` (``reader_rank``/``serves_readers``,
+``cell_rank``/``serves_cells``):
 
 - a cell the oracle accepts is accepted, with the oracle's effective
-  per-pair posture (framed, heartbeat, staleness, timing, shardctl; the
-  readonly, subscribe and chunked postures of later slices are off);
+  per-pair posture (framed, heartbeat, staleness, timing, readonly,
+  subscribe, shardctl; the chunked posture of a later slice is off);
 - a cell the oracle refuses is refused — loudly, with a ValueError as the
   JAX server refuses it, or with a NotImplementedError that names the
   slice of the port its flag belongs to.
 
-The cells (counted by ``test_cell_counts``): v1 and v2 one cell each,
-accepted; v3 128 cells, 16 accepted and 112 refused as later slices; v4 128
-cells, the 64 with FLAG_FRAMED accepted as shard control (staleness and
-timing off, whatever the bits) and the 64 without it refused; a legacy
-announcement to a shard-control server, 130 cells, all refused.  INIT v5
-(chunked streaming) widens the twin with its slice.
+The cells (counted by ``test_cell_counts``), as (accepted, refused,
+refused as a later slice):
+
+- plain: v1 and v2 (1, 0, 0); v3 (16, 48, 64): the 64 with FLAG_CHUNKED are
+  a later slice's, and the 48 others with FLAG_READONLY or FLAG_SUBSCRIBE
+  are refused as the reference refuses a non-reader's posture; v4 (64, 64,
+  0): the 64 with FLAG_FRAMED accepted as shard control (staleness and
+  timing off, whatever the bits); a legacy announcement to a shard-control
+  server, 130 cells, all refused;
+- reader: v1 and v2 (0, 1, 0); v3 (8, 56, 64): the 8 READ-ONLY framed sets
+  accepted with staleness and timing negotiated off; v4 (0, 128, 0), shard
+  control excludes the serving tier;
+- cell: v1 and v2 (0, 1, 0); v3 (8, 56, 64): the 8 READ-ONLY SUBSCRIBE
+  framed sets, staleness and timing off; v4 (0, 128, 0).
+
+INIT v5 (chunked streaming, a chunk-framed subscription too) widens the
+twin with its slice.
 """
 
 import numpy as np
@@ -34,6 +48,13 @@ from mpit_tpu_torch.shardctl import ShardMap
 from mpit_tpu_torch.shardctl import wire as scwire
 
 SIZE = 1024
+
+#: (name, ParamServer kwargs, oracle kwargs) — the announcing rank is 1
+CONFIGS = {
+    "plain": ({}, {}),
+    "reader": ({"reader_ranks": [1]}, {"reader_rank": True, "serves_readers": True}),
+    "cell": ({"cell_ranks": [1]}, {"cell_rank": True, "serves_cells": True}),
+}
 
 
 def _announce_bytes(version: int, flags: int) -> bytes:
@@ -51,16 +72,17 @@ def _announce_bytes(version: int, flags: int) -> bytes:
     raise AssertionError(version)
 
 
-def _verdicts(version, sc_server=False):
+def _verdicts(version, sc_server=False, config="plain"):
     """(flags, oracle outcome, port verdict, port posture or refusal);
     ``sc_server``: the server already negotiated shard control (a framed
-    v4 client came first)."""
+    v4 client came first); ``config``: the server's serving posture."""
+    server_kw, oracle_kw = CONFIGS[config]
     out = []
     for flags in (range(128) if version in (3, 4) else [0]):
-        want = schema.negotiate(version, flags, sc_server=sc_server)
+        want = schema.negotiate(version, flags, sc_server=sc_server, **oracle_kw)
         # client_ranks=[2] keeps the announcing rank 1 out of the gang's
         # clients, as the reference matrix does.
-        server = ParamServer(0, [2], None, rule="add", device="cpu")
+        server = ParamServer(0, [2], None, rule="add", device="cpu", **server_kw)
         if sc_server:
             server._negotiate(3, _announce_bytes(4, 1))
         try:
@@ -76,7 +98,9 @@ def _verdicts(version, sc_server=False):
             "heartbeat": server._hb.get(1, False),
             "staleness": server._stale_track.get(1, False),
             "timing": server._timing.get(1, False),
-            "readonly": False, "subscribe": False, "chunked": False,
+            "readonly": server._readonly.get(1, False),
+            "subscribe": server._subscribe.get(1, False),
+            "chunked": False,
             "shardctl": server._sc,
         }
         out.append((flags, want, "accepted", posture))
@@ -98,10 +122,19 @@ def test_legacy_on_a_shardctl_server_matches_oracle(version):
     assert all(v == "refused" for _f, _w, v, _d in _verdicts(version, sc_server=True))
 
 
-def _mismatches(version, sc_server=False):
+@pytest.mark.parametrize("version", [1, 2, 3, 4])
+@pytest.mark.parametrize("config", ["reader", "cell"])
+def test_reader_and_cell_postures_match_oracle(config, version):
+    """The serving postures: a reader rank's and a cell rank's
+    announcements to a server that serves them."""
+    mismatches = _mismatches(version, config=config)
+    assert not mismatches, "\n".join(mismatches)
+
+
+def _mismatches(version, sc_server=False, config="plain"):
     mismatches = []
-    for flags, want, verdict, detail in _verdicts(version, sc_server):
-        ctx = f"v{version} flags={flags:#04x}"
+    for flags, want, verdict, detail in _verdicts(version, sc_server, config):
+        ctx = f"{config} v{version} flags={flags:#04x}"
         if verdict == "later":
             if want.accepted:
                 mismatches.append(f"{ctx}: the oracle accepts, the port refuses "
@@ -125,14 +158,24 @@ def _mismatches(version, sc_server=False):
 def test_cell_counts():
     """The matrix's cells by version: accepted, refused, refused as a later
     slice (the module docstring's table)."""
-    def counts(version, sc_server=False):
-        rows = _verdicts(version, sc_server)
+    def counts(version, sc_server=False, config="plain"):
+        rows = _verdicts(version, sc_server, config)
         return tuple(sum(1 for r in rows if r[2] == v)
                      for v in ("accepted", "refused", "later"))
 
-    assert [counts(v) for v in (1, 2, 3, 4)] == [(1, 0, 0), (1, 0, 0), (16, 0, 112),
+    assert [counts(v) for v in (1, 2, 3, 4)] == [(1, 0, 0), (1, 0, 0), (16, 48, 64),
                                                  (64, 64, 0)]
     assert [counts(v, True) for v in (1, 2, 3)] == [(0, 1, 0), (0, 1, 0), (0, 128, 0)]
+    assert [counts(v, config="reader") for v in (1, 2, 3, 4)] == \
+        [(0, 1, 0), (0, 1, 0), (8, 56, 64), (0, 128, 0)]
+    assert [counts(v, config="cell") for v in (1, 2, 3, 4)] == \
+        [(0, 1, 0), (0, 1, 0), (8, 56, 64), (0, 128, 0)]
+    ro = [d for f, w, v, d in _verdicts(3, config="reader") if v == "accepted"]
+    assert all(d["readonly"] and d["framed"] and not d["subscribe"]
+               and not d["staleness"] and not d["timing"] for d in ro)
+    sub = [d for f, w, v, d in _verdicts(3, config="cell") if v == "accepted"]
+    assert all(d["readonly"] and d["subscribe"] and d["framed"]
+               and not d["staleness"] and not d["timing"] for d in sub)
     v4 = [d for f, w, v, d in _verdicts(4) if v == "accepted"]
     assert all(d["shardctl"] and d["framed"] and not d["staleness"]
                and not d["timing"] for d in v4)
@@ -157,4 +200,4 @@ def test_the_timing_cells_are_accepted(version):
     assert not [f for f, w, v, _d in rows if v == "accepted" and not w.accepted]
     counts = {v: sum(1 for r in rows if r[2] == v) for v in ("accepted", "refused", "later")}
     assert counts == ({"accepted": 1, "refused": 0, "later": 0} if version < 3
-                      else {"accepted": 16, "refused": 0, "later": 112})
+                      else {"accepted": 16, "refused": 48, "later": 64})

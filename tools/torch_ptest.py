@@ -58,8 +58,34 @@ The shard-control legs of the JAX twin, in process gangs only:
   shrunk), each server a fixed-capacity member applying at
   ``MPIT_BENCH_ELASTIC_MBS`` (300; 0 = unthrottled).
 
-The readers, cells, stream, agg and LM legs ride layers of later slices of
-the port; setting one raises, naming the slice.
+The read-path legs of the JAX twin, over the port's TCP event loop (one
+process per server, the writer and each cell; reader-host processes drive
+many readers each, one transport and one ``ReaderClient`` a reader):
+
+- ``MPIT_BENCH_READERS=64,256``: per count N, ``MPIT_BENCH_SERVERS``
+  servers (on the card) + 1 writer + N READ-ONLY readers pulling the whole
+  vector (``MPIT_BENCH_READER_MB``, 0.25) ``MPIT_BENCH_READER_ROUNDS`` (6)
+  times, one read per ``MPIT_BENCH_READER_INTERVAL_S`` (1.0, start-
+  staggered), over ``MPIT_BENCH_READER_HOSTS`` (1) reader-host processes,
+  while the writer commits a version per interval once every reader is
+  warm; servers admit against ``MPIT_BENCH_READER_BUDGET_MB`` (8).  Row
+  ``ps_serve_read_latency``: pooled read p50 (``value``) and p99 in ms,
+  aggregate MB/s, BUSY issued and honoured, and ``snapshot_copies`` against
+  the committed versions (more copies than versions + servers fails the
+  leg: one copy per version whatever the reader count);
+- ``MPIT_BENCH_CELLS=2``: per cell count, 1 server + 1 writer + N cells +
+  ``MPIT_BENCH_CELL_READERS`` (96) fabric-routed readers over
+  ``MPIT_BENCH_CELL_HOSTS`` (2) reader hosts, every serving member modelled
+  at ``MPIT_BENCH_CELL_MBS`` (60) of reply capacity; the N=0 control (the
+  readers on the server itself) runs first, and with ``MPIT_BENCH_CELL_KILL``
+  (1) a kill leg SIGKILLs one cell 40% into the read window and requires
+  zero ``RetryExhausted`` and at least one failover.  Row
+  ``ps_cells_serving``: aggregate MB/s, read and GRAD p50/p99, failovers,
+  the largest lag seen against ``MPIT_BENCH_CELL_MAX_LAG`` (8), diffs and
+  resyncs.
+
+The stream, agg and LM legs ride layers of later slices of the port;
+setting one raises, naming the slice.
 
 Prints one JSON line per codec:
 ``{"metric": "ps_pushpull_bandwidth_shm", "value": MB/s, "unit": "MB/s",
@@ -112,10 +138,24 @@ SKEW_DEADLINE = float(os.environ.get("MPIT_BENCH_SKEW_DEADLINE", "30"))
 ELASTIC_SWEEP = _on("MPIT_BENCH_ELASTIC")
 ELASTIC_MBS = float(os.environ.get("MPIT_BENCH_ELASTIC_MBS", "300"))
 
+READERS_SWEEP = [int(x) for x in os.environ.get("MPIT_BENCH_READERS", "").split(",") if x]
+READER_MB = float(os.environ.get("MPIT_BENCH_READER_MB", "0.25"))
+READER_ROUNDS = int(os.environ.get("MPIT_BENCH_READER_ROUNDS", "6"))
+READER_INTERVAL = float(os.environ.get("MPIT_BENCH_READER_INTERVAL_S", "1.0"))
+READER_BUDGET_MB = float(os.environ.get("MPIT_BENCH_READER_BUDGET_MB", "8"))
+READER_HOSTS = max(int(os.environ.get("MPIT_BENCH_READER_HOSTS", "1")), 1)
+CELLS_SWEEP = [int(x) for x in os.environ.get("MPIT_BENCH_CELLS", "").split(",") if x]
+CELL_READERS = int(os.environ.get("MPIT_BENCH_CELL_READERS", "96"))
+CELL_MB = float(os.environ.get("MPIT_BENCH_CELL_MB", "0.25"))
+CELL_ROUNDS = int(os.environ.get("MPIT_BENCH_CELL_ROUNDS", "6"))
+CELL_INTERVAL = float(os.environ.get("MPIT_BENCH_CELL_INTERVAL_S", "0.15"))
+CELL_MBS = float(os.environ.get("MPIT_BENCH_CELL_MBS", "60"))
+CELL_MAX_LAG = int(os.environ.get("MPIT_BENCH_CELL_MAX_LAG", "8"))
+CELL_KILL = _on("MPIT_BENCH_CELL_KILL") or "MPIT_BENCH_CELL_KILL" not in os.environ
+CELL_HOSTS = max(int(os.environ.get("MPIT_BENCH_CELL_HOSTS", "2")), 1)
+
 #: legs of the JAX twin that ride layers of later slices of the port
 LATER_LEGS = {
-    "MPIT_BENCH_READERS": "the serving tier (slice 5d, ps/serve)",
-    "MPIT_BENCH_CELLS": "serving cells (slice 5e, cells)",
     "MPIT_BENCH_STREAM": "chunked streaming (slice 5f, streaming with comm/pool)",
     "MPIT_BENCH_AGG": "hierarchical aggregation (slice 5g, agg)",
     "MPIT_BENCH_LM": "the LM workload through the PS gang (slice 7b, lm)",
@@ -136,11 +176,13 @@ def refuse_later_legs() -> None:
         if _on(name):
             raise NotImplementedError(f"{name} belongs to {owner} of the port")
     if (HEARTBEAT_SWEEP or OBS_SWEEP or STATUS_SWEEP or DECOMP_SWEEP
-            or PROFILE_SWEEP or SKEW_SWEEP or ELASTIC_SWEEP) and GANG != "procs":
+            or PROFILE_SWEEP or SKEW_SWEEP or ELASTIC_SWEEP or READERS_SWEEP
+            or CELLS_SWEEP) and GANG != "procs":
         raise ValueError(
             "MPIT_BENCH_HEARTBEAT/MPIT_BENCH_OBS/MPIT_BENCH_STATUS/"
             "MPIT_BENCH_DECOMP/MPIT_BENCH_PROFILE/MPIT_BENCH_SKEW/"
-            "MPIT_BENCH_ELASTIC need MPIT_BENCH_GANG=procs")
+            "MPIT_BENCH_ELASTIC/MPIT_BENCH_READERS/MPIT_BENCH_CELLS need "
+            "MPIT_BENCH_GANG=procs")
     mode = os.environ.get("MPIT_BENCH_MODE", "shm")
     if mode != "shm":
         raise NotImplementedError(
@@ -662,6 +704,485 @@ def bench_elastic() -> list:
     return rows
 
 
+# -- the read-path legs (TCP event loop; a process per serving role) ----------
+
+
+def _raise_nofile() -> int:
+    """Lift this process's open-file soft limit to its hard limit (a reader
+    host holds a few descriptors per reader: its sockets, the selector and
+    the wakeup pipe); returns the soft limit now in force."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    return resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+
+def _listener_from_env():
+    """The listening socket the parent bound and handed down (pass_fds):
+    inheriting it, not re-binding its port, keeps a sibling's outbound
+    connect from taking the port in between."""
+    import socket
+
+    fd = os.environ.get("PTEST_LISTEN_FD")
+    if fd is None:
+        return None
+    return socket.socket(socket.AF_INET, socket.SOCK_STREAM, fileno=int(fd))
+
+
+def _run_role_procs(jobs, spec, flag, socks, kill=None):
+    """Start one process per (role, label, batch) job with ``flag`` and the
+    spec in ``PTEST_SPEC``; listening roles inherit their socket.  ``kill``
+    = (label of a cell, seconds into the read window): once every reader
+    host dropped its ``.started`` marker the cell is SIGKILLed that much
+    later.  Returns ({(role, label): result}, killed label or None)."""
+    import signal
+    import shutil
+
+    tmpdir = tempfile.mkdtemp(prefix=f"tptest_{flag.strip('-')}_{os.getpid()}_")
+    procs, paths = {}, {}
+    for role, label, _batch in jobs:
+        paths[(role, label)] = os.path.join(tmpdir, f"{role}{label}.json")
+    # Each reader host drops a marker once its readers are attached and
+    # warm; the writer commits only then, so the versions move while the
+    # readers read.
+    markers = [path + ".started" for (role, _l), path in paths.items() if role == "readers"]
+    for role, label, batch in jobs:
+        path = paths[(role, label)]
+        env = dict(os.environ, PTEST_SPEC=json.dumps({**spec, "role": role, "rank": label,
+                                                      "batch": batch or [],
+                                                      "markers": markers}),
+                   PTEST_RESULT=path, MPIT_OBS="0")
+        for name in ("MPIT_OBS_TRACE", "MPIT_OBS_PROFILE", "MPIT_OBS_HTTP"):
+            env.pop(name, None)  # each implies obs: the legs measure it off
+        pass_fds = ()
+        if role != "readers":
+            env["PTEST_LISTEN_FD"] = str(socks[label].fileno())
+            pass_fds = (socks[label].fileno(),)
+        with open(path.replace(".json", ".log"), "w") as fh:
+            procs[(role, label)] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag], env=env, stdout=fh,
+                stderr=subprocess.STDOUT, text=True, pass_fds=pass_fds)
+    for sock in socks:
+        sock.close()  # the children own their copies now
+    victim = ("cell", kill[0]) if kill else None
+    kill_at, killed = None, None
+    deadline = time.monotonic() + GANG_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs.values()):
+            if victim and killed is None and kill_at is None \
+                    and all(os.path.exists(m) for m in markers):
+                kill_at = time.monotonic() + kill[1]
+            if victim and killed is None and kill_at is not None \
+                    and time.monotonic() >= kill_at:
+                procs[victim].send_signal(signal.SIGKILL)
+                killed = kill[0]
+                log(f"[cells] SIGKILLed cell {killed} in the read window")
+            bad = next((job for job, p in procs.items() if p.poll() not in (None, 0)
+                        and not (killed is not None and job == victim)), None)
+            if bad is not None or time.monotonic() > deadline:
+                for path in paths.values():
+                    logp = path.replace(".json", ".log")
+                    if os.path.exists(logp):
+                        with open(logp) as fh:
+                            sys.stderr.write(fh.read()[-4000:])
+                raise RuntimeError(f"{flag} job {bad} failed (logs: {tmpdir})"
+                                   if bad is not None else f"{flag} gang timed out "
+                                   f"(logs: {tmpdir})")
+            time.sleep(0.05)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = {}
+    for job, path in paths.items():
+        if job != victim or killed is None:
+            with open(path) as fh:
+                recs[job] = json.load(fh)
+    shutil.rmtree(tmpdir, ignore_errors=True)
+    return recs, killed
+
+
+def _paced_reads(clients, rounds, interval, on_read=None):
+    """Drive a batch of readers from one thread: start-staggered reads, one
+    per ``interval`` each, every in-flight reader stepped round-robin; each
+    read's latency from its async start to its drain.  ``on_read(rank,
+    client)`` after each read; a reader's RetryExhausted ends that reader
+    and is returned.  Returns (latency samples in s, reads, errors, t0, t1)."""
+    import heapq
+
+    from mpit_tpu_torch.ft import RetryExhausted
+
+    batch = sorted(clients)
+    base = time.monotonic()
+    state = {r: {"t0": None, "reads": 0} for r in batch}
+    due = [(base + (i / max(len(batch), 1)) * interval, r) for i, r in enumerate(batch)]
+    heapq.heapify(due)
+    samples, errors = [], []
+    inflight: set = set()
+    pending = len(batch)
+    t_start = time.time()
+    while pending or inflight:
+        now = time.monotonic()
+        while due and due[0][0] <= now:
+            _t, r = heapq.heappop(due)
+            clients[r].async_read_params()
+            state[r]["t0"] = time.monotonic()
+            inflight.add(r)
+        for r in list(inflight):
+            try:
+                busy = clients[r].poll()
+            except RetryExhausted as exc:
+                errors.append(f"reader {r}: {exc!r}")
+                inflight.discard(r)
+                pending -= 1
+                continue
+            if busy:
+                continue
+            st = state[r]
+            samples.append(time.monotonic() - st["t0"])
+            st["reads"] += 1
+            if on_read is not None:
+                on_read(r, clients[r])
+            inflight.discard(r)
+            if st["reads"] >= rounds:
+                pending -= 1
+            else:
+                heapq.heappush(due, (st["t0"] + interval, r))
+        # Yield the core between passes: a driver spinning poll() steals the
+        # cycles the serving processes need to produce the replies.
+        time.sleep(0.0002 if inflight else 0.001)
+    return samples, sum(st["reads"] for st in state.values()), errors, t_start, time.time()
+
+
+def _await_readers(markers) -> None:
+    """The writer's wait for every reader host's warm-up marker."""
+    deadline = time.monotonic() + GANG_TIMEOUT
+    while not all(os.path.exists(m) for m in markers):
+        if time.monotonic() > deadline:
+            raise RuntimeError("the reader hosts never warmed up")
+        time.sleep(0.02)
+
+
+def _percentiles_ms(samples):
+    import numpy as np
+
+    arr = np.asarray(samples) * 1e3
+    return float(np.percentile(arr, 50)), float(np.percentile(arr, 99))
+
+
+def bench_readers(nreaders: int) -> dict:
+    """One serving-tier leg: servers (on the card) + 1 writer + ``nreaders``
+    paced readers over the TCP event loop; the servers hold every reader's
+    connection on their one I/O thread."""
+    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
+
+    size = int(READER_MB * (1 << 20) / 4)
+    core = NSERVERS + 1
+    nranks = core + nreaders
+    addrs, socks = allocate_local_addresses(core)
+    addrs = addrs + ["127.0.0.1:0"] * nreaders  # readers never listen
+    batches = [list(range(core + i, nranks, READER_HOSTS)) for i in range(READER_HOSTS)]
+    log(f"[serve] {NSERVERS} servers ({DEVICE}) + 1 writer + {nreaders} readers "
+        f"({READER_HOSTS} host proc(s)), vector {size * 4 / 2**20:.2f} MB, "
+        f"{READER_ROUNDS} reads/reader at {READER_INTERVAL:.2f}s pacing")
+    spec = {"addrs": addrs, "nservers": NSERVERS, "size": size, "rounds": READER_ROUNDS,
+            "interval": READER_INTERVAL, "budget_mb": READER_BUDGET_MB, "device": DEVICE}
+    jobs = ([("server", r, None) for r in range(NSERVERS)] + [("writer", NSERVERS, None)]
+            + [("readers", core + i, b) for i, b in enumerate(batches) if b])
+    recs, _ = _run_role_procs(jobs, spec, "--serve-child", socks)
+    hosts = [rec for (role, _l), rec in recs.items() if role == "readers"]
+    srv = [recs[("server", r)] for r in range(NSERVERS)]
+    samples = [x for h in hosts for x in h["samples"]]
+    reads = sum(h["reads"] for h in hosts)
+    dt = max(h["t1"] for h in hosts) - min(h["t0"] for h in hosts)
+    p50, p99 = _percentiles_ms(samples)
+    mbs = reads * size * 4 / dt / 2**20
+    copies = sum(s["snapshot_copies"] for s in srv)
+    versions = sum(s["snap_version"] for s in srv)
+    if copies > versions + NSERVERS:
+        raise RuntimeError(
+            f"snapshot cache broke under fan-out: {copies} copies for {versions} "
+            "committed versions (one copy per version, whatever the reader count)")
+    busy = sum(s["busy_replies"] for s in srv)
+    honored = sum(h["busy_honored"] for h in hosts)
+    log(f"[serve] {nreaders} readers: p50 {p50:.1f} ms, p99 {p99:.1f} ms, {mbs:.1f} MB/s "
+        f"aggregate, busy={busy}/{honored} (issued/honored), copies={copies} for "
+        f"{versions} versions")
+    return {"metric": "ps_serve_read_latency", "unit": "ms", "value": round(p50, 3),
+            "p99_ms": round(p99, 3), "readers": nreaders, "reads": reads,
+            "mbs": round(mbs, 1), "vector_mb": round(size * 4 / 2**20, 3),
+            "interval_s": READER_INTERVAL, "busy_replies": busy, "busy_honored": honored,
+            "snapshot_copies": copies, "snap_versions": versions,
+            "snapshot_hits": sum(s["snapshot_hits"] for s in srv),
+            "servers": NSERVERS, "reader_hosts": READER_HOSTS, "device": DEVICE,
+            "server_platforms": sorted({s["platform"] for s in srv}),
+            "nofile": min(h["nofile"] for h in hosts)}
+
+
+def _serve_child() -> None:
+    """One process of the serving-tier gang (``--serve-child``): a server or
+    the writer for its rank, or a reader host driving a batch of readers."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm.tcp import TcpTransport
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.ps import ParamClient, ParamServer, ReaderClient, ServeConfig
+
+    spec = json.loads(os.environ["PTEST_SPEC"])
+    addrs = spec["addrs"]
+    nranks = len(addrs)
+    sranks = list(range(spec["nservers"]))
+    wrank = spec["nservers"]
+    readers = list(range(wrank + 1, nranks))
+    size, rounds, interval = spec["size"], spec["rounds"], spec["interval"]
+    role = spec["role"]
+    ft = FTConfig(op_deadline_s=120.0)
+    if role == "server":
+        rank = spec["rank"]
+        transport = TcpTransport(rank, nranks, addrs, listener=_listener_from_env(),
+                                 reconnect=120.0, dial_peers=list(range(rank)),
+                                 connect_timeout=120.0)
+        server = ParamServer(rank, [wrank], transport, rule="add", device=spec["device"],
+                             reader_ranks=readers, serve=ServeConfig(
+                                 budget_bytes=int(spec["budget_mb"] * (1 << 20))))
+        server.start()
+        result = {"role": "server", "busy_replies": server.busy_replies,
+                  "snapshot_copies": server.snapshot_copies,
+                  "snapshot_hits": server.snapshot_hits,
+                  "snap_version": server._snap_version,
+                  "params_served": server.params_served,
+                  "grads_applied": server.grads_applied,
+                  "platform": server.device.type}
+    elif role == "writer":
+        transport = TcpTransport(wrank, nranks, addrs, listener=_listener_from_env(),
+                                 reconnect=120.0, dial_peers=sranks, connect_timeout=120.0)
+        client = ParamClient(wrank, sranks, transport, seed_servers=True, ft=ft)
+        client.start(np.arange(size, dtype=np.float32), np.full(size, 1e-6, np.float32))
+        _await_readers(spec["markers"])
+        # One committed version per pacing interval over the whole read
+        # window (+1 slack): readers must see versions move.
+        for _ in range(rounds + 1):
+            client.async_send_grad()
+            client.wait()
+            time.sleep(interval)
+        client.stop()
+        result = {"role": "writer", "grads": rounds + 1}
+    else:  # a reader host
+        nofile = _raise_nofile()
+        transports, clients = {}, {}
+        for r in spec["batch"]:
+            transports[r] = TcpTransport(r, nranks, addrs, reconnect=120.0, dial_peers=sranks,
+                                         listen=False, connect_timeout=120.0)
+            clients[r] = ReaderClient(r, sranks, transports[r], ft=ft)
+            clients[r].start(np.zeros(size, np.float32))
+        for c in clients.values():  # one warm-up read each
+            c.read_params()
+        open(os.environ["PTEST_RESULT"] + ".started", "w").close()
+        samples, reads, errors, t0, t1 = _paced_reads(clients, rounds, interval)
+        if errors:
+            raise SystemExit(f"readers drew RetryExhausted: {errors}")
+        for r, c in clients.items():
+            assert c.monotone, f"reader {r} saw a version go back"
+            c.stop()
+            transports[r].close()
+        result = {"role": "readers", "samples": samples, "reads": reads,
+                  "busy_honored": sum(c.busy_honored for c in clients.values()),
+                  "t0": t0, "t1": t1, "nofile": nofile}
+        transport = None
+    if transport is not None:
+        transport.close()
+    with open(os.environ["PTEST_RESULT"], "w") as fh:
+        json.dump(result, fh)
+
+
+def bench_cells(ncells: int, kill: bool = False) -> dict:
+    """One serving-fabric leg: 1 server (on the card) + 1 writer + ``ncells``
+    replica cells + ``CELL_READERS`` fabric-routed readers, every serving
+    member modelled at ``CELL_MBS`` of reply capacity.  ``ncells=0`` is the
+    direct-serving control; with ``kill`` one cell is SIGKILLed in the read
+    window and the leg requires zero RetryExhausted and a failover."""
+    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
+
+    size = int(CELL_MB * (1 << 20) / 4)
+    core = 2 + ncells
+    nranks = core + CELL_READERS
+    cell_ranks = list(range(2, core))
+    addrs, socks = allocate_local_addresses(core)
+    addrs = addrs + ["127.0.0.1:0"] * CELL_READERS
+    log(f"[cells] 1 server ({DEVICE}) + 1 writer + {ncells} cells + {CELL_READERS} "
+        f"readers{' (kill leg)' if kill else ''}, vector {size * 4 / 2**20:.2f} MB, "
+        f"member capacity {CELL_MBS:.0f} MB/s, {CELL_ROUNDS} reads/reader at "
+        f"{CELL_INTERVAL:.2f}s pacing")
+    spec = {"addrs": addrs, "ncells": ncells, "cell_ranks": cell_ranks, "size": size,
+            "rounds": CELL_ROUNDS, "interval": CELL_INTERVAL, "member_mbs": CELL_MBS,
+            "max_lag": CELL_MAX_LAG, "kill": kill, "device": DEVICE}
+    batches = [list(range(core + i, nranks, CELL_HOSTS)) for i in range(CELL_HOSTS)]
+    jobs = ([("server", 0, None), ("writer", 1, None)]
+            + [("cell", c, None) for c in cell_ranks]
+            + [("readers", core + i, b) for i, b in enumerate(batches) if b])
+    victim = (cell_ranks[0], CELL_ROUNDS * CELL_INTERVAL * 0.4) if (kill and ncells >= 2) \
+        else None
+    recs, killed = _run_role_procs(jobs, spec, "--cells-child", socks, kill=victim)
+    hosts = [rec for (role, _l), rec in recs.items() if role == "readers"]
+    cells = [rec for (role, _l), rec in recs.items() if role == "cell"]
+    writer, server = recs[("writer", 1)], recs[("server", 0)]
+    samples = [x for h in hosts for x in h["samples"]]
+    reads = sum(h["reads"] for h in hosts)
+    failovers = sum(h["failovers"] for h in hosts)
+    errors = [e for h in hosts for e in h["errors"]]
+    max_lag_seen = max(h["max_lag_seen"] for h in hosts)
+    dt = max(h["t1"] for h in hosts) - min(h["t0"] for h in hosts)
+    mbs = reads * size * 4 / dt / 2**20
+    p50, p99 = _percentiles_ms(samples)
+    if kill:
+        if killed is None or failovers < 1:
+            raise RuntimeError(f"kill leg: killed {killed}, failovers {failovers}")
+        if errors:
+            raise RuntimeError(f"kill leg drew RetryExhausted: {errors}")
+    if max_lag_seen > CELL_MAX_LAG:
+        raise RuntimeError(f"a read stamped lag {max_lag_seen} > max_lag {CELL_MAX_LAG}")
+    log(f"[cells] n={ncells}{'+kill' if kill else ''}: {mbs:.1f} MB/s aggregate reads "
+        f"(p50 {p50:.1f} ms), GRAD p50 {writer['grad_p50_ms']:.1f} ms, failovers="
+        f"{failovers}, max observed lag {max_lag_seen}")
+    return {"metric": "ps_cells_serving", "unit": "MB/s", "value": round(mbs, 1),
+            "cells": ncells, "kill": bool(kill), "readers": CELL_READERS, "reads": reads,
+            "read_p50_ms": round(p50, 3), "read_p99_ms": round(p99, 3),
+            "grad_p50_ms": round(writer["grad_p50_ms"], 3),
+            "grad_p99_ms": round(writer["grad_p99_ms"], 3), "member_mbs": CELL_MBS,
+            "vector_mb": round(size * 4 / 2**20, 3), "interval_s": CELL_INTERVAL,
+            "failovers": failovers, "busy_honored": sum(h["busy_honored"] for h in hosts),
+            "max_lag_seen": max_lag_seen, "max_lag_bound": CELL_MAX_LAG,
+            "diffs_installed": sum(c["diffs_installed"] for c in cells),
+            "resyncs": sum(c["resyncs"] for c in cells),
+            "diffs_sent": server["diffs_sent"], "snapshot_copies": server["snapshot_copies"],
+            "snap_version": server["snap_version"], "server_platform": server["platform"],
+            "device": DEVICE}
+
+
+def _cells_child() -> None:
+    """One process of the serving-fabric gang (``--cells-child``): the
+    training server (the diff producer; direct serving in the N=0 control),
+    the writer (timing its own GRADs), one cell, or a reader host."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm.tcp import TcpTransport
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.ps import ParamClient, ParamServer, ReaderClient, ServeConfig
+
+    spec = json.loads(os.environ["PTEST_SPEC"])
+    addrs = spec["addrs"]
+    nranks = len(addrs)
+    cell_ranks, ncells = spec["cell_ranks"], spec["ncells"]
+    readers = list(range(2 + ncells, nranks))
+    size, rounds, interval = spec["size"], spec["rounds"], spec["interval"]
+    role = spec["role"]
+
+    def throttle(member) -> None:
+        """A fixed per-member reply capacity: every granted read spends
+        frame_bytes / member_mbs of the member's single-threaded time."""
+        inner = member._snapshot_wire
+        cost = size * 4 / (spec["member_mbs"] * (1 << 20))
+
+        def wrapped(codec):
+            time.sleep(cost)
+            return inner(codec)
+
+        member._snapshot_wire = wrapped
+
+    transport = None
+    if role == "server":
+        transport = TcpTransport(0, nranks, addrs, listener=_listener_from_env(),
+                                 reconnect=120.0, dial_peers=[], connect_timeout=120.0)
+        server = ParamServer(0, [1], transport, rule="add", device=spec["device"],
+                             reader_ranks=(readers if ncells == 0 else None),
+                             cell_ranks=(cell_ranks or None),
+                             serve=ServeConfig(budget_bytes=1 << 30),
+                             ft=FTConfig(lease_ttl_s=5.0))
+        if ncells == 0:
+            throttle(server)  # the control serves the reads itself
+        server.start()
+        result = {"role": "server", "snap_version": server._snap_version,
+                  "params_served": server.params_served,
+                  "grads_applied": server.grads_applied,
+                  "snapshot_copies": server.snapshot_copies,
+                  "diffs_sent": server.diffs_sent, "platform": server.device.type}
+    elif role == "writer":
+        transport = TcpTransport(1, nranks, addrs, listener=_listener_from_env(),
+                                 reconnect=120.0, dial_peers=[0], connect_timeout=120.0)
+        client = ParamClient(1, [0], transport, seed_servers=True,
+                             ft=FTConfig(op_deadline_s=60.0))
+        client.start(np.arange(size, dtype=np.float32), np.full(size, 1e-6, np.float32))
+        _await_readers(spec["markers"])
+        lat = []
+        # One committed version per pacing interval over the read window
+        # (+2 slack), each GRAD timed: the "training stays flat" column.
+        for _ in range(rounds + 2):
+            t0 = time.monotonic()
+            client.async_send_grad()
+            client.wait()
+            lat.append(time.monotonic() - t0)
+            time.sleep(interval)
+        client.stop()
+        p50, p99 = _percentiles_ms(lat)
+        result = {"role": "writer", "grads": rounds + 2, "grad_p50_ms": p50,
+                  "grad_p99_ms": p99}
+    elif role == "cell":
+        from mpit_tpu_torch.cells.cell import ServingCell
+
+        rank = spec["rank"]
+        transport = TcpTransport(rank, nranks, addrs, listener=_listener_from_env(),
+                                 reconnect=120.0, dial_peers=[0], connect_timeout=120.0)
+        cell = ServingCell(rank, 0, transport, readers, size=size, max_lag=spec["max_lag"],
+                           serve=ServeConfig(budget_bytes=1 << 30),
+                           ft=FTConfig(heartbeat_s=0.2, op_deadline_s=60.0))
+        throttle(cell)
+        cell.start()
+        result = {"role": "cell", "version": cell.version,
+                  "params_served": cell.params_served,
+                  "diffs_installed": cell.diffs_installed, "resyncs": cell.resyncs,
+                  "lag_sheds": cell.lag_sheds}
+    else:  # a reader host: the paced fabric-routed population
+        nofile = _raise_nofile()
+        serving = cell_ranks if ncells else [0]
+        reader_ft = FTConfig(op_deadline_s=(2.0 if spec["kill"] else 60.0), max_retries=8)
+        transports, clients = {}, {}
+        for r in spec["batch"]:
+            transports[r] = TcpTransport(r, nranks, addrs, reconnect=120.0,
+                                         dial_peers=serving, listen=False,
+                                         connect_timeout=120.0)
+            clients[r] = ReaderClient(r, [0], transports[r], ft=reader_ft,
+                                      cells=({0: cell_ranks} if ncells else None))
+            clients[r].start(np.zeros(size, np.float32))
+        for c in clients.values():  # one warm-up read each
+            c.read_params()
+        # The paced window starts now: the kill leg's parent waits for this.
+        open(os.environ["PTEST_RESULT"] + ".started", "w").close()
+        lag = [0]
+
+        def on_read(_r, c):
+            lag[0] = max(lag[0], c.lags.get(0, 0))
+
+        samples, reads, errors, t0, t1 = _paced_reads(clients, rounds, interval, on_read)
+        if errors and not spec["kill"]:
+            raise SystemExit(f"readers drew RetryExhausted: {errors}")
+        for r, c in clients.items():
+            assert c.monotone, f"reader {r} saw a version go back"
+            c.stop()
+            transports[r].close()
+        result = {"role": "readers", "samples": samples, "reads": reads,
+                  "busy_honored": sum(c.busy_honored for c in clients.values()),
+                  "failovers": sum(c.failovers for c in clients.values()),
+                  "max_lag_seen": lag[0], "errors": errors, "t0": t0, "t1": t1,
+                  "nofile": nofile}
+    if transport is not None:
+        transport.close()
+    with open(os.environ["PTEST_RESULT"], "w") as fh:
+        json.dump(result, fh)
+
+
 def main() -> None:
     refuse_later_legs()
     for codec in CODECS or [""]:
@@ -681,10 +1202,24 @@ def main() -> None:
     if ELASTIC_SWEEP:
         for row in bench_elastic():
             print(json.dumps(row), flush=True)
+    for n in READERS_SWEEP:
+        print(json.dumps(bench_readers(n)), flush=True)
+    if CELLS_SWEEP:
+        # The direct-serving control first, one leg per cell count, then the
+        # kill leg at the largest count of at least 2.
+        for n in [0] + [n for n in CELLS_SWEEP if n > 0]:
+            print(json.dumps(bench_cells(n)), flush=True)
+        killable = [n for n in CELLS_SWEEP if n >= 2]
+        if CELL_KILL and killable:
+            print(json.dumps(bench_cells(max(killable), kill=True)), flush=True)
 
 
 if __name__ == "__main__":
     if "--gang-child" in sys.argv:
         _gang_child()
+    elif "--serve-child" in sys.argv:
+        _serve_child()
+    elif "--cells-child" in sys.argv:
+        _cells_child()
     else:
         main()
