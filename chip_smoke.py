@@ -1435,15 +1435,22 @@ FT_SERVER_PLAN = dict(seed=9, drop_every=3, tags=FT_REPLY_TAGS)
 FT_LEASE_TTL_S = 1.0
 
 
-def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=False):
+def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=False,
+            mode="wire", chunk_bytes=0, ft=FT_FAST):
     """2 servers (ranks 0, 1) on the card and ``nclients`` clients over one
     in-process router, each endpoint behind its side's fault plan where
     one is given (client ``i`` seeded ``i``), the clients on the
-    ``FLAG_TIMING`` wire with ``timing``; the servers run on threads.
-    Returns (servers, clients, threads)."""
+    ``FLAG_TIMING`` wire with ``timing`` and chunked at ``chunk_bytes``
+    (0: whole frames); the servers run on threads.  ``mode`` places the
+    shards: "wire" (no plane), "slots" (device slots, no exchange),
+    "device" (both servers publish a plane, every client an
+    ``ExchangeClient`` that requires the device path) or "mixed" (server 0
+    on the device path, server 1 on the wire).  Returns (servers, clients,
+    threads)."""
     import threading
 
     from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.dplane import ExchangeClient, PlaneConfig
     from mpit_tpu_torch.ft import FaultPlan, FaultyTransport, FTConfig
     from mpit_tpu_torch.ps import ParamClient, ParamServer
 
@@ -1454,8 +1461,11 @@ def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=
         ep = router.endpoint(r)
         if server_plan:
             ep = FaultyTransport(ep, FaultPlan(**server_plan))
+        plane = None if mode == "wire" else PlaneConfig(
+            device=GANG_BASE["device"], publish=(mode == "device" or
+                                                 (mode == "mixed" and r == 0)))
         servers.append(ParamServer(r, cranks, ep, rule=rule, device=GANG_BASE["device"],
-                                   ft=FTConfig(rejoin=True)))
+                                   ft=FTConfig(rejoin=True), dplane=plane))
     threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
     for t in threads:
         t.start()
@@ -1464,8 +1474,13 @@ def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=
         ep = router.endpoint(r)
         if client_plan:
             ep = FaultyTransport(ep, FaultPlan(seed=i, **client_plan))
-        clients.append(ParamClient(r, [0, 1], ep, seed_servers=(i == 0), codec=codec,
-                                   ft=FTConfig(**FT_FAST, timing=timing)))
+        pc = ParamClient(r, [0, 1], ep, seed_servers=(i == 0), codec=codec,
+                         ft=FTConfig(**ft, timing=timing, chunk_bytes=chunk_bytes))
+        if mode == "device":
+            pc = ExchangeClient(pc, require_device=True, device=GANG_BASE["device"])
+        elif mode == "mixed":
+            pc = ExchangeClient(pc, device_ranks=[0], device=GANG_BASE["device"])
+        clients.append(pc)
     return servers, clients, threads
 
 
@@ -1516,14 +1531,17 @@ def ft_close(name, servers, clients, threads, kernels):
     return stats
 
 
-def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None):
+def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None, mode="wire",
+                     time_grads=False):
     """Two workers compute the flagship CNN's gradient on the card at the
     params they pull, in lockstep turns (each pulls, computes, pushes and
     has its GRAD acked before the other moves: the order
     ``tests/test_ft.py``'s ``run_lockstep`` pins), against two servers
     applying Adam by K3 to their 272,261-float shards, on the
-    ``FLAG_TIMING`` wire with ``timing``.  Returns the final params, the
-    counts and the seconds a round took."""
+    ``FLAG_TIMING`` wire with ``timing``, the shards placed by ``mode``
+    (``ft_gang``).  With ``time_grads`` each GRAD's round trip is timed to
+    its apply's end on the card (``stats["grad_s"]``).  Returns the final
+    params, the counts and the seconds a round took."""
     import numpy as np
 
     from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll_eager
@@ -1538,13 +1556,14 @@ def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None):
     batch = GANG_BASE["batch"]
     servers, clients, threads = ft_gang(
         rules.make("adam", lr=1e-3), None, server_plan=faulty and FT_SERVER_PLAN,
-        client_plan=faulty and FT_CLIENT_PLAN, timing=timing)
+        client_plan=faulty and FT_CLIENT_PLAN, timing=timing, mode=mode)
     params = [flat.w0.cpu().numpy().copy(), np.zeros(flat.size, np.float32)]
     grads = [np.zeros(flat.size, np.float32) for _ in clients]
     vgf(flat.w0, x[:batch], y[:batch])  # first-call costs out of the rounds
     ft_start(clients, [lambda c=c, i=i: c.start(params[i], grads[i])
                        for i, c in enumerate(clients)])
     zero_counts(kernels)
+    grad_s, queued = [], []
     t0 = time.perf_counter()
     for rnd in range(FT_ROUNDS):
         for i, c in enumerate(clients):
@@ -1554,13 +1573,26 @@ def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None):
             _loss, g = vgf(torch.from_numpy(params[i]).to(GANG_BASE["device"]), x[lo:lo + batch],
                            y[lo:lo + batch])
             grads[i][:] = g.cpu().numpy()
+            t_grad = time.perf_counter()
             c.async_send_grad()
             c.wait()
+            if time_grads:
+                torch.cuda.synchronize()  # the apply done, not just launched
+                grad_s.append(time.perf_counter() - t_grad)
+                queued += [t.queued_s for t in getattr(c, "last_tickets", [])]
     round_s = (time.perf_counter() - t0) / FT_ROUNDS
     clients[0].async_recv_param()
     clients[0].wait()
     final = params[0].copy()
+    device_ranks = [getattr(c, "device_ranks", []) for c in clients]
+    wire_ops = [int(c._m_ops["wire"].value) for c in clients if hasattr(c, "_m_ops")]
     stats = ft_close(name, servers, clients, threads, kernels)
+    if mode != "wire":
+        stats["device_ops"] = [sum(int(v.value) for v in s._m_dp_ops.values())
+                               for s in servers]
+        stats["device_ranks"], stats["wire_ops"] = device_ranks, wire_ops
+    if time_grads:
+        stats["grad_s"], stats["queued_s"] = grad_s, queued
     expect_launches(name, stats["launches"], {"k3": stats["grads_applied"]})
     if stats["grads_applied"] != 2 * len(clients) * FT_ROUNDS:
         raise AssertionError(f"{name}: {stats['grads_applied']} applies")
@@ -3073,6 +3105,399 @@ def serve_phases(torch, kernels, all_paths, smi):
           f"beside it the process gang {procs_s:.1f}s)")
 
 
+# -- the device data plane and chunked streaming (slices 6 and 5f) ------------
+
+#: the streamed gangs' chunk cut: a 272,261-float shard (1.09 MB) ships in 5
+#: chunks of 65,536 floats
+STREAM_CHUNK_BYTES = 262144
+#: the §12 matrix's reply faults: every 7th ack or reply chunk dropped, every
+#: 3rd duplicated (a period prime to a read's 5 reply chunks, which a drop every
+#: 5th would hit on every resend)
+STREAM_SERVER_PLAN = dict(seed=9, drop_every=7, dup_every=3, tags=FT_REPLY_TAGS)
+#: the streamed gangs' client FT: a chunk op over the in-process router takes
+#: milliseconds, so a lost chunk is resent after 50 ms
+STREAM_FT = dict(FT_FAST, op_deadline_s=0.05)
+#: the streamed lockstep harness's rounds (each client pushes this many GRADs)
+STREAM_ROUNDS = 4
+#: every (rule, codec) the streamed lockstep harness holds chunked == unchunked
+STREAM_RULES = ("add", "rmsprop")
+STREAM_CODECS = ("none", "bf16", "int8")
+
+
+def dplane_adam_lockstep(torch, kernels, data, all_paths, smi):
+    """The device exchange on the card: the wire path, every pair on the
+    device path, and one device server beside one wire server under the
+    drop/dup matrix end bit for bit equal, K3 equal to the applies in each;
+    the device run counts device ranks [0, 1] and no wire data op.  The
+    device run again with the interpreter's switch interval at 0.5 ms (5
+    ms by default) asks whether thread switches set the round trip."""
+    import numpy as np
+
+    runs = {mode: ft_lockstep_adam(torch, kernels, data, mode == "mixed",
+                                   name=f"dplane_adam_{mode}", mode=mode, time_grads=True)[:2]
+            for mode in ("wire", "device", "mixed")}
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        runs["device_switch_0.5ms"] = ft_lockstep_adam(
+            torch, kernels, data, False, name="dplane_adam_device_switch_0.5ms",
+            mode="device", time_grads=True)[:2]
+    finally:
+        sys.setswitchinterval(interval)
+    wire = runs["wire"][0]
+    for mode, (final, stats) in runs.items():
+        if final.tobytes() != wire.tobytes():
+            raise AssertionError(f"dplane_adam_{mode}: params differ from the wire "
+                                 f"path's (max gap {np.abs(final - wire).max()})")
+    dev = runs["device"][1]
+    if dev["device_ranks"] != [[0, 1], [0, 1]] or any(dev["wire_ops"]):
+        raise AssertionError(f"dplane_adam_device: device ranks {dev['device_ranks']}, "
+                             f"wire ops {dev['wire_ops']}")
+    mixed = runs["mixed"][1]
+    if not (mixed["retries"] > 0 and mixed["device_ops"][0] > 0
+            and mixed["device_ops"][1] == 0):
+        raise AssertionError(f"dplane_adam_mixed: the mix did not run as planned: {mixed}")
+    reading = {}
+    for mode, (_f, stats) in runs.items():
+        grad_s, queued = stats["grad_s"], stats["queued_s"]
+        reading[mode] = {"grad_rt_ms_p50": float(np.median(grad_s)) * 1e3,
+                         "grad_rt_ms_min": float(np.min(grad_s)) * 1e3,
+                         "queued_ms_p50": float(np.median(queued)) * 1e3 if queued else None,
+                         "retries": stats["retries"], "dup_ops": stats["dup_ops"],
+                         "device_ops": stats.get("device_ops"), "launches": stats["launches"]}
+        record_path(all_paths, f"dplane_adam_{mode}", stats["launches"], 2 * FT_ROUNDS)
+    d = reading["device"]
+    d["pacing_share"] = (d["queued_ms_p50"] / d["grad_rt_ms_p50"]
+                         if d["queued_ms_p50"] is not None else None)
+    print("dplane_adam_lockstep: " + json.dumps(reading))
+    print(f"dplane_adam_lockstep on {smi}: a GRAD of 272,261 floats to 2 Adam servers, "
+          f"round trip p50 {reading['wire']['grad_rt_ms_p50']:.3f} ms by the wire, "
+          f"{d['grad_rt_ms_p50']:.3f} ms by the device path, of it "
+          f"{d['queued_ms_p50']:.3f} ms in the plane's queue (the service's 0.5 ms "
+          f"idle pacing: {100 * d['pacing_share']:.0f}%); with a 0.5 ms switch "
+          f"interval {reading['device_switch_0.5ms']['grad_rt_ms_p50']:.3f} ms")
+
+
+#: the sync_device A/B: each mode's gang takes this many rounds, and each mode
+#: runs twice, in the order mirror, vector, parts, parts, vector, mirror
+SYNC_ROUNDS = 25
+SYNC_ORDER = ("mirror", "vector", "parts", "parts", "vector", "mirror")
+
+
+def dplane_sync_device(torch, kernels, all_paths, smi):
+    """``ExchangeClient.sync_device`` with the flagship gradient as a card
+    tensor, as one vector and as the per-shard list (``pull_dev`` results on
+    the card), bit for bit equal to the mirror path's round (grad through
+    the host mirrors, params read back); each round timed, 50 a mode over
+    two gangs in mirrored order."""
+    import numpy as np
+
+    from mpit_tpu_torch.optim import rules
+
+    n = 544_522
+    gen = torch.Generator(device=GANG_BASE["device"]).manual_seed(3)
+    w0 = torch.randn(n, generator=gen, device=GANG_BASE["device"]).cpu().numpy()
+    updates = [1e-3 * torch.randn(n, generator=gen, device=GANG_BASE["device"])
+               for _ in range(SYNC_ROUNDS)]
+
+    finals, times = [], {how: [] for how in SYNC_ORDER}
+    launches = {key: 0 for key in kernels}
+    for j, how in enumerate(SYNC_ORDER):
+        name = f"dplane_sync_{how}_{j}"
+        servers, clients, threads = ft_gang(rules.make("adam", lr=1e-3), None,
+                                            nclients=1, mode="device")
+        c = clients[0]
+        ft_start([c], [lambda: c.start(w0.copy(), np.zeros(n, np.float32))])
+        zero_counts(kernels)
+        for r, u in enumerate(updates):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if how == "mirror":
+                c.grad[:] = u.cpu().numpy()
+                c.async_send_grad()
+                c.async_recv_param()
+                c.wait()
+                got = torch.from_numpy(c.param).to(GANG_BASE["device"])
+            elif how == "vector":
+                got = c.sync_device(u)
+            else:
+                half = c.pc.shards[0].size
+                got = torch.cat(c.sync_device([u[:half], u[half:]], concat=False))
+            torch.cuda.synchronize()
+            if r:  # the gang's first round pays its first-call costs
+                times[how].append(time.perf_counter() - t0)
+        finals.append((how, got.cpu().numpy()))
+        stats = ft_close(name, servers, clients, threads, kernels)
+        expect_launches(name, stats["launches"], {"k3": stats["grads_applied"]})
+        for key, k in stats["launches"].items():
+            launches[key] += k
+    for how, final in finals:
+        if final.tobytes() != finals[0][1].tobytes():
+            raise AssertionError(f"dplane_sync_device: a {how} gang differs from the "
+                                 "mirror path's")
+    reading = {how: {"rounds": len(t),
+                     **{f"round_ms_p{q}": float(np.percentile(t, q)) * 1e3
+                        for q in (10, 50, 90)}}
+               for how, t in times.items()}
+    record_path(all_paths, "dplane_sync_device", launches,
+                len(SYNC_ORDER) * len(updates))
+    print("dplane_sync_device: " + json.dumps(reading))
+    print(f"dplane_sync_device on {smi}: a round of 544,522 floats (2 Adam shards) "
+          f"p50 {reading['mirror']['round_ms_p50']:.3f} ms through the mirrors, "
+          f"{reading['vector']['round_ms_p50']:.3f} ms by sync_device (one vector), "
+          f"{reading['parts']['round_ms_p50']:.3f} ms (per-shard list)")
+
+
+def stream_lockstep(torch, kernels, rule, codec, chunk_bytes, faulty, dplane=False):
+    """The lockstep harness on random flagship-sized gradients (numpy seed
+    5): 2 clients seed and push ``STREAM_ROUNDS`` turns each to 2 servers on the
+    card (``rule``, ``codec``), chunked at ``chunk_bytes`` (0: whole
+    frames), under the §12 chunk drop/dup matrix with ``faulty``; the
+    servers as device slots with ``dplane``.  Returns the final params and
+    the counts."""
+    import numpy as np
+
+    n = 544_522
+    rng = np.random.default_rng(5)
+    w0 = rng.normal(size=n).astype(np.float32)
+    gtab = (1e-2 * rng.normal(size=(2, STREAM_ROUNDS, n))).astype(np.float32)
+    servers, clients, threads = ft_gang(
+        rule, codec, server_plan=faulty and STREAM_SERVER_PLAN,
+        client_plan=faulty and FT_CLIENT_PLAN, mode="slots" if dplane else "wire",
+        chunk_bytes=chunk_bytes, ft=STREAM_FT)
+    params = [w0.copy(), np.zeros_like(w0)]
+    grads = [np.zeros_like(w0) for _ in clients]
+    ft_start(clients, [lambda c=c, i=i: c.start(params[i], grads[i])
+                       for i, c in enumerate(clients)])
+    zero_counts(kernels)
+    for rnd in range(STREAM_ROUNDS):
+        for i, c in enumerate(clients):
+            grads[i][:] = gtab[i, rnd]
+            c.async_send_grad()
+            c.wait()
+    clients[0].async_recv_param()
+    clients[0].wait()
+    final = params[0].copy()
+    stats = ft_close("stream", servers, clients, threads, kernels)
+    stats["chunked_pairs"] = sum(1 for s in servers for c in s._chunk.values() if c)
+    stats["hbm"] = [s._hbm is not None for s in servers]
+    return final, stats
+
+
+def stream_lockstep_matrix(torch, kernels, all_paths, smi):
+    """Chunked streaming on the card: rules add and rmsprop, codecs none,
+    bf16 and int8, at a 256 KiB chunk cut (a 272,261-float shard in 5
+    chunks), fault-free and under the §12 chunk drop/dup matrix, with the
+    worker pool serial (0) and at 2 threads: every run bit for bit its
+    unchunked control; the faulty runs resend and dup.  The add run again
+    on device slots (chunks through ``apply_wire_chunk``).  The path's
+    launches are the sum of its runs' own counts.  Adam with chunks is
+    refused loudly at negotiation."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm import pool as comm_pool
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FLAG_CHUNKED, FLAG_FRAMED, init_v5
+    from mpit_tpu_torch.ps import ParamServer
+
+    t0 = time.perf_counter()
+    launches = {key: 0 for key in kernels}
+    runs = 0
+    reading = {}
+
+    def run(*args, **kw):
+        nonlocal runs
+        final, st = stream_lockstep(torch, kernels, *args, **kw)
+        runs += 1
+        for key, n in st["launches"].items():
+            launches[key] += n
+        return final, st
+
+    saved = comm_pool.current_pool()
+    try:
+        for rule in STREAM_RULES:
+            for codec in STREAM_CODECS:
+                control, _ = run(rule, codec, 0, False)
+                for threads in (0, 2):
+                    comm_pool.configure(threads)
+                    for faulty in (False, True):
+                        final, st = run(rule, codec, STREAM_CHUNK_BYTES, faulty)
+                        key = f"{rule}/{codec}/pool{threads}/{'faulty' if faulty else 'clean'}"
+                        if final.tobytes() != control.tobytes():
+                            raise AssertionError(
+                                f"stream_lockstep {key}: chunked differs from unchunked "
+                                f"(max gap {np.abs(final - control).max()})")
+                        if st["chunked_pairs"] != 4:
+                            raise AssertionError(f"stream_lockstep {key}: not chunked")
+                        if faulty and not (st["retries"] > 0 and st["dup_ops"] > 0):
+                            raise AssertionError(f"stream_lockstep {key}: the plans "
+                                                 f"never bit: {st}")
+                        expect_launches(f"stream_{key}", st["launches"], {})
+                        reading[key] = {"retries": st["retries"], "dups": st["dup_ops"]}
+        control, _ = run("add", "none", 0, False)
+        final, st = run("add", "none", STREAM_CHUNK_BYTES, False, dplane=True)
+        if not all(st["hbm"]) or final.tobytes() != control.tobytes():
+            raise AssertionError("stream_lockstep add/dplane: chunks through the device "
+                                 "slots differ from the unchunked run")
+    finally:
+        if saved is None:
+            comm_pool.configure(None)
+    record_path(all_paths, "stream_lockstep", launches, runs * 2 * STREAM_ROUNDS)
+    server = ParamServer(0, [1], LocalRouter(2).endpoint(0), rule="adam",
+                         device=GANG_BASE["device"])
+    try:
+        server._negotiate(1, init_v5(0, 4096, 0, 0, FLAG_FRAMED | FLAG_CHUNKED,
+                                     65536).tobytes())
+    except ValueError as exc:
+        print(f"stream_lockstep: Adam with chunks refused: {exc}")
+    else:
+        raise AssertionError("stream_lockstep: Adam with chunks was not refused loudly")
+    print("stream_lockstep: " + json.dumps(reading))
+    print(f"stream_lockstep on {smi}: {runs} runs (2 rules x 3 codecs, chunked at "
+          f"{STREAM_CHUNK_BYTES} bytes, fault-free and faulty, pool 0 and 2; the add "
+          f"run on device slots; Adam refused) bit for bit in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
+def stream_procs(all_paths, smi, tcp_addrs):
+    """The chunked process gangs: ``launch --np 4 --opt eamsgd
+    --ft_op_deadline_s 5 --ft_chunk_bytes 262144`` over shm beside its
+    unchunked control (K1 = the workers' steps, counted in the children;
+    the chunked gang's test error within 2 points of the control's), and
+    the comm-only EAMSGD (``--lr 0``) chunked over TCP (K2 = the workers'
+    steps).  Returns the seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    eamsgd = dict(opt="eamsgd", lr=1e-2, mom=0.99, mva=0.15, su=10, epochs=2,
+                  ft_op_deadline_s=5.0)
+    with ThreadPoolExecutor(3) as pool:
+        chunked = pool.submit(run_procs_path, "stream_eamsgd_procs", 4,
+                              ft_chunk_bytes=STREAM_CHUNK_BYTES, **eamsgd)
+        control = pool.submit(run_procs_path, "stream_eamsgd_control_procs", 4, **eamsgd)
+        lr0 = pool.submit(run_procs_path, "stream_eamsgd_lr0_tcp_procs", 4,
+                          opt="eamsgd", lr=0.0, mva=0.45, su=1, epochs=1,
+                          ft_op_deadline_s=5.0, ft_chunk_bytes=STREAM_CHUNK_BYTES,
+                          transport="tcp", tcp_addrs=",".join(tcp_addrs))
+        for name, fut, key in (("stream_eamsgd_procs", chunked, "k1"),
+                               ("stream_eamsgd_lr0_tcp_procs", lr0, "k2")):
+            results, launches, reading = fut.result()
+            steps = sum(reading["worker_steps"])
+            expect_launches(name, launches, {key: steps})
+            record_path(all_paths, name, launches, steps)
+        _c_results, _c_launches, c_reading = control.result()
+    err = max(chunked.result()[2]["test_err"])
+    err0 = max(c_reading["test_err"])
+    print(f"stream_procs on {smi}: test error {err} chunked, {err0} unchunked")
+    if err > err0 + 0.02:
+        raise AssertionError(f"stream_procs: the chunked gang's test error {err} is past "
+                             f"the unchunked gang's {err0} + 0.02")
+    return time.perf_counter() - t0
+
+
+def dplane_gangs(torch, kernels, data, all_paths):
+    """``run_gang`` with ``--dplane 1``: DOWNPOUR np=4 (every pair on the
+    device path, no kernel) and Adam np=4 (K3 = the applies = 2 x the
+    workers' steps)."""
+    for name, kw, k3 in (("dplane_downpour_np4", dict(opt="downpour", lr=1e-2, su=1,
+                                                      epochs=1), False),
+                         ("dplane_adam_np4", dict(opt="adam", lr=1e-3, su=1, epochs=1),
+                          True)):
+        res, launches, _ = run_gang_path(torch, name, 4, kernels, data, dplane=1, **kw)
+        workers = [r for r in res.values() if r["role"] == "worker"]
+        if any(r["device_ranks"] != [0, 2] for r in workers):
+            raise AssertionError(f"{name}: device ranks "
+                                 f"{[r['device_ranks'] for r in workers]}")
+        steps = sum(r["steps"] for r in workers)
+        applied = sum(r["grads_applied"] for r in res.values() if r["role"] == "server")
+        if k3 and applied != 2 * steps:
+            raise AssertionError(f"{name}: {applied} applies for {steps} worker steps")
+        expect_launches(name, launches, {"k3": applied} if k3 else {})
+        record_path(all_paths, name, launches, steps)
+
+
+def dplane_adam_procs(all_paths):
+    """``launch --np 4 --opt adam --dplane 1``: every pair crosses a process,
+    so every pair falls back to the wire; the servers' slots apply by K3 =
+    2 x the workers' steps (counted in the children)."""
+    name = "dplane_adam_procs"
+    results, launches, reading = run_procs_path(name, 4, opt="adam", lr=1e-3, su=1,
+                                                epochs=1, dplane=1)
+    workers = [r for r in results.values() if r["role"] == "worker"]
+    if any(r.get("device_ranks") != [] for r in workers):
+        raise AssertionError(f"{name}: a pair across processes took the device path")
+    steps = sum(reading["worker_steps"])
+    expect_launches(name, launches, {"k3": 2 * steps})
+    record_path(all_paths, name, launches, steps)
+
+
+def ptest_stream(smi):
+    """The ptest twin's streaming A/B at 64 MB and codec none over the
+    modelled 800 MB/s link (8 MB chunks): GRAD and PARAM p50 by whole
+    frames and chunked.  The pool sweep and the wider widths run as a
+    command of their own (``README.md``)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "tools/torch_ptest.py"], capture_output=True,
+                          text=True, timeout=300,
+                          env=dict(os.environ, MPIT_BENCH_STREAM="only",
+                                   MPIT_BENCH_CODECS="none", MPIT_BENCH_MB="64",
+                                   MPIT_BENCH_ROUNDS="5"))
+    if proc.returncode != 0:
+        raise AssertionError(f"ptest stream: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    for row in rows:
+        print("ptest_stream: " + json.dumps(row))
+    if [r["stream"] for r in rows] != [0, 1] or any(r["retries"] for r in rows):
+        raise AssertionError(f"ptest stream: unexpected rows {rows}")
+    print(f"ptest_stream on {smi}: GRAD p50 {rows[0]['grad_p50_ms']:.1f} -> "
+          f"{rows[1]['grad_p50_ms']:.1f} ms, PARAM p50 {rows[0]['param_p50_ms']:.1f} -> "
+          f"{rows[1]['param_p50_ms']:.1f} ms in {time.perf_counter() - t0:.1f}s")
+
+
+def dplane_stream_phases(torch, kernels, all_paths, smi):
+    """Slices 6 and 5f on the card: the process gangs (the dplane Adam gang
+    and the chunked EAMSGD gangs) and ptest's stream leg run in the
+    background while this process drives the device exchange and the
+    streamed lockstep matrix."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mpit_tpu_torch import obs
+    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
+    from mpit_tpu_torch.data.mnist import load_mnist
+
+    obs.configure(enabled=False)
+    t0 = time.perf_counter()
+    raw, _ = load_mnist(side=GANG_BASE["side"])
+    data = (torch.as_tensor(raw[0], device=GANG_BASE["device"]),
+            torch.as_tensor(np.asarray(raw[1]), dtype=torch.int64,
+                            device=GANG_BASE["device"]))
+    addrs, socks = allocate_local_addresses(4)
+    for s in socks:
+        s.close()
+    with ThreadPoolExecutor(2) as pool:
+        procs = pool.submit(stream_procs, all_paths, smi, addrs)
+        dprocs = pool.submit(dplane_adam_procs, all_paths)
+        t1 = time.perf_counter()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            dplane_adam_lockstep(torch, kernels, data, all_paths, smi)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        dplane_sync_device(torch, kernels, all_paths, smi)
+        dplane_gangs(torch, kernels, raw, all_paths)
+        stream_lockstep_matrix(torch, kernels, all_paths, smi)
+        inproc_s = time.perf_counter() - t1
+        dprocs.result()
+        procs_s = procs.result()
+    ptest_stream(smi)
+    obs.configure(enabled=None)
+    print(f"dplane and stream phases: {time.perf_counter() - t0:.1f}s (in-process "
+          f"{inproc_s:.1f}s; beside it the process gangs {procs_s:.1f}s)")
+
+
 # -- observability (slice 5b) -----------------------------------------------------
 
 #: the timed process gang's epochs: long enough that the parent scrapes every
@@ -3860,11 +4285,25 @@ BICNN_GANG_BATCH = 2
 
 
 def record_path(all_paths, name, launches, steps):
-    """``all_paths[kernel][name]``: each kernel's launches on the path (0
-    where the path runs none of it) and the path's steps (the readings are
-    printed on the path's own line, which keeps the kernels line short)."""
+    """``all_paths[kernel][name]``: each kernel's launches on the path and
+    the path's steps (the readings are printed on the path's own line,
+    which keeps the kernels line short)."""
     for key in all_paths:
         all_paths[key][name] = {"launches": launches.get(key, 0), "steps": steps}
+
+
+def launched_paths(entries):
+    """One rule for the kernels line: a kernel's ``paths`` keep only the
+    paths that launched it, so a path absent there launched it 0 times.
+    Returns every driven path's steps, printed on a line of their own, so
+    a path that launched no kernel is told from one never driven."""
+    driven = {}
+    for entry in entries:
+        for name, rec in entry["paths"].items():
+            driven.setdefault(name, rec.get("steps"))
+        entry["paths"] = {name: rec for name, rec in entry["paths"].items()
+                          if rec["launches"]}
+    return driven
 
 
 def read_counts(kernels):
@@ -4311,6 +4750,7 @@ def main() -> int:
     obs_phases(torch, kernels, all_paths, smi)
     sc_phases(torch, kernels, all_paths, smi, gang_timing)
     serve_phases(torch, kernels, all_paths, smi)
+    dplane_stream_phases(torch, kernels, all_paths, smi)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 
@@ -4340,6 +4780,8 @@ def main() -> int:
     print(f"sync-DP, resume and BiCNN phases: {slice4_s:.1f}s")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
+    driven = launched_paths([k1, k2, k3, k4, k5, k6])
+    print(f"paths driven ({len(driven)}, each with its steps): " + json.dumps(driven))
     line = json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]})
     print(f"kernels line: {len(line)} bytes", file=sys.stderr)
     print(smi)

@@ -4,9 +4,10 @@
 The port of ``mpit_tpu/cells/cell.py``.  A cell is host code: it holds
 the upstream's encoded frames as numpy bytes, installs deltas with a numpy
 XOR, and makes no CUDA context; what it serves is the shard its upstream
-applied on the card (K3 under Adam), byte for byte.  A chunk-framed
-subscription (``FLAG_CHUNKED``, INIT v5) comes with chunked streaming
-(slice 5f): the port's ``FTConfig`` refuses the chunk cut it needs.
+applied on the card (K3 under Adam), byte for byte.  With a chunk size in
+its ``FTConfig`` a cell subscribes chunk-framed (``FLAG_SUBSCRIBE |
+FLAG_CHUNKED``, INIT v5): FULL and DELTA frames arrive as chunk messages
+and are assembled before they install.
 
 A cell attaches to its upstream :class:`~mpit_tpu_torch.ps.server.ParamServer`
 with the SUBSCRIBE posture (INIT v3, ``FLAG_READONLY | FLAG_SUBSCRIBE``),
@@ -64,14 +65,17 @@ from mpit_tpu_torch.cells import wire as _cellwire
 from mpit_tpu_torch.comm import codec as codec_mod
 from mpit_tpu_torch.comm.transport import Transport
 from mpit_tpu_torch.ft import (
+    FLAG_CHUNKED,
     FLAG_FRAMED,
     FLAG_HEARTBEAT,
     FLAG_READONLY,
     FLAG_SUBSCRIBE,
     FTConfig,
     LeaseRegistry,
+    chunk_elems_for,
     header_frame,
     init_v3,
+    init_v5,
 )
 from mpit_tpu_torch.obs import (
     get_flight,
@@ -181,6 +185,15 @@ class ServingCell:
         self._diff_progress = time.monotonic()
         self._resyncing = False
         self._shedding = False
+        # Chunk-framed subscription: with a chunk size in the FT posture,
+        # FULL/DELTA frames arrive as chunk messages and assemble here — one
+        # live assembly (the stream is FIFO), keyed by (kind, from, to,
+        # count), so a dropped chunk surfaces as an abandoned assembly (a
+        # dropped frame, recovered by the gap/resync machinery), never a
+        # torn install.
+        self._sub_chunk_elems = (chunk_elems_for(self.ft.chunk_bytes, 4)
+                                 if self.ft.chunk_bytes > 0 else 0)
+        self._asm: Optional[Tuple[Tuple[int, int, int, int], Dict]] = None
         self._sub_epoch = self.ft.epoch
         self._sub_seq = 0
         self._hb_seq = 0
@@ -449,8 +462,38 @@ class ServingCell:
                 continue
             if got is None:
                 return
+            if self._sub_chunk_elems:
+                done = self._assemble_chunk(got)
+                if done is not None:
+                    self._apply_diff(*done)
+                continue
             kind, from_v, to_v, head, body = _cellwire.parse_diff(got)
             self._apply_diff(kind, from_v, to_v, head, body)
+
+    def _assemble_chunk(self, got):
+        """One chunked-subscription DIFF message into the live assembly.
+        Returns the completed (kind, from, to, head, body) or None.  A
+        duplicate chunk skips by index; a chunk of a *newer* frame abandons
+        an incomplete older assembly; stragglers of an older frame drop."""
+        kind, from_v, to_v, head, idx, count, body = _cellwire.parse_diff_chunk(got)
+        self._note_head(head)
+        key = (kind, from_v, to_v, count)
+        if self._asm is not None and self._asm[0] != key:
+            if to_v < self._asm[0][2]:
+                return None  # an older frame's straggler chunk: drop
+            self._asm = None  # abandon the torn assembly
+        if self._asm is None:
+            self._asm = (key, {})
+        parts = self._asm[1]
+        if idx in parts:
+            return None  # a duplicated chunk: already staged
+        parts[idx] = body
+        if len(parts) < count:
+            return None
+        self._asm = None
+        body = (parts[0] if count == 1
+                else np.concatenate([parts[i] for i in range(count)]))
+        return kind, from_v, to_v, head, body
 
     def _apply_diff(self, kind: int, from_v: int, to_v: int, head: int,
                     body: np.ndarray) -> None:
@@ -563,11 +606,16 @@ class ServingCell:
                            "beat): %r", exc)
 
     def _sub_flags(self) -> int:
-        return FLAG_FRAMED | FLAG_READONLY | FLAG_SUBSCRIBE | FLAG_HEARTBEAT
+        return (FLAG_FRAMED | FLAG_READONLY | FLAG_SUBSCRIBE | FLAG_HEARTBEAT
+                | (FLAG_CHUNKED if self._sub_chunk_elems else 0))
 
     def _announce(self) -> np.ndarray:
-        """The subscription INIT: v3, byte-identical to the JAX cell's
-        (the chunk-framed v5 form is a later slice)."""
+        """The subscription INIT: v5 (carrying the chunk cut) for a
+        chunk-framed stream, the v3 of the JAX cell otherwise."""
+        if self._sub_chunk_elems:
+            return init_v5(self.offset, self.size, self.codec.wire_id,
+                           self._sub_epoch, self._sub_flags(),
+                           self._sub_chunk_elems)
         return init_v3(self.offset, self.size, self.codec.wire_id,
                        self._sub_epoch, self._sub_flags())
 

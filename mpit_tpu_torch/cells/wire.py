@@ -3,10 +3,9 @@ frame history the diff producer draws deltas from (docs/PROTOCOL.md §11).
 
 The port of ``mpit_tpu/cells/wire.py``, byte for byte: the same headers,
 the same XOR deltas.  Host code on numpy only (no torch op on the cells'
-threads).  The JAX package runs the XOR on its ``comm/pool`` worker pool;
-the port has no pool yet (it comes with chunked streaming, slice 5f, which
-takes the XOR over), so the XOR here is ``np.bitwise_xor`` into the same
-fresh ``np.empty`` buffer: the bytes are the same.
+threads).  The XOR runs through the worker pool's synchronous entry
+(:mod:`mpit_tpu_torch.comm.pool`: the native kernel, or ``np.bitwise_xor``
+without the library) into a fresh buffer: the same bytes either way.
 
 The replication invariant the whole fabric rests on: **a cell's serving
 cache holds, per installed version, bit-for-bit the encoded snapshot
@@ -49,6 +48,8 @@ from collections import OrderedDict
 from typing import Optional, Tuple
 
 import numpy as np
+
+from mpit_tpu_torch.comm import pool as comm_pool
 
 
 #: int64 [kind, from_version, to_version, head_version, body_nbytes]
@@ -174,12 +175,12 @@ def xor_delta(frame_from: np.ndarray, frame_to: np.ndarray) -> np.ndarray:
         raise ValueError(
             f"encoded frames differ in size ({a.size} vs {b.size}) — "
             "not one snapshot stream")
-    # Synchronous: delta production runs on the serve path (the server
-    # answers DIFF_REQ inline).  The output is a fresh buffer an in-flight
-    # send of an older delta can never see rewritten.  (The pool of slice
-    # 5f takes this XOR over; the bytes stay the same.)
+    # Synchronous kernel entry: delta production runs on the serve path
+    # (the server answers DIFF_REQ inline), so it must not queue behind
+    # other pool jobs.  The output is a fresh buffer an in-flight send of an
+    # older delta can never see rewritten.
     out = np.empty(a.size, np.uint8)
-    np.bitwise_xor(a, b, out=out)
+    comm_pool.get_pool().xor_sync(a, b, out)
     return out
 
 
@@ -191,9 +192,10 @@ def apply_delta(frame: np.ndarray, delta: np.ndarray) -> np.ndarray:
         raise ValueError(
             f"delta is {delta.size} bytes against a {a.size}-byte frame")
     # Synchronous: the caller sits inside the cell's no-yield install
-    # window (cells/cell.py _install).
+    # window (cells/cell.py _install), where a blocking pool wait must not
+    # happen — so never a queued submit here.
     out = np.empty(a.size, np.uint8)
-    np.bitwise_xor(as_u8(delta), a, out=out)
+    comm_pool.get_pool().xor_sync(as_u8(delta), a, out)
     return out
 
 

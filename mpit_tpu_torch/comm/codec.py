@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,6 +155,29 @@ class Codec:
         ``decode_parts`` consumes them."""
         raise NotImplementedError
 
+    #: bytes per element for codecs whose frame is one homogeneous
+    #: region (none: 4, bf16: 2); frame-structured codecs override
+    #: chunk_regions instead.
+    _flat_stride: int = 0
+
+    def chunk_regions(self, size: int, lo: int,
+                      hi: int) -> "List[Tuple[int, int, int]]":
+        """``(full_off, chunk_off, nbytes)`` copy spans mapping the
+        *independent* chunk frame for elements ``[lo, hi)`` onto the
+        full-``size`` frame's byte regions (streaming transfers,
+        docs/PROTOCOL.md §12).  ``lo`` must sit on a BLOCK boundary —
+        the invariant that makes a per-chunk encode bit-identical to
+        the same region of a whole-shard encode, residual fold
+        included."""
+        if lo % BLOCK:
+            raise ValueError(
+                f"chunk start {lo} is not BLOCK({BLOCK})-aligned — "
+                "chunk frames are only bit-stable on block boundaries")
+        stride = self._flat_stride
+        if not stride:
+            raise NotImplementedError
+        return [(stride * lo, 0, stride * (hi - lo))]
+
     def decode_parts(self, parts: List[torch.Tensor], size: int) -> torch.Tensor:
         """The ``split_wire`` parts, as tensors on one device ->
         float32[size] on that device."""
@@ -165,6 +188,7 @@ class NoneCodec(Codec):
     name = "none"
     wire_id = 0
     identity = True
+    _flat_stride = 4
 
     def wire_nbytes(self, size: int) -> int:
         return 4 * size
@@ -185,6 +209,7 @@ class NoneCodec(Codec):
 class Bf16Codec(Codec):
     name = "bf16"
     wire_id = 1
+    _flat_stride = 2
 
     def wire_nbytes(self, size: int) -> int:
         return 2 * size
@@ -325,6 +350,21 @@ class Int8Codec(Codec):
     def split_wire(self, wire, size):
         return list(self._views(wire, size))
 
+    def chunk_regions(self, size, lo, hi):
+        # The chunk frame is itself an int8 frame for (hi - lo)
+        # elements: [chunk scales | chunk codes].  Block alignment of
+        # ``lo`` makes its scale blocks a contiguous run of the full
+        # frame's scale region — two copy spans, no per-block walk.
+        if lo % BLOCK:
+            raise ValueError(
+                f"chunk start {lo} is not BLOCK({BLOCK})-aligned — "
+                "chunk frames are only bit-stable on block boundaries")
+        nb_chunk = _nblocks(hi - lo)
+        return [
+            (4 * (lo // BLOCK), 0, 4 * nb_chunk),
+            (4 * _nblocks(size) + lo, 4 * nb_chunk, hi - lo),
+        ]
+
     def decode_parts(self, parts, size):
         scales, codes = parts
         nfull, main = size // BLOCK, (size // BLOCK) * BLOCK
@@ -375,3 +415,39 @@ def by_wire_id(wire_id: int) -> Codec:
 
 def names() -> List[str]:
     return sorted(_REGISTRY)
+
+
+# -- chunk-frame <-> full-frame copies (streaming transfers, §12) ------------
+
+
+def _chunk_copy_spans(codec: Codec, size: int, lo: int, hi: int,
+                      itemsize: int) -> List[Tuple[int, int, int]]:
+    """Identity codecs carry arbitrary dtypes — their regions scale by
+    the *registered* itemsize, not the f32 the quantizers assume."""
+    if codec.identity:
+        if lo % BLOCK:
+            raise ValueError(
+                f"chunk start {lo} is not BLOCK({BLOCK})-aligned — "
+                "chunk frames are only bit-stable on block boundaries")
+        return [(itemsize * lo, 0, itemsize * (hi - lo))]
+    return codec.chunk_regions(size, lo, hi)
+
+
+def gather_chunk(codec: Codec, full: np.ndarray, size: int, lo: int,
+                 hi: int, chunk: np.ndarray, itemsize: int = 4) -> None:
+    """Copy the ``[lo, hi)`` chunk's independent frame out of a
+    full-shard frame (the PARAM serve path: one shared snapshot encode,
+    per-chunk frames cut from it)."""
+    for full_off, chunk_off, nbytes in _chunk_copy_spans(
+            codec, size, lo, hi, itemsize):
+        chunk[chunk_off:chunk_off + nbytes] = full[full_off:full_off + nbytes]
+
+
+def scatter_chunk(codec: Codec, full: np.ndarray, size: int, lo: int,
+                  hi: int, chunk: np.ndarray, itemsize: int = 4) -> None:
+    """Copy a chunk frame into its regions of a full-shard frame (the
+    PARAM_PUSH assembly path: chunks land in staging, one decode+seed
+    at completion)."""
+    for full_off, chunk_off, nbytes in _chunk_copy_spans(
+            codec, size, lo, hi, itemsize):
+        full[full_off:full_off + nbytes] = chunk[chunk_off:chunk_off + nbytes]

@@ -1,0 +1,463 @@
+"""Worker-pool submission seam for the chunk data plane.
+
+A copy of ``mpit_tpu/comm/pool.py``: the port imports nothing of the JAX
+package, and the pool runs over the port's own native library (its
+``transport.cpp`` carries the same ``mt_pool_*`` entry points).
+
+Without a pool every per-chunk encode, decode and XOR delta runs serially on the one Python thread, so chunk k's CPU work can never
+overlap chunk k+1's wire time.  This module is the narrow seam between the protocol code and the native worker pool in
+``comm/native/transport.cpp`` (mt_pool_*): call sites submit pure kernel
+jobs and collect them in submission order; the pool runs them GIL-free
+on persistent native threads.
+
+Determinism is the design center, not an afterthought:
+
+* **Jobs are pure.**  A job reads only the buffers captured at submit
+  time and writes only its own disjoint output region; per-block int8
+  error-feedback state (the residual slice) is carried in the job.  The
+  caller guarantees input buffers are quiescent until the job is
+  collected — buffers that are mutated across the submit window must be
+  snapshotted through an owning constructor first.
+* **Completion order never influences bytes.**  Outputs are disjoint
+  and call sites collect jobs in submission order, so any interleaving
+  of worker threads produces the identical frame.  Pooled-vs-serial
+  bitwise equality is asserted per kernel x codec x chunk geometry x
+  thread count by tests/test_pool.py (tests/test_torch_pool.py for the
+  port).
+* **Serial is the same bytes, not a different path.**  With
+  ``MPIT_POOL_THREADS=0`` (or no compiled library) every submit runs
+  the kernel inline through the exact code the call site used before
+  the pool existed, and returns an already-completed job.
+
+Blocking discipline: :meth:`Job.result` blocks the calling thread (the
+native wait drops the GIL but not the cooperative scheduler), so it must
+never be reachable while holding a lock or inside a no-yield window.
+Scheduler-driven code polls :meth:`Job.done` between ``yield EXEC``
+turns instead; atomic sections use the ``*_sync`` entry points, which
+never queue.
+
+Env: ``MPIT_POOL_THREADS`` — worker count; default ``min(4, cores-1)``,
+``0`` = serial fallback.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+
+from mpit_tpu_torch.comm import codec as codec_mod
+from mpit_tpu_torch.obs import metrics as _obs
+
+ENV_THREADS = "MPIT_POOL_THREADS"
+
+#: job kinds — must match the PoolJobKind enum in transport.cpp.
+KIND_INT8_ENC = 1
+KIND_INT8_DEC = 2
+KIND_BF16_ENC = 3
+KIND_BF16_DEC = 4
+KIND_XOR = 5
+KIND_FOLD_F32 = 6
+KIND_COPY = 7
+
+#: metric label per kind (mpit_pool_jobs_total{kind}).
+KIND_NAMES = {
+    KIND_INT8_ENC: "int8_enc",
+    KIND_INT8_DEC: "int8_dec",
+    KIND_BF16_ENC: "bf16_enc",
+    KIND_BF16_DEC: "bf16_dec",
+    KIND_XOR: "xor",
+    KIND_FOLD_F32: "fold_f32",
+    KIND_COPY: "copy",
+}
+
+
+def default_threads() -> int:
+    """``min(4, cores-1)`` — zero on a 1-core host, i.e. serial."""
+    return min(4, max(0, (os.cpu_count() or 1) - 1))
+
+
+def configured_threads() -> int:
+    raw = os.environ.get(ENV_THREADS, "")
+    if raw == "":
+        return default_threads()
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return default_threads()
+
+
+class PoolClosedError(RuntimeError):
+    """Submit after close() — queued work would be silently lost."""
+
+
+class Job:
+    """Future for one submitted kernel (or a span group of COPY jobs).
+
+    Holds references to every buffer the native job touches until the
+    job is collected — the zero-copy rule of ``_as_pointer``: the pool
+    reads the caller's storage directly, so the Job keeps it alive.
+    """
+
+    __slots__ = ("_pool", "_handles", "_refs")
+
+    def __init__(self, pool: Optional["WorkerPool"],
+                 handles: Sequence[int], refs: tuple):
+        self._pool = pool
+        self._handles = list(handles)
+        self._refs = refs
+
+    def done(self) -> bool:
+        """Nonblocking completion probe (scheduler-friendly: poll this
+        between ``yield EXEC`` turns)."""
+        if self._pool is None:
+            return True
+        remaining = []
+        for h in self._handles:
+            if self._pool._poll(h) == 0:
+                remaining.append(h)
+        self._handles = remaining
+        if not remaining:
+            self._retire()
+            return True
+        return False
+
+    def result(self) -> None:
+        """Block until the job completes.  The native wait drops the
+        GIL but stalls this thread — never call it while holding a lock
+        or inside a no-yield window; those contexts poll :meth:`done` or
+        use the ``*_sync`` entries."""
+        if self._pool is None:
+            return
+        for h in self._handles:
+            self._pool._wait(h)
+        self._handles = []
+        self._retire()
+
+    def _retire(self) -> None:
+        self._pool = None
+        self._refs = ()
+
+
+#: completed-at-submit job (serial fallback, empty span groups).
+def _done_job() -> Job:
+    return Job(None, (), ())
+
+
+class WorkerPool:
+    """One native worker pool plus the serial fallback that replaces it
+    byte-for-byte when ``threads == 0`` or the library is absent."""
+
+    def __init__(self, threads: Optional[int] = None):
+        self.requested = configured_threads() if threads is None else threads
+        self._lib = None
+        self._pool = None
+        self._mu = threading.Lock()
+        self._closed = False
+        self._busy_sampled = 0.0
+        if self.requested > 0:
+            lib = _load_native()
+            if lib is not None:
+                self._lib = lib
+                self._pool = lib.mt_pool_start(self.requested)
+
+    @property
+    def serial(self) -> bool:
+        """True when submits run inline (no native threads)."""
+        return self._pool is None
+
+    @property
+    def threads(self) -> int:
+        if self._pool is None:
+            return 0
+        return int(self._lib.mt_pool_threads(self._pool))
+
+    # -- submission -----------------------------------------------------------
+
+    def submit_encode(self, codec, x: np.ndarray, wire: np.ndarray,
+                      residual: Optional[np.ndarray] = None) -> Job:
+        """Encode f32 ``x`` into the chunk frame ``wire`` off-thread.
+        The int8 residual slice rides in the job (error-feedback state is
+        per-block, and chunks are BLOCK-aligned, so chunk jobs stay
+        independent)."""
+        self._check_open()
+        if self._pool is None:
+            self.encode_sync(codec, x, wire, residual)
+            return _done_job()
+        n = int(x.size)
+        if codec.identity:
+            h = self._submit(KIND_COPY, x, None, wire[: 4 * n], None, 4 * n, 0)
+        elif codec.name == "bf16":
+            h = self._submit(KIND_BF16_ENC, x, None, wire, None, n, 0)
+        elif codec.name == "int8":
+            scales, codes = codec._views(wire, n)
+            h = self._submit(KIND_INT8_ENC, x, residual, scales, codes, n, 0)
+        else:
+            self.encode_sync(codec, x, wire, residual)
+            return _done_job()
+        return Job(self, (h,), (x, wire, residual))
+
+    def submit_decode(self, codec, wire: np.ndarray, out: np.ndarray) -> Job:
+        """Decode a chunk frame into the f32 ``out`` slice off-thread."""
+        self._check_open()
+        if self._pool is None:
+            self.decode_sync(codec, wire, out)
+            return _done_job()
+        n = int(out.size)
+        if codec.identity:
+            h = self._submit(KIND_COPY, wire[: 4 * n], None,
+                             out.view(np.uint8), None, 4 * n, 0)
+        elif codec.name == "bf16":
+            h = self._submit(KIND_BF16_DEC, wire, None, out, None, n, 0)
+        elif codec.name == "int8":
+            scales, codes = codec._views(wire, n)
+            h = self._submit(KIND_INT8_DEC, scales, codes, out, None, n, 0)
+        else:
+            self.decode_sync(codec, wire, out)
+            return _done_job()
+        return Job(self, (h,), (wire, out))
+
+    def submit_copy(self, src: np.ndarray, dst: np.ndarray) -> Job:
+        """Byte copy ``dst[:] = src`` off-thread (identity-codec chunk
+        staging)."""
+        self._check_open()
+        if self._pool is None:
+            dst[:] = src
+            return _done_job()
+        h = self._submit(KIND_COPY, src, None, dst, None, int(src.nbytes), 0)
+        return Job(self, (h,), (src, dst))
+
+    def submit_xor(self, a: np.ndarray, b: np.ndarray,
+                   out: np.ndarray) -> Job:
+        """``out = a ^ b`` byte-wise (cells DELTA production/apply)."""
+        self._check_open()
+        if self._pool is None:
+            self.xor_sync(a, b, out)
+            return _done_job()
+        h = self._submit(KIND_XOR, a, b, out, None, int(a.nbytes), 0)
+        return Job(self, (h,), (a, b, out))
+
+    def submit_gather(self, codec, full: np.ndarray, size: int, lo: int,
+                      hi: int, chunk: np.ndarray, itemsize: int = 4) -> Job:
+        """Cut the ``[lo, hi)`` chunk frame out of a full-shard frame
+        (PARAM serve path) as one COPY job per region span."""
+        self._check_open()
+        if self._pool is None:
+            codec_mod.gather_chunk(codec, full, size, lo, hi, chunk,
+                                   itemsize=itemsize)
+            return _done_job()
+        handles = [
+            self._submit(KIND_COPY, full[full_off:full_off + nbytes], None,
+                         chunk[chunk_off:chunk_off + nbytes], None, nbytes, 0)
+            for full_off, chunk_off, nbytes
+            in codec_mod._chunk_copy_spans(codec, size, lo, hi, itemsize)]
+        return Job(self, handles, (full, chunk))
+
+    def submit_scatter(self, codec, full: np.ndarray, size: int, lo: int,
+                       hi: int, chunk: np.ndarray, itemsize: int = 4) -> Job:
+        """Scatter a chunk frame into a full-shard staging frame
+        (PARAM_PUSH assembly path)."""
+        self._check_open()
+        if self._pool is None:
+            codec_mod.scatter_chunk(codec, full, size, lo, hi, chunk,
+                                    itemsize=itemsize)
+            return _done_job()
+        handles = [
+            self._submit(KIND_COPY, chunk[chunk_off:chunk_off + nbytes], None,
+                         full[full_off:full_off + nbytes], None, nbytes, 0)
+            for full_off, chunk_off, nbytes
+            in codec_mod._chunk_copy_spans(codec, size, lo, hi, itemsize)]
+        return Job(self, handles, (full, chunk))
+
+    # -- synchronous entries (atomic sections / no-yield windows) -------------
+    #
+    # These never queue: declared atomic sections (cell-install-atomic,
+    # ps-read-path-helpers) may not block on a pool condvar, so inside
+    # them the kernels run inline on the calling thread.
+
+    def encode_sync(self, codec, x, wire, residual=None) -> None:
+        codec.encode_into(x, wire, residual=residual)
+
+    def decode_sync(self, codec, wire, out) -> None:
+        codec.decode_into(wire, out)
+
+    def xor_sync(self, a: np.ndarray, b: np.ndarray,
+                 out: np.ndarray) -> None:
+        lib = self._lib if self._lib is not None else _load_native()
+        if lib is not None:
+            lib.mt_xor_bytes(a, b, out, int(a.nbytes))
+        else:
+            np.bitwise_xor(a, b, out=out)
+
+    # -- lifecycle / introspection -------------------------------------------
+
+    def close(self) -> None:
+        """Drain every queued job, join the workers.  Idempotent; any
+        submit afterwards raises :class:`PoolClosedError` loudly."""
+        with self._mu:
+            pool, self._pool = self._pool, None
+            self._closed = True
+        if pool is not None:
+            self._sample_busy(pool)
+            self._lib.mt_pool_close(pool)
+
+    def depth(self) -> int:
+        if self._pool is None:
+            return 0
+        return int(self._lib.mt_pool_depth(self._pool))
+
+    def jobs_total(self, kind: int = 0) -> int:
+        if self._pool is None:
+            return 0
+        return int(self._lib.mt_pool_jobs(self._pool, kind))
+
+    def busy_seconds(self) -> float:
+        if self._pool is None:
+            return 0.0
+        return float(self._lib.mt_pool_busy_seconds(self._pool))
+
+    def status(self) -> dict:
+        """/status section + ``mpit top`` source (obs/statusd.py)."""
+        return {
+            "threads": self.threads,
+            "serial": self.serial,
+            "depth": self.depth(),
+            "jobs_total": self.jobs_total(),
+            "busy_seconds": round(self.busy_seconds(), 6),
+        }
+
+    # -- internals ------------------------------------------------------------
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise PoolClosedError(
+                "worker pool is closed; submit would lose the job")
+
+    def _submit(self, kind: int, a, b, c, d, n: int, aux: int) -> int:
+        with self._mu:
+            if self._closed or self._pool is None:
+                raise PoolClosedError(
+                    "worker pool is closed; submit would lose the job")
+            handle = int(self._lib.mt_pool_submit(
+                self._pool, kind, a, b, c, d, n, aux))
+        if handle <= 0:
+            raise PoolClosedError(
+                f"native pool rejected job kind={kind} n={n}")
+        reg = _obs.get_registry()
+        if reg.enabled:
+            reg.counter("mpit_pool_jobs_total",
+                        kind=KIND_NAMES[kind]).inc()
+            reg.gauge("mpit_pool_queue_depth").set(self.depth())
+        return handle
+
+    def _poll(self, handle: int) -> int:
+        if self._pool is None:
+            return 1
+        return int(self._lib.mt_pool_poll(self._pool, handle))
+
+    def _wait(self, handle: int) -> None:
+        if self._pool is None:
+            return
+        self._lib.mt_pool_wait(self._pool, handle)
+
+    def _sample_busy(self, pool=None) -> None:
+        """Fold the cumulative native busy clock into the counter as a
+        delta (counters are monotonic; the native side is the truth)."""
+        pool = pool if pool is not None else self._pool
+        if pool is None or self._lib is None:
+            return
+        reg = _obs.get_registry()
+        if not reg.enabled:
+            return
+        now = float(self._lib.mt_pool_busy_seconds(pool))
+        delta = now - self._busy_sampled
+        if delta > 0:
+            reg.counter("mpit_pool_busy_seconds").inc(delta)
+            self._busy_sampled = now
+
+    def sample_obs(self) -> None:
+        """Refresh the pool gauges (called by the /status provider and
+        the bench loop; cheap no-op when obs is disabled)."""
+        reg = _obs.get_registry()
+        if not reg.enabled:
+            return
+        reg.gauge("mpit_pool_threads").set(self.threads)
+        reg.gauge("mpit_pool_queue_depth").set(self.depth())
+        self._sample_busy()
+
+
+_native_lib: Optional[object] = None  # None: untried; False: unavailable
+
+
+def _load_native():
+    """The port's native library, or None (no compiler / big-endian /
+    disabled): the pool then stays serial and gives the same bytes."""
+    global _native_lib
+    if _native_lib is None:
+        if os.environ.get(codec_mod._NATIVE_ENV, "1") == "0" \
+                or not codec_mod._LITTLE:
+            _native_lib = False
+        else:
+            try:
+                from mpit_tpu_torch.comm.native import build
+
+                _native_lib = build.load()
+            except RuntimeError as exc:  # build failed or stale: loud
+                from mpit_tpu_torch.utils.logging import get_logger
+
+                get_logger("pool").warning(
+                    "native library unavailable (serial fallback): %s", exc)
+                _native_lib = False
+            except Exception:  # no g++ / unwritable tree: quiet fallback
+                _native_lib = False
+    return _native_lib or None
+
+
+_GLOBAL: Optional[WorkerPool] = None
+_GLOBAL_MU = threading.Lock()
+
+
+def get_pool() -> WorkerPool:
+    """Process-wide pool, built once from ``MPIT_POOL_THREADS``."""
+    global _GLOBAL
+    with _GLOBAL_MU:
+        if _GLOBAL is None:
+            _GLOBAL = WorkerPool()
+            _register_status(_GLOBAL)
+        return _GLOBAL
+
+
+def current_pool() -> Optional[WorkerPool]:
+    """The process-wide pool *if one exists* — the observe-only
+    accessor the obs samplers use (obs/profile.py): a profiler reading
+    utilization must never be the thing that spins worker threads up."""
+    return _GLOBAL
+
+
+def configure(threads: Optional[int]) -> WorkerPool:
+    """Replace the process-wide pool (tests, bench A/B legs).  Closes
+    the previous one so its workers never leak across configurations."""
+    global _GLOBAL
+    with _GLOBAL_MU:
+        old, _GLOBAL = _GLOBAL, None
+    if old is not None:
+        old.close()
+    with _GLOBAL_MU:
+        _GLOBAL = WorkerPool(threads)
+        _register_status(_GLOBAL)
+        return _GLOBAL
+
+
+def _register_status(pool: WorkerPool) -> None:
+    try:
+        from mpit_tpu_torch.obs import statusd
+
+        def _section():
+            pool.sample_obs()
+            return pool.status()
+
+        statusd.register_provider("pool", _section)
+    except Exception:  # obs wiring must never break the data plane
+        pass

@@ -21,22 +21,13 @@ Each feature is enabled by its own knob because they cost differently:
 Env mirrors (``FTConfig.from_env``) let process-gang children inherit
 the gang's FT posture without threading it through every entry point.
 
-The port keeps every field and env name of the JAX package's config, and
-refuses the one whose layer comes with a later slice: ``chunk_bytes``
-(chunked streaming rides ``comm/pool``).
+The port keeps every field and env name of the JAX package's config.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-
-#: What each refused field belongs to.
-LATER_FIELDS = {
-    "chunk_bytes": "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5f, "
-                   "streaming with comm/pool)",
-}
-
 
 @dataclass(frozen=True)
 class FTConfig:
@@ -78,12 +69,6 @@ class FTConfig:
     #: (PROTOCOL.md §12).  Requires framing (retry resends missing
     #: chunks; dedup is per (op, chunk)); 0 keeps whole-frame transfers.
     chunk_bytes: int = 0
-
-    def __post_init__(self) -> None:
-        if self.chunk_bytes:
-            raise NotImplementedError(
-                f"FTConfig(chunk_bytes={self.chunk_bytes}): "
-                f"{LATER_FIELDS['chunk_bytes']} of the port")
 
     @property
     def active(self) -> bool:

@@ -365,7 +365,9 @@ class PacedTransport(Transport):
                 proxy.buf = None  # inner handle owns liveness now
 
     def isend(self, data: Any, dst: int, tag: int) -> Handle:
-        nbytes = int(getattr(data, "nbytes", None) or len(data or b""))
+        # An empty numpy array (the start-up barrier's) has no truth value
+        # under newer numpy: size it by its attribute, never by ``or``.
+        nbytes = int(data.nbytes) if hasattr(data, "nbytes") else len(data or b"")
         if (tag < 0 or nbytes < self.min_bytes
                 or (self.tags is not None and tag not in self.tags)):
             return self.inner.isend(data, dst, tag)

@@ -43,10 +43,10 @@ attribution degrades, it never goes negative.
 
 A copy of ``mpit_tpu/obs/profile.py``: the port imports nothing of the JAX
 package.
-The port has no native worker pool yet (``comm/pool.py`` comes with chunked
-streaming), so :func:`_current_pool` is None and the ``pool_util`` /
-``pool_depth`` tracks and the ``pool`` resource section are absent, as the
-JAX package emits them in a process without a pool.
+The pool is the port's :mod:`mpit_tpu_torch.comm.pool`: a process that
+never made one (no chunked streaming, no cell XOR) has no ``pool_util`` /
+``pool_depth`` tracks and no ``pool`` resource section, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -78,9 +78,10 @@ TRACKS = ("pool_util", "pool_depth", "sched_runq", "task_cpu")
 
 def _current_pool():
     """The process's native worker pool if one was ever created — the
-    sampler observes, it must never *instantiate* a pool.  The port has
-    none yet (it comes with chunked streaming), so this is None."""
-    return None
+    sampler observes, it must never *instantiate* a pool."""
+    from mpit_tpu_torch.comm import pool as _pool
+
+    return _pool.current_pool()
 
 
 class NullProfiler:

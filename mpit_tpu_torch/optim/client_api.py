@@ -1,8 +1,8 @@
 """The parameter-client protocol the comm-aware optimizers drive.
 
-A copy of ``ParamClientAPI`` from ``mpit_tpu/optim/client_api.py`` (its
-``DeviceSyncAPI`` extension is the device data plane's).  The port imports
-nothing of the JAX package.
+A copy of ``ParamClientAPI`` and its ``DeviceSyncAPI`` extension from
+``mpit_tpu/optim/client_api.py``.  The port imports nothing of the JAX
+package.
 
 Mirrors the reference pClient surface (reference asyncsgd/pclient.lua:84-179):
 ``start/reset`` register host-visible flat buffers, the ``async_*`` calls
@@ -45,3 +45,16 @@ class ParamClientAPI(Protocol):
         """Block until all enqueued transfers complete."""
 
     def stop(self) -> None: ...
+
+
+@runtime_checkable
+class DeviceSyncAPI(ParamClientAPI, Protocol):
+    """Optional extension (:class:`mpit_tpu_torch.dplane.ExchangeClient`): a
+    PS round that stays in device memory.  ``sync_device(update)`` ships a
+    flat device tensor update and returns the refreshed parameter vector as
+    a device tensor — no host mirrors touched for device-eligible servers
+    (wire-fallback servers are staged through the mirrors).  Trainers should
+    feature-test with ``isinstance(pc, DeviceSyncAPI)`` and keep the mirror
+    path as the universal fallback."""
+
+    def sync_device(self, update, *, pull: bool = True): ...

@@ -43,9 +43,21 @@ per-shard staging (with a per-shard int8 residual); a ``NACK_MAP`` reply
 installs the server's newer map and re-routes, ``BUSY`` backs off through a
 migration, and the controller's MAP_UPDATE broadcasts are polled in
 ``ping``/``wait``.  One global FIFO pump serializes shard ops.  Staleness and
-timing negotiate off there (the header has no slot for them).  Chunked
-streaming and the weighted layout come with later slices: their knobs and
-constructor arguments raise ``NotImplementedError`` naming the slice.
+timing negotiate off there (the header has no slot for them).  The weighted
+layout comes with a later slice: its constructor argument raises
+``NotImplementedError`` naming the slice.
+
+Chunked streaming (``FTConfig(chunk_bytes=...)`` on a framed client; INIT
+v5, ``FLAG_CHUNKED``): every GRAD / PARAM_PUSH body ships as K independent
+block-aligned chunk frames, each encoded on the worker pool
+(:mod:`mpit_tpu_torch.comm.pool`) into its own staging slot behind a
+32-byte ``[epoch, seq, idx, count]`` header and posted without waiting, so
+chunk k is on the wire while chunk k+1 encodes.  The server acks each chunk;
+a deadline resends only the missing chunks from the same staged bytes (the
+int8 residual was folded once, at the encode).  A PARAM read assembles K
+chunk replies of one snapshot version, restarting when a newer version
+appears, each decoded on the pool into its slice of ``param``.  Staleness
+negotiates off for chunked pairs, as in the JAX client.
 
 Observability (:mod:`mpit_tpu_torch.obs`): every op records a span with
 the JAX client's phase marks (encode, send, ack or recv, decode, backoff)
@@ -68,6 +80,7 @@ import numpy as np
 from mpit_tpu_torch.aio import (
     DeadlineExceeded,
     LiveFlag,
+    EXEC,
     Scheduler,
     Task,
     aio_recv,
@@ -76,9 +89,13 @@ from mpit_tpu_torch.aio import (
     deadline_at,
 )
 from mpit_tpu_torch.comm import codec as codec_mod
+from mpit_tpu_torch.comm import pool as comm_pool
 from mpit_tpu_torch.comm.transport import Transport
 from mpit_tpu_torch.ft import (
     ACK_TIMING_WORDS,
+    CHUNK_ACK_TIMING_WORDS,
+    CHUNK_ACK_WORDS,
+    FLAG_CHUNKED,
     FLAG_FRAMED,
     FLAG_HEARTBEAT,
     FLAG_STALENESS,
@@ -86,14 +103,22 @@ from mpit_tpu_torch.ft import (
     FTConfig,
     RetryExhausted,
     RetryPolicy,
+    chunk_elems_for,
+    chunk_hdr_bytes,
+    chunk_reply_hdr_bytes,
+    chunk_spans,
+    chunk_stride,
     hdr_bytes,
     header_frame,
     init_v3,
+    init_v5,
+    pack_chunk_header,
     pack_header,
     pack_tx_stamp,
     pack_version,
     reply_hdr_bytes,
     timed_frame,
+    unpack_chunk_reply,
     unpack_header,
     unpack_reply_stamps,
     unpack_version,
@@ -174,7 +199,15 @@ class ParamClient:
         # client computed against (the 24-byte header).
         # Off under shard control: the 32-byte shard header has no
         # version word.
-        self._stale = self.ft.stale_track and not self._sc
+        # Pipelined streaming (FLAG_CHUNKED): bodies ship as K independent
+        # chunk frames so encode, wire and apply overlap.  Rides the framed
+        # wire; off under shard control (a chunk stream split across
+        # owners has no single admission point).
+        self._chunked = self.ft.chunked and not self._sc
+        # Staleness negotiates off under chunking: the chunked PARAM reply
+        # header carries the version in its own word, and the 32-byte
+        # chunk header has no basis-echo slot.
+        self._stale = self.ft.stale_track and not self._sc and not self._chunked
         # Causal timing (FLAG_TIMING): data frames carry a wall-µs send
         # stamp and every ack/reply a [t_tx_echo, t_recv, t_ack] tail — the
         # four NTP marks that feed the per-server clock-offset estimator.
@@ -187,6 +220,16 @@ class ParamClient:
         self._hdr = hdr_bytes(self._stale, self._timing) if self.ft.framed else 0
         self._hdr_rx = (reply_hdr_bytes(self._stale, self._timing)
                         if self.ft.framed else 0)
+        # Chunked header sizes and the per-server chunk plan (built at
+        # start()): spans [(lo, hi)] and uniform frame strides — the last
+        # chunk's frame is padded to the full stride so both sides receive
+        # into fixed-size staging.
+        self._chdr = chunk_hdr_bytes(self._timing)
+        self._chdr_rx = chunk_reply_hdr_bytes(self._timing)
+        self._chunk_elems = 0
+        self._chunk_spans: Dict[int, list] = {}
+        self._chunk_stride: Dict[int, int] = {}
+        self._chunk_stride_rx: Dict[int, int] = {}
         # Per-server codec state: encode/decode staging sized to the wire
         # format (plus the FT header when framed), the framed reply and ack
         # buffers, and the int8 error-feedback residual (grad path only).
@@ -258,9 +301,22 @@ class ParamClient:
         flags = (FLAG_FRAMED if self.ft.framed else 0) | (
             FLAG_HEARTBEAT if self.ft.heartbeat_s > 0 else 0) | (
             FLAG_STALENESS if self._stale else 0) | (
-            FLAG_TIMING if self._timing else 0)
+            FLAG_TIMING if self._timing else 0) | (
+            FLAG_CHUNKED if self._chunked else 0)
+        if self._chunked:
+            self._chunk_elems = chunk_elems_for(self.ft.chunk_bytes,
+                                                param.dtype.itemsize)
         for srank, shard in zip(self.sranks, self.shards):
             body = self.codec.wire_nbytes(shard.size)
+            if self._chunked:
+                self._chunk_staging(srank, shard)
+                cinfo = init_v5(shard.offset, shard.size, self.codec.wire_id,
+                                self.ft.epoch, flags, self._chunk_elems)
+                self.sched.spawn(aio_send(self.transport, cinfo, srank, tags.INIT,
+                                          live=self.live,
+                                          deadline=self._op_deadline()),
+                                 name=f"send_init:{srank}")
+                continue
             if not self.codec.identity or self._hdr:
                 # Identity codec under FT framing: raw bytes behind the
                 # header (the one staging copy framing costs).
@@ -291,6 +347,28 @@ class ParamClient:
         if self.seed_servers:
             self.async_send_param()
             self.wait()
+
+    def _chunk_staging(self, srank: int, shard: Shard) -> None:
+        """Streamed staging for one server: K uniform [chunk hdr | body]
+        frames, one contiguous buffer per direction.  Encode lands each
+        chunk behind its own header, so a retry resends any chunk's exact
+        bytes, and the error-feedback residual (whole-shard, sliced per
+        chunk) folds exactly once per block."""
+        spans = chunk_spans(shard.size, self._chunk_elems)
+        cbody = self.codec.wire_nbytes(min(self._chunk_elems, shard.size))
+        stride = chunk_stride(self._chdr, cbody)
+        self._chunk_spans[srank] = spans
+        self._chunk_stride[srank] = stride
+        self._chunk_stride_rx[srank] = chunk_stride(self._chdr_rx, cbody)
+        self._grad_wire[srank] = np.zeros(stride * len(spans), np.uint8)
+        self._param_wire[srank] = np.zeros(stride * len(spans), np.uint8)
+        if self.codec.uses_residual:
+            self._residual[srank] = np.zeros(shard.size, np.float32)
+        # One reusable reply-frame buffer: chunked PARAM replies are
+        # uniform-size messages received one at a time.
+        self._param_rx[srank] = np.zeros(self._chunk_stride_rx[srank], np.uint8)
+        self._ack_buf[srank] = np.zeros(
+            CHUNK_ACK_TIMING_WORDS if self._timing else CHUNK_ACK_WORDS, np.int64)
 
     def _register(self, param: np.ndarray, grad: np.ndarray) -> None:
         if not isinstance(param, np.ndarray) or not isinstance(grad, np.ndarray):
@@ -329,7 +407,7 @@ class ParamClient:
             "epoch": self.ft.epoch,
             "framed": self.ft.framed,
             "staleness": self._stale,
-            "chunked": False,
+            "chunked": self._chunked,
             "basis_versions": {str(s): v for s, v in self._basis.items()},
             # the static layout is the JAX client's version-0 map
             "map_version": self.smap.version if self.smap is not None else 0,
@@ -861,6 +939,10 @@ class ParamClient:
         (reference pclient.lua:48-58).  Non-identity codecs encode into
         the per-server staging frame at ship time; the int8 residual is
         folded in and refreshed by the same pass."""
+        if self._chunked:
+            yield from self._chunked_write(srank, shard, tags.GRAD,
+                                           tags.GRAD_ACK, "GRAD")
+            return
         span = self._spans.op("GRAD", peer=srank, side="client", rank=self.rank)
         span.mark("encode")
         payload = self._encode(self.grad[shard.offset:shard.end],
@@ -874,6 +956,9 @@ class ParamClient:
         (reference pclient.lua:72-82) — via the wire staging frame when
         the codec is not identity.  Framed mode seq-tags the request and
         discards snapshot frames that echo an earlier request."""
+        if self._chunked:
+            yield from self._chunked_read(srank, shard)
+            return
         span = self._spans.op("PARAM", peer=srank, side="client", rank=self.rank)
         out = self.param[shard.offset:shard.end]
         if not self.ft.framed:
@@ -948,6 +1033,10 @@ class ParamClient:
         """Whole-shard write, await ack (reference pclient.lua:60-70).
         No residual: parameter pushes (seeding / single-worker mirror)
         are one-shot state transfers, not an accumulating signal."""
+        if self._chunked:
+            yield from self._chunked_write(srank, shard, tags.PARAM_PUSH,
+                                           tags.PARAM_PUSH_ACK, "PARAM_PUSH")
+            return
         span = self._spans.op("PARAM_PUSH", peer=srank, side="client",
                               rank=self.rank)
         span.mark("encode")
@@ -955,6 +1044,260 @@ class ParamClient:
                                self._param_wire.get(srank))
         yield from self._write_op(srank, payload, tags.PARAM_PUSH,
                                   tags.PARAM_PUSH_ACK, "PARAM_PUSH", span)
+
+    # -- pipelined streaming transfers (FLAG_CHUNKED) -------------------------
+
+    def _chunked_write(self, srank: int, shard: Shard, tag: int,
+                       ack_tag: int, what: str):
+        """One streamed shard write: K chunk frames, each encoded into its
+        own staging slot (on the worker pool, one chunk ahead) and posted
+        without waiting.  The server acks each admitted chunk; a deadline
+        resends only the chunks whose acks never arrived, from the same
+        staged bytes — so the int8 residual, folded at the single encode,
+        stays exact under any retry pattern."""
+        span = self._spans.op(what, peer=srank, side="client", rank=self.rank)
+        spans_ = self._chunk_spans[srank]
+        stride = self._chunk_stride[srank]
+        grad = tag == tags.GRAD
+        staging = (self._grad_wire if grad else self._param_wire)[srank]
+        view = (self.grad if grad else self.param)[shard.offset:shard.end]
+        residual = self._residual.get(srank) if grad else None
+        seq = self._next_seq(srank, tag)
+        nchunks = len(spans_)
+        span.note(epoch=self.ft.epoch, seq=seq, chunks=nchunks)
+        span.mark("encode")
+        pool = comm_pool.get_pool()
+        jobs: Dict[int, Any] = {}
+
+        def stage(k: int) -> None:
+            # One pure job per chunk: a disjoint staging slot and a disjoint
+            # block-aligned residual slice; the input view stays untouched
+            # until the job is collected.
+            lo, hi = spans_[k]
+            body = staging[k * stride + self._chdr:
+                           k * stride + self._chdr + self.codec.wire_nbytes(hi - lo)]
+            if self.codec.identity:
+                jobs[k] = pool.submit_copy(view[lo:hi].view(np.uint8), body)
+            else:
+                jobs[k] = pool.submit_encode(
+                    self.codec, view[lo:hi], body,
+                    residual=None if residual is None else residual[lo:hi])
+
+        # With workers, chunk k+1 encodes while chunk k is on the wire;
+        # serial (lookahead 0) keeps the plain order.
+        lookahead = 0 if pool.serial else 1
+        pending: Dict[int, Any] = {}
+        for k in range(nchunks):
+            for j in range(k, min(k + 1 + lookahead, nchunks)):
+                if j not in jobs:
+                    stage(j)
+            if not jobs[k].done():
+                span.mark("pool_collect")
+                while not jobs[k].done():
+                    yield EXEC
+            frame = staging[k * stride:(k + 1) * stride]
+            pack_chunk_header(frame, self.ft.epoch, seq, k, nchunks)
+            if self._timing:
+                pack_tx_stamp(frame, self._chdr, obs_clock.wall_us())
+            span.mark("send" if k == 0 else "chunk")
+            pending[k] = self.transport.isend(frame, srank, tag)
+            # Yield between chunks: the transport moves chunk k while this
+            # generator comes back for chunk k+1.
+            yield EXEC
+        yield from self._chunk_acks(srank, tag, ack_tag, seq, staging,
+                                    pending, span, what)
+
+    def _chunk_acks(self, srank: int, tag: int, ack_tag: int, seq: int,
+                    staging: np.ndarray, pending: Dict[int, Any], span,
+                    what: str):
+        """Await one ack per chunk; on deadline, resend only the missing
+        chunks under the backoff policy.  While waiting, drain send
+        completions and mark ``flush`` when the last chunk left this rank
+        (the point the causal analyzer holds against the server's first
+        apply to see the wire/apply overlap)."""
+        buf = self._ack_buf[srank]
+        stride = self._chunk_stride[srank]
+        nchunks = len(self._chunk_spans[srank])
+        acked = [False] * nchunks
+        remaining = nchunks
+        flushed = False
+        attempt = 0
+        last: Optional[BaseException] = None
+        while self.live.io:
+            deadline = self._op_deadline()
+            try:
+                while remaining:
+                    # FIFO prefix only: sends complete in post order.
+                    for k in list(pending):
+                        if not self.transport.test(pending[k]):
+                            break
+                        del pending[k]
+                    if not pending and not flushed:
+                        flushed = True
+                        span.mark("flush")
+                    if not self.transport.iprobe(srank, ack_tag):
+                        if not self.live.io:
+                            span.end("aborted")
+                            return None
+                        if deadline is not None and time.monotonic() > deadline:
+                            raise DeadlineExceeded("recv", srank, ack_tag,
+                                                   time.monotonic() - deadline)
+                        yield EXEC
+                        continue
+                    handle = self.transport.irecv(srank, ack_tag, out=buf)
+                    while not self.transport.test(handle):
+                        yield EXEC
+                    epoch, aseq, idx = int(buf[0]), int(buf[1]), int(buf[2])
+                    if self._timing and epoch == self.ft.epoch:
+                        self._feed_clock(srank, int(buf[3]), int(buf[4]),
+                                         int(buf[5]))
+                    if epoch == self.ft.epoch and aseq == seq:
+                        if 0 <= idx < nchunks and not acked[idx]:
+                            acked[idx] = True
+                            remaining -= 1
+                    elif epoch > self.ft.epoch or (
+                            epoch == self.ft.epoch and aseq > seq):
+                        raise RuntimeError(
+                            f"chunk ack from server {srank} is ahead of the op "
+                            f"stream: got (epoch={epoch}, seq={aseq}), awaiting "
+                            f"(epoch={self.ft.epoch}, seq={seq})")
+                    # a stale chunk ack (an earlier op's re-ack): drop
+                span.mark("ack")
+                span.end("ok")
+                return True
+            except DeadlineExceeded as exc:
+                last = exc
+                attempt += 1
+                if attempt >= self._retry.attempts:
+                    span.end("exhausted")
+                    self._flight_dump("retry_exhausted", what=what,
+                                      attempts=self._retry.attempts, peer=srank)
+                    raise RetryExhausted(what, self._retry.attempts, last)
+                if not (yield from self._backoff(attempt, span)):
+                    span.end("aborted")
+                    return None
+                # Resend ONLY the unacked chunks: the same staged bytes
+                # (re-stamped under FLAG_TIMING).  A still-pending stale
+                # handle is cancelled first so the buffer is ours again; the
+                # server dedups any copy that got through anyway.
+                span.mark("send")
+                for k in range(nchunks):
+                    if acked[k]:
+                        continue
+                    stale = pending.pop(k, None)
+                    if stale is not None and not self.transport.test(stale):
+                        self.transport.cancel(stale)
+                    frame = staging[k * stride:(k + 1) * stride]
+                    if self._timing:
+                        pack_tx_stamp(frame, self._chdr, obs_clock.wall_us())
+                    span.mark("chunk")
+                    pending[k] = self.transport.isend(frame, srank, tag)
+                    yield EXEC
+        span.end("aborted")
+        return None
+
+    def _chunked_read(self, srank: int, shard: Shard):
+        """One streamed shard read: request by header, then assemble K
+        chunk replies, each decoded into its slice of ``param`` on arrival
+        (on the pool, from an owned copy of the reused receive buffer).
+        Every chunk stamps its snapshot version; the assembly restarts when
+        a newer version appears, so the delivered vector is one committed
+        version."""
+        span = self._spans.op("PARAM", peer=srank, side="client", rank=self.rank)
+        out = self.param[shard.offset:shard.end]
+        spans_ = self._chunk_spans[srank]
+        seq = self._next_seq(srank, tags.PARAM_REQ)
+        span.note(epoch=self.ft.epoch, seq=seq, chunks=len(spans_))
+        frame = self._param_rx[srank]
+        req = (timed_frame(self.ft.epoch, seq, 0) if self._timing
+               else header_frame(self.ft.epoch, seq))
+        last: Optional[BaseException] = None
+        # Decode jobs are per op, not per attempt: a timed-out attempt's job
+        # must land before a retry re-decodes the same slice.
+        pool = comm_pool.get_pool()
+        jobs: Dict[int, Any] = {}
+        for attempt in range(self._retry.attempts):
+            if attempt and not (yield from self._backoff(attempt, span)):
+                span.end("aborted")
+                return
+            deadline = self._op_deadline()
+            try:
+                span.mark("send")
+                if self._timing:
+                    req[2] = obs_clock.wall_us()  # re-stamped per attempt
+                yield from aio_send(self.transport, req, srank, tags.PARAM_REQ,
+                                    live=self.live, deadline=deadline)
+                span.mark("recv")
+                seen: set = set()
+                version: Optional[int] = None
+                while True:
+                    while not self.transport.iprobe(srank, tags.PARAM):
+                        if not self.live.io:
+                            span.end("aborted")
+                            return
+                        if deadline is not None and time.monotonic() > deadline:
+                            raise DeadlineExceeded("recv", srank, tags.PARAM,
+                                                   time.monotonic() - deadline)
+                        yield EXEC
+                    handle = self.transport.irecv(srank, tags.PARAM, out=frame)
+                    while not self.transport.test(handle):
+                        yield EXEC
+                    epoch, aseq, idx, cnt, ver = unpack_chunk_reply(frame)
+                    if self._timing and epoch == self.ft.epoch:
+                        t_tx, t_recv, t_ack = unpack_reply_stamps(
+                            frame, self._chdr_rx - 24)
+                        self._feed_clock(srank, t_tx, t_recv, t_ack)
+                    if epoch > self.ft.epoch or (epoch == self.ft.epoch and aseq > seq):
+                        raise RuntimeError(
+                            f"chunked PARAM reply from server {srank} is ahead "
+                            f"of the op stream: got (epoch={epoch}, seq={aseq}), "
+                            f"awaiting (epoch={self.ft.epoch}, seq={seq})")
+                    if epoch != self.ft.epoch or aseq != seq \
+                            or not (0 <= idx < len(spans_)):
+                        continue  # a stale reply chunk: drop
+                    if version is None or ver > version:
+                        version, seen = ver, set()
+                    elif ver < version:
+                        continue  # an earlier serve's straggler: drop
+                    if idx in seen:
+                        continue  # a duplicated chunk: already decoded
+                    seen.add(idx)
+                    lo, hi = spans_[idx]
+                    span.mark("decode")
+                    body = frame[self._chdr_rx:
+                                 self._chdr_rx + self.codec.wire_nbytes(hi - lo)]
+                    if self.codec.identity:
+                        out[lo:hi].view(np.uint8)[:] = body  # one memcpy
+                    elif pool.serial:
+                        self.codec.decode_into(body, out[lo:hi])
+                    else:
+                        # ``frame`` is reused by the next irecv while a
+                        # worker reads, so the job gets an owned copy.  A
+                        # version restart re-decodes a chunk: the prior job
+                        # lands first so the newer bytes win.
+                        prior = jobs.pop(idx, None)
+                        if prior is not None and not prior.done():
+                            span.mark("pool_collect")
+                            while not prior.done():
+                                yield EXEC
+                        jobs[idx] = pool.submit_decode(self.codec, np.array(body),
+                                                       out[lo:hi])
+                    if len(seen) == cnt:
+                        for job in jobs.values():
+                            if not job.done():
+                                span.mark("pool_collect")
+                                while not job.done():
+                                    yield EXEC
+                        span.end("ok")
+                        return
+            except DeadlineExceeded as exc:
+                last = exc
+        span.end("exhausted")
+        self._flight_dump("retry_exhausted",
+                          what=f"chunked PARAM read from server {srank}",
+                          attempts=self._retry.attempts, peer=srank)
+        raise RetryExhausted(f"chunked PARAM read from server {srank}",
+                             self._retry.attempts, last)
 
     def grads_acked(self) -> Dict[str, int]:
         """Per server, the GRADs of this incarnation it has acked (framed:
@@ -994,6 +1337,12 @@ class ParamClient:
                 yield from op
         finally:
             self._pump_live[srank] = False
+
+    def enqueue_wire_op(self, srank: int, gen: Generator, name: str) -> None:
+        """Run one wire op generator through ``srank``'s FIFO pump, as the
+        ``async_*`` calls do: the device exchange's hook for the servers
+        that fall back to the wire (:mod:`mpit_tpu_torch.dplane`)."""
+        self._enqueue(srank, gen, name)
 
     def async_send_grad(self) -> None:
         if self._sc:

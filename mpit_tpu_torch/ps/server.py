@@ -104,12 +104,39 @@ the JAX server's own paths:
   host buffer each version — a reply still in flight keeps its own.
 - Serving and shard control are mutually exclusive, as in the reference.
 
+Chunked streaming (INIT v5, ``FLAG_CHUNKED``), the JAX server's own paths:
+
+- A framed writer may announce a chunk cut (``chunk_elems``, a multiple of
+  the codec block).  Its GRAD frames then arrive as K chunk messages, each
+  admitted per (op, chunk) by the dedup table, decoded on the card and
+  applied to its window of the shard the moment it lands, and acked on its
+  own; the version commits once per op, on the chunk that completed it.
+  Decode and apply are separate torch ops on every path, so a chunked
+  apply is bitwise the unchunked one for every codec.  A PARAM read is
+  answered with K chunk replies cut from the one snapshot frame (on the
+  worker pool, :mod:`mpit_tpu_torch.comm.pool`) and stamped with its
+  version; a PARAM_PUSH is assembled from its chunks and seeds once.
+- Chunking is refused for READ-ONLY readers, under shard control, without
+  framing, and for a rule with non-element-wise state (Adam's step counter
+  ``t``); staleness negotiates off for chunked pairs.  A cell may subscribe
+  chunk-framed (``FLAG_SUBSCRIBE | FLAG_CHUNKED``): its DIFF frames then go
+  out as chunk messages.
+- Checkpoints carry the GRAD chunk admissions of an op in flight (already
+  folded into the shard), never those of a PARAM_PUSH.
+
+The device data plane (``dplane=`` a :class:`~mpit_tpu_torch.dplane.hbm.
+PlaneConfig`), the JAX server's own paths: the shard is an
+:class:`~mpit_tpu_torch.dplane.hbm.HbmSlot` from INIT on, every wire GRAD
+(or chunk) is applied by the slot, and with ``publish=True`` the server
+offers a :class:`~mpit_tpu_torch.dplane.exchange.DevicePlane` for the
+whole of ``start``: ONE ``dplane_service`` task drains its tickets between
+wire ops (grad: the slot's apply, K3 under Adam; push: a seed; pull: the
+per-version host snapshot; pull_dev: the per-version device clone), so
+device ops serialize with wire ops.  Idle, the service polls every 0.5 ms.
+
 The wire is byte for byte the JAX package's, so a JAX client can drive
 this server and a port client a JAX server, and a shard migrates between
-a JAX server and a port server either way.  Chunked streaming (INIT v5,
-also as a chunk-framed cell subscription) and the device data plane come
-with later slices: their announcements and constructor arguments raise
-``NotImplementedError`` naming the slice.
+a JAX server and a port server either way.
 """
 
 from __future__ import annotations
@@ -133,9 +160,14 @@ from mpit_tpu_torch.aio import (
 )
 from mpit_tpu_torch.cells import wire as _cellwire
 from mpit_tpu_torch.comm import codec as codec_mod
+from mpit_tpu_torch.comm import pool as comm_pool
 from mpit_tpu_torch.comm.transport import Transport
+from mpit_tpu_torch.dplane import exchange as _dpexchange
+from mpit_tpu_torch.dplane import hbm as _dphbm
 from mpit_tpu_torch.ft import (
     ACK_TIMING_WORDS,
+    CHUNK_ACK_TIMING_WORDS,
+    CHUNK_ACK_WORDS,
     DUP,
     FLAG_CHUNKED,
     FLAG_FRAMED,
@@ -150,10 +182,16 @@ from mpit_tpu_torch.ft import (
     DedupTable,
     FTConfig,
     LeaseRegistry,
+    chunk_hdr_bytes,
+    chunk_reply_hdr_bytes,
+    chunk_spans,
+    chunk_stride,
     hdr_bytes,
+    pack_chunk_reply,
     pack_reply_stamps,
     pack_version,
     reply_hdr_bytes,
+    unpack_chunk_header,
     unpack_header,
     unpack_tx_stamp,
     unpack_version,
@@ -172,18 +210,6 @@ from mpit_tpu_torch.shardctl.migrate import ShardSlot
 from mpit_tpu_torch.shardctl.shardmap import ShardMap
 from mpit_tpu_torch.utils.logging import get_logger
 from mpit_tpu_torch.utils.platform import resolve_device
-
-#: What each refused constructor argument of the JAX server belongs to.
-LATER_SERVER_ARGS = {
-    "dplane": "the device data plane (slice 6, dplane)",
-}
-
-#: What each refused INIT flag belongs to (a chunk-framed cell subscription
-#: too: FLAG_SUBSCRIBE | FLAG_CHUNKED in INIT v5).
-LATER_FLAGS = {
-    FLAG_CHUNKED: "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5f, "
-                  "streaming with comm/pool)",
-}
 
 #: What a shard dtype other than float32 belongs to.
 DTYPE_SLICE = "shards of other dtypes (a later slice of the port; its shards are float32)"
@@ -233,9 +259,11 @@ class ParamServer:
         cell_history: int = 16,  # encoded frame versions kept per codec for
         #                          delta production; a cell further behind
         #                          resyncs with a FULL frame
-        **later: Any,
+        dplane: Optional[_dphbm.PlaneConfig] = None,  # the device data plane:
+        #                          the shard is an HbmSlot; publish=True also
+        #                          offers the in-process device exchange.  Its
+        #                          device, when set, wins over ``device``
     ):
-        refuse_later("ParamServer", later, LATER_SERVER_ARGS)
         try:
             float32 = np.dtype(dtype) == np.float32
         except TypeError:  # a name numpy does not know (bfloat16 without ml_dtypes)
@@ -273,7 +301,8 @@ class ParamServer:
         self.rule = make_rule(rule) if isinstance(rule, str) else rule
         self.sched = Scheduler()
         self.single_mode = single_mode  # perpetual param-push service
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            dplane.device if dplane is not None and dplane.device else device)
         self.live = LiveFlag()
         self.log = get_logger("pserver", rank)
 
@@ -419,6 +448,24 @@ class ParamServer:
         self._snap_version = 0
         self._snap_host: Optional[tuple] = None
         self._snap_wire: Dict[str, tuple] = {}
+        # The device data plane: the shard lives in an HbmSlot (in-place
+        # applies, per-version snapshot and pull caches) and, when
+        # published, a DevicePlane serves same-backend clients without the
+        # wire.
+        self._dp_cfg = dplane
+        self._hbm: Optional[_dphbm.HbmSlot] = None
+        self._plane: Optional[_dpexchange.DevicePlane] = None
+        self._m_dp_ops: Dict[str, Any] = {}
+        # Pipelined streaming: elements per chunk announced in INIT v5 (0 =
+        # whole-frame transfers), the per-client fixed-size chunk receive
+        # staging (GRAD and PARAM_PUSH run concurrently: one buffer each),
+        # and the lazily-allocated PARAM_PUSH assembly frames.
+        self._chunk: Dict[int, int] = {}
+        self._chunk_rx: Dict[int, np.ndarray] = {}
+        self._chunk_rx_push: Dict[int, np.ndarray] = {}
+        self._chunk_asm: Dict[int, np.ndarray] = {}
+        self._m_diff_chunks = self.metrics.counter("mpit_ps_diff_chunks_sent_total",
+                                                   rank=rank)
 
     # -- live introspection (obs/statusd) ------------------------------------
 
@@ -451,6 +498,7 @@ class ParamServer:
             "retiring_to": self._serve_successor,
             "serve_inflight_bytes": self._serve_inflight_bytes,
             "device": str(self.device),
+            "dplane": self._hbm.describe() if self._hbm is not None else None,
             "clients": {
                 str(c): {
                     "state": self.leases.state(c),
@@ -458,7 +506,7 @@ class ParamServer:
                     "framed": self._framed.get(c, False),
                     "stale": self._stale_track.get(c, False),
                     "timing": self._timing.get(c, False),
-                    "chunk": 0,
+                    "chunk": self._chunk.get(c, 0),
                     "codec": getattr(self._codecs.get(c), "name", None),
                 }
                 for c in self.cranks
@@ -538,12 +586,11 @@ class ParamServer:
     # -- codec + FT negotiation ---------------------------------------------
 
     def _negotiate(self, crank: int, payload: bytes) -> codec_mod.Codec:
-        """Parse the INIT announcement (v1/v2/v3) into (offset, size) on
-        self, the negotiated codec, and the client's FT posture (epoch +
-        framed/heartbeat/staleness flags).  Every failure here is loud — a
-        codec disagreement must never reach the frame decoders, where it
-        would corrupt parameters silently, and a flag of a later slice is
-        refused, never masked off."""
+        """Parse the INIT announcement (v1/v2/v3/v5) into (offset, size) on
+        self, the negotiated codec, and the client's FT posture (epoch,
+        framed/heartbeat/staleness/timing flags, the chunk cut).  Every
+        failure here is loud — a codec disagreement must never reach the
+        frame decoders, where it would corrupt parameters silently."""
         raw = np.frombuffer(payload, dtype=np.int64)
         if raw.size >= 8 and int(raw[0]) == -1:  # INIT v4 (shard control)
             return self._negotiate_v4(crank, raw)
@@ -551,28 +598,28 @@ class ParamServer:
             raise ValueError(
                 f"client {crank} announced a legacy INIT on a shardctl "
                 "server — a gang is shardctl everywhere or nowhere")
-        epoch, flags = 0, 0
+        epoch, flags, chunk_elems = 0, 0, 0
         if raw.size == 2:  # legacy 16-byte v1 announcement
             offset, size, wire_id = int(raw[0]), int(raw[1]), 0
         elif raw.size == 3:
             offset, size, wire_id = (int(x) for x in raw)
         elif raw.size == 5:  # INIT v3: [offset, size, codec_id, epoch, flags]
             offset, size, wire_id, epoch, flags = (int(x) for x in raw)
-        elif raw.size == 6:
-            raise NotImplementedError(
-                f"client {crank} announced INIT v5: "
-                f"{LATER_FLAGS[FLAG_CHUNKED]} of the port")
+        elif raw.size == 6:  # INIT v5: v3 + [chunk_elems] (FLAG_CHUNKED)
+            offset, size, wire_id, epoch, flags, chunk_elems = (int(x) for x in raw)
         else:
             raise ValueError(
                 f"client {crank} INIT announcement is {len(payload)} bytes; "
                 "expected 16 (legacy [offset, size]), 24 "
-                "([offset, size, codec_id]) or 40 (v3 + [epoch, flags])"
+                "([offset, size, codec_id]), 40 (v3 + [epoch, flags]) or "
+                "48 (v5 + [chunk_elems])"
             )
-        for flag, owner in LATER_FLAGS.items():
-            if flags & flag:
-                raise NotImplementedError(
-                    f"client {crank} announced INIT v3 flag {flag}: {owner} "
-                    "of the port")
+        chunked = bool(flags & FLAG_CHUNKED)
+        if chunked != (raw.size == 6):
+            raise ValueError(
+                f"client {crank} INIT is malformed: FLAG_CHUNKED and the "
+                "48-byte v5 announcement (which carries the chunk cut) must "
+                "travel together (docs/PROTOCOL.md §12.1)")
         # READ-ONLY attach (the serving tier): the posture is a property of
         # the *rank role*, so a reader announcing as a writer (or the other
         # way round) is a misconfiguration, caught here loudly.  The
@@ -616,8 +663,13 @@ class ParamServer:
             )
         if self.offset == -1:
             self.offset, self.size = offset, size
-            self.param = torch.zeros(size, dtype=torch.float32, device=self.device)
-            self.rule_state = self.rule.init(self.param)
+            if self._dp_cfg is not None:
+                self._hbm = _dphbm.HbmSlot(size, self.rule, config=self._dp_cfg,
+                                           rank=self.rank, device=self.device)
+                self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
+            else:
+                self.param = torch.zeros(size, dtype=torch.float32, device=self.device)
+                self.rule_state = self.rule.init(self.param)
         elif (self.offset, self.size) != (offset, size):
             # All clients must agree on this server's shard (reference :87-88).
             raise ValueError(
@@ -628,17 +680,63 @@ class ParamServer:
         self._subscribe[crank] = sub
         self._framed[crank] = bool(flags & FLAG_FRAMED)
         self._hb[crank] = bool(flags & FLAG_HEARTBEAT)
+        # Pipelined streaming: a framed posture — the writer path, plus
+        # chunk-framed diff streams for subscriber cells.
+        if chunked:
+            if ro and not sub:
+                raise ValueError(
+                    f"rank {crank} announced FLAG_CHUNKED with the READONLY "
+                    "posture — reads are served by the reader dispatcher; "
+                    "chunked streaming is the writer path (§12.1) or a "
+                    "chunk-framed subscription (§11.8)")
+            if not self._framed[crank]:
+                raise ValueError(
+                    f"client {crank} announced FLAG_CHUNKED without FLAG_FRAMED "
+                    "— chunk retry/dedup rides the framed identity (§12.1)")
+            if chunk_elems <= 0 or chunk_elems % codec_mod.BLOCK:
+                raise ValueError(
+                    f"client {crank} announced chunk_elems={chunk_elems}; must "
+                    f"be a positive multiple of {codec_mod.BLOCK} (the codec "
+                    "block boundary, §12.2)")
+            if not sub:
+                self._require_splittable_rule(crank)
+        self._chunk[crank] = chunk_elems if chunked else 0
         # Staleness only rides the framed wire: the version word extends
         # the [epoch, seq] header, so without framing it negotiates off.
         # Readers and cells negotiate both extensions off: their replies
-        # carry the version in a word of their own.
+        # carry the version in a word of their own.  Chunked pairs too: the
+        # chunked PARAM reply carries the version in its own word.
         self._stale_track[crank] = (self._framed[crank] and not ro
+                                    and not chunked
                                     and bool(flags & FLAG_STALENESS))
         # Same rule for the timing extension: no frame, no stamp slot.
         self._timing[crank] = (self._framed[crank] and not ro
                                and bool(flags & FLAG_TIMING))
         self.leases.arm(crank, epoch, heartbeats=self._hb[crank])
         return codec
+
+    def _require_splittable_rule(self, crank: int) -> None:
+        """A chunked GRAD applies chunk k before chunk k+1 has arrived, which
+        is bitwise the whole-shard apply only for a rule that is
+        element-wise over (param, grad, state): every state leaf
+        param-shaped.  A scalar leaf (Adam's step counter ``t``) would
+        advance once per chunk instead of once per op: refused loudly at
+        negotiation (§12.5)."""
+        bad = sorted(k for k, v in (self.rule_state or {}).items()
+                     if tuple(v.shape) != (self.size,))
+        if bad:
+            raise ValueError(
+                f"client {crank} announced FLAG_CHUNKED but this server's rule "
+                f"carries non-element-wise state leaves {bad} (e.g. a scalar "
+                "step counter) — per-chunk apply would not be bitwise-equal to "
+                "the whole-shard apply. Use a splittable rule "
+                "(add/rmsprop/adadelta) or turn chunking off "
+                "(docs/PROTOCOL.md §12.5)")
+        # The chunk applies write windows of the state in place; a rule
+        # init may share one buffer between leaves.
+        self.rule_state = _dphbm.dedupe_state(self.rule_state)
+        if self._hbm is not None:
+            self._hbm.rule_state = self.rule_state
 
     def _negotiate_v4(self, crank: int, raw: np.ndarray) -> codec_mod.Codec:
         """INIT v4: codec + FT posture + the versioned shard map.  The map
@@ -697,6 +795,8 @@ class ParamServer:
         slot = ShardSlot(sid, shard.offset, shard.size)
         slot.param = torch.zeros(shard.size, dtype=torch.float32, device=self.device)
         slot.rule_state = self.rule.init(slot.param)
+        if self._dp_cfg is not None:
+            slot.rule_state = _dphbm.dedupe_state(slot.rule_state)
         self._slots[sid] = slot
         self._m_sc_owned.set(len(self._slots))
         return slot
@@ -707,11 +807,24 @@ class ParamServer:
         empty rule state (a stateless rule's shard) gets this rule's
         init."""
         slot.param = self._owned(slot.param)
-        if slot.rule_state:
+        if self._dp_cfg is not None and slot.rule_state:
+            # The plane's placement helper: owned, on this device, de-aliased.
+            slot.rule_state = _dphbm.place_state(slot.rule_state, self._dp_cfg,
+                                                 device=self.device)
+        elif slot.rule_state:
             slot.rule_state = {k: self._owned(v) for k, v in slot.rule_state.items()}
         else:
             slot.rule_state = self.rule.init(slot.param)
         return slot
+
+    def _apply_rule(self, param: torch.Tensor, grad: torch.Tensor,
+                    state: Dict[str, torch.Tensor]):
+        """``rule.apply`` for a shard-control slot: in place, or on fresh
+        copies under a plane that does not donate."""
+        if self._dp_cfg is not None and not self._dp_cfg.donate:
+            param = param.clone()
+            state = {k: v.clone() for k, v in state.items()}
+        return self.rule.apply(param, grad, state)
 
     def _hdr_for(self, crank: int) -> int:
         """Header size of this client's data frames (GRAD/PARAM_PUSH)."""
@@ -759,15 +872,33 @@ class ParamServer:
             if self._hb.get(crank):
                 self._hb_buf[crank] = np.zeros(2, np.int64)
             return
+        timing = self._timing.get(crank, False)
+        if self._chunk.get(crank):
+            # Streamed pairs receive fixed-size chunk frames into
+            # per-service staging; the assembly and serve staging are lazy.
+            self._codecs[crank] = codec
+            for store in (self.grad_bufs, self._grad_views, self._push_bufs,
+                          self._push_host, self._param_send, self._chunk_asm):
+                store.pop(crank, None)
+            stride = self._chunk_stride_for(crank, codec)
+            self._chunk_rx[crank] = np.zeros(stride, np.uint8)
+            self._chunk_rx_push[crank] = np.zeros(stride, np.uint8)
+            self._ack_send[crank] = np.zeros(
+                CHUNK_ACK_TIMING_WORDS if timing else CHUNK_ACK_WORDS, np.int64)
+            self._req_buf[crank] = np.zeros(3 if timing else 2, np.int64)
+            if self._hb.get(crank):
+                self._hb_buf[crank] = np.zeros(3 if timing else 2, np.int64)
+            return
         hdr = self._hdr_for(crank)
         self._codecs[crank] = codec
         self._push_bufs.pop(crank, None)
         self._push_host.pop(crank, None)
         self._param_send.pop(crank, None)
+        for store in (self._chunk_rx, self._chunk_rx_push, self._chunk_asm):
+            store.pop(crank, None)
         buf = np.zeros(hdr + codec.wire_nbytes(self.size), np.uint8)
         self.grad_bufs[crank] = buf
         self._grad_views[crank] = codec.split_wire(buf[hdr:], self.size)
-        timing = self._timing.get(crank, False)
         if hdr:
             self._ack_send[crank] = np.zeros(
                 ACK_TIMING_WORDS if timing else 2, np.int64)
@@ -780,7 +911,8 @@ class ParamServer:
         per-client footprint); the shard itself is shared state."""
         for store in (self.grad_bufs, self._grad_views, self._push_bufs,
                       self._push_host, self._param_send, self._codecs,
-                      self._ack_send, self._req_buf, self._hb_buf):
+                      self._ack_send, self._req_buf, self._hb_buf,
+                      self._chunk_rx, self._chunk_rx_push, self._chunk_asm):
             store.pop(crank, None)
 
     def _push_staging(self, crank: int) -> np.ndarray:
@@ -813,8 +945,14 @@ class ParamServer:
         return torch.from_numpy(arr).to(self.device, copy=True)
 
     def _committed(self) -> None:
-        """A new shard version exists (grad applied / params seeded)."""
-        self._snap_version += 1
+        """A new shard version exists (grad applied / params seeded).  With
+        a device-resident slot the slot's counter is authoritative (device
+        exchange applies bump it too); it is mirrored here so the wire
+        snapshot cache keys on the same stream."""
+        if self._hbm is not None:
+            self._snap_version = self._hbm.version
+        else:
+            self._snap_version += 1
 
     def _host_snapshot(self) -> np.ndarray:
         """The current version's shard on the host: one owned
@@ -824,7 +962,11 @@ class ParamServer:
         in flight."""
         version = self._snap_version
         if self._snap_host is None or self._snap_host[0] != version:
-            self._snap_host = (version, self.param.to("cpu", copy=True).numpy())
+            # A device-resident slot shares its own per-version copy, so wire
+            # reads, checkpoints and the device exchange draw from one copy.
+            host = (self._hbm.snapshot_host() if self._hbm is not None
+                    else self.param.to("cpu", copy=True).numpy())
+            self._snap_host = (version, host)
             self._m_snap_copies.inc()
         return self._snap_host[1]
 
@@ -842,8 +984,11 @@ class ParamServer:
         if codec.identity:
             wire = host
         else:
+            # The pool's synchronous entry: this runs between scheduler
+            # yields (version read + copy + encode are atomic), so the encode
+            # runs inline, never queued behind other jobs.
             wire = np.empty(codec.wire_nbytes(self.size), np.uint8)
-            codec.encode_into(host, wire)
+            comm_pool.get_pool().encode_sync(codec, host, wire)
         self._snap_wire[codec.name] = (version, wire)
         return wire
 
@@ -909,6 +1054,286 @@ class ParamServer:
             return 0, 0
         return unpack_tx_stamp(frame, hdr), obs_clock.wall_us()
 
+    # -- pipelined streaming services (FLAG_CHUNKED) --------------------------
+
+    def _chunk_stride_for(self, crank: int,
+                          codec: Optional[codec_mod.Codec] = None) -> int:
+        """The uniform chunk data-frame size for one client (§12.2)."""
+        codec = codec if codec is not None else self._codecs[crank]
+        full = min(self._chunk[crank], self.size)
+        return chunk_stride(chunk_hdr_bytes(self._timing.get(crank, False)),
+                            codec.wire_nbytes(full))
+
+    def _send_chunk_ack(self, crank: int, tag: int, epoch: int, seq: int,
+                        idx: int, gen: int, t_tx: int = 0, t_recv: int = 0):
+        """One per-chunk ack: [epoch, seq, chunk_idx] (+ the timing tail) —
+        the unit the client's resend-missing-chunks loop keys on."""
+        buf = self._ack_send[crank]
+        buf[0], buf[1], buf[2] = epoch, seq, idx
+        if self._timing.get(crank):
+            buf[3], buf[4], buf[5] = t_tx, t_recv, obs_clock.wall_us()
+        yield from aio_send(self.transport, buf, crank, tag, live=self.live,
+                            abort=self._svc_abort(crank, gen))
+
+    def _apply_chunk(self, crank: int, codec: codec_mod.Codec, body: np.ndarray,
+                     lo: int, hi: int, commit: bool) -> None:
+        """Decode one GRAD chunk on the card, then apply the rule to the
+        shard's ``[lo, hi)`` window and the matching state windows.  The
+        parts are owned device copies of the receive staging (the next
+        chunk lands there at once: no ack round trip separates them).
+        Decode and apply are separate ops, as on the unchunked path, so
+        the chunked result is bitwise the unchunked one; the version
+        commits once per op, on its final chunk (the caller's
+        ``_committed``)."""
+        del crank
+        csize = hi - lo
+        parts = [self._on_device(v) for v in codec.split_wire(body, csize)]
+        if self._hbm is not None:
+            self._hbm.apply_wire_chunk(codec, parts[0] if codec.identity else parts,
+                                       lo, csize, commit=commit)
+            self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
+            return
+        grad = codec.decode_parts(parts, csize)
+        self.rule.apply(self.param[lo:hi], grad,
+                        {k: v[lo:hi] for k, v in self.rule_state.items()})
+
+    def _recv_grad_chunked(self, crank: int, gen: int = 0):
+        """The streamed GRAD service: each chunk frame is admitted per (op,
+        chunk), applied the moment it lands — while later chunks are still
+        on the wire — and acked on its own.  The op commits (version bump,
+        counters) on the admission that completed it; a duplicate chunk is
+        re-acked without a second apply, so the client's encode-once
+        staging keeps int8 error feedback exact under any retry."""
+        codec = self._codecs.get(crank)
+        if codec is None:
+            return
+        timing = self._timing.get(crank, False)
+        chdr = chunk_hdr_bytes(timing)
+        rxbuf = self._chunk_rx[crank]
+        spans_ = chunk_spans(self.size, self._chunk[crank])
+        cur: Optional[Tuple[int, int]] = None
+        span = None
+        while self.live.on:
+            got = yield from aio_recv(self.transport, crank, tags.GRAD,
+                                      live=self.live, out=rxbuf,
+                                      abort=self._svc_abort(crank, gen))
+            if got is None:
+                if span is not None:
+                    span.end("aborted")
+                return
+            epoch, seq, idx, cnt = unpack_chunk_header(rxbuf)
+            t_tx = t_recv = 0
+            if timing:
+                t_recv, t_tx = obs_clock.wall_us(), unpack_tx_stamp(rxbuf, chdr)
+            self.leases.renew(crank, epoch)
+            if not (0 <= idx < len(spans_)) or cnt != len(spans_):
+                raise ValueError(
+                    f"chunked GRAD from client {crank} addresses chunk "
+                    f"{idx}/{cnt} but this shard cuts into {len(spans_)} chunks "
+                    "— chunk layouts diverged (INIT v5 carries the cut; §12.2)")
+            verdict, done = self.dedup.admit_chunk(crank, tags.GRAD, epoch, seq,
+                                                   idx, cnt)
+            if verdict == STALE:
+                self._m_stale.inc()
+                continue
+            if verdict == DUP:
+                self._m_dups.inc()
+                yield from self._send_chunk_ack(crank, tags.GRAD_ACK, epoch, seq,
+                                                idx, gen, t_tx=t_tx, t_recv=t_recv)
+                continue
+            if cur != (epoch, seq):
+                if span is not None:
+                    span.end("aborted")  # the client abandoned an op mid-stream
+                cur = (epoch, seq)
+                span = self._spans.op("GRAD", peer=crank, side="server",
+                                      rank=self.rank)
+                span.note(epoch=epoch, seq=seq, chunks=cnt)
+            lo, hi = spans_[idx]
+            span.mark("apply")
+            body = rxbuf[chdr:chdr + codec.wire_nbytes(hi - lo)]
+            self._apply_chunk(crank, codec, body, lo, hi, commit=done)
+            if done:
+                self._m_grads.inc()
+                seen = self.admitted.setdefault((crank, epoch), [seq, seq, 0])
+                seen[0], seen[1] = min(seen[0], seq), max(seen[1], seq)
+                seen[2] += 1
+                self._committed()
+            if not self.live.on:
+                span.end("aborted")
+                span, cur = None, None
+                continue
+            span.mark("ack")
+            yield from self._send_chunk_ack(crank, tags.GRAD_ACK, epoch, seq, idx,
+                                            gen, t_tx=t_tx, t_recv=t_recv)
+            if done:
+                span.end("applied")
+                span, cur = None, None
+
+    def _serve_param_chunks(self, crank: int, codec: codec_mod.Codec, epoch: int,
+                            seq: int, req: np.ndarray, t_recv: int, gen: int, span):
+        """Answer one chunked PARAM read: cut the shared snapshot frame into K
+        independent chunk frames, each stamped with the snapshot version,
+        and post each without waiting, so the gather of chunk k+1 (on the
+        pool) overlaps the wire time of chunk k.  The sends are awaited
+        before returning, so the next request cannot rewrite frames still
+        in flight."""
+        timing = self._timing.get(crank, False)
+        chdr = chunk_reply_hdr_bytes(timing)
+        spans_ = chunk_spans(self.size, self._chunk[crank])
+        stride = chunk_stride(chdr, codec.wire_nbytes(min(self._chunk[crank],
+                                                          self.size)))
+        span.mark("snapshot")
+        wire = self._snapshot_wire(codec)
+        wire_u8 = wire.view(np.uint8)
+        version = self._snap_version
+        staging = self._param_send.get(crank)
+        if staging is None or len(staging) != stride * len(spans_):
+            staging = np.zeros(stride * len(spans_), np.uint8)
+            self._param_send[crank] = staging
+        handles = []
+        span.mark("send")
+        # The snapshot frame is immutable for its version (a new version gets
+        # a new frame) and each chunk's staging slot is disjoint, so the
+        # gather jobs are pure.
+        pool = comm_pool.get_pool()
+        jobs: Dict[int, Any] = {}
+        lookahead = 0 if pool.serial else 1
+        for k in range(len(spans_)):
+            for j in range(k, min(k + 1 + lookahead, len(spans_))):
+                if j not in jobs:
+                    jlo, jhi = spans_[j]
+                    jobs[j] = pool.submit_gather(
+                        codec, wire_u8, self.size, jlo, jhi,
+                        staging[j * stride + chdr:(j + 1) * stride])
+            frame = staging[k * stride:(k + 1) * stride]
+            pack_chunk_reply(frame, epoch, seq, k, len(spans_), version)
+            if timing:
+                pack_reply_stamps(frame, chdr - TIMING_TAIL_BYTES, int(req[2]),
+                                  t_recv, obs_clock.wall_us())
+            if not jobs[k].done():
+                span.mark("pool_collect")
+                while not jobs[k].done():
+                    yield EXEC
+            if k:
+                span.mark("chunk")
+            handles.append(self.transport.isend(frame, crank, tags.PARAM))
+            yield EXEC
+        for handle in handles:
+            while not self.transport.test(handle):
+                if not self.live.io or self._svc_abort(crank, gen)():
+                    self.transport.cancel(handle)
+                    span.end("aborted")
+                    return
+                yield EXEC
+        self._m_served.inc()
+        span.end("served")
+
+    def _recv_param_chunked(self, crank: int, once: bool = True,
+                            warn_unexpected: bool = False, gen: int = 0):
+        """The streamed PARAM_PUSH service: chunk frames scatter (on the pool)
+        into a full-frame assembly buffer and the shard seeds once, when the
+        last chunk lands.  Chunks ack on admission, like GRAD; the
+        admissions are not checkpointed — the assembly bytes die with the
+        process, so a server restarted mid-push never completes the torn
+        push and the client fails loudly instead (§12.6)."""
+        codec = self._codecs.get(crank)
+        if codec is None:
+            return
+        timing = self._timing.get(crank, False)
+        chdr = chunk_hdr_bytes(timing)
+        rxbuf = self._chunk_rx_push[crank]
+        spans_ = chunk_spans(self.size, self._chunk[crank])
+        pool = comm_pool.get_pool()
+        jobs: Dict[int, Any] = {}
+        while self.live.on:
+            got = yield from aio_recv(self.transport, crank, tags.PARAM_PUSH,
+                                      live=self.live, out=rxbuf,
+                                      abort=self._svc_abort(crank, gen))
+            if got is None:
+                return
+            epoch, seq, idx, cnt = unpack_chunk_header(rxbuf)
+            t_tx = t_recv = 0
+            if timing:
+                t_recv, t_tx = obs_clock.wall_us(), unpack_tx_stamp(rxbuf, chdr)
+            self.leases.renew(crank, epoch)
+            if not (0 <= idx < len(spans_)) or cnt != len(spans_):
+                raise ValueError(
+                    f"chunked PARAM_PUSH from client {crank} addresses chunk "
+                    f"{idx}/{cnt} but this shard cuts into {len(spans_)} chunks "
+                    "(§12.2)")
+            verdict, done = self.dedup.admit_chunk(crank, tags.PARAM_PUSH, epoch,
+                                                   seq, idx, cnt)
+            if verdict == STALE:
+                self._m_stale.inc()
+                continue
+            if verdict == DUP:
+                self._m_dups.inc()
+                yield from self._send_chunk_ack(crank, tags.PARAM_PUSH_ACK, epoch,
+                                                seq, idx, gen, t_tx=t_tx,
+                                                t_recv=t_recv)
+                continue
+            need = codec.wire_nbytes(self.size)
+            asm = self._chunk_asm.get(crank)
+            if asm is None or len(asm) != need:
+                asm = np.zeros(need, np.uint8)
+                self._chunk_asm[crank] = asm
+            lo, hi = spans_[idx]
+            body = rxbuf[chdr:chdr + codec.wire_nbytes(hi - lo)]
+            if pool.serial:
+                codec_mod.scatter_chunk(codec, asm, self.size, lo, hi, body)
+            else:
+                # ``rxbuf`` is overwritten by the next receive while a worker
+                # reads, so the job gets an owned copy; a resent chunk reuses
+                # its assembly region, so a prior job on it lands first.
+                prior = jobs.pop(idx, None)
+                if prior is not None:
+                    while not prior.done():
+                        yield EXEC
+                jobs[idx] = pool.submit_scatter(codec, asm, self.size, lo, hi,
+                                                np.array(body))
+            if not done:
+                yield from self._send_chunk_ack(crank, tags.PARAM_PUSH_ACK, epoch,
+                                                seq, idx, gen, t_tx=t_tx,
+                                                t_recv=t_recv)
+                continue
+            span = self._spans.op("PARAM_PUSH", peer=crank, side="server",
+                                  rank=self.rank)
+            span.note(epoch=epoch, seq=seq, chunks=cnt)
+            if warn_unexpected:
+                self.log.warning(
+                    "client %d seeded a RESTORED server: checkpointed params "
+                    "overwritten (optimizer state kept) — start resume clients "
+                    "with seed_servers=False", crank)
+            span.mark("apply")
+            # Every scatter lands before the assembly is read (disjoint
+            # regions: the collection order does not touch the bytes).
+            for job in jobs.values():
+                while not job.done():
+                    yield EXEC
+            jobs.clear()
+            if codec.identity:
+                host = asm.view(np.float32)
+            else:
+                host = np.empty(self.size, np.float32)
+                codec.decode_into(asm, host)
+            self._seed(host)
+            self._committed()
+            span.mark("ack")
+            yield from self._send_chunk_ack(crank, tags.PARAM_PUSH_ACK, epoch, seq,
+                                            idx, gen, t_tx=t_tx, t_recv=t_recv)
+            span.end("applied")
+            if once:
+                return
+
+    def _seed(self, host: np.ndarray) -> None:
+        """A whole-shard write from a host frame (seeding / PARAM_PUSH):
+        one copy to the device, into the slot under a plane."""
+        if self._hbm is not None:
+            self._hbm.seed(self._on_device(host))
+            self.param = self._hbm.param
+        else:
+            self.param.copy_(torch.from_numpy(host))
+
     # -- service loops (reference pserver.lua:59-129) ------------------------
 
     def _recv_init(self, crank: int, gen: int = 0):
@@ -956,6 +1381,10 @@ class ParamServer:
         recvparam_always service, BiCNN/pserver.lua:220-232).  Framed
         pushes are dedup-admitted: a retried seed is applied once and
         re-acked."""
+        if self._chunk.get(crank):
+            yield from self._recv_param_chunked(
+                crank, once=once, warn_unexpected=warn_unexpected, gen=gen)
+            return
         codec = self._codecs.get(crank)
         if codec is None:  # init never completed (stopped before announce)
             return
@@ -991,7 +1420,7 @@ class ParamServer:
             else:  # cold path: host decode, then one copy to the device
                 host = self._push_host[crank]
                 codec.decode_into(staging[hdr:], host)
-            self.param.copy_(torch.from_numpy(host))
+            self._seed(host)
             self._committed()
             span.mark("ack")
             if framed:
@@ -1045,6 +1474,11 @@ class ParamServer:
                 span.end("stale")
                 continue
             self.leases.renew(crank, epoch)
+            if self._chunk.get(crank):
+                span.note(chunks=len(chunk_spans(self.size, self._chunk[crank])))
+                yield from self._serve_param_chunks(crank, codec, epoch, seq, req,
+                                                    t_recv, gen, span)
+                continue
             span.mark("snapshot")
             hdr = self._reply_hdr_for(crank)
             wire = self._snapshot_wire(codec)
@@ -1080,6 +1514,9 @@ class ParamServer:
         staging this is what keeps error feedback exact under retries.
         The span's ``apply`` phase ends when the rule's kernel has been
         launched, not when it has finished on the card."""
+        if self._chunk.get(crank):
+            yield from self._recv_grad_chunked(crank, gen=gen)
+            return
         codec = self._codecs.get(crank)
         if codec is None:
             return
@@ -1110,10 +1547,16 @@ class ParamServer:
                     span.note(staleness=staleness)
                     self._stale_hist(crank).observe(staleness)
             span.mark("apply")
-            grad = codec.decode_parts([self._on_device(v) for v in parts],
-                                      self.size)
-            self.param, self.rule_state = self.rule.apply(
-                self.param, grad, self.rule_state)
+            dev_parts = [self._on_device(v) for v in parts]
+            if self._hbm is not None:
+                # The slot's apply: the same decode and rule, in the slot.
+                self._hbm.apply_wire(codec, dev_parts[0] if codec.identity
+                                     else dev_parts)
+                self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
+            else:
+                grad = codec.decode_parts(dev_parts, self.size)
+                self.param, self.rule_state = self.rule.apply(
+                    self.param, grad, self.rule_state)
             self._m_grads.inc()
             if ident is not None:
                 epoch, seq = ident
@@ -1178,8 +1621,9 @@ class ParamServer:
     def _cell_frame(self, crank: int) -> "List[np.ndarray]":
         """The next DIFF message sequence for one subscriber: a DELTA
         against the last version shipped to it when the history still
-        holds that frame, else a FULL frame at the head, as ONE message
-        (a chunk-framed subscription is refused at negotiation: slice 5f).
+        holds that frame, else a FULL frame at the head — as ONE message, or
+        as chunk messages when the subscription negotiated FLAG_CHUNKED (a
+        large resync must not head-of-line-block the stream).
         The head frame comes out of (and is recorded into) the same
         snapshot cache wire reads share — N same-codec cells cost one
         device->host copy, one encode and one XOR per committed version,
@@ -1201,6 +1645,12 @@ class ParamServer:
             self._m_diff_full.inc()
             kind, from_v = _cellwire.DIFF_FULL, -1
             body = wire
+        chunk_elems = self._chunk.get(crank, 0)
+        if chunk_elems:
+            msgs = _cellwire.pack_diff_chunks(kind, from_v, head, head, body,
+                                              4 * chunk_elems)
+            self._m_diff_chunks.inc(len(msgs))
+            return msgs
         return [_cellwire.pack_diff(kind, from_v, head, head, body)]
 
     def _cell_push(self, crank: int, gen: int, frames: "List[np.ndarray]",
@@ -1654,7 +2104,7 @@ class ParamServer:
                 grad = codec.decode_parts(
                     [self._on_device(v) for v in codec.split_wire(body, slot.size)],
                     slot.size)
-                slot.param, slot.rule_state = self.rule.apply(
+                slot.param, slot.rule_state = self._apply_rule(
                     slot.param, grad, slot.rule_state)
                 slot.committed()
                 slot.grads_applied += 1
@@ -2077,7 +2527,7 @@ class ParamServer:
     def _client_meta(self) -> Dict[str, Dict[str, Any]]:
         """Per-client negotiated state for the checkpoint: enough for a
         restarted server to serve retried ops without fresh INITs (the
-        JAX package's keys; chunking is always off here)."""
+        JAX package's keys)."""
         return {
             str(c): {
                 "codec": self._codecs[c].name,
@@ -2085,7 +2535,7 @@ class ParamServer:
                 "hb": self._hb.get(c, False),
                 "stale": self._stale_track.get(c, False),
                 "timing": self._timing.get(c, False),
-                "chunk": 0,
+                "chunk": self._chunk.get(c, 0),
                 "epoch": self.leases.epoch(c),
             }
             for c in self._codecs
@@ -2123,7 +2573,11 @@ class ParamServer:
                 "grads_applied": self.grads_applied,
                 "snap_version": self._snap_version,
                 "dedup": self.dedup.state(),
-                "dedup_chunks": {},  # chunked streaming: a later slice
+                # In-flight chunk admissions of the GRAD path only: those
+                # chunks are already in the shard above, so both are cut
+                # together.  PARAM_PUSH partials stay out — their assembly
+                # staging dies with the process.
+                "dedup_chunks": self.dedup.partial_state(tags={tags.GRAD}),
                 "clients": self._client_meta(),
             },
         ))
@@ -2148,23 +2602,30 @@ class ParamServer:
         if self.param is not None or self.offset != -1:
             raise RuntimeError("restore_state must run before start()")
         offset, size, param, state, meta = load_server_state(path)
-        if meta.get("dedup_chunks") or any(
-                info.get("chunk")
-                for info in (meta.get("clients") or {}).values()):
-            raise NotImplementedError(
-                f"{path} holds chunked-streaming client state: "
-                f"{LATER_FLAGS[FLAG_CHUNKED]} of the port")
         self.offset, self.size = offset, size
         self.grads_applied = int(meta.get("grads_applied", 0))
         self._snap_version = int(meta.get("snap_version", 0))
         self.dedup.restore(meta.get("dedup", {}))
+        self.dedup.restore_partial(meta.get("dedup_chunks", {}))
         self.restored_applied = self.grads_applied
         self.restored_dedup = self.dedup.state()
-        self.param = self._owned(param)
-        if state:
-            self.rule_state = {k: self._owned(v) for k, v in state.items()}
-        else:  # stateless rule (plain add) or a legacy checkpoint
-            self.rule_state = self.rule.init(self.param)
+        if self._dp_cfg is not None:
+            self._hbm = _dphbm.HbmSlot(size, self.rule, config=self._dp_cfg,
+                                       rank=self.rank, device=self.device)
+            self._hbm.seed(self._owned(param))
+            if state:
+                self._hbm.rule_state = _dphbm.place_state(state, self._dp_cfg,
+                                                          device=self.device)
+            # Version continuity across the restart: resume the checkpointed
+            # stream, +1 for the seed commit (the same arithmetic as below).
+            self._hbm.version = self._snap_version + 1
+            self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
+        else:
+            self.param = self._owned(param)
+            if state:
+                self.rule_state = {k: self._owned(v) for k, v in state.items()}
+            else:  # stateless rule (plain add) or a legacy checkpoint
+                self.rule_state = self.rule.init(self.param)
         for crank_s, info in (meta.get("clients") or {}).items():
             crank = int(crank_s)
             if crank not in self.cranks:
@@ -2173,6 +2634,7 @@ class ParamServer:
             self._hb[crank] = bool(info.get("hb", False))
             self._stale_track[crank] = bool(info.get("stale", False))
             self._timing[crank] = bool(info.get("timing", False))
+            self._chunk[crank] = int(info.get("chunk", 0))
             self.leases.arm(crank, int(info.get("epoch", 0)),
                             heartbeats=self._hb[crank])
             self._alloc_client(crank, codec_mod.get(info.get("codec", "none")))
@@ -2285,10 +2747,25 @@ class ParamServer:
 
     def start(self) -> None:
         """Run the server to completion (returns after the stop protocol,
-        or after a RETIRE)."""
+        or after a RETIRE).  With a published device plane, the plane is
+        offered for the server's whole run and closed loudly at the end — a
+        client blocked on a stopped server's plane raises, never hangs."""
         if self._sc_join:
             self._start_joiner()
             return
+        if self._dp_cfg is None or not self._dp_cfg.publish:
+            self._run()
+            return
+        self._plane = _dpexchange.DevicePlane(
+            self.rank, _dpexchange.backend_fingerprint(self.device), self.device)
+        _dpexchange.publish(self.rank, self._plane, self._dp_cfg.namespace)
+        try:
+            self._run()
+        finally:
+            _dpexchange.withdraw(self.rank, self._dp_cfg.namespace)
+            self._plane.close("server stopped")
+
+    def _run(self) -> None:
         # Phase 1: shard announcements from every client (skipped for
         # clients restored from an FT checkpoint — their negotiation is
         # already in hand and no fresh INIT is coming).
@@ -2330,6 +2807,10 @@ class ParamServer:
                              name=f"admit_listener:{crank}")
         if self.ft.lease_ttl_s > 0:
             self.sched.spawn(self._lease_reaper(), name="lease_reaper")
+        if self._plane is not None:
+            # The device exchange: ONE task drains the in-process ticket
+            # queue for every same-backend client.
+            self.sched.spawn(self._dplane_service(), name="dplane_service")
         if self.readers:
             # The serving tier: ONE dispatcher task for every reader —
             # readers attach lazily, any time mid-run, and the scheduler's
@@ -2345,3 +2826,88 @@ class ParamServer:
         self.log.debug("stopped: %d grads applied, %d params served, %d dups, "
                        "%d stale drops", self.grads_applied, self.params_served,
                        self.dup_ops, self.stale_drops)
+
+    # -- the device exchange's service ---------------------------------------
+
+    def _dp_op_counter(self, op: str):
+        c = self._m_dp_ops.get(op)
+        if c is None:
+            c = self.metrics.counter("mpit_dplane_device_ops_total",
+                                     rank=self.rank, op=op)
+            self._m_dp_ops[op] = c
+        return c
+
+    def _dplane_service(self):
+        """Drain the in-process device-exchange queue: tickets run between
+        scheduler passes on this server's own thread, so device ops
+        serialize with wire ops under the same single-writer discipline —
+        reads stay untorn, and a lockstep gang applies in the same
+        cross-client order on either path.  Idle, it sleeps 0.5 ms a poll
+        (the reference's pacing) rather than spinning."""
+        plane = self._plane
+        try:
+            while self.live.on:
+                ticket = plane.pop()
+                if ticket is None:
+                    if not (yield from aio_sleep(0.0005, live=self.live)):
+                        return
+                    continue
+                try:
+                    self._dplane_execute(ticket)
+                except BaseException as exc:
+                    # A failed op fails ITS client loudly; the service (and
+                    # every other client) keeps running.
+                    ticket.error = exc
+                finally:
+                    ticket.event.set()
+                yield EXEC
+        finally:
+            plane.close("server service exited")
+
+    def _dplane_execute(self, ticket) -> None:
+        slot = self._hbm
+        if slot is None:
+            raise RuntimeError(
+                f"device {ticket.kind} op from client {ticket.crank} before the "
+                "shard exists (INIT/seed not complete, or a shardctl gang — the "
+                "device exchange serves the static cut only; docs/DEVICE.md §3)")
+        kind = ticket.kind
+        name = {"grad": "GRAD", "push": "PARAM_PUSH"}.get(kind, "PARAM")
+        span = self._spans.op(name, peer=ticket.crank, side="server",
+                              rank=self.rank)
+        span.note(dplane=1)
+        if kind in ("grad", "push"):
+            # This stream waits for the client's copy, and holds the tensor
+            # until its own work on it is done.
+            _dpexchange.take(ticket.payload, ticket.ready)
+        if kind == "grad":
+            span.mark("apply")
+            slot.apply_grad(ticket.payload)
+            self.param, self.rule_state = slot.param, slot.rule_state
+            self._committed()
+            self._m_grads.inc()
+            self._dp_op_counter("grad").inc()
+            span.end("applied")
+        elif kind == "push":
+            span.mark("apply")
+            slot.seed(ticket.payload)
+            self.param = slot.param
+            self._committed()
+            self._dp_op_counter("push").inc()
+            span.end("applied")
+        elif kind == "pull":
+            span.mark("snapshot")
+            ticket.result = slot.snapshot_host()
+            self._m_served.inc()
+            self._dp_op_counter("pull").inc()
+            span.end("served")
+        elif kind == "pull_dev":
+            span.mark("snapshot")
+            ticket.result = slot.pull_device()
+            ticket.ready = _dpexchange.mark_ready(ticket.result)
+            self._m_served.inc()
+            self._dp_op_counter("pull_dev").inc()
+            span.end("served")
+        else:
+            span.end("aborted")
+            raise ValueError(f"unknown device op kind {kind!r}")

@@ -62,8 +62,17 @@ across a shard's cells by consistent hashing, failing over on a dead cell.
 Both need ``--ft_op_deadline_s``; cells also ``--ft_heartbeat_s``.
 Reader and cell ranks are host roles: they hold nothing on a device.
 
-The layers of later slices (chunked streaming, the LM, aggregation, the
-device data plane) raise ``NotImplementedError`` naming their slice.
+``--ft_chunk_bytes B`` (with ``--ft_op_deadline_s``) ships every shard
+transfer as a pipelined stream of ~B-byte chunk frames (INIT v5), encoded
+and decoded on the worker pool (``MPIT_POOL_THREADS``, default
+``min(4, cores-1)``, 0 = serial).  ``--dplane 1`` makes each server's shard
+a device-resident slot that publishes the in-process device exchange, and
+wraps each worker's client in an ``ExchangeClient``: same-process pairs
+(``run_gang``) ride the device path, and every pair of a process gang
+falls back to the wire (counted, ``mpit_dplane_wire_fallback_ranks``).
+
+The layers of later slices (the LM, aggregation) raise
+``NotImplementedError`` naming their slice.
 
 Usage:
     python -m mpit_tpu_torch.train.launch --np 1 --opt msgd
@@ -224,24 +233,31 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     cells=0,
     cell_max_lag=4,
     cell_codec="",
-    # The reference's flags of later slices; each raises when set.
+    # Pipelined streaming: ~bytes per chunk frame of every shard transfer
+    # (0 = whole frames).  Needs ft_op_deadline_s > 0 (chunk resends ride
+    # the retry machinery).
     ft_chunk_bytes=0,
+    # The device data plane: servers hold shard + optimizer state in a
+    # device-resident slot and publish the in-process device exchange;
+    # workers route through an ExchangeClient (device path to same-process
+    # servers, the wire everywhere else).
+    dplane=0,
+    # The reference's flags of later slices; each raises when set.
     lm=0,
     agg="off",
-    dplane=0,
 )
 
 # flag -> (value meaning "off", the slice of the port it belongs to)
 LATER_FLAGS = {
-    "ft_chunk_bytes": (0, "chunked streaming (FLAG_CHUNKED, INIT v5; slice 5f, "
-                          "streaming with comm/pool)"),
     "lm": (0, "the LM workload through the PS gang (slice 7b, lm)"),
     "agg": ("off", "hierarchical aggregation (slice 5g, agg)"),
-    "dplane": (0, "the device data plane (slice 6, dplane)"),
 }
 
 
 def refuse_later_flags(cfg: Config) -> None:
+    if str(cfg.get("agg", "off") or "off") != "off" and int(cfg.get("dplane", 0) or 0):
+        raise ValueError("--agg and --dplane both wrap the client data path; "
+                         "pick one")
     for flag, (off, owner) in LATER_FLAGS.items():
         if cfg.get(flag, off) != off:
             raise NotImplementedError(
@@ -267,7 +283,18 @@ def ft_from_cfg(cfg: Config) -> FTConfig:
         overrides["staleness"] = True
     if bool(cfg.get("ft_timing", False)):
         overrides["timing"] = True
+    chunk = int(cfg.get("ft_chunk_bytes", 0) or 0)
+    if chunk:
+        overrides["chunk_bytes"] = chunk
     return FTConfig.from_env(**overrides)
+
+
+def dplane_cfg(cfg: Config) -> Any:
+    """The PlaneConfig of a ``--dplane`` server: one-card placement on the
+    rank's device."""
+    from mpit_tpu_torch.dplane import PlaneConfig
+
+    return PlaneConfig.auto(namespace=str(cfg.get("namespace", "") or ""))
 
 
 def rejoining() -> bool:
@@ -672,7 +699,8 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
             # the server's serving surface is one diff stream per cell.
             reader_ranks=None if cell_ranks else (reader_ranks or None),
             cell_ranks=cell_map_for(sranks, cell_ranks)[rank] if cell_ranks else None,
-            serve=serve_cfg_for(cfg) if (reader_ranks and not cell_ranks) else None)
+            serve=serve_cfg_for(cfg) if (reader_ranks and not cell_ranks) else None,
+            dplane=dplane_cfg(cfg) if int(cfg.get("dplane", 0) or 0) else None)
         if bool(cfg.resume):
             path = pathlib.Path(ckpt_dir) / f"server{rank}_latest.npz"
             if not ckpt_dir or not path.exists():
@@ -698,9 +726,18 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
         shardctl=sc_on, controller_rank=ctl_rank,
         sc_shards_per_server=(int(cfg.get("elastic_shards_per_server", 2) or 1)
                               if elastic_on else 1))
-    trainer = MnistTrainer(cfg, pclient=pclient, data=data, rank=rank)
+    client: Any = pclient
+    if int(cfg.get("dplane", 0) or 0):
+        from mpit_tpu_torch.dplane import ExchangeClient
+
+        client = ExchangeClient(pclient, device=cfg.device,
+                                namespace=str(cfg.get("namespace", "") or ""))
+    trainer = MnistTrainer(cfg, pclient=client, data=data, rank=rank)
     log.info("worker with servers %s (epoch %d)", sranks, ft.epoch)
-    return {"role": "worker", **trainer.run(), "w": trainer.w,
+    out = trainer.run()
+    if client is not pclient:
+        out["device_ranks"] = client.device_ranks
+    return {"role": "worker", **out, "w": trainer.w,
             "epoch": ft.epoch, "retries": pclient.retries,
             "heartbeats_sent": pclient.heartbeats_sent,
             "grads_acked": pclient.grads_acked()}

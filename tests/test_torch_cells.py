@@ -81,8 +81,7 @@ class TestDiffWire:
         assert cellwire.parse_diff(msg)[4].size == 0
 
     def test_chunked_pack_parse_roundtrip(self):
-        """The chunk framing is pure framing and comes over now (the
-        chunk-framed subscription itself waits for slice 5f)."""
+        """The chunk framing of a chunk-framed subscription."""
         body = np.arange(100, dtype=np.uint8)
         msgs = cellwire.pack_diff_chunks(cellwire.DIFF_DELTA, 3, 5, 7, body,
                                          chunk_bytes=40)
@@ -294,19 +293,29 @@ class TestPosture:
         assert serve_head(serve_reply(1, 2, 0, 6)) is None
 
     def test_chunk_framed_subscription_is_refused_naming_5f(self):
-        """The JAX cell's chunk-framed subscription (INIT v5 with
-        ``FLAG_SUBSCRIBE | FLAG_CHUNKED``) meets a loud refusal naming slice
-        5f, and so does the chunk cut a port cell's subscription would
-        need."""
+        """Chunked streaming landed: the JAX cell's chunk-framed subscription
+        (INIT v5 with ``FLAG_SUBSCRIBE | FLAG_CHUNKED``) is accepted with its
+        chunk cut, as a JAX server accepts it, and a port cell with a chunk
+        size announces the JAX cell's v5 bytes."""
+        import mpit_tpu.ft as jft
+        from mpit_tpu.cells import ServingCell as JaxCell
         from mpit_tpu.ft import init_v5
+        from mpit_tpu.ps import ParamServer as JaxServer
 
         server = ParamServer(0, [1], transport=None, device="cpu", cell_ranks=[3])
+        jserver = JaxServer(0, [1], None, cell_ranks=[3])
         flags = FLAG_FRAMED | FLAG_HEARTBEAT | FLAG_READONLY | FLAG_SUBSCRIBE | FLAG_CHUNKED
-        with pytest.raises(NotImplementedError, match="slice 5f"):
-            server._negotiate(3, init_v5(0, 16, 0, 0, flags, 1024).tobytes())
-        with pytest.raises(NotImplementedError, match="5f"):
-            ServingCell(5, 0, None, [7], size=64,
-                        ft=FTConfig(heartbeat_s=0.1, op_deadline_s=5.0, chunk_bytes=4096))
+        payload = init_v5(0, 16, 0, 0, flags, 1024).tobytes()
+        assert server._negotiate(3, payload).name == jserver._negotiate(3, payload).name
+        assert server._chunk[3] == jserver._chunk[3] == 1024
+        cell = ServingCell(5, 0, None, [7], size=64,
+                           ft=FTConfig(heartbeat_s=0.1, op_deadline_s=5.0,
+                                       chunk_bytes=4096))
+        jcell = JaxCell(5, 0, None, [7], size=64,
+                        ft=jft.FTConfig(heartbeat_s=0.1, op_deadline_s=5.0,
+                                        chunk_bytes=4096))
+        assert cell._announce().tobytes() == jcell._announce().tobytes()
+        assert cell._sub_flags() & FLAG_CHUNKED
 
 
 class TestFlightShapes:
@@ -362,7 +371,7 @@ class _Gang:
     """1 server (rank 0) + 1 writer (rank 1) + N cells + M readers."""
 
     def __init__(self, ncells=2, nreaders=2, *, server_wrap=None, max_lag=4,
-                 cell_hb=0.05, server_ft=None):
+                 cell_hb=0.05, server_ft=None, cell_chunk_bytes=0):
         self.ncells, self.nreaders = ncells, nreaders
         core = 2 + ncells
         self.nranks = core + nreaders
@@ -379,7 +388,8 @@ class _Gang:
         for c in self.cell_ranks:
             cell = ServingCell(c, 0, self.tr[c], reader_ranks=self.reader_ranks,
                                size=SIZE, max_lag=max_lag,
-                               ft=FTConfig(heartbeat_s=cell_hb, op_deadline_s=10.0))
+                               ft=FTConfig(heartbeat_s=cell_hb, op_deadline_s=10.0,
+                                           chunk_bytes=cell_chunk_bytes))
             self.cells[c] = cell
 
             def run(cell=cell):
@@ -488,6 +498,57 @@ class TestFabric:
                 assert cell.diffs_installed >= 1
             assert sum(c.params_served for c in gang.cells.values()) == 2 * 5
             assert gang.server.params_served <= 2  # the writer's own reads
+        finally:
+            gang.close()
+
+    def test_chunk_framed_subscription_bitwise(self):
+        """A FLAG_CHUNKED subscription receives FULL/DELTA frames as chunk
+        messages (SIZE f32 at a 4 KiB cut: two chunks a frame) — reads stay
+        bit for bit the upstream snapshot, and the server shipped chunk
+        messages (the twin of the JAX fabric test)."""
+        gang = _Gang(ncells=2, nreaders=2, cell_chunk_bytes=4096)
+        try:
+            gang.commit(3)
+            out = {}
+            threads = _run_readers(gang, 4, out)
+            gang.commit(3)
+            _join(threads, 60, "reader hung")
+            chunks_sent = int(gang.server._m_diff_chunks.value)
+            gang.finish()
+            for r in gang.reader_ranks:
+                rec = out[r]
+                assert not rec["errors"] and rec["monotone"]
+                for v, _lags, mirror in rec["reads"]:
+                    np.testing.assert_array_equal(mirror, gang.expected(v))
+            assert chunks_sent >= 2, "no chunk messages shipped"
+            for cell in gang.cells.values():
+                assert cell.version == gang.server._snap_version
+        finally:
+            gang.close()
+
+    def test_chunk_framed_subscription_survives_chunk_drops(self):
+        """Chunk-level drop/dup on the DIFF channel: a torn frame is exactly
+        a dropped frame — the gap/resync machinery recovers and every
+        installed version stays bit-exact."""
+        def wrap(t):
+            return FaultyTransport(t, FaultPlan(seed=3, drop_every=5, dup_every=4,
+                                                tags=frozenset({tags.DIFF})))
+
+        gang = _Gang(ncells=1, nreaders=1, cell_chunk_bytes=4096, server_wrap=wrap)
+        try:
+            for _ in range(6):
+                gang.commit(1)
+                time.sleep(0.05)
+            deadline = time.monotonic() + 20
+            cell = gang.cells[2]
+            while time.monotonic() < deadline and cell.version < gang.server._snap_version:
+                time.sleep(0.05)
+            assert cell.version >= 1, "cell never installed a frame"
+            np.testing.assert_array_equal(
+                np.frombuffer(bytes(cell._frame), np.float32),
+                gang.expected(cell.version))
+            cell.shutdown()  # no reader ever attaches in this leg
+            gang.finish()
         finally:
             gang.close()
 

@@ -719,3 +719,43 @@ def test_bicnn_sgd_steps_on_the_card_match_the_cpu(dev, tmp_path):
     gap = (finals["cuda"] - finals["cpu"]).abs().max()
     change = (finals["cpu"] - w0).abs().max()
     assert float(change) > 1e-3 and float(gap) <= 1e-5
+
+
+def test_exchange_on_the_card_crosses_streams(dev):
+    """The device exchange on the card: the client's thread submits from a
+    side stream and the server's thread applies on its own stream; the
+    device path's bits equal an Adam slot's on the CPU, and the pulled
+    vector is read on the client's stream after the apply."""
+    import threading
+
+    import numpy as np
+
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.dplane import ExchangeClient, HbmSlot, PlaneConfig
+    from mpit_tpu_torch.optim.rules import make as make_rule
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+
+    router = LocalRouter(3)
+    servers = [ParamServer(r, [2], router.endpoint(r), rule="adam",
+                           dplane=PlaneConfig()) for r in (0, 1)]
+    threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    client = ExchangeClient(ParamClient(2, [0, 1], router.endpoint(2),
+                                        seed_servers=True))
+    n = 2 * 272261
+    client.start(np.zeros(n, np.float32), np.zeros(n, np.float32))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        upd = torch.randn(n, device=dev, generator=gen)
+        out = client.sync_device(upd)
+        host = out.to("cpu")
+    assert client.device_ranks == [0, 1]
+    ref = HbmSlot(n // 2, make_rule("adam"), config=PlaneConfig(device="cpu"))
+    ref.apply_grad(upd[: n // 2].cpu())
+    assert torch.allclose(host[: n // 2], ref.param, rtol=0, atol=1e-6)
+    client.stop()
+    for t in threads:
+        t.join(30)
+        assert not t.is_alive()

@@ -981,8 +981,10 @@ def test_property_fault_plans_never_hang(seed):
     pytest.param(lambda: ParamClient(1, [0], LocalRouter(2).endpoint(1),
                                      shardctl=True, ft=FTConfig()),
                  ValueError, "op_deadline_s", id="<lambda>-slice 5, shardctl"),
-    pytest.param(lambda: FTConfig(chunk_bytes=65536), NotImplementedError,
-                 "comm/pool", id="<lambda>-comm/pool"),
+    # Chunked streaming landed: a chunk size without op deadlines is
+    # accepted and stays inactive (no framing to ride), as in the reference.
+    pytest.param(lambda: FTConfig(chunk_bytes=65536), None, None,
+                 id="<lambda>-comm/pool"),
     # Elastic membership landed: a joiner (with its preemption notice)
     # needs a controller, and late-join candidates are not launch members.
     pytest.param(lambda: ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu",
@@ -993,8 +995,15 @@ def test_property_fault_plans_never_hang(seed):
                  ValueError, "overlap", id="<lambda>-elastic1"),
 ])
 def test_later_slices_refuse_loudly(make, exc, match):
-    """Chunked streaming still refuses naming its slice; shard control and
-    elastic membership have landed, and their own guards fail loudly."""
+    """Chunked streaming, shard control and elastic membership have landed:
+    their own guards fail loudly, and a chunk size without framing is the
+    reference's inactive posture."""
+    if exc is None:
+        cfg = make()
+        jcfg = jft.FTConfig(chunk_bytes=cfg.chunk_bytes)
+        assert (cfg.chunk_bytes, cfg.chunked) == (jcfg.chunk_bytes, jcfg.chunked)
+        assert not cfg.chunked
+        return
     with pytest.raises(exc, match=match):
         make()
 
@@ -1023,12 +1032,15 @@ def _v4_unframed():
     # INIT v4 is shard control's, landed: unframed, it is refused loudly.
     pytest.param(_v4_unframed(), ValueError, "FLAG_FRAMED",
                  id="words0-INIT v4.*shardctl"),
-    pytest.param([0, 8, 0, 1, 1 | 64, 1024], NotImplementedError,
-                 "INIT v5.*comm/pool", id="words1-INIT v5.*comm/pool"),
-    pytest.param([0, 8, 0, 1, 1 | 8 | 64], NotImplementedError,
-                 "FLAG_CHUNKED.*slice 5", id="words2-FLAG_CHUNKED.*slice 5"),
-    pytest.param([0, 8, 0, 1, 1 | 64], NotImplementedError,
-                 "FLAG_CHUNKED.*slice 5", id="words3-FLAG_CHUNKED.*slice 5"),
+    # INIT v5 landed: a framed chunked writer is accepted with its cut, and
+    # FLAG_CHUNKED outside the 48-byte v5 form is malformed, as in the
+    # reference.
+    pytest.param([0, 8, 0, 1, 1 | 64, 1024], None, None,
+                 id="words1-INIT v5.*comm/pool"),
+    pytest.param([0, 8, 0, 1, 1 | 8 | 64], ValueError,
+                 "FLAG_CHUNKED and the 48-byte v5", id="words2-FLAG_CHUNKED.*slice 5"),
+    pytest.param([0, 8, 0, 1, 1 | 64], ValueError,
+                 "FLAG_CHUNKED and the 48-byte v5", id="words3-FLAG_CHUNKED.*slice 5"),
     # The serving tier and cells landed: a READ-ONLY or SUBSCRIBE announcement
     # from a rank that is neither a reader nor a cell is refused loudly.
     pytest.param([0, 8, 0, 1, 1 | 16], ValueError,
@@ -1037,47 +1049,70 @@ def _v4_unframed():
                  id="words5-slice 5"),
 ])
 def test_server_refuses_announcements_of_later_slices(words, exc, match):
+    """Each announcement gets the JAX server's answer."""
     server = ParamServer(0, [1], LocalRouter(2).endpoint(0), device="cpu")
+    jserver = JaxServer(0, [1], JaxRouter(2).endpoint(0))
+    payload = np.asarray(words, np.int64).tobytes()
+    if exc is None:
+        assert server._negotiate(1, payload).name == jserver._negotiate(1, payload).name
+        assert server._chunk[1] == jserver._chunk[1] == words[5]
+        return
     with pytest.raises(exc, match=match):
-        server._negotiate(1, np.asarray(words, np.int64).tobytes())
+        server._negotiate(1, payload)
+    with pytest.raises(exc, match=match):
+        jserver._negotiate(1, payload)
 
 
-def test_jax_client_with_timing_is_refused_by_a_port_server():
-    """A JAX client announcing FLAG_TIMING together with a flag of a later
-    slice (chunked streaming, INIT v5) meets a loud refusal, never a flag
-    masked off.  FLAG_TIMING alone is accepted: the mixed timed gangs of
-    ``tests/test_torch_causal.py`` hold it."""
+@pytest.fixture
+def jax_pool_restored():
+    """The JAX package's worker pool is process-global: a JAX chunked client
+    makes it.  Put the process back as it was, so no later test of this
+    worker sees a pool it did not make."""
+    import mpit_tpu.comm.pool as jpool
+
+    saved = jpool._GLOBAL
+    yield
+    made = jpool._GLOBAL
+    if made is not saved:
+        jpool._GLOBAL = saved
+        if made is not None:
+            made.close()
+
+
+def test_jax_client_with_timing_is_refused_by_a_port_server(jax_pool_restored):
+    """A JAX client announcing FLAG_TIMING together with chunked streaming
+    (INIT v5) is served by a port server as a JAX server serves it: timed
+    chunk acks and replies, the pushed gradient applied once."""
     router = JaxRouter(2)
     server = ParamServer(0, [1], router.endpoint(0), device="cpu")
     client = JaxClient(1, [0], router.endpoint(1), seed_servers=True,
-                       ft=jft.FTConfig(op_deadline_s=0.5, timing=True,
+                       ft=jft.FTConfig(op_deadline_s=5.0, timing=True,
                                        chunk_bytes=4096))
-    box = {}
-
-    def serve():
-        try:
-            server.start()
-        except TaskError as exc:
-            box["cause"] = exc.cause
-
-    t = threading.Thread(target=serve, daemon=True)
+    t = threading.Thread(target=server.start, daemon=True)
     t.start()
-    param = np.ones(8, np.float32)
-    starter = threading.Thread(target=client.start, args=(param, np.zeros_like(param)),
-                               daemon=True)
-    starter.start()
-    t.join(10)
-    client.live.stop()
-    assert isinstance(box.get("cause"), NotImplementedError)
-    assert "INIT v5" in str(box["cause"])
+    param = np.ones(3000, np.float32)
+    grad = np.full(3000, 0.5, np.float32)
+    client.start(param, grad)
+    client.async_send_grad()
+    client.wait()
+    param[:] = 0
+    client.async_recv_param()
+    client.wait()
+    client.stop()
+    t.join(30)
+    assert not t.is_alive()
+    assert server._timing[1] and server._chunk[1] == 1024
+    assert server.grads_applied == 1
+    np.testing.assert_array_equal(param, np.full(3000, 1.5, np.float32))
 
 
 @pytest.mark.parametrize("flag,value,exc,match", [
     # Shard control and elastic membership landed: without op deadlines
     # (their re-routing rides the retry machinery) they refuse loudly.
     pytest.param("shardctl", True, ValueError, "ft_op_deadline_s", id="shardctl-True"),
-    pytest.param("ft_chunk_bytes", 4096, NotImplementedError, "slice 5",
-                 id="ft_chunk_bytes-4096"),
+    # Chunked streaming landed: without op deadlines the chunk size stays
+    # inactive and the gang runs, as in the reference.
+    pytest.param("ft_chunk_bytes", 4096, None, None, id="ft_chunk_bytes-4096"),
     pytest.param("elastic", True, ValueError, "ft_op_deadline_s", id="elastic-True"),
 ])
 def test_launch_refuses_ft_flags_of_later_slices(flag, value, exc, match):
@@ -1085,6 +1120,11 @@ def test_launch_refuses_ft_flags_of_later_slices(flag, value, exc, match):
 
     cfg = launch.LAUNCH_DEFAULTS.merged({"np": 3, "device": "cpu", "side": 8,
                                          flag: value})
+    if exc is None:
+        results = launch.run_gang(3, cfg.merged(epochs=1, opt="downpour"))
+        assert sorted(r["role"] for r in results.values()) == ["server", "server",
+                                                               "worker"]
+        return
     with pytest.raises(exc, match=match):
         launch.run_gang(3, cfg)
 

@@ -80,7 +80,8 @@ def test_entry_points_load_without_jax():
             "mpit_tpu_torch.obs.top, mpit_tpu_torch.obs.profile, mpit_tpu_torch.obs.flight, "
             "mpit_tpu_torch.obs.statusd, mpit_tpu_torch.utils.timers, "
             "mpit_tpu_torch.ps.serve, mpit_tpu_torch.cells.cell, "
-            "mpit_tpu_torch.cells.autoscale; "
+            "mpit_tpu_torch.cells.autoscale, mpit_tpu_torch.dplane, "
+            "mpit_tpu_torch.comm.pool; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -219,11 +220,11 @@ def test_mesh_launch_refuses_later_slices(flags, tmp_path):
     ("cells", "1", "without --serve_readers"),  # landed: cells serve readers
     ("lm", "1", "slice 7"),
     ("agg", "tree", "slice 5"),
-    ("dplane", "1", "slice 6"),
+    ("dplane", "1", "a rank process was started"),  # landed: the parent spawns
     ("init_v3", 1 | 16, "reader_ranks"),  # landed: FLAG_READONLY from a non-reader
-    ("ft_chunk_bytes", "65536", "slice 5"),
-    ("init_v3", 1 | 8 | 64, "slice 5"),  # FLAG_TIMING with FLAG_CHUNKED
-    ("init_v5", 1 | 2 | 16 | 32 | 64, "slice 5f"),  # a chunk-framed subscription
+    ("ft_chunk_bytes", "65536", "a rank process was started"),  # landed
+    ("init_v3", 1 | 8 | 64, "48-byte v5"),  # landed: FLAG_CHUNKED needs INIT v5
+    ("init_v5", 1 | 2 | 16 | 32 | 64, None),  # landed: a chunk-framed subscription
 ])
 def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
     """The CLI's --np N refuses in the parent, before any process starts:
@@ -231,12 +232,14 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
     ValueError, as the reference's launcher does (so do shard control with
     no worker left, --elastic without the supervisor, --serve_readers
     without op deadlines and --cells without readers), and the flags of
-    later slices and an INIT flag of a later slice raise
-    NotImplementedError naming the slice (a cell's chunk-framed
-    subscription, INIT v5, names slice 5f); a READ-ONLY announcement from a
-    rank outside ``reader_ranks`` is a ValueError, as in the reference; a
-    PS optimizer without a client raises ValueError, as the reference's
-    trainer does."""
+    later slices raise NotImplementedError naming the slice.  The landed
+    flags get the reference's answers: --dplane and --ft_chunk_bytes are
+    accepted (the parent goes on to start the ranks), FLAG_CHUNKED in a
+    40-byte announcement is a ValueError (it travels with INIT v5), and a
+    cell's chunk-framed subscription (INIT v5) is accepted with its chunk
+    cut; a READ-ONLY announcement from a rank outside ``reader_ranks`` is a
+    ValueError, as in the reference; a PS optimizer without a client raises
+    ValueError, as the reference's trainer does."""
     from mpit_tpu_torch.train import gang
 
     def no_spawn(*args, **kw):
@@ -263,13 +266,20 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
                   ParamServer(0, [2], LocalRouter(3).endpoint(0), device="cpu",
                               cell_ranks=[1]))
         words = [0, 8, 0, 1, value] + ([1024] if flag == "init_v5" else [])
-        exc = ValueError if value & 64 == 0 else NotImplementedError
-        with pytest.raises(exc, match=owner):
+        if owner is None:
+            codec = server._negotiate(1, np.asarray(words, np.int64).tobytes())
+            assert codec.name == "none" and server._chunk[1] == 1024
+            return
+        with pytest.raises(ValueError, match=owner):
             server._negotiate(1, np.asarray(words, np.int64).tobytes())
         return
     argv = ["--np", "2", "--device", "cpu", "--side", "8", f"--{flag}", value]
     if flag in ("tester", "shardctl", "elastic", "serve_readers", "cells"):
         with pytest.raises(ValueError, match=owner):
+            launch.main(argv)
+        return
+    if flag in ("dplane", "ft_chunk_bytes"):
+        with pytest.raises(AssertionError, match=owner):
             launch.main(argv)
         return
     with pytest.raises(NotImplementedError, match=owner):

@@ -84,6 +84,22 @@ def join_all(threads, timeout=30):
 # registry primitives
 
 
+
+@pytest.fixture
+def no_port_pool():
+    """A process without the port's worker pool (process-global, made by the
+    first chunked transfer or cell XOR): one made by an earlier test is set
+    aside for the test and put back after."""
+    from mpit_tpu_torch.comm import pool
+
+    saved, pool._GLOBAL = pool._GLOBAL, None
+    try:
+        yield
+    finally:
+        made, pool._GLOBAL = pool._GLOBAL, saved
+        if made is not None and made is not saved:
+            made.close()
+
 class TestRegistry:
     def test_counter_gauge_histogram(self):
         reg = obs_metrics.Registry()
@@ -901,7 +917,8 @@ class TestFlightRecorder:
         obj = json.load(open(dumps[0]))
         assert any(ev["kind"] == "retry_exhausted" for ev in obj["events"])
 
-    def test_scheduler_watchdog_dumps_on_stall(self, obs_on, tmp_path, monkeypatch):
+    def test_scheduler_watchdog_dumps_on_stall(self, obs_on, tmp_path, monkeypatch,
+                                               no_port_pool):
         monkeypatch.setenv("MPIT_OBS_FLIGHT", str(tmp_path))
         sched = Scheduler(idle_usec=500, stall_s=0.01)
 

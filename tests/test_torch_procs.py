@@ -209,8 +209,9 @@ def test_trainer_value_and_grad_equals_torch_func_bitwise(model):
 
 def test_ptest_twin_prints_the_shm_row():
     """``tools/torch_ptest.py``'s process leg at a tiny size: one row per
-    codec with the JAX twin's keys, from the native codec; a leg of a
-    later slice raises."""
+    codec with the JAX twin's keys, from the native codec; the streaming
+    A/B leg (landed) adds its control and chunked rows; a leg of a later
+    slice raises."""
     env = dict(os.environ, MPIT_BENCH_DEVICE="cpu", MPIT_BENCH_MB="1",
                MPIT_BENCH_ROUNDS="3", MPIT_BENCH_CODECS="none,int8")
     tool = os.path.join(REPO, "tools", "torch_ptest.py")
@@ -226,8 +227,19 @@ def test_ptest_twin_prints_the_shm_row():
         assert r["codec_path"] == "native" and r["server_platforms"] == ["cpu"]
         assert r["server_apply_us"] > 0
     proc = subprocess.run([sys.executable, tool], capture_output=True, text=True,
-                          timeout=60, env=dict(env, MPIT_BENCH_STREAM="1"))
-    assert proc.returncode != 0 and "slice 5" in proc.stderr  # chunked streaming
+                          timeout=120, env=dict(env, MPIT_BENCH_STREAM="1",
+                                                MPIT_BENCH_CODECS="none",
+                                                MPIT_BENCH_STREAM_CHUNK_MB="0.25"))
+    assert proc.returncode == 0, proc.stderr
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    stream = [r for r in rows if r["metric"] == "ps_stream_pipeline"]
+    assert [r["stream"] for r in stream] == [0, 1]
+    assert all(r["grad_p50_ms"] > 0 and r["param_p50_ms"] > 0 and r["retries"] == 0
+               for r in stream)
+    assert stream[1]["chunk_mb"] == 0.25 and stream[1]["grad_speedup"] > 0
+    proc = subprocess.run([sys.executable, tool], capture_output=True, text=True,
+                          timeout=60, env=dict(env, MPIT_BENCH_AGG="1"))
+    assert proc.returncode != 0 and "slice 5g" in proc.stderr  # aggregation
 
 
 # -- one worker, bit for bit ----------------------------------------------------------

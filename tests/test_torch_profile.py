@@ -2,10 +2,13 @@
 twins of ``tests/test_profile.py``'s six classes, and the profile report
 across the packages.
 
-The port has no native worker pool (it comes with chunked streaming), so
-its counter tracks are the scheduler's two (``sched_runq``, ``task_cpu``)
-and its resource section has no ``pool`` key: what the JAX package emits
-in a process without a pool.  Across the packages the rule is equality:
+The port's worker pool (``comm/pool.py``) is process-global, made by the
+first chunked transfer or cell XOR in a process.  These twins run in a
+process without one (an autouse fixture sets any pool aside), so the
+counter tracks are the scheduler's two (``sched_runq``, ``task_cpu``) and
+the resource section has no ``pool`` key: what the JAX package emits in a
+process without a pool; ``test_pool_tracks_with_a_pool`` holds the tracks a
+pool adds.  Across the packages the rule is equality:
 each package's ``profile.analyze_trace`` on the other package's trace (a
 synthetic one from a numpy seed, and a real profiled port gang's) returns
 an equal dict.
@@ -33,6 +36,21 @@ from mpit_tpu_torch.obs import spans as obs_spans
 from mpit_tpu_torch.obs import trace as obs_trace
 from mpit_tpu_torch.obs.__main__ import main as obs_cli
 from mpit_tpu_torch.ps import ParamClient, ParamServer
+
+
+@pytest.fixture(autouse=True)
+def no_port_pool():
+    """A process without the port's worker pool: one made by an earlier test
+    in this process is set aside for the test and put back after."""
+    from mpit_tpu_torch.comm import pool
+
+    saved, pool._GLOBAL = pool._GLOBAL, None
+    try:
+        yield
+    finally:
+        made, pool._GLOBAL = pool._GLOBAL, saved
+        if made is not None and made is not saved:
+            made.close()
 
 
 @pytest.fixture
@@ -107,6 +125,25 @@ class TestProfilerPrimitive:
         prof._interval = 3600.0
         prof.sample(9)
         assert len(prof.samples) == n and prof.last_runq == 3
+
+    def test_pool_tracks_with_a_pool(self, prof_on):
+        """With a threaded pool in the process the sampler adds the pool's
+        two tracks and the resource section its ``pool`` key, as the JAX
+        package's does."""
+        from mpit_tpu_torch.comm import pool
+
+        p = pool.configure(2)
+        if p.serial:
+            pytest.skip("no native library: the pool is serial")
+        prof_on._interval = 0.0
+        for _ in range(3):  # utilization is windowed: busy over two samples
+            p.submit_xor(np.zeros(1 << 16, np.uint8), np.ones(1 << 16, np.uint8),
+                         np.empty(1 << 16, np.uint8)).result()
+            prof_on.sample(1)
+        tracks = {track for _, track, _ in prof_on.samples}
+        assert {"pool_util", "pool_depth"} <= tracks <= set(obs_profile.TRACKS)
+        assert set(obs_profile.resource_snapshot()["pool"]) >= {
+            "threads", "depth", "busy_seconds"}
 
     def test_cpu_now_is_a_real_clock(self, prof_on):
         t0 = prof_on.cpu_now()

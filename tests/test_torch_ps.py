@@ -29,6 +29,7 @@ from mpit_tpu.optim import rules as jax_rules
 from mpit_tpu.ps import ParamClient as JaxClient
 from mpit_tpu.ps import ParamServer as JaxServer
 from mpit_tpu_torch.aio import TaskError
+from mpit_tpu_torch.dplane import PlaneConfig
 from mpit_tpu_torch.comm.local import LocalRouter
 from mpit_tpu_torch.optim import rules
 from mpit_tpu_torch.optim.downpour import Downpour
@@ -365,14 +366,16 @@ class TestWireCodecs:
         assert isinstance(cause, ValueError) and message in str(cause)
 
     @pytest.mark.parametrize("version,words,exc,message", [
-        # v3 with FLAG_CHUNKED (streaming)
-        pytest.param(3, [0, 8, 0, 1, 1 | 8 | 64], NotImplementedError, "INIT v3",
+        # streaming landed: FLAG_CHUNKED in a 40-byte v3 is malformed, as in
+        # the reference (the chunk cut travels in INIT v5)
+        pytest.param(3, [0, 8, 0, 1, 1 | 8 | 64], ValueError, "48-byte v5",
                      id="3-words0"),
         # shard control landed: a whole map, but unframed, is refused
         pytest.param(4, [-1, 0, 0, 4, 0x534D4150, 0, 8, 1, 0, 0, 8, 0],
                      ValueError, "FLAG_FRAMED", id="4-words1"),
-        # v3 + [chunk_elems]
-        pytest.param(5, [0, 8, 0, 1, 1 | 32, 1024], NotImplementedError, "INIT v5",
+        # v3 + [chunk_elems] without FLAG_CHUNKED: malformed, as in the
+        # reference
+        pytest.param(5, [0, 8, 0, 1, 1 | 32, 1024], ValueError, "48-byte v5",
                      id="5-words2"),
     ])
     def test_later_init_versions_are_refused(self, version, words, exc, message):
@@ -390,7 +393,8 @@ class TestWireCodecs:
     # the serving tier and cells landed: accepted now
     pytest.param(ParamServer, {"reader_ranks": [3]}, False, id="ParamServer-kw2"),
     pytest.param(ParamServer, {"cell_ranks": [3]}, False, id="ParamServer-kw3"),
-    pytest.param(ParamServer, {"dplane": object()}, True, id="ParamServer-kw4"),
+    # the device data plane landed: accepted now
+    pytest.param(ParamServer, {"dplane": PlaneConfig()}, False, id="ParamServer-kw4"),
     pytest.param(ParamServer, {"shardctl": True}, False, id="ParamServer-kw5"),
     pytest.param(ParamClient, {"controller_rank": 0}, False, id="ParamClient-kw6"),
     pytest.param(ParamClient, {"shardctl": True, "ft_deadline": 1.0}, False,
@@ -399,9 +403,9 @@ class TestWireCodecs:
 ])
 def test_later_slice_arguments_are_refused(cls, kw, refused):
     """Arguments of slices still to come raise NotImplementedError naming
-    the slice; shard control's, elastic membership's, the serving tier's and
-    the cells' are accepted (a shardctl client with op deadlines); an
-    argument neither package has is a TypeError."""
+    the slice; shard control's, elastic membership's, the serving tier's,
+    the cells' and the device plane's are accepted (a shardctl client with
+    op deadlines); an argument neither package has is a TypeError."""
     from mpit_tpu_torch.ft import FTConfig
 
     router = LocalRouter(2)

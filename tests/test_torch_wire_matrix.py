@@ -2,7 +2,7 @@
 twin of ``tests/test_wire_matrix.py``'s ``TestNegotiationMatrix`` at its
 three server postures — plain (no readers, no cells), ``reader`` (the
 announcing rank is in ``reader_ranks``) and ``cell`` (it is in
-``cell_ranks``) — for INIT v1-v4 and all 128 flag sets of v3 and of v4,
+``cell_ranks``) — for INIT v1-v5 and all 128 flag sets of v3, v4 and v5,
 plus every legacy cell (v1-v3) announced to a plain server that already
 speaks shard control.
 
@@ -12,7 +12,7 @@ For every cell the port's ``ParamServer._negotiate`` must agree with
 
 - a cell the oracle accepts is accepted, with the oracle's effective
   per-pair posture (framed, heartbeat, staleness, timing, readonly,
-  subscribe, shardctl; the chunked posture of a later slice is off);
+  subscribe, chunked, shardctl);
 - a cell the oracle refuses is refused — loudly, with a ValueError as the
   JAX server refuses it, or with a NotImplementedError that names the
   slice of the port its flag belongs to.
@@ -20,20 +20,22 @@ For every cell the port's ``ParamServer._negotiate`` must agree with
 The cells (counted by ``test_cell_counts``), as (accepted, refused,
 refused as a later slice):
 
-- plain: v1 and v2 (1, 0, 0); v3 (16, 48, 64): the 64 with FLAG_CHUNKED are
-  a later slice's, and the 48 others with FLAG_READONLY or FLAG_SUBSCRIBE
-  are refused as the reference refuses a non-reader's posture; v4 (64, 64,
-  0): the 64 with FLAG_FRAMED accepted as shard control (staleness and
-  timing off, whatever the bits); a legacy announcement to a shard-control
-  server, 130 cells, all refused;
-- reader: v1 and v2 (0, 1, 0); v3 (8, 56, 64): the 8 READ-ONLY framed sets
+- plain: v1 and v2 (1, 0, 0); v3 (16, 112, 0): the 64 with FLAG_CHUNKED
+  are refused as malformed (the chunk cut travels in INIT v5), and the 48
+  others with FLAG_READONLY or FLAG_SUBSCRIBE as the reference refuses a
+  non-reader's posture; v4 (64, 64, 0): the 64 with FLAG_FRAMED accepted as
+  shard control (staleness and timing off, whatever the bits); v5 (8, 120,
+  0): the 8 framed chunked writer sets, staleness off; a legacy
+  announcement to a shard-control server, 130 cells, all refused;
+- reader: v1 and v2 (0, 1, 0); v3 (8, 120, 0): the 8 READ-ONLY framed sets
   accepted with staleness and timing negotiated off; v4 (0, 128, 0), shard
-  control excludes the serving tier;
-- cell: v1 and v2 (0, 1, 0); v3 (8, 56, 64): the 8 READ-ONLY SUBSCRIBE
-  framed sets, staleness and timing off; v4 (0, 128, 0).
+  control excludes the serving tier; v5 (0, 128, 0): a reader does not
+  stream;
+- cell: v1 and v2 (0, 1, 0); v3 (8, 120, 0): the 8 READ-ONLY SUBSCRIBE
+  framed sets, staleness and timing off; v4 (0, 128, 0); v5 (8, 120, 0):
+  the chunk-framed subscriptions.
 
-INIT v5 (chunked streaming, a chunk-framed subscription too) widens the
-twin with its slice.
+No cell is refused as a later slice's any more: the third count is 0.
 """
 
 import numpy as np
@@ -43,11 +45,13 @@ import mpit_tpu.ft.wire as jftw
 import mpit_tpu.shardctl.wire as jscw
 from mpit_tpu.analysis import schema
 from mpit_tpu.shardctl.shardmap import ShardMap as JaxShardMap
+from mpit_tpu_torch.ft import wire as ftw
 from mpit_tpu_torch.ps import ParamServer
 from mpit_tpu_torch.shardctl import ShardMap
 from mpit_tpu_torch.shardctl import wire as scwire
 
 SIZE = 1024
+CHUNK_ELEMS = 1024  # one codec block: the smallest legal chunk cut
 
 #: (name, ParamServer kwargs, oracle kwargs) — the announcing rank is 1
 CONFIGS = {
@@ -64,6 +68,10 @@ def _announce_bytes(version: int, flags: int) -> bytes:
         return np.asarray([0, SIZE, 0], np.int64).tobytes()
     if version == 3:
         return jftw.init_v3(0, SIZE, 0, 0, flags).tobytes()
+    if version == 5:
+        got = ftw.init_v5(0, SIZE, 0, 0, flags, CHUNK_ELEMS)
+        assert got.tobytes() == jftw.init_v5(0, SIZE, 0, 0, flags, CHUNK_ELEMS).tobytes()
+        return got.tobytes()
     if version == 4:
         got = scwire.init_v4(0, 0, flags, ShardMap.initial(SIZE, [0]))
         assert got.tobytes() == jscw.init_v4(
@@ -78,7 +86,7 @@ def _verdicts(version, sc_server=False, config="plain"):
     v4 client came first); ``config``: the server's serving posture."""
     server_kw, oracle_kw = CONFIGS[config]
     out = []
-    for flags in (range(128) if version in (3, 4) else [0]):
+    for flags in (range(128) if version in (3, 4, 5) else [0]):
         want = schema.negotiate(version, flags, sc_server=sc_server, **oracle_kw)
         # client_ranks=[2] keeps the announcing rank 1 out of the gang's
         # clients, as the reference matrix does.
@@ -100,14 +108,14 @@ def _verdicts(version, sc_server=False, config="plain"):
             "timing": server._timing.get(1, False),
             "readonly": server._readonly.get(1, False),
             "subscribe": server._subscribe.get(1, False),
-            "chunked": False,
+            "chunked": server._chunk.get(1, 0) > 0,
             "shardctl": server._sc,
         }
         out.append((flags, want, "accepted", posture))
     return out
 
 
-@pytest.mark.parametrize("version", [1, 2, 3, 4])
+@pytest.mark.parametrize("version", [1, 2, 3, 4, 5])
 def test_matrix_matches_oracle(version):
     mismatches = _mismatches(version)
     assert not mismatches, "\n".join(mismatches)
@@ -122,7 +130,7 @@ def test_legacy_on_a_shardctl_server_matches_oracle(version):
     assert all(v == "refused" for _f, _w, v, _d in _verdicts(version, sc_server=True))
 
 
-@pytest.mark.parametrize("version", [1, 2, 3, 4])
+@pytest.mark.parametrize("version", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("config", ["reader", "cell"])
 def test_reader_and_cell_postures_match_oracle(config, version):
     """The serving postures: a reader rank's and a cell rank's
@@ -163,13 +171,17 @@ def test_cell_counts():
         return tuple(sum(1 for r in rows if r[2] == v)
                      for v in ("accepted", "refused", "later"))
 
-    assert [counts(v) for v in (1, 2, 3, 4)] == [(1, 0, 0), (1, 0, 0), (16, 48, 64),
-                                                 (64, 64, 0)]
+    assert [counts(v) for v in (1, 2, 3, 4, 5)] == [(1, 0, 0), (1, 0, 0), (16, 112, 0),
+                                                    (64, 64, 0), (8, 120, 0)]
     assert [counts(v, True) for v in (1, 2, 3)] == [(0, 1, 0), (0, 1, 0), (0, 128, 0)]
-    assert [counts(v, config="reader") for v in (1, 2, 3, 4)] == \
-        [(0, 1, 0), (0, 1, 0), (8, 56, 64), (0, 128, 0)]
-    assert [counts(v, config="cell") for v in (1, 2, 3, 4)] == \
-        [(0, 1, 0), (0, 1, 0), (8, 56, 64), (0, 128, 0)]
+    assert [counts(v, config="reader") for v in (1, 2, 3, 4, 5)] == \
+        [(0, 1, 0), (0, 1, 0), (8, 120, 0), (0, 128, 0), (0, 128, 0)]
+    assert [counts(v, config="cell") for v in (1, 2, 3, 4, 5)] == \
+        [(0, 1, 0), (0, 1, 0), (8, 120, 0), (0, 128, 0), (8, 120, 0)]
+    v5 = [d for f, w, v, d in _verdicts(5) if v == "accepted"]
+    assert all(d["chunked"] and d["framed"] and not d["staleness"] for d in v5)
+    v5_cells = [d for f, w, v, d in _verdicts(5, config="cell") if v == "accepted"]
+    assert all(d["chunked"] and d["subscribe"] and d["readonly"] for d in v5_cells)
     ro = [d for f, w, v, d in _verdicts(3, config="reader") if v == "accepted"]
     assert all(d["readonly"] and d["framed"] and not d["subscribe"]
                and not d["staleness"] and not d["timing"] for d in ro)
@@ -200,4 +212,4 @@ def test_the_timing_cells_are_accepted(version):
     assert not [f for f, w, v, _d in rows if v == "accepted" and not w.accepted]
     counts = {v: sum(1 for r in rows if r[2] == v) for v in ("accepted", "refused", "later")}
     assert counts == ({"accepted": 1, "refused": 0, "later": 0} if version < 3
-                      else {"accepted": 16, "refused": 48, "later": 64})
+                      else {"accepted": 16, "refused": 112, "later": 0})

@@ -84,8 +84,21 @@ many readers each, one transport and one ``ReaderClient`` a reader):
   the largest lag seen against ``MPIT_BENCH_CELL_MAX_LAG`` (8), diffs and
   resyncs.
 
-The stream, agg and LM legs ride layers of later slices of the port;
-setting one raises, naming the slice.
+- ``MPIT_BENCH_STREAM=1``: the pipelined-streaming A/B, per codec a
+  1-server/1-client framed gang over a modelled serial link
+  (``PacedTransport`` at ``MPIT_BENCH_STREAM_LINK_MBS``, 800 MB/s, both
+  directions; frames under 16 KiB pass unpaced), run twice: whole frames
+  (the control), then ``FLAG_CHUNKED`` at ``MPIT_BENCH_STREAM_CHUNK_MB``
+  (8) chunks.  Every GRAD and PARAM op is timed on its own; row
+  ``ps_stream_pipeline``: GRAD and PARAM p50 in ms, the chunked row's
+  speedups over the control.  With ``MPIT_BENCH_POOL=1`` the stream legs
+  run once per worker-pool size: ``MPIT_POOL_THREADS=0`` first, then each
+  of ``MPIT_BENCH_POOL_THREADS`` (``2``); the pooled chunked rows carry
+  ``pool_grad_speedup`` over the serial one.  ``MPIT_BENCH_STREAM=only``
+  runs the stream legs and nothing else.
+
+The agg and LM legs ride layers of later slices of the port; setting one
+raises, naming the slice.
 
 Prints one JSON line per codec:
 ``{"metric": "ps_pushpull_bandwidth_shm", "value": MB/s, "unit": "MB/s",
@@ -154,9 +167,16 @@ CELL_MAX_LAG = int(os.environ.get("MPIT_BENCH_CELL_MAX_LAG", "8"))
 CELL_KILL = _on("MPIT_BENCH_CELL_KILL") or "MPIT_BENCH_CELL_KILL" not in os.environ
 CELL_HOSTS = max(int(os.environ.get("MPIT_BENCH_CELL_HOSTS", "2")), 1)
 
+STREAM_SWEEP = _on("MPIT_BENCH_STREAM")
+STREAM_LINK_MBS = float(os.environ.get("MPIT_BENCH_STREAM_LINK_MBS", "800"))
+STREAM_CHUNK_MB = float(os.environ.get("MPIT_BENCH_STREAM_CHUNK_MB", "8"))
+STREAM_DEADLINE = float(os.environ.get("MPIT_BENCH_STREAM_DEADLINE", "600"))
+POOL_SWEEP = _on("MPIT_BENCH_POOL")
+POOL_THREADS = [int(x) for x in
+                os.environ.get("MPIT_BENCH_POOL_THREADS", "2").split(",") if x]
+
 #: legs of the JAX twin that ride layers of later slices of the port
 LATER_LEGS = {
-    "MPIT_BENCH_STREAM": "chunked streaming (slice 5f, streaming with comm/pool)",
     "MPIT_BENCH_AGG": "hierarchical aggregation (slice 5g, agg)",
     "MPIT_BENCH_LM": "the LM workload through the PS gang (slice 7b, lm)",
 }
@@ -177,11 +197,12 @@ def refuse_later_legs() -> None:
             raise NotImplementedError(f"{name} belongs to {owner} of the port")
     if (HEARTBEAT_SWEEP or OBS_SWEEP or STATUS_SWEEP or DECOMP_SWEEP
             or PROFILE_SWEEP or SKEW_SWEEP or ELASTIC_SWEEP or READERS_SWEEP
-            or CELLS_SWEEP) and GANG != "procs":
+            or CELLS_SWEEP or STREAM_SWEEP) and GANG != "procs":
         raise ValueError(
             "MPIT_BENCH_HEARTBEAT/MPIT_BENCH_OBS/MPIT_BENCH_STATUS/"
             "MPIT_BENCH_DECOMP/MPIT_BENCH_PROFILE/MPIT_BENCH_SKEW/"
-            "MPIT_BENCH_ELASTIC/MPIT_BENCH_READERS/MPIT_BENCH_CELLS need "
+            "MPIT_BENCH_ELASTIC/MPIT_BENCH_READERS/MPIT_BENCH_CELLS/"
+            "MPIT_BENCH_STREAM need "
             "MPIT_BENCH_GANG=procs")
     mode = os.environ.get("MPIT_BENCH_MODE", "shm")
     if mode != "shm":
@@ -308,7 +329,21 @@ def _gang_child() -> None:
         # straggler's delayed replies, server beats for the controller.
         client_ft = FTConfig(op_deadline_s=float(skew["deadline_s"]), max_retries=8)
         server_ft = FTConfig(heartbeat_s=0.05)
+    stream = spec.get("stream")
+    if stream:
+        # The streaming A/B: the framed wire, chunked or not per the leg,
+        # with a deadline far above any op (the column measures pipelining,
+        # not the retry machinery).
+        client_ft = FTConfig(op_deadline_s=float(stream["deadline_s"]), max_retries=2,
+                             chunk_bytes=int(stream["chunk_bytes"]))
     transport = ShmTransport(spec["ns"], rank, nranks, ring_bytes=spec["ring"])
+    if stream:
+        from mpit_tpu_torch.ft import PacedTransport
+
+        # The modelled serial link, both directions: big frames transit at
+        # link_mbs, control traffic passes.
+        transport = PacedTransport(transport, float(stream["link_mbs"]),
+                                   min_bytes=1 << 14)
     # No PS traffic until every ring is mapped.
     HostCollectives(transport).barrier()
     if skew and rank == ctl_rank:
@@ -351,13 +386,27 @@ def _gang_child() -> None:
         client.wait()
         _client_barrier(client, transport, cranks, rank)
         t0 = time.time()
+        lat_grad, lat_param = [], []
         for _ in range(spec["rounds"]):
+            if stream:
+                # Each op on its own, serially: the pipelining under test is
+                # within one op.
+                s0 = time.monotonic()
+                client.async_send_grad()
+                client.wait()
+                lat_grad.append(time.monotonic() - s0)
+                s0 = time.monotonic()
+                client.async_recv_param()
+                client.wait()
+                lat_param.append(time.monotonic() - s0)
+                continue
             client.async_recv_param()
             client.async_send_grad()
             client.wait()
         t1 = time.time()
         client.stop()
-        result = {"role": "client", "t0": t0, "t1": t1}
+        result = {"role": "client", "t0": t0, "t1": t1, "lat_grad": lat_grad,
+                  "lat_param": lat_param, "retries": client.retries}
     # This rank's trace part (no-op unless MPIT_OBS_TRACE rode in: the
     # decomposition and profile legs); the parent merges and analyzes.
     maybe_write_rank_trace(rank, role=result["role"])
@@ -386,7 +435,8 @@ def _shm_run_procs(size: int, seq: int, servers_out: list, *,
                    heartbeat: bool = False, obs: bool = False,
                    status: bool = False, decomp: bool = False,
                    profile: bool = False, extra: dict | None = None,
-                   skew_rebalance=None, throttle_mbs: float = 0.0) -> float:
+                   skew_rebalance=None, throttle_mbs: float = 0.0,
+                   stream: dict | None = None) -> float:
     """One timed gang, one OS process per rank; returns MB/s and appends
     the servers' results to ``servers_out``.  The leg's columns (status
     scrapes, the decomposition, the profile, the skew controller's map)
@@ -406,6 +456,8 @@ def _shm_run_procs(size: int, seq: int, servers_out: list, *,
                         "deadline_s": SKEW_DEADLINE}
     if throttle_mbs:
         spec["throttle_mbs"] = throttle_mbs
+    if stream is not None:
+        spec["stream"] = stream
     check_shm_room(nranks, spec["ring"])
     tmpdir = tempfile.mkdtemp(prefix=f"{ns}_")
     trace = os.path.join(tmpdir, "trace.json")
@@ -479,6 +531,11 @@ def _shm_run_procs(size: int, seq: int, servers_out: list, *,
         extra["rebalances"] = ctl[0]["rebalances"]
     windows = [(r["t0"], r["t1"]) for r in recs if r["role"] == "client"]
     dt = max(w[1] for w in windows) - min(w[0] for w in windows)
+    if stream is not None and extra is not None:
+        clients = [r for r in recs if r["role"] == "client"]
+        extra["lat_grad"] = [x for r in clients for x in r["lat_grad"]]
+        extra["lat_param"] = [x for r in clients for x in r["lat_param"]]
+        extra["retries"] = sum(r["retries"] for r in clients)
     if extra is not None:
         if status_port is not None:
             if not polls[0]:
@@ -679,6 +736,76 @@ def bench_shm(codec: str = "", heartbeat: bool = False, obs: bool = False,
         row["server_apply_us"] = statistics.median(applies)
         row["server_platforms"] = sorted({s["platform"] for s in servers})
     return row
+
+
+def bench_stream() -> list:
+    """The pipelined-streaming A/B: per codec (and per pool size with
+    MPIT_BENCH_POOL), the unchunked control then the chunked leg, each a
+    1-server/1-client framed gang over the modelled serial link.  The
+    chunked row carries its GRAD and PARAM p50 speedups over the control."""
+    import numpy as np
+
+    global NSERVERS, NCLIENTS
+    saved = (NSERVERS, NCLIENTS)
+    saved_pool = os.environ.get("MPIT_POOL_THREADS")
+    saved_codec = os.environ.get("MPIT_PS_CODEC")
+    NSERVERS = NCLIENTS = 1
+    size = int(MB * (1 << 20) / 4)
+    chunk_bytes = int(STREAM_CHUNK_MB * (1 << 20))
+    pool_legs = [0] + [n for n in POOL_THREADS if n > 0] if POOL_SWEEP else [None]
+    serial_grad: dict = {}
+    rows = []
+    try:
+        for pool_n in pool_legs:
+            if pool_n is not None:
+                os.environ["MPIT_POOL_THREADS"] = str(pool_n)
+            for codec in CODECS or ["none"]:
+                os.environ["MPIT_PS_CODEC"] = codec
+                pair = {}
+                for chunked in (0, 1):
+                    out: dict = {}
+                    spec = {"chunk_bytes": chunk_bytes if chunked else 0,
+                            "link_mbs": STREAM_LINK_MBS, "deadline_s": STREAM_DEADLINE}
+                    log(f"[stream] codec {codec} {'chunked' if chunked else 'control'}"
+                        f": link {STREAM_LINK_MBS:.0f} MB/s, payload {MB:.0f} MB"
+                        + (f", {STREAM_CHUNK_MB:g} MB chunks" if chunked else "")
+                        + (f", pool {pool_n}t" if pool_n is not None else ""))
+                    mbs = _shm_run_procs(size, next(_GANG_SEQ), [], extra=out,
+                                         stream=spec)
+                    gp50 = float(np.percentile(out["lat_grad"], 50)) * 1e3
+                    pp50 = float(np.percentile(out["lat_param"], 50)) * 1e3
+                    row = {"metric": "ps_stream_pipeline", "unit": "ms",
+                           "value": gp50, "codec": codec, "stream": chunked,
+                           "grad_p50_ms": gp50, "param_p50_ms": pp50,
+                           "aggregate_mbs": mbs, "link_mbs": STREAM_LINK_MBS,
+                           "chunk_mb": STREAM_CHUNK_MB if chunked else 0,
+                           "payload_mb": MB, "rounds": ROUNDS,
+                           "retries": out["retries"], "device": DEVICE}
+                    if pool_n is not None:
+                        row["pool_threads"] = pool_n
+                    rows.append(row)
+                    pair[chunked] = row
+                pair[1]["grad_speedup"] = pair[0]["grad_p50_ms"] / max(
+                    pair[1]["grad_p50_ms"], 1e-9)
+                pair[1]["param_speedup"] = pair[0]["param_p50_ms"] / max(
+                    pair[1]["param_p50_ms"], 1e-9)
+                if pool_n == 0:
+                    serial_grad[codec] = pair[1]["grad_p50_ms"]
+                elif pool_n and serial_grad.get(codec):
+                    pair[1]["pool_grad_speedup"] = serial_grad[codec] / max(
+                        pair[1]["grad_p50_ms"], 1e-9)
+                log(f"[stream] codec {codec}: GRAD p50 {pair[0]['grad_p50_ms']:.1f} -> "
+                    f"{pair[1]['grad_p50_ms']:.1f} ms, PARAM p50 "
+                    f"{pair[0]['param_p50_ms']:.1f} -> {pair[1]['param_p50_ms']:.1f} ms")
+    finally:
+        NSERVERS, NCLIENTS = saved
+        for name, value in (("MPIT_POOL_THREADS", saved_pool),
+                            ("MPIT_PS_CODEC", saved_codec)):
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    return rows
 
 
 def bench_elastic() -> list:
@@ -1185,6 +1312,10 @@ def _cells_child() -> None:
 
 def main() -> None:
     refuse_later_legs()
+    if os.environ.get("MPIT_BENCH_STREAM") == "only":
+        for row in bench_stream():
+            print(json.dumps(row), flush=True)
+        return
     for codec in CODECS or [""]:
         for hb in ([False, True] if HEARTBEAT_SWEEP else [False]):
             for ob in ([False, True] if OBS_SWEEP else [False]):
@@ -1212,6 +1343,9 @@ def main() -> None:
         killable = [n for n in CELLS_SWEEP if n >= 2]
         if CELL_KILL and killable:
             print(json.dumps(bench_cells(max(killable), kill=True)), flush=True)
+    if STREAM_SWEEP:
+        for row in bench_stream():
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":
