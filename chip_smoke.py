@@ -45,8 +45,8 @@ order; any failure raises and the script exits non-zero:
    own K1-K3 launch counts, held exact (K1 = the workers' steps at
    EAMSGD, K3 in the servers = 2 x the workers' steps under Adam, none at
    DOWNPOUR); then ``tools/torch_ptest.py``'s push/pull bandwidth over shm
-   (64 MB, 2 servers + 2 clients, codecs none and int8: MB/s and the
-   servers' per-GRAD apply), and its observability legs at codec none in
+   (64 MB, 2 servers + 2 clients, 10 rounds, codecs none and int8: MB/s
+   and the servers' per-GRAD apply), and its observability legs at codec none in
    one more call: obs off, obs on (MB/s of each and their ratio, written
    down, never gated), and the framed ``FLAG_TIMING`` wire with traces,
    decomposed by ``obs analyze`` (every op joined);
@@ -162,7 +162,25 @@ order; any failure raises and the script exits non-zero:
    attention (bfloat16 twice: under the gate's K5 and forced to K6);
    then ``lm_resume``: ``LM_LAUNCH_DEFAULTS`` 6 steps straight against 3
    steps with ``--ckpt_dir`` and ``--resume auto`` to 6, equal losses and
-   state.
+   state;
+8b. hierarchical aggregation and the LM through the gang (slices 5g and
+   7b), every rank on the card: ``agg_lockstep_adam`` (4 clients in two
+   colocated groups reduce through a fanin-2 REDUCE tree onto 2 Adam
+   servers at 544,522 floats, 8 lockstep rounds, at codecs none (traced:
+   ``obs analyze``'s aggregation line) and int8, and int8 with REDUCE
+   frames and acks dropped and duplicated: the servers' params bit for bit
+   a flat client pushing the fixed-order fold, every group fold on the
+   card bit for bit the host fold of its tickets, K3 = each server's
+   applies = 8; REDUCE bytes and fold ms printed), ``lm_gang_flagship``
+   (``bench_lm``'s headline at ``lm_default``'s widths, 1,971,200 floats:
+   2 rmsprop servers on the 3:2 weighted cut, 2 workers through the tree,
+   int8, 64 KiB chunks, 20 steps: the losses fall, no server holds 75% of
+   the footprint, K4 and K5 exact; tokens/s printed) and
+   ``lm_gang_adam_vs_cpu`` (one worker, 2 Adam servers, 3 steps on the card
+   twice, bit for bit, and on the CPU, within ``LM_LIMITS["float32"]``);
+   beside them ``lm_agg_procs`` (``launch --np 6 --lm 1 --lm_weights 3,1,2
+   --agg tree`` at the same widths, 10 steps: each child's K4 and K5 exact)
+   and ``tools/torch_ptest.py``'s aggregation A/B and LM legs.
 
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
@@ -1221,6 +1239,11 @@ def adam_gang_vs_cpu(torch, kernels):
 # q_offset, kv_offset, causal).  The three LM paths' attention (batch x
 # heads, context, head width), a ragged pair whose first 20 q rows are dead
 # under the causal mask, and full attention over a ragged pair.
+#: rounds of ptest_shm's five legs (the twin's default is 20; cut to 10 to
+#: make room for the aggregation and LM block)
+PTEST_SHM_ROUNDS = "10"
+
+
 def run_procs_path(name, size, **kw):
     """One process gang through ``launch.launch_processes`` (every rank a
     fresh interpreter over the port's shm transport, or TCP): every child
@@ -1377,7 +1400,8 @@ def process_gang_paths(torch, paths, inproc, smi):
 
     t_ptest = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
-                          env=dict(os.environ, MPIT_BENCH_CODECS="none,int8"),
+                          env=dict(os.environ, MPIT_BENCH_CODECS="none,int8",
+                                   MPIT_BENCH_ROUNDS=PTEST_SHM_ROUNDS),
                           capture_output=True, text=True, timeout=600)
     sys.stdout.write(proc.stderr)
     if proc.returncode != 0:
@@ -1396,7 +1420,7 @@ def process_gang_paths(torch, paths, inproc, smi):
     # FLAG_TIMING wire with traces, merged and decomposed by `obs analyze`.
     proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
                           env=dict(os.environ, MPIT_BENCH_CODECS="none", MPIT_BENCH_OBS="1",
-                                   MPIT_BENCH_DECOMP="1"),
+                                   MPIT_BENCH_DECOMP="1", MPIT_BENCH_ROUNDS=PTEST_SHM_ROUNDS),
                           capture_output=True, text=True, timeout=600)
     sys.stdout.write(proc.stderr)
     if proc.returncode != 0:
@@ -4258,6 +4282,580 @@ def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None):
             **{k: readings[k] for k in ("w", "vt", "loss_rel_gap")}}
 
 
+# -- hierarchical aggregation and the LM through the gang (slices 5g and 7b) -------
+
+#: lockstep rounds of the aggregation gangs
+AGG_ROUNDS = 8
+#: the two colocated groups of the aggregation gang's four clients (ranks 2-5)
+AGG_GROUPS = ((2, 3), (4, 5))
+#: the REDUCE hop's chunk (9 chunks of the flagship vector)
+AGG_CHUNK_BYTES = 262144
+#: the straggler wall of the in-process gangs: faults must not pass for stragglers
+AGG_DEADLINE_S = 30.0
+#: the LM gangs' widths: ``lm_default``'s model (d 256, 8 heads of 32, 2 layers,
+#: context 1,024, batch 8), 1,971,200 floats
+LM_GANG = dict(d_model=256, n_heads=8, n_layers=2, seq_len=1024, batch=8)
+LM_GANG_PARAMS = 1_971_200
+#: lm_gang_adam_vs_cpu's per-element limit, as a share of the largest change
+#: (LM_LIMITS["float32"] holds the norm and the losses).  LM_LIMITS's 1e-6
+#: absolute assumes a step proportional to the gradient; Adam moves each
+#: element by about lr whatever |g|, and where |g| is near its epsilon (1e-8)
+#: the step's slope is lr / (4 epsilon), 25,000 at lr 1e-3, so a near-zero
+#: sum whose devices differ by summation order there moves it by percents of
+#: lr (5.17e-6 of a 3.0e-3 change measured on an H100, 0.17%; PERF.md).  A
+#: dropped or doubled step is a third of the change.
+LM_GANG_ADAM_MAX_ABS_SHARE = 2.0**-7
+
+
+#: unique group-plane namespaces of this process's aggregation gangs
+_AGG_SEQ = itertools.count(1)
+
+
+def agg_gang(nclients, codec, agg_cfg, faulty=False):
+    """2 Adam servers (ranks 0, 1, lr 1e-3) on the card and ``nclients``
+    ``AggClient``s (ranks 2..) over one in-process router, every group plane
+    on the card; with ``faulty`` each client's endpoint drops every 3rd and
+    duplicates every 4th REDUCE frame and ack it sends.  Returns (servers,
+    clients, threads)."""
+    import threading
+
+    from mpit_tpu_torch.agg import AggClient, AggConfig
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FaultPlan, FaultyTransport, FTConfig
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer, tags
+
+    router = LocalRouter(2 + nclients)
+    cranks = list(range(2, 2 + nclients))
+    servers = [ParamServer(r, cranks, router.endpoint(r), rule=rules.make("adam", lr=1e-3),
+                           device=GANG_BASE["device"], ft=FTConfig(rejoin=True))
+               for r in (0, 1)]
+    threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    namespace = f"agg{os.getpid()}_{next(_AGG_SEQ)}"
+    clients = []
+    for i, r in enumerate(cranks):
+        ep = router.endpoint(r)
+        if faulty:
+            ep = FaultyTransport(ep, FaultPlan(seed=i, drop_every=3, dup_every=4,
+                                               tags=frozenset({tags.REDUCE, tags.REDUCE_ACK})))
+        pc = ParamClient(r, [0, 1], ep, seed_servers=(i == 0), codec=codec,
+                         ft=FTConfig(**FT_FAST))
+        clients.append(AggClient(pc, cranks, AggConfig(**agg_cfg), namespace=namespace,
+                                 device=GANG_BASE["device"]))
+    return servers, clients, threads
+
+
+
+def agg_lockstep(torch, kernels, name, w0, gtab, codec, agg_cfg, faulty=False):
+    """AGG_ROUNDS lockstep rounds of the gang's gradients ``gtab`` (clients x
+    rounds x n) from per-client threads, each waiting client pumping its own
+    I/O; the counters set to 0 just before and read just after.  Returns the
+    servers' final params (host bytes) and the run's counts."""
+    import threading
+
+    import numpy as np
+
+    nclients = gtab.shape[0]
+    zero_counts(kernels)
+    servers, clients, threads = agg_gang(nclients, codec, agg_cfg, faulty)
+    mirrors = [(w0.copy() if i == 0 else np.zeros_like(w0), np.zeros_like(w0))
+               for i in range(nclients)]
+    lock = threading.Condition()
+    arrived = [0]
+    errors = {}
+    round_s = []
+
+    def barrier(c, k):
+        with lock:
+            arrived[0] += 1
+            lock.notify_all()
+        bound = time.monotonic() + 120
+        while True:
+            with lock:
+                if arrived[0] >= k * nclients or errors:
+                    return
+            c.ping()
+            time.sleep(0.0005)
+            if time.monotonic() > bound:
+                raise TimeoutError(f"{name}: lockstep barrier {k} timed out")
+
+    def drive(i, c):
+        try:
+            c.start(*mirrors[i])
+            barrier(c, 1)
+            for r in range(AGG_ROUNDS):
+                t0 = time.perf_counter()
+                mirrors[i][1][:] = gtab[i, r]
+                c.async_send_grad()
+                c.wait()
+                barrier(c, r + 2)
+                if i == 0:
+                    round_s.append(time.perf_counter() - t0)
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errors[i] = exc
+
+    runners = [threading.Thread(target=drive, args=(i, c), daemon=True)
+               for i, c in enumerate(clients)]
+    for t in runners:
+        t.start()
+    for t in runners:
+        t.join(300)
+    if errors or any(t.is_alive() for t in runners):
+        raise AssertionError(f"{name}: a client failed or hung: {errors}")
+    torch.cuda.synchronize()
+    stats = {
+        "applied": [s.grads_applied for s in servers],
+        "late": sum(int(c._m_late.value) for c in clients),
+        "fallbacks": sum(int(c._m_fallbacks.value) for c in clients),
+        "reduce_frames": sum(int(c._m_chunks.value) for c in clients),
+        "reduce_bytes": sum(int(c._m_chunks.value) * c._stride for c in clients),
+        "faults": sum(c.pc.transport.dropped + c.pc.transport.duplicated
+                      for c in clients if faulty),
+        "launches": read_counts(kernels),
+        "round_ms": float(np.median(round_s)) * 1e3,
+    }
+    final = np.concatenate([s.param.detach().cpu().numpy() for s in servers])
+    for c in clients:
+        c.stop()
+    for t in threads:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError(f"{name}: a server did not stop")
+    return final, stats
+
+
+def agg_oracle(plan, gtab, codec_name):
+    """Per round, the value the tree's root pushes: each group folded in
+    ascending rank order, each child subtree round-tripped through the codec
+    with its sender's error-feedback residual, folded in ascending child
+    order (the numpy oracle of tests/test_torch_agg.py)."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm import codec as codec_mod
+
+    codec = codec_mod.get(codec_name)
+    n = gtab.shape[2]
+    idx = {r: i for i, r in enumerate(plan.cranks)}
+    residual = {r: np.zeros(n, np.float32) for r in plan.cranks}
+
+    def fold(rank, r):
+        acc = gtab[idx[rank], r].copy()
+        for m in plan.members(rank):
+            acc += gtab[idx[m], r]
+        for c in plan.children(rank):
+            wire = np.zeros(codec.wire_nbytes(n), np.uint8)
+            codec.encode_into(fold(c, r), wire,
+                              residual=residual[c] if codec.uses_residual else None)
+            dec = np.zeros(n, np.float32)
+            codec.decode_into(wire, dec)
+            acc += dec
+        return acc
+
+    return np.stack([[fold(plan.root, r) for r in range(gtab.shape[1])]])
+
+
+def agg_lockstep_adam(torch, kernels, all_paths, smi, tmp):
+    """4 clients in two colocated groups reduce through a fanin-2 tree onto 2
+    Adam servers at the flagship's 544,522 floats, 8 lockstep rounds, at
+    codec none (traced: ``obs analyze``'s aggregation line printed), int8,
+    and int8 with REDUCE frames and acks dropped and duplicated: each run's
+    server params bit for bit a flat client pushing the oracle's
+    fixed-order fold; every group fold on the card bit for bit the host
+    fold of the same tickets; K3 = each server's applies = 8 (no late fold,
+    no fallback; flat pushes would make 32)."""
+    import numpy as np
+
+    from mpit_tpu_torch import obs
+    from mpit_tpu_torch.agg import ReductionPlan
+    from mpit_tpu_torch.agg import client as agg_client
+    from mpit_tpu_torch.comm import codec as codec_mod
+    from mpit_tpu_torch.obs import causal, trace
+
+    n = 544_522
+    rng = np.random.default_rng(15)
+    w0 = rng.standard_normal(n, dtype=np.float32) * 0.1
+    gtab = rng.standard_normal((4, AGG_ROUNDS, n), dtype=np.float32) * 1e-2
+    tree = dict(mode="tree", groups=AGG_GROUPS, fanin=2, tree_seed=0,
+                deadline_s=AGG_DEADLINE_S, chunk_bytes=AGG_CHUNK_BYTES)
+    plan = ReductionPlan.build(range(2, 6), groups=AGG_GROUPS, fanin=2, seed=0)
+    folds = []
+    real_fold = agg_client.card_fold
+
+    def checked_fold(out, base, tickets, device):
+        # The card's fold, held bit for bit against the host fold of the
+        # same tickets; its wall (the adds and the copy to the host) timed.
+        if not all(t.payload.is_cuda for t in tickets) or device.type != "cuda":
+            raise AssertionError("agg: a group fold left the card")
+        t0 = time.perf_counter()
+        real_fold(out, base, tickets, device)
+        folds.append(time.perf_counter() - t0)
+        host = base.copy()
+        for t in tickets:
+            host += t.payload.cpu().numpy()
+        if out.tobytes() != host.tobytes():
+            raise AssertionError("agg: the card's group fold differs from the host fold")
+
+    runs = {}
+    agg_client.card_fold = checked_fold
+    try:
+        for codec in ("none", "int8"):
+            name = f"agg_flat_adam_{codec}"
+            final, st = agg_lockstep(torch, kernels, name, w0, agg_oracle(plan, gtab, codec),
+                                     codec, dict(mode="off"))
+            runs[name] = (final, st)
+        for codec, faulty, traced in (("none", False, True), ("int8", False, False),
+                                      ("int8", True, False)):
+            name = f"agg_tree_adam_{codec}" + ("_faulty" if faulty else "")
+            if traced:
+                obs.configure(enabled=True, reset=True)
+            del folds[:]
+            try:
+                final, st = agg_lockstep(torch, kernels, name, w0, gtab, codec, tree, faulty)
+                if traced:
+                    report = causal.analyze(trace.write_rank_trace(
+                        os.path.join(tmp, "agg_tree.json"), 0, role="gang"))
+                    st["analyze"] = [line for line in causal.render_report(report).splitlines()
+                                     if line.startswith("aggregation:")]
+                    st["aggregation"] = report.get("aggregation")
+            finally:
+                if traced:
+                    obs.configure(enabled=None, reset=True)
+            st["folds"] = len(folds)
+            st["fold_ms_p50"] = float(np.median(folds)) * 1e3 if folds else None
+            runs[name] = (final, st)
+    finally:
+        agg_client.card_fold = real_fold
+    wire = sum(codec_mod.get("none").wire_nbytes(s) for s in (n // 2, n - n // 2))
+    for name, (final, st) in runs.items():
+        tree_run = name.startswith("agg_tree")
+        codec = "int8" if "int8" in name else "none"
+        control = runs[f"agg_flat_adam_{codec}"][0]
+        server_bytes = sum(codec_mod.get(codec).wire_nbytes(s) for s in (n // 2, n - n // 2))
+        reading = {k: v for k, v in st.items() if k != "launches"}
+        reading.update(launches=st["launches"],
+                       reduce_bytes_per_round=st["reduce_bytes"] / AGG_ROUNDS,
+                       grad_bytes_per_round_to_servers=server_bytes,
+                       flat_grad_bytes_per_round=4 * server_bytes,
+                       f32_vector_bytes=wire)
+        print(f"{name} on {smi}: " + json.dumps(reading))
+        want = AGG_ROUNDS + st["fallbacks"]
+        if tree_run and (final.tobytes() != control.tobytes()):
+            raise AssertionError(f"{name}: the servers' params differ from flat pushes of "
+                                 f"the fixed-order fold (max gap "
+                                 f"{np.abs(final - control).max()})")
+        if st["applied"] != [want, want] or st["launches"]["k3"] != 2 * want:
+            raise AssertionError(f"{name}: applies {st['applied']}, K3 "
+                                 f"{st['launches']['k3']}; want {want} on each server")
+        if tree_run and (st["late"] or st["fallbacks"]
+                         or st["folds"] != 2 * AGG_ROUNDS):
+            raise AssertionError(f"{name}: {st['late']} late folds, {st['fallbacks']} "
+                                 f"fallbacks, {st['folds']} card folds (want "
+                                 f"{2 * AGG_ROUNDS})")
+        if name.endswith("_faulty") and not st["faults"]:
+            raise AssertionError(f"{name}: the fault plan injected nothing")
+        if name == "agg_tree_adam_none" and not (
+                st["analyze"] and st["aggregation"]["rounds"] == 2 * AGG_ROUNDS):
+            raise AssertionError(f"{name}: obs analyze read {st.get('aggregation')}")
+        expect_launches(name, st["launches"], {"k3": 2 * want})
+        record_path(all_paths, name, st["launches"], AGG_ROUNDS)
+    st = runs["agg_tree_adam_none"][1]
+    print(f"agg_lockstep_adam on {smi}: REDUCE bytes a round {st['reduce_bytes'] / AGG_ROUNDS:.0f}"
+          f" (none), {runs['agg_tree_adam_int8'][1]['reduce_bytes'] / AGG_ROUNDS:.0f} (int8); "
+          f"GRAD bytes a round to the servers {wire} against {4 * wire} flat (none); group "
+          f"fold p50 {st['fold_ms_p50']:.3f} ms; round p50 {st['round_ms']:.2f} ms tree, "
+          f"{runs['agg_flat_adam_none'][1]['round_ms']:.2f} ms one flat client")
+    print(f"agg_lockstep_adam obs analyze: {st['analyze'][0]}")
+
+
+def lm_gang_expected(nworkers, steps, evals, eval_batches=2):
+    """The flash kernels' launches of ``nworkers`` LM workers at LM_GANG:
+    K4 once a layer a training step and a layer an eval batch, K5 once (or
+    K6 twice) a layer a training step, as the gate decides."""
+    import torch
+
+    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
+
+    head = LM_GANG["d_model"] // LM_GANG["n_heads"]
+    shape = (LM_GANG["batch"], LM_GANG["n_heads"], LM_GANG["seq_len"], head)
+    fused = _use_fused_bwd(shape, shape, head, "cuda", torch.float32)
+    layers = LM_GANG["n_layers"]
+    want = {"k4": layers * (steps + eval_batches * evals)}
+    want["k5" if fused else "k6"] = (1 if fused else 2) * layers * steps
+    return {k: nworkers * v for k, v in want.items()}
+
+
+def lm_gang(torch, kernels, name, *, nworkers, weights, opt, lr, codec, chunk_bytes,
+            steps, eval_every, eval_batches=2, device="cuda", seed=1):
+    """One in-process LM gang at LM_GANG: len(weights) servers holding the
+    plan's weighted cut under the rule of ``opt`` and ``nworkers`` LmTrainer
+    threads through the aggregation tree, chunked at ``chunk_bytes``; the
+    counters set to 0 just before and read just after.  Returns the workers'
+    results, the plan, the wall, the servers' final params and applies, and
+    the launches."""
+    import threading
+
+    import numpy as np
+
+    from mpit_tpu_torch.agg import AggClient, AggConfig
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.lm import LmTrainer, plan
+    from mpit_tpu_torch.optim import rules
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, lm_spec_tree
+    from mpit_tpu_torch.utils.config import Config
+
+    nservers = len(weights)
+    rule = opt if opt in rules.names() else "add"
+    lm_plan = plan(lm_spec_tree(LAUNCH_DEFAULTS.merged(
+        lm_d_model=LM_GANG["d_model"], lm_heads=LM_GANG["n_heads"],
+        lm_layers=LM_GANG["n_layers"], lm_seq=LM_GANG["seq_len"])),
+        nservers, rule=rule, server_weights=weights)
+    zero_counts(kernels)
+    router = LocalRouter(nservers + nworkers)
+    cranks = list(range(nservers, nservers + nworkers))
+    servers = [ParamServer(r, cranks, router.endpoint(r),
+                           rule=rules.make(rule, lr=lr) if rule != "add" else "add",
+                           device=device, ft=FTConfig(rejoin=True))
+               for r in range(nservers)]
+    sths = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in sths:
+        t.start()
+    ft = FTConfig(op_deadline_s=120.0, max_retries=4, backoff_base_s=0.01,
+                  backoff_cap_s=0.1, chunk_bytes=chunk_bytes)
+    acfg = AggConfig(mode="tree", fanin=2, tree_seed=0, deadline_s=600.0)
+    namespace = f"lmgang{os.getpid()}_{next(_AGG_SEQ)}"
+    tcfg = Config(d_model=LM_GANG["d_model"], n_heads=LM_GANG["n_heads"],
+                  n_layers=LM_GANG["n_layers"], seq_len=LM_GANG["seq_len"],
+                  batch=LM_GANG["batch"], opt=opt, lr=lr, steps=steps,
+                  eval_every=eval_every, eval_batches=eval_batches, seed=seed,
+                  device=device)
+    trainers = []
+    for i, r in enumerate(cranks):
+        pc = ParamClient(r, list(range(nservers)), router.endpoint(r),
+                         seed_servers=(i == 0), ft=ft, codec=codec, layout=lm_plan.layout)
+        trainers.append(LmTrainer(tcfg, pclient=AggClient(pc, cranks, acfg,
+                                                           namespace=namespace,
+                                                           device=device), rank=r))
+    results, errors = [None] * nworkers, {}
+
+    def drive(i):
+        try:
+            results[i] = trainers[i].run()
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errors[i] = exc
+
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=drive, args=(i,), daemon=True) for i in range(nworkers)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in ths):
+        raise AssertionError(f"{name}: a worker failed or hung: {errors}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    for tr in trainers:
+        if tr.w.device.type != device:
+            raise AssertionError(f"{name}: a worker's w is on {tr.w.device}")
+    for s in servers:
+        s.live.stop()
+    for t in sths:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError(f"{name}: a server did not stop")
+    final = np.concatenate([s.param.detach().cpu().numpy() for s in servers])
+    if final.size != LM_GANG_PARAMS:
+        raise AssertionError(f"{name}: the servers hold {final.size} floats")
+    return {"results": results, "plan": lm_plan, "wall": wall, "final": final,
+            "applied": [s.grads_applied for s in servers], "launches": launches}
+
+
+def lm_gang_flagship(torch, kernels, all_paths, smi):
+    """``bench_lm``'s headline at the LM's full width: 2 servers on the 3:2
+    weighted cut under rmsprop, 2 workers, int8, 64 KiB chunks, the aggregation tree, 20
+    steps, eval every 10: every worker's windowed loss falls, no server
+    holds 75% of the footprint, K4 and K5 exact.  The servers' rmsprop at
+    lr 1e-3: at this width 2e-3, 3e-3, 5e-3 and the rule's own 1e-2 raise
+    the loss within 20 steps (``PERF.md``)."""
+    name, steps = "lm_gang_flagship", 20
+    run = lm_gang(torch, kernels, name, nworkers=2, weights=[3.0, 2.0], opt="rmsprop",
+                  lr=1e-3, codec="int8", chunk_bytes=65536, steps=steps, eval_every=10)
+    summary = run["plan"].summary()
+    losses = [[h["avg_loss"] for h in r["history"]] for r in run["results"]]
+    tokens = sum(r["tokens_total"] for r in run["results"])
+    reading = {"wall_s": run["wall"], "tokens_per_s_gang": tokens / run["wall"],
+               "tokens_per_s_workers": [r["tokens_per_s"] for r in run["results"]],
+               "losses": losses,
+               "eval_losses": [[h["eval_loss"] for h in r["history"]] for r in run["results"]],
+               "plan": summary, "grads_applied": run["applied"],
+               "launches": run["launches"]}
+    print(f"{name} on {smi}: " + json.dumps(reading))
+    if not all(math.isfinite(x) for ls in losses for x in ls) or \
+            not all(ls[-1] < ls[0] for ls in losses):
+        raise AssertionError(f"{name}: a worker's windowed loss did not fall: {losses}")
+    if not max(summary["footprint_mb"]) < 0.75 * summary["total_footprint_mb"]:
+        raise AssertionError(f"{name}: one server holds most of the state: {summary}")
+    if run["applied"] != [steps, steps]:
+        raise AssertionError(f"{name}: applies {run['applied']}, want {steps} a server "
+                             "(one tree fold a step)")
+    expect_launches(name, run["launches"], lm_gang_expected(2, steps, evals=2))
+    record_path(all_paths, name, run["launches"], 2 * steps)
+
+
+def lm_gang_adam_vs_cpu(torch, kernels, all_paths, smi):
+    """One LM worker through the tree onto 2 Adam servers on the 3:2 cut,
+    unchunked, codec none, 3 steps at LM_GANG (one eval batch a step), on
+    the card twice and on the CPU once from the same seed (the per-element
+    limit LM_GANG_ADAM_MAX_ABS_SHARE, the others LM_LIMITS["float32"]'s):
+    the card runs bit for bit equal (the determinism leg of ``bench_lm``; under PyTorch's
+    deterministic algorithms, as ``lm_resume``: under its defaults the LM's
+    step does not repeat its bits on the card), the card's final server
+    params and per-step losses within LM_LIMITS["float32"] of the CPU's,
+    K3 = each server's applies, K4 and K5 exact."""
+    import numpy as np
+
+    from mpit_tpu_torch.lm import build
+
+    name, steps = "lm_gang_adam_vs_cpu", 3
+    kw = dict(nworkers=1, weights=[3.0, 2.0], opt="adam", lr=1e-3, codec="none",
+              chunk_bytes=0, steps=steps, eval_every=1, eval_batches=1)
+    with deterministic_algorithms(torch):
+        runs = [lm_gang(torch, kernels, name, **kw) for _ in range(2)]
+    for r in runs:
+        if r["applied"] != [steps, steps]:
+            raise AssertionError(f"{name}: applies {r['applied']}, want {steps} a server")
+        expect_launches(name, r["launches"], {
+            "k3": 2 * steps, **lm_gang_expected(1, steps, evals=steps, eval_batches=1)})
+    if runs[0]["final"].tobytes() != runs[1]["final"].tobytes():
+        raise AssertionError(f"{name}: two card runs end at different bits")
+    cpu = lm_gang(torch, kernels, name + "_cpu", device="cpu", **kw)
+    w0 = build(device="cpu", use_flash=False, seed=1,
+               **{k: LM_GANG[k] for k in ("d_model", "n_heads", "n_layers", "seq_len")}
+               ).flat.w0.numpy()
+    gap = runs[0]["final"] - cpu["final"]
+    change = cpu["final"] - w0
+    losses = {dev: [h["avg_loss"] for h in run["results"][0]["history"]]
+              for dev, run in (("cuda", runs[0]), ("cpu", cpu))}
+    reading = {"max_abs_gap": float(np.abs(gap).max()),
+               "max_abs_change": float(np.abs(change).max()),
+               "gap_over_change": float(np.linalg.norm(gap) / np.linalg.norm(change)),
+               "loss_rel_gap": max(abs(a - b) / abs(b)
+                                   for a, b in zip(losses["cuda"], losses["cpu"])),
+               "losses": losses, "wall_s": {"cuda": [r["wall"] for r in runs],
+                                            "cpu": cpu["wall"]},
+               "launches": runs[0]["launches"]}
+    print(f"{name} on {smi}: 3 steps, cuda vs cpu " + json.dumps(reading))
+    lim = LM_LIMITS["float32"]
+    if not (reading["max_abs_gap"] <= LM_GANG_ADAM_MAX_ABS_SHARE * reading["max_abs_change"]
+            and reading["gap_over_change"] <= lim["gap_over_change"]
+            and reading["loss_rel_gap"] <= lim["loss_rtol"]):
+        raise AssertionError(f"{name}: the card's run differs from the CPU's beyond "
+                             f"LM_LIMITS['float32']: {reading}")
+    record_path(all_paths, name, runs[0]["launches"], steps)
+
+
+def lm_agg_procs(all_paths, smi):
+    """The "everything at once" recipe as processes, every rank on the card:
+    ``launch --np 6 --lm 1 --lm_weights 3,1,2 --opt downpour --lr 0.3
+    --ft_op_deadline_s 5 --ft_chunk_bytes 65536 --codec int8 --agg tree
+    --agg_fanin 2`` at LM_GANG for 10 steps (a 60 s straggler wall: six
+    processes start at once).  Each child returns its own launches: K4 and
+    K5 exact in every worker, none in the servers; the three workers fold
+    into one GRAD a step, so each server applies 10.  Returns the seconds
+    taken."""
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
+
+    name, steps = "lm_agg_procs", 10
+    cfg = LAUNCH_DEFAULTS.merged(
+        np=6, lm=1, lm_weights="3,1,2", opt="downpour", lr=0.3, ft_op_deadline_s=5.0,
+        ft_chunk_bytes=65536, codec="int8", agg="tree", agg_fanin=2, agg_deadline_s=60.0,
+        lm_d_model=LM_GANG["d_model"], lm_heads=LM_GANG["n_heads"],
+        lm_layers=LM_GANG["n_layers"], lm_seq=LM_GANG["seq_len"], batch=LM_GANG["batch"],
+        lm_steps=steps, device="cuda")
+    t0 = time.perf_counter()
+    results = launch_processes(cfg, timeout=600)
+    wall = time.perf_counter() - t0
+    off = {r: res["platform"] for r, res in results.items() if res["platform"] != "cuda"}
+    if off:
+        raise AssertionError(f"{name}: ranks off the card: {off}")
+    workers = {r: res for r, res in results.items() if res["role"] == "worker"}
+    servers = {r: res for r, res in results.items() if res["role"] == "server"}
+    # lm_eval_every 50 > 10 steps: one eval (2 batches) after the last step
+    want = lm_gang_expected(1, steps, evals=1)
+    for r, res in results.items():
+        expect_launches(f"{name} rank {r}", res["launches"],
+                        want if res["role"] == "worker" else {})
+    applied = [res["grads_applied"] for res in servers.values()]
+    losses = {r: [h["avg_loss"] for h in res["history"]] for r, res in workers.items()}
+    if applied != [steps] * 3 or not all(math.isfinite(x) for ls in losses.values()
+                                         for x in ls):
+        raise AssertionError(f"{name}: applies {applied}, losses {losses}")
+    launches = {k: sum(res["launches"][k] for res in results.values())
+                for k in ("k1", "k2", "k3", "k4", "k5", "k6")}
+    reading = {"wall_s": wall, "grads_applied": applied, "losses": losses,
+               "tokens_per_s": {r: res["tokens_per_s"] for r, res in workers.items()},
+               "train_seconds": {r: res["train_seconds"] for r, res in workers.items()},
+               "launches_by_rank": {r: res["launches"] for r, res in sorted(results.items())}}
+    print(f"{name} on {smi}: " + json.dumps(reading))
+    record_path(all_paths, name, launches, 3 * steps)
+    return time.perf_counter() - t0
+
+
+def ptest_agg_lm(smi):
+    """``tools/torch_ptest.py``'s aggregation A/B (4 clients, 64 MB, 300 MB/s
+    links, 5 rounds, codecs none and int8: flat, prereduce, tree) and its LM
+    legs, at their defaults, on the card; the rows printed."""
+    out = {}
+    for leg, timeout in (("AGG", 300), ("LM", 300)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "tools/torch_ptest.py"], capture_output=True,
+                              text=True, timeout=timeout,
+                              env=dict(os.environ, **{f"MPIT_BENCH_{leg}": "only"}))
+        if proc.returncode != 0:
+            raise AssertionError(f"ptest {leg}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        for row in rows:
+            row.pop("trajectory", None)
+            print(f"ptest_{leg.lower()} on {smi}: " + json.dumps(row))
+        out[leg] = (rows, time.perf_counter() - t0)
+    agg = out["AGG"][0]
+    if [(r["codec"], r["mode"]) for r in agg] != [
+            (c, m) for c in ("none", "int8") for m in ("flat", "prereduce", "tree")]:
+        raise AssertionError(f"ptest agg: unexpected rows {agg}")
+    if [r["metric"] for r in out["LM"][0]] != ["lm_tokens_per_s", "lm_bitwise_determinism"]:
+        raise AssertionError(f"ptest lm: unexpected rows {out['LM'][0]}")
+    return {leg: s for leg, (_rows, s) in out.items()}
+
+
+def agg_lm_phases(torch, kernels, all_paths, smi):
+    """Slices 5g and 7b on the card: the LM process gang and, beside it,
+    ptest's agg and LM legs run in the background while this process drives
+    the aggregation tree's lockstep matrix and the in-process LM gangs."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        procs = pool.submit(lm_agg_procs, all_paths, smi)
+        ptest = pool.submit(ptest_agg_lm, smi)
+        t1 = time.perf_counter()
+        agg_lockstep_adam(torch, kernels, all_paths, smi, tmp)
+        t_agg = time.perf_counter() - t1
+        lm_gang_flagship(torch, kernels, all_paths, smi)
+        lm_gang_adam_vs_cpu(torch, kernels, all_paths, smi)
+        inproc_s = time.perf_counter() - t1
+        procs_s, ptest_s = procs.result(), ptest.result()
+    print(f"agg and LM gang phases: {time.perf_counter() - t0:.1f}s (in-process "
+          f"{inproc_s:.1f}s, of it agg_lockstep_adam {t_agg:.1f}s; beside it "
+          f"lm_agg_procs {procs_s:.1f}s, and ptest agg {ptest_s['AGG']:.1f}s then lm "
+          f"{ptest_s['LM']:.1f}s)")
+
+
 # -- slice 4: sync-DP, checkpoint/resume and BiCNN ----------------------------
 
 # Limits of bicnn_vs_cpu (five sgd steps of the docqa model at full width,
@@ -4775,6 +5373,7 @@ def main() -> int:
     rec = lm_resume(torch, kernels)
     record_path(all_paths, "lm_resume", rec["launches"], rec["steps"])
     slice4_s += time.perf_counter() - t_resume
+    agg_lm_phases(torch, kernels, all_paths, smi)
     k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
     print(f"sync-DP, resume and BiCNN phases: {slice4_s:.1f}s")

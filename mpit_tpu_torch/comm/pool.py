@@ -4,8 +4,10 @@ A copy of ``mpit_tpu/comm/pool.py``: the port imports nothing of the JAX
 package, and the pool runs over the port's own native library (its
 ``transport.cpp`` carries the same ``mt_pool_*`` entry points).
 
-Without a pool every per-chunk encode, decode and XOR delta runs serially on the one Python thread, so chunk k's CPU work can never
-overlap chunk k+1's wire time.  This module is the narrow seam between the protocol code and the native worker pool in
+Without a pool every per-chunk encode, decode, XOR delta and tree fold
+runs serially on the one Python thread, so chunk k's CPU work can never
+overlap chunk k+1's wire time.  This module is the narrow seam between the
+protocol code and the native worker pool in
 ``comm/native/transport.cpp`` (mt_pool_*): call sites submit pure kernel
 jobs and collect them in submission order; the pool runs them GIL-free
 on persistent native threads.
@@ -239,6 +241,22 @@ class WorkerPool:
         h = self._submit(KIND_XOR, a, b, out, None, int(a.nbytes), 0)
         return Job(self, (h,), (a, b, out))
 
+    def submit_fold_f32(self, own: np.ndarray,
+                        children: Sequence[np.ndarray],
+                        out: np.ndarray) -> Job:
+        """Fused ``out = own + sum(children)`` in declared child order
+        (the agg fold; association order is the bitwise anchor)."""
+        self._check_open()
+        if self._pool is None:
+            self.fold_f32_sync(own, children, out)
+            return _done_job()
+        ptrs = _child_ptrs(children)
+        h = self._submit(KIND_FOLD_F32, own, ptrs, out, None,
+                         int(own.size), len(children))
+        # ptrs itself is copied inside mt_pool_submit; the child buffers
+        # are not — the Job pins them.
+        return Job(self, (h,), (own, tuple(children), out))
+
     def submit_gather(self, codec, full: np.ndarray, size: int, lo: int,
                       hi: int, chunk: np.ndarray, itemsize: int = 4) -> Job:
         """Cut the ``[lo, hi)`` chunk frame out of a full-shard frame
@@ -290,6 +308,21 @@ class WorkerPool:
             lib.mt_xor_bytes(a, b, out, int(a.nbytes))
         else:
             np.bitwise_xor(a, b, out=out)
+
+    def fold_f32_sync(self, own: np.ndarray,
+                      children: Sequence[np.ndarray],
+                      out: np.ndarray) -> None:
+        """Single-pass fused fold when native is available; the numpy
+        fallback keeps the identical association order (copyto then one
+        ``+=`` per child, sorted caller-side), so both are bit-equal."""
+        lib = self._lib if self._lib is not None else _load_native()
+        if lib is not None and children:
+            lib.mt_fold_f32(own, _child_ptrs(children), len(children),
+                            out, int(own.size))
+            return
+        np.copyto(out, own)
+        for child in children:
+            out += child
 
     # -- lifecycle / introspection -------------------------------------------
 
@@ -386,6 +419,13 @@ class WorkerPool:
         reg.gauge("mpit_pool_threads").set(self.threads)
         reg.gauge("mpit_pool_queue_depth").set(self.depth())
         self._sample_busy()
+
+
+def _child_ptrs(children: Sequence[np.ndarray]) -> np.ndarray:
+    """Owned u64 address array for a fold's child buffers, in caller
+    (i.e. fold) order.  The native submit copies it again into the job,
+    so its lifetime only needs to span the submit call."""
+    return np.array([c.ctypes.data for c in children], dtype=np.uint64)
 
 
 _native_lib: Optional[object] = None  # None: untried; False: unavailable

@@ -1,0 +1,75 @@
+"""Synthetic byte-document stream — the deterministic LM data source.
+
+A copy of ``mpit_tpu/data/tokens.py`` (numpy only): the same ``(seed,
+step)`` gives the same documents in either package.
+
+The flagship LM workload (:mod:`mpit_tpu_torch.lm`) needs a token stream with
+three properties the MNIST loader cannot give it:
+
+- **bit-reproducible by construction**: the whole stream is a pure
+  function of ``(seed, step)`` — no file order, no shuffle state, no
+  generator object threaded through the training loop.  Each step's
+  documents come from a fresh counter-keyed Philox generator
+  (``np.random.Philox(key=[seed, step])``), so any process that knows
+  the seed can materialize step ``k`` without replaying steps
+  ``0..k-1``.  This is what makes supervisor restarts and the
+  fault-free bitwise-envelope gates (``MPIT_BENCH_LM``) possible: a restarted worker resumes mid-stream
+  and sees the *identical* batch the dead incarnation would have.
+- **learnable structure**: documents are modular arithmetic walks —
+  ``tok[i] = (start + i * stride) % 256`` with the stride drawn from a
+  small set — so the unigram distribution is flat (loss starts at
+  ``ln 256``) but the bigram ``(prev, cur) -> next`` is deterministic.
+  A two-layer decoder drops well below the unigram floor within tens of
+  steps, which is the signal the smoke gates assert on.
+- **variable document lengths** so sequence packing
+  (:mod:`mpit_tpu_torch.lm.data`) is load-bearing, not a no-op.
+
+Zero-dep beyond numpy.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+#: Byte vocabulary (documents are bytes; 0 doubles as the packer's EOS).
+VOCAB = 256
+
+#: Strides of the arithmetic walks.  All odd (coprime with 256), so a
+#: document visits many symbols and the unigram stays near-flat.
+STRIDES = (1, 3, 5, 7, 11)
+
+#: Document lengths are ``MIN_DOC + u`` with ``u`` geometric-ish via the
+#: generator below; bounded so one document never outgrows a sequence.
+MIN_DOC = 8
+
+
+def _rng(seed: int, step: int) -> np.random.Generator:
+    """Counter-keyed generator: pure function of (seed, step)."""
+    return np.random.Generator(np.random.Philox(key=[seed & 0xFFFFFFFF,
+                                                     step & 0xFFFFFFFF]))
+
+
+def doc_batch(seed: int, step: int, *, budget: int,
+              max_doc: int = 96) -> List[np.ndarray]:
+    """The documents backing step ``step`` of stream ``seed``: int32
+    arrays of total length >= ``budget`` elements, each a modular walk
+    of length in ``[MIN_DOC, max_doc]``.  Deterministic: two calls with
+    equal arguments return bitwise-identical arrays, in any process.
+    """
+    if budget < 1:
+        raise ValueError("budget must be >= 1")
+    if max_doc < MIN_DOC:
+        raise ValueError(f"max_doc must be >= {MIN_DOC}")
+    rng = _rng(seed, step)
+    docs: List[np.ndarray] = []
+    total = 0
+    while total < budget:
+        length = int(rng.integers(MIN_DOC, max_doc + 1))
+        start = int(rng.integers(0, VOCAB))
+        stride = int(STRIDES[int(rng.integers(0, len(STRIDES)))])
+        doc = (start + stride * np.arange(length, dtype=np.int64)) % VOCAB
+        docs.append(doc.astype(np.int32))
+        total += length
+    return docs

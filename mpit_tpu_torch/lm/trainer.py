@@ -1,0 +1,222 @@
+"""The flagship LM training loop — async PS clients, tokens/sec meter.
+
+The port of ``mpit_tpu/lm/trainer.py``.  Shape mirrors
+:class:`mpit_tpu_torch.train.trainer.MnistTrainer` (model + flat params on
+the device, optimizer dispatch, phase timers) with the MNIST epoch grid
+replaced by a step loop over the packed token stream, and the north-star
+metric replaced by **tokens/second**:
+
+- every step consumes one ``(batch, seq_len + 1)`` packed grid —
+  ``batch * seq_len`` real prediction targets, no padding — so
+  ``tokens/sec = batch * seq_len * steps / train_seconds``;
+- ``train_seconds`` is the feval phase (local step + blocking PS sync),
+  excluding start-up (INIT + seeding), evaluation and teardown;
+- the ``mpit_lm_tokens_total`` counter (plus ``mpit_lm_loss``,
+  ``mpit_lm_eval_loss`` and ``mpit_lm_tokens_per_s`` gauges) exposes the
+  same quantities to the obs registry for traces and /status.
+
+Evaluation never touches the servers: it runs the loss under
+``torch.no_grad()`` (the forward kernel only) on a disjoint stream seed
+with the worker's current params.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from mpit_tpu_torch.lm.data import PackedStream
+from mpit_tpu_torch.lm.model import build
+from mpit_tpu_torch.obs.metrics import get_registry
+from mpit_tpu_torch.obs.timers import PhaseTimers, profiler_trace
+from mpit_tpu_torch.optim import EAMSGD, MSGD, Downpour, MSGDConfig, RuleShell
+from mpit_tpu_torch.utils.config import Config
+from mpit_tpu_torch.utils.logging import get_logger
+
+LM_DEFAULTS = Config(
+    # model (vocab is pinned to the byte stream's 256)
+    d_model=64,
+    n_heads=4,
+    n_layers=2,
+    seq_len=128,
+    use_flash=-1,  # -1 auto (flash on the card, the plain reference on the CPU); 0/1 pin
+    # optimizer (the MnistTrainer knob names, so launch configs carry over)
+    opt="downpour",  # sgd|msgd|downpour|eamsgd|easgd|rmsprop|adam|adamax|
+    #                  adagrad|adadelta (rule names are server-stateful)
+    lr=0.5,
+    lrd=0.0,
+    lrp=0.0,
+    mom=0.0,
+    mommax=1.0,
+    momdecay=0.0,
+    l2wd=0.0,
+    mva=0.5,  # eamsgd moving rate
+    su=1,     # communication period
+    # loop
+    steps=200,
+    batch=8,
+    seed=1,
+    eval_every=50,    # 0 disables mid-run eval
+    eval_batches=2,
+    eval_seed_skew=100_003,  # eval stream seed = seed + skew (disjoint)
+    dtype="float32",
+    profile_dir="",
+    device="cuda",  # cuda | cpu: where the weights and the step run
+)
+
+
+class LmTrainer:
+    KNOWN_OPTS = (
+        "sgd", "msgd", "downpour", "eamsgd", "easgd",
+        "rmsprop", "adam", "adamax", "adagrad", "adadelta",
+    )
+
+    def __init__(self, cfg: Optional[Config] = None, pclient: Any = None,
+                 rank: int = 0):
+        self.cfg = LM_DEFAULTS.merged(cfg.to_dict() if cfg else None)
+        cfg = self.cfg
+        self.pc = pclient
+        self.rank = rank
+        self.log = get_logger("lm", rank)
+        self.tm = PhaseTimers()
+
+        use_flash = None if cfg.use_flash < 0 else bool(cfg.use_flash)
+        self.model = build(
+            d_model=cfg.d_model, n_heads=cfg.n_heads, n_layers=cfg.n_layers,
+            seq_len=cfg.seq_len, seed=cfg.seed, use_flash=use_flash,
+            device=cfg.device,
+        )
+        self.device = self.model.flat.w0.device
+        self.w = self.model.flat.w0.to(getattr(torch, cfg.dtype))
+        self._vgf = self.model.value_and_grad
+        self._loss = self.model.loss
+
+        # Streams: the training stream is per-rank (workers must not
+        # mirror each other's batches); eval is a disjoint fixed stream.
+        self.stream = PackedStream(cfg.seed + rank, cfg.batch, cfg.seq_len)
+        self.eval_stream = PackedStream(cfg.seed + cfg.eval_seed_skew,
+                                        cfg.batch, cfg.seq_len)
+
+        _reg = get_registry()
+        self._obs = _reg.enabled
+        self._m_tokens = _reg.counter("mpit_lm_tokens_total", rank=rank)
+        self._m_steps = _reg.counter("mpit_lm_steps_total", rank=rank)
+        self._m_loss = _reg.gauge("mpit_lm_loss", rank=rank)
+        self._m_eval = _reg.gauge("mpit_lm_eval_loss", rank=rank)
+        self._m_tps = _reg.gauge("mpit_lm_tokens_per_s", rank=rank)
+        self._optimizer = None  # lazy: eval-only roles never need one
+
+    @property
+    def optimizer(self):
+        if self._optimizer is None:
+            self._optimizer = self._make_optimizer()
+        return self._optimizer
+
+    def _make_optimizer(self):
+        cfg = self.cfg
+        name = cfg.opt
+        if name not in self.KNOWN_OPTS:
+            raise ValueError(f"unknown optimizer {name!r}; have {self.KNOWN_OPTS}")
+        if name in ("sgd", "msgd"):
+            mcfg = MSGDConfig(lr=cfg.lr, lrd=cfg.lrd, lrp=cfg.lrp,
+                              mom=cfg.mom, mommax=cfg.mommax,
+                              momdecay=cfg.momdecay, l2wd=cfg.l2wd)
+            return MSGD(mcfg, self._vgf)
+        if self.pc is None:
+            raise ValueError(
+                f"optimizer {name!r} needs a parameter client "
+                "(single-process LM runs use sgd/msgd)")
+        if name == "downpour":
+            return Downpour(self._vgf, self.pc, lr=cfg.lr, lrd=cfg.lrd,
+                            l2wd=cfg.l2wd, su=cfg.su)
+        if name in ("eamsgd", "easgd"):
+            mom = 0.0 if name == "easgd" else cfg.mom
+            return EAMSGD(self._vgf, self.pc, lr=cfg.lr, lrd=cfg.lrd,
+                          lrp=cfg.lrp, mom=mom, l2wd=cfg.l2wd,
+                          mva=cfg.mva, su=cfg.su)
+        # Server-stateful rules: the launcher configures the matching
+        # server rule; the client ships raw gradients.
+        return RuleShell(self._vgf, self.pc, su=cfg.su, mode="global")
+
+    def _tokens(self, grid: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(grid).to(self.device)
+
+    # -- evaluation -----------------------------------------------------------
+
+    @torch.no_grad()
+    def eval_loss(self, w: Optional[torch.Tensor] = None) -> float:
+        """Mean NLL over ``eval_batches`` fixed batches of the disjoint
+        eval stream — a pure read of ``w`` (or the live params)."""
+        w = self.w if w is None else w
+        losses = [float(self._loss(w, self._tokens(self.eval_stream.batch_at(i))))
+                  for i in range(max(self.cfg.eval_batches, 1))]
+        return float(np.mean(losses))
+
+    # -- the step loop --------------------------------------------------------
+
+    def run(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        tokens_per_step = cfg.batch * cfg.seq_len  # real targets per grid
+        opt = self.optimizer
+        if hasattr(opt, "start"):
+            with self.tm.phase("start"):
+                self.w = opt.start(self.w)
+        history = []
+        tokens_total = 0
+        train_s = 0.0  # feval incl. blocking sync — the tokens/sec base
+        window_losses = []
+        with profiler_trace(cfg.get("profile_dir", "")):
+            for step in range(cfg.steps):
+                tokens = self._tokens(self.stream.batch_at(step))
+                t0 = time.monotonic()
+                with self.tm.phase("feval"):
+                    self.w, loss = opt.step(self.w, tokens)
+                train_s += time.monotonic() - t0
+                tokens_total += tokens_per_step
+                window_losses.append(loss)
+                self._m_tokens.inc(tokens_per_step)
+                self._m_steps.inc()
+                last = (step == cfg.steps - 1)
+                if cfg.eval_every and (step % cfg.eval_every
+                                       == cfg.eval_every - 1 or last):
+                    avg_loss = float(torch.stack(window_losses).mean())
+                    window_losses = []
+                    with self.tm.phase("eval"):
+                        ev = self.eval_loss()
+                    tps = tokens_total / max(train_s, 1e-9)
+                    if self._obs:
+                        self._m_loss.set(avg_loss)
+                        self._m_eval.set(ev)
+                        self._m_tps.set(tps)
+                    history.append({"step": step, "avg_loss": avg_loss,
+                                    "eval_loss": ev, "tokens_per_s": tps,
+                                    "at": self.tm.elapsed()})
+                    self.log.info(
+                        "step %d avg_loss %.5f eval_loss %.5f tok/s %.0f",
+                        step, avg_loss, ev, tps)
+        sync_time = getattr(opt, "dusync", 0.0)
+        self.tm.add("sync", sync_time)
+        # feval net of blocking sync, like MnistTrainer — but tokens/sec
+        # keeps the sync in its denominator (a stalled worker earns no
+        # throughput credit).
+        self.tm.total["feval"] = max(self.tm.total["feval"] - sync_time, 0.0)
+        if hasattr(opt, "stop"):
+            with self.tm.phase("stop"):
+                opt.stop()
+        tokens_per_s = tokens_total / max(train_s, 1e-9)
+        if self._obs:
+            self._m_tps.set(tokens_per_s)
+        return {
+            "history": history,
+            "final_loss": history[-1]["avg_loss"] if history else None,
+            "final_eval_loss": history[-1]["eval_loss"] if history else None,
+            "tokens_total": tokens_total,
+            "tokens_per_s": tokens_per_s,
+            "train_seconds": train_s,
+            "elapsed": self.tm.elapsed(),
+            "timers": dict(self.tm.total),
+            "steps": cfg.steps,
+        }

@@ -19,7 +19,7 @@ vector.  :meth:`FlatModel.set_leaf` writes one leaf of a vector, as a
 pretrained embedding matrix is put into ``w0``.
 :meth:`FlatModel.from_jax_params` and
 :meth:`FlatModel.to_jax_params` carry a flax parameter tree (as numpy
-arrays) into the vector and back.
+arrays), or the JAX package's flat vector, into the vector and back.
 """
 
 from __future__ import annotations
@@ -91,8 +91,16 @@ class FlatModel:
             view.copy_(value)
         return w
 
-    def from_jax_params(self, params: Mapping[str, Any]) -> torch.Tensor:
-        """A flax parameter tree (numpy leaves) -> the flat f32 vector."""
+    def from_jax_params(self, params: Any) -> torch.Tensor:
+        """A flax parameter tree (numpy leaves), or the JAX package's flat
+        vector of it (``FlatModel.w0``, the ``ravel_pytree`` layout this
+        vector shares) -> the flat f32 vector."""
+        if not isinstance(params, Mapping):
+            flat = np.asarray(params, np.float32)
+            if flat.shape != (self.size,):
+                raise ValueError(f"a flat vector of shape {flat.shape}, the module "
+                                 f"needs ({self.size},)")
+            return torch.from_numpy(flat.copy())
         leaves = []
         for name, shape in self.spec:
             node: Any = params

@@ -267,6 +267,14 @@ STATE_SLOTS: Dict[str, int] = {
 }
 
 
+def state_slots(name: str) -> int:
+    """Vector-shaped state tensors rule ``name`` holds per shard."""
+    try:
+        return STATE_SLOTS[name]
+    except KeyError:
+        raise ValueError(f"unknown rule {name!r}; have {sorted(_RULES)}") from None
+
+
 def names() -> Tuple[str, ...]:
     return tuple(_RULES)
 

@@ -43,9 +43,14 @@ per-shard staging (with a per-shard int8 residual); a ``NACK_MAP`` reply
 installs the server's newer map and re-routes, ``BUSY`` backs off through a
 migration, and the controller's MAP_UPDATE broadcasts are polled in
 ``ping``/``wait``.  One global FIFO pump serializes shard ops.  Staleness and
-timing negotiate off there (the header has no slot for them).  The weighted
-layout comes with a later slice: its constructor argument raises
-``NotImplementedError`` naming the slice.
+timing negotiate off there (the header has no slot for them).
+
+The static weighted layout (``layout=``, the LM workload's aligned cut of
+:mod:`mpit_tpu_torch.lm.plan`): one explicit contiguous Shard per server,
+in rank order, replaces the equal split at ``start`` without turning on
+shard control, so chunked streaming, staleness, timing and the aggregation
+tree all still negotiate on.  Every client and reader of one gang passes
+the identical layout.
 
 Chunked streaming (``FTConfig(chunk_bytes=...)`` on a framed client; INIT
 v5, ``FLAG_CHUNKED``): every GRAD / PARAM_PUSH body ships as K independent
@@ -65,8 +70,9 @@ and outcome; retry exhaustion dumps the flight recorder; with obs on the
 client registers a ``/status`` section.  Disabled, the recorder and the
 flight recorder are the shared null objects and read no clock.
 
-The static shard cut is :func:`mpit_tpu_torch.ps.sharding.shard_layout`'s
-equal split, the cut the JAX client's version-0 shard map makes.
+Without a layout the static shard cut is
+:func:`mpit_tpu_torch.ps.sharding.shard_layout`'s equal split, the cut the
+JAX client's version-0 shard map makes.
 """
 
 from __future__ import annotations
@@ -129,17 +135,10 @@ from mpit_tpu_torch.obs.metrics import obs_enabled, registry_or_local
 from mpit_tpu_torch.obs.spans import NULL_SPAN, get_recorder
 from mpit_tpu_torch.obs.statusd import register_provider as register_status_provider
 from mpit_tpu_torch.ps import tags
-from mpit_tpu_torch.ps.server import refuse_later
 from mpit_tpu_torch.ps.sharding import Shard, shard_layout
 from mpit_tpu_torch.shardctl import shardmap as _shardmap
 from mpit_tpu_torch.shardctl import wire as _scwire
 from mpit_tpu_torch.utils.logging import get_logger
-
-#: What each refused constructor argument of the JAX client belongs to.
-LATER_CLIENT_ARGS = {
-    "layout": "the weighted shard layout (slice 7, lm)",
-}
-
 
 class ParamClient:
     def __init__(
@@ -154,9 +153,8 @@ class ParamClient:
         shardctl: bool = False,
         controller_rank: Optional[int] = None,
         sc_shards_per_server: int = 1,
-        **later: Any,
+        layout: Optional[List[Shard]] = None,
     ):
-        refuse_later("ParamClient", later, LATER_CLIENT_ARGS)
         self.rank = rank
         self.sranks = list(server_ranks)
         self.transport = transport
@@ -171,6 +169,24 @@ class ParamClient:
         # at-most-once across owners is the transferred dedup state.
         self._sc = bool(shardctl or shard_map is not None)
         self.smap = shard_map
+        # The static weighted layout: an explicit contiguous cut — one
+        # Shard per server in rank order — that replaces the equal split at
+        # start() WITHOUT turning on shard control.  The servers adopt
+        # whatever cut the first INIT announces, so an uneven layout is a
+        # client-side choice; ``_sc`` stays False, so chunked streaming,
+        # staleness, timing and the aggregation tree still negotiate on.
+        # Every client and reader of one gang must pass the identical
+        # layout (servers reject mismatched re-announcements).
+        self._layout = list(layout) if layout is not None else None
+        if self._layout is not None:
+            if self._sc:
+                raise ValueError(
+                    "layout= is the static weighted cut; it cannot combine "
+                    "with shardctl/shard_map (which own placement already)")
+            if len(self._layout) != len(self.sranks):
+                raise ValueError(
+                    f"layout has {len(self._layout)} shards for "
+                    f"{len(self.sranks)} servers (need exactly one each)")
         self.controller_rank = controller_rank
         # Over-partitioning: k shards per launch-time server, so elastic
         # membership has units to move.
@@ -297,7 +313,14 @@ class ParamClient:
         if self._sc:
             self._sc_start(param)
             return
-        self.shards = shard_layout(len(param), len(self.sranks))
+        if self._layout is not None:
+            if self._layout[-1].end != len(param):
+                raise ValueError(
+                    f"layout covers [0, {self._layout[-1].end}) but the "
+                    f"registered vector has {len(param)} elements")
+            self.shards = list(self._layout)
+        else:
+            self.shards = shard_layout(len(param), len(self.sranks))
         flags = (FLAG_FRAMED if self.ft.framed else 0) | (
             FLAG_HEARTBEAT if self.ft.heartbeat_s > 0 else 0) | (
             FLAG_STALENESS if self._stale else 0) | (

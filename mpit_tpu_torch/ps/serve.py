@@ -188,15 +188,18 @@ class ReaderClient:
         #   budget against a dead cell.
         failover_after: int = 2,  # deadline-exceeded attempts against
         #   one cell before failing over to the next ring sibling.
-        layout: "Optional[List[Shard]]" = None,  # the weighted cut of the
-        #   LM workload: a later slice of the port (refused).
+        layout: "Optional[List[Shard]]" = None,  # static weighted cut
+        #   (mpit_tpu_torch.lm): one Shard per server, identical to the cut
+        #   the gang's ParamClients announced — servers reject a reader
+        #   whose announcement disagrees with the adopted shard.
     ):
-        if layout is not None:
-            raise NotImplementedError(
-                "ReaderClient(layout=...) belongs to the weighted shard "
-                "layout (slice 7, lm) of the port")
         self.rank = rank
         self.sranks = list(server_ranks)
+        self._layout = list(layout) if layout is not None else None
+        if self._layout is not None and len(self._layout) != len(self.sranks):
+            raise ValueError(
+                f"layout has {len(self._layout)} shards for "
+                f"{len(self.sranks)} servers (need exactly one each)")
         self.transport = transport
         self.sched = scheduler or Scheduler()
         self.codec = codec_mod.get(codec)
@@ -319,7 +322,8 @@ class ReaderClient:
     def start(self, param: np.ndarray) -> None:
         """Announce the READ-ONLY posture to every server.  ``param`` is
         the whole-vector host mirror reads decode into; the shard cut is
-        the same version-0 equal split every static client derives."""
+        the gang's ``layout`` when one was given, else the same version-0
+        equal split every static client derives."""
         if not isinstance(param, np.ndarray) or param.ndim != 1:
             raise TypeError("param must be a 1-D numpy array (host mirror)")
         if not param.flags["C_CONTIGUOUS"]:
@@ -329,7 +333,14 @@ class ReaderClient:
                 f"codec {self.codec.name!r} quantizes float32 shards; got "
                 f"dtype {param.dtype} (use codec='none' for other dtypes)")
         self.param = param
-        smap = _shardmap.ShardMap.initial(len(param), self.sranks)
+        if self._layout is not None:
+            if self._layout[-1].end != len(param):
+                raise ValueError(
+                    f"layout covers [0, {self._layout[-1].end}) but the "
+                    f"mirror has {len(param)} elements")
+            smap = _shardmap.ShardMap.from_shards(self._layout, self.sranks)
+        else:
+            smap = _shardmap.ShardMap.initial(len(param), self.sranks)
         self.shards = [e.shard for e in smap.entries]
         flags = FLAG_FRAMED | FLAG_READONLY | (
             FLAG_HEARTBEAT if self.ft.heartbeat_s > 0 else 0)

@@ -215,16 +215,6 @@ from mpit_tpu_torch.utils.platform import resolve_device
 DTYPE_SLICE = "shards of other dtypes (a later slice of the port; its shards are float32)"
 
 
-def refuse_later(cls: str, later: Dict[str, Any], table: Dict[str, str]) -> None:
-    """Raise for a constructor argument of a later slice (naming it), or a
-    TypeError for one the JAX package does not have either."""
-    for name in later:
-        if name in table:
-            raise NotImplementedError(
-                f"{cls}({name}=...) belongs to {table[name]} of the port")
-        raise TypeError(f"{cls}() got an unexpected keyword argument {name!r}")
-
-
 class ParamServer:
     def __init__(
         self,

@@ -2,9 +2,9 @@
 
 A copy of the tags of ``mpit_tpu/ps/tags.py`` that the port speaks: the
 eight of the unframed wire, the fault-tolerance beacon (9), shard control's
-directives and handoff (10-12), the causal timing echo (13) and the
-serving cells' diff stream (14-15).  The tags of aggregation (16-17) come
-with their slice.  The port imports nothing of the JAX package.
+directives and handoff (10-12), the causal timing echo (13), the serving
+cells' diff stream (14-15) and the hierarchical aggregation tree's hops
+(16-17).  The port imports nothing of the JAX package.
 
 Eight channels, renamed by direction and purpose rather than the
 reference's server-perspective naming.  0-byte messages serve as the
@@ -74,6 +74,23 @@ DIFF_REQ = 15  # cell -> server: int64 [epoch, seq, have_version] — the
 #                DELTA: from_version != the installed version) or the cell
 #                fell beyond its resync horizon; the server answers with a
 #                FULL frame at the current head.
+REDUCE = 16  # client -> client: one partial-gradient chunk frame of the
+#              hierarchical aggregation tree: int64 [epoch, seq,
+#              chunk_idx, chunk_count, nfold] then the chunk's codec
+#              frame, padded to the uniform stride.  ``nfold`` is the
+#              number of leaf contributions already folded into the
+#              partial; the receiving interior node folds the decoded
+#              chunk into its own partial sum in fixed child-rank order
+#              and forwards chunk k upstream while chunk k+1 is still
+#              arriving.
+REDUCE_ACK = 17  # client -> client: int64 [epoch, seq, chunk_idx, status]
+#                  — per-admitted-chunk ack on the REDUCE hop.  status OK
+#                  means received (retries resend only unacked chunks);
+#                  status LATE means the round already folded without
+#                  this sender (straggler deadline fired) — the sender
+#                  falls back to a direct GRAD push of its partial, so a
+#                  late contribution is counted and re-routed, never
+#                  silently dropped and never double-folded.
 
 EMPTY = b""  # the canonical 0-byte payload
 
@@ -98,4 +115,8 @@ TAG_PAIRS = {
     # own role.
     "DIFF": ("server", "cell"),
     "DIFF_REQ": ("cell", "server"),
+    # The aggregation tree's hops travel client <-> client, outside the
+    # client <-> server role model, like the server <-> server handoff.
+    "REDUCE": ("client", "client"),
+    "REDUCE_ACK": ("client", "client"),
 }

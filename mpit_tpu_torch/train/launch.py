@@ -71,8 +71,22 @@ wraps each worker's client in an ``ExchangeClient``: same-process pairs
 (``run_gang``) ride the device path, and every pair of a process gang
 falls back to the wire (counted, ``mpit_dplane_wire_fallback_ranks``).
 
-The layers of later slices (the LM, aggregation) raise
-``NotImplementedError`` naming their slice.
+Hierarchical aggregation (:mod:`mpit_tpu_torch.agg`): ``--agg
+prereduce|tree`` wraps each worker's client in an ``AggClient``:
+colocated groups (``--agg_groups "1,3;5,7"``, ranks of one process and
+device) fold on their device behind a representative, and with ``tree``
+the representatives reduce through a seeded REDUCE tree (``--agg_fanin``,
+``--agg_tree_seed``) so the servers see one GRAD a round.  It needs
+``--ft_op_deadline_s`` and refuses shard control and ``--dplane``;
+``--agg_deadline_s`` is the straggler deadline, ``--agg_chunk_bytes`` the
+REDUCE hop's chunk.
+
+The LM through the gang (:mod:`mpit_tpu_torch.lm`): ``--lm 1`` swaps the
+MNIST trainer for the transformer-LM loop (``--lm_d_model``, ``--lm_heads``,
+``--lm_layers``, ``--lm_seq``, ``--lm_steps``, ``--lm_eval_every``,
+``--lm_use_flash``); unless shard control owns placement, every worker and
+reader announces the plan's weighted aligned cut (``--lm_weights "3,1"``)
+instead of the equal split.  It refuses a tester rank and ``--cells``.
 
 Usage:
     python -m mpit_tpu_torch.train.launch --np 1 --opt msgd
@@ -242,26 +256,140 @@ LAUNCH_DEFAULTS = TRAINER_DEFAULTS.merged(
     # workers route through an ExchangeClient (device path to same-process
     # servers, the wire everywhere else).
     dplane=0,
-    # The reference's flags of later slices; each raises when set.
-    lm=0,
+    # Hierarchical aggregation (docs/PROTOCOL.md §13): --agg
+    # off|prereduce|tree.  prereduce folds colocated client groups on their
+    # device behind a representative; tree also reduces the
+    # representatives through a seeded REDUCE tree, so the servers see ONE
+    # gradient per round for the whole gang.  agg_groups declares
+    # colocation ("4,5;6,7" — ranks sharing a process and device; empty =
+    # every client its own representative), checked against the dplane
+    # fingerprint at start.  Needs ft_op_deadline_s > 0; off under shard
+    # control and --dplane.  agg_deadline_s is the straggler wall
+    # deadline; agg_chunk_bytes cuts the REDUCE hops (0 = ft_chunk_bytes,
+    # then 1 MiB).
     agg="off",
+    agg_groups="",
+    agg_fanin=2,
+    agg_tree_seed=0,
+    agg_deadline_s=5.0,
+    agg_chunk_bytes=0,
+    # The LM workload: --lm 1 swaps the MNIST trainer for the transformer-
+    # LM loop.  The shared optimizer knobs (--opt/--lr/--mom/--mva/--su/
+    # --batch/--seed/--dtype) carry over; the lm_* knobs size the model and
+    # the step loop.  Unless shard control owns placement, every client
+    # AND reader announces the same weighted aligned-cut layout (lm.plan)
+    # instead of the equal split — lm_weights skews it ("3,1" = server 0
+    # aims at 3/4 of the vector), empty = balanced cut on parameter
+    # boundaries.
+    lm=0,
+    lm_d_model=64,
+    lm_heads=4,
+    lm_layers=2,
+    lm_seq=128,
+    lm_steps=200,
+    lm_eval_every=50,
+    lm_use_flash=-1,  # -1 auto (flash on the card) | 0 plain reference | 1 flash
+    lm_weights="",
 )
 
-# flag -> (value meaning "off", the slice of the port it belongs to)
-LATER_FLAGS = {
-    "lm": (0, "the LM workload through the PS gang (slice 7b, lm)"),
-    "agg": ("off", "hierarchical aggregation (slice 5g, agg)"),
-}
+
+def parse_agg_groups(spec: str) -> Tuple[Tuple[int, ...], ...]:
+    """--agg_groups "4,5;6,7" -> ((4, 5), (6, 7)): semicolon-separated
+    colocation groups of comma-separated client ranks.  Empty spec = no
+    declared colocation (every client its own representative)."""
+    return tuple(
+        tuple(int(x) for x in part.split(",") if x.strip() != "")
+        for part in spec.split(";") if part.strip())
 
 
-def refuse_later_flags(cfg: Config) -> None:
-    if str(cfg.get("agg", "off") or "off") != "off" and int(cfg.get("dplane", 0) or 0):
-        raise ValueError("--agg and --dplane both wrap the client data path; "
-                         "pick one")
-    for flag, (off, owner) in LATER_FLAGS.items():
-        if cfg.get(flag, off) != off:
-            raise NotImplementedError(
-                f"--{flag} {cfg.get(flag)!r} belongs to {owner} of the port")
+def agg_refusals(cfg: Config) -> None:
+    """The compositions the JAX launcher refuses for --agg, with its words."""
+    if str(cfg.get("agg", "off") or "off") == "off":
+        return
+    if bool(cfg.get("shardctl", False)) or bool(cfg.get("elastic", False)):
+        raise ValueError("--agg composes with the static shard map "
+                         "only (run without --shardctl/--elastic)")
+    if int(cfg.get("dplane", 0) or 0):
+        raise ValueError("--agg and --dplane both wrap the client "
+                         "data path; pick one")
+    if float(cfg.get("ft_op_deadline_s", 0) or 0) <= 0:
+        raise ValueError("--agg needs --ft_op_deadline_s > 0: REDUCE "
+                         "hops ride the framed retry machinery")
+
+
+def lm_refusals(cfg: Config) -> None:
+    """The compositions the JAX launcher refuses for --lm, with its words."""
+    if not int(cfg.get("lm", 0) or 0):
+        return
+    if str(cfg.get("tester", "none")) != "none":
+        raise ValueError("--lm and a tester rank are mutually "
+                         "exclusive (the tester is MNIST-only)")
+    if int(cfg.get("cells", 0) or 0):
+        raise ValueError("--lm and --cells are not composed yet: the "
+                         "cell fabric derives the equal split, not "
+                         "the LM plan's weighted cut")
+
+
+def lm_trainer_cfg(cfg: Config) -> Config:
+    """The :data:`mpit_tpu_torch.lm.trainer.LM_DEFAULTS`-shaped config for
+    one launch config: shared optimizer/loop knobs carried over verbatim,
+    lm_* knobs mapped onto the trainer's names."""
+    return Config(
+        d_model=int(cfg.get("lm_d_model", 64)),
+        n_heads=int(cfg.get("lm_heads", 4)),
+        n_layers=int(cfg.get("lm_layers", 2)),
+        seq_len=int(cfg.get("lm_seq", 128)),
+        steps=int(cfg.get("lm_steps", 200)),
+        eval_every=int(cfg.get("lm_eval_every", 50)),
+        use_flash=int(cfg.get("lm_use_flash", -1)),
+        opt=cfg.opt, lr=cfg.lr, lrd=cfg.lrd, lrp=cfg.lrp, mom=cfg.mom,
+        mommax=cfg.mommax, momdecay=cfg.momdecay, l2wd=cfg.l2wd,
+        mva=cfg.mva, su=cfg.su, batch=cfg.batch, seed=cfg.seed,
+        dtype=cfg.get("dtype", "float32"), profile_dir=cfg.get("profile_dir", ""),
+        device=cfg.device,
+    )
+
+
+def lm_spec_tree(cfg: Config) -> Dict[str, Any]:
+    """The LM's flax-named parameter tree at the launch widths, as zero
+    arrays of the parameter shapes (a cut depends on shapes alone: no
+    initialization, nothing on a device)."""
+    import numpy as np
+
+    from mpit_tpu_torch.models.flat import param_spec
+    from mpit_tpu_torch.models.transformer import TinyDecoder
+
+    tcfg = lm_trainer_cfg(cfg)
+    with torch.device("meta"):
+        module = TinyDecoder(vocab=256, d_model=tcfg.d_model, n_heads=tcfg.n_heads,
+                             n_layers=tcfg.n_layers, max_len=tcfg.seq_len)
+    tree: Dict[str, Any] = {}
+    for name, shape in param_spec(module):
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.broadcast_to(np.float32(0), shape)
+    return tree
+
+
+def lm_layout(cfg: Config, n_servers: int) -> List[Any]:
+    """The gang's static weighted aligned-cut layout (one Shard per
+    server) under --lm: the deterministic cut every client and reader must
+    announce identically.  ``lm_weights`` ("3,1") skews the targets; empty
+    keeps balanced targets (still boundary-aligned, so it differs from the
+    raw equal split)."""
+    from mpit_tpu_torch.lm import plan
+
+    spec = str(cfg.get("lm_weights", "") or "")
+    weights = ([float(x) for x in spec.split(",") if x.strip() != ""]
+               if spec else None)
+    if weights is not None and len(weights) != n_servers:
+        raise ValueError(
+            f"--lm_weights names {len(weights)} servers but the role "
+            f"split made {n_servers}")
+    rule = cfg.opt if cfg.opt in rules_mod.names() else "add"
+    return plan(lm_spec_tree(cfg), n_servers, rule=rule, server_weights=weights).layout
 
 
 def ft_from_cfg(cfg: Config) -> FTConfig:
@@ -379,13 +507,17 @@ def serve_cfg_for(cfg: Config) -> Any:
 
 def serve_vec_len(cfg: Config) -> int:
     """The flat parameter-vector length a reader or cell mirrors: the
-    trainer's model at its side, counted from its parameter shapes (no
-    initialization, nothing on a device)."""
+    trainer's model (the LM under --lm, else the MNIST model at its side),
+    counted from its parameter shapes (no initialization, nothing on a
+    device)."""
     import math
 
+    from mpit_tpu_torch.lm.plan import flat_segments
     from mpit_tpu_torch.models.flat import param_spec
     from mpit_tpu_torch.models.mnist import make_model
 
+    if int(cfg.get("lm", 0) or 0):
+        return flat_segments(lm_spec_tree(cfg))[-1].end
     return sum(math.prod(shape) for _name, shape in
                param_spec(make_model(str(cfg.model), int(cfg.side))))
 
@@ -457,7 +589,10 @@ def run_reader(rank: int, sranks: List[int], cfg: Config, transport: Any,
         # serves its subscription codec only); direct readers the gang's.
         codec=(cell_codec_for(cfg) if cell_ranks else str(cfg.codec or "") or None),
         ft=ft_from_cfg(cfg),
-        cells=(cell_map_for(sranks, cell_ranks) if cell_ranks else None))
+        cells=(cell_map_for(sranks, cell_ranks) if cell_ranks else None),
+        # --lm readers must announce the identical weighted cut the writers
+        # announced (servers reject a disagreeing attach).
+        layout=(lm_layout(cfg, len(sranks)) if int(cfg.get("lm", 0) or 0) else None))
     mirror = np.zeros(serve_vec_len(cfg), np.float32)
     rc.start(mirror)
     interval = float(cfg.get("serve_interval_s", 0.05))
@@ -625,7 +760,7 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
     (``param``) and a worker's its final ``w``, as tensors on the role's
     device."""
     cfg = LAUNCH_DEFAULTS.merged(cfg.to_dict())
-    refuse_later_flags(cfg)
+    lm_on = bool(int(cfg.get("lm", 0) or 0))
     if size == 1:
         if bool(cfg.resume):
             # Server-shard resume needs servers; silently restarting from
@@ -633,8 +768,14 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
             raise ValueError("--resume restores parameter-server shards and "
                              "needs --np > 1 (single-process runs have no "
                              "servers)")
+        if lm_on:
+            from mpit_tpu_torch.lm import LmTrainer
+
+            trainer = LmTrainer(lm_trainer_cfg(cfg), rank=rank)
+            return {"role": "local", **trainer.run(), "w": trainer.w}
         trainer = MnistTrainer(cfg, data=data, rank=rank)
         return {"role": "local", **trainer.run()}
+    lm_refusals(cfg)
     if transport is None:
         raise ValueError(f"run_rank at size {size} needs this rank's transport "
                          "(launch_processes, or run_gang in one process)")
@@ -725,17 +866,39 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
         and not rejoining(),
         shardctl=sc_on, controller_rank=ctl_rank,
         sc_shards_per_server=(int(cfg.get("elastic_shards_per_server", 2) or 1)
-                              if elastic_on else 1))
+                              if elastic_on else 1),
+        # --lm: the weighted aligned-cut layout replaces the equal split on
+        # the static path (shard control owns placement otherwise).
+        layout=lm_layout(cfg, len(sranks)) if lm_on and not sc_on else None)
     client: Any = pclient
     if int(cfg.get("dplane", 0) or 0):
         from mpit_tpu_torch.dplane import ExchangeClient
 
         client = ExchangeClient(pclient, device=cfg.device,
                                 namespace=str(cfg.get("namespace", "") or ""))
-    trainer = MnistTrainer(cfg, pclient=client, data=data, rank=rank)
+    agg_mode = str(cfg.get("agg", "off") or "off")
+    if agg_mode != "off":
+        from mpit_tpu_torch.agg import AggClient, AggConfig
+
+        agg_refusals(cfg)
+        client = AggClient(
+            pclient, cranks,
+            AggConfig(mode=agg_mode,
+                      groups=parse_agg_groups(str(cfg.get("agg_groups", "") or "")),
+                      fanin=int(cfg.get("agg_fanin", 2)),
+                      tree_seed=int(cfg.get("agg_tree_seed", 0)),
+                      deadline_s=float(cfg.get("agg_deadline_s", 5.0)),
+                      chunk_bytes=int(cfg.get("agg_chunk_bytes", 0))),
+            namespace=str(cfg.get("namespace", "") or ""), device=cfg.device)
+    if lm_on:
+        from mpit_tpu_torch.lm import LmTrainer
+
+        trainer = LmTrainer(lm_trainer_cfg(cfg), pclient=client, rank=rank)
+    else:
+        trainer = MnistTrainer(cfg, pclient=client, data=data, rank=rank)
     log.info("worker with servers %s (epoch %d)", sranks, ft.epoch)
     out = trainer.run()
-    if client is not pclient:
+    if int(cfg.get("dplane", 0) or 0):
         out["device_ranks"] = client.device_ranks
     return {"role": "worker", **out, "w": trainer.w,
             "epoch": ft.epoch, "retries": pclient.retries,
@@ -750,7 +913,6 @@ def run_gang(size: int, cfg: Config, data: Any = None,
     raises fails the gang: the lowest failed rank's error is raised here
     at once, and the ranks it leaves waiting stay behind as daemon
     threads."""
-    refuse_later_flags(LAUNCH_DEFAULTS.merged(cfg.to_dict()))
     router = LocalRouter(size)
     results: Dict[int, Dict[str, Any]] = {}
     errors: Dict[int, BaseException] = {}
@@ -851,12 +1013,20 @@ def launch_processes(cfg: Config, timeout: float = 3600.0,
 
     Fails fast in the parent, before any process starts: a bad optimizer
     name or role split found only inside a child would strand the servers
-    in their stop protocol, and a flag of a later slice or a missing card
-    must not cost a gang's start-up."""
+    in their stop protocol, and a composition the launcher refuses (--lm
+    with a tester, --agg without op deadlines) or a missing card must not
+    cost a gang's start-up."""
     cfg = LAUNCH_DEFAULTS.merged(cfg.to_dict())
-    if cfg.opt not in KNOWN_OPTS:
+    if int(cfg.get("lm", 0) or 0):
+        from mpit_tpu_torch.lm import LmTrainer
+
+        if cfg.opt not in LmTrainer.KNOWN_OPTS:
+            raise ValueError(f"unknown LM optimizer {cfg.opt!r}; have "
+                             f"{LmTrainer.KNOWN_OPTS}")
+        lm_refusals(cfg)
+    elif cfg.opt not in KNOWN_OPTS:
         raise ValueError(f"unknown optimizer {cfg.opt!r}; have {KNOWN_OPTS}")
-    refuse_later_flags(cfg)
+    agg_refusals(cfg)
     if bool(cfg.autoscale):
         # --autoscale = --elastic + the closed loop on the controller, whose
         # telemetry rides the statusd endpoints: a controller sampling
@@ -985,11 +1155,13 @@ def _sha256(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
-def child_result(result: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+def child_result(result: Dict[str, Any], device: torch.device,
+                 lm: bool = False) -> Dict[str, Any]:
     """A rank's result as JSON: each tensor becomes ``<key>_sha256`` (its
     bytes' digest, enough to hold two runs bit for bit), and the result
     gains ``platform`` (the device its role ran on) and the rank's
-    ``launches`` of K1-K3, which the parent cannot read in the child."""
+    ``launches`` of K1-K3, which the parent cannot read in the child — and
+    of the flash kernels K4-K6 in an LM gang (``lm``)."""
     from mpit_tpu_torch.ops import fused_update as fu
 
     out = {k: v for k, v in result.items() if not isinstance(v, torch.Tensor)}
@@ -1000,6 +1172,12 @@ def child_result(result: Dict[str, Any], device: torch.device) -> Dict[str, Any]
     out["launches"] = {"k1": fu.fused_nesterov_commit.launches,
                        "k2": fu.fused_elastic.launches,
                        "k3": fu.fused_adam.launches}
+    if lm:
+        import importlib
+
+        fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+        out["launches"].update(k4=fa.flash_fwd.launches, k5=fa.flash_bwd_fused.launches,
+                               k6=fa.flash_bwd_two_kernel.launches)
     return out
 
 
@@ -1024,7 +1202,7 @@ def _child_main() -> None:
     # This rank's Chrome-trace part (MPIT_OBS_TRACE; no-op when unset): the
     # gang parent merges the parts into one timeline at exit.
     maybe_write_rank_trace(rank, role=str(result.get("role", "")))
-    write_result(child_result(result, device))
+    write_result(child_result(result, device, lm=bool(int(cfg.get("lm", 0) or 0))))
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[Any, Any]:
@@ -1060,7 +1238,8 @@ def _summarize(result: Dict[str, Any]) -> Dict[str, Any]:
             "evictions", "ckpts_written", "restored", "restarts",
             "map_version", "membership_epoch", "elastic_events", "retired",
             "owned_shards", "joiner", "reads", "monotone", "busy_honored",
-            "lags", "failovers", "diffs_installed", "busy_replies"}
+            "lags", "failovers", "diffs_installed", "busy_replies",
+            "final_loss", "final_eval_loss", "tokens_per_s", "tokens_total"}
     return {k: v for k, v in result.items() if k in keep}
 
 

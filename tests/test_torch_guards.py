@@ -218,8 +218,8 @@ def test_mesh_launch_refuses_later_slices(flags, tmp_path):
     ("elastic", "1", "supervise"),  # landed: needs the supervisor
     ("serve_readers", "1", "ft_op_deadline_s"),  # landed: needs op deadlines
     ("cells", "1", "without --serve_readers"),  # landed: cells serve readers
-    ("lm", "1", "slice 7"),
-    ("agg", "tree", "slice 5"),
+    ("lm", "1", "mutually exclusive"),  # landed: --lm with a tester rank
+    ("agg", "tree", "needs --ft_op_deadline_s"),  # landed: REDUCE rides framing
     ("dplane", "1", "a rank process was started"),  # landed: the parent spawns
     ("init_v3", 1 | 16, "reader_ranks"),  # landed: FLAG_READONLY from a non-reader
     ("ft_chunk_bytes", "65536", "a rank process was started"),  # landed
@@ -231,9 +231,9 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
     an unknown optimizer and a role split with no client raise
     ValueError, as the reference's launcher does (so do shard control with
     no worker left, --elastic without the supervisor, --serve_readers
-    without op deadlines and --cells without readers), and the flags of
-    later slices raise NotImplementedError naming the slice.  The landed
-    flags get the reference's answers: --dplane and --ft_chunk_bytes are
+    without op deadlines and --cells without readers, --lm beside a tester
+    rank and --agg without op deadlines, in the reference's words).  The
+    landed flags get the reference's answers: --dplane and --ft_chunk_bytes are
     accepted (the parent goes on to start the ranks), FLAG_CHUNKED in a
     40-byte announcement is a ValueError (it travels with INIT v5), and a
     cell's chunk-framed subscription (INIT v5) is accepted with its chunk
@@ -274,7 +274,9 @@ def test_launch_refuses_gangs_and_ps_optimizers(refused, monkeypatch):
             server._negotiate(1, np.asarray(words, np.int64).tobytes())
         return
     argv = ["--np", "2", "--device", "cpu", "--side", "8", f"--{flag}", value]
-    if flag in ("tester", "shardctl", "elastic", "serve_readers", "cells"):
+    if flag == "lm":
+        argv += ["--tester", "last"]
+    if flag in ("tester", "shardctl", "elastic", "serve_readers", "cells", "lm", "agg"):
         with pytest.raises(ValueError, match=owner):
             launch.main(argv)
         return

@@ -1117,7 +1117,6 @@ def test_launch_timing_flag_reaches_the_wire():
     want = jlaunch.ft_from_cfg(jlaunch.LAUNCH_DEFAULTS.merged(flags))
     assert {k: getattr(got, k) for k in got.__dataclass_fields__} == \
         {k: getattr(want, k) for k in want.__dataclass_fields__}
-    launch.refuse_later_flags(launch.LAUNCH_DEFAULTS.merged(flags))
 
 
 def test_bicnn_children_accept_the_status_endpoint(monkeypatch):

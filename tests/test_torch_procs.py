@@ -210,8 +210,8 @@ def test_trainer_value_and_grad_equals_torch_func_bitwise(model):
 def test_ptest_twin_prints_the_shm_row():
     """``tools/torch_ptest.py``'s process leg at a tiny size: one row per
     codec with the JAX twin's keys, from the native codec; the streaming
-    A/B leg (landed) adds its control and chunked rows; a leg of a later
-    slice raises."""
+    A/B leg (landed) adds its control and chunked rows; the aggregation A/B
+    (landed) its flat, prereduce and tree rows."""
     env = dict(os.environ, MPIT_BENCH_DEVICE="cpu", MPIT_BENCH_MB="1",
                MPIT_BENCH_ROUNDS="3", MPIT_BENCH_CODECS="none,int8")
     tool = os.path.join(REPO, "tools", "torch_ptest.py")
@@ -238,8 +238,18 @@ def test_ptest_twin_prints_the_shm_row():
                for r in stream)
     assert stream[1]["chunk_mb"] == 0.25 and stream[1]["grad_speedup"] > 0
     proc = subprocess.run([sys.executable, tool], capture_output=True, text=True,
-                          timeout=60, env=dict(env, MPIT_BENCH_AGG="1"))
-    assert proc.returncode != 0 and "slice 5g" in proc.stderr  # aggregation
+                          timeout=60, env=dict(env, MPIT_BENCH_AGG="only",
+                                               MPIT_BENCH_CODECS="none",
+                                               MPIT_BENCH_AGG_MB="0.25",
+                                               MPIT_BENCH_AGG_ROUNDS="2"))
+    assert proc.returncode == 0, proc.stderr  # aggregation landed
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [(r["metric"], r["mode"]) for r in rows] == [
+        ("ps_agg_hierarchy", m) for m in ("flat", "prereduce", "tree")]
+    # flat: every client's GRAD reaches the server; the hierarchy: one a round
+    assert [r["grads_applied"] for r in rows] == [4 * 2, 2, 2]
+    assert all(r["value"] > 0 and r["round_p50_ms"] > 0 for r in rows)
+    assert all(r["speedup_vs_flat"] > 0 for r in rows[1:])
 
 
 # -- one worker, bit for bit ----------------------------------------------------------

@@ -399,13 +399,15 @@ class TestWireCodecs:
     pytest.param(ParamClient, {"controller_rank": 0}, False, id="ParamClient-kw6"),
     pytest.param(ParamClient, {"shardctl": True, "ft_deadline": 1.0}, False,
                  id="ParamClient-kw7"),
+    # the weighted layout landed: validated as the reference validates it
     pytest.param(ParamClient, {"layout": []}, True, id="ParamClient-kw8"),
 ])
 def test_later_slice_arguments_are_refused(cls, kw, refused):
-    """Arguments of slices still to come raise NotImplementedError naming
-    the slice; shard control's, elastic membership's, the serving tier's,
-    the cells' and the device plane's are accepted (a shardctl client with
-    op deadlines); an argument neither package has is a TypeError."""
+    """Every argument of the JAX package's roles has landed: shard
+    control's, elastic membership's, the serving tier's, the cells' and the
+    device plane's are accepted (a shardctl client with op deadlines), and
+    a layout with no shard for the one server raises the reference's
+    ValueError; an argument neither package has is a TypeError."""
     from mpit_tpu_torch.ft import FTConfig
 
     router = LocalRouter(2)
@@ -414,7 +416,7 @@ def test_later_slice_arguments_are_refused(cls, kw, refused):
     if "ft_deadline" in kw:
         kw["ft"] = FTConfig(op_deadline_s=kw.pop("ft_deadline"))
     if refused:
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(ValueError, match="layout has 0 shards for 1 servers"):
             cls(*args, **kw)
     else:
         cls(*args, **kw)

@@ -249,7 +249,7 @@ class TestReaderTier:
             ReaderClient(3, [0], transport=None, ft=FTConfig())
         with pytest.raises(ValueError, match="overlap"):
             ParamServer(0, [1, 2], transport=None, device="cpu", reader_ranks=[2])
-        with pytest.raises(NotImplementedError, match="slice 7"):
+        with pytest.raises(ValueError, match="layout has 0 shards for 1 servers"):
             ReaderClient(3, [0], transport=None, ft=FTConfig(op_deadline_s=1.0),
                          layout=[])
 

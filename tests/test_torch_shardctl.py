@@ -318,8 +318,9 @@ class TestWireBytes:
         for name in ("MAP_UPDATE", "SHARD_PULL", "SHARD_STATE", "DIFF", "DIFF_REQ"):
             assert getattr(tags, name) == getattr(jtags, name)
             assert tags.TAG_PAIRS[name] == jtags.TAG_PAIRS[name]
-        for name in ("REDUCE", "REDUCE_ACK"):
-            assert not hasattr(tags, name)  # aggregation: a later slice
+        for name in ("REDUCE", "REDUCE_ACK"):  # aggregation landed
+            assert getattr(tags, name) == getattr(jtags, name)
+            assert tags.TAG_PAIRS[name] == jtags.TAG_PAIRS[name]
 
 
 def _slot_pair(size, rule, seed=3, applies=3):

@@ -97,8 +97,34 @@ many readers each, one transport and one ``ReaderClient`` a reader):
   ``pool_grad_speedup`` over the serial one.  ``MPIT_BENCH_STREAM=only``
   runs the stream legs and nothing else.
 
-The agg and LM legs ride layers of later slices of the port; setting one
-raises, naming the slice.
+- ``MPIT_BENCH_AGG=1``: the hierarchical-aggregation A/B, per codec a
+  1-server gang of ``MPIT_BENCH_AGG_CLIENTS`` (4) client threads in this
+  process (the group plane needs a shared process and device) over
+  modelled serial links of ``MPIT_BENCH_AGG_LINK_MBS`` (300) sharing one
+  clock, ``MPIT_BENCH_AGG_MB`` (64) of gradient a client for
+  ``MPIT_BENCH_AGG_ROUNDS`` (5) lockstep rounds, chunked at
+  ``MPIT_BENCH_AGG_CHUNK_MB`` (4): flat pushes, then prereduce (one group,
+  its representative folding on the card and pushing once), then tree
+  (singleton representatives reducing through the REDUCE tree).  Row
+  ``ps_agg_hierarchy``: logical gradient MB/s delivered (clients x payload
+  x rounds over the window), round p50, the server's applies, and each
+  hierarchical row's ``speedup_vs_flat``.
+- ``MPIT_BENCH_LM=1``: the LM through the whole static composition at once,
+  in this process: ``MPIT_BENCH_LM_WORKERS`` (2) LM trainer threads on the
+  card against ``MPIT_BENCH_LM_SERVERS`` (2) servers holding the weighted
+  aligned cut (weights 3, 2, 1, ...) under the ``MPIT_BENCH_LM_OPT``
+  (rmsprop) rule, chunked at ``MPIT_BENCH_LM_CHUNK_KB`` (64), int8, through
+  the aggregation tree; widths ``MPIT_BENCH_LM_DMODEL`` (64),
+  ``MPIT_BENCH_LM_LAYERS`` (2), ``MPIT_BENCH_LM_SEQ`` (128),
+  ``MPIT_BENCH_LM_BATCH`` (8), ``MPIT_BENCH_LM_STEPS`` (40).  Row
+  ``lm_tokens_per_s`` (gated: every worker's windowed loss falls and no
+  server holds 75% of the params+state footprint), then the identical
+  one-worker gang twice (``lm_bitwise_determinism``: the servers' final
+  params bit for bit).  The workers run the flash kernels on the card (the
+  JAX twin pins its jnp reference).
+
+``MPIT_BENCH_AGG=only`` / ``MPIT_BENCH_LM=only`` run that leg and nothing
+else.
 
 Prints one JSON line per codec:
 ``{"metric": "ps_pushpull_bandwidth_shm", "value": MB/s, "unit": "MB/s",
@@ -175,11 +201,26 @@ POOL_SWEEP = _on("MPIT_BENCH_POOL")
 POOL_THREADS = [int(x) for x in
                 os.environ.get("MPIT_BENCH_POOL_THREADS", "2").split(",") if x]
 
-#: legs of the JAX twin that ride layers of later slices of the port
-LATER_LEGS = {
-    "MPIT_BENCH_AGG": "hierarchical aggregation (slice 5g, agg)",
-    "MPIT_BENCH_LM": "the LM workload through the PS gang (slice 7b, lm)",
-}
+AGG_SWEEP = _on("MPIT_BENCH_AGG")
+AGG_CLIENTS = int(os.environ.get("MPIT_BENCH_AGG_CLIENTS", "4"))
+AGG_MB = float(os.environ.get("MPIT_BENCH_AGG_MB", "64"))
+AGG_LINK_MBS = float(os.environ.get("MPIT_BENCH_AGG_LINK_MBS", "300"))
+AGG_ROUNDS = int(os.environ.get("MPIT_BENCH_AGG_ROUNDS", "5"))
+AGG_CHUNK_MB = float(os.environ.get("MPIT_BENCH_AGG_CHUNK_MB", "4"))
+AGG_DEADLINE = float(os.environ.get("MPIT_BENCH_AGG_DEADLINE", "600"))
+LM_SWEEP = _on("MPIT_BENCH_LM")
+LM_STEPS = int(os.environ.get("MPIT_BENCH_LM_STEPS", "40"))
+LM_DMODEL = int(os.environ.get("MPIT_BENCH_LM_DMODEL", "64"))
+LM_LAYERS = int(os.environ.get("MPIT_BENCH_LM_LAYERS", "2"))
+LM_SEQ = int(os.environ.get("MPIT_BENCH_LM_SEQ", "128"))
+LM_BATCH = int(os.environ.get("MPIT_BENCH_LM_BATCH", "8"))
+LM_WORKERS = int(os.environ.get("MPIT_BENCH_LM_WORKERS", "2"))
+LM_SERVERS = int(os.environ.get("MPIT_BENCH_LM_SERVERS", "2"))
+# rmsprop: server-stateful and chunk-splittable (Adam's scalar step counter
+# is refused under FLAG_CHUNKED), with 3 optimizer slots per element beside
+# each shard — params+state is 4x the param bytes.
+LM_OPT = os.environ.get("MPIT_BENCH_LM_OPT", "rmsprop")
+LM_CHUNK_KB = float(os.environ.get("MPIT_BENCH_LM_CHUNK_KB", "64"))
 
 _GANG_SEQ = itertools.count(1)  # unique shm namespace per gang (pid + sequence)
 
@@ -192,9 +233,6 @@ def log(*a) -> None:
 
 
 def refuse_later_legs() -> None:
-    for name, owner in LATER_LEGS.items():
-        if _on(name):
-            raise NotImplementedError(f"{name} belongs to {owner} of the port")
     if (HEARTBEAT_SWEEP or OBS_SWEEP or STATUS_SWEEP or DECOMP_SWEEP
             or PROFILE_SWEEP or SKEW_SWEEP or ELASTIC_SWEEP or READERS_SWEEP
             or CELLS_SWEEP or STREAM_SWEEP) and GANG != "procs":
@@ -1310,11 +1348,309 @@ def _cells_child() -> None:
         json.dump(result, fh)
 
 
+def _agg_gang_run(mode: str, size: int, codec: str = "none") -> dict:
+    """One timed aggregation leg: 1 server + AGG_CLIENTS client threads over
+    per-endpoint PacedTransport links sharing one LinkClock, AGG_ROUNDS
+    lockstep GRAD rounds.  Returns the window and per-round latencies."""
+    import numpy as np
+
+    from mpit_tpu_torch.agg import AggClient, AggConfig
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FTConfig, LinkClock, PacedTransport
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+
+    # In-process profiling (MPIT_BENCH_PROFILE): the agg gang is threads, so
+    # the attribution plane is enabled before the roles are built and the
+    # leg reads the shared profiler and the pool's busy clock directly.
+    prof = None
+    busy0 = 0.0
+    if PROFILE_SWEEP:
+        from mpit_tpu_torch import obs as obs_pkg
+        from mpit_tpu_torch.comm import pool as comm_pool
+        from mpit_tpu_torch.obs import profile as obs_profile
+
+        obs_pkg.configure(enabled=True, reset=True)
+        obs_profile.configure(enabled=True)
+        prof = obs_profile.get_profiler()
+        pool = comm_pool.current_pool()
+        if pool is not None and not pool.serial:
+            pool.sample_obs()
+            busy0 = pool.busy_seconds()
+    nclients = AGG_CLIENTS
+    router = LocalRouter(1 + nclients)
+    cranks = list(range(1, 1 + nclients))
+    # The chunked wire in every leg (flat included); the tree leg also
+    # streams the root's push gated on fold progress.
+    ft = FTConfig(op_deadline_s=AGG_DEADLINE, max_retries=2,
+                  chunk_bytes=int(AGG_CHUNK_MB * (1 << 20)))
+    # One LinkClock across the gang: every rank's inbound link is one serial
+    # link shared by its senders — the flat fan-in pays nclients transits of
+    # the server's link a round, the hierarchical modes one.
+    link = LinkClock()
+    server = ParamServer(0, cranks, PacedTransport(router.endpoint(0), AGG_LINK_MBS,
+                                                   min_bytes=1 << 14, link=link),
+                         rule="add", device=DEVICE)
+    sth = threading.Thread(target=server.start, daemon=True)
+    sth.start()
+    cfg = AggConfig(mode="off" if mode == "flat" else mode,
+                    groups=(tuple(cranks),) if mode == "prereduce" else (),
+                    fanin=2, tree_seed=0, deadline_s=AGG_DEADLINE)
+    ns = f"aggbench{os.getpid()}_{next(_GANG_SEQ)}"
+    clients, params = [], []
+    for i, r in enumerate(cranks):
+        ep = PacedTransport(router.endpoint(r), AGG_LINK_MBS, min_bytes=1 << 14, link=link)
+        inner = ParamClient(r, [0], ep, seed_servers=(i == 0), ft=ft, codec=codec or "none")
+        clients.append(AggClient(inner, cranks, cfg, namespace=ns, device=DEVICE))
+        params.append((np.zeros(size, np.float32), np.full(size, 1e-6, np.float32)))
+    barrier = threading.Barrier(nclients + 1)
+    lat = []
+
+    def drive(i, c):
+        c.start(*params[i])
+        barrier.wait()
+        for _ in range(AGG_ROUNDS):
+            t = time.monotonic()
+            c.async_send_grad()
+            c.wait()
+            if i == 0:
+                lat.append(time.monotonic() - t)
+            barrier.wait()
+
+    ths = [threading.Thread(target=drive, args=(i, c), daemon=True)
+           for i, c in enumerate(clients)]
+    for t in ths:
+        t.start()
+    barrier.wait()  # every client started and seeded
+    t0 = time.time()
+    for _ in range(AGG_ROUNDS):
+        barrier.wait()  # the end of each round
+    t1 = time.time()
+    for t in ths:
+        t.join(AGG_DEADLINE)
+        assert not t.is_alive(), f"agg bench client thread hung (mode {mode})"
+    for c in clients:
+        c.stop()
+    sth.join(60)
+    assert not sth.is_alive(), "agg bench server never stopped"
+    out = {"dt": t1 - t0, "lat": lat, "applied": server.grads_applied}
+    if prof is not None:
+        wall = max(t1 - t0, 1e-9)
+        res = {"sched_cpu_s": round(prof.cpu_seconds, 3),
+               "cpu_util": round(prof.cpu_seconds / wall, 3)}
+        pool = comm_pool.current_pool()
+        if pool is not None and not pool.serial:
+            pool.sample_obs()
+            res["pool_util"] = round(max(pool.busy_seconds() - busy0, 0.0)
+                                     / (wall * max(pool.threads, 1)), 3)
+        obs_pkg.configure(enabled=None, reset=True)
+        out["profile"] = res
+    return out
+
+
+def bench_agg() -> list:
+    """The hierarchical-aggregation A/B: flat vs prereduce vs tree on one
+    modelled-link gang, per codec (and per pool size with
+    MPIT_BENCH_POOL); aggregate = logical gradient bytes delivered per wall
+    second."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm import pool as comm_pool
+
+    size = int(AGG_MB * (1 << 20) / 4)
+    rows = []
+    # The gang is in-process, so the pool legs reconfigure the process-wide
+    # pool directly.  None = inherit (sweep off).
+    pool_legs = [0] + [n for n in POOL_THREADS if n > 0] if POOL_SWEEP else [None]
+    serial_tree: dict = {}
+    saved_pool = os.environ.get("MPIT_POOL_THREADS")
+    try:
+        for pool_n in pool_legs:
+            if pool_n is not None:
+                os.environ["MPIT_POOL_THREADS"] = str(pool_n)
+                comm_pool.configure(pool_n)
+            for codec in CODECS or ["none", "int8"]:
+                flat_mbs = None
+                for mode in ("flat", "prereduce", "tree"):
+                    log(f"[agg] {mode} codec {codec}: 1s/{AGG_CLIENTS}c threads, link "
+                        f"{AGG_LINK_MBS:.0f} MB/s, payload {AGG_MB:.0f} MB x {AGG_ROUNDS} "
+                        "rounds" + (f", pool {pool_n}t" if pool_n is not None else ""))
+                    r = _agg_gang_run(mode, size, codec=codec)
+                    mbs = AGG_CLIENTS * AGG_ROUNDS * size * 4 / r["dt"] / 2**20
+                    row = {"metric": "ps_agg_hierarchy", "unit": "MB/s",
+                           "value": round(mbs, 1), "mode": mode, "codec": codec,
+                           "aggregate_mbs": round(mbs, 1),
+                           "round_p50_ms": round(float(np.percentile(r["lat"], 50)) * 1e3, 1),
+                           "grads_applied": r["applied"], "clients": AGG_CLIENTS,
+                           "link_mbs": AGG_LINK_MBS, "payload_mb": round(AGG_MB, 1),
+                           "rounds": AGG_ROUNDS, "device": DEVICE}
+                    if pool_n is not None:
+                        row["pool_threads"] = pool_n
+                    if r.get("profile"):
+                        row["profile"] = 1
+                        row.update(r["profile"])
+                    if mode == "flat":
+                        flat_mbs = mbs
+                    else:
+                        row["speedup_vs_flat"] = round(mbs / max(flat_mbs, 1e-9), 2)
+                    if mode == "tree":
+                        if pool_n == 0:
+                            serial_tree[codec] = mbs
+                        elif pool_n and serial_tree.get(codec):
+                            row["pool_speedup"] = round(mbs / max(serial_tree[codec], 1e-9), 2)
+                    rows.append(row)
+                    log(f"[agg] {mode} codec {codec}: {mbs:.1f} MB/s aggregate, round p50 "
+                        f"{row['round_p50_ms']:.0f} ms, applied {r['applied']}")
+    finally:
+        if POOL_SWEEP:
+            if saved_pool is None:
+                os.environ.pop("MPIT_POOL_THREADS", None)
+            else:
+                os.environ["MPIT_POOL_THREADS"] = saved_pool
+            comm_pool.configure(None)
+    return rows
+
+
+def _lm_gang_run(nservers: int, nworkers: int, *, steps: int, weights=None,
+                 codec: str = "int8", agg: bool = True, seed: int = 1) -> dict:
+    """One in-process LM training gang: ``nservers`` server threads holding
+    the weighted aligned-cut layout (server rule = the trainer's opt, so
+    per-element optimizer slots live beside each shard), ``nworkers``
+    LmTrainer threads over chunked transports with codec ``codec``,
+    optionally through the aggregation tree.  Returns per-worker trainer
+    results, the plan, and the servers' final params."""
+    import numpy as np
+
+    from mpit_tpu_torch.agg import AggClient, AggConfig
+    from mpit_tpu_torch.comm.local import LocalRouter
+    from mpit_tpu_torch.ft import FTConfig
+    from mpit_tpu_torch.lm import LmTrainer, plan
+    from mpit_tpu_torch.optim import rules as rules_mod
+    from mpit_tpu_torch.ps import ParamClient, ParamServer
+    from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, lm_spec_tree
+    from mpit_tpu_torch.utils.config import Config
+
+    tcfg = Config(d_model=LM_DMODEL, n_heads=4, n_layers=LM_LAYERS, seq_len=LM_SEQ,
+                  batch=LM_BATCH, opt=LM_OPT, lr=0.1, steps=steps,
+                  eval_every=max(steps // 4, 1), eval_batches=1, seed=seed,
+                  device=DEVICE)
+    rule = LM_OPT if LM_OPT in rules_mod.names() else "add"
+    lm_plan = plan(lm_spec_tree(LAUNCH_DEFAULTS.merged(
+        lm_d_model=LM_DMODEL, lm_heads=4, lm_layers=LM_LAYERS, lm_seq=LM_SEQ)),
+        nservers, rule=rule, server_weights=weights)
+    ft = FTConfig(op_deadline_s=120.0, max_retries=4, backoff_base_s=0.01,
+                  backoff_cap_s=0.1, chunk_bytes=int(LM_CHUNK_KB * 1024))
+    n = nservers + nworkers
+    router = LocalRouter(n)
+    cranks = list(range(nservers, n))
+    servers = [ParamServer(r, cranks, router.endpoint(r), rule=rule, ft=ft, device=DEVICE)
+               for r in range(nservers)]
+    sths = [threading.Thread(target=s.start, daemon=True) for s in servers]
+    for t in sths:
+        t.start()
+    ns = f"lmbench{os.getpid()}_{next(_GANG_SEQ)}"
+    acfg = AggConfig(mode="tree", groups=(), fanin=2, tree_seed=0, deadline_s=600.0)
+    trainers = []
+    for i, r in enumerate(cranks):
+        inner = ParamClient(r, list(range(nservers)), router.endpoint(r),
+                            seed_servers=(i == 0), ft=ft, codec=codec or "none",
+                            layout=lm_plan.layout)
+        pc = AggClient(inner, cranks, acfg, namespace=ns, device=DEVICE) if agg else inner
+        trainers.append(LmTrainer(tcfg, pclient=pc, rank=r))
+    results: list = [None] * nworkers
+    errors: dict = {}
+
+    def drive(i):
+        try:
+            results[i] = trainers[i].run()
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            errors[i] = exc
+
+    t0 = time.monotonic()
+    ths = [threading.Thread(target=drive, args=(i,), daemon=True) for i in range(nworkers)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(1800)
+        assert not t.is_alive(), "lm bench worker hung"
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[min(errors)]
+    for s in servers:
+        s.live.stop()
+    for t in sths:
+        t.join(60)
+        assert not t.is_alive(), "lm bench server never stopped"
+    finals = [s.param.detach().cpu().numpy().copy() for s in servers]
+    return {"results": results, "plan": lm_plan, "wall": wall,
+            "final_params": np.concatenate(finals),
+            "grads_applied": [s.grads_applied for s in servers]}
+
+
+def bench_lm() -> list:
+    """The LM legs.  Headline: LM_WORKERS trainers x LM_SERVERS weighted-cut
+    servers, chunked + int8 error feedback + the aggregation tree at once,
+    gated on the loss falling and on the state spanning the servers.
+    Determinism: the identical one-worker gang twice, gated on bit-equal
+    final server params."""
+    import numpy as np
+
+    rows = []
+    weights = [3.0, 2.0] + [1.0] * (LM_SERVERS - 2) if LM_SERVERS >= 2 else None
+    log(f"[lm] headline: {LM_SERVERS}s/{LM_WORKERS}w threads on {DEVICE}, d_model "
+        f"{LM_DMODEL} x {LM_LAYERS}L seq {LM_SEQ} batch {LM_BATCH}, opt {LM_OPT}, "
+        f"{LM_STEPS} steps, weighted cut {weights}, chunk {LM_CHUNK_KB:.0f} KB, "
+        "codec int8, agg tree")
+    r = _lm_gang_run(LM_SERVERS, LM_WORKERS, steps=LM_STEPS, weights=weights)
+    summary = r["plan"].summary()
+    # The sharding is real: no one server holds the whole params+state.
+    foot = summary["footprint_mb"]
+    assert max(foot) < summary["total_footprint_mb"] * 0.75, summary
+    tokens = sum(res["tokens_total"] for res in r["results"])
+    losses0 = [res["history"][0]["avg_loss"] for res in r["results"]]
+    losses1 = [res["history"][-1]["avg_loss"] for res in r["results"]]
+    assert all(b < a for a, b in zip(losses0, losses1)), (losses0, losses1)
+    agg_tps = tokens / max(r["wall"], 1e-9)
+    rows.append({
+        "metric": "lm_tokens_per_s", "value": round(agg_tps, 1), "unit": "tokens/s",
+        "servers": LM_SERVERS, "workers": LM_WORKERS, "codec": "int8",
+        "chunk_kb": LM_CHUNK_KB, "agg": "tree", "opt": LM_OPT, "steps": LM_STEPS,
+        "d_model": LM_DMODEL, "n_layers": LM_LAYERS, "seq_len": LM_SEQ,
+        "batch": LM_BATCH, "device": DEVICE, "tokens_total": tokens,
+        "wall_s": round(r["wall"], 2),
+        "per_worker_tps": [round(res["tokens_per_s"], 1) for res in r["results"]],
+        "loss_first": [round(x, 4) for x in losses0],
+        "loss_final": [round(x, 4) for x in losses1],
+        "trajectory": [{"step": h["step"], "avg_loss": round(h["avg_loss"], 4),
+                        "eval_loss": round(h["eval_loss"], 4),
+                        "tokens_per_s": round(h["tokens_per_s"], 1)}
+                       for h in r["results"][0]["history"]],
+        "plan": summary, "grads_applied": r["grads_applied"],
+    })
+    log(f"[lm] headline: {agg_tps:.1f} tokens/s aggregate, loss {losses0} -> {losses1}, "
+        f"shards {summary['shard_elems']} ({summary['footprint_mb']} MB)")
+    det_steps = max(LM_STEPS // 2, 4)
+    log(f"[lm] determinism: the identical 1-worker gang twice, {det_steps} steps")
+    a = _lm_gang_run(LM_SERVERS, 1, steps=det_steps, weights=weights, seed=7)
+    b = _lm_gang_run(LM_SERVERS, 1, steps=det_steps, weights=weights, seed=7)
+    assert np.array_equal(a["final_params"], b["final_params"]), \
+        "1-worker LM gang is not bitwise reproducible"
+    rows.append({"metric": "lm_bitwise_determinism", "value": 1, "unit": "bool",
+                 "servers": LM_SERVERS, "workers": 1, "codec": "int8", "agg": "tree",
+                 "steps": det_steps, "param_elems": int(a["final_params"].size),
+                 "device": DEVICE})
+    log("[lm] determinism: final server params bitwise equal")
+    return rows
+
+
 def main() -> None:
     refuse_later_legs()
-    if os.environ.get("MPIT_BENCH_STREAM") == "only":
-        for row in bench_stream():
-            print(json.dumps(row), flush=True)
+    only = {name: os.environ.get(f"MPIT_BENCH_{name}") == "only"
+            for name in ("STREAM", "AGG", "LM")}
+    if any(only.values()):
+        for name, bench in (("STREAM", bench_stream), ("AGG", bench_agg), ("LM", bench_lm)):
+            if only[name]:
+                for row in bench():
+                    print(json.dumps(row), flush=True)
         return
     for codec in CODECS or [""]:
         for hb in ([False, True] if HEARTBEAT_SWEEP else [False]):
@@ -1345,6 +1681,12 @@ def main() -> None:
             print(json.dumps(bench_cells(max(killable), kill=True)), flush=True)
     if STREAM_SWEEP:
         for row in bench_stream():
+            print(json.dumps(row), flush=True)
+    if AGG_SWEEP:
+        for row in bench_agg():
+            print(json.dumps(row), flush=True)
+    if LM_SWEEP:
+        for row in bench_lm():
             print(json.dumps(row), flush=True)
 
 
