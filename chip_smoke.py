@@ -56,7 +56,7 @@ order; any failure raises and the script exits non-zero:
    ``torch.profiler``), ``bicnn_vs_cpu`` (five ``sgd`` steps of the docqa
    model at full width, 1,365,250 floats, card against CPU) and three
    docqa process gangs over shm, every rank on the card, one epoch at
-   batch 2: EAMSGD np=6 with the tester first (its checkpoint read back),
+   batch 4: EAMSGD np=6 with the tester first (its checkpoint read back),
    server-side Adam np=4 (K3 in the servers = 2 x the workers' steps; the
    servers' per-GRAD apply timed at their 682,625-float shard, K3 held
    bit-equal there) and adamsingle np=4 (K3 = the workers' steps);
@@ -177,10 +177,29 @@ order; any failure raises and the script exits non-zero:
    int8, 64 KiB chunks, 20 steps: the losses fall, no server holds 75% of
    the footprint, K4 and K5 exact; tokens/s printed) and
    ``lm_gang_adam_vs_cpu`` (one worker, 2 Adam servers, 3 steps on the card
-   twice, bit for bit, and on the CPU, within ``LM_LIMITS["float32"]``);
+   twice, bit for bit, and on the CPU, within ``LM_LIMITS["float32"]``, per
+   element within ``LM_GANG_ADAM_MAX_ABS_SHARE``; the first apply on each
+   shard shows why: gradients within ``LM_LIMITS["float32"]``, K3 bit for bit
+   its twin, each step gap within Adam's slope near 0 times its gradient gap);
    beside them ``lm_agg_procs`` (``launch --np 6 --lm 1 --lm_weights 3,1,2
    --agg tree`` at the same widths, 10 steps: each child's K4 and K5 exact)
-   and ``tools/torch_ptest.py``'s aggregation A/B and LM legs.
+   and ``tools/torch_ptest.py``'s aggregation A/B and LM legs;
+8c. ring attention and ``lm_launch --sp`` on one card (slice 7c), the ring's
+   4 ranks virtual on the card: ``ring_kernels`` (lm_longcontext's attention,
+   bf16, zigzag and contiguous: the flash ring's output against the plain
+   ring's, its grads against the same backward ring over the pairs' twin on
+   its own (o, lse), both against flash_attention at sp 1, under the bf16 row
+   rule; the contiguous ring also forced to K6; K4 once a live pair, K5 once
+   and K6 twice), wholly masked pairs (every key after every query) on K4's
+   partial mode, K5 and K6 in float32 and bfloat16, their outputs allocated
+   over NaN: the twin's exact zeros; the collectives bit for bit their
+   definitions; then ``lm_ring_longcontext`` (``lm_longcontext`` at ``--sp 4
+   --layout zigzag``: K4 and K5 36 a layer a pass), ``lm_ring_contiguous_k6``
+   (``--layout contiguous``, 3 steps, K6 forced: K4 16, K6 2 x 16),
+   ``lm_ring_vs_local`` (the first window's loss against
+   ``lm_longcontext``'s; ``--sp 4`` in float32 at lm_vs_cpu's widths, both
+   layouts, card against the CPU under ``LM_LIMITS["float32"]``) and
+   ``measure_ps_pushpull(64)``'s MB/s.
 
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
@@ -2466,6 +2485,12 @@ def elastic_adam_procs(all_paths, smi, timing):
     return wall
 
 
+#: rounds of each of ptest's shard-control legs: 20 took the block 112.6-128.9 s
+#: on an H100, of it the two straggler legs 23-25 s; 10 keeps the whole script
+#: inside its time beside the ring block
+PTEST_SC_ROUNDS = "10"
+
+
 def ptest_sc_legs(smi):
     """``tools/torch_ptest.py``'s shard-control legs at 16 MB: the codec-none
     leg, the straggler A/B (rebalance off, then on: the on-leg's map must
@@ -2473,7 +2498,7 @@ def ptest_sc_legs(smi):
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
                           env=dict(os.environ, MPIT_BENCH_CODECS="none", MPIT_BENCH_MB="16",
-                                   MPIT_BENCH_ROUNDS="20", MPIT_BENCH_SKEW="1",
+                                   MPIT_BENCH_ROUNDS=PTEST_SC_ROUNDS, MPIT_BENCH_SKEW="1",
                                    MPIT_BENCH_ELASTIC="1"),
                           capture_output=True, text=True, timeout=900)
     sys.stdout.write(proc.stderr[-4000:])
@@ -4129,16 +4154,23 @@ def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d,
 def lm_expected(cfg, runs):
     """Launches of ``runs`` LM steps: K1 once a step, K4 once a layer, and
     K5 once or K6 twice a layer, as the gate decides at the path's
-    attention shape."""
+    attention shape; at ``sp > 1`` each of those once a live pair of the
+    ring (``ring_pairs``) at the pair's shape."""
     from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
+    from mpit_tpu_torch.parallel.ring_attention import ring_pairs
 
     import torch
 
     head = cfg.d_model // cfg.n_heads
-    shape = (cfg.batch, cfg.n_heads, cfg.seq_len, head)
+    sp = int(cfg.sp) or 1
+    pairs, rows = 1, cfg.seq_len
+    if sp > 1:
+        pairs = ring_pairs(sp, cfg.layout)
+        rows = cfg.seq_len // sp // (2 if cfg.layout == "zigzag" else 1)
+    shape = (cfg.batch, cfg.n_heads, rows, head)
     fused = _use_fused_bwd(shape, shape, head, cfg.device, getattr(torch, cfg.attn_dtype))
-    want = {"k1": runs, "k4": cfg.n_layers * runs}
-    want["k5" if fused else "k6"] = (1 if fused else 2) * cfg.n_layers * runs
+    want = {"k1": runs, "k4": cfg.n_layers * runs * pairs}
+    want["k5" if fused else "k6"] = (1 if fused else 2) * cfg.n_layers * runs * pairs
     return want, "fused (K5)" if fused else "two-kernel (K6)"
 
 
@@ -4169,6 +4201,8 @@ def lm_path(torch, name, kernels, **kw):
     }
     print(f"{name}: " + json.dumps(reading))
     expect_launches(name, launches, want)
+    if res["mesh"] != {"dp": 1, "sp": int(cfg.sp) or 1}:
+        raise AssertionError(f"{name}: ran on the mesh {res['mesh']}")
     return res, {"launches": launches, "steps": cfg.steps, "warmup_steps": 1,
                  "schedule": schedule, "tokens_per_sec": reading["tokens_per_sec"],
                  "peak_mem_gb": reading["peak_mem_gb"]}
@@ -4192,7 +4226,8 @@ def fused_bwd_env(value):
 def lm_paths(torch, kernels, paths):
     """``lm_default``, ``lm_default`` under the other schedule,
     ``lm_longcontext`` and ``lm_longcontext_32k`` (where the gate, left to
-    itself, must pick K6); fills ``paths[kernel][path]``."""
+    itself, must pick K6); fills ``paths[kernel][path]`` and returns
+    ``lm_longcontext``'s result."""
     from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_32K_KWARGS, LONGCONTEXT_KWARGS
 
     def record(name, rec):
@@ -4210,8 +4245,8 @@ def lm_paths(torch, kernels, paths):
                          log_every=3)
     record("lm_default_other_schedule", rec)
     torch.cuda.reset_peak_memory_stats()
-    _, rec = lm_path(torch, "lm_longcontext", kernels, steps=6, log_every=3,
-                     **LONGCONTEXT_KWARGS)
+    longcontext, rec = lm_path(torch, "lm_longcontext", kernels, steps=6, log_every=3,
+                               **LONGCONTEXT_KWARGS)
     record("lm_longcontext", rec)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4226,21 +4261,25 @@ def lm_paths(torch, kernels, paths):
         if not any(p["launches"] for name, p in paths[key].items()
                    if name.startswith("lm_")):
             raise AssertionError(f"{key} launched in no LM training step")
+    return longcontext
 
 
-def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None):
+def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None, sp=1, layout="zigzag"):
     """Three LM steps at d 128, 4 heads (head width 32), 2 layers, context
     256, batch 2, attention in ``attn_dtype``, on the card and on the CPU
     from one w0 (flatten_module draws it on the CPU from the seed), held
     to LM_LIMITS[attn_dtype].  ``fused_bwd``: ``MPIT_FA_FUSED_BWD`` for
-    the run (None: the gate's choice, K5 at this shape; ``"0"``: K6)."""
+    the run (None: the gate's choice, K5 at this shape; ``"0"``: K6).
+    ``sp > 1``: ring attention over ``sp`` ranks in ``layout``, the flash
+    ring on the card against the plain ring on the CPU."""
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.transformer import TinyDecoder
     from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, run
 
-    name = f"lm_vs_cpu_{attn_dtype}" + ("" if fused_bwd is None else "_two_kernel")
+    name = (f"lm_vs_cpu_{attn_dtype}" + ("" if fused_bwd is None else "_two_kernel")
+            + ("" if sp == 1 else f"_sp{sp}_{layout}"))
     kw = dict(d_model=128, n_heads=4, n_layers=2, seq_len=256, batch=2,
-              attn_dtype=attn_dtype, steps=3, log_every=1)
+              attn_dtype=attn_dtype, steps=3, log_every=1, sp=sp, layout=layout)
     finals, losses = {}, {}
     for device in ("cuda", "cpu"):
         for k in kernels.values():
@@ -4282,6 +4321,268 @@ def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None):
             **{k: readings[k] for k in ("w", "vt", "loss_rel_gap")}}
 
 
+# -- ring attention and lm_launch --sp on one card (slice 7c) ----------------------
+
+#: the ring's virtual ranks on every ring path
+RING_SP = 4
+#: ring_kernels' attention: lm_longcontext's (B, H, L, D), bf16, causal
+RING_ATTN = (1, 8, 8192, 128)
+#: wholly masked pairs, every key after every query, as the contiguous ring hands
+#: every rank below the owner at steps s > 0: (leading axes, Lq, Lk, D, q_offset,
+#: kv_offset); the first is a pair of ring_kernels' contiguous ring
+RING_DEAD = (((1, 8), 2048, 2048, 128, 0, 2048), ((2, 3), 203, 131, 64, 20, 223))
+
+
+def ring_attend(torch, fn, q, k, v, do):
+    """``fn(q, k, v)`` and the grads of ``sum(out * do)`` with respect to q,
+    k and v, by autograd."""
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fn(qs, ks, vs)
+    grads = torch.autograd.grad(out, (qs, ks, vs), do)
+    return (out.detach(),) + tuple(grads)
+
+
+@contextlib.contextmanager
+def twin_pair_backward():
+    """The ring's pair backward replaced by K5's and K6's twin
+    (``attention_bwd_reference``) inside the block: the flash ring's
+    backward then runs its plain version on the same (o, lse)."""
+    import importlib
+
+    from mpit_tpu_torch.ops.flash_attention import attention_bwd_reference
+
+    ring_mod = importlib.import_module("mpit_tpu_torch.parallel.ring_attention")
+    real = ring_mod.flash_attention_bwd_pair
+
+    def twin(q, k, v, do, lse, *, delta, **kw):
+        return attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+
+    ring_mod.flash_attention_bwd_pair = twin
+    try:
+        yield
+    finally:
+        ring_mod.flash_attention_bwd_pair = real
+
+
+def ring_kernels(torch, kernels, errs):
+    """At lm_longcontext's attention cut over RING_SP ranks, in both layouts,
+    the flash ring on the card against its plain version on the card, under
+    the bf16 row rule (fa_err): the output against the plain ring's
+    (block_attention_partial's partials, merged), the grads against the
+    same backward ring over the pairs' twin (``attention_bwd_reference``)
+    on the flash ring's own (o, lse); and output and grads against
+    flash_attention at sp 1.  The contiguous ring runs under the gate (K5)
+    and forced to K6.  Each flash ring launches K4 once a pair and K5 once
+    (K6 twice) a pair.  The plain ring's own grads, by autograd, are
+    printed beside them and not held: they take ``delta`` from the float32
+    output where the flash backward (K5, K6 and their twin, in the ring and
+    at sp 1 alike) takes it from the bf16 one, which moves rows with a
+    few keys by more than the row rule allows.  Folds the gaps to the plain
+    versions into ``errs`` (K4: the output; K5, K6: the grads).  Returns
+    the readings."""
+    from mpit_tpu_torch.models.transformer import default_attn
+    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
+    from mpit_tpu_torch.parallel import ring_attention, sp_mesh
+    from mpit_tpu_torch.parallel.ring_attention import ring_pairs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, h, seq, d = RING_ATTN
+    q, k, v = ((0.5 * torch.randn(b, seq, h, d, device=dev, generator=gen)).to(torch.bfloat16)
+               for _ in range(3))
+    do = torch.randn(b, seq, h, d, device=dev, generator=gen).to(torch.bfloat16)
+    mesh = sp_mesh(RING_SP, dev)
+    local = ring_attend(torch, default_attn(causal=True), q, k, v, do)
+    readings, autograd = {}, {}
+    for layout in ("zigzag", "contiguous"):
+        plain = ring_attend(torch, ring_attention(mesh, impl="plain", layout=layout),
+                            q, k, v, do)
+        pairs = ring_pairs(RING_SP, layout)
+        rows = seq // RING_SP // (2 if layout == "zigzag" else 1)
+        shape = (b, h, rows, d)
+        if not _use_fused_bwd(shape, shape, d, dev, torch.bfloat16):
+            raise AssertionError(f"ring_kernels: the gate refuses K5 at the pair {shape}")
+        flash_ring = ring_attention(mesh, impl="flash", layout=layout)
+        with twin_pair_backward():
+            twin = ring_attend(torch, flash_ring, q, k, v, do)
+        for schedule, env, want in (("k5", None, {"k4": pairs, "k5": pairs}),
+                                    ("k6", "0", {"k4": pairs, "k6": 2 * pairs})):
+            if schedule == "k6" and layout == "zigzag":
+                continue
+            zero_counts(kernels)
+            with fused_bwd_env(env):
+                flash = ring_attend(torch, flash_ring, q, k, v, do)
+            torch.cuda.synchronize()
+            expect_launches(f"ring_kernels {layout} {schedule}", read_counts(kernels), want)
+            for what, got, p, t, sp1 in zip(("o", "dq", "dk", "dv"), flash, plain, twin,
+                                            local):
+                atol = FA_FWD_ATOL if what == "o" else FA_BWD_ATOL
+                gap = fa_err(torch, got, p if what == "o" else t, atol, rows=True)
+                readings[f"{layout}_{schedule}_{what}_vs_plain"] = gap
+                readings[f"{layout}_{schedule}_{what}_vs_sp1"] = fa_err(torch, got, sp1, atol,
+                                                                        rows=True)
+                if what != "o":
+                    autograd[f"{layout}_{schedule}_{what}"] = fa_err(torch, got, p, atol,
+                                                                     rows=True)
+                key = "k4" if what == "o" else schedule
+                errs[key] = max(errs[key], gap[0])
+            del flash
+        del plain, twin
+        torch.cuda.empty_cache()
+    print(f"ring_kernels at (B, H, L, D) = {RING_ATTN} bf16 causal, sp {RING_SP} (max abs "
+          "gap, share of the limit): " + json.dumps(readings))
+    print("ring_kernels, the grads against the plain ring's by autograd (not held): "
+          + json.dumps(autograd))
+    for what, (gap, used) in readings.items():
+        if not used <= 1.0:
+            raise AssertionError(f"ring_kernels: {what} past its limit: gap {gap}, "
+                                 f"{used} of the limit")
+    return readings
+
+
+def poison_allocator(torch, blocks):
+    """Hand the caching allocator blocks of ``(shape, dtype)`` filled with
+    NaN: outputs allocated next with those sizes likely start from NaN, so a
+    kernel that leaves an element unwritten shows."""
+    held = [torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+            for shape, dtype in blocks]
+    torch.cuda.synchronize()
+    del held
+
+
+def ring_dead_pairs(torch):
+    """K4's partial mode, K5 and K6 on RING_DEAD's wholly masked pairs, in
+    float32 and bfloat16, each output allocated over NaN: bit for bit the
+    twin's acc 0, m -inf, l 0, and exact zero grads (lse and delta finite,
+    as the ring's backward gives them)."""
+    from mpit_tpu_torch.ops.flash_attention import (
+        _dq_block_k, attention_bwd_reference, block_attention_partial, flash_bwd_fused,
+        flash_bwd_two_kernel, flash_fwd)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    checked = []
+    for lead, lq, lk, d, q_off, kv_off in RING_DEAD:
+        if q_off + lq > kv_off:
+            raise AssertionError(f"RING_DEAD pair {lead, lq, lk} is not wholly masked")
+        kw = dict(causal=True, q_offset=q_off, kv_offset=kv_off)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = ((0.5 * torch.randn(*lead, n, d, device=dev, generator=gen)).to(dtype)
+                           for n in (lq, lk, lk, lq))
+            lse = torch.randn(*lead, lq, device=dev, generator=gen) + 3.0
+            delta = torch.randn(*lead, lq, device=dev, generator=gen)
+            twin_fwd = block_attention_partial(q, k, v, **kw)
+            twin_bwd = attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+            f32, rows, size = torch.float32, (*lead, lq), (*lead, lq, d)
+            grads = [(size, dtype), ((*lead, lk, d), dtype), ((*lead, lk, d), dtype)]
+            poison_allocator(torch, [(size, f32), (rows, f32), (rows, f32)])
+            fwd = flash_fwd(q, k, v, partial=True, **kw)
+            tiles = math.ceil(lk / _dq_block_k(dev, dtype))
+            poison_allocator(torch, [((tiles, *size), f32)] + grads)
+            k5 = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+            poison_allocator(torch, grads)
+            k6 = flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            acc, m, l = fwd
+            exact = (torch.equal(acc, twin_fwd[0]) and not bool(acc.any())
+                     and torch.equal(m, twin_fwd[1]) and bool(torch.isneginf(m).all())
+                     and torch.equal(l, twin_fwd[2]) and not bool(l.any()))
+            for name, grads in (("K5", k5), ("K6", k6)):
+                exact = exact and all(torch.equal(g, t) and not bool(g.any())
+                                      for g, t in zip(grads, twin_bwd))
+            if not exact:
+                raise AssertionError(f"a wholly masked pair {lead} Lq {lq} Lk {lk} D {d} "
+                                     f"offsets ({q_off}, {kv_off}) {dtype}: K4's partials "
+                                     "or K5's / K6's grads are not the twin's exact zeros")
+            checked.append(f"{lead} {lq}x{lk} D {d} ({q_off}, {kv_off}) {str(dtype)[6:]}")
+    print("ring dead pairs, K4 partials and K5 / K6 grads the twin's exact zeros: "
+          + json.dumps(checked))
+
+
+def ring_collectives(torch, smi):
+    """``ring_shift`` (both ways), ``ps_pull``, ``ps_push`` (with and without
+    the worker sum), ``ps_pushpull`` and ``allreduce_mean`` on the card bit for
+    bit against their definitions, over 4 virtual ranks; then
+    ``measure_ps_pushpull(64, rounds=20)``'s MB/s."""
+    from mpit_tpu_torch.parallel import (
+        Mesh, allreduce_mean, ps_pull, ps_push, ps_pushpull, ring_shift)
+    from mpit_tpu_torch.parallel.collective import measure_ps_pushpull
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    mesh = Mesh(dev, dp=4, shard=4)
+    x, p = (torch.randn(4, 1 << 18, device=dev, generator=gen) for _ in range(2))
+    g = torch.randn(4 << 18, device=dev, generator=gen)
+    # integers: a sum of four is exact in any order, and so is its quarter
+    w = torch.randint(-1000, 1000, (4, 1 << 18), device=dev, generator=gen).float()
+    full, shards = ps_pushpull(mesh, lambda ps, gs: ps + gs)(p, g)
+    checks = {
+        "ring_shift": torch.equal(ring_shift(mesh, "shard")(x), torch.cat([x[-1:], x[:-1]])),
+        "ring_shift_reverse": torch.equal(ring_shift(mesh, "shard", reverse=True)(x),
+                                          torch.cat([x[1:], x[:1]])),
+        "ps_pull": torch.equal(ps_pull(mesh)(x), torch.cat(list(x))),
+        "ps_push": torch.equal(ps_push(mesh)(g), torch.stack(g.chunk(4))),
+        "ps_push_reduce": torch.equal(ps_push(mesh, reduce_axis="dp")(w),
+                                      torch.stack((w[0] + w[1] + w[2] + w[3]).chunk(4))),
+        "ps_pushpull": torch.equal(shards, p + torch.stack(g.chunk(4)))
+        and torch.equal(full, torch.cat(list(shards))),
+        "allreduce_mean": torch.equal(allreduce_mean(mesh)(w),
+                                      ((w[0] + w[1] + w[2] + w[3]) / 4).expand(4, -1)),
+    }
+    print("ring collectives on the card, bit for bit their definitions: " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"a collective differs from its definition: {checks}")
+    res = measure_ps_pushpull(64, rounds=20)
+    print(f"ps_pushpull on {smi}: {res['mbs']:.1f} MB/s (64 MB payload, one card, "
+          f"shard 1: the round is one add) " + json.dumps(res))
+    return res
+
+
+def ring_lm_phases(torch, kernels, all_paths, smi, longcontext, errs):
+    """Ring attention and ``lm_launch --sp`` on one card (slice 7c):
+    ``ring_kernels``, the wholly masked pairs and the collectives, then
+    ``lm_ring_longcontext`` (lm_longcontext's widths and steps at ``--sp 4
+    --layout zigzag``: K4 once a live pair, 36 a layer a pass, K5 the same),
+    ``lm_ring_contiguous_k6`` (``--layout contiguous``, 3 steps, forced to
+    K6: K4 16 a layer a pass, K6 2 x 16), ``lm_ring_vs_local`` (the first
+    window's loss against ``lm_longcontext``'s at the same seed, within
+    ``LM_LIMITS["bfloat16"]["loss_rtol"]``; and the ring on the card against
+    the port's CPU ring at lm_vs_cpu's widths in float32, both layouts, under
+    ``LM_LIMITS["float32"]``), and ``measure_ps_pushpull``."""
+    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_KWARGS
+
+    t0 = time.perf_counter()
+    ring_kernels(torch, kernels, errs)
+    ring_dead_pairs(torch)
+    ring_collectives(torch, smi)
+    t_checks = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_bwd_env(None):
+        ring, rec = lm_path(torch, "lm_ring_longcontext", kernels, steps=6, log_every=3,
+                            sp=RING_SP, layout="zigzag", **LONGCONTEXT_KWARGS)
+    record_path(all_paths, "lm_ring_longcontext", rec["launches"], rec["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    with fused_bwd_env("0"):
+        _, rec = lm_path(torch, "lm_ring_contiguous_k6", kernels, steps=3, log_every=3,
+                         sp=RING_SP, layout="contiguous", **LONGCONTEXT_KWARGS)
+    record_path(all_paths, "lm_ring_contiguous_k6", rec["launches"], rec["steps"])
+    first = {name: r["history"][0]["avg_loss"]
+             for name, r in (("ring", ring), ("local", longcontext))}
+    gap = abs(first["ring"] - first["local"]) / abs(first["local"])
+    print(f"lm_ring_vs_local on {smi}: the first window's loss (steps 0-2), sp {RING_SP} "
+          f"zigzag {first['ring']} vs sp 1 {first['local']}: relative gap {gap} (limit "
+          f"{LM_LIMITS['bfloat16']['loss_rtol']}); tokens/s {ring['tokens_per_sec']} vs "
+          f"{longcontext['tokens_per_sec']}")
+    if not gap <= LM_LIMITS["bfloat16"]["loss_rtol"]:
+        raise AssertionError(f"lm_ring_vs_local: the ring's loss differs by {gap} relative")
+    for layout in ("zigzag", "contiguous"):
+        rec = lm_vs_cpu(torch, kernels, "float32", sp=RING_SP, layout=layout)
+        record_path(all_paths, rec["name"], rec["launches"], rec["steps"])
+    print(f"ring_lm phases: {time.perf_counter() - t0:.1f}s (kernel and collective checks "
+          f"{t_checks:.1f}s)")
+
+
 # -- hierarchical aggregation and the LM through the gang (slices 5g and 7b) -------
 
 #: lockstep rounds of the aggregation gangs
@@ -4298,12 +4599,13 @@ LM_GANG = dict(d_model=256, n_heads=8, n_layers=2, seq_len=1024, batch=8)
 LM_GANG_PARAMS = 1_971_200
 #: lm_gang_adam_vs_cpu's per-element limit, as a share of the largest change
 #: (LM_LIMITS["float32"] holds the norm and the losses).  LM_LIMITS's 1e-6
-#: absolute assumes a step proportional to the gradient; Adam moves each
-#: element by about lr whatever |g|, and where |g| is near its epsilon (1e-8)
-#: the step's slope is lr / (4 epsilon), 25,000 at lr 1e-3, so a near-zero
-#: sum whose devices differ by summation order there moves it by percents of
-#: lr (5.17e-6 of a 3.0e-3 change measured on an H100, 0.17%; PERF.md).  A
-#: dropped or doubled step is a third of the change.
+#: absolute assumes a step proportional to the gradient.  Adam's first step is
+#: ``lr * g / (|g| + eps')`` with ``eps' = eps / sqrt(1 - beta2)`` (3.2e-7): about
+#: lr whatever |g|, but with slope ``lr / eps'`` (3,162 at lr 1e-3) near g = 0,
+#: so a gradient gap of summation order far below 1e-6 moves a near-zero element
+#: by more (``adam_first_step`` shows it every run: on an H100, 5.14e-6 from a
+#: 1.74e-9 gradient gap at |g| 9.7e-9; PERF.md).  A dropped or doubled step is a
+#: third of the change.
 LM_GANG_ADAM_MAX_ABS_SHARE = 2.0**-7
 
 
@@ -4707,6 +5009,96 @@ def lm_gang_flagship(torch, kernels, all_paths, smi):
     record_path(all_paths, name, run["launches"], 2 * steps)
 
 
+@contextlib.contextmanager
+def first_adam_applies(box):
+    """Wrap the Adam rule's K3 call (``rules.fused_adam``) so that each shard's
+    first apply, keyed by the shard's length, leaves in ``box`` copies of
+    what K3 read (p, g, m, v, lr_t and its keywords) and of the p it wrote.
+    The real wrapper still launches and counts."""
+    from mpit_tpu_torch.optim import rules
+
+    real = rules.fused_adam
+
+    def wrapped(p, g, m, v, lr_t, **kw):
+        first = p.numel() not in box
+        if first:
+            box[p.numel()] = {"p0": p.clone(), "g": g.clone(), "m0": m.clone(),
+                              "v0": v.clone(), "lr_t": lr_t.clone(), "kw": kw}
+        out = real(p, g, m, v, lr_t, **kw)
+        if first:
+            box[p.numel()]["p1"] = p.clone()
+        return out
+
+    rules.fused_adam = wrapped
+    try:
+        yield
+    finally:
+        rules.fused_adam = real
+
+
+def adam_first_step(torch, card, cpu):
+    """Where the LM Adam gang's card-vs-CPU gap comes from, shard by shard on
+    the first apply (m and v zero, ``t`` 1): the card's gradient against the
+    CPU's (the largest gap, and its norm over the gradient's); K3's apply on
+    the card against its twin applied on the card to the same inputs; the
+    twin's rounding on the CPU against the card's on those inputs; and each
+    element's step gap against Adam's slope at 0, ``lr / eps'`` with ``eps'
+    = eps / sqrt(1 - beta2)``, times its gradient gap, plus four float32
+    ulps of the larger of p and the step (the twins' rounding and p's).
+    Returns the readings; ``adam_first_step_holds`` judges them."""
+    from mpit_tpu_torch.ops.fused_update import fused_adam_reference
+
+    out = {}
+    if sorted(card) != sorted(cpu) or len(card) != 2:
+        raise AssertionError(f"adam first applies: shards {sorted(card)} vs {sorted(cpu)}")
+    for size in sorted(card):
+        on_card = card[size]
+        c = {k: (v.cpu() if hasattr(v, "cpu") else v) for k, v in on_card.items()}
+        h = cpu[size]
+        inputs = ("p0", "g", "m0", "v0", "lr_t")
+        card_twin = fused_adam_reference(*(on_card[k] for k in inputs), **c["kw"])[0].cpu()
+        cpu_twin = fused_adam_reference(*(c[k] for k in inputs), **c["kw"])[0]
+        g_gap = (c["g"] - h["g"]).abs()
+        step_gap = (c["p1"] - h["p1"]).abs()
+        beta1, beta2 = c["kw"].get("beta1", 0.9), c["kw"].get("beta2", 0.999)
+        lr = float(c["lr_t"]) * (1 - beta1) / math.sqrt(1 - beta2)
+        slope = lr * math.sqrt(1 - beta2) / c["kw"].get("epsilon", 1e-8)
+        scale = torch.maximum(h["p0"].abs(), torch.maximum((h["p1"] - h["p0"]).abs(),
+                                                           (c["p1"] - c["p0"]).abs()))
+        over = step_gap - (slope * g_gap * 1.001 + 4 * 2.0**-23 * scale)
+        at, worst = int(step_gap.argmax()), int(over.argmax())
+        twins_apart = cpu_twin != card_twin
+        out[size] = {
+            "p0_equal": torch.equal(c["p0"], h["p0"]),
+            "lr_t_equal": torch.equal(c["lr_t"], h["lr_t"]),
+            "grad_max_abs_gap": float(g_gap.max()),
+            "grad_gap_over_norm": float(g_gap.norm() / h["g"].norm()),
+            "k3_is_twin": torch.equal(c["p1"], card_twin),
+            "twin_cpu_vs_card": {"elements_apart": int(twins_apart.sum()),
+                                 "max_abs": float((cpu_twin - card_twin).abs().max())},
+            "step_max_abs_gap": float(step_gap.max()),
+            "at_max": {"g_cpu": float(h["g"][at]), "g_gap": float(g_gap[at]),
+                       "slope_x_g_gap": float(slope * g_gap[at])},
+            "over_slope": {"count": int((over > 0).sum()), "worst": float(over[worst])},
+            "max_abs_step": float((h["p1"] - h["p0"]).abs().max()),
+        }
+    return out
+
+
+def adam_first_step_holds(readings):
+    """``adam_first_step``'s claim, shard by shard: the same p0 and lr_t,
+    gradients within LM_LIMITS["float32"], K3 bit for bit its twin on the
+    card, and no step gap past Adam's slope on its gradient gap."""
+    lim = LM_LIMITS["float32"]
+    for size, r in readings.items():
+        if not (r["p0_equal"] and r["lr_t_equal"]
+                and r["grad_max_abs_gap"] <= lim["max_abs_gap"]
+                and r["grad_gap_over_norm"] <= lim["gap_over_change"] and r["k3_is_twin"]
+                and r["over_slope"]["count"] == 0):
+            raise AssertionError(f"adam first apply at a shard of {size}: the gap is not "
+                                 f"Adam's slope on gradients within LM_LIMITS: {r}")
+
+
 def lm_gang_adam_vs_cpu(torch, kernels, all_paths, smi):
     """One LM worker through the tree onto 2 Adam servers on the 3:2 cut,
     unchunked, codec none, 3 steps at LM_GANG (one eval batch a step), on
@@ -4716,7 +5108,8 @@ def lm_gang_adam_vs_cpu(torch, kernels, all_paths, smi):
     deterministic algorithms, as ``lm_resume``: under its defaults the LM's
     step does not repeat its bits on the card), the card's final server
     params and per-step losses within LM_LIMITS["float32"] of the CPU's,
-    K3 = each server's applies, K4 and K5 exact."""
+    K3 = each server's applies, K4 and K5 exact.  The first apply on each
+    shard shows where the per-element gap comes from (``adam_first_step``)."""
     import numpy as np
 
     from mpit_tpu_torch.lm import build
@@ -4724,8 +5117,11 @@ def lm_gang_adam_vs_cpu(torch, kernels, all_paths, smi):
     name, steps = "lm_gang_adam_vs_cpu", 3
     kw = dict(nworkers=1, weights=[3.0, 2.0], opt="adam", lr=1e-3, codec="none",
               chunk_bytes=0, steps=steps, eval_every=1, eval_batches=1)
+    first = {"cuda": {}, "cpu": {}}
     with deterministic_algorithms(torch):
-        runs = [lm_gang(torch, kernels, name, **kw) for _ in range(2)]
+        with first_adam_applies(first["cuda"]):
+            runs = [lm_gang(torch, kernels, name, **kw)]
+        runs.append(lm_gang(torch, kernels, name, **kw))
     for r in runs:
         if r["applied"] != [steps, steps]:
             raise AssertionError(f"{name}: applies {r['applied']}, want {steps} a server")
@@ -4733,7 +5129,12 @@ def lm_gang_adam_vs_cpu(torch, kernels, all_paths, smi):
             "k3": 2 * steps, **lm_gang_expected(1, steps, evals=steps, eval_batches=1)})
     if runs[0]["final"].tobytes() != runs[1]["final"].tobytes():
         raise AssertionError(f"{name}: two card runs end at different bits")
-    cpu = lm_gang(torch, kernels, name + "_cpu", device="cpu", **kw)
+    with first_adam_applies(first["cpu"]):
+        cpu = lm_gang(torch, kernels, name + "_cpu", device="cpu", **kw)
+    first_step = adam_first_step(torch, first["cuda"], first["cpu"])
+    print(f"{name} on {smi}: the first apply a shard, cuda vs cpu "
+          + json.dumps(first_step))
+    adam_first_step_holds(first_step)
     w0 = build(device="cpu", use_flash=False, seed=1,
                **{k: LM_GANG[k] for k in ("d_model", "n_heads", "n_layers", "seq_len")}
                ).flat.w0.numpy()
@@ -4878,8 +5279,10 @@ BICNN_DOCQA_PARAMS = 1_365_250
 # conv width 3, over its 5,178-word vocabulary).
 BICNN_SCALE_PARAMS = 3_416_600
 # The docqa gangs' batch: the reference's 1 took 130 s for the three gangs
-# on an H100 (1,021 round trips a worker), over the ~120 s they may take.
-BICNN_GANG_BATCH = 2
+# on an H100 (1,021 round trips a worker), 2 took 81 s (511); 4 (256 round
+# trips a worker) keeps the whole script inside its time beside the ring
+# block.
+BICNN_GANG_BATCH = 4
 
 
 def record_path(all_paths, name, launches, steps):
@@ -5361,7 +5764,7 @@ def main() -> int:
     slice4_s += time.perf_counter() - t_bicnn
 
     t_lm = time.perf_counter()
-    lm_paths(torch, kernels, all_paths)
+    longcontext = lm_paths(torch, kernels, all_paths)
     # bf16 twice: under the gate's K5 and under K6, each held to the CPU.
     for attn_dtype, fused_bwd in (("float32", None), ("bfloat16", None),
                                   ("bfloat16", "0")):
@@ -5369,6 +5772,7 @@ def main() -> int:
         for key in kernels:  # the readings are on the path's own line
             all_paths[key][rec["name"]] = {"launches": rec["launches"][key],
                                            "steps": rec["steps"], "schedule": rec["schedule"]}
+    ring_lm_phases(torch, kernels, all_paths, smi, longcontext, fa_errs)
     t_resume = time.perf_counter()
     rec = lm_resume(torch, kernels)
     record_path(all_paths, "lm_resume", rec["launches"], rec["steps"])

@@ -1,12 +1,20 @@
-"""A one-device stand-in for the reference's ``(dp, shard)`` device mesh.
+"""A one-device stand-in for the JAX package's device meshes.
 
-The port of ``mpit_tpu/parallel/mesh.py`` for this slice.  The JAX package
-lays ``dp`` worker rows (and ``shard`` column cuts) over a device mesh; on
-one H100 all ``dp`` worker rows live on the single card as one
-``(dp, plong)`` tensor, which is how the reference itself runs them on one
-chip.  Cutting parameters over a ``shard`` axis, or spreading rows over
-several devices, needs collectives and comes with the multi-card slice:
-both are refused here rather than silently run on one device.
+The port of ``mpit_tpu/parallel/mesh.py`` for one card.  The JAX package
+lays the ranks of each named mesh axis (``dp`` worker rows, ``shard``
+column cuts, ``sp`` sequence chunks) over devices.  Here every axis holds
+**virtual ranks on one device**: a tensor that a collective acts on carries
+the axis's ranks first, ``(n, ...)``, row ``i`` being rank ``i``'s block.
+That is how the ``dp`` rows of the trainers already live, as one ``(dp,
+plong)`` tensor, and how the reference itself runs its ranks on one chip.
+The collectives of :mod:`mpit_tpu_torch.parallel.collective` are tensor
+ops over that leading axis.
+
+:func:`make_mesh` builds the trainers' ``(dp, shard)`` mesh and keeps
+refusing what needs real collectives: more than one device, and a
+``shard`` axis that would cut the trainers' parameters (multi-card
+parallelism, a later slice of the port).  :func:`sp_mesh` builds ring
+attention's sequence axis.
 """
 
 from __future__ import annotations
@@ -17,16 +25,34 @@ import torch
 
 
 class Mesh:
-    """``dp`` worker rows on one device, ``shard == 1``."""
+    """Named axes of virtual ranks on one device, in the order given."""
 
-    def __init__(self, device: torch.device, dp: int):
-        if dp < 1:
-            raise ValueError(f"dp must be >= 1, got {dp}")
+    def __init__(self, device: torch.device | str, **axes: int):
+        if not axes:
+            raise ValueError("a mesh needs at least one named axis")
+        for name, size in axes.items():
+            if int(size) < 1:
+                raise ValueError(f"axis {name!r} must hold >= 1 ranks, got {size}")
         self.device = torch.device(device)
-        self.shape: Dict[str, int] = {"dp": int(dp), "shard": 1}
+        self.shape: Dict[str, int] = {name: int(size) for name, size in axes.items()}
+
+    def size(self, axis: str) -> int:
+        """The number of ranks on ``axis``; an axis the mesh lacks raises."""
+        if axis not in self.shape:
+            raise ValueError(f"the mesh has axes {tuple(self.shape)}, not {axis!r}")
+        return self.shape[axis]
+
+    def check_device(self, t: torch.Tensor, what: str) -> None:
+        """``t`` must lie on the mesh's device (a device without an index
+        stands for any index of its type)."""
+        want = self.device
+        if t.device.type != want.type or (want.index is not None
+                                          and t.device.index != want.index):
+            raise ValueError(f"{what} is on {t.device}, the mesh on {want}")
 
     def __repr__(self) -> str:
-        return f"Mesh(dp={self.shape['dp']}, shard=1, device={self.device})"
+        axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"Mesh({axes}, device={self.device})"
 
 
 def make_mesh(
@@ -36,8 +62,8 @@ def make_mesh(
     shard: Optional[int] = None,
     device: torch.device | str = "cuda",
 ) -> Mesh:
-    """Build the stand-in mesh: ``dp`` rows (default 1) on ``device``, or on
-    the one device of ``devices``."""
+    """Build the trainers' mesh: ``dp`` rows (default 1) and ``shard == 1``
+    on ``device``, or on the one device of ``devices``."""
     if devices is not None:
         devices = list(devices)
         if len(devices) != 1:
@@ -51,4 +77,9 @@ def make_mesh(
             f"shard={shard}: cutting parameters over a shard axis needs "
             "more than one device (multi-card port slice)"
         )
-    return Mesh(torch.device(device), dp or 1)
+    return Mesh(device, dp=dp or 1, shard=1)
+
+
+def sp_mesh(n: int, device: torch.device | str = "cuda", axis: str = "sp") -> Mesh:
+    """A 1-D sequence-parallel mesh of ``n`` virtual ranks on ``device``."""
+    return Mesh(device, **{axis: n})

@@ -1,33 +1,38 @@
 """Long-context causal-LM training CLI on one card — the port of
-``mpit_tpu/train/lm_launch.py`` at ``dp = sp = 1``.
+``mpit_tpu/train/lm_launch.py`` at ``dp = 1``.
 
 TinyDecoder over a byte corpus (``--text_file``, trained as raw bytes,
-vocab 256, or a deterministic synthetic Markov stream), its attention the
-flash kernels (K4 forward, K5 or K6 backward) on ``attn_dtype`` inputs,
-trained by full Nesterov msgd: the lookahead, the loss and gradient at
-the displaced point, and the commit (K1), all in place on the flat
-parameter vector.  The corpus and the batch draws are the reference's, so
-a run from the same ``w0`` sees the same tokens in both packages.
+vocab 256, or a deterministic synthetic Markov stream), trained by full
+Nesterov msgd: the lookahead, the loss and gradient at the displaced point,
+and the commit (K1), all in place on the flat parameter vector.  Its
+attention runs on ``attn_dtype`` inputs: at ``sp = 1`` the flash kernels
+(K4 forward, K5 or K6 backward); at ``--sp N`` the sequence is cut over
+``N`` virtual ranks of one card and attention is the ring
+(:func:`mpit_tpu_torch.parallel.ring_attention.ring_attention`, in the
+``--layout`` given, zigzag by default): K4's partial mode once for each
+live (q chunk, kv chunk) pair, and the pair backward (K5 or K6, as the gate
+decides at the pair's shape) once for each live pair.  The corpus and the
+batch draws are the reference's, so a run from the same ``w0`` sees the
+same tokens in both packages.
 
 ``--ckpt_dir`` saves ``w``, ``vt`` and ``k`` every ``ckpt_every`` steps
 in the JAX package's npz layout (``lm_latest.npz``), and ``--resume auto``
-(or a path) continues from it, in either package, with the reference's
-guards: the model's widths, the seed, the batch and the corpus must be
-the checkpoint's.  A resumed run burns the skipped steps' draws, so the
-data stream continues.
+(or a path) continues from it, in either package and at any ``--sp``, with
+the reference's guards: the model's widths, the seed, the batch and the
+corpus must be the checkpoint's.  A resumed run burns the skipped steps'
+draws, so the data stream continues.
 
 Runs on CUDA unless ``--device cpu``.  What belongs to later slices
-raises ``NotImplementedError``: ``dp > 1`` (multi-card data parallel),
-``sp > 1`` (ring attention) and the multi-host flags.  ``layout`` is the
-ring's and is only checked.  The reference's ``compile_cache`` (a persistent XLA cache) has
-no counterpart and is not a flag here; ``profile_dir`` records a
-``torch.profiler`` trace of the training loop, each log window a
+raises ``NotImplementedError``: ``dp > 1`` (multi-card data parallel) and
+the multi-host flags.  The reference's ``compile_cache`` (a persistent XLA
+cache) has no counterpart and is not a flag here; ``profile_dir`` records
+a ``torch.profiler`` trace of the training loop, each log window a
 ``window N`` range.
 
 Example:
 
     python -m mpit_tpu_torch.train.lm_launch --seq_len 8192 --d_model 1024 \
-        --n_layers 4 --batch 1 --steps 20
+        --n_layers 4 --batch 1 --steps 20 --sp 4 --layout zigzag
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from mpit_tpu_torch.models.flat import flatten_module
 from mpit_tpu_torch.models.transformer import TinyDecoder, default_attn
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_init, msgd_step
+from mpit_tpu_torch.parallel.ring_attention import ring_attention, sp_mesh
 from mpit_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict
 from mpit_tpu_torch.utils.config import Config
 from mpit_tpu_torch.utils.logging import get_logger
@@ -60,8 +66,8 @@ LM_LAUNCH_DEFAULTS = Config(
     lr=1e-3,
     mom=0.9,
     dp=0,  # 0 -> 1; more is a later slice
-    sp=0,  # 0 -> 1; more is a later slice (ring attention)
-    layout="zigzag",  # zigzag | contiguous: the ring's, a later slice
+    sp=0,  # 0 -> 1; more: ring attention over sp virtual ranks of the card
+    layout="zigzag",  # zigzag | contiguous: the ring's layout at sp > 1
     attn_dtype="bfloat16",  # kernel input dtype: bfloat16 | float32
     text_file="",
     seed=1,
@@ -133,7 +139,6 @@ def _corpus(cfg: Config, log) -> np.ndarray:
 def _refuse_later_slices(cfg: Config) -> None:
     later = {
         "dp > 1": (int(cfg.dp) > 1, "multi-card data parallel"),
-        "sp > 1": (int(cfg.sp) > 1, "ring attention (sequence parallel)"),
         "multi-host flags": (
             bool(cfg.hostfile or cfg.coordinator or cfg.num_processes > 1
                  or cfg.process_id >= 0),
@@ -156,10 +161,14 @@ def run(cfg: Config) -> dict:
     _refuse_later_slices(cfg)
     device = resolve_device(cfg.device)
     log = get_logger("lm", 0)
-    log.info("mesh: dp=1 sp=1 on %s (%s)", device, device_name(device))
+    sp = int(cfg.sp) or 1
+    log.info("mesh: dp=1 sp=%d on %s (%s)", sp, device, device_name(device))
+    if sp < 1 or cfg.seq_len % sp:
+        raise ValueError(f"--seq_len {cfg.seq_len} not divisible by sp={sp}")
 
     cast = torch.bfloat16 if cfg.attn_dtype == "bfloat16" else None
-    inner = default_attn(causal=True)
+    inner = (ring_attention(sp_mesh(sp, device), "sp", causal=True, layout=cfg.layout)
+             if sp > 1 else default_attn(causal=True))
 
     def attn_fn(q, k, v):
         out_dtype = q.dtype
@@ -262,7 +271,7 @@ def run(cfg: Config) -> dict:
         "tokens_trained": trained,
         "tokens_per_sec": round(trained / max(elapsed - prev_elapsed, 1e-9), 1),
         "compile_s": round(compile_s, 3),
-        "mesh": {"dp": 1, "sp": 1},
+        "mesh": {"dp": 1, "sp": sp},
         "params": flat.size,
         "processes": 1,
         "steps": int(cfg.steps) - start_step,

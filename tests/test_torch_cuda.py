@@ -759,3 +759,147 @@ def test_exchange_on_the_card_crosses_streams(dev):
     for t in threads:
         t.join(30)
         assert not t.is_alive()
+
+
+# Ring attention on the card (the twins of chip_smoke.py's ring_kernels at a
+# smaller width): the flash ring's output against the plain ring's, its grads
+# against the same backward ring over the pairs' twin on its own (o, lse), and
+# both against flash_attention at sp 1, under the bf16 row rule; K4 once a
+# pair, K5 once (K6 twice) a pair.
+ring_mod = importlib.import_module("mpit_tpu_torch.parallel.ring_attention")
+
+
+def _ring_run(fn, q, k, v, do):
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fn(qs, ks, vs)
+    return (out.detach(),) + tuple(torch.autograd.grad(out, (qs, ks, vs), do))
+
+
+def _twin_pair(q, k, v, do, lse, *, delta, **kw):
+    return attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+
+
+@pytest.mark.parametrize("layout, fused", [("zigzag", "1"), ("contiguous", "1"),
+                                           ("contiguous", "0")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ring_matches_its_plain_version(dev, layout, fused, dtype, monkeypatch):
+    from mpit_tpu_torch.models.transformer import default_attn
+    from mpit_tpu_torch.parallel import ring_attention, sp_mesh
+
+    n, b, length, h, d = 4, 1, 2048, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = ((0.5 * torch.randn(b, length, h, d, device=dev, generator=gen)).to(dtype)
+               for _ in range(3))
+    do = torch.randn(b, length, h, d, device=dev, generator=gen).to(dtype)
+    mesh = sp_mesh(n, dev)
+    flash_ring = ring_attention(mesh, impl="flash", layout=layout)
+    plain = _ring_run(ring_attention(mesh, impl="plain", layout=layout), q, k, v, do)
+    local = _ring_run(default_attn(causal=True), q, k, v, do)
+    with monkeypatch.context() as m:
+        m.setattr(ring_mod, "flash_attention_bwd_pair", _twin_pair)
+        twin = _ring_run(flash_ring, q, k, v, do)
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD", fused)
+    counts = [f.launches for f in (flash_fwd, flash_bwd_fused, flash_bwd_two_kernel)]
+    got = _ring_run(flash_ring, q, k, v, do)
+    torch.cuda.synchronize()
+    pairs = ring_mod.ring_pairs(n, layout)
+    assert [f.launches - c for f, c in zip(
+        (flash_fwd, flash_bwd_fused, flash_bwd_two_kernel), counts)] == (
+        [pairs, pairs, 0] if fused == "1" else [pairs, 0, 2 * pairs])
+    rows = dtype == torch.bfloat16
+    for i, (g, p, t, s) in enumerate(zip(got, plain, twin, local)):
+        atol = 2e-5 if i == 0 else 3e-5
+        _assert_close(g, p if i == 0 else t, atol, rows=rows)
+        _assert_close(g, s, atol, rows=rows)
+
+
+def test_flash_ring_never_runs_the_plain_ring_on_the_card(dev, monkeypatch):
+    from mpit_tpu_torch.parallel import ring_attention, sp_mesh
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain ring ran on a CUDA tensor")
+
+    monkeypatch.setattr(ring_mod, "block_attention_partial", refuse)
+    q = torch.randn(1, 256, 2, 32, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    out = ring_attention(sp_mesh(4, dev), impl="auto", layout="zigzag")(q, q, q)
+    out.float().sum().backward()
+    assert bool(torch.isfinite(q.grad.float()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead, lq, lk, d, q_off, kv_off", [
+    ((1, 8), 1024, 1024, 128, 0, 1024), ((2, 3), 203, 131, 64, 20, 223)])
+def test_wholly_masked_pair_gives_exact_zeros(dev, dtype, lead, lq, lk, d, q_off, kv_off):
+    """Every key after every query: K4's partials are acc 0, m -inf, l 0 and
+    K5's and K6's grads exact zeros, as their twins', each output allocated
+    over NaN."""
+    q, k, v, do = _fa_inputs(dev, lead, lq, lk, d, dtype, 5)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lse = torch.randn(*lead, lq, device=dev, generator=gen) + 3.0
+    delta = torch.randn(*lead, lq, device=dev, generator=gen)
+    kw = dict(causal=True, q_offset=q_off, kv_offset=kv_off)
+    outs = []
+    for call in (lambda: flash_fwd(q, k, v, partial=True, **kw),
+                 lambda: flash_bwd_fused(q, k, v, do, lse, delta, **kw),
+                 lambda: flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw)):
+        nan = [torch.full((*lead, n, d), float("nan"), dtype=t, device=dev)
+               for n, t in ((lq, torch.float32), (lq, dtype), (lk, dtype), (lk, dtype))]
+        del nan
+        outs.append(call())
+    torch.cuda.synchronize()
+    acc, m, l = outs[0]
+    want = block_attention_partial(q, k, v, **kw)
+    assert torch.equal(acc, want[0]) and not bool(acc.any())
+    assert bool(torch.isneginf(m).all()) and torch.equal(l, want[2]) and not bool(l.any())
+    twin = attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+    for grads in outs[1:]:
+        for g, t in zip(grads, twin):
+            assert torch.equal(g, t) and not bool(g.any())
+
+
+def test_collectives_on_the_card_are_their_definitions(dev):
+    from mpit_tpu_torch.parallel import Mesh, allreduce_mean, ps_pull, ps_push, ps_pushpull
+    from mpit_tpu_torch.parallel import ring_shift
+
+    mesh = Mesh(dev, dp=4, shard=4)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(4, 4096, device=dev, generator=gen)
+    w = torch.randint(-1000, 1000, (4, 4096), device=dev, generator=gen).float()
+    assert torch.equal(ring_shift(mesh, "shard")(x), torch.cat([x[-1:], x[:-1]]))
+    assert torch.equal(ring_shift(mesh, "shard", reverse=True)(x), torch.cat([x[1:], x[:1]]))
+    assert torch.equal(ps_pull(mesh)(x), x.reshape(-1))
+    assert torch.equal(ps_push(mesh, reduce_axis="dp")(w),
+                       (w[0] + w[1] + w[2] + w[3]).view(4, -1))
+    assert torch.equal(allreduce_mean(mesh)(w), ((w[0] + w[1] + w[2] + w[3]) / 4).expand(4, -1))
+    full, shards = ps_pushpull(mesh, lambda p, g: p + g)(x, w.reshape(-1))
+    assert torch.equal(shards, x + w) and torch.equal(full, shards.reshape(-1))
+
+
+def test_measure_ps_pushpull_on_the_card(dev):
+    from mpit_tpu_torch.parallel.collective import measure_ps_pushpull
+
+    res = measure_ps_pushpull(8, rounds=5)
+    assert res["devices"] == 1 and res["payload_mb"] == 8.0
+    assert res["mbs"] > 0 and math.isclose(res["mbs"], 2 * 8 / (res["ms_per_round"] / 1e3))
+
+
+@pytest.mark.parametrize("layout", ["zigzag", "contiguous"])
+def test_lm_launch_sp4_on_the_card(dev, layout):
+    """``lm_launch --sp 4`` on the card: K1 once a step, K4 and K5 once a
+    live pair a layer a pass, and the first steps' losses as at sp 1."""
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, run
+
+    kw = dict(seq_len=512, d_model=128, n_heads=4, n_layers=2, batch=2, steps=3,
+              log_every=1, attn_dtype="float32", device="cuda")
+    counts = [f.launches for f in (fused_nesterov_commit, flash_fwd, flash_bwd_fused)]
+    res = run(LM_LAUNCH_DEFAULTS.merged(kw, sp=4, layout=layout))
+    torch.cuda.synchronize()
+    pairs = ring_mod.ring_pairs(4, layout)
+    assert [f.launches - c for f, c in zip(
+        (fused_nesterov_commit, flash_fwd, flash_bwd_fused), counts)] == [
+        4, 2 * 4 * pairs, 2 * 4 * pairs]
+    assert res["mesh"] == {"dp": 1, "sp": 4} and res["device"].startswith("cuda")
+    local = run(LM_LAUNCH_DEFAULTS.merged(kw))
+    torch.testing.assert_close([h["avg_loss"] for h in res["history"]],
+                               [h["avg_loss"] for h in local["history"]],
+                               rtol=1e-5, atol=0)

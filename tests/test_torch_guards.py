@@ -60,6 +60,8 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_no_reference_package():
     sources = _port_sources()
     assert len(sources) > 20
+    parallel = {p.name for p in sources if p.parent.name == "parallel"}
+    assert parallel >= {"collective.py", "mesh.py", "ring_attention.py"}
     obs = {p.name for p in sources if p.parent.name == "obs"}
     assert obs >= {"clock.py", "metrics.py", "profile.py", "flight.py", "spans.py",
                    "trace.py", "statusd.py", "causal.py", "top.py", "timers.py",
@@ -81,7 +83,8 @@ def test_entry_points_load_without_jax():
             "mpit_tpu_torch.obs.statusd, mpit_tpu_torch.utils.timers, "
             "mpit_tpu_torch.ps.serve, mpit_tpu_torch.cells.cell, "
             "mpit_tpu_torch.cells.autoscale, mpit_tpu_torch.dplane, "
-            "mpit_tpu_torch.comm.pool; "
+            "mpit_tpu_torch.comm.pool, mpit_tpu_torch.parallel.collective, "
+            "mpit_tpu_torch.parallel.ring_attention; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

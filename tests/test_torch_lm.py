@@ -14,16 +14,22 @@ the JAX package, on the CPU.
   ``jax.eval_shape`` and on PyTorch's meta device.
 - The data: ``_corpus`` byte-identical for the synthetic stream and for a
   ``--text_file``.
-- The slice: ``lm_launch.run`` at dp = sp = 1 against JAX's from the same
-  ``w0``; per-step losses within rtol 2e-4 / atol 2e-5, the JAX package's
-  own tolerance for one trajectory across attention schedules
-  (tests/test_lm_launch.py).  Equal losses step after step also show that
-  both drew the same batches.
+- The slice: ``lm_launch.run`` at dp = sp = 1, and at ``--sp 4`` (ring
+  attention over four virtual ranks, zigzag and contiguous) against JAX's
+  at dp 1, sp 4 on four CPU devices, from the same ``w0``; per-step losses
+  within rtol 2e-4 / atol 2e-5, the JAX package's own tolerance for one
+  trajectory across attention schedules (tests/test_lm_launch.py).  Equal
+  losses step after step also show that both drew the same batches.  The
+  port's ``sp`` 1, 2 and 4 in both layouts agree with each other under the
+  same tolerance (the twin of the JAX package's factorization test), and
+  a JAX checkpoint written at ``sp`` 4 resumes in the port at ``sp`` 4.
 - Guards: what belongs to a later slice raises ``NotImplementedError``
   naming it; the default device is the card.
 """
 
+import functools
 import math
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -144,10 +150,15 @@ def test_corpus_is_byte_identical(tmp_path):
         tlm._corpus(tlm.LM_LAUNCH_DEFAULTS.merged(base, batch=100), log)
 
 
-def test_lm_launch_matches_jax(monkeypatch):
-    monkeypatch.setenv("MPIT_MESH_DEVICES", "1")
-    ref = jax_lm_run(JAX_LM_DEFAULTS.merged(TINY, compile_cache=0))
-    assert ref["mesh"] == {"dp": 1, "sp": 1}
+def _jax_lm(monkeypatch, devices, **kw):
+    """The JAX ``lm_launch.run`` at TINY on ``devices`` CPU mesh devices."""
+    monkeypatch.setenv("MPIT_MESH_DEVICES", str(devices))
+    return jax_lm_run(JAX_LM_DEFAULTS.merged(TINY, compile_cache=0, **kw))
+
+
+def _port_lm_from_jax_w0(monkeypatch, **kw):
+    """The port's ``lm_launch.run`` at TINY on the CPU from the flax ``w0``
+    the JAX run draws."""
     params = _jax_params(1, 1, vocab=256, d_model=TINY["d_model"],
                          n_heads=TINY["n_heads"], n_layers=TINY["n_layers"],
                          max_len=TINY["seq_len"])
@@ -158,15 +169,69 @@ def test_lm_launch_matches_jax(monkeypatch):
         return FlatModel(spec.module, spec.from_jax_params(params).to(device))
 
     monkeypatch.setattr(tlm, "flatten_module", from_jax)
-    port = tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu"))
+    return tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu", **kw))
+
+
+def _assert_same_losses(port, ref):
     got = [h["avg_loss"] for h in port["history"]]
     want = [h["avg_loss"] for h in ref["history"]]
     assert [h["step"] for h in port["history"]] == [h["step"] for h in ref["history"]]
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+
+
+def test_lm_launch_matches_jax(monkeypatch):
+    ref = _jax_lm(monkeypatch, 1)
+    assert ref["mesh"] == {"dp": 1, "sp": 1}
+    port = _port_lm_from_jax_w0(monkeypatch)
+    _assert_same_losses(port, ref)
     assert set(ref) <= set(port)
     assert port["params"] == ref["params"]
     assert port["tokens_trained"] == ref["tokens_trained"] == 6 * 8 * 256
     assert port["device"] == "cpu" and port["state"]["w"].shape == (port["params"],)
+    assert int(port["state"]["k"]) == 6
+
+
+@pytest.mark.parametrize("layout", ["zigzag", "contiguous"])
+def test_lm_launch_sp4_matches_jax(monkeypatch, layout):
+    """``--sp 4``: the port's ring over four virtual ranks of one device
+    against the JAX ring over four CPU devices, dp 1."""
+    ref = _jax_lm(monkeypatch, 4, dp=1, sp=4, layout=layout)
+    assert ref["mesh"] == {"dp": 1, "sp": 4}
+    port = _port_lm_from_jax_w0(monkeypatch, sp=4, layout=layout)
+    assert port["mesh"] == {"dp": 1, "sp": 4}
+    _assert_same_losses(port, ref)
+    assert int(port["state"]["k"]) == 6
+
+
+@functools.lru_cache(maxsize=1)
+def _sp1_run():
+    return tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu", steps=4, seq_len=128))
+
+
+@pytest.mark.parametrize("sp, layout", [(2, "contiguous"), (2, "zigzag"),
+                                        (4, "contiguous"), (4, "zigzag")])
+def test_sp_and_layouts_agree(sp, layout):
+    """Same seed, same batches: the trajectory at ``--sp 2`` and ``4``, in
+    either layout, is the one at ``sp 1``: the ring is exact attention."""
+    res = tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu", steps=4, seq_len=128,
+                                                sp=sp, layout=layout))
+    assert res["mesh"] == {"dp": 1, "sp": sp}
+    _assert_same_losses(res, _sp1_run())
+
+
+def test_jax_sp4_checkpoint_resumes_in_the_port(tmp_path, monkeypatch):
+    """A checkpoint the JAX package writes at ``sp 4`` (flat ``w``, ``vt``,
+    ``k``: sp-agnostic) resumes in the port at ``sp 4`` on the JAX
+    continuation's trajectory."""
+    kw = dict(dp=1, sp=4, layout="contiguous", log_every=1)
+    _jax_lm(monkeypatch, 4, steps=3, ckpt_every=3, ckpt_dir=str(tmp_path / "jax"), **kw)
+    shutil.copytree(tmp_path / "jax", tmp_path / "port")
+    ref = _jax_lm(monkeypatch, 4, steps=6, resume="auto", ckpt_dir=str(tmp_path / "jax"),
+                  **kw)
+    port = tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(
+        TINY, device="cpu", steps=6, resume="auto", ckpt_dir=str(tmp_path / "port"), **kw))
+    assert [h["step"] for h in port["history"]] == [3, 4, 5]
+    _assert_same_losses(port, ref)
     assert int(port["state"]["k"]) == 6
 
 
@@ -180,7 +245,7 @@ def test_cli_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags, owner", [
-    (dict(dp=2), "multi-card"), (dict(sp=2), "ring attention"),
+    (dict(dp=2), "multi-card"),
     (dict(hostfile="h"), "multi-host"), (dict(coordinator="c:1"), "multi-host"),
     (dict(num_processes=2), "multi-host"), (dict(process_id=0), "multi-host"),
     (dict(ckpt_dir="{tmp}", resume="auto"), (FileNotFoundError, "lm_latest")),

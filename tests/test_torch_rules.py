@@ -10,6 +10,8 @@ and JAX's through the Pallas kernel in interpret mode as well as through
 the plain math; the add rule must agree bit for bit.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,3 +135,30 @@ def test_adam_correction_is_exact_on_first_use_in_threads():
     got = [p.communicate(timeout=120)[0].split() for p in procs]
     assert all(p.returncode == 0 for p in procs)
     assert all(row == [want] * 4 for row in got), got
+
+
+def test_adam_amplifies_a_gradient_gap_only_near_zero():
+    """Adam's first step moves an element by ``lr * g / (|g| + eps')`` with
+    ``eps' = eps / sqrt(1 - beta2)`` (3.2e-7): about ``lr`` wherever ``|g|``
+    is well above ``eps'``, whatever ``g``, but with slope ``lr / eps'``
+    (3,162 at lr 1e-3) at ``g = 0``.  So two devices whose gradients differ
+    only by summation order, a gap far below the LM comparison's 1e-6, can
+    move a near-zero element by more than 1e-6, while the same gap leaves a
+    large element where it was: the mechanism that holds ``chip_smoke.py``'s
+    LM Adam gang to a share of the largest change, not to 1e-6 absolute."""
+    lr, gap = 1e-3, 2e-9
+    g = torch.tensor([0.0, -1e-7, 1e-4, -1e-2, 0.5], dtype=torch.float32)
+
+    def first_step(grad):
+        p = torch.zeros_like(grad)
+        rules.adam_apply(p, grad, rules.adam_init(p), lr=lr)
+        return p
+
+    base, moved = first_step(g), first_step(g + gap)
+    step_gap = (moved - base).abs()
+    eps_prime = 1e-8 / math.sqrt(1 - 0.999)
+    assert float(step_gap[:2].min()) > 1e-6  # a 2e-9 gradient gap, near zero
+    assert float(step_gap[:2].max()) <= lr * gap / eps_prime * 1.01  # the slope at 0
+    assert float(step_gap[2:].max()) < 1e-8  # far from zero it vanishes
+    assert float(base[2:].abs().min()) > 0.99 * lr  # each large element moves ~lr
+    assert float(step_gap.max()) < 2.0**-7 * float(base.abs().max())

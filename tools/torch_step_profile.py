@@ -9,7 +9,8 @@ Two modes, each through its entry point under the entry point's own
 - the LM (``--lm default``, ``--lm longcontext`` or ``--lm
   longcontext_32k``): ``lm_launch.run`` at ``LM_LAUNCH_DEFAULTS`` or at the
   long-context widths at context 8,192 or 32,768, one step per log window;
-  the trace's ``window N`` ranges.
+  the trace's ``window N`` ranges; ``--sp N --layout zigzag|contiguous``
+  runs its attention as ring attention over N virtual ranks of the card.
 
 The first range is left out.  Each range ends when its losses reach the
 host, so its device work lies inside it.  Over the later ranges it
@@ -33,6 +34,7 @@ Writes the Chrome trace to ``--out``/<mode>/trace.json and the summary to
     python3 tools/torch_step_profile.py --dp 1 --epochs 6
     python3 tools/torch_step_profile.py --lm longcontext --steps 8
     python3 tools/torch_step_profile.py --lm longcontext_32k --steps 5
+    python3 tools/torch_step_profile.py --lm longcontext --steps 8 --sp 4
 """
 
 from __future__ import annotations
@@ -125,13 +127,15 @@ def main() -> int:
     ap.add_argument("--lm", choices=("", "default", "longcontext", "longcontext_32k"),
                     default="")
     ap.add_argument("--steps", type=int, default=8, help="LM steps (--lm)")
+    ap.add_argument("--sp", type=int, default=1, help="ring attention ranks (--lm)")
+    ap.add_argument("--layout", default="zigzag", help="the ring's layout (--lm)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--side", type=int, default=FLAGSHIP_BENCH_KWARGS["side"])
     ap.add_argument("--out", default="chiprun_out/step_profile")
     args = ap.parse_args()
     out = pathlib.Path(args.out)
     if args.lm:
-        mode = f"lm_{args.lm}"
+        mode = f"lm_{args.lm}" + (f"_sp{args.sp}_{args.layout}" if args.sp > 1 else "")
         widths = {"default": {}, "longcontext": lm_launch.LONGCONTEXT_KWARGS,
                   "longcontext_32k": lm_launch.LONGCONTEXT_32K_KWARGS}[args.lm]
         if args.device == "cpu":  # a dry run of the tool at toy widths
@@ -139,14 +143,14 @@ def main() -> int:
                           attn_dtype="float32")
         cfg = lm_launch.LM_LAUNCH_DEFAULTS.merged(
             widths, steps=args.steps, log_every=1, device=args.device,
-            profile_dir=str(out / mode))
+            sp=args.sp, layout=args.layout, profile_dir=str(out / mode))
         if args.device != "cpu":
             torch.cuda.reset_peak_memory_stats()
         res = lm_launch.run(cfg)
         trace = json.loads((out / mode / "trace.json").read_text())
         peak = (torch.cuda.max_memory_allocated() / 1e9 if args.device != "cpu"
                 else None)
-        summary = {"device": res["device_name"], "mode": mode,
+        summary = {"device": res["device_name"], "mode": mode, "mesh": res["mesh"],
                    "tokens_per_sec": res["tokens_per_sec"], "peak_mem_gb": peak,
                    **summarize(trace, 1, prefix="window ")}
     else:
