@@ -199,7 +199,20 @@ order; any failure raises and the script exits non-zero:
    ``lm_ring_vs_local`` (the first window's loss against
    ``lm_longcontext``'s; ``--sp 4`` in float32 at lm_vs_cpu's widths, both
    layouts, card against the CPU under ``LM_LIMITS["float32"]``) and
-   ``measure_ps_pushpull(64)``'s MB/s.
+   ``measure_ps_pushpull(64)``'s MB/s;
+8d. multi-card parallelism on the card's virtual ranks (slice 9), at
+   ``lm_longcontext``'s widths (``parallel_phases``): ``tp_mlp_longcontext``
+   and ``tp_attn_longcontext`` (tp 4: the forward and the weights' grads
+   against the unsplit MLP and attention on the card within ``PAR_RTOL``;
+   the attention's heads bit for bit, K4 once a call and K5 once),
+   ``pp_decoder_longcontext`` (its 4 blocks as 4 stages over 4 microbatches
+   of one row: the output bit for bit the blocks in sequence, K4 and K5 16),
+   ``ep_moe_longcontext`` (8 experts, 2 a rank, against ``moe_reference``;
+   no kernel), ``lm_dp2_sp4_longcontext`` (``--dp 2 --sp 4``, batch 2,
+   against ``--dp 1``: losses, state and launches equal),
+   ``mesh_shard2`` (the flagship at ``--dp 4 --shard 2`` against
+   ``--shard 1``: bits and K1 equal) and ``pg_group_of_one`` (a child
+   forms an NCCL group of one, all-reduces on the card, shuts down).
 
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
@@ -4201,7 +4214,7 @@ def lm_path(torch, name, kernels, **kw):
     }
     print(f"{name}: " + json.dumps(reading))
     expect_launches(name, launches, want)
-    if res["mesh"] != {"dp": 1, "sp": int(cfg.sp) or 1}:
+    if res["mesh"] != {"dp": int(cfg.dp) or 1, "sp": int(cfg.sp) or 1}:
         raise AssertionError(f"{name}: ran on the mesh {res['mesh']}")
     return res, {"launches": launches, "steps": cfg.steps, "warmup_steps": 1,
                  "schedule": schedule, "tokens_per_sec": reading["tokens_per_sec"],
@@ -4581,6 +4594,420 @@ def ring_lm_phases(torch, kernels, all_paths, smi, longcontext, errs):
         record_path(all_paths, rec["name"], rec["launches"], rec["steps"])
     print(f"ring_lm phases: {time.perf_counter() - t0:.1f}s (kernel and collective checks "
           f"{t_checks:.1f}s)")
+
+
+# -- multi-card parallelism on the card's virtual ranks (slice 9) ------------------
+
+#: lm_longcontext's widths: d 1,024, 8 heads of 128, MLP 4,096, context 8,192
+PAR_D, PAR_HEADS, PAR_MLP, PAR_L = 1024, 8, 4096, 8192
+#: the ranks of every tp, pp and ep path
+PAR_RANKS = 4
+#: ep_moe_longcontext's experts (2 a rank)
+PAR_EXPERTS = 8
+#: the pipelined decoder's microbatches, each one row of PAR_L tokens
+PAR_MICRO = 4
+# The norm-relative limit of a float32 result computed in another order
+# (tp_mlp's, tp_self_attention's output and grads, ep_moe's against their
+# unsplit versions): both sides round f32 sums of up to 8,192 terms (the
+# grads' sums over tokens; 4,096 over the MLP's hidden width, 1,024 over
+# the heads' features), the split side as 4 rank partials added in rank
+# order, the unsplit one in cuBLAS's own order.  The rounding of such a sum
+# moves like a random walk, ~sqrt(8192) * 2**-24 = 5.4e-6 of its size, so
+# two orders differ by about that; 1e-4 leaves a margin of ~18 for the
+# gelu's and the softmax's slopes.  A rank's block dropped, doubled or
+# misplaced moves the result by a quarter of itself.
+PAR_RTOL = 1e-4
+
+
+def rel_gap(torch, got, want):
+    """||got - want|| / ||want||, and the largest elementwise gap."""
+    gap = (got.float() - want.float())
+    return float(gap.norm() / want.float().norm()), float(gap.abs().max())
+
+
+def timed_s(torch, fn):
+    """``fn()`` and the seconds its second call took (the first warms
+    cuBLAS's and the allocator's choices for its shapes), the card
+    synchronized on both sides."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(kernels, fn):
+    """``fn()`` with every kernel's count set to 0 just before: read just
+    after, the counts are this call's."""
+    zero_counts(kernels)
+    return fn()
+
+
+def par_randn(torch, gen, *shape, scale=1.0):
+    return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+
+def par_grads(torch, fn, args, wrt, cot):
+    """``fn(*args)`` and the grads of ``sum(out * cot)`` with respect to
+    ``args[i]`` for ``i`` in ``wrt``, by autograd."""
+    leaves = [a.detach().clone().requires_grad_(i in wrt) for i, a in enumerate(args)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, [leaves[i] for i in wrt], cot)
+    return (out.detach(),) + tuple(grads)
+
+
+def par_hold(name, readings, smi):
+    """Print a path's readings on its own line with the card, and fail on
+    a norm-relative gap past PAR_RTOL."""
+    print(f"{name} on {smi}: " + json.dumps(readings))
+    bad = {k: v for k, v in readings.items()
+           if isinstance(v, tuple) and not v[0] <= PAR_RTOL}
+    if bad:
+        raise AssertionError(f"{name}: past the limit {PAR_RTOL} (norm gap, max gap): {bad}")
+
+
+def tp_mlp_longcontext(torch, kernels, all_paths, smi):
+    """``tp_mlp`` over PAR_RANKS virtual ranks at x (1, 8,192, 1,024), h
+    4,096: the forward and the grads of w1 and w2 against the dense MLP on
+    the card, within PAR_RTOL.  Plain products: no kernel of the port lies
+    on this path (its count must stay 0)."""
+    from mpit_tpu_torch.parallel import Mesh, tp_mlp
+    from mpit_tpu_torch.parallel.tensor_parallel import gelu
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    d, h = PAR_D, PAR_MLP
+    args = (par_randn(torch, gen, 1, PAR_L, d), par_randn(torch, gen, d, h, scale=d**-0.5),
+            par_randn(torch, gen, h, scale=0.1), par_randn(torch, gen, h, d, scale=h**-0.5),
+            par_randn(torch, gen, d, scale=0.1))
+    cot = par_randn(torch, gen, 1, PAR_L, d)
+    tp = tp_mlp(Mesh("cuda", tp=PAR_RANKS))
+
+    def dense(x, w1, b1, w2, b2):
+        return torch.matmul(gelu(torch.matmul(x, w1) + b1), w2) + b2
+
+    got, tp_s = timed_s(torch, lambda: counted(kernels, lambda: par_grads(
+        torch, tp, args, (1, 3), cot)))
+    launches = read_counts(kernels)
+    want, dense_s = timed_s(torch, lambda: par_grads(torch, dense, args, (1, 3), cot))
+    readings = {what: rel_gap(torch, a, b) for what, a, b in zip(("out", "dw1", "dw2"),
+                                                                 got, want)}
+    readings.update(tp_ms=tp_s * 1e3, dense_ms=dense_s * 1e3, launches=launches)
+    par_hold("tp_mlp_longcontext (tp 4, fwd + dw1, dw2; gap norm / norm, max gap)",
+             readings, smi)
+    expect_launches("tp_mlp_longcontext", launches, {})
+    record_path(all_paths, "tp_mlp_longcontext", launches, 1)
+
+
+@contextlib.contextmanager
+def captured_attention(torch):
+    """``tensor_parallel.flash_attention`` wrapped inside the block to keep
+    each call's output (the heads) in the list it yields."""
+    import importlib
+
+    tp_mod = importlib.import_module("mpit_tpu_torch.parallel.tensor_parallel")
+    real, seen = tp_mod.flash_attention, []
+
+    def keep(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out.detach())
+        return out
+
+    tp_mod.flash_attention = keep
+    try:
+        yield seen
+    finally:
+        tp_mod.flash_attention = real
+
+
+def tp_attn_longcontext(torch, kernels, all_paths, smi):
+    """``tp_self_attention`` over PAR_RANKS ranks (2 of the 8 heads a rank),
+    causal, float32, at x (1, 8,192, 1,024): one K4 launch a call for all
+    ranks' heads, and K5 once (K6 twice) in its backward as the gate
+    decides; against the unsplit 8-head ``flash_attention`` and ``wo``
+    product on the card: the heads bit for bit (K4 runs each head's row on
+    the same inputs), the output and the grads of x, wqkv and wo within
+    PAR_RTOL (the output projection sums 4 rank partials)."""
+    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd, flash_attention
+    from mpit_tpu_torch.parallel import Mesh, tp_self_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    d, heads, dh = PAR_D, PAR_HEADS, PAR_D // PAR_HEADS
+    args = (par_randn(torch, gen, 1, PAR_L, d),
+            par_randn(torch, gen, d, 3, heads, dh, scale=d**-0.5),
+            par_randn(torch, gen, heads, dh, d, scale=d**-0.5))
+    cot = par_randn(torch, gen, 1, PAR_L, d)
+    tp = tp_self_attention(Mesh("cuda", tp=PAR_RANKS), causal=True)
+
+    def dense(x, wqkv, wo):
+        qkv = torch.matmul(x.reshape(PAR_L, d), wqkv.reshape(d, -1))
+        qkv = qkv.reshape(1, PAR_L, 3, heads, dh).permute(2, 0, 3, 1, 4).contiguous()
+        out = flash_attention(qkv[0], qkv[1], qkv[2], causal=True)
+        dense.heads = out.detach()
+        return torch.einsum("bhlk,hkd->bld", out, wo)
+
+    fused = _use_fused_bwd((PAR_RANKS, 1, heads // PAR_RANKS, PAR_L, dh),
+                           (PAR_RANKS, 1, heads // PAR_RANKS, PAR_L, dh), dh,
+                           torch.device("cuda"), torch.float32)
+    with captured_attention(torch) as seen:
+        def call():
+            seen.clear()
+            return par_grads(torch, tp, args, (0, 1, 2), cot)
+
+        got, tp_s = timed_s(torch, lambda: counted(kernels, call))
+    launches = read_counts(kernels)
+    want, dense_s = timed_s(torch, lambda: par_grads(torch, dense, args, (0, 1, 2), cot))
+    tp_heads = seen[0].reshape(1, heads, PAR_L, dh) if len(seen) == 1 else None
+    readings = {what: rel_gap(torch, a, b) for what, a, b in zip(("out", "dx", "dwqkv",
+                                                                  "dwo"), got, want)}
+    readings.update(heads_bit_for_bit=tp_heads is not None
+                    and torch.equal(tp_heads, dense.heads),
+                    schedule="K5" if fused else "K6", tp_ms=tp_s * 1e3,
+                    dense_ms=dense_s * 1e3, launches=launches)
+    par_hold("tp_attn_longcontext (tp 4, 2 heads a rank, f32, fwd + grads)", readings, smi)
+    expect_launches("tp_attn_longcontext", launches,
+                    {"k4": 1, "k5": 1} if fused else {"k4": 1, "k6": 2})
+    if not readings["heads_bit_for_bit"]:
+        raise AssertionError("tp_attn_longcontext: the ranks' heads are not the unsplit "
+                             "heads bit for bit")
+    record_path(all_paths, "tp_attn_longcontext", launches, 1)
+
+
+def pp_decoder_longcontext(torch, kernels, all_paths, smi):
+    """``pipeline`` over PAR_RANKS stages, ``lm_longcontext``'s 4
+    ``DecoderBlock``s (random weights from the seed, float32 attention), on
+    PAR_MICRO microbatches of one 8,192-token row: the forward and the
+    grads of every stacked leaf of ``sum(out * cot)``, against the 4 blocks
+    run in sequence, microbatch by microbatch, on the same stage views.
+    The forward is the same calls on the same inputs: bit for bit.  The
+    grads sum each block's 4 microbatch contributions in autograd's order:
+    every leaf that differs is named, and held within
+    ``LM_LIMITS["float32"]``'s gap_over_change (as a norm-relative gap).
+    K4 launches once a stage call: 16 forward; K5 16 (or K6 32) backward."""
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.transformer import DecoderBlock, TinyDecoder
+    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
+    from mpit_tpu_torch.parallel import Mesh, pipeline, stack_stage_params
+
+    n, m = PAR_RANKS, PAR_MICRO
+    flat = flatten_module(TinyDecoder(vocab=256, d_model=PAR_D, n_heads=PAR_HEADS,
+                                      n_layers=n, max_len=PAR_L), 3, "cuda")
+    views = flat.unravel(flat.w0)
+    blocks = [{name[len(f"DecoderBlock_{i}."):]: t for name, t in views.items()
+               if name.startswith(f"DecoderBlock_{i}.")} for i in range(n)]
+    block = DecoderBlock(PAR_D, PAR_HEADS).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    xs = par_randn(torch, gen, m, 1, PAR_L, PAR_D)
+    cot = par_randn(torch, gen, m, 1, PAR_L, PAR_D)
+
+    def stage(p, x):
+        return torch.func.functional_call(block, p, (x,))
+
+    def run(pipelined):
+        stacked = {k: v.clone().requires_grad_() for k, v in
+                   stack_stage_params(blocks).items()}
+        if pipelined:
+            out = pipeline(Mesh("cuda", pp=n), stage)(stacked, xs)
+        else:
+            params = [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+            outs = []
+            for j in range(m):
+                x = xs[j]
+                for i in range(n):
+                    x = stage(params[i], x)
+                outs.append(x)
+            out = torch.stack(outs)
+        grads = torch.autograd.grad(out, list(stacked.values()), cot)
+        return out.detach(), dict(zip(stacked, grads))
+
+    head = PAR_D // PAR_HEADS
+    shape = (1, PAR_HEADS, PAR_L, head)
+    fused = _use_fused_bwd(shape, shape, head, torch.device("cuda"), torch.float32)
+    with deterministic_algorithms(torch):
+        (out, grads), pp_s = timed_s(torch, lambda: counted(kernels, lambda: run(True)))
+        launches = read_counts(kernels)
+        (ref_out, ref_grads), seq_s = timed_s(torch, lambda: run(False))
+    differ = {k: rel_gap(torch, g, ref_grads[k]) for k, g in grads.items()
+              if not torch.equal(g, ref_grads[k])}
+    readings = {"out_bit_for_bit": torch.equal(out, ref_out),
+                "grads_bit_for_bit": len(grads) - len(differ), "grads": len(grads),
+                "differ (norm gap, max gap)": differ, "pp_ms": pp_s * 1e3,
+                "sequential_ms": seq_s * 1e3, "schedule": "K5" if fused else "K6",
+                "launches": launches}
+    print(f"pp_decoder_longcontext (pp {n}, {m} microbatches of 1 x {PAR_L}, f32) on "
+          f"{smi}: " + json.dumps(readings))
+    calls = n * m
+    expect_launches("pp_decoder_longcontext", launches,
+                    {"k4": calls, "k5": calls} if fused else {"k4": calls, "k6": 2 * calls})
+    if not readings["out_bit_for_bit"]:
+        raise AssertionError("pp_decoder_longcontext: the pipeline's output is not the "
+                             "sequential blocks' bit for bit")
+    limit = LM_LIMITS["float32"]["gap_over_change"]
+    bad = {k: v for k, v in differ.items() if not v[0] <= limit}
+    if bad:
+        raise AssertionError(f"pp_decoder_longcontext: grads past {limit}: {bad}")
+    record_path(all_paths, "pp_decoder_longcontext", launches, 1)
+
+
+def ep_moe_longcontext(torch, kernels, all_paths, smi):
+    """``ep_moe`` over PAR_RANKS ranks, PAR_EXPERTS experts (2 a rank), d
+    1,024, h 4,096, 8,192 tokens: the forward and the grads of the gate and
+    w1 against ``moe_reference`` on the card, within PAR_RTOL.  No Pallas
+    kernel lies on this path (the JAX package's is dense dispatch in XLA):
+    every op is a plain PyTorch one, and no kernel of the port launches."""
+    from mpit_tpu_torch.parallel import Mesh, ep_moe, moe_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    e, d, h = PAR_EXPERTS, PAR_D, PAR_MLP
+    args = (par_randn(torch, gen, 1, PAR_L, d), par_randn(torch, gen, d, e, scale=d**-0.5),
+            par_randn(torch, gen, e, d, h, scale=d**-0.5), par_randn(torch, gen, e, h, scale=0.1),
+            par_randn(torch, gen, e, h, d, scale=h**-0.5), par_randn(torch, gen, e, d, scale=0.1))
+    cot = par_randn(torch, gen, 1, PAR_L, d)
+    ep = ep_moe(Mesh("cuda", ep=PAR_RANKS))
+    got, ep_s = timed_s(torch, lambda: counted(kernels, lambda: par_grads(
+        torch, ep, args, (1, 2), cot)))
+    launches = read_counts(kernels)
+    want, ref_s = timed_s(torch, lambda: par_grads(torch, moe_reference, args, (1, 2), cot))
+    routed = torch.bincount(torch.argmax(args[0].reshape(-1, d) @ args[1], -1), minlength=e)
+    readings = {what: rel_gap(torch, a, b) for what, a, b in zip(("out", "dgate", "dw1"),
+                                                                 got, want)}
+    readings.update(tokens_per_expert=routed.tolist(), ep_ms=ep_s * 1e3,
+                    reference_ms=ref_s * 1e3, launches=launches)
+    par_hold("ep_moe_longcontext (ep 4, 8 experts, fwd + dgate, dw1)", readings, smi)
+    expect_launches("ep_moe_longcontext", launches, {})
+    record_path(all_paths, "ep_moe_longcontext", launches, 1)
+
+
+def lm_dp2_sp4_longcontext(torch, kernels, all_paths, smi):
+    """``lm_launch --dp 2 --sp 4 --layout zigzag`` at ``lm_longcontext``'s
+    widths, bf16 attention, batch 2, 5 steps, against ``--dp 1 --sp 4`` at
+    batch 2, both under deterministic algorithms: every step's loss and the
+    final w, vt and k bit for bit, and K1, K4 and K5 / K6 launched alike
+    (the two groups' rows ride the ring's launches); tokens/s of both."""
+    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_KWARGS
+
+    kw = dict(LONGCONTEXT_KWARGS, batch=2, steps=5, log_every=1, sp=RING_SP,
+              layout="zigzag")
+    runs = {}
+    torch.cuda.empty_cache()
+    with deterministic_algorithms(torch), fused_bwd_env(None):
+        for dp in (2, 1):
+            runs[dp] = lm_path(torch, f"lm_dp{dp}_sp4_longcontext", kernels, dp=dp, **kw)
+    (two, rec), (one, rec_one) = runs[2], runs[1]
+    losses = {dp: [h["avg_loss"] for h in r[0]["history"]] for dp, r in runs.items()}
+    same = losses[2] == losses[1] and all(torch.equal(two["state"][k], one["state"][k])
+                                          for k in ("w", "vt", "k"))
+    print(f"lm_dp2_sp4_longcontext on {smi}: bit for bit --dp 1: {same}; tokens/s dp 2 "
+          f"{two['tokens_per_sec']}, dp 1 {one['tokens_per_sec']}; launches equal: "
+          f"{rec['launches'] == rec_one['launches']}")
+    if not same:
+        raise AssertionError(f"lm_dp2_sp4_longcontext: --dp 2 differs from --dp 1: {losses}")
+    if rec["launches"] != rec_one["launches"]:
+        raise AssertionError(f"lm_dp2_sp4_longcontext: launches {rec['launches']} at dp 2, "
+                             f"{rec_one['launches']} at dp 1")
+    record_path(all_paths, "lm_dp2_sp4_longcontext", rec["launches"], rec["steps"])
+    record_path(all_paths, "lm_dp1_sp4_longcontext", rec_one["launches"], rec_one["steps"])
+
+
+def mesh_shard2(torch, commit, all_paths, smi):
+    """``mesh_launch`` at FLAGSHIP_BENCH_KWARGS, ``--dp 4 --shard 2``, 2
+    epochs, against ``--shard 1``, under deterministic cuDNN (the first
+    convolution's weight gradient varies from run to run under its
+    defaults): every epoch's loss and test error and the final w, vt, k
+    and center bit for bit, and K1 launched alike, once a step over the
+    whole (dp, plong) stack and once for each of precompile's 2 warm-up
+    steps."""
+    from mpit_tpu_torch.train.mesh_launch import (
+        FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS, run)
+
+    base = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS, dp=4, epochs=2, device="cuda")
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True
+        for shard in (2, 1):
+            commit.launches = 0
+            res = run(base.merged(shard=shard))
+            runs[shard] = (res, commit.launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (two, k1), (one, k1_one) = runs[2], runs[1]
+    curve = lambda r: [(h["avg_loss"], h["test_err"]) for h in r["history"]]  # noqa: E731
+    same = curve(two) == curve(one) and all(torch.equal(two["state"][k], one["state"][k])
+                                            for k in two["state"])
+    print(f"mesh_shard2 on {smi}: mesh {two['mesh']}, bit for bit --shard 1: {same}; "
+          f"K1 {k1} (shard 1: {k1_one}) for {two['steps']} steps; samples/s "
+          f"{two['samples_per_sec']} (shard 1: {one['samples_per_sec']})")
+    if two["mesh"] != {"dp": 4, "shard": 2} or not same:
+        raise AssertionError("mesh_shard2: --shard 2 differs from --shard 1")
+    if not k1 == k1_one == two["steps"] + 2:
+        raise AssertionError(f"mesh_shard2: K1 launched {k1} and {k1_one} times for "
+                             f"{two['steps']} steps + 2 warm-up")
+    record_path(all_paths, "mesh_shard2", {"k1": k1}, two["steps"])
+    record_path(all_paths, "mesh_shard1", {"k1": k1_one}, one["steps"])
+
+
+PG_CHILD = """
+import sys, torch
+sys.path.insert(0, {repo!r})
+from mpit_tpu_torch.parallel import bootstrap
+from mpit_tpu_torch.parallel.distributed import shutdown
+pg = bootstrap(coordinator="localhost:{port}", num_processes=1, process_id=0, device="cuda")
+t = torch.arange(1.0, 5.0, device="cuda")
+torch.distributed.all_reduce(t)
+torch.cuda.synchronize()
+assert torch.distributed.get_backend() == "nccl", torch.distributed.get_backend()
+assert t.tolist() == [1.0, 2.0, 3.0, 4.0], t.tolist()
+print("GROUP", pg.describe(), "backend nccl, all_reduce", t.tolist())
+shutdown()
+"""
+
+
+def pg_group_of_one(smi):
+    """In a child process: ``bootstrap`` of a group of one over NCCL on the
+    card, one ``all_reduce``, ``describe()``, ``shutdown``; its exit code
+    and its printed group."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MPIT_COORDINATOR", "MPIT_NUM_PROCESSES", "MPIT_PROCESS_ID",
+                        "MPIT_HOSTFILE")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PG_CHILD.format(repo=REPO, port=port)],
+                          capture_output=True, text=True, timeout=180, env=env)
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("GROUP")]
+    print(f"pg_group_of_one on {smi}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f}s: {line}")
+    if proc.returncode != 0 or not line or "process 0/1" not in line[0]:
+        raise AssertionError(f"pg_group_of_one: the child failed: {proc.stderr[-2000:]}")
+
+
+def parallel_phases(torch, kernels, all_paths, smi):
+    """Tensor, pipeline and expert parallelism, ``lm_launch --dp`` and
+    ``mesh_launch --shard`` on the card's virtual ranks, and a process group
+    of one (slice 9), at ``lm_longcontext``'s widths; each path's seconds on
+    its own line."""
+    secs = {}
+    for name, fn in (("tp_mlp_longcontext", tp_mlp_longcontext),
+                     ("tp_attn_longcontext", tp_attn_longcontext),
+                     ("pp_decoder_longcontext", pp_decoder_longcontext),
+                     ("ep_moe_longcontext", ep_moe_longcontext),
+                     ("lm_dp2_sp4_longcontext", lm_dp2_sp4_longcontext)):
+        t0 = time.perf_counter()
+        fn(torch, kernels, all_paths, smi)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_shard2(torch, kernels["k1"], all_paths, smi)
+    secs["mesh_shard2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pg_group_of_one(smi)
+    secs["pg_group_of_one"] = time.perf_counter() - t0
+    print(f"parallel phases: {sum(secs.values()):.1f}s " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}))
 
 
 # -- hierarchical aggregation and the LM through the gang (slices 5g and 7b) -------
@@ -5778,6 +6205,7 @@ def main() -> int:
     record_path(all_paths, "lm_resume", rec["launches"], rec["steps"])
     slice4_s += time.perf_counter() - t_resume
     agg_lm_phases(torch, kernels, all_paths, smi)
+    parallel_phases(torch, kernels, all_paths, smi)
     k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
     print(f"sync-DP, resume and BiCNN phases: {slice4_s:.1f}s")

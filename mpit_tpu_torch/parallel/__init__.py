@@ -1,15 +1,20 @@
 """The one-card stand-in mesh: its collectives, the mesh trainers (EASGD,
-sync data parallel) and sequence-parallel ring attention."""
+sync data parallel), sequence-parallel ring attention, tensor, pipeline and
+expert parallelism over virtual ranks, and the multi-host bootstrap."""
 
 from mpit_tpu_torch.parallel.collective import (
     allreduce_mean,
     ps_pull,
     ps_push,
     ps_pushpull,
+    psum,
     ring_shift,
 )
+from mpit_tpu_torch.parallel.distributed import ProcessGroup, bootstrap, read_hostfile
 from mpit_tpu_torch.parallel.easgd import MeshEASGD
 from mpit_tpu_torch.parallel.mesh import Mesh, make_mesh
+from mpit_tpu_torch.parallel.moe import ep_moe, moe_reference
+from mpit_tpu_torch.parallel.pipeline import pipeline, stack_stage_params
 from mpit_tpu_torch.parallel.ring_attention import (
     ring_attention,
     sp_mesh,
@@ -17,7 +22,10 @@ from mpit_tpu_torch.parallel.ring_attention import (
     zigzag_unpermute,
 )
 from mpit_tpu_torch.parallel.sync_dp import SyncDataParallel
+from mpit_tpu_torch.parallel.tensor_parallel import tp_mlp, tp_self_attention
 
-__all__ = ["Mesh", "MeshEASGD", "SyncDataParallel", "allreduce_mean", "make_mesh",
-           "ps_pull", "ps_push", "ps_pushpull", "ring_attention", "ring_shift",
-           "sp_mesh", "zigzag_permute", "zigzag_unpermute"]
+__all__ = ["Mesh", "MeshEASGD", "ProcessGroup", "SyncDataParallel", "allreduce_mean",
+           "bootstrap", "ep_moe", "make_mesh", "moe_reference", "pipeline", "ps_pull",
+           "ps_push", "ps_pushpull", "psum", "read_hostfile", "ring_attention",
+           "ring_shift", "sp_mesh", "stack_stage_params", "tp_mlp", "tp_self_attention",
+           "zigzag_permute", "zigzag_unpermute"]

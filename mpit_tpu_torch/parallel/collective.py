@@ -14,6 +14,8 @@ collective is a tensor op on the device:
 - pull: the stack seen flat (a view where the stack is contiguous);
 - push: the owner's slice of a replicated gradient, or the sum over the
   worker stack and then the slice;
+- ``psum``: the sum over an axis's rank stack, rank by rank in rank order,
+  the reduce of tensor, pipeline and expert parallelism;
 - ring transfer: ``torch.roll`` along the rank axis, so that rank ``i``'s
   block lands at rank ``i + 1``: one device copy a hop, which stands for an
   NVLink hop and is where a multi-card slice puts P2P or NCCL.
@@ -49,6 +51,15 @@ def _owner_slices(full: torch.Tensor, n: int) -> torch.Tensor:
     ``dynamic_slice`` cuts them."""
     size = full.shape[0] // n
     return full[: n * size].reshape(n, size, *full.shape[1:])
+
+
+def pad_shards(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
+    """``x`` with its last axis padded with zeros to a multiple of ``n``,
+    and the padding: how the JAX package cuts an axis that ``n`` shards do
+    not divide (its last shard holds the padding).  ``x`` itself where
+    ``n`` divides it."""
+    pad = -x.shape[-1] % n
+    return (torch.nn.functional.pad(x, (0, pad)) if pad else x), pad
 
 
 def ps_pull(mesh: Mesh, axis: str = "shard") -> Fn:
@@ -105,6 +116,24 @@ def ps_pushpull(
         return p_shards.reshape(-1, *p_shards.shape[2:]), p_shards
 
     return _round
+
+
+def psum(mesh: Mesh, axis: str) -> Fn:
+    """The sum over ``axis``'s ranks, ``(n, ...) -> (...)``, as JAX's
+    ``psum`` gives every rank of the axis its replicated result.  The ranks
+    are added one at a time in rank order, ``((x0 + x1) + x2) + ...``: that
+    order fixes the result's bits, where a reduction kernel would choose
+    its own.  Differentiable: the gradient of each rank's block is the
+    result's."""
+
+    def _psum(blocks: torch.Tensor) -> torch.Tensor:
+        n = _ranks(mesh, axis, blocks, "the rank stack")
+        out = blocks[0]
+        for r in range(1, n):
+            out = out + blocks[r]
+        return out
+
+    return _psum
 
 
 def ring_shift(mesh: Mesh, axis: str, *, reverse: bool = False) -> Fn:

@@ -2,7 +2,13 @@
 
 The port of ``MeshEASGD`` of ``mpit_tpu/parallel/easgd.py``.  Every worker's
 parameters are one row of a ``(n_dp, plong)`` tensor, the center w* is a
-``(plong,)`` tensor, and both live on the mesh's one device.  A step is:
+``(plong,)`` tensor, and both live on the mesh's one device.  The mesh's
+``shard`` axis cuts both by columns, as the JAX package cuts them over its
+devices (the last shard padded where ``shard`` does not divide ``plong``):
+the center's exchange is the shard owners' (:meth:`MeshEASGD._exchange`),
+and K1 commits the whole ``(n_dp, plong)`` stack, every ``(dp, shard)``
+tile, in one launch, where the JAX package launches one a device tile.
+A step is:
 
 - the local Nesterov update of :mod:`mpit_tpu_torch.optim.msgd` for every
   row at once, with per-worker gradients from ``torch.func.vmap``;
@@ -28,6 +34,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_commit, msgd_lookahead
+from mpit_tpu_torch.parallel.collective import pad_shards, ps_pull, ps_push
 from mpit_tpu_torch.parallel.mesh import Mesh
 
 State = Dict[str, torch.Tensor]
@@ -57,9 +64,12 @@ class MeshEASGD:
         self.mva = float(mva)
         self.su = int(su)
         self.n_dp = mesh.shape["dp"]
+        self.n_shard = mesh.shape["shard"]
         self.device = mesh.device
         self._steps = 0
         self._grads = torch.func.vmap(value_and_grad_fn)
+        self._push = ps_push(mesh, "shard", reduce_axis="dp")
+        self._pull = ps_pull(mesh, "shard")
 
     # -- state ---------------------------------------------------------------
 
@@ -86,11 +96,25 @@ class MeshEASGD:
         msgd_commit(state["w"], grad, state, self.cfg)
         return loss
 
+    def _exchange(self, center: torch.Tensor, sug: torch.Tensor) -> None:
+        """``w* += sum_i sug_i``, in place, by the shard owners: the workers'
+        pushes summed over ``dp`` and cut over ``shard`` (``ps_push``), each
+        owner's add on its slice of the center, and the pull of the updated
+        shards (``ps_pull``).  Views of ``center`` where ``shard`` divides
+        ``plong``; padded copies, trimmed on the way back, where not."""
+        sug, pad = pad_shards(sug, self.n_shard)
+        shards, _ = pad_shards(center, self.n_shard)
+        shards = shards.view(self.n_shard, -1)
+        shards.add_(self._push(sug))
+        full = self._pull(shards)  # a view of center where nothing was padded
+        if pad:
+            center.copy_(full[:center.shape[0]])
+
     def _sync(self, state: State, xb, yb) -> torch.Tensor:
         # Every worker's push from its pre-update w (optim-eamsgd.lua:54-61),
         # the center moved before the local update.
         sug = self.mva * (state["w"] - state["center"])
-        state["center"].add_(sug.sum(dim=0))
+        self._exchange(state["center"], sug)
         msgd_lookahead(state["w"], state, self.cfg)
         loss, grad = self._grads(state["w"], xb, yb)
         # The elastic retract after the local update (ref :66).

@@ -2,19 +2,22 @@
 
 The port of ``mpit_tpu/parallel/mesh.py`` for one card.  The JAX package
 lays the ranks of each named mesh axis (``dp`` worker rows, ``shard``
-column cuts, ``sp`` sequence chunks) over devices.  Here every axis holds
-**virtual ranks on one device**: a tensor that a collective acts on carries
-the axis's ranks first, ``(n, ...)``, row ``i`` being rank ``i``'s block.
+column cuts, ``sp`` sequence chunks, ``tp`` head and hidden cuts, ``pp``
+stages, ``ep`` experts) over devices.  Here every axis holds **virtual
+ranks on one device**: a tensor that a collective acts on carries the
+axis's ranks first, ``(n, ...)``, row ``i`` being rank ``i``'s block.
 That is how the ``dp`` rows of the trainers already live, as one ``(dp,
 plong)`` tensor, and how the reference itself runs its ranks on one chip.
 The collectives of :mod:`mpit_tpu_torch.parallel.collective` are tensor
 ops over that leading axis.
 
-:func:`make_mesh` builds the trainers' ``(dp, shard)`` mesh and keeps
-refusing what needs real collectives: more than one device, and a
-``shard`` axis that would cut the trainers' parameters (multi-card
-parallelism, a later slice of the port).  :func:`sp_mesh` builds ring
-attention's sequence axis.
+:func:`make_mesh` builds the trainers' ``(dp, shard)`` mesh, both axes
+virtual.  The JAX package factors a device count into ``dp x shard``
+(``mpit_tpu/parallel/mesh.py:25-58``); one card has no count to factor,
+so an axis left unset holds one rank.  A mesh over more than one real
+device stays refused: it needs collectives over a process group (NCCL or
+P2P across cards), which the port does not have yet.  :func:`sp_mesh`
+builds ring attention's sequence axis.
 """
 
 from __future__ import annotations
@@ -62,22 +65,18 @@ def make_mesh(
     shard: Optional[int] = None,
     device: torch.device | str = "cuda",
 ) -> Mesh:
-    """Build the trainers' mesh: ``dp`` rows (default 1) and ``shard == 1``
-    on ``device``, or on the one device of ``devices``."""
+    """Build the trainers' mesh: ``dp`` worker rows and ``shard`` column
+    cuts (each 1 when unset), virtual ranks on ``device``, or on the one
+    device of ``devices``."""
     if devices is not None:
         devices = list(devices)
         if len(devices) != 1:
             raise NotImplementedError(
-                f"a mesh over {len(devices)} devices needs collectives "
-                "(multi-card port slice); this stand-in holds one device"
-            )
+                f"a mesh over {len(devices)} devices needs collectives over a process "
+                "group (multi-card parallelism: NCCL or P2P across cards), which the "
+                "port does not have yet; this stand-in holds one device")
         device = devices[0]
-    if shard not in (None, 1):
-        raise NotImplementedError(
-            f"shard={shard}: cutting parameters over a shard axis needs "
-            "more than one device (multi-card port slice)"
-        )
-    return Mesh(device, dp=dp or 1, shard=1)
+    return Mesh(device, dp=dp or 1, shard=shard or 1)
 
 
 def sp_mesh(n: int, device: torch.device | str = "cuda", axis: str = "sp") -> Mesh:

@@ -262,11 +262,12 @@ def ring_attention(
     natural sequence order; with ``permute_inputs=False`` it takes and
     returns the zigzag order of :func:`zigzag_permute`.
 
-    ``batch_axis``: the reference shards B over another mesh axis (the
-    ``dp x sp`` composition).  Only ``None``, or ``"dp"`` on a mesh whose
-    ``dp`` axis holds one rank, run here: independent rings per data
-    parallel group need more than one card (multi-card parallelism, a
-    later slice of the port)."""
+    ``batch_axis``: B cut over another axis of the mesh as well (the ``dp
+    x sp`` composition), each data parallel group running a ring of its
+    own.  The groups' rings are independent and alike, so on one card
+    their rows ride the leading batch axis of the same ring: the launches
+    a pass stay :func:`ring_pairs`, however many groups.  B must divide
+    evenly over the axis's ranks."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be auto|plain|flash, got {impl!r}")
     if layout not in LAYOUTS:
@@ -276,10 +277,11 @@ def ring_attention(
             "layout='zigzag' requires causal=True (the static block-"
             "liveness it exploits is the causal structure)"
         )
-    if batch_axis is not None and (batch_axis != "dp" or mesh.shape.get("dp", 1) != 1):
-        raise NotImplementedError(
-            f"batch_axis={batch_axis!r} on {mesh!r}: rings per data parallel group "
-            "need multi-card parallelism, a later slice of the port")
+    groups = 1
+    if batch_axis is not None:
+        if batch_axis == axis:
+            raise ValueError(f"batch_axis {batch_axis!r} is the ring's own axis")
+        groups = mesh.size(batch_axis)
     ring = _Ring(mesh, axis, layout, bool(causal),
                  None if sm_scale is None else float(sm_scale))
     n, h = ring.n, ring.h
@@ -308,6 +310,9 @@ def ring_attention(
                 raise ValueError(f"q, k and v must be (B, L, H, D) of one shape, got "
                                  f"{name} {tuple(t.shape)}, q {tuple(q.shape)}")
         b, length, heads, d = q.shape
+        if b % groups:
+            raise ValueError(f"batch {b} not divisible by the {groups} ranks of axis "
+                             f"{batch_axis!r}")
         if length % n:
             raise ValueError(f"sequence length {length} not divisible by the {n} ranks "
                              f"of axis {axis!r}")

@@ -1,13 +1,17 @@
 """Synchronous data-parallel trainer — the allreduce path, trained in.
 
 The port of ``SyncDataParallel`` of ``mpit_tpu/parallel/sync_dp.py`` on the
-one-device stand-in mesh (:mod:`mpit_tpu_torch.parallel.mesh`,
-``shard == 1``).  The reference shards the global batch over ``dp``
-devices and lets XLA all-reduce the per-device gradients; on one card the
-``dp`` rows share the device, and the all-reduced mean of equal row
-shards is the whole batch's mean, so a step takes one gradient of the
-global batch.  The parameters, the velocity and the step counter ``k``
-are one ``(plong,)`` vector each and a 0-d int32 tensor on the card.
+one-device stand-in mesh (:mod:`mpit_tpu_torch.parallel.mesh`).  The
+reference shards the global batch over ``dp`` devices and lets XLA
+all-reduce the per-device gradients; on one card the ``dp`` rows share the
+device, and the all-reduced mean of equal row shards is the whole batch's
+mean, so a step takes one gradient of the global batch.  The parameters,
+the velocity and the step counter ``k`` are one ``(plong,)`` vector each
+and a 0-d int32 tensor on the card.  The reference cuts the parameters and
+the velocity over ``shard`` (its optimizer state distributed); here the
+gradient reaches each shard owner by ``ps_push``, the commit runs on the
+``(shard, plong / shard)`` stack (the last shard padded where ``shard``
+does not divide ``plong``) and the parameters come back by ``ps_pull``.
 
 A step is the reference's Nesterov msgd (:mod:`mpit_tpu_torch.optim.msgd`):
 the lookahead, the gradient at the displaced point, and the commit, all in
@@ -23,7 +27,8 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_step
+from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_commit, msgd_lookahead
+from mpit_tpu_torch.parallel.collective import pad_shards, ps_pull, ps_push
 from mpit_tpu_torch.parallel.mesh import Mesh
 
 State = Dict[str, torch.Tensor]
@@ -50,9 +55,12 @@ class SyncDataParallel:
         self.mesh = mesh
         self.cfg = cfg
         self.n_dp = mesh.shape["dp"]
+        self.n_shard = mesh.shape["shard"]
         self.device = mesh.device
         self._vgf = value_and_grad_fn
         self._steps = 0
+        self._push = ps_push(mesh, "shard")
+        self._pull = ps_pull(mesh, "shard")
 
     def init(self, w0: torch.Tensor) -> State:
         """``w`` a copy of ``w0``, zero velocity, ``k`` 0."""
@@ -75,10 +83,30 @@ class SyncDataParallel:
             self.check_batch(a.shape[0])
         return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
 
+    def _step(self, state: State, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
+        """The lookahead, the gradient of the global batch at the displaced
+        point, and the commit on the shard stack: the gradient pushed to its
+        owners, one commit (K1 with momentum) over every shard, the shards
+        pulled back.  Views of ``state`` where ``shard`` divides ``plong``;
+        padded copies, trimmed on the way back, where not."""
+        w = state["w"]
+        msgd_lookahead(w, state, self.cfg)
+        loss, grad = self._vgf(w, xb, yb)
+        grad, pad = pad_shards(grad, self.n_shard)
+        w_sh, _ = pad_shards(w, self.n_shard)
+        vt_sh, _ = pad_shards(state["vt"], self.n_shard)
+        g_sh = self._push(grad)  # (shard, plong / shard): each owner's slice
+        msgd_commit(w_sh, g_sh.reshape(-1), {"k": state["k"], "vt": vt_sh}, self.cfg)
+        full = self._pull(w_sh.view(self.n_shard, -1))  # a view of w where nothing was padded
+        if pad:
+            w.copy_(full[:w.shape[0]])
+            state["vt"].copy_(vt_sh[:w.shape[0]])
+        return loss
+
     def step(self, state: State, xb: torch.Tensor, yb: torch.Tensor):
         """One step on the global batch, in place on ``state``; returns the
         state and the loss on the device."""
-        _, _, loss = msgd_step(self._vgf, state["w"], state, self.cfg, xb, yb)
+        loss = self._step(state, xb, yb)
         self._steps += 1
         return state, loss
 
@@ -108,8 +136,7 @@ class SyncDataParallel:
     def precompile(self, state: State, xb: torch.Tensor, yb: torch.Tensor) -> int:
         """Warm the step on copies of ``state`` (K1's first launch, cuDNN's
         algorithm choice, the allocator's pools); returns the steps run."""
-        msgd_step(self._vgf, state["w"].clone(),
-                  {k: v.clone() for k, v in state.items()}, self.cfg, xb, yb)
+        self._step({k: v.clone() for k, v in state.items()}, xb, yb)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return 1

@@ -1,5 +1,5 @@
 """Long-context causal-LM training CLI on one card — the port of
-``mpit_tpu/train/lm_launch.py`` at ``dp = 1``.
+``mpit_tpu/train/lm_launch.py``.
 
 TinyDecoder over a byte corpus (``--text_file``, trained as raw bytes,
 vocab 256, or a deterministic synthetic Markov stream), trained by full
@@ -11,21 +11,28 @@ attention runs on ``attn_dtype`` inputs: at ``sp = 1`` the flash kernels
 (:func:`mpit_tpu_torch.parallel.ring_attention.ring_attention`, in the
 ``--layout`` given, zigzag by default): K4's partial mode once for each
 live (q chunk, kv chunk) pair, and the pair backward (K5 or K6, as the gate
-decides at the pair's shape) once for each live pair.  The corpus and the
-batch draws are the reference's, so a run from the same ``w0`` sees the
-same tokens in both packages.
+decides at the pair's shape) once for each live pair.  ``--dp N`` cuts the
+batch over ``N`` data parallel ranks, ``dp x sp`` virtual ranks of the card
+in all: the loss is the global batch's mean, so the all-reduced gradient of
+the ``dp`` rows is the one gradient of the whole batch, and the groups'
+rings ride the batch axis of one ring (``batch_axis="dp"``): a step makes
+the launches of ``--dp 1`` at the same batch.  The corpus and the batch
+draws are the reference's, so a run from the same ``w0`` sees the same
+tokens in both packages.
 
 ``--ckpt_dir`` saves ``w``, ``vt`` and ``k`` every ``ckpt_every`` steps
 in the JAX package's npz layout (``lm_latest.npz``), and ``--resume auto``
-(or a path) continues from it, in either package and at any ``--sp``, with
-the reference's guards: the model's widths, the seed, the batch and the
-corpus must be the checkpoint's.  A resumed run burns the skipped steps'
+(or a path) continues from it, in either package and at any ``--dp`` and
+``--sp``, with the reference's guards: the model's widths, the seed, the
+batch and the corpus must be the checkpoint's.  A resumed run burns the skipped steps'
 draws, so the data stream continues.
 
-Runs on CUDA unless ``--device cpu``.  What belongs to later slices
-raises ``NotImplementedError``: ``dp > 1`` (multi-card data parallel) and
-the multi-host flags.  The reference's ``compile_cache`` (a persistent XLA
-cache) has no counterpart and is not a flag here; ``profile_dir`` records
+Runs on CUDA unless ``--device cpu``.  The multi-host flags go through
+:func:`mpit_tpu_torch.parallel.distributed.bootstrap`: a group of one runs;
+a group of more processes raises ``NotImplementedError``, since the port
+has no collectives over a process group yet.  The reference's
+``compile_cache`` (a persistent XLA cache) has no counterpart and is not a
+flag here; ``profile_dir`` records
 a ``torch.profiler`` trace of the training loop, each log window a
 ``window N`` range.
 
@@ -50,7 +57,9 @@ from mpit_tpu_torch.models.flat import flatten_module
 from mpit_tpu_torch.models.transformer import TinyDecoder, default_attn
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_init, msgd_step
-from mpit_tpu_torch.parallel.ring_attention import ring_attention, sp_mesh
+from mpit_tpu_torch.parallel.distributed import bootstrap_launcher, shutdown
+from mpit_tpu_torch.parallel.mesh import Mesh
+from mpit_tpu_torch.parallel.ring_attention import ring_attention
 from mpit_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict
 from mpit_tpu_torch.utils.config import Config
 from mpit_tpu_torch.utils.logging import get_logger
@@ -65,7 +74,7 @@ LM_LAUNCH_DEFAULTS = Config(
     steps=200,
     lr=1e-3,
     mom=0.9,
-    dp=0,  # 0 -> 1; more is a later slice
+    dp=0,  # 0 -> 1; more: the batch cut over dp virtual ranks of the card
     sp=0,  # 0 -> 1; more: ring attention over sp virtual ranks of the card
     layout="zigzag",  # zigzag | contiguous: the ring's layout at sp > 1
     attn_dtype="bfloat16",  # kernel input dtype: bfloat16 | float32
@@ -77,7 +86,7 @@ LM_LAUNCH_DEFAULTS = Config(
     resume="",  # "auto" -> <ckpt_dir>/lm_latest.npz
     profile_dir="",  # torch.profiler trace of the training loop when set
     device="cuda",  # cuda | cpu
-    # multi-host bootstrap: a later slice; any set raises
+    # multi-host bootstrap: a group of one runs, more processes raise
     hostfile="",
     coordinator="",
     num_processes=0,
@@ -136,18 +145,7 @@ def _corpus(cfg: Config, log) -> np.ndarray:
     return data
 
 
-def _refuse_later_slices(cfg: Config) -> None:
-    later = {
-        "dp > 1": (int(cfg.dp) > 1, "multi-card data parallel"),
-        "multi-host flags": (
-            bool(cfg.hostfile or cfg.coordinator or cfg.num_processes > 1
-                 or cfg.process_id >= 0),
-            "multi-host process groups"),
-    }
-    for flag, (is_set, slice_name) in later.items():
-        if is_set:
-            raise NotImplementedError(
-                f"{flag}: {slice_name} is a later slice of the port")
+def _check_flags(cfg: Config) -> None:
     if cfg.layout not in ("zigzag", "contiguous"):
         raise ValueError(f"layout must be zigzag or contiguous, got {cfg.layout!r}")
     if cfg.attn_dtype not in ("bfloat16", "float32"):
@@ -158,16 +156,30 @@ def run(cfg: Config) -> dict:
     """Train; returns the reference's result keys plus the device, the
     step count and ``state``, the final ``w``, ``vt`` and ``k`` (which
     :func:`main` leaves out of its JSON)."""
-    _refuse_later_slices(cfg)
+    _check_flags(cfg)
     device = resolve_device(cfg.device)
-    log = get_logger("lm", 0)
-    sp = int(cfg.sp) or 1
-    log.info("mesh: dp=1 sp=%d on %s (%s)", sp, device, device_name(device))
+    pg = bootstrap_launcher(cfg, device.type)
+    try:
+        return _train(cfg, device, pg)
+    finally:
+        if pg.coordinator is not None:  # the group this run formed
+            shutdown()
+
+
+def _train(cfg: Config, device: torch.device, pg) -> dict:
+    log = get_logger("lm", pg.process_id)
+    log.info("%s", pg.describe())
+    dp, sp = int(cfg.dp) or 1, int(cfg.sp) or 1
+    log.info("mesh: dp=%d sp=%d on %s (%s)", dp, sp, device, device_name(device))
+    if dp < 1 or cfg.batch % dp:
+        raise ValueError(f"--batch {cfg.batch} not divisible by dp={dp}")
     if sp < 1 or cfg.seq_len % sp:
         raise ValueError(f"--seq_len {cfg.seq_len} not divisible by sp={sp}")
 
     cast = torch.bfloat16 if cfg.attn_dtype == "bfloat16" else None
-    inner = (ring_attention(sp_mesh(sp, device), "sp", causal=True, layout=cfg.layout)
+    # sp 1: K4 over every row of the batch, dp groups included.
+    inner = (ring_attention(Mesh(device, dp=dp, sp=sp), "sp", causal=True,
+                            batch_axis="dp", layout=cfg.layout)
              if sp > 1 else default_attn(causal=True))
 
     def attn_fn(q, k, v):
@@ -271,9 +283,9 @@ def run(cfg: Config) -> dict:
         "tokens_trained": trained,
         "tokens_per_sec": round(trained / max(elapsed - prev_elapsed, 1e-9), 1),
         "compile_s": round(compile_s, 3),
-        "mesh": {"dp": 1, "sp": sp},
+        "mesh": {"dp": dp, "sp": sp},
         "params": flat.size,
-        "processes": 1,
+        "processes": pg.num_processes,
         "steps": int(cfg.steps) - start_step,
         "device": str(w.device),
         "device_name": device_name(device),

@@ -21,8 +21,15 @@ skipped epochs' permutations, so the data order continues, and carries
 the earlier runs' seconds into ``time_to_target``.  EASGD's sync schedule
 continues under ``--device_stream 1`` and restarts under the per-batch
 host loop, as the reference's staged scan and its ``step`` do.  The reference's orbax
-``step_*`` checkpoints (multi-process meshes) and the multi-host flags
-raise ``NotImplementedError``.
+``step_*`` checkpoints (a multi-process mesh's) raise ``NotImplementedError``:
+restoring one needs orbax, which the card's machine does not have.
+
+``--dp`` and ``--shard`` are virtual ranks of the card
+(:mod:`mpit_tpu_torch.parallel.mesh`): worker rows, and the column cuts
+whose owners take the pushes.  The multi-host flags go through
+:func:`mpit_tpu_torch.parallel.distributed.bootstrap`: a group of one runs;
+a group of more processes raises ``NotImplementedError``, since the port
+has no collectives over a process group yet.
 
 Runs on CUDA unless ``--device cpu``.
 
@@ -55,6 +62,7 @@ from mpit_tpu_torch.models.flat import (
 from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig
+from mpit_tpu_torch.parallel.distributed import bootstrap_launcher, shutdown
 from mpit_tpu_torch.parallel.easgd import MeshEASGD
 from mpit_tpu_torch.parallel.mesh import make_mesh
 from mpit_tpu_torch.parallel.sync_dp import SyncDataParallel
@@ -79,8 +87,8 @@ MESH_LAUNCH_DEFAULTS = Config(
     batch=128,  # per-worker batch (easgd) / global batch (syncdp)
     seed=1,
     side=32,
-    dp=0,  # 0 -> 1: one worker row per device, and the mesh has one device
-    shard=0,
+    dp=0,  # 0 -> 1: worker rows, virtual ranks of the card
+    shard=0,  # 0 -> 1: column cuts of the parameters, virtual ranks of the card
     target_test_err=0.01,
     stop_at_target=0,  # 1 -> stop training once target_test_err is reached
     device_stream=0,  # 1 -> stage each epoch's batches on device up front
@@ -92,7 +100,7 @@ MESH_LAUNCH_DEFAULTS = Config(
     profile_dir="",  # torch.profiler trace of the epoch loop when set
     precompile=0,  # 1 -> warm the step and eval paths before t0
     device="cuda",  # cuda | cpu
-    # multi-host bootstrap: a later slice; any set raises
+    # multi-host bootstrap: a group of one runs, more processes raise
     hostfile="",
     coordinator="",
     num_processes=0,
@@ -107,17 +115,7 @@ FLAGSHIP_BENCH_KWARGS = dict(
 )
 
 
-def _refuse_later_slices(cfg: Config) -> None:
-    later = {
-        "multi-host flags": (
-            bool(cfg.hostfile or cfg.coordinator or cfg.num_processes > 1
-                 or cfg.process_id >= 0),
-            "multi-host process groups"),
-    }
-    for flag, (is_set, slice_name) in later.items():
-        if is_set:
-            raise NotImplementedError(
-                f"{flag}: {slice_name} is a later slice of the port")
+def _check_opt(cfg: Config) -> None:
     if cfg.opt not in ("easgd", "syncdp"):
         raise ValueError(f"opt must be easgd|syncdp, got {cfg.opt!r}")
 
@@ -268,8 +266,8 @@ def _resume(cfg: Config, trainer, state, log):
                 and npz_latest.stat().st_mtime > (ckpt_dir / f"step_{step}").stat().st_mtime):
             raise NotImplementedError(
                 f"{ckpt_dir}/step_{step} is an orbax checkpoint of a multi-process "
-                "mesh: restoring it belongs to the multi-process mesh, a later slice "
-                "of the port (it resumes the npz checkpoints, mesh_latest.npz)")
+                "mesh: restoring it needs orbax, which the card's machine does not "
+                "have (the port resumes the npz checkpoints, mesh_latest.npz)")
         resume_path = str(npz_latest)
     saved, meta = load_state_dict(resume_path)
     if set(saved) != set(state):
@@ -303,17 +301,28 @@ def run(cfg: Config) -> dict:
             "device_loop=1 runs every epoch from a captured CUDA graph: there are "
             "no host epoch boundaries for checkpointing, resume, or per-epoch "
             "profiling; use the host loop for ckpt_dir/resume/profile_dir")
-    _refuse_later_slices(cfg)
+    _check_opt(cfg)
     if cfg.resume == "auto" and not cfg.ckpt_dir:
         raise ValueError("--resume auto requires --ckpt_dir")
     device = resolve_device(cfg.device)
     if cfg.measure_throughput and device.type != "cuda":
         raise ValueError("measure_throughput times the card (CUDA events); "
                          "a CPU run has no device time to report")
-    log = get_logger("mesh", 0)
+    pg = bootstrap_launcher(cfg, device.type)
+    try:
+        return _train(cfg, device, pg)
+    finally:
+        if pg.coordinator is not None:  # the group this run formed
+            shutdown()
+
+
+def _train(cfg: Config, device: torch.device, pg) -> dict:
+    log = get_logger("mesh", pg.process_id)
+    log.info("%s", pg.describe())
     mesh = make_mesh(dp=cfg.dp or None, shard=cfg.shard or None, device=device)
     n_dp = mesh.shape["dp"]
-    log.info("mesh: dp=%d shard=1 on %s (%s)", n_dp, device, device_name(device))
+    log.info("mesh: dp=%d shard=%d on %s (%s)", n_dp, mesh.shape["shard"], device,
+             device_name(device))
 
     (x_train, y_train, x_test, y_test), source = load_mnist(side=cfg.side)
     log.info("data source: %s", source)
@@ -486,8 +495,8 @@ def run(cfg: Config) -> dict:
         "train_wall_mode": "device_loop" if cfg.device_loop else "host_loop",
         "compile_s": round(compile_s, 3) if compile_s is not None else None,
         "data_source": source,
-        "mesh": {"dp": n_dp, "shard": 1},
-        "processes": 1,
+        "mesh": dict(mesh.shape),
+        "processes": pg.num_processes,
         "device": str(state["w"].device),
         "device_name": device_name(device),
         # Training steps, counted from the first start across resumes, the

@@ -581,11 +581,20 @@ def simulate_grad_channel(plan, src, dst, rounds):
     return sends, drops, dups
 
 
+#: the drop plan's op deadline.  Only a dropped GRAD may time out here: an
+#: ack that arrives after the deadline is resent too, one retry more than the
+#: plan's drops, and the counts below then disagree.  Under a loaded host
+#: (pytest -n 6) an ack took longer than TIMED's 0.25 s, so the plan's six
+#: drops wait this long each instead.
+DROP_DEADLINE_S = 2.0
+
+
 class TestDropPlanAttempts:
     def test_retry_attempts_appear_as_separate_attempt_chains(self, obs_on, tmp_path):
         rounds, nservers = 4, 2
         plans = {0: FaultPlan(seed=0, drop_every=2, tags=frozenset({tags.GRAD}))}
-        servers, clients, threads, _ = launch_timed_gang(client_plans=plans)
+        servers, clients, threads, _ = launch_timed_gang(
+            client_plans=plans, client_ft=dict(TIMED, op_deadline_s=DROP_DEADLINE_S))
         run_rounds(servers, clients, threads, rounds)
         want_retries = sum(simulate_grad_channel(plans[0], clients[0].rank, dst, rounds)[1]
                            for dst in range(nservers))

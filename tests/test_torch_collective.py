@@ -24,7 +24,7 @@ from mpit_tpu.parallel import ps_push as jax_ps_push
 from mpit_tpu.parallel import ps_pushpull as jax_ps_pushpull
 from mpit_tpu.parallel import ring_shift as jax_ring_shift
 from mpit_tpu_torch.parallel import (
-    Mesh, allreduce_mean, make_mesh, ps_pull, ps_push, ps_pushpull, ring_shift)
+    Mesh, allreduce_mean, make_mesh, ps_pull, ps_push, ps_pushpull, psum, ring_shift)
 
 torch.set_num_threads(1)
 
@@ -103,6 +103,36 @@ def test_allreduce_mean(jax_mesh, mesh, data):
     _same(allreduce_mean(mesh)(torch.from_numpy(x).view(4, 2)).reshape(-1), want)
 
 
+@pytest.mark.parametrize("data", ["arange", "normal"])
+@pytest.mark.parametrize("axis, n", [("shard", 2), ("dp", 4)])
+def test_psum_adds_the_ranks_in_rank_order(jax_mesh, mesh, axis, n, data):
+    """The twin of ``jax.lax.psum`` over an axis: the JAX side replicated,
+    the port's stack summed; both bit for bit the rank-order sum."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from mpit_tpu.parallel.collective import shard_map
+
+    x = np.arange(8.0 * n, dtype=np.float32) if data == "arange" else _vec(8 * n, seed=5)
+    want = shard_map(lambda b: jax.lax.psum(b, axis), mesh=jax_mesh, in_specs=P(axis),
+                     out_specs=P(), check_vma=False)(jnp.asarray(x))
+    stack = torch.from_numpy(x).view(n, 8)
+    got = psum(mesh, axis)(stack)
+    _same(got, np.asarray(want))
+    order = stack[0]
+    for r in range(1, n):
+        order = order + stack[r]
+    assert torch.equal(got, order)
+
+
+def test_pad_shards_pads_the_last_shard():
+    x = torch.arange(10.0).view(2, 5)
+    padded, pad = tcol.pad_shards(x, 3)
+    assert pad == 1 and torch.equal(padded, torch.cat([x, torch.zeros(2, 1)], 1))
+    same, pad = tcol.pad_shards(x, 5)
+    assert pad == 0 and same is x
+
+
 def test_measure_ps_pushpull_keys_and_formula(monkeypatch):
     """The reference's keys and formula, its payload sized to the shard
     axis (1 on one card), the round a plain add of the gradient; the timer
@@ -140,7 +170,9 @@ def test_measure_ps_pushpull_times_only_the_card():
     (lambda m: ps_pull(Mesh("cuda", shard=2))(torch.zeros(2, 4)), ValueError,
      "the mesh on cuda"),
     (lambda m: Mesh("cpu", sp=0), ValueError, ">= 1 ranks"),
-    (lambda m: make_mesh(shard=2, device="cpu"), NotImplementedError, "multi-card"),
+    (lambda m: make_mesh([torch.device("cpu")] * 2, shard=2), NotImplementedError,
+     "collectives over a process group"),
+    (lambda m: psum(m, "dp")(torch.zeros(2, 4)), ValueError, "stack the 4 ranks"),
 ])
 def test_refusals(mesh, call, exc, match):
     with pytest.raises(exc, match=match):

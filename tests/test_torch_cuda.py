@@ -47,6 +47,12 @@ K4 where every key fits one of its 128-key tiles rounds P with the final
 row max, as the twin does: o and acc / l lie within one step there too.
 K5 and K6 give the same bits twice, and the bfloat16 kernels refuse an
 operand that does not start on 16 bytes.
+
+Slice 9 on the card: ``tp_self_attention`` launches K4 once a call for
+every rank's heads and never runs the plain attention; a pipeline of
+``DecoderBlock``s is its blocks run in sequence bit for bit; ``lm_launch
+--dp 2`` and ``mesh_launch --shard 2`` make the launches and the bits of
+their ``1``s.
 """
 
 import importlib
@@ -903,3 +909,99 @@ def test_lm_launch_sp4_on_the_card(dev, layout):
     torch.testing.assert_close([h["avg_loss"] for h in res["history"]],
                                [h["avg_loss"] for h in local["history"]],
                                rtol=1e-5, atol=0)
+
+
+def test_tp_self_attention_runs_k4_once_never_the_reference(dev, monkeypatch):
+    """Head-parallel attention on the card: one K4 launch a call for every
+    rank's heads, K5 once backward, and never the plain attention."""
+    from mpit_tpu_torch.parallel import Mesh, tp_self_attention
+
+    fa_mod = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain attention ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa_mod, "attention_reference", refuse)
+    monkeypatch.setattr(fa_mod, "block_attention_partial", refuse)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(2, 256, 64, device=dev, generator=gen, requires_grad=True)
+    wqkv = torch.randn(64, 3, 8, 8, device=dev, generator=gen) / 8
+    wo = torch.randn(8, 8, 64, device=dev, generator=gen) / 8
+    counts = [f.launches for f in (flash_fwd, flash_bwd_fused)]
+    tp_self_attention(Mesh(dev, tp=4), causal=True)(x, wqkv, wo).sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip((flash_fwd, flash_bwd_fused), counts)] == [1, 1]
+    assert bool(torch.isfinite(x.grad).all())
+
+
+def test_pipeline_of_decoder_blocks_on_the_card_is_the_sequential_blocks(dev):
+    """Two ``DecoderBlock``s as two stages over three microbatches: the
+    output bit for bit the blocks run in sequence, K4 once a stage call."""
+    from mpit_tpu_torch.models.transformer import DecoderBlock
+    from mpit_tpu_torch.parallel import Mesh, pipeline, stack_stage_params
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    block = DecoderBlock(64, 4).to(dev)
+    blocks = [{k: torch.randn(v.shape, device=dev, generator=gen) * 0.1 + (k.endswith("scale"))
+               for k, v in block.named_parameters()} for _ in range(2)]
+    xs = torch.randn(3, 1, 128, 64, device=dev, generator=gen)
+
+    def stage(p, x):
+        return torch.func.functional_call(block, p, (x,))
+
+    before = flash_fwd.launches
+    out = pipeline(Mesh(dev, pp=2), stage)(stack_stage_params(blocks), xs)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches - before == 6
+    ref = torch.stack([stage(blocks[1], stage(blocks[0], x)) for x in xs])
+    assert torch.equal(out, ref)
+
+
+def test_lm_launch_dp2_on_the_card_is_dp1(dev):
+    """``--dp 2 --sp 4`` at batch 2 on the card: the launches and, under
+    deterministic algorithms, the bits of ``--dp 1 --sp 4``."""
+    import os
+
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, run
+
+    kw = dict(seq_len=512, d_model=128, n_heads=4, n_layers=2, batch=2, steps=3,
+              log_every=1, attn_dtype="bfloat16", device="cuda", sp=4)
+    was = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for dp in (2, 1):
+            counts = [f.launches for f in (fused_nesterov_commit, flash_fwd, flash_bwd_fused)]
+            res = run(LM_LAUNCH_DEFAULTS.merged(kw, dp=dp))
+            torch.cuda.synchronize()
+            runs.append((res, [f.launches - c for f, c in zip(
+                (fused_nesterov_commit, flash_fwd, flash_bwd_fused), counts)]))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (two, n2), (one, n1) = runs
+    assert two["mesh"] == {"dp": 2, "sp": 4} and n2 == n1
+    assert two["history"] == one["history"]
+    assert all(torch.equal(two["state"][k], one["state"][k]) for k in ("w", "vt", "k"))
+
+
+def test_mesh_launch_shard2_on_the_card_is_shard1(dev):
+    """``--dp 4 --shard 2`` on the card, under deterministic cuDNN: K1 as
+    many launches and every bit of ``--shard 1``."""
+    from mpit_tpu_torch.train.mesh_launch import MESH_LAUNCH_DEFAULTS, run
+
+    base = MESH_LAUNCH_DEFAULTS.merged(model="cnn", side=8, dp=4, epochs=2, su=2, batch=32,
+                                       lr=1e-2, mom=0.99, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for shard in (2, 1):
+            before = fused_nesterov_commit.launches
+            res = run(base.merged(shard=shard))
+            runs.append((res, fused_nesterov_commit.launches - before))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (two, k2), (one, k1) = runs
+    assert two["mesh"] == {"dp": 4, "shard": 2} and k2 == k1 == two["steps"]
+    assert all(torch.equal(two["state"][k], one["state"][k]) for k in two["state"])

@@ -140,11 +140,61 @@ def test_sync_schedule_follows_su():
 
 
 def test_mesh_refuses_what_needs_more_devices():
-    with pytest.raises(NotImplementedError):
-        make_mesh(dp=2, shard=2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    """More than one real device still raises; a ``shard`` axis of virtual
+    ranks builds."""
+    with pytest.raises(NotImplementedError, match="collectives over a process group"):
         make_mesh([torch.device("cpu"), torch.device("cpu")])
+    assert make_mesh(dp=2, shard=2, device="cpu").shape == {"dp": 2, "shard": 2}
     mesh = make_mesh(dp=3, device="cpu")
     assert mesh.shape == {"dp": 3, "shard": 1}
     with pytest.raises(ValueError):
         MeshEASGD(mesh, lambda w, x, y: (w, w), MSGDConfig(lr=0.1), mva=0.0)
+
+
+def _shard_run(shard, steps=STEPS):
+    """The port's trainer at ``dp=DP`` over ``shard`` column cuts, from the
+    JAX fixture's w0 and batches."""
+    xs, ys = _batches()
+    tflat = flatten_module(make_model("cnn", SIDE), 4)
+    tr = MeshEASGD(make_mesh(dp=DP, shard=shard, device="cpu"), value_and_grad_nll(tflat),
+                   MSGDConfig(**HP), mva=0.9 / DP, su=SU)
+    state = tr.init(tflat.w0)
+    for s in range(steps):
+        state, _ = tr.step(state, *tr.shard_batch(xs[s], ys[s].astype(np.int64)))
+    return state, tflat
+
+
+@pytest.mark.parametrize("shard", [2, 3])
+def test_shard_cut_is_bit_for_bit_shard_one(shard):
+    """The center's exchange through ``ps_push``/``ps_pull`` over ``shard``
+    cuts (3 pads the last shard: the CNN's size is odd) leaves every bit of
+    the state as at ``shard=1``, and the state keeps its shapes."""
+    base, tflat = _shard_run(1)
+    got, _ = _shard_run(shard)
+    assert (tflat.size % shard != 0) == (shard == 3)
+    for key in base:
+        assert got[key].shape == base[key].shape
+        assert torch.equal(got[key], base[key]), key
+
+
+def test_shard_two_matches_jax():
+    """``dp=2, shard=2`` against the JAX trainer on a 4-device mesh (its
+    Pallas commit on each device's tile), at the tolerances above."""
+    xs, ys = _batches()
+    tstate, tflat = _shard_run(2)
+    jflat = jax_flatten(MnistCNN(side=SIDE), jax.random.PRNGKey(3), jnp.asarray(xs[0, 0, :2]))
+
+    def jvgf(w, xb, yb):
+        def loss_fn(w):
+            logp = jflat.apply_flat(w, xb)
+            return -jnp.mean(jnp.take_along_axis(logp, yb[:, None], axis=1))
+        return jax.value_and_grad(loss_fn)(w)
+
+    mesh = jax_mesh(default_devices()[:DP * 2], dp=DP, shard=2)
+    jtr = JaxEASGD(mesh, jvgf, JaxCfg(use_fused=True, **HP), mva=0.9 / DP, su=SU)
+    jstate = jtr.init(jnp.asarray(tflat.w0.numpy()))
+    for s in range(STEPS):
+        jstate, _ = jtr.step(jstate, *jtr.shard_batch(jnp.asarray(xs[s]), jnp.asarray(ys[s])))
+    for key in ("w", "vt", "center"):
+        np.testing.assert_allclose(tstate[key].numpy(), np.asarray(jstate[key]),
+                                   rtol=RTOL, atol=ATOL, err_msg=key)

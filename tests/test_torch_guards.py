@@ -194,24 +194,39 @@ def test_timing_refuses_cpu_state():
 
 @pytest.mark.parametrize("flags", [
     (dict(opt="adamw"), ValueError, "easgd|syncdp"),
-    (dict(ckpt_dir="{tmp}", resume="auto"), NotImplementedError, "multi-process"),
+    (dict(ckpt_dir="{tmp}", resume="auto"), NotImplementedError, "needs orbax"),
     (dict(resume="auto"), ValueError, "requires --ckpt_dir"),
-    (dict(hostfile="h"), NotImplementedError, "multi-host"),
-    (dict(coordinator="c:1"), NotImplementedError, "multi-host"),
-    (dict(num_processes=2), NotImplementedError, "multi-host"),
-    (dict(process_id=0), NotImplementedError, "multi-host"),
+    (dict(hostfile="{tmp}/hosts", process_id=0), NotImplementedError,
+     "collectives over a process group"),
+    (dict(coordinator="localhost:1", num_processes=2, process_id=1), NotImplementedError,
+     "collectives over a process group"),
+    (dict(num_processes=2), ValueError, "process_id required"),
+    (dict(hostfile="{tmp}/hosts", process_id=2), ValueError, "out of range"),
 ])
 def test_mesh_launch_refuses_later_slices(flags, tmp_path):
     """What still refuses: an unknown optimizer, an orbax ``step_*``
-    checkpoint (the multi-process mesh's), ``--resume auto`` without
-    ``--ckpt_dir``, and the multi-host flags."""
+    checkpoint (the multi-process mesh's: the card's machine has no
+    orbax), ``--resume auto`` without ``--ckpt_dir``, and a group of more
+    than one process, before any rendezvous (the port has no collectives
+    over a process group); the group's flags are checked as the JAX package
+    checks them."""
     flags, exc, match = flags
     (tmp_path / "step_2").mkdir()
+    (tmp_path / "hosts").write_text("alpha:16\nbeta:16\n")
     flags = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
              for k, v in flags.items()}
     with pytest.raises(exc, match=match):
         mesh_launch.run(mesh_launch.MESH_LAUNCH_DEFAULTS.merged(
             flags, device="cpu", model="linear", side=8, epochs=1))
+
+
+def test_mesh_launch_group_of_one_runs():
+    """``--process_id 0`` alone names a group of one: it forms (gloo on the
+    CPU), trains, and is taken down; a shard axis of virtual ranks runs."""
+    res = mesh_launch.run(mesh_launch.MESH_LAUNCH_DEFAULTS.merged(
+        device="cpu", model="linear", side=8, epochs=1, process_id=0, dp=2, shard=2))
+    assert res["processes"] == 1 and res["mesh"] == {"dp": 2, "shard": 2}
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("refused", [

@@ -245,17 +245,22 @@ def test_cli_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags, owner", [
-    (dict(dp=2), "multi-card"),
-    (dict(hostfile="h"), "multi-host"), (dict(coordinator="c:1"), "multi-host"),
-    (dict(num_processes=2), "multi-host"), (dict(process_id=0), "multi-host"),
+    (dict(num_processes=2, process_id=0), "collectives over a process group"),
+    (dict(hostfile="{tmp}/hosts", process_id=1), "collectives over a process group"),
+    (dict(num_processes=2), (ValueError, "process_id required")),
+    (dict(coordinator="localhost:1", num_processes=2, process_id=5),
+     (ValueError, "out of range")),
     (dict(ckpt_dir="{tmp}", resume="auto"), (FileNotFoundError, "lm_latest")),
     (dict(resume="auto"), (ValueError, "requires --ckpt_dir")),
 ])
 def test_refuses_later_slices(flags, owner, tmp_path):
-    """The later slices raise NotImplementedError naming themselves; a
-    resume with nothing to resume raises (an empty ``--ckpt_dir``, or no
-    ``--ckpt_dir`` for ``auto``)."""
+    """A group of more than one process raises NotImplementedError naming
+    what the port lacks (collectives over a process group), before any
+    rendezvous; the group's flags are checked as the JAX package checks
+    them; a resume with nothing to resume raises (an empty ``--ckpt_dir``,
+    or no ``--ckpt_dir`` for ``auto``)."""
     exc, owner = owner if isinstance(owner, tuple) else (NotImplementedError, owner)
+    (tmp_path / "hosts").write_text("alpha\nbeta\n")
     flags = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
              for k, v in flags.items()}
     with pytest.raises(exc, match=owner):
@@ -271,3 +276,127 @@ def test_default_device_is_the_card():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="CUDA"):
         tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(steps=1))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize("flags", [dict(process_id=0),
+                                   dict(num_processes=1, coordinator="localhost:{port}")])
+def test_group_of_one_runs(flags):
+    """The multi-host flags naming a group of one form it (gloo on the
+    CPU), train, and take it down."""
+    flags = {k: v.format(port=_free_port()) if isinstance(v, str) else v
+             for k, v in flags.items()}
+    res = tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(flags, device="cpu", seq_len=64, d_model=16,
+                                                n_heads=2, n_layers=1, steps=2, batch=2,
+                                                attn_dtype="float32"))
+    assert res["processes"] == 1 and np.isfinite(res["final_loss"])
+    assert not torch.distributed.is_initialized()
+
+
+def _lm_limits_hold(port, ref, w0, ref_state):
+    """``LM_LIMITS["float32"]`` of ``chip_smoke.py``: w and vt within 1e-6
+    of the other run's, their gap's norm within 1e-3 of the change's, and
+    the per-step losses within 1e-5 relative."""
+    got = [h["avg_loss"] for h in port["history"]]
+    want = [h["avg_loss"] for h in ref["history"]]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    for key in ("w", "vt"):
+        a, b = port["state"][key].numpy(), np.asarray(ref_state[key])
+        change = b - (w0 if key == "w" else 0.0)
+        assert np.abs(a - b).max() <= 1e-6, key
+        assert np.linalg.norm(a - b) <= 1e-3 * np.linalg.norm(change), key
+
+
+def test_lm_launch_dp2_sp4_matches_jax(monkeypatch, tmp_path):
+    """``--dp 2 --sp 4``: the port's ``dp x sp`` virtual ranks against the
+    JAX package's ``dp=2, sp=4`` mesh of eight CPU devices, from one w0,
+    within ``LM_LIMITS["float32"]`` (the JAX run's final w and vt read back
+    from its checkpoint)."""
+    from mpit_tpu_torch.utils.checkpoint import load_state_dict
+
+    kw = dict(dp=2, sp=4, layout="zigzag")
+    ref = _jax_lm(monkeypatch, 8, ckpt_dir=str(tmp_path), ckpt_every=TINY["steps"], **kw)
+    assert ref["mesh"] == {"dp": 2, "sp": 4}
+    port = _port_lm_from_jax_w0(monkeypatch, **kw)
+    assert port["mesh"] == {"dp": 2, "sp": 4}
+    ref_state, _ = load_state_dict(str(tmp_path / "lm_latest.npz"))
+    w0 = ravel_pytree(_jax_params(1, 1, vocab=256, d_model=TINY["d_model"],
+                                  n_heads=TINY["n_heads"], n_layers=TINY["n_layers"],
+                                  max_len=TINY["seq_len"]))[0]
+    _lm_limits_hold(port, ref, np.asarray(w0), ref_state)
+    assert int(port["state"]["k"]) == int(ref_state["k"]) == TINY["steps"]
+
+
+def _factor_run(dp, sp, layout, **kw):
+    kw = dict(dict(steps=4), **kw)
+    return tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu", seq_len=128, dp=dp,
+                                                 sp=sp, layout=layout, **kw))
+
+
+@pytest.mark.parametrize("dp, sp, layout", [(8, 1, "contiguous"), (2, 4, "contiguous"),
+                                            (2, 4, "zigzag"), (4, 2, "zigzag")])
+def test_dp_and_sp_factorizations_agree(dp, sp, layout):
+    """The twin of the JAX package's factorization test: however the
+    batch and the sequence are cut, the trajectory is sp 1's (the ring is
+    exact attention and the loss a global-batch mean); and ``dp`` changes
+    no bit of ``--dp 1`` at the same ``sp``, layout and batch: its groups'
+    rows ride the same launches."""
+    res = _factor_run(dp, sp, layout)
+    assert res["mesh"] == {"dp": dp, "sp": sp}
+    _assert_same_losses(res, _sp1_run())
+    one = _factor_run(1, sp, layout)
+    assert [h["avg_loss"] for h in res["history"]] == [h["avg_loss"] for h in one["history"]]
+    for key in ("w", "vt", "k"):
+        assert torch.equal(res["state"][key], one["state"][key]), key
+
+
+def test_learns_on_synthetic_bytes():
+    """The JAX test's run at ``dp=2, sp=4``: 40 steps at lr 3e-3, and the
+    loss falls."""
+    res = tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu", steps=40, lr=3e-3,
+                                                log_every=10, dp=2, sp=4,
+                                                layout="contiguous"))
+    losses = [h["avg_loss"] for h in res["history"]]
+    assert all(np.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0] - 0.05, losses
+    assert res["mesh"] == {"dp": 2, "sp": 4}
+
+
+def test_resume_at_dp2_continues_bit_for_bit(tmp_path):
+    """A ``--dp 2 --sp 4`` run stopped at step 3 and resumed to 6 ends on
+    the straight run's bits, and its last steps' losses are the straight
+    run's; resuming it at another batch raises, as in the JAX package."""
+    straight = _factor_run(2, 4, "zigzag", steps=6)
+    _factor_run(2, 4, "zigzag", steps=3, ckpt_dir=str(tmp_path), ckpt_every=3)
+    resumed = _factor_run(2, 4, "zigzag", steps=6, ckpt_dir=str(tmp_path), resume="auto")
+    assert [h["step"] for h in resumed["history"]] == [3, 4, 5]
+    assert resumed["history"] == straight["history"][3:]
+    for key in ("w", "vt", "k"):
+        assert torch.equal(resumed["state"][key], straight["state"][key]), key
+    with pytest.raises(ValueError, match="batch"):
+        _factor_run(2, 4, "zigzag", steps=8, batch=16, ckpt_dir=str(tmp_path),
+                    resume="auto")
+
+
+def test_init_with_dp_not_dividing_local_rows():
+    """``dp=4 sp=2 batch=8``: two rows a data parallel group, which dp does
+    not divide (the JAX test's init-sample case)."""
+    res = _factor_run(4, 2, "contiguous", steps=2)
+    assert res["mesh"] == {"dp": 4, "sp": 2}
+    assert np.isfinite(res["history"][-1]["avg_loss"])
+
+
+@pytest.mark.parametrize("flags", [dict(dp=8, batch=9), dict(dp=3, sp=2, batch=8),
+                                   dict(sp=3, seq_len=128)])
+def test_bad_factorization_raises(flags):
+    """The JAX package's ``batch % dp`` and ``seq_len % sp`` checks (its
+    ``dp * sp == devices`` check has no counterpart on one card)."""
+    with pytest.raises(ValueError, match="divisible"):
+        tlm.run(tlm.LM_LAUNCH_DEFAULTS.merged(TINY, device="cpu", **flags))

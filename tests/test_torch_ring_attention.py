@@ -121,9 +121,10 @@ def test_zigzag_without_permute_takes_the_zigzag_order():
     (dict(layout="zigzag", causal=False), None, ValueError, "requires causal=True"),
     (dict(impl="pallas"), None, ValueError, "impl must be"),
     (dict(layout="striped"), None, ValueError, "layout must be"),
-    (dict(batch_axis="dp", mesh=Mesh("cpu", dp=2, sp=4)), None, NotImplementedError,
-     "multi-card"),
-    (dict(batch_axis="sp"), None, NotImplementedError, "multi-card"),
+    (dict(batch_axis="dp", mesh=Mesh("cpu", dp=2, sp=4)), (3, 64, 2, 16), ValueError,
+     "batch 3 not divisible by the 2 ranks"),
+    (dict(batch_axis="dp"), None, ValueError, "not 'dp'"),
+    (dict(batch_axis="sp"), None, ValueError, "the ring's own axis"),
     (dict(axis="seq"), None, ValueError, "not 'seq'"),
     (dict(layout="zigzag"), (2, 36, 2, 16), ValueError, "even per-rank chunk"),
     (dict(), (2, 66, 2, 16), ValueError, "not divisible"),
@@ -141,6 +142,43 @@ def test_batch_axis_dp_of_one_rank_runs():
     q, k, v = (torch.from_numpy(x) for x in _qkv(2))
     got = ring_attention(Mesh("cpu", dp=1, sp=2), batch_axis="dp", impl="plain")(q, k, v)
     assert torch.equal(got, ring_attention(sp_mesh(2, "cpu"), impl="plain")(q, k, v))
+
+
+@pytest.mark.parametrize("impl", ["plain", "flash"])
+def test_batch_axis_dp_groups_ride_one_ring(monkeypatch, impl):
+    """``batch_axis="dp"`` over 2 data parallel groups of a 2 x 2 mesh: the
+    groups' rings ride the batch axis of one ring, so the output and the
+    gradients are those of the ring without ``batch_axis`` bit for bit,
+    the flash ring makes ``ring_pairs`` calls a pass, not twice that, and
+    both hold against JAX's ring with ``batch_axis="dp"`` on a (2, 2) mesh
+    of CPU devices."""
+    from jax.sharding import Mesh as JaxMesh
+
+    q, k, v = _qkv()
+    calls = []
+    real = tring.flash_attention_partial
+
+    def counted(*a, **kw):
+        calls.append(kw["q_offset"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tring, "flash_attention_partial", counted)
+    runs = []
+    for mesh, batch_axis in ((Mesh("cpu", dp=2, sp=2), "dp"), (sp_mesh(2, "cpu"), None)):
+        ts = tuple(torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        out = ring_attention(mesh, impl=impl, layout="zigzag", batch_axis=batch_axis)(*ts)
+        (out ** 2).sum().backward()
+        runs.append((out.detach(),) + tuple(t.grad for t in ts))
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+    assert len(calls) == (2 * tring.ring_pairs(2, "zigzag") if impl == "flash" else 0)
+    jmesh = JaxMesh(np.array(default_devices()[:4]).reshape(2, 2), ("dp", "sp"))
+    fn = jax_ring_attention(jmesh, impl="jnp", layout="zigzag", batch_axis="dp")
+    want = np.asarray(jax.jit(fn)(q, k, v))
+    grads = jax.jit(jax.grad(lambda *a: jnp.sum(fn(*a) ** 2), argnums=(0, 1, 2)))(q, k, v)
+    np.testing.assert_allclose(runs[0][0].numpy(), want, atol=FWD_ATOL)
+    for got, g in zip(runs[0][1:], grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(g), atol=GRAD_ATOL)
 
 
 def test_dead_partial_leaves_the_live_side_bit_for_bit():

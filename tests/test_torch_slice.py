@@ -97,6 +97,43 @@ def test_mesh_launch_matches_jax(monkeypatch, device_stream):
     assert port["device"] == "cpu"
 
 
+@pytest.mark.parametrize("opt", ["syncdp", "easgd"])
+def test_mesh_launch_shard2_matches_jax(monkeypatch, opt):
+    """``--dp 4 --shard 2`` (the JAX package's explicit mesh shape test at
+    ``tests/test_mesh_launch.py``, there over eight devices) against the
+    JAX run from the same w0; and every bit of the port's final state as at
+    ``--shard 1``, whose run launches K1 as many times (its twin here)."""
+    kw = dict(opt=opt, model="linear", side=8, dp=4, shard=2, epochs=1, batch=32,
+              target_test_err=0.5, su=2, mva=0.2, lr=0.1, mom=0.9)
+    monkeypatch.setenv("MPIT_FUSED", "1")
+    monkeypatch.setenv("MPIT_MESH_DEVICES", "8")
+    ref = jax_mesh_run(JAX_MESH_DEFAULTS.merged(kw))
+    assert ref["mesh"] == {"dp": 4, "shard": 2}
+    _init_from(_jax_params(MnistLinear(num_classes=10), 1, 8), tmesh, monkeypatch)
+    import mpit_tpu_torch.optim.msgd as tmsgd
+
+    runs = {}
+    for shard in (2, 1):
+        count = {"k1": 0}
+        real = tmsgd.fused_nesterov_commit
+
+        def counted(*a, **k):
+            count["k1"] += 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(tmsgd, "fused_nesterov_commit", counted)
+        runs[shard] = (tmesh.run(tmesh.MESH_LAUNCH_DEFAULTS.merged(kw, shard=shard,
+                                                                     device="cpu")), count)
+        monkeypatch.setattr(tmsgd, "fused_nesterov_commit", real)
+    port = runs[2][0]
+    assert port["mesh"] == {"dp": 4, "shard": 2} and runs[1][0]["mesh"]["shard"] == 1
+    _assert_histories_match(port["history"], ref["history"])
+    assert port["samples_trained"] == ref["samples_trained"]
+    for key in port["state"]:
+        assert torch.equal(port["state"][key], runs[1][0]["state"][key]), key
+    assert runs[2][1] == runs[1][1] and runs[2][1]["k1"] == port["steps"]
+
+
 def test_launch_np1_msgd_matches_jax_trainer(monkeypatch, capsys):
     kw = dict(side=8, epochs=1)
     monkeypatch.setenv("MPIT_FUSED", "1")

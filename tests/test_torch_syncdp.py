@@ -54,6 +54,41 @@ def _jax_w0(module, seed):
 
 @pytest.mark.parametrize("dp", [1, 2, 4])
 def test_three_steps_match_jax(dp):
+    _three_steps_match_jax(dp, 1)
+
+
+@pytest.mark.parametrize("dp, shard", [(2, 2), (4, 2)])
+def test_shard_cut_matches_jax(dp, shard):
+    """Parameters and velocity cut over ``shard`` (the JAX side's over that
+    many devices of its mesh, its Pallas commit on each slice; the port's
+    gradient pushed to the owners of the ``(shard, plong / shard)`` stack
+    and committed in one call)."""
+    _three_steps_match_jax(dp, shard)
+
+
+@pytest.mark.parametrize("shard", [2, 3])
+def test_shard_cut_is_bit_for_bit_shard_one(shard):
+    """Three steps over ``shard`` cuts (3 pads the last shard: the CNN's
+    size is odd) leave every bit of ``w``, ``vt`` and ``k`` as at
+    ``shard=1``."""
+    rng = np.random.default_rng(7)
+    xs = rng.random((STEPS, BATCH, SIDE * SIDE), dtype=np.float32)
+    ys = rng.integers(0, 10, size=(STEPS, BATCH)).astype(np.int64)
+    tflat = flatten_module(make_model("cnn", SIDE), 0)
+    assert (tflat.size % shard != 0) == (shard == 3)
+    states = []
+    for sh in (1, shard):
+        tr = SyncDataParallel(make_mesh(dp=2, shard=sh, device="cpu"),
+                              value_and_grad_nll_eager(tflat), MSGDConfig(**HP))
+        state = tr.init(tflat.w0)
+        for s in range(STEPS):
+            state, _ = tr.step(state, *tr.shard_batch(xs[s], ys[s]))
+        states.append(state)
+    for key in states[0]:
+        assert torch.equal(states[1][key], states[0][key]), key
+
+
+def _three_steps_match_jax(dp, shard):
     rng = np.random.default_rng(7)
     xs = rng.random((STEPS, BATCH, SIDE * SIDE), dtype=np.float32)
     ys = rng.integers(0, 10, size=(STEPS, BATCH)).astype(np.int32)
@@ -65,7 +100,7 @@ def test_three_steps_match_jax(dp):
             return -jnp.mean(jnp.take_along_axis(logp, yb[:, None], axis=1))
         return jax.value_and_grad(loss_fn)(w)
 
-    jtr = JaxSyncDP(jax_mesh(default_devices()[:dp], dp=dp, shard=1), jvgf,
+    jtr = JaxSyncDP(jax_mesh(default_devices()[:dp * shard], dp=dp, shard=shard), jvgf,
                     JaxCfg(use_fused=True, **HP))
     assert jtr._use_fused
     jstate = jtr.init(jflat.w0)
@@ -77,8 +112,8 @@ def test_three_steps_match_jax(dp):
 
     tflat = flatten_module(make_model("cnn", SIDE), 0)
     w0 = tflat.from_jax_params(jax.tree_util.tree_map(np.asarray, jflat.unravel(jflat.w0)))
-    ttr = SyncDataParallel(make_mesh(dp=dp, device="cpu"), value_and_grad_nll_eager(tflat),
-                           MSGDConfig(**HP))
+    ttr = SyncDataParallel(make_mesh(dp=dp, shard=shard, device="cpu"),
+                           value_and_grad_nll_eager(tflat), MSGDConfig(**HP))
     tstate = ttr.init(w0)
     tlosses = []
     for s in range(STEPS):
