@@ -212,7 +212,22 @@ order; any failure raises and the script exits non-zero:
    against ``--dp 1``: losses, state and launches equal),
    ``mesh_shard2`` (the flagship at ``--dp 4 --shard 2`` against
    ``--shard 1``: bits and K1 equal) and ``pg_group_of_one`` (a child
-   forms an NCCL group of one, all-reduces on the card, shuts down).
+   forms an NCCL group of one, all-reduces on the card, shuts down);
+9. static analysis (slice 8, ``analysis_phases``): the port's analyzer
+   (``mpit_tpu_torch.analysis``, which reads source) over
+   ``mpit_tpu_torch/`` on this host under ``mtlint_torch.toml``: no
+   unsuppressed finding, no unused baseline entry, no stale or violated
+   declaration, findings per family and seconds printed; then the sync
+   audit: every ``torchrules.HOT_PATHS`` row called on the card once warm,
+   once under ``torch.cuda.set_sync_debug_mode("warn")`` counting syncs and
+   once under ``"error"`` (a sync raises out of the script) — the msgd
+   lookahead, commit (K1) and step, EAMSGD's ``elastic_step`` (K2), the
+   Adam rule (K3), ``HbmSlot.apply_wire`` with a frame on the card at
+   codecs none and int8 (K3), ``MeshEASGD.step`` uncaptured (K1) and one
+   ``lm_launch`` ``train_step`` at ``lm_default`` (K4, K5, K1) — then
+   ``mesh_launch --device_loop 1`` at the flagship for two epochs, every
+   replay of its captured epoch graphs under the mode; a control first
+   shows the mode catching a known sync; every kernel's launches exact.
 
 The kernels' launch counters are set to 0 just before each path and read
 just after it: a path that did not launch each of its kernels exactly as
@@ -6088,6 +6103,280 @@ def bicnn_gangs(torch, all_paths, smi):
     print(f"BiCNN process gangs: {time.perf_counter() - t0:.1f}s")
 
 
+# -- static analysis and the sync audit (slice 8) -------------------------------------
+
+#: flagship batch of one uncaptured MeshEASGD step in the audit
+AUDIT_BATCH = 128
+#: what torch.cuda's sync debug mode warns with
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def analysis_lint(smi):
+    """The port's analyzer over ``mpit_tpu_torch/`` on this host (it reads
+    source; no device) under ``mtlint_torch.toml``: no unsuppressed finding,
+    no unused baseline entry, and no stale or violated declaration or hot
+    path.  Findings per rule family and the seconds printed."""
+    import pathlib
+
+    from mpit_tpu_torch import analysis
+    from mpit_tpu_torch.analysis import disciplines
+
+    root = pathlib.Path(REPO) / "mpit_tpu_torch"
+    t0 = time.perf_counter()
+    rep = analysis.run(root, analysis.load_config(pathlib.Path(REPO) / "mtlint_torch.toml"))
+    lint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cov = disciplines.coverage_report(root)
+    cov_s = time.perf_counter() - t0
+
+    def by_family(findings):
+        out = {}
+        for f in findings:
+            out[f.rule[:4] + "xxx"] = out.get(f.rule[:4] + "xxx", 0) + 1
+        return out
+
+    print("analysis_lint: " + json.dumps({
+        "unsuppressed": by_family(rep.findings),
+        "suppressed": by_family(f for f, _s in rep.suppressed),
+        "unused_baseline": len(rep.unused_suppressions), "lint_s": round(lint_s, 2),
+        "disciplines": {k: cov[k] for k in ("verified", "violated", "stale", "retired")},
+        "disciplines_s": round(cov_s, 2), "functions": cov["functions"],
+        "files": cov["files"], "card": smi}))
+    if rep.findings or rep.unused_suppressions:
+        raise AssertionError("analysis_lint: " + "; ".join(
+            [f.render() for f in rep.findings]
+            + [f"unused {s.render()}" for s in rep.unused_suppressions]))
+    if cov["violated"] or cov["stale"]:
+        raise AssertionError("analysis_lint: disciplines " + json.dumps(
+            [r for r in cov["disciplines"] if r["status"] in ("violated", "stale")]))
+
+
+@contextlib.contextmanager
+def sync_mode(torch, mode):
+    """``torch.cuda.set_sync_debug_mode(mode)`` inside the block, ``"default"``
+    restored in a ``finally``; yields the warnings the block raised."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_detector(torch):
+    """The audit's control: the mode sees a known sync (``.item()``) in
+    "warn" and raises on it in "error", and it reads a pageable host-to-card
+    copy as a sync.  Returns the syncs each control made."""
+    import numpy as np
+
+    x = torch.ones(1024, device="cuda")
+    host = np.ones(1024, np.float32)
+    with sync_mode(torch, "warn") as seen:
+        x.sum().item()
+    item = sum(SYNC_WARNING in str(m.message) for m in seen)
+    with sync_mode(torch, "warn") as seen:
+        torch.from_numpy(host).to("cuda")
+    pageable = sum(SYNC_WARNING in str(m.message) for m in seen)
+    raised = False
+    with sync_mode(torch, "error"):
+        try:
+            x.sum().item()
+        except RuntimeError:
+            raised = True
+    if not (item and pageable and raised):
+        raise AssertionError(f"sync audit: the debug mode missed a known sync: "
+                             f"item {item}, pageable copy {pageable}, raised {raised}")
+    return {"item": item, "pageable_h2d": pageable, "error_mode_raised": raised}
+
+
+def audit_call(torch, name, fn):
+    """One warm call of ``fn``, one under ``set_sync_debug_mode("warn")``
+    counting the syncs it makes, and one under ``"error"``, where a sync
+    raises out of the script.  Returns the syncs seen (0, or it raised)."""
+    fn()
+    torch.cuda.synchronize()
+    with sync_mode(torch, "warn") as seen:
+        fn()
+    syncs = [str(m.message) for m in seen if SYNC_WARNING in str(m.message)]
+    if syncs:
+        raise AssertionError(f"sync audit: {name} synchronized {len(syncs)} "
+                             f"times: {syncs[:3]}")
+    torch.cuda.synchronize()
+    with sync_mode(torch, "error"):
+        fn()
+    torch.cuda.synchronize()
+    return len(syncs)
+
+
+def sync_audit(torch, kernels, all_paths, smi):
+    """Every ``torchrules.HOT_PATHS`` row called on the card under the sync
+    debug mode (``audit_call``), at the shapes its path gives it, inputs
+    already on the card; then ``mesh_launch --device_loop 1`` at the
+    flagship for two epochs, each replay of its captured epoch graphs under
+    the mode (the first in "warn", the rest in "error").  First a control
+    shows the mode sees a known sync.  The counters are set to 0 before the
+    cases and read after (K1, K2, K3, K4 and K5 exactly as the calls, three
+    a case, say), and the device loop's K1 is checked as
+    ``device_loop_run`` checks it.  The server's copy of a received frame
+    to the card is not audited: a pageable host-to-card copy reads as a
+    sync in this mode (the control shows it), so ``HbmSlot.apply_wire`` is
+    called with the frame on the card."""
+    from mpit_tpu_torch.analysis.torchrules import HOT_PATHS
+    from mpit_tpu_torch.comm import codec as codec_mod
+    from mpit_tpu_torch.dplane.hbm import HbmSlot, PlaneConfig
+    from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.optim.easgd import elastic_step
+    from mpit_tpu_torch.optim.msgd import (
+        MSGDConfig, msgd_commit, msgd_init, msgd_lookahead, msgd_step)
+    from mpit_tpu_torch.optim.rules import adam_apply, adam_init, make as make_rule
+    from mpit_tpu_torch.parallel.easgd import MeshEASGD
+    from mpit_tpu_torch.parallel.mesh import make_mesh
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, build_step
+    from mpit_tpu_torch.train.mesh_launch import FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    mcfg_mesh = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS)
+    flat = flatten_module(make_model(mcfg_mesh.model, mcfg_mesh.side), mcfg_mesh.seed, dev)
+    n_mesh, n_shard = flat.size, flat.size // 2
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    mcfg = MSGDConfig(lr=0.01, mom=0.9, l2wd=1e-4)
+    w, g, center = randn(n_mesh), randn(n_mesh), randn(n_mesh)
+    st = msgd_init(w)
+
+    def vgf(x):
+        return (x * x).sum(), 2.0 * x
+
+    p, g3 = randn(n_shard), randn(n_shard)
+    pst = adam_init(p)
+    slot = HbmSlot(n_shard, make_rule("adam", lr=1e-3), config=PlaneConfig(device="cuda"))
+    frame = randn(n_shard)
+    int8 = codec_mod.get("int8")
+    wire = np.zeros(int8.wire_nbytes(n_shard), np.uint8)
+    int8.encode_into(np.random.default_rng(18).standard_normal(n_shard).astype(np.float32),
+                     wire)
+    parts = [torch.from_numpy(v.copy()).to(dev) for v in int8.split_wire(wire, n_shard)]
+
+    trainer = MeshEASGD(make_mesh(dp=1, device=dev), value_and_grad_nll(flat),
+                        MSGDConfig(lr=mcfg_mesh.lr, mom=mcfg_mesh.mom, l2wd=mcfg_mesh.l2wd),
+                        mva=mcfg_mesh.mva or 0.9, su=2)
+    mstate = trainer.init(flat.w0)
+    side = mcfg_mesh.side
+    xb = randn(1, AUDIT_BATCH, side * side)
+    yb = torch.randint(0, 10, (1, AUDIT_BATCH), device=dev, generator=gen)
+
+    lm_cfg = LM_LAUNCH_DEFAULTS.merged(device="cuda")
+    _flat_lm, w_lm, st_lm, train_step = build_step(lm_cfg, dev)
+    toks = torch.randint(0, 256, (lm_cfg.batch, lm_cfg.seq_len + 1), device=dev,
+                         generator=gen)
+    lm_per_call, schedule = lm_expected(lm_cfg, 1)
+
+    # (HOT_PATHS row, label, call, launches a call)
+    cases = (
+        ("msgd_lookahead", "msgd_lookahead", lambda: msgd_lookahead(w, st, mcfg), {}),
+        ("msgd_commit", "msgd_commit", lambda: msgd_commit(w, g, st, mcfg), {"k1": 1}),
+        ("msgd_step", "msgd_step", lambda: msgd_step(vgf, w, st, mcfg), {"k1": 1}),
+        ("elastic_step", "elastic_step", lambda: (
+            elastic_step(w, center, 0.3, retract=True),
+            elastic_step(w, center, 0.3, retract=False)), {"k2": 1}),
+        ("adam_apply", "adam_apply", lambda: adam_apply(p, g3, pst, lr=1e-3), {"k3": 1}),
+        ("HbmSlot.apply_wire", "HbmSlot.apply_wire[none]",
+         lambda: slot.apply_wire(codec_mod.get("none"), frame), {"k3": 1}),
+        ("HbmSlot.apply_wire", "HbmSlot.apply_wire[int8]",
+         lambda: slot.apply_wire(int8, parts), {"k3": 1}),
+        # su 2: the warm call syncs, the warn-mode call is local, the
+        # error-mode call syncs again
+        ("MeshEASGD.step", "MeshEASGD.step[uncaptured]",
+         lambda: trainer.step(mstate, xb, yb), {"k1": 1}),
+        ("build_step.train_step", "build_step.train_step[lm_default]",
+         lambda: train_step(w_lm, st_lm, toks), lm_per_call),
+    )
+    missing = {h.qual for h in HOT_PATHS} - {row for row, *_ in cases}
+    if missing:
+        raise AssertionError(f"sync audit: HOT_PATHS rows without a case: {missing}")
+
+    control = sync_detector(torch)
+    zero_counts(kernels)
+    t_audit = time.perf_counter()
+    readings, want = {}, {}
+    for _row, label, fn, per_call in cases:
+        t0 = time.perf_counter()
+        syncs = audit_call(torch, label, fn)
+        readings[label] = {"syncs": syncs, "s": round(time.perf_counter() - t0, 3)}
+        for key, n in per_call.items():
+            want[key] = want.get(key, 0) + 3 * n
+
+    case_launches = read_counts(kernels)
+
+    # The device loop itself: mesh_launch --device_loop 1 at the flagship,
+    # two epochs, every replay of its captured epoch graphs audited.
+    t0 = time.perf_counter()
+    loop_cfg = mcfg_mesh.merged(device_loop=1, epochs=2, device="cuda")
+    replays = {"n": 0, "syncs": 0}
+    replay = torch.cuda.CUDAGraph.replay
+
+    def audited_replay(graph):
+        with sync_mode(torch, "warn" if replays["n"] == 0 else "error") as seen:
+            out = replay(graph)
+        replays["n"] += 1
+        replays["syncs"] += sum(SYNC_WARNING in str(m.message) for m in seen)
+        return out
+
+    torch.cuda.CUDAGraph.replay = audited_replay
+    try:
+        res, loop_entry = device_loop_run(torch, kernels["k1"], loop_cfg)
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    if replays["syncs"] or replays["n"] != len(res["history"]):
+        raise AssertionError(f"sync audit: device loop replays {replays}")
+    readings["MeshEASGD.step[device loop replay]"] = {
+        "syncs": replays["syncs"], "replays": replays["n"],
+        "graphs": len(loop_entry["graphs"]), "steps": res["steps"],
+        "s": round(time.perf_counter() - t0, 3)}
+    launches = dict(case_launches, k1=case_launches["k1"] + loop_entry["wrapper_launches"])
+    audit_s = time.perf_counter() - t_audit
+
+    finite = {nm: bool(torch.isfinite(x).all()) for nm, x in (
+        ("w", w), ("p", p), ("slot", slot.param), ("mesh_w", mstate["w"]),
+        ("mesh_center", mstate["center"]), ("lm_w", w_lm))}
+    print("sync_audit: " + json.dumps({
+        "control": control, "hot_functions": readings, "launches": launches,
+        "schedule": schedule,
+        "seconds": round(audit_s, 2), "not_audited": "the server's pageable "
+        "host-to-card copy of a received frame (reads as a sync in this mode)",
+        "card": smi}))
+    if not all(finite.values()):
+        raise AssertionError(f"sync audit: state not finite: {finite}")
+    expect_launches("sync_audit", case_launches, want)
+    for key in ("k1", "k2", "k3", "k4", "k5"):
+        if not launches[key]:
+            raise AssertionError(f"sync audit: {key} was not launched")
+    record_path(all_paths, "sync_audit", launches, len(cases) * 3 + res["steps"])
+
+
+def analysis_phases(torch, kernels, all_paths, smi):
+    """Slice 8: the port's analyzer on this host, then the sync audit of
+    its hot functions on the card; each part's seconds printed."""
+    t0 = time.perf_counter()
+    analysis_lint(smi)
+    lint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sync_audit(torch, kernels, all_paths, smi)
+    torch.cuda.empty_cache()
+    print(f"analysis phases: {lint_s + time.perf_counter() - t0:.1f}s " + json.dumps(
+        {"analysis_lint": round(lint_s, 1),
+         "sync_audit": round(time.perf_counter() - t0, 1)}))
+
+
 def np_isfinite(w):
     import numpy as np
 
@@ -6206,6 +6495,7 @@ def main() -> int:
     slice4_s += time.perf_counter() - t_resume
     agg_lm_phases(torch, kernels, all_paths, smi)
     parallel_phases(torch, kernels, all_paths, smi)
+    analysis_phases(torch, kernels, all_paths, smi)
     k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
     print(f"sync-DP, resume and BiCNN phases: {slice4_s:.1f}s")

@@ -217,10 +217,6 @@ class ExchangeClient:
             "wire": _m.counter("mpit_dplane_exchange_ops_total",
                                rank=inner.rank, path="wire"),
         }
-        #: copies sync_device(concat=True) made so that a caller never holds
-        #: the shared per-version pull tensor of a one-shard gang
-        self._m_sync_copies = _m.counter("mpit_dplane_sync_copies_total",
-                                         rank=inner.rank)
 
     # -- mirrors (honor inner.reset retargets) -------------------------------
 
@@ -426,7 +422,6 @@ class ExchangeClient:
             # One shard: never hand out the shared per-version tensor as a
             # vector the caller owns (a later in-place update would change
             # every other holder's copy).
-            self._m_sync_copies.inc()
             return parts[0].clone()
         return parts[0]
 

@@ -75,6 +75,12 @@ def _as_tensor(x: Any) -> torch.Tensor:
     """A tensor view of ``x`` (a numpy array is aliased, not copied)."""
     if isinstance(x, torch.Tensor):
         return x
+    return _from_host(x)
+
+
+def _from_host(x: Any) -> torch.Tensor:
+    """A CPU tensor aliasing host array ``x`` (a read-only one is copied:
+    ``torch.from_numpy`` wants a writeable buffer)."""
     arr = np.asarray(x)
     return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
@@ -231,11 +237,9 @@ class HbmSlot:
         """Whole-shard write (seeding / PARAM_PUSH): a new version.  Rule
         state is kept — the reference's seed overwrites params only.  Into
         the slot's storage when donating, else into fresh storage."""
-        src = self._on_device(value).reshape(-1)
-        if self.config.donate:
-            self.param.copy_(src)
-        else:
-            self.param = torch.empty_like(self.param).copy_(src)
+        if not self.config.donate:
+            self.param = torch.empty_like(self.param)
+        self.param.copy_(self._on_device(value).reshape(-1))
         self._invalidate()
 
     # -- read path: per-version caches on both sides of the boundary ---------

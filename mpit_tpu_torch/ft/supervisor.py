@@ -58,6 +58,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Optional
 
+from mpit_tpu_torch.obs import clock as obs_clock
 from mpit_tpu_torch.utils.logging import get_logger
 
 
@@ -217,7 +218,7 @@ def supervise_gang(
                         int(chaos_signal), chaos_kill_rank, victim.pid)
             os.kill(victim.pid, chaos_signal)
             chaos_done = True
-            chaos_wall = time.time()
+            chaos_wall = obs_clock.epoch_offset() + time.monotonic()
             if chaos_signal == signal.SIGTERM and chaos_grace_s > 0:
                 chaos_escalate_at = now + chaos_grace_s
         if chaos_escalate_at is not None and now >= chaos_escalate_at:

@@ -47,6 +47,16 @@ from mpit_tpu_torch.optim.client_api import ParamClientAPI
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_commit, msgd_init, msgd_lookahead
 
 
+def elastic_step(w: torch.Tensor, center: torch.Tensor, mva: float, *,
+                 retract: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The elastic difference ``sug = mva * (w - center)`` on ``w``'s
+    device.  With ``retract`` one sweep also applies ``w -= sug`` in place
+    (K2); without it the retract rides the local commit (K1)."""
+    if retract:
+        return fused_elastic(w, center, mva)
+    return w, mva * (w - center)
+
+
 class EAMSGD:
     def __init__(
         self,
@@ -103,11 +113,7 @@ class EAMSGD:
             self.pc.wait()  # completes this recv and any prior send
             self.dusync += time.monotonic() - t0
             center = torch.from_numpy(self.center_host).to(w.device, copy=True)
-            if self._skip_local:
-                # One sweep computes sug and the retracted w together (K2).
-                w, sug = fused_elastic(w, center, self.mva)
-            else:
-                sug = self.mva * (w - center)
+            w, sug = elastic_step(w, center, self.mva, retract=self._skip_local)
             np.copyto(self.sug_host, sug.cpu().numpy())
             if self._obs:
                 # sug = mva * (w - w*): one norm serves both gauges.

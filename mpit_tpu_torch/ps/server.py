@@ -427,7 +427,9 @@ class ParamServer:
         #: dedup table (a restarted server's exactly-once accounting)
         self.restored_applied = 0
         self.restored_dedup: Dict[str, list] = {}
-        #: wall-clock times: the perpetual services started (a restarted
+        #: wall-clock times on the process's obs time base (the monotonic
+        #: clock plus ``obs.clock.epoch_offset``, so no obs clock is read
+        #: with obs off): the perpetual services started (a restarted
         #: server is back in the gang), and each rejoin was accepted
         self.serving_since: Optional[float] = None
         self.rejoined_at: List[float] = []
@@ -1355,7 +1357,7 @@ class ParamServer:
                             heartbeats=self._hb.get(crank, False))
             self._alloc_client(crank, codec)
             self._m_rejoins.inc()
-            self.rejoined_at.append(time.time())
+            self.rejoined_at.append(obs_clock.epoch_offset() + time.monotonic())
             # Two generations must never recv one channel concurrently —
             # wait for the superseded loops to abort out.
             while self._svc_live[crank] > 0:
@@ -2576,8 +2578,8 @@ class ParamServer:
         """Fresh device storage holding a copy of ``arr``: a restored shard
         never aliases the arrays it was loaded into (on the CPU,
         ``torch.from_numpy`` alone would)."""
-        src = torch.from_numpy(np.asarray(arr, order="C"))  # keeps 0-d as 0-d
-        return torch.empty(src.shape, dtype=src.dtype, device=self.device).copy_(src)
+        # keeps 0-d as 0-d
+        return torch.from_numpy(np.asarray(arr, order="C")).to(self.device, copy=True)
 
     def restore_state(self, path) -> None:
         """Load a shard checkpoint (of either package) before start().  A
@@ -2732,7 +2734,7 @@ class ParamServer:
             self.sched.spawn(self._lease_reaper(), name="lease_reaper")
         self.sched.spawn(self._sc_map_listener(), name="sc_map_listener")
         self.sched.spawn(self._sc_beat(), name="sc_beat")
-        self.serving_since = time.time()
+        self.serving_since = obs_clock.epoch_offset() + time.monotonic()
         self._drive()
 
     def start(self) -> None:
@@ -2785,7 +2787,7 @@ class ParamServer:
                           warn_unexpected=True),
                 name="unexpected_seed")
         # Phase 3: perpetual services per client + stop counters.
-        self.serving_since = time.time()
+        self.serving_since = obs_clock.epoch_offset() + time.monotonic()
         for crank in self.cranks:
             self._spawn_services(crank)
         if self.ft.server_rejoin:

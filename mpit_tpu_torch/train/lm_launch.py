@@ -166,16 +166,12 @@ def run(cfg: Config) -> dict:
             shutdown()
 
 
-def _train(cfg: Config, device: torch.device, pg) -> dict:
-    log = get_logger("lm", pg.process_id)
-    log.info("%s", pg.describe())
+def build_step(cfg: Config, device: torch.device):
+    """The model and one training step at ``cfg``'s widths on ``device``:
+    the flat model, its weights and a fresh optimizer state, and
+    ``train_step(w, state, toks) -> loss``, which updates ``w`` and
+    ``state`` in place (K4 forward, K5 or K6 backward, K1 commit)."""
     dp, sp = int(cfg.dp) or 1, int(cfg.sp) or 1
-    log.info("mesh: dp=%d sp=%d on %s (%s)", dp, sp, device, device_name(device))
-    if dp < 1 or cfg.batch % dp:
-        raise ValueError(f"--batch {cfg.batch} not divisible by dp={dp}")
-    if sp < 1 or cfg.seq_len % sp:
-        raise ValueError(f"--seq_len {cfg.seq_len} not divisible by sp={sp}")
-
     cast = torch.bfloat16 if cfg.attn_dtype == "bfloat16" else None
     # sp 1: K4 over every row of the batch, dp groups included.
     inner = (ring_attention(Mesh(device, dp=dp, sp=sp), "sp", causal=True,
@@ -193,7 +189,6 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         n_layers=cfg.n_layers, max_len=cfg.seq_len, attn_fn=attn_fn,
     )
     flat = flatten_module(model, cfg.seed, device)
-    log.info("flat params: %d", flat.size)
 
     def loss_fn(w, toks):
         logp = flat.apply_flat(w, toks[:, :-1])
@@ -212,7 +207,21 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         return loss
 
     w = flat.w0.clone()
-    state = msgd_init(w)
+    return flat, w, msgd_init(w), train_step
+
+
+def _train(cfg: Config, device: torch.device, pg) -> dict:
+    log = get_logger("lm", pg.process_id)
+    log.info("%s", pg.describe())
+    dp, sp = int(cfg.dp) or 1, int(cfg.sp) or 1
+    log.info("mesh: dp=%d sp=%d on %s (%s)", dp, sp, device, device_name(device))
+    if dp < 1 or cfg.batch % dp:
+        raise ValueError(f"--batch {cfg.batch} not divisible by dp={dp}")
+    if sp < 1 or cfg.seq_len % sp:
+        raise ValueError(f"--seq_len {cfg.seq_len} not divisible by sp={sp}")
+
+    flat, w, state, train_step = build_step(cfg, device)
+    log.info("flat params: %d", flat.size)
     model_key = {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
                  "n_layers": cfg.n_layers, "seq_len": cfg.seq_len}
     start_step, prev_elapsed = 0, 0.0

@@ -730,8 +730,9 @@ class TestExchangeLifecycle:
 
     def test_one_shard_sync_device_hands_out_a_copy(self):
         """With one shard the pulled vector is the slot's shared per-version
-        clone: sync_device(concat=True) returns a copy of it (counted), so a
-        caller updating its vector in place cannot change another holder's."""
+        clone: sync_device(concat=True) returns a copy of it on every call,
+        so a caller updating its vector in place cannot change another
+        holder's."""
         router = LocalRouter(2)
         server = ParamServer(0, [1], router.endpoint(0), rule="add", device="cpu",
                              dplane=CPU_PLANE)
@@ -743,9 +744,11 @@ class TestExchangeLifecycle:
         out = client.sync_device(torch.ones(16))
         cached = server._hbm.pull_device()
         assert out.data_ptr() != cached.data_ptr()
-        assert int(client._m_sync_copies.value) == 1
         out.add_(5.0)
         np.testing.assert_array_equal(cached.numpy(), np.ones(16, np.float32))
+        again = client.sync_device(torch.zeros(16))
+        assert again.data_ptr() not in (out.data_ptr(),
+                                        server._hbm.pull_device().data_ptr())
         client.stop()
         join_all([t])
 

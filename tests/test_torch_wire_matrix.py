@@ -8,7 +8,9 @@ speaks shard control.
 
 For every cell the port's ``ParamServer._negotiate`` must agree with
 ``mpit_tpu.analysis.schema.negotiate`` (``reader_rank``/``serves_readers``,
-``cell_rank``/``serves_cells``):
+``cell_rank``/``serves_cells``) and with the port's own copy of that
+oracle, ``mpit_tpu_torch.analysis.schema.negotiate``, which must give the
+reference's outcome, field for field, in every cell of the matrix:
 
 - a cell the oracle accepts is accepted, with the oracle's effective
   per-pair posture (framed, heartbeat, staleness, timing, readonly,
@@ -41,10 +43,13 @@ No cell is refused as a later slice's any more: the third count is 0.
 import numpy as np
 import pytest
 
+import dataclasses
+
 import mpit_tpu.ft.wire as jftw
 import mpit_tpu.shardctl.wire as jscw
 from mpit_tpu.analysis import schema
 from mpit_tpu.shardctl.shardmap import ShardMap as JaxShardMap
+from mpit_tpu_torch.analysis import schema as port_schema
 from mpit_tpu_torch.ft import wire as ftw
 from mpit_tpu_torch.ps import ParamServer
 from mpit_tpu_torch.shardctl import ShardMap
@@ -88,6 +93,10 @@ def _verdicts(version, sc_server=False, config="plain"):
     out = []
     for flags in (range(128) if version in (3, 4, 5) else [0]):
         want = schema.negotiate(version, flags, sc_server=sc_server, **oracle_kw)
+        port_want = port_schema.negotiate(version, flags, sc_server=sc_server,
+                                          **oracle_kw)
+        assert dataclasses.asdict(port_want) == dataclasses.asdict(want), (
+            config, version, flags, sc_server)
         # client_ranks=[2] keeps the announcing rank 1 out of the gang's
         # clients, as the reference matrix does.
         server = ParamServer(0, [2], None, rule="add", device="cpu", **server_kw)
@@ -213,3 +222,20 @@ def test_the_timing_cells_are_accepted(version):
     counts = {v: sum(1 for r in rows if r[2] == v) for v in ("accepted", "refused", "later")}
     assert counts == ({"accepted": 1, "refused": 0, "later": 0} if version < 3
                       else {"accepted": 16, "refused": 112, "later": 0})
+
+
+@pytest.mark.parametrize("sc_server", [False, True])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_port_oracle_equals_the_reference_oracle(config, sc_server):
+    """The port's registry copy answers as the reference's over the whole
+    v1-v5 matrix (128 flag sets each), for every posture and with or
+    without a shard-control server, including the non-splittable rule."""
+    _server_kw, oracle_kw = CONFIGS[config]
+    for version in (1, 2, 3, 4, 5):
+        for flags in range(128):
+            for splittable in (True, False):
+                kw = dict(oracle_kw, sc_server=sc_server,
+                          splittable_rule=splittable)
+                assert dataclasses.asdict(port_schema.negotiate(
+                    version, flags, **kw)) == dataclasses.asdict(
+                        schema.negotiate(version, flags, **kw)), (version, flags, kw)
