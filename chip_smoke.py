@@ -213,6 +213,27 @@ order; any failure raises and the script exits non-zero:
    ``mesh_shard2`` (the flagship at ``--dp 4 --shard 2`` against
    ``--shard 1``: bits and K1 equal) and ``pg_group_of_one`` (a child
    forms an NCCL group of one, all-reduces on the card, shuts down);
+8e. meshes over a group of two processes sharing the card (slice 9b,
+   ``multiproc_phases``): first a one-process control
+   (``mp_vmap_control``: the flagship CNN's worker gradients in a ``vmap``
+   over four rows and over two, under deterministic cuDNN) says whether a
+   row's bits depend on the ``vmap`` width; then the one-process controls
+   here, and one pair of processes, both on the card, running the
+   launchers' CLI in turn, each run over a group of its own (gloo,
+   asserted), ``dp`` cut across the two: ``mp_easgd`` (the flagship CNN at
+   ``--dp 4 --su 2``, 2 epochs with ``--ckpt_dir``) and
+   ``mp_easgd_resume`` (that checkpoint resumed to 4 epochs by the pair and
+   by one process): each process's rows of w, vt and k, the center and
+   every epoch against one process at ``--dp 4``, bit for bit, or within
+   K1's tolerances where the control shows the width moving bits, each
+   exchange timed with its bytes; ``mp_syncdp_linear`` (``--opt syncdp`` at
+   ``--dp 2``, batch 128: within ``MP_LOSS_RTOL`` of one process) and
+   ``mp_syncdp_cnn`` (the same with the CNN: bit for bit one process
+   computing the pair's arithmetic, two half-batch means averaged); and
+   ``mp_lm`` (``lm_launch --dp 2`` at ``lm_default``'s widths, 5 steps,
+   bfloat16 attention: within ``LM_LIMITS["float32"]`` of one process);
+   both processes' replicas alike; each child's K1 and K4-K6 launches equal
+   the one-process run's; each child's start-up printed;
 9. static analysis (slice 8, ``analysis_phases``): the port's analyzer
    (``mpit_tpu_torch.analysis``, which reads source) over
    ``mpit_tpu_torch/`` on this host under ``mtlint_torch.toml``: no
@@ -5025,6 +5046,427 @@ def parallel_phases(torch, kernels, all_paths, smi):
         {k: round(v, 1) for k, v in secs.items()}))
 
 
+# -- meshes over a group of processes sharing the card (slice 9b) -----------------
+
+#: epochs of ``mp_easgd``'s first run and of its resume (the JAX test's [2, 3])
+MP_EPOCHS, MP_RESUME_EPOCHS = 2, 4
+#: the LM pair's steps at ``lm_default``'s widths
+MP_LM_STEPS = 5
+#: sync-DP across processes against one process: the per-epoch losses'
+#: relative gap (tests/test_torch_syncdp.py's LOSS_RTOL).  The mean of two
+#: processes' mean gradients is the batch's mean up to float32 rounding.
+MP_LOSS_RTOL = 1e-5
+#: K1's tolerances (its CPU tests'), for rows whose bits move with the
+#: ``vmap`` width alone (``mp_vmap_control``)
+K1_RTOL, K1_ATOL = 1e-5, 1e-6
+MP_CHILD_TIMEOUT_S = 300
+GROUP_VARS = ("MPIT_COORDINATOR", "MPIT_NUM_PROCESSES", "MPIT_PROCESS_ID", "MPIT_HOSTFILE")
+#: sync-DP's settings on the card (``mesh_syncdp``'s), and the model of each run
+MP_SYNCDP = dict(opt="syncdp", side=32, batch=128, lr=0.2, mom=0.9, epochs=2,
+                 device_stream=1, precompile=1, dp=2)
+
+# One process of the pair: each run is the launcher's CLI (``main``) over a
+# group of its own (its own port), under deterministic cuDNN; its state
+# is saved for the parent, and its K1 and K4-K6 launches, its group's
+# formation and each EASGD exchange (``timed_exchanges``) are reported; the
+# process's start-up (imports, the CUDA context) once.
+MP_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {repo!r})
+import importlib
+import torch
+import chip_smoke
+from mpit_tpu_torch.ops import fused_update as fu
+from mpit_tpu_torch.train import lm_launch, mesh_launch
+fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+import_s = time.perf_counter() - t0
+torch.zeros(1, device="cuda")
+cuda_init_s = time.perf_counter() - t0 - import_s
+torch.backends.cudnn.deterministic = True
+runs, pid = json.loads(sys.argv[1]), sys.argv[2]
+times = {{}}
+def timed_boot(real):
+    def boot(cfg, device):
+        t = time.perf_counter()
+        pg = real(cfg, device)
+        times["group_s"] = time.perf_counter() - t
+        return pg
+    return boot
+for mod in (lm_launch, mesh_launch):
+    mod.bootstrap_launcher = timed_boot(mod.bootstrap_launcher)
+kernels = {{"k1": fu.fused_nesterov_commit, "k4": fa.flash_fwd,
+           "k5": fa.flash_bwd_fused, "k6": fa.flash_bwd_two_kernel}}
+for run in runs:
+    times.clear()
+    times["exchange_ms"] = []
+    for k in kernels.values():
+        k.launches = 0
+    mod = lm_launch if run["module"] == "lm" else mesh_launch
+    with chip_smoke.timed_exchanges(torch, times["exchange_ms"]):
+        res = mod.main(run["argv"] + ["--process_id", pid])
+    torch.cuda.synchronize()
+    torch.save({{k: v.cpu() for k, v in res.pop("state").items()}},
+               run["state"].format(pid=pid))
+    res.update(name=run["name"], launches={{k: v.launches for k, v in kernels.items()}},
+               import_s=import_s, cuda_init_s=cuda_init_s, **times)
+    print("RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def cli_args(cfg_kw):
+    """Keyword settings as the launchers' command line."""
+    return [a for k, v in cfg_kw.items() for a in (f"--{k}", str(v))]
+
+
+def free_ports(n):
+    """``n`` distinct free ports on the loopback (held open together while
+    they are picked)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def mp_pair(torch, runs, tmp):
+    """Two processes sharing the card, side by side, each running every
+    run of ``runs`` (``name``, ``module`` "mesh" or "lm", ``argv``) in turn,
+    each run a group of its own: per run, both processes' results and
+    states (on the CPU); the pair's wall seconds.  Each process must exit 0
+    in time, and each run go over gloo with its tensors on the card."""
+    ports = free_ports(len(runs))
+    spec = [{"name": r["name"], "module": r["module"],
+             "state": os.path.join(tmp, f"{r['name']}_{{pid}}.pt"),
+             "argv": r["argv"] + ["--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
+                                  "--num_processes", "2"]}
+            for r, port in zip(runs, ports)]
+    env = {k: v for k, v in os.environ.items() if k not in GROUP_VARS}
+    env["MPIT_LOG_STREAM"] = "stderr"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MP_CHILD.format(repo=REPO), json.dumps(spec), str(pid)],
+        cwd=REPO, env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for pid in (0, 1)]
+    outs = []
+    try:
+        for pid, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=MP_CHILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"multiproc: process {pid} exited {proc.returncode}: "
+                                     f"{err[-3000:]}")
+            outs.append([json.loads(ln[len("RESULT "):]) for ln in out.splitlines()
+                         if ln.startswith("RESULT ")])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    runs_out = {}
+    for i, r in enumerate(spec):
+        results = [outs[pid][i] for pid in (0, 1)]
+        for pid, res in enumerate(results):
+            if (res["name"], res["backend"], res["processes"]) != (r["name"], "gloo", 2) or \
+                    not res["device"].startswith("cuda"):
+                raise AssertionError(f"{r['name']}: process {pid} ran {res['processes']} "
+                                     f"processes over {res['backend']} on {res['device']}")
+        states = [torch.load(r["state"].format(pid=pid), map_location="cpu") for pid in (0, 1)]
+        runs_out[r["name"]] = (results, states)
+    return runs_out, wall
+
+
+def expect_child_launches(name, results, want):
+    """Every child launched each kernel as often as the one-process run."""
+    for pid, res in enumerate(results):
+        got = {k: res["launches"].get(k, 0) for k in ("k1", "k4", "k5", "k6")}
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"{name}: process {pid} launched {got}, the one-process "
+                                 f"run {want}")
+
+
+def mp_vmap_control(torch):
+    """One process: the flagship CNN's per-worker gradients (side 32, batch
+    128 a row) of rows 0-1 in a ``vmap`` over four rows and over those two
+    alone, under deterministic cuDNN.  Returns whether they are the same
+    bits, and the largest gap."""
+    import numpy as np
+
+    from mpit_tpu_torch.data.mnist import load_mnist
+    from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll
+    from mpit_tpu_torch.models.mnist import make_model
+
+    (x, y, _, _), _ = load_mnist(side=32)
+    xb = torch.as_tensor(x[:512].reshape(4, 128, -1), dtype=torch.float32, device="cuda")
+    yb = torch.as_tensor(y[:512].reshape(4, 128).astype(np.int64), device="cuda")
+    flat = flatten_module(make_model("cnn", 32), 1, "cuda")
+    vg = torch.func.vmap(value_and_grad_nll(flat))
+    w = flat.w0.expand(4, -1).clone()
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True
+        (l4, g4), (l2, g2) = vg(w, xb, yb), vg(w[:2], xb[:2], yb[:2])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(g4[:2], g2) and torch.equal(l4[:2], l2)
+    return same, float((g4[:2] - g2).abs().max())
+
+
+def epochs_of(res):
+    return [(h["epoch"], h["avg_loss"], h["test_err"]) for h in res["history"]]
+
+
+def mp_hold_rows(torch, name, results, states, one, exact):
+    """Each child's history and its rows of the state against the
+    one-process run's: bit for bit where ``exact``, else within K1's
+    tolerances (losses too) and one test sample.  Returns each tensor's
+    largest gap; a miss raises with all of them."""
+    gaps, misses = {}, []
+    for pid, (res, st) in enumerate(zip(results, states)):
+        rows = slice(2 * pid, 2 * pid + 2)
+        for key, got in st.items():
+            want = one["state"][key].cpu()
+            want = want if key == "center" else want[rows]
+            gaps[f"{key}{pid}"] = float((got.double() - want.double()).abs().max())
+            held = (torch.equal(got, want) if exact else
+                    bool(torch.isclose(got, want, rtol=K1_RTOL, atol=K1_ATOL).all()))
+            if not held:
+                misses.append(f"process {pid}'s {key}")
+        if exact and epochs_of(res) != epochs_of(one):
+            misses.append(f"process {pid}'s epochs {epochs_of(res)}, one process "
+                          f"{epochs_of(one)}")
+        for (e, lp, tp), (_, lo, to) in zip(epochs_of(res), epochs_of(one)):
+            if abs(lp - lo) > K1_RTOL * abs(lo) or abs(tp - to) > 1.0 / N_TEST + 1e-7:
+                misses.append(f"process {pid}'s epoch {e}: ({lp}, {tp}), one process "
+                              f"({lo}, {to})")
+    if misses:
+        raise AssertionError(f"{name}: {'bit for bit' if exact else 'K1 tolerances'} "
+                             f"missed by {misses}; largest gaps {gaps}")
+    return gaps
+
+
+@contextlib.contextmanager
+def timed_exchanges(torch, times):
+    """``MeshEASGD._exchange`` timed call by call (the card synchronized
+    around it), as the children time theirs."""
+    from mpit_tpu_torch.parallel.easgd import MeshEASGD
+
+    real = MeshEASGD._exchange
+
+    def exchange(self, center, sug):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(self, center, sug)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+
+    MeshEASGD._exchange = exchange
+    try:
+        yield
+    finally:
+        MeshEASGD._exchange = real
+
+
+@contextlib.contextmanager
+def half_batch_gradients(torch):
+    """``mesh_launch``'s sync-DP gradient as two processes of one row of dp
+    compute it: each half of the batch's mean loss and gradient, the two
+    averaged, ``(first + second) / 2``, in one float32 vector as
+    ``process_mean`` averages them: the pair's arithmetic in one process."""
+    import mpit_tpu_torch.train.mesh_launch as ml
+
+    real = ml.value_and_grad_nll_eager
+
+    def halves(flat):
+        vgf = real(flat)
+
+        def vg(w, xb, yb):
+            n = xb.shape[0] // 2
+            parts = [torch.cat([g, loss.reshape(1)])
+                     for loss, g in (vgf(w, xb[:n], yb[:n]), vgf(w, xb[n:], yb[n:]))]
+            both = (parts[0] + parts[1]) / 2
+            return both[-1], both[:-1]
+
+        return vg
+
+    ml.value_and_grad_nll_eager = halves
+    try:
+        yield
+    finally:
+        ml.value_and_grad_nll_eager = real
+
+
+def step_ms(res, per_step):
+    """A run's training milliseconds a step (its epochs' walls over the
+    steps it trained)."""
+    return res["train_time"] / (res["samples_trained"] / per_step) * 1e3
+
+
+def multiproc_phases(torch, kernels, all_paths, smi):
+    """Meshes over a group of two processes sharing the card (slice 9b).
+    First ``mp_vmap_control``; then the one-process controls in this
+    process; then one pair of processes running, each in a group of its
+    own: ``mp_easgd`` (the flagship CNN at ``--dp 4 --su 2``, 2 epochs with
+    ``--ckpt_dir``), ``mp_easgd_resume`` (the pair's checkpoint resumed to
+    4 epochs; its one-process control resumes the same file after the pair),
+    ``mp_syncdp_linear`` and ``mp_syncdp_cnn`` (``--opt syncdp`` at
+    ``--dp 2``, batch 128: the linear model against one process within
+    ``MP_LOSS_RTOL``; the CNN, whose half-batch gradients leave the whole
+    batch's trajectory within a few steps on the card at these settings,
+    bit for bit against one process computing the pair's arithmetic,
+    ``half_batch_gradients``, its gap to the plain one-process run
+    printed) and ``mp_lm`` (``lm_launch --dp 2`` at ``lm_default``'s
+    widths, 5 steps, bfloat16 attention: w and vt within
+    ``LM_LIMITS["float32"]``; each row's attention is the same bits in both,
+    what differs is the float32 sum over rows and the processes' mean).
+    Every child's K1 and K4-K6 launches equal the one-process run's."""
+    import tempfile
+
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.transformer import TinyDecoder
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS
+    from mpit_tpu_torch.train.mesh_launch import (
+        FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS, run)
+
+    t_block = time.perf_counter()
+    commit = kernels["k1"]
+    exact, gap = mp_vmap_control(torch)
+    print(f"mp_vmap_control on {smi}: rows 0-1 of a vmap over four rows and over two: "
+          f"{'the same bits' if exact else 'bits differ'} (largest gap {gap}); the "
+          f"EASGD pair's rows held {'bit for bit' if exact else 'within K1 rtol 1e-5 / atol 1e-6'}")
+    easgd = dict(FLAGSHIP_BENCH_KWARGS, dp=4, su=2, epochs=MP_EPOCHS)
+    syncdp = {"linear": dict(MP_SYNCDP, model="linear"), "cnn": dict(MP_SYNCDP, model="cnn")}
+    lm_kw = dict(dp=2, steps=MP_LM_STEPS, log_every=1)
+    ones, k1s, ex_ms = {}, {}, {"mp_easgd": [], "mp_easgd_resume": []}
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory() as tmp:
+        d = {k: os.path.join(tmp, k) for k in ("one", "pair", "pair_resume", "one_resume")}
+        try:
+            torch.backends.cudnn.deterministic = True
+            t0 = time.perf_counter()
+            for name, kw, ctx in (
+                    ("mp_easgd", dict(easgd, ckpt_dir=d["one"]), timed_exchanges(
+                        torch, ex_ms["mp_easgd"])),
+                    ("mp_syncdp_linear", syncdp["linear"], contextlib.nullcontext()),
+                    ("mp_syncdp_cnn", syncdp["cnn"], half_batch_gradients(torch)),
+                    ("mp_syncdp_cnn_whole", syncdp["cnn"], contextlib.nullcontext())):
+                commit.launches = 0
+                with ctx:
+                    ones[name] = run(MESH_LAUNCH_DEFAULTS.merged(kw, device="cuda"))
+                k1s[name] = {"k1": commit.launches}
+            with fused_bwd_env(None):
+                ones["mp_lm"], lm_rec = lm_path(torch, "mp_lm_one", kernels, **lm_kw)
+            k1s["mp_lm"] = lm_rec["launches"]
+            one_s = time.perf_counter() - t0
+            resume_file = os.path.join(d["pair"], "mesh_latest.npz")
+            pair, wall = mp_pair(torch, [
+                dict(name="mp_easgd", module="mesh",
+                     argv=cli_args(dict(easgd, ckpt_dir=d["pair"]))),
+                dict(name="mp_easgd_resume", module="mesh", argv=cli_args(dict(
+                    easgd, epochs=MP_RESUME_EPOCHS, resume=resume_file,
+                    ckpt_dir=d["pair_resume"]))),
+                dict(name="mp_syncdp_linear", module="mesh", argv=cli_args(syncdp["linear"])),
+                dict(name="mp_syncdp_cnn", module="mesh", argv=cli_args(syncdp["cnn"])),
+                dict(name="mp_lm", module="lm", argv=cli_args(lm_kw))], tmp)
+            t0 = time.perf_counter()
+            commit.launches = 0
+            with timed_exchanges(torch, ex_ms["mp_easgd_resume"]):
+                ones["mp_easgd_resume"] = run(MESH_LAUNCH_DEFAULTS.merged(
+                    easgd, epochs=MP_RESUME_EPOCHS, resume=resume_file,
+                    ckpt_dir=d["one_resume"], device="cuda"))
+            k1s["mp_easgd_resume"] = {"k1": commit.launches}
+            one_s += time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+    readings = {"pair_wall_s": wall, "one_process_s": one_s,
+                "startup_s": [{k: round(pair["mp_easgd"][0][pid][k], 3) for k in (
+                    "import_s", "cuda_init_s", "group_s", "compile_s")} for pid in (0, 1)]}
+    for name in ("mp_easgd", "mp_easgd_resume", "mp_syncdp_linear", "mp_syncdp_cnn",
+                 "mp_lm"):
+        results, states = pair[name]
+        one = ones[name]
+        expect_child_launches(name, results, k1s[name])
+        r = {"launches_each": k1s[name]}
+        if name.startswith("mp_easgd"):
+            want = (list(range(MP_EPOCHS)) if name == "mp_easgd"
+                    else list(range(MP_EPOCHS, MP_RESUME_EPOCHS)))
+            if [h["epoch"] for h in results[0]["history"]] != want:
+                raise AssertionError(f"{name}: epochs {epochs_of(results[0])}, want {want}")
+            per_step = 4 * easgd["batch"]
+            r.update(bit_for_bit=exact,
+                     max_abs_gaps=mp_hold_rows(torch, name, results, states, one, exact),
+                     step_ms={"one": step_ms(one, per_step),
+                              "pair": [step_ms(x, per_step) for x in results]},
+                     exchange_ms={"one": ex_ms[name],
+                                  "pair": [x["exchange_ms"] for x in results]},
+                     # every process's sug rows, float32: the whole (dp, plong)
+                     exchange_bytes_gathered=4 * easgd["dp"] * one["state"]["center"].numel())
+            steps = one["samples_trained"] // per_step
+        elif name.startswith("mp_syncdp"):
+            if epochs_of(results[0]) != epochs_of(results[1]) or any(
+                    not torch.equal(states[0][k], states[1][k]) for k in states[0]):
+                raise AssertionError(f"{name}: the two processes' replicas differ")
+            w_gap = float((states[0]["w"] - one["state"]["w"].cpu()).abs().max())
+            if name == "mp_syncdp_cnn":
+                same = epochs_of(results[0]) == epochs_of(one) and w_gap == 0.0
+                whole = ones["mp_syncdp_cnn_whole"]
+                r.update(bit_for_bit_half_batches=same, whole_batch={
+                    "epochs": epochs_of(whole),
+                    "w_max_abs_gap": float((states[0]["w"] - whole["state"]["w"].cpu())
+                                           .abs().max())})
+                if not same:
+                    raise AssertionError(f"{name}: the pair {epochs_of(results[0])} is not "
+                                         f"the one-process half-batch run {epochs_of(one)}")
+            else:
+                for (e, lp, tp), (_, lo, to) in zip(epochs_of(results[0]), epochs_of(one)):
+                    if abs(lp - lo) > MP_LOSS_RTOL * abs(lo) or abs(tp - to) > (
+                            1.0 / N_TEST + 1e-7):
+                        raise AssertionError(f"{name}: epoch {e} ({lp}, {tp}) against one "
+                                             f"process's ({lo}, {to})")
+            r.update(w_max_abs_gap=w_gap, epochs={"one": epochs_of(one),
+                                                  "pair": epochs_of(results[0])},
+                     step_ms={"one": step_ms(one, MP_SYNCDP["batch"]),
+                              "pair": [step_ms(x, MP_SYNCDP["batch"]) for x in results]})
+            steps = one["samples_trained"] // MP_SYNCDP["batch"]
+        else:
+            losses = [[h["avg_loss"] for h in x["history"]] for x in (*results, one)]
+            if losses[0] != losses[1]:
+                raise AssertionError(f"mp_lm: the processes' losses differ: {losses}")
+            cfg = LM_LAUNCH_DEFAULTS
+            w0 = flatten_module(TinyDecoder(vocab=256, d_model=cfg.d_model,
+                                            n_heads=cfg.n_heads, n_layers=cfg.n_layers,
+                                            max_len=cfg.seq_len), cfg.seed).w0
+            lim = LM_LIMITS["float32"]
+            for key in ("w", "vt"):
+                want = one["state"][key].cpu()
+                gap_t = states[0][key] - want
+                change = want - (w0 if key == "w" else 0.0)
+                r[key] = {"max_abs_gap": float(gap_t.abs().max()),
+                          "gap_over_change": float(gap_t.norm() / change.norm())}
+                if not (r[key]["max_abs_gap"] <= lim["max_abs_gap"]
+                        and r[key]["gap_over_change"] <= lim["gap_over_change"]):
+                    raise AssertionError(f"mp_lm: {key} beyond LM_LIMITS['float32']: {r}")
+            r["loss_rel_gap"] = max(abs(a - b) / abs(b) for a, b in zip(losses[0], losses[2]))
+            if not r["loss_rel_gap"] <= lim["loss_rtol"]:
+                raise AssertionError(f"mp_lm: losses {losses[0]} against {losses[2]}")
+            r.update(tokens_per_sec={"one": one["tokens_per_sec"],
+                                     "pair": [x["tokens_per_sec"] for x in results]},
+                     schedule=lm_rec["schedule"])
+            steps = MP_LM_STEPS
+        readings[name] = r
+        for pid, res in enumerate(results):
+            record_path(all_paths, f"{name}_p{pid}", res["launches"], steps)
+        record_path(all_paths, f"{name}_one", k1s[name], steps)
+    print(f"multiproc phases on {smi}: " + json.dumps(readings))
+    print(f"multiproc phases: {time.perf_counter() - t_block:.1f}s (the pair "
+          f"{wall:.1f}s, one process {one_s:.1f}s)")
+
+
 # -- hierarchical aggregation and the LM through the gang (slices 5g and 7b) -------
 
 #: lockstep rounds of the aggregation gangs
@@ -6495,6 +6937,7 @@ def main() -> int:
     slice4_s += time.perf_counter() - t_resume
     agg_lm_phases(torch, kernels, all_paths, smi)
     parallel_phases(torch, kernels, all_paths, smi)
+    multiproc_phases(torch, kernels, all_paths, smi)
     analysis_phases(torch, kernels, all_paths, smi)
     k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")

@@ -1,4 +1,4 @@
-"""Collective primitives on the one-card stand-in mesh — the port of
+"""Collective primitives on the port's meshes — the port of
 ``mpit_tpu/parallel/collective.py``.
 
 The JAX package moves parameter and gradient shards between the devices of
@@ -20,6 +20,22 @@ collective is a tensor op on the device:
   block lands at rank ``i + 1``: one device copy a hop, which stands for an
   NVLink hop and is where a multi-card slice puts P2P or NCCL.
 
+Over a mesh whose ``dp`` axis spans a group of processes
+(:mod:`mpit_tpu_torch.parallel.mesh`), each process stacks its own block
+of ``dp``.  The reductions over ``dp`` (``psum``, ``allreduce_mean``,
+``ps_push(..., reduce_axis="dp")``) first **all-gather** every process's
+block into the whole ``(dp, ...)`` stack, in rank order, and then run the
+one-process reduction over that stack: every process holds the same
+bits, those of a one-process run at the same ``dp``.  That parity has a
+price: the all-gather moves ``dp x size`` floats into each process where
+an all-reduce would move ``size`` (at the flagship widths, dp 4 x 544,522
+floats, 8.7 MB an EASGD exchange).  :func:`gather` is the all-gather
+itself (a checkpoint's rows, an epoch's losses) and :func:`process_mean`
+the mean of one tensor a process, added in process order (sync-DP's and
+the LM's gradient of the global batch).  The ring transfer and the
+shard-axis collectives stay inside a process: over an axis that spans
+processes they raise ``NotImplementedError`` (ROADMAP §A item 3).
+
 The JAX module's ``shard_map`` version shim has no counterpart.
 """
 
@@ -35,14 +51,70 @@ Fn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def _ranks(mesh: Mesh, axis: str, x: torch.Tensor, what: str) -> int:
-    """The rank count of ``axis``, checking that ``x`` stacks that many
-    blocks on the mesh's device."""
-    n = mesh.size(axis)
+    """The rank count of ``axis`` in this process, checking that ``x``
+    stacks that many blocks on the mesh's device."""
+    n = mesh.local_size(axis)
     mesh.check_device(x, what)
     if x.dim() < 1 or x.shape[0] != n:
-        raise ValueError(f"{what} must stack the {n} ranks of axis {axis!r} first, "
+        whose = (f"this process's {n} of the {mesh.size(axis)}" if mesh.spans(axis)
+                 else f"the {n}")
+        raise ValueError(f"{what} must stack {whose} ranks of axis {axis!r} first, "
                          f"got shape {tuple(x.shape)}")
     return n
+
+
+def _in_process(mesh: Mesh, axis: str, op: str) -> None:
+    """Raise where ``axis`` spans processes: ``op`` moves blocks between
+    ranks, which the port does inside a process only."""
+    if mesh.spans(axis):
+        raise NotImplementedError(
+            f"{op} over {axis!r}, which spans {mesh.processes} processes: the port "
+            "moves blocks between processes only by all-gather (ROADMAP §A item 3)")
+
+
+def _all_gather(x: torch.Tensor, processes: int) -> torch.Tensor:
+    """Every process's ``x`` stacked along axis 0 in process order: one
+    all-gather over the default group (NCCL, or gloo, which carries a card's
+    tensors itself)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(processes)]
+    torch.distributed.all_gather(parts, x)
+    return torch.cat(parts)
+
+
+def _whole(mesh: Mesh, axis: str, x: torch.Tensor, what: str) -> torch.Tensor:
+    """The whole ``(n, ...)`` stack of ``axis`` from this process's block:
+    ``x`` itself where the axis lies in this process."""
+    _ranks(mesh, axis, x, what)
+    return _all_gather(x, mesh.processes) if mesh.spans(axis) else x
+
+
+def gather(mesh: Mesh, axis: str = "dp") -> Fn:
+    """This process's block of ``axis``'s ranks -> the whole ``(n, ...)``
+    stack, in rank order, in every process."""
+
+    def _gather(blocks: torch.Tensor) -> torch.Tensor:
+        return _whole(mesh, axis, blocks, "the rank stack")
+
+    return _gather
+
+
+def process_mean(mesh: Mesh) -> Fn:
+    """The mean over the mesh's processes of one tensor each: all gathered
+    in process order, added one at a time in that order, divided by their
+    count.  ``x`` itself in a one-process mesh."""
+
+    def _mean(x: torch.Tensor) -> torch.Tensor:
+        if mesh.processes == 1:
+            return x
+        mesh.check_device(x, "the tensor")
+        parts = _all_gather(x[None], mesh.processes)
+        out = parts[0]
+        for r in range(1, mesh.processes):
+            out = out + parts[r]
+        return out / mesh.processes
+
+    return _mean
 
 
 def _owner_slices(full: torch.Tensor, n: int) -> torch.Tensor:
@@ -65,6 +137,7 @@ def pad_shards(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
 def ps_pull(mesh: Mesh, axis: str = "shard") -> Fn:
     """Full-param fetch: every rank receives the concatenation of all the
     shards, ``(n, s, ...) -> (n * s, ...)``."""
+    _in_process(mesh, axis, "ps_pull")
 
     def _pull(shards: torch.Tensor) -> torch.Tensor:
         _ranks(mesh, axis, shards, "the shard stack")
@@ -81,13 +154,14 @@ def ps_push(mesh: Mesh, axis: str = "shard", reduce_axis: str | None = None) -> 
     vector and the push is a slice.  With ``reduce_axis`` (the worker axis)
     it is the ``(n_workers, size, ...)`` stack of per-worker gradients,
     summed over the workers first: the servers' per-client accumulation
-    collapsed into one reduce."""
+    collapsed into one reduce.  Where ``reduce_axis`` spans processes, the
+    stack is each process's block of it, all-gathered before the sum."""
+    _in_process(mesh, axis, "ps_push")
 
     def _push(grad: torch.Tensor) -> torch.Tensor:
         n = mesh.size(axis)
         if reduce_axis is not None:
-            _ranks(mesh, reduce_axis, grad, "the worker gradient stack")
-            grad = grad.sum(0)
+            grad = _whole(mesh, reduce_axis, grad, "the worker gradient stack").sum(0)
         else:
             mesh.check_device(grad, "the gradient")
         return _owner_slices(grad, n)
@@ -108,6 +182,7 @@ def ps_pushpull(
     over the devices.  Takes ``(p_shards (n, s), full_grad (n * s,))`` and
     returns ``(new_full_params, new_p_shards)``; the first is the second
     seen flat."""
+    _in_process(mesh, axis, "ps_pushpull")
 
     def _round(p_shards: torch.Tensor, full_grad: torch.Tensor):
         n = _ranks(mesh, axis, p_shards, "the param shard stack")
@@ -124,10 +199,12 @@ def psum(mesh: Mesh, axis: str) -> Fn:
     are added one at a time in rank order, ``((x0 + x1) + x2) + ...``: that
     order fixes the result's bits, where a reduction kernel would choose
     its own.  Differentiable: the gradient of each rank's block is the
-    result's."""
+    result's (in one process).  Over an axis that spans processes the
+    blocks are this process's, all-gathered first."""
 
     def _psum(blocks: torch.Tensor) -> torch.Tensor:
-        n = _ranks(mesh, axis, blocks, "the rank stack")
+        blocks = _whole(mesh, axis, blocks, "the rank stack")
+        n = blocks.shape[0]
         out = blocks[0]
         for r in range(1, n):
             out = out + blocks[r]
@@ -141,6 +218,7 @@ def ring_shift(mesh: Mesh, axis: str, *, reverse: bool = False) -> Fn:
     next rank on the ring (``reverse``: to the previous one).  The step of
     ring attention."""
     step = -1 if reverse else 1
+    _in_process(mesh, axis, "ring_shift")
 
     def _shift(blocks: torch.Tensor) -> torch.Tensor:
         _ranks(mesh, axis, blocks, "the block stack")
@@ -152,11 +230,12 @@ def ring_shift(mesh: Mesh, axis: str, *, reverse: bool = False) -> Fn:
 def allreduce_mean(mesh: Mesh, axis: str = "dp") -> Fn:
     """Mean over the worker axis, every rank receiving it: the sync-DP
     gradient combine.  The sum over the ranks divided by their count, as
-    JAX's ``pmean`` computes it."""
+    JAX's ``pmean`` computes it; over an axis that spans processes, the sum
+    of the all-gathered stack, each process receiving its block."""
 
     def _mean(x: torch.Tensor) -> torch.Tensor:
-        n = _ranks(mesh, axis, x, "the worker stack")
-        return (x.sum(0, keepdim=True) / n).expand_as(x).contiguous()
+        full = _whole(mesh, axis, x, "the worker stack")
+        return (full.sum(0, keepdim=True) / full.shape[0]).expand_as(x).contiguous()
 
     return _mean
 

@@ -11,19 +11,30 @@ init_process_group`` does, over ``tcp://<coordinator>``:
   the JAX package's order: the arguments, then ``MPIT_COORDINATOR`` /
   ``MPIT_NUM_PROCESSES`` / ``MPIT_PROCESS_ID``, then ``MPIT_HOSTFILE`` (our
   line from ``MPIT_PROCESS_ID``), and with none of them a single process
-  that forms no group.  The backend is NCCL for a CUDA device, gloo only
-  when the caller passes ``device="cpu"``: a failing NCCL never falls back;
+  that forms no group.  The backend follows from the device and the host
+  (:func:`choose_backend`), never from a failure: a failing NCCL never
+  falls back;
 - :class:`ProcessGroup` is the identity after bootstrap: the rank and
-  size pair of the reference's launcher, and the devices as torch devices.
+  size pair of the reference's launcher, the backend, and the devices as
+  torch devices;
+- :func:`barrier` waits for every process of the group (the checkpoint's
+  publish).
 
-One process drives one card (NCCL refuses two ranks on one GPU), so a
-group with more of its processes on a host than the host has cards
-raises.  The JAX module's ``honor_jax_platforms`` has no counterpart.
+On the card, NCCL takes one card a process and refuses two ranks on one
+GPU.  Where a host runs no more of the group's processes than it has
+cards, each takes its own card over NCCL; where it runs more, they share
+the cards and their collectives go over gloo, which carries the card's
+tensors through host buffers of its own (gloo's CUDA all-gather, the one
+collective the trainers use).  ``describe()``, the launchers' logs and
+their results name the backend.  Every rendezvous and collective gives
+up after :data:`GROUP_TIMEOUT_S`, so a lost peer fails the run instead of
+hanging it.  The JAX module's ``honor_jax_platforms`` has no counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import pathlib
 import socket
@@ -32,6 +43,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 LOOPBACK = ("localhost", "127.0.0.1", "::1")
+
+#: Seconds a rendezvous or a collective waits for the other processes.
+GROUP_TIMEOUT_S = 300.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,12 +80,15 @@ def coordinator_from_hostfile(entries: Sequence[HostEntry], port: int = 8476
 
 @dataclasses.dataclass(frozen=True)
 class ProcessGroup:
-    """Identity after bootstrap, and the devices the group drives."""
+    """Identity after bootstrap, and the devices the group drives.
+    ``backend`` is ``"nccl"`` or ``"gloo"``, None where no group was
+    formed."""
 
     process_id: int
     num_processes: int
     coordinator: Optional[str]
     device: str = "cuda"
+    backend: Optional[str] = None
 
     @property
     def local_devices(self) -> List[torch.device]:
@@ -90,6 +107,7 @@ class ProcessGroup:
     def describe(self) -> str:
         return (f"process {self.process_id}/{self.num_processes} "
                 f"coordinator={self.coordinator or 'single-host'} "
+                f"backend={self.backend or 'none'} "
                 f"local={len(self.local_devices)} global={len(self.devices)}")
 
 
@@ -151,13 +169,25 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def choose_backend(device: str, local: int, cards: int) -> str:
+    """The backend of a group with ``local`` of its processes on this host,
+    which has ``cards`` CUDA cards: gloo on the CPU; on the card NCCL where
+    each process has a card of its own, else gloo (NCCL refuses two ranks
+    on one GPU)."""
+    if device == "cpu":
+        return "gloo"
+    if cards < 1:
+        raise RuntimeError("no CUDA device: a group on the card needs one")
+    return "nccl" if local <= cards else "gloo"
+
+
 def bootstrap(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
               process_id: Optional[int] = None, hostfile: Optional[str] = None,
               port: int = 8476, device: str = "cuda") -> ProcessGroup:
     """Form the process group over ``torch.distributed`` and return the
     identity handle (see :func:`resolve` for the order).  ``device``:
-    ``"cuda"`` (NCCL; this process takes its host's card of its index) or
-    ``"cpu"`` (gloo)."""
+    ``"cuda"`` (this process takes its host's card of its index, modulo the
+    cards; the backend by :func:`choose_backend`) or ``"cpu"`` (gloo)."""
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {device!r}")
     coordinator, num_processes, process_id, entries = resolve(
@@ -167,26 +197,23 @@ def bootstrap(coordinator: Optional[str] = None, num_processes: Optional[int] = 
         # identity either way.
         dist = torch.distributed
         if dist.is_available() and dist.is_initialized():
-            return ProcessGroup(dist.get_rank(), dist.get_world_size(), None, device)
+            return ProcessGroup(dist.get_rank(), dist.get_world_size(), None, device,
+                                dist.get_backend())
         return ProcessGroup(0, 1, None, device)
     if coordinator is None:
         if num_processes > 1:
             raise ValueError(f"a {num_processes}-process group needs a coordinator: "
                              "pass --coordinator / MPIT_COORDINATOR or a hostfile")
         coordinator = f"localhost:{_free_port()}"  # a group of one
+    local, index = _host_slot(coordinator, num_processes, process_id, entries)
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    backend = choose_backend(device, local, cards)
     if device == "cuda":
-        local, index = _host_slot(coordinator, num_processes, process_id, entries)
-        cards = torch.cuda.device_count()
-        if local > cards:
-            raise RuntimeError(
-                f"{local} processes of a {num_processes}-process group on this host, "
-                f"which has {cards} CUDA device(s): NCCL takes one card a process "
-                "and refuses two ranks on one GPU")
-        torch.cuda.set_device(index)
+        torch.cuda.set_device(index % cards)
     torch.distributed.init_process_group(
-        backend="nccl" if device == "cuda" else "gloo",
-        init_method=f"tcp://{coordinator}", world_size=num_processes, rank=process_id)
-    return ProcessGroup(process_id, num_processes, coordinator, device)
+        backend=backend, init_method=f"tcp://{coordinator}", world_size=num_processes,
+        rank=process_id, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    return ProcessGroup(process_id, num_processes, coordinator, device, backend)
 
 
 def shutdown() -> None:
@@ -195,21 +222,32 @@ def shutdown() -> None:
         torch.distributed.destroy_process_group()
 
 
+def barrier() -> None:
+    """Wait until every process of the group gets here (a no-op without a
+    group of more than one)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _launcher_kwargs(cfg) -> dict:
+    return dict(coordinator=cfg.coordinator or None,
+                num_processes=cfg.num_processes or None,
+                process_id=cfg.process_id if cfg.process_id >= 0 else None,
+                hostfile=cfg.hostfile or None)
+
+
+def launcher_processes(cfg) -> int:
+    """The processes of the group that the launchers' multi-host flags
+    (``hostfile``, ``coordinator``, ``num_processes``, ``process_id``; empty,
+    0 and -1 unset) name, checked as :func:`resolve` checks them, without
+    forming it: 1 where no flag is set.  The launchers check their layout
+    against it before any rendezvous."""
+    n = resolve(**_launcher_kwargs(cfg))[1]
+    return 1 if n is None else n
+
+
 def bootstrap_launcher(cfg, device: str) -> ProcessGroup:
-    """The launchers' bootstrap from their multi-host flags (``hostfile``,
-    ``coordinator``, ``num_processes``, ``process_id``; empty, 0 and -1
-    unset).  A group of one forms (no group where no flag is set); a group
-    of more processes raises ``NotImplementedError`` before any rendezvous:
-    the launchers' trainers reduce over virtual ranks of one card, and the
-    port has no collectives over a process group yet."""
-    kw = dict(coordinator=cfg.coordinator or None,
-              num_processes=cfg.num_processes or None,
-              process_id=cfg.process_id if cfg.process_id >= 0 else None,
-              hostfile=cfg.hostfile or None)
-    _, n, _, _ = resolve(**kw)
-    if n is not None and n > 1:
-        raise NotImplementedError(
-            f"a {n}-process group: the port has no collectives over a process "
-            "group yet (NCCL or P2P across cards); its meshes hold virtual ranks "
-            "of one card")
-    return bootstrap(**kw, device=device)
+    """The launchers' bootstrap from their multi-host flags: a group of any
+    size forms (no group where no flag is set)."""
+    return bootstrap(**_launcher_kwargs(cfg), device=device)

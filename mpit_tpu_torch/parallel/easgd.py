@@ -1,8 +1,13 @@
-"""Synchronous EASGD/EAMSGD with every worker on one device.
+"""Synchronous EASGD/EAMSGD with the workers as rows on each process's device.
 
 The port of ``MeshEASGD`` of ``mpit_tpu/parallel/easgd.py``.  Every worker's
 parameters are one row of a ``(n_dp, plong)`` tensor, the center w* is a
-``(plong,)`` tensor, and both live on the mesh's one device.  The mesh's
+``(plong,)`` tensor, and both live on the mesh's device.  Over a mesh whose
+``dp`` spans a group of processes, each process holds its block of the
+rows of ``w``, ``vt`` and ``k`` and the whole center, replicated; the
+exchange all-gathers the workers' pushes (:mod:`~mpit_tpu_torch.parallel.
+collective`) and sums them as a one-process run at the same ``dp`` does,
+so every process moves its replica of the center by the same bits.  The mesh's
 ``shard`` axis cuts both by columns, as the JAX package cuts them over its
 devices (the last shard padded where ``shard`` does not divide ``plong``):
 the center's exchange is the shard owners' (:meth:`MeshEASGD._exchange`),
@@ -35,7 +40,7 @@ import torch
 
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_commit, msgd_lookahead
 from mpit_tpu_torch.parallel.collective import pad_shards, ps_pull, ps_push
-from mpit_tpu_torch.parallel.mesh import Mesh
+from mpit_tpu_torch.parallel.mesh import Mesh, put_local
 
 State = Dict[str, torch.Tensor]
 
@@ -45,8 +50,12 @@ class MeshEASGD:
 
     ``value_and_grad_fn(w, xb, yb) -> (loss, grad)`` acts on one worker's
     flat parameter vector and must be ``torch.func``-transformable.
-    Batches are stacked per worker: ``(n_dp, batch, ...)``.
+    Batches are stacked per worker: ``(n_dp, batch, ...)``, this
+    process's rows of them where ``dp`` spans processes.
     """
+
+    #: The state's keys stacked over ``dp`` (this process's rows of them).
+    row_keys = ("w", "vt", "k")
 
     def __init__(
         self,
@@ -63,7 +72,7 @@ class MeshEASGD:
         self.cfg = cfg
         self.mva = float(mva)
         self.su = int(su)
-        self.n_dp = mesh.shape["dp"]
+        self.n_dp = mesh.local_size("dp")
         self.n_shard = mesh.shape["shard"]
         self.device = mesh.device
         self._steps = 0
@@ -74,7 +83,8 @@ class MeshEASGD:
     # -- state ---------------------------------------------------------------
 
     def init(self, w0: torch.Tensor) -> State:
-        """Every worker row and the center start as copies of ``w0``."""
+        """Every worker row (this process's) and the center start as copies
+        of ``w0``."""
         w0 = w0.to(self.device, torch.float32)
         self._steps = 0
         return {
@@ -85,8 +95,9 @@ class MeshEASGD:
         }
 
     def shard_batch(self, *arrays: Any) -> Tuple[torch.Tensor, ...]:
-        """Place ``(n_dp, batch, ...)`` host arrays on the mesh's device."""
-        return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
+        """Place ``(n_dp, batch, ...)`` host arrays (this process's worker
+        rows) on the mesh's device."""
+        return tuple(put_local(a, self.mesh) for a in arrays)
 
     # -- stepping ------------------------------------------------------------
 
@@ -98,7 +109,8 @@ class MeshEASGD:
 
     def _exchange(self, center: torch.Tensor, sug: torch.Tensor) -> None:
         """``w* += sum_i sug_i``, in place, by the shard owners: the workers'
-        pushes summed over ``dp`` and cut over ``shard`` (``ps_push``), each
+        pushes (every process's, gathered) summed over ``dp`` and cut over
+        ``shard`` (``ps_push``), each
         owner's add on its slice of the center, and the pull of the updated
         shards (``ps_pull``).  Views of ``center`` where ``shard`` divides
         ``plong``; padded copies, trimmed on the way back, where not."""

@@ -13,6 +13,16 @@ gradient reaches each shard owner by ``ps_push``, the commit runs on the
 ``(shard, plong / shard)`` stack (the last shard padded where ``shard``
 does not divide ``plong``) and the parameters come back by ``ps_pull``.
 
+Over a mesh whose ``dp`` spans a group of processes, each process takes
+the gradient of its rows of the global batch (its block of the ``dp``
+rows, :func:`~mpit_tpu_torch.parallel.mesh.process_local_rows`), and the
+processes' gradients and losses are gathered and averaged in process
+order (:func:`~mpit_tpu_torch.parallel.collective.process_mean`) into the
+global batch's: every process then commits the same bits to its replica
+of the state.  The mean of the processes' means is the global batch's
+mean up to float32 rounding, not bit for bit the one-process gradient of
+the whole batch.
+
 A step is the reference's Nesterov msgd (:mod:`mpit_tpu_torch.optim.msgd`):
 the lookahead, the gradient at the displaced point, and the commit, all in
 place.  With momentum the commit is one launch of K1 on the 1-D vector with
@@ -28,8 +38,8 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_commit, msgd_lookahead
-from mpit_tpu_torch.parallel.collective import pad_shards, ps_pull, ps_push
-from mpit_tpu_torch.parallel.mesh import Mesh
+from mpit_tpu_torch.parallel.collective import pad_shards, process_mean, ps_pull, ps_push
+from mpit_tpu_torch.parallel.mesh import Mesh, put_local
 
 State = Dict[str, torch.Tensor]
 
@@ -38,9 +48,13 @@ class SyncDataParallel:
     """Nesterov-SGD on the global batch over the one-device mesh.
 
     ``value_and_grad_fn(w, xb, yb) -> (loss, grad)`` sees the whole
-    ``(batch, ...)`` global batch and returns its mean loss.  The batch
-    must split evenly over ``dp`` rows, as the reference's sharding needs.
+    ``(batch, ...)`` global batch (this process's rows of it, where ``dp``
+    spans processes) and returns its mean loss.  The batch must split
+    evenly over ``dp`` rows, as the reference's sharding needs.
     """
+
+    #: The state's keys stacked over ``dp``: none, the state is replicated.
+    row_keys = ()
 
     #: One step kind: the schedule has one phase (the device loop captures
     #: one graph an epoch).
@@ -61,6 +75,7 @@ class SyncDataParallel:
         self._steps = 0
         self._push = ps_push(mesh, "shard")
         self._pull = ps_pull(mesh, "shard")
+        self._mean = process_mean(mesh)
 
     def init(self, w0: torch.Tensor) -> State:
         """``w`` a copy of ``w0``, zero velocity, ``k`` 0."""
@@ -78,10 +93,11 @@ class SyncDataParallel:
             raise ValueError(f"a batch of {rows} rows does not split over dp={self.n_dp}")
 
     def shard_batch(self, *arrays: Any) -> Tuple[torch.Tensor, ...]:
-        """Place ``(batch, ...)`` host arrays on the mesh's device."""
+        """Place ``(batch, ...)`` host arrays (this process's rows of the
+        global batch) on the mesh's device."""
         for a in arrays:
-            self.check_batch(a.shape[0])
-        return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
+            self.check_batch(a.shape[0] * self.mesh.processes)
+        return tuple(put_local(a, self.mesh) for a in arrays)
 
     def _step(self, state: State, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
         """The lookahead, the gradient of the global batch at the displaced
@@ -92,6 +108,9 @@ class SyncDataParallel:
         w = state["w"]
         msgd_lookahead(w, state, self.cfg)
         loss, grad = self._vgf(w, xb, yb)
+        if self.mesh.processes > 1:  # the global batch's, from every process's rows
+            both = self._mean(torch.cat([grad, loss.reshape(1)]))
+            grad, loss = both[:-1], both[-1]
         grad, pad = pad_shards(grad, self.n_shard)
         w_sh, _ = pad_shards(w, self.n_shard)
         vt_sh, _ = pad_shards(state["vt"], self.n_shard)

@@ -28,9 +28,18 @@ batch and the corpus must be the checkpoint's.  A resumed run burns the skipped 
 draws, so the data stream continues.
 
 Runs on CUDA unless ``--device cpu``.  The multi-host flags go through
-:func:`mpit_tpu_torch.parallel.distributed.bootstrap`: a group of one runs;
-a group of more processes raises ``NotImplementedError``, since the port
-has no collectives over a process group yet.  The reference's
+:func:`mpit_tpu_torch.parallel.distributed.bootstrap` and form a group of
+any size (the result's ``backend`` names it).  Over ``P`` processes
+``--dp`` is cut across them, the JAX package's layout: ``w``, ``vt`` and
+``k`` are replicated, every process draws the same global batch and takes
+its rows (:func:`~mpit_tpu_torch.parallel.mesh.process_local_rows`), and
+the step's gradient and loss are the global batch's, the mean of the
+processes' in process order
+(:func:`~mpit_tpu_torch.parallel.collective.process_mean`); ``--sp``
+stays inside each process, and a layout that would cut it across
+processes raises.  Each process launches K4, K5 or K6, and K1 for its
+rows.  Process 0 writes the checkpoints, and every process waits at a
+barrier until each is published.  The reference's
 ``compile_cache`` (a persistent XLA cache) has no counterpart and is not a
 flag here; ``profile_dir`` records
 a ``torch.profiler`` trace of the training loop, each log window a
@@ -57,10 +66,12 @@ from mpit_tpu_torch.models.flat import flatten_module
 from mpit_tpu_torch.models.transformer import TinyDecoder, default_attn
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_init, msgd_step
-from mpit_tpu_torch.parallel.distributed import bootstrap_launcher, shutdown
-from mpit_tpu_torch.parallel.mesh import Mesh
+from mpit_tpu_torch.parallel.collective import process_mean
+from mpit_tpu_torch.parallel.distributed import (
+    barrier, bootstrap_launcher, launcher_processes, shutdown)
+from mpit_tpu_torch.parallel.mesh import Mesh, check_split, process_local_rows
 from mpit_tpu_torch.parallel.ring_attention import ring_attention
-from mpit_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict
+from mpit_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict_group
 from mpit_tpu_torch.utils.config import Config
 from mpit_tpu_torch.utils.logging import get_logger
 from mpit_tpu_torch.utils.platform import device_name, resolve_device
@@ -86,7 +97,7 @@ LM_LAUNCH_DEFAULTS = Config(
     resume="",  # "auto" -> <ckpt_dir>/lm_latest.npz
     profile_dir="",  # torch.profiler trace of the training loop when set
     device="cuda",  # cuda | cpu
-    # multi-host bootstrap: a group of one runs, more processes raise
+    # multi-host bootstrap: dp is cut across the group's processes
     hostfile="",
     coordinator="",
     num_processes=0,
@@ -158,7 +169,10 @@ def run(cfg: Config) -> dict:
     :func:`main` leaves out of its JSON)."""
     _check_flags(cfg)
     device = resolve_device(cfg.device)
+    processes = launcher_processes(cfg)  # checked before any rendezvous
+    check_split({"dp": int(cfg.dp) or 1, "sp": int(cfg.sp) or 1}, processes)
     pg = bootstrap_launcher(cfg, device.type)
+    device = resolve_device(cfg.device)  # the card bootstrap took, on the card
     try:
         return _train(cfg, device, pg)
     finally:
@@ -166,16 +180,20 @@ def run(cfg: Config) -> dict:
             shutdown()
 
 
-def build_step(cfg: Config, device: torch.device):
+def build_step(cfg: Config, device: torch.device, mesh: Optional[Mesh] = None):
     """The model and one training step at ``cfg``'s widths on ``device``:
     the flat model, its weights and a fresh optimizer state, and
     ``train_step(w, state, toks) -> loss``, which updates ``w`` and
-    ``state`` in place (K4 forward, K5 or K6 backward, K1 commit)."""
-    dp, sp = int(cfg.dp) or 1, int(cfg.sp) or 1
+    ``state`` in place (K4 forward, K5 or K6 backward, K1 commit).  Over a
+    ``mesh`` whose ``dp`` spans processes, ``toks`` are this process's rows
+    of the global batch and the gradient and loss are the global batch's."""
+    if mesh is None:
+        mesh = Mesh(device, dp=int(cfg.dp) or 1, sp=int(cfg.sp) or 1)
+    sp = mesh.size("sp")
     cast = torch.bfloat16 if cfg.attn_dtype == "bfloat16" else None
-    # sp 1: K4 over every row of the batch, dp groups included.
-    inner = (ring_attention(Mesh(device, dp=dp, sp=sp), "sp", causal=True,
-                            batch_axis="dp", layout=cfg.layout)
+    # sp 1: K4 over every row of this process's batch, dp groups included.
+    inner = (ring_attention(Mesh(device, dp=mesh.local_size("dp"), sp=sp), "sp",
+                            causal=True, batch_axis="dp", layout=cfg.layout)
              if sp > 1 else default_attn(causal=True))
 
     def attn_fn(q, k, v):
@@ -194,10 +212,15 @@ def build_step(cfg: Config, device: torch.device):
         logp = flat.apply_flat(w, toks[:, :-1])
         return -torch.take_along_dim(logp, toks[:, 1:, None], dim=-1).mean()
 
+    combine = process_mean(mesh)
+
     def value_and_grad(w, toks):
         w_la = w.detach().requires_grad_(True)
         loss = loss_fn(w_la, toks)
         (grad,) = torch.autograd.grad(loss, w_la)
+        if mesh.processes > 1:  # the global batch's, from every process's rows
+            both = combine(torch.cat([grad, loss.detach().reshape(1)]))
+            return both[-1], both[:-1]
         return loss.detach(), grad
 
     mcfg = MSGDConfig(lr=cfg.lr, mom=cfg.mom)
@@ -219,8 +242,10 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         raise ValueError(f"--batch {cfg.batch} not divisible by dp={dp}")
     if sp < 1 or cfg.seq_len % sp:
         raise ValueError(f"--seq_len {cfg.seq_len} not divisible by sp={sp}")
+    mesh = Mesh(device, pg, dp=dp, sp=sp)
+    rows = process_local_rows(mesh, cfg.batch)  # of every step's global batch
 
-    flat, w, state, train_step = build_step(cfg, device)
+    flat, w, state, train_step = build_step(cfg, device, mesh)
     log.info("flat params: %d", flat.size)
     model_key = {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
                  "n_layers": cfg.n_layers, "seq_len": cfg.seq_len}
@@ -243,7 +268,7 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
     # build the kernels and pick cuBLAS's algorithms): tokens_per_sec
     # measures training, compile_s the warm-up.
     t_c = time.perf_counter()
-    warm_toks = torch.zeros((cfg.batch, cfg.seq_len + 1), dtype=torch.int64,
+    warm_toks = torch.zeros((rows.stop - rows.start, cfg.seq_len + 1), dtype=torch.int64,
                             device=device)
     train_step(w.clone(), {k: v.clone() for k, v in state.items()}, warm_toks)
     sync()
@@ -251,12 +276,12 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
     log.info("precompile: %.2fs", compile_s)
 
     def save(step):
-        save_state_dict(
+        save_state_dict_group(
             cfg.ckpt_dir, {"w": w, "vt": state["vt"], "k": state["k"]},
             meta={"step": step, "seed": cfg.seed, "batch": cfg.batch,
                   "text_file": _corpus_key(cfg.text_file), "model": model_key,
                   "elapsed": round(time.perf_counter() - t0 + prev_elapsed, 3)},
-            prefix="lm")
+            prefix="lm", process_id=pg.process_id, barrier=barrier)
 
     # Log windows end where (step + 1) % log_every == 0, and at the last
     # step; a resumed run's first window is the rest of its window.
@@ -271,7 +296,7 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
                 losses = []
                 for step in range(first, last + 1):
                     starts = rng.integers(0, len(data) - cfg.seq_len - 1, cfg.batch)
-                    toks = np.stack([data[s:s + cfg.seq_len + 1] for s in starts])
+                    toks = np.stack([data[s:s + cfg.seq_len + 1] for s in starts[rows]])
                     toks = torch.from_numpy(toks).to(device, torch.int64)
                     losses.append(train_step(w, state, toks))
                     if cfg.ckpt_dir and (step + 1) % max(int(cfg.ckpt_every), 1) == 0:
@@ -295,6 +320,7 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         "mesh": {"dp": dp, "sp": sp},
         "params": flat.size,
         "processes": pg.num_processes,
+        "backend": pg.backend,
         "steps": int(cfg.steps) - start_step,
         "device": str(w.device),
         "device_name": device_name(device),

@@ -27,9 +27,21 @@ restoring one needs orbax, which the card's machine does not have.
 ``--dp`` and ``--shard`` are virtual ranks of the card
 (:mod:`mpit_tpu_torch.parallel.mesh`): worker rows, and the column cuts
 whose owners take the pushes.  The multi-host flags go through
-:func:`mpit_tpu_torch.parallel.distributed.bootstrap`: a group of one runs;
-a group of more processes raises ``NotImplementedError``, since the port
-has no collectives over a process group yet.
+:func:`mpit_tpu_torch.parallel.distributed.bootstrap` and form a group of
+any size (gloo on the CPU; on the card NCCL where each process has a card
+of its own, gloo where processes share one; the result's ``backend``
+says which).  Over ``P`` processes ``--dp`` (default ``P``) is cut across
+them in contiguous blocks, the JAX package's layout: every process draws
+the same seeded global shuffle and feeds only its rows
+(:func:`~mpit_tpu_torch.parallel.mesh.process_local_rows`: its block of
+the ``dp`` worker rows under EASGD, of the global batch under
+``syncdp``), the exchange and the gradient gather the other processes'
+blocks, and every process evaluates the replicated center (EASGD) or
+weights (``syncdp``).  A checkpoint of a group is the one-process layout
+at the same ``dp``, gathered to process 0, which writes it between the
+gather and a barrier; every process resumes from it and takes its rows,
+and a one-process run at that ``dp``, of either package, resumes it too.
+``--device_loop 1`` is one process's, as in the JAX package.
 
 Runs on CUDA unless ``--device cpu``.
 
@@ -62,12 +74,15 @@ from mpit_tpu_torch.models.flat import (
 from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig
-from mpit_tpu_torch.parallel.distributed import bootstrap_launcher, shutdown
+from mpit_tpu_torch.parallel.collective import gather
+from mpit_tpu_torch.parallel.distributed import (
+    barrier, bootstrap_launcher, launcher_processes, shutdown)
 from mpit_tpu_torch.parallel.easgd import MeshEASGD
-from mpit_tpu_torch.parallel.mesh import make_mesh
+from mpit_tpu_torch.parallel.mesh import (
+    check_split, make_mesh, process_local_rows, put_global, put_local)
 from mpit_tpu_torch.parallel.sync_dp import SyncDataParallel
 from mpit_tpu_torch.utils.checkpoint import (
-    latest_pytree_step, load_state_dict, save_state_dict)
+    latest_pytree_step, load_state_dict, save_state_dict_group)
 from mpit_tpu_torch.utils.config import Config
 from mpit_tpu_torch.utils.logging import get_logger
 from mpit_tpu_torch.utils.platform import device_name, resolve_device
@@ -100,7 +115,7 @@ MESH_LAUNCH_DEFAULTS = Config(
     profile_dir="",  # torch.profiler trace of the epoch loop when set
     precompile=0,  # 1 -> warm the step and eval paths before t0
     device="cuda",  # cuda | cpu
-    # multi-host bootstrap: a group of one runs, more processes raise
+    # multi-host bootstrap: dp is cut across the group's processes
     hostfile="",
     coordinator="",
     num_processes=0,
@@ -253,7 +268,9 @@ def _device_loop_train(*, cfg, trainer, state, flat, rng, x_train, y_train,
 def _resume(cfg: Config, trainer, state, log):
     """Load ``cfg.resume`` into ``state`` in place, with the reference's
     guards (the state's keys and shapes, ``opt``, ``seed``); returns the
-    epoch to start at and the earlier runs' training seconds."""
+    epoch to start at and the earlier runs' training seconds.  The file
+    holds the one-process layout: this process takes its block of the
+    trainer's ``row_keys``."""
     resume_path = cfg.resume
     if resume_path == "auto":
         ckpt_dir = pathlib.Path(cfg.ckpt_dir)
@@ -274,11 +291,16 @@ def _resume(cfg: Config, trainer, state, log):
         raise ValueError(
             f"checkpoint keys {sorted(saved)} do not match trainer state "
             f"{sorted(state)} — wrong --opt or model?")
+    mesh = trainer.mesh
+    rows = {key: mesh.local_slice("dp") for key in trainer.row_keys}
     for key, arr in saved.items():
-        if tuple(arr.shape) != tuple(state[key].shape):
+        want = tuple(state[key].shape)
+        if key in rows:
+            want = (mesh.size("dp"),) + want[1:]
+        if tuple(arr.shape) != want:
             raise ValueError(
                 f"checkpoint {key} shape {tuple(arr.shape)} != trainer "
-                f"{tuple(state[key].shape)} (different mesh/model?)")
+                f"{want} (different mesh/model?)")
     if meta.get("opt", cfg.opt) != cfg.opt:
         raise ValueError(f"checkpoint was trained with --opt {meta['opt']}, not {cfg.opt}")
     if "seed" in meta and int(meta["seed"]) != int(cfg.seed):
@@ -287,7 +309,8 @@ def _resume(cfg: Config, trainer, state, log):
             f"--seed {cfg.seed} would silently diverge the data order — pass the "
             "original seed")
     for key, arr in saved.items():
-        state[key].copy_(torch.as_tensor(arr))
+        whole = put_global(arr, mesh)
+        state[key].copy_(whole[rows[key]] if key in rows else whole)
     start_epoch = int(meta.get("epoch", -1)) + 1
     prev_elapsed = float(meta.get("elapsed", 0.0))
     log.info("resumed from %s at epoch %d (%.1fs of prior training)",
@@ -305,10 +328,22 @@ def run(cfg: Config) -> dict:
     if cfg.resume == "auto" and not cfg.ckpt_dir:
         raise ValueError("--resume auto requires --ckpt_dir")
     device = resolve_device(cfg.device)
+    processes = launcher_processes(cfg)  # checked before any rendezvous
+    if cfg.device_loop and processes > 1:
+        raise ValueError(
+            "device_loop=1 is single-process: the epoch body gathers epoch batches "
+            "from the replicated dataset, which multi-host feeding (process-local "
+            "rows) cannot express")
+    if cfg.measure_throughput and processes > 1:
+        raise ValueError(
+            "measure_throughput is single-process: each process would pick its own "
+            "count of timed passes, and their collectives would not pair up")
     if cfg.measure_throughput and device.type != "cuda":
         raise ValueError("measure_throughput times the card (CUDA events); "
                          "a CPU run has no device time to report")
+    check_split({"dp": cfg.dp or processes, "shard": cfg.shard or 1}, processes)
     pg = bootstrap_launcher(cfg, device.type)
+    device = resolve_device(cfg.device)  # the card bootstrap took, on the card
     try:
         return _train(cfg, device, pg)
     finally:
@@ -319,7 +354,7 @@ def run(cfg: Config) -> dict:
 def _train(cfg: Config, device: torch.device, pg) -> dict:
     log = get_logger("mesh", pg.process_id)
     log.info("%s", pg.describe())
-    mesh = make_mesh(dp=cfg.dp or None, shard=cfg.shard or None, device=device)
+    mesh = make_mesh(dp=cfg.dp or None, shard=cfg.shard or None, device=device, group=pg)
     n_dp = mesh.shape["dp"]
     log.info("mesh: dp=%d shard=%d on %s (%s)", n_dp, mesh.shape["shard"], device,
              device_name(device))
@@ -367,12 +402,15 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
     # this process's first step and restarts it.
     if cfg.device_stream:
         trainer.set_steps(start_epoch * steps_per_epoch)
+    # Every process draws the global batch and feeds its rows of the
+    # leading axis: its worker rows (EASGD), its rows of the batch (sync-DP).
+    rows = process_local_rows(mesh, lead[0])
 
     def to_device(idx, steps=()):
-        x = torch.from_numpy(np.ascontiguousarray(
-            x_train[idx].reshape(*steps, *lead, -1), np.float32))
-        y = torch.from_numpy(y_train[idx].reshape(*steps, *lead).astype(np.int64))
-        return x.to(device), y.to(device)
+        cut = (slice(None),) * len(steps) + (rows,)
+        x = np.ascontiguousarray(x_train[idx].reshape(*steps, *lead, -1)[cut], np.float32)
+        y = y_train[idx].reshape(*steps, *lead)[cut].astype(np.int64)
+        return put_local(x, mesh), put_local(y, mesh)
 
     def stage_epoch(idx, nsteps=None):
         """One device placement of a shuffled epoch, ``(nsteps, *lead,
@@ -409,15 +447,23 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         compile_s = time.perf_counter() - t_c
         log.info("precompile: %.2fs (step + eval paths warm)", compile_s)
 
+    worker_rows = gather(mesh, "dp")
+
     def train_epoch(order):
         if cfg.device_stream:
             x_ep, y_ep = stage_epoch(order[: steps_per_epoch * per_step])
-            return trainer.run_epoch(state, x_ep, y_ep)[1]
-        losses = []
-        for step in range(steps_per_epoch):
-            idx = order[step * per_step:(step + 1) * per_step]
-            losses.append(trainer.step(state, *to_device(idx))[1])
-        return torch.stack(losses)
+            losses = trainer.run_epoch(state, x_ep, y_ep)[1]
+        else:
+            losses = torch.stack([
+                trainer.step(state, *to_device(order[step * per_step:(step + 1) * per_step]))[1]
+                for step in range(steps_per_epoch)])
+        if trainer.row_keys:  # (steps, worker rows): every process's rows
+            losses = worker_rows(losses.t()).t().contiguous()
+        return losses
+
+    def whole_state():
+        """The state in the one-process layout: every process's rows."""
+        return {k: worker_rows(v) if k in trainer.row_keys else v for k, v in state.items()}
 
     if not cfg.device_loop:
         t0 = time.perf_counter()  # the device loop sets its own
@@ -446,11 +492,12 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
             log.info("epoch %d avg_loss %.5f test_err %.4f (%.1fs)",
                      epoch, avg_loss, err, at)
             if cfg.ckpt_dir and (epoch + 1) % max(int(cfg.ckpt_every), 1) == 0:
-                path = save_state_dict(
-                    cfg.ckpt_dir, state,
+                path = save_state_dict_group(
+                    cfg.ckpt_dir, whole_state(),
                     meta={"epoch": epoch, "opt": cfg.opt, "test_err": err,
-                          "seed": cfg.seed, "elapsed": round(at, 3)})
-                log.info("checkpoint: %s", path)
+                          "seed": cfg.seed, "elapsed": round(at, 3)},
+                    process_id=pg.process_id, barrier=barrier)
+                log.info("checkpoint: %s", path or "written by process 0")
             if cfg.stop_at_target and time_to_target is not None:
                 break
     train_time = sum(epoch_train_s)
@@ -497,6 +544,8 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         "data_source": source,
         "mesh": dict(mesh.shape),
         "processes": pg.num_processes,
+        # The group's backend (nccl | gloo), None where no group was formed.
+        "backend": pg.backend,
         "device": str(state["w"].device),
         "device_name": device_name(device),
         # Training steps, counted from the first start across resumes, the
@@ -506,7 +555,8 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         # device_loop: the captured graphs (phase, steps, replays) and the
         # warm-up's steps on copies; None for the host loop.
         "device_loop": loop_info,
-        # The final trainer state (main leaves it out of its JSON).
+        # The final trainer state, this process's rows of the row keys
+        # (main leaves it out of its JSON).
         "state": state,
     }
 

@@ -12,9 +12,13 @@ the other.
 state (``mesh_launch``'s ``w``, ``vt``, ``k`` and ``center``, the LM's
 ``w``, ``vt`` and ``k``) in the JAX package's npz layout, each array as a
 ``s_<key>__raw`` / ``__dtype`` / ``__shape`` triplet, so a checkpoint of
-either package resumes in the other.  The JAX package's orbax ``step_*``
-directories belong to the multi-process mesh, a later slice of the port:
-:func:`latest_pytree_step` finds them, and ``mesh_launch`` refuses them.
+either package resumes in the other.  A process group saves through
+:func:`save_state_dict_group`: its state gathered into the one-process
+layout, process 0 writes it, and every process waits at a barrier until
+it is published; every process resumes from that one file, taking its
+rows.  The JAX package's multi-process mesh writes orbax ``step_*``
+directories instead; the card's machine has no orbax, so
+:func:`latest_pytree_step` finds them and ``mesh_launch`` refuses them.
 
 :func:`save_server_state` and :func:`load_server_state` carry one
 parameter server's shard, its rule state and a JSON ``meta`` (the FT
@@ -31,7 +35,7 @@ import os
 import pathlib
 import shutil
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -176,6 +180,26 @@ def save_state_dict(
     for key, value in state.items():
         _pack_array(f"s_{key}", value, payload)
     return _stamped_atomic_publish(directory, prefix, payload)
+
+
+def save_state_dict_group(
+    directory: str | pathlib.Path,
+    state: Dict[str, Any],
+    meta: Optional[Dict[str, Any]] = None,
+    prefix: str = "mesh",
+    *,
+    process_id: int = 0,
+    barrier: Callable[[], None] = lambda: None,
+) -> Optional[pathlib.Path]:
+    """A process group's :func:`save_state_dict`: ``state`` is the whole
+    state in the one-process layout in every process (where its rows are
+    cut across processes the caller gathered them, and that all-gather,
+    which every process enters, is the save's first barrier); process 0
+    writes it, and every process waits at ``barrier`` until it is
+    published.  Returns the path in process 0, None in the others."""
+    path = save_state_dict(directory, state, meta, prefix) if process_id == 0 else None
+    barrier()
+    return path
 
 
 def load_state_dict(

@@ -171,7 +171,7 @@ def test_measure_ps_pushpull_times_only_the_card():
      "the mesh on cuda"),
     (lambda m: Mesh("cpu", sp=0), ValueError, ">= 1 ranks"),
     (lambda m: make_mesh([torch.device("cpu")] * 2, shard=2), NotImplementedError,
-     "collectives over a process group"),
+     r"make_mesh\(group=\)"),
     (lambda m: psum(m, "dp")(torch.zeros(2, 4)), ValueError, "stack the 4 ranks"),
 ])
 def test_refusals(mesh, call, exc, match):

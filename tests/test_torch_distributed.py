@@ -2,10 +2,13 @@
 against the JAX package's: the hostfile, the resolution order and its
 errors, a real group of one in a fresh process, and a real group of two
 processes formed from a hostfile and ``MPIT_PROCESS_ID``, each checking its
-rank and one ``all_reduce``.  Groups on the CPU run over gloo
-(``device="cpu"``); the JAX twins of the first nine tests are
+rank and one ``all_reduce``; the backend by device and by the host's
+cards (NCCL a card a process, gloo where processes share a card) and the
+group's timeout.  Groups on the CPU run over gloo (``device="cpu"``); the
+JAX twins of the first nine tests are
 ``tests/test_distributed.py``'s."""
 
+import datetime
 import os
 import socket
 import subprocess
@@ -18,7 +21,8 @@ from mpit_tpu.parallel import bootstrap as jax_bootstrap
 from mpit_tpu.parallel import read_hostfile as jax_read_hostfile
 from mpit_tpu.parallel.distributed import coordinator_from_hostfile as jax_coordinator
 from mpit_tpu_torch.parallel import ProcessGroup, bootstrap, read_hostfile
-from mpit_tpu_torch.parallel.distributed import coordinator_from_hostfile, resolve
+from mpit_tpu_torch.parallel.distributed import (
+    GROUP_TIMEOUT_S, choose_backend, coordinator_from_hostfile, resolve)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV_VARS = ("MPIT_COORDINATOR", "MPIT_NUM_PROCESSES", "MPIT_PROCESS_ID", "MPIT_HOSTFILE")
@@ -112,21 +116,41 @@ class TestBootstrap:
 
     def test_more_processes_than_cards_on_a_host_raise(self, monkeypatch):
         """NCCL takes one card a process: two processes of a group on a
-        loopback coordinator (so on this host) need two cards."""
+        loopback coordinator (so on this host) with one card share it over
+        gloo, each on card 0 (the group's formation recorded, not run);
+        what still raises is a group on the card of a host with no card."""
         for var in ENV_VARS:
             monkeypatch.delenv(var, raising=False)
+        seen = {}
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-        with pytest.raises(RuntimeError, match="one card a process"):
-            bootstrap(coordinator=f"localhost:{_free_port()}", num_processes=2,
-                      process_id=0, device="cuda")
-        assert not torch.distributed.is_initialized()
+        monkeypatch.setattr(torch.cuda, "set_device", lambda i: seen.setdefault("card", i))
+        monkeypatch.setattr(torch.distributed, "init_process_group",
+                            lambda **kw: seen.update(kw))
+        pg = bootstrap(coordinator="localhost:1234", num_processes=2, process_id=1,
+                       device="cuda")
+        assert (pg.backend, seen["backend"], seen["card"]) == ("gloo", "gloo", 0)
+        assert "backend=gloo" in pg.describe()
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bootstrap(coordinator="localhost:1234", num_processes=2, process_id=0,
+                      device="cuda")
+
+
+@pytest.mark.parametrize("device, local, cards, backend", [
+    ("cpu", 2, 0, "gloo"), ("cuda", 1, 1, "nccl"), ("cuda", 2, 2, "nccl"),
+    ("cuda", 2, 1, "gloo"), ("cuda", 8, 4, "gloo")])
+def test_choose_backend(device, local, cards, backend):
+    """NCCL where each of this host's processes has a card of its own, gloo
+    where they share one, and on the CPU."""
+    assert choose_backend(device, local, cards) == backend
 
 
 @pytest.mark.parametrize("device, backend", [("cuda", "nccl"), ("cpu", "gloo")])
 def test_backend_follows_the_device(monkeypatch, device, backend):
     """NCCL for a CUDA device, gloo only where the caller asks for the CPU:
     no fallback from one to the other.  The group's formation is recorded,
-    not run (this host has no card)."""
+    not run (this host has no card); the rendezvous and every collective
+    give up after ``GROUP_TIMEOUT_S``."""
     for var in ENV_VARS:
         monkeypatch.delenv(var, raising=False)
     seen = {}
@@ -137,9 +161,10 @@ def test_backend_follows_the_device(monkeypatch, device, backend):
     pg = bootstrap(coordinator="localhost:1234", num_processes=1, process_id=0,
                    device=device)
     assert seen.pop("backend") == backend
+    assert seen.pop("timeout") == datetime.timedelta(seconds=GROUP_TIMEOUT_S)
     assert seen == dict({"card": 0} if device == "cuda" else {},
                         init_method="tcp://localhost:1234", world_size=1, rank=0)
-    assert pg == ProcessGroup(0, 1, "localhost:1234", device=device)
+    assert pg == ProcessGroup(0, 1, "localhost:1234", device=device, backend=backend)
 
 
 def _run_children(code, envs, timeout=120):

@@ -25,7 +25,7 @@ from mpit_tpu.utils.platform import default_devices
 from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll
 from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.optim.msgd import MSGDConfig
-from mpit_tpu_torch.parallel import MeshEASGD, make_mesh
+from mpit_tpu_torch.parallel import MeshEASGD, ProcessGroup, make_mesh
 
 # One intra-op thread: the suite runs several test processes side by side
 # on the CPU, and these tensors are small.
@@ -140,10 +140,13 @@ def test_sync_schedule_follows_su():
 
 
 def test_mesh_refuses_what_needs_more_devices():
-    """More than one real device still raises; a ``shard`` axis of virtual
-    ranks builds."""
-    with pytest.raises(NotImplementedError, match="collectives over a process group"):
+    """More than one real device still raises, pointing to a process group
+    (``make_mesh(group=)``); a ``shard`` axis of virtual ranks builds, and so
+    does a mesh whose ``dp`` two processes share."""
+    with pytest.raises(NotImplementedError, match=r"make_mesh\(group=\)"):
         make_mesh([torch.device("cpu"), torch.device("cpu")])
+    pair = make_mesh(dp=4, device="cpu", group=ProcessGroup(0, 2, None, "cpu"))
+    assert (pair.shape, pair.local_slice("dp")) == ({"dp": 4, "shard": 1}, slice(0, 2))
     assert make_mesh(dp=2, shard=2, device="cpu").shape == {"dp": 2, "shard": 2}
     mesh = make_mesh(dp=3, device="cpu")
     assert mesh.shape == {"dp": 3, "shard": 1}

@@ -196,20 +196,21 @@ def test_timing_refuses_cpu_state():
     (dict(opt="adamw"), ValueError, "easgd|syncdp"),
     (dict(ckpt_dir="{tmp}", resume="auto"), NotImplementedError, "needs orbax"),
     (dict(resume="auto"), ValueError, "requires --ckpt_dir"),
-    (dict(hostfile="{tmp}/hosts", process_id=0), NotImplementedError,
-     "collectives over a process group"),
-    (dict(coordinator="localhost:1", num_processes=2, process_id=1), NotImplementedError,
-     "collectives over a process group"),
+    (dict(hostfile="{tmp}/hosts", process_id=0, dp=3), ValueError,
+     "dp=3 does not split over 2 processes"),
+    (dict(coordinator="localhost:1", num_processes=2, process_id=1, device_loop=1),
+     ValueError, "device_loop=1 is single-process"),
     (dict(num_processes=2), ValueError, "process_id required"),
     (dict(hostfile="{tmp}/hosts", process_id=2), ValueError, "out of range"),
 ])
 def test_mesh_launch_refuses_later_slices(flags, tmp_path):
     """What still refuses: an unknown optimizer, an orbax ``step_*``
-    checkpoint (the multi-process mesh's: the card's machine has no
-    orbax), ``--resume auto`` without ``--ckpt_dir``, and a group of more
-    than one process, before any rendezvous (the port has no collectives
-    over a process group); the group's flags are checked as the JAX package
-    checks them."""
+    checkpoint (the JAX package's multi-process mesh's: the card's machine
+    has no orbax), ``--resume auto`` without ``--ckpt_dir``, and, before
+    any rendezvous, a group of two processes whose ``dp`` they do not
+    divide, or that asks for the device loop (one process's, as in the JAX
+    package); the group's flags are checked as the JAX package checks
+    them."""
     flags, exc, match = flags
     (tmp_path / "step_2").mkdir()
     (tmp_path / "hosts").write_text("alpha:16\nbeta:16\n")

@@ -245,8 +245,9 @@ def test_cli_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags, owner", [
-    (dict(num_processes=2, process_id=0), "collectives over a process group"),
-    (dict(hostfile="{tmp}/hosts", process_id=1), "collectives over a process group"),
+    (dict(num_processes=2, process_id=0, sp=2), "only dp spans processes"),
+    (dict(hostfile="{tmp}/hosts", process_id=1, dp=3, batch=6),
+     (ValueError, "dp=3 does not split over 2 processes")),
     (dict(num_processes=2), (ValueError, "process_id required")),
     (dict(coordinator="localhost:1", num_processes=2, process_id=5),
      (ValueError, "out of range")),
@@ -254,11 +255,12 @@ def test_cli_runs_on_the_cpu(capsys):
     (dict(resume="auto"), (ValueError, "requires --ckpt_dir")),
 ])
 def test_refuses_later_slices(flags, owner, tmp_path):
-    """A group of more than one process raises NotImplementedError naming
-    what the port lacks (collectives over a process group), before any
-    rendezvous; the group's flags are checked as the JAX package checks
-    them; a resume with nothing to resume raises (an empty ``--ckpt_dir``,
-    or no ``--ckpt_dir`` for ``auto``)."""
+    """Before any rendezvous, a group of two processes that would cut
+    ``--sp`` across them raises NotImplementedError naming what the port
+    lacks (only ``dp`` spans processes), and one whose ``dp`` they do not
+    divide a ValueError; the group's flags are checked as the JAX package
+    checks them; a resume with nothing to resume raises (an empty
+    ``--ckpt_dir``, or no ``--ckpt_dir`` for ``auto``)."""
     exc, owner = owner if isinstance(owner, tuple) else (NotImplementedError, owner)
     (tmp_path / "hosts").write_text("alpha\nbeta\n")
     flags = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
