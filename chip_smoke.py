@@ -233,7 +233,18 @@ order; any failure raises and the script exits non-zero:
    ``mp_lm`` (``lm_launch --dp 2`` at ``lm_default``'s widths, 5 steps,
    bfloat16 attention: within ``LM_LIMITS["float32"]`` of one process);
    both processes' replicas alike; each child's K1 and K4-K6 launches equal
-   the one-process run's; each child's start-up printed;
+   the one-process run's; each child's start-up printed; then every axis
+   across processes (slice 9c): the pair also runs ``mp_shard`` (the
+   flagship CNN's EASGD at ``--dp 1 --shard 2``, each process owning one of
+   the center's shards: against one process within K1's tolerances, bit
+   for bit printed) and ``mp_lm_sp`` (``lm_longcontext``'s widths at ``--sp
+   2``, zigzag, 4 steps: against one process under
+   ``LM_LIMITS["bfloat16"]``), and one quartet of children runs
+   ``mp_lm_dp_sp`` (``lm_default`` at ``--dp 2 --sp 2``, 4 steps, under
+   ``LM_LIMITS["float32"]``); each child's K4 and K5/K6 launches are its
+   ``sp`` rank's share of the ring's pairs, an ``sp`` line's shares adding
+   up to the one-process count, and the ring's hops between processes are
+   timed with their bytes and their path (gloo: host copies);
 9. static analysis (slice 8, ``analysis_phases``): the port's analyzer
    (``mpit_tpu_torch.analysis``, which reads source) over
    ``mpit_tpu_torch/`` on this host under ``mtlint_torch.toml``: no
@@ -4344,25 +4355,15 @@ def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None, sp=1, layout="zigzag")
         losses[device] = [h["avg_loss"] for h in res["history"]]
     w0 = flatten_module(TinyDecoder(vocab=256, d_model=128, n_heads=4, n_layers=2,
                                     max_len=256), LM_LAUNCH_DEFAULTS.seed).w0
-    readings = {}
-    for key in ("w", "vt"):
-        gap = finals["cuda"][key] - finals["cpu"][key]
-        change = finals["cpu"][key] - (w0 if key == "w" else 0.0)
-        readings[key] = {"max_abs_gap": float(gap.abs().max()),
-                         "max_abs_change": float(change.abs().max()),
-                         "gap_over_change": float(gap.norm() / change.norm())}
+    lim = LM_LIMITS[attn_dtype]
+    readings, held = lm_state_gaps(torch, finals["cuda"], finals["cpu"], w0, lim)
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     readings["loss_rel_gap"] = loss_gap
     readings["losses"] = losses
     print(f"{name}: 3 steps, cuda vs cpu " + json.dumps(readings))
-    lim = LM_LIMITS[attn_dtype]
-    for key in ("w", "vt"):
-        r = readings[key]
-        max_abs = lim.get("max_abs_gap", lim.get("max_abs_share", 0.0) * r["max_abs_change"])
-        if not (r["max_abs_gap"] <= max_abs
-                and r["gap_over_change"] <= lim["gap_over_change"]):
-            raise AssertionError(f"{name}: {key} on the card differs from the CPU "
-                                 f"beyond the limits: {r}")
+    if not held:
+        raise AssertionError(f"{name}: w or vt on the card differs from the CPU beyond "
+                             f"the limits: {readings}")
     if not loss_gap <= lim["loss_rtol"]:
         raise AssertionError(f"{name}: losses differ by {loss_gap} relative")
     return {"name": name, "launches": launches, "steps": 3, "warmup_steps": 1,
@@ -5052,6 +5053,12 @@ def parallel_phases(torch, kernels, all_paths, smi):
 MP_EPOCHS, MP_RESUME_EPOCHS = 2, 4
 #: the LM pair's steps at ``lm_default``'s widths
 MP_LM_STEPS = 5
+#: the steps of ``mp_lm_sp`` (``lm_longcontext``'s widths at ``--sp 2``, zigzag,
+#: over two processes) and of ``mp_lm_dp_sp`` (``lm_default``'s at ``--dp 2
+#: --sp 2`` over four)
+MP_LM_SP_STEPS = 4
+#: ``mp_shard``'s epochs (the flagship CNN's EASGD at ``--dp 1 --shard 2``)
+MP_SHARD_EPOCHS = 2
 #: sync-DP across processes against one process: the per-epoch losses'
 #: relative gap (tests/test_torch_syncdp.py's LOSS_RTOL).  The mean of two
 #: processes' mean gradients is the batch's mean up to float32 rounding.
@@ -5065,11 +5072,12 @@ GROUP_VARS = ("MPIT_COORDINATOR", "MPIT_NUM_PROCESSES", "MPIT_PROCESS_ID", "MPIT
 MP_SYNCDP = dict(opt="syncdp", side=32, batch=128, lr=0.2, mom=0.9, epochs=2,
                  device_stream=1, precompile=1, dp=2)
 
-# One process of the pair: each run is the launcher's CLI (``main``) over a
+# One process of a group: each run is the launcher's CLI (``main``) over a
 # group of its own (its own port), under deterministic cuDNN; its state
 # is saved for the parent, and its K1 and K4-K6 launches, its group's
-# formation and each EASGD exchange (``timed_exchanges``) are reported; the
-# process's start-up (imports, the CUDA context) once.
+# formation, each EASGD exchange (``timed_exchanges``) and each ring hop
+# between processes (``timed_hops``) are reported; the process's start-up
+# (imports, the CUDA context) once.
 MP_CHILD = """
 import json, sys, time
 t0 = time.perf_counter()
@@ -5099,11 +5107,12 @@ kernels = {{"k1": fu.fused_nesterov_commit, "k4": fa.flash_fwd,
            "k5": fa.flash_bwd_fused, "k6": fa.flash_bwd_two_kernel}}
 for run in runs:
     times.clear()
-    times["exchange_ms"] = []
+    times["exchange_ms"], times["hops"] = [], []
     for k in kernels.values():
         k.launches = 0
     mod = lm_launch if run["module"] == "lm" else mesh_launch
-    with chip_smoke.timed_exchanges(torch, times["exchange_ms"]):
+    with chip_smoke.timed_exchanges(torch, times["exchange_ms"]), \
+            chip_smoke.timed_hops(torch, times["hops"]):
         res = mod.main(run["argv"] + ["--process_id", pid])
     torch.cuda.synchronize()
     torch.save({{k: v.cpu() for k, v in res.pop("state").items()}},
@@ -5134,25 +5143,26 @@ def free_ports(n):
             sock.close()
 
 
-def mp_pair(torch, runs, tmp):
-    """Two processes sharing the card, side by side, each running every
-    run of ``runs`` (``name``, ``module`` "mesh" or "lm", ``argv``) in turn,
-    each run a group of its own: per run, both processes' results and
-    states (on the CPU); the pair's wall seconds.  Each process must exit 0
+def mp_group(torch, runs, tmp, world=2):
+    """``world`` processes sharing the card, side by side, each running
+    every run of ``runs`` (``name``, ``module`` "mesh" or "lm", ``argv``) in
+    turn, each run a group of its own: per run, every process's result and
+    state (on the CPU); the group's wall seconds.  Each process must exit 0
     in time, and each run go over gloo with its tensors on the card."""
     ports = free_ports(len(runs))
     spec = [{"name": r["name"], "module": r["module"],
              "state": os.path.join(tmp, f"{r['name']}_{{pid}}.pt"),
              "argv": r["argv"] + ["--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
-                                  "--num_processes", "2"]}
+                                  "--num_processes", str(world)]}
             for r, port in zip(runs, ports)]
+    pids = range(world)
     env = {k: v for k, v in os.environ.items() if k not in GROUP_VARS}
     env["MPIT_LOG_STREAM"] = "stderr"
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", MP_CHILD.format(repo=REPO), json.dumps(spec), str(pid)],
         cwd=REPO, env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        for pid in (0, 1)]
+        for pid in pids]
     outs = []
     try:
         for pid, proc in enumerate(procs):
@@ -5170,13 +5180,13 @@ def mp_pair(torch, runs, tmp):
     wall = time.perf_counter() - t0
     runs_out = {}
     for i, r in enumerate(spec):
-        results = [outs[pid][i] for pid in (0, 1)]
+        results = [outs[pid][i] for pid in pids]
         for pid, res in enumerate(results):
-            if (res["name"], res["backend"], res["processes"]) != (r["name"], "gloo", 2) or \
-                    not res["device"].startswith("cuda"):
+            if (res["name"], res["backend"], res["processes"]) != (r["name"], "gloo", world) \
+                    or not res["device"].startswith("cuda"):
                 raise AssertionError(f"{r['name']}: process {pid} ran {res['processes']} "
                                      f"processes over {res['backend']} on {res['device']}")
-        states = [torch.load(r["state"].format(pid=pid), map_location="cpu") for pid in (0, 1)]
+        states = [torch.load(r["state"].format(pid=pid), map_location="cpu") for pid in pids]
         runs_out[r["name"]] = (results, states)
     return runs_out, wall
 
@@ -5221,14 +5231,15 @@ def epochs_of(res):
     return [(h["epoch"], h["avg_loss"], h["test_err"]) for h in res["history"]]
 
 
-def mp_hold_rows(torch, name, results, states, one, exact):
+def mp_hold_rows(torch, name, results, states, one, exact, rows_of=None):
     """Each child's history and its rows of the state against the
     one-process run's: bit for bit where ``exact``, else within K1's
-    tolerances (losses too) and one test sample.  Returns each tensor's
-    largest gap; a miss raises with all of them."""
+    tolerances (losses too) and one test sample.  ``rows_of(pid)``: the
+    process's rows of the ``dp`` stack (two a process by default).
+    Returns each tensor's largest gap; a miss raises with all of them."""
     gaps, misses = {}, []
     for pid, (res, st) in enumerate(zip(results, states)):
-        rows = slice(2 * pid, 2 * pid + 2)
+        rows = rows_of(pid) if rows_of else slice(2 * pid, 2 * pid + 2)
         for key, got in st.items():
             want = one["state"][key].cpu()
             want = want if key == "center" else want[rows]
@@ -5270,6 +5281,63 @@ def timed_exchanges(torch, times):
         yield
     finally:
         MeshEASGD._exchange = real
+
+
+@contextlib.contextmanager
+def timed_hops(torch, hops):
+    """``collective.RingHop.move`` timed call by call (the card
+    synchronized around it): ``(ms, bytes sent, path)`` appended to
+    ``hops``, the bytes the boundary blocks', the path the hop's
+    (``"host"``: gloo, each block copied to the host and back; ``"card"``:
+    NCCL)."""
+    from mpit_tpu_torch.parallel.collective import RingHop
+
+    real = RingHop.move
+
+    def move(self, blocks, step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(self, blocks, step)
+        torch.cuda.synchronize()
+        hops.append(((time.perf_counter() - t) * 1e3,
+                     sum(b[0].numel() * b.element_size() for b in blocks),
+                     "host" if self.staged else "card"))
+        return out
+
+    RingHop.move = move
+    try:
+        yield
+    finally:
+        RingHop.move = real
+
+
+def lm_state_gaps(torch, got, want, w0, lim):
+    """The gaps of a run's final w and vt (``got``) to another's
+    (``want``), and whether they hold ``lim`` (an ``LM_LIMITS`` entry):
+    the largest gap (absolute, or a share of the largest change) and the
+    gap's norm over the change's."""
+    readings, held = {}, True
+    for key in ("w", "vt"):
+        gap = got[key].float() - want[key].float()
+        change = want[key].float() - (w0 if key == "w" else 0.0)
+        r = {"max_abs_gap": float(gap.abs().max()), "max_abs_change": float(change.abs().max()),
+             "gap_over_change": float(gap.norm() / change.norm()),
+             "bit_for_bit": bool(torch.equal(got[key], want[key]))}
+        max_abs = lim.get("max_abs_gap", lim.get("max_abs_share", 0.0) * r["max_abs_change"])
+        held = held and r["max_abs_gap"] <= max_abs and r["gap_over_change"] <= \
+            lim["gap_over_change"]
+        readings[key] = r
+    return readings, held
+
+
+def ring_share(cfg, ranks):
+    """The launches of K4 and of the pair backward that ``ranks`` of the
+    ring's ``sp`` ranks make in a pass: ``ring_pairs(n, layout) / n`` a
+    rank (``n`` contiguous, ``2n + 1`` zigzag, the same for every rank)."""
+    from mpit_tpu_torch.parallel.ring_attention import ring_pairs
+
+    n = int(cfg.sp)
+    return ring_pairs(n, cfg.layout) // n * ranks
 
 
 @contextlib.contextmanager
@@ -5329,7 +5397,7 @@ def multiproc_phases(torch, kernels, all_paths, smi):
 
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.transformer import TinyDecoder
-    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS
+    from mpit_tpu_torch.train.lm_launch import LM_LAUNCH_DEFAULTS, LONGCONTEXT_KWARGS
     from mpit_tpu_torch.train.mesh_launch import (
         FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS, run)
 
@@ -5342,7 +5410,13 @@ def multiproc_phases(torch, kernels, all_paths, smi):
     easgd = dict(FLAGSHIP_BENCH_KWARGS, dp=4, su=2, epochs=MP_EPOCHS)
     syncdp = {"linear": dict(MP_SYNCDP, model="linear"), "cnn": dict(MP_SYNCDP, model="cnn")}
     lm_kw = dict(dp=2, steps=MP_LM_STEPS, log_every=1)
-    ones, k1s, ex_ms = {}, {}, {"mp_easgd": [], "mp_easgd_resume": []}
+    shard_kw = dict(FLAGSHIP_BENCH_KWARGS, dp=1, shard=2, epochs=MP_SHARD_EPOCHS)
+    axes_lm = {"mp_lm_sp": dict(LONGCONTEXT_KWARGS, sp=2, layout="zigzag",
+                                steps=MP_LM_SP_STEPS, log_every=1),
+               "mp_lm_dp_sp": dict(dp=2, sp=2, layout="zigzag", steps=MP_LM_SP_STEPS,
+                                   log_every=1)}
+    ones, k1s, ex_ms = {}, {}, {"mp_easgd": [], "mp_easgd_resume": [], "mp_shard": []}
+    axes_recs = {}
     deterministic = torch.backends.cudnn.deterministic
     with tempfile.TemporaryDirectory() as tmp:
         d = {k: os.path.join(tmp, k) for k in ("one", "pair", "pair_resume", "one_resume")}
@@ -5354,17 +5428,22 @@ def multiproc_phases(torch, kernels, all_paths, smi):
                         torch, ex_ms["mp_easgd"])),
                     ("mp_syncdp_linear", syncdp["linear"], contextlib.nullcontext()),
                     ("mp_syncdp_cnn", syncdp["cnn"], half_batch_gradients(torch)),
-                    ("mp_syncdp_cnn_whole", syncdp["cnn"], contextlib.nullcontext())):
+                    ("mp_syncdp_cnn_whole", syncdp["cnn"], contextlib.nullcontext()),
+                    ("mp_shard", shard_kw, timed_exchanges(torch, ex_ms["mp_shard"]))):
                 commit.launches = 0
                 with ctx:
                     ones[name] = run(MESH_LAUNCH_DEFAULTS.merged(kw, device="cuda"))
                 k1s[name] = {"k1": commit.launches}
             with fused_bwd_env(None):
                 ones["mp_lm"], lm_rec = lm_path(torch, "mp_lm_one", kernels, **lm_kw)
+                for name, kw in axes_lm.items():
+                    ones[name], axes_recs[name] = lm_path(torch, f"{name}_one", kernels, **kw)
+                    ones[name]["state"] = {k: v.cpu() for k, v in ones[name]["state"].items()}
             k1s["mp_lm"] = lm_rec["launches"]
+            torch.cuda.empty_cache()
             one_s = time.perf_counter() - t0
             resume_file = os.path.join(d["pair"], "mesh_latest.npz")
-            pair, wall = mp_pair(torch, [
+            pair, wall = mp_group(torch, [
                 dict(name="mp_easgd", module="mesh",
                      argv=cli_args(dict(easgd, ckpt_dir=d["pair"]))),
                 dict(name="mp_easgd_resume", module="mesh", argv=cli_args(dict(
@@ -5372,7 +5451,12 @@ def multiproc_phases(torch, kernels, all_paths, smi):
                     ckpt_dir=d["pair_resume"]))),
                 dict(name="mp_syncdp_linear", module="mesh", argv=cli_args(syncdp["linear"])),
                 dict(name="mp_syncdp_cnn", module="mesh", argv=cli_args(syncdp["cnn"])),
-                dict(name="mp_lm", module="lm", argv=cli_args(lm_kw))], tmp)
+                dict(name="mp_lm", module="lm", argv=cli_args(lm_kw)),
+                dict(name="mp_shard", module="mesh", argv=cli_args(shard_kw)),
+                dict(name="mp_lm_sp", module="lm", argv=cli_args(axes_lm["mp_lm_sp"]))], tmp)
+            quartet, wall4 = mp_group(torch, [dict(
+                name="mp_lm_dp_sp", module="lm", argv=cli_args(axes_lm["mp_lm_dp_sp"]))],
+                tmp, world=4)
             t0 = time.perf_counter()
             commit.launches = 0
             with timed_exchanges(torch, ex_ms["mp_easgd_resume"]):
@@ -5442,15 +5526,11 @@ def multiproc_phases(torch, kernels, all_paths, smi):
                                             n_heads=cfg.n_heads, n_layers=cfg.n_layers,
                                             max_len=cfg.seq_len), cfg.seed).w0
             lim = LM_LIMITS["float32"]
-            for key in ("w", "vt"):
-                want = one["state"][key].cpu()
-                gap_t = states[0][key] - want
-                change = want - (w0 if key == "w" else 0.0)
-                r[key] = {"max_abs_gap": float(gap_t.abs().max()),
-                          "gap_over_change": float(gap_t.norm() / change.norm())}
-                if not (r[key]["max_abs_gap"] <= lim["max_abs_gap"]
-                        and r[key]["gap_over_change"] <= lim["gap_over_change"]):
-                    raise AssertionError(f"mp_lm: {key} beyond LM_LIMITS['float32']: {r}")
+            gaps, held = lm_state_gaps(torch, states[0], {
+                key: one["state"][key].cpu() for key in ("w", "vt")}, w0, lim)
+            r.update(gaps)
+            if not held:
+                raise AssertionError(f"mp_lm: beyond LM_LIMITS['float32']: {r}")
             r["loss_rel_gap"] = max(abs(a - b) / abs(b) for a, b in zip(losses[0], losses[2]))
             if not r["loss_rel_gap"] <= lim["loss_rtol"]:
                 raise AssertionError(f"mp_lm: losses {losses[0]} against {losses[2]}")
@@ -5462,9 +5542,105 @@ def multiproc_phases(torch, kernels, all_paths, smi):
         for pid, res in enumerate(results):
             record_path(all_paths, f"{name}_p{pid}", res["launches"], steps)
         record_path(all_paths, f"{name}_one", k1s[name], steps)
+    readings["quartet_wall_s"] = wall4
+    readings["mp_shard"] = mp_shard_readings(torch, pair["mp_shard"], ones["mp_shard"],
+                                             k1s["mp_shard"], ex_ms["mp_shard"], shard_kw)
+    record_mp(all_paths, "mp_shard", pair["mp_shard"][0], k1s["mp_shard"],
+              ones["mp_shard"]["samples_trained"] // shard_kw["batch"])
+    for name, group, lim in (("mp_lm_sp", pair, "bfloat16"),
+                             ("mp_lm_dp_sp", quartet, "float32")):
+        cfg = LM_LAUNCH_DEFAULTS.merged(axes_lm[name])
+        readings[name] = mp_lm_axes_readings(torch, name, group[name], ones[name],
+                                             axes_recs[name], cfg, lim)
+        record_mp(all_paths, name, group[name][0], axes_recs[name]["launches"], cfg.steps)
     print(f"multiproc phases on {smi}: " + json.dumps(readings))
     print(f"multiproc phases: {time.perf_counter() - t_block:.1f}s (the pair "
-          f"{wall:.1f}s, one process {one_s:.1f}s)")
+          f"{wall:.1f}s, the quartet {wall4:.1f}s, one process {one_s:.1f}s)")
+
+
+def record_mp(all_paths, name, results, one_launches, steps):
+    """Every child's launches and the one-process run's, as paths."""
+    for pid, res in enumerate(results):
+        record_path(all_paths, f"{name}_p{pid}", res["launches"], steps)
+    record_path(all_paths, f"{name}_one", one_launches, steps)
+
+
+def mp_shard_readings(torch, group, one, k1_one, ex_ms_one, kw):
+    """``mp_shard``: the flagship CNN's EASGD at ``--dp 1 --shard 2`` over two
+    processes, each holding the one worker row and owning one of the
+    center's two shards, against one process at ``--dp 1 --shard 2``: each
+    process's row, the center and every epoch within K1's tolerances (bit
+    for bit printed), K1 launched by each as often as by one process, and
+    each exchange (a push to the owned shard, the owner's add, the pull of
+    the other shard) timed."""
+    results, states = group
+    expect_child_launches("mp_shard", results, k1_one)
+    epochs = [h["epoch"] for h in results[0]["history"]]
+    if epochs != list(range(MP_SHARD_EPOCHS)):
+        raise AssertionError(f"mp_shard: epochs {epochs}")
+    gaps = mp_hold_rows(torch, "mp_shard", results, states, one, False,
+                        rows_of=lambda pid: slice(0, 1))
+    per_step = kw["batch"]
+    plong = one["state"]["center"].numel()
+    return {"launches_each": k1_one, "max_abs_gaps": gaps,
+            "bit_for_bit": all(torch.equal(st[k], one["state"][k].cpu()) for st in states
+                               for k in st),
+            "step_ms": {"one": step_ms(one, per_step),
+                        "pair": [step_ms(x, per_step) for x in results]},
+            "exchange_ms": {"one": ex_ms_one, "pair": [x["exchange_ms"] for x in results]},
+            # each process pulls the other's shard of the center, float32
+            "exchange_bytes_pulled": 4 * (plong - plong // 2)}
+
+
+def mp_lm_axes_readings(torch, name, group, one, rec, cfg, lim_key):
+    """An LM run whose ``sp`` spans processes (one ``sp`` rank each) against
+    the same flags in one process: every process's K4 and pair backward
+    launches its share of the ring's pairs (``ring_share``), the shares of
+    an ``sp`` line adding up to the one-process count, K1 once a step;
+    every replica alike; w, vt and the losses within
+    ``LM_LIMITS[lim_key]`` of one process (bit for bit printed); each
+    hop's path, and its ms and bytes a step (the warm-up's step counted)."""
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.transformer import TinyDecoder
+    from mpit_tpu_torch.parallel.ring_attention import ring_pairs
+
+    results, states = group
+    runs, sp = cfg.steps + 1, int(cfg.sp)
+    one_l = {k: rec["launches"].get(k, 0) for k in ("k1", "k4", "k5", "k6")}
+    share = ring_share(cfg, 1)
+    want = {k: v if k == "k1" else v // ring_pairs(sp, cfg.layout) * share
+            for k, v in one_l.items()}
+    expect_child_launches(name, results, want)
+    for k in ("k4", "k5", "k6"):
+        if sum(r["launches"].get(k, 0) for r in results[:sp]) != one_l[k]:
+            raise AssertionError(f"{name}: the sp line's {k} launches "
+                                 f"{[r['launches'] for r in results[:sp]]} do not add up to "
+                                 f"one process's {one_l[k]}")
+    losses = [[h["avg_loss"] for h in x["history"]] for x in (*results, one)]
+    if any(x != losses[0] for x in losses[1:-1]) or any(
+            not torch.equal(st[k], states[0][k]) for st in states[1:] for k in st):
+        raise AssertionError(f"{name}: the processes' replicas differ: {losses}")
+    w0 = flatten_module(TinyDecoder(vocab=256, d_model=cfg.d_model, n_heads=cfg.n_heads,
+                                    n_layers=cfg.n_layers, max_len=cfg.seq_len), cfg.seed).w0
+    lim = LM_LIMITS[lim_key]
+    r, held = lm_state_gaps(torch, states[0], one["state"], w0, lim)
+    r["loss_rel_gap"] = max(abs(a - b) / abs(b) for a, b in zip(losses[0], losses[-1]))
+    r["losses"] = {"one": losses[-1], "group": losses[0]}
+    if not (held and r["loss_rel_gap"] <= lim["loss_rtol"]):
+        raise AssertionError(f"{name}: beyond LM_LIMITS[{lim_key!r}]: {r}")
+    paths = {p for x in results for _, _, p in x["hops"]}
+    if paths != {"host"}:
+        raise AssertionError(f"{name}: a gloo group's hops went by {paths}")
+    r.update(launches_each=want, launches_one=one_l, schedule=rec["schedule"],
+             hop_path="gloo send/recv of host copies of the boundary blocks",
+             hops_a_step=[len(x["hops"]) / runs for x in results],
+             hop_ms_a_step=[sum(h[0] for h in x["hops"]) / runs for x in results],
+             hop_bytes_a_step=[sum(h[1] for h in x["hops"]) / runs for x in results],
+             tokens_per_sec={"one": one["tokens_per_sec"],
+                             "group": [x["tokens_per_sec"] for x in results]},
+             startup_s=[{k: round(x[k], 3) for k in ("import_s", "cuda_init_s", "group_s",
+                                                     "compile_s")} for x in results])
+    return r
 
 
 # -- hierarchical aggregation and the LM through the gang (slices 5g and 7b) -------

@@ -11,6 +11,7 @@ from mpit_tpu_torch.parallel.collective import (
     ps_push,
     ps_pushpull,
     psum,
+    replicate,
     ring_shift,
 )
 from mpit_tpu_torch.parallel.distributed import (
@@ -41,6 +42,6 @@ from mpit_tpu_torch.parallel.tensor_parallel import tp_mlp, tp_self_attention
 __all__ = ["Mesh", "MeshEASGD", "ProcessGroup", "SyncDataParallel", "allreduce_mean",
            "barrier", "bootstrap", "ep_moe", "gather", "make_mesh", "moe_reference",
            "pipeline", "process_local_rows", "process_mean", "ps_pull", "ps_push",
-           "ps_pushpull", "psum", "put_global", "put_local", "read_hostfile",
+           "ps_pushpull", "psum", "put_global", "put_local", "read_hostfile", "replicate",
            "ring_attention", "ring_shift", "sp_mesh", "stack_stage_params", "tp_mlp",
            "tp_self_attention", "zigzag_permute", "zigzag_unpermute"]

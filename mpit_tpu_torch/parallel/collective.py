@@ -20,32 +20,43 @@ collective is a tensor op on the device:
   block lands at rank ``i + 1``: one device copy a hop, which stands for an
   NVLink hop and is where a multi-card slice puts P2P or NCCL.
 
-Over a mesh whose ``dp`` axis spans a group of processes
-(:mod:`mpit_tpu_torch.parallel.mesh`), each process stacks its own block
-of ``dp``.  The reductions over ``dp`` (``psum``, ``allreduce_mean``,
-``ps_push(..., reduce_axis="dp")``) first **all-gather** every process's
-block into the whole ``(dp, ...)`` stack, in rank order, and then run the
-one-process reduction over that stack: every process holds the same
-bits, those of a one-process run at the same ``dp``.  That parity has a
-price: the all-gather moves ``dp x size`` floats into each process where
-an all-reduce would move ``size`` (at the flagship widths, dp 4 x 544,522
-floats, 8.7 MB an EASGD exchange).  :func:`gather` is the all-gather
-itself (a checkpoint's rows, an epoch's losses) and :func:`process_mean`
-the mean of one tensor a process, added in process order (sync-DP's and
-the LM's gradient of the global batch).  The ring transfer and the
-shard-axis collectives stay inside a process: over an axis that spans
-processes they raise ``NotImplementedError`` (ROADMAP §A item 3).
+Over a mesh whose axes span a group of processes
+(:mod:`mpit_tpu_torch.parallel.mesh`), each process stacks its own range
+of each axis, and every collective over an axis that spans goes over the
+``torch.distributed`` group of this process's **line** of that axis
+(:meth:`~mpit_tpu_torch.parallel.mesh.Mesh.line`), never over the default
+group: at ``dp 2 x sp 2`` over four processes the ``dp`` gather of
+process 0 runs over processes 0 and 2 only.  Each collective only moves
+data, so it gives every process the bits of the one-process collective:
+
+- the reductions (``psum``, ``allreduce_mean``, ``ps_push(...,
+  reduce_axis=)``) **all-gather** the line's blocks into the whole
+  ``(n, ...)`` stack, in rank order, and run the one-process reduction over
+  it.  That parity has a price: the all-gather moves ``n x size`` floats
+  into each process where an all-reduce would move ``size`` (at the
+  flagship widths, dp 4 x 544,522 floats, 8.7 MB an EASGD exchange);
+- :func:`gather` is the all-gather itself (a checkpoint's rows, an
+  epoch's losses) and :func:`process_mean` the mean of one tensor a process
+  of the line, added in rank order (sync-DP's and the LM's gradient of the
+  global batch); :func:`replicate` gives a line its first process's
+  copy of a value every process of it computed;
+- pull is an all-gather of the shard blocks, and push lets each process
+  keep the owner rows it holds;
+- the ring transfer rolls the process's block in place and moves one
+  boundary block a tensor to the next process of the line, receiving one
+  from the previous (:class:`RingHop`), differentiable, its backward the
+  reverse hop.
 
 The JAX module's ``shard_map`` version shim has no counterpart.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
-from mpit_tpu_torch.parallel.mesh import Mesh
+from mpit_tpu_torch.parallel.mesh import Line, Mesh
 
 Fn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -63,22 +74,13 @@ def _ranks(mesh: Mesh, axis: str, x: torch.Tensor, what: str) -> int:
     return n
 
 
-def _in_process(mesh: Mesh, axis: str, op: str) -> None:
-    """Raise where ``axis`` spans processes: ``op`` moves blocks between
-    ranks, which the port does inside a process only."""
-    if mesh.spans(axis):
-        raise NotImplementedError(
-            f"{op} over {axis!r}, which spans {mesh.processes} processes: the port "
-            "moves blocks between processes only by all-gather (ROADMAP §A item 3)")
-
-
-def _all_gather(x: torch.Tensor, processes: int) -> torch.Tensor:
-    """Every process's ``x`` stacked along axis 0 in process order: one
-    all-gather over the default group (NCCL, or gloo, which carries a card's
-    tensors itself)."""
+def _gather_line(x: torch.Tensor, line: Line) -> torch.Tensor:
+    """Every process's ``x`` on ``line`` stacked along axis 0, in rank
+    order: one all-gather over the line's group (NCCL, or gloo, which
+    carries a card's tensors itself)."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(processes)]
-    torch.distributed.all_gather(parts, x)
+    parts = [torch.empty_like(x) for _ in range(line.size)]
+    torch.distributed.all_gather(parts, x, group=line.group)
     return torch.cat(parts)
 
 
@@ -86,7 +88,7 @@ def _whole(mesh: Mesh, axis: str, x: torch.Tensor, what: str) -> torch.Tensor:
     """The whole ``(n, ...)`` stack of ``axis`` from this process's block:
     ``x`` itself where the axis lies in this process."""
     _ranks(mesh, axis, x, what)
-    return _all_gather(x, mesh.processes) if mesh.spans(axis) else x
+    return _gather_line(x, mesh.line(axis)) if mesh.spans(axis) else x
 
 
 def gather(mesh: Mesh, axis: str = "dp") -> Fn:
@@ -99,22 +101,46 @@ def gather(mesh: Mesh, axis: str = "dp") -> Fn:
     return _gather
 
 
-def process_mean(mesh: Mesh) -> Fn:
-    """The mean over the mesh's processes of one tensor each: all gathered
-    in process order, added one at a time in that order, divided by their
-    count.  ``x`` itself in a one-process mesh."""
+def process_mean(mesh: Mesh, axis: str = "dp") -> Fn:
+    """The mean over the processes of this process's line of ``axis`` of
+    one tensor each: all gathered in rank order, added one at a time in
+    that order, divided by their count.  ``x`` itself where ``axis`` lies in
+    this process (the processes of one ``dp`` row, which differ on ``sp``
+    or ``shard``, hold the same tensor and take no part)."""
 
     def _mean(x: torch.Tensor) -> torch.Tensor:
-        if mesh.processes == 1:
+        if not mesh.spans(axis):
             return x
         mesh.check_device(x, "the tensor")
-        parts = _all_gather(x[None], mesh.processes)
+        line = mesh.line(axis)
+        parts = _gather_line(x[None], line)
         out = parts[0]
-        for r in range(1, mesh.processes):
+        for r in range(1, line.size):
             out = out + parts[r]
-        return out / mesh.processes
+        return out / line.size
 
     return _mean
+
+
+def replicate(mesh: Mesh, axis: str) -> Fn:
+    """One value for every process of this process's line of ``axis``: the
+    line's first process's ``x``, broadcast over the line (``x`` itself
+    where ``axis`` lies in this process).  The processes of a line that
+    each compute the same replicated value (the dense layers' gradient
+    around a ring whose ``sp`` spans them, a worker row's gradient on every
+    ``shard`` owner) hold the same bits afterwards, even where the card's
+    backward does not repeat its bits from run to run."""
+
+    def _replicate(x: torch.Tensor) -> torch.Tensor:
+        if not mesh.spans(axis):
+            return x
+        mesh.check_device(x, "the tensor")
+        line = mesh.line(axis)
+        x = x.contiguous()
+        torch.distributed.broadcast(x, line.processes[0], group=line.group)
+        return x
+
+    return _replicate
 
 
 def _owner_slices(full: torch.Tensor, n: int) -> torch.Tensor:
@@ -136,11 +162,12 @@ def pad_shards(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
 
 def ps_pull(mesh: Mesh, axis: str = "shard") -> Fn:
     """Full-param fetch: every rank receives the concatenation of all the
-    shards, ``(n, s, ...) -> (n * s, ...)``."""
-    _in_process(mesh, axis, "ps_pull")
+    shards, ``(n, s, ...) -> (n * s, ...)``: a view where the stack is this
+    process's and contiguous; where ``axis`` spans processes the stack is
+    this process's block of it, all-gathered over the line."""
 
     def _pull(shards: torch.Tensor) -> torch.Tensor:
-        _ranks(mesh, axis, shards, "the shard stack")
+        shards = _whole(mesh, axis, shards, "the shard stack")
         return shards.reshape(-1, *shards.shape[2:])
 
     return _pull
@@ -155,8 +182,9 @@ def ps_push(mesh: Mesh, axis: str = "shard", reduce_axis: str | None = None) -> 
     it is the ``(n_workers, size, ...)`` stack of per-worker gradients,
     summed over the workers first: the servers' per-client accumulation
     collapsed into one reduce.  Where ``reduce_axis`` spans processes, the
-    stack is each process's block of it, all-gathered before the sum."""
-    _in_process(mesh, axis, "ps_push")
+    stack is each process's block of it, all-gathered before the sum;
+    where ``axis`` spans processes, each process keeps the owner rows it
+    holds, ``(local n, size // n, ...)``."""
 
     def _push(grad: torch.Tensor) -> torch.Tensor:
         n = mesh.size(axis)
@@ -164,7 +192,7 @@ def ps_push(mesh: Mesh, axis: str = "shard", reduce_axis: str | None = None) -> 
             grad = _whole(mesh, reduce_axis, grad, "the worker gradient stack").sum(0)
         else:
             mesh.check_device(grad, "the gradient")
-        return _owner_slices(grad, n)
+        return _owner_slices(grad, n)[mesh.local_slice(axis)]
 
     return _push
 
@@ -181,14 +209,16 @@ def ps_pushpull(
     elementwise rule does), which is one launch where the reference maps it
     over the devices.  Takes ``(p_shards (n, s), full_grad (n * s,))`` and
     returns ``(new_full_params, new_p_shards)``; the first is the second
-    seen flat."""
-    _in_process(mesh, axis, "ps_pushpull")
+    seen flat, or, where ``axis`` spans processes (``p_shards`` this
+    process's owner rows), every process's pulled."""
+    pull = ps_pull(mesh, axis)
 
     def _round(p_shards: torch.Tensor, full_grad: torch.Tensor):
-        n = _ranks(mesh, axis, p_shards, "the param shard stack")
+        _ranks(mesh, axis, p_shards, "the param shard stack")
         mesh.check_device(full_grad, "the gradient")
-        p_shards = apply_fn(p_shards, _owner_slices(full_grad, n))
-        return p_shards.reshape(-1, *p_shards.shape[2:]), p_shards
+        owned = _owner_slices(full_grad, mesh.size(axis))[mesh.local_slice(axis)]
+        p_shards = apply_fn(p_shards, owned)
+        return pull(p_shards), p_shards
 
     return _round
 
@@ -213,16 +243,77 @@ def psum(mesh: Mesh, axis: str) -> Fn:
     return _psum
 
 
-def ring_shift(mesh: Mesh, axis: str, *, reverse: bool = False) -> Fn:
+class RingHop:
+    """The ring transfer's hop between processes over one axis's line: each
+    of a call's block stacks sends its boundary block (its last rank's, or
+    its first's for the reverse hop) to the next process of the line and
+    receives the previous process's into its first (or last) rank, the rest
+    rolled in place.  All of a call's sends and receives go in one
+    ``batch_isend_irecv``, so no process waits on another to post, and
+    each stack's pair carries its own tag.  The path is the group's
+    backend's: NCCL moves the card's blocks itself; gloo moves host
+    tensors, so a card's boundary blocks are copied to the host and back
+    (gloo's point-to-point ops take no CUDA tensor)."""
+
+    def __init__(self, mesh: Mesh, axis: str):
+        self.line = mesh.line(axis)
+        self.staged = mesh.backend == "gloo" and mesh.device.type == "cuda"
+
+    def move(self, blocks: Sequence[torch.Tensor], step: int) -> Tuple[torch.Tensor, ...]:
+        """``blocks`` moved one hop along the ring (``step`` 1) or back
+        (``step`` -1)."""
+        dist = torch.distributed
+        dst, src = ((self.line.next, self.line.prev) if step > 0
+                    else (self.line.prev, self.line.next))
+        ops, bufs = [], []
+        for tag, b in enumerate(blocks):
+            edge = b[-1 if step > 0 else 0]
+            edge = edge.to("cpu") if self.staged else edge.contiguous()
+            buf = torch.empty_like(edge)
+            ops += [dist.P2POp(dist.isend, edge, dst, self.line.group, tag),
+                    dist.P2POp(dist.irecv, buf, src, self.line.group, tag)]
+            bufs.append(buf)
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        out = []
+        for b, buf in zip(blocks, bufs):
+            buf = buf.to(b.device)[None]
+            out.append(torch.cat([buf, b[:-1]] if step > 0 else [b[1:], buf]))
+        return tuple(out)
+
+
+class _Hop(torch.autograd.Function):
+    """:meth:`RingHop.move` under autograd: the gradients take the reverse
+    hop."""
+
+    @staticmethod
+    def forward(ctx, hop: RingHop, step: int, *blocks):
+        ctx.hop, ctx.step = hop, step
+        return hop.move(blocks, step)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.hop.move(grads, -ctx.step))
+
+
+def ring_shift(mesh: Mesh, axis: str, *, reverse: bool = False):
     """Neighbour exchange over ``axis``: each rank hands its block to the
     next rank on the ring (``reverse``: to the previous one).  The step of
-    ring attention."""
+    ring attention.  The fn takes one or more block stacks and returns
+    each shifted (one tensor for one stack, a tuple for more): inside a
+    process ``torch.roll``; where ``axis`` spans processes, one hop between
+    processes for all of them (:class:`RingHop`), differentiable."""
     step = -1 if reverse else 1
-    _in_process(mesh, axis, "ring_shift")
+    hop = RingHop(mesh, axis) if mesh.spans(axis) else None
 
-    def _shift(blocks: torch.Tensor) -> torch.Tensor:
-        _ranks(mesh, axis, blocks, "the block stack")
-        return torch.roll(blocks, step, dims=0)
+    def _shift(*blocks: torch.Tensor):
+        for b in blocks:
+            _ranks(mesh, axis, b, "the block stack")
+        if hop is None:
+            out = tuple(torch.roll(b, step, dims=0) for b in blocks)
+        else:
+            out = _Hop.apply(hop, step, *blocks)
+        return out[0] if len(blocks) == 1 else out
 
     return _shift
 

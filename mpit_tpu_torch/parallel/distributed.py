@@ -18,7 +18,8 @@ init_process_group`` does, over ``tcp://<coordinator>``:
   size pair of the reference's launcher, the backend, and the devices as
   torch devices;
 - :func:`barrier` waits for every process of the group (the checkpoint's
-  publish).
+  publish), and :func:`sub_group` forms the group of one line of a mesh
+  axis that spans processes.
 
 On the card, NCCL takes one card a process and refuses two ranks on one
 GPU.  Where a host runs no more of the group's processes than it has
@@ -220,6 +221,26 @@ def shutdown() -> None:
     """Tear down the process group (a no-op when none was formed)."""
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
+
+
+def group_formed() -> bool:
+    """Whether this process belongs to a formed ``torch.distributed``
+    group."""
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized()
+
+
+def sub_group(processes: Sequence[int], num_processes: int):
+    """The group over ``processes`` of the formed group of
+    ``num_processes``, on its backend: ``torch.distributed.new_group``,
+    which every process of the group must call for every sub-group, in one
+    order; None (the default group) where ``processes`` is all of them.  A
+    mesh forms one for each line of each axis that spans processes
+    (:class:`mpit_tpu_torch.parallel.mesh.Mesh`)."""
+    if len(processes) == num_processes:
+        return None
+    return torch.distributed.new_group(
+        list(processes), timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
 
 
 def barrier() -> None:

@@ -11,6 +11,10 @@ so every process moves its replica of the center by the same bits.  The mesh's
 ``shard`` axis cuts both by columns, as the JAX package cuts them over its
 devices (the last shard padded where ``shard`` does not divide ``plong``):
 the center's exchange is the shard owners' (:meth:`MeshEASGD._exchange`),
+and where ``shard`` spans processes each process adds to the center's
+shards it owns and pulls the others' (every process of a ``shard`` line
+holds the same worker rows and takes the gradients of its line's first
+process, so that its rows stay the same bits on the card too),
 and K1 commits the whole ``(n_dp, plong)`` stack, every ``(dp, shard)``
 tile, in one launch, where the JAX package launches one a device tile.
 A step is:
@@ -39,7 +43,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_commit, msgd_lookahead
-from mpit_tpu_torch.parallel.collective import pad_shards, ps_pull, ps_push
+from mpit_tpu_torch.parallel.collective import pad_shards, ps_pull, ps_push, replicate
 from mpit_tpu_torch.parallel.mesh import Mesh, put_local
 
 State = Dict[str, torch.Tensor]
@@ -56,6 +60,10 @@ class MeshEASGD:
 
     #: The state's keys stacked over ``dp`` (this process's rows of them).
     row_keys = ("w", "vt", "k")
+
+    #: The state's keys cut over ``shard`` across processes: none (the
+    #: center is pulled whole after every exchange).
+    shard_keys = ()
 
     def __init__(
         self,
@@ -79,6 +87,7 @@ class MeshEASGD:
         self._grads = torch.func.vmap(value_and_grad_fn)
         self._push = ps_push(mesh, "shard", reduce_axis="dp")
         self._pull = ps_pull(mesh, "shard")
+        self._one_copy = replicate(mesh, "shard")
 
     # -- state ---------------------------------------------------------------
 
@@ -101,25 +110,38 @@ class MeshEASGD:
 
     # -- stepping ------------------------------------------------------------
 
+    def _value_and_grads(self, w, xb, yb):
+        """Every row's loss and gradient; where ``shard`` spans processes,
+        those of the ``shard`` line's first process, which every owner of
+        the line takes (each computes the same rows)."""
+        loss, grad = self._grads(w, xb, yb)
+        if not self.mesh.spans("shard"):
+            return loss, grad
+        both = self._one_copy(torch.cat([grad, loss[:, None]], 1))
+        return both[:, -1], both[:, :-1]
+
     def _local(self, state: State, xb, yb) -> torch.Tensor:
         msgd_lookahead(state["w"], state, self.cfg)
-        loss, grad = self._grads(state["w"], xb, yb)
+        loss, grad = self._value_and_grads(state["w"], xb, yb)
         msgd_commit(state["w"], grad, state, self.cfg)
         return loss
 
     def _exchange(self, center: torch.Tensor, sug: torch.Tensor) -> None:
         """``w* += sum_i sug_i``, in place, by the shard owners: the workers'
-        pushes (every process's, gathered) summed over ``dp`` and cut over
-        ``shard`` (``ps_push``), each
-        owner's add on its slice of the center, and the pull of the updated
-        shards (``ps_pull``).  Views of ``center`` where ``shard`` divides
-        ``plong``; padded copies, trimmed on the way back, where not."""
+        pushes (every process's, gathered over the ``dp`` line) summed over
+        ``dp`` and cut over ``shard`` (``ps_push``: the owner rows this
+        process holds), each owner's add on its slice of the center, and
+        the pull of the updated shards (``ps_pull``: all-gathered over the
+        ``shard`` line where ``shard`` spans processes).  Views of
+        ``center`` where ``shard`` divides ``plong`` and lies in this
+        process; padded or gathered copies, trimmed on the way back, where
+        not."""
         sug, pad = pad_shards(sug, self.n_shard)
         shards, _ = pad_shards(center, self.n_shard)
-        shards = shards.view(self.n_shard, -1)
-        shards.add_(self._push(sug))
-        full = self._pull(shards)  # a view of center where nothing was padded
-        if pad:
+        mine = shards.view(self.n_shard, -1)[self.mesh.local_slice("shard")]
+        mine.add_(self._push(sug))
+        full = self._pull(mine)  # a view of center where nothing was padded or gathered
+        if pad or self.mesh.spans("shard"):
             center.copy_(full[:center.shape[0]])
 
     def _sync(self, state: State, xb, yb) -> torch.Tensor:
@@ -128,7 +150,7 @@ class MeshEASGD:
         sug = self.mva * (state["w"] - state["center"])
         self._exchange(state["center"], sug)
         msgd_lookahead(state["w"], state, self.cfg)
-        loss, grad = self._grads(state["w"], xb, yb)
+        loss, grad = self._value_and_grads(state["w"], xb, yb)
         # The elastic retract after the local update (ref :66).
         msgd_commit(state["w"], grad, state, self.cfg, sug=sug)
         return loss

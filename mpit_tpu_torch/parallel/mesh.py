@@ -14,14 +14,26 @@ leading axis.
 
 A mesh over a ``torch.distributed`` group of ``P`` processes
 (``group=``, :mod:`mpit_tpu_torch.parallel.distributed`) lays its ranks as
-the JAX package's ``make_mesh`` lays devices, row-major ``(dp, ...)``:
-the **dp axis is cut across the processes** in contiguous blocks, process
-``p`` holding ranks ``[p * dp / P, (p + 1) * dp / P)`` (its
-:meth:`Mesh.local_slice`), and every other axis stays inside each
-process.  A process's tensors stack its own block of ``dp``
-(:meth:`Mesh.local_size` ranks); the collectives gather the others'.  A
-``dp`` that ``P`` does not divide raises; a layout that would cut another
-axis across processes raises ``NotImplementedError`` (ROADMAP §A item 3).
+the JAX package's ``make_mesh`` lays devices: the ranks of the whole grid,
+flattened row-major in the order the axes are given, are cut into ``P``
+contiguous blocks of ``R / P``, process ``p`` holding flat ranks
+``[p * R / P, (p + 1) * R / P)``, as a ``reshape`` over ``jax.devices()``
+(which come in process order) gives them.  A cut is accepted where every
+block is a **box**, a contiguous range of ranks on every axis
+(:meth:`Mesh.local_slice`); a process's tensors stack its own range of
+each axis (:meth:`Mesh.local_size` ranks), and an axis **spans**
+processes where that range is not the whole axis.  For each axis that
+spans, the processes that share every other range form a **line**, and
+the mesh forms one ``torch.distributed`` sub-group a line
+(:meth:`Mesh.line`), in every process and in one order, when it is built:
+the collectives of :mod:`mpit_tpu_torch.parallel.collective` over that
+axis go over it.  ``dp 1 x sp 2`` over two processes gives each one rank of
+``sp``; ``dp 2 x sp 2`` over four one rank of each axis, its ``dp`` line
+two processes and its ``sp`` line two others.  A grid of ranks that ``P``
+does not divide, or a block that is not a box (``dp 3 x sp 2`` over two
+gives process 0 the ranks (0, 0), (0, 1) and (1, 0)), raises
+``ValueError``; a ``tp``, ``pp`` or ``ep`` axis across processes raises
+``NotImplementedError`` (ROADMAP §A item 3).
 
 :func:`make_mesh` builds the trainers' ``(dp, shard)`` mesh.  The JAX
 package factors a device count into ``dp x shard``
@@ -34,39 +46,121 @@ axis.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from mpit_tpu_torch.parallel.distributed import group_formed, sub_group
+
+#: Axes whose collectives the port runs inside one process only.
+LOCAL_AXES = ("tp", "pp", "ep")
+
+Box = Dict[str, Tuple[int, int]]
+
+
+def _unravel(flat: int, sizes: Sequence[int]) -> Tuple[int, ...]:
+    coords = []
+    for size in reversed(sizes):
+        flat, c = divmod(flat, size)
+        coords.append(c)
+    return tuple(reversed(coords))
+
+
+def process_boxes(axes: Mapping[str, int], processes: int) -> List[Box]:
+    """Each process's block of the row-major grid of ``axes`` as a
+    ``[lo, hi)`` range on every axis; raises ``ValueError`` where the grid
+    does not split over ``processes`` or a block is not a box, and
+    ``NotImplementedError`` where a ``tp``, ``pp`` or ``ep`` axis would span
+    processes.  The launchers call it (through :func:`check_split`) before
+    any rendezvous."""
+    names, sizes = list(axes), [int(v) for v in axes.values()]
+    total = 1
+    for size in sizes:
+        total *= size
+    shown = " x ".join(f"{k}={v}" for k, v in zip(names, sizes) if v > 1 or k == "dp")
+    if total % processes:
+        raise ValueError(
+            f"{shown or 'a mesh of one rank'} does not split over {processes} processes: "
+            f"the mesh's {total} ranks, flattened row-major, are cut across processes "
+            "in contiguous blocks, process p holding flat ranks [p*R/P, (p+1)*R/P)")
+    per = total // processes
+    boxes = []
+    for p in range(processes):
+        coords = [_unravel(r, sizes) for r in range(p * per, (p + 1) * per)]
+        box = {name: (min(c[i] for c in coords), max(c[i] for c in coords) + 1)
+               for i, name in enumerate(names)}
+        volume = 1
+        for lo, hi in box.values():
+            volume *= hi - lo
+        if volume != per:
+            raise ValueError(
+                f"{shown} over {processes} processes: process {p}'s block, flat ranks "
+                f"[{p * per}, {(p + 1) * per}), holds the ranks {coords} of "
+                f"({', '.join(names)}), which is not a box (a contiguous range of "
+                "ranks on every axis)")
+        boxes.append(box)
+    for name in LOCAL_AXES:
+        if name in axes and any(hi - lo < axes[name] for lo, hi in
+                                (b[name] for b in boxes)):
+            raise NotImplementedError(
+                f"{shown} over {processes} processes would cut {name} across processes: "
+                "tp, pp and ep stay inside one process in the port (ROADMAP §A item 3)")
+    return boxes
+
 
 def check_split(axes: Mapping[str, int], processes: int) -> None:
-    """Raise unless a mesh of ``axes`` lays over ``processes`` processes:
-    ``dp`` cut into equal contiguous blocks, every other axis inside one
-    process.  The launchers call it before any rendezvous."""
-    if processes <= 1:
-        return
-    dp = int(axes.get("dp", 1))
-    if dp % processes == 0:
-        return
-    total = 1
-    for size in axes.values():
-        total *= int(size)
-    others = [name for name in axes if name != "dp"]
-    if total % processes == 0 and others:
-        raise NotImplementedError(
-            f"a mesh {dict(axes)} over {processes} processes would cut "
-            f"{'/'.join(others)} across processes: only dp spans processes in the "
-            "port (ROADMAP §A item 3)")
-    raise ValueError(
-        f"dp={dp} does not split over {processes} processes: the dp axis is cut "
-        "across processes in contiguous blocks, process p holding ranks "
-        "[p*dp/P, (p+1)*dp/P)")
+    """Raise unless a mesh of ``axes`` lays over ``processes`` processes
+    (:func:`process_boxes`).  The launchers call it before any
+    rendezvous."""
+    if processes > 1:
+        process_boxes(axes, processes)
+
+
+def _line_groups(boxes: List[Box], spanning: Sequence[str]) -> Dict[str, List[List[int]]]:
+    """For each axis of ``spanning``, its lines: the processes that share
+    every other axis's range, in process order (which, row-major, is the
+    order of their ranges on the axis); the lines in order of their first
+    process."""
+    lines = {}
+    for axis in spanning:
+        by_rest: Dict[tuple, List[int]] = {}
+        for p, box in enumerate(boxes):
+            rest = tuple(r for name, r in box.items() if name != axis)
+            by_rest.setdefault(rest, []).append(p)
+        lines[axis] = sorted(by_rest.values())
+    return lines
+
+
+class Line:
+    """The processes of one axis's line that holds this process: their ids
+    in rank order, this process's index among them, and the
+    ``torch.distributed`` group over them (None for the default group,
+    where the line is every process)."""
+
+    def __init__(self, processes: List[int], index: int, group: Any):
+        self.processes, self.index, self.group = processes, index, group
+
+    @property
+    def size(self) -> int:
+        return len(self.processes)
+
+    @property
+    def next(self) -> int:
+        """The next process on the line, the ring closing."""
+        return self.processes[(self.index + 1) % self.size]
+
+    @property
+    def prev(self) -> int:
+        return self.processes[(self.index - 1) % self.size]
 
 
 class Mesh:
     """Named axes of virtual ranks on one device, in the order given;
     ``group`` (a :class:`~mpit_tpu_torch.parallel.distributed.ProcessGroup`)
-    cuts ``dp`` across its processes."""
+    cuts the row-major grid across its processes.  Where that group is
+    formed, the mesh forms a sub-group for each line of each axis that
+    spans processes (``torch.distributed.new_group``, collective: every
+    process builds the same meshes in the same order)."""
 
     def __init__(self, device: torch.device | str, group: Optional[Any] = None,
                  **axes: int):
@@ -79,7 +173,18 @@ class Mesh:
         self.shape: Dict[str, int] = {name: int(size) for name, size in axes.items()}
         self.processes = group.num_processes if group is not None else 1
         self.process_id = group.process_id if group is not None else 0
-        check_split(self.shape, self.processes)
+        self.backend = getattr(group, "backend", None)
+        boxes = process_boxes(self.shape, self.processes)
+        self.box: Box = boxes[self.process_id]
+        self._lines: Dict[str, Line] = {}
+        spanning = [a for a in self.shape if self.spans(a)]
+        if spanning and group_formed():
+            for axis, lines in _line_groups(boxes, spanning).items():
+                for ps in lines:
+                    # every process creates every group, members or not
+                    sub = sub_group(ps, self.processes)
+                    if self.process_id in ps:
+                        self._lines[axis] = Line(ps, ps.index(self.process_id), sub)
 
     def size(self, axis: str) -> int:
         """The number of ranks on ``axis``; an axis the mesh lacks raises."""
@@ -89,19 +194,35 @@ class Mesh:
 
     def spans(self, axis: str) -> bool:
         """Whether ``axis``'s ranks lie in more than one process."""
-        self.size(axis)  # raises for an axis the mesh lacks
-        return self.processes > 1 and axis == "dp"
+        return self.local_size(axis) < self.size(axis)
 
     def local_size(self, axis: str) -> int:
         """The ranks of ``axis`` in this process."""
-        n = self.size(axis)
-        return n // self.processes if self.spans(axis) else n
+        self.size(axis)  # raises for an axis the mesh lacks
+        lo, hi = self.box[axis]
+        return hi - lo
 
     def local_slice(self, axis: str) -> slice:
-        """This process's block of ``axis``'s ranks."""
-        n = self.local_size(axis)
-        lo = self.process_id * n if self.spans(axis) else 0
-        return slice(lo, lo + n)
+        """This process's range of ``axis``'s ranks."""
+        self.size(axis)
+        return slice(*self.box[axis])
+
+    def line(self, axis: str) -> Line:
+        """This process's line of ``axis``, which spans processes."""
+        if not self.spans(axis):
+            raise ValueError(f"axis {axis!r} lies in this process: it has no line")
+        if axis not in self._lines:
+            raise RuntimeError(
+                f"axis {axis!r} spans processes, and the mesh was built before the "
+                "process group formed: build it after bootstrap")
+        return self._lines[axis]
+
+    def local_only(self, axis: str, what: str) -> None:
+        """Raise where ``axis`` spans processes: ``what`` runs inside one."""
+        if self.spans(axis):
+            raise NotImplementedError(
+                f"{what} over {axis!r}, which spans processes: it runs inside one "
+                "process in the port (ROADMAP §A item 3)")
 
     def check_device(self, t: torch.Tensor, what: str) -> None:
         """``t`` must lie on the mesh's device (a device without an index
@@ -127,8 +248,8 @@ def make_mesh(
 ) -> Mesh:
     """Build the trainers' mesh: ``dp`` worker rows (one a process when
     unset) and ``shard`` column cuts (1 when unset), virtual ranks on
-    ``device``, or on the one device of ``devices``; ``group`` cuts ``dp``
-    across its processes."""
+    ``device``, or on the one device of ``devices``; ``group`` cuts the
+    ``(dp, shard)`` grid across its processes."""
     if devices is not None:
         devices = list(devices)
         if len(devices) != 1:
@@ -144,16 +265,18 @@ def make_mesh(
 
 def process_local_rows(mesh: Mesh, n_rows: int, axis: str = "dp") -> slice:
     """The contiguous block of a global leading axis of ``n_rows`` rows,
-    cut over ``axis``'s ranks, that this process feeds: every process
-    builds the same global batch (same seed, same shuffle) and keeps these
-    rows.  All of them where ``axis`` lies in this process."""
+    cut over ``axis``'s ranks, that this process feeds: the rows of its
+    range of ``axis``, as the JAX package feeds a batch sharded
+    ``P("dp", None)``.  Every process builds the same global batch (same
+    seed, same shuffle) and keeps these rows: all of them where ``axis``
+    lies in this process (at ``dp 1 x sp 2`` both processes feed the whole
+    batch)."""
     n = mesh.size(axis)
     if n_rows % n:
         raise ValueError(f"{n_rows} rows do not split over {axis}={n}")
-    if not mesh.spans(axis):
-        return slice(0, n_rows)
-    per = n_rows // mesh.processes
-    return slice(mesh.process_id * per, (mesh.process_id + 1) * per)
+    per = n_rows // n
+    lo, hi = mesh.box[axis]
+    return slice(lo * per, hi * per)
 
 
 def put_local(arr: Any, mesh: Mesh) -> torch.Tensor:

@@ -49,6 +49,7 @@ def ep_moe(mesh: Mesh, axis: str = "ep", activation: Act = gelu):
     ``x (..., d)``; ``gate_w (d, E)``; expert weights stacked ``w1 (E, d,
     h)``, ``b1 (E, h)``, ``w2 (E, h, d)``, ``b2 (E, d)``, ``E`` divisible
     by the axis's ranks.  The output is shaped like ``x``."""
+    mesh.local_only(axis, "ep_moe")
     n = mesh.size(axis)
     reduce = psum(mesh, axis)
 

@@ -67,6 +67,7 @@ def pipeline(mesh: Mesh, stage_fn: Callable[[Params, torch.Tensor], torch.Tensor
 
     Returns the ``(m, B, ...)`` outputs of the last stage.  Differentiable
     by autograd, into the stacked leaves and the microbatches."""
+    mesh.local_only(axis, "pipeline")
     n = mesh.size(axis)
     shift = ring_shift(mesh, axis)
     reduce = psum(mesh, axis)

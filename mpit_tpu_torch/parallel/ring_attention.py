@@ -1,5 +1,5 @@
-"""Sequence-parallel ring attention on the one-card stand-in mesh — the
-port of ``mpit_tpu/parallel/ring_attention.py``.
+"""Sequence-parallel ring attention over the port's meshes — the port of
+``mpit_tpu/parallel/ring_attention.py``.
 
 The sequence axis of ``(B, L, H, D)`` activations is cut over the ``n``
 virtual ranks of a mesh axis (``sp``, :func:`mpit_tpu_torch.parallel.mesh.
@@ -8,8 +8,9 @@ the ranks' chunks are stacked on the card, the rank axis first.  In each
 of the ``n`` ring steps every rank computes the blockwise attention of its
 Q chunk against the KV chunk in hand, masked by **global** positions
 through the q and kv offsets, and then the KV stack moves one hop by
-:func:`mpit_tpu_torch.parallel.collective.ring_shift` (one device copy,
-the stand-in for an NVLink hop).  The per-step unnormalized partials
+:func:`mpit_tpu_torch.parallel.collective.ring_shift` (one device copy
+inside a process; where the axis spans processes, a boundary block a
+stack sent to the next process).  The per-step unnormalized partials
 ``(acc, m, l)`` merge by the online-softmax combine
 (:func:`mpit_tpu_torch.ops.flash_attention.merge_partials`), so the result
 is exactly full attention.
@@ -71,7 +72,7 @@ from mpit_tpu_torch.ops.flash_attention import (
     flash_attention_partial,
     merge_partials,
 )
-from mpit_tpu_torch.parallel.collective import ring_shift
+from mpit_tpu_torch.parallel.collective import gather, ring_shift
 from mpit_tpu_torch.parallel.mesh import Mesh, sp_mesh
 
 __all__ = ["ring_attention", "sp_mesh", "zigzag_order", "zigzag_permute",
@@ -124,12 +125,15 @@ def ring_pairs(n: int, layout: str) -> int:
 
 
 class _Ring:
-    """One ring's geometry: ``n`` ranks, the layout's half-chunks, the mask
-    and the scale, and the rank axis's hop."""
+    """One ring's geometry: ``n`` ranks, this process's range ``[lo, hi)``
+    of them (all of them in one process), the layout's half-chunks, the
+    mask and the scale, and the rank axis's hop.  Ranks and owners are
+    global; the stacks hold this process's ranks, row ``rank - lo``."""
 
     def __init__(self, mesh: Mesh, axis: str, layout: str, causal: bool,
                  sm_scale: Optional[float]):
         self.n = mesh.size(axis)
+        self.lo, self.hi = mesh.box[axis]
         self.h = 2 if layout == "zigzag" else 1
         self.causal, self.sm_scale = causal, sm_scale
         self.shift = ring_shift(mesh, axis)
@@ -153,32 +157,33 @@ class _Ring:
         return tuple(pairs)
 
     def steps(self):
-        """``(s, rank, owner)`` over the ring: after ``s`` hops ``rank``
-        holds the KV chunk of ``owner = rank - s``."""
+        """``(s, rank, owner, i)`` over the ring, this process's ranks:
+        after ``s`` hops ``rank`` (row ``i`` of the stacks) holds the KV
+        chunk of ``owner = rank - s``."""
         for s in range(self.n):
-            for rank in range(self.n):
-                yield s, rank, (rank - s) % self.n
+            for i, rank in enumerate(range(self.lo, self.hi)):
+                yield s, rank, (rank - s) % self.n, i
 
     def forward(self, q, k, v, partial_fn):
-        """The forward ring over ``(n, h, *lead, c, D)`` stacks:
+        """The forward ring over ``(local n, h, *lead, c, D)`` stacks:
         ``partial_fn(q, k, v, q_offset, kv_offset) -> (acc, m, l)``.
         Returns the output stack in q's dtype and the float32 row lse."""
         c = q.shape[-2]
         parts = {}
         kb, vb = k, v
-        for s, rank, owner in self.steps():
-            if s and rank == 0:
-                kb, vb = self.shift(kb), self.shift(vb)
+        for s, rank, owner, i in self.steps():
+            if s and i == 0:
+                kb, vb = self.shift(kb, vb)
             for qi, ki in self.live(rank, owner):
-                part = partial_fn(q[rank, qi], kb[rank, ki], vb[rank, ki],
+                part = partial_fn(q[i, qi], kb[i, ki], vb[i, ki],
                                   self.offset(rank, qi, c), self.offset(owner, ki, c))
-                key = (rank, qi)
+                key = (i, qi)
                 parts[key] = merge_partials(parts[key], part) if key in parts else part
-        keys = [(rank, qi) for rank in range(self.n) for qi in range(self.h)]
+        keys = [(i, qi) for i in range(self.hi - self.lo) for qi in range(self.h)]
         out = torch.stack([finalize_partials(parts[key][0], parts[key][2], q.dtype)
                            for key in keys])
         lse = torch.stack([_lse_of(parts[key][1], parts[key][2]) for key in keys])
-        shape = (self.n, self.h)
+        shape = (self.hi - self.lo, self.h)
         return out.view(*shape, *out.shape[1:]), lse.view(*shape, *lse.shape[1:])
 
     def backward(self, q, k, v, do, o, lse, pair_bwd):
@@ -192,18 +197,18 @@ class _Ring:
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
         kb, vb = k, v
-        for s, rank, owner in self.steps():
-            if s and rank == 0:
-                kb, vb, dk, dv = (self.shift(t) for t in (kb, vb, dk, dv))
+        for s, rank, owner, i in self.steps():
+            if s and i == 0:
+                kb, vb, dk, dv = self.shift(kb, vb, dk, dv)
             for qi, ki in self.live(rank, owner):
-                dqi, dki, dvi = pair_bwd(q[rank, qi], kb[rank, ki], vb[rank, ki],
-                                         do[rank, qi], lse[rank, qi], delta[rank, qi],
+                dqi, dki, dvi = pair_bwd(q[i, qi], kb[i, ki], vb[i, ki],
+                                         do[i, qi], lse[i, qi], delta[i, qi],
                                          self.offset(rank, qi, c),
                                          self.offset(owner, ki, c))
-                dq[rank, qi] += dqi.float()
-                dk[rank, ki] += dki.float()
-                dv[rank, ki] += dvi.float()
-        dk, dv = self.shift(dk), self.shift(dv)
+                dq[i, qi] += dqi.float()
+                dk[i, ki] += dki.float()
+                dv[i, ki] += dvi.float()
+        dk, dv = self.shift(dk, dv)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
     def partial(self, impl: str) -> Callable:
@@ -219,6 +224,39 @@ class _Ring:
         return flash_attention_bwd_pair(q, k, v, do, lse, delta=delta, causal=self.causal,
                                         sm_scale=self.sm_scale, q_offset=q_offset,
                                         kv_offset=kv_offset)
+
+
+class _TakeLocal(torch.autograd.Function):
+    """This process's rows of the whole ``(n, ...)`` q, k and v stacks; the
+    gradients' rows come back all-gathered over the ring's line, so the
+    layers before attention see the whole sequence's."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *stacks):
+        ctx.gather = gather(mesh, axis)
+        rows = mesh.local_slice(axis)
+        return tuple(t[rows] for t in stacks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        whole = ctx.gather(torch.stack(grads, 1))  # one all-gather for the three
+        return (None, None, *whole.unbind(1))
+
+
+class _GatherOut(torch.autograd.Function):
+    """Every process's output rows, all-gathered over the ring's line; the
+    cotangent of the gathered output is the same in every process of the
+    line (each computes the dense backward after attention), so each
+    takes its own rows."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, out):
+        ctx.rows = mesh.local_slice(axis)
+        return gather(mesh, axis)(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g[ctx.rows]
 
 
 class _FlashRing(torch.autograd.Function):
@@ -266,8 +304,19 @@ def ring_attention(
     x sp`` composition), each data parallel group running a ring of its
     own.  The groups' rings are independent and alike, so on one card
     their rows ride the leading batch axis of the same ring: the launches
-    a pass stay :func:`ring_pairs`, however many groups.  B must divide
-    evenly over the axis's ranks."""
+    a pass stay :func:`ring_pairs`, however many groups.  B (this
+    process's rows) must divide evenly over this process's ranks of that
+    axis.
+
+    Where ``axis`` spans processes, q, k and v arrive whole, as in the JAX
+    package, and each process computes the pairs of its own ranks only
+    (``ring_pairs / P`` of them a pass for ``P`` processes of one rank
+    each), by global rank and owner; the KV blocks, and in the backward
+    the float32 (dk, dv) accumulators, take the hop between processes
+    (:class:`~mpit_tpu_torch.parallel.collective.RingHop`); the output
+    rows are all-gathered over the ring's line, and so are the q, k and v
+    gradients' rows, so the layers before and after attention see the
+    whole sequence, the same bits in every process of the line."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be auto|plain|flash, got {impl!r}")
     if layout not in LAYOUTS:
@@ -281,9 +330,10 @@ def ring_attention(
     if batch_axis is not None:
         if batch_axis == axis:
             raise ValueError(f"batch_axis {batch_axis!r} is the ring's own axis")
-        groups = mesh.size(batch_axis)
+        groups = mesh.local_size(batch_axis)
     ring = _Ring(mesh, axis, layout, bool(causal),
                  None if sm_scale is None else float(sm_scale))
+    spans = mesh.spans(axis)
     n, h = ring.n, ring.h
     order = zigzag_order(n) if layout == "zigzag" and permute_inputs else None
     inverse = _inverse(order) if order is not None else None
@@ -322,11 +372,15 @@ def ring_attention(
                 f"zigzag layout needs an even per-rank chunk, got {chunk} "
                 f"(global L must divide evenly by 2n={2 * n})")
         qs, ks, vs = (to_ranks(t, chunk // h) for t in (q, k, v))
+        if spans:
+            qs, ks, vs = _TakeLocal.apply(mesh, axis, qs, ks, vs)
         use = impl if impl != "auto" else ("flash" if q.device.type == "cuda" else "plain")
         if use == "flash":
             out = _FlashRing.apply(qs, ks, vs, ring)
         else:
             out, _ = ring.forward(qs, ks, vs, ring.partial("plain"))
+        if spans:
+            out = _GatherOut.apply(mesh, axis, out)
         return from_ranks(out)
 
     return attend

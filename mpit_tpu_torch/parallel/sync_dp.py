@@ -16,10 +16,14 @@ does not divide ``plong``) and the parameters come back by ``ps_pull``.
 Over a mesh whose ``dp`` spans a group of processes, each process takes
 the gradient of its rows of the global batch (its block of the ``dp``
 rows, :func:`~mpit_tpu_torch.parallel.mesh.process_local_rows`), and the
-processes' gradients and losses are gathered and averaged in process
+gradients and losses of the ``dp`` line are gathered and averaged in rank
 order (:func:`~mpit_tpu_torch.parallel.collective.process_mean`) into the
 global batch's: every process then commits the same bits to its replica
-of the state.  The mean of the processes' means is the global batch's
+of the state.  Where ``shard`` spans processes, the velocity stays with
+its owners: each process holds ``vt``'s columns of the shards it owns
+(:meth:`SyncDataParallel.owned`), runs the lookahead and the commit (one
+K1 launch) on those columns of ``w``, and pulls the other owners' columns
+of ``w`` after each.  The mean of the processes' means is the global batch's
 mean up to float32 rounding, not bit for bit the one-process gradient of
 the whole batch.
 
@@ -56,6 +60,10 @@ class SyncDataParallel:
     #: The state's keys stacked over ``dp``: none, the state is replicated.
     row_keys = ()
 
+    #: The state's keys cut over ``shard``: where it spans processes, each
+    #: process holds the columns of the shards it owns (:meth:`owned`).
+    shard_keys = ("vt",)
+
     #: One step kind: the schedule has one phase (the device loop captures
     #: one graph an epoch).
     su = 1
@@ -76,14 +84,25 @@ class SyncDataParallel:
         self._push = ps_push(mesh, "shard")
         self._pull = ps_pull(mesh, "shard")
         self._mean = process_mean(mesh)
+        self._owners = mesh.spans("shard")
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """The columns of a whole ``(plong,)`` vector that this process's
+        shards own, the last shard padded (a view where nothing is
+        padded); all of it where ``shard`` lies in this process."""
+        if not self._owners:
+            return x
+        shards = pad_shards(x, self.n_shard)[0].view(self.n_shard, -1)
+        return shards[self.mesh.local_slice("shard")].reshape(-1)
 
     def init(self, w0: torch.Tensor) -> State:
-        """``w`` a copy of ``w0``, zero velocity, ``k`` 0."""
+        """``w`` a copy of ``w0``, zero velocity (this process's columns of
+        it where ``shard`` spans processes), ``k`` 0."""
         w = w0.to(self.device, torch.float32).clone()
         self._steps = 0
         return {
             "w": w,
-            "vt": torch.zeros_like(w),
+            "vt": torch.zeros_like(self.owned(w)),
             "k": torch.zeros((), dtype=torch.int32, device=self.device),
         }
 
@@ -96,22 +115,41 @@ class SyncDataParallel:
         """Place ``(batch, ...)`` host arrays (this process's rows of the
         global batch) on the mesh's device."""
         for a in arrays:
-            self.check_batch(a.shape[0] * self.mesh.processes)
+            self.check_batch(a.shape[0] * self.n_dp // self.mesh.local_size("dp"))
         return tuple(put_local(a, self.mesh) for a in arrays)
+
+    def _on_owned(self, w: torch.Tensor, state: State, update) -> None:
+        """``update(w_cols, {"k", "vt"})`` in place on the columns of ``w``
+        that this process's shards own and on its ``vt``, then every
+        owner's columns pulled back into ``w`` over the ``shard`` line."""
+        mine = self.owned(w)
+        update(mine, {"k": state["k"], "vt": state["vt"]})
+        full = self._pull(mine.view(self.mesh.local_size("shard"), -1))
+        w.copy_(full[:w.shape[0]])
 
     def _step(self, state: State, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
         """The lookahead, the gradient of the global batch at the displaced
         point, and the commit on the shard stack: the gradient pushed to its
         owners, one commit (K1 with momentum) over every shard, the shards
         pulled back.  Views of ``state`` where ``shard`` divides ``plong``;
-        padded copies, trimmed on the way back, where not."""
+        padded copies, trimmed on the way back, where not.  Where ``shard``
+        spans processes, the lookahead and the commit run on the columns
+        this process owns, each followed by the pull of every owner's."""
         w = state["w"]
-        msgd_lookahead(w, state, self.cfg)
+        if not self._owners:
+            msgd_lookahead(w, state, self.cfg)
+        elif self.cfg.mom > 0:
+            self._on_owned(w, state, lambda w_cols, st: msgd_lookahead(w_cols, st, self.cfg))
         loss, grad = self._vgf(w, xb, yb)
-        if self.mesh.processes > 1:  # the global batch's, from every process's rows
+        if self.mesh.spans("dp"):  # the global batch's, from every dp rank's rows
             both = self._mean(torch.cat([grad, loss.reshape(1)]))
             grad, loss = both[:-1], both[-1]
         grad, pad = pad_shards(grad, self.n_shard)
+        if self._owners:
+            g_sh = self._push(grad)  # (local shard, plong / shard): the owned slices
+            self._on_owned(w, state, lambda w_cols, st: msgd_commit(
+                w_cols, g_sh.reshape(-1), st, self.cfg))
+            return loss
         w_sh, _ = pad_shards(w, self.n_shard)
         vt_sh, _ = pad_shards(state["vt"], self.n_shard)
         g_sh = self._push(grad)  # (shard, plong / shard): each owner's slice

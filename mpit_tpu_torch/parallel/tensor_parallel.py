@@ -58,6 +58,7 @@ def tp_mlp(mesh: Mesh, axis: str = "tp", activation: Act = gelu):
     ``w1`` is cut by columns into ``(n, d, h/n)``, ``w2`` by rows into
     ``(n, h/n, d)``; one batched product each over the rank stack, one
     ``psum``, and ``b2`` added after the reduce."""
+    mesh.local_only(axis, "tp_mlp")
     n = mesh.size(axis)
     reduce = psum(mesh, axis)
 
@@ -87,6 +88,7 @@ def tp_self_attention(mesh: Mesh, axis: str = "tp", *, causal: bool = True,
     (one K4 launch on the card) attends for all ranks; the output projection
     is row-parallel with one ``psum``.  ``Dh`` must be one the kernels take
     (a multiple of 8 up to 128)."""
+    mesh.local_only(axis, "tp_self_attention")
     n = mesh.size(axis)
     reduce = psum(mesh, axis)
 

@@ -29,16 +29,24 @@ draws, so the data stream continues.
 
 Runs on CUDA unless ``--device cpu``.  The multi-host flags go through
 :func:`mpit_tpu_torch.parallel.distributed.bootstrap` and form a group of
-any size (the result's ``backend`` names it).  Over ``P`` processes
-``--dp`` is cut across them, the JAX package's layout: ``w``, ``vt`` and
-``k`` are replicated, every process draws the same global batch and takes
-its rows (:func:`~mpit_tpu_torch.parallel.mesh.process_local_rows`), and
-the step's gradient and loss are the global batch's, the mean of the
-processes' in process order
-(:func:`~mpit_tpu_torch.parallel.collective.process_mean`); ``--sp``
-stays inside each process, and a layout that would cut it across
-processes raises.  Each process launches K4, K5 or K6, and K1 for its
-rows.  Process 0 writes the checkpoints, and every process waits at a
+any size (the result's ``backend`` names it).  Over ``P`` processes the
+``(dp, sp)`` grid is cut as the JAX package cuts its devices
+(:mod:`mpit_tpu_torch.parallel.mesh`: row-major, ``P`` contiguous blocks,
+each a box): ``w``, ``vt`` and ``k`` are replicated, every process draws
+the same global batch and takes the rows of its ``dp`` ranks
+(:func:`~mpit_tpu_torch.parallel.mesh.process_local_rows`; at ``--dp 1
+--sp 2`` both take the whole batch), and where ``sp`` spans processes the
+ring's pairs are cut over them by rank, its hop goes between them, and
+each attention's output is all-gathered over the ``sp`` line.  Every
+process of an ``sp`` line computes the same dense layers on the whole
+sequence, and takes the gradient of its line's first process
+(:func:`~mpit_tpu_torch.parallel.collective.replicate`: the card's
+backward does not repeat its bits from run to run, and the replicas must
+not drift apart).  The step's gradient and loss are the global batch's,
+the mean over the processes of the ``dp`` line in rank order
+(:func:`~mpit_tpu_torch.parallel.collective.process_mean`).  Each process
+launches K4, K5 or K6 for its ranks' pairs and rows, and K1.
+Process 0 writes the checkpoints, and every process waits at a
 barrier until each is published.  The reference's
 ``compile_cache`` (a persistent XLA cache) has no counterpart and is not a
 flag here; ``profile_dir`` records
@@ -66,7 +74,7 @@ from mpit_tpu_torch.models.flat import flatten_module
 from mpit_tpu_torch.models.transformer import TinyDecoder, default_attn
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig, msgd_init, msgd_step
-from mpit_tpu_torch.parallel.collective import process_mean
+from mpit_tpu_torch.parallel.collective import process_mean, replicate
 from mpit_tpu_torch.parallel.distributed import (
     barrier, bootstrap_launcher, launcher_processes, shutdown)
 from mpit_tpu_torch.parallel.mesh import Mesh, check_split, process_local_rows
@@ -85,8 +93,8 @@ LM_LAUNCH_DEFAULTS = Config(
     steps=200,
     lr=1e-3,
     mom=0.9,
-    dp=0,  # 0 -> 1; more: the batch cut over dp virtual ranks of the card
-    sp=0,  # 0 -> 1; more: ring attention over sp virtual ranks of the card
+    dp=0,  # 0 -> 1; more: the batch cut over dp ranks
+    sp=0,  # 0 -> 1; more: ring attention over sp ranks
     layout="zigzag",  # zigzag | contiguous: the ring's layout at sp > 1
     attn_dtype="bfloat16",  # kernel input dtype: bfloat16 | float32
     text_file="",
@@ -97,7 +105,7 @@ LM_LAUNCH_DEFAULTS = Config(
     resume="",  # "auto" -> <ckpt_dir>/lm_latest.npz
     profile_dir="",  # torch.profiler trace of the training loop when set
     device="cuda",  # cuda | cpu
-    # multi-host bootstrap: dp is cut across the group's processes
+    # multi-host bootstrap: the (dp, sp) grid is cut across the group's processes
     hostfile="",
     coordinator="",
     num_processes=0,
@@ -185,16 +193,15 @@ def build_step(cfg: Config, device: torch.device, mesh: Optional[Mesh] = None):
     the flat model, its weights and a fresh optimizer state, and
     ``train_step(w, state, toks) -> loss``, which updates ``w`` and
     ``state`` in place (K4 forward, K5 or K6 backward, K1 commit).  Over a
-    ``mesh`` whose ``dp`` spans processes, ``toks`` are this process's rows
-    of the global batch and the gradient and loss are the global batch's."""
+    ``mesh`` that spans processes, ``toks`` are the rows of this process's
+    ``dp`` ranks of the global batch, the ring runs this process's ``sp``
+    ranks, and the gradient and loss are the global batch's."""
     if mesh is None:
         mesh = Mesh(device, dp=int(cfg.dp) or 1, sp=int(cfg.sp) or 1)
-    sp = mesh.size("sp")
     cast = torch.bfloat16 if cfg.attn_dtype == "bfloat16" else None
     # sp 1: K4 over every row of this process's batch, dp groups included.
-    inner = (ring_attention(Mesh(device, dp=mesh.local_size("dp"), sp=sp), "sp",
-                            causal=True, batch_axis="dp", layout=cfg.layout)
-             if sp > 1 else default_attn(causal=True))
+    inner = (ring_attention(mesh, "sp", causal=True, batch_axis="dp", layout=cfg.layout)
+             if mesh.size("sp") > 1 else default_attn(causal=True))
 
     def attn_fn(q, k, v):
         out_dtype = q.dtype
@@ -212,14 +219,16 @@ def build_step(cfg: Config, device: torch.device, mesh: Optional[Mesh] = None):
         logp = flat.apply_flat(w, toks[:, :-1])
         return -torch.take_along_dim(logp, toks[:, 1:, None], dim=-1).mean()
 
-    combine = process_mean(mesh)
+    one_row, combine = replicate(mesh, "sp"), process_mean(mesh)
 
     def value_and_grad(w, toks):
         w_la = w.detach().requires_grad_(True)
         loss = loss_fn(w_la, toks)
         (grad,) = torch.autograd.grad(loss, w_la)
-        if mesh.processes > 1:  # the global batch's, from every process's rows
-            both = combine(torch.cat([grad, loss.detach().reshape(1)]))
+        if mesh.processes > 1:
+            # one gradient a dp row (its sp line's first process's), then the
+            # global batch's, from every dp rank's rows
+            both = combine(one_row(torch.cat([grad, loss.detach().reshape(1)])))
             return both[-1], both[:-1]
         return loss.detach(), grad
 

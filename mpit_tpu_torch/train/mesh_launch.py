@@ -24,23 +24,27 @@ host loop, as the reference's staged scan and its ``step`` do.  The reference's 
 ``step_*`` checkpoints (a multi-process mesh's) raise ``NotImplementedError``:
 restoring one needs orbax, which the card's machine does not have.
 
-``--dp`` and ``--shard`` are virtual ranks of the card
+``--dp`` and ``--shard`` are ranks of the mesh
 (:mod:`mpit_tpu_torch.parallel.mesh`): worker rows, and the column cuts
 whose owners take the pushes.  The multi-host flags go through
 :func:`mpit_tpu_torch.parallel.distributed.bootstrap` and form a group of
 any size (gloo on the CPU; on the card NCCL where each process has a card
 of its own, gloo where processes share one; the result's ``backend``
-says which).  Over ``P`` processes ``--dp`` (default ``P``) is cut across
-them in contiguous blocks, the JAX package's layout: every process draws
-the same seeded global shuffle and feeds only its rows
+says which).  Over ``P`` processes the ``(dp, shard)`` grid (``--dp``
+default ``P``) is cut across them in contiguous row-major blocks, the JAX
+package's layout: every process draws the same seeded global shuffle and
+feeds only the rows of its ``dp`` ranks
 (:func:`~mpit_tpu_torch.parallel.mesh.process_local_rows`: its block of
 the ``dp`` worker rows under EASGD, of the global batch under
-``syncdp``), the exchange and the gradient gather the other processes'
-blocks, and every process evaluates the replicated center (EASGD) or
-weights (``syncdp``).  A checkpoint of a group is the one-process layout
-at the same ``dp``, gathered to process 0, which writes it between the
-gather and a barrier; every process resumes from it and takes its rows,
-and a one-process run at that ``dp``, of either package, resumes it too.
+``syncdp``; at ``--dp 1 --shard 2`` both processes feed all of them), the
+exchange and the gradient gather the other ``dp`` ranks' blocks, the
+center's (EASGD) or the velocity's (``syncdp``) shards stay with the
+processes that own them, and every process evaluates the replicated
+center or weights.  A checkpoint of a group is the one-process layout at
+the same ``dp`` and ``shard``, gathered to process 0, which writes it
+between the gather and a barrier; every process resumes from it and
+takes its rows and owned columns, and a one-process run at that ``dp``
+and ``shard``, of either package, resumes it too.
 ``--device_loop 1`` is one process's, as in the JAX package.
 
 Runs on CUDA unless ``--device cpu``.
@@ -74,7 +78,7 @@ from mpit_tpu_torch.models.flat import (
 from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.obs.timers import profiler_trace, trace_annotation
 from mpit_tpu_torch.optim.msgd import MSGDConfig
-from mpit_tpu_torch.parallel.collective import gather
+from mpit_tpu_torch.parallel.collective import gather, ps_pull
 from mpit_tpu_torch.parallel.distributed import (
     barrier, bootstrap_launcher, launcher_processes, shutdown)
 from mpit_tpu_torch.parallel.easgd import MeshEASGD
@@ -102,8 +106,8 @@ MESH_LAUNCH_DEFAULTS = Config(
     batch=128,  # per-worker batch (easgd) / global batch (syncdp)
     seed=1,
     side=32,
-    dp=0,  # 0 -> 1: worker rows, virtual ranks of the card
-    shard=0,  # 0 -> 1: column cuts of the parameters, virtual ranks of the card
+    dp=0,  # 0 -> 1: worker rows
+    shard=0,  # 0 -> 1: column cuts of the parameters
     target_test_err=0.01,
     stop_at_target=0,  # 1 -> stop training once target_test_err is reached
     device_stream=0,  # 1 -> stage each epoch's batches on device up front
@@ -115,7 +119,7 @@ MESH_LAUNCH_DEFAULTS = Config(
     profile_dir="",  # torch.profiler trace of the epoch loop when set
     precompile=0,  # 1 -> warm the step and eval paths before t0
     device="cuda",  # cuda | cpu
-    # multi-host bootstrap: dp is cut across the group's processes
+    # multi-host bootstrap: the (dp, shard) grid is cut across the group's processes
     hostfile="",
     coordinator="",
     num_processes=0,
@@ -270,7 +274,8 @@ def _resume(cfg: Config, trainer, state, log):
     guards (the state's keys and shapes, ``opt``, ``seed``); returns the
     epoch to start at and the earlier runs' training seconds.  The file
     holds the one-process layout: this process takes its block of the
-    trainer's ``row_keys``."""
+    trainer's ``row_keys``, and its owned columns of its ``shard_keys``
+    where ``shard`` spans processes."""
     resume_path = cfg.resume
     if resume_path == "auto":
         ckpt_dir = pathlib.Path(cfg.ckpt_dir)
@@ -293,10 +298,13 @@ def _resume(cfg: Config, trainer, state, log):
             f"{sorted(state)} — wrong --opt or model?")
     mesh = trainer.mesh
     rows = {key: mesh.local_slice("dp") for key in trainer.row_keys}
+    cols = trainer.shard_keys if mesh.spans("shard") else ()
     for key, arr in saved.items():
         want = tuple(state[key].shape)
         if key in rows:
             want = (mesh.size("dp"),) + want[1:]
+        elif key in cols:
+            want = tuple(state["w"].shape)
         if tuple(arr.shape) != want:
             raise ValueError(
                 f"checkpoint {key} shape {tuple(arr.shape)} != trainer "
@@ -310,7 +318,11 @@ def _resume(cfg: Config, trainer, state, log):
             "original seed")
     for key, arr in saved.items():
         whole = put_global(arr, mesh)
-        state[key].copy_(whole[rows[key]] if key in rows else whole)
+        if key in rows:
+            whole = whole[rows[key]]
+        elif key in cols:
+            whole = trainer.owned(whole)
+        state[key].copy_(whole)
     start_epoch = int(meta.get("epoch", -1)) + 1
     prev_elapsed = float(meta.get("elapsed", 0.0))
     log.info("resumed from %s at epoch %d (%.1fs of prior training)",
@@ -448,6 +460,8 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
         log.info("precompile: %.2fs (step + eval paths warm)", compile_s)
 
     worker_rows = gather(mesh, "dp")
+    shard_cols = trainer.shard_keys if mesh.spans("shard") else ()
+    pull = ps_pull(mesh, "shard")
 
     def train_epoch(order):
         if cfg.device_stream:
@@ -461,9 +475,17 @@ def _train(cfg: Config, device: torch.device, pg) -> dict:
             losses = worker_rows(losses.t()).t().contiguous()
         return losses
 
+    def whole(key, v):
+        if key in trainer.row_keys:
+            return worker_rows(v)
+        if key in shard_cols:
+            return pull(v.view(mesh.local_size("shard"), -1))[:flat.size]
+        return v
+
     def whole_state():
-        """The state in the one-process layout: every process's rows."""
-        return {k: worker_rows(v) if k in trainer.row_keys else v for k, v in state.items()}
+        """The state in the one-process layout: every process's rows and
+        every owner's columns."""
+        return {k: whole(k, v) for k, v in state.items()}
 
     if not cfg.device_loop:
         t0 = time.perf_counter()  # the device loop sets its own

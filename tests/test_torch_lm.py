@@ -23,8 +23,8 @@ the JAX package, on the CPU.
   port's ``sp`` 1, 2 and 4 in both layouts agree with each other under the
   same tolerance (the twin of the JAX package's factorization test), and
   a JAX checkpoint written at ``sp`` 4 resumes in the port at ``sp`` 4.
-- Guards: what belongs to a later slice raises ``NotImplementedError``
-  naming it; the default device is the card.
+- Guards: a layout or a group that cannot form raises before any
+  rendezvous; the default device is the card.
 """
 
 import functools
@@ -245,7 +245,8 @@ def test_cli_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags, owner", [
-    (dict(num_processes=2, process_id=0, sp=2), "only dp spans processes"),
+    (dict(coordinator="localhost:1", num_processes=2, process_id=0, dp=3, sp=2, batch=6),
+     (ValueError, "not a box")),
     (dict(hostfile="{tmp}/hosts", process_id=1, dp=3, batch=6),
      (ValueError, "dp=3 does not split over 2 processes")),
     (dict(num_processes=2), (ValueError, "process_id required")),
@@ -255,13 +256,13 @@ def test_cli_runs_on_the_cpu(capsys):
     (dict(resume="auto"), (ValueError, "requires --ckpt_dir")),
 ])
 def test_refuses_later_slices(flags, owner, tmp_path):
-    """Before any rendezvous, a group of two processes that would cut
-    ``--sp`` across them raises NotImplementedError naming what the port
-    lacks (only ``dp`` spans processes), and one whose ``dp`` they do not
-    divide a ValueError; the group's flags are checked as the JAX package
-    checks them; a resume with nothing to resume raises (an empty
-    ``--ckpt_dir``, or no ``--ckpt_dir`` for ``auto``)."""
-    exc, owner = owner if isinstance(owner, tuple) else (NotImplementedError, owner)
+    """Before any rendezvous, a group of two processes whose blocks of the
+    ``(dp, sp)`` grid are not boxes raises a ValueError naming the block,
+    and so does one whose ``dp`` they do not divide; the group's flags are
+    checked as the JAX package checks them; a resume with nothing to
+    resume raises (an empty ``--ckpt_dir``, or no ``--ckpt_dir`` for
+    ``auto``)."""
+    exc, owner = owner
     (tmp_path / "hosts").write_text("alpha\nbeta\n")
     flags = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
              for k, v in flags.items()}

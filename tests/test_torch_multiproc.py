@@ -7,8 +7,9 @@ its group of two.  The settings are small: MNIST at side 8, batch 32; the
 LM at ``--seq_len 64 --d_model 32 --n_heads 4 --n_layers 1``.
 
 - Collectives over a ``dp`` axis that spans the two processes (each holds
-  two of its four ranks) are bit for bit the one-process collectives;
-  the ring shift refuses.
+  two of its four ranks) are bit for bit the one-process collectives,
+  the ring shift and the pull over it too (every other axis across
+  processes: ``tests/test_torch_multiproc_axes.py``).
 - ``mesh_launch`` EASGD at ``--dp 4 --su 2 --mva 0.2`` across two
   processes against one process at ``--dp 4``, the linear model and the
   CNN: bit for bit (the center, w, vt, k, every history entry, both
@@ -31,7 +32,8 @@ LM at ``--seq_len 64 --d_model 32 --n_heads 4 --n_layers 1``.
 - ``lm_launch --dp 2`` across two processes within ``chip_smoke.py``'s
   ``LM_LIMITS["float32"]`` of ``--dp 2`` in one process.
 - What still refuses, before any rendezvous: a ``dp`` the processes do not
-  divide, another axis cut across processes, ``--device_loop 1``.
+  divide, a cut whose blocks are not boxes, ``tp``, ``pp`` or ``ep`` across
+  processes, ``--device_loop 1``.
 """
 
 import json
@@ -196,9 +198,9 @@ def test_dp_is_cut_across_processes_in_contiguous_blocks():
 @pytest.mark.parametrize("axes, processes, exc, match", [
     (dict(dp=3, shard=1), 2, ValueError, "dp=3 does not split over 2 processes"),
     (dict(dp=1, shard=1), 2, ValueError, "contiguous blocks"),
-    (dict(dp=1, sp=2), 2, NotImplementedError, "only dp spans processes"),
-    (dict(dp=2, shard=2), 4, NotImplementedError, "shard across processes"),
-    (dict(sp=4), 2, NotImplementedError, "ROADMAP"),
+    (dict(dp=3, sp=2), 2, ValueError, "not a box"),
+    (dict(dp=2, tp=2), 4, NotImplementedError, "cut tp across processes"),
+    (dict(ep=4), 2, NotImplementedError, "ROADMAP"),
 ])
 def test_layouts_that_refuse(axes, processes, exc, match):
     with pytest.raises(exc, match=match):
@@ -231,13 +233,9 @@ checks = {
                            ps_push(one, "shard", reduce_axis="dp")(full)),
     "process_mean": torch.equal(process_mean(mesh)(mine), (full[:2] + full[2:]) / 2),
 }
-for name, fn in (("ring_shift", lambda: ring_shift(mesh, "dp")),
-                 ("ps_pull", lambda: ps_pull(mesh, "dp"))):
-    try:
-        fn()
-        checks[name] = False
-    except NotImplementedError as e:
-        checks[name] = "spans 2 processes" in str(e)
+checks["ring_shift"] = torch.equal(ring_shift(mesh, "dp")(mine),
+                                   ring_shift(one, "dp")(full)[mesh.local_slice("dp")])
+checks["ps_pull"] = torch.equal(ps_pull(mesh, "dp")(mine), ps_pull(one, "dp")(full))
 try:
     psum(mesh, "dp")(full)
     checks["block"] = False
@@ -251,9 +249,9 @@ shutdown()
 
 def test_collectives_over_two_processes_are_the_one_process_bits():
     """Each process holds two of dp's four ranks: the all-gather, ``psum``,
-    ``allreduce_mean``, ``ps_push(reduce_axis="dp")`` and ``process_mean``
-    give both processes the one-process bits; ``ring_shift`` and
-    ``ps_pull`` over dp refuse; a block of the wrong size raises."""
+    ``allreduce_mean``, ``ps_push(reduce_axis="dp")``, ``process_mean``,
+    and ``ring_shift`` and ``ps_pull`` over dp give both processes the
+    one-process bits; a block of the wrong size raises."""
     port = str(_free_port())
     outs = _children([[sys.executable, "-c", COLLECTIVES_CHILD, port, str(pid)]
                       for pid in (0, 1)])
@@ -440,11 +438,11 @@ GROUP_OF_TWO = dict(coordinator="localhost:1", num_processes=2, process_id=0)
 
 @pytest.mark.parametrize("launcher, flags, exc, match", [
     ("mesh", dict(dp=3), ValueError, "dp=3 does not split over 2 processes"),
-    ("mesh", dict(dp=1, shard=2), NotImplementedError, "only dp spans processes"),
+    ("mesh", dict(dp=3, shard=2), ValueError, "not a box"),
     ("mesh", dict(device_loop=1), ValueError, "device_loop=1 is single-process"),
     ("mesh", dict(measure_throughput=1), ValueError, "measure_throughput is single-process"),
     ("lm", dict(dp=3, batch=6), ValueError, "dp=3 does not split over 2 processes"),
-    ("lm", dict(sp=2), NotImplementedError, "sp across processes"),
+    ("lm", dict(dp=3, sp=2, batch=6), ValueError, "not a box"),
 ])
 def test_refusals_come_before_any_rendezvous(launcher, flags, exc, match):
     """The coordinator ``localhost:1`` has no listener: each refusal must
