@@ -244,7 +244,18 @@ order; any failure raises and the script exits non-zero:
    ``LM_LIMITS["float32"]``); each child's K4 and K5/K6 launches are its
    ``sp`` rank's share of the ring's pairs, an ``sp`` line's shares adding
    up to the one-process count, and the ring's hops between processes are
-   timed with their bytes and their path (gloo: host copies);
+   timed with their bytes and their path (gloo: host copies); then tensor,
+   pipeline and expert parallelism across processes (slice 9d): the
+   pair's last run, ``mp_par``, forms a group and runs ``mp_tp_mlp``,
+   ``mp_tp_attn``, ``mp_pp_decoder`` (4 blocks over 4 microbatches, 2
+   stages a process) and ``mp_ep_moe`` over ``Mesh(group=...)`` with tp,
+   pp or ep 4, 2 ranks a process, on the slice-9 phases' inputs: both
+   processes hold the same bits, within ``PAR_RTOL`` of the one-process
+   phase (the pipeline within ``LM_LIMITS["float32"]``'s gap_over_change),
+   bit for bit printed; each process launches its share (``mp_tp_attn``
+   K4 1 and K5 1, ``mp_pp_decoder`` 8 and 8, the others none); each
+   path's ms a process against one process, and its gathers',
+   broadcasts' and hops' ms and bytes;
 9. static analysis (slice 8, ``analysis_phases``): the port's analyzer
    (``mpit_tpu_torch.analysis``, which reads source) over
    ``mpit_tpu_torch/`` on this host under ``mtlint_torch.toml``: no
@@ -288,6 +299,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import itertools
 import json
 import math
@@ -4704,36 +4716,55 @@ def par_hold(name, readings, smi):
         raise AssertionError(f"{name}: past the limit {PAR_RTOL} (norm gap, max gap): {bad}")
 
 
-def tp_mlp_longcontext(torch, kernels, all_paths, smi):
-    """``tp_mlp`` over PAR_RANKS virtual ranks at x (1, 8,192, 1,024), h
-    4,096: the forward and the grads of w1 and w2 against the dense MLP on
-    the card, within PAR_RTOL.  Plain products: no kernel of the port lies
-    on this path (its count must stay 0)."""
-    from mpit_tpu_torch.parallel import Mesh, tp_mlp
-    from mpit_tpu_torch.parallel.tensor_parallel import gelu
+#: the grads that tp_mlp's and ep_moe's phases take (x's, and the weights'
+#: that the JAX tests hold), and the names of the outputs and those grads
+TP_MLP_WRT, TP_MLP_NAMES = (0, 1, 3), ("out", "dx", "dw1", "dw2")
+EP_MOE_WRT, EP_MOE_NAMES = (0, 1, 2), ("out", "dx", "dgate", "dw1")
 
+
+def tp_mlp_inputs(torch):
+    """``tp_mlp``'s inputs at x (1, 8,192, 1,024), h 4,096, from the seed:
+    ``(args, cot)``, the output's cotangent ``cot``."""
     gen = torch.Generator(device="cuda").manual_seed(21)
     d, h = PAR_D, PAR_MLP
     args = (par_randn(torch, gen, 1, PAR_L, d), par_randn(torch, gen, d, h, scale=d**-0.5),
             par_randn(torch, gen, h, scale=0.1), par_randn(torch, gen, h, d, scale=h**-0.5),
             par_randn(torch, gen, d, scale=0.1))
-    cot = par_randn(torch, gen, 1, PAR_L, d)
+    return args, par_randn(torch, gen, 1, PAR_L, d)
+
+
+def par_result(torch, names, tensors, secs, launches, **kw):
+    """A path's outputs and grads on the host by name, its ms and launches:
+    the one-process run that ``multiproc_phases`` holds its group to."""
+    return dict(kw, got={k: t.detach().cpu() for k, t in zip(names, tensors)},
+                ms=secs * 1e3, launches=launches)
+
+
+def tp_mlp_longcontext(torch, kernels, all_paths, smi):
+    """``tp_mlp`` over PAR_RANKS virtual ranks at x (1, 8,192, 1,024), h
+    4,096: the forward and the grads of x, w1 and w2 against the dense MLP on
+    the card, within PAR_RTOL.  Plain products: no kernel of the port lies
+    on this path (its count must stay 0).  Returns its result."""
+    from mpit_tpu_torch.parallel import Mesh, tp_mlp
+    from mpit_tpu_torch.parallel.tensor_parallel import gelu
+
+    args, cot = tp_mlp_inputs(torch)
     tp = tp_mlp(Mesh("cuda", tp=PAR_RANKS))
 
     def dense(x, w1, b1, w2, b2):
         return torch.matmul(gelu(torch.matmul(x, w1) + b1), w2) + b2
 
     got, tp_s = timed_s(torch, lambda: counted(kernels, lambda: par_grads(
-        torch, tp, args, (1, 3), cot)))
+        torch, tp, args, TP_MLP_WRT, cot)))
     launches = read_counts(kernels)
-    want, dense_s = timed_s(torch, lambda: par_grads(torch, dense, args, (1, 3), cot))
-    readings = {what: rel_gap(torch, a, b) for what, a, b in zip(("out", "dw1", "dw2"),
-                                                                 got, want)}
+    want, dense_s = timed_s(torch, lambda: par_grads(torch, dense, args, TP_MLP_WRT, cot))
+    readings = {what: rel_gap(torch, a, b) for what, a, b in zip(TP_MLP_NAMES, got, want)}
     readings.update(tp_ms=tp_s * 1e3, dense_ms=dense_s * 1e3, launches=launches)
-    par_hold("tp_mlp_longcontext (tp 4, fwd + dw1, dw2; gap norm / norm, max gap)",
+    par_hold("tp_mlp_longcontext (tp 4, fwd + dx, dw1, dw2; gap norm / norm, max gap)",
              readings, smi)
     expect_launches("tp_mlp_longcontext", launches, {})
     record_path(all_paths, "tp_mlp_longcontext", launches, 1)
+    return par_result(torch, TP_MLP_NAMES, got, tp_s, launches)
 
 
 @contextlib.contextmanager
@@ -4757,6 +4788,27 @@ def captured_attention(torch):
         tp_mod.flash_attention = real
 
 
+def tp_attn_inputs(torch):
+    """``tp_self_attention``'s inputs at x (1, 8,192, 1,024), 8 heads of
+    128, from the seed: ``(args, cot)``."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    d, heads, dh = PAR_D, PAR_HEADS, PAR_D // PAR_HEADS
+    args = (par_randn(torch, gen, 1, PAR_L, d),
+            par_randn(torch, gen, d, 3, heads, dh, scale=d**-0.5),
+            par_randn(torch, gen, heads, dh, d, scale=d**-0.5))
+    return args, par_randn(torch, gen, 1, PAR_L, d)
+
+
+def tp_attn_fused(torch, ranks):
+    """The gate's pick (True: K5) for ``ranks`` tp ranks' heads stacked in
+    one ``flash_attention`` call, 2 of the 8 heads a rank, float32."""
+    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
+
+    dh = PAR_D // PAR_HEADS
+    shape = (ranks, 1, PAR_HEADS // PAR_RANKS, PAR_L, dh)
+    return _use_fused_bwd(shape, shape, dh, torch.device("cuda"), torch.float32)
+
+
 def tp_attn_longcontext(torch, kernels, all_paths, smi):
     """``tp_self_attention`` over PAR_RANKS ranks (2 of the 8 heads a rank),
     causal, float32, at x (1, 8,192, 1,024): one K4 launch a call for all
@@ -4765,15 +4817,11 @@ def tp_attn_longcontext(torch, kernels, all_paths, smi):
     product on the card: the heads bit for bit (K4 runs each head's row on
     the same inputs), the output and the grads of x, wqkv and wo within
     PAR_RTOL (the output projection sums 4 rank partials)."""
-    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd, flash_attention
+    from mpit_tpu_torch.ops.flash_attention import flash_attention
     from mpit_tpu_torch.parallel import Mesh, tp_self_attention
 
-    gen = torch.Generator(device="cuda").manual_seed(22)
     d, heads, dh = PAR_D, PAR_HEADS, PAR_D // PAR_HEADS
-    args = (par_randn(torch, gen, 1, PAR_L, d),
-            par_randn(torch, gen, d, 3, heads, dh, scale=d**-0.5),
-            par_randn(torch, gen, heads, dh, d, scale=d**-0.5))
-    cot = par_randn(torch, gen, 1, PAR_L, d)
+    args, cot = tp_attn_inputs(torch)
     tp = tp_self_attention(Mesh("cuda", tp=PAR_RANKS), causal=True)
 
     def dense(x, wqkv, wo):
@@ -4783,9 +4831,7 @@ def tp_attn_longcontext(torch, kernels, all_paths, smi):
         dense.heads = out.detach()
         return torch.einsum("bhlk,hkd->bld", out, wo)
 
-    fused = _use_fused_bwd((PAR_RANKS, 1, heads // PAR_RANKS, PAR_L, dh),
-                           (PAR_RANKS, 1, heads // PAR_RANKS, PAR_L, dh), dh,
-                           torch.device("cuda"), torch.float32)
+    fused = tp_attn_fused(torch, PAR_RANKS)
     with captured_attention(torch) as seen:
         def call():
             seen.clear()
@@ -4808,23 +4854,16 @@ def tp_attn_longcontext(torch, kernels, all_paths, smi):
         raise AssertionError("tp_attn_longcontext: the ranks' heads are not the unsplit "
                              "heads bit for bit")
     record_path(all_paths, "tp_attn_longcontext", launches, 1)
+    return par_result(torch, ("out", "dx", "dwqkv", "dwo"), got, tp_s, launches,
+                      schedule=readings["schedule"])
 
 
-def pp_decoder_longcontext(torch, kernels, all_paths, smi):
-    """``pipeline`` over PAR_RANKS stages, ``lm_longcontext``'s 4
-    ``DecoderBlock``s (random weights from the seed, float32 attention), on
-    PAR_MICRO microbatches of one 8,192-token row: the forward and the
-    grads of every stacked leaf of ``sum(out * cot)``, against the 4 blocks
-    run in sequence, microbatch by microbatch, on the same stage views.
-    The forward is the same calls on the same inputs: bit for bit.  The
-    grads sum each block's 4 microbatch contributions in autograd's order:
-    every leaf that differs is named, and held within
-    ``LM_LIMITS["float32"]``'s gap_over_change (as a norm-relative gap).
-    K4 launches once a stage call: 16 forward; K5 16 (or K6 32) backward."""
+def pp_decoder_inputs(torch):
+    """``lm_longcontext``'s PAR_RANKS ``DecoderBlock``s (random weights
+    from seed 3) as a list of stage dicts, the stage function, PAR_MICRO
+    microbatches of one 8,192-token row and their output's cotangent."""
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.transformer import DecoderBlock, TinyDecoder
-    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
-    from mpit_tpu_torch.parallel import Mesh, pipeline, stack_stage_params
 
     n, m = PAR_RANKS, PAR_MICRO
     flat = flatten_module(TinyDecoder(vocab=256, d_model=PAR_D, n_heads=PAR_HEADS,
@@ -4839,6 +4878,26 @@ def pp_decoder_longcontext(torch, kernels, all_paths, smi):
 
     def stage(p, x):
         return torch.func.functional_call(block, p, (x,))
+
+    return blocks, stage, xs, cot
+
+
+def pp_decoder_longcontext(torch, kernels, all_paths, smi):
+    """``pipeline`` over PAR_RANKS stages, ``lm_longcontext``'s 4
+    ``DecoderBlock``s (random weights from the seed, float32 attention), on
+    PAR_MICRO microbatches of one 8,192-token row: the forward and the
+    grads of every stacked leaf of ``sum(out * cot)``, against the 4 blocks
+    run in sequence, microbatch by microbatch, on the same stage views.
+    The forward is the same calls on the same inputs: bit for bit.  The
+    grads sum each block's 4 microbatch contributions in autograd's order:
+    every leaf that differs is named, and held within
+    ``LM_LIMITS["float32"]``'s gap_over_change (as a norm-relative gap).
+    K4 launches once a stage call: 16 forward; K5 16 (or K6 32) backward."""
+    from mpit_tpu_torch.ops.flash_attention import _use_fused_bwd
+    from mpit_tpu_torch.parallel import Mesh, pipeline, stack_stage_params
+
+    n, m = PAR_RANKS, PAR_MICRO
+    blocks, stage, xs, cot = pp_decoder_inputs(torch)
 
     def run(pipelined):
         stacked = {k: v.clone().requires_grad_() for k, v in
@@ -4884,35 +4943,45 @@ def pp_decoder_longcontext(torch, kernels, all_paths, smi):
     if bad:
         raise AssertionError(f"pp_decoder_longcontext: grads past {limit}: {bad}")
     record_path(all_paths, "pp_decoder_longcontext", launches, 1)
+    return par_result(torch, ["out", *grads], [out, *grads.values()], pp_s, launches,
+                      schedule=readings["schedule"])
 
 
-def ep_moe_longcontext(torch, kernels, all_paths, smi):
-    """``ep_moe`` over PAR_RANKS ranks, PAR_EXPERTS experts (2 a rank), d
-    1,024, h 4,096, 8,192 tokens: the forward and the grads of the gate and
-    w1 against ``moe_reference`` on the card, within PAR_RTOL.  No Pallas
-    kernel lies on this path (the JAX package's is dense dispatch in XLA):
-    every op is a plain PyTorch one, and no kernel of the port launches."""
-    from mpit_tpu_torch.parallel import Mesh, ep_moe, moe_reference
-
+def ep_moe_inputs(torch):
+    """``ep_moe``'s inputs, PAR_EXPERTS experts, d 1,024, h 4,096, 8,192
+    tokens, from the seed: ``(args, cot)``."""
     gen = torch.Generator(device="cuda").manual_seed(24)
     e, d, h = PAR_EXPERTS, PAR_D, PAR_MLP
     args = (par_randn(torch, gen, 1, PAR_L, d), par_randn(torch, gen, d, e, scale=d**-0.5),
             par_randn(torch, gen, e, d, h, scale=d**-0.5), par_randn(torch, gen, e, h, scale=0.1),
             par_randn(torch, gen, e, h, d, scale=h**-0.5), par_randn(torch, gen, e, d, scale=0.1))
-    cot = par_randn(torch, gen, 1, PAR_L, d)
+    return args, par_randn(torch, gen, 1, PAR_L, d)
+
+
+def ep_moe_longcontext(torch, kernels, all_paths, smi):
+    """``ep_moe`` over PAR_RANKS ranks, PAR_EXPERTS experts (2 a rank), d
+    1,024, h 4,096, 8,192 tokens: the forward and the grads of x, the gate
+    and w1 against ``moe_reference`` on the card, within PAR_RTOL.  No Pallas
+    kernel lies on this path (the JAX package's is dense dispatch in XLA):
+    every op is a plain PyTorch one, and no kernel of the port launches."""
+    from mpit_tpu_torch.parallel import Mesh, ep_moe, moe_reference
+
+    e, d = PAR_EXPERTS, PAR_D
+    args, cot = ep_moe_inputs(torch)
     ep = ep_moe(Mesh("cuda", ep=PAR_RANKS))
     got, ep_s = timed_s(torch, lambda: counted(kernels, lambda: par_grads(
-        torch, ep, args, (1, 2), cot)))
+        torch, ep, args, EP_MOE_WRT, cot)))
     launches = read_counts(kernels)
-    want, ref_s = timed_s(torch, lambda: par_grads(torch, moe_reference, args, (1, 2), cot))
+    want, ref_s = timed_s(torch, lambda: par_grads(torch, moe_reference, args, EP_MOE_WRT,
+                                                   cot))
     routed = torch.bincount(torch.argmax(args[0].reshape(-1, d) @ args[1], -1), minlength=e)
-    readings = {what: rel_gap(torch, a, b) for what, a, b in zip(("out", "dgate", "dw1"),
-                                                                 got, want)}
+    readings = {what: rel_gap(torch, a, b) for what, a, b in zip(EP_MOE_NAMES, got, want)}
     readings.update(tokens_per_expert=routed.tolist(), ep_ms=ep_s * 1e3,
                     reference_ms=ref_s * 1e3, launches=launches)
-    par_hold("ep_moe_longcontext (ep 4, 8 experts, fwd + dgate, dw1)", readings, smi)
+    par_hold("ep_moe_longcontext (ep 4, 8 experts, fwd + dx, dgate, dw1)", readings, smi)
     expect_launches("ep_moe_longcontext", launches, {})
     record_path(all_paths, "ep_moe_longcontext", launches, 1)
+    return par_result(torch, EP_MOE_NAMES, got, ep_s, launches)
 
 
 def lm_dp2_sp4_longcontext(torch, kernels, all_paths, smi):
@@ -5026,15 +5095,16 @@ def parallel_phases(torch, kernels, all_paths, smi):
     """Tensor, pipeline and expert parallelism, ``lm_launch --dp`` and
     ``mesh_launch --shard`` on the card's virtual ranks, and a process group
     of one (slice 9), at ``lm_longcontext``'s widths; each path's seconds on
-    its own line."""
-    secs = {}
+    its own line.  Returns the tp, pp and ep paths' results, which
+    ``multiproc_phases`` holds its processes to."""
+    secs, refs = {}, {}
     for name, fn in (("tp_mlp_longcontext", tp_mlp_longcontext),
                      ("tp_attn_longcontext", tp_attn_longcontext),
                      ("pp_decoder_longcontext", pp_decoder_longcontext),
                      ("ep_moe_longcontext", ep_moe_longcontext),
                      ("lm_dp2_sp4_longcontext", lm_dp2_sp4_longcontext)):
         t0 = time.perf_counter()
-        fn(torch, kernels, all_paths, smi)
+        refs[name] = fn(torch, kernels, all_paths, smi)
         torch.cuda.empty_cache()
         secs[name] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5045,6 +5115,7 @@ def parallel_phases(torch, kernels, all_paths, smi):
     secs["pg_group_of_one"] = time.perf_counter() - t0
     print(f"parallel phases: {sum(secs.values()):.1f}s " + json.dumps(
         {k: round(v, 1) for k, v in secs.items()}))
+    return refs
 
 
 # -- meshes over a group of processes sharing the card (slice 9b) -----------------
@@ -5077,7 +5148,8 @@ MP_SYNCDP = dict(opt="syncdp", side=32, batch=128, lr=0.2, mom=0.9, epochs=2,
 # is saved for the parent, and its K1 and K4-K6 launches, its group's
 # formation, each EASGD exchange (``timed_exchanges``) and each ring hop
 # between processes (``timed_hops``) are reported; the process's start-up
-# (imports, the CUDA context) once.
+# (imports, the CUDA context) once.  A run of module "par" drives tensor,
+# pipeline and expert parallelism across the group (``mp_par_child``).
 MP_CHILD = """
 import json, sys, time
 t0 = time.perf_counter()
@@ -5110,10 +5182,13 @@ for run in runs:
     times["exchange_ms"], times["hops"] = [], []
     for k in kernels.values():
         k.launches = 0
-    mod = lm_launch if run["module"] == "lm" else mesh_launch
-    with chip_smoke.timed_exchanges(torch, times["exchange_ms"]), \
-            chip_smoke.timed_hops(torch, times["hops"]):
-        res = mod.main(run["argv"] + ["--process_id", pid])
+    if run["module"] == "par":
+        res = chip_smoke.mp_par_child(torch, kernels, run, int(pid))
+    else:
+        mod = lm_launch if run["module"] == "lm" else mesh_launch
+        with chip_smoke.timed_exchanges(torch, times["exchange_ms"]), \
+                chip_smoke.timed_hops(torch, times["hops"]):
+            res = mod.main(run["argv"] + ["--process_id", pid])
     torch.cuda.synchronize()
     torch.save({{k: v.cpu() for k, v in res.pop("state").items()}},
                run["state"].format(pid=pid))
@@ -5145,13 +5220,14 @@ def free_ports(n):
 
 def mp_group(torch, runs, tmp, world=2):
     """``world`` processes sharing the card, side by side, each running
-    every run of ``runs`` (``name``, ``module`` "mesh" or "lm", ``argv``) in
+    every run of ``runs`` (``name``, ``module`` "mesh", "lm" or "par", ``argv``) in
     turn, each run a group of its own: per run, every process's result and
     state (on the CPU); the group's wall seconds.  Each process must exit 0
     in time, and each run go over gloo with its tensors on the card."""
     ports = free_ports(len(runs))
     spec = [{"name": r["name"], "module": r["module"],
              "state": os.path.join(tmp, f"{r['name']}_{{pid}}.pt"),
+             "coordinator": f"127.0.0.1:{port}", "world": world,
              "argv": r["argv"] + ["--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
                                   "--num_processes", str(world)]}
             for r, port in zip(runs, ports)]
@@ -5311,6 +5387,174 @@ def timed_hops(torch, hops):
         RingHop.move = real
 
 
+@contextlib.contextmanager
+def timed_line_collectives(torch, log):
+    """``collective._gather_line`` and ``collective.broadcast_line`` timed
+    call by call (the card synchronized around each): ``(kind, ms,
+    bytes)`` appended to ``log``, the bytes the gathered stack's (every
+    process's block) or the broadcast tensor's."""
+    from mpit_tpu_torch.parallel import collective
+
+    real_gather, real_broadcast = collective._gather_line, collective.broadcast_line
+
+    def gather_line(x, line):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_gather(x, line)
+        torch.cuda.synchronize()
+        log.append(("gather", (time.perf_counter() - t) * 1e3,
+                    out.numel() * out.element_size()))
+        return out
+
+    def broadcast_line(x, line, src):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_broadcast(x, line, src)
+        torch.cuda.synchronize()
+        log.append(("broadcast", (time.perf_counter() - t) * 1e3,
+                    x.numel() * x.element_size()))
+
+    collective._gather_line, collective.broadcast_line = gather_line, broadcast_line
+    try:
+        yield
+    finally:
+        collective._gather_line, collective.broadcast_line = real_gather, real_broadcast
+
+
+#: the tensor, pipeline and expert parallel paths over a pair of processes
+#: (``tp``, ``pp`` or ``ep`` of PAR_RANKS ranks, 2 a process), each with the
+#: one-process phase that it is held to
+MP_PAR_PATHS = (("mp_tp_mlp", "tp_mlp_longcontext"), ("mp_tp_attn", "tp_attn_longcontext"),
+                ("mp_pp_decoder", "pp_decoder_longcontext"),
+                ("mp_ep_moe", "ep_moe_longcontext"))
+
+
+def mp_par_child(torch, kernels, run, pid):
+    """One process of ``mp_par``: a group of its own over gloo (two
+    processes sharing the card), then the four MP_PAR_PATHS at
+    ``lm_longcontext``'s widths over ``Mesh(group=...)``, on their
+    one-process phases' inputs (the same seeds), each timed as that phase
+    times it (its second call), its launches counted on that call, its
+    line collectives (``timed_line_collectives``) and hops
+    (``timed_hops``) timed; the pipeline under deterministic algorithms,
+    as its one-process phase.  Returns the result: every path's outputs and
+    grads by ``path/name``, as sha256 digests of their bytes and (process 0)
+    in its ``state``."""
+    from mpit_tpu_torch.parallel import (
+        Mesh, bootstrap, ep_moe, pipeline, stack_stage_params, tp_mlp, tp_self_attention)
+    from mpit_tpu_torch.parallel.distributed import shutdown
+
+    t0 = time.perf_counter()
+    pg = bootstrap(coordinator=run["coordinator"], num_processes=run["world"],
+                   process_id=pid, device="cuda")
+    res = {"name": run["name"], "backend": pg.backend, "processes": pg.num_processes,
+           "device": str(torch.device("cuda", torch.cuda.current_device())),
+           "group_s": time.perf_counter() - t0, "paths": {}, "state": {}, "digests": {}}
+
+    def path(name, fn, names, **kw):
+        log, hops = [], []
+
+        def call():
+            log.clear()
+            hops.clear()
+            return counted(kernels, fn)
+
+        with timed_line_collectives(torch, log), timed_hops(torch, hops):
+            outs, secs = timed_s(torch, call)
+        res["paths"][name] = dict(kw, ms=secs * 1e3, launches=read_counts(kernels),
+                                  collectives=log, hops=hops)
+        for k, t in zip(names, outs):
+            host = t.detach().cpu()
+            res["digests"][f"{name}/{k}"] = hashlib.sha256(host.numpy().tobytes()).hexdigest()
+            if pid == 0:  # the line's processes must hold the same bits: one copy
+                res["state"][f"{name}/{k}"] = host
+        torch.cuda.empty_cache()
+
+    args, cot = tp_mlp_inputs(torch)
+    tp = tp_mlp(Mesh("cuda", pg, tp=PAR_RANKS))
+    path("mp_tp_mlp", lambda: par_grads(torch, tp, args, TP_MLP_WRT, cot), TP_MLP_NAMES)
+    args, cot = tp_attn_inputs(torch)
+    mesh = Mesh("cuda", pg, tp=PAR_RANKS)
+    attn = tp_self_attention(mesh, causal=True)
+    path("mp_tp_attn", lambda: par_grads(torch, attn, args, (0, 1, 2), cot),
+         ("out", "dx", "dwqkv", "dwo"),
+         schedule="K5" if tp_attn_fused(torch, mesh.local_size("tp")) else "K6")
+    blocks, stage, xs, cot = pp_decoder_inputs(torch)
+    pipe = pipeline(Mesh("cuda", pg, pp=PAR_RANKS), stage)
+
+    def pp_run():
+        stacked = {k: v.clone().requires_grad_() for k, v in
+                   stack_stage_params(blocks).items()}
+        out = pipe(stacked, xs)
+        return (out.detach(), *torch.autograd.grad(out, list(stacked.values()), cot))
+
+    with deterministic_algorithms(torch):
+        path("mp_pp_decoder", pp_run, ["out", *stack_stage_params(blocks)])
+    args, cot = ep_moe_inputs(torch)
+    ep = ep_moe(Mesh("cuda", pg, ep=PAR_RANKS))
+    path("mp_ep_moe", lambda: par_grads(torch, ep, args, EP_MOE_WRT, cot), EP_MOE_NAMES)
+    shutdown()
+    return res
+
+
+def mp_par_readings(torch, group, refs, smi):
+    """``mp_par``'s paths against their one-process phases (``refs``): every
+    process of the line holds the same bits (the digests); the outputs and grads within
+    PAR_RTOL (the pipeline: within ``LM_LIMITS["float32"]``'s
+    gap_over_change, as its phase), bit for bit reported; each process
+    launches its share of K4 and K5 (K6) (``mp_tp_attn``: its one call,
+    1 and 1; ``mp_pp_decoder``: its 2 stages x PAR_MICRO calls, 8 and 8,
+    where one process makes 16 and 16; the others none); each path's ms a
+    process against one process, and its gathers', broadcasts' and hops'
+    ms and bytes.  Returns the readings; a miss raises after they are
+    printed."""
+    results, states = group
+    readings, misses = {}, []
+    for name, one_name in MP_PAR_PATHS:
+        ref = refs[one_name]
+        keys = list(ref["got"])
+        for pid, res in enumerate(results[1:], 1):
+            differ = [k for k in keys if res["digests"][f"{name}/{k}"]
+                      != results[0]["digests"][f"{name}/{k}"]]
+            if differ:
+                misses.append(f"{name}: process {pid}'s {differ} differ from process 0's")
+        gaps = {k: rel_gap(torch, states[0][f"{name}/{k}"], ref["got"][k]) for k in keys}
+        bits = [k for k in keys if torch.equal(states[0][f"{name}/{k}"], ref["got"][k])]
+        limit = (LM_LIMITS["float32"]["gap_over_change"] if name == "mp_pp_decoder"
+                 else PAR_RTOL)
+        bad = {k: g for k, g in gaps.items() if not g[0] <= limit}
+        if bad:
+            misses.append(f"{name}: past the limit {limit} (norm gap, max gap): {bad}")
+        r = {"bit_for_bit": len(bits), "tensors": len(keys),
+             "differ (norm gap, max gap)": {k: g for k, g in gaps.items() if k not in bits},
+             "ms_one_process": ref["ms"], "launches_one_process": ref["launches"]}
+        for pid, res in enumerate(results):
+            rec = res["paths"][name]
+            fused = rec.get("schedule", ref.get("schedule", "K5")) == "K5"
+            calls = {"mp_tp_attn": 1,
+                     "mp_pp_decoder": PAR_RANKS // len(results) * PAR_MICRO}.get(name, 0)
+            want = ({"k4": calls, "k5": calls} if fused else {"k4": calls, "k6": 2 * calls}
+                    ) if calls else {}
+            got = {k: rec["launches"].get(k, 0) for k in ("k1", "k4", "k5", "k6")}
+            if got != {k: want.get(k, 0) for k in got}:
+                misses.append(f"{name}: process {pid} launched {got}, its share {want}")
+            kinds = {}
+            for kind, ms, nbytes in rec["collectives"] + [("hop", ms, b)
+                                                           for ms, b, _ in rec["hops"]]:
+                k = kinds.setdefault(kind, {"calls": 0, "ms": 0.0, "bytes": 0})
+                k["calls"], k["ms"], k["bytes"] = k["calls"] + 1, k["ms"] + ms, k["bytes"] + nbytes
+            r[f"process {pid}"] = {"ms": rec["ms"], "launches": got, "line": kinds}
+            if "schedule" in rec:
+                r[f"process {pid}"]["schedule"] = rec["schedule"]
+        if name == "mp_tp_attn":
+            r["schedule_one_process"] = ref["schedule"]
+        print(f"{name} on {smi}: " + json.dumps(r))
+        readings[name] = r
+    if misses:
+        raise AssertionError("mp_par: " + "; ".join(misses))
+    return readings
+
+
 def lm_state_gaps(torch, got, want, w0, lim):
     """The gaps of a run's final w and vt (``got``) to another's
     (``want``), and whether they hold ``lim`` (an ``LM_LIMITS`` entry):
@@ -5375,7 +5619,7 @@ def step_ms(res, per_step):
     return res["train_time"] / (res["samples_trained"] / per_step) * 1e3
 
 
-def multiproc_phases(torch, kernels, all_paths, smi):
+def multiproc_phases(torch, kernels, all_paths, smi, refs=None):
     """Meshes over a group of two processes sharing the card (slice 9b).
     First ``mp_vmap_control``; then the one-process controls in this
     process; then one pair of processes running, each in a group of its
@@ -5392,7 +5636,11 @@ def multiproc_phases(torch, kernels, all_paths, smi):
     widths, 5 steps, bfloat16 attention: w and vt within
     ``LM_LIMITS["float32"]``; each row's attention is the same bits in both,
     what differs is the float32 sum over rows and the processes' mean).
-    Every child's K1 and K4-K6 launches equal the one-process run's."""
+    Every child's K1 and K4-K6 launches equal the one-process run's.  The
+    pair's last run, ``mp_par``, drives tensor, pipeline and expert
+    parallelism across the two (``mp_par_child``), held to ``refs``, the
+    one-process tp, pp and ep phases' results (run here where not given;
+    ``mp_par_readings``)."""
     import tempfile
 
     from mpit_tpu_torch.models.flat import flatten_module
@@ -5401,6 +5649,10 @@ def multiproc_phases(torch, kernels, all_paths, smi):
     from mpit_tpu_torch.train.mesh_launch import (
         FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS, run)
 
+    if refs is None:
+        refs = {fn.__name__: fn(torch, kernels, all_paths, smi) for fn in (
+            tp_mlp_longcontext, tp_attn_longcontext, pp_decoder_longcontext, ep_moe_longcontext)}
+        torch.cuda.empty_cache()
     t_block = time.perf_counter()
     commit = kernels["k1"]
     exact, gap = mp_vmap_control(torch)
@@ -5453,7 +5705,8 @@ def multiproc_phases(torch, kernels, all_paths, smi):
                 dict(name="mp_syncdp_cnn", module="mesh", argv=cli_args(syncdp["cnn"])),
                 dict(name="mp_lm", module="lm", argv=cli_args(lm_kw)),
                 dict(name="mp_shard", module="mesh", argv=cli_args(shard_kw)),
-                dict(name="mp_lm_sp", module="lm", argv=cli_args(axes_lm["mp_lm_sp"]))], tmp)
+                dict(name="mp_lm_sp", module="lm", argv=cli_args(axes_lm["mp_lm_sp"])),
+                dict(name="mp_par", module="par", argv=[])], tmp)
             quartet, wall4 = mp_group(torch, [dict(
                 name="mp_lm_dp_sp", module="lm", argv=cli_args(axes_lm["mp_lm_dp_sp"]))],
                 tmp, world=4)
@@ -5553,6 +5806,10 @@ def multiproc_phases(torch, kernels, all_paths, smi):
         readings[name] = mp_lm_axes_readings(torch, name, group[name], ones[name],
                                              axes_recs[name], cfg, lim)
         record_mp(all_paths, name, group[name][0], axes_recs[name]["launches"], cfg.steps)
+    readings["mp_par"] = mp_par_readings(torch, pair["mp_par"], refs, smi)
+    for name, _ in MP_PAR_PATHS:
+        for pid, res in enumerate(pair["mp_par"][0]):
+            record_path(all_paths, f"{name}_p{pid}", res["paths"][name]["launches"], 1)
     print(f"multiproc phases on {smi}: " + json.dumps(readings))
     print(f"multiproc phases: {time.perf_counter() - t_block:.1f}s (the pair "
           f"{wall:.1f}s, the quartet {wall4:.1f}s, one process {one_s:.1f}s)")
@@ -7112,8 +7369,8 @@ def main() -> int:
     record_path(all_paths, "lm_resume", rec["launches"], rec["steps"])
     slice4_s += time.perf_counter() - t_resume
     agg_lm_phases(torch, kernels, all_paths, smi)
-    parallel_phases(torch, kernels, all_paths, smi)
-    multiproc_phases(torch, kernels, all_paths, smi)
+    refs = parallel_phases(torch, kernels, all_paths, smi)
+    multiproc_phases(torch, kernels, all_paths, smi, refs)
     analysis_phases(torch, kernels, all_paths, smi)
     k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")

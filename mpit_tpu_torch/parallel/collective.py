@@ -47,6 +47,25 @@ data, so it gives every process the bits of the one-process collective:
   from the previous (:class:`RingHop`), differentiable, its backward the
   reverse hop.
 
+Tensor, pipeline and expert parallelism differentiate through their
+reductions, and across processes three rules keep every process's
+gradients the one-process run's.  Every process of a line computes the
+same replicated result, and from it the same loss:
+
+- :func:`psum`'s all-gather is differentiable, its backward this process's
+  rows of the gathered stack's cotangent (a slice, not a reduce-scatter,
+  which would add the line's ``P`` identical cotangents);
+- :func:`copy_to_line` marks a replicated input entering a computation cut
+  over the axis: the identity forward, and backward the sum of the line's
+  contributions, added in rank order (each process holds only its ranks');
+- :func:`take_cuts` gives a computation this process's cut of whole
+  weights, and their gradients back whole: the line's cuts all-gathered in
+  one collective, so an optimizer's replicas stay equal.
+
+The collectives of a backward must come in one order in every process of
+a line (gloo and NCCL match them by order): each of these is one autograd
+node, and the processes of a line build the same graph around them.
+
 The JAX module's ``shard_map`` version shim has no counterpart.
 """
 
@@ -84,6 +103,22 @@ def _gather_line(x: torch.Tensor, line: Line) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def broadcast_line(x: torch.Tensor, line: Line, src: int) -> None:
+    """``x`` (contiguous) from process ``src`` to every process of
+    ``line``, in place: one broadcast over the line's group."""
+    torch.distributed.broadcast(x, src, group=line.group)
+
+
+def _rank_sum(stack: torch.Tensor) -> torch.Tensor:
+    """The rows of ``stack`` added one at a time in rank order,
+    ``((x0 + x1) + x2) + ...``: that order fixes the result's bits, where
+    a reduction kernel would choose its own."""
+    out = stack[0]
+    for r in range(1, stack.shape[0]):
+        out = out + stack[r]
+    return out
+
+
 def _whole(mesh: Mesh, axis: str, x: torch.Tensor, what: str) -> torch.Tensor:
     """The whole ``(n, ...)`` stack of ``axis`` from this process's block:
     ``x`` itself where the axis lies in this process."""
@@ -113,11 +148,7 @@ def process_mean(mesh: Mesh, axis: str = "dp") -> Fn:
             return x
         mesh.check_device(x, "the tensor")
         line = mesh.line(axis)
-        parts = _gather_line(x[None], line)
-        out = parts[0]
-        for r in range(1, line.size):
-            out = out + parts[r]
-        return out / line.size
+        return _rank_sum(_gather_line(x[None], line)) / line.size
 
     return _mean
 
@@ -137,7 +168,7 @@ def replicate(mesh: Mesh, axis: str) -> Fn:
         mesh.check_device(x, "the tensor")
         line = mesh.line(axis)
         x = x.contiguous()
-        torch.distributed.broadcast(x, line.processes[0], group=line.group)
+        broadcast_line(x, line, line.processes[0])
         return x
 
     return _replicate
@@ -223,24 +254,129 @@ def ps_pushpull(
     return _round
 
 
+class _LineGather(torch.autograd.Function):
+    """:func:`_gather_line` under autograd: every process of the line
+    computes the same replicated result from the gathered stack, and so
+    the same cotangent of it; each takes its own rows (a slice)."""
+
+    @staticmethod
+    def forward(ctx, line: Line, x: torch.Tensor):
+        k = x.shape[0]
+        ctx.rows = slice(line.index * k, (line.index + 1) * k)
+        return _gather_line(x, line)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g[ctx.rows]
+
+
 def psum(mesh: Mesh, axis: str) -> Fn:
     """The sum over ``axis``'s ranks, ``(n, ...) -> (...)``, as JAX's
     ``psum`` gives every rank of the axis its replicated result.  The ranks
-    are added one at a time in rank order, ``((x0 + x1) + x2) + ...``: that
-    order fixes the result's bits, where a reduction kernel would choose
-    its own.  Differentiable: the gradient of each rank's block is the
-    result's (in one process).  Over an axis that spans processes the
-    blocks are this process's, all-gathered first."""
+    are added one at a time in rank order (:func:`_rank_sum`).
+    Differentiable: the gradient of each rank's block is the
+    result's.  Over an axis that spans processes the blocks are this
+    process's, all-gathered first (:class:`_LineGather`), and each process
+    gets its blocks' gradient from its own copy of the result's."""
 
     def _psum(blocks: torch.Tensor) -> torch.Tensor:
-        blocks = _whole(mesh, axis, blocks, "the rank stack")
-        n = blocks.shape[0]
-        out = blocks[0]
-        for r in range(1, n):
-            out = out + blocks[r]
-        return out
+        _ranks(mesh, axis, blocks, "the rank stack")
+        if mesh.spans(axis):
+            blocks = _LineGather.apply(mesh.line(axis), blocks)
+        return _rank_sum(blocks)
 
     return _psum
+
+
+class _CopyToLine(torch.autograd.Function):
+    """The identity forward; backward, the line's gradients all-gathered
+    and added in rank order."""
+
+    @staticmethod
+    def forward(ctx, line: Line, x: torch.Tensor):
+        ctx.line = line
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _rank_sum(_gather_line(g[None], ctx.line))
+
+
+def copy_to_line(mesh: Mesh, axis: str) -> Fn:
+    """A replicated input (the same tensor in every process of the line)
+    entering a computation cut over ``axis``: itself forward.  Where
+    ``axis`` spans processes, each process's backward holds only its
+    ranks' share of the input's gradient; the line's shares are
+    all-gathered and added in rank order, so every process holds the
+    whole gradient.  ``x`` itself where ``axis`` lies in this process
+    (autograd adds the ranks' shares there)."""
+
+    def _copy(x: torch.Tensor) -> torch.Tensor:
+        if not mesh.spans(axis):
+            return x
+        mesh.check_device(x, "the input")
+        return _CopyToLine.apply(mesh.line(axis), x)
+
+    return _copy
+
+
+def _cut(t: torch.Tensor, dim: int, n: int, ranks: slice) -> torch.Tensor:
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"a tensor's dim {dim} of {size} does not split over {n} ranks")
+    per = size // n
+    return t.narrow(dim, ranks.start * per, (ranks.stop - ranks.start) * per)
+
+
+class _TakeCuts(torch.autograd.Function):
+    """This process's cuts of whole tensors; backward, the line's cut
+    gradients all-gathered in one collective (each process's flattened
+    and concatenated) and put back whole."""
+
+    @staticmethod
+    def forward(ctx, line: Line, n: int, ranks: slice, dims, *whole):
+        cuts = tuple(_cut(w, d, n, ranks).contiguous()
+                     for w, d in zip(whole, dims))
+        ctx.line, ctx.dims, ctx.shapes = line, dims, [c.shape for c in cuts]
+        return cuts
+
+    @staticmethod
+    def backward(ctx, *grads):
+        wanted = [i for i, need in enumerate(ctx.needs_input_grad[4:]) if need]
+        flat = torch.cat([grads[i].reshape(-1) for i in wanted])
+        parts = _gather_line(flat[None], ctx.line)  # (P, sum of the cuts' sizes)
+        out = [None] * len(grads)
+        offset = 0
+        for i in wanted:
+            shape, size = ctx.shapes[i], grads[i].numel()
+            pieces = [p[offset:offset + size].reshape(shape) for p in parts]
+            out[i] = torch.cat(pieces, ctx.dims[i])
+            offset += size
+        return (None, None, None, None, *out)
+
+
+def take_cuts(mesh: Mesh, axis: str, dims: Sequence[int]):
+    """This process's ranks' cut of whole tensors, each cut over ``axis``'s
+    ranks along its entry of ``dims`` (rank ``r`` holding the ``r``-th of
+    ``n`` equal blocks): ``fn(*whole) -> cuts``, as a JAX mesh gives a
+    ``shard_map`` body its shards of a global array.  Where ``axis`` spans
+    processes the cuts' gradients come back whole, the line's all-gathered
+    (:class:`_TakeCuts`), so every process of the line holds the whole
+    gradient of each whole tensor; the tensors themselves where ``axis``
+    lies in this process."""
+    dims = tuple(dims)
+
+    def _take(*whole: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if len(whole) != len(dims):
+            raise ValueError(f"{len(whole)} tensors for {len(dims)} cut dims")
+        if not mesh.spans(axis):
+            return whole
+        for w in whole:
+            mesh.check_device(w, "the tensor")
+        return _TakeCuts.apply(mesh.line(axis), mesh.size(axis), mesh.local_slice(axis),
+                               dims, *whole)
+
+    return _take
 
 
 class RingHop:

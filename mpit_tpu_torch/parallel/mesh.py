@@ -27,13 +27,14 @@ spans, the processes that share every other range form a **line**, and
 the mesh forms one ``torch.distributed`` sub-group a line
 (:meth:`Mesh.line`), in every process and in one order, when it is built:
 the collectives of :mod:`mpit_tpu_torch.parallel.collective` over that
-axis go over it.  ``dp 1 x sp 2`` over two processes gives each one rank of
-``sp``; ``dp 2 x sp 2`` over four one rank of each axis, its ``dp`` line
-two processes and its ``sp`` line two others.  A grid of ranks that ``P``
-does not divide, or a block that is not a box (``dp 3 x sp 2`` over two
-gives process 0 the ranks (0, 0), (0, 1) and (1, 0)), raises
-``ValueError``; a ``tp``, ``pp`` or ``ep`` axis across processes raises
-``NotImplementedError`` (ROADMAP §A item 3).
+axis go over it.  Every axis may span processes, as every axis of a JAX
+mesh may span devices: ``dp 1 x sp 2`` over two processes gives each one
+rank of ``sp``; ``tp 4`` over two gives each two ranks of ``tp``; ``dp 2 x
+sp 2`` (or ``dp 2 x tp 2``) over four one rank of each axis, its ``dp``
+line two processes and its ``sp`` (``tp``) line two others.  A grid of
+ranks that ``P`` does not divide, or a block that is not a box (``dp 3 x
+sp 2`` over two gives process 0 the ranks (0, 0), (0, 1) and (1, 0)),
+raises ``ValueError``.
 
 :func:`make_mesh` builds the trainers' ``(dp, shard)`` mesh.  The JAX
 package factors a device count into ``dp x shard``
@@ -52,9 +53,6 @@ import torch
 
 from mpit_tpu_torch.parallel.distributed import group_formed, sub_group
 
-#: Axes whose collectives the port runs inside one process only.
-LOCAL_AXES = ("tp", "pp", "ep")
-
 Box = Dict[str, Tuple[int, int]]
 
 
@@ -69,10 +67,9 @@ def _unravel(flat: int, sizes: Sequence[int]) -> Tuple[int, ...]:
 def process_boxes(axes: Mapping[str, int], processes: int) -> List[Box]:
     """Each process's block of the row-major grid of ``axes`` as a
     ``[lo, hi)`` range on every axis; raises ``ValueError`` where the grid
-    does not split over ``processes`` or a block is not a box, and
-    ``NotImplementedError`` where a ``tp``, ``pp`` or ``ep`` axis would span
-    processes.  The launchers call it (through :func:`check_split`) before
-    any rendezvous."""
+    does not split over ``processes`` or a block is not a box.  The
+    launchers call it (through :func:`check_split`) before any
+    rendezvous."""
     names, sizes = list(axes), [int(v) for v in axes.values()]
     total = 1
     for size in sizes:
@@ -99,12 +96,6 @@ def process_boxes(axes: Mapping[str, int], processes: int) -> List[Box]:
                 f"({', '.join(names)}), which is not a box (a contiguous range of "
                 "ranks on every axis)")
         boxes.append(box)
-    for name in LOCAL_AXES:
-        if name in axes and any(hi - lo < axes[name] for lo, hi in
-                                (b[name] for b in boxes)):
-            raise NotImplementedError(
-                f"{shown} over {processes} processes would cut {name} across processes: "
-                "tp, pp and ep stay inside one process in the port (ROADMAP §A item 3)")
     return boxes
 
 
@@ -216,13 +207,6 @@ class Mesh:
                 f"axis {axis!r} spans processes, and the mesh was built before the "
                 "process group formed: build it after bootstrap")
         return self._lines[axis]
-
-    def local_only(self, axis: str, what: str) -> None:
-        """Raise where ``axis`` spans processes: ``what`` runs inside one."""
-        if self.spans(axis):
-            raise NotImplementedError(
-                f"{what} over {axis!r}, which spans processes: it runs inside one "
-                "process in the port (ROADMAP §A item 3)")
 
     def check_device(self, t: torch.Tensor, what: str) -> None:
         """``t`` must lie on the mesh's device (a device without an index

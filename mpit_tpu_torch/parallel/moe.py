@@ -12,6 +12,16 @@ MoE layer over an ``ep`` axis — the port of ``mpit_tpu/parallel/moe.py``.
 - Top-1 routing with the Switch combine (the chosen expert's output times
   its softmax probability) keeps the router differentiable.
 
+Where ``ep`` spans the processes of a group, each process runs its own
+ranks' experts only, cut from the whole stacked weights with their
+gradients given back whole
+(:func:`~mpit_tpu_torch.parallel.collective.take_cuts`), and masks with
+the global expert ids of its range.  The router and the combine are whole
+in every process; only the experts' branch is cut, so only the tokens it
+takes go through :func:`~mpit_tpu_torch.parallel.collective.copy_to_line`
+(the line's shares of their gradient added): summing the whole ``dx``
+would count the router's part once a process.
+
 ``argmax`` takes the first maximum in both packages, so a tie routes
 alike.  No Pallas kernel lies on this path: every op is a plain PyTorch
 one, and the products run all ranks' local experts as one batched product.
@@ -22,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mpit_tpu_torch.parallel.collective import psum
+from mpit_tpu_torch.parallel.collective import copy_to_line, psum, take_cuts
 from mpit_tpu_torch.parallel.mesh import Mesh
 from mpit_tpu_torch.parallel.tensor_parallel import Act, gelu
 
@@ -49,9 +59,10 @@ def ep_moe(mesh: Mesh, axis: str = "ep", activation: Act = gelu):
     ``x (..., d)``; ``gate_w (d, E)``; expert weights stacked ``w1 (E, d,
     h)``, ``b1 (E, h)``, ``w2 (E, h, d)``, ``b2 (E, d)``, ``E`` divisible
     by the axis's ranks.  The output is shaped like ``x``."""
-    mesh.local_only(axis, "ep_moe")
-    n = mesh.size(axis)
-    reduce = psum(mesh, axis)
+    n, nl = mesh.size(axis), mesh.local_size(axis)
+    ranks = mesh.local_slice(axis)
+    reduce, enter = psum(mesh, axis), copy_to_line(mesh, axis)
+    cuts = take_cuts(mesh, axis, (0, 0, 0, 0))
 
     def fn(x, gate_w, w1, b1, w2, b2):
         for name, t in (("x", x), ("gate_w", gate_w), ("w1", w1), ("b1", b1),
@@ -64,11 +75,13 @@ def ep_moe(mesh: Mesh, axis: str = "ep", activation: Act = gelu):
         lead = x.shape[:-1]
         tokens = x.reshape(-1, d)
         choice, combine = _route(tokens, gate_w)
-        # Each rank's mask over its own experts: (n, tokens, E/n).
-        local_ids = torch.arange(e, device=x.device).reshape(n, 1, el)
+        # Each rank's mask over its own experts, by global id: (nl, tokens, E/n).
+        local_ids = torch.arange(ranks.start * el, ranks.stop * el,
+                                 device=x.device).reshape(nl, 1, el)
         dispatch = (choice[None, :, None] == local_ids).to(x.dtype)
-        y_exp = _experts(tokens, w1.reshape(n, el, d, h), b1.reshape(n, el, h),
-                         w2.reshape(n, el, h, d), b2.reshape(n, el, d), activation)
+        w1, b1, w2, b2 = cuts(w1, b1, w2, b2)  # this process's ranks' experts
+        y_exp = _experts(enter(tokens), w1.reshape(nl, el, d, h), b1.reshape(nl, el, h),
+                         w2.reshape(nl, el, h, d), b2.reshape(nl, el, d), activation)
         y_local = torch.einsum("nte,netd->ntd", dispatch, y_exp)
         y = reduce(y_local) * combine[:, None]
         return y.reshape(*lead, d)

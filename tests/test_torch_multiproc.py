@@ -61,7 +61,7 @@ from mpit_tpu_torch.models.flat import FlatModel, flatten_module, value_and_grad
 from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.parallel import (
     Mesh, ProcessGroup, make_mesh, process_local_rows, put_global, put_local)
-from mpit_tpu_torch.parallel.mesh import check_split
+from mpit_tpu_torch.parallel.mesh import _line_groups, check_split, process_boxes
 from mpit_tpu_torch.utils.checkpoint import load_state_dict
 
 torch.set_num_threads(1)
@@ -199,10 +199,25 @@ def test_dp_is_cut_across_processes_in_contiguous_blocks():
     (dict(dp=3, shard=1), 2, ValueError, "dp=3 does not split over 2 processes"),
     (dict(dp=1, shard=1), 2, ValueError, "contiguous blocks"),
     (dict(dp=3, sp=2), 2, ValueError, "not a box"),
-    (dict(dp=2, tp=2), 4, NotImplementedError, "cut tp across processes"),
-    (dict(ep=4), 2, NotImplementedError, "ROADMAP"),
+    # tp and ep, which refused to span processes until they ran across
+    # them: (the process, its box, its lines' processes)
+    (dict(dp=2, tp=2), 4, None, (1, {"dp": (0, 1), "tp": (1, 2)},
+                                 {"dp": [1, 3], "tp": [0, 1]})),
+    (dict(ep=4), 2, None, (1, {"ep": (2, 4)}, {"ep": [0, 1]})),
 ])
 def test_layouts_that_refuse(axes, processes, exc, match):
+    """The layouts that ``check_split`` and ``Mesh`` refuse; a ``tp`` or
+    ``ep`` axis across processes no longer is one (``exc`` None:
+    ``match`` holds a process's box and the processes of its lines)."""
+    if exc is None:
+        pid, box, lines = match
+        check_split(axes, processes)
+        assert process_boxes(axes, processes)[pid] == box
+        mesh = Mesh("cpu", ProcessGroup(pid, processes, None, "cpu"), **axes)
+        assert mesh.box == box and {a for a in axes if mesh.spans(a)} == set(lines)
+        found = _line_groups(process_boxes(axes, processes), sorted(lines))
+        assert {a: next(ln for ln in found[a] if pid in ln) for a in lines} == lines
+        return
     with pytest.raises(exc, match=match):
         check_split(axes, processes)
     with pytest.raises(exc, match=match):

@@ -12,8 +12,10 @@ layer, batch 8); MNIST at side 8, batch 32.
 - Layouts, before any rendezvous: the five cuts (dp 1 x sp 2 and sp 4
   over two processes, dp 2 x sp 2 over four, dp 1 x shard 2 over two,
   dp 2 x shard 2 over four) with their ranges and rows; a block that is
-  not a box raises ``ValueError`` naming it; ``tp``, ``pp`` or ``ep``
-  across processes raises ``NotImplementedError`` (ROADMAP §A item 3).
+  not a box raises ``ValueError`` naming it; ``tp``, ``pp`` and ``ep``
+  across processes lay out as every other axis (each process its box,
+  each spanning axis its lines), and their entry points build over an
+  axis that spans (``tests/test_torch_multiproc_tp_pp_ep.py`` runs them).
 - Collectives, over the line of each axis: ``ring_shift`` forward and
   backward, ``ps_pull``, ``ps_push``, ``ps_pushpull``, ``psum``,
   ``allreduce_mean``, ``gather`` and ``process_mean`` give every process
@@ -73,7 +75,7 @@ from mpit_tpu_torch.models.mnist import make_model
 from mpit_tpu_torch.parallel import (
     Mesh, ProcessGroup, ep_moe, make_mesh, pipeline, process_local_rows, tp_mlp,
     tp_self_attention)
-from mpit_tpu_torch.parallel.mesh import check_split
+from mpit_tpu_torch.parallel.mesh import _line_groups, check_split, process_boxes
 from mpit_tpu_torch.utils.checkpoint import load_state_dict
 
 torch.set_num_threads(1)
@@ -160,15 +162,39 @@ def test_make_mesh_over_four_processes():
                      group=ProcessGroup(3, 4, None, "cpu")).shape == {"dp": 4, "shard": 2}
 
 
+def held_layout(axes, processes, boxes, lines):
+    """Each process's box of ``axes`` over ``processes``, its mesh's box
+    and spanning axes, and each spanning axis's lines (process ids)."""
+    check_split(axes, processes)
+    assert process_boxes(axes, processes) == boxes
+    assert _line_groups(boxes, sorted(lines)) == lines
+    for pid, box in enumerate(boxes):
+        mesh = Mesh("cpu", ProcessGroup(pid, processes, None, "cpu"), **axes)
+        assert mesh.box == box
+        assert {a for a in axes if mesh.spans(a)} == set(lines)
+
+
 @pytest.mark.parametrize("axes, processes, exc, match", [
     (dict(dp=3, sp=2), 2, ValueError,
      r"process 0's block, flat ranks \[0, 3\).*\(0, 0\), \(0, 1\), \(1, 0\).*not a box"),
     (dict(dp=2, shard=3), 4, ValueError, "dp=2 x shard=3 does not split over 4 processes"),
-    (dict(tp=2), 2, NotImplementedError, r"cut tp across processes.*ROADMAP §A item 3"),
-    (dict(dp=1, pp=4), 2, NotImplementedError, r"cut pp across processes.*ROADMAP §A item 3"),
-    (dict(dp=2, ep=2), 4, NotImplementedError, r"cut ep across processes.*ROADMAP §A item 3"),
+    # tp, pp and ep, which refused to span processes until they ran across
+    # them: each process's box and each spanning axis's lines
+    (dict(tp=2), 2, None, ([{"tp": (0, 1)}, {"tp": (1, 2)}], {"tp": [[0, 1]]})),
+    (dict(dp=1, pp=4), 2, None, ([{"dp": (0, 1), "pp": (0, 2)}, {"dp": (0, 1), "pp": (2, 4)}],
+                                 {"pp": [[0, 1]]})),
+    (dict(dp=2, ep=2), 4, None, ([{"dp": (0, 1), "ep": (0, 1)}, {"dp": (0, 1), "ep": (1, 2)},
+                                  {"dp": (1, 2), "ep": (0, 1)}, {"dp": (1, 2), "ep": (1, 2)}],
+                                 {"dp": [[0, 2], [1, 3]], "ep": [[0, 1], [2, 3]]})),
 ])
 def test_cuts_that_refuse(axes, processes, exc, match):
+    """A grid that ``P`` does not divide and a block that is not a box
+    refuse, in ``check_split`` and in ``Mesh``; a ``tp``, ``pp`` or ``ep``
+    axis across processes no longer does (``exc`` None: ``match`` holds
+    the boxes and the lines)."""
+    if exc is None:
+        held_layout(axes, processes, *match)
+        return
     with pytest.raises(exc, match=match):
         check_split(axes, processes)
     with pytest.raises(exc, match=match):
@@ -176,17 +202,23 @@ def test_cuts_that_refuse(axes, processes, exc, match):
 
 
 @pytest.mark.parametrize("build", [
-    lambda mesh: tp_mlp(mesh, "sp"),
-    lambda mesh: tp_self_attention(mesh, "sp"),
-    lambda mesh: pipeline(mesh, lambda p, x: x, "sp"),
-    lambda mesh: ep_moe(mesh, "sp"),
+    lambda mesh: (tp_mlp(mesh, "sp"), ((2, 3, 8), (8, 8), (8,), (8, 8), (8,))),
+    lambda mesh: (tp_self_attention(mesh, "sp"), ((1, 8, 16), (16, 3, 2, 8), (2, 8, 16))),
+    lambda mesh: (lambda w, xs: pipeline(mesh, lambda p, x: x @ p["w"], "sp")({"w": w}, xs),
+                  ((2, 4, 4), (3, 1, 4))),
+    lambda mesh: (ep_moe(mesh, "sp"), ((2, 4), (4, 2), (2, 4, 4), (2, 4), (2, 4, 4), (2, 4))),
 ])
 def test_tp_pp_ep_over_an_axis_across_processes_refuse(build):
-    """Tensor, pipeline and expert parallelism run inside one process: over
-    an axis that spans processes they raise before any collective."""
+    """Tensor, pipeline and expert parallelism refused an axis that spans
+    processes until they ran across them: each entry point now builds
+    over one, and its call needs the line's sub-group, so before the
+    process group forms it raises rather than compute this process's
+    ranks alone."""
     mesh = Mesh("cpu", ProcessGroup(0, 2, None, "cpu"), dp=1, sp=2)
-    with pytest.raises(NotImplementedError, match=r"spans processes.*ROADMAP §A item 3"):
-        build(mesh)
+    assert mesh.spans("sp")
+    fn, shapes = build(mesh)
+    with pytest.raises(RuntimeError, match="before the process group formed"):
+        fn(*(torch.zeros(shape) for shape in shapes))
 
 
 # -- collectives over the lines of each axis ----------------------------------
