@@ -139,6 +139,19 @@ order; any failure raises and the script exits non-zero:
    8 --opt adam --serve_readers 4 --cells 2`` over TCP, the first cell
    SIGKILLed after it served 20 reads: evicted by its upstream's lease,
    the readers failing over, the server process's K3 = its applies);
+6g. the device data plane and chunked streaming (slices 6 and 5f,
+   ``dplane_stream_phases``): the device exchange beside the wire
+   (``dplane_adam_lockstep``, ``dplane_sync_device``, ``dplane_gangs``), the
+   streamed lockstep matrix, and in the background the process gangs and
+   ptest's stream leg; then the plane over ``shard=4`` virtual ranks of
+   the card (slice 10), each rank's block a tensor of its own and K3 once a
+   rank an apply, every run bit for bit its one-rank and wire twins:
+   ``dplane_mesh_adam_replicated`` (the flagship's 272,261 floats a server,
+   which 4 does not divide: replicated), ``dplane_mesh_sync_sharded``
+   (``lm_default``'s 1,971,200 floats by ``sync_device`` rounds, 246,400 a
+   rank) and ``dplane_mesh_migrate`` (the ``tools/device_smoke.py`` twin at
+   1,971,200 floats, one live migration onto a slot over 4 ranks); each
+   prints K3 a GRAD a server, its GRAD round trip and its spec;
 7. flash attention: K4 (forward, both output modes), K5 (fused backward)
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
@@ -1551,7 +1564,7 @@ FT_LEASE_TTL_S = 1.0
 
 
 def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=False,
-            mode="wire", chunk_bytes=0, ft=FT_FAST):
+            mode="wire", chunk_bytes=0, ft=FT_FAST, ranks=1):
     """2 servers (ranks 0, 1) on the card and ``nclients`` clients over one
     in-process router, each endpoint behind its side's fault plan where
     one is given (client ``i`` seeded ``i``), the clients on the
@@ -1560,13 +1573,15 @@ def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=
     shards: "wire" (no plane), "slots" (device slots, no exchange),
     "device" (both servers publish a plane, every client an
     ``ExchangeClient`` that requires the device path) or "mixed" (server 0
-    on the device path, server 1 on the wire).  Returns (servers, clients,
-    threads)."""
+    on the device path, server 1 on the wire); ``ranks`` > 1 lays each
+    plane over a ``shard`` axis of that many virtual ranks of the card.
+    Returns (servers, clients, threads)."""
     import threading
 
     from mpit_tpu_torch.comm.local import LocalRouter
     from mpit_tpu_torch.dplane import ExchangeClient, PlaneConfig
     from mpit_tpu_torch.ft import FaultPlan, FaultyTransport, FTConfig
+    from mpit_tpu_torch.parallel.mesh import make_mesh
     from mpit_tpu_torch.ps import ParamClient, ParamServer
 
     router = LocalRouter(2 + nclients)
@@ -1578,7 +1593,9 @@ def ft_gang(rule, codec, server_plan=None, client_plan=None, nclients=2, timing=
             ep = FaultyTransport(ep, FaultPlan(**server_plan))
         plane = None if mode == "wire" else PlaneConfig(
             device=GANG_BASE["device"], publish=(mode == "device" or
-                                                 (mode == "mixed" and r == 0)))
+                                                 (mode == "mixed" and r == 0)),
+            mesh=make_mesh(dp=1, shard=ranks, device=GANG_BASE["device"])
+            if ranks > 1 else None)
         servers.append(ParamServer(r, cranks, ep, rule=rule, device=GANG_BASE["device"],
                                    ft=FTConfig(rejoin=True), dplane=plane))
     threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
@@ -1637,8 +1654,9 @@ def ft_close(name, servers, clients, threads, kernels):
              "retries": sum(c.retries for c in clients),
              "launches": read_counts(kernels)}
     for s in servers:
-        if s.param.device.type != GANG_BASE["device"]:
-            raise AssertionError(f"{name}: a shard is on {s.param.device}")
+        devices = {b.device for b in s._hbm.blocks}
+        if any(d.type != GANG_BASE["device"] for d in devices):
+            raise AssertionError(f"{name}: a shard is on {devices}")
         for (crank, epoch), (lo, hi, n) in s.admitted.items():
             if n != hi - lo + 1:
                 raise AssertionError(f"{name}: server {s.rank} applied {n} GRADs "
@@ -1647,7 +1665,7 @@ def ft_close(name, servers, clients, threads, kernels):
 
 
 def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None, mode="wire",
-                     time_grads=False):
+                     time_grads=False, ranks=1):
     """Two workers compute the flagship CNN's gradient on the card at the
     params they pull, in lockstep turns (each pulls, computes, pushes and
     has its GRAD acked before the other moves: the order
@@ -1655,8 +1673,10 @@ def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None, mode
     applying Adam by K3 to their 272,261-float shards, on the
     ``FLAG_TIMING`` wire with ``timing``, the shards placed by ``mode``
     (``ft_gang``).  With ``time_grads`` each GRAD's round trip is timed to
-    its apply's end on the card (``stats["grad_s"]``).  Returns the final
-    params, the counts and the seconds a round took."""
+    its apply's end on the card (``stats["grad_s"]``).  With ``ranks`` > 1
+    each plane lies over that many virtual ranks (``ft_gang``): every slot
+    must hold one block a rank, and K3 run once a rank an apply.  Returns
+    the final params, the counts and the seconds a round took."""
     import numpy as np
 
     from mpit_tpu_torch.models.flat import flatten_module, value_and_grad_nll_eager
@@ -1671,7 +1691,7 @@ def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None, mode
     batch = GANG_BASE["batch"]
     servers, clients, threads = ft_gang(
         rules.make("adam", lr=1e-3), None, server_plan=faulty and FT_SERVER_PLAN,
-        client_plan=faulty and FT_CLIENT_PLAN, timing=timing, mode=mode)
+        client_plan=faulty and FT_CLIENT_PLAN, timing=timing, mode=mode, ranks=ranks)
     params = [flat.w0.cpu().numpy().copy(), np.zeros(flat.size, np.float32)]
     grads = [np.zeros(flat.size, np.float32) for _ in clients]
     vgf(flat.w0, x[:batch], y[:batch])  # first-call costs out of the rounds
@@ -1706,12 +1726,25 @@ def ft_lockstep_adam(torch, kernels, data, faulty, timing=False, name=None, mode
         stats["device_ops"] = [sum(int(v.value) for v in s._m_dp_ops.values())
                                for s in servers]
         stats["device_ranks"], stats["wire_ops"] = device_ranks, wire_ops
+        stats["slots"] = [s._hbm.describe() for s in servers]
+        check_slot_layout(name, [s._hbm for s in servers], ranks)
     if time_grads:
         stats["grad_s"], stats["queued_s"] = grad_s, queued
-    expect_launches(name, stats["launches"], {"k3": stats["grads_applied"]})
+    expect_launches(name, stats["launches"], {"k3": ranks * stats["grads_applied"]})
     if stats["grads_applied"] != 2 * len(clients) * FT_ROUNDS:
         raise AssertionError(f"{name}: {stats['grads_applied']} applies")
     return final, stats, round_s
+
+
+def check_slot_layout(name, slots, ranks):
+    """Every slot holds one block a rank of its plane, each its own storage
+    on the card (a slot that kept one block over n ranks is a fault)."""
+    for slot in slots:
+        if len(slot.blocks) != ranks or len({b.data_ptr() for b in slot.blocks}) != ranks \
+                or len(slot.states) != ranks \
+                or any(b.device.type != GANG_BASE["device"] for b in slot.blocks):
+            raise AssertionError(f"{name}: a slot holds {len(slot.blocks)} blocks "
+                                 f"({slot.describe()}), expected {ranks}")
 
 
 def ft_lockstep_eamsgd_int8(torch, kernels, data, faulty):
@@ -2138,10 +2171,11 @@ SC_FT = dict(op_deadline_s=5.0, max_retries=8, backoff_base_s=0.005, backoff_cap
 SC_CHUNK_BYTES = 262144
 
 
-def sc_gang(shards_per_server, ckpt_dir=None, ctl_kwargs=None):
+def sc_gang(shards_per_server, ckpt_dir=None, ctl_kwargs=None, dplane=None):
     """2 Adam servers (ranks 0, 1) on the card, 2 shard-control clients (2,
     3) and the controller (4) over one in-process router; the servers run
-    on threads.  Returns (servers, clients, threads, ctl)."""
+    on threads, their slots on the ``dplane`` plane where one is given.
+    Returns (servers, clients, threads, ctl)."""
     import threading
 
     from mpit_tpu_torch.comm.local import LocalRouter
@@ -2153,7 +2187,8 @@ def sc_gang(shards_per_server, ckpt_dir=None, ctl_kwargs=None):
     router = LocalRouter(5)
     servers = [ParamServer(r, [2, 3], router.endpoint(r), rule=rules.make("adam", lr=1e-3),
                            device=GANG_BASE["device"], ft=FTConfig(**SC_FT),
-                           controller_rank=4, ckpt_dir=ckpt_dir, ckpt_interval=1e9)
+                           controller_rank=4, ckpt_dir=ckpt_dir, ckpt_interval=1e9,
+                           dplane=dplane)
                for r in (0, 1)]
     threads = [threading.Thread(target=s.start, daemon=True) for s in servers]
     for t in threads:
@@ -2229,7 +2264,7 @@ def sc_lockstep_adam(torch, kernels, data, name, shards_per_server=1, hook=None,
     expect_launches(name, launches, {"k3": applied})
     for s in servers:
         for sid in s.owned_shards:
-            slot = s._slots[sid]
+            slot = s._slots[sid].hbm
             tensors = [slot.param, *slot.rule_state.values()]
             if any(t.device.type != GANG_BASE["device"] for t in tensors) \
                     or not slot.param.is_contiguous():
@@ -3251,7 +3286,8 @@ def dplane_adam_lockstep(torch, kernels, data, all_paths, smi):
     drop/dup matrix end bit for bit equal, K3 equal to the applies in each;
     the device run counts device ranks [0, 1] and no wire data op.  The
     device run again with the interpreter's switch interval at 0.5 ms (5
-    ms by default) asks whether thread switches set the round trip."""
+    ms by default) asks whether thread switches set the round trip.
+    Returns each run's (final params, counts)."""
     import numpy as np
 
     runs = {mode: ft_lockstep_adam(torch, kernels, data, mode == "mixed",
@@ -3297,6 +3333,7 @@ def dplane_adam_lockstep(torch, kernels, data, all_paths, smi):
           f"{d['queued_ms_p50']:.3f} ms in the plane's queue (the service's 0.5 ms "
           f"idle pacing: {100 * d['pacing_share']:.0f}%); with a 0.5 ms switch "
           f"interval {reading['device_switch_0.5ms']['grad_rt_ms_p50']:.3f} ms")
+    return runs
 
 
 #: the sync_device A/B: each mode's gang takes this many rounds, and each mode
@@ -3401,7 +3438,7 @@ def stream_lockstep(torch, kernels, rule, codec, chunk_bytes, faulty, dplane=Fal
     final = params[0].copy()
     stats = ft_close("stream", servers, clients, threads, kernels)
     stats["chunked_pairs"] = sum(1 for s in servers for c in s._chunk.values() if c)
-    stats["hbm"] = [s._hbm is not None for s in servers]
+    stats["hbm"] = [s._dp_cfg is not None and s._hbm is not None for s in servers]
     return final, stats
 
 
@@ -3575,6 +3612,241 @@ def ptest_stream(smi):
           f"{rows[1]['param_p50_ms']:.1f} ms in {time.perf_counter() - t0:.1f}s")
 
 
+# -- the device plane over more than one rank (slice 10) ---------------------------
+
+#: the ranks of each mesh phase's plane: virtual ranks of the card on its
+#: ``shard`` axis (a host with more cards lays them one a card: PlaneConfig.auto)
+MESH_PLANE_RANKS = 4
+#: ``dplane_mesh_sync_sharded``'s rounds a gang (the first pays first-call costs)
+MESH_SYNC_ROUNDS = 12
+#: ``dplane_mesh_migrate``'s rounds and the round its live migration comes before
+MESH_MIGRATE_ROUNDS, MESH_MIGRATE_AT = 8, 4
+
+
+def mesh_plane(ranks):
+    """A plane on the card over ``ranks`` virtual ranks (one: no mesh)."""
+    from mpit_tpu_torch.dplane import PlaneConfig
+    from mpit_tpu_torch.parallel.mesh import make_mesh
+
+    return PlaneConfig(device=GANG_BASE["device"],
+                       mesh=make_mesh(dp=1, shard=ranks, device=GANG_BASE["device"])
+                       if ranks > 1 else None)
+
+
+def k3_per_grad(stats):
+    """K3's launches a GRAD a server (each GRAD is applied by one server)."""
+    return stats["launches"]["k3"] / stats["grads_applied"]
+
+
+def dplane_mesh_adam_replicated(torch, kernels, data, all_paths, smi, runs):
+    """``ft_lockstep_adam(mode="device")``'s gang (the flagship CNN's 544,522
+    floats over 2 Adam servers, 272,261 a server) with each plane over
+    ``MESH_PLANE_RANKS`` ranks: 272,261 = 11 x 53 x 467, which 4 does not
+    divide, so every rank holds the whole shard (spec ``P()``) and K3 runs 4
+    times a GRAD a server.  Bit for bit the one-rank plane's run and the
+    wire run of ``dplane_adam_lockstep`` (``runs``, the same seeds under the
+    same deterministic cuDNN)."""
+    import numpy as np
+
+    name = "dplane_mesh_adam_replicated"
+    final, stats, _ = ft_lockstep_adam(torch, kernels, data, False, name=name,
+                                       mode="device", time_grads=True,
+                                       ranks=MESH_PLANE_RANKS)
+    for ref in ("device", "wire"):
+        if final.tobytes() != runs[ref][0].tobytes():
+            raise AssertionError(f"{name}: params differ from the {ref} run's (max gap "
+                                 f"{np.abs(final - runs[ref][0]).max()})")
+    if stats["device_ranks"] != [[0, 1], [0, 1]] or any(stats["wire_ops"]):
+        raise AssertionError(f"{name}: device ranks {stats['device_ranks']}, wire ops "
+                             f"{stats['wire_ops']}")
+    if any(d["spec"] != [] or d["devices"] != MESH_PLANE_RANKS for d in stats["slots"]):
+        raise AssertionError(f"{name}: slots {stats['slots']}, expected replication "
+                             f"over {MESH_PLANE_RANKS} ranks")
+    reading = {"k3": stats["launches"]["k3"], "grads_applied": stats["grads_applied"],
+               "k3_per_grad_per_server": k3_per_grad(stats),
+               "grad_rt_ms_p50": float(np.median(stats["grad_s"])) * 1e3,
+               "one_rank_grad_rt_ms_p50": float(np.median(runs["device"][1]["grad_s"])) * 1e3,
+               "spec": stats["slots"][0]["spec"], "ranks": stats["slots"][0]["devices"],
+               "device_set": stats["slots"][0]["device_set"]}
+    record_path(all_paths, name, stats["launches"], 2 * FT_ROUNDS)
+    print(f"{name}: " + json.dumps(reading))
+    print(f"{name} on {smi}: K3 {reading['k3_per_grad_per_server']:g} a GRAD a server "
+          f"(spec P(), {MESH_PLANE_RANKS} ranks), GRAD round trip p50 "
+          f"{reading['grad_rt_ms_p50']:.3f} ms against {reading['one_rank_grad_rt_ms_p50']:.3f}"
+          " ms on one rank; bit for bit the one-rank and wire runs")
+
+
+def dplane_mesh_sync_sharded(torch, kernels, all_paths, smi):
+    """``lm_default``'s 1,971,200 floats (``LM_GANG_PARAMS``) in the equal cut
+    over 2 Adam servers (985,600 a server), driven by ``sync_device`` rounds
+    from seeded updates: each plane over ``MESH_PLANE_RANKS`` ranks cuts its
+    shard 246,400 a rank (spec ``P("shard")``) and K3 runs 4 times a GRAD a
+    server.  Every round's params bit for bit the same rounds on one-rank
+    planes (``sync_device``) and on the wire (the grad through the host
+    mirrors, acked, then the params read back); each round timed."""
+    import hashlib
+
+    import numpy as np
+
+    from mpit_tpu_torch.optim import rules
+
+    n, dev = LM_GANG_PARAMS, GANG_BASE["device"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w0 = torch.randn(n, generator=gen, device=dev).cpu().numpy()
+    updates = [1e-3 * torch.randn(n, generator=gen, device=dev)
+               for _ in range(MESH_SYNC_ROUNDS)]
+    runs = {}
+    for how, mode, ranks in (("wire", "wire", 1), ("one_rank", "device", 1),
+                             ("mesh", "device", MESH_PLANE_RANKS)):
+        name = f"dplane_mesh_sync_{how}"
+        servers, clients, threads = ft_gang(rules.make("adam", lr=1e-3), None, nclients=1,
+                                            mode=mode, ranks=ranks)
+        c = clients[0]
+        ft_start([c], [lambda: c.start(w0.copy(), np.zeros(n, np.float32))])
+        zero_counts(kernels)
+        times, digests = [], []
+        for r, u in enumerate(updates):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "wire":
+                c.grad[:] = u.cpu().numpy()
+                c.async_send_grad()
+                c.wait()
+                c.async_recv_param()
+                c.wait()
+                got = torch.from_numpy(c.param).to(dev)
+            else:
+                got = c.sync_device(u)
+            torch.cuda.synchronize()
+            if r:
+                times.append(time.perf_counter() - t0)
+            digests.append(hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest())
+        slots = [s._hbm for s in servers if s._hbm is not None]
+        if mode != "wire":
+            check_slot_layout(name, slots, ranks)
+        describe = slots[0].describe() if slots else None
+        stats = ft_close(name, servers, clients, threads, kernels)
+        expect_launches(name, stats["launches"], {"k3": ranks * stats["grads_applied"]})
+        if stats["grads_applied"] != 2 * MESH_SYNC_ROUNDS:
+            raise AssertionError(f"{name}: {stats['grads_applied']} applies")
+        runs[how] = {"digests": digests, "stats": stats, "times": times,
+                     "describe": describe}
+        record_path(all_paths, name, stats["launches"], MESH_SYNC_ROUNDS)
+    for how, run in runs.items():
+        if run["digests"] != runs["wire"]["digests"]:
+            bad = next(i for i, (a, b) in enumerate(zip(run["digests"],
+                                                        runs["wire"]["digests"])) if a != b)
+            raise AssertionError(f"dplane_mesh_sync_sharded: the {how} gang's round {bad} "
+                                 "differs from the wire path's")
+    mesh = runs["mesh"]["describe"]
+    if mesh["spec"] != ["shard"] or mesh["devices"] != MESH_PLANE_RANKS:
+        raise AssertionError(f"dplane_mesh_sync_sharded: slot {mesh}")
+    reading = {how: {"round_ms_p50": float(np.median(run["times"])) * 1e3,
+                     "round_ms_p10": float(np.percentile(run["times"], 10)) * 1e3,
+                     "round_ms_p90": float(np.percentile(run["times"], 90)) * 1e3,
+                     "k3": run["stats"]["launches"]["k3"],
+                     "k3_per_grad_per_server": k3_per_grad(run["stats"]),
+                     "spec": run["describe"]["spec"] if run["describe"] else None}
+               for how, run in runs.items()}
+    print("dplane_mesh_sync_sharded: " + json.dumps(reading))
+    print(f"dplane_mesh_sync_sharded on {smi}: a round (GRAD + pull) of {n:,} floats "
+          f"over 2 Adam servers p50 {reading['mesh']['round_ms_p50']:.3f} ms over "
+          f"{MESH_PLANE_RANKS} ranks a plane (P('shard'), {n // 2 // MESH_PLANE_RANKS:,} "
+          "floats a rank, K3 "
+          f"{reading['mesh']['k3_per_grad_per_server']:g} a GRAD a server), "
+          f"{reading['one_rank']['round_ms_p50']:.3f} ms on one rank, "
+          f"{reading['wire']['round_ms_p50']:.3f} ms by the wire; every round bit for bit")
+
+
+def dplane_mesh_migrate(torch, kernels, all_paths, smi):
+    """The twin of ``tools/device_smoke.py`` on the card: 2 Adam servers and 2
+    shard-control clients at ``lm_default``'s 1,971,200 floats (985,600 a
+    shard) sending seeded gradients in lockstep, with planes over
+    ``MESH_PLANE_RANKS`` ranks and one live migration (shard 1 to server 0)
+    before round ``MESH_MIGRATE_AT`` of ``MESH_MIGRATE_ROUNDS``: bit for bit
+    the static host run, and a one-rank plane's migration; the migrated slot
+    lies over 4 ranks on its new owner (``P("shard")``, ``t`` equal on every
+    rank), and K3 runs 4 times a GRAD a server."""
+    import numpy as np
+
+    n = LM_GANG_PARAMS
+    rng = np.random.default_rng(11)
+    w0 = rng.standard_normal(n, dtype=np.float32)
+    gtab = 1e-3 * rng.standard_normal((2, MESH_MIGRATE_ROUNDS, n), dtype=np.float32)
+
+    def run(name, ranks, migrate):
+        servers, clients, threads, ctl = sc_gang(
+            1, dplane=mesh_plane(ranks) if ranks else None)
+        ft_start(clients, [lambda c=c, i=i: c.start(
+            w0.copy() if i == 0 else np.zeros(n, np.float32), np.zeros(n, np.float32))
+            for i, c in enumerate(clients)])
+        ctl.pump()  # the seeder's map
+        zero_counts(kernels)
+        grad_s, migrate_s = [], None
+        for rnd in range(MESH_MIGRATE_ROUNDS):
+            if migrate and rnd == MESH_MIGRATE_AT:
+                t0 = time.perf_counter()
+                if not ctl.migrate(1, 0):
+                    raise AssertionError(f"{name}: the migration was refused")
+                migrate_s = time.perf_counter() - t0
+            for i, c in enumerate(clients):
+                c.grad[:] = gtab[i, rnd]
+                t0 = time.perf_counter()
+                c.async_send_grad()
+                c.wait()
+                torch.cuda.synchronize()
+                grad_s.append(time.perf_counter() - t0)
+        clients[0].async_recv_param()
+        clients[0].wait()
+        final = clients[0].param.copy()
+        for c in clients:
+            c.stop()
+        for t in threads:
+            t.join(60)
+            if t.is_alive():
+                raise AssertionError(f"{name}: a server did not stop")
+        ctl.pump()
+        launches = read_counts(kernels)
+        applied = sum(s.grads_applied for s in servers)
+        if applied != 2 * MESH_MIGRATE_ROUNDS * 2:
+            raise AssertionError(f"{name}: {applied} applies")
+        expect_launches(name, launches, {"k3": max(ranks, 1) * applied})
+        if migrate and (servers[0].owned_shards != [0, 1] or servers[1].owned_shards):
+            raise AssertionError(f"{name}: owners {servers[0].owned_shards}, "
+                                 f"{servers[1].owned_shards}")
+        slots = {sid: s._slots[sid] for s in servers for sid in s.owned_shards}
+        if ranks:
+            check_slot_layout(name, [slot.hbm for slot in slots.values()], ranks)
+            ts = [int(st["t"]) for st in slots[1].hbm.states]
+            if ts != [2 * MESH_MIGRATE_ROUNDS] * ranks:
+                raise AssertionError(f"{name}: the migrated slot's t {ts}")
+        record_path(all_paths, name, launches, 2 * MESH_MIGRATE_ROUNDS)
+        return final, {"k3": launches["k3"], "applied": applied,
+                       "k3_per_grad_per_server": launches["k3"] / applied,
+                       "grad_rt_ms_p50": float(np.median(grad_s)) * 1e3,
+                       "migrate_ms": migrate_s * 1e3 if migrate_s is not None else None,
+                       "migrated_slot": slots[1].hbm.describe() if ranks else None}
+
+    static, host = run("dplane_mesh_migrate_static_host", 0, False)
+    one_final, one = run("dplane_mesh_migrate_one_rank", 1, True)
+    final, mesh = run("dplane_mesh_migrate", MESH_PLANE_RANKS, True)
+    for ref, want in (("static host", static), ("one-rank plane", one_final)):
+        if final.tobytes() != want.tobytes():
+            raise AssertionError(f"dplane_mesh_migrate: params differ from the {ref} run's "
+                                 f"(max gap {np.abs(final - want).max()})")
+    slot = mesh["migrated_slot"]
+    if slot["spec"] != ["shard"] or slot["devices"] != MESH_PLANE_RANKS:
+        raise AssertionError(f"dplane_mesh_migrate: the migrated slot {slot}")
+    reading = {"static_host": host, "one_rank": one, "mesh": mesh}
+    print("dplane_mesh_migrate: " + json.dumps(reading))
+    print(f"dplane_mesh_migrate on {smi}: {n:,} floats, live migration at round "
+          f"{MESH_MIGRATE_AT} of {MESH_MIGRATE_ROUNDS} in {mesh['migrate_ms']:.1f} ms over "
+          f"{MESH_PLANE_RANKS} ranks ({one['migrate_ms']:.1f} ms on one rank), GRAD round "
+          f"trip p50 {mesh['grad_rt_ms_p50']:.3f} ms ({one['grad_rt_ms_p50']:.3f} on one "
+          f"rank, {host['grad_rt_ms_p50']:.3f} on the host path), K3 "
+          f"{mesh['k3_per_grad_per_server']:g} a GRAD a server; bit for bit the static run")
+
+
 def dplane_stream_phases(torch, kernels, all_paths, smi):
     """Slices 6 and 5f on the card: the process gangs (the dplane Adam gang
     and the chunked EAMSGD gangs) and ptest's stream leg run in the
@@ -3604,10 +3876,13 @@ def dplane_stream_phases(torch, kernels, all_paths, smi):
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            dplane_adam_lockstep(torch, kernels, data, all_paths, smi)
+            runs = dplane_adam_lockstep(torch, kernels, data, all_paths, smi)
+            dplane_mesh_adam_replicated(torch, kernels, data, all_paths, smi, runs)
         finally:
             torch.backends.cudnn.deterministic = deterministic
         dplane_sync_device(torch, kernels, all_paths, smi)
+        dplane_mesh_sync_sharded(torch, kernels, all_paths, smi)
+        dplane_mesh_migrate(torch, kernels, all_paths, smi)
         dplane_gangs(torch, kernels, raw, all_paths)
         stream_lockstep_matrix(torch, kernels, all_paths, smi)
         inproc_s = time.perf_counter() - t1

@@ -203,23 +203,12 @@ SINKS: Tuple[OwnedSink, ...] = (
             "slot's in-place apply must be owned card copies "
             "(_on_device), never receive-staging views."),
     OwnedSink(
-        "chunk-apply-owned-seam-plain", "ps/server.py", "decode_parts", 0,
-        fn="_apply_chunk",
-        doc="the plain path (no device plane) has the same contract: the "
-            "parts decode_parts reads — and, under an identity codec, "
-            "hands back as the gradient itself — must be owned copies."),
-    OwnedSink(
         "ps-grad-apply-owned", "ps/server.py", "apply_wire", 1,
         receiver="hbm", fn="_recv_grad",
         doc="unframed GRAD apply, device path: the client's next GRAD "
             "lands in the same staging buffer, so the operand handed to "
             "apply_wire must be an owned copy of the reused gbuf views, "
             "never the views themselves."),
-    OwnedSink(
-        "ps-grad-apply-owned-plain", "ps/server.py", "decode_parts", 0,
-        fn="_recv_grad",
-        doc="unframed GRAD apply, plain path: the same contract at the "
-            "port's decode."),
     OwnedSink(
         "pool-client-decode-owned", "ps/client.py", "submit_decode", 1,
         receiver="pool",
@@ -279,10 +268,13 @@ PATHS: Tuple[OwnedPath, ...] = (
 SLOTS: Tuple[DonatedSlot, ...] = (
     DonatedSlot(
         "hbm-snapshot-materialize", "dplane/hbm.py",
-        ("param", "rule_state"), ("snapshot_host", "pull_device"),
+        ("param", "rule_state", "blocks", "states", "sharded_param",
+         "sharded_state"),
+        ("snapshot_host", "pull_device", "state_host"),
         doc="readers of the slot must copy (.to(\"cpu\", copy=True), "
-            ".clone()) before handing it out: the next apply writes the "
-            "slot in place under any exposed reference."),
+            ".to(device, copy=True), a gather into a fresh buffer) before "
+            "handing it out: the next apply writes every rank's block in "
+            "place under any exposed reference."),
 )
 
 #: The JAX package's declarations whose code shape the port does not
@@ -297,13 +289,13 @@ RETIRED: Tuple[Tuple[object, str], ...] = (
         "chunk-apply-owned-seam-legacy", "ps/server.py", "apply_fn", 1,
         fn="_apply_chunk"),
      "the port has no per-shard apply_fn (the reference's legacy jitted "
-     "apply); its plain path decodes with decode_parts — declared as "
-     "chunk-apply-owned-seam-plain"),
+     "apply); every shard is an HbmSlot, whose apply_wire_chunk takes "
+     "the parts — declared as chunk-apply-owned-seam"),
     (OwnedSink(
         "ps-grad-apply-owned-legacy", "ps/server.py", "apply_fn", 1,
         fn="_recv_grad"),
      "as chunk-apply-owned-seam-legacy, on the unframed GRAD path — "
-     "declared as ps-grad-apply-owned-plain"),
+     "declared as ps-grad-apply-owned"),
     (OwnedPath(
         "hbm-init-owned", "dplane/hbm.py", "__init__",
         "place_flat", "device_copy"),

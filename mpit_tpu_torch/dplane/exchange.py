@@ -28,7 +28,11 @@ copy made on the client's thread at submit, with a CUDA event recorded on
 the client's current stream; the server's stream waits on that event
 before the apply reads it and records it as a user of the tensor.  A
 ``pull_dev`` result goes the other way.  Neither side assumes the other
-runs on the same stream.
+runs on the same stream.  A slot laid over ranks on other cards copies each
+rank's window of the grad to its card after that wait (PyTorch orders a
+copy between cards after the current streams of both), and gathers a pull
+back onto the server's card; the client moves the pulled tensor onto its
+own device where that differs.
 """
 
 from __future__ import annotations
@@ -406,7 +410,9 @@ class ExchangeClient:
         for ticket in self._collect():
             if ticket.kind == "pull_dev":
                 take(ticket.result, ticket.ready)
-                pulls[ticket.srank] = ticket.result
+                pulled = ticket.result  # the slot's gather, on the server's device
+                pulls[ticket.srank] = (pulled if pulled.device == self.device
+                                       else pulled.to(self.device))
         parts = []
         for srank, shard in zip(self.pc.sranks, self.pc.shards):
             if srank in pulls:

@@ -24,11 +24,17 @@ On top of the per-leaf specs sits the **flat-vector layer**:
 balanced as the boundaries allow, and :func:`plan_shard_map` lifts that
 cut into a versioned :class:`~mpit_tpu_torch.shardctl.shardmap.ShardMap`.
 
-``PartitionSpec`` is the port's own small type.  On one card a spec only
-says which dims *would* be cut: :func:`tree_shardings` and
-:func:`shard_tree` place every leaf on the mesh's one device, and a mesh
-whose axes span more than one device raises (multi-card parallelism, a
-later slice of the port).
+``PartitionSpec`` is the port's own small type, and :class:`Placement` its
+``NamedSharding``: a mesh, a spec and one device a rank of the mesh.
+:func:`tree_shardings` lifts specs into placements, and :func:`shard_tree`
+lays each leaf out as its ranks' blocks (:class:`Sharded`, the port's
+sharded ``jax.Array``): rank ``i``'s block is a tensor of its own on rank
+``i``'s device, holding the part of the leaf the spec gives that rank, as
+``addressable_shards`` give a device's part in the JAX package.  The ranks
+of the port's :class:`~mpit_tpu_torch.parallel.mesh.Mesh` are virtual ranks
+of its one device (the device plane names one card a rank instead:
+``PlaneConfig.devices``).  A mesh cut across a process group is refused:
+the plane's ranks are one process's.
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
-MULTI_DEVICE = ("a mesh over more than one device (multi-card parallelism, "
-                "a later slice of the port)")
+PROCESS_GROUP = ("a mesh cut across a process group: the plane's ranks are the "
+                 "devices of one process, as the JAX plane's are one server "
+                 "process's local devices")
 
 
 class PartitionSpec(tuple):
@@ -58,11 +65,101 @@ class PartitionSpec(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """Where one leaf lives: the device and the spec it was given (the
-    port's ``NamedSharding``; a tree walk treats it as a leaf)."""
+    """Where one leaf lives — the port's ``NamedSharding``: the mesh, the
+    spec, and one device a rank of the mesh (ranks row-major over the
+    mesh's axes, the order of a JAX mesh's ``devices.flat``).  Without a
+    mesh it is one rank holding the whole leaf.  A tree walk treats it as
+    a leaf."""
 
-    device: torch.device
+    mesh: Any
     spec: PartitionSpec
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def device(self) -> torch.device:
+        """Rank 0's device."""
+        return self.devices[0]
+
+    def rank_index(self, shape: Tuple[int, ...]) -> List[Tuple[slice, ...]]:
+        """Each rank's block of a leaf of ``shape``, one slice a dim: the
+        block that the rank's coordinates on the dim's axes pick (row-major
+        in the spec's order of them) where the spec names axes for the dim,
+        else the whole dim.  Ranks whose coordinates differ only on axes the
+        spec does not name hold the same block (replication)."""
+        if self.mesh is None:
+            return [tuple(slice(0, extent) for extent in shape)]
+        names, sizes = list(self.mesh.shape), [int(v) for v in self.mesh.shape.values()]
+        axes = _spec_axes(self.spec)
+        out = []
+        for rank in range(math.prod(sizes)):
+            coord = dict(zip(names, _unravel(rank, sizes)))
+            idx = []
+            for dim, extent in enumerate(shape):
+                dim_axes = axes[dim] if dim < len(axes) else ()
+                count, pick = 1, 0
+                for ax in dim_axes:
+                    count *= self.mesh.shape[ax]
+                    pick = pick * self.mesh.shape[ax] + coord[ax]
+                step = extent // count
+                idx.append(slice(pick * step, (pick + 1) * step))
+            out.append(tuple(idx))
+        return out
+
+
+def _unravel(flat: int, sizes: Sequence[int]) -> Tuple[int, ...]:
+    coords = []
+    for size in reversed(sizes):
+        flat, c = divmod(flat, size)
+        coords.append(c)
+    return tuple(reversed(coords))
+
+
+class Sharded:
+    """A value laid out over a mesh's ranks — the port's sharded
+    ``jax.Array``: ``blocks[i]`` is rank ``i``'s block, a tensor of its own
+    on ``placement.devices[i]`` holding the part ``placement.rank_index``
+    gives the rank.  A tree walk treats it as a leaf."""
+
+    __slots__ = ("placement", "shape", "blocks")
+
+    def __init__(self, placement: Placement, shape: Tuple[int, ...],
+                 blocks: List[torch.Tensor]):
+        self.placement, self.shape, self.blocks = placement, tuple(shape), list(blocks)
+
+    def gather(self, device: Any = None) -> torch.Tensor:
+        """The whole value as one fresh tensor on ``device`` (rank 0's
+        device by default; the host for a snapshot): each distinct block
+        copied into its place, so a replicated value costs one block's
+        copy."""
+        dev = torch.device(device) if device is not None else self.placement.device
+        out = torch.empty(self.shape, dtype=self.blocks[0].dtype, device=dev)
+        done = set()
+        for idx, block in zip(self.placement.rank_index(self.shape), self.blocks):
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in done:
+                done.add(key)
+                out[idx].copy_(block)
+        return out
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Sharded":
+        """The same layout with ``fn`` of every block (``torch.clone``:
+        fresh storage of the same values)."""
+        return Sharded(self.placement, self.shape, [fn(b) for b in self.blocks])
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={self.shape}, spec={self.placement.spec!r}, "
+                f"ranks={len(self.blocks)})")
+
+
+def shard_leaf(leaf: Any, placement: Placement) -> Sharded:
+    """Lay ``leaf`` (a tensor or an array) out over ``placement``'s ranks:
+    each rank's block copied into storage of its own on its device."""
+    src = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+    blocks = []
+    for idx, dev in zip(placement.rank_index(tuple(src.shape)), placement.devices):
+        part = src[idx]
+        blocks.append(torch.empty(part.shape, dtype=part.dtype, device=dev).copy_(part))
+    return Sharded(placement, tuple(src.shape), blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -244,22 +341,35 @@ def _naive(mesh: Any, spec: PartitionSpec, shape: Tuple[int, ...],
     return PartitionSpec(*entries)
 
 
-def _one_device(mesh: Any) -> torch.device:
-    if math.prod(mesh.shape.values()) > 1 or not hasattr(mesh, "device"):
-        raise NotImplementedError(f"tree_shardings over {mesh!r}: {MULTI_DEVICE}")
-    return mesh.device
+def mesh_devices(mesh: Any, devices: Optional[Sequence[Any]] = None
+                 ) -> Tuple[torch.device, ...]:
+    """One device a rank of ``mesh``: ``devices`` where given (one a rank,
+    row-major), else the mesh's own device for every rank (the port's
+    meshes hold virtual ranks of one device)."""
+    if getattr(mesh, "processes", 1) > 1:
+        raise NotImplementedError(f"a plane over {mesh!r}: {PROCESS_GROUP}")
+    ranks = math.prod(int(v) for v in mesh.shape.values())
+    if devices is None:
+        if not hasattr(mesh, "device"):
+            raise ValueError(f"{mesh!r} has no device: name one device a rank (devices=)")
+        return (torch.device(mesh.device),) * ranks
+    out = tuple(torch.device(d) for d in devices)
+    if len(out) != ranks:
+        raise ValueError(f"{len(out)} devices for a mesh of {ranks} ranks ({mesh!r})")
+    return out
 
 
 def tree_shardings(mesh: Any, specs: Any, tree: Optional[Any] = None, *,
                    sep: str = "/", naive_fallback: bool = False) -> Any:
-    """Lift a spec tree into :class:`Placement`s on ``mesh``'s one device.
-    With ``tree`` given, every spec is validated against its leaf's shape;
-    ``naive_fallback=True`` degrades an indivisible dim to unpartitioned
-    instead of raising (axis-name errors always raise).  The validation
-    runs before the placement, so a bad spec is named on any mesh."""
+    """Lift a spec tree into :class:`Placement`s on ``mesh``, one device a
+    rank (:func:`mesh_devices`).  With ``tree`` given, every spec is
+    validated against its leaf's shape; ``naive_fallback=True`` degrades an
+    indivisible dim to unpartitioned instead of raising (axis-name errors
+    always raise).  The validation runs before the placement, so a bad
+    spec is named on any mesh."""
     if tree is None:
-        device = _one_device(mesh)
-        return named_tree_map(lambda _n, box: Placement(device, box.value),
+        rank_devices = mesh_devices(mesh)
+        return named_tree_map(lambda _n, box: Placement(mesh, box.value, rank_devices),
                               _specs_as_leaves(specs), sep=sep)
     spec_list = [box.value for _, box in _flatten(_specs_as_leaves(specs), sep)]
     leaves = _flatten(tree, sep)
@@ -273,9 +383,10 @@ def tree_shardings(mesh: Any, specs: Any, tree: Optional[Any] = None, *,
             spec = _naive(mesh, spec, shape, name)
         validate_spec(mesh, spec, shape, name)
         checked.append(spec)
-    device = _one_device(mesh)
+    rank_devices = mesh_devices(mesh)
     it = iter(checked)
-    return named_tree_map(lambda _n, _leaf: Placement(device, next(it)), tree, sep=sep)
+    return named_tree_map(lambda _n, _leaf: Placement(mesh, next(it), rank_devices),
+                          tree, sep=sep)
 
 
 def _specs_as_leaves(specs: Any) -> Any:
@@ -302,18 +413,11 @@ class _Leaf:
 
 
 def shard_tree(tree: Any, shardings: Any) -> Any:
-    """Place every leaf on its :class:`Placement`'s device (host -> card):
-    an owned tensor of the leaf's dtype and values."""
-    places = [p for _, p in _flatten(shardings, "/")]
-    it = iter(places)
-
-    def put(_name: str, leaf: Any) -> torch.Tensor:
-        place = next(it)
-        src = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
-            np.array(leaf))
-        return src.to(place.device, copy=True)
-
-    return named_tree_map(put, tree)
+    """Lay every leaf out over its :class:`Placement`'s ranks (host ->
+    card): a :class:`Sharded` of owned blocks, rank ``i``'s on its
+    device."""
+    places = iter([p for _, p in _flatten(shardings, "/")])
+    return named_tree_map(lambda _name, leaf: shard_leaf(leaf, next(places)), tree)
 
 
 # ---------------------------------------------------------------------------

@@ -124,10 +124,14 @@ Chunked streaming (INIT v5, ``FLAG_CHUNKED``), the JAX server's own paths:
 - Checkpoints carry the GRAD chunk admissions of an op in flight (already
   folded into the shard), never those of a PARAM_PUSH.
 
-The device data plane (``dplane=`` a :class:`~mpit_tpu_torch.dplane.hbm.
-PlaneConfig`), the JAX server's own paths: the shard is an
-:class:`~mpit_tpu_torch.dplane.hbm.HbmSlot` from INIT on, every wire GRAD
-(or chunk) is applied by the slot, and with ``publish=True`` the server
+The shard, and every shard-control slot's storage, is an
+:class:`~mpit_tpu_torch.dplane.hbm.HbmSlot` from INIT on: every wire GRAD
+(or chunk) is applied by the slot, every seed written by it, every whole
+read taken from its per-version caches.  Without a device data plane the
+slot is one rank on the server's device, and the server offers no device
+exchange.  The device data plane (``dplane=`` a
+:class:`~mpit_tpu_torch.dplane.hbm.PlaneConfig`), the JAX server's own
+paths, lays the slots over its ranks, and with ``publish=True`` the server
 offers a :class:`~mpit_tpu_torch.dplane.exchange.DevicePlane` for the
 whole of ``start``: ONE ``dplane_service`` task drains its tickets between
 wire ops (grad: the slot's apply, K3 under Adam; push: a seed; pull: the
@@ -250,9 +254,10 @@ class ParamServer:
         #                          delta production; a cell further behind
         #                          resyncs with a FULL frame
         dplane: Optional[_dphbm.PlaneConfig] = None,  # the device data plane:
-        #                          the shard is an HbmSlot; publish=True also
-        #                          offers the in-process device exchange.  Its
-        #                          device, when set, wins over ``device``
+        #                          the shard's HbmSlot lies over its ranks;
+        #                          publish=True also offers the in-process
+        #                          device exchange.  Its device, when set,
+        #                          wins over ``device``
     ):
         try:
             float32 = np.dtype(dtype) == np.float32
@@ -298,8 +303,6 @@ class ParamServer:
 
         self.offset = -1
         self.size = -1
-        self.param: Optional[torch.Tensor] = None  # the shard, on self.device
-        self.rule_state: Dict[str, torch.Tensor] = {}
         # Per-client host receive staging, sized to the negotiated codec
         # (plus the FT header when framed).
         self.grad_bufs: Dict[int, np.ndarray] = {}
@@ -440,11 +443,12 @@ class ParamServer:
         self._snap_version = 0
         self._snap_host: Optional[tuple] = None
         self._snap_wire: Dict[str, tuple] = {}
-        # The device data plane: the shard lives in an HbmSlot (in-place
-        # applies, per-version snapshot and pull caches) and, when
-        # published, a DevicePlane serves same-backend clients without the
-        # wire.
+        # The shard lives in an HbmSlot (in-place applies, per-version
+        # snapshot and pull caches): over the device data plane's ranks,
+        # else one rank on self.device.  A published plane also has a
+        # DevicePlane serve same-backend clients without the wire.
         self._dp_cfg = dplane
+        self._slot_cfg = dplane if dplane is not None else _dphbm.PlaneConfig(publish=False)
         self._hbm: Optional[_dphbm.HbmSlot] = None
         self._plane: Optional[_dpexchange.DevicePlane] = None
         self._m_dp_ops: Dict[str, Any] = {}
@@ -490,7 +494,8 @@ class ParamServer:
             "retiring_to": self._serve_successor,
             "serve_inflight_bytes": self._serve_inflight_bytes,
             "device": str(self.device),
-            "dplane": self._hbm.describe() if self._hbm is not None else None,
+            "dplane": (self._hbm.describe() if self._dp_cfg is not None
+                       and self._hbm is not None else None),
             "clients": {
                 str(c): {
                     "state": self.leases.state(c),
@@ -573,7 +578,28 @@ class ParamServer:
         return sorted(self._slots)
 
     def shard_param(self, sid: int) -> torch.Tensor:
-        return self._slots[sid].param
+        return self._slots[sid].hbm.param
+
+    # -- the shard ------------------------------------------------------------
+
+    @property
+    def param(self) -> Optional[torch.Tensor]:
+        """The shard as one tensor: a one-rank slot's block, written in
+        place by every apply (None before INIT).  A plane over more ranks
+        holds no such tensor, and reading this raises: read
+        :meth:`shard_value`."""
+        return self._hbm.param if self._hbm is not None else None
+
+    @property
+    def rule_state(self) -> Dict[str, torch.Tensor]:
+        """The shard's rule state, as :attr:`param`."""
+        return self._hbm.rule_state if self._hbm is not None else {}
+
+    def shard_value(self) -> Optional[torch.Tensor]:
+        """The whole shard as one tensor on the slot's device, gathered over
+        the plane's ranks into a buffer of its own (the slot's pull, cached
+        per version: read it, never write it); None before INIT."""
+        return self._hbm.pull_device() if self._hbm is not None else None
 
     # -- codec + FT negotiation ---------------------------------------------
 
@@ -655,13 +681,7 @@ class ParamServer:
             )
         if self.offset == -1:
             self.offset, self.size = offset, size
-            if self._dp_cfg is not None:
-                self._hbm = _dphbm.HbmSlot(size, self.rule, config=self._dp_cfg,
-                                           rank=self.rank, device=self.device)
-                self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
-            else:
-                self.param = torch.zeros(size, dtype=torch.float32, device=self.device)
-                self.rule_state = self.rule.init(self.param)
+            self._hbm = self._make_hbm(size)
         elif (self.offset, self.size) != (offset, size):
             # All clients must agree on this server's shard (reference :87-88).
             raise ValueError(
@@ -714,8 +734,8 @@ class ParamServer:
         param-shaped.  A scalar leaf (Adam's step counter ``t``) would
         advance once per chunk instead of once per op: refused loudly at
         negotiation (§12.5)."""
-        bad = sorted(k for k, v in (self.rule_state or {}).items()
-                     if tuple(v.shape) != (self.size,))
+        shapes = self._hbm.state_shapes()
+        bad = sorted(k for k, shape in shapes.items() if shape != (self.size,))
         if bad:
             raise ValueError(
                 f"client {crank} announced FLAG_CHUNKED but this server's rule "
@@ -724,11 +744,6 @@ class ParamServer:
                 "the whole-shard apply. Use a splittable rule "
                 "(add/rmsprop/adadelta) or turn chunking off "
                 "(docs/PROTOCOL.md §12.5)")
-        # The chunk applies write windows of the state in place; a rule
-        # init may share one buffer between leaves.
-        self.rule_state = _dphbm.dedupe_state(self.rule_state)
-        if self._hbm is not None:
-            self._hbm.rule_state = self.rule_state
 
     def _negotiate_v4(self, crank: int, raw: np.ndarray) -> codec_mod.Codec:
         """INIT v4: codec + FT posture + the versioned shard map.  The map
@@ -781,42 +796,30 @@ class ParamServer:
             self._m_sc_ver.set(smap.version)
 
     def _sc_make_slot(self, sid: int, shard) -> ShardSlot:
-        """A boot-time slot: zeros of the shard's size on this device, with
-        fresh rule state (each slot owns contiguous storage of its own, so
-        K3 sweeps it whole)."""
+        """A boot-time slot: an HbmSlot of its own, zeros with fresh rule
+        state (each block owns contiguous storage, so K3 sweeps it whole)."""
         slot = ShardSlot(sid, shard.offset, shard.size)
-        slot.param = torch.zeros(shard.size, dtype=torch.float32, device=self.device)
-        slot.rule_state = self.rule.init(slot.param)
-        if self._dp_cfg is not None:
-            slot.rule_state = _dphbm.dedupe_state(slot.rule_state)
+        slot.hbm = self._make_hbm(shard.size)
         self._slots[sid] = slot
         self._m_sc_owned.set(len(self._slots))
         return slot
 
     def _sc_place(self, slot: ShardSlot) -> ShardSlot:
-        """Move a migrated or restored slot's host arrays onto this device,
-        in fresh storage (never a view of a receive or load buffer).  An
-        empty rule state (a stateless rule's shard) gets this rule's
-        init."""
-        slot.param = self._owned(slot.param)
-        if self._dp_cfg is not None and slot.rule_state:
-            # The plane's placement helper: owned, on this device, de-aliased.
-            slot.rule_state = _dphbm.place_state(slot.rule_state, self._dp_cfg,
-                                                 device=self.device)
-        elif slot.rule_state:
-            slot.rule_state = {k: self._owned(v) for k, v in slot.rule_state.items()}
-        else:
-            slot.rule_state = self.rule.init(slot.param)
+        """Move a migrated or restored slot's host arrays into an HbmSlot
+        of its own, in fresh storage (never a view of a receive or load
+        buffer), and drop the host copies.  An empty rule state (a
+        stateless rule's shard) keeps this rule's init."""
+        slot.hbm = self._make_hbm(slot.size)
+        slot.hbm.seed(self._owned(slot.param))
+        slot.hbm.load_state(slot.rule_state)
+        slot.param = slot.rule_state = None
         return slot
 
-    def _apply_rule(self, param: torch.Tensor, grad: torch.Tensor,
-                    state: Dict[str, torch.Tensor]):
-        """``rule.apply`` for a shard-control slot: in place, or on fresh
-        copies under a plane that does not donate."""
-        if self._dp_cfg is not None and not self._dp_cfg.donate:
-            param = param.clone()
-            state = {k: v.clone() for k, v in state.items()}
-        return self.rule.apply(param, grad, state)
+    def _make_hbm(self, size: int) -> _dphbm.HbmSlot:
+        """A shard's storage: over the plane's ranks, else one rank on this
+        server's device."""
+        return _dphbm.HbmSlot(size, self.rule, config=self._slot_cfg, rank=self.rank,
+                              device=self.device)
 
     def _hdr_for(self, crank: int) -> int:
         """Header size of this client's data frames (GRAD/PARAM_PUSH)."""
@@ -937,14 +940,11 @@ class ParamServer:
         return torch.from_numpy(arr).to(self.device, copy=True)
 
     def _committed(self) -> None:
-        """A new shard version exists (grad applied / params seeded).  With
-        a device-resident slot the slot's counter is authoritative (device
-        exchange applies bump it too); it is mirrored here so the wire
-        snapshot cache keys on the same stream."""
-        if self._hbm is not None:
-            self._snap_version = self._hbm.version
-        else:
-            self._snap_version += 1
+        """A new shard version exists (grad applied / params seeded).  The
+        slot's counter is authoritative (device exchange applies bump it
+        too); it is mirrored here so the wire snapshot cache keys on the
+        same stream."""
+        self._snap_version = self._hbm.version
 
     def _host_snapshot(self) -> np.ndarray:
         """The current version's shard on the host: one owned
@@ -954,11 +954,9 @@ class ParamServer:
         in flight."""
         version = self._snap_version
         if self._snap_host is None or self._snap_host[0] != version:
-            # A device-resident slot shares its own per-version copy, so wire
-            # reads, checkpoints and the device exchange draw from one copy.
-            host = (self._hbm.snapshot_host() if self._hbm is not None
-                    else self.param.to("cpu", copy=True).numpy())
-            self._snap_host = (version, host)
+            # The slot shares its own per-version copy, so wire reads,
+            # checkpoints and the device exchange draw from one copy.
+            self._snap_host = (version, self._hbm.snapshot_host())
             self._m_snap_copies.inc()
         return self._snap_host[1]
 
@@ -1080,14 +1078,8 @@ class ParamServer:
         del crank
         csize = hi - lo
         parts = [self._on_device(v) for v in codec.split_wire(body, csize)]
-        if self._hbm is not None:
-            self._hbm.apply_wire_chunk(codec, parts[0] if codec.identity else parts,
-                                       lo, csize, commit=commit)
-            self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
-            return
-        grad = codec.decode_parts(parts, csize)
-        self.rule.apply(self.param[lo:hi], grad,
-                        {k: v[lo:hi] for k, v in self.rule_state.items()})
+        self._hbm.apply_wire_chunk(codec, parts[0] if codec.identity else parts,
+                                   lo, csize, commit=commit)
 
     def _recv_grad_chunked(self, crank: int, gen: int = 0):
         """The streamed GRAD service: each chunk frame is admitted per (op,
@@ -1318,13 +1310,9 @@ class ParamServer:
                 return
 
     def _seed(self, host: np.ndarray) -> None:
-        """A whole-shard write from a host frame (seeding / PARAM_PUSH):
-        one copy to the device, into the slot under a plane."""
-        if self._hbm is not None:
-            self._hbm.seed(self._on_device(host))
-            self.param = self._hbm.param
-        else:
-            self.param.copy_(torch.from_numpy(host))
+        """A whole-shard write from a host frame (seeding / PARAM_PUSH),
+        copied into the slot's blocks."""
+        self._hbm.seed(host)
 
     # -- service loops (reference pserver.lua:59-129) ------------------------
 
@@ -1540,15 +1528,7 @@ class ParamServer:
                     self._stale_hist(crank).observe(staleness)
             span.mark("apply")
             dev_parts = [self._on_device(v) for v in parts]
-            if self._hbm is not None:
-                # The slot's apply: the same decode and rule, in the slot.
-                self._hbm.apply_wire(codec, dev_parts[0] if codec.identity
-                                     else dev_parts)
-                self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
-            else:
-                grad = codec.decode_parts(dev_parts, self.size)
-                self.param, self.rule_state = self.rule.apply(
-                    self.param, grad, self.rule_state)
+            self._hbm.apply_wire(codec, dev_parts[0] if codec.identity else dev_parts)
             self._m_grads.inc()
             if ident is not None:
                 epoch, seq = ident
@@ -1757,7 +1737,7 @@ class ParamServer:
                     if push_live[crank] or self.leases.gone(crank):
                         continue  # FIFO per cell: one diff in flight
                     sent = self._cell_sent.get(crank, -1)
-                    if self.param is None or self._snap_version <= sent:
+                    if self._hbm is None or self._snap_version <= sent:
                         continue
                     frame = self._cell_frame(crank)
                     push_live[crank] = True
@@ -2093,11 +2073,8 @@ class ParamServer:
                     continue
                 span.mark("apply")
                 body = buf[_scwire.SC_HDR_BYTES:]
-                grad = codec.decode_parts(
-                    [self._on_device(v) for v in codec.split_wire(body, slot.size)],
-                    slot.size)
-                slot.param, slot.rule_state = self._apply_rule(
-                    slot.param, grad, slot.rule_state)
+                parts = [self._on_device(v) for v in codec.split_wire(body, slot.size)]
+                slot.hbm.apply_wire(codec, parts[0] if codec.identity else parts)
                 slot.committed()
                 slot.grads_applied += 1
                 self._m_grads.inc()
@@ -2192,7 +2169,7 @@ class ParamServer:
                     else:
                         host = np.empty(slot.size, np.float32)
                         codec.decode_into(body, host)
-                    slot.param.copy_(self._on_device(host))
+                    slot.hbm.seed(host)
                     slot.committed()
                     self._sc_ops_counter(sid).inc()
                 else:
@@ -2396,7 +2373,7 @@ class ParamServer:
             "preemption notice: %.1fs grace — checkpointing %s now",
             notice.grace_s,
             f"shards {sorted(self._slots)}" if self._sc else "shard")
-        if self._ckpt_dir and (self.param is not None or self._slots):
+        if self._ckpt_dir and (self._hbm is not None or self._slots):
             self._checkpoint()
         self._flight.record("preemption", rank=self.rank, grace_s=notice.grace_s)
         self._flight.dump("preemption", rank=self.rank)
@@ -2555,12 +2532,13 @@ class ParamServer:
             for _sid, slot in sorted(self._slots.items()):
                 path = str(_scmigrate.save_shard_state(directory, slot, self.rank))
             return path
-        if self.param is None:
+        if self._hbm is None:
             raise RuntimeError("server holds no shard yet (init not run)")
         return str(save_server_state(
             directory, self.rank, self.offset, self.size,
             self._host_snapshot(),
-            self.rule_state,  # copied to the host by the packer
+            # the whole state, gathered over the plane's ranks
+            self._hbm.state_host(),
             meta={
                 "grads_applied": self.grads_applied,
                 "snap_version": self._snap_version,
@@ -2591,7 +2569,7 @@ class ParamServer:
         double-counting."""
         from mpit_tpu_torch.utils.checkpoint import load_server_state
 
-        if self.param is not None or self.offset != -1:
+        if self._hbm is not None or self.offset != -1:
             raise RuntimeError("restore_state must run before start()")
         offset, size, param, state, meta = load_server_state(path)
         self.offset, self.size = offset, size
@@ -2601,23 +2579,14 @@ class ParamServer:
         self.dedup.restore_partial(meta.get("dedup_chunks", {}))
         self.restored_applied = self.grads_applied
         self.restored_dedup = self.dedup.state()
-        if self._dp_cfg is not None:
-            self._hbm = _dphbm.HbmSlot(size, self.rule, config=self._dp_cfg,
-                                       rank=self.rank, device=self.device)
-            self._hbm.seed(self._owned(param))
-            if state:
-                self._hbm.rule_state = _dphbm.place_state(state, self._dp_cfg,
-                                                          device=self.device)
-            # Version continuity across the restart: resume the checkpointed
-            # stream, +1 for the seed commit (the same arithmetic as below).
-            self._hbm.version = self._snap_version + 1
-            self.param, self.rule_state = self._hbm.param, self._hbm.rule_state
-        else:
-            self.param = self._owned(param)
-            if state:
-                self.rule_state = {k: self._owned(v) for k, v in state.items()}
-            else:  # stateless rule (plain add) or a legacy checkpoint
-                self.rule_state = self.rule.init(self.param)
+        self._hbm = self._make_hbm(size)
+        self._hbm.seed(self._owned(param))
+        # an empty state (a stateless rule, or a legacy checkpoint) keeps
+        # the rule's init
+        self._hbm.load_state(state)
+        # Version continuity across the restart: resume the checkpointed
+        # stream, +1 for the seed commit (_committed below mirrors it).
+        self._hbm.version = self._snap_version + 1
         for crank_s, info in (meta.get("clients") or {}).items():
             crank = int(crank_s)
             if crank not in self.cranks:
@@ -2651,10 +2620,10 @@ class ParamServer:
             if time.monotonic() >= next_save:
                 # A joiner that holds no shard yet (or a drained rank
                 # awaiting RETIRE) has nothing to cut.
-                if self.param is not None or self._slots:
+                if self._hbm is not None or self._slots:
                     self._checkpoint()
                 next_save = time.monotonic() + self._ckpt_interval
-        if self.param is not None or self._slots:
+        if self._hbm is not None or self._slots:
             self._checkpoint()  # final state at stop
         if self.sched.errors:
             raise self.sched.errors.pop(0)
@@ -2745,7 +2714,7 @@ class ParamServer:
         if self._sc_join:
             self._start_joiner()
             return
-        if self._dp_cfg is None or not self._dp_cfg.publish:
+        if not self._slot_cfg.publish:
             self._run()
             return
         self._plane = _dpexchange.DevicePlane(
@@ -2875,7 +2844,6 @@ class ParamServer:
         if kind == "grad":
             span.mark("apply")
             slot.apply_grad(ticket.payload)
-            self.param, self.rule_state = slot.param, slot.rule_state
             self._committed()
             self._m_grads.inc()
             self._dp_op_counter("grad").inc()
@@ -2883,7 +2851,6 @@ class ParamServer:
         elif kind == "push":
             span.mark("apply")
             slot.seed(ticket.payload)
-            self.param = slot.param
             self._committed()
             self._dp_op_counter("push").inc()
             span.end("applied")

@@ -1,10 +1,13 @@
 """Live shard migration — the state that moves, and how it travels.
 
-The port of ``mpit_tpu/shardctl/migrate.py``.  A slot's ``param`` and
-``rule_state`` are torch tensors on the server's device (the card by
-default); everything that crosses a wire or a file is host numpy, so the
-SHARD_STATE messages and ``shard<id>_latest.npz`` are the JAX package's
-bytes and either package adopts the other's shards:
+The port of ``mpit_tpu/shardctl/migrate.py``.  A server's slot keeps its
+state in ``hbm``, an :class:`~mpit_tpu_torch.dplane.hbm.HbmSlot` on the
+server's device (the card by default; under a device plane one block a
+rank of the plane), gathered whole for the host.  A slot unpacked from a
+wire or a file carries ``param`` and ``rule_state`` as host arrays until a
+server places it.  Everything that crosses a wire or a file is host numpy,
+so the SHARD_STATE messages and ``shard<id>_latest.npz`` are the JAX
+package's bytes and either package adopts the other's shards:
 
 - ``snapshot_host`` / ``pack_shard_state`` copy card -> host with a
   synchronous ``.to("cpu")`` on the copying thread's current stream.  The
@@ -92,7 +95,7 @@ def host_copy(value: Any) -> np.ndarray:
 class ShardSlot:
     """One owned shard on a server: device state + serving caches."""
 
-    __slots__ = ("shard_id", "offset", "size", "param", "rule_state",
+    __slots__ = ("shard_id", "offset", "size", "param", "rule_state", "hbm",
                  "dedup", "frozen", "snap_version", "_snap_host",
                  "_snap_wire", "grads_applied")
 
@@ -100,8 +103,12 @@ class ShardSlot:
         self.shard_id = shard_id
         self.offset = offset
         self.size = size
-        self.param: Any = None  # a tensor on the server's device
+        #: a slot that is not a server's: its param and rule state (host
+        #: arrays once unpacked or loaded, until a server places them)
+        self.param: Any = None
         self.rule_state: Optional[Dict[str, Any]] = None
+        #: a server's slot: the storage, an HbmSlot on the server's device
+        self.hbm: Any = None
         self.dedup = DedupTable()
         self.frozen = False
         self.snap_version = 0
@@ -118,8 +125,17 @@ class ShardSlot:
         owned array (K3 updates the slot's tensor in place, so a view of
         it would change under a frame still in flight)."""
         if self._snap_host is None or self._snap_host[0] != self.snap_version:
-            self._snap_host = (self.snap_version, host_copy(self.param))
+            self._snap_host = (self.snap_version,
+                               self.hbm.snapshot_host() if self.hbm is not None
+                               else host_copy(self.param))
         return self._snap_host[1]
+
+    def state_host(self) -> Dict[str, np.ndarray]:
+        """The rule state as owned host arrays, whole (gathered over a
+        plane's ranks)."""
+        if self.hbm is not None:
+            return self.hbm.state_host()
+        return {k: host_copy(v) for k, v in (self.rule_state or {}).items()}
 
     def snapshot_wire(self, codec) -> Tuple[np.ndarray, bool]:
         """(current version's encoded PARAM frame for ``codec``, was it a
@@ -150,8 +166,7 @@ def pack_shard_state(slot: ShardSlot,
     then each rule-state array in meta key order."""
     host = slot.snapshot_host()
     cut = SC_CHUNK_BYTES if chunk_bytes is None else int(chunk_bytes)
-    state = dict(slot.rule_state or {})
-    state_np = {k: host_copy(v) for k, v in state.items()}
+    state_np = slot.state_host()
     pbytes = host.view(np.uint8).reshape(-1)
     chunks: List[np.ndarray] = []
     if cut > 0 and pbytes.size > cut:
@@ -253,7 +268,7 @@ def save_shard_state(directory, slot: ShardSlot, rank: int,
     the shard opens the same alias regardless of who wrote it."""
     payload: Dict[str, Any] = {}
     _pack_array("param", slot.snapshot_host(), payload)
-    state = {k: host_copy(v) for k, v in (slot.rule_state or {}).items()}
+    state = slot.state_host()
     for key, value in state.items():
         _pack_array(f"state_{key}", value, payload)
     payload["meta"] = json.dumps({

@@ -418,11 +418,15 @@ def ft_from_cfg(cfg: Config) -> FTConfig:
 
 
 def dplane_cfg(cfg: Config) -> Any:
-    """The PlaneConfig of a ``--dplane`` server: one-card placement on the
-    rank's device."""
+    """The PlaneConfig of a ``--dplane`` server, the JAX launcher's
+    ``PlaneConfig.auto()``: a ``shard`` axis over every card the process
+    sees when it sees more than one, else one-card placement on the rank's
+    device; a run on the CPU places on the CPU."""
     from mpit_tpu_torch.dplane import PlaneConfig
 
-    return PlaneConfig.auto(namespace=str(cfg.get("namespace", "") or ""))
+    device = str(cfg.get("device", "cuda") or "cuda")
+    return PlaneConfig.auto(namespace=str(cfg.get("namespace", "") or ""),
+                            device=None if device == "cuda" else device)
 
 
 def rejoining() -> bool:
@@ -853,7 +857,8 @@ def run_rank(rank: int, size: int, cfg: Config, transport: Any,
         log.info("server for clients %s", cranks)
         server.start()
         return _server_result(server, restored=bool(cfg.resume),
-                              param=server.param, busy_replies=server.busy_replies,
+                              param=server.shard_value(),
+                              busy_replies=server.busy_replies,
                               diffs_sent=server.diffs_sent,
                               snap_version=server._snap_version)
     # On resume the restored servers are authoritative for params — no

@@ -14,6 +14,8 @@ matrix products alike.
 
 from __future__ import annotations
 
+import re
+
 import torch
 
 
@@ -24,19 +26,27 @@ def pin_float32() -> None:
 
 
 def resolve_device(name: str | None) -> torch.device:
-    """``None`` or ``"cuda"`` -> the current CUDA device (raises when there
-    is none); ``"cpu"`` -> the CPU.  Anything else raises."""
+    """``None`` or ``"cuda"`` -> the current CUDA device, ``"cuda:i"`` ->
+    card ``i`` (raises when there is no such card); ``"cpu"`` -> the CPU.
+    Anything else raises."""
     pin_float32()
-    if name in (None, "", "cuda"):
+    card = re.fullmatch(r"cuda:(\d+)", name or "")
+    if name in (None, "", "cuda") or card:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: the port runs on the GPU unless the caller "
                 "asks for the CPU (--device cpu)"
             )
-        return torch.device("cuda", torch.cuda.current_device())
+        if card is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        index = int(card.group(1))
+        if index >= torch.cuda.device_count():
+            raise ValueError(f"{name}: this process sees {torch.cuda.device_count()} "
+                             "CUDA device(s)")
+        return torch.device("cuda", index)
     if name == "cpu":
         return torch.device("cpu")
-    raise ValueError(f"device must be cuda or cpu, got {name!r}")
+    raise ValueError(f"device must be cuda, cuda:i or cpu, got {name!r}")
 
 
 def device_name(device: torch.device) -> str:

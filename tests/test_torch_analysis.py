@@ -460,11 +460,11 @@ def _doctored(tmp_path, rel, old, new):
      'torch.from_numpy(np.asarray(arr, order="C")).to(self.device, copy=True)',
      'torch.from_numpy(np.asarray(arr, order="C"))', "MT-D903"),
     # seeding binds the caller's value as the slot
-    ("dplane/hbm.py", "self.param.copy_(self._on_device(value).reshape(-1))",
-     "self.param = self._on_device(value).reshape(-1)", "MT-D903"),
+    ("dplane/hbm.py", "block.copy_(self._on_device(src[lo:hi], block.device))",
+     "block = self._on_device(src[lo:hi], block.device)", "MT-D903"),
     # a snapshot that hands out the slot itself
-    ("dplane/hbm.py", "pulled = self.param.clone()", "pulled = self.param",
-     "MT-D902"),
+    ("dplane/hbm.py", "pulled = self.sharded_param.gather(self.device)",
+     "pulled = self.sharded_param", "MT-D902"),
 ])
 def test_dropping_an_ownership_seam_turns_tree_red(tmp_path, rel, old, new, rule):
     files = _doctored(tmp_path, rel, old, new)

@@ -727,6 +727,35 @@ def test_bicnn_sgd_steps_on_the_card_match_the_cpu(dev, tmp_path):
     assert float(change) > 1e-3 and float(gap) <= 1e-5
 
 
+@pytest.mark.parametrize("size", [985600, 272261])
+def test_slot_over_four_ranks_on_the_card(dev, size):
+    """A slot over ``shard=4`` virtual ranks of the card (985,600 floats cut
+    246,400 a rank; 272,261, which 4 does not divide, replicated): one
+    block a rank, K3 launched 4 times an Adam apply, and every apply's
+    result and state bit-equal to the one-rank slot's."""
+    from mpit_tpu_torch.dplane import HbmSlot, PlaneConfig
+    from mpit_tpu_torch.optim.rules import make as make_rule
+    from mpit_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = HbmSlot(size, make_rule("adam"), config=PlaneConfig(
+        device="cuda", mesh=make_mesh(dp=1, shard=4, device="cuda")))
+    one = HbmSlot(size, make_rule("adam"), config=PlaneConfig(device="cuda"))
+    assert len(mesh.blocks) == 4 and len({b.data_ptr() for b in mesh.blocks}) == 4
+    assert all(b.is_cuda for b in mesh.blocks)
+    gen = torch.Generator(device=dev).manual_seed(size)
+    for _ in range(3):
+        g = torch.randn(size, device=dev, generator=gen)
+        before = fused_adam.launches
+        mesh.apply_grad(g)
+        assert fused_adam.launches - before == 4
+        one.apply_grad(g)
+        assert torch.equal(mesh.pull_device(), one.pull_device())
+    assert mesh.describe()["spec"] == (["shard"] if size % 4 == 0 else [])
+    for k, v in one.state_host().items():
+        assert (mesh.state_host()[k] == v).all(), k
+    assert [int(st["t"]) for st in mesh.states] == [3] * 4
+
+
 def test_exchange_on_the_card_crosses_streams(dev):
     """The device exchange on the card: the client's thread submits from a
     side stream and the server's thread applies on its own stream; the

@@ -17,11 +17,14 @@ Three layers:
   wire (each package's plane registry is its own), and a shard-control
   gang on device slots with one live migration.
 
-One card placement: ``PlaneConfig.auto()`` is single-device in the port;
-the JAX twins shard over 12 CPU devices.  The values are the same, so the
-twins compare values, not placements.  The card's own test (streams
-across the client's and the server's threads) is in
-``tests/test_torch_cuda.py``, marked ``cuda``.
+Placement: ``PlaneConfig.auto()`` on the CPU is single-device in the port,
+while the JAX twins here shard over the conftest's CPU devices; these
+twins hold values.  The placements themselves — each rank's block against
+JAX's ``addressable_shards`` over the same mesh shape, and the same gangs
+over a plane of 8 ranks — are held in ``tests/test_torch_dplane_mesh.py``.
+The card's own tests (streams across the client's and the server's
+threads, a slot of 4 ranks on the card) are in ``tests/test_torch_cuda.py``,
+marked ``cuda``.
 """
 
 import threading
@@ -80,8 +83,8 @@ def join_all(threads, timeout=30):
 
 
 class FakeMesh:
-    """A mesh shape the JAX twins shard over (``shard`` x 8); the port's
-    placement on it is refused, its spec validation is not."""
+    """A mesh shape (``shard`` x 8) with no device of its own: specs
+    validate against it; a placement on it names one device a rank."""
 
     shape = {"dp": 1, "shard": 8}
 
@@ -165,10 +168,12 @@ class TestPartitionRules:
         placed = shard_tree(tree, shardings)
         for name, leaf in (("embed", tree["embed"]["table"]), ("step", tree["step"])):
             got = placed["embed"]["table"] if name == "embed" else placed["step"]
-            assert isinstance(got, torch.Tensor)
-            np.testing.assert_array_equal(got.numpy(), leaf)
+            (block,) = got.blocks  # a mesh of one rank: one block, the whole leaf
+            assert isinstance(block, torch.Tensor)
+            np.testing.assert_array_equal(block.numpy(), leaf)
+            np.testing.assert_array_equal(got.gather().numpy(), leaf)
         # placed leaves own their storage: writing one leaves the tree alone
-        placed["embed"]["table"].zero_()
+        placed["embed"]["table"].blocks[0].zero_()
         assert np.abs(tree["embed"]["table"]).sum() > 0
 
     def test_invalid_axis_and_indivisible_dims_fail_loudly(self):
@@ -191,8 +196,17 @@ class TestPartitionRules:
         specs = {"w": P("shard", None)}
         with pytest.raises(ValueError, match="not divisible"):
             tree_shardings(FakeMesh(), specs, tree)
-        # the spec degrades, then the multi-device placement is refused
-        with pytest.raises(NotImplementedError, match="multi-card"):
+        # the spec degrades as JAX's does, and the leaf replicates over 8 ranks
+        got = tree_shardings(make_mesh(device="cpu", dp=1, shard=8), specs, tree,
+                             naive_fallback=True)
+        jgot = jdp.tree_shardings(jdp.partition.Mesh(
+            np.asarray(jax.devices()[:8]).reshape(1, 8), ("dp", "shard")),
+            {"w": JP("shard", None)}, tree, naive_fallback=True)
+        assert got["w"].spec == P(None, None) and tuple(jgot["w"].spec) == (None, None)
+        assert len(got["w"].devices) == 8
+        placed = shard_tree(tree, got)["w"]
+        assert [tuple(b.shape) for b in placed.blocks] == [(9, 8)] * 8
+        with pytest.raises(ValueError, match="name one device a rank"):
             tree_shardings(FakeMesh(), specs, tree, naive_fallback=True)
         one = tree_shardings(make_mesh(device="cpu"), specs, tree, naive_fallback=True)
         assert one["w"].spec == P("shard", None)  # factor 1 divides anything
@@ -315,9 +329,19 @@ class TestHbmSlot:
         assert set(jstate) == {"m", "v"}
 
     def test_multi_device_mesh_is_refused(self):
-        with pytest.raises(NotImplementedError, match="multi-card"):
-            HbmSlot(16, make_rule("add"), config=PlaneConfig(mesh=FakeMesh(),
-                                                             device="cpu"))
+        """A plane lays shards over its ``shard`` axis alone: a mesh with
+        another axis of more than one rank is refused, and so is a config
+        without the axis.  ``shard`` x 8 with ``dp`` 1 is accepted, one
+        block a rank."""
+        with pytest.raises(NotImplementedError, match="every other axis of size 1"):
+            HbmSlot(16, make_rule("add"), config=PlaneConfig(
+                mesh=make_mesh(device="cpu", dp=2, shard=4), device="cpu"))
+        with pytest.raises(ValueError, match="axes"):
+            HbmSlot(16, make_rule("add"), config=PlaneConfig(
+                mesh=FakeMesh(), axis="sp", device="cpu"))
+        slot = HbmSlot(16, make_rule("add"), config=PlaneConfig(mesh=FakeMesh(),
+                                                                device="cpu"))
+        assert [tuple(b.shape) for b in slot.blocks] == [(2,)] * 8
 
 
 # ---------------------------------------------------------------------------

@@ -644,7 +644,7 @@ class TestAdamAcrossOwners:
         applied = sum(s.grads_applied for s in servers)
         assert applied == 24 and k3.calls == applied, (applied, k3.calls)
         assert servers[1].grads_applied > 0 and servers[0].grads_applied > 12
-        t = servers[0]._slots[1].rule_state["t"]
+        t = servers[0]._slots[1].hbm.rule_state["t"]
         assert t.shape == () and t.dtype == torch.int32 and int(t) == 12
         assert sum(int(c._m_nacks.value) for c in clients) > 0
 
