@@ -156,11 +156,14 @@ order; any failure raises and the script exits non-zero:
    and K6 (two-kernel backward) against their plain twins at each LM
    path's shape and on ragged, offset pairs, in float32 and bfloat16
    (bfloat16 K4, K5 and K6 on the tensor cores, whose SASS must carry
-   wgmma's HGMMA, with no spill and no wgmma serialized by ptxas), K5
+   wgmma's HGMMA, with no spill and no wgmma serialized by ptxas; float32
+   K4 and K5 on the tensor cores by 3xTF32, whose SASS must carry
+   mma.sync's HMMA, with no spill), K5
    against K6, K5 and K6 each against itself (equal bits), bfloat16 K5 and
    K6 element by element and K4 on one key tile within one bf16 step,
    then timed beside the twins and PyTorch's
-   ``scaled_dot_product_attention`` at the two LM shapes; then bfloat16 K6
+   ``scaled_dot_product_attention`` at the two LM shapes, in bfloat16 and
+   in float32 (K4 in both output modes); then bfloat16 K6
    at the 32k LM's attention (N 8, L 32,768, D 128): K6 against the twin
    run one head at a time (one float32 (L, L) matrix per head is 4 GiB)
    and against K5 on one head, twice for equal bits, and timed beside
@@ -170,7 +173,10 @@ order; any failure raises and the script exits non-zero:
    under the other backward schedule, ``lm_longcontext`` (TinyDecoder at
    d 1,024, 8 heads, 4 layers, context 8,192, 6 steps),
    ``lm_longcontext_32k`` (the same widths at context 32,768, 3 steps,
-   where the gate itself picks K6), and three small steps on the card
+   where the gate itself picks K6), ``lm_longcontext_f32``
+   (``lm_longcontext`` with float32 attention, 4 steps: float32 K4 and K5
+   on the tensor cores, exactly once a layer a step, never K6), and three
+   small steps on the card
    held against the same steps on the CPU, with float32 and with bfloat16
    attention (bfloat16 twice: under the gate's K5 and forced to K6);
    then ``lm_resume``: ``LM_LAUNCH_DEFAULTS`` 6 steps straight against 3
@@ -300,7 +306,8 @@ are one JSON object describing every kernel (``launches`` is the count of
 the kernel's main path: the headline for K1, comm-only EAMSGD for K2,
 server-side Adam for K3, and for K4-K6 the first LM path that launched
 them, as each path's gate picked the schedule (see ``fa_entries``: K4 and
-K5 ``lm_longcontext``, K6 ``lm_longcontext_32k``);
+K5 ``lm_longcontext``, K6 ``lm_longcontext_32k``; float32 K4 and K5, the
+3xTF32 kernels, entries of their own on ``lm_longcontext_f32``);
 ``paths`` holds every path's launches and steps), and ``{"ok": true,
 "device": {...}}``.
 
@@ -325,6 +332,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores, NVIDIA data sheet
+# float32 attention at float32 accuracy on the tensor cores: 3xTF32, three
+# TF32 products (hi.hi + hi.lo + lo.hi) for each float32 one
+TF32_PASSES = 3
 TIMED_LAUNCHES = 200
 L2_BYTES = 50e6  # H100 L2 cache
 # The hold of a queued timing: 2e8 clock cycles last at least 0.1 s at
@@ -2610,8 +2621,9 @@ def ptest_sc_legs(smi):
                           capture_output=True, text=True, timeout=900)
     sys.stdout.write(proc.stderr[-4000:])
     if proc.returncode != 0:
+        # the failing rank's log is at the end of ptest's stderr
         raise AssertionError(f"ptest shard-control legs failed ({proc.returncode}):\n"
-                             f"{proc.stdout}")
+                             f"{proc.stdout}\n{proc.stderr[-6000:]}")
     rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
     for row in rows:
         print(f"ptest_sc on {smi}: " + json.dumps(row))
@@ -4144,6 +4156,9 @@ FA_CASES = (
     ("ragged_full", (2, 3), 203, 131, 64, 100, 40, False),
 )
 FA_TIMED = ("lm_default", "lm_longcontext")
+# The kernels that SDPA's backward launches a call, for queueing it behind
+# the hold (time_ms's kernels_per_call).
+SDPA_BWD_KERNELS = 8
 # The attention of lm_longcontext_32k (leading axes, L, D; bf16, causal),
 # where the gate refuses K5's dQ partials (32 GiB) and K6 runs.
 FA_32K = ((1, 8), 32768, 128)
@@ -4173,8 +4188,12 @@ def fa_work(lead, lq, lk, d, q_off, kv_off, causal, itemsize):
 
 
 def fa_bound_ms(n_bytes, flops, bf16):
+    """The least time of the work: its bytes at the HBM rate, or its flops
+    on the tensor cores, bf16 at the bf16 rate and float32 as 3xTF32
+    (TF32_PASSES TF32 flops for each float32 one, the least that keeps
+    float32 accuracy there), whichever is longer."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3
+    ops_ms = (flops / BF16_FLOPS if bf16 else TF32_PASSES * flops / TF32_FLOPS) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -4265,8 +4284,9 @@ def check_flash(torch):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    errs = {"k4": 0.0, "k5": 0.0, "k6": 0.0}
+    errs = {"k4": 0.0, "k5": 0.0, "k6": 0.0, "k4_f32": 0.0, "k5_f32": 0.0}
     timed = {}
+    f32_timing_s = 0.0
     for name, lead, lq, lk, d, q_off, kv_off, causal in FA_CASES:
         kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
         base = [0.5 * torch.randn(*lead, n, d, device=dev, generator=gen)
@@ -4311,12 +4331,18 @@ def check_flash(torch):
                 key = what[:2]
                 if not what.startswith("k5_vs"):
                     errs[key] = max(errs[key], gap)
+                    if dtype == torch.float32 and key in ("k4", "k5"):
+                        errs[key + "_f32"] = max(errs[key + "_f32"], gap)
                 if not used <= 1.0:
                     raise AssertionError(f"{what} past its limit at {name} {dtype}: "
                                          f"gap {gap}, {used} of the limit")
-            if dtype == torch.bfloat16 and name in FA_TIMED:
-                timed[name] = time_flash(torch, F, q, k, v, do, lse_t, delta, kw,
-                                         lead, lq, lk, d)
+            if name in FA_TIMED:
+                t0 = time.perf_counter()
+                key = name if dtype == torch.bfloat16 else f"{name}_f32"
+                timed[key] = time_flash(torch, F, q, k, v, do, lse_t, delta, kw,
+                                        lead, lq, lk, d)
+                if dtype == torch.float32:
+                    f32_timing_s += time.perf_counter() - t0
             del want, got5, again5, got6, again6, acc_t, o_t, den
     for lead, lq, lk, d, q_off, kv_off, causal in FA_ONE_TILE:
         kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
@@ -4345,6 +4371,7 @@ def check_flash(torch):
     timed["lm_longcontext_32k"], gap = check_k6_32k(torch, F, gen)
     errs["k6"] = max(errs["k6"], gap)
     print("flash times: " + json.dumps(timed))
+    print(f"float32 flash timing: {f32_timing_s:.1f}s")
     return errs, timed
 
 
@@ -4353,13 +4380,18 @@ def fa_entries(errs, timed, paths):
     path is the first LM path that launched it, in the order
     lm_longcontext, lm_longcontext_32k, lm_default,
     lm_default_other_schedule (the gate picks the schedule); its launches
-    are that run's and its times those at that path's attention shape."""
+    are that run's and its times those at that path's attention shape.
+    Then float32 K4 and K5, the 3xTF32 kernels of their own source, on
+    their main path lm_longcontext_f32 (the float32 paths' launches are in
+    the K4 and K5 entries' ``paths`` too: one wrapper counts both types),
+    timed at lm_longcontext's shape in float32."""
     entries = []
     tc = "mpit_tpu_torch/ops/csrc/flash_attention_tc.cu"
-    for key, fn, src_line in (
-            ("k4", "flash_fwd", "mpit_tpu/ops/flash_attention.py:233"),
-            ("k5", "flash_bwd_fused", "mpit_tpu/ops/flash_attention.py:623"),
-            ("k6", "flash_bwd_two_kernel", "mpit_tpu/ops/flash_attention.py:536")):
+    tf32 = "mpit_tpu_torch/ops/csrc/flash_attention_tf32.cu"
+    kernels = (("k4", "flash_fwd", "mpit_tpu/ops/flash_attention.py:233"),
+               ("k5", "flash_bwd_fused", "mpit_tpu/ops/flash_attention.py:623"),
+               ("k6", "flash_bwd_two_kernel", "mpit_tpu/ops/flash_attention.py:536"))
+    for key, fn, src_line in kernels:
         main_path = next(p for p in ("lm_longcontext", "lm_longcontext_32k", "lm_default",
                                      "lm_default_other_schedule")
                          if paths[key][p]["launches"])
@@ -4373,6 +4405,18 @@ def fa_entries(errs, timed, paths):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "main_path": main_path, "timed_at": shape,
             "sdpa_backend": timed[shape]["sdpa_backend"],
+        })
+    for key, fn, src_line in kernels[:2]:
+        t = timed["lm_longcontext_f32"][key]
+        rec = paths[key]["lm_longcontext_f32"]
+        entries.append({
+            "name": f"{fn} (float32)", "route": "cuda", "source": tf32,
+            "replaces": src_line, "launches": rec["launches"],
+            "paths": {"lm_longcontext_f32": rec}, "max_abs_err": errs[f"{key}_f32"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "main_path": "lm_longcontext_f32", "timed_at": "lm_longcontext_f32",
+            "sdpa_backend": timed["lm_longcontext_f32"]["sdpa_backend"],
         })
     return entries
 
@@ -4438,8 +4482,8 @@ def check_k6_32k(torch, F, gen):
 
 def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d,
                keys=("k4", "k5", "k6"), plain_bwd=None, plain_kernels=20):
-    """``keys`` of K4, K5 and K6 at one shape (bf16, as the LM paths give
-    them), each beside its twin (for the backward ``plain_bwd`` where
+    """``keys`` of K4, K5 and K6 at one shape, in the inputs' dtype (K4 also
+    in its partial mode), each beside its twin (for the backward ``plain_bwd`` where
     given; ``plain_kernels`` PyTorch kernels a call) and the SDPA call
     computing the same function.  One buffer set:
     each kernel reads every K/V tile once per q tile, far more than one
@@ -4488,13 +4532,20 @@ def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d,
         if key not in keys:
             continue
         bound, bound_by = fa_bound_ms(n_bytes, flops, q.dtype == torch.bfloat16)
-        kt, pt, lt = timing(kernel), timing(plain, plain_kernels), timing(library)
+        # SDPA's backward is an autograd call: several kernels and ~1 ms of
+        # host work each, so fewer of them are queued behind the hold.
+        kt, pt = timing(kernel), timing(plain, plain_kernels)
+        lt = timing(library, 1 if key == "k4" else SDPA_BWD_KERNELS)
+        if key == "k4":  # the partial mode, as the ring calls it
+            kt["partial_ms"] = timing(lambda: flash_fwd(q, k, v, partial=True, **kw))["ms"]
         out[key] = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
                     "plain_call_ms": pt["call_ms"], "library_ms": lt["ms"],
                     "library_call_ms": lt["call_ms"], "bound_ms": bound,
                     "bound_by": bound_by, "bytes": n_bytes, "flops": flops,
                     "tflops": flops / kt["ms"] / 1e9, "x_bound": kt["ms"] / bound,
                     "x_library": kt["ms"] / lt["ms"]}
+        if "partial_ms" in kt:
+            out[key]["partial_ms"] = kt["partial_ms"]
     return out
 
 
@@ -4609,6 +4660,32 @@ def lm_paths(torch, kernels, paths):
                    if name.startswith("lm_")):
             raise AssertionError(f"{key} launched in no LM training step")
     return longcontext
+
+
+def lm_longcontext_f32(torch, kernels, paths, steps=4):
+    """``lm_longcontext`` (d 1,024, 8 heads of 128, 4 layers, context 8,192)
+    with attention in float32, ``steps`` steps: K4 and K5 on the float32
+    tensor-core kernels (3xTF32), launched exactly once a layer a step,
+    the warm-up step's included, and K6 never (the gate admits K5's 2 GiB
+    of dQ partials); finite losses; tokens/s and peak memory printed.
+    Fills ``paths[kernel]["lm_longcontext_f32"]`` and returns the path's
+    record."""
+    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_KWARGS
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_bwd_env(None):
+        _, rec = lm_path(torch, "lm_longcontext_f32", kernels, steps=steps, log_every=2,
+                         attn_dtype="float32", **LONGCONTEXT_KWARGS)
+    if not rec["schedule"].startswith("fused") or rec["launches"]["k6"]:
+        raise AssertionError(f"lm_longcontext_f32: the gate picked {rec['schedule']} "
+                             f"(K6 {rec['launches']['k6']}), not K5")
+    for key in kernels:
+        paths[key]["lm_longcontext_f32"] = {**rec, "launches": rec["launches"][key]}
+    torch.cuda.empty_cache()
+    print(f"lm_longcontext_f32: {time.perf_counter() - t0:.1f}s")
+    return rec
 
 
 def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None, sp=1, layout="zigzag"):
@@ -7575,6 +7652,19 @@ def main() -> int:
     bad = {k: r for k, r in ptxas.items() if r["spill_bytes"] or r["serialized"]}
     if bad:
         raise AssertionError(f"ptxas spilled or serialized wgmma in: {bad}")
+    # float32 K4 and K5 run their products on the tensor cores (3xTF32 on
+    # mma.sync: SASS HMMA), with every value in registers.
+    tf32_ops = build.tensor_ops("flash_attention_tf32")
+    print("tensor-core instructions, float32 kernels: " + json.dumps(tf32_ops))
+    for kernel in ("fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel"):
+        if not any(kernel in k and (ops["HMMA"] or ops["HGMMA"])
+                   for k, ops in tf32_ops.items()):
+            raise AssertionError(f"{kernel} carries no tensor-core instruction")
+    ptxas_tf32 = build.ptxas_report("flash_attention_tf32")
+    print("ptxas, float32 tensor-core kernels: " + json.dumps(ptxas_tf32))
+    bad = {k: r for k, r in ptxas_tf32.items() if r["spill_bytes"] or r["serialized"]}
+    if bad:
+        raise AssertionError(f"ptxas spilled or serialized in: {bad}")
 
     # K1-K3 keep every value in registers: no spill.
     ptxas_fu = build.ptxas_report("fused_update")
@@ -7631,6 +7721,7 @@ def main() -> int:
 
     t_lm = time.perf_counter()
     longcontext = lm_paths(torch, kernels, all_paths)
+    lm_longcontext_f32(torch, kernels, all_paths)
     # bf16 twice: under the gate's K5 and under K6, each held to the CPU.
     for attn_dtype, fused_bwd in (("float32", None), ("bfloat16", None),
                                   ("bfloat16", "0")):
@@ -7647,14 +7738,14 @@ def main() -> int:
     refs = parallel_phases(torch, kernels, all_paths, smi)
     multiproc_phases(torch, kernels, all_paths, smi, refs)
     analysis_phases(torch, kernels, all_paths, smi)
-    k4, k5, k6 = fa_entries(fa_errs, fa_timed, all_paths)
+    fa = fa_entries(fa_errs, fa_timed, all_paths)
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
     print(f"sync-DP, resume and BiCNN phases: {slice4_s:.1f}s")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
-    driven = launched_paths([k1, k2, k3, k4, k5, k6])
+    driven = launched_paths([k1, k2, k3, *fa])
     print(f"paths driven ({len(driven)}, each with its steps): " + json.dumps(driven))
-    line = json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]})
+    line = json.dumps({"kernels": [k1, k2, k3, *fa]})
     print(f"kernels line: {len(line)} bytes", file=sys.stderr)
     print(smi)
     print(line)

@@ -1,56 +1,45 @@
-// K4, K5, K6 for float32: flash attention, forward and backward, for
-// Hopper (sm_90a), on scalar float32 FMAs.
+// K6 for float32: flash attention's two-kernel backward, for Hopper
+// (sm_90a), on scalar float32 FMAs.
 //
 // Replaces, for float32 inputs, the Pallas kernels of
 // mpit_tpu/ops/flash_attention.py:
-//   K4  `_fa_kernel` (`_fa_2d`, both output modes)       -> fa_fwd_kernel
-//   K5  `_fa_bwd_fused_kernel` (`_fa_2d_bwd(fused=True)`) -> fa_bwd_fused_kernel
 //   K6  `_fa_bwd_dq_kernel` and `_fa_bwd_dkdv_kernel`     -> fa_bwd_dq_kernel,
 //       (`_fa_2d_bwd(fused=False)`)                           fa_bwd_dkdv_kernel
-// bfloat16 inputs go to the tensor-core kernels of flash_attention_tc.cu:
-// no tensor-core type holds float32 at the reference's tolerances.
+// float32 K4 and K5 run on the tensor cores at float32 accuracy (3xTF32,
+// flash_attention_tf32.cu); bfloat16 K4, K5 and K6 on the tensor cores of
+// flash_attention_tc.cu.
 //
 // Every operand is a contiguous float32 (N, L, D) array, N the flattened
-// leading axes; row statistics (lse, delta, m, l) are (N, L).  With s =
-// scale * q.k over the valid (q row, key) pairs:
+// leading axes; row statistics (lse, delta) are (N, L).  With s = scale *
+// q.k over the valid (q row, key) pairs, from the forward's lse and delta =
+// rowsum(dO * O):
 //
-//   forward   online softmax over key tiles: m (running max), l (running
-//             sum of p = exp(s - m)), acc = sum p.v; normalized o = acc/l
-//             (l = 0 -> 1) plus lse = m + log l, or the partials
-//             (acc, m, l) with m = -inf on rows that have no valid key;
-//   backward  P = exp(s - lse), dS = P * (dO.V^T - delta),
-//             dV = P^T.dO, dK = scale * dS^T.Q, dQ = scale * dS.K.
+//   P = exp(s - lse), dS = P * (dO.V^T - delta),
+//   dV = P^T.dO, dK = scale * dS^T.Q, dQ = scale * dS.K.
 //
 // What is carried over exactly:
 //   - the validity rule: keys at or past Lk masked, and under `causal`
 //     q_offset + i >= kv_offset + j in global coordinates (`valid`);
 //   - the dead / edge / full triage of a (q tile, key tile) pair
 //     (`_block_bounds`): `triage` in flash_common.cuh is the one copy of
-//     the boundary rule, shared by every kernel of both files;
-//   - the finite sentinel -1e30 for the running max inside the kernel, and
-//     -inf in the public m and lse of dead rows;
-//   - every product accumulates in float32;
-//   - K5's dQ leaves as one float32 partial per key tile, (n_kv_tiles, N,
-//     Lq, D), summed outside by one deterministic reduction (no atomics);
-//     a dead (q tile, key tile) pair writes nothing into its slot.
+//     the boundary rule, shared by every kernel of the three files;
+//   - every product accumulates in float32.
 //
-// Bound on this card: operations.  A valid pair costs 4*D flops forward
-// and 10*D backward (the fused schedule's five products), on CUDA cores
-// here (67 TFLOP/s float32 peak).
+// Bound on this card: operations.  A valid pair costs 14*D flops over the
+// two kernels (each recomputes S and dP), on CUDA cores here (67 TFLOP/s
+// float32 peak).
 //
 // Design, simple first: no tensor cores.  One block of 256 threads owns a
-// 64-row q tile (K4, K6's dq) or a 64-row key tile (K5, K6's dkdv) of one
-// of the N heads, and loops over the other side's 64-row tiles inside the
-// block (the TPU grid's sequential axis).  Tiles sit in shared memory,
+// 64-row q tile (the dq kernel) or a 64-row key tile (the dkdv kernel) of
+// one of the N heads, and loops over the other side's 64-row tiles inside
+// the block (the TPU grid's sequential axis).  Tiles sit in shared memory,
 // rows padded to D_MAX + 1 floats so the 16 threads that read 16
 // different rows of one column hit 16 different banks.  The threads form a
 // 16 x 16 grid: thread (ty, tx) holds rows ty + 16a and columns tx + 16b
 // (a, b < 4) of each 64 x 64 score tile, and the same rows of the (64,
-// D_MAX) accumulators.  A row's 16 threads lie in one half-warp, so the
-// online softmax reduces a row with four shuffles.  D is a multiple of 8
-// up to 128; D_MAX is 32, 64 or 128 and the padded columns hold zeros.
-// Blocks are ordered heaviest first under the causal mask (the last q
-// tiles, the first key tiles).
+// D_MAX) accumulators.  D is a multiple of 8 up to 128; D_MAX is 32, 64 or
+// 128 and the padded columns hold zeros.  The dq kernel's blocks are
+// ordered heaviest first under the causal mask (the last q tiles).
 #include "flash_common.cuh"
 
 #include <type_traits>
@@ -80,148 +69,6 @@ __device__ __forceinline__ void load_stats(float* dst, const float* __restrict__
                                            int row0, int rows) {
   for (int r = threadIdx.x; r < BQ; r += NT)
     dst[r] = row0 + r < rows ? src[row0 + r] : 0.f;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ---------------------------------------------------------------------------
-// K4: forward
-// ---------------------------------------------------------------------------
-
-template <int DM, bool PARTIAL>
-__global__ void __launch_bounds__(NT)
-fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-              float* __restrict__ o, float* __restrict__ lse, float* __restrict__ acc_out,
-              float* __restrict__ m_out, float* __restrict__ l_out, Geo g) {
-  constexpr int LD = DM + 1, NC = DM / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;  // (BQ, LDS)
-  const int n_tiles = (g.lq + BQ - 1) / BQ;
-  const int i = n_tiles - 1 - (int)(blockIdx.x / g.n);
-  const int n = (int)(blockIdx.x % g.n);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
-
-  load_tile<DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
-  float acc[4][NC], m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = BIG_NEG;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
-  }
-
-  const int nj = (g.lk + BK - 1) / BK;
-  for (int j = 0; j < nj; ++j) {
-    const int kind = triage<BQ, BK>(g, i, j);
-    if (kind == 0) continue;  // the same for every thread of the block
-    __syncthreads();          // the previous tile's reads are done
-    load_tile<DM>(sK, k + kbase, j * BK, g.lk, g.d);
-    load_tile<DM>(sV, v + kbase, j * BK, g.lk, g.d);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < g.d; ++c) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = sQ[(ty + 16 * a) * LD + c];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) kb[b] = sK[(tx + 16 * b) * LD + c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qi = i * BQ + ty + 16 * a;
-      bool ok[4];
-      float mx = BIG_NEG;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        ok[b] = kind == 2 || valid(g, qi, j * BK + tx + 16 * b);
-        s[a][b] = ok[b] ? s[a][b] * g.scale : BIG_NEG;
-        mx = fmaxf(mx, s[a][b]);
-      }
-      // A row with no valid score so far keeps m == BIG_NEG, so exp(s -
-      // m_new) is 1 at its masked elements: `ok` zeroes them.
-      const float m_new = fmaxf(m[a], half_warp_max(mx));
-      float ps = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float p = ok[b] ? expf(s[a][b] - m_new) : 0.f;
-        ps += p;
-        sP[(ty + 16 * a) * LDS + tx + 16 * b] = p;
-      }
-      const float alpha = expf(m[a] - m_new);
-      l[a] = alpha * l[a] + half_warp_sum(ps);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[a][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pa[4], vb[NC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = sP[(ty + 16 * a) * LDS + c];
-#pragma unroll
-      for (int b = 0; b < NC; ++b) vb[b] = sV[c * LD + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < NC; ++b) acc[a][b] = fmaf(pa[a], vb[b], acc[a][b]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = i * BQ + ty + 16 * a;
-    if (row >= g.lq) continue;
-    const size_t ro = qbase + (size_t)row * g.d;
-    const size_t so = (size_t)n * g.lq + row;
-    const float m_pub = m[a] == BIG_NEG ? -INFINITY : m[a];
-    if (PARTIAL) {
-#pragma unroll
-      for (int b = 0; b < NC; ++b) {
-        const int col = tx + 16 * b;
-        if (col < g.d) acc_out[ro + col] = acc[a][b];
-      }
-      if (tx == 0) {
-        m_out[so] = m_pub;
-        l_out[so] = l[a];
-      }
-    } else {
-      const float den = l[a] == 0.f ? 1.f : l[a];
-#pragma unroll
-      for (int b = 0; b < NC; ++b) {
-        const int col = tx + 16 * b;
-        if (col < g.d) o[ro + col] = acc[a][b] / den;
-      }
-      if (lse != nullptr && tx == 0) lse[so] = m_pub + logf(den);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -357,18 +204,15 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 }
 
 // ---------------------------------------------------------------------------
-// K5 and K6's second kernel: key tiles outer, dK and dV in registers
+// K6, second kernel: key tiles outer, dK and dV in registers
 // ---------------------------------------------------------------------------
 
-// With FUSED (K5), each live (q tile, key tile) pair also writes its dQ
-// contribution dS.K into dqp[j] (dead pairs write nothing), so one sweep
-// yields all three gradients: five products per pair, not seven.
-template <int DM, bool FUSED>
-__device__ __forceinline__ void bwd_kv_body(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-    float* __restrict__ dqp, const Geo& g) {
+template <int DM>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                   const float* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                   Geo g) {
   constexpr int LD = DM + 1, NC = DM / 16;
   extern __shared__ float smem[];
   float* sK = smem;
@@ -384,7 +228,6 @@ __device__ __forceinline__ void bwd_kv_body(
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
   const size_t sbase = (size_t)n * g.lq;
-  float* dqp_j = FUSED ? dqp + ((size_t)j * g.n + n) * g.lq * g.d : nullptr;
 
   load_tile<DM>(sK, k + kbase, j * BK, g.lk, g.d);
   load_tile<DM>(sV, v + kbase, j * BK, g.lk, g.d);
@@ -397,7 +240,7 @@ __device__ __forceinline__ void bwd_kv_body(
   const int ni = (g.lq + BQ - 1) / BQ;
   for (int i = 0; i < ni; ++i) {
     const int kind = triage<BQ, BK>(g, i, j);
-    if (kind == 0) continue;  // K5: nothing written; the reduction skips it
+    if (kind == 0) continue;
     __syncthreads();
     load_tile<DM>(sQ, q + qbase, i * BQ, g.lq, g.d);
     load_tile<DM>(sdO, dout + qbase, i * BQ, g.lq, g.d);
@@ -436,36 +279,6 @@ __device__ __forceinline__ void bwd_kv_body(
           dka[a][b] = fmaf(da[a], qb[b], dka[a][b]);
         }
     }
-    if (FUSED) {
-      // This pair's dQ: the thread's q rows ty + 16a.
-      float dqa[4][NC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < NC; ++b) dqa[a][b] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < BK; ++c) {
-        float da[4], kb[NC];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) da[a] = sDS[(ty + 16 * a) * LDS + c];
-#pragma unroll
-        for (int b = 0; b < NC; ++b) kb[b] = sK[c * LD + tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < NC; ++b) dqa[a][b] = fmaf(da[a], kb[b], dqa[a][b]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int row = i * BQ + ty + 16 * a;
-        if (row >= g.lq) continue;
-#pragma unroll
-        for (int b = 0; b < NC; ++b) {
-          const int col = tx + 16 * b;
-          if (col < g.d) dqp_j[(size_t)row * g.d + col] = dqa[a][b];
-        }
-      }
-    }
   }
 
 #pragma unroll
@@ -481,24 +294,6 @@ __device__ __forceinline__ void bwd_kv_body(
       dv[at] = dva[a][b];
     }
   }
-}
-
-template <int DM>
-__global__ void __launch_bounds__(NT, 1)
-fa_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                    float* __restrict__ dqp, Geo g) {
-  bwd_kv_body<DM, true>(q, k, v, dout, lse, delta, dk, dv, dqp, g);
-}
-
-template <int DM>
-__global__ void __launch_bounds__(NT, 1)
-fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                   const float* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                   Geo g) {
-  bwd_kv_body<DM, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -540,47 +335,6 @@ int by_width(int d, F&& f) {
 // flash_attention_tc.cu), launches on `stream` and returns
 // cudaGetLastError() after its launch (0 on success); it allocates
 // nothing.
-
-// K4.  partial = 0: o and, when lse is not null, lse.  partial = 1:
-// acc (float32, like q), m and l.
-extern "C" int mpit_fa_fwd(const float* q, const float* k, const float* v, float* o,
-                           float* lse, float* acc, float* m, float* l, int n, int lq,
-                           int lk, int d, int q_offset, int kv_offset, float scale,
-                           int causal, int partial, void* stream) {
-  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
-  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int tiles = (lq + BQ - 1) / BQ;
-  return by_width(d, [&](auto dm) {
-    constexpr int DM = decltype(dm)::value;
-    const size_t smem = 3 * tile_bytes<DM>() + score_bytes();
-    void* args[] = {&q, &k, &v, &o, &lse, &acc, &m, &l, &g};
-    return partial ? launch(fa_fwd_kernel<DM, true>, smem, tiles, g, s, args)
-                   : launch(fa_fwd_kernel<DM, false>, smem, tiles, g, s, args);
-  });
-}
-
-// K5: dk, dv and dq.  dqp is the scratch of the dQ partials (float32,
-// (ceil(lk / 64), n, lq, d)), which the sweep fills for live pairs and a
-// second launch sums into dq.
-extern "C" int mpit_fa_bwd_fused(const float* q, const float* k, const float* v,
-                                 const float* dout, const float* lse, const float* delta,
-                                 float* dq, float* dk, float* dv, float* dqp, int n, int lq,
-                                 int lk, int d, int q_offset, int kv_offset, float scale,
-                                 int causal, void* stream) {
-  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
-  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int tiles = (lk + BK - 1) / BK;
-  const int err = by_width(d, [&](auto dm) {
-    constexpr int DM = decltype(dm)::value;
-    const size_t smem = 4 * tile_bytes<DM>() + 2 * score_bytes() + stats_bytes();
-    void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &dqp, &g};
-    return launch(fa_bwd_fused_kernel<DM>, smem, tiles, g, s, args);
-  });
-  if (err != 0) return err;
-  return launch_dq_reduce<float, BQ, BK>(dqp, dq, g, s);
-}
 
 // K6, first kernel: dq.
 extern "C" int mpit_fa_bwd_dq(const float* q, const float* k, const float* v,

@@ -130,23 +130,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// The range [lo, hi) of tiles t of one side that are live against tile
-// `fixed` of the other (a contiguous range under the causal mask and the
-// key length); lo = hi when none is.
-template <int BQ, int BK, bool Q_SIDE>
-__device__ __forceinline__ void live_range(const Geo& g, int fixed, int count, int& lo,
-                                           int& hi) {
-  lo = count;
-  hi = 0;
-  for (int t = 0; t < count; ++t) {
-    const int kind = Q_SIDE ? triage<BQ, BK>(g, t, fixed) : triage<BQ, BK>(g, fixed, t);
-    if (kind != 0) {
-      lo = min(lo, t);
-      hi = t + 1;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Hopper's asynchronous machinery: mbarriers, TMA and wgmma
 // ---------------------------------------------------------------------------

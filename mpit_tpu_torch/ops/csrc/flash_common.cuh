@@ -1,7 +1,9 @@
-// What the flash-attention kernels of flash_attention.cu (float32, on
-// scalar FMAs) and flash_attention_tc.cu (bfloat16 K4, K5 and K6 on the
-// tensor cores) share: the call's geometry, the one copy of the masking
-// rule, and K5's deterministic dQ reduction.
+// What the flash-attention kernels of flash_attention.cu (float32 K6, on
+// scalar FMAs), flash_attention_tc.cu (bfloat16 K4, K5 and K6 on the
+// tensor cores) and flash_attention_tf32.cu (float32 K4 and K5 on the
+// tensor cores, 3xTF32) share: the call's geometry, the one copy of the
+// masking rule, the live range it gives, and K5's deterministic dQ
+// reduction.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +35,23 @@ __device__ __forceinline__ int triage(const Geo& g, int i, int j) {
     full = full && (q_lo >= g.kv_offset + k_hi - 1);
   }
   return live ? (full ? 2 : 1) : 0;
+}
+
+// The range [lo, hi) of tiles t of one side that are live against tile
+// `fixed` of the other (a contiguous range under the causal mask and the
+// key length); lo = hi when none is.
+template <int BQ, int BK, bool Q_SIDE>
+__device__ __forceinline__ void live_range(const Geo& g, int fixed, int count, int& lo,
+                                           int& hi) {
+  lo = count;
+  hi = 0;
+  for (int t = 0; t < count; ++t) {
+    const int kind = Q_SIDE ? triage<BQ, BK>(g, t, fixed) : triage<BQ, BK>(g, fixed, t);
+    if (kind != 0) {
+      lo = min(lo, t);
+      hi = t + 1;
+    }
+  }
 }
 
 // Local q row qi against local key kj, inside an edge tile.

@@ -17,8 +17,11 @@ sequence, as ring attention needs):
 The kernels are CUDA C++ for Hopper, built by
 :mod:`mpit_tpu_torch.ops.build` on first use; each source's comments say
 what bounds its kernels and how they are tiled.  bfloat16 K4, K5 and K6
-run on the tensor cores (``csrc/flash_attention_tc.cu``); float32 K4, K5
-and K6 on scalar float32 FMAs (``csrc/flash_attention.cu``).
+run on the tensor cores (``csrc/flash_attention_tc.cu``); float32 K4 and
+K5 on the tensor cores too, at float32 accuracy by 3xTF32
+(``csrc/flash_attention_tf32.cu``: each operand split into two TF32
+values, three TF32 products for each float32 one); float32 K6 on scalar
+float32 FMAs (``csrc/flash_attention.cu``).
 Where the tensors lie fixes the route: CUDA tensors always go through a
 kernel, CPU tensors always through the plain twins
 (:func:`block_attention_partial` for K4, :func:`attention_bwd_reference`
@@ -29,9 +32,10 @@ their ``launches`` count per call that launches their kernels, and
 else.
 
 The kernels take ``D`` a multiple of 8 up to 128, float32 or bfloat16,
-contiguous, and for bfloat16 starting at a 16-byte aligned address.  The
-scalar kernels' tiles are 64 x 64 (:data:`BLOCK_Q`, :data:`BLOCK_K`); the
-tensor-core K5 takes 128 keys a block (:data:`BLOCK_K_TC`), which sets the
+contiguous, and (K4 and K5 in either type, K6 in bfloat16) starting at a
+16-byte aligned address.  The scalar K6's tiles are 64 x 64
+(:data:`BLOCK_Q`, :data:`BLOCK_K`); K5 on the tensor cores, bfloat16 and
+float32 alike, takes 128 keys a block (:data:`BLOCK_K_TC`), which sets the
 size of its dQ partials.
 The Mosaic levers of the JAX module (``MPIT_FA_VMEM_MB``, ``_DIMSEM``,
 ``_LONG_BQ``, ``_LONG_BK_BWD``) have no counterpart; the schedule choice
@@ -53,10 +57,10 @@ from mpit_tpu_torch.ops.fused_update import _cuda_stream
 
 NEG_INF = float("-inf")
 
-# The scalar kernels' tiles (csrc/flash_attention.cu: BQ, BK), which the
-# float32 route uses, and the key tile of the bfloat16 K5 on the tensor
-# cores (csrc/flash_attention_tc.cu: B_BK; checked when its library
-# loads).
+# The scalar kernels' tiles (csrc/flash_attention.cu: BQ, BK), which
+# float32 K6 uses, and the key tile of K5 on the tensor cores, bfloat16 and
+# float32 alike (csrc/flash_attention_tc.cu and flash_attention_tf32.cu:
+# B_BK; checked when each library loads).
 BLOCK_Q = 64
 BLOCK_K = 64
 BLOCK_K_TC = 128
@@ -236,7 +240,7 @@ def _dq_block_k(device, dtype) -> int:
     """The key tile of the K5 that runs for ``device`` and ``dtype``: its dQ
     partials hold one slot per tile."""
     on_card = device is not None and torch.device(device).type == "cuda"
-    return BLOCK_K_TC if on_card and dtype == torch.bfloat16 else BLOCK_K
+    return BLOCK_K_TC if on_card else BLOCK_K
 
 
 def _round_up(x: int, m: int) -> int:
@@ -275,7 +279,7 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
 
     On a CUDA ``device`` the transient is that of the K5 that runs,
     ``N * ceil(Lk / tile) * Lq * D * 4`` bytes with one f32 partial per key
-    tile (:func:`_dq_block_k`: 128 keys for bfloat16, else 64), and the
+    tile (:func:`_dq_block_k`: 128 keys in either type), and the
     budget is ``MPIT_FA_FUSED_BWD_MAX_MB`` where set, else a quarter of the
     card's memory, leaving three quarters to the weights, activations and
     grads beside the transient: K5 is the faster schedule on the H100
@@ -311,20 +315,38 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The scalar kernels: K4, K5 and K6 in float32."""
+    """The scalar kernels: K6 in float32."""
     from mpit_tpu_torch.ops import build  # nvcc runs on first use only
 
     lib = build.load("flash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geo = [i32] * 6 + [f32, i32]  # n, lq, lk, d, offsets; scale; causal
     for fn, argtypes in (
-        (lib.mpit_fa_fwd, [ptr] * 8 + geo + [i32, ptr]),
-        (lib.mpit_fa_bwd_fused, [ptr] * 10 + geo + [ptr]),
         (lib.mpit_fa_bwd_dq, [ptr] * 7 + geo + [ptr]),
         (lib.mpit_fa_bwd_dkdv, [ptr] * 8 + geo + [ptr]),
     ):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_tf32() -> ctypes.CDLL:
+    """The float32 tensor-core kernels (3xTF32): K4 and K5 in float32."""
+    from mpit_tpu_torch.ops import build
+
+    lib = build.load("flash_attention_tf32")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    geo = [i32] * 6 + [f32, i32]
+    for fn, argtypes in (
+        (lib.mpit_fa_fwd_tf32, [ptr] * 8 + geo + [i32, ptr]),
+        (lib.mpit_fa_bwd_fused_tf32, [ptr] * 10 + geo + [ptr]),
+        (lib.mpit_fa_bwd_tf32_block_k, []),
+    ):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    if lib.mpit_fa_bwd_tf32_block_k() != BLOCK_K_TC:
+        raise RuntimeError("flash_attention_tf32.cu's key tile differs from BLOCK_K_TC")
     return lib
 
 
@@ -356,12 +378,13 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _check_aligned(**tensors) -> None:
-    """The tensor-core kernels' copies (TMA) need every operand to start at
-    a multiple of 16 bytes (its rows do, D being a multiple of 8)."""
+    """The tensor-core kernels' copies (TMA in bfloat16, 16 bytes a thread
+    in float32) need every operand to start at a multiple of 16 bytes (its
+    rows do, D being a multiple of 8)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a 16-byte aligned address for "
-                             "the bfloat16 kernels (a view into another tensor?)")
+                             "the tensor-core kernels (a view into another tensor?)")
 
 
 def flash_fwd(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None,
@@ -380,11 +403,11 @@ def flash_fwd(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None
             return acc, m, l
         return finalize_partials(acc, l, q.dtype), _lse_of(m, l)
     stream = _cuda_stream(q)
+    _check_aligned(q=q, k=k, v=v)
     if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v)
         fwd = _lib_tc().mpit_fa_fwd_tc
     else:
-        fwd = _lib().mpit_fa_fwd
+        fwd = _lib_tf32().mpit_fa_fwd_tf32
     rows = dict(dtype=torch.float32, device=q.device)
     if partial:
         acc = torch.empty(*lead, lq, d, **rows)
@@ -415,8 +438,8 @@ def _bwd_operands(q, k, v, do, lse, delta, q_offset, kv_offset):
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = False,
                     sm_scale: Optional[float] = None, q_offset: int = 0,
                     kv_offset: int = 0):
-    """K5: ``(dq, dk, dv)`` in one sweep, key tiles outer, bfloat16 on the
-    tensor cores and float32 on the scalar kernel.  The sweep writes one
+    """K5: ``(dq, dk, dv)`` in one sweep, key tiles outer, on the tensor
+    cores (float32 by 3xTF32).  The sweep writes one
     f32 dQ partial per live (q tile, key tile) pair into a scratch of one
     ``(..., Lq, D)`` slot per key tile, and a second launch, K5's
     deterministic reduction, sums each q tile's live slots in ascending
@@ -430,11 +453,11 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = False,
                                        sm_scale=scale, q_offset=q_offset,
                                        kv_offset=kv_offset)
     stream = _cuda_stream(q)
+    _check_aligned(q=q, k=k, v=v, do=do)
     if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v, do=do)
         bwd = _lib_tc().mpit_fa_bwd_fused_tc
     else:
-        bwd = _lib().mpit_fa_bwd_fused
+        bwd = _lib_tf32().mpit_fa_bwd_fused_tf32
     tiles = math.ceil(lk / _dq_block_k(q.device, q.dtype))
     dqp = torch.empty(tiles, *lead, lq, d, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

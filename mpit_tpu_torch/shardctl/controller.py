@@ -249,28 +249,37 @@ class ShardController:
             if dst not in exclude:
                 self._send(frame, dst, tags.MAP_UPDATE, f"bcast:{dst}")
 
-    def _await_done(self, peer: int, shard_id: int) -> None:
+    def _gang_stopped(self) -> bool:
+        """Every client has sent its STOP (drained here, mid-handshake as
+        well): the servers exit with the gang and echo nothing more."""
+        self._drain_control()
+        return self.done
+
+    def _await_done(self, peer: int, shard_id: int) -> bool:
         """Consume MAP_UPDATE messages from ``peer`` until the DONE echo
-        for ``shard_id`` arrives (deadline-bounded, fail loud).  A
-        PREEMPT notice crossing the echo is stashed for the next pump,
-        never dropped."""
+        for ``shard_id`` arrives (deadline-bounded, fail loud); True once
+        it has.  A handshake still open when every client has stopped is
+        abandoned (False) rather than waited out to the deadline: the
+        servers left with the gang.  A PREEMPT notice crossing the echo is
+        stashed for the next pump, never dropped."""
         def _wait():
             while True:
                 payload = yield from aio_recv(
                     self.transport, peer, tags.MAP_UPDATE, live=self.live,
                     deadline=deadline_at(self._deadline_s),
+                    abort=self._gang_stopped,
                 )
                 if payload is None:
-                    return None
+                    return False
                 kind, sid, rank, smap = parse_map_update(payload)
                 if kind == DONE and sid == shard_id:
-                    return smap
+                    if smap is not None:
+                        self._install(smap)
+                    return True
                 if kind == PREEMPT:
                     self._pending_preempt.append((rank, sid))
 
-        smap = self._run(_wait(), name=f"await_done:{peer}:{shard_id}")
-        if smap is not None:
-            self._install(smap)
+        return self._run(_wait(), name=f"await_done:{peer}:{shard_id}")
 
     # -- migration / failover (synchronous, deadline-bounded) ---------------
 
@@ -278,7 +287,8 @@ class ShardController:
         """Live-migrate ``shard_id`` to server ``dst``: RELEASE to the
         current owner, ACQUIRE to ``dst``, await the DONE echo, then
         broadcast the committed map.  Returns False for no-ops (already
-        there, unknown shard, dead or retired destination)."""
+        there, unknown shard, dead or retired destination) and for a
+        handshake the gang's end cut short."""
         if self.smap is None or dst in self._dead or dst in self.retired:
             return False
         try:
@@ -294,7 +304,10 @@ class ShardController:
                    tags.MAP_UPDATE, f"release:{src}")
         self._send(map_update(ACQUIRE, shard_id, src, new_map), dst,
                    tags.MAP_UPDATE, f"acquire:{dst}")
-        self._await_done(dst, shard_id)
+        if not self._await_done(dst, shard_id):
+            self.log.info("the gang stopped during the migration of shard %d: "
+                          "abandoned at map v%d", shard_id, self.smap.version)
+            return False
         self._install(new_map)
         self._m_rebal.inc()
         self._last_move_t = self._clock()
@@ -429,6 +442,8 @@ class ShardController:
                 counts = {s: len(self.smap.shards_of(s)) for s in survivors}
                 dst = min(counts, key=lambda s: (counts[s], s))
                 if not self.migrate(entry.shard_id, dst):
+                    if self.done:
+                        return False  # the gang stopped mid-drain
                     raise RuntimeError(
                         f"scale_down: draining shard {entry.shard_id} off "
                         f"rank {rank} failed")
@@ -557,7 +572,10 @@ class ShardController:
             self.failover(srank)
 
     def maybe_rebalance(self) -> bool:
-        """Close the current load window and act on the policy."""
+        """Close the current load window and act on the policy (none
+        once every client has stopped: the servers are leaving)."""
+        if self.done:
+            return False
         now = self._clock()
         if now - self._window_t0 < self.policy.cooldown_s:
             return False

@@ -272,45 +272,47 @@ def test_cpu_gate_gives_the_jax_gates_answer(monkeypatch, shapes, dtype, budget)
 def test_gate_budget_on_the_card_is_a_quarter_of_it(monkeypatch):
     """auto on a CUDA device with no MPIT_FA_FUSED_BWD_MAX_MB: K5 while its
     transient fits a quarter of the card's memory; the variable, where
-    set, still decides.  The card's size is replaced here (no card)."""
+    set, still decides.  The card's size is replaced here (no card).  K5
+    takes 128-key tiles on the card in either type, so the long-context
+    shape's partials are 8 x 64 x 8,192 x 128 x 4 B = 2,048 MiB."""
     monkeypatch.delenv("MPIT_FA_FUSED_BWD", raising=False)
     monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB", raising=False)
     fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
     long, cuda = (1, 8, 8192, 128), torch.device("cuda")
-    monkeypatch.setattr(fa, "_card_mb", lambda device: 16384.0)
-    assert _use_fused_bwd(long, long, 128, cuda) is True  # 4,096 MiB fits
+    monkeypatch.setattr(fa, "_card_mb", lambda device: 8192.0)
+    assert _use_fused_bwd(long, long, 128, cuda) is True  # 2,048 MiB fits
     # The CPU counts the JAX package's 512-key tiles: 512 MiB, within its
     # 2,048 MiB default.
     assert _use_fused_bwd(long, long, 128, "cpu") is True
-    monkeypatch.setattr(fa, "_card_mb", lambda device: 16383.0)
+    monkeypatch.setattr(fa, "_card_mb", lambda device: 8191.0)
     assert _use_fused_bwd(long, long, 128, cuda) is False
-    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "4096")
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "2048")
     assert _use_fused_bwd(long, long, 128, cuda) is True
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gate_on_the_card_counts_the_key_tile_that_runs(monkeypatch, dtype):
-    """On the card a bfloat16 K5 runs on the tensor cores with 128-key
-    tiles, so its transient at the long-context shape is 64 x 8 x 8,192 x
-    128 x 4 B = 2,048 MiB, half the float32 kernel's 4,096 MiB over 64-key
-    tiles; the CPU counts the JAX package's 1,024-key (bfloat16) or
-    512-key (float32) tiles, 256 or 512 MiB."""
+    """On the card K5 runs on the tensor cores with 128-key tiles in
+    either type (bfloat16 in flash_attention_tc.cu, float32 by 3xTF32 in
+    flash_attention_tf32.cu), so its transient at the long-context shape is
+    64 x 8 x 8,192 x 128 x 4 B = 2,048 MiB in both; the CPU counts the JAX
+    package's 1,024-key (bfloat16) or 512-key (float32) tiles, 256 or 512
+    MiB."""
     monkeypatch.delenv("MPIT_FA_FUSED_BWD", raising=False)
     monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB", raising=False)
     fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
     long, cuda = (1, 8, 8192, 128), torch.device("cuda")
-    assert fa._dq_block_k(cuda, dtype) == (128 if dtype == torch.bfloat16 else 64)
+    assert fa._dq_block_k(cuda, dtype) == 128
     assert fa._dq_block_k("cpu", dtype) == 64
     monkeypatch.setattr(fa, "_card_mb", lambda device: 8192.0)  # a quarter: 2,048
-    assert _use_fused_bwd(long, long, 128, cuda, dtype) is (dtype == torch.bfloat16)
+    assert _use_fused_bwd(long, long, 128, cuda, dtype) is True
     assert _use_fused_bwd(long, long, 128, "cpu", dtype) is True
-    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "2048")
-    assert _use_fused_bwd(long, long, 128, cuda, dtype) is (dtype == torch.bfloat16)
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", "2047.9")
+    assert _use_fused_bwd(long, long, 128, cuda, dtype) is False
     # A ragged key length counts its partial tile: 129 keys are two.
     monkeypatch.setenv("MPIT_FA_FUSED_BWD_MAX_MB", str(100 * 8 * 4 / 2**20))
-    tc = dtype == torch.bfloat16
-    assert _use_fused_bwd((100, 8), ((128 if tc else 64), 8), 8, cuda, dtype) is True
-    assert _use_fused_bwd((100, 8), ((129 if tc else 65), 8), 8, cuda, dtype) is False
+    assert _use_fused_bwd((100, 8), (128, 8), 8, cuda, dtype) is True
+    assert _use_fused_bwd((100, 8), (129, 8), 8, cuda, dtype) is False
 
 
 def test_cpu_tensors_never_count_launches():

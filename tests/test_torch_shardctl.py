@@ -756,6 +756,41 @@ class TestController:
         assert not ctl.migrate(99, 1)
         np.testing.assert_array_equal(finish(clients, threads, ctl), w0)
 
+    @pytest.mark.parametrize("entry", ["migrate", "maybe_rebalance", "pump"])
+    def test_a_move_after_the_gang_stopped_is_abandoned(self, entry):
+        """The clients' STOPs reach the controller at its next scan; a move
+        it starts before then finds the servers gone.  The move is dropped
+        at once, map and counters untouched, instead of waiting its
+        deadline out for a DONE that never comes and failing the rank."""
+        now = [0.0]
+        deadline_s = 20.0
+        servers, clients, threads, ctl = launch_sc(
+            2, 2, 48, ctl_kwargs=dict(
+                policy=RebalancePolicy(ratio=2.0, min_busy_s=0.0, cooldown_s=1.0),
+                clock=lambda: now[0], op_deadline_s=deadline_s))
+        w0 = np.arange(48, dtype=np.float32)
+        start_clients(clients, w0)
+        ctl.pump()
+        lockstep(clients, np.ones((2, 1, 48), np.float32), 1)
+        for c in clients:
+            c.stop()
+        join_all(threads)
+        version = ctl.smap.version
+        ctl._window = {0: {0: ShardLoad(ops=50, busy_s=2.0)},
+                       1: {1: ShardLoad(ops=50, busy_s=0.1)}}
+        now[0] += 10.0
+        t0 = time.monotonic()
+        if entry == "migrate":
+            assert not ctl.migrate(0, 1)
+        elif entry == "maybe_rebalance":
+            assert not ctl.maybe_rebalance()
+        else:
+            ctl.pump()
+        assert time.monotonic() - t0 < deadline_s / 2
+        assert ctl.done
+        assert (ctl.smap.version, ctl.smap.owner(0)) == (version, 0)
+        assert int(ctl._m_rebal.value) == 0
+
 
 # ---------------------------------------------------------------------------
 # guards

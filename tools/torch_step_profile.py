@@ -10,7 +10,9 @@ Two modes, each through its entry point under the entry point's own
   longcontext_32k``): ``lm_launch.run`` at ``LM_LAUNCH_DEFAULTS`` or at the
   long-context widths at context 8,192 or 32,768, one step per log window;
   the trace's ``window N`` ranges; ``--sp N --layout zigzag|contiguous``
-  runs its attention as ring attention over N virtual ranks of the card.
+  runs its attention as ring attention over N virtual ranks of the card,
+  and ``--attn_dtype float32`` its attention in float32 (the float32 K4
+  and K5 on the tensor cores) instead of bfloat16.
 
 The first range is left out.  Each range ends when its losses reach the
 host, so its device work lies inside it.  Over the later ranges it
@@ -22,8 +24,9 @@ reports:
   they do not overlap);
 - device operations per step, and the ten heaviest by device time;
 - each group's launches, device time per step and share of device time:
-  K1 (``nesterov_commit``), K4 (``fa_fwd``), K5 (``fa_bwd_fused`` or
-  ``fa_bwd_tc``, with its dQ reduction ``dq_reduce``), K6
+  K1 (``nesterov_commit``), K4 (``fa_fwd``), K5 (``fa_bwd_tc`` in
+  bfloat16 or ``fa_bwd_tf32`` in float32, with its dQ reduction
+  ``dq_reduce``), K6
   (``fa_bwd_dq`` + ``fa_bwd_dkdv``, and their ``_tc`` kernels), the matrix
   products (cuBLAS), the copies (layout transposes and casts among them)
   and the rest; for the LM also the peak of allocated device memory.
@@ -35,6 +38,7 @@ Writes the Chrome trace to ``--out``/<mode>/trace.json and the summary to
     python3 tools/torch_step_profile.py --lm longcontext --steps 8
     python3 tools/torch_step_profile.py --lm longcontext_32k --steps 5
     python3 tools/torch_step_profile.py --lm longcontext --steps 8 --sp 4
+    python3 tools/torch_step_profile.py --lm longcontext --steps 8 --attn_dtype float32
 """
 
 from __future__ import annotations
@@ -60,8 +64,9 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # Kernel groups by name, first match wins.
 GROUPS = (
     ("k1", ("nesterov_commit",)),
-    ("k4", ("fa_fwd",)),
-    ("k5", ("fa_bwd_fused", "fa_bwd_tc", "dq_reduce")),  # the sweep and its dQ sum
+    ("k4", ("fa_fwd",)),  # fa_fwd_tc_kernel (bf16), fa_fwd_tf32_kernel (f32)
+    # the sweeps (bf16 fa_bwd_tc_kernel, f32 fa_bwd_tf32_kernel) and their dQ sum
+    ("k5", ("fa_bwd_fused", "fa_bwd_tc", "fa_bwd_tf32", "dq_reduce")),
     ("k6", ("fa_bwd_dq", "fa_bwd_dkdv")),
     ("matmul", ("gemm", "xmma", "cutlass")),
     ("copy", ("copy", "memcpy")),
@@ -129,18 +134,23 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=8, help="LM steps (--lm)")
     ap.add_argument("--sp", type=int, default=1, help="ring attention ranks (--lm)")
     ap.add_argument("--layout", default="zigzag", help="the ring's layout (--lm)")
+    ap.add_argument("--attn_dtype", default="", choices=("", "bfloat16", "float32"),
+                    help="the LM's attention dtype (--lm; default: lm_launch's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--side", type=int, default=FLAGSHIP_BENCH_KWARGS["side"])
     ap.add_argument("--out", default="chiprun_out/step_profile")
     args = ap.parse_args()
     out = pathlib.Path(args.out)
     if args.lm:
-        mode = f"lm_{args.lm}" + (f"_sp{args.sp}_{args.layout}" if args.sp > 1 else "")
+        mode = (f"lm_{args.lm}" + (f"_sp{args.sp}_{args.layout}" if args.sp > 1 else "")
+                + (f"_{args.attn_dtype}" if args.attn_dtype else ""))
         widths = {"default": {}, "longcontext": lm_launch.LONGCONTEXT_KWARGS,
                   "longcontext_32k": lm_launch.LONGCONTEXT_32K_KWARGS}[args.lm]
         if args.device == "cpu":  # a dry run of the tool at toy widths
             widths = dict(seq_len=64, d_model=32, n_heads=4, n_layers=1, batch=2,
                           attn_dtype="float32")
+        if args.attn_dtype:
+            widths = dict(widths, attn_dtype=args.attn_dtype)
         cfg = lm_launch.LM_LAUNCH_DEFAULTS.merged(
             widths, steps=args.steps, log_every=1, device=args.device,
             sp=args.sp, layout=args.layout, profile_dir=str(out / mode))
