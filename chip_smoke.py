@@ -5,7 +5,11 @@ The quickest proof that the port still starts on the GPU.  Phases, in
 order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: every kernel of the path, from the sources in this checkout;
+2. build: every kernel of the path, from the sources in this checkout, one
+   ``nvcc`` a source, all started at once; the flash attention libraries
+   build beside the untimed paths of phase 4-5 (``easgd_dp4``,
+   ``launch_msgd``, ``mesh_syncdp``, ``mesh_resume``), which run first, and
+   their SASS is checked before phase 3;
 3. kernels: each kernel against its plain PyTorch twin at the shapes each
    path below gives it (each must be bit-equal; K1, K2 and K3 also at the
    edges of their sweep and replayed from a CUDA graph, and ptxas must
@@ -44,19 +48,16 @@ order; any failure raises and the script exits non-zero:
    back) and DOWNPOUR np=4 over TCP on 127.0.0.1; each child returns its
    own K1-K3 launch counts, held exact (K1 = the workers' steps at
    EAMSGD, K3 in the servers = 2 x the workers' steps under Adam, none at
-   DOWNPOUR); then ``tools/torch_ptest.py``'s push/pull bandwidth over shm
-   (64 MB, 2 servers + 2 clients, 10 rounds, codecs none and int8: MB/s
-   and the servers' per-GRAD apply), and its observability legs at codec none in
-   one more call: obs off, obs on (MB/s of each and their ratio, written
-   down, never gated), and the framed ``FLAG_TIMING`` wire with traces,
-   decomposed by ``obs analyze`` (every op joined);
+   DOWNPOUR); beside those three, ``tools/torch_ptest.py``'s push/pull
+   bandwidth over shm (64 MB, 2 servers + 2 clients, 10 rounds, codecs
+   none and int8: MB/s, a shared host's, and the servers' per-GRAD apply);
 6b. BiCNN (slice 4): ``bicnn_scale`` (``tools/torch_bicnn_scale.py`` at its
    defaults: 3,000 filters, 3,416,600 floats, two epochs of 63 steps,
    examples/s, each epoch's seconds, the warm test3, then ten steps under
    ``torch.profiler``), ``bicnn_vs_cpu`` (five ``sgd`` steps of the docqa
    model at full width, 1,365,250 floats, card against CPU) and three
-   docqa process gangs over shm, every rank on the card, one epoch at
-   batch 4: EAMSGD np=6 with the tester first (its checkpoint read back),
+   docqa process gangs over shm side by side, every rank on the card, one
+   epoch at batch 4: EAMSGD np=6 with the tester first (its checkpoint read back),
    server-side Adam np=4 (K3 in the servers = 2 x the workers' steps; the
    servers' per-GRAD apply timed at their 682,625-float shard, K3 held
    bit-equal there) and adamsingle np=4 (K3 = the workers' steps);
@@ -119,8 +120,7 @@ order; any failure raises and the script exits non-zero:
    vector, every server process's K3 equals its applies, the workers'
    test error under 0.8; the /scale-to-first-apply and SIGTERM-to-retired
    times printed), and ``tools/torch_ptest.py``'s straggler legs
-   (rebalance off, then on: the map must move) and its 1 -> 2 -> 1
-   elastic sweep at 16 MB;
+   (rebalance off, then on: the map must move) at 16 MB;
 6f. the read path (slices 5d and 5e), the open-file limit printed (and
    its soft limit lifted to the hard one): ``serve_readers_adam`` (2 Adam
    servers on the card at 272,261 a shard, one writer running 8 lockstep
@@ -157,17 +157,18 @@ order; any failure raises and the script exits non-zero:
    path's shape and on ragged, offset pairs, in float32 and bfloat16
    (bfloat16 K4, K5 and K6 on the tensor cores, whose SASS must carry
    wgmma's HGMMA, with no spill and no wgmma serialized by ptxas; float32
-   K4 and K5 on the tensor cores by 3xTF32, whose SASS must carry
-   mma.sync's HMMA, with no spill), K5
-   against K6, K5 and K6 each against itself (equal bits), bfloat16 K5 and
+   K4, K5 and K6 on the tensor cores by 3xTF32, whose SASS must carry
+   mma.sync's HMMA at every head width, with no spill), K5
+   against K6, K5 and K6 each against itself (equal bits; float32 K6's dK
+   and dV K5's bits), bfloat16 K5 and
    K6 element by element and K4 on one key tile within one bf16 step,
    then timed beside the twins and PyTorch's
    ``scaled_dot_product_attention`` at the two LM shapes, in bfloat16 and
-   in float32 (K4 in both output modes); then bfloat16 K6
-   at the 32k LM's attention (N 8, L 32,768, D 128): K6 against the twin
-   run one head at a time (one float32 (L, L) matrix per head is 4 GiB)
-   and against K5 on one head, twice for equal bits, and timed beside
-   SDPA and the twin;
+   in float32 (K4 in both output modes); then K6, in bfloat16 and in
+   float32, at the 32k LM's attention (N 8, L 32,768, D 128): K6 against
+   the twin run one head at a time (one float32 (L, L) matrix per head is
+   4 GiB) and against K5 on one head, twice for equal bits, and timed
+   beside SDPA and the twin;
 8. the long-context LM (``lm_launch.run``): ``lm_default``
    (``LM_LAUNCH_DEFAULTS``, 20 steps), ``lm_default`` again for 3 steps
    under the other backward schedule, ``lm_longcontext`` (TinyDecoder at
@@ -175,7 +176,10 @@ order; any failure raises and the script exits non-zero:
    ``lm_longcontext_32k`` (the same widths at context 32,768, 3 steps,
    where the gate itself picks K6), ``lm_longcontext_f32``
    (``lm_longcontext`` with float32 attention, 4 steps: float32 K4 and K5
-   on the tensor cores, exactly once a layer a step, never K6), and three
+   on the tensor cores, exactly once a layer a step, never K6),
+   ``lm_longcontext_32k_f32`` (``lm_longcontext_32k`` with float32
+   attention, 3 steps: the gate itself picks K6, float32 K4 once and K6
+   twice a layer a step, never K5), and three
    small steps on the card
    held against the same steps on the CPU, with float32 and with bfloat16
    attention (bfloat16 twice: under the gate's K5 and forced to K6);
@@ -237,9 +241,10 @@ order; any failure raises and the script exits non-zero:
    (``mp_vmap_control``: the flagship CNN's worker gradients in a ``vmap``
    over four rows and over two, under deterministic cuDNN) says whether a
    row's bits depend on the ``vmap`` width; then the one-process controls
-   here, and one pair of processes, both on the card, running the
-   launchers' CLI in turn, each run over a group of its own (gloo,
-   asserted), ``dp`` cut across the two: ``mp_easgd`` (the flagship CNN at
+   here, and two pairs of processes (and the quartet below) side by side
+   on the card, each process running the launchers' CLI in turn, each run
+   over a group of its own (gloo, asserted), ``dp`` cut across the two; the
+   first pair: ``mp_easgd`` (the flagship CNN at
    ``--dp 4 --su 2``, 2 epochs with ``--ckpt_dir``) and
    ``mp_easgd_resume`` (that checkpoint resumed to 4 epochs by the pair and
    by one process): each process's rows of w, vt and k, the center and
@@ -248,15 +253,15 @@ order; any failure raises and the script exits non-zero:
    exchange timed with its bytes; ``mp_syncdp_linear`` (``--opt syncdp`` at
    ``--dp 2``, batch 128: within ``MP_LOSS_RTOL`` of one process) and
    ``mp_syncdp_cnn`` (the same with the CNN: bit for bit one process
-   computing the pair's arithmetic, two half-batch means averaged); and
+   computing the pair's arithmetic, two half-batch means averaged) and
    ``mp_lm`` (``lm_launch --dp 2`` at ``lm_default``'s widths, 5 steps,
    bfloat16 attention: within ``LM_LIMITS["float32"]`` of one process);
    both processes' replicas alike; each child's K1 and K4-K6 launches equal
    the one-process run's; each child's start-up printed; then every axis
-   across processes (slice 9c): the pair also runs ``mp_shard`` (the
+   across processes (slice 9c): the first pair also runs ``mp_shard`` (the
    flagship CNN's EASGD at ``--dp 1 --shard 2``, each process owning one of
    the center's shards: against one process within K1's tolerances, bit
-   for bit printed) and ``mp_lm_sp`` (``lm_longcontext``'s widths at ``--sp
+   for bit printed), the second ``mp_lm_sp`` (``lm_longcontext``'s widths at ``--sp
    2``, zigzag, 4 steps: against one process under
    ``LM_LIMITS["bfloat16"]``), and one quartet of children runs
    ``mp_lm_dp_sp`` (``lm_default`` at ``--dp 2 --sp 2``, 4 steps, under
@@ -265,7 +270,7 @@ order; any failure raises and the script exits non-zero:
    up to the one-process count, and the ring's hops between processes are
    timed with their bytes and their path (gloo: host copies); then tensor,
    pipeline and expert parallelism across processes (slice 9d): the
-   pair's last run, ``mp_par``, forms a group and runs ``mp_tp_mlp``,
+   second pair's last run, ``mp_par``, forms a group and runs ``mp_tp_mlp``,
    ``mp_tp_attn``, ``mp_pp_decoder`` (4 blocks over 4 microbatches, 2
    stages a process) and ``mp_ep_moe`` over ``Mesh(group=...)`` with tp,
    pp or ep 4, 2 ranks a process, on the slice-9 phases' inputs: both
@@ -306,10 +311,16 @@ are one JSON object describing every kernel (``launches`` is the count of
 the kernel's main path: the headline for K1, comm-only EAMSGD for K2,
 server-side Adam for K3, and for K4-K6 the first LM path that launched
 them, as each path's gate picked the schedule (see ``fa_entries``: K4 and
-K5 ``lm_longcontext``, K6 ``lm_longcontext_32k``; float32 K4 and K5, the
-3xTF32 kernels, entries of their own on ``lm_longcontext_f32``);
+K5 ``lm_longcontext``, K6 ``lm_longcontext_32k``; float32 K4, K5 and K6,
+the 3xTF32 kernels, entries of their own on ``lm_longcontext_f32`` and
+``lm_longcontext_32k_f32``);
 ``paths`` holds every path's launches and steps), and ``{"ok": true,
 "device": {...}}``.
+
+Each top-level phase's start goes to stderr as it begins, every phase's
+seconds and the host CPU seconds to stdout at the end, and every thread's
+stack to stderr once a phase has run STACK_DUMP_S or the process takes a
+fatal signal.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -318,6 +329,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import functools
 import hashlib
 import itertools
@@ -329,6 +341,12 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+#: seconds into one phase at which every thread's stack is written to stderr:
+#: no phase has taken half of it on an H100's host (the longest 145 s), so a
+#: phase still running then is stuck, and the stacks say where
+STACK_DUMP_S = 300
+#: compiled Python modules of this run and its children, in the checkout
+PYC_DIR = ".pyc_cache"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
@@ -439,6 +457,27 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+class Stages:
+    """The run's top-level phases: each one's start on stderr as it
+    begins (a run stopped at its time limit leaves the tail of stderr to
+    read), every thread's stack on stderr once it has run STACK_DUMP_S,
+    and every phase's seconds at the end."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.marks = []
+
+    def __call__(self, name):
+        at = time.perf_counter() - self.t0
+        self.marks.append((name, at))
+        print(f"chip_smoke: {name} from {at:.1f}s", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback_later(STACK_DUMP_S)  # re-armed each phase
+
+    def seconds(self):
+        ends = [at for _, at in self.marks[1:]] + [time.perf_counter() - self.t0]
+        return {name: round(end - at, 1) for (name, at), end in zip(self.marks, ends)}
 
 
 def time_ms(torch, fn, queued=False, kernels_per_call=1, n=None) -> float:
@@ -940,7 +979,9 @@ def device_loop_run(torch, commit, cfg, on_card=False):
     if on_card:
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # The card's activity only: K1's kernels are all that is read, and
+        # the host's ops cost seconds to record and to sort out.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             res = run(cfg)
             torch.cuda.synchronize()
     else:
@@ -987,9 +1028,10 @@ def device_loop_vs_host(torch, commit):
       error; this device loop runs under ``torch.profiler``, which reads
       K1's launches on the card;
     - with cuDNN's default algorithms, as the port trains: the host loop
-      three times (the first with the steady-state leg) and the device
-      loop with the leg; they are timed, and the device loop is held to
-      the host loop within twice the host loop's spread in this call (the
+      three times and the device loop with the steady-state leg (the
+      headline takes the host loop's); they are timed, and the device
+      loop is held to the host loop within twice the host loop's spread
+      in this call (the
       largest gap between any two of its four runs here, the three
       default ones and the deterministic one; LOOP_LOSS_FLOOR and
       LOOP_ERR_SAMPLES_FLOOR at least).
@@ -1012,7 +1054,7 @@ def device_loop_vs_host(torch, commit):
                 torch, commit, base.merged(kw), on_card=name == "det_device_loop")
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    for name, kw in (("host_loop", {"measure_throughput": 1}), ("host_loop_again", {}),
+    for name, kw in (("host_loop", {}), ("host_loop_again", {}),
                      ("host_loop_third", {}),
                      ("device_loop", {"device_loop": 1, "measure_throughput": 1})):
         runs[name], entries[name] = device_loop_run(torch, commit, base.merged(kw))
@@ -1354,7 +1396,7 @@ def adam_gang_vs_cpu(torch, kernels):
 # q_offset, kv_offset, causal).  The three LM paths' attention (batch x
 # heads, context, head width), a ragged pair whose first 20 q rows are dead
 # under the causal mask, and full attention over a ragged pair.
-#: rounds of ptest_shm's five legs (the twin's default is 20; cut to 10 to
+#: rounds of ptest_shm's two legs (the twin's default is 20; cut to 10 to
 #: make room for the aggregation and LM block)
 PTEST_SHM_ROUNDS = "10"
 
@@ -1405,13 +1447,40 @@ def run_procs_path(name, size, **kw):
     return results, launches, reading
 
 
+def ptest_shm(smi):
+    """``tools/torch_ptest.py``'s push/pull bandwidth over shm (64 MB, 2
+    servers + 2 clients) at codecs none and int8: each leg's codec on the
+    native library and its servers on the card; MB/s and the servers'
+    per-GRAD apply printed.  (Its observability legs run as a command of
+    their own: ``obs_timed_procs`` drives the same counters, spans and
+    timed wire through ``launch``.)  Returns the seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
+                          env=dict(os.environ, MPIT_BENCH_CODECS="none,int8",
+                                   MPIT_BENCH_ROUNDS=PTEST_SHM_ROUNDS),
+                          capture_output=True, text=True, timeout=600)
+    sys.stdout.write(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"ptest_shm failed ({proc.returncode}):\n{proc.stdout}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    for row in rows:
+        print(f"ptest_shm on {smi}: " + json.dumps(row))
+        if row["codec_path"] != "native" \
+                or row.get("server_platforms") != [GANG_BASE["device"]] \
+                or not row["value"] > 0:
+            raise AssertionError(f"ptest_shm: {row}")
+    if [row["codec"] for row in rows] != ["none", "int8"]:
+        raise AssertionError(f"ptest_shm: rows {rows}")
+    return time.perf_counter() - t0
+
+
 def process_gang_paths(torch, paths, inproc, smi):
     """The process gangs (``launch --np N``) at the flagship widths, every
     rank on the card: BASELINE configs 2 and 3 over shm (beside the
-    in-process gangs' samples/s from this call), server-side Adam, a
-    tester, DOWNPOUR over TCP on 127.0.0.1, then the ptest twin's push/pull
-    bandwidth (codecs none and int8).  The codec must run the port's native
-    library, never its numpy fallback."""
+    in-process gangs' samples/s from this call), then side by side
+    server-side Adam, a tester, DOWNPOUR over TCP on 127.0.0.1 and the ptest
+    twin's push/pull legs (``ptest_shm``).  The codec must run the port's
+    native library, never its numpy fallback."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1419,7 +1488,6 @@ def process_gang_paths(torch, paths, inproc, smi):
 
     from mpit_tpu_torch.comm import codec
     from mpit_tpu_torch.comm.native import build as native_build
-    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.mnist import make_model
     from mpit_tpu_torch.utils.checkpoint import load_flat
@@ -1460,12 +1528,12 @@ def process_gang_paths(torch, paths, inproc, smi):
               f"{inproc[name]['samples_per_sec_last_epoch']:.1f}")
 
     # Three gangs side by side (13 processes on one card): their checks
-    # are exact, and their samples/s are not read.
+    # are exact, and their samples/s are not read; ptest's legs run beside
+    # them, so its MB/s are those of a shared host.
     n_params = flatten_module(make_model(GANG_BASE["model"], GANG_BASE["side"]), 1).size
-    addrs, socks = allocate_local_addresses(4)
-    for sock in socks:
-        sock.close()  # the TCP gang's ranks bind these ports
-    with tempfile.TemporaryDirectory() as ckpt_dir, ThreadPoolExecutor(3) as pool:
+    addrs = gang_addresses(4)  # the TCP gang's ranks bind these ports
+    with tempfile.TemporaryDirectory() as ckpt_dir, ThreadPoolExecutor(4) as pool:
+        ptest = pool.submit(ptest_shm, smi)
         adam = pool.submit(run_procs_path, "ps_adam_np4_procs", 4, opt="adam",
                            lr=1e-3, su=1, epochs=1)
         tester = pool.submit(run_procs_path, "ps_downpour_np5_tester_procs", 5,
@@ -1476,6 +1544,7 @@ def process_gang_paths(torch, paths, inproc, smi):
                           tcp_addrs=",".join(addrs))
         adam, tester, tcp = adam.result(), tester.result(), tcp.result()
         w, meta = load_flat(os.path.join(ckpt_dir, "ckpt_latest.npz"))
+        ptest_s = ptest.result()
 
     name = "ps_adam_np4_procs"
     res, launches, _ = adam
@@ -1513,47 +1582,7 @@ def process_gang_paths(torch, paths, inproc, smi):
     expect_launches(name, launches, {})
     record(name, res, launches)
 
-    t_ptest = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
-                          env=dict(os.environ, MPIT_BENCH_CODECS="none,int8",
-                                   MPIT_BENCH_ROUNDS=PTEST_SHM_ROUNDS),
-                          capture_output=True, text=True, timeout=600)
-    sys.stdout.write(proc.stderr)
-    if proc.returncode != 0:
-        raise AssertionError(f"ptest_shm failed ({proc.returncode}):\n{proc.stdout}")
-    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
-    for row in rows:
-        print(f"ptest_shm on {smi}: " + json.dumps(row))
-        if row["codec_path"] != "native" \
-                or row.get("server_platforms") != [GANG_BASE["device"]] \
-                or not row["value"] > 0:
-            raise AssertionError(f"ptest_shm: {row}")
-    if [row["codec"] for row in rows] != ["none", "int8"]:
-        raise AssertionError(f"ptest_shm: rows {rows}")
-    # The observability legs at codec none, in one call: obs off, then on
-    # (registry counters and op spans in every child), then the framed
-    # FLAG_TIMING wire with traces, merged and decomposed by `obs analyze`.
-    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
-                          env=dict(os.environ, MPIT_BENCH_CODECS="none", MPIT_BENCH_OBS="1",
-                                   MPIT_BENCH_DECOMP="1", MPIT_BENCH_ROUNDS=PTEST_SHM_ROUNDS),
-                          capture_output=True, text=True, timeout=600)
-    sys.stdout.write(proc.stderr)
-    if proc.returncode != 0:
-        raise AssertionError(f"ptest_shm obs legs failed ({proc.returncode}):\n{proc.stdout}")
-    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
-    for row in rows:
-        print(f"ptest_shm_obs on {smi}: " + json.dumps(row))
-    legs = [(row["obs"], row.get("decomp", 0)) for row in rows]
-    if legs != [(0, 0), (1, 0), (0, 1)] or not all(row["value"] > 0 for row in rows):
-        raise AssertionError(f"ptest_shm obs legs: {legs}")
-    if rows[2]["join_rate"] != 1.0:
-        raise AssertionError(f"ptest_shm decomposition: join rate {rows[2]['join_rate']}")
-    # The JAX twin gates obs-on at 97% of the captured record; the ratio is
-    # written down here, whatever it is, and does not fail the run.
-    print(f"ptest_shm obs on {smi}: codec none {rows[0]['value']} MB/s with obs off, "
-          f"{rows[1]['value']} MB/s on (ratio {rows[1]['value'] / rows[0]['value']:.4f}), "
-          f"{rows[2]['value']} MB/s on the timed, traced wire")
-    print(f"ptest_shm: {time.perf_counter() - t_ptest:.1f}s; process gang phases: "
+    print(f"ptest_shm: {ptest_s:.1f}s, beside the three gangs; process gang phases: "
           f"{time.perf_counter() - t0:.1f}s")
     print("process gang timing: " + json.dumps(timing))
     return timing
@@ -2117,7 +2146,6 @@ def ft_chaos_procs(torch, all_paths, smi, timing, tmp):
     training when the kill lands."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
 
     startup, epoch_s = timing["startup_s"], timing["epoch_s"]
     after_s = 2.0
@@ -2126,9 +2154,7 @@ def ft_chaos_procs(torch, all_paths, smi, timing, tmp):
           f"{after_s:.1f}s after the first checkpoint, {epochs} epochs")
     gangs = []
     for kill_rank in (3, 2):
-        addrs, socks = allocate_local_addresses(4)
-        for sock in socks:
-            sock.close()  # the gang's ranks bind these ports
+        addrs = gang_addresses(4)  # the gang's ranks bind these ports
         ckpt_dir = os.path.join(tmp, f"chaos{kill_rank}")
         gangs.append((f"ft_chaos_kill_{'worker' if kill_rank == 3 else 'server'}",
                       kill_rank, after_s, epochs, addrs, ckpt_dir))
@@ -2461,6 +2487,12 @@ def urllib_request():
     return urllib.request
 
 
+#: seconds of training ``elastic_adam_procs`` is sized for at the process
+#: gangs' epoch: 45 took the gang 110.3 s beside ptest's legs on an H100 (the
+#: joiner's first apply 18.0 s after /scale)
+ELASTIC_TRAIN_S = 35.0
+
+
 def elastic_adam_procs(all_paths, smi, timing):
     """``launch --np 5 --elastic 1 --elastic_spares 1 --opt adam --transport
     tcp --supervise 2`` at the flagship widths, every rank on the card:
@@ -2472,20 +2504,17 @@ def elastic_adam_procs(all_paths, smi, timing):
     counted, the final map tiles the vector with each shard owned once by
     a live server, every server process's K3 equal to its applies, the
     workers under the reference soak's test-error bound (0.8).  The
-    epochs are sized from this call's process-gang epoch for ~45 s of
-    training, which holds the joiner's start-up."""
+    epochs are sized from this call's process-gang epoch for
+    ELASTIC_TRAIN_S of training, which holds the joiner's start-up."""
     import signal
     import tempfile
     import threading
 
-    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
     from mpit_tpu_torch.obs.statusd import free_base_port
     from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
 
-    epochs = max(int(math.ceil(45.0 / timing["epoch_s"])), 6)
-    addrs, socks = allocate_local_addresses(6)
-    for sock in socks:
-        sock.close()
+    epochs = max(int(math.ceil(ELASTIC_TRAIN_S / timing["epoch_s"])), 6)
+    addrs = gang_addresses(6)
     base = free_base_port(6)
     box = {}
     up_done = threading.Event()
@@ -2603,21 +2632,21 @@ def elastic_adam_procs(all_paths, smi, timing):
     return wall
 
 
-#: rounds of each of ptest's shard-control legs: 20 took the block 112.6-128.9 s
-#: on an H100, of it the two straggler legs 23-25 s; 10 keeps the whole script
-#: inside its time beside the ring block
+#: rounds of each of ptest's straggler legs: 20 took the shard-control block
+#: 112.6-128.9 s on an H100, of it the two straggler legs 23-25 s; most of a
+#: leg is its processes' start-up (six legs at 10 rounds took 117.8 s)
 PTEST_SC_ROUNDS = "10"
 
 
 def ptest_sc_legs(smi):
-    """``tools/torch_ptest.py``'s shard-control legs at 16 MB: the codec-none
-    leg, the straggler A/B (rebalance off, then on: the on-leg's map must
-    have moved) and the 1 -> 2 -> 1 elastic sweep, MB/s printed."""
+    """``tools/torch_ptest.py``'s straggler A/B at 16 MB and codec none,
+    and no other leg: rebalance off, then on (the on-leg's map must have
+    moved), MB/s printed.  (Its 1 -> 2 -> 1 elastic sweep runs as a command
+    of its own: ``elastic_adam_procs`` drives a real scale-up and drain.)"""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
-                          env=dict(os.environ, MPIT_BENCH_CODECS="none", MPIT_BENCH_MB="16",
-                                   MPIT_BENCH_ROUNDS=PTEST_SC_ROUNDS, MPIT_BENCH_SKEW="1",
-                                   MPIT_BENCH_ELASTIC="1"),
+                          env=dict(os.environ, MPIT_BENCH_MB="16",
+                                   MPIT_BENCH_ROUNDS=PTEST_SC_ROUNDS, MPIT_BENCH_SKEW="only"),
                           capture_output=True, text=True, timeout=900)
     sys.stdout.write(proc.stderr[-4000:])
     if proc.returncode != 0:
@@ -2627,18 +2656,12 @@ def ptest_sc_legs(smi):
     rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
     for row in rows:
         print(f"ptest_sc on {smi}: " + json.dumps(row))
-    skew = [r for r in rows if r.get("skew")]
-    el = [r for r in rows if r.get("elastic")]
-    if [r["rebalance"] for r in skew] != [0, 1] or not skew[1]["map_version"] > 0 \
-            or skew[0]["map_version"] != 0:
-        raise AssertionError(f"ptest skew legs: {skew}")
-    if [r["phase"] for r in el] != ["start", "grown", "shrunk"] \
-            or [r["servers"] for r in el] != [1, 2, 1] \
-            or not all(r["value"] > 0 for r in rows):
-        raise AssertionError(f"ptest elastic legs: {el}")
-    print(f"ptest_sc on {smi}: straggler {skew[0]['value']} MB/s static, "
-          f"{skew[1]['value']} MB/s rebalanced (map v{skew[1]['map_version']}); elastic "
-          f"1 -> 2 -> 1 servers {[r['value'] for r in el]} MB/s; "
+    if [(r.get("skew"), r.get("rebalance"), r["codec"]) for r in rows] != [
+            (1, 0, "none"), (1, 1, "none")] or not rows[1]["map_version"] > 0 \
+            or rows[0]["map_version"] != 0 or not all(r["value"] > 0 for r in rows):
+        raise AssertionError(f"ptest skew legs: {rows}")
+    print(f"ptest_sc on {smi}: straggler {rows[0]['value']} MB/s static, "
+          f"{rows[1]['value']} MB/s rebalanced (map v{rows[1]['map_version']}); "
           f"{time.perf_counter() - t0:.1f}s")
     return time.perf_counter() - t0
 
@@ -3168,16 +3191,13 @@ def serve_cells_procs(all_paths, smi):
     import signal
     import threading
 
-    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
     from mpit_tpu_torch.obs.statusd import free_base_port
     from mpit_tpu_torch.train.launch import LAUNCH_DEFAULTS, launch_processes
 
     name = "serve_cells_procs"
     size = 2 + PROCS_CELLS + PROCS_READERS
     victim = 2
-    addrs, socks = allocate_local_addresses(size)
-    for sock in socks:
-        sock.close()
+    addrs = gang_addresses(size)
     base = free_base_port(size)
     saved = os.environ.get("MPIT_OBS_HTTP")
     os.environ["MPIT_OBS_HTTP"] = str(base)
@@ -3861,7 +3881,7 @@ def dplane_mesh_migrate(torch, kernels, all_paths, smi):
 
 def dplane_stream_phases(torch, kernels, all_paths, smi):
     """Slices 6 and 5f on the card: the process gangs (the dplane Adam gang
-    and the chunked EAMSGD gangs) and ptest's stream leg run in the
+    and the chunked EAMSGD gangs), then ptest's stream leg, run in the
     background while this process drives the device exchange and the
     streamed lockstep matrix."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3869,7 +3889,6 @@ def dplane_stream_phases(torch, kernels, all_paths, smi):
     import numpy as np
 
     from mpit_tpu_torch import obs
-    from mpit_tpu_torch.comm.tcp import allocate_local_addresses
     from mpit_tpu_torch.data.mnist import load_mnist
 
     obs.configure(enabled=False)
@@ -3878,12 +3897,18 @@ def dplane_stream_phases(torch, kernels, all_paths, smi):
     data = (torch.as_tensor(raw[0], device=GANG_BASE["device"]),
             torch.as_tensor(np.asarray(raw[1]), dtype=torch.int64,
                             device=GANG_BASE["device"]))
-    addrs, socks = allocate_local_addresses(4)
-    for s in socks:
-        s.close()
-    with ThreadPoolExecutor(2) as pool:
+    addrs = gang_addresses(4)
+
+    def gangs_then_ptest(procs, dprocs):
+        dprocs.result()
+        procs_s = procs.result()
+        ptest_stream(smi)
+        return procs_s
+
+    with ThreadPoolExecutor(3) as pool:
         procs = pool.submit(stream_procs, all_paths, smi, addrs)
         dprocs = pool.submit(dplane_adam_procs, all_paths)
+        later = pool.submit(gangs_then_ptest, procs, dprocs)
         t1 = time.perf_counter()
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
@@ -3898,9 +3923,7 @@ def dplane_stream_phases(torch, kernels, all_paths, smi):
         dplane_gangs(torch, kernels, raw, all_paths)
         stream_lockstep_matrix(torch, kernels, all_paths, smi)
         inproc_s = time.perf_counter() - t1
-        dprocs.result()
-        procs_s = procs.result()
-    ptest_stream(smi)
+        procs_s = later.result()
     obs.configure(enabled=None)
     print(f"dplane and stream phases: {time.perf_counter() - t0:.1f}s (in-process "
           f"{inproc_s:.1f}s; beside it the process gangs {procs_s:.1f}s)")
@@ -4159,8 +4182,9 @@ FA_TIMED = ("lm_default", "lm_longcontext")
 # The kernels that SDPA's backward launches a call, for queueing it behind
 # the hold (time_ms's kernels_per_call).
 SDPA_BWD_KERNELS = 8
-# The attention of lm_longcontext_32k (leading axes, L, D; bf16, causal),
-# where the gate refuses K5's dQ partials (32 GiB) and K6 runs.
+# The attention of lm_longcontext_32k and lm_longcontext_32k_f32 (leading
+# axes, L, D; causal), where the gate refuses K5's dQ partials (32 GiB)
+# and K6 runs.
 FA_32K = ((1, 8), 32768, 128)
 # K4 in bf16 where Lk fits one key tile of the tensor-core kernel (128):
 # (leading axes, Lq, Lk, D, q_offset, kv_offset, causal), with and without
@@ -4272,10 +4296,11 @@ def check_flash(torch):
     """K4, K5 and K6 against their twins at every FA_CASES shape, in f32 and
     bf16 (the twins on the same inputs on the card; K4 in both output
     modes; K5 and K6 also against each other, and each against a second
-    run of itself); then each timed at the two LM shapes in bf16 beside its
-    twin and SDPA; then K4 in bf16 at the FA_ONE_TILE shapes; then K6 at
-    the 32k LM's shape (``check_k6_32k``).  Returns each kernel's largest
-    gap to its twin and the times at the three shapes."""
+    run of itself; in float32 K6's dK and dV are K5's bits); then each
+    timed at the two LM shapes beside its twin and SDPA; then K4 in bf16 at
+    the FA_ONE_TILE shapes; then K6 at the 32k LM's shape in bf16 and in
+    float32 (``check_k6_32k``).  Returns each kernel's largest gap to its
+    twin and the times at each shape."""
     import torch.nn.functional as F
 
     from mpit_tpu_torch.ops.flash_attention import (
@@ -4284,7 +4309,7 @@ def check_flash(torch):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    errs = {"k4": 0.0, "k5": 0.0, "k6": 0.0, "k4_f32": 0.0, "k5_f32": 0.0}
+    errs = {"k4": 0.0, "k5": 0.0, "k6": 0.0, "k4_f32": 0.0, "k5_f32": 0.0, "k6_f32": 0.0}
     timed = {}
     f32_timing_s = 0.0
     for name, lead, lq, lk, d, q_off, kv_off, causal in FA_CASES:
@@ -4318,6 +4343,10 @@ def check_flash(torch):
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError(f"{key} gave other bits on a second run at "
                                          f"{name} {dtype}")
+            # float32 K6's dK/dV kernel is K5's sweep without the dQ work.
+            if dtype == torch.float32 and not (torch.equal(got5[1], got6[1])
+                                               and torch.equal(got5[2], got6[2])):
+                raise AssertionError(f"float32 K6's dk, dv are not K5's bits at {name}")
             bwd_atol = FA_PAIR_ATOL if (q_off or kv_off) else FA_BWD_ATOL
             for grad, w, a5, a6 in zip(("dq", "dk", "dv"), want, got5, got6):
                 checks[f"k5_{grad}"] = fa_err(torch, a5, w, bwd_atol, rows=rows)
@@ -4331,7 +4360,7 @@ def check_flash(torch):
                 key = what[:2]
                 if not what.startswith("k5_vs"):
                     errs[key] = max(errs[key], gap)
-                    if dtype == torch.float32 and key in ("k4", "k5"):
+                    if dtype == torch.float32:
                         errs[key + "_f32"] = max(errs[key + "_f32"], gap)
                 if not used <= 1.0:
                     raise AssertionError(f"{what} past its limit at {name} {dtype}: "
@@ -4370,6 +4399,10 @@ def check_flash(torch):
                                      f"D {d}): gap {gap}, {used} of the limit")
     timed["lm_longcontext_32k"], gap = check_k6_32k(torch, F, gen)
     errs["k6"] = max(errs["k6"], gap)
+    t0 = time.perf_counter()
+    timed["lm_longcontext_32k_f32"], gap = check_k6_32k(torch, F, gen, torch.float32)
+    errs["k6"], errs["k6_f32"] = max(errs["k6"], gap), max(errs["k6_f32"], gap)
+    print(f"float32 K6 at FA_32K: {time.perf_counter() - t0:.1f}s")
     print("flash times: " + json.dumps(timed))
     print(f"float32 flash timing: {f32_timing_s:.1f}s")
     return errs, timed
@@ -4381,10 +4414,11 @@ def fa_entries(errs, timed, paths):
     lm_longcontext, lm_longcontext_32k, lm_default,
     lm_default_other_schedule (the gate picks the schedule); its launches
     are that run's and its times those at that path's attention shape.
-    Then float32 K4 and K5, the 3xTF32 kernels of their own source, on
-    their main path lm_longcontext_f32 (the float32 paths' launches are in
-    the K4 and K5 entries' ``paths`` too: one wrapper counts both types),
-    timed at lm_longcontext's shape in float32."""
+    Then float32 K4, K5 and K6, the 3xTF32 kernels of their own source, on
+    their main paths: K4 and K5 on lm_longcontext_f32, timed at
+    lm_longcontext's shape in float32, K6 on lm_longcontext_32k_f32, timed
+    at FA_32K in float32 (the float32 paths' launches are in the bfloat16
+    entries' ``paths`` too: one wrapper counts both types)."""
     entries = []
     tc = "mpit_tpu_torch/ops/csrc/flash_attention_tc.cu"
     tf32 = "mpit_tpu_torch/ops/csrc/flash_attention_tf32.cu"
@@ -4406,40 +4440,50 @@ def fa_entries(errs, timed, paths):
             "main_path": main_path, "timed_at": shape,
             "sdpa_backend": timed[shape]["sdpa_backend"],
         })
-    for key, fn, src_line in kernels[:2]:
-        t = timed["lm_longcontext_f32"][key]
-        rec = paths[key]["lm_longcontext_f32"]
+    f32_paths = ("lm_longcontext_f32", "lm_longcontext_f32", "lm_longcontext_32k_f32")
+    for (key, fn, src_line), path in zip(kernels, f32_paths):
+        t = timed[path][key]
+        rec = paths[key][path]
         entries.append({
             "name": f"{fn} (float32)", "route": "cuda", "source": tf32,
             "replaces": src_line, "launches": rec["launches"],
-            "paths": {"lm_longcontext_f32": rec}, "max_abs_err": errs[f"{key}_f32"],
+            "paths": {path: rec}, "max_abs_err": errs[f"{key}_f32"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "main_path": "lm_longcontext_f32", "timed_at": "lm_longcontext_f32",
-            "sdpa_backend": timed["lm_longcontext_f32"]["sdpa_backend"],
+            "main_path": path, "timed_at": path,
+            "sdpa_backend": timed[path]["sdpa_backend"],
         })
     return entries
 
 
-def check_k6_32k(torch, F, gen):
-    """bf16 K6 at FA_32K, the attention of ``lm_longcontext_32k``: K6
-    against its twin run one head at a time (each head's float32 (L, L)
-    matrices take 4 GiB apiece) under the bf16 row rule on every head; K6
-    twice on every head for equal bits; K6 against K5 on one head (N 1,
-    beside K5's 4 GiB of dQ partials; K6's dK/dV kernel is K5's sweep, so
-    there only dQ is computed apart); then K6 timed beside SDPA's backward
-    and the twin.  lse and o come from K4, held to its twin above.  Returns
-    the times and K6's largest gap to its twin."""
+def check_k6_32k(torch, F, gen, dtype=None):
+    """K6 at FA_32K in ``dtype`` (bf16 unless given), the attention of
+    ``lm_longcontext_32k`` (float32: ``lm_longcontext_32k_f32``): K6
+    against its twin on every head, under the bf16 row rule or float32's
+    elementwise limit; K6 twice on every head for equal bits; K6 against
+    K5 on one head (N 1, beside K5's 4 GiB of dQ partials; K6's dK/dV
+    kernel is K5's sweep, so there only dQ is computed apart, and in
+    float32 dK and dV must be K5's bits); then K6 timed beside SDPA's
+    backward and the twin.  bf16 holds K6 to the twin run one head at a
+    time (each head's float32 (L, L) matrices take 4 GiB apiece).  float32
+    holds it to the twin in float64 (``twin_f64``): the float32 twin's own
+    sums over 32,768 rows put its dV as far as the 3e-5 limit from
+    float64, and past it on some inputs (``tools/torch_flash_f32.py
+    --truth``), so its gap is printed, not held.  lse and o
+    come from K4, held to its twin above.  Returns the times and K6's
+    largest gap to the twin it was held to."""
     from mpit_tpu_torch.ops.flash_attention import (
         attention_bwd_reference, flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
 
     dev = torch.device("cuda")
+    dtype = dtype or torch.bfloat16
+    rows = dtype == torch.bfloat16  # the bf16 rule (FA_BF16_ROW)
     lead, seq, d = FA_32K
     kw = dict(causal=True, q_offset=0, kv_offset=0)
     q, k, v = (0.5 * torch.randn(*lead, seq, d, device=dev, generator=gen)
                for _ in range(3))
     do = torch.randn(*lead, seq, d, device=dev, generator=gen)
-    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
     o, lse = flash_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     del o
@@ -4458,15 +4502,27 @@ def check_k6_32k(torch, F, gen):
     del again
     want = plain_bwd()
     torch.cuda.empty_cache()
+    if not rows:
+        twin32, want = want, twin_f64(torch, q, k, v, do, lse, delta)
+        print("float32 twin against the twin in float64 at FA_32K (max abs gap, share "
+              "of the float32 limit): " + json.dumps(
+                  {g: fa_err(torch, a, w, FA_BWD_ATOL)
+                   for g, a, w in zip(("dq", "dk", "dv"), twin32, want)}))
+        del twin32
+        torch.cuda.empty_cache()
     head = [t[:, :1].clone() for t in (q, k, v, do, lse, delta)]
     got5 = flash_bwd_fused(*head, **kw)
     torch.cuda.synchronize()
+    if not rows and not (torch.equal(got[1][:, :1], got5[1])
+                         and torch.equal(got[2][:, :1], got5[2])):
+        raise AssertionError("float32 K6's dk, dv are not K5's bits at FA_32K")
     checks = {}
     for grad, a, w, b in zip(("dq", "dk", "dv"), got, want, got5):
-        checks[f"k6_{grad}"] = fa_err(torch, a, w, FA_BWD_ATOL, rows=True)
-        checks[f"k6_vs_k5_{grad}"] = fa_err(torch, a[:, :1], b, FA_BWD_ATOL, rows=True)
-    print(f"flash check 32k {lead} L {seq} D {d} bfloat16, K6 vs twin on every head, "
-          "vs K5 on head 0 (max abs gap, share of the limit): " + json.dumps(checks))
+        checks[f"k6_{grad}"] = fa_err(torch, a, w, FA_BWD_ATOL, rows=rows)
+        checks[f"k6_vs_k5_{grad}"] = fa_err(torch, a[:, :1], b, FA_BWD_ATOL, rows=rows)
+    print(f"flash check 32k {lead} L {seq} D {d} {str(dtype)[6:]}, K6 vs twin "
+          f"({'float32' if rows else 'float64'}) on every head, vs K5 on head 0 (max abs "
+          "gap, share of the limit): " + json.dumps(checks))
     for what, (gap, used) in checks.items():
         if not used <= 1.0:
             raise AssertionError(f"{what} past its limit at FA_32K: gap {gap}, "
@@ -4478,6 +4534,29 @@ def check_k6_32k(torch, F, gen):
     torch.cuda.empty_cache()
     gap = max(g for what, (g, _) in checks.items() if not what.startswith("k6_vs"))
     return times, gap
+
+
+def twin_f64(torch, q, k, v, do, lse, delta, rows=8192):
+    """The backward twin in float64 over causal (N, H, L, D) inputs, one
+    head and ``rows`` q rows at a time, each such block an offset pair of
+    the attention (its (rows, L) float64 matrices 2 GiB apiece), dK and dV
+    summed over the blocks in float64; from the float32 lse and delta the
+    kernels are given."""
+    from mpit_tpu_torch.ops.flash_attention import attention_bwd_reference
+
+    seq = q.shape[-2]
+    grads = [torch.zeros(t.shape, dtype=torch.float64, device=t.device) for t in (q, k, v)]
+    for h in range(q.shape[1]):
+        kh, vh = (t[:, h:h + 1].double() for t in (k, v))
+        for r0 in range(0, seq, rows):
+            part = [t[:, h:h + 1, r0:r0 + rows] for t in (q, do, lse, delta)]
+            gq, gk, gv = attention_bwd_reference(
+                part[0].double(), kh, vh, part[1].double(), part[2], part[3], causal=True,
+                q_offset=r0)
+            grads[0][:, h:h + 1, r0:r0 + rows] = gq
+            grads[1][:, h:h + 1] += gk
+            grads[2][:, h:h + 1] += gv
+    return tuple(grads)
 
 
 def time_flash(torch, F, q, k, v, do, lse, delta, kw, lead, lq, lk, d,
@@ -4688,6 +4767,33 @@ def lm_longcontext_f32(torch, kernels, paths, steps=4):
     return rec
 
 
+def lm_longcontext_32k_f32(torch, kernels, paths, steps=3):
+    """``lm_longcontext_32k`` (d 1,024, 8 heads of 128, 4 layers, context
+    32,768) with attention in float32, ``steps`` steps: the gate, left to
+    itself, must pick K6 (K5's dQ partials would take 32 GiB), which runs
+    on the float32 tensor-core kernels (3xTF32) exactly twice a layer a
+    step, K4 once, K5 never, the warm-up step's included; finite losses;
+    tokens/s, ms a step and peak memory printed.  Fills
+    ``paths[kernel]["lm_longcontext_32k_f32"]`` and returns the path's
+    record."""
+    from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_32K_KWARGS
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_bwd_env(None):
+        _, rec = lm_path(torch, "lm_longcontext_32k_f32", kernels, steps=steps,
+                         log_every=steps, attn_dtype="float32", **LONGCONTEXT_32K_KWARGS)
+    if not rec["schedule"].startswith("two-kernel") or rec["launches"]["k5"]:
+        raise AssertionError(f"lm_longcontext_32k_f32: the gate picked {rec['schedule']} "
+                             f"(K5 {rec['launches']['k5']}), not K6")
+    for key in kernels:
+        paths[key]["lm_longcontext_32k_f32"] = {**rec, "launches": rec["launches"][key]}
+    torch.cuda.empty_cache()
+    print(f"lm_longcontext_32k_f32: {time.perf_counter() - t0:.1f}s")
+    return rec
+
+
 def lm_vs_cpu(torch, kernels, attn_dtype, fused_bwd=None, sp=1, layout="zigzag"):
     """Three LM steps at d 128, 4 heads (head width 32), 2 layers, context
     256, batch 2, attention in ``attn_dtype``, on the card and on the CPU
@@ -4870,7 +4976,7 @@ def ring_dead_pairs(torch):
     twin's acc 0, m -inf, l 0, and exact zero grads (lse and delta finite,
     as the ring's backward gives them)."""
     from mpit_tpu_torch.ops.flash_attention import (
-        _dq_block_k, attention_bwd_reference, block_attention_partial, flash_bwd_fused,
+        BLOCK_K_TC, attention_bwd_reference, block_attention_partial, flash_bwd_fused,
         flash_bwd_two_kernel, flash_fwd)
 
     dev = torch.device("cuda")
@@ -4891,7 +4997,7 @@ def ring_dead_pairs(torch):
             grads = [(size, dtype), ((*lead, lk, d), dtype), ((*lead, lk, d), dtype)]
             poison_allocator(torch, [(size, f32), (rows, f32), (rows, f32)])
             fwd = flash_fwd(q, k, v, partial=True, **kw)
-            tiles = math.ceil(lk / _dq_block_k(dev, dtype))
+            tiles = math.ceil(lk / BLOCK_K_TC)
             poison_allocator(torch, [((tiles, *size), f32)] + grads)
             k5 = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
             poison_allocator(torch, grads)
@@ -5425,11 +5531,7 @@ def pg_group_of_one(smi):
     """In a child process: ``bootstrap`` of a group of one over NCCL on the
     card, one ``all_reduce``, ``describe()``, ``shutdown``; its exit code
     and its printed group."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    port = free_ports(1)[0]
     env = {k: v for k, v in os.environ.items()
            if k not in ("MPIT_COORDINATOR", "MPIT_NUM_PROCESSES", "MPIT_PROCESS_ID",
                         "MPIT_HOSTFILE")}
@@ -5556,27 +5658,30 @@ def cli_args(cfg_kw):
 
 
 def free_ports(n):
-    """``n`` distinct free ports on the loopback (held open together while
-    they are picked)."""
-    import socket
+    """``n`` distinct free ports on the loopback, below the kernel's
+    ephemeral range: a group binds its port minutes after it is picked,
+    and there no outgoing connection takes it first."""
+    from mpit_tpu_torch.obs.statusd import free_base_port
 
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for sock in socks:
-            sock.bind(("127.0.0.1", 0))
-        return [sock.getsockname()[1] for sock in socks]
-    finally:
-        for sock in socks:
-            sock.close()
+    base = free_base_port(n)
+    return list(range(base, base + n))
 
 
-def mp_group(torch, runs, tmp, world=2):
+def gang_addresses(n):
+    """``n`` loopback addresses for a gang's ranks to bind (``free_ports``).
+    A port from the ephemeral range, bound and released, can be taken by an
+    outgoing connection of a gang running beside before the rank binds it."""
+    return [f"127.0.0.1:{port}" for port in free_ports(n)]
+
+
+def mp_group(torch, runs, tmp, world=2, ports=None):
     """``world`` processes sharing the card, side by side, each running
     every run of ``runs`` (``name``, ``module`` "mesh", "lm" or "par", ``argv``) in
     turn, each run a group of its own: per run, every process's result and
     state (on the CPU); the group's wall seconds.  Each process must exit 0
-    in time, and each run go over gloo with its tensors on the card."""
-    ports = free_ports(len(runs))
+    in time, and each run go over gloo with its tensors on the card.
+    ``ports``: one a run (default: free ones)."""
+    ports = free_ports(len(runs)) if ports is None else ports
     spec = [{"name": r["name"], "module": r["module"],
              "state": os.path.join(tmp, f"{r['name']}_{{pid}}.pt"),
              "coordinator": f"127.0.0.1:{port}", "world": world,
@@ -5974,26 +6079,29 @@ def step_ms(res, per_step):
 def multiproc_phases(torch, kernels, all_paths, smi, refs=None):
     """Meshes over a group of two processes sharing the card (slice 9b).
     First ``mp_vmap_control``; then the one-process controls in this
-    process; then one pair of processes running, each in a group of its
-    own: ``mp_easgd`` (the flagship CNN at ``--dp 4 --su 2``, 2 epochs with
-    ``--ckpt_dir``), ``mp_easgd_resume`` (the pair's checkpoint resumed to
-    4 epochs; its one-process control resumes the same file after the pair),
+    process; then two pairs of processes and the quartet of
+    ``mp_lm_dp_sp`` side by side, each process running its runs in turn,
+    each run in a group of its own.  The first pair: ``mp_easgd`` (the
+    flagship CNN at ``--dp 4 --su 2``, 2 epochs with ``--ckpt_dir``),
+    ``mp_easgd_resume`` (the pair's checkpoint resumed to 4 epochs; its
+    one-process control resumes the same file after the pair),
     ``mp_syncdp_linear`` and ``mp_syncdp_cnn`` (``--opt syncdp`` at
     ``--dp 2``, batch 128: the linear model against one process within
     ``MP_LOSS_RTOL``; the CNN, whose half-batch gradients leave the whole
     batch's trajectory within a few steps on the card at these settings,
     bit for bit against one process computing the pair's arithmetic,
     ``half_batch_gradients``, its gap to the plain one-process run
-    printed) and ``mp_lm`` (``lm_launch --dp 2`` at ``lm_default``'s
-    widths, 5 steps, bfloat16 attention: w and vt within
+    printed), ``mp_shard`` and ``mp_lm`` (``lm_launch --dp 2`` at
+    ``lm_default``'s widths, 5 steps, bfloat16 attention: w and vt within
     ``LM_LIMITS["float32"]``; each row's attention is the same bits in both,
     what differs is the float32 sum over rows and the processes' mean).
-    Every child's K1 and K4-K6 launches equal the one-process run's.  The
-    pair's last run, ``mp_par``, drives tensor, pipeline and expert
-    parallelism across the two (``mp_par_child``), held to ``refs``, the
-    one-process tp, pp and ep phases' results (run here where not given;
-    ``mp_par_readings``)."""
+    The second: ``mp_lm_sp`` and last ``mp_par``, which
+    drives tensor, pipeline and expert parallelism across the two
+    (``mp_par_child``), held to ``refs``, the one-process tp, pp and ep
+    phases' results (run here where not given; ``mp_par_readings``).
+    Every child's K1 and K4-K6 launches equal the one-process run's."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from mpit_tpu_torch.models.flat import flatten_module
     from mpit_tpu_torch.models.transformer import TinyDecoder
@@ -6047,7 +6155,7 @@ def multiproc_phases(torch, kernels, all_paths, smi, refs=None):
             torch.cuda.empty_cache()
             one_s = time.perf_counter() - t0
             resume_file = os.path.join(d["pair"], "mesh_latest.npz")
-            pair, wall = mp_group(torch, [
+            first_pair = [
                 dict(name="mp_easgd", module="mesh",
                      argv=cli_args(dict(easgd, ckpt_dir=d["pair"]))),
                 dict(name="mp_easgd_resume", module="mesh", argv=cli_args(dict(
@@ -6055,13 +6163,25 @@ def multiproc_phases(torch, kernels, all_paths, smi, refs=None):
                     ckpt_dir=d["pair_resume"]))),
                 dict(name="mp_syncdp_linear", module="mesh", argv=cli_args(syncdp["linear"])),
                 dict(name="mp_syncdp_cnn", module="mesh", argv=cli_args(syncdp["cnn"])),
-                dict(name="mp_lm", module="lm", argv=cli_args(lm_kw)),
                 dict(name="mp_shard", module="mesh", argv=cli_args(shard_kw)),
+                dict(name="mp_lm", module="lm", argv=cli_args(lm_kw))]
+            # mp_shard rides with the mesh runs: a process's first mesh run
+            # pays ~15 s of cuDNN's first calls.
+            second_pair = [
                 dict(name="mp_lm_sp", module="lm", argv=cli_args(axes_lm["mp_lm_sp"])),
-                dict(name="mp_par", module="par", argv=[])], tmp)
-            quartet, wall4 = mp_group(torch, [dict(
-                name="mp_lm_dp_sp", module="lm", argv=cli_args(axes_lm["mp_lm_dp_sp"]))],
-                tmp, world=4)
+                dict(name="mp_par", module="par", argv=[])]
+            quartet_runs = [dict(name="mp_lm_dp_sp", module="lm",
+                                 argv=cli_args(axes_lm["mp_lm_dp_sp"]))]
+            # The two pairs and the quartet side by side: 8 processes on the card.
+            a, b = len(first_pair), len(first_pair) + len(second_pair)
+            ports = free_ports(b + len(quartet_runs))
+            with ThreadPoolExecutor(3) as pool:
+                done = [pool.submit(mp_group, torch, first_pair, tmp, 2, ports[:a]),
+                        pool.submit(mp_group, torch, second_pair, tmp, 2, ports[a:b]),
+                        pool.submit(mp_group, torch, quartet_runs, tmp, 4, ports[b:])]
+                (pair_a, wall_a), (pair_b, wall_b), (quartet, wall4) = [
+                    f.result() for f in done]
+            pair, wall = {**pair_a, **pair_b}, [wall_a, wall_b]
             t0 = time.perf_counter()
             commit.launches = 0
             with timed_exchanges(torch, ex_ms["mp_easgd_resume"]):
@@ -6163,8 +6283,9 @@ def multiproc_phases(torch, kernels, all_paths, smi, refs=None):
         for pid, res in enumerate(pair["mp_par"][0]):
             record_path(all_paths, f"{name}_p{pid}", res["paths"][name]["launches"], 1)
     print(f"multiproc phases on {smi}: " + json.dumps(readings))
-    print(f"multiproc phases: {time.perf_counter() - t_block:.1f}s (the pair "
-          f"{wall:.1f}s, the quartet {wall4:.1f}s, one process {one_s:.1f}s)")
+    print(f"multiproc phases: {time.perf_counter() - t_block:.1f}s (the pairs "
+          f"{wall_a:.1f}s and {wall_b:.1f}s, the quartet {wall4:.1f}s, side by side; one "
+          f"process {one_s:.1f}s)")
 
 
 def record_mp(all_paths, name, results, one_launches, steps):
@@ -6948,9 +7069,9 @@ BICNN_DOCQA_PARAMS = 1_365_250
 # conv width 3, over its 5,178-word vocabulary).
 BICNN_SCALE_PARAMS = 3_416_600
 # The docqa gangs' batch: the reference's 1 took 130 s for the three gangs
-# on an H100 (1,021 round trips a worker), 2 took 81 s (511); 4 (256 round
-# trips a worker) keeps the whole script inside its time beside the ring
-# block.
+# on an H100 (1,021 round trips a worker), 2 took 81 s (511), 4 (256 round
+# trips a worker) 67 s one after another and 49 s side by side; 8 took as
+# long (a worker's epoch 15-19 s either way: the work is the examples').
 BICNN_GANG_BATCH = 4
 
 
@@ -7279,23 +7400,32 @@ def run_bicnn_gang(name, size, **kw):
 
 def bicnn_gangs(torch, all_paths, smi):
     """The docqa process gangs over shm, every rank on the card, one epoch
-    at batch BICNN_GANG_BATCH: EAMSGD np=6 with the tester first (the JAX
-    README's command; its last checkpoint read back with ``load_flat``),
-    server-side Adam np=4 (K3 in the servers = 2 x the workers' steps; the
+    at batch BICNN_GANG_BATCH, side by side (14 processes on one card; their
+    checks are exact): EAMSGD np=6 with the tester first (the JAX README's
+    command; its last checkpoint read back with ``load_flat``), server-side
+    Adam np=4 (K3 in the servers = 2 x the workers' steps; then, alone, the
     servers' per-GRAD apply timed at their shard), adamsingle np=4 (K3 on
     the workers = their steps)."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from mpit_tpu_torch.utils.checkpoint import load_flat
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as ckpt:
-        name = "bicnn_eamsgd_np6_tester"
-        res, launches, reading = run_bicnn_gang(
-            name, 6, optimization="eamsgd", testerfirst=True,
-            valid_mode="additionalTester", tester_rounds=3,
-            outputprefix=os.path.join(ckpt, "bicnn"))
+    with tempfile.TemporaryDirectory() as ckpt, ThreadPoolExecutor(3) as pool:
+        eamsgd = pool.submit(run_bicnn_gang, "bicnn_eamsgd_np6_tester", 6,
+                             optimization="eamsgd", testerfirst=True,
+                             valid_mode="additionalTester", tester_rounds=3,
+                             outputprefix=os.path.join(ckpt, "bicnn"))
+        adam = pool.submit(run_bicnn_gang, "bicnn_adam_np4", 4, optimization="adam",
+                           valid_mode="none")
+        single = pool.submit(run_bicnn_gang, "bicnn_adamsingle_np4", 4,
+                             optimization="adamsingle", valid_mode="none")
+        eamsgd, adam, single = eamsgd.result(), adam.result(), single.result()
         w, meta = load_flat(os.path.join(ckpt, "bicnn_latest.npz"))
+
+    name = "bicnn_eamsgd_np6_tester"
+    res, launches, reading = eamsgd
     if reading["roles"] != {0: "tester", 1: "worker", 2: "server", 3: "worker",
                             4: "server", 5: "worker"} or len(res[0]["history"]) != 3:
         raise AssertionError(f"{name}: roles {reading['roles']}, tester {res[0]}")
@@ -7306,7 +7436,7 @@ def bicnn_gangs(torch, all_paths, smi):
     record_path(all_paths, name, launches, sum(reading["worker_steps"]))
 
     name = "bicnn_adam_np4"
-    res, launches, reading = run_bicnn_gang(name, 4, optimization="adam", valid_mode="none")
+    res, launches, reading = adam
     steps = sum(reading["worker_steps"])
     applied = sum(reading["grads_applied"])
     in_servers = sum(v["launches"]["k3"] for v in res.values() if v["role"] == "server")
@@ -7319,8 +7449,7 @@ def bicnn_gangs(torch, all_paths, smi):
     record_path(all_paths, name, launches, steps)
 
     name = "bicnn_adamsingle_np4"
-    res, launches, reading = run_bicnn_gang(name, 4, optimization="adamsingle",
-                                            valid_mode="none")
+    res, launches, reading = single
     steps = sum(reading["worker_steps"])
     on_workers = sum(v["launches"]["k3"] for v in res.values() if v["role"] == "worker")
     if not on_workers == launches["k3"] == steps:
@@ -7610,35 +7739,47 @@ def np_isfinite(w):
     return bool(np.isfinite(w).all())
 
 
-def main() -> int:
-    import torch
+def host_cpu_seconds():
+    """The host CPU seconds (user + system) of this process and of its
+    children that have ended: the run's host work, which a host whose
+    cores other machines share stretches."""
+    import resource
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke test needs one card",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    from mpit_tpu_torch.models.flat import flatten_module
-    from mpit_tpu_torch.models.mnist import make_model
-    from mpit_tpu_torch.ops import build
-    from mpit_tpu_torch.ops.flash_attention import (
-        flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
-    from mpit_tpu_torch.ops.fused_update import fused_adam, fused_elastic, fused_nesterov_commit
-    from mpit_tpu_torch.train.mesh_launch import FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS
-    from mpit_tpu_torch.train.trainer import TRAINER_DEFAULTS
-    from mpit_tpu_torch.utils.platform import pin_float32
+    cpu = lambda r: round(r.ru_utime + r.ru_stime, 1)
+    return {"self": cpu(resource.getrusage(resource.RUSAGE_SELF)),
+            "children": cpu(resource.getrusage(resource.RUSAGE_CHILDREN))}
 
-    pin_float32()
-    t_start = time.perf_counter()
-    smi = nvidia_smi()
-    print(f"device: {smi}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
 
-    secs = build.build_all()
-    for name, s in secs.items():
-        print(f"build {name}: {s:.1f}s")
-        print(build.library_path(name).with_suffix(".log").read_text().strip())
+def share_bytecode():
+    """Compile each Python module once for every process of the run: its
+    bytecode goes to PYC_DIR (``PYTHONPYCACHEPREFIX``, inherited by every
+    child), written by the first process that imports it and read by the
+    rest.  The card's host sets ``PYTHONDONTWRITEBYTECODE`` over a torch
+    installed without bytecode, so each child compiled torch's ~1,100
+    modules anew: most of its 8-12 s start-up."""
+    path = os.path.join(REPO, PYC_DIR)
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = path
+    sys.dont_write_bytecode = False
+
+
+def timed_build(build, name):
+    """Build ``csrc/<name>.cu`` (``build.build``); returns the seconds."""
+    t0 = time.perf_counter()
+    build.build(name)
+    return time.perf_counter() - t0
+
+
+def print_build(build, name, done):
+    """Wait for ``name``'s build (``done``, a future of ``timed_build``);
+    print its seconds and nvcc's report."""
+    print(f"build {name}: {done.result():.1f}s")
+    print(build.library_path(name).with_suffix(".log").read_text().strip())
+
+
+def check_flash_builds(build):
+    """The flash attention libraries' SASS and ptxas's report."""
     # bf16 K4, K5 and K6 must run their products as wgmma (SASS HGMMA),
     # which ptxas neither serializes (note C7512) nor feeds from spills.
     tc_ops = build.tensor_ops("flash_attention_tc")
@@ -7652,20 +7793,60 @@ def main() -> int:
     bad = {k: r for k, r in ptxas.items() if r["spill_bytes"] or r["serialized"]}
     if bad:
         raise AssertionError(f"ptxas spilled or serialized wgmma in: {bad}")
-    # float32 K4 and K5 run their products on the tensor cores (3xTF32 on
-    # mma.sync: SASS HMMA), with every value in registers.
+    # float32 K4, K5 and K6 run their products on the tensor cores (3xTF32
+    # on mma.sync: SASS HMMA) at every head width, with every value in
+    # registers.
     tf32_ops = build.tensor_ops("flash_attention_tf32")
     print("tensor-core instructions, float32 kernels: " + json.dumps(tf32_ops))
-    for kernel in ("fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel"):
-        if not any(kernel in k and (ops["HMMA"] or ops["HGMMA"])
-                   for k, ops in tf32_ops.items()):
-            raise AssertionError(f"{kernel} carries no tensor-core instruction")
+    for kernel in ("fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel", "fa_bwd_dq_tf32_kernel",
+                   "fa_bwd_dkdv_tf32_kernel"):
+        found = {k: ops for k, ops in tf32_ops.items() if kernel in k}
+        if len(found) < 3 or not all(ops["HMMA"] for ops in found.values()):
+            raise AssertionError(f"{kernel}: a head width's build carries no HMMA: {found}")
     ptxas_tf32 = build.ptxas_report("flash_attention_tf32")
     print("ptxas, float32 tensor-core kernels: " + json.dumps(ptxas_tf32))
     bad = {k: r for k, r in ptxas_tf32.items() if r["spill_bytes"] or r["serialized"]}
     if bad:
         raise AssertionError(f"ptxas spilled or serialized in: {bad}")
 
+
+def main() -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test needs one card",
+              file=sys.stderr)
+        return 1
+    share_bytecode()
+    sys.path.insert(0, REPO)
+    from mpit_tpu_torch.models.flat import flatten_module
+    from mpit_tpu_torch.models.mnist import make_model
+    from mpit_tpu_torch.ops import build
+    from mpit_tpu_torch.ops.flash_attention import (
+        flash_bwd_fused, flash_bwd_two_kernel, flash_fwd)
+    from mpit_tpu_torch.ops.fused_update import fused_adam, fused_elastic, fused_nesterov_commit
+    from mpit_tpu_torch.train.mesh_launch import FLAGSHIP_BENCH_KWARGS, MESH_LAUNCH_DEFAULTS
+    from mpit_tpu_torch.train.trainer import TRAINER_DEFAULTS
+    from mpit_tpu_torch.utils.platform import pin_float32
+
+    pin_float32()
+    faulthandler.enable()  # a fatal signal leaves the stacks on stderr
+    t_start = time.perf_counter()
+    stage = Stages()
+    stage("build")
+    smi = nvidia_smi()
+    print(f"device: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # One nvcc a source, all started at once: the untimed mesh paths wait
+    # only for fused_update.cu, and the flash attention sources build
+    # beside them.
+    builds = ThreadPoolExecutor(len(build.SOURCES))
+    built = {name: builds.submit(timed_build, build, name) for name in build.SOURCES}
+    print_build(build, "fused_update", built["fused_update"])
     # K1-K3 keep every value in registers: no spill.
     ptxas_fu = build.ptxas_report("fused_update")
     print("ptxas, fused updates: " + json.dumps(ptxas_fu))
@@ -7673,6 +7854,25 @@ def main() -> int:
     if bad:
         raise AssertionError(f"ptxas spilled in: {bad}")
 
+    # The untimed mesh paths run while the flash libraries build: nvcc's
+    # load on the host stretches a timed leg (the headline's auto-scaled
+    # steady leg ran 1,155 and 2,277 steps beside it on an H100's host, 231
+    # without).
+    paths = {}  # K1's launches and steps on every driven path
+    stage("untimed mesh paths")
+    paths["easgd_dp4"] = easgd_dp4(torch, fused_nesterov_commit)
+    paths["launch_msgd"] = launch_msgd(torch, fused_nesterov_commit)
+    t_slice4 = time.perf_counter()
+    paths["mesh_syncdp"] = mesh_syncdp(torch, fused_nesterov_commit)
+    paths["mesh_resume"] = mesh_resume(torch, fused_nesterov_commit)
+    slice4_s = time.perf_counter() - t_slice4
+    stage("flash builds")
+    for name in ("flash_attention_tc", "flash_attention_tf32"):
+        print_build(build, name, built[name])
+    builds.shutdown()
+    check_flash_builds(build)
+
+    stage("K1-K3")
     mesh_cfg = MESH_LAUNCH_DEFAULTS.merged(FLAGSHIP_BENCH_KWARGS)
     n_mesh = flatten_module(make_model(mesh_cfg.model, mesh_cfg.side), 1).size
     n_msgd = flatten_module(make_model(TRAINER_DEFAULTS.model, TRAINER_DEFAULTS.side), 1).size
@@ -7684,33 +7884,37 @@ def main() -> int:
     k3 = check_k3(torch, n_mesh // 2, n_mesh,
                   (BICNN_DOCQA_PARAMS // 2, BICNN_DOCQA_PARAMS))
     check_graph_replay(torch, n_mesh, n_mesh // 2)
-    paths = k1["paths"]
+    k1["paths"] = paths
+    stage("timed mesh paths")
     paths["headline"] = headline(torch, fused_nesterov_commit)
-    paths["easgd_dp4"] = easgd_dp4(torch, fused_nesterov_commit)
-    paths["launch_msgd"] = launch_msgd(torch, fused_nesterov_commit)
     paths["device_loop_flagship"] = device_loop_vs_host(torch, fused_nesterov_commit)
-    t_slice4 = time.perf_counter()
-    paths["mesh_syncdp"] = mesh_syncdp(torch, fused_nesterov_commit)
-    paths["mesh_resume"] = mesh_resume(torch, fused_nesterov_commit)
-    slice4_s = time.perf_counter() - t_slice4
     k1["launches"] = paths["headline"]["launches"]
 
     kernels = {"k1": fused_nesterov_commit, "k2": fused_elastic, "k3": fused_adam,
                "k4": flash_fwd, "k5": flash_bwd_fused, "k6": flash_bwd_two_kernel}
+    stage("flash checks")
     fa_errs, fa_timed = check_flash(torch)
     all_paths = {"k1": paths, "k2": k2["paths"], "k3": k3["paths"], "k4": {},
                  "k5": {}, "k6": {}}
+    stage("in-process gangs")
     inproc = gang_paths(torch, kernels, all_paths)
     k3["paths"]["adam_gang_vs_cpu"] = adam_gang_vs_cpu(torch, kernels)
+    stage("process gangs")
     gang_timing = process_gang_paths(torch, all_paths, inproc, smi)
+    stage("ft")
     ft_phases(torch, kernels, all_paths, smi, gang_timing)
+    stage("obs")
     obs_phases(torch, kernels, all_paths, smi)
+    stage("shard control")
     sc_phases(torch, kernels, all_paths, smi, gang_timing)
+    stage("read path")
     serve_phases(torch, kernels, all_paths, smi)
+    stage("dplane and stream")
     dplane_stream_phases(torch, kernels, all_paths, smi)
     k2["launches"] = k2["paths"]["ps_eamsgd_lr0_np4"]["launches"]
     k3["launches"] = k3["paths"]["ps_adam_np4"]["launches"]
 
+    stage("bicnn")
     t_bicnn = time.perf_counter()
     rec = bicnn_scale(torch, kernels, smi)
     record_path(all_paths, "bicnn_scale", rec["launches"], rec["steps"])
@@ -7719,9 +7923,11 @@ def main() -> int:
     bicnn_gangs(torch, all_paths, smi)
     slice4_s += time.perf_counter() - t_bicnn
 
+    stage("lm")
     t_lm = time.perf_counter()
     longcontext = lm_paths(torch, kernels, all_paths)
     lm_longcontext_f32(torch, kernels, all_paths)
+    lm_longcontext_32k_f32(torch, kernels, all_paths)
     # bf16 twice: under the gate's K5 and under K6, each held to the CPU.
     for attn_dtype, fused_bwd in (("float32", None), ("bfloat16", None),
                                   ("bfloat16", "0")):
@@ -7729,18 +7935,26 @@ def main() -> int:
         for key in kernels:  # the readings are on the path's own line
             all_paths[key][rec["name"]] = {"launches": rec["launches"][key],
                                            "steps": rec["steps"], "schedule": rec["schedule"]}
+    stage("ring lm")
     ring_lm_phases(torch, kernels, all_paths, smi, longcontext, fa_errs)
     t_resume = time.perf_counter()
     rec = lm_resume(torch, kernels)
     record_path(all_paths, "lm_resume", rec["launches"], rec["steps"])
     slice4_s += time.perf_counter() - t_resume
+    stage("agg and lm gangs")
     agg_lm_phases(torch, kernels, all_paths, smi)
+    stage("parallel")
     refs = parallel_phases(torch, kernels, all_paths, smi)
+    stage("multiproc")
     multiproc_phases(torch, kernels, all_paths, smi, refs)
+    stage("analysis")
     analysis_phases(torch, kernels, all_paths, smi)
     fa = fa_entries(fa_errs, fa_timed, all_paths)
+    faulthandler.cancel_dump_traceback_later()
     print(f"LM phases: {time.perf_counter() - t_lm:.1f}s")
     print(f"sync-DP, resume and BiCNN phases: {slice4_s:.1f}s")
+    print("phase seconds: " + json.dumps(stage.seconds()))
+    print("host CPU seconds: " + json.dumps(host_cpu_seconds()))
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
     driven = launched_paths([k1, k2, k3, *fa])

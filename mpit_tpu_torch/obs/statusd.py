@@ -232,20 +232,31 @@ def maybe_start(rank: int, role: str = "") -> Optional[StatusServer]:
     return server
 
 
+def _ephemeral_low(default: int = 32768) -> int:
+    """The first port of the kernel's ephemeral range, from which it picks
+    the local port of an outgoing connection or of a bind to port 0."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return default
+
+
 def free_base_port(n: int, host: str = "127.0.0.1", tries: int = 64) -> int:
     """A base port whose ``n`` loopback ports ``base .. base + n - 1`` were
     all free a moment ago (each bound and released in turn).  For a gang's
     ``MPIT_OBS_HTTP`` beside other processes on one host, where a fixed
-    base may already be taken.  Not in the JAX module: the port's own."""
+    base may already be taken.  The base is drawn below the ephemeral
+    range: there no outgoing connection of this or another process takes
+    one of the ports between the probe and the gang's own binds (one did,
+    a rank then ran without its endpoint).  Not in the JAX module: the
+    port's own."""
     import random
     import socket
 
+    top = _ephemeral_low() - n
     for _ in range(tries):
-        with socket.socket() as probe:
-            probe.bind((host, 0))
-            base = probe.getsockname()[1]
-        if base + n > 65535:
-            base = random.randint(20000, 60000 - n)
+        base = random.randint(10000, top) if top > 10000 else random.randint(20000, 60000 - n)
         socks = []
         try:
             for port in range(base, base + n):

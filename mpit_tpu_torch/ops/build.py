@@ -38,14 +38,13 @@ NVCC_FLAGS = (
 
 # Each source and the flags of its own.  fused_update: -fmad=false, no
 # multiply-add contraction, so K1-K3 round each operation as their plain
-# PyTorch twins do and are held to bit equality.  flash_attention (the
-# scalar float32 K6), flash_attention_tc (bfloat16 K4, K5 and K6 on the
-# tensor cores) and flash_attention_tf32 (float32 K4 and K5 on the tensor
-# cores, 3xTF32): their sums run in another order than their twins'
-# anyway, so they are held to a tolerance and keep the contraction.
+# PyTorch twins do and are held to bit equality.  flash_attention_tc
+# (bfloat16 K4, K5 and K6 on the tensor cores) and flash_attention_tf32
+# (float32 K4, K5 and K6 on the tensor cores, 3xTF32): their sums run in
+# another order than their twins' anyway, so they are held to a tolerance
+# and keep the contraction.
 SOURCE_FLAGS = {
     "fused_update": ("-fmad=false",),
-    "flash_attention": (),
     "flash_attention_tc": (),
     "flash_attention_tf32": (),
 }

@@ -10,9 +10,9 @@
 //       `_fa_2d_bwd(fused=False)`, with `_bwd_p_ds` :499)
 //                                                          -> fa_bwd_dq_tc_kernel
 //                                                             + fa_bwd_dkdv_tc_kernel
-// float32 inputs stay on the scalar kernels of flash_attention.cu: no
-// tensor-core type holds float32 at the reference's tolerances.  The
-// contract is the scalar kernels' (the validity rule, `triage` in
+// float32 inputs go to flash_attention_tf32.cu (3xTF32: one TF32 pass
+// misses the reference's float32 tolerances).  The contract is the
+// float32 kernels' (the validity rule, `triage` in
 // flash_common.cuh, the -1e30 sentinel and -inf in the public m and lse,
 // P and dS rounded to bfloat16 before their products, every product
 // accumulated in float32), and both backward schedules give the same bits

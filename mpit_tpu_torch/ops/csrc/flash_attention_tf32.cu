@@ -1,4 +1,4 @@
-// K4 and K5 for float32 on Hopper's tensor cores (sm_90a), at float32
+// K4, K5 and K6 for float32 on Hopper's tensor cores (sm_90a), at float32
 // accuracy: 3xTF32.
 //
 // Replaces, for float32 inputs, the Pallas kernels of
@@ -7,15 +7,17 @@
 //   K5  `_fa_bwd_fused_kernel` (:623; `_fa_2d_bwd(fused=True)`)
 //                                                          -> fa_bwd_tf32_kernel
 //                                                             + dq_reduce_kernel
-// float32 K6 stays on the scalar kernels of flash_attention.cu; bfloat16
-// K4, K5 and K6 run in flash_attention_tc.cu.  The contract is the
-// scalar kernels': the validity rule and the dead / edge / full triage
-// (`triage` in flash_common.cuh), the -1e30 sentinel for the running max
-// and -inf in the public m and lse of dead rows, both output modes, any
-// offsets, D a multiple of 8 up to 128, every sum in float32, and K5's dQ
-// as float32 partials, one slot a key tile, which dead pairs never write
-// and one deterministic reduction sums (no atomics: the same bits every
-// run).
+//   K6  `_fa_bwd_dq_kernel` (:536) and `_fa_bwd_dkdv_kernel` (:576;
+//       `_fa_2d_bwd(fused=False)`)                         -> fa_bwd_dq_tf32_kernel,
+//                                                             fa_bwd_dkdv_tf32_kernel
+// bfloat16 K4, K5 and K6 run in flash_attention_tc.cu.  The contract: the
+// validity rule and the dead / edge / full triage (`triage` in
+// flash_common.cuh), the -1e30 sentinel for the running max and -inf in
+// the public m and lse of dead rows, both output modes, any offsets, D a
+// multiple of 8 up to 128, every sum in float32, and K5's dQ as float32
+// partials, one slot a key tile, which dead pairs never write and one
+// deterministic reduction sums; K6 needs no transient.  No atomics: the
+// same bits every run.
 //
 // 3xTF32.  One TF32 product keeps 11 bits of each operand, some 5e-4 of
 // an attention output here, past the reference's 2e-5.  So each float32
@@ -31,24 +33,28 @@
 // sweep put it 6.6e-5 from its twin at L 1,024, D 32, twice the limit,
 // and one that kept K4's O across the key tiles put the LM gang's Adam
 // steps 2x past their limit.  So dV and dK take each q tile's product in
-// a fresh accumulator and add it by float32 adds, and so does K4's O each
-// key tile's P.V up to K4_FRESH_PV_MAX_DM; a product over the head width
-// keeps each step's hi.hi apart from the cross terms, taken from zero and
-// added in float32 (K4's S; K5's S^T, dP^T and dQ partials up to
-// K5_APART_MAX_DM).  At D 128 the registers, which hold O in K4 and dK
-// and dV in K5, have no room for the rest: there O sums across key tiles
-// in one accumulator (rescaled by each tile's alpha; 1.4e-6 from its twin
-// at L 8,192, the limit 2e-5), as do K5's S^T, dP^T and dQ partials over
-// the head width.  Against float64 on the card the outputs lie about as
+// a fresh accumulator and add it by float32 adds, as do K6's dQ each key
+// tile's dS.K (up to 1,024 key tiles at L 32,768, summed by float32 adds)
+// and K4's O each key tile's P.V up to K4_FRESH_PV_MAX_DM; a product over
+// the head width keeps each step's hi.hi apart from the cross terms, taken
+// from zero and added in float32 (K4's S; K6's S and dP; K5's S^T, dP^T
+// and dQ partials up to K5_APART_MAX_DM).  At D 128 the registers, which
+// hold O in K4 and dK and dV in K5, have no room for the rest: there O
+// sums across key tiles in one accumulator (rescaled by each tile's alpha;
+// 1.4e-6 from its twin at L 8,192, the limit 2e-5), as do K5's S^T, dP^T
+// and dQ partials over the head width.  Against float64 on the card the outputs lie about as
 // close as the float32 twins' do, dV and dK closer
 // (tools/torch_flash_f32.py --truth).
 //
 // Bound on this card: operations.  At lm_longcontext's attention (N 8, L
 // 8,192, D 128, causal: 268,468,224 valid pairs) the forward does 4 D
 // flops a pair, 137 GFLOP, as three TF32 passes at 495 TFLOP/s: 0.833 ms;
-// the backward 10 D, 344 GFLOP: 2.08 ms, and its dQ partials, one float32
+// the backward 10 D, 344 GFLOP: 2.08 ms, and K5's dQ partials, one float32
 // (32 q rows, D) block a live (q tile, key tile) pair, move ~1.1 GB each
-// way over 128-key tiles (0.33 ms to read at 3.35 TB/s).
+// way over 128-key tiles (0.33 ms to read at 3.35 TB/s).  K6 does 14 D a
+// pair (both kernels recompute S and dP) and moves no partials; at the
+// 32k LM's attention (4,295,098,368 pairs) the backward's 10 D is 5.5
+// TFLOP, 33.3 ms in three passes.
 //
 // Route: mma.sync.m16n8k8 with TF32 operands, not wgmma.  wgmma's .tf32
 // form reads shared-memory operands K-major only (no transpose bit), so V
@@ -60,7 +66,8 @@
 // loaded; its peak is below wgmma's.
 //
 // Design, simple first.  Eight warps a block; a warp owns 16 rows of the
-// product's M (q rows in K4, keys in K5) and runs m16n8k8 over them.  The
+// product's M (q rows in K4 and K6's dQ, keys in K5 and K6's dK and dV)
+// and runs m16n8k8 over them.  The
 // threads copy each tile from device memory into shared memory, 16 bytes a
 // thread (rows past L and columns past d as zeros, which pads D to 32, 64
 // or 128), between two barriers of the block; no copy overlaps a product.
@@ -77,7 +84,9 @@
 // read in the same order (2 tc, then 2 tc + 1), so P, P^T and dS^T never
 // leave registers as A operands.  Under the causal mask the live tiles of
 // a row of tiles form one contiguous range (`live_range`): dead tiles are
-// never loaded, and only edge tiles mask element by element.
+// never loaded, and only edge tiles mask element by element (keys past Lk
+// among them).  q rows past Lq load as zeros, with lse and delta 0: their
+// P is finite and their dS 0, and their dQ is not written.
 // - K4: a block owns 128 q rows of one head (Q as loaded) and walks the
 //   live 64-key tiles (K and V split).  S = Q.K^T, the online softmax on
 //   the accumulator in registers (a row lies in the four threads of a quad:
@@ -91,6 +100,19 @@
 //   q rows by D / 4 columns, K split as it is loaded) is written as one
 //   float32 partial into the slot of the key tile.  dq_reduce_kernel sums,
 //   for each q tile, only its live key tiles' slots in ascending order.
+// - K6, dK and dV: K5's sweep without its dQ product and partials (one
+//   body, `bwd_kv_tf32_body`, given no dQ scratch), so dK and dV are K5's,
+//   bit for bit.  dS^T still goes through shared memory for dK: kept in
+//   registers beside dK and dV, it made ptxas spill at D 128.
+// - K6, dQ: a block owns 128 q rows of one head in K4's shape (8 warps of
+//   16 rows; Q and dO as loaded, once, and the rows' lse and delta in
+//   registers) and walks the live key tiles (K and V split): S = Q.K^T
+//   and dP = dO.V^T, P = exp(scale s - lse) and dS = P (dP - delta) in
+//   registers, then dQ += dS.K with dS the A operand straight from the
+//   accumulators and K read by columns from the plane S read by rows;
+//   dQ is scaled once at the end.  Key tiles of 64, of 32 at D 128,
+//   where Q and dO (128 rows each) and K and V split (64 keys) would pass
+//   the block's 227 KB.  Blocks run heaviest first.
 #include "flash_common.cuh"
 
 #include <type_traits>
@@ -99,11 +121,13 @@ namespace {
 
 constexpr int NT = 256;               // threads a block: 8 warps
 constexpr int F_BQ = 128, F_BK = 64;  // K4: q rows a block (16 a warp), keys a tile
-constexpr int B_BK = 128, B_BQ = 32;  // K5: keys a block (16 a warp), q rows a tile
+constexpr int B_BK = 128, B_BQ = 32;  // K5, K6's dK/dV: keys a block (16 a warp), q rows a tile
+constexpr int D_BQ = 128;             // K6's dQ: q rows a block (16 a warp); keys a tile: DqSmem
 // Accuracy where registers allow it (see the header): K4 takes each key
-// tile's P.V in fresh accumulators up to this head width; K5 keeps hi.hi
-// apart in S^T, dP^T and its dQ partials up to this one.  At D 128 either
-// made ptxas spill.
+// tile's P.V in fresh accumulators up to this head width; K5's sweep (K6's
+// dK/dV kernel too) keeps hi.hi apart in S^T, dP^T and its dQ partials up
+// to this one.  At D 128 either made ptxas spill.  K6's dQ kernel, with
+// only dQ to hold, keeps S and dP apart at every width.
 constexpr int K4_FRESH_PV_MAX_DM = 64;
 constexpr int K5_APART_MAX_DM = 64;
 
@@ -257,6 +281,36 @@ __device__ __forceinline__ void load_tile(float* dst, float* lo, const float* __
   }
 }
 
+// A.B^T over the head width: this warp's 16 rows of A by the N x 8 rows of
+// B.  A is read by rows from `a` (the thread's row gr, column tc; stride
+// LDA), B from its hi and lo planes (stride DM + 4).  APART keeps each
+// k-step's hi.hi apart from the cross terms; else the product sums in one
+// accumulator over the head width (at D 128 K5's registers hold dK and dV
+// beside it: none is left for more).
+template <int DM, int LDA, int N, bool APART>
+__device__ __forceinline__ void product_nt(float (&d)[N][4], const float* a, const float* bhi,
+                                           const float* blo, int gr, int tc) {
+  constexpr int LD = DM + 4;
+  float lo[APART ? N : 1][4];
+  zero(d);
+  zero(lo);
+#pragma unroll 1
+  for (int kc = 0; kc < DM / 8; ++kc) {
+    uint32_t ah[4], al[4];
+    a_frag(a + kc * 8, LDA, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < N; ++nt) {
+      uint32_t bh[2], bl[2];
+      b_frag(bhi, blo, (nt * 8 + gr) * LD + kc * 8 + tc, 4, bh, bl);
+      if constexpr (APART)
+        mma_3x(d[nt], lo[nt], ah, al, bh, bl);
+      else
+        mma_3x(d[nt], ah, al, bh, bl);
+    }
+  }
+  if constexpr (APART) add_apart(d, d, lo);
+}
+
 // ---------------------------------------------------------------------------
 // K4: forward
 // ---------------------------------------------------------------------------
@@ -310,23 +364,7 @@ fa_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q.K^T: A (Q) by rows, B (K) by rows as K^T's columns.
     float s[NK][4];
-    {
-      float s_lo[NK][4];
-      zero(s);
-      zero(s_lo);
-#pragma unroll 1
-      for (int kc = 0; kc < ND; ++kc) {
-        uint32_t ah[4], al[4];
-        a_frag(sQ + (r0 + gr) * LD + kc * 8 + tc, LD, ah, al);
-#pragma unroll
-        for (int nt = 0; nt < NK; ++nt) {
-          uint32_t bh[2], bl[2];
-          b_frag(sKh, sKl, (nt * 8 + gr) * LD + kc * 8 + tc, 4, bh, bl);
-          mma_3x(s[nt], s_lo[nt], ah, al, bh, bl);
-        }
-      }
-      add_apart(s, s, s_lo);
-    }
+    product_nt<DM, LD, NK, true>(s, sQ + (r0 + gr) * LD + tc, sKh, sKl, gr, tc);
 
     // The online softmax, on the accumulator in registers.  A masked score
     // is -inf; m starts at the finite sentinel, so exp(s - m) is 0 there
@@ -443,37 +481,6 @@ fa_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // K5: fused backward, key tiles outer
 // ---------------------------------------------------------------------------
 
-// This warp's 16 keys by the q tile's B_BQ rows of A.B^T, A (K or V)
-// read by rows from `a` (the thread's row gr, column tc; stride LDA), B (Q
-// or dO) from its hi and lo planes, hi.hi apart from the cross terms up to
-// K5_APART_MAX_DM, else in one accumulator over the head width (at D 128
-// K5's registers hold dK and dV beside it: none is left for more).
-template <int DM, int LDA>
-__device__ __forceinline__ void keyed_product(float (&d)[B_BQ / 8][4], const float* a,
-                                              const float* bhi, const float* blo, int gr,
-                                              int tc) {
-  constexpr int LD = DM + 4, NQ = B_BQ / 8;
-  constexpr bool APART = DM <= K5_APART_MAX_DM;
-  float lo[APART ? NQ : 1][4];
-  zero(d);
-  zero(lo);
-#pragma unroll 1
-  for (int kc = 0; kc < DM / 8; ++kc) {
-    uint32_t ah[4], al[4];
-    a_frag(a + kc * 8, LDA, ah, al);
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-      uint32_t bh[2], bl[2];
-      b_frag(bhi, blo, (nt * 8 + gr) * LD + kc * 8 + tc, 4, bh, bl);
-      if constexpr (APART)
-        mma_3x(d[nt], lo[nt], ah, al, bh, bl);
-      else
-        mma_3x(d[nt], ah, al, bh, bl);
-    }
-  }
-  if constexpr (APART) add_apart(d, d, lo);
-}
-
 // acc += C^T.B over the q tile: C^T (P^T or dS^T, this warp's keys by
 // the tile's q rows) as split A fragments whose k = tc and tc + 4 stand
 // for q rows 2 tc and 2 tc + 1 of each 8-row step; B (dO or Q) from its
@@ -497,6 +504,15 @@ __device__ __forceinline__ void tile_product(float (&acc)[ND][4], const uint32_t
   }
 }
 
+// tile_product's fragments of C^T from a product's accumulators: tile kk's
+// columns 2 tc, 2 tc + 1 stand at k = tc and tc + 4, split.
+template <int N>
+__device__ __forceinline__ void accs_as_a(const float (&c)[N][4], uint32_t (&ah)[N][4],
+                                          uint32_t (&al)[N][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk) acc_as_a(c[kk], ah[kk], al[kk]);
+}
+
 template <int DM>
 struct BwdSmem {
   static constexpr int LD = DM + 4;
@@ -509,13 +525,21 @@ struct BwdSmem {
        2 * B_BQ) * sizeof(float);
 };
 
+// The sweep of one block's 128 keys over their live q tiles, dK and dV in
+// registers.  Given a dQ scratch (K5) it also writes each live pair's dQ
+// partial into dqp; K6's dK/dV kernel passes none (null, the same for
+// every thread of the launch) and skips that work.  A run-time switch, not
+// a template flag: compiled without the dQ code, the sweep made ptxas
+// spill at D 128 (24 bytes), where K5's does not.
 template <int DM>
-__global__ void __launch_bounds__(NT, 1)
-fa_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dqp,
-                   Geo g) {
+__device__ __forceinline__ void bwd_kv_tf32_body(const float* __restrict__ q,
+                                                 const float* __restrict__ k,
+                                                 const float* __restrict__ v,
+                                                 const float* __restrict__ dout,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ delta,
+                                                 float* __restrict__ dk, float* __restrict__ dv,
+                                                 float* __restrict__ dqp, const Geo& g) {
   using S = BwdSmem<DM>;
   constexpr int LD = S::LD, LDK = S::LDK, LDS = S::LDS;
   constexpr int ND = DM / 8;    // n-tiles of the head width
@@ -537,10 +561,8 @@ fa_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tc = lane & 3;
   const int kr0 = warp * 16;  // this warp's local keys; this thread's: kr0 + gr, + 8
-  const int mt = warp & 1, dq_nt0 = (warp >> 1) * NDQ;  // this warp's dQ rows and columns
   const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
   const size_t sbase = (size_t)n * g.lq;
-  float* dqp_j = dqp + ((size_t)j * g.n + n) * g.lq * g.d;
   int i_lo, i_hi;
   live_range<B_BQ, B_BK, true>(g, j, (g.lq + B_BQ - 1) / B_BQ, i_lo, i_hi);
 
@@ -567,15 +589,16 @@ fa_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // S^T = K.Q^T, then dP^T = V.dO^T, this warp's 16 keys by B_BQ q rows:
     // A (K, V) by rows, B (Q, dO) by rows as their transposes' columns.
+    constexpr bool APART = DM <= K5_APART_MAX_DM;
     float st[NQ][4], dpt[NQ][4];
-    keyed_product<DM, LDK>(st, sK + (kr0 + gr) * LDK + tc, sQh, sQl, gr, tc);
-    keyed_product<DM, LD>(dpt, sV + (kr0 + gr) * LD + tc, sOh, sOl, gr, tc);
+    product_nt<DM, LDK, NQ, APART>(st, sK + (kr0 + gr) * LDK + tc, sQh, sQl, gr, tc);
+    product_nt<DM, LD, NQ, APART>(dpt, sV + (kr0 + gr) * LD + tc, sOh, sOl, gr, tc);
 
     // P^T = exp(scale s - lse), then dS^T = P^T (dP^T - delta), each
     // operation rounded on its own (no contraction), as the twin rounds
     // them.  A dead q row has lse = -inf and no valid key, so its exp is
     // never taken; a full tile has no dead row.  dS^T also goes to shared
-    // memory as dS (q rows by keys) for this pair's dQ.
+    // memory as dS (q rows by keys), for dK and K5's dQ.
 #pragma unroll
     for (int t = 0; t < NQ; ++t)
 #pragma unroll
@@ -594,8 +617,7 @@ fa_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // during dV's product), k = tc and tc + 4 as q rows 2 tc, 2 tc + 1.
     {
       uint32_t ah[NQ][4], al[NQ][4];
-#pragma unroll
-      for (int kk = 0; kk < NQ; ++kk) acc_as_a(st[kk], ah[kk], al[kk]);
+      accs_as_a(st, ah, al);
       tile_product<ND, NQ, LD>(dva, ah, al, sOh, sOl, gr, tc);
     }
     __syncwarp();  // this warp's dS rows are stored
@@ -609,41 +631,44 @@ fa_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       tile_product<ND, NQ, LD>(dka, ah, al, sQh, sQl, gr, tc);
     }
-    __syncthreads();  // dS is whole
+    if (dqp != nullptr) {
+      __syncthreads();  // dS is whole
 
-    // This pair's dQ = dS.K (unscaled): this warp's 16 q rows by NDQ
-    // n-tiles over all B_BK keys; K split as it is loaded.
-    constexpr bool APART = DM <= K5_APART_MAX_DM;
-    float dqa[NDQ][4], dqa_lo[APART ? NDQ : 1][4];
-    zero(dqa);
-    zero(dqa_lo);
+      // This pair's dQ = dS.K (unscaled): this warp's 16 q rows by NDQ
+      // n-tiles over all B_BK keys; K split as it is loaded.
+      const int mt = warp & 1, dq_nt0 = (warp >> 1) * NDQ;  // this warp's dQ rows, columns
+      float dqa[NDQ][4], dqa_lo[APART ? NDQ : 1][4];
+      zero(dqa);
+      zero(dqa_lo);
 #pragma unroll 1
-    for (int kk = 0; kk < B_BK / 8; ++kk) {
-      uint32_t ah[4], al[4];
-      a_frag(sDS + (mt * 16 + gr) * LDS + kk * 8 + tc, LDS, ah, al);
+      for (int kk = 0; kk < B_BK / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        a_frag(sDS + (mt * 16 + gr) * LDS + kk * 8 + tc, LDS, ah, al);
 #pragma unroll
-      for (int x = 0; x < NDQ; ++x) {
-        const float* kb = sK + (kk * 8 + tc) * LDK + (dq_nt0 + x) * 8 + gr;
-        uint32_t bh[2], bl[2];
-        split(kb[0], bh[0], bl[0]);
-        split(kb[4 * LDK], bh[1], bl[1]);
-        if constexpr (APART)
-          mma_3x(dqa[x], dqa_lo[x], ah, al, bh, bl);
-        else
-          mma_3x(dqa[x], ah, al, bh, bl);
+        for (int x = 0; x < NDQ; ++x) {
+          const float* kb = sK + (kk * 8 + tc) * LDK + (dq_nt0 + x) * 8 + gr;
+          uint32_t bh[2], bl[2];
+          split(kb[0], bh[0], bl[0]);
+          split(kb[4 * LDK], bh[1], bl[1]);
+          if constexpr (APART)
+            mma_3x(dqa[x], dqa_lo[x], ah, al, bh, bl);
+          else
+            mma_3x(dqa[x], ah, al, bh, bl);
+        }
       }
-    }
-    if constexpr (APART) add_apart(dqa, dqa, dqa_lo);
+      if constexpr (APART) add_apart(dqa, dqa, dqa_lo);
+      float* dqp_j = dqp + ((size_t)j * g.n + n) * g.lq * g.d;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = i * B_BQ + mt * 16 + gr + 8 * h;
-      if (row >= g.lq) continue;
+      for (int h = 0; h < 2; ++h) {
+        const int row = i * B_BQ + mt * 16 + gr + 8 * h;
+        if (row >= g.lq) continue;
 #pragma unroll
-      for (int x = 0; x < NDQ; ++x) {
-        const int col = (dq_nt0 + x) * 8 + 2 * tc;
-        if (col < g.d)
-          *reinterpret_cast<float2*>(dqp_j + (size_t)row * g.d + col) =
-              make_float2(dqa[x][2 * h], dqa[x][2 * h + 1]);
+        for (int x = 0; x < NDQ; ++x) {
+          const int col = (dq_nt0 + x) * 8 + 2 * tc;
+          if (col < g.d)
+            *reinterpret_cast<float2*>(dqp_j + (size_t)row * g.d + col) =
+                make_float2(dqa[x][2 * h], dqa[x][2 * h + 1]);
+        }
       }
     }
   }
@@ -660,6 +685,131 @@ fa_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(dk + at) =
           make_float2(g.scale * dka[t][2 * h], g.scale * dka[t][2 * h + 1]);
       *reinterpret_cast<float2*>(dv + at) = make_float2(dva[t][2 * h], dva[t][2 * h + 1]);
+    }
+  }
+}
+
+template <int DM>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dqp,
+                   Geo g) {
+  bwd_kv_tf32_body<DM>(q, k, v, dout, lse, delta, dk, dv, dqp, g);
+}
+
+// ---------------------------------------------------------------------------
+// K6: two kernels, dK and dV with key tiles outer, dQ with q tiles outer
+// ---------------------------------------------------------------------------
+
+// dqp is null: the sweep without the dQ work.
+template <int DM>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        float* __restrict__ dqp, Geo g) {
+  bwd_kv_tf32_body<DM>(q, k, v, dout, lse, delta, dk, dv, dqp, g);
+}
+
+template <int DM>
+struct DqSmem {
+  static constexpr int LD = DM + 4;
+  // Keys a tile: 64, but 32 at D 128, where 64 would pass the block's
+  // shared memory (Q and dO 135 KB, K and V split 135 KB).
+  static constexpr int BK = DM <= 64 ? 64 : 32;
+  // Q and dO as loaded (D_BQ rows), K and V split (BK rows, hi and lo each).
+  static constexpr size_t BYTES = (2 * (size_t)D_BQ * LD + 4 * (size_t)BK * LD) * sizeof(float);
+};
+
+template <int DM>
+__global__ void __launch_bounds__(NT, 1)
+fa_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dq, Geo g) {
+  using S = DqSmem<DM>;
+  constexpr int LD = S::LD, BK = S::BK, ND = DM / 8, NK = BK / 8;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sO = sQ + D_BQ * LD;  // dO
+  float* sKh = sO + D_BQ * LD;
+  float* sKl = sKh + BK * LD;
+  float* sVh = sKl + BK * LD;
+  float* sVl = sVh + BK * LD;
+
+  const int n_tiles = (g.lq + D_BQ - 1) / D_BQ;
+  const int i = n_tiles - 1 - (int)(blockIdx.x / g.n);
+  const int n = (int)(blockIdx.x % g.n);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int r0 = warp * 16;               // this warp's local q rows
+  const int row_lo = i * D_BQ + r0 + gr;  // this thread's rows: row_lo, row_lo + 8
+  const size_t qbase = (size_t)n * g.lq * g.d, kbase = (size_t)n * g.lk * g.d;
+  int j_lo, j_hi;
+  live_range<D_BQ, BK, false>(g, i, (g.lk + BK - 1) / BK, j_lo, j_hi);
+
+  load_tile<D_BQ, DM, LD>(sQ, nullptr, q + qbase, i * D_BQ, g.lq, g.d);
+  load_tile<D_BQ, DM, LD>(sO, nullptr, dout + qbase, i * D_BQ, g.lq, g.d);
+  // This thread's rows' lse and delta: 0 past Lq, where Q and dO are zeros.
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    row_lse[h] = row < g.lq ? lse[(size_t)n * g.lq + row] : 0.f;
+    row_delta[h] = row < g.lq ? delta[(size_t)n * g.lq + row] : 0.f;
+  }
+  float dqa[ND][4];
+  zero(dqa);
+
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int kind = triage<D_BQ, BK>(g, i, j);
+    __syncthreads();  // every warp is done with the previous tile
+    load_tile<BK, DM, LD>(sKh, sKl, k + kbase, j * BK, g.lk, g.d);
+    load_tile<BK, DM, LD>(sVh, sVl, v + kbase, j * BK, g.lk, g.d);
+    __syncthreads();
+
+    // S = Q.K^T and dP = dO.V^T, this warp's 16 q rows by the tile's keys:
+    // A (Q, dO) by rows, B (K, V) by rows as their transposes' columns.
+    float s[NK][4], dp[NK][4];
+    product_nt<DM, LD, NK, true>(s, sQ + (r0 + gr) * LD + tc, sKh, sKl, gr, tc);
+    product_nt<DM, LD, NK, true>(dp, sO + (r0 + gr) * LD + tc, sVh, sVl, gr, tc);
+
+    // P = exp(scale s - lse) and dS = P (dP - delta), rounded as K5 and
+    // the twin round them; dS in dp's registers.
+#pragma unroll
+    for (int t = 0; t < NK; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const bool ok =
+            kind == 2 || valid(g, row_lo + 8 * h, j * BK + t * 8 + 2 * tc + (e & 1));
+        const float p =
+            ok ? expf(__fsub_rn(__fmul_rn(s[t][e], g.scale), row_lse[h])) : 0.f;
+        dp[t][e] = p * (dp[t][e] - row_delta[h]);
+      }
+
+    // dQ += dS.K: dS from the accumulators, K's rows 2 tc and 2 tc + 1 of
+    // each 8-key step; each 8 columns' product over the tile in a fresh
+    // accumulator, added in float32.
+    uint32_t ah[NK][4], al[NK][4];
+    accs_as_a(dp, ah, al);
+    tile_product<ND, NK, LD>(dqa, ah, al, sKh, sKl, gr, tc);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    if (row >= g.lq) continue;
+    float* out = dq + qbase + (size_t)row * g.d;
+#pragma unroll
+    for (int t = 0; t < ND; ++t) {
+      const int col = t * 8 + 2 * tc;
+      if (col < g.d)
+        *reinterpret_cast<float2*>(out + col) =
+            make_float2(g.scale * dqa[t][2 * h], g.scale * dqa[t][2 * h + 1]);
     }
   }
 }
@@ -742,4 +892,40 @@ extern "C" int mpit_fa_bwd_fused_tf32(const float* q, const float* k, const floa
   });
   if (err != 0) return err;
   return launch_dq_reduce<float, B_BQ, B_BK>(dqp, dq, g, s);
+}
+
+// K6, first kernel: dq, q tiles outer.
+extern "C" int mpit_fa_bwd_dq_tf32(const float* q, const float* k, const float* v,
+                                   const float* dout, const float* lse, const float* delta,
+                                   float* dq, int n, int lq, int lk, int d, int q_offset,
+                                   int kv_offset, float scale, int causal, void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g) || misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long blocks = (long long)((lq + D_BQ - 1) / D_BQ) * n;
+  return by_width(d, [&](auto dm) {
+    constexpr int DM = decltype(dm)::value;
+    void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dq, &g};
+    return launch(fa_bwd_dq_tf32_kernel<DM>, DqSmem<DM>::BYTES, blocks, s, args);
+  });
+}
+
+// K6, second kernel: dk and dv, K5's sweep without its dQ.
+extern "C" int mpit_fa_bwd_dkdv_tf32(const float* q, const float* k, const float* v,
+                                     const float* dout, const float* lse, const float* delta,
+                                     float* dk, float* dv, int n, int lq, int lk, int d,
+                                     int q_offset, int kv_offset, float scale, int causal,
+                                     void* stream) {
+  Geo g = make_geo(n, lq, lk, d, q_offset, kv_offset, scale, causal);
+  if (bad_geometry(g) || misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long blocks = (long long)((lk + B_BK - 1) / B_BK) * n;
+  float* no_dqp = nullptr;
+  return by_width(d, [&](auto dm) {
+    constexpr int DM = decltype(dm)::value;
+    void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &no_dqp, &g};
+    return launch(fa_bwd_dkdv_tf32_kernel<DM>, BwdSmem<DM>::BYTES, blocks, s, args);
+  });
 }

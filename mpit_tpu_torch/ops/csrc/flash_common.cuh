@@ -1,9 +1,8 @@
-// What the flash-attention kernels of flash_attention.cu (float32 K6, on
-// scalar FMAs), flash_attention_tc.cu (bfloat16 K4, K5 and K6 on the
-// tensor cores) and flash_attention_tf32.cu (float32 K4 and K5 on the
-// tensor cores, 3xTF32) share: the call's geometry, the one copy of the
-// masking rule, the live range it gives, and K5's deterministic dQ
-// reduction.
+// What the flash-attention kernels of flash_attention_tc.cu (bfloat16 K4,
+// K5 and K6 on the tensor cores) and flash_attention_tf32.cu (float32 K4,
+// K5 and K6 on the tensor cores, 3xTF32) share: the call's geometry, the
+// one copy of the masking rule, the live range it gives, and K5's
+// deterministic dQ reduction.
 #pragma once
 
 #include <cuda_bf16.h>

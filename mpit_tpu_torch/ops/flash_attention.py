@@ -17,11 +17,10 @@ sequence, as ring attention needs):
 The kernels are CUDA C++ for Hopper, built by
 :mod:`mpit_tpu_torch.ops.build` on first use; each source's comments say
 what bounds its kernels and how they are tiled.  bfloat16 K4, K5 and K6
-run on the tensor cores (``csrc/flash_attention_tc.cu``); float32 K4 and
-K5 on the tensor cores too, at float32 accuracy by 3xTF32
+run on the tensor cores (``csrc/flash_attention_tc.cu``); float32 K4, K5
+and K6 on the tensor cores too, at float32 accuracy by 3xTF32
 (``csrc/flash_attention_tf32.cu``: each operand split into two TF32
-values, three TF32 products for each float32 one); float32 K6 on scalar
-float32 FMAs (``csrc/flash_attention.cu``).
+values, three TF32 products for each float32 one).
 Where the tensors lie fixes the route: CUDA tensors always go through a
 kernel, CPU tensors always through the plain twins
 (:func:`block_attention_partial` for K4, :func:`attention_bwd_reference`
@@ -32,9 +31,7 @@ their ``launches`` count per call that launches their kernels, and
 else.
 
 The kernels take ``D`` a multiple of 8 up to 128, float32 or bfloat16,
-contiguous, and (K4 and K5 in either type, K6 in bfloat16) starting at a
-16-byte aligned address.  The scalar K6's tiles are 64 x 64
-(:data:`BLOCK_Q`, :data:`BLOCK_K`); K5 on the tensor cores, bfloat16 and
+contiguous, and starting at a 16-byte aligned address.  K5, bfloat16 and
 float32 alike, takes 128 keys a block (:data:`BLOCK_K_TC`), which sets the
 size of its dQ partials.
 The Mosaic levers of the JAX module (``MPIT_FA_VMEM_MB``, ``_DIMSEM``,
@@ -57,12 +54,9 @@ from mpit_tpu_torch.ops.fused_update import _cuda_stream
 
 NEG_INF = float("-inf")
 
-# The scalar kernels' tiles (csrc/flash_attention.cu: BQ, BK), which
-# float32 K6 uses, and the key tile of K5 on the tensor cores, bfloat16 and
-# float32 alike (csrc/flash_attention_tc.cu and flash_attention_tf32.cu:
-# B_BK; checked when each library loads).
-BLOCK_Q = 64
-BLOCK_K = 64
+# K5's key tile, bfloat16 and float32 alike (csrc/flash_attention_tc.cu
+# and flash_attention_tf32.cu: B_BK; checked when each library loads): its
+# dQ partials hold one slot a tile.
 BLOCK_K_TC = 128
 D_MAX = 128
 
@@ -159,18 +153,21 @@ def attention_bwd_reference(q, k, v, do, lse, delta, *, causal: bool = False,
     row ``lse`` and ``delta = rowsum(dO * O)``, by the flash backward's
     formulas: ``P = exp(s - lse)``, ``dS = P * (dO V^T - delta)``,
     ``dV = P^T dO``, ``dK = scale dS^T Q``, ``dQ = scale dS K``.  K5's and
-    K6's plain twin: f32 products, ``P`` and ``dS`` rounded to the inputs'
-    dtype before their products, outputs in the inputs' dtype."""
+    K6's plain twin: f32 products (float64 for float64 inputs, a reference
+    for the kernels where float32's own sums drift), ``P`` and ``dS``
+    rounded to the inputs' dtype before their products, outputs in the
+    inputs' dtype."""
     dt = q.dtype
+    wide = torch.promote_types(dt, torch.float32)
     scale = _scale(q.shape[-1], sm_scale)
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    qf, kf, vf, dof = (t.to(wide) for t in (q, k, v, do))
     s = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
     valid = _mask(q.shape[-2], k.shape[-2], q_offset, kv_offset, causal, q.device)
     # A dead row has lse = -inf and no valid key: where() drops its exp.
     p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("...qd,...kd->...qk", dof, vf)
     ds = p * (dp - delta[..., None])
-    p_c, ds_c = p.to(dt).float(), ds.to(dt).float()
+    p_c, ds_c = p.to(dt).to(wide), ds.to(dt).to(wide)
     dv = torch.einsum("...qk,...qd->...kd", p_c, dof)
     dk = scale * torch.einsum("...qk,...qd->...kd", ds_c, qf)
     dq = scale * torch.einsum("...qk,...kd->...qd", ds_c, kf)
@@ -236,13 +233,6 @@ def _card_mb(device) -> float:
     return torch.cuda.get_device_properties(device).total_memory / 2**20
 
 
-def _dq_block_k(device, dtype) -> int:
-    """The key tile of the K5 that runs for ``device`` and ``dtype``: its dQ
-    partials hold one slot per tile."""
-    on_card = device is not None and torch.device(device).type == "cuda"
-    return BLOCK_K_TC if on_card else BLOCK_K
-
-
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -279,7 +269,7 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
 
     On a CUDA ``device`` the transient is that of the K5 that runs,
     ``N * ceil(Lk / tile) * Lq * D * 4`` bytes with one f32 partial per key
-    tile (:func:`_dq_block_k`: 128 keys in either type), and the
+    tile (:data:`BLOCK_K_TC`: 128 keys in either type), and the
     budget is ``MPIT_FA_FUSED_BWD_MAX_MB`` where set, else a quarter of the
     card's memory, leaving three quarters to the weights, activations and
     grads beside the transient: K5 is the faster schedule on the H100
@@ -301,7 +291,7 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
     n = math.prod(int(s) for s in q_shape[:-2])
     budget = os.environ.get("MPIT_FA_FUSED_BWD_MAX_MB")
     if device is not None and torch.device(device).type == "cuda":
-        tiles = math.ceil(lk / _dq_block_k(device, dtype))
+        tiles = math.ceil(lk / BLOCK_K_TC)
         transient_mb = n * tiles * lq * d * 4 / 2**20
         return transient_mb <= (_card_mb(device) / 4 if budget is None else float(budget))
     transient_mb = _jax_transient_mb(n, lq, lk, d, dtype)
@@ -313,34 +303,16 @@ def _use_fused_bwd(q_shape, k_shape, d: int, device=None, dtype=None) -> bool:
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The scalar kernels: K6 in float32."""
-    from mpit_tpu_torch.ops import build  # nvcc runs on first use only
-
-    lib = build.load("flash_attention")
+def _bind_tf32(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of csrc/flash_attention_tf32.cu, with its entry
+    points' argument types set and its K5 key tile checked."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geo = [i32] * 6 + [f32, i32]  # n, lq, lk, d, offsets; scale; causal
     for fn, argtypes in (
-        (lib.mpit_fa_bwd_dq, [ptr] * 7 + geo + [ptr]),
-        (lib.mpit_fa_bwd_dkdv, [ptr] * 8 + geo + [ptr]),
-    ):
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.cache
-def _lib_tf32() -> ctypes.CDLL:
-    """The float32 tensor-core kernels (3xTF32): K4 and K5 in float32."""
-    from mpit_tpu_torch.ops import build
-
-    lib = build.load("flash_attention_tf32")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    geo = [i32] * 6 + [f32, i32]
-    for fn, argtypes in (
         (lib.mpit_fa_fwd_tf32, [ptr] * 8 + geo + [i32, ptr]),
         (lib.mpit_fa_bwd_fused_tf32, [ptr] * 10 + geo + [ptr]),
+        (lib.mpit_fa_bwd_dq_tf32, [ptr] * 7 + geo + [ptr]),
+        (lib.mpit_fa_bwd_dkdv_tf32, [ptr] * 8 + geo + [ptr]),
         (lib.mpit_fa_bwd_tf32_block_k, []),
     ):
         fn.argtypes = argtypes
@@ -348,6 +320,14 @@ def _lib_tf32() -> ctypes.CDLL:
     if lib.mpit_fa_bwd_tf32_block_k() != BLOCK_K_TC:
         raise RuntimeError("flash_attention_tf32.cu's key tile differs from BLOCK_K_TC")
     return lib
+
+
+@functools.cache
+def _lib_tf32() -> ctypes.CDLL:
+    """The float32 tensor-core kernels (3xTF32): K4, K5 and K6 in float32."""
+    from mpit_tpu_torch.ops import build  # nvcc runs on first use only
+
+    return _bind_tf32(build.load("flash_attention_tf32"))
 
 
 @functools.cache
@@ -378,13 +358,13 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _check_aligned(**tensors) -> None:
-    """The tensor-core kernels' copies (TMA in bfloat16, 16 bytes a thread
-    in float32) need every operand to start at a multiple of 16 bytes (its
-    rows do, D being a multiple of 8)."""
+    """The kernels' copies (TMA in bfloat16, 16 bytes a thread in float32)
+    need every operand to start at a multiple of 16 bytes (its rows do, D
+    being a multiple of 8)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a 16-byte aligned address for "
-                             "the tensor-core kernels (a view into another tensor?)")
+                             "the kernels (a view into another tensor?)")
 
 
 def flash_fwd(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None,
@@ -458,7 +438,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = False,
         bwd = _lib_tc().mpit_fa_bwd_fused_tc
     else:
         bwd = _lib_tf32().mpit_fa_bwd_fused_tf32
-    tiles = math.ceil(lk / _dq_block_k(q.device, q.dtype))
+    tiles = math.ceil(lk / BLOCK_K_TC)
     dqp = torch.empty(tiles, *lead, lq, d, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -476,9 +456,9 @@ flash_bwd_fused.launches = 0
 def flash_bwd_two_kernel(q, k, v, do, lse, delta, *, causal: bool = False,
                          sm_scale: Optional[float] = None, q_offset: int = 0,
                          kv_offset: int = 0):
-    """K6: dQ with q tiles outer, then dK and dV with key tiles outer, bfloat16
-    on the tensor cores and float32 on the scalar kernels; no transient
-    beyond the outputs.  Each of its two launches adds one to
+    """K6: dQ with q tiles outer, then dK and dV with key tiles outer (K5's
+    sweep without its dQ), on the tensor cores (float32 by 3xTF32); no
+    transient beyond the outputs.  Each of its two launches adds one to
     ``flash_bwd_two_kernel.launches``."""
     lead, lq, lk, d, q_offset, kv_offset = _bwd_operands(
         q, k, v, do, lse, delta, q_offset, kv_offset)
@@ -488,12 +468,13 @@ def flash_bwd_two_kernel(q, k, v, do, lse, delta, *, causal: bool = False,
                                        sm_scale=scale, q_offset=q_offset,
                                        kv_offset=kv_offset)
     stream = _cuda_stream(q)
+    _check_aligned(q=q, k=k, v=v, do=do)
     if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v, do=do)
         lib = _lib_tc()
         bwd_dq, bwd_dkdv = lib.mpit_fa_bwd_dq_tc, lib.mpit_fa_bwd_dkdv_tc
     else:
-        bwd_dq, bwd_dkdv = _lib().mpit_fa_bwd_dq, _lib().mpit_fa_bwd_dkdv
+        lib = _lib_tf32()
+        bwd_dq, bwd_dkdv = lib.mpit_fa_bwd_dq_tf32, lib.mpit_fa_bwd_dkdv_tf32
     geo = (math.prod(lead), lq, lk, d, q_offset, kv_offset, scale, int(bool(causal)),
            stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

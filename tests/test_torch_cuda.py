@@ -48,12 +48,13 @@ row max, as the twin does: o and acc / l lie within one step there too.
 K5 and K6 give the same bits twice, and the bfloat16 kernels refuse an
 operand that does not start on 16 bytes.
 
-float32 K4 and K5 run on the tensor cores too, by 3xTF32
+float32 K4, K5 and K6 run on the tensor cores too, by 3xTF32
 (csrc/flash_attention_tf32.cu): their SASS carries HMMA and ptxas spills
-nothing; K5 gives the same bits twice; at the LM's shapes they keep the
-reference's limits against the twins and against the scalar float32 K6;
-and they refuse an operand that does not start on 16 bytes, which the
-scalar K6 takes.
+nothing; K5 and K6 give the same bits twice, and K6's dK and dV are K5's
+bit for bit (its dK/dV kernel is K5's sweep); at the LM's shapes K4, K5
+and K6 keep the reference's limits against the twins, and K5 and K6
+against each other; and they refuse an operand that does not start on 16
+bytes.
 
 Slice 9 on the card: ``tp_self_attention`` launches K4 once a call for
 every rank's heads and never runs the plain attention; a pipeline of
@@ -675,12 +676,13 @@ def test_bf16_kernels_refuse_unaligned_operands(dev, which):
 
 
 def test_f32_k4_k5_run_on_the_tensor_cores(dev):
-    """float32 K4 and K5 come from flash_attention_tf32.cu: mma.sync
+    """float32 K4, K5 and K6 come from flash_attention_tf32.cu: mma.sync
     (HMMA) in every width's kernel, no spill."""
     from mpit_tpu_torch.ops import build
 
     ops = build.tensor_ops("flash_attention_tf32")
-    for kernel in ("fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel"):
+    for kernel in ("fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel", "fa_bwd_dq_tf32_kernel",
+                   "fa_bwd_dkdv_tf32_kernel"):
         found = {k: o for k, o in ops.items() if kernel in k}
         assert len(found) >= 3 and all(o["HMMA"] for o in found.values()), found
     report = build.ptxas_report("flash_attention_tf32")
@@ -703,11 +705,29 @@ def test_k5_f32_tensor_cores_deterministic(dev, case, d):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("case", range(len(FA_CASES)))
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+def test_k6_f32_dkdv_is_k5s_and_deterministic(dev, case, d):
+    """float32 K6's dK/dV kernel is K5's sweep without the dQ work: its dk
+    and dv are K5's bit for bit, and K6 run twice gives the same bits."""
+    lead, lq, lk, q_off, kv_off, causal = FA_CASES[case]
+    q, k, v, do = _fa_inputs(dev, lead, lq, lk, d, torch.float32, 600 * case + d)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    o, lse = flash_fwd(q, k, v, **kw)
+    delta = (do * o).sum(-1)
+    got = flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw)
+    again = flash_bwd_two_kernel(q, k, v, do, lse, delta, **kw)
+    _, dk5, dv5 = flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[1], dk5) and torch.equal(got[2], dv5)
+
+
 @pytest.mark.parametrize("lead,seq,d", [((8, 8), 1024, 32), ((1, 2), 4096, 128)])
 def test_f32_tensor_cores_agree_with_twins_and_k6_at_lm_shapes(dev, lead, seq, d):
-    """float32 K4 and K5 at the LM's head widths, causal: o and lse within
-    2e-5 of the twin, K5's grads within 3e-5 of the twin's and of the
-    scalar K6's, from the same lse."""
+    """float32 K4, K5 and K6 at the LM's head widths, causal: o and lse
+    within 2e-5 of the twin, K5's and K6's grads within 3e-5 of the twin's
+    and of each other's, from the same lse."""
     q, k, v, do = _fa_inputs(dev, lead, seq, seq, d, torch.float32, seq + d)
     acc_t, m_t, l_t = block_attention_partial(q, k, v, causal=True)
     o, lse = flash_fwd(q, k, v, causal=True)
@@ -720,30 +740,29 @@ def test_f32_tensor_cores_agree_with_twins_and_k6_at_lm_shapes(dev, lead, seq, d
     torch.cuda.synchronize()
     for a5, a6, w in zip(got5, got6, want):
         _assert_close(a5, w, 3e-5)
+        _assert_close(a6, w, 3e-5)
         _assert_close(a5, a6, 3e-5)
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v", "do"])
 def test_f32_tensor_core_kernels_refuse_unaligned_operands(dev, which):
     """A contiguous float32 view one element into a buffer starts 4 bytes
-    off a 16-byte boundary: float32 K4 and K5, which copy 16 bytes a
-    thread, refuse it; the scalar float32 K6 takes it."""
+    off a 16-byte boundary: float32 K4, K5 and K6, which copy 16 bytes a
+    thread, refuse it and count no launch."""
     ops = dict(zip(("q", "k", "v", "do"),
                    _fa_inputs(dev, (2,), 64, 64, 32, torch.float32, 9)))
     ops["lse"] = ops["delta"] = torch.zeros(2, 64, device=dev)
     buf = torch.empty(ops[which].numel() + 8, dtype=ops[which].dtype, device=dev)
     ops[which] = buf[1:1 + ops[which].numel()].view_as(ops[which]).copy_(ops[which])
-    before = [f.launches for f in (flash_fwd, flash_bwd_fused)]
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_bwd_fused(*(ops[x] for x in ("q", "k", "v", "do", "lse", "delta")))
+    kernels = (flash_fwd, flash_bwd_fused, flash_bwd_two_kernel)
+    before = [f.launches for f in kernels]
+    for bwd in (flash_bwd_fused, flash_bwd_two_kernel):
+        with pytest.raises(ValueError, match="16-byte"):
+            bwd(*(ops[x] for x in ("q", "k", "v", "do", "lse", "delta")))
     if which in ("q", "k", "v"):
         with pytest.raises(ValueError, match="16-byte"):
             flash_fwd(ops["q"], ops["k"], ops["v"])
-    assert [f.launches for f in (flash_fwd, flash_bwd_fused)] == before
-    dq, dk, dv = flash_bwd_two_kernel(*(ops[x] for x in ("q", "k", "v", "do", "lse",
-                                                          "delta")))
-    torch.cuda.synchronize()
-    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    assert [f.launches for f in kernels] == before
 
 
 # -- slice 4: BiCNN on the card ----------------------------------------------

@@ -302,8 +302,7 @@ def test_gate_on_the_card_counts_the_key_tile_that_runs(monkeypatch, dtype):
     monkeypatch.delenv("MPIT_FA_FUSED_BWD_MAX_MB", raising=False)
     fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
     long, cuda = (1, 8, 8192, 128), torch.device("cuda")
-    assert fa._dq_block_k(cuda, dtype) == 128
-    assert fa._dq_block_k("cpu", dtype) == 64
+    assert fa.BLOCK_K_TC == 128
     monkeypatch.setattr(fa, "_card_mb", lambda device: 8192.0)  # a quarter: 2,048
     assert _use_fused_bwd(long, long, 128, cuda, dtype) is True
     assert _use_fused_bwd(long, long, 128, "cpu", dtype) is True
@@ -358,13 +357,15 @@ def test_refuses_what_the_kernels_do_not_take(bad):
 H100_MB = 81559.0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("seq_len,fused", [(8192, True), (16384, True), (32768, False)])
-def test_gate_sends_the_32k_lm_to_k6_on_an_h100(monkeypatch, seq_len, fused):
-    """The long-context LM's attention (batch 1 x 8 heads of 128, bf16) on
-    an 80 GB card: K5's dQ partials, 8 x L/128 x L x 128 x 4 B = 32 L^2
-    bytes, take 2 GiB at 8k and 8 GiB at 16k, within a quarter of the card
-    (19.9 GiB), and 32 GiB at 32k, past it: the gate alone sends the 32k
-    LM (lm_launch.LONGCONTEXT_32K_KWARGS) to K6."""
+def test_gate_sends_the_32k_lm_to_k6_on_an_h100(monkeypatch, seq_len, fused, dtype):
+    """The long-context LM's attention (batch 1 x 8 heads of 128, bf16 or
+    float32) on an 80 GB card: K5's dQ partials, float32 over 128-key tiles
+    in either type, 8 x L/128 x L x 128 x 4 B = 32 L^2 bytes, take 2 GiB at
+    8k and 8 GiB at 16k, within a quarter of the card (19.9 GiB), and 32
+    GiB at 32k, past it: the gate alone sends the 32k LM
+    (lm_launch.LONGCONTEXT_32K_KWARGS, with either ``attn_dtype``) to K6."""
     from mpit_tpu_torch.train.lm_launch import LONGCONTEXT_32K_KWARGS, LONGCONTEXT_KWARGS
 
     monkeypatch.delenv("MPIT_FA_FUSED_BWD", raising=False)
@@ -376,7 +377,7 @@ def test_gate_sends_the_32k_lm_to_k6_on_an_h100(monkeypatch, seq_len, fused):
     assert widths["seq_len"] == seq_len
     head = widths["d_model"] // widths["n_heads"]
     shape = (widths["batch"], widths["n_heads"], seq_len, head)
-    assert _use_fused_bwd(shape, shape, head, torch.device("cuda"), torch.bfloat16) is fused
+    assert _use_fused_bwd(shape, shape, head, torch.device("cuda"), dtype) is fused
 
 
 def _exact_bf16(a):

@@ -1,4 +1,4 @@
-"""3xTF32, the arithmetic of float32 K4 and K5 on the tensor cores
+"""3xTF32, the arithmetic of float32 K4, K5 and K6 on the tensor cores
 (``mpit_tpu_torch/ops/csrc/flash_attention_tf32.cu``), emulated on the
 CPU and held to the JAX package's float32 flash attention.
 
@@ -9,10 +9,14 @@ mantissa bits, ties away from zero (``cvt.rna.tf32.f32``: add half of the
 is lo.hi + hi.lo + hi.hi, each term summed in float32, lo.lo dropped.  The
 emulation follows the kernels' algorithms: K4's online softmax over
 64-key tiles in both output modes (the -1e30 sentinel inside, -inf in the
-public m and lse of dead rows), and K5's backward formulas with its dQ
-summed from one partial a 128-key tile in ascending order.  The JAX side
-runs its Pallas kernels in interpret mode, as tests/test_torch_flash.py
-runs them, and the limits are the reference's (tests/test_ops.py): atol
+public m and lse of dead rows), K5's backward formulas with its dQ
+summed from one partial a 128-key tile in ascending order, and K6's: its
+dK/dV kernel is K5's sweep, and its dQ kernel adds each of its key tiles'
+dS.K (64 keys, 32 at D 128) in ascending order.  The JAX side runs its
+Pallas kernels in interpret mode, as tests/test_torch_flash.py runs them
+(K6's against the JAX package's two-kernel schedule,
+``MPIT_FA_FUSED_BWD=0``), and the limits are the reference's
+(tests/test_ops.py): atol
 2e-5 forward, 3e-5 for grads, 3e-4 for an offset pair's grads.  One TF32
 pass, which a tensor core takes for a float32 product by default, misses
 the forward's limit.  The kernels themselves run only on a card
@@ -21,6 +25,7 @@ the forward's limit.  The kernels themselves run only on a card
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +35,7 @@ from mpit_tpu.ops import flash_attention as jax_fa
 from mpit_tpu.ops import flash_attention_bwd_pair as jax_bwd_pair
 from mpit_tpu.ops import flash_attention_partial as jax_partial
 from mpit_tpu.ops.flash_attention import _lse_of as jax_lse_of
+from mpit_tpu_torch.ops.flash_attention import attention_bwd_reference
 
 torch.set_num_threads(1)
 
@@ -37,6 +43,12 @@ FWD_ATOL, GRAD_ATOL, PAIR_ATOL = 2e-5, 3e-5, 3e-4
 PARTIAL_RTOL = 1e-5  # l, a sum of up to L exponentials (chip_smoke's FA_PARTIAL_RTOL)
 BIG_NEG = -1e30
 F_BK, B_BK = 64, 128  # K4's key tile, K5's (its dQ partials' slots)
+
+
+def k6_dq_keys(d):
+    """The key tile of K6's dQ kernel at head width d (padded to 32, 64 or
+    128): 64, or 32 at D 128 (``DqSmem``)."""
+    return 64 if d <= 64 else 32
 
 # (name, leading axes, Lq, Lk, D, q_offset, kv_offset, causal): D 32, 64
 # and 128, causal and not, a ragged offset pair whose first 20 q rows
@@ -104,10 +116,10 @@ def fwd_emulated(q, k, v, q_off, kv_off, causal, mm=mm3):
     return (acc / den[..., None], m_pub + torch.log(den)), (acc, m_pub, l)
 
 
-def bwd_emulated(q, k, v, do, lse, delta, q_off, kv_off, causal):
+def bwd_emulated(q, k, v, do, lse, delta, q_off, kv_off, causal, dq_keys=B_BK):
     """K5: P^T and dS^T from 3xTF32 scores, dV = P^T.dO, dK = scale dS^T.Q,
-    and dQ = scale x the sum, in ascending key tiles of B_BK, of each
-    tile's dS.K partial."""
+    and dQ = scale x the sum, in ascending key tiles of ``dq_keys`` (K5's
+    B_BK), of each tile's dS.K partial."""
     lq, lk, d = q.shape[-2], k.shape[-2], q.shape[-1]
     scale = np.float32(1.0 / np.sqrt(d))
     ok = valid_mask(lq, lk, q_off, kv_off, causal)
@@ -117,9 +129,19 @@ def bwd_emulated(q, k, v, do, lse, delta, q_off, kv_off, causal):
     dv = mm3(p.transpose(-1, -2), do)
     dk = scale * mm3(ds.transpose(-1, -2), q)
     dq = torch.zeros(q.shape)
-    for j0 in range(0, lk, B_BK):
-        dq = dq + mm3(ds[..., j0:j0 + B_BK], k[..., j0:j0 + B_BK, :])
+    for j0 in range(0, lk, dq_keys):
+        dq = dq + mm3(ds[..., j0:j0 + dq_keys], k[..., j0:j0 + dq_keys, :])
     return scale * dq, dk, dv
+
+
+def bwd_two_kernel_emulated(q, k, v, do, lse, delta, q_off, kv_off, causal):
+    """K6: its dK/dV kernel is K5's sweep without the dQ work, so dK and dV
+    are K5's; its dQ kernel, q tiles outer, takes S, dP, P and dS as K5
+    does and adds each of its key tiles' dS.K (a fresh product a tile) to
+    dQ in float32, in ascending tiles of ``k6_dq_keys``; then dQ is
+    scaled."""
+    return bwd_emulated(q, k, v, do, lse, delta, q_off, kv_off, causal,
+                        dq_keys=k6_dq_keys(q.shape[-1]))
 
 
 def inputs(case):
@@ -185,6 +207,60 @@ def test_backward_3xtf32_matches_jax(case):
     for a, b in zip(got, want):
         assert np.isfinite(a.numpy()).all()
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=atol, rtol=0)
+
+
+@pytest.fixture
+def two_kernel_schedule(monkeypatch):
+    """The JAX package's two-kernel backward (``_fa_2d_bwd(fused=False)``)
+    for one test; JAX reads the gate at trace time, so its caches are
+    cleared around the leg."""
+    monkeypatch.setenv("MPIT_FA_FUSED_BWD", "0")
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_backward_two_kernel_3xtf32_matches_jax(case, two_kernel_schedule):
+    """K6's arithmetic, from the emulated forward's o and lse, against the
+    JAX package's two-kernel backward (its dQ and dK/dV Pallas kernels)
+    from its own lse and o: dq, dk and dv within 3e-5, 3e-4 on the offset
+    pairs; dK and dV are K5's emulation exactly."""
+    q, k, v, do, kw = inputs(case)
+    o_j, _, lse_j = jax_forward(case[0])
+    want = jax_bwd_pair(*map(jnp.asarray, (q, k, v, do, lse_j)), o=jnp.asarray(o_j),
+                        block_q=128, block_k=128, **kw)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    offs = (kw["q_offset"], kw["kv_offset"], kw["causal"])
+    (o, lse), _ = fwd_emulated(tq, tk, tv, *offs)
+    delta = (tdo * o).sum(-1)
+    got = bwd_two_kernel_emulated(tq, tk, tv, tdo, lse, delta, *offs)
+    k5 = bwd_emulated(tq, tk, tv, tdo, lse, delta, *offs)
+    atol = PAIR_ATOL if (kw["q_offset"] or kw["kv_offset"]) else GRAD_ATOL
+    for a, b in zip(got, want):
+        assert np.isfinite(a.numpy()).all()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=atol, rtol=0)
+    assert torch.equal(got[1], k5[1]) and torch.equal(got[2], k5[2])
+
+
+def test_two_kernel_dq_over_many_key_tiles_matches_float64():
+    """K6 at N 1, L 2,048, D 32, causal: the last q rows' dQ sums 32 of the
+    dQ kernel's 64-key tiles.  Against the port's twin in float64 from the
+    same lse and delta (the JAX package at this length would take minutes
+    in interpret mode): every grad within 3e-5."""
+    rng = np.random.default_rng(2048)
+    q, k, v = ((0.5 * rng.normal(size=(1, 2048, 32))).astype(np.float32) for _ in range(3))
+    do = rng.normal(size=(1, 2048, 32)).astype(np.float32)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    (o, lse), _ = fwd_emulated(tq, tk, tv, 0, 0, True)
+    delta = (tdo * o).sum(-1)
+    got = bwd_two_kernel_emulated(tq, tk, tv, tdo, lse, delta, 0, 0, True)
+    want = attention_bwd_reference(*(t.double() for t in (tq, tk, tv, tdo)), lse, delta,
+                                   causal=True)
+    assert 2048 // k6_dq_keys(32) == 32
+    for a, b in zip(got, want):
+        assert b.dtype == torch.float64
+        np.testing.assert_allclose(a.double().numpy(), b.numpy(), atol=GRAD_ATOL, rtol=0)
 
 
 def test_tf32_rounds_to_nearest_ties_away():

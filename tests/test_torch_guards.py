@@ -162,6 +162,9 @@ def test_step_profile_groups_the_lm_kernels():
         dev("void (anonymous namespace)::fa_fwd_tf32_kernel<128, false>", 300, 6),
         dev("void (anonymous namespace)::fa_bwd_tf32_kernel<128>", 310, 7),
         dev("void (anonymous namespace)::dq_reduce_kernel<float, 32, 128>", 320, 2),
+        # float32 K6 on the tensor cores: its dQ and dK/dV kernels
+        dev("void (anonymous namespace)::fa_bwd_dq_tf32_kernel<128>", 330, 9),
+        dev("void (anonymous namespace)::fa_bwd_dkdv_tf32_kernel<128>", 340, 11),
         dev("sm80_xmma_gemm_f32f32_f32f32", 250, 20),
         {"cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 275, "dur": 2},
         dev("direct_copy_kernel_cuda", 280, 3), dev("nesterov_commit_kernel", 290, 1),
@@ -170,12 +173,12 @@ def test_step_profile_groups_the_lm_kernels():
     s = tool.summarize(trace, 1, prefix="window ")
     assert s["epochs"] == 1 and s["steps"] == 1
     us = {g: v["us_per_step"] for g, v in s["groups"].items()}
-    assert us == {"k4": 16, "k6": 20, "k5": 14, "matmul": 20, "copy": 5, "k1": 1,
+    assert us == {"k4": 16, "k6": 40, "k5": 14, "matmul": 20, "copy": 5, "k1": 1,
                   "other": 4}
-    assert s["groups"]["k6"]["launches_per_step"] == 2
+    assert s["groups"]["k6"]["launches_per_step"] == 4
     assert s["groups"]["k4"]["launches_per_step"] == 2
     assert s["groups"]["k5"]["launches_per_step"] == 3
-    assert s["device_busy_share"] == pytest.approx(80 / 200)
+    assert s["device_busy_share"] == pytest.approx(100 / 200)
     assert s["k1_launches_per_step"] == 1.0
 
 

@@ -252,6 +252,22 @@ def test_ptest_twin_prints_the_shm_row():
     assert all(r["speedup_vs_flat"] > 0 for r in rows[1:])
 
 
+def test_ptest_twin_runs_only_the_straggler_legs():
+    """``MPIT_BENCH_SKEW=only``: the straggler A/B at codec none (rebalance
+    off, then on), and no plain codec leg before it."""
+    env = dict(os.environ, MPIT_BENCH_DEVICE="cpu", MPIT_BENCH_MB="1",
+               MPIT_BENCH_ROUNDS="3", MPIT_BENCH_SKEW="only")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_ptest.py")],
+                          env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [(r.get("skew"), r.get("rebalance"), r["servers"]) for r in rows] == [
+        (1, 0, 2), (1, 1, 2)]
+    assert rows[0]["map_version"] == 0
+    assert all(r["codec"] == "none" and r["value"] > 0 and r["server_platforms"] == ["cpu"]
+               for r in rows)
+
+
 # -- one worker, bit for bit ----------------------------------------------------------
 
 

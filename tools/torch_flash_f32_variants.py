@@ -8,7 +8,7 @@ of its own under ``chiprun_out/flash_f32_variants/``, this checkout's
 flags), and for each prints and keeps:
 
 - ptxas's registers and spills of each K4 and K5 kernel;
-- the largest gap of the twin, the kernels and the scalar K6 to float64 at
+- the largest gap of the twin and the kernels (K4, K5 and K6) to float64 at
   ``lm_default``'s, ``lm_vs_cpu``'s and ``lm_longcontext``'s attention
   (``tools/torch_flash_f32.py``'s ``truth_gaps``);
 - ``chip_smoke.lm_gang_adam_vs_cpu``'s reading (the LM gang's three Adam
@@ -92,13 +92,7 @@ def build_variant(name, edits):
                 rec["registers"] = int(used.group(1))
             if spills:
                 rec["spill_bytes"] = int(spills.group(1)) + int(spills.group(2))
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    geo = [i32] * 6 + [f32, i32]
-    lib.mpit_fa_fwd_tf32.argtypes = [ptr] * 8 + geo + [i32, ptr]
-    lib.mpit_fa_bwd_fused_tf32.argtypes = [ptr] * 10 + geo + [ptr]
-    lib.mpit_fa_fwd_tf32.restype = lib.mpit_fa_bwd_fused_tf32.restype = ctypes.c_int
-    return lib, report
+    return fa._bind_tf32(ctypes.CDLL(str(lib_path))), report
 
 
 def adam_reading(kernels, smi):

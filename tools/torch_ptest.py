@@ -123,8 +123,8 @@ many readers each, one transport and one ``ReaderClient`` a reader):
   params bit for bit).  The workers run the flash kernels on the card (the
   JAX twin pins its jnp reference).
 
-``MPIT_BENCH_AGG=only`` / ``MPIT_BENCH_LM=only`` run that leg and nothing
-else.
+``MPIT_BENCH_SKEW``, ``_STREAM``, ``_AGG`` or ``_LM`` set to ``only`` runs
+the legs so set and nothing else.
 
 Prints one JSON line per codec:
 ``{"metric": "ps_pushpull_bandwidth_shm", "value": MB/s, "unit": "MB/s",
@@ -1642,13 +1642,18 @@ def bench_lm() -> list:
     return rows
 
 
+def bench_skew() -> list:
+    """The straggler A/B at codec none (the skew is in the replies)."""
+    return [bench_shm("none", skew_rebalance=rebalance) for rebalance in (False, True)]
+
+
 def main() -> None:
     refuse_later_legs()
-    only = {name: os.environ.get(f"MPIT_BENCH_{name}") == "only"
-            for name in ("STREAM", "AGG", "LM")}
-    if any(only.values()):
-        for name, bench in (("STREAM", bench_stream), ("AGG", bench_agg), ("LM", bench_lm)):
-            if only[name]:
+    benches = (("SKEW", bench_skew), ("STREAM", bench_stream), ("AGG", bench_agg),
+               ("LM", bench_lm))
+    if any(os.environ.get(f"MPIT_BENCH_{name}") == "only" for name, _ in benches):
+        for name, bench in benches:
+            if os.environ.get(f"MPIT_BENCH_{name}") == "only":
                 for row in bench():
                     print(json.dumps(row), flush=True)
         return
@@ -1663,9 +1668,8 @@ def main() -> None:
     if DECOMP_SWEEP:
         print(json.dumps(bench_shm("none", decomp=True)), flush=True)
     if SKEW_SWEEP:
-        # The straggler A/B at codec none (the skew is in the replies).
-        for rebalance in (False, True):
-            print(json.dumps(bench_shm("none", skew_rebalance=rebalance)), flush=True)
+        for row in bench_skew():
+            print(json.dumps(row), flush=True)
     if ELASTIC_SWEEP:
         for row in bench_elastic():
             print(json.dumps(row), flush=True)

@@ -11,8 +11,8 @@ Two modes, each through its entry point under the entry point's own
   long-context widths at context 8,192 or 32,768, one step per log window;
   the trace's ``window N`` ranges; ``--sp N --layout zigzag|contiguous``
   runs its attention as ring attention over N virtual ranks of the card,
-  and ``--attn_dtype float32`` its attention in float32 (the float32 K4
-  and K5 on the tensor cores) instead of bfloat16.
+  and ``--attn_dtype float32`` its attention in float32 (the float32 K4,
+  K5 and K6 on the tensor cores) instead of bfloat16.
 
 The first range is left out.  Each range ends when its losses reach the
 host, so its device work lies inside it.  Over the later ranges it
@@ -27,7 +27,8 @@ reports:
   K1 (``nesterov_commit``), K4 (``fa_fwd``), K5 (``fa_bwd_tc`` in
   bfloat16 or ``fa_bwd_tf32`` in float32, with its dQ reduction
   ``dq_reduce``), K6
-  (``fa_bwd_dq`` + ``fa_bwd_dkdv``, and their ``_tc`` kernels), the matrix
+  (``fa_bwd_dq`` + ``fa_bwd_dkdv``, their ``_tc`` kernels in bfloat16 and
+  ``_tf32`` kernels in float32), the matrix
   products (cuBLAS), the copies (layout transposes and casts among them)
   and the rest; for the LM also the peak of allocated device memory.
 
@@ -67,7 +68,7 @@ GROUPS = (
     ("k4", ("fa_fwd",)),  # fa_fwd_tc_kernel (bf16), fa_fwd_tf32_kernel (f32)
     # the sweeps (bf16 fa_bwd_tc_kernel, f32 fa_bwd_tf32_kernel) and their dQ sum
     ("k5", ("fa_bwd_fused", "fa_bwd_tc", "fa_bwd_tf32", "dq_reduce")),
-    ("k6", ("fa_bwd_dq", "fa_bwd_dkdv")),
+    ("k6", ("fa_bwd_dq", "fa_bwd_dkdv")),  # _tc (bf16), _tf32 (f32)
     ("matmul", ("gemm", "xmma", "cutlass")),
     ("copy", ("copy", "memcpy")),
 )
